@@ -45,3 +45,8 @@ def pytest_configure(config):
         "slow: minutes-long on the 8-device CPU mesh; excluded from the "
         "tier-1 pass (`-m 'not slow'`), run explicitly or on real hardware",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); skips "
+        "with a reason where torch.cuda.is_available() is false",
+    )
