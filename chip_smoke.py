@@ -1,31 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the repository root, on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, in order (any failure raises: the script exits non-zero and prints
-no result line):
+Two paths, each driven through its trainer's entry point with every kernel
+launch counter set to 0 just before and read just after: CIFAR-10
+ResNet-32 K-FAC training (slice 1) and transformer-LM K-FAC training with
+a K-FAC token embedding and flash attention (slice 2). Phases, in order
+(any failure raises: the script exits non-zero and prints no result line):
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``kfac_pytorch_tpu_torch/csrc/``
-   (one ``nvcc`` per source, all at once);
-3. hold each kernel against its plain PyTorch version on the inputs the
-   main path gives it (ResNet-32, batch 128, 32×32 images) and time, with
-   CUDA events, the kernel, the plain version and one PyTorch library call
-   for the same function (a yardstick only; the port never calls it);
-4. train ResNet-32 at its published widths on synthetic data through the
-   trainer's entry point (lr 0.1, momentum 0.9, wd 5e-4, stat-decay 0.95,
-   damping 0.003, kl-clip 0.001, cov-freq 1, kfac-update-freq 10) with the
-   kernels' launch counters zeroed just before and read just after; the
-   loss must be finite and falling and every counter above 0. The same
-   loop with ``--kfac-update-freq 0`` gives plain SGD's step time;
+2. build the five CUDA sources of ``kfac_pytorch_tpu_torch/csrc/`` (one
+   ``nvcc`` per source, all at once);
+3. hold each ResNet kernel against its plain PyTorch version on the inputs
+   the ResNet path gives it (batch 128, 32×32 images) and time, with CUDA
+   events, the kernel, the plain version and one PyTorch library call for
+   the same function (a yardstick only; the port never calls it);
+4. train ResNet-32 at its published widths on synthetic data (lr 0.1,
+   momentum 0.9, wd 5e-4, stat-decay 0.95, damping 0.003, kl-clip 0.001,
+   cov-freq 1, kfac-update-freq 10); the loss must be finite and falling
+   and every counter of the path above 0; ``--kfac-update-freq 0`` gives
+   plain SGD's step time;
 5. the same training with ``--factor-kernel dense --apply-kernel dense``
    (the oracle paths) must match the kernel run's first losses;
-6. print one ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+6. the LM kernels at the LM path's shapes (d_model 512, 8 heads of 64,
+   4 layers, T 2048, batch 4, vocab 1000): token counts bitwise, flash
+   forward within 2e-5 and its dQ and dK/dV within 1e-4 of the largest
+   plain entry, and the apply and SGD kernels at the transformer's shape
+   groups and leaves; timed as in phase 3;
+7. train the LM for 2 epochs (38 steps, eigen refreshes at steps 0, 10,
+   20, 30) through its trainer twin; the loss must be finite and falling
+   and every counter must equal what the run implies; one epoch with
+   ``--kfac-update-freq 0`` gives plain SGD's step time;
+8. the LM oracle path through the library API (exact attention,
+   ``factor_kernel="dense"``, ``apply_kernel="dense"``, the same seed and
+   batches) must match the kernel path's first 5 losses within 1e-3;
+9. print where the LM step's device time goes (``torch.profiler``:
+   kernel time by group over 10 K-FAC steps holding one eigen refresh,
+   and over 10 plain-SGD steps, with the device's idle share);
+10. print one ``{"kernels": [...]}`` line (seven kernels), then the last
+    line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,6 +62,17 @@ BATCH = 128
 STEPS = 30
 MODEL = "resnet32"
 TIMING_REPS = 20
+
+# The LM path: the embed-kfac configuration (d_model 512, 8 heads, 4 layers,
+# T 2048, batch 4, K-FAC token embedding) through the trainer twin, whose
+# other flags keep the JAX trainer's defaults.
+LM_ARGS = [
+    "--synthetic", "--d-model", "512", "--n-heads", "8", "--n-layers", "4",
+    "--seq-len", "2048", "--batch-size", "4", "--kfac-embedding",
+    "--seed", "0", "--device", "cuda",
+]
+LM_EPOCHS = 2
+ORACLE_STEPS = 5
 
 
 def _fail(msg: str) -> int:
@@ -149,7 +177,8 @@ def conv_a_phase(model, images):
 
 
 def apply_phase(model, device):
-    """Kernel 3 on every shape group of ResNet-32's K-FAC layers."""
+    """Kernel 3 on every shape group of ``model``'s K-FAC layers (diagonal-A
+    embeddings stay out of the groups, as on the main path)."""
     import torch
 
     from kfac_pytorch_tpu_torch import KFAC, capture
@@ -158,7 +187,7 @@ def apply_phase(model, device):
 
     kfac = KFAC(layers=capture.discover_layers(model), device=device)
     facs = kfac._identity_factors(model)
-    shapes = {n: (f["G"].shape[0], f["A"].shape[0]) for n, f in facs.items()}
+    shapes = {n: (f["G"].shape[0], f["A"].shape[0]) for n, f in facs.items() if "A" in f}
     gen = torch.Generator(device=device).manual_seed(0)
 
     def orth(k, n):
@@ -218,8 +247,8 @@ def apply_phase(model, device):
     }
 
 
-def sgd_phase(model, device):
-    """Kernel 4 over every parameter leaf of ResNet-32."""
+def sgd_phase(model, device, lr, mu, wd):
+    """Kernel 4 over every parameter leaf of ``model``."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
@@ -228,7 +257,6 @@ def sgd_phase(model, device):
     params = [p.detach().clone() for p in model.parameters()]
     grads = [torch.randn(p.shape, device=device, generator=gen) for p in params]
     trace = [torch.randn(p.shape, device=device, generator=gen) for p in params]
-    lr, mu, wd = 0.1, 0.9, 5e-4
     kp, km = [p.clone() for p in params], [m.clone() for m in trace]
     pp, pm = [p.clone() for p in params], [m.clone() for m in trace]
     ak.fused_sgd_apply(kp, grads, km, lr, mu, wd)
@@ -267,6 +295,291 @@ def sgd_phase(model, device):
     }
 
 
+def token_count_phase(ids, vocab):
+    """Kernel 2 on one LM batch's token ids: bitwise equal to its plain
+    version and to the scatter-add oracle."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.ops import factors
+
+    got = fk.compute_a_embed_fused(ids, vocab)
+    want = fk.compute_a_embed_fused_plain(ids, vocab)
+    if not (torch.equal(got, want) and torch.equal(got, factors.compute_a_embed(ids, vocab))):
+        raise AssertionError(
+            f"token-count kernel is not bitwise equal to its plain version: "
+            f"max |diff| {float((got - want).abs().max()):.3e}"
+        )
+    flat = ids.reshape(-1)
+    n = flat.numel()
+    b_ms, b_by = bound_ms([(ids.element_size() * n + 4 * vocab, n)])
+    return {
+        "name": "token_count (embedding diagonal A)",
+        "route": "cuda",
+        "source": "kfac_pytorch_tpu_torch/csrc/token_count.cu",
+        "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:471",
+        "unit": f"one capture step: {n} int64 ids, vocab {vocab} (the wrapper's "
+                "id-range check is one host sync)",
+        "max_abs_err": float((got - want).abs().max()),
+        "tolerance": "bitwise",
+        "ms": time_ms(lambda: fk.compute_a_embed_fused(ids, vocab)),
+        "plain_ms": time_ms(lambda: fk.compute_a_embed_fused_plain(ids, vocab)),
+        "library_ms": time_ms(lambda: torch.bincount(flat, minlength=vocab).float() / n),
+        "library": "torch.bincount(ids, minlength=V).float() / N",
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def flash_phase(device, b, t, h, d):
+    """Kernels 5, 6 and 7 at one LM layer's attention shapes: q, k, v are
+    strided views of a fused projection, as the model hands them over."""
+    import torch
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    qkv = torch.randn(b, t, 3 * h * d, device=device, generator=gen)
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, t, h, d, device=device, generator=gen)
+    out, lse = fa.flash_forward(q, k, v, True)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, True)
+    delta = (do * out_p).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = fa.flash_backward_dq(q, k, v, do, lse_p, delta, True)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True)
+    dq_p, dk_p, dv_p = fa.flash_backward_plain(q, k, v, do, lse_p, delta, True)
+    checks = {
+        "forward": ([(out, out_p), (lse, lse_p)], 2e-5),
+        "dq": ([(dq, dq_p)], 1e-4),
+        "dkv": ([(dk, dk_p), (dv, dv_p)], 1e-4),
+    }
+    errs = {}
+    for part, (pairs, tol) in checks.items():
+        worst = [scaled_err(g, w) for g, w in pairs]
+        errs[part] = (max(e for e, _ in worst), max(r for _, r in worst))
+        if not errs[part][1] <= tol:
+            raise AssertionError(
+                f"flash {part} kernel disagrees with its plain version: rel "
+                f"{errs[part][1]:.3e} > {tol}"
+            )
+
+    # the library yardstick, and a second oracle: SDPA in float32 on [B, H, T, D]
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_rel = scaled_err(out, lib_out.detach().transpose(1, 2))[1]
+    if not sdpa_rel <= 2e-5:
+        raise AssertionError(f"flash forward disagrees with SDPA: rel {sdpa_rel:.3e}")
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
+    plain_bwd_ms = time_ms(lambda: fa.flash_backward_plain(q, k, v, do, lse_p, delta, True))
+
+    n, r = b * t * h * d, b * h * t
+    tt = b * h * t * t * d  # causal: 2·tt FLOPs forward, 3·tt dQ, 4·tt dK/dV
+    unit = f"one layer: [{b}, {t}, {h}, {d}] causal"
+    base = {
+        "route": "cuda",
+        "source": "kfac_pytorch_tpu_torch/csrc/flash_attention.cu",
+        "unit": unit,
+    }
+    fwd_b = bound_ms([(4 * (4 * n + r), 2 * tt)])
+    dq_b = bound_ms([(4 * (5 * n + 2 * r), 3 * tt)])
+    dkv_b = bound_ms([(4 * (6 * n + 2 * r), 4 * tt)])
+    return [
+        {**base, "name": "flash_attention forward",
+         "replaces": "kfac_pytorch_tpu/ops/flash_attention.py:125",
+         "max_abs_err": errs["forward"][0], "max_rel_err": errs["forward"][1],
+         "tolerance": "|kernel - plain| <= 2e-5 * max|plain| (out and lse)",
+         "sdpa_max_rel_err": sdpa_rel,
+         "ms": time_ms(lambda: fa.flash_forward(q, k, v, True)),
+         "plain_ms": time_ms(lambda: fa.flash_forward_plain(q, k, v, True)),
+         "library_ms": lib_fwd_ms,
+         "library": "F.scaled_dot_product_attention(is_causal=True), float32",
+         "bound_ms": fwd_b[0], "bound_by": fwd_b[1]},
+        {**base, "name": "flash_attention backward dQ",
+         "replaces": "kfac_pytorch_tpu/ops/flash_attention.py:281",
+         "max_abs_err": errs["dq"][0], "max_rel_err": errs["dq"][1],
+         "tolerance": "|kernel - plain| <= 1e-4 * max|plain|",
+         "ms": time_ms(lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, True)),
+         "plain_ms": plain_bwd_ms,
+         "plain": "flash_backward_plain (dq, dk and dv together)",
+         "library_ms": lib_bwd_ms,
+         "library": "autograd backward of SDPA (dq, dk and dv together)",
+         "bound_ms": dq_b[0], "bound_by": dq_b[1]},
+        {**base, "name": "flash_attention backward dK/dV",
+         "replaces": "kfac_pytorch_tpu/ops/flash_attention.py:298",
+         "max_abs_err": errs["dkv"][0], "max_rel_err": errs["dkv"][1],
+         "tolerance": "|kernel - plain| <= 1e-4 * max|plain| (dk and dv)",
+         "ms": time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True)),
+         "plain_ms": plain_bwd_ms,
+         "plain": "flash_backward_plain (dq, dk and dv together)",
+         "library_ms": lib_bwd_ms,
+         "library": "autograd backward of SDPA (dq, dk and dv together)",
+         "bound_ms": dkv_b[0], "bound_by": dkv_b[1]},
+    ]
+
+
+def train_lm(extra):
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    return trainer.main([*LM_ARGS, *extra])
+
+
+def lm_setup(device, extra=(), oracle=False):
+    """The LM path through the library API (the twin's ``build``), with the
+    trainer's hyperparameters, seed and batches: ``(step_fn, state, kfac,
+    batches, args)``; ``oracle=True`` takes exact attention and the dense
+    factor and apply routes."""
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+
+    args = trainer.parse_args([*LM_ARGS, *extra])
+    _, kfac, state, step_fn, splits = trainer.build(args, device, oracle)
+    stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
+    batches = [trainer.device_batch(toks, tgts, device)
+               for toks, tgts in data_lib.bptt_batches(stream, args.seq_len)]
+    return step_fn, state, kfac, batches, args
+
+
+def lm_oracle_losses(device, steps):
+    """The LM path's first ``steps`` losses on the oracle path."""
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
+    step_fn, state, kfac, batches, args = lm_setup(device, oracle=True)
+    losses = []
+    for i, batch in zip(range(steps), batches):
+        state, m = step_fn(state, batch, args.base_lr, args.damping,
+                           **kfac_flags_for_step(i, kfac, 0))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+_KERNEL_GROUPS = (  # device kernel name fragment → what it is
+    ("flash_fwd", "flash forward (kernel 5)"),
+    ("flash_dq", "flash dQ (kernel 6)"),
+    ("flash_dkv", "flash dK/dV (kernel 7)"),
+    ("chain_gemm", "fused apply (kernel 3)"),
+    ("fused_sgd", "fused SGD (kernel 4)"),
+    ("token_hist", "token counts (kernel 2)"),
+    ("counts_to_freq", "token counts (kernel 2)"),
+    ("sytrd", "eigh (cuSOLVER)"),
+    ("syev", "eigh (cuSOLVER)"),
+    ("stedc", "eigh (cuSOLVER)"),
+    ("ormtr", "eigh (cuSOLVER)"),
+    ("orgtr", "eigh (cuSOLVER)"),
+    ("larf", "eigh (cuSOLVER)"),
+    ("gemm", "library GEMM (cuBLAS)"),
+    ("cutlass", "library GEMM (cuBLAS)"),
+    ("elementwise", "PyTorch elementwise"),
+    ("reduce_kernel", "PyTorch reductions"),
+)
+
+
+def profile_lm(device, steps=12, warmup=2):
+    """Device time by kernel over LM steps ``warmup..steps-1`` (K-FAC, whose
+    window holds one eigen refresh, then plain SGD), from
+    ``torch.profiler``; the busy share is the summed kernel time over the
+    window's wall time (one stream, so kernels do not overlap)."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
+    out = {}
+    for label, extra in (("kfac", ()), ("sgd", ("--kfac-update-freq", "0"))):
+        step_fn, state, kfac, batches, args = lm_setup(device, extra)
+        damping = args.damping if kfac is not None else 0.0
+
+        def run(i, state):
+            state, m = step_fn(state, batches[i], args.base_lr, damping,
+                               **kfac_flags_for_step(i, kfac, 0))
+            float(m["loss"])
+            return state
+
+        for i in range(warmup):
+            state = run(i, state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(warmup, steps):
+                state = run(i, state)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only (kernels, copies, memsets): the host ops
+        # that launched them carry the same time again
+        kernels = {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+        n = steps - warmup
+        groups, other = {}, {}
+        for name, ms in kernels.items():
+            group = next((g for frag, g in _KERNEL_GROUPS if frag in name.lower()), "other")
+            groups[group] = groups.get(group, 0.0) + ms / n
+            if group == "other":
+                other[name[:90]] = ms / n
+        busy = sum(kernels.values())
+        out[label] = {
+            "steps": n,
+            "wall_ms_per_step": wall_ms / n,
+            "device_ms_per_step": busy / n,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "by_group_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms_per_step": {
+                k[:90]: v / n for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+            },
+            "top_other_ms_per_step": dict(sorted(other.items(), key=lambda kv: -kv[1])[:8]),
+        }
+        del state, step_fn, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_expected_launches(hist, model):
+    """What the LM run implies for each counter: token counts on every capture
+    step; one apply launch per shape group and one SGD launch per step;
+    flash forward per layer on every train step and validation batch, its
+    two backward kernels per layer on every train step."""
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+
+    args = trainer.parse_args(LM_ARGS)
+    splits, _ = data_lib.synthetic_corpus(vocab_size=trainer.SYNTHETIC_VOCAB)
+    val = data_lib.batchify_tokens(splits["valid"], args.batch_size)
+    val_batches = len(list(data_lib.bptt_batches(val, args.seq_len))) * len(hist["val_loss"])
+    steps = len(hist["loss"])
+    captures = sum(k != "plain" for k in hist["kind"])
+    groups = len({(m.out_features, m.in_features + 1)
+                  for m in model.modules() if isinstance(m, KFACDense)})
+    layers = len(model.blocks)
+    return {
+        "token_count": captures,
+        "fused_apply": groups * steps,
+        "fused_sgd": steps,
+        "flash_forward": layers * (steps + val_batches),
+        "flash_dq": layers * steps,
+        "flash_dkv": layers * steps,
+    }
+
+
+def step_stats(hist, tokens_per_step):
+    ms = hist["step_ms"][1:]  # step 0 pays first-call set-up (cuSOLVER, caches)
+    kinds = hist["kind"][1:]
+    out = {"step0_ms": hist["step_ms"][0],
+           "per_s": tokens_per_step * len(ms) / (sum(ms) / 1e3),
+           "mean_ms": sum(ms) / len(ms)}
+    for kind in ("capture", "refresh", "plain"):
+        sel = [m for m, k in zip(ms, kinds) if k == kind]
+        if sel:
+            out[f"{kind}_ms_median"] = statistics.median(sel)
+    return out
+
+
 def train(extra):
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
@@ -285,10 +598,13 @@ def main() -> int:
         return _fail("CUDA is not available: the port's main path runs on an NVIDIA GPU")
     try:
         from kfac_pytorch_tpu_torch.device import use_ieee_f32
+        from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
         from kfac_pytorch_tpu_torch.models import cifar_resnet
         from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
         from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+        from kfac_pytorch_tpu_torch.ops import flash_attention as fa
         from kfac_pytorch_tpu_torch.ops import kernel_build
+        from kfac_pytorch_tpu_torch.training import data as data_lib
         from kfac_pytorch_tpu_torch.training.data import synthetic_batches
     except ImportError as e:
         return _fail(f"the port is not importable ({e}); run from the repository root")
@@ -304,56 +620,61 @@ def main() -> int:
 
     # 2. build
     secs = kernel_build.build_all()
-    print(f"build: {secs:.1f} s for {len(kernel_build.SIGNATURES)} kernels (nvcc, sm_90a)", flush=True)
+    print(f"build: {secs:.1f} s for {len(kernel_build.SIGNATURES)} sources (nvcc, sm_90a)", flush=True)
 
-    # 3. kernels against their plain versions, at the main path's shapes
+    def report(entries):
+        for k in entries:
+            print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e}, "
+                  f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
+                  f"bound {k['bound_ms']:.4f} by {k['bound_by']})", flush=True)
+
+    # 3. ResNet kernels against their plain versions, at the ResNet path's shapes
     model = cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)).to(device)
     xb, _ = next(synthetic_batches(BATCH, (3, 32, 32), 10, 1, seed=0))
     images = torch.from_numpy(xb).to(device)
-    kernels = [conv_a_phase(model, images), apply_phase(model, device), sgd_phase(model, device)]
-    for k in kernels:
-        print(f"kernel {k['name']}: max_rel_err {k['max_rel_err']:.3e}, "
-              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
-              f"bound {k['bound_ms']:.4f} by {k['bound_by']})", flush=True)
+    conv_a = conv_a_phase(model, images)
+    resnet_apply = apply_phase(model, device)
+    resnet_sgd = sgd_phase(model, device, 0.1, 0.9, 5e-4)
+    report([conv_a, resnet_apply, resnet_sgd])
+    del model
 
-    # 4. the main path through the trainer, counters zeroed just before
-    counted = (fk.compute_a_conv_fused, ak.fused_precondition_stack, ak.fused_sgd_apply)
-    for fn in counted:
+    # 4. the ResNet path through its trainer, counters zeroed just before
+    all_counted = (fk.compute_a_conv_fused, fk.compute_a_embed_fused,
+                   ak.fused_precondition_stack, ak.fused_sgd_apply, fa.flash_forward,
+                   fa.flash_backward_dq, fa.flash_backward_dkv)
+    for fn in all_counted:
         fn.launches = 0
     hist = train([])
-    launches = [fn.launches for fn in counted]
+    resnet_launches = {fn.__name__: fn.launches for fn in all_counted}
     losses = hist["loss"]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     if not last < first:
         raise AssertionError(f"loss did not fall: first-5 mean {first:.4f}, last-5 mean {last:.4f}")
-    for k, n in zip(kernels, launches):
+    for k, fn in ((conv_a, fk.compute_a_conv_fused), (resnet_apply, ak.fused_precondition_stack),
+                  (resnet_sgd, ak.fused_sgd_apply)):
+        n = resnet_launches[fn.__name__]
         if n <= 0:
-            raise AssertionError(f"{k['name']} was never launched on the main path")
+            raise AssertionError(f"{k['name']} was never launched on the ResNet path")
         k["launches"] = n
         k["launches_per_step"] = n / STEPS
-        k["kernel_ms"] = k["ms"]
     sgd = train(["--kfac-update-freq", "0"])
-    ms = hist["step_ms"][1:]  # step 0 pays first-call set-up (cuSOLVER, caches)
-    kinds = hist["kind"][1:]
-    capture_ms = statistics.median(m for m, k in zip(ms, kinds) if k == "capture")
-    refresh_ms = statistics.median(m for m, k in zip(ms, kinds) if k == "refresh")
-    sgd_ms = statistics.median(sgd["step_ms"][1:])
+    kfac_stats, sgd_stats = step_stats(hist, BATCH), step_stats(sgd, BATCH)
     print(json.dumps({
         "main_path": f"{MODEL} batch {BATCH}, {STEPS} steps, synthetic 32x32x3",
         "loss_first5": first, "loss_last5": last,
-        "step0_ms": hist["step_ms"][0],
-        "capture_step_ms_median": capture_ms,
-        "refresh_step_ms_median": refresh_ms,
-        "images_per_s": BATCH * len(ms) / (sum(ms) / 1e3),
-        "sgd_step_ms_median": sgd_ms,
-        "sgd_images_per_s": BATCH * len(sgd["step_ms"][1:]) / (sum(sgd["step_ms"][1:]) / 1e3),
-        "kfac_over_sgd_mean_step": (sum(ms) / len(ms)) / statistics.mean(sgd["step_ms"][1:]),
-        "launches": launches,
+        "step0_ms": kfac_stats["step0_ms"],
+        "capture_step_ms_median": kfac_stats["capture_ms_median"],
+        "refresh_step_ms_median": kfac_stats["refresh_ms_median"],
+        "images_per_s": kfac_stats["per_s"],
+        "sgd_step_ms_median": sgd_stats["plain_ms_median"],
+        "sgd_images_per_s": sgd_stats["per_s"],
+        "kfac_over_sgd_mean_step": kfac_stats["mean_ms"] / sgd_stats["mean_ms"],
+        "launches": resnet_launches,
     }), flush=True)
 
-    # 5. the kernel path against the oracle paths on the first steps
+    # 5. the ResNet kernel path against the oracle paths on the first steps
     dense = train(["--factor-kernel", "dense", "--apply-kernel", "dense"])
     for i in range(5):
         a, b = losses[i], dense["loss"][i]
@@ -362,7 +683,86 @@ def main() -> int:
     print(f"oracle paths: first 5 losses agree to 1e-3 relative "
           f"(max diff {max(abs(a - b) for a, b in zip(losses[:5], dense['loss'][:5])):.3e})", flush=True)
 
-    # 6. results
+    # 6. LM kernels against their plain versions, at the LM path's shapes
+    args = lm_trainer.parse_args(LM_ARGS)
+    splits, words = data_lib.synthetic_corpus(vocab_size=lm_trainer.SYNTHETIC_VOCAB)
+    toks, _ = next(data_lib.bptt_batches(
+        data_lib.batchify_tokens(splits["train"], args.batch_size), args.seq_len))
+    lm_model = lm_trainer.build(args, device)[0]
+    token_count = token_count_phase(lm_trainer.device_batch(toks, toks, device)[0], len(words))
+    flash = flash_phase(device, args.batch_size, args.seq_len, args.n_heads,
+                        args.d_model // args.n_heads)
+    lm_apply = apply_phase(lm_model, device)
+    lm_sgd = sgd_phase(lm_model, device, args.base_lr, args.momentum, args.wd)
+    report([token_count, *flash, lm_apply, lm_sgd])
+
+    # 7. the LM path through its trainer twin, counters zeroed just before
+    for fn in all_counted:
+        fn.launches = 0
+    lm_hist = train_lm(["--epochs", str(LM_EPOCHS)])
+    lm_launches = {fn.__name__: fn.launches for fn in all_counted}
+    lm_losses = lm_hist["loss"]
+    if not all(math.isfinite(v) for v in lm_losses + lm_hist["val_loss"]):
+        raise AssertionError(f"non-finite LM loss: {lm_losses} {lm_hist['val_loss']}")
+    lm_first, lm_last = statistics.mean(lm_losses[:5]), statistics.mean(lm_losses[-5:])
+    if not lm_last < lm_first:
+        raise AssertionError(f"LM loss did not fall: first-5 mean {lm_first:.4f}, last-5 mean {lm_last:.4f}")
+    expected = lm_expected_launches(lm_hist, lm_model)
+    lm_kernels = {
+        "token_count": (token_count, fk.compute_a_embed_fused),
+        "fused_apply": (lm_apply, ak.fused_precondition_stack),
+        "fused_sgd": (lm_sgd, ak.fused_sgd_apply),
+        "flash_forward": (flash[0], fa.flash_forward),
+        "flash_dq": (flash[1], fa.flash_backward_dq),
+        "flash_dkv": (flash[2], fa.flash_backward_dkv),
+    }
+    lm_steps = len(lm_losses)
+    for key, (k, fn) in lm_kernels.items():
+        n = lm_launches[fn.__name__]
+        if n <= 0 or n != expected[key]:
+            raise AssertionError(
+                f"{k['name']}: {n} launches on the LM path, the run implies {expected[key]}"
+            )
+        k["launches"] = n
+        k["launches_per_step"] = n / lm_steps
+    if lm_launches["compute_a_conv_fused"]:
+        raise AssertionError("the conv A kernel ran on the LM path, which has no conv")
+    lm_sgd_hist = train_lm(["--epochs", "1", "--kfac-update-freq", "0"])
+    tokens = args.batch_size * args.seq_len
+    lm_stats, lm_sgd_stats = step_stats(lm_hist, tokens), step_stats(lm_sgd_hist, tokens)
+    print(json.dumps({
+        "lm_path": (f"transformer LM d{args.d_model} h{args.n_heads} L{args.n_layers} "
+                    f"T{args.seq_len} B{args.batch_size}, vocab {len(words)}, "
+                    f"--kfac-embedding, {lm_steps} steps"),
+        "loss_first5": lm_first, "loss_last5": lm_last, "val_loss": lm_hist["val_loss"],
+        "step0_ms": lm_stats["step0_ms"],
+        "capture_step_ms_median": lm_stats["capture_ms_median"],
+        "refresh_step_ms_median": lm_stats["refresh_ms_median"],
+        "tokens_per_s": lm_stats["per_s"],
+        "sgd_step_ms_median": lm_sgd_stats["plain_ms_median"],
+        "sgd_tokens_per_s": lm_sgd_stats["per_s"],
+        "kfac_over_sgd_mean_step": lm_stats["mean_ms"] / lm_sgd_stats["mean_ms"],
+        "launches": lm_launches,
+        "expected_launches": expected,
+    }), flush=True)
+
+    # 8. the LM kernel path against the oracle path on the first steps
+    del lm_model
+    oracle = lm_oracle_losses(device, ORACLE_STEPS)
+    for i, (a, b) in enumerate(zip(lm_losses, oracle)):
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"LM step {i}: kernel-path loss {a} vs oracle-path loss {b}")
+    print(f"LM oracle path: first {ORACLE_STEPS} losses agree to 1e-3 relative "
+          f"(max diff {max(abs(a - b) for a, b in zip(lm_losses, oracle)):.3e})", flush=True)
+
+    # 9. where the LM step's device time goes
+    print(json.dumps({"lm_profile": profile_lm(device)}), flush=True)
+
+    # 10. results: kernels 3 and 4 run on both paths; their top-level numbers
+    # are the LM path's, the ResNet path's sit beside them
+    lm_apply["resnet32"] = resnet_apply
+    lm_sgd["resnet32"] = resnet_sgd
+    kernels = [conv_a, token_count, lm_apply, lm_sgd, *flash]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,13 +1,14 @@
 """Per-layer K-FAC statistics through module hooks.
 
-Port of the conv/dense subset of ``kfac_pytorch_tpu/capture.py``. The JAX
-package computes statistics inside its layers because JAX has no hooks;
-the reference it ports kept ``m_a``/``m_g`` hook dicts, and so does this
-module:
+Port of the conv/dense/embedding subset of ``kfac_pytorch_tpu/capture.py``.
+The JAX package computes statistics inside its layers because JAX has no
+hooks; the reference it ports kept ``m_a``/``m_g`` hook dicts, and so does
+this module:
 
 * forward hook — on capture steps only, under ``no_grad``, the layer's
-  input gives its A-factor contribution (conv layers through the
-  factor-kernel dispatcher, ``ops/factor_kernels.py``);
+  input gives its A-factor contribution (conv layers and embeddings through
+  the factor-kernel dispatchers, ``ops/factor_kernels.py``; an embedding's
+  A is the ``[vocab]`` diagonal of its token ids' frequencies);
 * a hook on the layer's output tensor — the gradient of the loss with
   respect to the output gives the G factor.
 
@@ -20,15 +21,15 @@ from __future__ import annotations
 
 import contextlib
 from functools import partial
-from typing import Dict, List, Optional
+from typing import Collection, Dict, List, Optional
 
 import torch
 import torch.nn as nn
 
-from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense
+from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense, KFACEmbed
 from kfac_pytorch_tpu_torch.ops import factor_kernels, factors
 
-KFAC_LAYERS = (KFACConv, KFACDense)
+KFAC_LAYERS = (KFACConv, KFACDense, KFACEmbed)
 
 
 def discover_layers(model: nn.Module) -> List[str]:
@@ -80,10 +81,14 @@ class Capture:
         if self._kind is None:
             return
         with torch.no_grad():
-            x = inputs[0].detach().float()
-            if isinstance(module, KFACConv):
+            x = inputs[0].detach()
+            if isinstance(module, KFACEmbed):
+                a = factor_kernels.dispatch_compute_a_embed(
+                    x, module.num_embeddings, kind=self._kind
+                )
+            elif isinstance(module, KFACConv):
                 a = factor_kernels.dispatch_compute_a_conv(
-                    x,
+                    x.float(),
                     module.kernel_size,
                     module.stride,
                     module.factor_padding(),
@@ -92,7 +97,7 @@ class Capture:
                     kind=self._kind,
                 )
             else:
-                a = factors.compute_a_dense(x, module.bias is not None)
+                a = factors.compute_a_dense(x.float(), module.bias is not None)
         self.a_contribs[name] = a
         if output.requires_grad:
             output.register_hook(
@@ -110,12 +115,18 @@ class Capture:
 
 
 def layer_grads(
-    grads: Dict[str, torch.Tensor], names: List[str]
+    grads: Dict[str, torch.Tensor],
+    names: List[str],
+    embeddings: Collection[str] = (),
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{layer: {'weight': ..., 'bias'?: ...}}`` from a by-parameter-name
-    gradient dict (``{n: p.grad for n, p in model.named_parameters()}``)."""
+    gradient dict (``{n: p.grad for n, p in model.named_parameters()}``);
+    layers in ``embeddings`` give ``{'embedding': [vocab, d] table grad}``."""
     out = {}
     for name in names:
+        if name in embeddings:
+            out[name] = {"embedding": grads[f"{name}.weight"]}
+            continue
         entry = {"weight": grads[f"{name}.weight"]}
         if f"{name}.bias" in grads:
             entry["bias"] = grads[f"{name}.bias"]
@@ -134,12 +145,18 @@ def write_back(
     grads: Dict[str, torch.Tensor],
     updates: Dict[str, torch.Tensor],
     nu: torch.Tensor,
+    embeddings: Collection[str] = (),
 ) -> Dict[str, torch.Tensor]:
     """A new gradient dict with every K-FAC layer's ν-scaled preconditioned
-    matrix scattered back; other entries (BatchNorm) pass through untouched."""
+    matrix scattered back (an embedding's ``[d, vocab]`` matrix back to its
+    ``[vocab, d]`` table); other entries (BatchNorm, LayerNorm, position
+    embeddings) pass through untouched."""
     out = dict(grads)
     for name, mat in updates.items():
         weight = grads[f"{name}.weight"]
+        if name in embeddings:
+            out[f"{name}.weight"] = (mat * nu).T.contiguous().to(weight.dtype)
+            continue
         has_bias = f"{name}.bias" in grads
         new = factors.mat_to_grads(mat * nu, weight.shape, has_bias)
         out[f"{name}.weight"] = new["weight"].to(weight.dtype)

@@ -1,0 +1,257 @@
+"""Transformer-LM training with K-FAC on one GPU (PyTorch port).
+
+Twin of the JAX package's ``examples/train_transformer_lm.py`` for one
+device: the same flags with the same defaults for what this slice carries
+(model widths, SGD with global-norm clipping, K-FAC with an optional
+diagonal-A token embedding), the same synthetic corpus, BPTT segments,
+K-FAC gating and per-epoch validation loss. Every other flag of the JAX
+trainer is accepted with its default and, set to anything else, raises
+``SystemExit`` naming the ROADMAP item that ports it.
+
+    python -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
+        --synthetic --d-model 512 --n-heads 8 --n-layers 4 --seq-len 2048 \\
+        --batch-size 4 --kfac-embedding --epochs 2
+
+Attention runs the CUDA flash kernels on a GPU
+(``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
+``--device cpu`` is given, and raises when CUDA is asked for and absent.
+``main()`` returns the per-step history (loss, step kind, wall
+milliseconds measured around a synchronized step) and the per-epoch
+validation loss.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
+from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.models import transformer_lm
+from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
+from kfac_pytorch_tpu_torch.parallel.context import full_attention
+from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training.step import (
+    TrainState,
+    kfac_flags_for_step,
+    make_eval_step,
+    make_sgd,
+    make_train_step,
+)
+
+SYNTHETIC_VOCAB = 1000
+
+# Flags of the JAX trainer this slice does not carry: (flag, type, default,
+# ROADMAP queue-1 item that ports it). Store-true flags have type None.
+_LATER_FLAGS = (
+    ("--data-dir", str, None, "8 (WikiText data)"),
+    ("--log-dir", str, "./logs", "4 (training/metrics.py)"),
+    ("--checkpoint-dir", str, None, "4 (training/checkpoint.py)"),
+    ("--preempt-save-dir", str, None, "9 (elastic/)"),
+    ("--snapshot-every", int, 0, "9 (elastic/)"),
+    ("--seq-parallel", int, 1, "8 (sequence parallelism)"),
+    ("--tensor-parallel", int, 1, "8 (shardwise/)"),
+    ("--fsdp", int, 0, "8 (shardwise/)"),
+    ("--moe-experts", int, 0, "8 (shardwise/)"),
+    ("--attention", str, "ring", "8 (sequence parallelism)"),
+    ("--remat", None, False, "8"),
+    ("--qkv-lens", None, False, "8 (expand lens)"),
+    ("--tie-embeddings", None, False, "8 (tied head)"),
+    ("--eigh-chunks", int, 1, "7 (refresh scheduling)"),
+    ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
+    ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
+    ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
+    ("--factor-sharding", str, "replicated", "7 (owner sharding)"),
+    ("--solver", str, "eigh", "7 (solvers)"),
+    ("--solver-rank", int, 128, "7 (solvers)"),
+    ("--solver-auto-threshold", int, 512, "7 (solvers)"),
+    ("--stream-drift-threshold", float, 0.05, "7 (solvers)"),
+    ("--comm-overlap", None, False, "7 (overlap plane)"),
+    ("--staleness-budget", int, 0, "7 (refresh scheduling)"),
+    ("--service-devices", int, 0, "9 (service/)"),
+    ("--profile", str, None, "9 (planner/)"),
+    ("--autotune-steps", int, 0, "9 (planner/)"),
+    ("--profile-epoch", int, None, "9 (observability/)"),
+    ("--telemetry-dir", str, None, "9 (observability/)"),
+    ("--kfac-diagnostics", None, False, "4 (track_diagnostics)"),
+)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Transformer-LM K-FAC Example (PyTorch/CUDA port)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--d-model", type=int, default=256)
+    p.add_argument("--n-heads", type=int, default=4)
+    p.add_argument("--n-layers", type=int, default=2)
+    p.add_argument("--seq-len", type=int, default=128, help="tokens per sample")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--base-lr", type=float, default=0.01)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--wd", type=float, default=1e-5)
+    p.add_argument("--grad-clip", type=float, default=0.25)
+    p.add_argument("--kfac-embedding", action="store_true",
+                   help="precondition the token embedding too (diagonal-A "
+                        "K-FAC); its token counts run the CUDA token-count "
+                        "kernel on a GPU")
+    p.add_argument("--kfac-update-freq", type=int, default=10, help="0 disables K-FAC")
+    p.add_argument("--kfac-cov-update-freq", type=int, default=1)
+    p.add_argument("--stat-decay", type=float, default=0.95)
+    p.add_argument("--damping", type=float, default=0.003)
+    p.add_argument("--damping-alpha", type=float, default=0.5)
+    p.add_argument("--damping-schedule", nargs="+", type=int, default=None)
+    p.add_argument("--kl-clip", type=float, default=0.001)
+    p.add_argument("--apply-kernel", default="auto", choices=["auto", "kernel", "dense"],
+                   help="preconditioned apply + SGD: kernel = the fused CUDA "
+                        "kernels, dense = matmul-chain + per-leaf SGD oracle, "
+                        "auto = the kernels on CUDA tensors")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for flag, kind, default, _ in _LATER_FLAGS:
+        if kind is None:
+            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    for flag, _, default, item in _LATER_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            raise SystemExit(
+                f"{flag} is not ported to the PyTorch trainer yet (ROADMAP "
+                f"queue 1 item {item})"
+            )
+    return args
+
+
+def device_batch(toks: np.ndarray, tgts: np.ndarray, device: torch.device):
+    """One ``(tokens, targets)`` segment as int64 tensors on ``device``."""
+    return (
+        torch.from_numpy(toks.astype(np.int64)).to(device),
+        torch.from_numpy(tgts.astype(np.int64)).to(device),
+    )
+
+
+def build(args, device: torch.device, oracle: bool = False):
+    """``(model, kfac, state, train_step, splits)`` for parsed ``args`` on
+    ``device``: the model, the preconditioner (``None`` at
+    ``--kfac-update-freq 0``), the train state, the train step and the
+    synthetic corpus. ``oracle=True`` builds the oracle path instead —
+    exact attention and the dense factor and apply routes — which the JAX
+    trainer has no flag for."""
+    splits, words = data_lib.synthetic_corpus(vocab_size=SYNTHETIC_VOCAB)
+    model = transformer_lm.get_model(
+        len(words), max_len=args.seq_len, d_model=args.d_model,
+        n_heads=args.n_heads, n_layers=args.n_layers,
+        attention_fn=full_attention if oracle else best_attention_fn(device),
+        kfac_embedding=args.kfac_embedding,
+        generator=torch.Generator().manual_seed(args.seed),
+    ).to(device)
+    tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
+    kfac = None
+    if args.kfac_update_freq > 0:
+        kfac = KFAC(
+            layers=capture.discover_layers(model),
+            factor_decay=args.stat_decay,
+            damping=args.damping,
+            kl_clip=args.kl_clip,
+            fac_update_freq=args.kfac_cov_update_freq,
+            kfac_update_freq=args.kfac_update_freq,
+            factor_kernel="dense" if oracle else "auto",
+            apply_kernel="dense" if oracle else args.apply_kernel,
+            device=device,
+        )
+    state = TrainState(
+        step=0,
+        model=model,
+        opt_state=tx.init(dict(model.named_parameters())),
+        kfac_state=kfac.init(model) if kfac else None,
+    )
+    train_step = make_train_step(
+        model, tx, kfac,
+        # tx IS make_sgd(momentum, wd): with K-FAC the optimizer step runs
+        # through the fused SGD kernel
+        sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
+        grad_clip=args.grad_clip,
+    )
+    return model, kfac, state, train_step, splits
+
+
+def main(argv=None) -> Dict[str, List]:
+    args = parse_args(argv)
+    if not args.synthetic:
+        raise SystemExit(
+            "only --synthetic data is ported so far (WikiText loading is "
+            "ROADMAP queue 1 item 8)"
+        )
+    device = resolve_device(args.device)
+    use_ieee_f32()
+    model, kfac, state, train_step, splits = build(args, device)
+    kfac_sched = None
+    if kfac is not None and args.damping_schedule:
+        kfac_sched = KFACParamScheduler(
+            kfac, damping_alpha=args.damping_alpha,
+            damping_schedule=args.damping_schedule,
+        )
+    eval_step = make_eval_step(model)
+
+    # [batch, N] contiguous streams; segments of seq_len become samples
+    stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
+    max_steps = (stream.shape[1] - 1) // args.seq_len
+    steps_per_epoch = min(args.steps_per_epoch or max_steps, max_steps)
+
+    history: Dict[str, List] = {"loss": [], "kind": [], "step_ms": [], "val_loss": []}
+    step = 0
+    for epoch in range(args.epochs):
+        if kfac_sched:
+            kfac_sched.step(epoch=epoch)
+        t0 = time.perf_counter()
+        losses = []
+        for i, (toks, tgts) in enumerate(data_lib.bptt_batches(stream, args.seq_len)):
+            if i >= steps_per_epoch:
+                break
+            flags = kfac_flags_for_step(step, kfac, epoch)
+            batch = device_batch(toks, tgts, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ts = time.perf_counter()
+            state, metrics = train_step(
+                state, batch, args.base_lr,
+                kfac.hparams.damping if kfac else 0.0, **flags,
+            )
+            loss = float(metrics["loss"])  # waits for the step
+            history["step_ms"].append((time.perf_counter() - ts) * 1e3)
+            history["loss"].append(loss)
+            history["kind"].append(
+                "refresh" if flags.get("update_eigen")
+                else "capture" if flags.get("update_factors") else "plain"
+            )
+            losses.append(loss)
+            step += 1
+        dt = time.perf_counter() - t0
+        mean = sum(losses) / len(losses)
+        print(
+            f"epoch {epoch}: loss={mean:.4f} ppl={math.exp(min(mean, 20.0)):.1f} "
+            f"{steps_per_epoch * args.batch_size * args.seq_len / dt:.0f} tok/s ({dt:.1f}s)"
+        )
+        val = data_lib.batchify_tokens(splits["valid"], args.batch_size)
+        vl = [
+            float(eval_step(state, device_batch(toks, tgts, device))["loss"])
+            for toks, tgts in data_lib.bptt_batches(val, args.seq_len)
+        ]
+        if vl:
+            v = sum(vl) / len(vl)
+            history["val_loss"].append(v)
+            print(f"  val: loss={v:.4f} ppl={math.exp(min(v, 20.0)):.1f}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

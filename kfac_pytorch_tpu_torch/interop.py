@@ -1,14 +1,20 @@
-"""Carry CIFAR ResNet weights from the JAX package's trees to the port.
+"""Carry weights from the JAX package's trees to the port.
 
-The inverse of ``kfac_pytorch_tpu/torch_interop.py::convert_cifar_state_dict``
-(which this module does not import): numpy ``params`` / ``batch_stats``
-trees of the flax ``CifarResNet`` become the port's ``state_dict``:
+:func:`state_dict_from_jax` is the inverse of
+``kfac_pytorch_tpu/torch_interop.py::convert_cifar_state_dict`` (which
+this module does not import): numpy ``params`` / ``batch_stats`` trees of
+the flax ``CifarResNet`` become the port's ``state_dict``:
 
 * ``BasicBlock_{b}`` → ``layer{s}.{i}`` (b = s·n + i, same traversal order),
   ``KFACConv_{j}`` / ``BatchNorm_{j}`` → ``conv{j+1}`` / ``bn{j+1}``;
 * conv kernels HWIO → OIHW, the dense kernel ``[in, out]`` → ``[out, in]``;
 * BatchNorm ``scale`` → ``weight``, ``mean``/``var`` → ``running_mean``/
   ``running_var``, plus a zero ``num_batches_tracked``.
+
+:func:`lm_state_dict_from_jax` does the same for the flax ``TransformerLM``
+(``models/transformer_lm.py``): ``block_{i}`` → ``blocks.{i}``, ``Dense``
+kernels ``[in, out]`` → ``[out, in]``, ``Embed``/``KFACEmbed`` tables
+unchanged, LayerNorm ``scale`` → ``weight``. Both copy values bit for bit.
 """
 
 from __future__ import annotations
@@ -31,9 +37,18 @@ def _conv(kernel) -> torch.Tensor:
     return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
 
 
-def _put_bn(sd, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+def _put_dense(sd, prefix: str, p: Dict[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _put_ln(sd, prefix: str, p: Dict[str, Any]) -> None:
     sd[f"{prefix}.weight"] = _t(p["scale"])
     sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _put_bn(sd, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> None:
+    _put_ln(sd, prefix, p)
     sd[f"{prefix}.running_mean"] = _t(s["mean"])
     sd[f"{prefix}.running_var"] = _t(s["var"])
     sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
@@ -61,6 +76,26 @@ def state_dict_from_jax(
             for j in (1, 2):
                 sd[f"{tp}.conv{j}.weight"] = _conv(fp[f"KFACConv_{j - 1}"]["kernel"])
                 _put_bn(sd, f"{tp}.bn{j}", fp[f"BatchNorm_{j - 1}"], fs[f"BatchNorm_{j - 1}"])
-    sd["linear.weight"] = _t(np.asarray(params["KFACDense_0"]["kernel"]).T)
-    sd["linear.bias"] = _t(params["KFACDense_0"]["bias"])
+    _put_dense(sd, "linear", params["KFACDense_0"])
+    return sd
+
+
+def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """JAX transformer-LM ``params`` → the port's ``TransformerLM`` state_dict
+    (the dense-MLP, untied subset the port models)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["tok_embed.weight"] = _t(params["tok_embed"]["embedding"])
+    sd["pos_embed.weight"] = _t(params["pos_embed"]["embedding"])
+    i = 0
+    while f"block_{i}" in params:
+        bp, prefix = params[f"block_{i}"], f"blocks.{i}"
+        _put_ln(sd, f"{prefix}.ln_attn", bp["ln_attn"])
+        _put_dense(sd, f"{prefix}.qkv", bp["qkv"])
+        _put_dense(sd, f"{prefix}.out", bp["out"])
+        _put_ln(sd, f"{prefix}.ln_mlp", bp["ln_mlp"])
+        _put_dense(sd, f"{prefix}.ff1", bp["ff1"])
+        _put_dense(sd, f"{prefix}.ff2", bp["ff2"])
+        i += 1
+    _put_ln(sd, "ln_f", params["ln_f"])
+    _put_dense(sd, "decoder", params["decoder"])
     return sd

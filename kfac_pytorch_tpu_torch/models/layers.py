@@ -1,7 +1,8 @@
-"""K-FAC-aware layers: ``nn.Conv2d`` / ``nn.Linear`` subclasses.
+"""K-FAC-aware layers: ``nn.Conv2d`` / ``nn.Linear`` / ``nn.Embedding``
+subclasses.
 
-Port of ``KFACConv`` and ``KFACDense`` from ``kfac_pytorch_tpu/models/
-layers.py``. The JAX layers compute and ``sow`` their own statistics
+Port of ``KFACConv``, ``KFACDense`` and ``KFACEmbed`` from
+``kfac_pytorch_tpu/models/layers.py``. The JAX layers compute and ``sow`` their own statistics
 because JAX has no hooks; here the layers are plain PyTorch modules that
 mark themselves as preconditionable, and ``capture.py`` attaches forward
 and backward hooks to them — the reference's own design. Grouped convs
@@ -40,3 +41,23 @@ class KFACConv(nn.Conv2d):
 
 class KFACDense(nn.Linear):
     """Dense layer (``y = x Wᵀ + b``) that K-FAC preconditions."""
+
+
+class KFACEmbed(nn.Embedding):
+    """Embedding lookup (``y = weight[ids]``) that K-FAC preconditions.
+
+    A lookup is a dense layer over one-hot rows, so its A factor is the
+    diagonal of token frequencies, a ``[vocab]`` vector
+    (``ops/factors.py::compute_a_embed``), and its eigenbasis is the
+    identity: embedding K-FAC costs one ``[d, d]`` G factor plus elementwise
+    work on the vocab axis. The tied decoder head (``attend``) is a later
+    slice (ROADMAP queue 1 item 8).
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.padding_idx is not None or self.max_norm is not None or self.sparse:
+            raise NotImplementedError(
+                "KFACEmbed supports plain lookups only (no padding_idx, "
+                "max_norm or sparse gradients)"
+            )

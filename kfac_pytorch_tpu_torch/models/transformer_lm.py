@@ -1,0 +1,177 @@
+"""Decoder-only transformer LM with K-FAC layers and pluggable attention.
+
+Port of ``kfac_pytorch_tpu/models/transformer_lm.py`` (``TransformerBlock``,
+``TransformerLM``, ``get_model``) for the dense-MLP, untied, no-lens,
+no-remat subset, with the flax model's module names (``tok_embed``,
+``pos_embed``, ``blocks.{i}`` for ``block_{i}``, ``ln_attn``, ``qkv``,
+``out``, ``ln_mlp``, ``ff1``, ``ff2``, ``ln_f``, ``decoder``), so
+``interop.lm_state_dict_from_jax`` maps one tree onto the other. The flax
+semantics it keeps:
+
+* LayerNorm epsilon 1e-6 (flax's default; PyTorch's is 1e-5);
+* GELU is the tanh approximation (``flax.linen.gelu``'s default);
+* position embeddings are a plain, SGD-trained embedding over
+  ``arange(T)``; the token embedding is a ``KFACEmbed`` with
+  ``kfac_embedding=True``;
+* every projection and the decoder head are ``KFACDense`` with bias.
+
+``attention_fn(q, k, v, causal=True)`` takes ``[B, T, H, D]`` tensors:
+``ops.flash_attention.best_attention_fn(device)`` picks the CUDA flash
+kernels on a GPU; ``parallel.context.full_attention`` is the exact oracle.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from kfac_pytorch_tpu_torch.models.layers import KFACDense, KFACEmbed
+from kfac_pytorch_tpu_torch.parallel.context import full_attention
+
+AttentionFn = Callable[..., torch.Tensor]  # (q, k, v, causal=...) -> out
+
+LN_EPS = 1e-6
+
+
+def _refuse_later_options(**opts) -> None:
+    """Options of the JAX model that a later slice ports."""
+    names = {
+        "dropout": "dropout > 0",
+        "qkv_lens": "qkv_lens (expand lens)",
+        "tie_embeddings": "tie_embeddings (tied head, reduce lens)",
+        "remat": "remat",
+        "tensor_parallel": "tensor_parallel > 1 (shardwise)",
+        "moe_experts": "moe_experts > 0 (shardwise MoE)",
+    }
+    for key, set_ in opts.items():
+        if set_:
+            raise NotImplementedError(
+                f"{names[key]} is not ported to kfac_pytorch_tpu_torch yet "
+                "(ROADMAP queue 1 item 8)"
+            )
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block: attention and MLP residuals, all projections K-FAC layers."""
+
+    def __init__(
+        self,
+        d_model: int,
+        n_heads: int,
+        d_ff: int,
+        attention_fn: AttentionFn = full_attention,
+    ):
+        super().__init__()
+        self.d_model, self.n_heads = d_model, n_heads
+        self.attention_fn = attention_fn
+        self.ln_attn = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.qkv = KFACDense(d_model, 3 * d_model)
+        self.out = KFACDense(d_model, d_model)
+        self.ln_mlp = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ff1 = KFACDense(d_model, d_ff)
+        self.ff2 = KFACDense(d_ff, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, _ = x.shape
+        shape = (b, t, self.n_heads, self.d_model // self.n_heads)
+        # q, k, v stay strided views of the fused projection: the flash
+        # kernels read them through their strides
+        q, k, v = self.qkv(self.ln_attn(x)).split(self.d_model, dim=-1)
+        a = self.attention_fn(q.reshape(shape), k.reshape(shape), v.reshape(shape), causal=True)
+        x = x + self.out(a.reshape(b, t, self.d_model))
+        f = self.ff2(F.gelu(self.ff1(self.ln_mlp(x)), approximate="tanh"))
+        return x + f
+
+
+class TransformerLM(nn.Module):
+    """Token + learned-position embeddings → N blocks → LN → K-FAC decoder."""
+
+    def __init__(
+        self,
+        vocab_size: int,
+        max_len: int = 512,
+        d_model: int = 256,
+        n_heads: int = 4,
+        n_layers: int = 2,
+        d_ff: Optional[int] = None,
+        attention_fn: AttentionFn = full_attention,
+        kfac_embedding: bool = False,
+    ):
+        super().__init__()
+        if d_model % n_heads:
+            raise ValueError("d_model must be divisible by n_heads")
+        self.max_len = max_len
+        embed_cls = KFACEmbed if kfac_embedding else nn.Embedding
+        self.tok_embed = embed_cls(vocab_size, d_model)
+        self.pos_embed = nn.Embedding(max_len, d_model)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(d_model, n_heads, d_ff or 4 * d_model, attention_fn)
+            for _ in range(n_layers)
+        )
+        self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.decoder = KFACDense(d_model, vocab_size)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        t = tokens.shape[1]
+        if t > self.max_len:
+            raise ValueError(
+                f"sequence length {t} exceeds max_len {self.max_len}"
+            )
+        x = self.tok_embed(tokens) + self.pos_embed(
+            torch.arange(t, device=tokens.device)
+        )[None]
+        for block in self.blocks:
+            x = block(x)
+        return self.decoder(self.ln_f(x))
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's initializers, drawn from ``generator`` on the CPU: lecun-normal
+    projections (truncated at ±2σ, variance 1/fan_in) with zero biases,
+    normal(0, 1/d) embeddings, unit LayerNorm scales."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, 0.0, m.embedding_dim ** -0.5, generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+def get_model(
+    vocab_size: int,
+    max_len: int = 512,
+    d_model: int = 256,
+    n_heads: int = 4,
+    n_layers: int = 2,
+    attention_fn: AttentionFn = full_attention,
+    dropout: float = 0.0,
+    kfac_embedding: bool = False,
+    qkv_lens: bool = False,
+    tie_embeddings: bool = False,
+    remat: bool = False,
+    tensor_parallel: int = 1,
+    moe_experts: int = 0,
+    generator: Optional[torch.Generator] = None,
+) -> TransformerLM:
+    """Factory with the JAX factory's arguments, built on the CPU from
+    ``generator`` (seed 0 when none is given). Options of later slices
+    raise ``NotImplementedError``."""
+    _refuse_later_options(
+        dropout=dropout != 0.0, qkv_lens=qkv_lens, tie_embeddings=tie_embeddings,
+        remat=remat, tensor_parallel=tensor_parallel != 1, moe_experts=moe_experts != 0,
+    )
+    model = TransformerLM(
+        vocab_size, max_len=max_len, d_model=d_model, n_heads=n_heads,
+        n_layers=n_layers, attention_fn=attention_fn, kfac_embedding=kfac_embedding,
+    )
+    init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    return model

@@ -1,25 +1,30 @@
-"""Conv A factors without im2col: the CUDA patch-covariance kernel.
+"""Factor-statistics kernels: conv A without im2col, embedding token counts.
 
-Port of ``kfac_pytorch_tpu/ops/factor_kernels.py`` for the main path
-(groups = 1 convs). :func:`compute_a_conv_fused` is the kernel's wrapper:
+Port of ``kfac_pytorch_tpu/ops/factor_kernels.py`` for the ported paths
+(groups = 1 convs, embeddings). Two kernel wrappers, each with its plain
+PyTorch version beside it and a launch counter (``fn.launches``, CUDA
+calls only):
 
-* a CUDA tensor launches ``csrc/patch_cov.cu`` (it replaces the TPU kernel
-  ``compute_a_conv_fused`` → ``_patch_cov_pallas`` → ``_patch_cov_kernel``;
-  the source says what bounds it and how its design answers that), or
-  raises — there is no fallback;
-* a CPU tensor takes :func:`compute_a_conv_fused_plain`, the same function
-  in plain PyTorch: raw ``PᵀP`` sums with the bias column folded in as a
-  ones feature, scaled once by ``1/(spatial²·B)`` at the end — the kernel's
-  arithmetic, not the oracle's divide-first order.
+* :func:`compute_a_conv_fused` — a CUDA tensor launches
+  ``csrc/patch_cov.cu`` (replacing the TPU kernel ``compute_a_conv_fused``
+  → ``_patch_cov_pallas`` → ``_patch_cov_kernel``; the source says what
+  bounds it and how its design answers that), or raises — there is no
+  fallback. A CPU tensor takes :func:`compute_a_conv_fused_plain`, the same
+  function in plain PyTorch: raw ``PᵀP`` sums with the bias column folded
+  in as a ones feature, scaled once by ``1/(spatial²·B)`` at the end — the
+  kernel's arithmetic, not the oracle's divide-first order.
+* :func:`compute_a_embed_fused` — the embedding's diagonal A (token counts
+  / N) through ``csrc/token_count.cu`` (replacing
+  ``compute_a_embed_fused`` → ``_token_count_kernel``); the plain version
+  :func:`compute_a_embed_fused_plain` counts in integers and divides once.
+  Both equal the oracle ``ops/factors.py::compute_a_embed`` bit for bit.
 
-``compute_a_conv_fused.launches`` counts kernel launches (CUDA calls only).
-
-Routing (:func:`dispatch_compute_a_conv`): ``"dense"`` is the im2col
-oracle ``ops/factors.py::compute_a_conv``, kept as the explicit option the
-JAX package also has; ``"auto"`` (the default) always goes through the
-kernel wrapper; ``"kernel"`` insists on the kernel and refuses a CPU tensor.
-The JAX package routes through an ambient scope; here the kind is an
-argument, held by the capture hooks.
+Routing (:func:`dispatch_compute_a_conv`, :func:`dispatch_compute_a_embed`):
+``"dense"`` is the oracle (``ops/factors.py``), kept as the explicit option
+the JAX package also has; ``"auto"`` (the default) always goes through the
+kernel wrapper; ``"kernel"`` insists on the kernel and refuses a CPU
+tensor. The JAX package routes through an ambient scope; here the kind is
+an argument, held by the capture hooks.
 """
 
 from __future__ import annotations
@@ -47,9 +52,9 @@ def resolve_factor_kernel(kind: str, device: torch.device) -> str:
         )
     if kind == "kernel" and torch.device(device).type != "cuda":
         raise ValueError(
-            "factor_kernel='kernel' launches the CUDA patch-covariance "
-            f"kernel and needs a CUDA device, got {device}; use 'auto' (the "
-            "plain PyTorch version on CPU tensors) or 'dense'"
+            "factor_kernel='kernel' launches the CUDA factor kernels and "
+            f"needs a CUDA device, got {device}; use 'auto' (their plain "
+            "PyTorch versions on CPU tensors) or 'dense'"
         )
     return kind
 
@@ -160,3 +165,87 @@ def dispatch_compute_a_conv(
     return compute_a_conv_fused(
         a, kernel_size, strides, padding, has_bias, kernel_dilation
     )
+
+
+# ---------------------------------------------------------------------------
+# Token counts: the embedding's diagonal A factor
+# ---------------------------------------------------------------------------
+
+_EMBED_SPLIT = 1024  # fewest ids a block of csrc/token_count.cu scans
+_EMBED_TILE = 4096  # vocab bins per block of csrc/token_count.cu
+
+
+def _flat_ids(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Flattened integer ids, checked to lie in ``[0, vocab)`` (one host
+    sync) and to count exactly in float32 (``N < 2²⁴``)."""
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"compute_a_embed_fused: ids must be int32 or int64, got {ids.dtype}")
+    flat = ids.reshape(-1)
+    n = flat.numel()
+    if n == 0 or n >= 1 << 24:
+        raise ValueError(
+            f"compute_a_embed_fused: {n} ids; the counts are exact float32 "
+            "integers only for 0 < N < 2^24"
+        )
+    lo, hi = torch.stack(torch.aminmax(flat)).tolist()
+    if lo < 0 or hi >= vocab:
+        raise ValueError(
+            f"compute_a_embed_fused: ids must lie in [0, {vocab}), got [{lo}, {hi}]"
+        )
+    return flat
+
+
+def compute_a_embed_fused_plain(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Plain PyTorch version of the token-count kernel: integer counts, then
+    one float32 division by ``N`` (by a device tensor, as the oracle)."""
+    flat = ids.reshape(-1)
+    counts = torch.zeros(vocab, dtype=torch.int64, device=ids.device)
+    counts.index_add_(0, flat.long(), torch.ones_like(flat, dtype=torch.int64))
+    n = torch.full((), float(flat.numel()), dtype=torch.float32, device=ids.device)
+    return counts.float() / n
+
+
+def compute_a_embed_fused(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Drop-in for ``factors.compute_a_embed``: ``[vocab]`` float32 token
+    frequencies of the integer ``ids`` (any shape).
+
+    CUDA tensors run ``csrc/token_count.cu``; CPU tensors the plain version.
+    Out-of-range ids raise on both.
+    """
+    flat = _flat_ids(ids, vocab)
+    if ids.device.type == "cpu":
+        return compute_a_embed_fused_plain(flat, vocab)
+    if ids.device.type != "cuda":
+        raise ValueError(f"compute_a_embed_fused: unsupported device {ids.device}")
+    flat = flat.contiguous()
+    n = flat.numel()
+    tiles = -(-vocab // _EMBED_TILE)
+    sms = torch.cuda.get_device_properties(ids.device).multi_processor_count
+    splits = max(1, min(-(-n // _EMBED_SPLIT), -(-2 * sms // tiles)))
+    per_split = -(-n // splits)
+    splits = -(-n // per_split)
+    counts = torch.empty(vocab, dtype=torch.int32, device=ids.device)
+    out = torch.empty(vocab, dtype=torch.float32, device=ids.device)
+    lib = kernel_build.load("token_count")
+    err = lib.kfac_token_count(
+        flat.data_ptr(), int(flat.dtype == torch.int64), n, vocab, splits,
+        per_split, counts.data_ptr(), out.data_ptr(),
+        kernel_build.current_stream_handle(ids.device),
+    )
+    kernel_build.check(err, "token_count")
+    compute_a_embed_fused.launches += 1
+    return out
+
+
+compute_a_embed_fused.launches = 0
+
+
+def dispatch_compute_a_embed(
+    ids: torch.Tensor, vocab: int, *, kind: str = "auto"
+) -> torch.Tensor:
+    """Route an embedding layer's diagonal-A contribution: oracle or kernel
+    wrapper. Token ids are integers: nothing here is differentiated."""
+    resolve_factor_kernel(kind, ids.device)
+    if kind == "dense":
+        return factors.compute_a_embed(ids, vocab)
+    return compute_a_embed_fused(ids, vocab)

@@ -1,7 +1,8 @@
 """Kronecker factor statistics (A = input covariance, G = grad-output covariance).
 
-Port of ``kfac_pytorch_tpu/ops/factors.py`` (the conv/dense subset of the
-main path). The math is the reference's; the layouts are PyTorch's:
+Port of ``kfac_pytorch_tpu/ops/factors.py`` (the conv, dense and
+diagonal-A embedding subset). The math is the reference's; the layouts
+are PyTorch's:
 
 * activations and output-grads are NCHW, conv weights OIHW
   ``[out, in, kh, kw]``, dense weights ``[out, in]``;
@@ -141,6 +142,22 @@ def compute_a_conv(
     return p.T @ (p / batch_size)
 
 
+def compute_a_embed(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Input-covariance DIAGONAL of an embedding layer: token frequencies.
+
+    A lookup is a dense layer over one-hot rows, whose covariance is exactly
+    ``diag(counts / N)``; the ``[vocab]`` vector is stored instead of the
+    ``[vocab, vocab]`` matrix. A scatter-add of ones, then one float32
+    division by ``N`` (by a device tensor: PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal, which rounds differently).
+    """
+    flat = ids.reshape(-1)
+    n = flat.numel()
+    counts = torch.zeros(vocab, dtype=torch.float32, device=ids.device)
+    counts.index_add_(0, flat.long(), torch.ones(n, dtype=torch.float32, device=ids.device))
+    return counts / torch.full((), float(n), dtype=torch.float32, device=ids.device)
+
+
 def compute_g_dense(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:
     """Grad-output covariance for a dense layer: ``gᵀ(g·N)`` or ``gᵀ(g/N)``."""
     g = _flatten_leading(g)
@@ -194,7 +211,11 @@ def grads_to_mat(layer_grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Layer grad dict ``{'weight': ..., 'bias'?: ...}`` → ``[out, in(+1)]``.
 
     Conv weights flatten channel-major; a bias grad becomes the final column.
+    An embedding's ``{'embedding': [vocab, d]}`` table becomes ``[d, vocab]``
+    ("in" is the one-hot vocab axis; no bias).
     """
+    if "embedding" in layer_grads:
+        return layer_grads["embedding"].T
     weight = layer_grads["weight"]
     if weight.dim() == 4:
         mat = conv_kernel_to_mat(weight)

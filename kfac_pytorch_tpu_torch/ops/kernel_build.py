@@ -48,6 +48,20 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # params**, grads**, trace**, sizes*, count, lr, momentum, wd, stream
         "kfac_fused_sgd": (_P, _P, _P, _P, _I, _F, _F, _F, _P),
     },
+    "token_count": {
+        # ids, ids_int64, n, vocab, splits, per_split, counts, out, stream
+        "kfac_token_count": (_P, _I, _L, _I, _I, _L, _P, _P, _P),
+    },
+    "flash_attention": {
+        # q, k, v, strides*, o, lse, B, T, H, D, causal, scale, stream
+        "kfac_flash_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+        # q, k, v, dO, strides*, lse, delta, dq, B, T, H, D, causal, scale,
+        # stream
+        "kfac_flash_dq": (_P,) * 8 + (_I,) * 5 + (_F, _P),
+        # q, k, v, dO, strides*, lse, delta, dk, dv, B, T, H, D, causal,
+        # scale, stream
+        "kfac_flash_dkv": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    },
 }
 
 NVCC_FLAGS = (

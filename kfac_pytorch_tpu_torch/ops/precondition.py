@@ -1,10 +1,12 @@
 """Natural-gradient preconditioning in the Kronecker eigenbasis + KL clipping.
 
 Port of the eigen half of ``kfac_pytorch_tpu/ops/precondition.py`` for the
-main path (full-eigen dense entries; no diagonal-A, low-rank or
-distributed forms). Same-shape layers are stacked and preconditioned
-together; the stack row order and the KL-clip summation order both follow
-:func:`shape_groups`' insertion order, as in the reference.
+ported paths: full-eigen dense entries and diagonal-A (embedding) entries;
+no low-rank or distributed forms. Same-shape layers are stacked and
+preconditioned together. Diagonal-A layers stay out of the shape groups
+and are preconditioned first, in sorted order; then the groups follow in
+:func:`shape_groups`' insertion order. That emission order is also the
+KL-clip summation order, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,6 +32,29 @@ def precondition_mat(
     v1 = (q_g.T @ grad_mat) @ q_a
     v2 = v1 / (d_g[:, None] * d_a[None, :] + damping)
     return (q_g @ v2) @ q_a.T
+
+
+def diag_a_names(eigen: Dict[str, Dict[str, torch.Tensor]]) -> set:
+    """Layers whose A factor is a stored diagonal (embeddings): their eigen
+    entry carries A-side eigenvalues ``dA`` but no ``QA`` matrix."""
+    return {n for n, e in eigen.items() if "QA" not in e and "dA" in e}
+
+
+def precondition_mat_embed(
+    grad_mat: torch.Tensor,
+    q_g: torch.Tensor,
+    d_g: torch.Tensor,
+    d_a: torch.Tensor,
+    damping,
+) -> torch.Tensor:
+    """Eigenbasis solve for a diagonal-A (embedding) layer's ``[d, vocab]``
+    gradient: the A eigenvectors are the identity, so
+    ``v = QG · [(QGᵀ·g) / (dG dAᵀ + damping)]`` — two G-side products
+    (library matmuls, as the JAX package leaves them to XLA) and elementwise
+    work on the vocab axis."""
+    v1 = q_g.T @ grad_mat
+    v2 = v1 / (d_g[:, None] * d_a[None, :] + damping)
+    return q_g @ v2
 
 
 def shape_groups(
@@ -93,9 +118,18 @@ def precondition_all(
     stacked: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Precondition every layer's gradient matrix, batching same-shape layers
-    (the oracle chain: four batched matmuls and the damped divide)."""
+    (the oracle chain: four batched matmuls and the damped divide);
+    diagonal-A layers first, in sorted order."""
+    diag_a = diag_a_names(eigen)
     out: Dict[str, torch.Tensor] = {}
-    shapes = {name: tuple(g.shape) for name, g in grad_mats.items()}
+    for name in sorted(diag_a):
+        e = eigen[name]
+        out[name] = precondition_mat_embed(
+            grad_mats[name], e["QG"], e["dG"], e["dA"], damping
+        )
+    shapes = {
+        name: tuple(g.shape) for name, g in grad_mats.items() if name not in diag_a
+    }
     for (go, ai), names in shape_groups(shapes).items():
         if len(names) == 1:
             name = names[0]
@@ -129,14 +163,24 @@ def precondition_all_with_vg(
     returns ``vg_terms=None`` (the caller then reduces ``Σ v·g`` with
     :func:`kl_clip_coefficient`). Otherwise every shape group — singletons
     as ``k=1`` stacks — goes through the fused apply wrapper, which also
-    emits each layer's ``Σ v·g``; ``vg_terms`` is in emission order, the
-    order :func:`kl_clip_coefficient` would sum in.
+    emits each layer's ``Σ v·g``; diagonal-A layers take
+    :func:`precondition_mat_embed` with their partial reduced in PyTorch,
+    as the JAX package keeps them out of its kernel. ``vg_terms`` is in
+    emission order, the order :func:`kl_clip_coefficient` would sum in.
     """
     if kind == "dense":
         return precondition_all(grad_mats, eigen, damping, stacked), None
+    diag_a = diag_a_names(eigen)
     out: Dict[str, torch.Tensor] = {}
     vg_terms: List[torch.Tensor] = []
-    shapes = {name: tuple(g.shape) for name, g in grad_mats.items()}
+    for name in sorted(diag_a):
+        e = eigen[name]
+        v = precondition_mat_embed(grad_mats[name], e["QG"], e["dG"], e["dA"], damping)
+        out[name] = v
+        vg_terms.append((v.float() * grad_mats[name].float()).sum())
+    shapes = {
+        name: tuple(g.shape) for name, g in grad_mats.items() if name not in diag_a
+    }
     for (go, ai), names in shape_groups(shapes).items():
         s = _group_eigen(names, f"{go}x{ai}", eigen, stacked)
         gm = torch.stack([grad_mats[n] for n in names])

@@ -1,10 +1,12 @@
 """KFAC: the K-FAC gradient preconditioner, single-device eigen method.
 
-Port of ``kfac_pytorch_tpu/preconditioner.py::KFAC`` for the main path:
-identity-initialized factor running averages, eigendecomposition refresh
-every ``kfac_update_freq`` steps, eigenbasis preconditioning of every
-K-FAC layer's gradient with the global KL clip, every step. The interface
-keeps the reference's functional shape:
+Port of ``kfac_pytorch_tpu/preconditioner.py::KFAC`` for the ported
+paths: identity-initialized factor running averages, eigendecomposition
+refresh every ``kfac_update_freq`` steps, eigenbasis preconditioning of
+every K-FAC layer's gradient with the global KL clip, every step.
+Embeddings (``KFACEmbed``) keep a diagonal A factor, ``A_diag [vocab]``,
+initialized to ones, whose "eigendecomposition" is the floored diagonal
+itself. The interface keeps the reference's functional shape:
 
     kfac = KFAC(...)
     state = kfac.init(model)
@@ -33,7 +35,7 @@ import torch.nn as nn
 
 from kfac_pytorch_tpu_torch import capture
 from kfac_pytorch_tpu_torch.device import DeviceLike, resolve_device, use_ieee_f32
-from kfac_pytorch_tpu_torch.models.layers import KFACConv
+from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACEmbed
 from kfac_pytorch_tpu_torch.ops import apply_kernels as apply_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factor_kernels as factor_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factors as factor_ops
@@ -195,11 +197,20 @@ class KFAC:
     # ------------------------------------------------------------------
 
     def _identity_factors(self, model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Identity-initialized ``{layer: {A, G}}`` — the shape oracle."""
+        """Identity-initialized ``{layer: {A, G}}`` — the shape oracle.
+        Embeddings get ``{A_diag, G}``: ones (the diagonal of I) over the
+        vocab and an identity over the features."""
         facs = {}
         names = self.layers if self.layers is not None else capture.discover_layers(model)
         for name in names:
             m = model.get_submodule(name)
+            if isinstance(m, KFACEmbed):
+                vocab, feats = m.weight.shape
+                facs[name] = {
+                    "A_diag": torch.ones(vocab, dtype=torch.float32, device=self.device),
+                    "G": torch.eye(feats, dtype=torch.float32, device=self.device),
+                }
+                continue
             has_bias = m.bias is not None
             if isinstance(m, KFACConv):
                 cout, cin, kh, kw = m.weight.shape
@@ -222,6 +233,12 @@ class KFAC:
 
         eigen = {}
         for name, f in facs.items():
+            if "A_diag" in f:
+                g_side = f["G"].shape[0]
+                eigen[name] = {
+                    "dA": z(f["A_diag"].shape[0]), "QG": z(g_side, g_side), "dG": z(g_side),
+                }
+                continue
             a_side, g_side = f["A"].shape[0], f["G"].shape[0]
             eigen[name] = {
                 "QA": z(a_side, a_side), "dA": z(a_side),
@@ -268,20 +285,28 @@ class KFAC:
                     f"no captured statistics for layers {missing}; build the "
                     "Capture with the same layer list as KFAC"
                 )
-            facs = {
-                name: {
-                    "A": factor_ops.update_running_avg(
-                        a_contribs[name], facs[name]["A"], self.factor_decay
+            # elementwise EMA: the same update serves A matrices and the
+            # embeddings' A_diag vectors
+            old_facs, facs = facs, {}
+            for name in names:
+                a_key = "A_diag" if "A_diag" in old_facs[name] else "A"
+                facs[name] = {
+                    a_key: factor_ops.update_running_avg(
+                        a_contribs[name], old_facs[name][a_key], self.factor_decay
                     ),
                     "G": factor_ops.update_running_avg(
-                        g_factor_stats[name], facs[name]["G"], self.factor_decay
+                        g_factor_stats[name], old_facs[name]["G"], self.factor_decay
                     ),
                 }
-                for name in names
-            }
         eigen, stacked = state["eigen"], state["eigen_stacked"]
         if update_eigen:
             eigen = replicated_eigen_update(facs, {n: 1 for n in names}, self.eps)
+            # diagonal A: the eigenvectors are the identity, so no eigh — the
+            # eigenvalues are the diagonal under the reference's floor
+            for name in names:
+                if "A_diag" in facs[name]:
+                    d = facs[name]["A_diag"]
+                    eigen[name]["dA"] = d * (d > self.eps)
             eigen, stacked = precond_ops.split_eigen_state(eigen)
 
         new_grads, _, _, _ = self._precondition_replicated(
@@ -298,7 +323,8 @@ class KFAC:
     def _precondition_replicated(self, grads, names, eigen, stacked, lr, damping):
         """Every-step precondition + KL clip; returns
         ``(new_grads, gmats, updates, nu)``."""
-        lgrads = capture.layer_grads(grads, names)
+        embeddings = precond_ops.diag_a_names(eigen)
+        lgrads = capture.layer_grads(grads, names, embeddings)
         gmats = {n: m.float() for n, m in capture.grad_mats(lgrads).items()}
         updates, vg_terms = precond_ops.precondition_all_with_vg(
             gmats, eigen, damping, stacked=stacked, kind=self.apply_kernel
@@ -307,4 +333,4 @@ class KFAC:
             nu = precond_ops.kl_clip_from_vg(vg_terms, lr, self.hparams.kl_clip)
         else:
             nu = precond_ops.kl_clip_coefficient(updates, gmats, lr, self.hparams.kl_clip)
-        return capture.write_back(grads, updates, nu), gmats, updates, nu
+        return capture.write_back(grads, updates, nu, embeddings), gmats, updates, nu

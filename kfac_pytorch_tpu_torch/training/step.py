@@ -1,8 +1,9 @@
 """The train step: forward → CE loss → backward → K-FAC → SGD.
 
 Port of ``kfac_pytorch_tpu/training/step.py`` for one device without
-gradient accumulation (``make_train_step``, ``make_sgd``,
-``softmax_cross_entropy``, ``kfac_flags_for_step``). PyTorch runs eagerly,
+gradient accumulation (``make_train_step`` with global-norm clipping,
+``make_eval_step``, ``make_sgd``, ``softmax_cross_entropy``,
+``clip_by_global_norm``, ``kfac_flags_for_step``). PyTorch runs eagerly,
 so the JAX package's compiled step variants become plain keyword flags;
 the statistics capture is ``capture.Capture``'s hooks, open only on
 capture steps.
@@ -66,10 +67,32 @@ def make_sgd(momentum: float = 0.9, weight_decay: float = 0.0) -> SGD:
 def softmax_cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0
 ) -> torch.Tensor:
-    """Mean CE with optional label smoothing."""
+    """Mean CE with optional label smoothing over every leading dimension
+    (``[B, C]`` image logits or ``[B, T, V]`` LM logits)."""
     return F.cross_entropy(
-        logits.float(), labels.long(), label_smoothing=label_smoothing
+        logits.float().reshape(-1, logits.shape[-1]),
+        labels.long().reshape(-1),
+        label_smoothing=label_smoothing,
     )
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of argmax predictions equal to the labels, over every leading
+    dimension."""
+    return (logits.argmax(dim=-1) == labels).float().mean()
+
+
+def clip_by_global_norm(
+    grads: Dict[str, torch.Tensor], max_norm: float
+) -> Dict[str, torch.Tensor]:
+    """``torch.nn.utils.clip_grad_norm_`` semantics (scale every gradient by
+    ``min(1, max_norm / ‖g‖)``, the norm over all of them), without a host
+    sync; returns a new dict."""
+    first = next(iter(grads.values()))
+    gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+    limit = torch.full((), float(max_norm), dtype=torch.float32, device=first.device)
+    scale = torch.clamp(limit / torch.clamp(gnorm, min=1e-12), max=1.0)
+    return {n: g * scale for n, g in grads.items()}
 
 
 def make_train_step(
@@ -77,9 +100,13 @@ def make_train_step(
     tx: SGD,
     kfac: Optional[KFAC] = None,
     sgd_hyper: Optional[Tuple[float, float]] = None,
+    grad_clip: float = 0.0,
 ) -> Callable:
     """Build ``step_fn(state, batch, lr, damping, update_factors=...,
     update_eigen=...) -> (state, metrics)``.
+
+    ``grad_clip > 0`` clips the gradients by their global norm between the
+    backward pass and ``kfac.update``, the JAX step's clip point.
 
     ``sgd_hyper=(momentum, weight_decay)`` declares that ``tx`` is exactly
     ``make_sgd(momentum, weight_decay)``; with a preconditioner, the
@@ -131,6 +158,8 @@ def make_train_step(
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in params.items()
         }
+        if grad_clip:
+            grads = clip_by_global_norm(grads, grad_clip)
         kfac_state = state.kfac_state
         if kfac is not None:
             grads, kfac_state = kfac.update(
@@ -152,8 +181,7 @@ def make_train_step(
         if fused is None:
             tx.apply(params, grads, state.opt_state, lr)
         with torch.no_grad():
-            acc = (logits.argmax(dim=-1) == labels).float().mean()
-        metrics = {"loss": loss.detach(), "accuracy": acc}
+            metrics = {"loss": loss.detach(), "accuracy": accuracy(logits, labels)}
         new_state = TrainState(
             step=state.step + 1,
             model=model,
@@ -163,6 +191,24 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def make_eval_step(model: nn.Module, label_smoothing: float = 0.0) -> Callable:
+    """``eval_step(state, batch) -> {'loss', 'accuracy'}``: one inference-mode
+    forward without gradients, means over the batch."""
+
+    def eval_step(state: TrainState, batch: Tuple[torch.Tensor, torch.Tensor]):
+        del state  # the model holds the parameters
+        inputs, labels = batch
+        model.eval()
+        with torch.no_grad():
+            logits = model(inputs)
+            return {
+                "loss": softmax_cross_entropy(logits, labels, label_smoothing),
+                "accuracy": accuracy(logits, labels),
+            }
+
+    return eval_step
 
 
 def kfac_flags_for_step(

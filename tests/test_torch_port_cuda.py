@@ -12,7 +12,10 @@ library products (and the apply's KL partials with float atomics), so
 products are held to ``|got − want| ≤ rtol·max|want|`` — 1e-5 for the
 covariances (sums of up to ~10⁵ rows), 1e-4 for the apply, whose damped
 divide amplifies rounding by up to 1/λ. The SGD kernel rounds each product
-and sum separately, as the plain version does: 1e-6 relative.
+and sum separately, as the plain version does: 1e-6 relative. The token
+counts are integers divided once by N: bitwise. Flash attention: 2e-5 for
+the forward (softmax-weighted sums of at most T values in float32), 1e-4
+for the gradients, whose dS = p ⊙ (dP − Δ) cancels.
 """
 
 import numpy as np
@@ -21,6 +24,9 @@ import torch
 
 from kfac_pytorch_tpu_torch.ops import apply_kernels as tapply
 from kfac_pytorch_tpu_torch.ops import factor_kernels as tfk
+from kfac_pytorch_tpu_torch.ops import factors as tf
+from kfac_pytorch_tpu_torch.ops import flash_attention as tflash
+from kfac_pytorch_tpu_torch.parallel.context import full_attention
 
 
 @pytest.fixture
@@ -124,3 +130,99 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     p = torch.zeros(8, 2, device=cuda_device)[:, 0]  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         tapply.fused_sgd_apply([p], [torch.zeros(8, device=cuda_device)], [torch.zeros(8, device=cuda_device)], 0.1, 0.9, 0.0)
+
+
+# (ids shape, vocab, dtype): the LM path's [4, 2048] int64 batch, a count
+# that is no tile multiple, several vocab tiles, a single short row
+TOKEN_CASES = [
+    ((4, 2048), 1000, torch.int64),
+    ((3, 700), 1000, torch.int32),
+    ((8, 4096), 10000, torch.int64),
+    ((5,), 7, torch.int32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,vocab,dtype", TOKEN_CASES)
+def test_token_count_kernel_matches_plain_bitwise(cuda_device, shape, vocab, dtype):
+    r = np.random.RandomState(70)
+    # Zipf-distributed, like the synthetic corpus: a few heavily hit bins
+    probs = 1.0 / np.arange(1, vocab + 1)
+    ids = r.choice(vocab, size=shape, p=probs / probs.sum())
+    ids = torch.from_numpy(ids).to(dtype).to(cuda_device)
+    before = tfk.compute_a_embed_fused.launches
+    got = tfk.compute_a_embed_fused(ids, vocab)
+    torch.cuda.synchronize()
+    assert tfk.compute_a_embed_fused.launches == before + 1
+    assert torch.equal(got, tfk.compute_a_embed_fused_plain(ids, vocab))
+    assert torch.equal(got, tf.compute_a_embed(ids, vocab))
+
+
+# (B, T, H, D, causal): the LM path's head width at several lengths,
+# ragged lengths (no multiple of the 64-row tile), the other head widths
+FLASH_CASES = [
+    (2, 256, 2, 64, True),
+    (2, 256, 2, 64, False),
+    (1, 200, 3, 64, True),
+    (2, 200, 2, 64, False),
+    (1, 130, 2, 32, True),
+    (1, 96, 2, 128, True),
+    (2, 1024, 4, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d,causal", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, b, t, h, d, causal):
+    r = np.random.RandomState(80 + t)
+    # q, k, v as strided views of one fused projection, as the model has them
+    qkv = torch.from_numpy(r.randn(b, t, 3 * h * d).astype(np.float32)).to(cuda_device)
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    do = torch.from_numpy(r.randn(b, t, h, d).astype(np.float32)).to(cuda_device)
+    counts = (tflash.flash_forward.launches, tflash.flash_backward_dq.launches,
+              tflash.flash_backward_dkv.launches)
+    out, lse = tflash.flash_forward(q, k, v, causal)
+    out_p, lse_p = tflash.flash_forward_plain(q, k, v, causal)
+    delta = (do * out_p).sum(dim=-1).transpose(1, 2).contiguous()
+    dq = tflash.flash_backward_dq(q, k, v, do, lse_p, delta, causal)
+    dk, dv = tflash.flash_backward_dkv(q, k, v, do, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    assert (tflash.flash_forward.launches, tflash.flash_backward_dq.launches,
+            tflash.flash_backward_dkv.launches) == tuple(c + 1 for c in counts)
+    _close_scaled(out, out_p, rtol=2e-5)
+    _close_scaled(lse, lse_p, rtol=2e-5)
+    for got, want in zip((dq, dk, dv), tflash.flash_backward_plain(q, k, v, do, lse_p, delta, causal)):
+        _close_scaled(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_exact_attention(cuda_device):
+    r = np.random.RandomState(90)
+    arrs = [r.randn(2, 192, 4, 64).astype(np.float32) for _ in range(3)]
+    w = torch.from_numpy(r.randn(2, 192, 4, 64).astype(np.float32)).to(cuda_device)
+
+    def run(fn):
+        ts = [torch.from_numpy(a).to(cuda_device).requires_grad_(True) for a in arrs]
+        out = fn(*ts, causal=True)
+        return out.detach(), torch.autograd.grad((out * w).sum(), ts)
+
+    out, grads = run(tflash.flash_attention)
+    ref, ref_grads = run(full_attention)
+    _close_scaled(out, ref, rtol=2e-5)
+    for got, want in zip(grads, ref_grads):
+        _close_scaled(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    ids = torch.tensor([[0, 3, 9]], device=cuda_device)
+    with pytest.raises(ValueError, match=r"ids must lie in \[0, 5\)"):
+        tfk.compute_a_embed_fused(ids, 5)
+    q = torch.zeros(1, 8, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dimensions"):
+        tflash.flash_forward(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tflash.flash_forward(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        tflash.flash_forward(q, q, q.transpose(2, 3).contiguous().transpose(2, 3))

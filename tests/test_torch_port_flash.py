@@ -1,0 +1,174 @@
+"""The port's kernels of the LM slice: plain versions against the JAX package.
+
+* Flash attention (kernels 5, 6 and 7): the port's differentiable
+  ``flash_attention`` on CPU tensors runs its plain forward and backward;
+  it is held to the JAX package's Pallas kernels run as that package's own
+  tests run them (``interpret=True``), forward, saved logsumexp and the
+  gradients of q, k and v, causal and not; a ragged length (T = 200, no
+  multiple of the 64-row tile) against JAX ``full_attention``, which is
+  what the JAX package runs at such a length.
+* Token counts (kernel 2): ``compute_a_embed_fused`` on CPU tensors against
+  JAX ``compute_a_embed_fused(interpret=True)`` and both packages' oracles,
+  BITWISE, at a vocabulary and a token count that are no tile multiples.
+
+Tolerances: the JAX flash tests' own — forward 2e-5, gradients rtol 1e-4 /
+atol 1e-5 (float32, other summation orders). Token counts are integers
+divided once by N in float32: equal bit for bit.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kfac_pytorch_tpu.ops import factor_kernels as jfk
+from kfac_pytorch_tpu.ops import factors as jf
+from kfac_pytorch_tpu.ops.flash_attention import flash_attention as jflash
+from kfac_pytorch_tpu.parallel.context import full_attention as jfull
+from kfac_pytorch_tpu_torch.ops import factor_kernels as tfk
+from kfac_pytorch_tpu_torch.ops import factors as tf
+from kfac_pytorch_tpu_torch.ops import flash_attention as tflash
+from kfac_pytorch_tpu_torch.parallel import context as tcontext
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """PyTorch's CPU work on one thread: its OpenMP workers spin between ops
+    and starve XLA (and the other test workers) of cores; these sizes are tiny."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _qkv(b, t, h, d, seed):
+    r = np.random.RandomState(seed)
+    return [r.randn(b, t, h, d).astype(np.float32) for _ in range(3)]
+
+
+def _weights(shape, seed):
+    """A fixed cotangent for the output, so the loss is Σ out ⊙ w."""
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _port_value_and_grads(fn, arrs, w):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    out = fn(*ts)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), ts)
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _jax_value_and_grads(fn, arrs, w):
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v) * w)
+
+    args = [jnp.asarray(a) for a in arrs]
+    return np.asarray(fn(*args)), [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas_interpret(causal):
+    arrs = _qkv(1, 256, 2, 32, seed=10)
+    w = _weights(arrs[0].shape, seed=11)
+    before = [tflash.flash_forward.launches, tflash.flash_backward_dq.launches,
+              tflash.flash_backward_dkv.launches]
+    got, got_g = _port_value_and_grads(
+        lambda q, k, v: tflash.flash_attention(q, k, v, causal=causal), arrs, w
+    )
+    want, want_g = _jax_value_and_grads(
+        lambda q, k, v: jflash(q, k, v, causal=causal, interpret=True), arrs, w
+    )
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    for name, a, b in zip("qkv", got_g, want_g):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=f"d{name}")
+    # the plain route launched nothing
+    assert before == [tflash.flash_forward.launches, tflash.flash_backward_dq.launches,
+                      tflash.flash_backward_dkv.launches]
+
+
+def test_flash_forward_lse_matches_pallas():
+    """The saved residual: logsumexp of the scaled logits, [B, H, T]."""
+    from kfac_pytorch_tpu.ops.flash_attention import _flash_forward
+
+    q, k, v = _qkv(2, 128, 2, 32, seed=12)
+    out, lse = tflash.flash_forward(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    j_out, j_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  True, 128, 128, True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=2e-5, atol=2e-5)
+    # JAX stores lse per (b·h) row, replicated over 128 lanes
+    j_lse = np.asarray(j_lse)[..., 0].reshape(2, 2, 128)
+    np.testing.assert_allclose(lse.numpy(), j_lse, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_ragged_length_matches_full_attention():
+    arrs = _qkv(2, 200, 2, 32, seed=13)
+    w = _weights(arrs[0].shape, seed=14)
+    got, got_g = _port_value_and_grads(tflash.flash_attention, arrs, w)
+    want, want_g = _jax_value_and_grads(lambda q, k, v: jfull(q, k, v, causal=True), arrs, w)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    for name, a, b in zip("qkv", got_g, want_g):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_full_attention_matches_jax(causal):
+    q, k, v = _qkv(2, 24, 3, 16, seed=15)
+    got = tcontext.full_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    want = jfull(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_best_attention_fn_on_cpu_is_exact_attention():
+    assert tflash.best_attention_fn("cpu") is tcontext.full_attention
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
+    # validated before any launch: the shape rules hold on every device
+    q = torch.zeros(1, 8, 2, 48)
+    with pytest.raises(ValueError, match="head dimensions"):
+        tflash._check("flash_forward", q, q, q)
+    q = torch.zeros(1, 8, 2, 64)
+    strided = torch.zeros(1, 8, 64, 2).transpose(2, 3)  # [1, 8, 2, 64], last stride 2
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        tflash._check("flash_forward", q, q, strided)
+    assert tflash._check("flash_forward", q, q, q) == (1, 8, 2, 64)
+
+
+# ------------------------------------------------------ kernel 2: token counts
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_token_count_plain_matches_pallas_bitwise(dtype):
+    vocab = 1000
+    ids = np.random.RandomState(16).randint(0, vocab, size=(3, 700)).astype(dtype)
+    pallas = np.asarray(jfk.compute_a_embed_fused(jnp.asarray(ids.astype(np.int32)), vocab,
+                                                  interpret=True))
+    j_oracle = np.asarray(jf.compute_a_embed(jnp.asarray(ids.astype(np.int32)), vocab))
+    t_ids = torch.from_numpy(ids)
+    before = tfk.compute_a_embed_fused.launches
+    got = tfk.compute_a_embed_fused(t_ids, vocab)
+    assert tfk.compute_a_embed_fused.launches == before  # plain path: no launch
+    assert got.dtype == torch.float32 and got.shape == (vocab,)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy(), j_oracle)
+    np.testing.assert_array_equal(tf.compute_a_embed(t_ids, vocab).numpy(), j_oracle)
+    np.testing.assert_array_equal(tfk.compute_a_embed_fused_plain(t_ids, vocab).numpy(), pallas)
+
+
+def test_token_count_dispatch_routes_and_refusals():
+    ids = torch.from_numpy(np.random.RandomState(17).randint(0, 50, size=(4, 9)))
+    dense = tfk.dispatch_compute_a_embed(ids, 50, kind="dense")
+    np.testing.assert_array_equal(dense.numpy(), tf.compute_a_embed(ids, 50).numpy())
+    auto = tfk.dispatch_compute_a_embed(ids, 50, kind="auto")
+    np.testing.assert_array_equal(auto.numpy(), dense.numpy())
+    with pytest.raises(ValueError, match="CUDA"):
+        tfk.dispatch_compute_a_embed(ids, 50, kind="kernel")
+    with pytest.raises(ValueError, match=r"ids must lie in \[0, 40\)"):
+        tfk.compute_a_embed_fused(ids, 40)
+    negative = ids.clone()
+    negative[1, 2] = -1
+    with pytest.raises(ValueError, match=r"ids must lie in"):
+        tfk.compute_a_embed_fused(negative, 50)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        tfk.compute_a_embed_fused(ids.float(), 50)
