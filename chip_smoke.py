@@ -6,11 +6,13 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Two paths, each driven through its trainer's entry point with every kernel
-launch counter set to 0 just before and read just after: CIFAR-10
-ResNet-32 K-FAC training (slice 1) and transformer-LM K-FAC training with
-a K-FAC token embedding and flash attention (slice 2). Phases, in order
-(any failure raises: the script exits non-zero and prints no result line):
+Three paths, each driven through its trainer's entry point with every
+kernel launch counter set to 0 just before and read just after: CIFAR-10
+ResNet-32 K-FAC training (slice 1), transformer-LM K-FAC training with a
+K-FAC token embedding and flash attention (slice 2), and ImageNet
+ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC (slice 3). Phases,
+in order (any failure raises: the script exits non-zero and prints no
+result line):
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources of ``kfac_pytorch_tpu_torch/csrc/`` (one
@@ -41,7 +43,26 @@ a K-FAC token embedding and flash attention (slice 2). Phases, in order
 9. print where the LM step's device time goes (``torch.profiler``:
    kernel time by group over 10 K-FAC steps holding one eigen refresh,
    and over 10 plain-SGD steps, with the device's idle share);
-10. print one ``{"kernels": [...]}`` line (seven kernels), then the last
+10. the ImageNet kernels on activations of one ResNeXt-50 forward at batch
+    32, 224×224: kernel 1g (grouped conv A, one launch per layer for all 32
+    groups, C/G = 4, 8, 16, 32) and kernel 1 (the 37 ungrouped convs)
+    within 1e-5 of the largest plain entry per layer, and the apply and SGD
+    kernels at ResNeXt's shape groups (among them 96 × [4, 36] … 96 ×
+    [32, 288]) and leaves; timed as in phase 3;
+11. train ResNeXt-50 32x4d for 30 steps (refreshes at 0, 10, 20) through
+    its trainer twin at the JAX trainer's recipe; the loss must be finite
+    and falling and every counter must equal what the run implies (per
+    step: kernel 1 37, kernel 1g 16, kernel 3 once per shape group, kernel
+    4 once); 10 steps with ``--kfac-update-freq 0`` give plain SGD's step
+    time;
+12. the oracle paths (``factor_kernel="dense"``, ``apply_kernel="dense"``)
+    must match the kernel path's first 5 losses within 1e-3, each oracle
+    step taken from the kernel path's state (free-running, this
+    configuration carries one step's rounding to ~1e-2 within 4 steps,
+    plain SGD's own run-to-run noise included: printed beside it);
+13. print where the ResNeXt step's device time goes (10 K-FAC steps
+    holding one refresh, 5 capture steps, 10 plain-SGD steps);
+14. print one ``{"kernels": [...]}`` line (eight kernels), then the last
     line ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,6 +73,7 @@ import math
 import statistics
 import subprocess
 import sys
+import time
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
 # float32 outside the tensor cores, and HBM3 bandwidth.
@@ -73,6 +95,19 @@ LM_ARGS = [
 ]
 LM_EPOCHS = 2
 ORACLE_STEPS = 5
+
+# The ImageNet path: ResNeXt-50 32x4d at its published widths and depth and
+# the JAX trainer's per-device recipe (batch 32, 224x224, lr 0.0125,
+# momentum 0.9, wd 5e-5, label smoothing 0.1, damping 0.002, stat-decay 0.95,
+# kl-clip 0.001, kfac-update-freq 10, cov-freq 1, diag-blocks 1,
+# diag-warmup 5), all trainer defaults but the model and the step count.
+IMAGENET_MODEL = "resnext50_32x4d"
+IMAGENET_BATCH = 32
+IMAGENET_STEPS = 30
+IMAGENET_ARGS = [
+    "--synthetic", "--model", IMAGENET_MODEL, "--batch-size", str(IMAGENET_BATCH),
+    "--image-size", "224", "--epochs", "1", "--seed", "0", "--device", "cuda",
+]
 
 
 def _fail(msg: str) -> int:
@@ -112,28 +147,38 @@ def scaled_err(got, want):
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
-def conv_a_phase(model, images):
-    """Kernel 1 on every conv input of one ResNet-32 forward at batch 128."""
+def conv_inputs(model, images, grouped):
+    """``(x, kernel_size, strides, padding, has_bias, dilation, groups)`` of
+    every ungrouped (``grouped=False``) or grouped conv of one forward."""
     import torch
-    import torch.nn.functional as F
 
     from kfac_pytorch_tpu_torch.models.layers import KFACConv
-    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
 
     calls = []
     hooks = [
         m.register_forward_pre_hook(
             lambda mod, inp: calls.append(
                 (inp[0].detach().contiguous(), mod.kernel_size, mod.stride,
-                 mod.factor_padding(), mod.bias is not None, mod.dilation)
+                 mod.factor_padding(), mod.bias is not None, mod.dilation, mod.groups)
             )
         )
-        for m in model.modules() if isinstance(m, KFACConv)
+        for m in model.modules() if isinstance(m, KFACConv) and (m.groups > 1) == grouped
     ]
     with torch.no_grad():
         model(images)
     for h in hooks:
         h.remove()
+    return calls
+
+
+def conv_a_phase(model, images):
+    """Kernel 1 on every ungrouped conv input of one forward (ResNet-32 at
+    batch 128, or ResNeXt-50's 37 ungrouped convs at batch 32)."""
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+
+    calls = [c[:6] for c in conv_inputs(model, images, grouped=False)]
 
     tol = 1e-5
     worst_abs = worst_rel = 0.0
@@ -171,6 +216,63 @@ def conv_a_phase(model, images):
         "plain_ms": time_ms(lambda: [fk.compute_a_conv_fused_plain(*c) for c in calls]),
         "library_ms": time_ms(library),
         "library": "F.unfold + torch.matmul per conv",
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+
+
+def grouped_conv_a_phase(model, images):
+    """Kernel 1g on every grouped conv input of one ResNeXt forward: one
+    launch per layer for all its groups, held per layer to its plain
+    version (kernel 1's plain version per channel slice, stacked)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+
+    calls = [(c[0], c[6], *c[1:6]) for c in conv_inputs(model, images, grouped=True)]
+    tol = 1e-5
+    worst_abs = worst_rel = 0.0
+    kinds = set()
+    for c in calls:
+        err, rel = scaled_err(fk.compute_a_conv_grouped_fused(*c),
+                              fk.compute_a_conv_grouped_fused_plain(*c))
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        kinds.add(c[0].shape[1] // c[1])
+    if not worst_rel <= tol:
+        raise AssertionError(f"grouped conv A kernel disagrees with its plain version: rel {worst_rel:.3e} > {tol}")
+
+    def library():
+        # one im2col of the whole input, viewed per group, one batched product
+        for x, groups, ks, st, pad, _, dil in calls:
+            cols = torch.nn.functional.unfold(x, ks, dilation=dil, padding=pad[0][0], stride=st)
+            b, f, L = cols.shape
+            p = cols.view(b, groups, f // groups, L).permute(1, 0, 3, 2).reshape(groups, b * L, f // groups)
+            torch.bmm(p.transpose(1, 2), p)
+
+    work = []
+    for x, groups, ks, st, pad, bias, dil in calls:
+        a = x.shape[1] // groups * ks[0] * ks[1] + int(bias)
+        h_out = (x.shape[2] + 2 * pad[0][0] - ks[0]) // st[0] + 1
+        w_out = (x.shape[3] + 2 * pad[1][0] - ks[1]) // st[1] + 1
+        rows = x.shape[0] * h_out * w_out
+        # per group: a·(a+1)/2 distinct sums of `rows` products
+        work.append((4 * (x.numel() + groups * a * a), groups * rows * a * (a + 1)))
+    b_ms, b_by = bound_ms(work)
+    return {
+        "name": "patch_cov grouped (grouped conv A factors)",
+        "route": "cuda",
+        "source": "kfac_pytorch_tpu_torch/csrc/patch_cov.cu",
+        "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:251 (via compute_a_conv_grouped_fused :371)",
+        "unit": (f"{len(calls)} grouped convs of one capture step, G = {calls[0][1]}, "
+                 f"C/G in {sorted(kinds)}"),
+        "max_abs_err": worst_abs,
+        "max_rel_err": worst_rel,
+        "tolerance": f"|kernel - plain| <= {tol} * max|plain| per layer",
+        "ms": time_ms(lambda: [fk.compute_a_conv_grouped_fused(*c) for c in calls]),
+        # 512 im2col + matmul pairs per call: fewer repetitions
+        "plain_ms": time_ms(lambda: [fk.compute_a_conv_grouped_fused_plain(*c) for c in calls], reps=5),
+        "library_ms": time_ms(library),
+        "library": "F.unfold of the whole input viewed [G, B*L, a] + torch.bmm per layer",
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
@@ -456,6 +558,7 @@ def lm_oracle_losses(device, steps):
 
 
 _KERNEL_GROUPS = (  # device kernel name fragment → what it is
+    ("patch_cov", "conv A factors (kernels 1, 1g)"),
     ("flash_fwd", "flash forward (kernel 5)"),
     ("flash_dq", "flash dQ (kernel 6)"),
     ("flash_dkv", "flash dK/dV (kernel 7)"),
@@ -464,23 +567,35 @@ _KERNEL_GROUPS = (  # device kernel name fragment → what it is
     ("token_hist", "token counts (kernel 2)"),
     ("counts_to_freq", "token counts (kernel 2)"),
     ("sytrd", "eigh (cuSOLVER)"),
+    ("syr2k", "eigh (cuSOLVER)"),
+    ("rotate_batch", "eigh (cuSOLVER)"),
+    ("offa_stage", "eigh (cuSOLVER)"),
     ("syev", "eigh (cuSOLVER)"),
     ("stedc", "eigh (cuSOLVER)"),
     ("ormtr", "eigh (cuSOLVER)"),
     ("orgtr", "eigh (cuSOLVER)"),
     ("larf", "eigh (cuSOLVER)"),
+    ("fprop", "convolutions (cuDNN)"),
+    ("dgrad", "convolutions (cuDNN)"),
+    ("wgrad", "convolutions (cuDNN)"),
+    ("conv", "convolutions (cuDNN)"),
+    ("cudnn", "convolutions (cuDNN)"),
     ("gemm", "library GEMM (cuBLAS)"),
     ("cutlass", "library GEMM (cuBLAS)"),
+    ("batch_norm", "BatchNorm"),
     ("elementwise", "PyTorch elementwise"),
     ("reduce_kernel", "PyTorch reductions"),
 )
 
 
-def profile_lm(device, steps=12, warmup=2):
-    """Device time by kernel over LM steps ``warmup..steps-1`` (K-FAC, whose
-    window holds one eigen refresh, then plain SGD), from
-    ``torch.profiler``; the busy share is the summed kernel time over the
-    window's wall time (one stream, so kernels do not overlap)."""
+def profile_path(setup, device, runs):
+    """Device time by kernel over windows of a path's steps, from
+    ``torch.profiler``. ``runs`` is ``[(extra flags, [(label, start,
+    stop), ...])]``: each run builds the path anew with ``setup(device,
+    extra)``, takes steps ``0..start-1`` unprofiled and profiles each window
+    ``start..stop-1`` in turn. Device time by group sums kernel durations;
+    the busy share is the union of the kernels' time spans over the
+    window's wall time (library kernels may overlap one another)."""
     import time
 
     import torch
@@ -490,8 +605,8 @@ def profile_lm(device, steps=12, warmup=2):
     from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 
     out = {}
-    for label, extra in (("kfac", ()), ("sgd", ("--kfac-update-freq", "0"))):
-        step_fn, state, kfac, batches, args = lm_setup(device, extra)
+    for extra, windows in runs:
+        step_fn, state, kfac, batches, args = setup(device, extra)
         damping = args.damping if kfac is not None else 0.0
 
         def run(i, state):
@@ -500,43 +615,60 @@ def profile_lm(device, steps=12, warmup=2):
             float(m["loss"])
             return state
 
-        for i in range(warmup):
-            state = run(i, state)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(warmup, steps):
+        step = 0
+        for label, start, stop in windows:
+            for i in range(step, start):
                 state = run(i, state)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, copies, memsets): the host ops
-        # that launched them carry the same time again
-        kernels = {}
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA:
-                kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-        n = steps - warmup
-        groups, other = {}, {}
-        for name, ms in kernels.items():
-            group = next((g for frag, g in _KERNEL_GROUPS if frag in name.lower()), "other")
-            groups[group] = groups.get(group, 0.0) + ms / n
-            if group == "other":
-                other[name[:90]] = ms / n
-        busy = sum(kernels.values())
-        out[label] = {
-            "steps": n,
-            "wall_ms_per_step": wall_ms / n,
-            "device_ms_per_step": busy / n,
-            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "by_group_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top_kernels_ms_per_step": {
-                k[:90]: v / n for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-            },
-            "top_other_ms_per_step": dict(sorted(other.items(), key=lambda kv: -kv[1])[:8]),
-        }
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(start, stop):
+                    state = run(i, state)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            step = stop
+            # device-side events only (kernels, copies, memsets), read from
+            # the raw trace: prof.events() builds a tree of every event,
+            # which takes minutes at ResNeXt's ~10^4 launches per step
+            kernels, spans = {}, []
+            for evt in prof.profiler.kineto_results.events():
+                if evt.device_type() == DeviceType.CUDA:
+                    kernels[evt.name()] = kernels.get(evt.name(), 0.0) + evt.duration_ns() / 1e6
+                    spans.append((evt.start_ns(), evt.end_ns()))
+            busy_ns, reach = 0, float("-inf")
+            for lo, hi in sorted(spans):
+                if hi > reach:
+                    busy_ns += hi - max(lo, reach)
+                    reach = hi
+            n = stop - start
+            groups, other = {}, {}
+            for name, ms in kernels.items():
+                group = next((g for frag, g in _KERNEL_GROUPS if frag in name.lower()), "other")
+                groups[group] = groups.get(group, 0.0) + ms / n
+                if group == "other":
+                    other[name[:90]] = ms / n
+            busy = busy_ns / 1e6
+            out[label] = {
+                "steps": n,
+                "wall_ms_per_step": wall_ms / n,
+                "device_ms_per_step": sum(kernels.values()) / n,
+                "device_busy_ms_per_step": busy / n,
+                "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+                "by_group_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                "top_kernels_ms_per_step": {
+                    k[:90]: v / n for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+                },
+                "top_other_ms_per_step": dict(sorted(other.items(), key=lambda kv: -kv[1])[:8]),
+            }
         del state, step_fn, batches
         torch.cuda.empty_cache()
     return out
+
+
+def profile_lm(device):
+    """LM steps 2..11 with K-FAC (one eigen refresh), then with plain SGD."""
+    return profile_path(lm_setup, device, [((), [("kfac", 2, 12)]),
+                                           (("--kfac-update-freq", "0"), [("sgd", 2, 12)])])
 
 
 def lm_expected_launches(hist, model):
@@ -589,6 +721,114 @@ def train(extra):
     ])
 
 
+def train_imagenet(extra):
+    from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as trainer
+
+    return trainer.main([*IMAGENET_ARGS, *extra])
+
+
+def imagenet_setup(device, extra=()):
+    """The ResNeXt path through the library API (the twin's ``build``), with
+    the trainer's hyperparameters, seed and synthetic batches: ``(step_fn,
+    state, kfac, batches, args)``."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as trainer
+    from kfac_pytorch_tpu_torch.training.data import synthetic_batches
+
+    args = trainer.parse_args([*IMAGENET_ARGS, *extra])
+    _, kfac, state, step_fn = trainer.build(args, device)
+    im = args.image_size
+    batches = [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+               for x, y in synthetic_batches(args.batch_size, (3, im, im), trainer.NUM_CLASSES,
+                                             args.steps_per_epoch, seed=args.seed)]
+    return step_fn, state, kfac, batches, args
+
+
+def _clone(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree
+
+
+def imagenet_one_step_oracle(device, steps):
+    """The ResNeXt kernel path's first ``steps`` losses, and the oracle
+    path's (``factor_kernel="dense"``, ``apply_kernel="dense"``) where every
+    oracle step starts from the kernel path's state: before kernel step
+    ``i``, the oracle path takes step ``i - 1`` from the kernel path's state
+    before that step, then reports the loss of its step ``i``. Each pair
+    then differs by one step's rounding, not by the compounded rounding of
+    ``i`` steps, which this configuration amplifies beyond any useful
+    bound (phase 12 prints the free-running runs beside it)."""
+    from kfac_pytorch_tpu_torch.training.step import TrainState, kfac_flags_for_step
+
+    n = ("--steps-per-epoch", str(steps))
+    k_fn, k_state, kfac, batches, args = imagenet_setup(device, n)
+    d_fn, d_state, _, _, _ = imagenet_setup(device, (*n, "--factor-kernel", "dense",
+                                                     "--apply-kernel", "dense"))
+
+    def snapshot(state):
+        return (_clone(state.model.state_dict()), _clone(state.opt_state), _clone(state.kfac_state))
+
+    def restore(state, snap):
+        sd, opt, kf = snap
+        state.model.load_state_dict(sd)
+        for name, t in opt.items():
+            state.opt_state[name].copy_(t)
+        return TrainState(step=state.step, model=state.model, opt_state=state.opt_state,
+                          kfac_state=_clone(kf))
+
+    def step(fn, state, i):
+        state, m = fn(state, batches[i], args.base_lr, args.damping,
+                      **kfac_flags_for_step(i, kfac, 0))
+        return state, float(m["loss"])
+
+    kernel, oracle, prev = [], [], None
+    for i in range(steps):
+        if prev is not None:  # step 0: both start from the same seed's weights
+            d_state = restore(d_state, prev)
+            d_state, _ = step(d_fn, d_state, i - 1)
+        d_state, d_loss = step(d_fn, d_state, i)
+        prev = snapshot(k_state)
+        k_state, k_loss = step(k_fn, k_state, i)
+        kernel.append(k_loss)
+        oracle.append(d_loss)
+    return kernel, oracle
+
+
+def imagenet_expected_launches(hist, model, device):
+    """What the ResNeXt run implies for each counter: on every capture step
+    kernel 1 once per ungrouped conv and kernel 1g once per grouped conv;
+    one apply launch per shape group and one SGD launch per step."""
+    from kfac_pytorch_tpu_torch import KFAC, capture
+    from kfac_pytorch_tpu_torch.models.layers import KFACConv
+    from kfac_pytorch_tpu_torch.ops import precondition as pc
+
+    captures = sum(k != "plain" for k in hist["kind"])
+    convs = [m for m in model.modules() if isinstance(m, KFACConv)]
+    facs = KFAC(layers=capture.discover_layers(model), device=device)._identity_factors(model)
+    groups = pc.shape_groups({n: (f["G"].shape[0], f["A"].shape[0]) for n, f in facs.items()})
+    steps = len(hist["loss"])
+    return {
+        "compute_a_conv_fused": captures * sum(m.groups == 1 for m in convs),
+        "compute_a_conv_grouped_fused": captures * sum(m.groups > 1 for m in convs),
+        "fused_precondition_stack": len(groups) * steps,
+        "fused_sgd_apply": steps,
+    }
+
+
+_T0 = time.perf_counter()
+
+
+def mark(phase: str) -> None:
+    """Print the seconds since start at the top of each phase."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {phase}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -599,7 +839,7 @@ def main() -> int:
     try:
         from kfac_pytorch_tpu_torch.device import use_ieee_f32
         from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
-        from kfac_pytorch_tpu_torch.models import cifar_resnet
+        from kfac_pytorch_tpu_torch.models import cifar_resnet, imagenet_resnet
         from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
         from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
         from kfac_pytorch_tpu_torch.ops import flash_attention as fa
@@ -618,6 +858,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     use_ieee_f32()
 
+    mark("2. build")
     # 2. build
     secs = kernel_build.build_all()
     print(f"build: {secs:.1f} s for {len(kernel_build.SIGNATURES)} sources (nvcc, sm_90a)", flush=True)
@@ -628,6 +869,7 @@ def main() -> int:
                   f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
                   f"bound {k['bound_ms']:.4f} by {k['bound_by']})", flush=True)
 
+    mark("3. ResNet kernels")
     # 3. ResNet kernels against their plain versions, at the ResNet path's shapes
     model = cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)).to(device)
     xb, _ = next(synthetic_batches(BATCH, (3, 32, 32), 10, 1, seed=0))
@@ -638,8 +880,9 @@ def main() -> int:
     report([conv_a, resnet_apply, resnet_sgd])
     del model
 
+    mark("4. ResNet training")
     # 4. the ResNet path through its trainer, counters zeroed just before
-    all_counted = (fk.compute_a_conv_fused, fk.compute_a_embed_fused,
+    all_counted = (fk.compute_a_conv_fused, fk.compute_a_conv_grouped_fused, fk.compute_a_embed_fused,
                    ak.fused_precondition_stack, ak.fused_sgd_apply, fa.flash_forward,
                    fa.flash_backward_dq, fa.flash_backward_dkv)
     for fn in all_counted:
@@ -674,6 +917,7 @@ def main() -> int:
         "launches": resnet_launches,
     }), flush=True)
 
+    mark("5. ResNet oracle")
     # 5. the ResNet kernel path against the oracle paths on the first steps
     dense = train(["--factor-kernel", "dense", "--apply-kernel", "dense"])
     for i in range(5):
@@ -683,6 +927,7 @@ def main() -> int:
     print(f"oracle paths: first 5 losses agree to 1e-3 relative "
           f"(max diff {max(abs(a - b) for a, b in zip(losses[:5], dense['loss'][:5])):.3e})", flush=True)
 
+    mark("6. LM kernels")
     # 6. LM kernels against their plain versions, at the LM path's shapes
     args = lm_trainer.parse_args(LM_ARGS)
     splits, words = data_lib.synthetic_corpus(vocab_size=lm_trainer.SYNTHETIC_VOCAB)
@@ -696,6 +941,7 @@ def main() -> int:
     lm_sgd = sgd_phase(lm_model, device, args.base_lr, args.momentum, args.wd)
     report([token_count, *flash, lm_apply, lm_sgd])
 
+    mark("7. LM training")
     # 7. the LM path through its trainer twin, counters zeroed just before
     for fn in all_counted:
         fn.launches = 0
@@ -725,8 +971,8 @@ def main() -> int:
             )
         k["launches"] = n
         k["launches_per_step"] = n / lm_steps
-    if lm_launches["compute_a_conv_fused"]:
-        raise AssertionError("the conv A kernel ran on the LM path, which has no conv")
+    if lm_launches["compute_a_conv_fused"] or lm_launches["compute_a_conv_grouped_fused"]:
+        raise AssertionError("a conv A kernel ran on the LM path, which has no conv")
     lm_sgd_hist = train_lm(["--epochs", "1", "--kfac-update-freq", "0"])
     tokens = args.batch_size * args.seq_len
     lm_stats, lm_sgd_stats = step_stats(lm_hist, tokens), step_stats(lm_sgd_hist, tokens)
@@ -746,6 +992,7 @@ def main() -> int:
         "expected_launches": expected,
     }), flush=True)
 
+    mark("8. LM oracle")
     # 8. the LM kernel path against the oracle path on the first steps
     del lm_model
     oracle = lm_oracle_losses(device, ORACLE_STEPS)
@@ -755,14 +1002,107 @@ def main() -> int:
     print(f"LM oracle path: first {ORACLE_STEPS} losses agree to 1e-3 relative "
           f"(max diff {max(abs(a - b) for a, b in zip(lm_losses, oracle)):.3e})", flush=True)
 
+    mark("9. LM profile")
     # 9. where the LM step's device time goes
     print(json.dumps({"lm_profile": profile_lm(device)}), flush=True)
 
-    # 10. results: kernels 3 and 4 run on both paths; their top-level numbers
-    # are the LM path's, the ResNet path's sit beside them
+    mark("10. ResNeXt kernels")
+    # 10. ResNeXt kernels against their plain versions, at the ImageNet path's
+    # shapes: activations from one forward of ResNeXt-50 at batch 32, 224x224
+    rx_model = imagenet_resnet.get_model(
+        IMAGENET_MODEL, generator=torch.Generator().manual_seed(0)).to(device)
+    xb, _ = next(synthetic_batches(IMAGENET_BATCH, (3, 224, 224), 1000, 1, seed=0))
+    rx_images = torch.from_numpy(xb).to(device)
+    rx_conv_a = conv_a_phase(rx_model, rx_images)
+    grouped_a = grouped_conv_a_phase(rx_model, rx_images)
+    del rx_images
+    rx_apply = apply_phase(rx_model, device)
+    rx_sgd = sgd_phase(rx_model, device, 0.0125, 0.9, 5e-5)
+    report([rx_conv_a, grouped_a, rx_apply, rx_sgd])
+    torch.cuda.empty_cache()
+
+    mark("11. ResNeXt training")
+    # 11. the ResNeXt path through its trainer twin, counters zeroed just before
+    for fn in all_counted:
+        fn.launches = 0
+    rx_hist = train_imagenet(["--steps-per-epoch", str(IMAGENET_STEPS)])
+    rx_launches = {fn.__name__: fn.launches for fn in all_counted}
+    rx_losses = rx_hist["loss"]
+    if not all(math.isfinite(v) for v in rx_losses):
+        raise AssertionError(f"non-finite ResNeXt loss: {rx_losses}")
+    rx_first, rx_last = statistics.mean(rx_losses[:5]), statistics.mean(rx_losses[-5:])
+    if not rx_last < rx_first:
+        raise AssertionError(f"ResNeXt loss did not fall: first-5 mean {rx_first:.4f}, last-5 mean {rx_last:.4f}")
+    expected = imagenet_expected_launches(rx_hist, rx_model, device)
+    for name, n in rx_launches.items():
+        if n != expected.get(name, 0):
+            raise AssertionError(
+                f"{name}: {n} launches on the ResNeXt path, the run implies {expected.get(name, 0)}")
+    for k, fn in ((rx_conv_a, fk.compute_a_conv_fused), (grouped_a, fk.compute_a_conv_grouped_fused),
+                  (rx_apply, ak.fused_precondition_stack), (rx_sgd, ak.fused_sgd_apply)):
+        k["launches"] = rx_launches[fn.__name__]
+        k["launches_per_step"] = k["launches"] / IMAGENET_STEPS
+    del rx_model
+    rx_sgd_hist = train_imagenet(["--steps-per-epoch", "10", "--kfac-update-freq", "0"])
+    rx_stats, rx_sgd_stats = step_stats(rx_hist, IMAGENET_BATCH), step_stats(rx_sgd_hist, IMAGENET_BATCH)
+    print(json.dumps({
+        "imagenet_path": (f"{IMAGENET_MODEL} batch {IMAGENET_BATCH}, {IMAGENET_STEPS} steps, "
+                          "synthetic 224x224x3, 1000 classes"),
+        "loss_first5": rx_first, "loss_last5": rx_last,
+        "step0_ms": rx_stats["step0_ms"],
+        "capture_step_ms_median": rx_stats["capture_ms_median"],
+        "refresh_step_ms_median": rx_stats["refresh_ms_median"],
+        "images_per_s": rx_stats["per_s"],
+        "sgd_step_ms_median": rx_sgd_stats["plain_ms_median"],
+        "sgd_images_per_s": rx_sgd_stats["per_s"],
+        "kfac_over_sgd_mean_step": rx_stats["mean_ms"] / rx_sgd_stats["mean_ms"],
+        "launches": rx_launches,
+        "expected_launches": expected,
+    }), flush=True)
+
+    mark("12. ResNeXt oracle")
+    # 12. the ResNeXt kernel path against the oracle paths on the first steps:
+    # the gate holds each oracle step, taken from the kernel path's state, to
+    # the kernel path's loss; the free-running runs (a second kernel run and
+    # an oracle run from the same seed) show how far this configuration
+    # carries one step's rounding
+    rx_kernel, rx_oracle = imagenet_one_step_oracle(device, ORACLE_STEPS)
+    rx_oracle_rel = max(abs(a - b) / abs(b) for a, b in zip(rx_kernel, rx_oracle))
+    if not rx_oracle_rel <= 1e-3:
+        raise AssertionError(f"ResNeXt kernel-path losses {rx_kernel} vs one-step oracle {rx_oracle}")
+    free = {
+        "kernel_run": rx_losses[:ORACLE_STEPS],
+        "kernel_rerun": train_imagenet(["--steps-per-epoch", str(ORACLE_STEPS)])["loss"],
+        "oracle_run": train_imagenet(["--steps-per-epoch", str(ORACLE_STEPS),
+                                      "--factor-kernel", "dense", "--apply-kernel", "dense"])["loss"],
+    }
+    print(json.dumps({"imagenet_oracle": {
+        "one_step": {"kernel": rx_kernel, "oracle": rx_oracle, "max_rel_diff": rx_oracle_rel,
+                     "tolerance": "1e-3 relative per step"},
+        "free_running": free,
+        "free_running_max_rel_diff": {
+            k: max(abs(a - b) / abs(b) for a, b in zip(v, free["kernel_run"]))
+            for k, v in free.items() if k != "kernel_run"},
+    }}), flush=True)
+    print(f"ResNeXt oracle paths: first {ORACLE_STEPS} losses, each oracle step from the kernel "
+          f"path's state, agree to 1e-3 relative (max {rx_oracle_rel:.3e})", flush=True)
+
+    mark("13. ResNeXt profile")
+    # 13. where the ResNeXt step's device time goes: 10 K-FAC steps holding
+    # one refresh, 5 capture steps, 10 plain-SGD steps
+    print(json.dumps({"imagenet_profile": profile_path(imagenet_setup, device, [
+        (("--steps-per-epoch", "17"), [("kfac", 2, 12), ("capture", 12, 17)]),
+        (("--steps-per-epoch", "12", "--kfac-update-freq", "0"), [("sgd", 2, 12)]),
+    ])}), flush=True)
+
+    # 14. results: kernels 1, 3 and 4 run on several paths; the top-level
+    # numbers are those of the path named in "unit", the others sit beside
+    conv_a[IMAGENET_MODEL] = rx_conv_a
     lm_apply["resnet32"] = resnet_apply
+    lm_apply[IMAGENET_MODEL] = rx_apply
     lm_sgd["resnet32"] = resnet_sgd
-    kernels = [conv_a, token_count, lm_apply, lm_sgd, *flash]
+    lm_sgd[IMAGENET_MODEL] = rx_sgd
+    kernels = [conv_a, grouped_a, token_count, lm_apply, lm_sgd, *flash]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

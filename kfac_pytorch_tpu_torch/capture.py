@@ -15,13 +15,20 @@ this module:
 Layers are keyed by module path (``"layer1.0.conv1"``); their parameter
 gradients by parameter name (``"layer1.0.conv1.weight"``), so every
 per-layer artifact shares one key, as in the JAX package.
+
+A grouped conv (``KFACConv(groups=G)``) is G pseudo-layers
+``path#g0 … path#g{G-1}`` (the JAX package's naming): its A and G
+statistics are computed once per layer as ``[G, ·, ·]`` stacks and stored
+per group, its weight gradient is sliced along the OIHW output axis, and
+:func:`write_back` reassembles the groups. Everything downstream treats the
+groups as ordinary same-shape layers.
 """
 
 from __future__ import annotations
 
 import contextlib
 from functools import partial
-from typing import Collection, Dict, List, Optional
+from typing import Collection, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,10 +38,40 @@ from kfac_pytorch_tpu_torch.ops import factor_kernels, factors
 
 KFAC_LAYERS = (KFACConv, KFACDense, KFACEmbed)
 
+# Grouped-conv pseudo-layer suffix: "path#g3" is group 3 of the grouped conv
+# at "path". "#" cannot appear in a module path.
+GROUP_SEP = "#g"
+
+
+def split_group_name(name: str) -> Tuple[str, Optional[int]]:
+    """``"path#g3" -> ("path", 3)``; ungrouped ``"path" -> ("path", None)``."""
+    base, sep, idx = name.rpartition(GROUP_SEP)
+    if not sep:
+        return name, None
+    return base, int(idx)
+
+
+def group_counts(names: List[str]) -> Dict[str, int]:
+    """``{base_path: G}`` for every grouped base present in ``names`` (one
+    pass: G is the highest group index + 1)."""
+    counts: Dict[str, int] = {}
+    for n in names:
+        base, gi = split_group_name(n)
+        if gi is not None:
+            counts[base] = max(counts.get(base, 0), gi + 1)
+    return counts
+
 
 def discover_layers(model: nn.Module) -> List[str]:
-    """Module paths of every K-FAC layer of ``model``, in module order."""
-    return [n for n, m in model.named_modules() if isinstance(m, KFAC_LAYERS)]
+    """Names of every K-FAC layer of ``model``, in module order; a grouped
+    conv contributes its ``G`` pseudo-layers ``path#g0 … path#g{G-1}``."""
+    names = []
+    for n, m in model.named_modules():
+        if isinstance(m, KFACConv) and m.groups > 1:
+            names.extend(f"{n}{GROUP_SEP}{k}" for k in range(m.groups))
+        elif isinstance(m, KFAC_LAYERS):
+            names.append(n)
+    return names
 
 
 class Capture:
@@ -42,7 +79,8 @@ class Capture:
 
     Inert until :meth:`capturing` opens a capture step; the statistics of
     the last capture step stay in :attr:`a_contribs` / :attr:`g_factor_stats`
-    (``{layer: [d, d] tensor}``). :meth:`remove` detaches the hooks.
+    (``{layer: [d, d] tensor}``, one entry per pseudo-layer of a grouped
+    conv). :meth:`remove` detaches the hooks.
     """
 
     def __init__(
@@ -52,7 +90,17 @@ class Capture:
         batch_averaged: bool = True,
     ):
         names = list(layers) if layers is not None else discover_layers(model)
-        self.modules = {n: model.get_submodule(n) for n in names}
+        bases = list(dict.fromkeys(split_group_name(n)[0] for n in names))
+        self.modules = {n: model.get_submodule(n) for n in bases}
+        self.groups = group_counts(names)
+        for base, m in self.modules.items():
+            want = m.groups if isinstance(m, KFACConv) and m.groups > 1 else 0
+            if self.groups.get(base, 0) != want:
+                raise ValueError(
+                    f"K-FAC layer {base!r}: list a grouped conv as all of its "
+                    f"pseudo-layers '{base}{GROUP_SEP}K', any other layer by "
+                    "its module path"
+                )
         self.batch_averaged = batch_averaged
         self.a_contribs: Dict[str, torch.Tensor] = {}
         self.g_factor_stats: Dict[str, torch.Tensor] = {}
@@ -86,6 +134,17 @@ class Capture:
                 a = factor_kernels.dispatch_compute_a_embed(
                     x, module.num_embeddings, kind=self._kind
                 )
+            elif isinstance(module, KFACConv) and module.groups > 1:
+                a = factor_kernels.dispatch_compute_a_conv_grouped(
+                    x.float(),
+                    module.groups,
+                    module.kernel_size,
+                    module.stride,
+                    module.factor_padding(),
+                    module.bias is not None,
+                    module.dilation,
+                    kind=self._kind,
+                )
             elif isinstance(module, KFACConv):
                 a = factor_kernels.dispatch_compute_a_conv(
                     x.float(),
@@ -98,20 +157,34 @@ class Capture:
                 )
             else:
                 a = factors.compute_a_dense(x.float(), module.bias is not None)
-        self.a_contribs[name] = a
+        self._store(self.a_contribs, name, a)
         if output.requires_grad:
             output.register_hook(
                 partial(self._grad_hook, name, isinstance(module, KFACConv))
             )
 
+    def _store(self, stats, name, stat):
+        """One entry per layer; a grouped conv's ``[G, d, d]`` stack is
+        stored per pseudo-layer."""
+        n_groups = self.groups.get(name)
+        if n_groups is None:
+            stats[name] = stat
+            return
+        for k in range(n_groups):
+            stats[f"{name}{GROUP_SEP}{k}"] = stat[k]
+
     def _grad_hook(self, name, is_conv, grad):
         with torch.no_grad():
             g = grad.detach().float()
-            if is_conv:
+            if name in self.groups:
+                stat = factors.compute_g_conv_grouped(
+                    g, self.groups[name], self.batch_averaged
+                )
+            elif is_conv:
                 stat = factors.compute_g_conv(g, self.batch_averaged)
             else:
                 stat = factors.compute_g_dense(g, self.batch_averaged)
-        self.g_factor_stats[name] = stat
+        self._store(self.g_factor_stats, name, stat)
 
 
 def layer_grads(
@@ -121,15 +194,26 @@ def layer_grads(
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{layer: {'weight': ..., 'bias'?: ...}}`` from a by-parameter-name
     gradient dict (``{n: p.grad for n, p in model.named_parameters()}``);
-    layers in ``embeddings`` give ``{'embedding': [vocab, d] table grad}``."""
+    layers in ``embeddings`` give ``{'embedding': [vocab, d] table grad}``.
+    A grouped conv's pseudo-layer ``path#gK`` gets group K's slice of the
+    OIHW weight's output axis (dim 0; the input axis is already per group)
+    and of the bias."""
+    counts = group_counts(names)
     out = {}
     for name in names:
         if name in embeddings:
             out[name] = {"embedding": grads[f"{name}.weight"]}
             continue
-        entry = {"weight": grads[f"{name}.weight"]}
-        if f"{name}.bias" in grads:
-            entry["bias"] = grads[f"{name}.bias"]
+        base, gi = split_group_name(name)
+        weight, bias = grads[f"{base}.weight"], grads.get(f"{base}.bias")
+        if gi is not None:
+            co_g = weight.shape[0] // counts[base]
+            weight = weight[gi * co_g:(gi + 1) * co_g]
+            if bias is not None:
+                bias = bias[gi * co_g:(gi + 1) * co_g]
+        entry = {"weight": weight}
+        if bias is not None:
+            entry["bias"] = bias
         out[name] = entry
     return out
 
@@ -149,10 +233,17 @@ def write_back(
 ) -> Dict[str, torch.Tensor]:
     """A new gradient dict with every K-FAC layer's ν-scaled preconditioned
     matrix scattered back (an embedding's ``[d, vocab]`` matrix back to its
-    ``[vocab, d]`` table); other entries (BatchNorm, LayerNorm, position
-    embeddings) pass through untouched."""
+    ``[vocab, d]`` table, a grouped conv's per-group matrices stacked back
+    along the weight's output axis); other entries (BatchNorm, LayerNorm,
+    position embeddings) pass through untouched. A grouped conv must bring
+    every one of its groups."""
     out = dict(grads)
+    grouped: Dict[str, Dict[int, torch.Tensor]] = {}
     for name, mat in updates.items():
+        base, gi = split_group_name(name)
+        if gi is not None:
+            grouped.setdefault(base, {})[gi] = mat
+            continue
         weight = grads[f"{name}.weight"]
         if name in embeddings:
             out[f"{name}.weight"] = (mat * nu).T.contiguous().to(weight.dtype)
@@ -162,4 +253,20 @@ def write_back(
         out[f"{name}.weight"] = new["weight"].to(weight.dtype)
         if has_bias:
             out[f"{name}.bias"] = new["bias"].to(grads[f"{name}.bias"].dtype)
+    for base, parts in grouped.items():
+        n_groups = max(parts) + 1
+        if len(parts) != n_groups:
+            raise ValueError(
+                f"grouped layer {base!r}: updates carry {len(parts)} of "
+                f"{n_groups} groups; keep all '{GROUP_SEP}K' entries of a "
+                "grouped layer together"
+            )
+        weight = grads[f"{base}.weight"]
+        has_bias = f"{base}.bias" in grads
+        # [G, out/G, a]: group k's rows are output channels k·out/G … in order
+        mats = torch.stack([parts[k] for k in range(n_groups)]) * nu
+        if has_bias:
+            out[f"{base}.bias"] = mats[..., -1].reshape(-1).to(grads[f"{base}.bias"].dtype)
+            mats = mats[..., :-1]
+        out[f"{base}.weight"] = mats.reshape(weight.shape).contiguous().to(weight.dtype)
     return out

@@ -2,21 +2,29 @@
 //
 // Replaces the TPU kernel kfac_pytorch_tpu/ops/factor_kernels.py::
 // compute_a_conv_fused (body _patch_cov_kernel, launched from
-// _patch_cov_pallas). It computes, from an NCHW float32 activation x,
+// _patch_cov_pallas), and its grouped entry compute_a_conv_grouped_fused,
+// which calls it once per channel group. It computes, from an NCHW float32
+// activation x, for every group g of a conv with G groups (G = 1 for an
+// ordinary conv),
 //
-//     A = P'^T P' * scale,      scale = 1 / (OH*OW)^2 / B,
+//     A[g] = P'_g^T P'_g * scale,      scale = 1 / (OH*OW)^2 / B,
 //
-// where P' is the [B*OH*OW, F'] patch matrix of the conv (F = C*kh*kw
-// channel-major (c, kh, kw) features, plus one constant-1 feature when the
-// layer has a bias, so F' = F + 1). The bias row/column then come out as
-// the 1/spatial-scaled column sums and the corner as 1/spatial, the
-// oracle's values (ops/factors.py::compute_a_conv).
+// where P'_g is the [B*OH*OW, F'] patch matrix of group g's C/G input
+// channels (F = (C/G)*kh*kw channel-major (c, kh, kw) features, plus one
+// constant-1 feature when the layer has a bias, so F' = F + 1). The bias
+// row/column then come out as the 1/spatial-scaled column sums and the
+// corner as 1/spatial, the oracle's values (ops/factors.py::compute_a_conv
+// and compute_a_conv_grouped). Cross-group blocks are never computed.
 //
 // What bounds it on this card: operations. At ResNet-32 widths (F = 144,
 // 288, 576 against 131072, 32768, 8192 rows at batch 128) each conv needs
 // ~F^2*rows ~ 2.7 GFLOP of float32 multiply-adds on a few MB of input, far
 // right of the ridge point; this first version runs them on the CUDA cores
-// (67 TFLOP/s float32 peak), not the tensor cores.
+// (67 TFLOP/s float32 peak), not the tensor cores. ResNeXt-50's grouped
+// 3x3 convs (32 groups of F = 36..288 at batch 32, 224^2 images) need
+// ~rows*F^2*G ~ 1.3e8 multiply-adds per layer at every stage: operations
+// again, ~1 ms for the 16 layers at the float32 peak against ~0.1 ms of
+// bytes.
 //
 // Design. The Pallas kernel keeps a (kh*kw*TC)^2 accumulator of up to 4 MB
 // in VMEM and sums sequentially over its batch/offset grid axes; neither
@@ -35,7 +43,14 @@
 //     blocks too (blockIdx.y) and each split writes its own partial tile;
 //     a second pass sums the partials in a fixed order, applies the scale
 //     and mirrors the upper triangle. The result is deterministic; it
-//     differs from the oracle only by float32 summation order.
+//     differs from the oracle only by float32 summation order;
+//   * a grouped conv adds a group axis to the grid (blockIdx.z = g): the
+//     block offsets its feature decode to group g's channels and writes
+//     its partial tile into a [splits, G, P, P] buffer, and the reduce pass
+//     scales and mirrors each group's [F', F'] into out[g]. One launch
+//     covers all G groups, where the TPU version runs G kernel calls.
+//     At ResNeXt's narrow groups (F' = 36) most of the 64-wide tile is
+//     padding: a first version that is right, not yet one that is fast.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,9 +61,9 @@ constexpr int kDepth = 16;    // patch rows per shared-memory stage
 constexpr int kThreads = 256;
 
 struct Geometry {
-  int C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW;
-  int F, Fp, nT;
-  long long rows, rows_per_split, chw;
+  int C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW;  // C: one group's channels
+  int F, Fp, nT, groups;
+  long long rows, rows_per_split, chw;  // chw: one whole image, all groups
 };
 
 // One feature column of P': a pixel offset (kind 0), the bias ones
@@ -63,7 +78,8 @@ struct Row {
   int oh, ow;
 };
 
-__device__ __forceinline__ Feat decode_feature(const Geometry& g, int f) {
+__device__ __forceinline__ Feat decode_feature(const Geometry& g, int f,
+                                              int grp) {
   Feat r{0, 0, 0, 2};
   if (f < g.F) {
     const int kk = g.kh * g.kw;
@@ -71,7 +87,7 @@ __device__ __forceinline__ Feat decode_feature(const Geometry& g, int f) {
     const int o = f - c * kk;
     const int i = o / g.kw;
     const int j = o - i * g.kw;
-    r.coff = c * g.H * g.W;
+    r.coff = (grp * g.C + c) * g.H * g.W;
     r.di = i * g.dh - g.ph;
     r.dj = j * g.dw - g.pw;
     r.kind = 0;
@@ -125,6 +141,7 @@ patch_cov_partial(const float* __restrict__ x, float* __restrict__ part,
   }
   const int tj = ti + t;
   const bool diag = ti == tj;
+  const int grp = blockIdx.z;
 
   const long long r_begin = (long long)blockIdx.y * g.rows_per_split;
   long long r_end = r_begin + g.rows_per_split;
@@ -137,8 +154,8 @@ patch_cov_partial(const float* __restrict__ x, float* __restrict__ part,
   const int tid = threadIdx.x;
   const int m = tid & (kTile - 1);
   const int k0 = tid >> 6;
-  const Feat fa = decode_feature(g, ti * kTile + m);
-  const Feat fb = decode_feature(g, tj * kTile + m);
+  const Feat fa = decode_feature(g, ti * kTile + m, grp);
+  const Feat fb = decode_feature(g, tj * kTile + m, grp);
   Row rows[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) rows[q] = row_at(g, r_begin + k0 + 4 * q);
@@ -176,9 +193,10 @@ patch_cov_partial(const float* __restrict__ x, float* __restrict__ part,
     __syncthreads();
   }
 
-  // partial tile of this row split, [nT*64, nT*64] per split
+  // partial tile of this row split and group, [nT*64, nT*64] per
+  // (split, group)
   const long long P = (long long)g.nT * kTile;
-  float* out = part + (long long)blockIdx.y * P * P;
+  float* out = part + ((long long)blockIdx.y * g.groups + grp) * P * P;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long r = (long long)ti * kTile + ty * 4 + i;
@@ -187,48 +205,54 @@ patch_cov_partial(const float* __restrict__ x, float* __restrict__ part,
   }
 }
 
-// Sum the row-split partials in a fixed order, scale, and mirror the upper
-// triangle into the full symmetric [Fp, Fp] output.
+// Sum the row-split partials of group blockIdx.z in a fixed order, scale,
+// and mirror the upper triangle into that group's symmetric [Fp, Fp] output.
 __global__ void patch_cov_reduce(const float* __restrict__ part,
                                  float* __restrict__ out, int Fp, int P,
-                                 int splits, float scale) {
+                                 int splits, int groups, float scale) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y;
+  const int grp = blockIdx.z;
   if (j >= Fp) return;
   const int lo = i < j ? i : j;
   const int hi = i < j ? j : i;
   const long long plane = (long long)P * P;
-  const float* src = part + (long long)lo * P + hi;
+  const long long split_stride = plane * groups;
+  const float* src = part + grp * plane + (long long)lo * P + hi;
   float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += src[p * plane];
-  out[(long long)i * Fp + j] = s * scale;
+  for (int p = 0; p < splits; ++p) s += src[p * split_stride];
+  out[((long long)grp * Fp + i) * Fp + j] = s * scale;
 }
 
 }  // namespace
 
+// x: [B, C, H, W]; C counts every group's channels. part: [splits, groups,
+// P, P] scratch, P = ceil(Fp / 64) * 64; out: [groups, Fp, Fp].
 extern "C" int kfac_patch_cov(const void* x, void* part, void* out, int B,
                               int C, int H, int W, int kh, int kw, int sh,
                               int sw, int ph, int pw, int dh, int dw, int OH,
-                              int OW, int has_bias, int splits,
+                              int OW, int has_bias, int groups, int splits,
                               long long rows_per_split, float scale,
                               void* stream) {
   Geometry g;
-  g.C = C; g.H = H; g.W = W; g.kh = kh; g.kw = kw; g.sh = sh; g.sw = sw;
-  g.ph = ph; g.pw = pw; g.dh = dh; g.dw = dw; g.OH = OH; g.OW = OW;
-  g.F = C * kh * kw;
+  g.C = C / groups; g.H = H; g.W = W; g.kh = kh; g.kw = kw; g.sh = sh;
+  g.sw = sw; g.ph = ph; g.pw = pw; g.dh = dh; g.dw = dw; g.OH = OH;
+  g.OW = OW;
+  g.F = g.C * kh * kw;
   g.Fp = g.F + (has_bias ? 1 : 0);
   g.nT = (g.Fp + kTile - 1) / kTile;
+  g.groups = groups;
   g.rows = (long long)B * OH * OW;
   g.rows_per_split = rows_per_split;
   g.chw = (long long)C * H * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = g.nT * (g.nT + 1) / 2;
-  patch_cov_partial<<<dim3(tiles, splits), kThreads, 0, s>>>(
+  patch_cov_partial<<<dim3(tiles, splits, groups), kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<float*>(part), g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  patch_cov_reduce<<<dim3((g.Fp + 127) / 128, g.Fp), 128, 0, s>>>(
+  patch_cov_reduce<<<dim3((g.Fp + 127) / 128, g.Fp, groups), 128, 0, s>>>(
       static_cast<const float*>(part), static_cast<float*>(out), g.Fp,
-      g.nT * kTile, splits, scale);
+      g.nT * kTile, splits, groups, scale);
   return (int)cudaGetLastError();
 }

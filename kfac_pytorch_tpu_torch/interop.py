@@ -14,13 +14,21 @@ the flax ``CifarResNet`` become the port's ``state_dict``:
 :func:`lm_state_dict_from_jax` does the same for the flax ``TransformerLM``
 (``models/transformer_lm.py``): ``block_{i}`` → ``blocks.{i}``, ``Dense``
 kernels ``[in, out]`` → ``[out, in]``, ``Embed``/``KFACEmbed`` tables
-unchanged, LayerNorm ``scale`` → ``weight``. Both copy values bit for bit.
+unchanged, LayerNorm ``scale`` → ``weight``.
+
+:func:`imagenet_state_dict_from_jax` is the inverse of
+``kfac_pytorch_tpu/torch_interop.py::convert_state_dict`` for the flax
+``ImageNetResNet``: ``BasicBlock_{b}``/``Bottleneck_{b}`` → ``layer{s}.{i}``
+(same traversal order), a block's last ``KFACConv``/``BatchNorm`` pair
+(``_2``/``_3`` when the block has a downsample) → ``downsample.0``/``.1``,
+grouped HWIO kernels ``[kh, kw, in/G, out]`` → OIHW ``[out, in/G, kh, kw]``.
+All three copy values bit for bit.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict
+from typing import Any, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -98,4 +106,60 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Te
         i += 1
     _put_ln(sd, "ln_f", params["ln_f"])
     _put_dense(sd, "decoder", params["decoder"])
+    return sd
+
+
+# stage layouts of the ImageNet zoo (the port's models/imagenet_resnet.py)
+_IMAGENET_ARCHS = {
+    "resnet18": ("basic", (2, 2, 2, 2)),
+    "resnet34": ("basic", (3, 4, 6, 3)),
+    "resnet50": ("bottleneck", (3, 4, 6, 3)),
+    "resnet101": ("bottleneck", (3, 4, 23, 3)),
+    "resnet152": ("bottleneck", (3, 8, 36, 3)),
+    "resnext50_32x4d": ("bottleneck", (3, 4, 6, 3)),
+    "resnext101_32x8d": ("bottleneck", (3, 4, 23, 3)),
+    "wide_resnet50_2": ("bottleneck", (3, 4, 6, 3)),
+    "wide_resnet101_2": ("bottleneck", (3, 4, 23, 3)),
+}
+
+
+def imagenet_state_dict_from_jax(
+    params: Dict[str, Any],
+    batch_stats: Dict[str, Any],
+    arch: Union[str, Tuple[str, Sequence[int]]],
+) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ImageNet ``(params, batch_stats)`` → the port's ``state_dict``.
+
+    ``arch`` is a zoo name, or ``(block, stage_sizes)`` with ``block``
+    ``"basic"`` or ``"bottleneck"`` for a model outside the zoo.
+    """
+    if isinstance(arch, str):
+        if arch not in _IMAGENET_ARCHS:
+            raise ValueError(
+                f"unsupported imagenet arch {arch!r} (supported: {sorted(_IMAGENET_ARCHS)})"
+            )
+        kind, stages = _IMAGENET_ARCHS[arch]
+    else:
+        kind, stages = arch
+    if kind not in ("basic", "bottleneck"):
+        raise ValueError(f"block must be 'basic' or 'bottleneck', got {kind!r}")
+    block_name = "BasicBlock" if kind == "basic" else "Bottleneck"
+    n_convs = 2 if kind == "basic" else 3
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["conv1.weight"] = _conv(params["KFACConv_0"]["kernel"])
+    _put_bn(sd, "bn1", params["BatchNorm_0"], batch_stats["BatchNorm_0"])
+    b = 0
+    for stage, blocks in enumerate(stages):
+        for i in range(blocks):
+            fp, fs = params[f"{block_name}_{b}"], batch_stats[f"{block_name}_{b}"]
+            tp = f"layer{stage + 1}.{i}"
+            for j in range(n_convs):
+                sd[f"{tp}.conv{j + 1}.weight"] = _conv(fp[f"KFACConv_{j}"]["kernel"])
+                _put_bn(sd, f"{tp}.bn{j + 1}", fp[f"BatchNorm_{j}"], fs[f"BatchNorm_{j}"])
+            if f"KFACConv_{n_convs}" in fp:
+                sd[f"{tp}.downsample.0.weight"] = _conv(fp[f"KFACConv_{n_convs}"]["kernel"])
+                _put_bn(sd, f"{tp}.downsample.1", fp[f"BatchNorm_{n_convs}"],
+                        fs[f"BatchNorm_{n_convs}"])
+            b += 1
+    _put_dense(sd, "fc", params["KFACDense_0"])
     return sd

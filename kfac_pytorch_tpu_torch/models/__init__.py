@@ -1,1 +1,2 @@
-"""Models: K-FAC-aware layers and the CIFAR ResNet zoo."""
+"""Models: K-FAC-aware layers, the CIFAR and ImageNet ResNet zoos, the
+transformer LM."""

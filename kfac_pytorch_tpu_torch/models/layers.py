@@ -5,8 +5,7 @@ Port of ``KFACConv``, ``KFACDense`` and ``KFACEmbed`` from
 ``kfac_pytorch_tpu/models/layers.py``. The JAX layers compute and ``sow`` their own statistics
 because JAX has no hooks; here the layers are plain PyTorch modules that
 mark themselves as preconditionable, and ``capture.py`` attaches forward
-and backward hooks to them — the reference's own design. Grouped convs
-(``groups > 1``) are the ImageNet slice's work (ROADMAP queue 1 item 5).
+and backward hooks to them — the reference's own design.
 """
 
 from __future__ import annotations
@@ -17,15 +16,16 @@ import torch.nn as nn
 
 
 class KFACConv(nn.Conv2d):
-    """2-D convolution (NCHW/OIHW) that K-FAC preconditions."""
+    """2-D convolution (NCHW/OIHW) that K-FAC preconditions.
+
+    A grouped conv (``groups=G > 1``, ResNeXt's 3×3s) is G independent convs,
+    so K-FAC keeps G Kronecker pairs for it: ``capture.py`` expands it into
+    the pseudo-layers ``path#g0 … path#g{G-1}``, each with an
+    ``(in/G)·kh·kw (+1)`` A side and an ``out/G`` G side.
+    """
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        if self.groups != 1:
-            raise NotImplementedError(
-                "grouped KFACConv (groups > 1) is not ported yet (ROADMAP "
-                "queue 1 item 5, ImageNet path)"
-            )
         if self.padding_mode != "zeros":
             raise NotImplementedError(
                 f"KFACConv supports zero padding only, got {self.padding_mode!r}"

@@ -1,9 +1,8 @@
 """Factor-statistics kernels: conv A without im2col, embedding token counts.
 
-Port of ``kfac_pytorch_tpu/ops/factor_kernels.py`` for the ported paths
-(groups = 1 convs, embeddings). Two kernel wrappers, each with its plain
-PyTorch version beside it and a launch counter (``fn.launches``, CUDA
-calls only):
+Port of ``kfac_pytorch_tpu/ops/factor_kernels.py`` (convs, grouped convs,
+embeddings). Three kernel wrappers, each with its plain PyTorch version
+beside it and a launch counter (``fn.launches``, CUDA calls only):
 
 * :func:`compute_a_conv_fused` — a CUDA tensor launches
   ``csrc/patch_cov.cu`` (replacing the TPU kernel ``compute_a_conv_fused``
@@ -13,13 +12,20 @@ calls only):
   function in plain PyTorch: raw ``PᵀP`` sums with the bias column folded
   in as a ones feature, scaled once by ``1/(spatial²·B)`` at the end — the
   kernel's arithmetic, not the oracle's divide-first order.
+* :func:`compute_a_conv_grouped_fused` — a grouped conv's stacked
+  per-group A factors ``[G, a, a]`` through the same source, launched once
+  with a group axis on its grid (replacing ``compute_a_conv_grouped_fused``,
+  which calls the TPU kernel once per group);
+  :func:`compute_a_conv_grouped_fused_plain` is kernel 1's plain version per
+  channel slice, stacked.
 * :func:`compute_a_embed_fused` — the embedding's diagonal A (token counts
   / N) through ``csrc/token_count.cu`` (replacing
   ``compute_a_embed_fused`` → ``_token_count_kernel``); the plain version
   :func:`compute_a_embed_fused_plain` counts in integers and divides once.
   Both equal the oracle ``ops/factors.py::compute_a_embed`` bit for bit.
 
-Routing (:func:`dispatch_compute_a_conv`, :func:`dispatch_compute_a_embed`):
+Routing (:func:`dispatch_compute_a_conv`,
+:func:`dispatch_compute_a_conv_grouped`, :func:`dispatch_compute_a_embed`):
 ``"dense"`` is the oracle (``ops/factors.py``), kept as the explicit option
 the JAX package also has; ``"auto"`` (the default) always goes through the
 kernel wrapper; ``"kernel"`` insists on the kernel and refuses a CPU
@@ -85,6 +91,59 @@ def compute_a_conv_fused_plain(
     return (p.T @ p) * scale
 
 
+def _launch_patch_cov(
+    a: torch.Tensor,
+    groups: int,
+    kernel_size: Tuple[int, int],
+    strides: Tuple[int, int],
+    padding: Padding,
+    has_bias: bool,
+    kernel_dilation: Tuple[int, int],
+    what: str,
+) -> torch.Tensor:
+    """One launch of ``csrc/patch_cov.cu`` over all ``groups`` channel
+    groups of the CUDA tensor ``a``: ``[groups, F', F']`` float32."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {a.device}")
+    if a.dtype != torch.float32 or a.dim() != 4:
+        raise ValueError(
+            f"{what}: the CUDA kernel takes float32 NCHW activations, got "
+            f"{a.dtype} {tuple(a.shape)}"
+        )
+    b, c, h, w = a.shape
+    if groups < 1 or c % groups:
+        raise ValueError(f"{what}: {c} channels do not split into {groups} groups")
+    a = a.contiguous()
+    kernel_size, strides = tuple(kernel_size), tuple(strides)
+    kernel_dilation = tuple(kernel_dilation)
+    pads, oh, ow = _resolve_padding(h, w, kernel_size, strides, padding, kernel_dilation)
+    fp = c // groups * kernel_size[0] * kernel_size[1] + int(has_bias)
+    n_t = -(-fp // _TILE)
+    blocks = n_t * (n_t + 1) // 2 * groups
+    rows = b * oh * ow
+    # enough blocks to fill the card several times over, but at least a few
+    # stages of rows per split
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits = max(1, min(-(-4 * sms // blocks), -(-rows // (8 * _DEPTH))))
+    rows_per_split = -(-rows // splits)
+    rows_per_split = -(-rows_per_split // _DEPTH) * _DEPTH
+    splits = -(-rows // rows_per_split)
+    side = n_t * _TILE
+    part = torch.empty((splits, groups, side, side), dtype=torch.float32, device=a.device)
+    out = torch.empty((groups, fp, fp), dtype=torch.float32, device=a.device)
+    scale = 1.0 / (float(oh * ow) ** 2 * float(b))
+    lib = kernel_build.load("patch_cov")
+    err = lib.kfac_patch_cov(
+        a.data_ptr(), part.data_ptr(), out.data_ptr(),
+        b, c, h, w, kernel_size[0], kernel_size[1], strides[0], strides[1],
+        pads[0][0], pads[1][0], kernel_dilation[0], kernel_dilation[1],
+        oh, ow, int(has_bias), groups, splits, rows_per_split, scale,
+        kernel_build.current_stream_handle(a.device),
+    )
+    kernel_build.check(err, "patch_cov")
+    return out
+
+
 def compute_a_conv_fused(
     a: torch.Tensor,
     kernel_size: Tuple[int, int],
@@ -102,44 +161,12 @@ def compute_a_conv_fused(
         return compute_a_conv_fused_plain(
             a, kernel_size, strides, padding, has_bias, kernel_dilation
         )
-    if a.device.type != "cuda":
-        raise ValueError(f"compute_a_conv_fused: unsupported device {a.device}")
-    if a.dtype != torch.float32 or a.dim() != 4:
-        raise ValueError(
-            "compute_a_conv_fused: the CUDA kernel takes float32 NCHW "
-            f"activations, got {a.dtype} {tuple(a.shape)}"
-        )
-    a = a.contiguous()
-    b, c, h, w = a.shape
-    kernel_size, strides = tuple(kernel_size), tuple(strides)
-    kernel_dilation = tuple(kernel_dilation)
-    pads, oh, ow = _resolve_padding(h, w, kernel_size, strides, padding, kernel_dilation)
-    fp = c * kernel_size[0] * kernel_size[1] + int(has_bias)
-    n_t = -(-fp // _TILE)
-    tiles = n_t * (n_t + 1) // 2
-    rows = b * oh * ow
-    # enough blocks to fill the card several times over, but at least a few
-    # stages of rows per split
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits = max(1, min(-(-4 * sms // tiles), -(-rows // (8 * _DEPTH))))
-    rows_per_split = -(-rows // splits)
-    rows_per_split = -(-rows_per_split // _DEPTH) * _DEPTH
-    splits = -(-rows // rows_per_split)
-    side = n_t * _TILE
-    part = torch.empty((splits, side, side), dtype=torch.float32, device=a.device)
-    out = torch.empty((fp, fp), dtype=torch.float32, device=a.device)
-    scale = 1.0 / (float(oh * ow) ** 2 * float(b))
-    lib = kernel_build.load("patch_cov")
-    err = lib.kfac_patch_cov(
-        a.data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, c, h, w, kernel_size[0], kernel_size[1], strides[0], strides[1],
-        pads[0][0], pads[1][0], kernel_dilation[0], kernel_dilation[1],
-        oh, ow, int(has_bias), splits, rows_per_split, scale,
-        kernel_build.current_stream_handle(a.device),
+    out = _launch_patch_cov(
+        a, 1, kernel_size, strides, padding, has_bias, kernel_dilation,
+        "compute_a_conv_fused",
     )
-    kernel_build.check(err, "patch_cov")
     compute_a_conv_fused.launches += 1
-    return out
+    return out[0]
 
 
 compute_a_conv_fused.launches = 0
@@ -164,6 +191,86 @@ def dispatch_compute_a_conv(
         )
     return compute_a_conv_fused(
         a, kernel_size, strides, padding, has_bias, kernel_dilation
+    )
+
+
+# ---------------------------------------------------------------------------
+# Grouped convs: one A factor per channel group, one launch per layer
+# ---------------------------------------------------------------------------
+
+
+def compute_a_conv_grouped_fused_plain(
+    a: torch.Tensor,
+    groups: int,
+    kernel_size: Tuple[int, int],
+    strides: Tuple[int, int],
+    padding: Padding,
+    has_bias: bool,
+    kernel_dilation: Tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """Plain PyTorch version of the grouped kernel: kernel 1's plain version
+    on each ``C/G`` channel slice, stacked to ``[G, a, a]``."""
+    cg = a.shape[1] // groups
+    return torch.stack([
+        compute_a_conv_fused_plain(
+            a[:, k * cg:(k + 1) * cg], kernel_size, strides, padding,
+            has_bias, kernel_dilation,
+        )
+        for k in range(groups)
+    ])
+
+
+def compute_a_conv_grouped_fused(
+    a: torch.Tensor,
+    groups: int,
+    kernel_size: Tuple[int, int],
+    strides: Tuple[int, int],
+    padding: Padding,
+    has_bias: bool,
+    kernel_dilation: Tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """Drop-in for ``factors.compute_a_conv_grouped``: stacked per-group A
+    factors ``[G, a, a]``, ``a = (C/G)·kh·kw (+1)``.
+
+    CUDA tensors run ``csrc/patch_cov.cu`` once, with a group axis on its
+    grid (the JAX version calls its kernel once per group); CPU tensors the
+    plain version.
+    """
+    if a.device.type == "cpu":
+        return compute_a_conv_grouped_fused_plain(
+            a, groups, kernel_size, strides, padding, has_bias, kernel_dilation
+        )
+    out = _launch_patch_cov(
+        a, groups, kernel_size, strides, padding, has_bias, kernel_dilation,
+        "compute_a_conv_grouped_fused",
+    )
+    compute_a_conv_grouped_fused.launches += 1
+    return out
+
+
+compute_a_conv_grouped_fused.launches = 0
+
+
+def dispatch_compute_a_conv_grouped(
+    a: torch.Tensor,
+    groups: int,
+    kernel_size: Tuple[int, int],
+    strides: Tuple[int, int],
+    padding: Padding,
+    has_bias: bool,
+    kernel_dilation: Tuple[int, int] = (1, 1),
+    *,
+    kind: str = "auto",
+) -> torch.Tensor:
+    """Grouped-conv twin of :func:`dispatch_compute_a_conv`."""
+    resolve_factor_kernel(kind, a.device)
+    a = a.detach()
+    if kind == "dense":
+        return factors.compute_a_conv_grouped(
+            a, groups, kernel_size, strides, padding, has_bias, kernel_dilation
+        )
+    return compute_a_conv_grouped_fused(
+        a, groups, kernel_size, strides, padding, has_bias, kernel_dilation
     )
 
 

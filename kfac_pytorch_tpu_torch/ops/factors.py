@@ -1,7 +1,7 @@
 """Kronecker factor statistics (A = input covariance, G = grad-output covariance).
 
-Port of ``kfac_pytorch_tpu/ops/factors.py`` (the conv, dense and
-diagonal-A embedding subset). The math is the reference's; the layouts
+Port of ``kfac_pytorch_tpu/ops/factors.py`` (the conv, grouped conv, dense
+and diagonal-A embedding subset). The math is the reference's; the layouts
 are PyTorch's:
 
 * activations and output-grads are NCHW, conv weights OIHW
@@ -142,6 +142,37 @@ def compute_a_conv(
     return p.T @ (p / batch_size)
 
 
+def compute_a_conv_grouped(
+    a: torch.Tensor,
+    groups: int,
+    kernel_size: Tuple[int, int],
+    strides: Tuple[int, int],
+    padding: Padding,
+    has_bias: bool,
+    kernel_dilation: Tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """Stacked per-group input covariances of a grouped conv: ``[G, a, a]``.
+
+    A conv with ``groups=G`` is G independent convs, each reading its own
+    ``C/G`` input-channel slice, so its K-FAC approximation is G Kronecker
+    pairs; cross-group blocks are never formed. The JAX oracle vmaps
+    :func:`compute_a_conv` over the slices; here the groups ride the batch
+    axis of one im2col and one batched product, with the same arithmetic
+    per group.
+    """
+    b, c, h, w = a.shape
+    xg = a.reshape(b, groups, c // groups, h, w).transpose(0, 1)
+    patches, oh, ow = extract_patches(
+        xg.reshape(groups * b, c // groups, h, w), kernel_size, strides,
+        padding, kernel_dilation,
+    )
+    p = patches.reshape(groups, -1, patches.shape[-1])  # [G, B·OH·OW, F]
+    if has_bias:
+        p = torch.cat([p, p.new_ones(p.shape[:2] + (1,))], dim=2)
+    p = p / (oh * ow)
+    return p.transpose(1, 2) @ (p / b)
+
+
 def compute_a_embed(ids: torch.Tensor, vocab: int) -> torch.Tensor:
     """Input-covariance DIAGONAL of an embedding layer: token frequencies.
 
@@ -180,6 +211,26 @@ def compute_g_conv(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:
         gm = gm * batch_size
     gm = gm * spatial_size
     return gm.T @ (gm / gm.shape[0])
+
+
+def compute_g_conv_grouped(
+    g: torch.Tensor, groups: int, batch_averaged: bool
+) -> torch.Tensor:
+    """Stacked per-group grad-output covariances: ``[G, cout/G, cout/G]``.
+
+    Output channel ``k·(cout/G) + j`` belongs to group k, so the NCHW grad
+    goes to ``[B·OH·OW, G, cout/G]`` once its channels move last; one
+    batched contraction per layer, scaled as :func:`compute_g_conv` (×B if
+    batch-averaged, ×spatial, then /rows).
+    """
+    batch_size = g.shape[0]
+    spatial_size = g.shape[2] * g.shape[3]
+    gm = g.permute(0, 2, 3, 1).reshape(-1, groups, g.shape[1] // groups)
+    if batch_averaged:
+        gm = gm * batch_size
+    gm = gm * spatial_size
+    gm = gm.transpose(0, 1)  # [G, rows, cout/G]
+    return gm.transpose(1, 2) @ (gm / gm.shape[1])
 
 
 def update_running_avg(

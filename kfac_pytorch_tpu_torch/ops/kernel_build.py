@@ -37,8 +37,8 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "patch_cov": {
         # x, part, out, B, C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW,
-        # has_bias, splits, rows_per_split, scale, stream
-        "kfac_patch_cov": (_P, _P, _P) + (_I,) * 16 + (_L, _F, _P),
+        # has_bias, groups, splits, rows_per_split, scale, stream
+        "kfac_patch_cov": (_P, _P, _P) + (_I,) * 17 + (_L, _F, _P),
     },
     "fused_apply": {
         # gm, qa, da, qg, dg, lam, scratch1, scratch2, out, vg, k, g, a, stream

@@ -156,8 +156,10 @@ class KFAC:
             _not_ported("factor_sharding='owner'", "7")
         if precond_method == "inverse":
             _not_ported("precond_method='inverse'", "4")
-        if diag_blocks != 1 or diag_warmup != 0:
-            _not_ported("diag_blocks > 1 / diag_warmup", "4")
+        # diag_warmup only picks between diag_blocks and 1 block, so with
+        # diag_blocks == 1 it changes nothing (the JAX package accepts it)
+        if diag_blocks != 1:
+            _not_ported("diag_blocks > 1", "4")
         if eigen_dtype != torch.float32:
             _not_ported("eigen_dtype other than float32", "4")
         if track_diagnostics:
@@ -199,11 +201,24 @@ class KFAC:
     def _identity_factors(self, model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
         """Identity-initialized ``{layer: {A, G}}`` — the shape oracle.
         Embeddings get ``{A_diag, G}``: ones (the diagonal of I) over the
-        vocab and an identity over the features."""
+        vocab and an identity over the features. A grouped conv's
+        pseudo-layer ``path#gK`` gets an ``(in/G)·kh·kw (+1)`` A side and an
+        ``out/G`` G side."""
         facs = {}
         names = self.layers if self.layers is not None else capture.discover_layers(model)
+        modules: Dict[str, nn.Module] = {}
         for name in names:
-            m = model.get_submodule(name)
+            base, group = capture.split_group_name(name)
+            m = modules.get(base)
+            if m is None:
+                m = modules[base] = model.get_submodule(base)
+            groups = m.groups if isinstance(m, KFACConv) else 1
+            if (group is None) != (groups == 1):
+                raise ValueError(
+                    f"K-FAC layer {name!r}: a grouped conv is listed as its "
+                    f"pseudo-layers '{base}{capture.GROUP_SEP}K', any other "
+                    "layer by its module path"
+                )
             if isinstance(m, KFACEmbed):
                 vocab, feats = m.weight.shape
                 facs[name] = {
@@ -213,7 +228,8 @@ class KFAC:
                 continue
             has_bias = m.bias is not None
             if isinstance(m, KFACConv):
-                cout, cin, kh, kw = m.weight.shape
+                cout, cin, kh, kw = m.weight.shape  # cin: in/G already
+                cout //= groups
                 a_side = cin * kh * kw + int(has_bias)
             else:
                 cout, cin = m.weight.shape

@@ -101,9 +101,13 @@ def make_train_step(
     kfac: Optional[KFAC] = None,
     sgd_hyper: Optional[Tuple[float, float]] = None,
     grad_clip: float = 0.0,
+    label_smoothing: float = 0.0,
 ) -> Callable:
     """Build ``step_fn(state, batch, lr, damping, update_factors=...,
     update_eigen=...) -> (state, metrics)``.
+
+    The loss is the mean CE with ``label_smoothing`` (the ImageNet recipe's
+    0.1), as the JAX step computes it.
 
     ``grad_clip > 0`` clips the gradients by their global norm between the
     backward pass and ``kfac.update``, the JAX step's clip point.
@@ -152,7 +156,7 @@ def make_train_step(
         )
         with ctx:
             logits = model(images)
-            loss = softmax_cross_entropy(logits, labels)
+            loss = softmax_cross_entropy(logits, labels, label_smoothing)
             loss.backward()
         grads = {
             n: p.grad if p.grad is not None else torch.zeros_like(p)

@@ -10,7 +10,7 @@ without JAX; there, skip the JAX test harness's ``conftest.py``:
 Tolerances: the kernels sum in another order than the plain versions'
 library products (and the apply's KL partials with float atomics), so
 products are held to ``|got − want| ≤ rtol·max|want|`` — 1e-5 for the
-covariances (sums of up to ~10⁵ rows), 1e-4 for the apply, whose damped
+covariances (sums of up to ~10⁵ rows; per group for grouped convs), 1e-4 for the apply, whose damped
 divide amplifies rounding by up to 1/λ. The SGD kernel rounds each product
 and sum separately, as the plain version does: 1e-6 relative. The token
 counts are integers divided once by N: bitwise. Flash attention: 2e-5 for
@@ -79,6 +79,39 @@ def test_conv_a_kernel_matches_plain(cuda_device, shape, ks, st, pad, bias):
     assert torch.equal(got, got.T)
 
 
+# (NCHW shape, groups, stride, bias): ResNeXt-50's grouped 3×3 convs have
+# C/G = 4 … 32 at G = 32; small batches give one row split, the larger a
+# ragged one (rows no multiple of the split's length)
+GROUPED_CASES = [
+    ((2, 8, 9, 9), 2, 1, True),
+    ((2, 8, 9, 9), 2, 2, False),
+    ((3, 64, 7, 7), 2, 1, False),
+    ((4, 128, 14, 14), 32, 1, False),
+    ((4, 128, 14, 14), 32, 2, True),
+    ((2, 1024, 7, 7), 32, 1, True),
+    ((8, 1024, 14, 14), 32, 2, False),
+    ((9, 128, 23, 23), 32, 1, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,stride,bias", GROUPED_CASES)
+def test_grouped_conv_a_kernel_matches_plain(cuda_device, shape, groups, stride, bias):
+    x = torch.from_numpy(np.random.RandomState(41).randn(*shape).astype(np.float32))
+    x = x.to(cuda_device)
+    args = (groups, (3, 3), (stride, stride), ((1, 1), (1, 1)), bias)
+    before = tfk.compute_a_conv_grouped_fused.launches
+    got = tfk.compute_a_conv_grouped_fused(x, *args)
+    torch.cuda.synchronize()
+    assert tfk.compute_a_conv_grouped_fused.launches == before + 1
+    want = tfk.compute_a_conv_grouped_fused_plain(x, *args)
+    assert got.shape == want.shape == (groups,) + (shape[1] // groups * 9 + bias,) * 2
+    for k in range(groups):
+        _close_scaled(got[k], want[k], rtol=1e-5)
+    assert torch.equal(got, got.transpose(1, 2))
+    _close_scaled(got, tf.compute_a_conv_grouped(x, *args), rtol=1e-5)
+
+
 def _apply_inputs(seed, k, g, a, device):
     r = np.random.RandomState(seed)
     arrs = (
@@ -93,7 +126,8 @@ def _apply_inputs(seed, k, g, a, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "k,g,a", [(1, 16, 27), (10, 16, 144), (1, 32, 144), (9, 32, 288), (9, 64, 576), (1, 10, 65)]
+    "k,g,a", [(1, 16, 27), (10, 16, 144), (1, 32, 144), (9, 32, 288), (9, 64, 576), (1, 10, 65),
+              (96, 4, 36), (128, 8, 72)]
 )
 def test_fused_apply_kernel_matches_plain(cuda_device, k, g, a):
     arrs = _apply_inputs(50 + a, k, g, a, cuda_device)
@@ -127,6 +161,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros(2, 3, 4, 4, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         tfk.compute_a_conv_fused(x, (3, 3), (1, 1), "SAME", False)
+    with pytest.raises(ValueError, match="groups"):
+        tfk.compute_a_conv_grouped_fused(x.float(), 2, (3, 3), (1, 1), "SAME", False)
     p = torch.zeros(8, 2, device=cuda_device)[:, 0]  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         tapply.fused_sgd_apply([p], [torch.zeros(8, device=cuda_device)], [torch.zeros(8, device=cuda_device)], 0.1, 0.9, 0.0)
