@@ -16,7 +16,8 @@ result line):
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources of ``kfac_pytorch_tpu_torch/csrc/`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once) and print each kernel's registers and
+   spill bytes from ptxas;
 3. hold each ResNet kernel against its plain PyTorch version on the inputs
    the ResNet path gives it (batch 128, 32×32 images) and time, with CUDA
    events, the kernel, the plain version and one PyTorch library call for
@@ -30,9 +31,13 @@ result line):
    (the oracle paths) must match the kernel run's first losses;
 6. the LM kernels at the LM path's shapes (d_model 512, 8 heads of 64,
    4 layers, T 2048, batch 4, vocab 1000): token counts bitwise, flash
-   forward within 2e-5 and its dQ and dK/dV within 1e-4 of the largest
-   plain entry, and the apply and SGD kernels at the transformer's shape
-   groups and leaves; timed as in phase 3;
+   forward within 2e-5 and its dQ and dK/dV (3xTF32 on the tensor cores)
+   within 1e-4 of the largest plain entry, there and at ``FLASH_EDGE_CASES``
+   (a ragged T, no causal mask, D = 32 and 128), two launches of each
+   backward kernel bitwise equal, and the apply and SGD kernels at the
+   transformer's shape groups and leaves; timed as in phase 3 (the backward
+   rows' bound is the tensor cores' TF32 rate, the CUDA cores' float32
+   bound beside it);
 7. train the LM for 2 epochs (38 steps, eigen refreshes at steps 0, 10,
    20, 30) through its trainer twin; the loss must be finite and falling
    and every counter must equal what the run implies; one epoch with
@@ -76,8 +81,10 @@ import sys
 import time
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
-# float32 outside the tensor cores, and HBM3 bandwidth.
+# float32 outside the tensor cores, TF32 on the tensor cores, and HBM3
+# bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 BATCH = 128
@@ -132,12 +139,17 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(calls):
+def bound_ms(calls, tf32_products=0):
     """Least time for ``[(bytes, flops), ...]`` calls: per call the larger of
-    bytes over the memory rate and FLOPs over the float32 peak, summed."""
+    bytes over the memory rate and FLOPs over the float32 peak, summed; with
+    ``tf32_products=n``, FLOPs taken as n TF32 products on the tensor cores
+    (3xTF32: n = 3) over the TF32 peak instead."""
+    def t_ops(f):
+        return f * tf32_products / PEAK_TF32_FLOPS if tf32_products else f / PEAK_F32_FLOPS
+
     t_bytes = sum(b / PEAK_BYTES for b, _ in calls)
-    t_flops = sum(f / PEAK_F32_FLOPS for _, f in calls)
-    total = sum(max(b / PEAK_BYTES, f / PEAK_F32_FLOPS) for b, f in calls)
+    t_flops = sum(t_ops(f) for _, f in calls)
+    total = sum(max(b / PEAK_BYTES, t_ops(f)) for b, f in calls)
     return total * 1e3, ("bytes" if t_bytes >= t_flops else "operations")
 
 
@@ -433,38 +445,78 @@ def token_count_phase(ids, vocab):
     }
 
 
+def flash_qkv(device, b, t, h, d, seed):
+    """q, k, v as strided views of one fused projection, as the model hands
+    them over, and a cotangent ``do``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * h * d, device=device, generator=gen)
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    return q, k, v, torch.randn(b, t, h, d, device=device, generator=gen)
+
+
+def flash_backward_errs(q, k, v, do, lse, delta, causal):
+    """Kernels 6 and 7 against ``flash_backward_plain``: ``{"dq": (abs,
+    rel), "dkv": (abs, rel)}``, and the kernels' outputs."""
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    dq_p, dk_p, dv_p = fa.flash_backward_plain(q, k, v, do, lse, delta, causal)
+    errs = {}
+    for part, pairs in (("dq", [(dq, dq_p)]), ("dkv", [(dk, dk_p), (dv, dv_p)])):
+        worst = [scaled_err(g, w) for g, w in pairs]
+        errs[part] = (max(e for e, _ in worst), max(r for _, r in worst))
+    return errs, (dq, dk, dv)
+
+
+# small backward checks beside the LM shape: a ragged T (no multiple of the
+# 64-row tile), no causal mask, and the other head widths (D = 128 streams
+# 32-row tiles)
+FLASH_EDGE_CASES = [(1, 200, 2, 64, True), (2, 256, 2, 64, False),
+                    (1, 200, 2, 32, False), (1, 200, 2, 128, True), (2, 136, 1, 128, False)]
+
+
 def flash_phase(device, b, t, h, d):
-    """Kernels 5, 6 and 7 at one LM layer's attention shapes: q, k, v are
-    strided views of a fused projection, as the model hands them over."""
+    """Kernels 5, 6 and 7 at one LM layer's attention shapes, and kernels 6
+    and 7 at ``FLASH_EDGE_CASES``; two launches of each backward kernel must
+    agree bit for bit."""
     import torch
     import torch.nn.functional as F
 
     from kfac_pytorch_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device=device).manual_seed(2)
-    qkv = torch.randn(b, t, 3 * h * d, device=device, generator=gen)
-    q, k, v = (x.reshape(b, t, h, d) for x in qkv.split(h * d, dim=-1))
-    do = torch.randn(b, t, h, d, device=device, generator=gen)
+    q, k, v, do = flash_qkv(device, b, t, h, d, seed=2)
     out, lse = fa.flash_forward(q, k, v, True)
     out_p, lse_p = fa.flash_forward_plain(q, k, v, True)
     delta = (do * out_p).sum(dim=-1).transpose(1, 2).contiguous()
-    dq = fa.flash_backward_dq(q, k, v, do, lse_p, delta, True)
-    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True)
-    dq_p, dk_p, dv_p = fa.flash_backward_plain(q, k, v, do, lse_p, delta, True)
-    checks = {
-        "forward": ([(out, out_p), (lse, lse_p)], 2e-5),
-        "dq": ([(dq, dq_p)], 1e-4),
-        "dkv": ([(dk, dk_p), (dv, dv_p)], 1e-4),
-    }
-    errs = {}
-    for part, (pairs, tol) in checks.items():
-        worst = [scaled_err(g, w) for g, w in pairs]
-        errs[part] = (max(e for e, _ in worst), max(r for _, r in worst))
+    errs, grads = flash_backward_errs(q, k, v, do, lse_p, delta, True)
+    fwd = [scaled_err(g, w) for g, w in ((out, out_p), (lse, lse_p))]
+    errs["forward"] = (max(e for e, _ in fwd), max(r for _, r in fwd))
+    tols = {"forward": 2e-5, "dq": 1e-4, "dkv": 1e-4}
+    edge = {"dq": 0.0, "dkv": 0.0}
+    for case in FLASH_EDGE_CASES:
+        eq, ek, ev, edo = flash_qkv(device, *case[:4], seed=3)
+        e_out, e_lse = fa.flash_forward_plain(eq, ek, ev, case[4])
+        e_delta = (edo * e_out).sum(dim=-1).transpose(1, 2).contiguous()
+        case_errs, _ = flash_backward_errs(eq, ek, ev, edo, e_lse, e_delta, case[4])
+        for part in edge:
+            edge[part] = max(edge[part], case_errs[part][1])
+            if not case_errs[part][1] <= tols[part]:
+                raise AssertionError(f"flash {part} kernel disagrees with its plain version at "
+                                     f"[B, T, H, D, causal] = {list(case)}: rel "
+                                     f"{case_errs[part][1]:.3e} > {tols[part]}")
+    for part, tol in tols.items():
         if not errs[part][1] <= tol:
             raise AssertionError(
                 f"flash {part} kernel disagrees with its plain version: rel "
                 f"{errs[part][1]:.3e} > {tol}"
             )
+    again = (fa.flash_backward_dq(q, k, v, do, lse_p, delta, True),
+             *fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True))
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        raise AssertionError("flash backward kernels: two launches on the same inputs differ")
 
     # the library yardstick, and a second oracle: SDPA in float32 on [B, H, T, D]
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
@@ -486,8 +538,26 @@ def flash_phase(device, b, t, h, d):
         "unit": unit,
     }
     fwd_b = bound_ms([(4 * (4 * n + r), 2 * tt)])
-    dq_b = bound_ms([(4 * (5 * n + 2 * r), 3 * tt)])
-    dkv_b = bound_ms([(4 * (6 * n + 2 * r), 4 * tt)])
+    dq_work, dkv_work = (4 * (5 * n + 2 * r), 3 * tt), (4 * (6 * n + 2 * r), 4 * tt)
+
+    def backward_row(part, name, replaces, fn, work):
+        tc = bound_ms([work], tf32_products=3)
+        return {**base, "name": name, "replaces": replaces,
+                "max_abs_err": errs[part][0], "max_rel_err": errs[part][1],
+                "tolerance": f"|kernel - plain| <= 1e-4 * max|plain|{' (dk and dv)' * (part == 'dkv')}",
+                "edge_cases": "[B, T, H, D, causal] in " + str([list(c) for c in FLASH_EDGE_CASES]),
+                "edge_max_rel_err": edge[part],
+                "repeat_bitwise_equal": True,
+                "ms": time_ms(fn),
+                "plain_ms": plain_bwd_ms,
+                "plain": "flash_backward_plain (dq, dk and dv together)",
+                "library_ms": lib_bwd_ms,
+                "library": "autograd backward of SDPA (dq, dk and dv together)",
+                "bound_ms": tc[0], "bound_by": tc[1],
+                "bound_route": "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s (the share is stated "
+                               "against this bound)",
+                "bound_f32_cuda_core_ms": bound_ms([work])[0]}
+
     return [
         {**base, "name": "flash_attention forward",
          "replaces": "kfac_pytorch_tpu/ops/flash_attention.py:125",
@@ -499,26 +569,10 @@ def flash_phase(device, b, t, h, d):
          "library_ms": lib_fwd_ms,
          "library": "F.scaled_dot_product_attention(is_causal=True), float32",
          "bound_ms": fwd_b[0], "bound_by": fwd_b[1]},
-        {**base, "name": "flash_attention backward dQ",
-         "replaces": "kfac_pytorch_tpu/ops/flash_attention.py:281",
-         "max_abs_err": errs["dq"][0], "max_rel_err": errs["dq"][1],
-         "tolerance": "|kernel - plain| <= 1e-4 * max|plain|",
-         "ms": time_ms(lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, True)),
-         "plain_ms": plain_bwd_ms,
-         "plain": "flash_backward_plain (dq, dk and dv together)",
-         "library_ms": lib_bwd_ms,
-         "library": "autograd backward of SDPA (dq, dk and dv together)",
-         "bound_ms": dq_b[0], "bound_by": dq_b[1]},
-        {**base, "name": "flash_attention backward dK/dV",
-         "replaces": "kfac_pytorch_tpu/ops/flash_attention.py:298",
-         "max_abs_err": errs["dkv"][0], "max_rel_err": errs["dkv"][1],
-         "tolerance": "|kernel - plain| <= 1e-4 * max|plain| (dk and dv)",
-         "ms": time_ms(lambda: fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True)),
-         "plain_ms": plain_bwd_ms,
-         "plain": "flash_backward_plain (dq, dk and dv together)",
-         "library_ms": lib_bwd_ms,
-         "library": "autograd backward of SDPA (dq, dk and dv together)",
-         "bound_ms": dkv_b[0], "bound_by": dkv_b[1]},
+        backward_row("dq", "flash_attention backward dQ", "kfac_pytorch_tpu/ops/flash_attention.py:281",
+                     lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, True), dq_work),
+        backward_row("dkv", "flash_attention backward dK/dV", "kfac_pytorch_tpu/ops/flash_attention.py:298",
+                     lambda: fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True), dkv_work),
     ]
 
 
@@ -821,6 +875,30 @@ def imagenet_expected_launches(hist, model, device):
     }
 
 
+def ptxas_report():
+    """``{kernel: [registers, spill store bytes]}`` for every kernel built,
+    from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
+    (names as compiled, mangled)."""
+    import re
+
+    from kfac_pytorch_tpu_torch.ops import kernel_build
+
+    out, fn = {}, None
+    for name in kernel_build.SIGNATURES:
+        for line in (kernel_build.BUILD_DIR / f"lib{name}.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                out[fn] = [None, 0]
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and fn:
+                out[fn][1] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                out[fn][0] = int(m.group(1))
+    return out
+
+
 _T0 = time.perf_counter()
 
 
@@ -862,6 +940,7 @@ def main() -> int:
     # 2. build
     secs = kernel_build.build_all()
     print(f"build: {secs:.1f} s for {len(kernel_build.SIGNATURES)} sources (nvcc, sm_90a)", flush=True)
+    print(json.dumps({"ptxas_registers_spill_bytes": ptxas_report()}), flush=True)
 
     def report(entries):
         for k in entries:

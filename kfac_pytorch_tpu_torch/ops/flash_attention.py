@@ -110,7 +110,9 @@ def flash_backward_plain(
 
 def _check(what: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
     """``(B, T, H, D)`` of float32 ``[B, T, H, D]`` CUDA tensors of one shape
-    whose last dimension is contiguous; raises on anything else."""
+    whose last dimension is contiguous and whose rows are 16-byte aligned
+    (the backward kernels copy rows with 16-byte ``cp.async``); raises on
+    anything else."""
     first = tensors[0]
     if first.dim() != 4:
         raise ValueError(f"{what}: expected [B, T, H, D] tensors, got {tuple(first.shape)}")
@@ -125,6 +127,12 @@ def _check(what: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
                 f"{what}: every input must be a float32 {tuple(first.shape)} "
                 f"tensor on {first.device} with a contiguous last dimension, "
                 f"got {t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device}"
+            )
+        if t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{what}: every row must start 16-byte aligned (data pointer "
+                f"and [B, T, H] strides multiples of 4 floats), got storage "
+                f"offset {t.storage_offset()} and strides {t.stride()}"
             )
     b, t, h, d = first.shape
     if d not in HEAD_DIMS:

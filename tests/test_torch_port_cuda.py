@@ -15,7 +15,9 @@ divide amplifies rounding by up to 1/λ. The SGD kernel rounds each product
 and sum separately, as the plain version does: 1e-6 relative. The token
 counts are integers divided once by N: bitwise. Flash attention: 2e-5 for
 the forward (softmax-weighted sums of at most T values in float32), 1e-4
-for the gradients, whose dS = p ⊙ (dP − Δ) cancels.
+for the gradients, whose dS = p ⊙ (dP − Δ) cancels and whose products run
+as 3xTF32 on the tensor cores (about float32 accuracy); two launches of a
+backward kernel agree bit for bit.
 """
 
 import numpy as np
@@ -204,6 +206,9 @@ FLASH_CASES = [
     (1, 130, 2, 32, True),
     (1, 96, 2, 128, True),
     (2, 1024, 4, 64, True),
+    (2, 200, 2, 128, False),
+    (1, 72, 3, 32, False),
+    (1, 5, 1, 64, True),
 ]
 
 
@@ -229,6 +234,41 @@ def test_flash_kernels_match_plain(cuda_device, b, t, h, d, causal):
     _close_scaled(lse, lse_p, rtol=2e-5)
     for got, want in zip((dq, dk, dv), tflash.flash_backward_plain(q, k, v, do, lse_p, delta, causal)):
         _close_scaled(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_kernels_are_deterministic(cuda_device, d):
+    """Each dq, dk, dv row has one owning block that sums in a fixed order:
+    two launches agree bit for bit."""
+    r = np.random.RandomState(85)
+    b, t, h = 2, 640, 2
+    q, k, v, do = (torch.from_numpy(r.randn(b, t, h, d).astype(np.float32)).to(cuda_device)
+                   for _ in range(4))
+    out, lse = tflash.flash_forward(q, k, v, True)
+    delta = (do * out).sum(dim=-1).transpose(1, 2).contiguous()
+    first = (tflash.flash_backward_dq(q, k, v, do, lse, delta, True),
+             *tflash.flash_backward_dkv(q, k, v, do, lse, delta, True))
+    second = (tflash.flash_backward_dq(q, k, v, do, lse, delta, True),
+              *tflash.flash_backward_dkv(q, k, v, do, lse, delta, True))
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_misaligned_rows(cuda_device):
+    """cp.async copies 16-byte rows: a view whose data pointer or [B, T, H]
+    strides are no multiple of 4 floats is refused, never run."""
+    b, t, h, d = 1, 64, 2, 64
+    q = torch.zeros(b, t, h, d, device=cuda_device)
+    lse = torch.zeros(b, h, t, device=cuda_device)
+    shifted = torch.zeros(b * t * h * d + 1, device=cuda_device)[1:].view(b, t, h, d)
+    odd_stride = torch.zeros(b, t, h, d + 2, device=cuda_device)[..., :d]
+    for bad in (shifted, odd_stride):
+        with pytest.raises(ValueError, match="aligned"):
+            tflash.flash_backward_dq(q, bad, q, q, lse, lse)
+        with pytest.raises(ValueError, match="aligned"):
+            tflash.flash_backward_dkv(q, q, q, bad, lse, lse)
 
 
 @pytest.mark.cuda

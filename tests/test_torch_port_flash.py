@@ -6,7 +6,9 @@
   tests run them (``interpret=True``), forward, saved logsumexp and the
   gradients of q, k and v, causal and not; a ragged length (T = 200, no
   multiple of the 64-row tile) against JAX ``full_attention``, which is
-  what the JAX package runs at such a length.
+  what the JAX package runs at such a length. The CUDA backward's numerical
+  scheme (3xTF32 products on the tensor cores) is emulated in float32 and
+  held to a float64 reference.
 * Token counts (kernel 2): ``compute_a_embed_fused`` on CPU tensors against
   JAX ``compute_a_embed_fused(interpret=True)`` and both packages' oracles,
   BITWISE, at a vocabulary and a token count that are no tile multiples.
@@ -133,6 +135,93 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous last dimension"):
         tflash._check("flash_forward", q, q, strided)
     assert tflash._check("flash_forward", q, q, q) == (1, 8, 2, 64)
+
+
+def test_flash_wrappers_refuse_misaligned_rows():
+    # the backward kernels copy 16-byte rows with cp.async
+    q = torch.zeros(1, 8, 2, 64)
+    shifted = torch.zeros(1 * 8 * 2 * 64 + 1)[1:].view(1, 8, 2, 64)
+    odd_stride = torch.zeros(1, 8, 2, 66)[..., :64]
+    for bad in (shifted, odd_stride):
+        with pytest.raises(ValueError, match="aligned"):
+            tflash._check("flash_backward_dq", q, bad, q, q)
+    # q, k, v as views of one fused projection at offsets 0, H·D, 2·H·D
+    qkv = torch.zeros(1, 8, 3 * 2 * 64)
+    views = [x.reshape(1, 8, 2, 64) for x in qkv.split(2 * 64, dim=-1)]
+    assert tflash._check("flash_backward_dq", *views, q) == (1, 8, 2, 64)
+
+
+# --------------------------------------- kernels 6, 7: the 3xTF32 products
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped
+    bits' range to the magnitude bits, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _mm_3xtf32(a, b):
+    """``a_small·b_big + a_big·b_small + a_big·b_big`` with ``big = tf32(x)``
+    and ``small`` the remainder ``x − big`` truncated to TF32, as the CUDA
+    kernels split (CUTLASS's OpMultiplyAddFastF32): products of TF32 values
+    are exact in float32, the sums are float32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32_truncated(a - a_big), _tf32_truncated(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _backward(q, k, v, do, lse, delta, mm):
+    """``flash_backward_plain``'s formulas, causal, with every product taken
+    by ``mm`` on ``[B, H, T, D]`` matrices."""
+    qh, kh, vh, dh = (x.transpose(1, 2) for x in (q, k, v, do))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    keep = torch.ones(q.shape[1], q.shape[1], dtype=torch.bool).tril()
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros((), dtype=s.dtype))
+    ds = p * (mm(dh, vh.transpose(-1, -2)) - delta[..., None])
+    dq = mm(ds, kh) * scale
+    dk = mm(ds.transpose(-1, -2), qh) * scale
+    dv = mm(p.transpose(-1, -2), dh)
+    return [x.transpose(1, 2) for x in (dq, dk, dv)]
+
+
+def test_flash_backward_3xtf32_keeps_float32_accuracy():
+    """The backward kernels' numerical scheme, emulated: with every product
+    in 3xTF32 the gradients stay within 1e-5 of the largest float64 entry,
+    10x inside the card's 1e-4 tolerance, as IEEE float32 products do;
+    with one TF32 product (big·big alone) they are at least 10x worse and
+    break that tolerance. The emulation rounds its float32 sums; the
+    tensor cores truncate theirs, an error that grows with the sum's length
+    (``chip_smoke.py`` measures the kernels on the card at the LM's T)."""
+    r = np.random.RandomState(18)
+    q, k, v, do = (torch.from_numpy(r.randn(1, 256, 2, 64).astype(np.float32)) for _ in range(4))
+    # float64 forward residuals, rounded to float32 as the kernels get them
+    s = torch.einsum("bthd,bshd->bhts", q.double() / 8.0, k.double())
+    s = s.masked_fill(~torch.ones(256, 256, dtype=torch.bool).tril(), -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", torch.softmax(s, dim=-1), v.double())
+    delta = (do.double() * out).sum(dim=-1).transpose(1, 2)
+    ref = _backward(*(x.double() for x in (q, k, v, do)), lse, delta, lambda a, b: a @ b)
+
+    def err(grads):
+        return max(float((g.double() - w).abs().max() / w.abs().max()) for g, w in zip(grads, ref))
+
+    lse32, delta32 = lse.float(), delta.float()
+    plain = err(tflash.flash_backward_plain(q, k, v, do, lse32, delta32, True))
+    three = err(_backward(q, k, v, do, lse32, delta32, _mm_3xtf32))
+    one = err(_backward(q, k, v, do, lse32, delta32, _mm_1xtf32))
+    assert plain <= 1e-5
+    assert three <= 1e-5
+    assert one >= 10 * three and one > 1e-4
 
 
 # ------------------------------------------------------ kernel 2: token counts
