@@ -17,11 +17,15 @@ result line):
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources of ``kfac_pytorch_tpu_torch/csrc/`` (one
    ``nvcc`` per source, all at once) and print each kernel's registers and
-   spill bytes from ptxas;
+   spill bytes from ptxas; the fused apply and flash forward kernels must
+   not spill;
 3. hold each ResNet kernel against its plain PyTorch version on the inputs
    the ResNet path gives it (batch 128, 32×32 images) and time, with CUDA
    events, the kernel, the plain version and one PyTorch library call for
-   the same function (a yardstick only; the port never calls it);
+   the same function (a yardstick only; the port never calls it); the
+   fused apply (3xTF32 on the tensor cores) also per shape group, its five
+   costliest groups reported with their tile and copy widths, and two of
+   its launches bitwise equal;
 4. train ResNet-32 at its published widths on synthetic data (lr 0.1,
    momentum 0.9, wd 5e-4, stat-decay 0.95, damping 0.003, kl-clip 0.001,
    cov-freq 1, kfac-update-freq 10); the loss must be finite and falling
@@ -31,12 +35,12 @@ result line):
    (the oracle paths) must match the kernel run's first losses;
 6. the LM kernels at the LM path's shapes (d_model 512, 8 heads of 64,
    4 layers, T 2048, batch 4, vocab 1000): token counts bitwise, flash
-   forward within 2e-5 and its dQ and dK/dV (3xTF32 on the tensor cores)
-   within 1e-4 of the largest plain entry, there and at ``FLASH_EDGE_CASES``
-   (a ragged T, no causal mask, D = 32 and 128), two launches of each
-   backward kernel bitwise equal, and the apply and SGD kernels at the
-   transformer's shape groups and leaves; timed as in phase 3 (the backward
-   rows' bound is the tensor cores' TF32 rate, the CUDA cores' float32
+   forward within 2e-5 of the largest plain entry (and of SDPA's) and its
+   dQ and dK/dV within 1e-4, there and at ``FLASH_EDGE_CASES`` (a ragged T,
+   no causal mask, D = 32 and 128), two launches of each flash kernel
+   bitwise equal, and the apply and SGD kernels at the transformer's shape
+   groups and leaves; timed as in phase 3 (the bound of the kernels on the
+   tensor cores, 3 and 5–7, is the TF32 rate, the CUDA cores' float32
    bound beside it);
 7. train the LM for 2 epochs (38 steps, eigen refreshes at steps 0, 10,
    20, 30) through its trainer twin; the loss must be finite and falling
@@ -292,7 +296,10 @@ def grouped_conv_a_phase(model, images):
 
 def apply_phase(model, device):
     """Kernel 3 on every shape group of ``model``'s K-FAC layers (diagonal-A
-    embeddings stay out of the groups, as on the main path)."""
+    embeddings stay out of the groups, as on the main path): within 1e-4
+    of the largest plain entry per group (v and vg), two launches bitwise
+    equal, timed for all groups together and per group (the five costliest
+    groups are reported with the tile and copy widths they take)."""
     import torch
 
     from kfac_pytorch_tpu_torch import KFAC, capture
@@ -321,28 +328,44 @@ def apply_phase(model, device):
     lam = torch.full((), 0.003, device=device)
     tol = 1e-4
     worst_abs = worst_rel = 0.0
+    group_rel = []
     for grp in groups:
         v, vg = ak.fused_precondition_stack(*grp, lam)
         v_p, vg_p = ak.fused_precondition_stack_plain(*grp, lam)
+        rel = 0.0
         for got, want in ((v, v_p), (vg, vg_p)):
-            err, rel = scaled_err(got, want)
-            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            err, r = scaled_err(got, want)
+            worst_abs, worst_rel, rel = max(worst_abs, err), max(worst_rel, r), max(rel, r)
+        group_rel.append(rel)
+        again = ak.fused_precondition_stack(*grp, lam)
+        if not (torch.equal(v, again[0]) and torch.equal(vg, again[1])):
+            raise AssertionError(f"fused apply kernel: two launches differ at group {tuple(grp[0].shape)}")
     if not worst_rel <= tol:
         raise AssertionError(f"fused apply kernel disagrees with its plain version: rel {worst_rel:.3e} > {tol}")
 
-    def library():
-        for gm, qa, da, qg, dg in groups:
-            t = torch.matmul(torch.matmul(qg.transpose(1, 2), gm), qa)
-            t = t / (dg[:, :, None] * da[:, None, :] + lam)
-            torch.matmul(torch.matmul(qg, t), qa.transpose(1, 2))
+    def library_one(gm, qa, da, qg, dg):
+        t = torch.matmul(torch.matmul(qg.transpose(1, 2), gm), qa)
+        t = t / (dg[:, :, None] * da[:, None, :] + lam)
+        torch.matmul(torch.matmul(qg, t), qa.transpose(1, 2))
 
-    work = []
-    for gm, qa, da, qg, dg in groups:
+    def work(gm):
         k, g, a = gm.shape
         flops = k * (4 * g * a * (g + a) + 3 * g * a + 2 * g * a)
         nbytes = 4 * (2 * k * g * a + k * a * a + k * g * g + k * a + k * g + k + 1)
-        work.append((nbytes, flops))
-    b_ms, b_by = bound_ms(work)
+        return nbytes, flops
+
+    per_group = []
+    for grp, rel in zip(groups, group_rel):
+        k, g, a = grp[0].shape
+        per_group.append({
+            "group": f"{k} x [{g}, {a}]",
+            "route": ak.fused_apply_route(grp[0], grp[1], grp[3]),
+            "ms": time_ms(lambda: ak.fused_precondition_stack(*grp, lam)),
+            "library_ms": time_ms(lambda: library_one(*grp)),
+            "bound_ms": bound_ms([work(grp[0])], tf32_products=3)[0],
+            "max_rel_err": rel,
+        })
+    tc = bound_ms([work(grp[0]) for grp in groups], tf32_products=3)
     return {
         "name": "fused_apply (eigenbasis precondition + KL partial)",
         "route": "cuda",
@@ -352,12 +375,16 @@ def apply_phase(model, device):
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "tolerance": f"|kernel - plain| <= {tol} * max|plain| per group (v and vg)",
+        "repeat_bitwise_equal": True,
         "ms": time_ms(lambda: [ak.fused_precondition_stack(*grp, lam) for grp in groups]),
         "plain_ms": time_ms(lambda: [ak.fused_precondition_stack_plain(*grp, lam) for grp in groups]),
-        "library_ms": time_ms(library),
+        "library_ms": time_ms(lambda: [library_one(*grp) for grp in groups]),
         "library": "batched torch.matmul chain per group",
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "bound_ms": tc[0],
+        "bound_by": tc[1],
+        "bound_route": "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s",
+        "bound_f32_cuda_core_ms": bound_ms([work(grp[0]) for grp in groups])[0],
+        "costliest_groups": sorted(per_group, key=lambda r: -r["ms"])[:5],
     }
 
 
@@ -471,59 +498,79 @@ def flash_backward_errs(q, k, v, do, lse, delta, causal):
     return errs, (dq, dk, dv)
 
 
-# small backward checks beside the LM shape: a ragged T (no multiple of the
-# 64-row tile), no causal mask, and the other head widths (D = 128 streams
-# 32-row tiles)
+# small checks of all three kernels beside the LM shape: a ragged T (no
+# multiple of the 64-row tile), no causal mask, and the other head widths
+# (D = 128 streams 32-row tiles)
 FLASH_EDGE_CASES = [(1, 200, 2, 64, True), (2, 256, 2, 64, False),
                     (1, 200, 2, 32, False), (1, 200, 2, 128, True), (2, 136, 1, 128, False)]
 
 
+def flash_forward_errs(q, k, v, causal):
+    """Kernel 5 against ``flash_forward_plain`` (out and lse) and against
+    SDPA in float32 (out): ``((abs, rel), sdpa rel)``, and its outputs."""
+    import torch.nn.functional as F
+
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_forward(q, k, v, causal)
+    out_p, lse_p = fa.flash_forward_plain(q, k, v, causal)
+    worst = [scaled_err(g, w) for g, w in ((out, out_p), (lse, lse_p))]
+    sdpa = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)), is_causal=causal)
+    return ((max(e for e, _ in worst), max(r for _, r in worst)),
+            scaled_err(out, sdpa.transpose(1, 2))[1]), (out, lse)
+
+
 def flash_phase(device, b, t, h, d):
-    """Kernels 5, 6 and 7 at one LM layer's attention shapes, and kernels 6
-    and 7 at ``FLASH_EDGE_CASES``; two launches of each backward kernel must
-    agree bit for bit."""
+    """Kernels 5, 6 and 7 at one LM layer's attention shapes and at
+    ``FLASH_EDGE_CASES`` (the forward also against SDPA); two launches of
+    each kernel must agree bit for bit."""
     import torch
     import torch.nn.functional as F
 
     from kfac_pytorch_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = flash_qkv(device, b, t, h, d, seed=2)
-    out, lse = fa.flash_forward(q, k, v, True)
+    (fwd_err, sdpa_rel), (out, lse) = flash_forward_errs(q, k, v, True)
     out_p, lse_p = fa.flash_forward_plain(q, k, v, True)
     delta = (do * out_p).sum(dim=-1).transpose(1, 2).contiguous()
     errs, grads = flash_backward_errs(q, k, v, do, lse_p, delta, True)
-    fwd = [scaled_err(g, w) for g, w in ((out, out_p), (lse, lse_p))]
-    errs["forward"] = (max(e for e, _ in fwd), max(r for _, r in fwd))
+    errs["forward"] = fwd_err
     tols = {"forward": 2e-5, "dq": 1e-4, "dkv": 1e-4}
-    edge = {"dq": 0.0, "dkv": 0.0}
+    edge = {"forward": 0.0, "forward_sdpa": 0.0, "dq": 0.0, "dkv": 0.0}
     for case in FLASH_EDGE_CASES:
         eq, ek, ev, edo = flash_qkv(device, *case[:4], seed=3)
+        (case_fwd, case_sdpa), _ = flash_forward_errs(eq, ek, ev, case[4])
         e_out, e_lse = fa.flash_forward_plain(eq, ek, ev, case[4])
         e_delta = (edo * e_out).sum(dim=-1).transpose(1, 2).contiguous()
         case_errs, _ = flash_backward_errs(eq, ek, ev, edo, e_lse, e_delta, case[4])
+        case_errs["forward"], case_errs["forward_sdpa"] = case_fwd, (None, case_sdpa)
         for part in edge:
             edge[part] = max(edge[part], case_errs[part][1])
-            if not case_errs[part][1] <= tols[part]:
-                raise AssertionError(f"flash {part} kernel disagrees with its plain version at "
+            tol = tols[part.split("_")[0]]
+            if not case_errs[part][1] <= tol:
+                raise AssertionError(f"flash {part} kernel disagrees with its "
+                                     f"{'SDPA' if part == 'forward_sdpa' else 'plain version'} at "
                                      f"[B, T, H, D, causal] = {list(case)}: rel "
-                                     f"{case_errs[part][1]:.3e} > {tols[part]}")
+                                     f"{case_errs[part][1]:.3e} > {tol}")
     for part, tol in tols.items():
         if not errs[part][1] <= tol:
             raise AssertionError(
                 f"flash {part} kernel disagrees with its plain version: rel "
                 f"{errs[part][1]:.3e} > {tol}"
             )
+    if not sdpa_rel <= 2e-5:
+        raise AssertionError(f"flash forward disagrees with SDPA: rel {sdpa_rel:.3e}")
+    if not all(torch.equal(x, y) for x, y in zip((out, lse), fa.flash_forward(q, k, v, True))):
+        raise AssertionError("flash forward kernel: two launches on the same inputs differ")
     again = (fa.flash_backward_dq(q, k, v, do, lse_p, delta, True),
              *fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True))
     if not all(torch.equal(x, y) for x, y in zip(grads, again)):
         raise AssertionError("flash backward kernels: two launches on the same inputs differ")
 
-    # the library yardstick, and a second oracle: SDPA in float32 on [B, H, T, D]
+    # the library yardstick (the forward also held to it above): SDPA in
+    # float32 on [B, H, T, D]
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    sdpa_rel = scaled_err(out, lib_out.detach().transpose(1, 2))[1]
-    if not sdpa_rel <= 2e-5:
-        raise AssertionError(f"flash forward disagrees with SDPA: rel {sdpa_rel:.3e}")
     dot = do.transpose(1, 2).contiguous()
     lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
@@ -537,15 +584,22 @@ def flash_phase(device, b, t, h, d):
         "source": "kfac_pytorch_tpu_torch/csrc/flash_attention.cu",
         "unit": unit,
     }
-    fwd_b = bound_ms([(4 * (4 * n + r), 2 * tt)])
+    fwd_work = (4 * (4 * n + r), 2 * tt)
     dq_work, dkv_work = (4 * (5 * n + 2 * r), 3 * tt), (4 * (6 * n + 2 * r), 4 * tt)
+    edge_cases = "[B, T, H, D, causal] in " + str([list(c) for c in FLASH_EDGE_CASES])
+
+    def bounds(work):
+        tc = bound_ms([work], tf32_products=3)
+        return {"bound_ms": tc[0], "bound_by": tc[1],
+                "bound_route": "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s (the share is stated "
+                               "against this bound)",
+                "bound_f32_cuda_core_ms": bound_ms([work])[0]}
 
     def backward_row(part, name, replaces, fn, work):
-        tc = bound_ms([work], tf32_products=3)
         return {**base, "name": name, "replaces": replaces,
                 "max_abs_err": errs[part][0], "max_rel_err": errs[part][1],
                 "tolerance": f"|kernel - plain| <= 1e-4 * max|plain|{' (dk and dv)' * (part == 'dkv')}",
-                "edge_cases": "[B, T, H, D, causal] in " + str([list(c) for c in FLASH_EDGE_CASES]),
+                "edge_cases": edge_cases,
                 "edge_max_rel_err": edge[part],
                 "repeat_bitwise_equal": True,
                 "ms": time_ms(fn),
@@ -553,22 +607,24 @@ def flash_phase(device, b, t, h, d):
                 "plain": "flash_backward_plain (dq, dk and dv together)",
                 "library_ms": lib_bwd_ms,
                 "library": "autograd backward of SDPA (dq, dk and dv together)",
-                "bound_ms": tc[0], "bound_by": tc[1],
-                "bound_route": "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s (the share is stated "
-                               "against this bound)",
-                "bound_f32_cuda_core_ms": bound_ms([work])[0]}
+                **bounds(work)}
 
     return [
         {**base, "name": "flash_attention forward",
          "replaces": "kfac_pytorch_tpu/ops/flash_attention.py:125",
          "max_abs_err": errs["forward"][0], "max_rel_err": errs["forward"][1],
-         "tolerance": "|kernel - plain| <= 2e-5 * max|plain| (out and lse)",
+         "tolerance": "|kernel - plain| <= 2e-5 * max|plain| (out and lse); "
+                      "|kernel - SDPA| <= 2e-5 * max|SDPA| (out)",
          "sdpa_max_rel_err": sdpa_rel,
+         "edge_cases": edge_cases,
+         "edge_max_rel_err": edge["forward"],
+         "edge_sdpa_max_rel_err": edge["forward_sdpa"],
+         "repeat_bitwise_equal": True,
          "ms": time_ms(lambda: fa.flash_forward(q, k, v, True)),
          "plain_ms": time_ms(lambda: fa.flash_forward_plain(q, k, v, True)),
          "library_ms": lib_fwd_ms,
          "library": "F.scaled_dot_product_attention(is_causal=True), float32",
-         "bound_ms": fwd_b[0], "bound_by": fwd_b[1]},
+         **bounds(fwd_work)},
         backward_row("dq", "flash_attention backward dQ", "kfac_pytorch_tpu/ops/flash_attention.py:281",
                      lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, True), dq_work),
         backward_row("dkv", "flash_attention backward dK/dV", "kfac_pytorch_tpu/ops/flash_attention.py:298",
@@ -616,7 +672,7 @@ _KERNEL_GROUPS = (  # device kernel name fragment → what it is
     ("flash_fwd", "flash forward (kernel 5)"),
     ("flash_dq", "flash dQ (kernel 6)"),
     ("flash_dkv", "flash dK/dV (kernel 7)"),
-    ("chain_gemm", "fused apply (kernel 3)"),
+    ("chain_mma", "fused apply (kernel 3)"),
     ("fused_sgd", "fused SGD (kernel 4)"),
     ("token_hist", "token counts (kernel 2)"),
     ("counts_to_freq", "token counts (kernel 2)"),
@@ -940,7 +996,11 @@ def main() -> int:
     # 2. build
     secs = kernel_build.build_all()
     print(f"build: {secs:.1f} s for {len(kernel_build.SIGNATURES)} sources (nvcc, sm_90a)", flush=True)
-    print(json.dumps({"ptxas_registers_spill_bytes": ptxas_report()}), flush=True)
+    ptxas = ptxas_report()
+    print(json.dumps({"ptxas_registers_spill_bytes": ptxas}), flush=True)
+    spilled = {fn: v for fn, v in ptxas.items() if v[1] and ("chain_mma" in fn or "flash_fwd" in fn)}
+    if spilled:
+        raise AssertionError(f"the fused apply or flash forward kernels spill registers: {spilled}")
 
     def report(entries):
         for k in entries:

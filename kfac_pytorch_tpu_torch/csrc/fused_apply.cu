@@ -13,132 +13,375 @@
 // What bounds it on this card: operations for the wide groups, bytes for
 // the narrow ones. A layer costs 4·g·a·(g + a) FLOPs against
 // ~4·(a² + g² + 2·g·a) bytes: ~58 FLOP per byte at ResNet-32's widest
-// group (g = 64, a = 576), ~14 at (16, 144), against a float32 ridge of
-// 67 TFLOP/s / 3.35 TB/s = 20 FLOP/B. The wide groups dominate the step.
+// group (g = 64, a = 576), ~500 at the LM's (2048, 513). Every product runs
+// on the tensor cores as 3xTF32 (csrc/tf32_mma.cuh: mma.sync m16n8k8 TF32
+// on operands split big + small in registers, about float32 accuracy), so
+// the bound is 3 × FLOPs over the 495 TFLOP/s TF32 rate (the CUDA cores'
+// IEEE float32 rate is 67 TFLOP/s).
 //
 // Design. The Pallas body loads a layer's whole G, QA and QG at once; at
-// a = 576 QA alone is 1.3 MB, far over the 227 KB of shared memory. Here
+// a = 2049 QA alone is 16.8 MB, far over the 227 KB of shared memory. Here
 // the chain runs as four launches of one tiled batched-GEMM kernel over
-// blockIdx.z = layer (64x64 output tiles, 16-deep shared-memory stages, a
-// 4x4 register block per thread):
-//   1. T = QGᵀ · G
-//   2. T = (T · QA) / (dG dAᵀ + λ)     damped divide in the epilogue
-//   3. T = QG · T
-//   4. v = T · QAᵀ, vg += Σ v ⊙ G      KL partial reduced in the epilogue
-// The two [k, g, a] intermediates live in scratch the wrapper allocates;
-// at these sizes they stay in L2. Each block adds its tile's share of vg
-// with one float atomic, so vg's last bits vary from run to run.
+// blockIdx.z = layer:
+//   1. T1 = QGᵀ · G                     A = QG read k-major (m contiguous)
+//   2. T2 = (T1 · QA) / (dG dAᵀ + λ)    damped divide in the epilogue
+//   3. T1 = QG · T2
+//   4. v = T1 · QAᵀ, vg = Σ v ⊙ G       B = QA read k-contiguous; KL partial
+//                                       reduced in the epilogue
+// The two [k, g, a] intermediates live in scratch the wrapper allocates,
+// with rows padded to a multiple of 4 floats; at these sizes they stay in
+// L2. The block tile is a template chosen per group (plan below): 32x32
+// (4 warps of 16x16) for G sides of at most 32; else 128x128 (8 warps of
+// 32x64, one block per SM) where the group's blocks fill at least 90% of
+// the waves they need, and 64x64 (4 warps of 32x32, two or three blocks
+// per SM) where the last wave of 128x128 blocks would leave SMs idle (the
+// LM's groups: at a = 513 a fifth 128-wide column holds one live column).
+// The K dimension streams 32 deep through a three-stage ring of cp.async
+// copies. Shared-memory rows are padded by 4 floats where k is contiguous
+// and by 8 where m or n is, which makes every fragment load conflict-free.
+//
+// Rows that are not 16-byte aligned (a or g no multiple of 4: the LM's
+// a = 513, 2049, ResNet-32's 27 and 65) are copied with 4-byte cp.async,
+// chosen per operand by template; the padded intermediates always take
+// 16-byte copies. Either way the copy zero-fills past the matrix edge.
+//
+// Accuracy. The tensor cores truncate the float32 sums they accumulate, so
+// a sum over K = 2049 taken on them alone drifts with K. Each 32-deep step
+// therefore starts a fresh fragment, and the step's sum is added to a
+// float32 accumulator on the CUDA cores (rounded): the error then does not
+// grow with K.
+//
+// vg is deterministic: each block of step 4 writes its tile's partial to
+// scratch; the last block of a layer to finish (counted with an atomic
+// after a fence) sums the partials in tile order. Two launches give
+// bitwise-equal v and vg.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kDepth = 16;
-constexpr int kPad = 4;  // shared-memory row padding (bank conflicts)
-constexpr int kThreads = 256;
+using namespace tf32x3;
+
+constexpr int kDepth = 32;  // K per pipeline stage
+constexpr int kStages = 3;
 
 enum Epilogue { kStore = 0, kDampedDivide = 1, kStoreAndDot = 2 };
 
-// C[z] = opA(A[z]) · opB(B[z]); opA(m, k) = TA ? A[k, m] : A[m, k],
-// opB(k, n) = TB ? B[n, k] : B[k, n]; all row-major with the given leading
-// dimensions and per-layer strides.
-template <bool TA, bool TB, int EPI>
-__global__ void __launch_bounds__(kThreads)
-chain_gemm(const float* __restrict__ A, const float* __restrict__ B,
-           float* __restrict__ Cm, int M, int N, int K, long long sA,
-           long long sB, long long sC, int lda, int ldb, int ldc,
-           const float* __restrict__ dG, const float* __restrict__ dA,
-           const float* __restrict__ lam, const float* __restrict__ G,
-           float* __restrict__ vg) {
-  const int z = blockIdx.z;
-  A += z * sA;
-  B += z * sB;
-  Cm += z * sC;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+template <int BM_, int BN_, int WM_, int WN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int kWarpsN = BN / WN;
+  static constexpr int kWarps = (BM / WM) * kWarpsN;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int MT = WM / 16, NT = WN / 8;  // mma tiles per warp
+};
+using Large = Tile<128, 128, 32, 64>;
+using Medium = Tile<64, 64, 32, 32>;
+using Small = Tile<32, 32, 16, 16>;
+constexpr int kMinTile = 32;  // the smallest BM and BN: bounds the partials
 
-  __shared__ __align__(16) float As[kDepth][kTile + kPad];
-  __shared__ __align__(16) float Bs[kDepth][kTile + kPad];
+// One operand's tile in shared memory: R rows of it (BM of A, BN of B) by
+// kDepth, stored k-contiguous ([R][kDepth + 4]) or R-contiguous
+// ([kDepth][R + 8]) as it lies in global memory.
+template <int R, bool KCONTIG>
+struct Operand {
+  static constexpr int kRows = KCONTIG ? R : kDepth;
+  static constexpr int kCols = KCONTIG ? kDepth : R;
+  static constexpr int kLd = kCols + (KCONTIG ? 4 : 8);
+  static constexpr int kSize = kRows * kLd;
+};
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[4][4];
+// ROWS x COLS floats at src (row stride ld) into dst (row stride LD), as
+// 16-byte (VEC) or 4-byte cp.async copies; entries past rows_left or
+// cols_left are zero-filled. src is in bounds and, for VEC, 16-byte aligned
+// with ld a multiple of 4.
+template <int ROWS, int COLS, int LD, int THREADS, bool VEC>
+__device__ __forceinline__ void load_async(float* __restrict__ dst,
+                                           const float* __restrict__ src,
+                                           int ld, int rows_left,
+                                           int cols_left) {
+  constexpr int C4 = COLS / 4;
+  static_assert((ROWS * C4) % THREADS == 0, "whole copies per thread");
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < ROWS * C4 / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / C4, c = 4 * (e % C4);
+    const int n = r < rows_left ? max(0, min(4, cols_left - c)) : 0;
+    const float* s = n ? src + (long long)r * ld + c : src;
+    float* d = dst + r * LD + c;
+    if (VEC) {
+      cp_async16(d, s, 4 * n);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * kThreads;
-      // A tile: coalesced along whichever index is contiguous in memory
-      int m, k;
-      if (TA) { k = e >> 6; m = e & 63; } else { m = e >> 4; k = e & 15; }
-      float va = 0.f;
-      if (m0 + m < M && k0 + k < K)
-        va = TA ? A[(long long)(k0 + k) * lda + m0 + m]
-                : A[(long long)(m0 + m) * lda + k0 + k];
-      As[k][m] = va;
-      int n;
-      if (TB) { n = e >> 4; k = e & 15; } else { k = e >> 6; n = e & 63; }
-      float vb = 0.f;
-      if (n0 + n < N && k0 + k < K)
-        vb = TB ? B[(long long)(n0 + n) * ldb + k0 + k]
-                : B[(long long)(k0 + k) * ldb + n0 + n];
-      Bs[k][n] = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float dot = 0.f;
-  const float l = (EPI == kDampedDivide) ? *lam : 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      float c = acc[i][j];
-      if (EPI == kDampedDivide)
-        c = c / (dG[(long long)z * M + m] * dA[(long long)z * N + n] + l);
-      Cm[(long long)m * ldc + n] = c;
-      if (EPI == kStoreAndDot)
-        dot = fmaf(c, G[(long long)z * M * N + (long long)m * N + n], dot);
-    }
-  }
-  if (EPI == kStoreAndDot) {
-    __shared__ float warp_sums[kThreads / 32];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    if ((tid & 31) == 0) warp_sums[tid >> 5] = dot;
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
-      atomicAdd(vg + z, s);
+      for (int j = 0; j < 4; ++j) cp_async4(d + j, j < n ? s + j : src, j < n);
     }
   }
 }
 
+// One product of the chain, batched over layers: C[z] = opA(A[z]) ·
+// opB(B[z]) with opA(m, k) = TA ? A[k, m] : A[m, k], opB(k, n) = TB ?
+// B[n, k] : B[k, n], all row-major with the given leading dimensions and
+// per-layer strides, then the epilogue.
+struct Gemm {
+  const float* A;
+  const float* B;
+  float* C;
+  int M, N, K, lda, ldb, ldc;
+  long long sA, sB, sC;
+  const float* dG;  // kDampedDivide: [k, M], [k, N] and λ
+  const float* dA;
+  const float* lam;
+  const float* G;   // kStoreAndDot: laid out as C; partials and counters
+  float* partial;
+  unsigned* done;
+  float* vg;
+};
+
+template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB>
+__global__ void __launch_bounds__(TL::kThreads) chain_mma(const Gemm p) {
+  using OA = Operand<TL::BM, !TA>;
+  using OB = Operand<TL::BN, TB>;
+  constexpr int kStage = OA::kSize + OB::kSize;
+  constexpr int MT = TL::MT, NT = TL::NT, BM = TL::BM, BN = TL::BN;
+  extern __shared__ __align__(16) float smem[];
+  const int z = blockIdx.z;
+  const float* A = p.A + z * p.sA;
+  const float* B = p.B + z * p.sB;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int M = p.M, N = p.N, K = p.K, lda = p.lda, ldb = p.ldb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / TL::kWarpsN) * TL::WM, wn = (warp % TL::kWarpsN) * TL::WN;
+
+  const auto load_stage = [&](int kt, float* st) {
+    const int k0 = kt * kDepth;
+    constexpr int T = TL::kThreads;
+    if constexpr (TA)
+      load_async<kDepth, BM, OA::kLd, T, VA>(st, A + (long long)k0 * lda + m0, lda, K - k0, M - m0);
+    else
+      load_async<BM, kDepth, OA::kLd, T, VA>(st, A + (long long)m0 * lda + k0, lda, M - m0, K - k0);
+    float* sb = st + OA::kSize;
+    if constexpr (TB)
+      load_async<BN, kDepth, OB::kLd, T, VB>(sb, B + (long long)n0 * ldb + k0, ldb, N - n0, K - k0);
+    else
+      load_async<kDepth, BN, OB::kLd, T, VB>(sb, B + (long long)k0 * ldb + n0, ldb, K - k0, N - n0);
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int ktiles = (K + kDepth - 1) / kDepth;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load_stage(s, smem + s * kStage);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    const int next = kt + kStages - 1;
+    if (next < ktiles) load_stage(next, smem + (next % kStages) * kStage);
+    cp_async_commit();
+    const float* As = smem + (kt % kStages) * kStage;
+    const float* Bs = As + OA::kSize;
+    float c[MT][NT][4];  // this step's sums, on the tensor cores
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDepth; kk += 8) {
+      uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = wm + 16 * i + g;
+        constexpr int L = OA::kLd;
+        if constexpr (TA)
+          split4(As[(kk + t) * L + r], As[(kk + t) * L + r + 8],
+                 As[(kk + t + 4) * L + r], As[(kk + t + 4) * L + r + 8], ab[i], as[i]);
+        else
+          split4(As[r * L + kk + t], As[(r + 8) * L + kk + t],
+                 As[r * L + kk + t + 4], As[(r + 8) * L + kk + t + 4], ab[i], as[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = wn + 8 * j + g;
+        constexpr int L = OB::kLd;
+        const float b0 = TB ? Bs[n * L + kk + t] : Bs[(kk + t) * L + n];
+        const float b1 = TB ? Bs[n * L + kk + t + 4] : Bs[(kk + t + 4) * L + n];
+        uint32_t bb0, bs0, bb1, bs1;
+        split(b0, bb0, bs0);
+        split(b1, bb1, bs1);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_tf32(c[i][j], as[i], bb0, bb1);
+          mma_tf32(c[i][j], ab[i], bs0, bs1);
+          mma_tf32(c[i][j], ab[i], bb0, bb1);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += c[i][j][e];
+  }
+
+  float* C = p.C + z * p.sC;
+  float dot = 0.f;
+  const float l = EPI == kDampedDivide ? *p.lam : 0.f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + 16 * i + g + 8 * (e >> 1);
+        const int n = n0 + wn + 8 * j + 2 * t + (e & 1);
+        if (m >= M || n >= N) continue;
+        float x = acc[i][j][e];
+        if (EPI == kDampedDivide)
+          x = x / (p.dG[(long long)z * M + m] * p.dA[(long long)z * N + n] + l);
+        const long long at = (long long)m * p.ldc + n;
+        C[at] = x;
+        if (EPI == kStoreAndDot) dot = fmaf(x, p.G[z * p.sC + at], dot);
+      }
+  if (EPI == kStoreAndDot) {
+    __shared__ float warp_sums[TL::kWarps];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane == 0) warp_sums[warp] = dot;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < TL::kWarps; ++w) s += warp_sums[w];
+      const unsigned tiles = gridDim.x * gridDim.y;
+      float* part = p.partial + (long long)z * tiles;
+      part[blockIdx.y * gridDim.x + blockIdx.x] = s;
+      __threadfence();  // the partial is visible before the count
+      if (atomicAdd(p.done + z, 1u) == tiles - 1) {
+        __threadfence();  // the last block sees every partial
+        float sum = 0.f;
+        for (unsigned i = 0; i < tiles; ++i) sum += __ldcg(part + i);
+        p.vg[z] = sum;
+      }
+    }
+  }
+}
+
+template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB>
+cudaError_t run(const Gemm& p, int k, cudaStream_t s) {
+  constexpr size_t smem =
+      sizeof(float) * kStages * (Operand<TL::BM, !TA>::kSize + Operand<TL::BN, TB>::kSize);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      chain_mma<TL, TA, TB, EPI, VA, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((p.N + TL::BN - 1) / TL::BN, (p.M + TL::BM - 1) / TL::BM, k);
+  chain_mma<TL, TA, TB, EPI, VA, VB><<<grid, TL::kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// B's copy width chosen at run time, A's fixed
+template <class TL, bool TA, bool TB, int EPI, bool VA>
+cudaError_t run_vb(bool vb, const Gemm& p, int k, cudaStream_t s) {
+  return vb ? run<TL, TA, TB, EPI, VA, true>(p, k, s) : run<TL, TA, TB, EPI, VA, false>(p, k, s);
+}
+
+bool aligned(const void* ptr, int ld) {
+  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// The tile and copy widths of one group, as kfac_fused_apply_route reports
+// them: 16-byte copies for G (step 1's B), QA (steps 2 and 4's B) and QG
+// (steps 1 and 3's A) where their rows are aligned.
+struct Plan {
+  int tile;  // 0 Small, 1 Medium, 2 Large
+  bool vgm, vqa, vqg;
+};
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
+}
+
+Plan plan(int k, int g, int a, const void* gm, const void* qa, const void* qg) {
+  Plan pl;
+  pl.vgm = aligned(gm, a);
+  pl.vqa = aligned(qa, a);
+  pl.vqg = aligned(qg, g);
+  // one 128x128 block fills an SM: take it only where the group's blocks
+  // fill at least 90% of the waves they need (wave-quantization loss);
+  // its k-major 4-byte copies of QG would spill registers
+  const long long large = (long long)((g + 127) / 128) * ((a + 127) / 128) * k;
+  const long long waves = (large + sm_count() - 1) / sm_count();
+  const bool fills = 10 * large >= 9 * waves * sm_count();
+  pl.tile = g <= 32 ? 0 : fills && pl.vqg ? 2 : 1;
+  return pl;
+}
+
+// the four launches of one group; QG4: whether QG's rows may take 4-byte
+// copies (the plan gives the 128x128 tile aligned QG rows only)
+template <class TL, bool QG4>
+cudaError_t chain(const Plan& pl, const Gemm& base, const float* G,
+                  const float* QA, const float* QG, float* T1, float* T2,
+                  float* V, int k, int g, int a, int ldt, cudaStream_t s) {
+  const long long sGA = (long long)g * a, sAA = (long long)a * a,
+                  sGG = (long long)g * g, sT = (long long)g * ldt;
+  Gemm p = base;
+  cudaError_t err;
+  // 1. T1 = QGᵀ · G                        [g, g]ᵀ x [g, a]
+  p.A = QG; p.B = G; p.C = T1; p.M = g; p.N = a; p.K = g;
+  p.lda = g; p.ldb = a; p.ldc = ldt; p.sA = sGG; p.sB = sGA; p.sC = sT;
+  if constexpr (QG4)
+    err = pl.vqg ? run_vb<TL, true, false, kStore, true>(pl.vgm, p, k, s)
+                 : run_vb<TL, true, false, kStore, false>(pl.vgm, p, k, s);
+  else
+    err = run_vb<TL, true, false, kStore, true>(pl.vgm, p, k, s);
+  if (err != cudaSuccess) return err;
+  // 2. T2 = (T1 · QA) / (dG dAᵀ + λ)        [g, a] x [a, a]
+  p.A = T1; p.B = QA; p.C = T2; p.K = a;
+  p.lda = ldt; p.ldb = a; p.ldc = ldt; p.sA = sT; p.sB = sAA; p.sC = sT;
+  err = run_vb<TL, false, false, kDampedDivide, true>(pl.vqa, p, k, s);
+  if (err != cudaSuccess) return err;
+  // 3. T1 = QG · T2                        [g, g] x [g, a]
+  p.A = QG; p.B = T2; p.C = T1; p.K = g;
+  p.lda = g; p.ldb = ldt; p.ldc = ldt; p.sA = sGG; p.sB = sT; p.sC = sT;
+  if constexpr (QG4)
+    err = pl.vqg ? run<TL, false, false, kStore, true, true>(p, k, s)
+                 : run<TL, false, false, kStore, false, true>(p, k, s);
+  else
+    err = run<TL, false, false, kStore, true, true>(p, k, s);
+  if (err != cudaSuccess) return err;
+  // 4. v = T1 · QAᵀ, vg = Σ v ⊙ G           [g, a] x [a, a]ᵀ
+  p.A = T1; p.B = QA; p.C = V; p.K = a;
+  p.lda = ldt; p.ldb = a; p.ldc = a; p.sA = sT; p.sB = sAA; p.sC = sGA;
+  return run_vb<TL, false, true, kStoreAndDot, true>(pl.vqa, p, k, s);
+}
+
 }  // namespace
 
+// scratch1: [k, g, ldt] floats, ldt = a rounded up to a multiple of 4.
+// scratch2: [k, g, ldt] floats, then k·⌈g/32⌉·⌈a/32⌉ floats of KL
+// partials, then k 32-bit counters (zeroed here on the stream). vg needs
+// no initial value.
 extern "C" int kfac_fused_precondition(const void* gm, const void* qa,
                                        const void* da, const void* qg,
                                        const void* dg, const void* lam,
@@ -146,34 +389,38 @@ extern "C" int kfac_fused_precondition(const void* gm, const void* qa,
                                        void* out, void* vg, int k, int g,
                                        int a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* G = static_cast<const float*>(gm);
-  const float* QA = static_cast<const float*>(qa);
-  const float* QG = static_cast<const float*>(qg);
-  const float* DA = static_cast<const float*>(da);
-  const float* DG = static_cast<const float*>(dg);
-  const float* L = static_cast<const float*>(lam);
-  float* T1 = static_cast<float*>(scratch1);
+  const int ldt = (a + 3) / 4 * 4;
   float* T2 = static_cast<float*>(scratch2);
-  float* V = static_cast<float*>(out);
-  float* VG = static_cast<float*>(vg);
-  const long long sGA = (long long)g * a, sAA = (long long)a * a,
-                  sGG = (long long)g * g;
-  const dim3 grid((a + kTile - 1) / kTile, (g + kTile - 1) / kTile, k);
-  // 1. T1 = QGᵀ · G                        [g, g] x [g, a]
-  chain_gemm<true, false, kStore><<<grid, kThreads, 0, s>>>(
-      QG, G, T1, g, a, g, sGG, sGA, sGA, g, a, a, nullptr, nullptr, nullptr,
-      nullptr, nullptr);
-  // 2. T2 = (T1 · QA) / (dG dAᵀ + λ)        [g, a] x [a, a]
-  chain_gemm<false, false, kDampedDivide><<<grid, kThreads, 0, s>>>(
-      T1, QA, T2, g, a, a, sGA, sAA, sGA, a, a, a, DG, DA, L, nullptr,
-      nullptr);
-  // 3. T1 = QG · T2                        [g, g] x [g, a]
-  chain_gemm<false, false, kStore><<<grid, kThreads, 0, s>>>(
-      QG, T2, T1, g, a, g, sGG, sGA, sGA, g, a, a, nullptr, nullptr, nullptr,
-      nullptr, nullptr);
-  // 4. v = T1 · QAᵀ, vg += Σ v ⊙ G          [g, a] x [a, a]ᵀ
-  chain_gemm<false, true, kStoreAndDot><<<grid, kThreads, 0, s>>>(
-      T1, QA, V, g, a, a, sGA, sAA, sGA, a, a, a, nullptr, nullptr, nullptr,
-      G, VG);
-  return (int)cudaGetLastError();
+  float* partial = T2 + (long long)k * g * ldt;
+  unsigned* done = reinterpret_cast<unsigned*>(
+      partial + (long long)k * ((g + kMinTile - 1) / kMinTile) * ((a + kMinTile - 1) / kMinTile));
+  cudaError_t err = cudaMemsetAsync(done, 0, sizeof(unsigned) * k, s);
+  if (err != cudaSuccess) return (int)err;
+  Gemm base{};
+  base.dG = static_cast<const float*>(dg);
+  base.dA = static_cast<const float*>(da);
+  base.lam = static_cast<const float*>(lam);
+  base.G = static_cast<const float*>(gm);
+  base.partial = partial;
+  base.done = done;
+  base.vg = static_cast<float*>(vg);
+  const Plan pl = plan(k, g, a, gm, qa, qg);
+  const float *G = static_cast<const float*>(gm), *QA = static_cast<const float*>(qa),
+              *QG = static_cast<const float*>(qg);
+  float *T1 = static_cast<float*>(scratch1), *V = static_cast<float*>(out);
+  switch (pl.tile) {
+    case 2: err = chain<Large, false>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s); break;
+    case 1: err = chain<Medium, true>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s); break;
+    default: err = chain<Small, true>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s); break;
+  }
+  return (int)err;
+}
+
+// The plan kfac_fused_precondition takes for these inputs: bits 0-1 the
+// tile (0: 32x32, 1: 64x64, 2: 128x128); bit 2 set where G's rows take
+// 16-byte copies, bit 3 QA's, bit 4 QG's (else 4-byte copies).
+extern "C" int kfac_fused_apply_route(int k, int g, int a, const void* gm,
+                                      const void* qa, const void* qg) {
+  const Plan pl = plan(k, g, a, gm, qa, qg);
+  return pl.tile | (pl.vgm << 2) | (pl.vqa << 3) | (pl.vqg << 4);
 }

@@ -6,8 +6,9 @@ its plain PyTorch version beside it and a launch counter on the wrapper
 
 * :func:`fused_precondition_stack` — for one ``[k, g, a]`` shape group,
   ``v = QG·[(QGᵀ·g·QA)/(dG dAᵀ + λ)]·QAᵀ`` plus the per-layer KL-clip
-  partial ``Σ v·g`` (``csrc/fused_apply.cu``, replacing the TPU kernel
-  ``fused_precondition_stack`` → ``_fused_apply_kernel``);
+  partial ``Σ v·g`` (``csrc/fused_apply.cu``, four 3xTF32 tensor-core
+  GEMM launches, replacing the TPU kernel ``fused_precondition_stack`` →
+  ``_fused_apply_kernel``);
 * :func:`fused_sgd_apply` — ``m' = μ·m + (g + wd·p); p' = p − lr·m'`` over
   every parameter leaf, updating params and momentum IN PLACE
   (``csrc/fused_sgd.cu``, replacing ``fused_sgd_apply`` →
@@ -106,15 +107,20 @@ def fused_precondition_stack(
             )
     gm, qa, da, qg, dg = (t.contiguous() for t in (gm, qa, da, qg, dg))
     lam = _damping_tensor(damping, gm.device)
-    scratch1 = torch.empty_like(gm)
-    scratch2 = torch.empty_like(gm)
+    # one buffer for the kernel's scratch: the two [k, g, a] intermediates
+    # with rows padded to a multiple of 4 floats (16-byte cp.async), then
+    # the per-tile KL partials (at most one per 32 x 32 tile) and one
+    # counter per layer
+    inter = k * g * (-(-a // 4) * 4)
+    partials = k * -(-g // 32) * -(-a // 32)
+    scratch = torch.empty(2 * inter + partials + k, dtype=torch.float32, device=gm.device)
     out = torch.empty_like(gm)
-    vg = torch.zeros((k,), dtype=torch.float32, device=gm.device)
+    vg = torch.empty((k,), dtype=torch.float32, device=gm.device)
     lib = kernel_build.load("fused_apply")
     err = lib.kfac_fused_precondition(
         gm.data_ptr(), qa.data_ptr(), da.data_ptr(), qg.data_ptr(),
-        dg.data_ptr(), lam.data_ptr(), scratch1.data_ptr(),
-        scratch2.data_ptr(), out.data_ptr(), vg.data_ptr(), k, g, a,
+        dg.data_ptr(), lam.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + 4 * inter, out.data_ptr(), vg.data_ptr(), k, g, a,
         kernel_build.current_stream_handle(gm.device),
     )
     kernel_build.check(err, "fused_apply")
@@ -123,6 +129,23 @@ def fused_precondition_stack(
 
 
 fused_precondition_stack.launches = 0
+
+_APPLY_TILES = ("32x32", "64x64", "128x128")
+
+
+def fused_apply_route(gm: torch.Tensor, qa: torch.Tensor, qg: torch.Tensor) -> Dict[str, object]:
+    """What :func:`fused_precondition_stack` launches for these contiguous
+    CUDA inputs: its block tile, and the ``cp.async`` copy width in bytes
+    of G's, QA's and QG's rows (16 where a row starts 16-byte aligned, else
+    4). The padded intermediates always take 16-byte copies."""
+    k, g, a = gm.shape
+    bits = kernel_build.load("fused_apply").kfac_fused_apply_route(
+        k, g, a, gm.data_ptr(), qa.data_ptr(), qg.data_ptr()
+    )
+    return {
+        "tile": _APPLY_TILES[bits & 3],
+        **{name: 16 if bits & bit else 4 for name, bit in (("G", 4), ("QA", 8), ("QG", 16))},
+    }
 
 
 def dispatch_precondition_stack(

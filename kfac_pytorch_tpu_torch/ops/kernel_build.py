@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds. Builds happen at first use, into
 ``build/kfac_torch_kernels/`` at the repository root (``.gitignore`` lists
-``build/``), and are reused while the library is newer than its source.
+``build/``), and are reused while the library is newer than its source and
+every header of ``csrc/`` that the source includes.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing is built or loaded at import time: this module imports on machines
@@ -16,11 +17,12 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
@@ -43,6 +45,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "fused_apply": {
         # gm, qa, da, qg, dg, lam, scratch1, scratch2, out, vg, k, g, a, stream
         "kfac_fused_precondition": (_P,) * 10 + (_I, _I, _I, _P),
+        # k, g, a, gm, qa, qg -> the plan's tile and copy widths (bits)
+        "kfac_fused_apply_route": (_I, _I, _I, _P, _P, _P),
     },
     "fused_sgd": {
         # params**, grads**, trace**, sizes*, count, lr, momentum, wd, stream
@@ -89,10 +93,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files or not path.exists():
+            continue
+        files.append(path)
+        todo.extend(CSRC / inc for inc in _INCLUDE.findall(path.read_text()))
+    return files
+
+
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < path.stat().st_mtime for path in _inputs(name))
 
 
 def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> float:

@@ -8,16 +8,17 @@ without JAX; there, skip the JAX test harness's ``conftest.py``:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Tolerances: the kernels sum in another order than the plain versions'
-library products (and the apply's KL partials with float atomics), so
+library products, so
 products are held to ``|got − want| ≤ rtol·max|want|`` — 1e-5 for the
 covariances (sums of up to ~10⁵ rows; per group for grouped convs), 1e-4 for the apply, whose damped
-divide amplifies rounding by up to 1/λ. The SGD kernel rounds each product
+divide amplifies rounding by up to 1/λ (its KL partials are summed per
+tile, then in tile order). The SGD kernel rounds each product
 and sum separately, as the plain version does: 1e-6 relative. The token
 counts are integers divided once by N: bitwise. Flash attention: 2e-5 for
 the forward (softmax-weighted sums of at most T values in float32), 1e-4
-for the gradients, whose dS = p ⊙ (dP − Δ) cancels and whose products run
-as 3xTF32 on the tensor cores (about float32 accuracy); two launches of a
-backward kernel agree bit for bit.
+for the gradients, whose dS = p ⊙ (dP − Δ) cancels. The products of the
+apply and of the three flash kernels run as 3xTF32 on the tensor cores
+(about float32 accuracy); two launches of any of them agree bit for bit.
 """
 
 import numpy as np
@@ -126,10 +127,15 @@ def _apply_inputs(seed, k, g, a, device):
     return [torch.from_numpy(x).to(device) for x in arrs]
 
 
+# ResNet-32's groups (g 10 … 64, a 27 … 576), ResNeXt's pseudo-layer
+# stacks (96 × [4, 36], 128 × [8, 72]), and the wide groups with odd A
+# sides (a bias column): the classifier [1000, 2049], the LM's MLP
+# [512, 2049] and QKV [1536, 513], ResNeXt's [2048, 1024]
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "k,g,a", [(1, 16, 27), (10, 16, 144), (1, 32, 144), (9, 32, 288), (9, 64, 576), (1, 10, 65),
-              (96, 4, 36), (128, 8, 72)]
+              (96, 4, 36), (128, 8, 72), (1, 1000, 2049), (4, 512, 2049), (4, 1536, 513),
+              (2, 2048, 1024)]
 )
 def test_fused_apply_kernel_matches_plain(cuda_device, k, g, a):
     arrs = _apply_inputs(50 + a, k, g, a, cuda_device)
@@ -140,6 +146,65 @@ def test_fused_apply_kernel_matches_plain(cuda_device, k, g, a):
     v_p, vg_p = tapply.fused_precondition_stack_plain(*arrs, 0.003)
     _close_scaled(v, v_p, rtol=1e-4)
     _close_scaled(vg, vg_p, rtol=1e-4)
+
+
+def _unaligned_copy(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return flat.view(x.shape).copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,g,a", [(2, 64, 576), (3, 300, 512)])
+def test_fused_apply_copy_widths_agree_bitwise(cuda_device, k, g, a):
+    """Rows that start 16-byte aligned stream through 16-byte cp.async,
+    others through 4-byte copies; both fill shared memory with the same
+    values, so the two routes agree bit for bit."""
+    gm, qa, da, qg, dg = _apply_inputs(55, k, g, a, cuda_device)
+    assert {key: tapply.fused_apply_route(gm, qa, qg)[key] for key in ("G", "QA", "QG")} == {
+        "G": 16, "QA": 16, "QG": 16}
+    odd = [_unaligned_copy(x) for x in (gm, qa, qg)]
+    assert {key: tapply.fused_apply_route(*odd)[key] for key in ("G", "QA", "QG")} == {
+        "G": 4, "QA": 4, "QG": 4}
+    v, vg = tapply.fused_precondition_stack(gm, qa, da, qg, dg, 0.003)
+    v_odd, vg_odd = tapply.fused_precondition_stack(odd[0], odd[1], da, odd[2], dg, 0.003)
+    assert torch.equal(v, v_odd) and torch.equal(vg, vg_odd)
+    _close_scaled(v, tapply.fused_precondition_stack_plain(gm, qa, da, qg, dg, 0.003)[0], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_apply_routes_of_the_paths_shapes(cuda_device):
+    """The plan per group: odd sides take 4-byte copies; the tile follows
+    the G side and how well the group's 128 x 128 blocks fill the waves
+    they need on the card's SMs (132 on an H100 SXM)."""
+    def route(k, g, a):
+        gm, qa, _, qg, _ = (torch.zeros(s, device=cuda_device)
+                            for s in ((k, g, a), (k, a, a), (k, a), (k, g, g), (k, g)))
+        return tapply.fused_apply_route(gm, qa, qg)
+
+    assert route(1, 10, 65) == {"tile": "32x32", "G": 4, "QA": 4, "QG": 4}
+    assert route(96, 4, 36) == {"tile": "32x32", "G": 16, "QA": 16, "QG": 16}
+    # 320 blocks of 128 x 128 take 3 waves of 132, the last 42% full
+    assert route(4, 2048, 513) == {"tile": "64x64", "G": 4, "QA": 4, "QG": 16}
+    # 512 blocks: 4 waves, 97% full
+    assert route(4, 2048, 1024) == {"tile": "128x128", "G": 16, "QA": 16, "QG": 16}
+    # the 128 x 128 tile takes aligned QG rows only
+    assert route(4, 2046, 1024) == {"tile": "64x64", "G": 16, "QA": 16, "QG": 4}
+    assert route(1, 1000, 513)["tile"] == "64x64"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,g,a", [(4, 1024, 520), (3, 300, 513), (96, 4, 36)])
+def test_fused_apply_kernel_is_deterministic(cuda_device, k, g, a):
+    """Each v entry has one owning block; vg sums the per-tile partials in
+    tile order in the last block of its layer: two launches agree bit for
+    bit (for each of the three tiles)."""
+    arrs = _apply_inputs(57, k, g, a, cuda_device)
+    v1, vg1 = tapply.fused_precondition_stack(*arrs, 0.003)
+    v2, vg2 = tapply.fused_precondition_stack(*arrs, 0.003)
+    assert torch.equal(v1, v2) and torch.equal(vg1, vg2)
+    _close_scaled(vg1, tapply.fused_precondition_stack_plain(*arrs, 0.003)[1], rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -253,6 +318,28 @@ def test_flash_backward_kernels_are_deterministic(cuda_device, d):
               *tflash.flash_backward_dkv(q, k, v, do, lse, delta, True))
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d,causal", [(1, 200, 2, 64, False), (1, 2048, 2, 64, True),
+                                            (1, 136, 1, 128, False), (1, 200, 2, 32, True)])
+def test_flash_forward_matches_sdpa_and_repeats_bitwise(cuda_device, b, t, h, d, causal):
+    """The forward kernel against SDPA in float32 (a second oracle) and
+    against itself: each output row has one owning block that sums over
+    keys in a fixed order, so two launches agree bit for bit."""
+    import torch.nn.functional as F
+
+    r = np.random.RandomState(95 + t)
+    q, k, v = (torch.from_numpy(r.randn(b, t, h, d).astype(np.float32)).to(cuda_device)
+               for _ in range(3))
+    out, lse = tflash.flash_forward(q, k, v, causal)
+    again = tflash.flash_forward(q, k, v, causal)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)), is_causal=causal)
+    _close_scaled(out, ref.transpose(1, 2), rtol=2e-5)
+    out_p, lse_p = tflash.flash_forward_plain(q, k, v, causal)
+    _close_scaled(out, out_p, rtol=2e-5)
+    _close_scaled(lse, lse_p, rtol=2e-5)
 
 
 @pytest.mark.cuda

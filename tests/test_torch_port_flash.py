@@ -6,9 +6,10 @@
   tests run them (``interpret=True``), forward, saved logsumexp and the
   gradients of q, k and v, causal and not; a ragged length (T = 200, no
   multiple of the 64-row tile) against JAX ``full_attention``, which is
-  what the JAX package runs at such a length. The CUDA backward's numerical
-  scheme (3xTF32 products on the tensor cores) is emulated in float32 and
-  held to a float64 reference.
+  what the JAX package runs at such a length. The CUDA kernels' numerical
+  scheme (3xTF32 products on the tensor cores; in the forward, each key
+  tile's P·V added to the rescaled output on the CUDA cores) is emulated
+  in float32 and held to a float64 reference.
 * Token counts (kernel 2): ``compute_a_embed_fused`` on CPU tensors against
   JAX ``compute_a_embed_fused(interpret=True)`` and both packages' oracles,
   BITWISE, at a vocabulary and a token count that are no tile multiples.
@@ -222,6 +223,52 @@ def test_flash_backward_3xtf32_keeps_float32_accuracy():
     assert plain <= 1e-5
     assert three <= 1e-5
     assert one >= 10 * three and one > 1e-4
+
+
+def _forward_online(q, k, v, mm, tile=64):
+    """Kernel 5's scheme on ``[T, D]`` matrices, causal: key tiles of
+    ``tile`` rows, ``s`` and ``P·V`` taken by ``mm``, the running max and
+    sum, and each tile's ``P·V`` added to the rescaled accumulator."""
+    t = q.shape[0]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    rows = torch.arange(t)[:, None]
+    m = torch.full((t, 1), -1e30, dtype=q.dtype)
+    l = torch.zeros((t, 1), dtype=q.dtype)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, t, tile):
+        s = mm(q, k[k0:k0 + tile].T) * scale
+        s = torch.where(torch.arange(k0, k0 + tile)[None, :] <= rows, s,
+                        torch.tensor(-1e30, dtype=q.dtype))
+        mx = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        corr, p = torch.exp(m - mx), torch.exp(s - mx)
+        l, m = l * corr + p.sum(dim=1, keepdim=True), mx
+        acc = acc * corr + mm(p, v[k0:k0 + tile])
+    return acc / l, (m + torch.log(l)).squeeze(1)
+
+
+def test_flash_forward_3xtf32_keeps_float32_accuracy():
+    """The forward kernel's numerical scheme, emulated at the LM's length
+    (T = 2048, D = 64, causal): with ``s`` and ``P·V`` in 3xTF32 and each
+    key tile's ``P·V`` added to the rescaled float32 accumulator, out and
+    lse stay within 2e-6 of the largest float64 entry, 10x inside the
+    card's 2e-5 tolerance; one TF32 product is at least 10x worse and
+    breaks it. The emulation rounds its float32 sums; the kernel's sum
+    over keys is taken on the CUDA cores, rounded, one tile at a time."""
+    r = np.random.RandomState(19)
+    q, k, v = (torch.from_numpy(r.randn(2048, 64).astype(np.float32)) for _ in range(3))
+    ref = _forward_online(q.double(), k.double(), v.double(), lambda a, b: a @ b)
+    # the online scheme itself is exact attention
+    plain = tflash.flash_forward_plain(*(x[None, :, None] for x in (q, k, v)), True)
+    for got, want in zip((plain[0][0, :, 0], plain[1][0, 0]), ref):
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 2e-6
+
+    def err(fn):
+        return max(float((g.double() - w).abs().max() / w.abs().max())
+                   for g, w in zip(_forward_online(q, k, v, fn), ref))
+
+    three, one = err(_mm_3xtf32), err(_mm_1xtf32)
+    assert three <= 2e-6
+    assert one >= 10 * three and one > 2e-5
 
 
 # ------------------------------------------------------ kernel 2: token counts

@@ -14,6 +14,8 @@ apply, whose damped divide amplifies rounding by up to 1/λ. The SGD update
 is elementwise with the same rounding steps: 1e-6 relative.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,6 +119,93 @@ def test_fused_apply_plain_matches_pallas(k, g, a):
     for i in range(k):
         _close_scaled(v_t[i], v_j[i], rtol=1e-5)
     _close_scaled(vg_t, vg_j, rtol=1e-5)
+
+
+def _chain(gm, qa, da, qg, dg, damping, mm):
+    """Kernel 3's four products, each taken by ``mm``, with the damped
+    divide and the KL partial: ``(v, vg)``."""
+    t = mm(mm(qg.transpose(1, 2), gm), qa) / (dg[:, :, None] * da[:, None, :] + damping)
+    v = mm(mm(qg, t), qa.transpose(1, 2))
+    return v, (v * gm).sum(dim=(1, 2))
+
+
+def test_fused_apply_3xtf32_keeps_float32_accuracy():
+    """Kernel 3's numerical scheme, emulated at the longest A side the paths
+    give it (a = 2049: the LM's 2048-wide MLP input with its bias, and
+    ResNeXt's classifier): with every product in 3xTF32, v and vg stay
+    within 1e-5 of the largest float64 entry, 10x inside the card's 1e-4
+    tolerance, as IEEE float32 products do; one TF32 product is at least
+    10x worse and breaks that tolerance. The emulation rounds its float32
+    sums, as the kernel does when it adds each 32-deep step's tensor-core
+    sum on the CUDA cores. The bases are Gaussian with orthonormal-sized
+    entries (a QR of 2049² would cost seconds; the chain does not rely on
+    orthogonality)."""
+    from tests.test_torch_port_flash import _mm_1xtf32, _mm_3xtf32
+
+    r = np.random.RandomState(23)
+    k, g, a = 1, 64, 2049
+    arrs = [
+        r.randn(k, g, a).astype(np.float32),
+        (r.randn(k, a, a) / np.sqrt(a)).astype(np.float32),
+        (r.rand(k, a) + 0.1).astype(np.float32),
+        (r.randn(k, g, g) / np.sqrt(g)).astype(np.float32),
+        (r.rand(k, g) + 0.1).astype(np.float32),
+    ]
+    damping = 0.003
+    ts = [torch.from_numpy(x) for x in arrs]
+    ref = _chain(*(x.double() for x in ts), damping, lambda x, y: x @ y)
+
+    def err(mm):
+        return max(float((got.double() - want).abs().max() / want.abs().max())
+                   for got, want in zip(_chain(*ts, damping, mm), ref))
+
+    plain = max(float((got.double() - want).abs().max() / want.abs().max())
+                for got, want in zip(tapply.fused_precondition_stack(*ts, damping), ref))
+    three, one = err(_mm_3xtf32), err(_mm_1xtf32)
+    assert plain <= 1e-5
+    assert three <= 1e-5
+    assert one >= 10 * three and one > 1e-4
+
+
+def test_kernel_builds_follow_their_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or any ``csrc/`` header that the
+    source includes (directly or through another header) is newer; a
+    header it does not include leaves it alone."""
+    from kfac_pytorch_tpu_torch.ops import kernel_build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(kernel_build, "CSRC", csrc)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", build)
+    (csrc / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    (csrc / "other.cuh").write_text("#pragma once\n")
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n#include "outer.cuh"\n')
+    assert kernel_build._stale("k")  # never built
+    lib = kernel_build.library_path("k")
+    lib.write_text("")
+    assert sorted(p.name for p in kernel_build._inputs("k")) == ["inner.cuh", "k.cu", "outer.cuh"]
+
+    def touch(path, when):
+        os.utime(path, (when, when))
+
+    for path in csrc.iterdir():
+        touch(path, 1000)
+    touch(lib, 2000)
+    assert not kernel_build._stale("k")
+    touch(csrc / "other.cuh", 3000)
+    assert not kernel_build._stale("k")
+    touch(csrc / "inner.cuh", 3000)
+    assert kernel_build._stale("k")
+    touch(lib, 4000)
+    touch(csrc / "k.cu", 5000)
+    assert kernel_build._stale("k")
+    # the port's own sources: flash attention and the fused apply share the
+    # tensor-core header
+    monkeypatch.undo()
+    for name in ("flash_attention", "fused_apply"):
+        assert "tf32_mma.cuh" in {p.name for p in kernel_build._inputs(name)}
 
 
 def test_apply_kernel_resolution():
