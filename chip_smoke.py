@@ -17,61 +17,68 @@ result line):
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources of ``kfac_pytorch_tpu_torch/csrc/`` (one
    ``nvcc`` per source, all at once) and print each kernel's registers and
-   spill bytes from ptxas; the fused apply and flash forward kernels must
-   not spill;
+   spill bytes from ptxas; the conv A (``patch_cov``), fused apply and
+   flash forward kernels must not spill;
 3. hold each ResNet kernel against its plain PyTorch version on the inputs
    the ResNet path gives it (batch 128, 32×32 images) and time, with CUDA
    events, the kernel, the plain version and one PyTorch library call for
-   the same function (a yardstick only; the port never calls it); the
-   fused apply (3xTF32 on the tensor cores) also per shape group, its five
-   costliest groups reported with their tile and copy widths, and two of
-   its launches bitwise equal;
+   the same function (a yardstick only; the port never calls it); kernel 1
+   (3xTF32 on the tensor cores) within 1e-5 of the largest plain entry per
+   conv, two of its launches bitwise equal, its five costliest conv
+   geometries reported with their route (tile, copy width, splits); the
+   fused apply (3xTF32) also per shape group, its five costliest groups
+   reported with their tile and copy widths, and two of its launches
+   bitwise equal;
 4. train ResNet-32 at its published widths on synthetic data (lr 0.1,
    momentum 0.9, wd 5e-4, stat-decay 0.95, damping 0.003, kl-clip 0.001,
    cov-freq 1, kfac-update-freq 10); the loss must be finite and falling
-   and every counter of the path above 0; ``--kfac-update-freq 0`` gives
-   plain SGD's step time;
+   and every counter must equal what the run implies (per capture step:
+   kernel 1 31, kernel 3 once per shape group; kernel 4 once a step);
+   ``--kfac-update-freq 0`` gives plain SGD's step time;
 5. the same training with ``--factor-kernel dense --apply-kernel dense``
    (the oracle paths) must match the kernel run's first losses;
-6. the LM kernels at the LM path's shapes (d_model 512, 8 heads of 64,
+6. print where the ResNet step's device time goes (``torch.profiler``:
+   kernel time by group over 9 capture steps and over 10 plain-SGD steps,
+   with the device's idle share);
+7. the LM kernels at the LM path's shapes (d_model 512, 8 heads of 64,
    4 layers, T 2048, batch 4, vocab 1000): token counts bitwise, flash
    forward within 2e-5 of the largest plain entry (and of SDPA's) and its
    dQ and dK/dV within 1e-4, there and at ``FLASH_EDGE_CASES`` (a ragged T,
    no causal mask, D = 32 and 128), two launches of each flash kernel
    bitwise equal, and the apply and SGD kernels at the transformer's shape
    groups and leaves; timed as in phase 3 (the bound of the kernels on the
-   tensor cores, 3 and 5–7, is the TF32 rate, the CUDA cores' float32
-   bound beside it);
-7. train the LM for 2 epochs (38 steps, eigen refreshes at steps 0, 10,
+   tensor cores, 1, 1g, 3 and 5–7, is the TF32 rate, the CUDA cores'
+   float32 bound beside it);
+8. train the LM for 2 epochs (38 steps, eigen refreshes at steps 0, 10,
    20, 30) through its trainer twin; the loss must be finite and falling
    and every counter must equal what the run implies; one epoch with
    ``--kfac-update-freq 0`` gives plain SGD's step time;
-8. the LM oracle path through the library API (exact attention,
+9. the LM oracle path through the library API (exact attention,
    ``factor_kernel="dense"``, ``apply_kernel="dense"``, the same seed and
    batches) must match the kernel path's first 5 losses within 1e-3;
-9. print where the LM step's device time goes (``torch.profiler``:
-   kernel time by group over 10 K-FAC steps holding one eigen refresh,
-   and over 10 plain-SGD steps, with the device's idle share);
-10. the ImageNet kernels on activations of one ResNeXt-50 forward at batch
+10. print where the LM step's device time goes (10 K-FAC steps holding one
+    eigen refresh, and 10 plain-SGD steps);
+11. the ImageNet kernels on activations of one ResNeXt-50 forward at batch
     32, 224×224: kernel 1g (grouped conv A, one launch per layer for all 32
     groups, C/G = 4, 8, 16, 32) and kernel 1 (the 37 ungrouped convs)
-    within 1e-5 of the largest plain entry per layer, and the apply and SGD
-    kernels at ResNeXt's shape groups (among them 96 × [4, 36] … 96 ×
-    [32, 288]) and leaves; timed as in phase 3;
-11. train ResNeXt-50 32x4d for 30 steps (refreshes at 0, 10, 20) through
+    within 1e-5 of the largest plain entry per layer, two launches of each
+    bitwise equal, their costliest geometries with their routes, and the
+    apply and SGD kernels at ResNeXt's shape groups (among them 96 × [4,
+    36] … 96 × [32, 288]) and leaves; timed as in phase 3;
+12. train ResNeXt-50 32x4d for 30 steps (refreshes at 0, 10, 20) through
     its trainer twin at the JAX trainer's recipe; the loss must be finite
     and falling and every counter must equal what the run implies (per
     step: kernel 1 37, kernel 1g 16, kernel 3 once per shape group, kernel
     4 once); 10 steps with ``--kfac-update-freq 0`` give plain SGD's step
     time;
-12. the oracle paths (``factor_kernel="dense"``, ``apply_kernel="dense"``)
+13. the oracle paths (``factor_kernel="dense"``, ``apply_kernel="dense"``)
     must match the kernel path's first 5 losses within 1e-3, each oracle
     step taken from the kernel path's state (free-running, this
     configuration carries one step's rounding to ~1e-2 within 4 steps,
     plain SGD's own run-to-run noise included: printed beside it);
-13. print where the ResNeXt step's device time goes (10 K-FAC steps
+14. print where the ResNeXt step's device time goes (10 K-FAC steps
     holding one refresh, 5 capture steps, 10 plain-SGD steps);
-14. print one ``{"kernels": [...]}`` line (eight kernels), then the last
+15. print one ``{"kernels": [...]}`` line (eight kernels), then the last
     line ``{"ok": true, "device": {...}}``.
 """
 
@@ -95,6 +102,10 @@ BATCH = 128
 STEPS = 30
 MODEL = "resnet32"
 TIMING_REPS = 20
+RESNET_ARGS = [
+    "--synthetic", "--model", MODEL, "--batch-size", str(BATCH), "--epochs", "1",
+    "--seed", "0", "--device", "cuda",
+]
 
 # The LM path: the embed-kfac configuration (d_model 512, 8 heads, 4 layers,
 # T 2048, batch 4, K-FAC token embedding) through the trainer twin, whose
@@ -187,6 +198,74 @@ def conv_inputs(model, images, grouped):
     return calls
 
 
+def conv_work(x, groups, ks, st, pad, bias):
+    """``(bytes, flops)`` of one conv's A factors: the input read once and
+    the ``[G, a, a]`` output written once; per group ``a·(a+1)/2`` distinct
+    sums of ``rows`` products."""
+    a = x.shape[1] // groups * ks[0] * ks[1] + int(bias)
+    h_out = (x.shape[2] + 2 * pad[0][0] - ks[0]) // st[0] + 1
+    w_out = (x.shape[3] + 2 * pad[1][0] - ks[1]) // st[1] + 1
+    rows = x.shape[0] * h_out * w_out
+    return 4 * (x.numel() + groups * a * a), groups * rows * a * (a + 1)
+
+
+def conv_kernel_checks(calls, grouped):
+    """Kernel 1 (``grouped=False``) or 1g on every ``(x, groups, ks, st,
+    pad, bias, dil)`` of ``calls``: within 1e-5 of the largest plain entry
+    per layer and two launches bitwise equal. Returns the worst errors, the
+    3xTF32 and float32 bounds, and the five costliest geometries (time per
+    step: every layer of that geometry timed) with their route."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+
+    def kernel(c):
+        return fk.compute_a_conv_grouped_fused(*c) if grouped else fk.compute_a_conv_fused(c[0], *c[2:])
+
+    def plain(c):
+        return (fk.compute_a_conv_grouped_fused_plain(*c) if grouped
+                else fk.compute_a_conv_fused_plain(c[0], *c[2:]))
+
+    tol = 1e-5
+    worst_abs = worst_rel = 0.0
+    geometries = {}
+    for c in calls:
+        got = kernel(c)
+        err, rel = scaled_err(got, plain(c))
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if not torch.equal(got, kernel(c)):
+            raise AssertionError(f"conv A kernel: two launches differ at {tuple(c[0].shape)} {c[1:4]}")
+        key = (tuple(c[0].shape), c[1], tuple(c[2]), tuple(c[3]))
+        geometries.setdefault(key, []).append(c)
+    if not worst_rel <= tol:
+        raise AssertionError(f"conv A kernel{' 1g' * grouped} disagrees with its plain version: "
+                             f"rel {worst_rel:.3e} > {tol}")
+    per_geometry = []
+    for (shape, groups, ks, st), cs in geometries.items():
+        c = cs[0]
+        per_geometry.append({
+            "geometry": f"x {list(shape)}, G {groups}, {ks[0]}x{ks[1]} stride {st[0]}",
+            "layers": len(cs),
+            "route": fk.patch_cov_route(*c),
+            "ms": time_ms(lambda: [kernel(c) for c in cs]),
+            "bound_ms": bound_ms([conv_work(*c[:6])] * len(cs), tf32_products=3)[0],
+        })
+    work = [conv_work(*c[:6]) for c in calls]
+    tc = bound_ms(work, tf32_products=3)
+    return {
+        "max_abs_err": worst_abs,
+        "max_rel_err": worst_rel,
+        "tolerance": f"|kernel - plain| <= {tol} * max|plain| per layer",
+        "repeat_bitwise_equal": True,
+        "ms": time_ms(lambda: [kernel(c) for c in calls]),
+        "bound_ms": tc[0],
+        "bound_by": tc[1],
+        "bound_route": "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s",
+        "bound_f32_cuda_core_ms": bound_ms(work)[0],
+        "costliest_geometries": sorted(per_geometry, key=lambda r: -r["ms"])[:5],
+    }
+
+
 def conv_a_phase(model, images):
     """Kernel 1 on every ungrouped conv input of one forward (ResNet-32 at
     batch 128, or ResNeXt-50's 37 ungrouped convs at batch 32)."""
@@ -194,46 +273,25 @@ def conv_a_phase(model, images):
 
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
 
-    calls = [c[:6] for c in conv_inputs(model, images, grouped=False)]
-
-    tol = 1e-5
-    worst_abs = worst_rel = 0.0
-    for c in calls:
-        err, rel = scaled_err(fk.compute_a_conv_fused(*c), fk.compute_a_conv_fused_plain(*c))
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-    if not worst_rel <= tol:
-        raise AssertionError(f"conv A kernel disagrees with its plain version: rel {worst_rel:.3e} > {tol}")
+    calls = [(c[0], 1, *c[1:6]) for c in conv_inputs(model, images, grouped=False)]
+    checks = conv_kernel_checks(calls, grouped=False)
 
     def library():
-        for x, ks, st, pad, _, dil in calls:
+        for x, _, ks, st, pad, _, dil in calls:
             cols = F.unfold(x, ks, dilation=dil, padding=pad[0][0], stride=st)
             p = cols.transpose(1, 2).reshape(-1, cols.shape[1])
             p.T @ p
 
-    work = []
-    for x, ks, st, pad, bias, dil in calls:
-        fp = x.shape[1] * ks[0] * ks[1] + int(bias)
-        h_out = (x.shape[2] + 2 * pad[0][0] - ks[0]) // st[0] + 1
-        w_out = (x.shape[3] + 2 * pad[1][0] - ks[1]) // st[1] + 1
-        rows = x.shape[0] * h_out * w_out
-        # symmetric output: fp·(fp+1)/2 distinct sums of `rows` products
-        work.append((4 * (x.numel() + fp * fp), rows * fp * (fp + 1)))
-    b_ms, b_by = bound_ms(work)
     return {
         "name": "patch_cov (conv A factor)",
         "route": "cuda",
         "source": "kfac_pytorch_tpu_torch/csrc/patch_cov.cu",
         "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:251",
         "unit": f"{len(calls)} conv A factors of one capture step",
-        "max_abs_err": worst_abs,
-        "max_rel_err": worst_rel,
-        "tolerance": f"|kernel - plain| <= {tol} * max|plain| per conv",
-        "ms": time_ms(lambda: [fk.compute_a_conv_fused(*c) for c in calls]),
-        "plain_ms": time_ms(lambda: [fk.compute_a_conv_fused_plain(*c) for c in calls]),
+        **checks,
+        "plain_ms": time_ms(lambda: [fk.compute_a_conv_fused_plain(c[0], *c[2:]) for c in calls]),
         "library_ms": time_ms(library),
         "library": "F.unfold + torch.matmul per conv",
-        "bound_ms": b_ms,
-        "bound_by": b_by,
     }
 
 
@@ -246,16 +304,8 @@ def grouped_conv_a_phase(model, images):
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
 
     calls = [(c[0], c[6], *c[1:6]) for c in conv_inputs(model, images, grouped=True)]
-    tol = 1e-5
-    worst_abs = worst_rel = 0.0
-    kinds = set()
-    for c in calls:
-        err, rel = scaled_err(fk.compute_a_conv_grouped_fused(*c),
-                              fk.compute_a_conv_grouped_fused_plain(*c))
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        kinds.add(c[0].shape[1] // c[1])
-    if not worst_rel <= tol:
-        raise AssertionError(f"grouped conv A kernel disagrees with its plain version: rel {worst_rel:.3e} > {tol}")
+    checks = conv_kernel_checks(calls, grouped=True)
+    kinds = sorted({c[0].shape[1] // c[1] for c in calls})
 
     def library():
         # one im2col of the whole input, viewed per group, one batched product
@@ -265,32 +315,17 @@ def grouped_conv_a_phase(model, images):
             p = cols.view(b, groups, f // groups, L).permute(1, 0, 3, 2).reshape(groups, b * L, f // groups)
             torch.bmm(p.transpose(1, 2), p)
 
-    work = []
-    for x, groups, ks, st, pad, bias, dil in calls:
-        a = x.shape[1] // groups * ks[0] * ks[1] + int(bias)
-        h_out = (x.shape[2] + 2 * pad[0][0] - ks[0]) // st[0] + 1
-        w_out = (x.shape[3] + 2 * pad[1][0] - ks[1]) // st[1] + 1
-        rows = x.shape[0] * h_out * w_out
-        # per group: a·(a+1)/2 distinct sums of `rows` products
-        work.append((4 * (x.numel() + groups * a * a), groups * rows * a * (a + 1)))
-    b_ms, b_by = bound_ms(work)
     return {
         "name": "patch_cov grouped (grouped conv A factors)",
         "route": "cuda",
         "source": "kfac_pytorch_tpu_torch/csrc/patch_cov.cu",
         "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:251 (via compute_a_conv_grouped_fused :371)",
-        "unit": (f"{len(calls)} grouped convs of one capture step, G = {calls[0][1]}, "
-                 f"C/G in {sorted(kinds)}"),
-        "max_abs_err": worst_abs,
-        "max_rel_err": worst_rel,
-        "tolerance": f"|kernel - plain| <= {tol} * max|plain| per layer",
-        "ms": time_ms(lambda: [fk.compute_a_conv_grouped_fused(*c) for c in calls]),
+        "unit": f"{len(calls)} grouped convs of one capture step, G = {calls[0][1]}, C/G in {kinds}",
+        **checks,
         # 512 im2col + matmul pairs per call: fewer repetitions
         "plain_ms": time_ms(lambda: [fk.compute_a_conv_grouped_fused_plain(*c) for c in calls], reps=5),
         "library_ms": time_ms(library),
         "library": "F.unfold of the whole input viewed [G, B*L, a] + torch.bmm per layer",
-        "bound_ms": b_ms,
-        "bound_by": b_by,
     }
 
 
@@ -825,10 +860,24 @@ def step_stats(hist, tokens_per_step):
 def train(extra):
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    return trainer.main([
-        "--synthetic", "--model", MODEL, "--batch-size", str(BATCH), "--epochs", "1",
-        "--steps-per-epoch", str(STEPS), "--seed", "0", "--device", "cuda", *extra,
-    ])
+    return trainer.main([*RESNET_ARGS, "--steps-per-epoch", str(STEPS), *extra])
+
+
+def resnet_setup(device, extra=()):
+    """The ResNet-32 path through the library API (the twin's ``build``),
+    with the trainer's hyperparameters, seed and synthetic batches:
+    ``(step_fn, state, kfac, batches, args)``."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.training.data import synthetic_batches
+
+    args = trainer.parse_args([*RESNET_ARGS, *extra])
+    _, kfac, state, step_fn = trainer.build(args, device)
+    batches = [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+               for x, y in synthetic_batches(args.batch_size, (3, 32, 32), trainer.NUM_CLASSES,
+                                             args.steps_per_epoch, seed=args.seed)]
+    return step_fn, state, kfac, batches, args
 
 
 def train_imagenet(extra):
@@ -910,10 +959,11 @@ def imagenet_one_step_oracle(device, steps):
     return kernel, oracle
 
 
-def imagenet_expected_launches(hist, model, device):
-    """What the ResNeXt run implies for each counter: on every capture step
-    kernel 1 once per ungrouped conv and kernel 1g once per grouped conv;
-    one apply launch per shape group and one SGD launch per step."""
+def conv_expected_launches(hist, model, device):
+    """What a ResNet or ResNeXt run implies for each counter: on every
+    capture step kernel 1 once per ungrouped conv and kernel 1g once per
+    grouped conv; one apply launch per shape group and one SGD launch per
+    step."""
     from kfac_pytorch_tpu_torch import KFAC, capture
     from kfac_pytorch_tpu_torch.models.layers import KFACConv
     from kfac_pytorch_tpu_torch.ops import precondition as pc
@@ -998,15 +1048,19 @@ def main() -> int:
     print(f"build: {secs:.1f} s for {len(kernel_build.SIGNATURES)} sources (nvcc, sm_90a)", flush=True)
     ptxas = ptxas_report()
     print(json.dumps({"ptxas_registers_spill_bytes": ptxas}), flush=True)
-    spilled = {fn: v for fn, v in ptxas.items() if v[1] and ("chain_mma" in fn or "flash_fwd" in fn)}
+    spilled = {fn: v for fn, v in ptxas.items()
+               if v[1] and any(k in fn for k in ("chain_mma", "flash_fwd", "patch_cov"))}
     if spilled:
-        raise AssertionError(f"the fused apply or flash forward kernels spill registers: {spilled}")
+        raise AssertionError(f"the conv A, fused apply or flash forward kernels spill registers: {spilled}")
 
     def report(entries):
         for k in entries:
             print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e}, "
                   f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
                   f"bound {k['bound_ms']:.4f} by {k['bound_by']})", flush=True)
+            for geo in k.get("costliest_geometries", []):
+                print(f"  {geo['geometry']} x{geo['layers']}: {geo['ms']:.4f} ms (bound "
+                      f"{geo['bound_ms']:.4f}), route {json.dumps(geo['route'])}", flush=True)
 
     mark("3. ResNet kernels")
     # 3. ResNet kernels against their plain versions, at the ResNet path's shapes
@@ -1034,6 +1088,12 @@ def main() -> int:
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     if not last < first:
         raise AssertionError(f"loss did not fall: first-5 mean {first:.4f}, last-5 mean {last:.4f}")
+    resnet_expected = conv_expected_launches(
+        hist, cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)), device)
+    for name, n in resnet_launches.items():
+        if n != resnet_expected.get(name, 0):
+            raise AssertionError(
+                f"{name}: {n} launches on the ResNet path, the run implies {resnet_expected.get(name, 0)}")
     for k, fn in ((conv_a, fk.compute_a_conv_fused), (resnet_apply, ak.fused_precondition_stack),
                   (resnet_sgd, ak.fused_sgd_apply)):
         n = resnet_launches[fn.__name__]
@@ -1054,6 +1114,7 @@ def main() -> int:
         "sgd_images_per_s": sgd_stats["per_s"],
         "kfac_over_sgd_mean_step": kfac_stats["mean_ms"] / sgd_stats["mean_ms"],
         "launches": resnet_launches,
+        "expected_launches": resnet_expected,
     }), flush=True)
 
     mark("5. ResNet oracle")
@@ -1066,8 +1127,16 @@ def main() -> int:
     print(f"oracle paths: first 5 losses agree to 1e-3 relative "
           f"(max diff {max(abs(a - b) for a, b in zip(losses[:5], dense['loss'][:5])):.3e})", flush=True)
 
-    mark("6. LM kernels")
-    # 6. LM kernels against their plain versions, at the LM path's shapes
+    mark("6. ResNet profile")
+    # 6. where the ResNet step's device time goes: 9 capture steps between
+    # the refreshes at steps 0 and 10, and 10 plain-SGD steps
+    print(json.dumps({"resnet_profile": profile_path(resnet_setup, device, [
+        (("--steps-per-epoch", "10"), [("capture", 1, 10)]),
+        (("--steps-per-epoch", "12", "--kfac-update-freq", "0"), [("sgd", 2, 12)]),
+    ])}), flush=True)
+
+    mark("7. LM kernels")
+    # 7. LM kernels against their plain versions, at the LM path's shapes
     args = lm_trainer.parse_args(LM_ARGS)
     splits, words = data_lib.synthetic_corpus(vocab_size=lm_trainer.SYNTHETIC_VOCAB)
     toks, _ = next(data_lib.bptt_batches(
@@ -1080,8 +1149,8 @@ def main() -> int:
     lm_sgd = sgd_phase(lm_model, device, args.base_lr, args.momentum, args.wd)
     report([token_count, *flash, lm_apply, lm_sgd])
 
-    mark("7. LM training")
-    # 7. the LM path through its trainer twin, counters zeroed just before
+    mark("8. LM training")
+    # 8. the LM path through its trainer twin, counters zeroed just before
     for fn in all_counted:
         fn.launches = 0
     lm_hist = train_lm(["--epochs", str(LM_EPOCHS)])
@@ -1131,8 +1200,8 @@ def main() -> int:
         "expected_launches": expected,
     }), flush=True)
 
-    mark("8. LM oracle")
-    # 8. the LM kernel path against the oracle path on the first steps
+    mark("9. LM oracle")
+    # 9. the LM kernel path against the oracle path on the first steps
     del lm_model
     oracle = lm_oracle_losses(device, ORACLE_STEPS)
     for i, (a, b) in enumerate(zip(lm_losses, oracle)):
@@ -1141,12 +1210,12 @@ def main() -> int:
     print(f"LM oracle path: first {ORACLE_STEPS} losses agree to 1e-3 relative "
           f"(max diff {max(abs(a - b) for a, b in zip(lm_losses, oracle)):.3e})", flush=True)
 
-    mark("9. LM profile")
-    # 9. where the LM step's device time goes
+    mark("10. LM profile")
+    # 10. where the LM step's device time goes
     print(json.dumps({"lm_profile": profile_lm(device)}), flush=True)
 
-    mark("10. ResNeXt kernels")
-    # 10. ResNeXt kernels against their plain versions, at the ImageNet path's
+    mark("11. ResNeXt kernels")
+    # 11. ResNeXt kernels against their plain versions, at the ImageNet path's
     # shapes: activations from one forward of ResNeXt-50 at batch 32, 224x224
     rx_model = imagenet_resnet.get_model(
         IMAGENET_MODEL, generator=torch.Generator().manual_seed(0)).to(device)
@@ -1160,8 +1229,8 @@ def main() -> int:
     report([rx_conv_a, grouped_a, rx_apply, rx_sgd])
     torch.cuda.empty_cache()
 
-    mark("11. ResNeXt training")
-    # 11. the ResNeXt path through its trainer twin, counters zeroed just before
+    mark("12. ResNeXt training")
+    # 12. the ResNeXt path through its trainer twin, counters zeroed just before
     for fn in all_counted:
         fn.launches = 0
     rx_hist = train_imagenet(["--steps-per-epoch", str(IMAGENET_STEPS)])
@@ -1172,7 +1241,7 @@ def main() -> int:
     rx_first, rx_last = statistics.mean(rx_losses[:5]), statistics.mean(rx_losses[-5:])
     if not rx_last < rx_first:
         raise AssertionError(f"ResNeXt loss did not fall: first-5 mean {rx_first:.4f}, last-5 mean {rx_last:.4f}")
-    expected = imagenet_expected_launches(rx_hist, rx_model, device)
+    expected = conv_expected_launches(rx_hist, rx_model, device)
     for name, n in rx_launches.items():
         if n != expected.get(name, 0):
             raise AssertionError(
@@ -1199,8 +1268,8 @@ def main() -> int:
         "expected_launches": expected,
     }), flush=True)
 
-    mark("12. ResNeXt oracle")
-    # 12. the ResNeXt kernel path against the oracle paths on the first steps:
+    mark("13. ResNeXt oracle")
+    # 13. the ResNeXt kernel path against the oracle paths on the first steps:
     # the gate holds each oracle step, taken from the kernel path's state, to
     # the kernel path's loss; the free-running runs (a second kernel run and
     # an oracle run from the same seed) show how far this configuration
@@ -1226,15 +1295,15 @@ def main() -> int:
     print(f"ResNeXt oracle paths: first {ORACLE_STEPS} losses, each oracle step from the kernel "
           f"path's state, agree to 1e-3 relative (max {rx_oracle_rel:.3e})", flush=True)
 
-    mark("13. ResNeXt profile")
-    # 13. where the ResNeXt step's device time goes: 10 K-FAC steps holding
+    mark("14. ResNeXt profile")
+    # 14. where the ResNeXt step's device time goes: 10 K-FAC steps holding
     # one refresh, 5 capture steps, 10 plain-SGD steps
     print(json.dumps({"imagenet_profile": profile_path(imagenet_setup, device, [
         (("--steps-per-epoch", "17"), [("kfac", 2, 12), ("capture", 12, 17)]),
         (("--steps-per-epoch", "12", "--kfac-update-freq", "0"), [("sgd", 2, 12)]),
     ])}), flush=True)
 
-    # 14. results: kernels 1, 3 and 4 run on several paths; the top-level
+    # 15. results: kernels 1, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     lm_apply["resnet32"] = resnet_apply

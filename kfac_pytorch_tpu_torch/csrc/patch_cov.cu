@@ -16,123 +16,136 @@
 // corner as 1/spatial, the oracle's values (ops/factors.py::compute_a_conv
 // and compute_a_conv_grouped). Cross-group blocks are never computed.
 //
-// What bounds it on this card: operations. At ResNet-32 widths (F = 144,
-// 288, 576 against 131072, 32768, 8192 rows at batch 128) each conv needs
-// ~F^2*rows ~ 2.7 GFLOP of float32 multiply-adds on a few MB of input, far
-// right of the ridge point; this first version runs them on the CUDA cores
-// (67 TFLOP/s float32 peak), not the tensor cores. ResNeXt-50's grouped
-// 3x3 convs (32 groups of F = 36..288 at batch 32, 224^2 images) need
-// ~rows*F^2*G ~ 1.3e8 multiply-adds per layer at every stage: operations
-// again, ~1 ms for the 16 layers at the float32 peak against ~0.1 ms of
-// bytes.
+// What bounds it on this card: operations. The GEMM is M = N = F' and
+// K = B*OH*OW patch rows: at ResNet-32 widths (F = 144, 288, 576 against
+// 131072, 32768, 8192 rows at batch 128) ~F^2*rows ~ 2.7 GFLOP per conv on
+// a few MB of input, far right of the ridge point. Every product runs on
+// the tensor cores as 3xTF32 (csrc/tf32_mma.cuh: mma.sync m16n8k8 TF32 on
+// operands split big + small in registers, about float32 accuracy), so the
+// bound is 3 x FLOPs over the 495 TFLOP/s TF32 rate.
 //
 // Design. The Pallas kernel keeps a (kh*kw*TC)^2 accumulator of up to 4 MB
 // in VMEM and sums sequentially over its batch/offset grid axes; neither
 // carries over (227 KB of shared memory, blocks in no order). Here it is an
-// implicit GEMM:
-//   * each block owns one 64x64 output tile of A, indexed directly in
-//     channel-major feature order (no offset-major permutation afterwards),
-//     and only tiles on or above the diagonal are computed (A is symmetric);
-//   * the block builds its patch values on the fly from x — each thread
-//     decodes its feature (c, i, j) once and walks rows (b, oh, ow) with
-//     incremental counters — with bounds checks in place of padding, so the
-//     patch tensor never exists;
-//   * products accumulate in registers (4x4 per thread) over 16-row stages
-//     staged in shared memory;
-//   * ResNet widths give few tiles (1..45), so the rows are split across
-//     blocks too (blockIdx.y) and each split writes its own partial tile;
-//     a second pass sums the partials in a fixed order, applies the scale
-//     and mirrors the upper triangle. The result is deterministic; it
-//     differs from the oracle only by float32 summation order;
+// implicit GEMM over a triangle of output tiles:
+//   * each block owns one output tile of A (ti <= tj: A is symmetric) of
+//     one group, for one split of the patch rows. The tile is chosen per
+//     geometry (plan below, from measurements on the card): 128 x 128 (8
+//     warps of 64 x 32) for wide 1x1 convs; 48 x 48, one warp's worth of
+//     mma tiles whose 4 warps split the K steps, for narrow groups (F' <=
+//     48, whole) and where 48 divides F' far better than 64 (F' = 144,
+//     288); else 64 x 64 (4 warps of 32 x 32). The inner loop runs every
+//     mma tile of a warp without branches (sums past F' or under the
+//     diagonal are computed and never stored), except that a diagonal
+//     48 x 48 block skips the mma tiles under its diagonal, known at
+//     compile time there (12 of its 18 mma tiles run);
+//   * the K dimension streams as stages of R whole output rows of one
+//     image (R*OW positions, R a divisor of OH; up to 256, 128 or 64
+//     positions by tile), or, where one row's window does not fit in
+//     shared memory, of one output row in column tiles (multiples of 8
+//     columns, the last one ragged), or else the same with a narrower tile
+//     (plan below): any image width fits. Per stage the block copies the
+//     INPUT window those rows need -- for the channels its tiles' features
+//     cover, (R-1)*sh + (kh-1)*dh + 1 input rows (one output row: only the
+//     kh rows its taps read), each from the column of the left padding
+//     rounded down to the copy width -- into shared memory with cp.async,
+//     in a two-stage ring. The copies are 16, 8 or 4 bytes
+//     (the widest that divides the image rows), zero-filled outside the
+//     image; for a 1x1 stride-1 conv each channel's R*W values are
+//     contiguous and copied as one row, and where a stage is a whole
+//     image the tile's channels are one slab (Mode below). Each input
+//     value crosses to the SM once per block, not once per filter tap.
+//     Copy instructions, not the tensor cores, were the larger cost of a
+//     first version with 4-byte copies (ablations on the card: dropping
+//     the copies saved far more time than dropping the mma instructions);
+//   * fragments are read from that window at feature offset + position
+//     offset: a feature's (c, i*dh, j*dw) offset is decoded once per
+//     thread, the stage's position offsets once per block into a table;
+//     the bias feature reads a plane of ones, positions past the stage's
+//     last one read as zero through the B operand;
+//   * accuracy: each stage's tensor-core sums go into a fresh fragment,
+//     added on the CUDA cores to a float32 accumulator, so the rounding of
+//     the tensor cores' own accumulation does not grow with K (131072 rows
+//     at ResNet-32's first stage, 401408 at ResNeXt's stem);
+//   * the rows are split across blocks too (blockIdx.y) and each split
+//     writes its own partial tile; a second pass sums the partials in a
+//     fixed order, applies the scale and mirrors the upper triangle. Two
+//     launches are bitwise equal;
 //   * a grouped conv adds a group axis to the grid (blockIdx.z = g): the
-//     block offsets its feature decode to group g's channels and writes
-//     its partial tile into a [splits, G, P, P] buffer, and the reduce pass
-//     scales and mirrors each group's [F', F'] into out[g]. One launch
-//     covers all G groups, where the TPU version runs G kernel calls.
-//     At ResNeXt's narrow groups (F' = 36) most of the 64-wide tile is
-//     padding: a first version that is right, not yet one that is fast.
+//     block offsets its channels to group g's and writes its partial into
+//     a [splits, G, P, P] buffer; the reduce pass scales and mirrors each
+//     group's [F', F'] into out[g]. One launch covers all G groups, where
+//     the TPU version runs G kernel calls.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kTile = 64;     // output tile side (features)
-constexpr int kDepth = 16;    // patch rows per shared-memory stage
-constexpr int kThreads = 256;
+using namespace tf32x3;
+
+constexpr int kStages = 2;
+// output positions per stage aimed at, by tile (KSplit, Medium, Wide)
+constexpr int kStagePositions[3] = {256, 128, 64};
+constexpr int kMaxSmem = 232448;     // dynamic shared memory a block may use
+
+template <int BT_, int WM_, int WN_, int KSPLIT_, int MINB_>
+struct Tile {
+  static constexpr int BT = BT_, WM = WM_, WN = WN_, KSPLIT = KSPLIT_;
+  static constexpr int kMinBlocks = MINB_;  // blocks an SM holds (registers)
+  static constexpr int kWarpsN = BT / WN;
+  static constexpr int kWarpsTile = (BT / WM) * kWarpsN;
+  static constexpr int kWarps = kWarpsTile * KSPLIT;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int MT = WM / 16, NT = WN / 8;  // mma tiles per warp
+};
+using Wide = Tile<128, 64, 32, 1, 1>;
+using Medium = Tile<64, 32, 32, 1, 3>;
+using KSplit = Tile<48, 48, 48, 4, 2>;
 
 struct Geometry {
   int C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW;  // C: one group's channels
-  int F, Fp, nT, groups;
-  long long rows, rows_per_split, chw;  // chw: one whole image, all groups
+  int F, Fp, groups;
+  int R, SW, nC;     // output rows per stage, columns per stage row, stages per row
+  int L, Lp;         // positions per stage (R * SW), padded to 8
+  int HR, Wp;        // window rows and columns per channel (flat: 1, L)
+  int rstep, fr;     // input rows per window row; window rows per filter tap
+  int col0;          // input column of the window's first column (a multiple of V)
+  int plane;         // floats per channel plane in shared memory
+  int ct;            // channel planes per sub-window
+  int ones, sub;     // the ones plane's offset in a sub-window; its floats
+  int nT;            // tiles per side
+  int units, units_per_split;  // stages in all (B * OH / R), per split
+  long long chw;     // one image, all groups
+  long long total;   // floats in x
 };
 
-// One feature column of P': a pixel offset (kind 0), the bias ones
-// (kind 1), or past the end of the matrix (kind 2, reads as zero).
-struct Feat {
-  int coff, di, dj, kind;
-};
+// How a stage's input is laid out in shared memory: a window of input rows
+// per channel (any conv); each channel's R*W contiguous values (a 1x1
+// stride-1 conv without padding); or, where such a stage is a whole image,
+// the tile's channels as one contiguous slab, copied 16 bytes at a time
+// from the 16-byte boundary below it (its offset folded into the feature
+// offsets), which serves images of an odd number of pixels (7 x 7).
+enum Mode { kRows = 0, kFlat = 1, kSlab = 2 };
 
-// One patch row (b, oh, ow), walked forward kDepth rows per stage.
-struct Row {
-  long long boff;
-  int oh, ow;
-};
-
-__device__ __forceinline__ Feat decode_feature(const Geometry& g, int f,
-                                              int grp) {
-  Feat r{0, 0, 0, 2};
-  if (f < g.F) {
-    const int kk = g.kh * g.kw;
-    const int c = f / kk;
-    const int o = f - c * kk;
-    const int i = o / g.kw;
-    const int j = o - i * g.kw;
-    r.coff = (grp * g.C + c) * g.H * g.W;
-    r.di = i * g.dh - g.ph;
-    r.dj = j * g.dw - g.pw;
-    r.kind = 0;
-  } else if (f < g.Fp) {
-    r.kind = 1;
-  }
-  return r;
+// V floats (1, 2 or 4) from global to shared memory, zero where !ok
+template <int V>
+__device__ __forceinline__ void copy_chunk(float* dst, const float* src, bool ok) {
+  if (V == 4) cp_async16(dst, src, ok ? 16 : 0);
+  else if (V == 2) cp_async8(dst, src, ok ? 8 : 0);
+  else cp_async4(dst, src, ok);
 }
 
-__device__ __forceinline__ Row row_at(const Geometry& g, long long r) {
-  const long long per_image = (long long)g.OH * g.OW;
-  const long long b = r / per_image;
-  const int rem = (int)(r - b * per_image);
-  Row row;
-  row.boff = b * g.chw;
-  row.oh = rem / g.OW;
-  row.ow = rem - row.oh * g.OW;
-  return row;
-}
+// MODE: the stage's layout (Mode); V: floats per copy.
+template <class TL, int MODE, int V>
+__global__ void __launch_bounds__(TL::kThreads, TL::kMinBlocks)
+patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geometry g) {
+  constexpr int BT = TL::BT, MT = TL::MT, NT = TL::NT;
+  extern __shared__ __align__(16) float smem[];
 
-__device__ __forceinline__ void advance(const Geometry& g, Row& row) {
-  row.ow += kDepth;
-  while (row.ow >= g.OW) {
-    row.ow -= g.OW;
-    if (++row.oh == g.OH) {
-      row.oh = 0;
-      row.boff += g.chw;
-    }
-  }
-}
-
-__device__ __forceinline__ float patch_value(const float* __restrict__ x,
-                                             const Geometry& g, const Feat& f,
-                                             const Row& row, bool valid) {
-  if (!valid || f.kind == 2) return 0.f;
-  if (f.kind == 1) return 1.f;
-  const int ih = row.oh * g.sh + f.di;
-  const int iw = row.ow * g.sw + f.dj;
-  if (ih < 0 || ih >= g.H || iw < 0 || iw >= g.W) return 0.f;
-  return __ldg(x + row.boff + f.coff + (long long)ih * g.W + iw);
-}
-
-__global__ void __launch_bounds__(kThreads)
-patch_cov_partial(const float* __restrict__ x, float* __restrict__ part,
-                  Geometry g) {
   // linear block index -> upper-triangle tile (ti <= tj)
   int t = blockIdx.x, ti = 0;
   while (t >= g.nT - ti) {
@@ -142,66 +155,227 @@ patch_cov_partial(const float* __restrict__ x, float* __restrict__ part,
   const int tj = ti + t;
   const bool diag = ti == tj;
   const int grp = blockIdx.z;
+  const int f0a = ti * BT, f0b = tj * BT;
 
-  const long long r_begin = (long long)blockIdx.y * g.rows_per_split;
-  long long r_end = r_begin + g.rows_per_split;
-  if (r_end > g.rows) r_end = g.rows;
+  constexpr bool FLAT = MODE != kRows;
+  const int sub = g.sub;  // one tile's window: channels, then ones
+  const int stage_floats = 2 * sub;
+  int* poff = reinterpret_cast<int*>(smem + kStages * stage_floats);
 
-  __shared__ __align__(16) float As[kDepth][kTile];
-  __shared__ __align__(16) float Bs[kDepth][kTile];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wt = warp % TL::kWarpsTile, ks = warp / TL::kWarpsTile;
+  const int wm = (wt / TL::kWarpsN) * TL::WM, wn = (wt % TL::kWarpsN) * TL::WN;
+  const int kk = g.kh * g.kw;
 
-  // loader role: feature column m of both tiles, rows k0, k0+4, k0+8, k0+12
-  const int tid = threadIdx.x;
-  const int m = tid & (kTile - 1);
-  const int k0 = tid >> 6;
-  const Feat fa = decode_feature(g, ti * kTile + m, grp);
-  const Feat fb = decode_feature(g, tj * kTile + m, grp);
-  Row rows[4];
+  // a feature's offset in its tile's window
+  const auto feature_offset = [&](int f, int f0) -> int {
+    if (f >= g.Fp) return 0;              // past the matrix: discarded
+    if (f >= g.F) return g.ones;          // the bias: the ones plane
+    const int c = f / kk, o = f - c * kk, i = o / g.kw, j = o - i * g.kw;
+    const int off = (c - f0 / kk) * g.plane;
+    if (MODE == kSlab) return off + (int)(((long long)(grp * g.C + f0) * g.plane) & 3);
+    return FLAT ? off : off + i * g.fr * g.Wp + j * g.dw - g.pw - g.col0;
+  };
+  int offa[MT][2], offb[NT];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) rows[q] = row_at(g, r_begin + k0 + 4 * q);
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) offa[i][h] = feature_offset(f0a + wm + 16 * i + 8 * h + gq, f0a);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    offb[j] = feature_offset(f0b + wn + 8 * j + gq, f0b) + (diag ? 0 : sub);
+  // whether mma tile (i, j) of this warp holds an entry of the upper triangle
+  const auto live = [&](int i, int j) {
+    const int m = f0a + wm + 16 * i, n = f0b + wn + 8 * j;
+    return m < g.Fp && n < g.Fp && n + 7 >= m;
+  };
 
-  // compute role: a 4x4 block of the output tile
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += kDepth) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = k0 + 4 * q;
-      const bool valid = r0 + k < r_end;
-      As[k][m] = patch_value(x, g, fa, rows[q], valid);
-      if (!diag) Bs[k][m] = patch_value(x, g, fb, rows[q], valid);
-      advance(g, rows[q]);
-    }
-    __syncthreads();
-    const float(*Bt)[kTile] = diag ? As : Bs;
-#pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bt[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  // the stage's position offsets, and the ones planes (never copied over)
+  for (int p = threadIdx.x; p < g.Lp; p += TL::kThreads) {
+    const int r = p / g.SW, ow = p - r * g.SW;
+    poff[p] = p >= g.L ? 0 : FLAT ? p : r * g.sh * g.Wp + ow * g.sw;
+  }
+  for (int e = threadIdx.x; e < kStages * 2 * g.plane; e += TL::kThreads) {
+    const int w = e / g.plane;  // stage * 2 + sub-window
+    smem[w * sub + g.ones + (e - w * g.plane)] = 1.f;
   }
 
-  // partial tile of this row split and group, [nT*64, nT*64] per
-  // (split, group)
-  const long long P = (long long)g.nT * kTile;
-  float* out = part + ((long long)blockIdx.y * g.groups + grp) * P * P;
+  const int upi = g.OH / g.R * g.nC;  // stages per image
+  const long long u_begin = (long long)blockIdx.y * g.units_per_split;
+  const int nst = (int)min((long long)g.units_per_split, (long long)g.units - u_begin);
+
+  const int chunks = g.Wp / V;
+  const float inv_chunks = 1.f / chunks, inv_hr = 1.f / g.HR;
+  const auto load_stage = [&](long long u, float* st) {
+    const long long b = u / upi;
+    const int in_image = (int)(u - b * upi);
+    const int oh0 = in_image / g.nC * g.R, ow0 = in_image % g.nC * g.SW;
+    for (int s = 0; s < (diag ? 1 : 2); ++s) {
+      const int f0 = s ? f0b : f0a;
+      if (f0 >= g.F) continue;  // the bias alone: no channel
+      const int cb = f0 / kk;
+      const int cn = (min(f0 + BT, g.F) - 1) / kk + 1 - cb;
+      const float* src = x + b * g.chw + (long long)(grp * g.C + cb) * g.H * g.W;
+      float* dst = st + s * sub;
+      if (MODE == kSlab) {
+        // channels cb .. cb+cn-1 of image b: one contiguous run, from the
+        // 16-byte boundary at or below it (chw % 4 == 0: the same offset
+        // for every image); chunks past the end of x read as zero
+        const long long first = src - x;
+        const long long from = first & ~3ll;
+        const int n4 = (int)((first - from + (long long)cn * g.plane + 3) >> 2);
+        for (int k = threadIdx.x; k < n4; k += TL::kThreads)
+          cp_async16(dst + 4 * k, x + from + 4 * k, from + 4 * k < g.total ? 16 : 0);
+        continue;
+      }
+      // V-float chunks of each window row (c, hr): input row
+      // oh0*sh - ph + hr*rstep from column ow0*sw + col0, zero outside the
+      // image (flat: channel c's R*W values from row oh0)
+      const int rows = cn * g.HR;
+      for (int e = threadIdx.x; e < rows * chunks; e += TL::kThreads) {
+        // e / chunks and r / HR through float reciprocals: exact at these
+        // counts (below 2^20), and a few instructions where an integer
+        // division takes some twenty
+        const int r = __float2int_rz((e + 0.5f) * inv_chunks), q = e - r * chunks;
+        const int c = FLAT ? r : __float2int_rz((r + 0.5f) * inv_hr), hr = r - c * g.HR;
+        const float* chan = src + (long long)c * g.H * g.W;
+        float* d = dst + c * g.plane + hr * g.Wp + q * V;
+        if (FLAT) {
+          copy_chunk<V>(d, chan + (long long)oh0 * g.W + q * V, true);
+        } else {
+          const int ih = oh0 * g.sh - g.ph + hr * g.rstep, iw = ow0 * g.sw + g.col0 + q * V;
+          const bool ok = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
+          copy_chunk<V>(d, ok ? chan + (long long)ih * g.W + iw : x, ok);
+        }
+      }
+    }
+  };
+
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = (long long)ti * kTile + ty * 4 + i;
-    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(out + r * P + tj * kTile + tx * 4) = v;
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nst) load_stage(u_begin + s, smem + s * stage_floats);
+    cp_async_commit();
+  }
+  const int ksteps = g.Lp / 8;
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage st has landed; every warp is done with st - 1
+    const int next = st + kStages - 1;
+    if (next < nst) load_stage(u_begin + next, smem + (next % kStages) * stage_floats);
+    cp_async_commit();
+    const float* win = smem + (st % kStages) * stage_floats;
+    // the stage's valid positions: fewer in a row's last column tile
+    int valid = g.L;
+    if (g.nC > 1) {
+      const int col = (int)((u_begin + st) % upi) % g.nC;
+      if (col == g.nC - 1) valid = g.OW - col * g.SW;
+    }
+    float c[MT][NT][4];  // this stage's sums, on the tensor cores
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
+    // the stage's K steps; UNDER: skip the mma tiles under the diagonal,
+    // known at compile time where a diagonal block's warps each hold the
+    // whole tile (the 48 x 48 tile); every other mma tile of the warp runs,
+    // also those past F' or under the diagonal of a wider tile (their sums
+    // are never stored): no branch in this loop
+    const auto steps = [&](auto under) {
+      constexpr bool UNDER = decltype(under)::value;
+      for (int k8 = ks; k8 < ksteps; k8 += TL::KSPLIT) {
+        const int p0 = 8 * k8 + tq, p1 = p0 + 4;
+        const int q0 = poff[p0], q1 = poff[p1];
+        const bool v0 = p0 < valid, v1 = p1 < valid;
+        uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          split4(win[offa[i][0] + q0], win[offa[i][1] + q0], win[offa[i][0] + q1],
+                 win[offa[i][1] + q1], ab[i], as[i]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          // positions past the stage's last read as zero here, on B
+          const float b0 = v0 ? win[offb[j] + q0] : 0.f;
+          const float b1 = v1 ? win[offb[j] + q1] : 0.f;
+          uint32_t bb0, bs0, bb1, bs1;
+          split(b0, bb0, bs0);
+          split(b1, bb1, bs1);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            if (UNDER && 8 * j + 7 < 16 * i) continue;
+            mma_tf32(c[i][j], as[i], bb0, bb1);
+            mma_tf32(c[i][j], ab[i], bs0, bs1);
+            mma_tf32(c[i][j], ab[i], bb0, bb1);
+          }
+        }
+      }
+    };
+    if constexpr (TL::kWarpsTile == 1) {
+      if (diag)
+        steps(std::true_type{});
+      else
+        steps(std::false_type{});
+    } else {
+      steps(std::false_type{});
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += c[i][j][e];
+  }
+
+  // this split's partial tile, [P, P] per (split, group), P = nT * BT;
+  // entries under the diagonal or past F' are left unwritten (never read)
+  const long long P = (long long)g.nT * BT;
+  float* out = part + ((long long)blockIdx.y * g.groups + grp) * P * P;
+  if (TL::KSPLIT == 1) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (!live(i, j)) continue;
+        const long long m = f0a + wm + 16 * i + gq, n = f0b + wn + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(out + m * P + n) = make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(out + (m + 8) * P + n) = make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+  } else {
+    // the K-split warps' sums, added in warp order through shared memory
+    cp_async_wait<0>();
+    __syncthreads();
+    float* red = smem;  // [KSPLIT][BT][BT]
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (!live(i, j)) continue;
+        const int m = wm + 16 * i + gq, n = wn + 8 * j + 2 * tq;
+        float* r = red + ks * BT * BT;
+        r[m * BT + n] = acc[i][j][0];
+        r[m * BT + n + 1] = acc[i][j][1];
+        r[(m + 8) * BT + n] = acc[i][j][2];
+        r[(m + 8) * BT + n + 1] = acc[i][j][3];
+      }
+    __syncthreads();
+    for (int e = threadIdx.x; e < BT * BT; e += TL::kThreads) {
+      const int m = f0a + e / BT, n = f0b + e % BT;
+      if (m >= g.Fp || n >= g.Fp || n < m) continue;
+      float s = red[e];
+#pragma unroll
+      for (int k = 1; k < TL::KSPLIT; ++k) s += red[k * BT * BT + e];
+      out[m * P + n] = s;
+    }
   }
 }
 
@@ -224,35 +398,253 @@ __global__ void patch_cov_reduce(const float* __restrict__ part,
   out[((long long)grp * Fp + i) * Fp + j] = s * scale;
 }
 
-}  // namespace
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
+}
 
-// x: [B, C, H, W]; C counts every group's channels. part: [splits, groups,
-// P, P] scratch, P = ceil(Fp / 64) * 64; out: [groups, Fp, Fp].
-extern "C" int kfac_patch_cov(const void* x, void* part, void* out, int B,
-                              int C, int H, int W, int kh, int kw, int sh,
-                              int sw, int ph, int pw, int dh, int dw, int OH,
-                              int OW, int has_bias, int groups, int splits,
-                              long long rows_per_split, float scale,
-                              void* stream) {
-  Geometry g;
+// The tile, copy route, stage and splits of one geometry, as
+// kfac_patch_cov_plan reports them.
+struct Plan {
+  int tile;  // 0 KSplit (48), 1 Medium (64), 2 Wide (128)
+  int mode;  // Mode
+  int vec;   // floats per copy: 1, 2 or 4
+  int splits;
+  size_t smem;
+};
+
+int tile_side(int tile) { return tile == 2 ? Wide::BT : tile == 1 ? Medium::BT : KSplit::BT; }
+
+// The copy route of a stage of g.R output rows of g.SW columns: the widest
+// copy whose chunks start aligned (a window row's chunks at multiples of V
+// from an image row's start, W % V == 0, column tiles being multiples of 8
+// columns; a flat stage's at multiples of V from a channel's start, H*W and
+// R*W % V == 0), and the layout.
+void choose_copy(const Geometry& g, Plan& pl, uintptr_t addr) {
+  const bool flat = g.kh == 1 && g.kw == 1 && g.sh == 1 && g.sw == 1 && g.ph == 0 &&
+                    g.pw == 0 && g.SW == g.OW;
+  const int n = flat ? g.H * g.W : g.W;
+  pl.vec = n % 4 == 0 && addr % 16 == 0 ? 4 : n % 2 == 0 && addr % 8 == 0 ? 2 : 1;
+  pl.mode = flat ? kFlat : kRows;
+  while (flat && g.R * g.SW % pl.vec) pl.vec /= 2;
+  if (flat && pl.vec < 4 && g.R == g.OH && g.chw % 4 == 0 && addr % 16 == 0) {
+    pl.mode = kSlab;
+    pl.vec = 4;
+  }
+}
+
+// Fill g's stage fields for pl's tile and copy route and a stage of g.R
+// output rows of g.SW columns; pl.smem: the shared memory a block takes.
+void fill(Geometry& g, Plan& pl, int B) {
+  const int bt = tile_side(pl.tile), kk = g.kh * g.kw;
+  g.nT = (g.Fp + bt - 1) / bt;
+  g.ct = min(g.C, (bt - 2) / kk + 2);  // channels bt consecutive features span
+  g.nC = (g.OW + g.SW - 1) / g.SW;
+  g.L = g.R * g.SW;
+  g.Lp = (g.L + 7) / 8 * 8;
+  // one output row's window holds only the kh input rows its taps read
+  g.rstep = g.R == 1 ? g.dh : 1;
+  g.fr = g.R == 1 ? 1 : g.dh;
+  if (pl.mode != kRows) {
+    g.HR = 1;
+    g.Wp = g.L;
+    g.col0 = 0;
+  } else {
+    // columns -pw .. (SW-1)*sw + (kw-1)*dw - pw of the stage's first, from
+    // col0 down to a multiple of V, in whole chunks
+    g.HR = g.R == 1 ? g.kh : (g.R - 1) * g.sh + (g.kh - 1) * g.dh + 1;
+    g.col0 = -((g.pw + pl.vec - 1) / pl.vec) * pl.vec;
+    const int last = (g.SW - 1) * g.sw + (g.kw - 1) * g.dw - g.pw;
+    g.Wp = (last - g.col0 + pl.vec) / pl.vec * pl.vec;
+  }
+  // rows padded to 4 mod 32 floats: 16-byte aligned, and a warp's 8
+  // channels x 4 positions of a 1x1 conv fall in 32 distinct banks; a
+  // slab's channels lie unpadded, as in x
+  g.plane = pl.mode == kSlab ? g.H * g.W : (g.HR * g.Wp + 31) / 32 * 32 + 4;
+  // the ones plane past the channels (a slab's copies end at most 6 floats
+  // past ct planes)
+  g.ones = g.ct * g.plane + (pl.mode == kSlab ? 8 : 0);
+  g.sub = (g.ones + g.plane + 3) / 4 * 4;
+  const size_t ring = sizeof(float) * kStages * 2 * g.sub + sizeof(int) * g.Lp;
+  const size_t red = pl.tile == 0 ? sizeof(float) * KSplit::KSPLIT * KSplit::BT * KSplit::BT : 0;
+  pl.smem = ring > red ? ring : red;
+  g.total = (long long)B * g.chw;
+  g.units = B * (g.OH / g.R) * g.nC;
+}
+
+// The row splits of g's stages: the fewest waves x stages per block over
+// the card's block slots, with at least 4 stages per split and at most 16M
+// floats of partials.
+void choose_splits(Geometry& g, Plan& pl) {
+  const int by_regs = pl.tile == 2 ? Wide::kMinBlocks : pl.tile == 1 ? Medium::kMinBlocks : KSplit::kMinBlocks;
+  const long long blocks = (long long)g.nT * (g.nT + 1) / 2 * g.groups;
+  const long long per_sm = min(by_regs, (int)(kMaxSmem / pl.smem));
+  const long long slots = sm_count() * (per_sm < 1 ? 1 : per_sm);
+  const long long side = (long long)g.nT * tile_side(pl.tile);
+  long long max_splits = min((long long)(g.units + 3) / 4, (16ll << 20) / (side * side * g.groups));
+  if (max_splits < 1) max_splits = 1;
+  long long best = 1, best_cost = -1;
+  for (long long s = 1; s <= max_splits; ++s) {
+    const long long cost = (blocks * s + slots - 1) / slots * ((g.units + s - 1) / s);
+    if (best_cost < 0 || cost < best_cost) best = s, best_cost = cost;
+  }
+  g.units_per_split = (int)((g.units + best - 1) / best);
+  pl.splits = (g.units + g.units_per_split - 1) / g.units_per_split;
+}
+
+// Fill g and choose the plan; false where no stage fits in shared memory.
+bool plan(Geometry& g, int B, uintptr_t addr, Plan& pl) {
+  // The tile, as measured on an H100 over ResNet-32's and ResNeXt-50's
+  // convs: a narrow group whole; for a conv with a filter wider than 1x1,
+  // 48-wide tiles where their triangle covers at most 4/5 of the 64-wide
+  // tiles' (F' = 144, 288, which 64-wide tiles pad to 192, 320); 128-wide
+  // tiles for a 1x1 conv that fills them (F' >= 512, or a multiple of
+  // 128); else 64-wide.
+  const int kk = g.kh * g.kw;
+  const auto area = [&](int bt) {
+    const long long n = (g.Fp + bt - 1) / bt;
+    return n * (n + 1) / 2 * bt * bt;
+  };
+  const int preferred = g.Fp <= KSplit::BT || (kk > 1 && 5 * area(KSplit::BT) <= 4 * area(Medium::BT)) ? 0
+                      : kk == 1 && g.Fp > 64 && (g.Fp >= 512 || g.Fp % 128 == 0) ? 2 : 1;
+  const auto fits = [&](int R, int SW) {
+    g.R = R;
+    g.SW = SW;
+    choose_copy(g, pl, addr);
+    fill(g, pl, B);
+    return pl.smem <= (size_t)kMaxSmem;
+  };
+  // The stage: the largest divisor R of OH with R*OW <= the tile's stage
+  // positions (or R = 1) whose window fits; else one output row in the
+  // widest column tiles (multiples of 8 columns) that fit; else the same
+  // with the next narrower tile, whose window spans fewer channels. Wide
+  // images take these (ResNet-50's 1x1 convs on 256 channels at 112 x 112,
+  // a 7 x 7 stem at 512 x 512).
+  for (pl.tile = preferred; pl.tile >= 0; --pl.tile) {
+    for (int R = g.OH; R >= 1; --R) {
+      if (g.OH % R == 0 && (R == 1 || R * g.OW <= kStagePositions[pl.tile]) && fits(R, g.OW)) {
+        choose_splits(g, pl);
+        return true;
+      }
+    }
+    for (int SW = ((g.OW + 1) / 2 + 7) / 8 * 8; SW >= 8; SW -= 8) {
+      if (SW < g.OW && fits(1, SW)) {
+        choose_splits(g, pl);
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// Take the plan kfac_patch_cov_plan made (tile, splits, R, SW: no search
+// again); false where it does not fit this geometry.
+bool adopt(Geometry& g, int B, uintptr_t addr, const int* in, Plan& pl) {
+  pl.tile = in[0];
+  pl.splits = in[3];
+  g.R = in[4];
+  g.SW = in[5];
+  if (pl.tile < 0 || pl.tile > 2 || pl.splits < 1 || g.R < 1 || g.OH % g.R || g.SW < 1 ||
+      g.SW > g.OW || (g.SW < g.OW && g.R != 1))
+    return false;
+  choose_copy(g, pl, addr);
+  fill(g, pl, B);
+  g.units_per_split = (g.units + pl.splits - 1) / pl.splits;
+  return pl.smem <= (size_t)kMaxSmem && in[6] == g.nT * tile_side(pl.tile) &&
+         (g.units + g.units_per_split - 1) / g.units_per_split == pl.splits;
+}
+
+template <class TL, int MODE, int V>
+cudaError_t run(const float* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      patch_cov_mma<TL, MODE, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(g.nT * (g.nT + 1) / 2, pl.splits, g.groups);
+  patch_cov_mma<TL, MODE, V><<<grid, TL::kThreads, pl.smem, s>>>(x, part, g);
+  return cudaGetLastError();
+}
+
+template <class TL, int MODE>
+cudaError_t run_vec(const float* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+  return pl.vec == 4 ? run<TL, MODE, 4>(x, part, g, pl, s)
+       : pl.vec == 2 ? run<TL, MODE, 2>(x, part, g, pl, s)
+                     : run<TL, MODE, 1>(x, part, g, pl, s);
+}
+
+template <class TL>
+cudaError_t run_copy(const float* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+  return pl.mode == kSlab ? run<TL, kSlab, 4>(x, part, g, pl, s)
+       : pl.mode == kFlat ? run_vec<TL, kFlat>(x, part, g, pl, s)
+                          : run_vec<TL, kRows>(x, part, g, pl, s);
+}
+
+Geometry geometry(int C, int H, int W, int kh, int kw, int sh, int sw, int ph,
+                  int pw, int dh, int dw, int OH, int OW, int has_bias, int groups) {
+  Geometry g{};
   g.C = C / groups; g.H = H; g.W = W; g.kh = kh; g.kw = kw; g.sh = sh;
   g.sw = sw; g.ph = ph; g.pw = pw; g.dh = dh; g.dw = dw; g.OH = OH;
   g.OW = OW;
   g.F = g.C * kh * kw;
   g.Fp = g.F + (has_bias ? 1 : 0);
-  g.nT = (g.Fp + kTile - 1) / kTile;
   g.groups = groups;
-  g.rows = (long long)B * OH * OW;
-  g.rows_per_split = rows_per_split;
   g.chw = (long long)C * H * W;
+  return g;
+}
+
+}  // namespace
+
+// The plan kfac_patch_cov takes for these inputs, into out[0..6]: the tile
+// (0: 48 x 48, or one block per narrow group; 1: 64 x 64; 2: 128 x 128),
+// the copy width in bytes (4, 8 or 16), the stage's layout (Mode: 0 a
+// window of input rows, 1 each channel's contiguous rows, 2 one slab), the
+// splits, the output rows and columns per stage, and the side P of each
+// partial tile (the scratch kfac_patch_cov takes is [splits, groups, P, P]
+// floats).
+extern "C" int kfac_patch_cov_plan(const void* x, int B, int C, int H, int W,
+                                   int kh, int kw, int sh, int sw, int ph,
+                                   int pw, int dh, int dw, int OH, int OW,
+                                   int has_bias, int groups, int* out) {
+  Geometry g = geometry(C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias, groups);
+  Plan pl;
+  if (!plan(g, B, reinterpret_cast<uintptr_t>(x), pl)) return (int)cudaErrorInvalidValue;
+  out[0] = pl.tile;
+  out[1] = 4 * pl.vec;
+  out[2] = pl.mode;
+  out[3] = pl.splits;
+  out[4] = g.R;
+  out[5] = g.SW;
+  out[6] = g.nT * tile_side(pl.tile);
+  return 0;
+}
+
+// x: [B, C, H, W]; C counts every group's channels. plan: what
+// kfac_patch_cov_plan returned for this geometry and x's alignment; part:
+// the scratch it sizes; out: [groups, Fp, Fp].
+extern "C" int kfac_patch_cov(const void* x, void* part, void* out, int B,
+                              int C, int H, int W, int kh, int kw, int sh,
+                              int sw, int ph, int pw, int dh, int dw, int OH,
+                              int OW, int has_bias, int groups,
+                              const int* plan, float scale, void* stream) {
+  Geometry g = geometry(C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias, groups);
+  Plan pl;
+  if (!adopt(g, B, reinterpret_cast<uintptr_t>(x), plan, pl)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = g.nT * (g.nT + 1) / 2;
-  patch_cov_partial<<<dim3(tiles, splits, groups), kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<float*>(part), g);
-  cudaError_t err = cudaGetLastError();
+  const float* xf = static_cast<const float*>(x);
+  float* pf = static_cast<float*>(part);
+  cudaError_t err;
+  switch (pl.tile) {
+    case 2: err = run_copy<Wide>(xf, pf, g, pl, s); break;
+    case 1: err = run_copy<Medium>(xf, pf, g, pl, s); break;
+    default: err = run_copy<KSplit>(xf, pf, g, pl, s); break;
+  }
   if (err != cudaSuccess) return (int)err;
+  const int side = g.nT * tile_side(pl.tile);
   patch_cov_reduce<<<dim3((g.Fp + 127) / 128, g.Fp, groups), 128, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), g.Fp,
-      g.nT * kTile, splits, groups, scale);
+      pf, static_cast<float*>(out), g.Fp, side, pl.splits, groups, scale);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,12 @@
 // 3xTF32 tensor-core products and cp.async copies, for Hopper (sm_90a).
 //
-// Shared by csrc/flash_attention.cu (kernels 5–7) and csrc/fused_apply.cu
-// (kernel 3). Every product of those kernels runs as mma.sync m16n8k8 TF32
-// in 3xTF32, as CUTLASS's OpMultiplyAddFastF32 does: each float32 operand
-// is split in registers as x = big + small (big = x rounded to TF32, small
-// = the remainder truncated to TF32), and a·b ≈ a_small·b_big +
-// a_big·b_small + a_big·b_big, summed in float32: about float32 accuracy
-// at three TF32 products per product.
+// Shared by csrc/flash_attention.cu (kernels 5–7), csrc/fused_apply.cu
+// (kernel 3) and csrc/patch_cov.cu (kernels 1 and 1g). Every product of
+// those kernels runs as mma.sync m16n8k8 TF32 in 3xTF32, as CUTLASS's
+// OpMultiplyAddFastF32 does: each float32 operand is split in registers as
+// x = big + small (big = x rounded to TF32, small = the remainder truncated
+// to TF32), and a·b ≈ a_small·b_big + a_big·b_small + a_big·b_big, summed
+// in float32: about float32 accuracy at three TF32 products per product.
 //
 // Fragments of m16n8k8 (g = lane / 4, t = lane % 4):
 //   A 16x8: a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
@@ -67,6 +67,14 @@ __device__ __forceinline__ void split4(float x0, float x1, float x2, float x3,
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes));
+}
+
+// 8 bytes; the first src_bytes (0 or 8) copied, the rest zero-filled.
+// Both addresses 8-byte aligned.
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(s), "l"(src), "r"(src_bytes));
 }
 

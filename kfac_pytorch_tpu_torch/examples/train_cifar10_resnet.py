@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 
@@ -71,6 +71,41 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def build(args, device: torch.device):
+    """``(model, kfac, state, train_step)`` for parsed ``args`` on
+    ``device``; ``kfac`` is ``None`` at ``--kfac-update-freq 0``."""
+    model = cifar_resnet.get_model(
+        args.model, num_classes=NUM_CLASSES,
+        generator=torch.Generator().manual_seed(args.seed),
+    ).to(device)
+    tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
+    kfac = None
+    if args.kfac_update_freq > 0:
+        kfac = KFAC(
+            layers=capture.discover_layers(model),
+            lr=args.base_lr,
+            factor_decay=args.stat_decay,
+            damping=args.damping,
+            kl_clip=args.kl_clip,
+            fac_update_freq=args.kfac_cov_update_freq,
+            kfac_update_freq=args.kfac_update_freq,
+            factor_kernel=args.factor_kernel,
+            apply_kernel=args.apply_kernel,
+            device=device,
+        )
+    state = TrainState(
+        step=0,
+        model=model,
+        opt_state=tx.init(dict(model.named_parameters())),
+        kfac_state=kfac.init(model) if kfac else None,
+    )
+    train_step = make_train_step(
+        model, tx, kfac,
+        sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
+    )
+    return model, kfac, state, train_step
+
+
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
     if not args.synthetic:
@@ -81,46 +116,15 @@ def main(argv=None) -> Dict[str, List]:
     device = resolve_device(args.device)
     use_ieee_f32()
     world = 1
-    model = cifar_resnet.get_model(
-        args.model, num_classes=NUM_CLASSES,
-        generator=torch.Generator().manual_seed(args.seed),
-    ).to(device)
-
-    use_kfac = args.kfac_update_freq > 0
     lr_base = args.base_lr * world
-    tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
-    kfac = None
+    _, kfac, state, train_step = build(args, device)
     kfac_sched = None
-    if use_kfac:
-        kfac = KFAC(
-            layers=capture.discover_layers(model),
-            lr=lr_base,
-            factor_decay=args.stat_decay,
-            damping=args.damping,
-            kl_clip=args.kl_clip,
-            fac_update_freq=args.kfac_cov_update_freq,
-            kfac_update_freq=args.kfac_update_freq,
-            factor_kernel=args.factor_kernel,
-            apply_kernel=args.apply_kernel,
-            device=device,
-        )
+    if kfac is not None:
         kfac_sched = KFACParamScheduler(
             kfac,
             damping_alpha=args.damping_alpha,
             damping_schedule=args.damping_schedule,
         )
-
-    params = dict(model.named_parameters())
-    state = TrainState(
-        step=0,
-        model=model,
-        opt_state=tx.init(params),
-        kfac_state=kfac.init(model) if kfac else None,
-    )
-    train_step = make_train_step(
-        model, tx, kfac,
-        sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
-    )
     lr_factor = create_lr_schedule(world, args.warmup_epochs, args.lr_decay)
     steps_per_epoch = args.steps_per_epoch or 50
 

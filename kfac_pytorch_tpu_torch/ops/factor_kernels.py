@@ -7,8 +7,10 @@ beside it and a launch counter (``fn.launches``, CUDA calls only):
 * :func:`compute_a_conv_fused` — a CUDA tensor launches
   ``csrc/patch_cov.cu`` (replacing the TPU kernel ``compute_a_conv_fused``
   → ``_patch_cov_pallas`` → ``_patch_cov_kernel``; the source says what
-  bounds it and how its design answers that), or raises — there is no
-  fallback. A CPU tensor takes :func:`compute_a_conv_fused_plain`, the same
+  bounds it and how its design answers that: 3xTF32 on the tensor cores,
+  the input staged in shared memory, a tile per geometry that
+  :func:`patch_cov_route` reports), or raises — there is no fallback. A
+  CPU tensor takes :func:`compute_a_conv_fused_plain`, the same
   function in plain PyTorch: raw ``PᵀP`` sums with the bias column folded
   in as a ones feature, scaled once by ``1/(spatial²·B)`` at the end — the
   kernel's arithmetic, not the oracle's divide-first order.
@@ -35,7 +37,8 @@ an argument, held by the capture hooks.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+import ctypes
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -45,9 +48,6 @@ from kfac_pytorch_tpu_torch.ops.factors import resolve_padding as _resolve_paddi
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
 FACTOR_KERNELS = ("auto", "kernel", "dense")
-
-_TILE = 64  # output tile side of csrc/patch_cov.cu
-_DEPTH = 16  # patch rows per stage of csrc/patch_cov.cu
 
 
 def resolve_factor_kernel(kind: str, device: torch.device) -> str:
@@ -91,6 +91,93 @@ def compute_a_conv_fused_plain(
     return (p.T @ p) * scale
 
 
+_PATCH_COV_TILES = ("48x48", "64x64", "128x128")
+_PATCH_COV_WINDOWS = ("rows", "flat", "slab")
+
+
+def _patch_cov_geometry(a, groups, kernel_size, strides, padding, has_bias,
+                        kernel_dilation, what):
+    """Check the CUDA tensor ``a`` and return the geometry arguments of
+    ``csrc/patch_cov.cu``'s C entries, ``oh`` and ``ow``."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {a.device}")
+    if a.dtype != torch.float32 or a.dim() != 4:
+        raise ValueError(
+            f"{what}: the CUDA kernel takes float32 NCHW activations, got "
+            f"{a.dtype} {tuple(a.shape)}"
+        )
+    b, c, h, w = a.shape
+    if groups < 1 or c % groups:
+        raise ValueError(f"{what}: {c} channels do not split into {groups} groups")
+    kernel_size, strides = tuple(kernel_size), tuple(strides)
+    kernel_dilation = tuple(kernel_dilation)
+    pads, oh, ow = _resolve_padding(h, w, kernel_size, strides, padding, kernel_dilation)
+    geometry = (
+        b, c, h, w, kernel_size[0], kernel_size[1], strides[0], strides[1],
+        pads[0][0], pads[1][0], kernel_dilation[0], kernel_dilation[1],
+        oh, ow, int(has_bias), groups,
+    )
+    return geometry, oh, ow
+
+
+# kfac_patch_cov_plan's answers, by device, x's alignment and geometry
+_PATCH_COV_PLANS: Dict[Tuple[int, ...], ctypes.Array] = {}
+
+
+def _patch_cov_plan(lib, a, geometry, what) -> ctypes.Array:
+    """``kfac_patch_cov_plan``, asked once per geometry: int[7] (tile, copy
+    bytes, stage layout, splits, output rows and columns per stage, partial
+    side), which ``kfac_patch_cov`` takes back."""
+    key = (a.device.index, a.data_ptr() % 16) + geometry
+    plan = _PATCH_COV_PLANS.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * 7)()
+        err = lib.kfac_patch_cov_plan(a.data_ptr(), *geometry, ctypes.addressof(plan))
+        if err != 0:
+            raise ValueError(
+                f"{what}: no stage of this conv fits in shared memory (x "
+                f"{tuple(a.shape)}, kernel {geometry[4:6]}, stride "
+                f"{geometry[6:8]}, dilation {geometry[10:12]}, groups {geometry[15]})"
+            )
+        _PATCH_COV_PLANS[key] = plan
+    return plan
+
+
+def patch_cov_route(
+    a: torch.Tensor,
+    groups: int,
+    kernel_size: Tuple[int, int],
+    strides: Tuple[int, int],
+    padding: Padding,
+    has_bias: bool,
+    kernel_dilation: Tuple[int, int] = (1, 1),
+) -> dict:
+    """The plan ``csrc/patch_cov.cu`` takes for this conv input (a CUDA
+    tensor): the output tile, the copy width in bytes and whether the
+    stage's window is a window of input rows (``"rows"``), each channel's
+    contiguous rows (``"flat"``, a 1x1 stride-1 conv) or, where a flat
+    stage is a whole image, the tile's channels as one slab (``"slab"``),
+    the row splits, and the output rows and columns per stage (fewer
+    columns than a row has where a whole row's window does not fit)."""
+    a = a.contiguous()
+    geometry, _, _ = _patch_cov_geometry(
+        a, groups, kernel_size, strides, padding, has_bias, kernel_dilation,
+        "patch_cov_route",
+    )
+    tile, copy, mode, splits, rows, cols, _ = _patch_cov_plan(
+        kernel_build.load("patch_cov"), a, geometry, "patch_cov_route"
+    )
+    return {
+        "tile": _PATCH_COV_TILES[tile],
+        "copy": copy,
+        "window": _PATCH_COV_WINDOWS[mode],
+        "splits": splits,
+        "stage_rows": rows,
+        "stage_columns": cols,
+        "stage_positions": rows * cols,
+    }
+
+
 def _launch_patch_cov(
     a: torch.Tensor,
     groups: int,
@@ -103,42 +190,21 @@ def _launch_patch_cov(
 ) -> torch.Tensor:
     """One launch of ``csrc/patch_cov.cu`` over all ``groups`` channel
     groups of the CUDA tensor ``a``: ``[groups, F', F']`` float32."""
-    if a.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {a.device}")
-    if a.dtype != torch.float32 or a.dim() != 4:
-        raise ValueError(
-            f"{what}: the CUDA kernel takes float32 NCHW activations, got "
-            f"{a.dtype} {tuple(a.shape)}"
-        )
-    b, c, h, w = a.shape
-    if groups < 1 or c % groups:
-        raise ValueError(f"{what}: {c} channels do not split into {groups} groups")
     a = a.contiguous()
-    kernel_size, strides = tuple(kernel_size), tuple(strides)
-    kernel_dilation = tuple(kernel_dilation)
-    pads, oh, ow = _resolve_padding(h, w, kernel_size, strides, padding, kernel_dilation)
+    geometry, oh, ow = _patch_cov_geometry(
+        a, groups, kernel_size, strides, padding, has_bias, kernel_dilation, what
+    )
+    lib = kernel_build.load("patch_cov")
+    plan = _patch_cov_plan(lib, a, geometry, what)
+    splits, side = plan[3], plan[6]
+    b, c = a.shape[:2]
     fp = c // groups * kernel_size[0] * kernel_size[1] + int(has_bias)
-    n_t = -(-fp // _TILE)
-    blocks = n_t * (n_t + 1) // 2 * groups
-    rows = b * oh * ow
-    # enough blocks to fill the card several times over, but at least a few
-    # stages of rows per split
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits = max(1, min(-(-4 * sms // blocks), -(-rows // (8 * _DEPTH))))
-    rows_per_split = -(-rows // splits)
-    rows_per_split = -(-rows_per_split // _DEPTH) * _DEPTH
-    splits = -(-rows // rows_per_split)
-    side = n_t * _TILE
     part = torch.empty((splits, groups, side, side), dtype=torch.float32, device=a.device)
     out = torch.empty((groups, fp, fp), dtype=torch.float32, device=a.device)
     scale = 1.0 / (float(oh * ow) ** 2 * float(b))
-    lib = kernel_build.load("patch_cov")
     err = lib.kfac_patch_cov(
-        a.data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, c, h, w, kernel_size[0], kernel_size[1], strides[0], strides[1],
-        pads[0][0], pads[1][0], kernel_dilation[0], kernel_dilation[1],
-        oh, ow, int(has_bias), groups, splits, rows_per_split, scale,
-        kernel_build.current_stream_handle(a.device),
+        a.data_ptr(), part.data_ptr(), out.data_ptr(), *geometry,
+        ctypes.addressof(plan), scale, kernel_build.current_stream_handle(a.device),
     )
     kernel_build.check(err, "patch_cov")
     return out

@@ -39,8 +39,12 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "patch_cov": {
         # x, part, out, B, C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW,
-        # has_bias, groups, splits, rows_per_split, scale, stream
-        "kfac_patch_cov": (_P, _P, _P) + (_I,) * 17 + (_L, _F, _P),
+        # has_bias, groups, int[7] plan, scale, stream
+        "kfac_patch_cov": (_P, _P, _P) + (_I,) * 16 + (_P, _F, _P),
+        # x, B, C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias,
+        # groups, int[7] out -> the plan (tile, copy bytes, layout, splits,
+        # output rows and columns per stage, partial side)
+        "kfac_patch_cov_plan": (_P,) + (_I,) * 16 + (_P,),
     },
     "fused_apply": {
         # gm, qa, da, qg, dg, lam, scratch1, scratch2, out, vg, k, g, a, stream

@@ -17,8 +17,9 @@ and sum separately, as the plain version does: 1e-6 relative. The token
 counts are integers divided once by N: bitwise. Flash attention: 2e-5 for
 the forward (softmax-weighted sums of at most T values in float32), 1e-4
 for the gradients, whose dS = p ⊙ (dP − Δ) cancels. The products of the
-apply and of the three flash kernels run as 3xTF32 on the tensor cores
-(about float32 accuracy); two launches of any of them agree bit for bit.
+conv A factors, the apply and the three flash kernels run as 3xTF32 on the
+tensor cores (about float32 accuracy); two launches of any of them agree
+bit for bit.
 """
 
 import numpy as np
@@ -53,8 +54,19 @@ def _orth(r, n):
     return q.astype(np.float32)
 
 
-# (NCHW shape, kernel, strides, padding, bias): small edge cases and the
-# ResNet-32 batch-128 geometries of each stage
+# (NCHW shape, kernel, strides, padding, bias): small edge cases, the
+# ResNet-32 batch-128 geometries of each stage, and every branch of the
+# kernel's plan (patch_cov_route): ResNeXt's 7x7 stride-2 stem (F = 147, a
+# window of 8-byte copies at 66 columns), a 1x1 stride-2 downsample (a
+# window of input rows, 128-wide tiles), 1x1 convs at F = 2048 (7 x 7: a
+# whole image's channels as one slab) and with a bias at F = 1025 (flat
+# stages), a slab with a bias, flat 4-byte copies (65 channels of 7 x 7:
+# no slab), a ragged image (13 columns: 4-byte copies; 17 output rows,
+# no divisor near a stage), and images whose one output row's window does
+# not fit in shared memory, staged in column tiles: ResNet-50's 1x1 convs
+# on 256 channels at 112 x 112 (two tiles of 56), a 7x7 stride-2 stem at
+# 512 x 512 (two of 128), and ragged tiles of a 1x1 (64 + 52 columns) and
+# of a 3x3 conv with a bias (304 + 296)
 CONV_CASES = [
     ((3, 4, 8, 8), (1, 1), (1, 1), "VALID", False),
     ((3, 4, 9, 9), (3, 3), (2, 2), ((1, 1), (1, 1)), True),
@@ -63,6 +75,17 @@ CONV_CASES = [
     ((128, 16, 32, 32), (3, 3), (1, 1), ((1, 1), (1, 1)), False),
     ((128, 16, 32, 32), (3, 3), (2, 2), ((1, 1), (1, 1)), False),
     ((128, 64, 8, 8), (3, 3), (1, 1), ((1, 1), (1, 1)), False),
+    ((4, 3, 66, 66), (7, 7), (2, 2), ((3, 3), (3, 3)), False),
+    ((4, 256, 14, 14), (1, 1), (2, 2), "VALID", False),
+    ((2, 2048, 7, 7), (1, 1), (1, 1), "VALID", False),
+    ((2, 1024, 14, 14), (1, 1), (1, 1), "VALID", True),
+    ((3, 64, 7, 7), (1, 1), (1, 1), "VALID", True),
+    ((3, 65, 7, 7), (1, 1), (1, 1), "VALID", False),
+    ((3, 16, 17, 13), (3, 3), (1, 1), ((1, 1), (1, 1)), True),
+    ((2, 256, 112, 112), (1, 1), (1, 1), "VALID", False),
+    ((2, 3, 512, 512), (7, 7), (2, 2), ((3, 3), (3, 3)), False),
+    ((1, 256, 4, 116), (1, 1), (1, 1), "VALID", False),
+    ((1, 64, 4, 600), (3, 3), (1, 1), ((1, 1), (1, 1)), True),
 ]
 
 
@@ -82,6 +105,30 @@ def test_conv_a_kernel_matches_plain(cuda_device, shape, ks, st, pad, bias):
     assert torch.equal(got, got.T)
 
 
+# (NCHW shape, kernel, padding, bias, dilation): dilated convs, whose stage
+# of several output rows reads every dh-th window row (20 x 20), and whose
+# one-row stage (23 rows: no divisor near a stage) holds only the kh input
+# rows its taps read, which lets a dilation of 24 fit
+DILATED_CASES = [
+    ((2, 16, 20, 20), (3, 3), ((2, 2), (2, 2)), True, (2, 2)),
+    ((2, 16, 23, 23), (3, 3), ((2, 2), (2, 2)), False, (2, 2)),
+    ((1, 64, 40, 40), (3, 3), ((24, 24), (24, 24)), False, (24, 24)),
+    ((2, 8, 21, 30), (2, 3), ((1, 1), (2, 2)), True, (2, 1)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ks,pad,bias,dil", DILATED_CASES)
+def test_conv_a_kernel_dilated_matches_plain(cuda_device, shape, ks, pad, bias, dil):
+    x = torch.from_numpy(np.random.RandomState(43).randn(*shape).astype(np.float32))
+    x = x.to(cuda_device)
+    got = tfk.compute_a_conv_fused(x, ks, (1, 1), pad, bias, dil)
+    want = tfk.compute_a_conv_fused_plain(x, ks, (1, 1), pad, bias, dil)
+    assert got.shape == want.shape
+    _close_scaled(got, want, rtol=1e-5)
+    assert torch.equal(got, got.T)
+
+
 # (NCHW shape, groups, stride, bias): ResNeXt-50's grouped 3×3 convs have
 # C/G = 4 … 32 at G = 32; small batches give one row split, the larger a
 # ragged one (rows no multiple of the split's length)
@@ -94,6 +141,10 @@ GROUPED_CASES = [
     ((2, 1024, 7, 7), 32, 1, True),
     ((8, 1024, 14, 14), 32, 2, False),
     ((9, 128, 23, 23), 32, 1, False),
+    # ResNeXt's stage-1 groups (a = 36, whole in one 48 x 48 block) at their
+    # 56-wide rows, and its stage-4 groups (a = 288, 48-wide tiles) at 7 x 7
+    ((3, 128, 56, 56), 32, 1, False),
+    ((4, 1024, 7, 7), 32, 1, False),
 ]
 
 
@@ -113,6 +164,80 @@ def test_grouped_conv_a_kernel_matches_plain(cuda_device, shape, groups, stride,
         _close_scaled(got[k], want[k], rtol=1e-5)
     assert torch.equal(got, got.transpose(1, 2))
     _close_scaled(got, tf.compute_a_conv_grouped(x, *args), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_conv_a_kernels_repeat_bitwise(cuda_device):
+    """Each output tile has one owning block per row split, which sums its
+    stages in a fixed order; the reduce pass adds the splits in split
+    order: two launches of kernel 1 and of kernel 1g agree bit for bit."""
+    r = np.random.RandomState(42)
+    x = torch.from_numpy(r.randn(16, 16, 32, 32).astype(np.float32)).to(cuda_device)
+    args = ((3, 3), (1, 1), ((1, 1), (1, 1)), True)
+    assert tfk.patch_cov_route(x, 1, *args)["splits"] > 1
+    assert torch.equal(tfk.compute_a_conv_fused(x, *args), tfk.compute_a_conv_fused(x, *args))
+    xg = torch.from_numpy(r.randn(8, 128, 28, 28).astype(np.float32)).to(cuda_device)
+    assert torch.equal(tfk.compute_a_conv_grouped_fused(xg, 32, *args),
+                       tfk.compute_a_conv_grouped_fused(xg, 32, *args))
+
+
+@pytest.mark.cuda
+def test_conv_a_routes_of_the_paths_shapes(cuda_device):
+    """The plan per conv: 48-wide tiles for narrow groups and for 3x3 convs
+    whose F' they divide far better than 64 (144, 288), 128-wide for wide
+    1x1 convs, 64-wide otherwise; flat stages for 1x1 stride-1 convs; the
+    widest copy that divides the image rows, or a whole image's channels
+    as one slab of 16-byte copies."""
+    def route(shape, ks, st, pad, groups=1, bias=False):
+        return tfk.patch_cov_route(torch.zeros(shape, device=cuda_device), groups, ks, st, pad, bias)
+
+    same = ((1, 1), (1, 1))
+    r = route((128, 3, 32, 32), (3, 3), (1, 1), same)
+    assert (r["tile"], r["copy"], r["window"], r["stage_positions"]) == ("48x48", 16, "rows", 256)
+    assert route((128, 16, 32, 32), (3, 3), (1, 1), same)["tile"] == "48x48"
+    assert route((128, 64, 8, 8), (3, 3), (1, 1), same)["tile"] == "64x64"
+    assert route((32, 128, 56, 56), (3, 3), (1, 1), same, groups=32)["tile"] == "48x48"
+    stem = route((32, 3, 224, 224), (7, 7), (2, 2), ((3, 3), (3, 3)))
+    assert (stem["tile"], stem["copy"], stem["window"]) == ("64x64", 16, "rows")
+    flat = route((32, 256, 56, 56), (1, 1), (1, 1), "VALID")
+    assert (flat["tile"], flat["copy"], flat["window"]) == ("128x128", 16, "flat")
+    slab = route((32, 2048, 7, 7), (1, 1), (1, 1), "VALID")
+    assert (slab["copy"], slab["window"]) == (16, "slab")
+    assert route((3, 65, 7, 7), (1, 1), (1, 1), "VALID")["copy"] == 4
+    assert route((32, 256, 56, 56), (1, 1), (2, 2), "VALID")["window"] == "rows"
+
+
+@pytest.mark.cuda
+def test_conv_a_routes_of_wide_images(cuda_device):
+    """Where one output row's window does not fit in shared memory at the
+    preferred tile, the stage is one row in column tiles (multiples of 8
+    columns); where even 8 columns do not fit, the next narrower tile."""
+    def route(shape, ks, st, pad, groups=1, bias=False):
+        return tfk.patch_cov_route(torch.zeros(shape, device=cuda_device), groups, ks, st, pad, bias)
+
+    wide = route((2, 256, 112, 112), (1, 1), (1, 1), "VALID")
+    assert (wide["tile"], wide["window"], wide["stage_rows"], wide["stage_columns"]) == (
+        "128x128", "rows", 1, 56)
+    stem = route((2, 3, 512, 512), (7, 7), (2, 2), ((3, 3), (3, 3)))
+    assert (stem["tile"], stem["stage_rows"], stem["stage_columns"]) == ("64x64", 1, 128)
+    ragged = route((1, 64, 4, 600), (3, 3), (1, 1), ((1, 1), (1, 1)))
+    assert (ragged["stage_rows"], ragged["stage_columns"]) == (1, 304)
+    # a whole row still fits: one stage per row, as before
+    assert route((32, 256, 56, 56), (1, 1), (1, 1), "VALID")["stage_columns"] == 56
+
+
+@pytest.mark.cuda
+def test_conv_a_kernel_route_refuses_a_cpu_tensor(cuda_device):
+    """``kind="kernel"`` insists on the kernel: a CPU tensor raises there
+    even on a machine with a GPU, and never falls back."""
+    x = torch.zeros(2, 3, 6, 6)
+    args = ((3, 3), (1, 1), ((1, 1), (1, 1)), False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfk.dispatch_compute_a_conv(x, *args, kind="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfk.dispatch_compute_a_conv_grouped(x, 3, *args, kind="kernel")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfk.patch_cov_route(x, 1, *args)
 
 
 def _apply_inputs(seed, k, g, a, device):

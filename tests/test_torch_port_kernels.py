@@ -87,6 +87,46 @@ def test_conv_a_dispatch_routes():
         tfk.dispatch_compute_a_conv(x, *args, kind="pallas")
 
 
+def test_conv_a_3xtf32_keeps_float32_accuracy():
+    """Kernel 1's numerical scheme, emulated over ResNet-32's longest
+    reduction (its first conv: 131072 patch rows, F = 27, post-ReLU-like
+    inputs), in the kernel's order on a 132-SM card: each stage's 256 rows
+    summed on the tensor cores in 3xTF32 into a fresh fragment, the stage
+    sums added in float32 four to a row split, the 128 split partials added
+    in split order. The whole sum stays within 1e-6 of float64, 10x inside
+    the card's 1e-5 tolerance. Per stage, the tensor cores' own sums are
+    within 1e-6 in 3xTF32, and at least 10x worse with one TF32 product,
+    which breaks that tolerance. (Over all 131072 rows one TF32 product's
+    unbiased input rounding largely averages out, to within a small,
+    data-dependent factor of the float32 adds' error: the per-stage sums
+    are where it shows.)"""
+    from tests.test_torch_port_flash import _mm_1xtf32, _mm_3xtf32
+
+    r = np.random.RandomState(24)
+    x = torch.from_numpy(np.maximum(r.randn(128, 3, 32, 32), 0).astype(np.float32))
+    patches, _, _ = tf.extract_patches(x, (3, 3), (1, 1), ((1, 1), (1, 1)))
+    stages = patches.reshape(-1, 256, 27)  # 8 output rows of 32 per stage
+    ref_stages = stages.double().transpose(1, 2) @ stages.double()
+
+    def stage_err(mm):
+        got = mm(stages.transpose(1, 2), stages).double()
+        scale = ref_stages.abs().amax(dim=(1, 2))
+        return float(((got - ref_stages).abs().amax(dim=(1, 2)) / scale).max())
+
+    sums = _mm_3xtf32(stages.transpose(1, 2), stages).reshape(128, 4, 27, 27)
+    part = sums[:, 0]
+    for k in range(1, 4):
+        part = part + sums[:, k]
+    total = part[0]
+    for s in range(1, 128):
+        total = total + part[s]
+    ref = ref_stages.sum(dim=0)
+    assert float((total.double() - ref).abs().max() / ref.abs().max()) <= 1e-6
+    three, one = stage_err(_mm_3xtf32), stage_err(_mm_1xtf32)
+    assert three <= 1e-6
+    assert one >= 10 * three and one > 1e-5
+
+
 # -------------------------------------------------------- kernel 3: fused apply
 
 
@@ -201,10 +241,10 @@ def test_kernel_builds_follow_their_headers(tmp_path, monkeypatch):
     touch(lib, 4000)
     touch(csrc / "k.cu", 5000)
     assert kernel_build._stale("k")
-    # the port's own sources: flash attention and the fused apply share the
-    # tensor-core header
+    # the port's own sources: flash attention, the fused apply and the conv
+    # A factors share the tensor-core header
     monkeypatch.undo()
-    for name in ("flash_attention", "fused_apply"):
+    for name in ("flash_attention", "fused_apply", "patch_cov"):
         assert "tf32_mma.cuh" in {p.name for p in kernel_build._inputs(name)}
 
 
