@@ -29,6 +29,11 @@ result line):
    fused apply (3xTF32) also per shape group, its five costliest groups
    reported with their tile and copy widths, and two of its launches
    bitwise equal;
+   kernel 4 (the fused SGD, through the ``SGDPlan`` the train step keeps)
+   bitwise equal to its plain version, one device launch per call, its
+   device time from the profiler's kernel spans (the L2 cache flushed
+   before each call, and back to back) beside the wrapper's wall time and
+   ``torch.optim.SGD`` with ``foreach=True`` and with ``fused=True``;
 4. train ResNet-32 at its published widths on synthetic data (lr 0.1,
    momentum 0.9, wd 5e-4, stat-decay 0.95, damping 0.003, kl-clip 0.001,
    cov-freq 1, kfac-update-freq 10); the loss must be finite and falling
@@ -39,9 +44,13 @@ result line):
    (the oracle paths) must match the kernel run's first losses;
 6. print where the ResNet step's device time goes (``torch.profiler``:
    kernel time by group over 9 capture steps and over 10 plain-SGD steps,
-   with the device's idle share);
+   with the device's idle share); kernel 4 must launch once per K-FAC
+   step in the profile (the same gate holds in phases 10 and 14, and on
+   the LM kernel 2 once per capture step);
 7. the LM kernels at the LM path's shapes (d_model 512, 8 heads of 64,
-   4 layers, T 2048, batch 4, vocab 1000): token counts bitwise, flash
+   4 layers, T 2048, batch 4, vocab 1000): token counts bitwise in one
+   device launch and no other device event (no memset, no host sync), ids
+   outside the vocabulary raised by the deferred ``check_token_ids``, flash
    forward within 2e-5 of the largest plain entry (and of SDPA's) and its
    dQ and dK/dV within 1e-4, there and at ``FLASH_EDGE_CASES`` (a ragged T,
    no causal mask, D = 32 and 128), two launches of each flash kernel
@@ -57,7 +66,7 @@ result line):
    ``factor_kernel="dense"``, ``apply_kernel="dense"``, the same seed and
    batches) must match the kernel path's first 5 losses within 1e-3;
 10. print where the LM step's device time goes (10 K-FAC steps holding one
-    eigen refresh, and 10 plain-SGD steps);
+    eigen refresh, 5 capture steps, and 10 plain-SGD steps);
 11. the ImageNet kernels on activations of one ResNeXt-50 forward at batch
     32, 224×224: kernel 1g (grouped conv A, one launch per layer for all 32
     groups, C/G = 4, 8, 16, 32) and kernel 1 (the 37 ungrouped convs)
@@ -78,7 +87,11 @@ result line):
     plain SGD's own run-to-run noise included: printed beside it);
 14. print where the ResNeXt step's device time goes (10 K-FAC steps
     holding one refresh, 5 capture steps, 10 plain-SGD steps);
-15. print one ``{"kernels": [...]}`` line (eight kernels), then the last
+15. capture one kernel-4 call over ResNeXt's leaf set and one kernel-2
+    call on the LM batch in CUDA graphs (a host sync in either wrapper
+    fails the capture) and replay each on new inputs: bitwise equal to
+    eager calls;
+16. print one ``{"kernels": [...]}`` line (eight kernels), then the last
     line ``{"ok": true, "device": {...}}``.
 """
 
@@ -152,6 +165,86 @@ def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+PROFILE_ATTEMPTS = 3
+
+
+def spin_guard():
+    """Spin kernels (``spin_kernel``) that open and close every profiled
+    region: 2000 short ones, then ~25 ms of long ones. The profiler drops
+    device events at a region's edges: unguarded, the last fused-SGD launch
+    of the LM window and ~700 events around it; behind 20 short spins, or
+    behind 0.1 s of 50 long ones, some or all of the guard itself."""
+    import torch
+
+    for _ in range(2000):
+        torch.cuda._sleep(1000)
+    for _ in range(10):
+        torch.cuda._sleep(4_000_000)
+
+
+def guarded_profile(body):
+    """``(device events, body's result)`` of ``body()`` run under
+    ``torch.profiler`` between two :func:`spin_guard` s: ``[(start ns, end
+    ns, name), ...]`` in device order, the guards left out. Runs ``body``
+    again, up to ``PROFILE_ATTEMPTS`` times in all, while the trace has lost
+    a whole guard (then the region's own events at that edge may be gone
+    too)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            spin_guard()
+            torch.cuda.synchronize()
+            result = body()
+            torch.cuda.synchronize()
+            spin_guard()
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies, memsets), read from the
+        # raw trace: prof.events() builds a tree of every event, which takes
+        # minutes at ResNeXt's ~10^4 launches per step
+        events = sorted((e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA)
+        spin = ["spin_kernel" in name for _, _, name in events]
+        if events and spin[0] and spin[-1]:
+            return [e for e, is_spin in zip(events, spin) if not is_spin], result
+    raise AssertionError(f"torch.profiler lost an edge guard of a profiled region {PROFILE_ATTEMPTS} times")
+
+
+def kernel_spans(fn, fragment, reps=TIMING_REPS, flush=None):
+    """``(device ms per call, launches per call, other device events per
+    call)`` of ``fn`` from ``torch.profiler``'s kernel spans: the device
+    events whose name holds ``fragment`` are ``fn``'s kernel; every other
+    device event (a memset, a copy, another kernel) is counted apart.
+    ``flush`` (a tensor over 50 MB) is zeroed before each call, so that the
+    kernel finds the L2 cache cold, as a training step leaves it; its one
+    fill kernel per call is not counted."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+
+    events, _ = guarded_profile(calls)
+    ms, launches, other = 0.0, 0, 0
+    for start, end, name in events:
+        if fragment in name:
+            ms += (end - start) / 1e6
+            launches += 1
+        else:
+            other += 1
+    if flush is not None:
+        other -= reps
+    return ms / reps, launches / reps, other / reps
 
 
 def bound_ms(calls, tf32_products=0):
@@ -423,8 +516,14 @@ def apply_phase(model, device):
     }
 
 
-def sgd_phase(model, device, lr, mu, wd):
-    """Kernel 4 over every parameter leaf of ``model``."""
+def sgd_phase(model, device, lr, mu, wd, flush):
+    """Kernel 4 over every parameter leaf of ``model``, through an
+    ``SGDPlan`` of the leaf set as the train step keeps one: bitwise equal
+    to its plain version; one device launch per call (profiler); device
+    time per call from the profiler's kernel spans with the L2 cache
+    flushed before each call and back to back; the wrapper's wall time per
+    call (CUDA events around back-to-back calls: host and device together),
+    with the plan and with a plan built for every call."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
@@ -435,37 +534,58 @@ def sgd_phase(model, device, lr, mu, wd):
     trace = [torch.randn(p.shape, device=device, generator=gen) for p in params]
     kp, km = [p.clone() for p in params], [m.clone() for m in trace]
     pp, pm = [p.clone() for p in params], [m.clone() for m in trace]
-    ak.fused_sgd_apply(kp, grads, km, lr, mu, wd)
+    plan = ak.SGDPlan(kp, km)
+    plan.launch(grads, lr, mu, wd)
     ak.fused_sgd_apply_plain(pp, grads, pm, lr, mu, wd)
-    worst_abs = worst_rel = 0.0
-    for got, want in zip(kp + km, pp + pm):
-        err = float((got - want).abs().max())
-        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-    tol = 1e-6
-    if not worst_rel <= tol:
-        raise AssertionError(f"fused SGD kernel disagrees with its plain version: rel {worst_rel:.3e} > {tol}")
+    worst_abs = max(float((got - want).abs().max()) for got, want in zip(kp + km, pp + pm))
+    if not all(torch.equal(got, want) for got, want in zip(kp + km, pp + pm)):
+        raise AssertionError(f"fused SGD kernel is not bitwise equal to its plain version: "
+                             f"max |diff| {worst_abs:.3e}")
 
+    def call():
+        plan.launch(grads, lr, mu, wd)
+
+    device_ms, launches, other = kernel_spans(call, "fused_sgd", flush=flush)
+    warm_ms, _, _ = kernel_spans(call, "fused_sgd")
+    if launches != plan.launches_per_call or launches != 1 or other:
+        raise AssertionError(f"fused SGD: {launches} kernel launches and {other} other device "
+                             f"events per call over {len(params)} leaves; want 1 and 0")
     lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    fused_params = [torch.nn.Parameter(p.clone()) for p in params]
     opt = torch.optim.SGD(lib_params, lr=lr, momentum=mu, weight_decay=wd, foreach=True)
-    for p, g, m in zip(lib_params, grads, trace):
-        p.grad = g
-        opt.state[p]["momentum_buffer"] = m.clone()
+    fused_opt = torch.optim.SGD(fused_params, lr=lr, momentum=mu, weight_decay=wd, fused=True)
+    for o, ps in ((opt, lib_params), (fused_opt, fused_params)):
+        for p, g, m in zip(ps, grads, trace):
+            p.grad = g
+            o.state[p]["momentum_buffer"] = m.clone()
     n = sum(p.numel() for p in params)
     b_ms, b_by = bound_ms([(20 * n, 4 * n)])
+    wrapper_ms = time_ms(call)
     return {
         "name": "fused_sgd (momentum + weight decay, in place)",
         "route": "cuda",
         "source": "kfac_pytorch_tpu_torch/csrc/fused_sgd.cu",
         "replaces": "kfac_pytorch_tpu/ops/apply_kernels.py:325",
-        "unit": f"one SGD step over {len(params)} leaves ({n} params)",
+        "unit": f"one SGD step over {len(params)} leaves ({n} params, {20 * n / 1e6:.1f} MB moved)",
         "max_abs_err": worst_abs,
-        "max_rel_err": worst_rel,
-        "tolerance": f"|kernel - plain| <= {tol} * |plain| per element",
-        "ms": time_ms(lambda: ak.fused_sgd_apply(kp, grads, km, lr, mu, wd)),
+        "max_rel_err": 0.0,
+        "tolerance": "bitwise",
+        "ms": wrapper_ms,
+        "wrapper_ms": wrapper_ms,
+        "wrapper_ms_is": "wall time per call of back-to-back calls with the plan (CUDA events): "
+                         "host and device together",
+        "wrapper_no_plan_ms": time_ms(lambda: ak.fused_sgd_apply(kp, grads, km, lr, mu, wd)),
+        "device_ms": device_ms,
+        "device_ms_is": "profiler kernel span per call, L2 flushed before each call",
+        "device_l2_warm_ms": warm_ms,
+        "device_launches_per_call": launches,
+        "vector_leaves": sum(ak.sgd_vector_leaves([p.data_ptr() for p in kp], [g.data_ptr() for g in grads],
+                                                  [m.data_ptr() for m in km])),
         "plain_ms": time_ms(lambda: ak.fused_sgd_apply_plain(pp, grads, pm, lr, mu, wd)),
         "library_ms": time_ms(opt.step),
         "library": "torch.optim.SGD(foreach=True).step",
+        "library_fused_ms": time_ms(fused_opt.step),
+        "library_fused": "torch.optim.SGD(fused=True).step",
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
@@ -473,12 +593,17 @@ def sgd_phase(model, device, lr, mu, wd):
 
 def token_count_phase(ids, vocab):
     """Kernel 2 on one LM batch's token ids: bitwise equal to its plain
-    version and to the scatter-add oracle."""
+    version and to the scatter-add oracle; one device launch per call and
+    no other device event (no memset, no second kernel); an id outside the
+    vocabulary binned nowhere and raised by the deferred
+    ``check_token_ids``; device time per call from the profiler's kernel
+    spans, wrapper wall time per call from CUDA events."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
     from kfac_pytorch_tpu_torch.ops import factors
 
+    fk.check_token_ids(ids.device)
     got = fk.compute_a_embed_fused(ids, vocab)
     want = fk.compute_a_embed_fused_plain(ids, vocab)
     if not (torch.equal(got, want) and torch.equal(got, factors.compute_a_embed(ids, vocab))):
@@ -486,24 +611,106 @@ def token_count_phase(ids, vocab):
             f"token-count kernel is not bitwise equal to its plain version: "
             f"max |diff| {float((got - want).abs().max()):.3e}"
         )
+    fk.check_token_ids(ids.device)  # every id in range: nothing to raise
+    bad = ids.clone()
+    bad.view(-1)[:2] = torch.tensor([-1, vocab])
+    fk.compute_a_embed_fused(bad, vocab)
+    try:
+        fk.check_token_ids(ids.device)
+    except ValueError as e:
+        if f"ids must lie in [0, {vocab})" not in str(e):
+            raise
+    else:
+        raise AssertionError("check_token_ids did not raise for ids outside the vocabulary")
+
+    def call():
+        fk.compute_a_embed_fused(ids, vocab)
+
+    device_ms, launches, other = kernel_spans(call, "token_count")
+    if launches != 1 or other:
+        raise AssertionError(f"token count: {launches} kernel launches and {other} other device "
+                             "events per call; want 1 and 0")
     flat = ids.reshape(-1)
     n = flat.numel()
     b_ms, b_by = bound_ms([(ids.element_size() * n + 4 * vocab, n)])
+    wrapper_ms = time_ms(call)
     return {
         "name": "token_count (embedding diagonal A)",
         "route": "cuda",
         "source": "kfac_pytorch_tpu_torch/csrc/token_count.cu",
         "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:471",
-        "unit": f"one capture step: {n} int64 ids, vocab {vocab} (the wrapper's "
-                "id-range check is one host sync)",
+        "unit": f"one capture step: {n} {str(ids.dtype).split('.')[-1]} ids, vocab {vocab} (no host "
+                "sync: the id-range check is deferred to check_token_ids)",
         "max_abs_err": float((got - want).abs().max()),
         "tolerance": "bitwise",
-        "ms": time_ms(lambda: fk.compute_a_embed_fused(ids, vocab)),
+        "deferred_range_check": "ids -1 and V binned nowhere, raised by check_token_ids",
+        "ms": wrapper_ms,
+        "wrapper_ms": wrapper_ms,
+        "wrapper_ms_is": "wall time per call of back-to-back calls (CUDA events): host and device together",
+        "device_ms": device_ms,
+        "device_ms_is": "profiler kernel span per call",
+        "device_launches_per_call": launches,
         "plain_ms": time_ms(lambda: fk.compute_a_embed_fused_plain(ids, vocab)),
         "library_ms": time_ms(lambda: torch.bincount(flat, minlength=vocab).float() / n),
         "library": "torch.bincount(ids, minlength=V).float() / N",
         "bound_ms": b_ms,
         "bound_by": b_by,
+        "bound_note": "below any launch: one launch is the practical floor",
+    }
+
+
+def graph_phase(model, ids, vocab, device, lr, mu, wd):
+    """Kernels 4 and 2 under CUDA-graph capture: one ``fused_sgd_apply``
+    call over ``model``'s leaf set (through its plan) and one
+    ``compute_a_embed_fused`` call on the LM batch, each captured in a
+    ``torch.cuda.CUDAGraph`` (a host sync in either wrapper fails the
+    capture), then replayed on new inputs copied into the captured buffers.
+    The replays must equal eager calls on the same inputs bit for bit."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def randn_like_all(ts):
+        return [torch.randn(t.shape, device=device, generator=gen) for t in ts]
+
+    params = [p.detach().to(device, copy=True) for p in model.parameters()]
+    grads, trace = randn_like_all(params), randn_like_all(params)
+    plan = ak.SGDPlan(params, trace)
+    static_ids = ids.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream, as torch.cuda.graphs asks
+        plan.launch(grads, lr, mu, wd)
+        fk.compute_a_embed_fused(static_ids, vocab)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    sgd_graph, tok_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(sgd_graph):
+        plan.launch(grads, lr, mu, wd)
+    with torch.cuda.graph(tok_graph):
+        out = fk.compute_a_embed_fused(static_ids, vocab)
+
+    new_p, new_m, new_g = (randn_like_all(params) for _ in range(3))
+    for dst, src in zip(params + trace + grads, new_p + new_m + new_g):
+        dst.copy_(src)
+    sgd_graph.replay()
+    eager_p, eager_m = [p.clone() for p in new_p], [m.clone() for m in new_m]
+    ak.fused_sgd_apply(eager_p, new_g, eager_m, lr, mu, wd)
+    if not all(torch.equal(a, b) for a, b in zip(params + trace, eager_p + eager_m)):
+        raise AssertionError("fused SGD: the CUDA-graph replay differs from an eager call")
+    new_ids = torch.randint(0, vocab, ids.shape, device=device, generator=gen, dtype=ids.dtype)
+    static_ids.copy_(new_ids)
+    tok_graph.replay()
+    want = fk.compute_a_embed_fused(new_ids, vocab)
+    if not (torch.equal(out, want) and torch.equal(out, fk.compute_a_embed_fused_plain(new_ids, vocab))):
+        raise AssertionError("token count: the CUDA-graph replay differs from an eager call")
+    fk.check_token_ids(device)
+    return {
+        "fused_sgd": f"captured and replayed over {len(params)} leaves on new inputs: bitwise equal to eager",
+        "token_count": f"captured and replayed on {new_ids.numel()} new ids: bitwise equal to eager and plain",
     }
 
 
@@ -702,15 +909,18 @@ def lm_oracle_losses(device, steps):
     return losses
 
 
+
+
+SGD_GROUP = "fused SGD (kernel 4)"
+TOKEN_GROUP = "token counts (kernel 2)"
 _KERNEL_GROUPS = (  # device kernel name fragment → what it is
     ("patch_cov", "conv A factors (kernels 1, 1g)"),
     ("flash_fwd", "flash forward (kernel 5)"),
     ("flash_dq", "flash dQ (kernel 6)"),
     ("flash_dkv", "flash dK/dV (kernel 7)"),
     ("chain_mma", "fused apply (kernel 3)"),
-    ("fused_sgd", "fused SGD (kernel 4)"),
-    ("token_hist", "token counts (kernel 2)"),
-    ("counts_to_freq", "token counts (kernel 2)"),
+    ("fused_sgd", SGD_GROUP),
+    ("token_count", TOKEN_GROUP),
     ("sytrd", "eigh (cuSOLVER)"),
     ("syr2k", "eigh (cuSOLVER)"),
     ("rotate_batch", "eigh (cuSOLVER)"),
@@ -744,8 +954,6 @@ def profile_path(setup, device, runs):
     import time
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 
@@ -762,34 +970,42 @@ def profile_path(setup, device, runs):
 
         step = 0
         for label, start, stop in windows:
+            captures = sum(kfac_flags_for_step(i, kfac, 0)["update_factors"] for i in range(start, stop))
             for i in range(step, start):
                 state = run(i, state)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+            def window():
+                nonlocal state
                 t0 = time.perf_counter()
                 for i in range(start, stop):
                     state = run(i, state)
                 torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
+                return (time.perf_counter() - t0) * 1e3
+
+            events, wall_ms = guarded_profile(window)
             step = stop
-            # device-side events only (kernels, copies, memsets), read from
-            # the raw trace: prof.events() builds a tree of every event,
-            # which takes minutes at ResNeXt's ~10^4 launches per step
-            kernels, spans = {}, []
-            for evt in prof.profiler.kineto_results.events():
-                if evt.device_type() == DeviceType.CUDA:
-                    kernels[evt.name()] = kernels.get(evt.name(), 0.0) + evt.duration_ns() / 1e6
-                    spans.append((evt.start_ns(), evt.end_ns()))
+            kernels, spans, launches, order = {}, [], {}, []
+            for start_ns, end_ns, name in events:
+                kernels[name] = kernels.get(name, 0.0) + (end_ns - start_ns) / 1e6
+                launches[name] = launches.get(name, 0) + 1
+                spans.append((start_ns, end_ns))
+                for frag, letter in (("fused_sgd", "S"), ("token_count", "T"), ("syevj", "E"),
+                                     ("stedc", "E"), ("sytrd", "E")):
+                    if frag in name:
+                        order.append(letter)
+                        break
             busy_ns, reach = 0, float("-inf")
             for lo, hi in sorted(spans):
                 if hi > reach:
                     busy_ns += hi - max(lo, reach)
                     reach = hi
             n = stop - start
-            groups, other = {}, {}
+            groups, other, group_launches = {}, {}, {}
             for name, ms in kernels.items():
                 group = next((g for frag, g in _KERNEL_GROUPS if frag in name.lower()), "other")
                 groups[group] = groups.get(group, 0.0) + ms / n
+                group_launches[group] = group_launches.get(group, 0) + launches[name]
                 if group == "other":
                     other[name[:90]] = ms / n
             busy = busy_ns / 1e6
@@ -799,7 +1015,15 @@ def profile_path(setup, device, runs):
                 "device_ms_per_step": sum(kernels.values()) / n,
                 "device_busy_ms_per_step": busy / n,
                 "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+                "device_events": sum(launches.values()),
+                "capture_steps": captures,
+                # kernels 4 (S) and 2 (T) and eigh (E, once per run of its
+                # kernels) in device order
+                "kernel_order": "".join(x for i, x in enumerate(order)
+                                        if x != "E" or i == 0 or order[i - 1] != "E"),
                 "by_group_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                "by_group_launches": {g: group_launches[g] for g in (SGD_GROUP, TOKEN_GROUP)
+                                      if g in group_launches},
                 "top_kernels_ms_per_step": {
                     k[:90]: v / n for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
                 },
@@ -810,9 +1034,25 @@ def profile_path(setup, device, runs):
     return out
 
 
+def gate_profile_launches(profile, path):
+    """From a path's profile windows: kernel 4 launches once per K-FAC step
+    (the plain-SGD windows take the per-leaf step) and, on the LM, kernel 2
+    once per capture step."""
+    for label, w in profile.items():
+        got = w["by_group_launches"]
+        want = {SGD_GROUP: 0 if label == "sgd" else w["steps"]}
+        if path == "lm":
+            want[TOKEN_GROUP] = w["capture_steps"]
+        for group, n in want.items():
+            if got.get(group, 0) != n:
+                raise AssertionError(f"{path} profile, {label} window: {got.get(group, 0)} {group} "
+                                     f"launches over {w['steps']} steps, want {n}")
+
+
 def profile_lm(device):
-    """LM steps 2..11 with K-FAC (one eigen refresh), then with plain SGD."""
-    return profile_path(lm_setup, device, [((), [("kfac", 2, 12)]),
+    """LM steps 2..11 with K-FAC (one eigen refresh), 12..16 (capture steps
+    only), then 2..11 with plain SGD."""
+    return profile_path(lm_setup, device, [((), [("kfac", 2, 12), ("capture", 12, 17)]),
                                            (("--kfac-update-freq", "0"), [("sgd", 2, 12)])])
 
 
@@ -1041,6 +1281,8 @@ def main() -> int:
     print(smi, flush=True)
     device = torch.device("cuda", 0)
     use_ieee_f32()
+    # zeroed before each profiled kernel-4 call: 128 MB, over the 50 MB L2
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=device)
 
     mark("2. build")
     # 2. build
@@ -1055,9 +1297,11 @@ def main() -> int:
 
     def report(entries):
         for k in entries:
+            device = (f", device {k['device_ms']:.4f} ms in {k['device_launches_per_call']:g} launch(es)"
+                      if "device_ms" in k else "")
             print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e}, "
                   f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
-                  f"bound {k['bound_ms']:.4f} by {k['bound_by']})", flush=True)
+                  f"bound {k['bound_ms']:.4f} by {k['bound_by']}{device})", flush=True)
             for geo in k.get("costliest_geometries", []):
                 print(f"  {geo['geometry']} x{geo['layers']}: {geo['ms']:.4f} ms (bound "
                       f"{geo['bound_ms']:.4f}), route {json.dumps(geo['route'])}", flush=True)
@@ -1069,7 +1313,7 @@ def main() -> int:
     images = torch.from_numpy(xb).to(device)
     conv_a = conv_a_phase(model, images)
     resnet_apply = apply_phase(model, device)
-    resnet_sgd = sgd_phase(model, device, 0.1, 0.9, 5e-4)
+    resnet_sgd = sgd_phase(model, device, 0.1, 0.9, 5e-4, flush)
     report([conv_a, resnet_apply, resnet_sgd])
     del model
 
@@ -1130,10 +1374,12 @@ def main() -> int:
     mark("6. ResNet profile")
     # 6. where the ResNet step's device time goes: 9 capture steps between
     # the refreshes at steps 0 and 10, and 10 plain-SGD steps
-    print(json.dumps({"resnet_profile": profile_path(resnet_setup, device, [
+    resnet_profile = profile_path(resnet_setup, device, [
         (("--steps-per-epoch", "10"), [("capture", 1, 10)]),
         (("--steps-per-epoch", "12", "--kfac-update-freq", "0"), [("sgd", 2, 12)]),
-    ])}), flush=True)
+    ])
+    print(json.dumps({"resnet_profile": resnet_profile}), flush=True)
+    gate_profile_launches(resnet_profile, "resnet")
 
     mark("7. LM kernels")
     # 7. LM kernels against their plain versions, at the LM path's shapes
@@ -1142,11 +1388,12 @@ def main() -> int:
     toks, _ = next(data_lib.bptt_batches(
         data_lib.batchify_tokens(splits["train"], args.batch_size), args.seq_len))
     lm_model = lm_trainer.build(args, device)[0]
-    token_count = token_count_phase(lm_trainer.device_batch(toks, toks, device)[0], len(words))
+    lm_ids = lm_trainer.device_batch(toks, toks, device)[0]
+    token_count = token_count_phase(lm_ids, len(words))
     flash = flash_phase(device, args.batch_size, args.seq_len, args.n_heads,
                         args.d_model // args.n_heads)
     lm_apply = apply_phase(lm_model, device)
-    lm_sgd = sgd_phase(lm_model, device, args.base_lr, args.momentum, args.wd)
+    lm_sgd = sgd_phase(lm_model, device, args.base_lr, args.momentum, args.wd, flush)
     report([token_count, *flash, lm_apply, lm_sgd])
 
     mark("8. LM training")
@@ -1212,7 +1459,9 @@ def main() -> int:
 
     mark("10. LM profile")
     # 10. where the LM step's device time goes
-    print(json.dumps({"lm_profile": profile_lm(device)}), flush=True)
+    lm_profile = profile_lm(device)
+    print(json.dumps({"lm_profile": lm_profile}), flush=True)
+    gate_profile_launches(lm_profile, "lm")
 
     mark("11. ResNeXt kernels")
     # 11. ResNeXt kernels against their plain versions, at the ImageNet path's
@@ -1225,7 +1474,7 @@ def main() -> int:
     grouped_a = grouped_conv_a_phase(rx_model, rx_images)
     del rx_images
     rx_apply = apply_phase(rx_model, device)
-    rx_sgd = sgd_phase(rx_model, device, 0.0125, 0.9, 5e-5)
+    rx_sgd = sgd_phase(rx_model, device, 0.0125, 0.9, 5e-5, flush)
     report([rx_conv_a, grouped_a, rx_apply, rx_sgd])
     torch.cuda.empty_cache()
 
@@ -1298,12 +1547,24 @@ def main() -> int:
     mark("14. ResNeXt profile")
     # 14. where the ResNeXt step's device time goes: 10 K-FAC steps holding
     # one refresh, 5 capture steps, 10 plain-SGD steps
-    print(json.dumps({"imagenet_profile": profile_path(imagenet_setup, device, [
+    rx_profile = profile_path(imagenet_setup, device, [
         (("--steps-per-epoch", "17"), [("kfac", 2, 12), ("capture", 12, 17)]),
         (("--steps-per-epoch", "12", "--kfac-update-freq", "0"), [("sgd", 2, 12)]),
-    ])}), flush=True)
+    ])
+    print(json.dumps({"imagenet_profile": rx_profile}), flush=True)
+    gate_profile_launches(rx_profile, "imagenet")
 
-    # 15. results: kernels 1, 3 and 4 run on several paths; the top-level
+    mark("15. CUDA graphs")
+    # 15. kernels 4 (ResNeXt's leaf set) and 2 (the LM batch) captured in CUDA
+    # graphs and replayed on new inputs: no host sync, results as eager
+    graphs = graph_phase(
+        imagenet_resnet.get_model(IMAGENET_MODEL, generator=torch.Generator().manual_seed(0)),
+        lm_ids, len(words), device, 0.0125, 0.9, 5e-5)
+    print(json.dumps({"cuda_graphs": graphs}), flush=True)
+    token_count["cuda_graph"] = graphs["token_count"]
+    rx_sgd["cuda_graph"] = graphs["fused_sgd"]
+
+    # 16. results: kernels 1, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     lm_apply["resnet32"] = resnet_apply

@@ -33,6 +33,7 @@ import torch
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
 from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
 from kfac_pytorch_tpu_torch.models import transformer_lm
+from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
 from kfac_pytorch_tpu_torch.parallel.context import full_attention
 from kfac_pytorch_tpu_torch.training import data as data_lib
@@ -235,6 +236,9 @@ def main(argv=None) -> Dict[str, List]:
             )
             losses.append(loss)
             step += 1
+        # the token-count kernel tallies ids outside the vocabulary on the
+        # card; read the tally once an epoch, where the host waits anyway
+        check_token_ids(device)
         dt = time.perf_counter() - t0
         mean = sum(losses) / len(losses)
         print(

@@ -11,8 +11,11 @@ its plain PyTorch version beside it and a launch counter on the wrapper
   ``_fused_apply_kernel``);
 * :func:`fused_sgd_apply` — ``m' = μ·m + (g + wd·p); p' = p − lr·m'`` over
   every parameter leaf, updating params and momentum IN PLACE
-  (``csrc/fused_sgd.cu``, replacing ``fused_sgd_apply`` →
-  ``_fused_sgd_kernel``).
+  (``csrc/fused_sgd.cu``, one launch for up to 896 leaves, replacing
+  ``fused_sgd_apply`` → ``_fused_sgd_kernel``). An :class:`SGDPlan` holds
+  what does not change from step to step (pointers, sizes, launch tables);
+  the train step keeps one, so a step's host work is over the grads only.
+  The counter counts device launches.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. ``"dense"`` (:data:`APPLY_KERNELS`) keeps the JAX package's oracle
@@ -22,7 +25,8 @@ option: the einsum-chain ``precondition_all`` and the per-leaf SGD step.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -185,6 +189,175 @@ def fused_sgd_apply_plain(
         p.sub_(lr * m)
 
 
+# csrc/fused_sgd.cu's LeafTable capacities, in leaves; the largest keeps the
+# kernel's argument (36 bytes a leaf, then lr, momentum and weight decay)
+# under sm_90's 32,764-byte limit
+SGD_TABLE_CAPACITIES = (64, 256, 896)
+SGD_CHUNK = 4096  # elements a block of csrc/fused_sgd.cu updates
+SGD_ARG_LIMIT = 32764  # bytes of kernel arguments an sm_90 kernel takes (CUDA >= 12.1)
+
+_TABLE_TYPES: Dict[int, type] = {}
+
+
+def _table_type(cap: int) -> type:
+    """ctypes mirror of ``csrc/fused_sgd.cu``'s ``LeafTable<cap>``."""
+    t = _TABLE_TYPES.get(cap)
+    if t is None:
+        fields = [
+            ("p", ctypes.c_void_p * cap),
+            ("g", ctypes.c_void_p * cap),
+            ("m", ctypes.c_void_p * cap),
+            ("n", ctypes.c_longlong * cap),
+            ("first_chunk", ctypes.c_int * (cap + 1)),
+            ("count", ctypes.c_int),
+        ]
+        t = _TABLE_TYPES[cap] = type(f"LeafTable{cap}", (ctypes.Structure,), {"_fields_": fields})
+    return t
+
+
+def plan_sgd_tables(sizes: Sequence[int]) -> List[Tuple[int, int, int, List[int]]]:
+    """Cut a leaf set of ``sizes`` (elements per leaf, in order) into launches
+    of ``csrc/fused_sgd.cu``: ``[(first leaf, leaf count, capacity, chunk
+    offsets), ...]``, one per launch. A leaf of ``n`` elements takes
+    ``ceil(n / SGD_CHUNK)`` chunks (an empty leaf none), numbered from 0 in
+    each launch; ``chunk offsets`` has one entry per leaf and the total
+    last. Launches hold up to ``max(SGD_TABLE_CAPACITIES)`` leaves each, and
+    take the smallest capacity that holds theirs. A launch whose leaves are
+    all empty is left out."""
+    cap_max = SGD_TABLE_CAPACITIES[-1]
+    out = []
+    for lo in range(0, len(sizes), cap_max):
+        part = sizes[lo:lo + cap_max]
+        offsets = [0]
+        for n in part:
+            offsets.append(offsets[-1] + -(-n // SGD_CHUNK))
+        if offsets[-1] == 0:
+            continue
+        cap = next(c for c in SGD_TABLE_CAPACITIES if c >= len(part))
+        out.append((lo, len(part), cap, offsets))
+    return out
+
+
+def sgd_vector_leaves(p_ptrs, g_ptrs, m_ptrs) -> List[bool]:
+    """Per leaf, whether ``csrc/fused_sgd.cu`` moves it in float4s: its
+    param, grad and momentum all start 16-byte aligned (else the scalar
+    path). The kernel makes the same test on the device."""
+    return [(p | g | m) % 16 == 0 for p, g, m in zip(p_ptrs, g_ptrs, m_ptrs)]
+
+
+class SGDPlan:
+    """What a fused SGD launch needs that does not change from step to step,
+    built once per leaf set: the param and momentum pointers, the sizes,
+    the chunk offsets and the launch tables, and their checks. A call then
+    checks and records only the grads (:meth:`launch`).
+
+    The plan holds no reference to the params and momentum buffers, only a
+    weak reference to each one's storage: when any of those storages is
+    freed (a tensor's storage replaced by ``.data =``, ``set_`` or a
+    reallocating ``resize_``, or a momentum buffer replaced and dropped),
+    the plan turns :attr:`stale` and refuses to launch, so it never writes
+    into memory that is no longer the tensor's. Callers rebuild it then
+    (``dispatch_sgd_apply`` does). A storage replaced while something else
+    keeps the old one alive is not seen: the caller who replaces storage
+    builds a new plan.
+    """
+
+    def __init__(self, params: Sequence[torch.Tensor], trace: Sequence[torch.Tensor]):
+        params, trace = list(params), list(trace)
+        if len(params) != len(trace):
+            raise ValueError("fused_sgd_apply: params and trace differ in length")
+        if not params:
+            raise ValueError("fused_sgd_apply: an SGD plan needs at least one leaf")
+        device = params[0].device
+        if device.type != "cuda":
+            raise ValueError(f"fused_sgd_apply: an SGD plan needs CUDA tensors, got {device}")
+        for p, m in zip(params, trace):
+            for t in (p, m):
+                _check_leaf(t, p.shape, device)
+        self.device = device
+        self.shapes = [p.shape for p in params]
+        # the callbacks set a flag, not an attribute of the plan: no cycle
+        # through the plan, whose weak references die with it
+        freed = self._freed = [False]
+        self._refs = [
+            weakref.ref(t.untyped_storage(), lambda _ref: freed.__setitem__(0, True))
+            for t in params + trace
+        ]
+        p_ptrs = [p.data_ptr() for p in params]
+        m_ptrs = [m.data_ptr() for m in trace]
+        sizes = [p.numel() for p in params]
+        self.tables = []  # (first leaf, leaf count, capacity, ctypes table, blocks)
+        for lo, k, cap, offsets in plan_sgd_tables(sizes):
+            table = _table_type(cap)()
+            table.p[:k] = p_ptrs[lo:lo + k]
+            table.m[:k] = m_ptrs[lo:lo + k]
+            table.n[:k] = sizes[lo:lo + k]
+            table.first_chunk[:k + 1] = offsets
+            table.count = k
+            self.tables.append((lo, k, cap, table, offsets[-1]))
+        self._lib = kernel_build.load("fused_sgd")
+        for cap in {cap for _, _, cap, _, _ in self.tables}:
+            want = self._lib.kfac_fused_sgd_table_bytes(cap)
+            if want != ctypes.sizeof(_table_type(cap)):
+                raise RuntimeError(
+                    f"fused_sgd: the ctypes table of {cap} leaves takes "
+                    f"{ctypes.sizeof(_table_type(cap))} bytes, csrc/fused_sgd.cu's {want}"
+                )
+
+    @property
+    def stale(self) -> bool:
+        """Whether a param or momentum storage of the plan was freed."""
+        return self._freed[0]
+
+    @property
+    def launches_per_call(self) -> int:
+        return len(self.tables)
+
+    def launch(self, grads: Sequence[torch.Tensor], lr: float, momentum: float,
+               weight_decay: float) -> None:
+        """The SGD step of the plan's leaves with these grads: one launch
+        per table (one for up to 896 leaves), each counted on
+        ``fused_sgd_apply.launches``."""
+        if self.stale:
+            raise ValueError(
+                "fused_sgd_apply: a param or momentum storage of this SGD plan "
+                "was freed or replaced since the plan was built; build a new plan"
+            )
+        if len(grads) != len(self.shapes):
+            raise ValueError(
+                f"fused_sgd_apply: {len(grads)} grads for a plan of {len(self.shapes)} leaves"
+            )
+        index = self.device.index
+        for g, shape in zip(grads, self.shapes):
+            if (g.dtype != torch.float32 or g.shape != shape or not g.is_cuda
+                    or g.get_device() != index or not g.is_contiguous()):
+                _check_leaf(g, shape, self.device)
+        g_ptrs = [g.data_ptr() for g in grads]
+        stream = kernel_build.current_stream_handle(self.device)
+        lr, momentum, weight_decay = float(lr), float(momentum), float(weight_decay)
+        for lo, k, cap, table, blocks in self.tables:
+            table.g[:k] = g_ptrs[lo:lo + k]
+            err = self._lib.kfac_fused_sgd(
+                ctypes.addressof(table), cap, blocks, lr, momentum, weight_decay, stream
+            )
+            kernel_build.check(err, "fused_sgd")
+            fused_sgd_apply.launches += 1
+
+
+def _check_leaf(t: torch.Tensor, shape, device) -> None:
+    if (
+        t.device != device
+        or t.dtype != torch.float32
+        or not t.is_contiguous()
+        or t.shape != shape
+    ):
+        raise ValueError(
+            "fused_sgd_apply: every leaf must be a contiguous float32 "
+            f"tensor on {device} shaped like its param {tuple(shape)}"
+            f", got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
 def fused_sgd_apply(
     params: Sequence[torch.Tensor],
     grads: Sequence[torch.Tensor],
@@ -193,11 +366,15 @@ def fused_sgd_apply(
     momentum: float,
     weight_decay: float,
 ) -> None:
-    """The whole SGD step as ONE multi-tensor launch; updates ``params`` and
-    the momentum ``trace`` in place (the JAX version returns new trees).
+    """The whole SGD step as one multi-tensor launch (one per 896 leaves);
+    updates ``params`` and the momentum ``trace`` in place (the JAX version
+    returns new trees).
 
     All leaves must be contiguous float32 tensors on one device; a leaf's
-    param, grad and momentum share its shape.
+    param, grad and momentum share its shape. CPU tensors take the plain
+    version. On CUDA this builds an :class:`SGDPlan` for the one call; a
+    caller that steps the same leaf set again keeps the plan and calls its
+    :meth:`SGDPlan.launch`, which checks and records only the grads.
     """
     params, grads, trace = list(params), list(grads), list(trace)
     if not (len(params) == len(grads) == len(trace)):
@@ -210,34 +387,7 @@ def fused_sgd_apply(
         return
     if device.type != "cuda":
         raise ValueError(f"fused_sgd_apply: unsupported device {device}")
-    for p, g, m in zip(params, grads, trace):
-        for t in (p, g, m):
-            if (
-                t.device != device
-                or t.dtype != torch.float32
-                or not t.is_contiguous()
-                or t.shape != p.shape
-            ):
-                raise ValueError(
-                    "fused_sgd_apply: every leaf must be a contiguous float32 "
-                    f"tensor on {device} shaped like its param {tuple(p.shape)}"
-                    f", got {t.dtype} {tuple(t.shape)} on {t.device}"
-                )
-    n = len(params)
-    ptrs = ctypes.c_void_p * n
-    sizes = (ctypes.c_longlong * n)(*(p.numel() for p in params))
-    p_tab = ptrs(*(p.data_ptr() for p in params))
-    g_tab = ptrs(*(g.data_ptr() for g in grads))
-    m_tab = ptrs(*(m.data_ptr() for m in trace))
-    lib = kernel_build.load("fused_sgd")
-    err = lib.kfac_fused_sgd(
-        ctypes.cast(p_tab, ctypes.c_void_p), ctypes.cast(g_tab, ctypes.c_void_p),
-        ctypes.cast(m_tab, ctypes.c_void_p), ctypes.cast(sizes, ctypes.c_void_p),
-        n, float(lr), float(momentum), float(weight_decay),
-        kernel_build.current_stream_handle(device),
-    )
-    kernel_build.check(err, "fused_sgd")
-    fused_sgd_apply.launches += 1
+    SGDPlan(params, trace).launch(grads, lr, momentum, weight_decay)
 
 
 fused_sgd_apply.launches = 0
@@ -252,21 +402,28 @@ def dispatch_sgd_apply(
     weight_decay: float,
     *,
     kind: str,
+    plans: Optional[Dict[str, object]] = None,
 ) -> Optional[bool]:
     """Run the optimizer step through the fused kernel wrapper.
 
     Returns ``None`` under ``kind="dense"``: the caller then runs the plain
-    per-leaf SGD, as the JAX train step runs its optax chain.
+    per-leaf SGD, as the JAX train step runs its optax chain. ``plans`` is a
+    dict the caller keeps between steps: on CUDA it holds the
+    :class:`SGDPlan` of this leaf set, built on the first call and rebuilt
+    when it turns stale or ``trace`` is another dict.
     """
     if kind == "dense":
         return None
     names = list(params)
-    fused_sgd_apply(
-        [params[n].detach() for n in names],
-        [grads[n].detach() for n in names],
-        [trace[n] for n in names],
-        lr,
-        momentum,
-        weight_decay,
-    )
+    g = [grads[n] for n in names]
+    if params[names[0]].device.type == "cpu":
+        fused_sgd_apply_plain([params[n].detach() for n in names], g, [trace[n] for n in names],
+                              lr, momentum, weight_decay)
+        return True
+    plans = {} if plans is None else plans
+    plan = plans.get("plan")
+    if plan is None or plan.stale or plans.get("trace") is not trace:
+        plan = SGDPlan([params[n].detach() for n in names], [trace[n] for n in names])
+        plans.update(plan=plan, trace=trace)
+    plan.launch(g, lr, momentum, weight_decay)
     return True

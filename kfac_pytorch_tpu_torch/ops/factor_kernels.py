@@ -22,7 +22,10 @@ beside it and a launch counter (``fn.launches``, CUDA calls only):
   channel slice, stacked.
 * :func:`compute_a_embed_fused` — the embedding's diagonal A (token counts
   / N) through ``csrc/token_count.cu`` (replacing
-  ``compute_a_embed_fused`` → ``_token_count_kernel``); the plain version
+  ``compute_a_embed_fused`` → ``_token_count_kernel``): one launch of one
+  thread block cluster per 98,304 ids of vocabulary, no host sync; ids
+  outside ``[0, V)`` are tallied on the device and raised by
+  :func:`check_token_ids`. The plain version
   :func:`compute_a_embed_fused_plain` counts in integers and divides once.
   Both equal the oracle ``ops/factors.py::compute_a_embed`` bit for bit.
 
@@ -344,13 +347,32 @@ def dispatch_compute_a_conv_grouped(
 # Token counts: the embedding's diagonal A factor
 # ---------------------------------------------------------------------------
 
-_EMBED_SPLIT = 1024  # fewest ids a block of csrc/token_count.cu scans
-_EMBED_TILE = 4096  # vocab bins per block of csrc/token_count.cu
+TOKEN_CLUSTER = 8  # blocks of a thread block cluster of csrc/token_count.cu
+TOKEN_MAX_BINS = 12288  # uint32 bins in one block's shared memory (48 KB)
 
 
-def _flat_ids(ids: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Flattened integer ids, checked to lie in ``[0, vocab)`` (one host
-    sync) and to count exactly in float32 (``N < 2²⁴``)."""
+def token_count_plan(vocab: int) -> Tuple[int, int]:
+    """``(bins per block, clusters)`` of ``csrc/token_count.cu`` for a
+    vocabulary of ``vocab``: cluster ``c``'s block ``r`` owns the ids
+    ``[(c·8 + r)·bins, (c·8 + r + 1)·bins) ∩ [0, vocab)``, at most
+    :data:`TOKEN_MAX_BINS` of them; as few clusters as cover the vocabulary,
+    its ids spread evenly over their blocks."""
+    if vocab < 1:
+        raise ValueError(f"compute_a_embed_fused: vocab must be positive, got {vocab}")
+    per_cluster = TOKEN_CLUSTER * TOKEN_MAX_BINS
+    clusters = -(-vocab // per_cluster)
+    bins = -(-vocab // (clusters * TOKEN_CLUSTER))
+    return bins, clusters
+
+
+# per device: int64[4] {ids outside [0, V) counted, V, least, greatest such id}
+_TOKEN_TALLIES: Dict[int, torch.Tensor] = {}
+_TALLY_EMPTY = (0, 0, 2 ** 63 - 1, -(2 ** 63))
+
+
+def _flat_ids(ids: torch.Tensor) -> torch.Tensor:
+    """Flattened integer ids, checked (on the host, from the shape) to count
+    exactly in float32 (``0 < N < 2²⁴``)."""
     if ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"compute_a_embed_fused: ids must be int32 or int64, got {ids.dtype}")
     flat = ids.reshape(-1)
@@ -360,12 +382,11 @@ def _flat_ids(ids: torch.Tensor, vocab: int) -> torch.Tensor:
             f"compute_a_embed_fused: {n} ids; the counts are exact float32 "
             "integers only for 0 < N < 2^24"
         )
-    lo, hi = torch.stack(torch.aminmax(flat)).tolist()
-    if lo < 0 or hi >= vocab:
-        raise ValueError(
-            f"compute_a_embed_fused: ids must lie in [0, {vocab}), got [{lo}, {hi}]"
-        )
     return flat
+
+
+def _range_error(vocab: int, got: str) -> ValueError:
+    return ValueError(f"compute_a_embed_fused: ids must lie in [0, {vocab}), got {got}")
 
 
 def compute_a_embed_fused_plain(ids: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -382,27 +403,30 @@ def compute_a_embed_fused(ids: torch.Tensor, vocab: int) -> torch.Tensor:
     """Drop-in for ``factors.compute_a_embed``: ``[vocab]`` float32 token
     frequencies of the integer ``ids`` (any shape).
 
-    CUDA tensors run ``csrc/token_count.cu``; CPU tensors the plain version.
-    Out-of-range ids raise on both.
+    CUDA tensors run ``csrc/token_count.cu``: one launch, nothing for the
+    host to wait on. An id outside ``[0, vocab)`` is counted nowhere and
+    tallied on the device; :func:`check_token_ids` raises for it later. CPU
+    tensors take the plain version, after an eager range check that raises
+    at once.
     """
-    flat = _flat_ids(ids, vocab)
+    flat = _flat_ids(ids)
     if ids.device.type == "cpu":
+        lo, hi = torch.stack(torch.aminmax(flat)).tolist()
+        if lo < 0 or hi >= vocab:
+            raise _range_error(vocab, f"[{lo}, {hi}]")
         return compute_a_embed_fused_plain(flat, vocab)
     if ids.device.type != "cuda":
         raise ValueError(f"compute_a_embed_fused: unsupported device {ids.device}")
     flat = flat.contiguous()
-    n = flat.numel()
-    tiles = -(-vocab // _EMBED_TILE)
-    sms = torch.cuda.get_device_properties(ids.device).multi_processor_count
-    splits = max(1, min(-(-n // _EMBED_SPLIT), -(-2 * sms // tiles)))
-    per_split = -(-n // splits)
-    splits = -(-n // per_split)
-    counts = torch.empty(vocab, dtype=torch.int32, device=ids.device)
+    bins, clusters = token_count_plan(vocab)
+    tally = _TOKEN_TALLIES.get(ids.device.index)
+    if tally is None:
+        tally = torch.tensor(_TALLY_EMPTY, dtype=torch.int64).to(ids.device)
+        _TOKEN_TALLIES[ids.device.index] = tally
     out = torch.empty(vocab, dtype=torch.float32, device=ids.device)
-    lib = kernel_build.load("token_count")
-    err = lib.kfac_token_count(
-        flat.data_ptr(), int(flat.dtype == torch.int64), n, vocab, splits,
-        per_split, counts.data_ptr(), out.data_ptr(),
+    err = kernel_build.load("token_count").kfac_token_count(
+        flat.data_ptr(), int(flat.dtype == torch.int64), flat.numel(), vocab,
+        bins, clusters, out.data_ptr(), tally.data_ptr(),
         kernel_build.current_stream_handle(ids.device),
     )
     kernel_build.check(err, "token_count")
@@ -411,6 +435,24 @@ def compute_a_embed_fused(ids: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 compute_a_embed_fused.launches = 0
+
+
+def check_token_ids(device) -> None:
+    """Raise if a ``compute_a_embed_fused`` launch on ``device`` since the
+    last check met an id outside ``[0, V)``: one host sync, at a point the
+    caller chooses (the LM trainer: once per epoch). Resets the tally. A
+    CPU device has nothing to check: its calls raise at once."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    tally = _TOKEN_TALLIES.get(index)
+    if tally is None:
+        return
+    count, vocab, lo, hi = tally.tolist()
+    if count:
+        tally.copy_(torch.tensor(_TALLY_EMPTY, dtype=torch.int64))
+        raise _range_error(vocab, f"{count} ids outside it, in [{lo}, {hi}]")
 
 
 def dispatch_compute_a_embed(

@@ -53,12 +53,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         "kfac_fused_apply_route": (_I, _I, _I, _P, _P, _P),
     },
     "fused_sgd": {
-        # params**, grads**, trace**, sizes*, count, lr, momentum, wd, stream
-        "kfac_fused_sgd": (_P, _P, _P, _P, _I, _F, _F, _F, _P),
+        # LeafTable<cap>*, cap, blocks, lr, momentum, wd, stream
+        "kfac_fused_sgd": (_P, _I, _I, _F, _F, _F, _P),
+        # cap -> sizeof(LeafTable<cap>)
+        "kfac_fused_sgd_table_bytes": (_I,),
     },
     "token_count": {
-        # ids, ids_int64, n, vocab, splits, per_split, counts, out, stream
-        "kfac_token_count": (_P, _I, _L, _I, _I, _L, _P, _P, _P),
+        # ids, ids_int64, n, vocab, bins per block, clusters, out, tally, stream
+        "kfac_token_count": (_P, _I, _L, _I, _I, _I, _P, _P, _P),
     },
     "flash_attention": {
         # q, k, v, strides*, o, lse, B, T, H, D, causal, scale, stream

@@ -10,8 +10,9 @@ capture steps.
 
 The step updates the model's parameters and the momentum buffers in
 place: the declared ``sgd_hyper`` with a K-FAC preconditioner routes the
-optimizer through the fused SGD kernel wrapper (``ops/apply_kernels.py``),
-otherwise the per-leaf ``make_sgd`` step runs.
+optimizer through the fused SGD kernel wrapper (``ops/apply_kernels.py``,
+with a launch plan the step keeps between calls), otherwise the per-leaf
+``make_sgd`` step runs.
 """
 
 from __future__ import annotations
@@ -128,6 +129,9 @@ def make_train_step(
     capture = None
     if kfac is not None:
         capture = Capture(model, kfac.layers, batch_averaged=kfac.batch_averaged)
+    # the fused SGD kernel's plan of the leaf set, built at the first step
+    # and kept while it holds (apply_kernels.dispatch_sgd_apply)
+    sgd_plans: Dict[str, Any] = {}
 
     def train_step(
         state: TrainState,
@@ -180,7 +184,7 @@ def make_train_step(
         if sgd_hyper is not None and kfac is not None:
             fused = apply_kernels.dispatch_sgd_apply(
                 params, grads, state.opt_state, lr, sgd_hyper[0], sgd_hyper[1],
-                kind=kfac.apply_kernel,
+                kind=kfac.apply_kernel, plans=sgd_plans,
             )
         if fused is None:
             tx.apply(params, grads, state.opt_state, lr)

@@ -13,7 +13,7 @@ products are held to ``|got − want| ≤ rtol·max|want|`` — 1e-5 for the
 covariances (sums of up to ~10⁵ rows; per group for grouped convs), 1e-4 for the apply, whose damped
 divide amplifies rounding by up to 1/λ (its KL partials are summed per
 tile, then in tile order). The SGD kernel rounds each product
-and sum separately, as the plain version does: 1e-6 relative. The token
+and sum separately, in the plain version's order: bitwise. The token
 counts are integers divided once by N: bitwise. Flash attention: 2e-5 for
 the forward (softmax-weighted sums of at most T values in float32), 1e-4
 for the gradients, whose dS = p ⊙ (dP − Δ) cancels. The products of the
@@ -332,20 +332,105 @@ def test_fused_apply_kernel_is_deterministic(cuda_device, k, g, a):
     _close_scaled(vg1, tapply.fused_precondition_stack_plain(*arrs, 0.003)[1], rtol=1e-4)
 
 
+def _sgd_leaves(r, shapes, device):
+    return [torch.from_numpy(r.randn(*s).astype(np.float32)).to(device) for s in shapes]
+
+
+def _sgd_matches_plain_bitwise(params, grads, trace, launches, with_plan=False):
+    """One fused SGD call on ``params``/``trace`` in place (through an
+    :class:`SGDPlan` of them with ``with_plan=True``) is bitwise equal to
+    the plain version on copies, and makes ``launches`` device launches."""
+    want_p, want_m = [p.clone() for p in params], [m.clone() for m in trace]
+    before = tapply.fused_sgd_apply.launches
+    if with_plan:
+        plan = tapply.SGDPlan(params, trace)
+        assert plan.launches_per_call == launches
+        plan.launch(grads, 0.1, 0.9, 5e-4)
+    else:
+        tapply.fused_sgd_apply(params, grads, trace, 0.1, 0.9, 5e-4)
+    torch.cuda.synchronize()
+    assert tapply.fused_sgd_apply.launches == before + launches
+    tapply.fused_sgd_apply_plain(want_p, grads, want_m, 0.1, 0.9, 5e-4)
+    for a, b in zip(params + trace, want_p + want_m):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_fused_sgd_kernel_matches_plain(cuda_device):
     r = np.random.RandomState(60)
     shapes = [(16, 3, 3, 3), (16,), (16,), (64, 64, 3, 3), (10, 64), (10,)] * 40
-    make = lambda: [torch.from_numpy(r.randn(*s).astype(np.float32)).to(cuda_device) for s in shapes]  # noqa: E731
-    params, grads, trace = make(), make(), make()
-    kp, km = [p.clone() for p in params], [m.clone() for m in trace]
-    before = tapply.fused_sgd_apply.launches
-    tapply.fused_sgd_apply(kp, grads, km, 0.1, 0.9, 5e-4)  # 240 leaves: 3 table chunks
-    torch.cuda.synchronize()
-    assert tapply.fused_sgd_apply.launches == before + 1
-    tapply.fused_sgd_apply_plain(params, grads, trace, 0.1, 0.9, 5e-4)
-    for a, b in zip(kp + km, params + trace):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    params, grads, trace = (_sgd_leaves(r, shapes, cuda_device) for _ in range(3))
+    # 240 leaves: one launch, bitwise equal (each product and sum rounded
+    # on its own, in the plain version's order)
+    _sgd_matches_plain_bitwise(params, grads, trace, launches=1)
+
+
+@pytest.mark.cuda
+def test_fused_sgd_kernel_beyond_one_table(cuda_device):
+    r = np.random.RandomState(61)
+    shapes = [(3, 5), (7,), (1,), (4100,)] * 250  # 1000 leaves: 896 + 104
+    params, grads, trace = (_sgd_leaves(r, shapes, cuda_device) for _ in range(3))
+    assert [k for _, k, _, _ in tapply.plan_sgd_tables([p.numel() for p in params])] == [896, 104]
+    _sgd_matches_plain_bitwise(params, grads, trace, launches=2, with_plan=True)
+
+
+@pytest.mark.cuda
+def test_fused_sgd_kernel_scalar_path_odd_sizes_and_empty_leaves(cuda_device):
+    r = np.random.RandomState(62)
+    sizes = [4096 * 3 + 3, 1, 0, 9, 8192, 4097, 0, 5]
+    # views at 4-byte offsets of one buffer: no leaf but the first of each
+    # set starts 16-byte aligned, and the sets are offset from each other
+    def leaves(shift):
+        buf = torch.from_numpy(r.randn(sum(sizes) + 8).astype(np.float32)).to(cuda_device)
+        out, at = [], shift
+        for n in sizes:
+            out.append(buf[at:at + n])
+            at += n
+        return out
+
+    params, grads, trace = leaves(0), leaves(1), leaves(0)
+    vec = tapply.sgd_vector_leaves(*([t.data_ptr() for t in ts] for ts in (params, grads, trace)))
+    # the grads are 4 bytes off: every leaf takes the scalar path (an empty
+    # leaf's data_ptr is 0; it launches no block)
+    assert not any(v for v, n in zip(vec, sizes) if n)
+    _sgd_matches_plain_bitwise(params, grads, trace, launches=1)
+    grads = leaves(0)
+    vec = tapply.sgd_vector_leaves(*([t.data_ptr() for t in ts] for ts in (params, grads, trace)))
+    assert vec[0] and vec[3] and not all(vec)  # float4s where all three align, scalars elsewhere
+    _sgd_matches_plain_bitwise(params, grads, trace, launches=1)
+
+
+@pytest.mark.cuda
+def test_fused_sgd_plan_notices_replaced_storage(cuda_device):
+    r = np.random.RandomState(63)
+    shapes = [(64, 3, 3, 3), (64,), (10, 64)]
+    params, grads, trace = (_sgd_leaves(r, shapes, cuda_device) for _ in range(3))
+    plan = tapply.SGDPlan(params, trace)
+    plan.launch(grads, 0.1, 0.9, 0.0)
+    assert not plan.stale
+    params[1].data = params[1].data.clone()  # the old storage is freed
+    assert plan.stale
+    with pytest.raises(ValueError, match="build a new plan"):
+        plan.launch(grads, 0.1, 0.9, 0.0)
+    plan = tapply.SGDPlan(params, trace)
+    trace[2].set_(torch.zeros(10, 64, device=cuda_device))
+    assert plan.stale
+    # the train step's dispatch rebuilds its plan and updates the new storage
+    names = [f"w{i}" for i in range(len(shapes))]
+    pd, gd, td = (dict(zip(names, ts)) for ts in (params, grads, trace))
+    plans = {}
+    tapply.dispatch_sgd_apply(pd, gd, td, 0.1, 0.9, 0.0, kind="auto", plans=plans)
+    first = plans["plan"]
+    td["w0"] = td["w0"].clone()  # a new momentum tensor ...
+    trace[0] = td["w0"]  # ... and the old one dropped: its storage is freed
+    want_p, want_m = [p.clone() for p in params], [td[n].clone() for n in names]
+    tapply.fused_sgd_apply_plain(want_p, grads, want_m, 0.1, 0.9, 0.0)
+    tapply.dispatch_sgd_apply(pd, gd, td, 0.1, 0.9, 0.0, kind="auto", plans=plans)
+    assert plans["plan"] is not first
+    for a, b in zip(params + [td[n] for n in names], want_p + want_m):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="shaped like its param"):
+        plans["plan"].launch([g.reshape(-1) for g in grads], 0.1, 0.9, 0.0)
 
 
 @pytest.mark.cuda
@@ -361,12 +446,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 
 # (ids shape, vocab, dtype): the LM path's [4, 2048] int64 batch, a count
-# that is no tile multiple, several vocab tiles, a single short row
+# that is no multiple of the 8 blocks of a cluster, a wider vocabulary, a
+# single short row, and vocabularies over 98,304 ids that take 3 clusters
 TOKEN_CASES = [
     ((4, 2048), 1000, torch.int64),
     ((3, 700), 1000, torch.int32),
     ((8, 4096), 10000, torch.int64),
     ((5,), 7, torch.int32),
+    ((8, 4096), 200000, torch.int64),
+    ((3, 1001), 250000, torch.int32),
 ]
 
 
@@ -384,6 +472,23 @@ def test_token_count_kernel_matches_plain_bitwise(cuda_device, shape, vocab, dty
     assert tfk.compute_a_embed_fused.launches == before + 1
     assert torch.equal(got, tfk.compute_a_embed_fused_plain(ids, vocab))
     assert torch.equal(got, tf.compute_a_embed(ids, vocab))
+    tfk.check_token_ids(cuda_device)  # every id in range: nothing to raise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_token_count_kernel_defers_the_range_check(cuda_device, dtype):
+    ids = np.random.RandomState(71).randint(0, 300, size=(4, 1000))
+    ids[0, 3], ids[2, 7], ids[3, 999] = -1, 300, 12345
+    t_ids = torch.from_numpy(ids).to(dtype).to(cuda_device)
+    got = tfk.compute_a_embed_fused(t_ids, 300)  # no sync: nothing raised yet
+    # out-of-range ids are counted nowhere; N is still every id
+    ok = ids[(ids >= 0) & (ids < 300)]
+    want = np.bincount(ok, minlength=300).astype(np.float32) / np.float32(ids.size)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    with pytest.raises(ValueError, match=r"ids must lie in \[0, 300\), got 3 ids outside it, in \[-1, 12345\]"):
+        tfk.check_token_ids(cuda_device)
+    tfk.check_token_ids(cuda_device)  # the check reset the tally
 
 
 # (B, T, H, D, causal): the LM path's head width at several lengths,
@@ -504,8 +609,9 @@ def test_flash_attention_autograd_matches_exact_attention(cuda_device):
 @pytest.mark.cuda
 def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     ids = torch.tensor([[0, 3, 9]], device=cuda_device)
+    tfk.compute_a_embed_fused(ids, 5)  # deferred: the card keeps a tally
     with pytest.raises(ValueError, match=r"ids must lie in \[0, 5\)"):
-        tfk.compute_a_embed_fused(ids, 5)
+        tfk.check_token_ids(cuda_device)
     q = torch.zeros(1, 8, 2, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dimensions"):
         tflash.flash_forward(q, q, q)
