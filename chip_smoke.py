@@ -8,7 +8,9 @@ the CUDA toolkit:
 
 Three paths, each driven through its trainer's entry point with every
 kernel launch counter set to 0 just before and read just after: CIFAR-10
-ResNet-32 K-FAC training (slice 1), transformer-LM K-FAC training with a
+ResNet-32 K-FAC training (slice 1, since grown to CIFAR-format data,
+evaluation, checkpoints, logs, diagnostics, the inverse method, diagonal
+blocks and gradient accumulation), transformer-LM K-FAC training with a
 K-FAC token embedding and flash attention (slice 2), and ImageNet
 ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC (slice 3). Phases,
 in order (any failure raises: the script exits non-zero and prints no
@@ -91,7 +93,34 @@ result line):
     call on the LM batch in CUDA graphs (a host sync in either wrapper
     fails the capture) and replay each on new inputs: bitwise equal to
     eager calls;
-16. print one ``{"kernels": [...]}`` line (eight kernels), then the last
+16. the CIFAR-10 main path with data and the JAX trainer's options, each
+    through the CIFAR twin with every counter zeroed just before:
+    a. write a CIFAR-10 set in the ``cifar-10-batches-py`` layout from the
+       learnable stand-in (five train batches of 2,560 images, a test batch
+       of 2,000, quantized to uint8) into a temporary directory;
+    b. train ResNet-32 on it at the recipe for 2 epochs of 100 steps with
+       ``--kfac-diagnostics --bn-recal-batches 5``, a log and a checkpoint
+       directory: the loss finite and falling, 2,000 images evaluated each
+       epoch, ν in (0, 1] and the min damped eigenvalue ≥ damping every
+       step, ``scalars.jsonl`` with the JAX trainer's tags, every counter as
+       the run implies; the validation accuracy printed (not gated);
+    c. restore phase b's ``checkpoint-0`` into a fresh state (every tensor
+       bitwise equal to the saved one); rerun with ``--epochs 2`` on a
+       directory that holds only that checkpoint: every one of epoch 1's
+       100 losses and its validation loss and accuracy within
+       ``RESUME_RTOL`` of phase b's (b and c run with deterministic cuDNN);
+    d. 30 steps of the inverse method: kernel 1 as implied, kernels 3 and 4
+       never (the dense apply), the first 5 losses within 1e-3 of the
+       ``factor_kernel="dense"`` oracle's; its step medians beside phase 4's;
+    e. ``--diag-blocks 4 --diag-warmup 1`` over 2 epochs of 10 steps (one
+       block at step 0's refresh, four at step 10's): counters as implied,
+       the first 5 losses of each epoch within 1e-3 of the oracle's, each
+       oracle step from the kernel path's state;
+    f. ``--batches-per-allreduce 2`` with and without
+       ``--stats-all-microbatches``: kernel 1 once per conv and capture step
+       (twice with every microbatch's statistics), the first 5 losses within
+       1e-3 of the oracle's;
+17. print one ``{"kernels": [...]}`` line (eight kernels), then the last
     line ``{"ok": true, "device": {...}}``.
 """
 
@@ -143,6 +172,29 @@ IMAGENET_ARGS = [
     "--synthetic", "--model", IMAGENET_MODEL, "--batch-size", str(IMAGENET_BATCH),
     "--image-size", "224", "--epochs", "1", "--seed", "0", "--device", "cuda",
 ]
+
+
+# The CIFAR-10 path with data: a set in the cifar-10-batches-py layout,
+# written from the learnable stand-in (five train batches of 2560 images and
+# a test batch of 2000, cut from 50,000 / 10,000), trained through the twin
+# at the BASELINE.md recipe (its defaults): 2 epochs of 100 steps of 128.
+CIFAR_PER_BATCH = 2560
+CIFAR_TEST = 2000
+CIFAR_EPOCHS = 2
+CIFAR_STEPS = 5 * CIFAR_PER_BATCH // BATCH
+CIFAR_FLAGS = ["--kfac-diagnostics", "--bn-recal-batches", "5"]
+# tags of scalars.jsonl: the JAX trainer's, --kfac-diagnostics included
+CIFAR_TAGS = {
+    "train/loss", "train/accuracy", "train/lr", "val/loss", "val/accuracy",
+    "kfac/nu_min", "kfac/nu_mean", "kfac/min_damped_eig", "kfac/max_damped_eig_mean",
+    "kfac/cond_max_mean", "kfac/grad_norm_mean", "kfac/update_norm_mean",
+    "kfac/update_grad_cos_mean", "kfac/eigen_stale_steps_mean",
+}
+# Resume tolerance, relative. Phases 16b and 16c run with deterministic
+# cuDNN, and kernels 1, 3 and 4 are bitwise repeatable, so an epoch resumed
+# from a checkpoint repeats the uninterrupted run's epoch; a lost or stale
+# piece of state would show at the first step and grow from there.
+RESUME_RTOL = 1e-6
 
 
 def _fail(msg: str) -> int:
@@ -1154,21 +1206,25 @@ def _clone(tree):
     return tree
 
 
-def imagenet_one_step_oracle(device, steps):
-    """The ResNeXt kernel path's first ``steps`` losses, and the oracle
-    path's (``factor_kernel="dense"``, ``apply_kernel="dense"``) where every
+def one_step_oracle(setup, device, steps, extra=(), steps_per_epoch=None):
+    """A kernel path's first ``steps`` losses, and the oracle path's
+    (``factor_kernel="dense"``, ``apply_kernel="dense"``) where every
     oracle step starts from the kernel path's state: before kernel step
     ``i``, the oracle path takes step ``i - 1`` from the kernel path's state
     before that step, then reports the loss of its step ``i``. Each pair
     then differs by one step's rounding, not by the compounded rounding of
-    ``i`` steps, which this configuration amplifies beyond any useful
-    bound (phase 12 prints the free-running runs beside it)."""
+    ``i`` steps, which ResNeXt amplifies beyond any useful bound (phase 12
+    prints the free-running runs beside it). ``setup`` is ``resnet_setup``
+    or ``imagenet_setup`` with the flags ``extra``; epochs of
+    ``steps_per_epoch`` steps (all ``steps`` by default) each replay the
+    setup's batches from the first, as the twins' synthetic batches do."""
     from kfac_pytorch_tpu_torch.training.step import TrainState, kfac_flags_for_step
 
-    n = ("--steps-per-epoch", str(steps))
-    k_fn, k_state, kfac, batches, args = imagenet_setup(device, n)
-    d_fn, d_state, _, _, _ = imagenet_setup(device, (*n, "--factor-kernel", "dense",
-                                                     "--apply-kernel", "dense"))
+    spe = steps_per_epoch or steps
+    n = (*extra, "--steps-per-epoch", str(spe))
+    k_fn, k_state, kfac, batches, args = setup(device, n)
+    d_fn, d_state, _, _, _ = setup(device, (*n, "--factor-kernel", "dense",
+                                            "--apply-kernel", "dense"))
 
     def snapshot(state):
         return (_clone(state.model.state_dict()), _clone(state.opt_state), _clone(state.kfac_state))
@@ -1182,8 +1238,8 @@ def imagenet_one_step_oracle(device, steps):
                           kfac_state=_clone(kf))
 
     def step(fn, state, i):
-        state, m = fn(state, batches[i], args.base_lr, args.damping,
-                      **kfac_flags_for_step(i, kfac, 0))
+        state, m = fn(state, batches[i % spe], args.base_lr, args.damping,
+                      **kfac_flags_for_step(i, kfac, i // spe))
         return state, float(m["loss"])
 
     kernel, oracle, prev = [], [], None
@@ -1219,6 +1275,281 @@ def conv_expected_launches(hist, model, device):
         "fused_precondition_stack": len(groups) * steps,
         "fused_sgd_apply": steps,
     }
+
+
+def write_cifar_set(root, per_batch=CIFAR_PER_BATCH, n_test=CIFAR_TEST, seed=0):
+    """Five ``data_batch_*`` files of ``per_batch`` images and a
+    ``test_batch`` of ``n_test`` in ``root/cifar-10-batches-py``: the
+    stand-in's images denormalized and quantized to uint8, channel-major
+    rows of 3·32·32, as CIFAR-10 stores them."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+
+    (x, y), (xt, yt) = data_lib.synthetic_cifar_like(
+        n_train=5 * per_batch, n_test=n_test, seed=seed)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+
+    def dump(name, images, labels):
+        u = (images * data_lib.CIFAR10_STD[:, None, None]
+             + data_lib.CIFAR10_MEAN[:, None, None]) * 255.0
+        raw = np.clip(np.rint(u), 0, 255).astype(np.uint8).reshape(len(images), -1)
+        with open(os.path.join(base, name), "wb") as fh:
+            pickle.dump({b"data": raw, b"labels": [int(v) for v in labels]}, fh)
+
+    for i in range(5):
+        sl = slice(i * per_batch, (i + 1) * per_batch)
+        dump(f"data_batch_{i + 1}", x[sl], y[sl])
+    dump("test_batch", xt, yt)
+    return root
+
+
+def cifar_args(data_dir, extra=()):
+    return ["--data-dir", data_dir, "--model", MODEL, "--batch-size", str(BATCH),
+            "--steps-per-epoch", str(CIFAR_STEPS), "--seed", "0", "--device", "cuda",
+            *CIFAR_FLAGS, *extra]
+
+
+def counted(run, counters):
+    """``(run(), {counter: launches})`` with every counter zeroed just before."""
+    for fn in counters:
+        fn.launches = 0
+    out = run()
+    return out, {fn.__name__: fn.launches for fn in counters}
+
+
+def gate_launches(launches, expected, path):
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            raise AssertionError(
+                f"{name}: {n} launches on the {path} path, the run implies {expected.get(name, 0)}")
+
+
+def gate_falling(losses, path):
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss on the {path} path: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"{path}: loss did not fall: first-5 mean {first:.4f}, "
+                             f"last-5 mean {last:.4f}")
+    return first, last
+
+
+def gate_oracle(kernel, oracle, path, steps):
+    """Each listed step's loss within 1e-3 relative of the oracle path's;
+    returns the largest relative difference."""
+    worst = 0.0
+    for i in steps:
+        rel = abs(kernel[i] - oracle[i]) / abs(oracle[i])
+        if not rel <= 1e-3:
+            raise AssertionError(f"{path} step {i}: kernel-path loss {kernel[i]} vs oracle-path "
+                                 f"loss {oracle[i]}")
+        worst = max(worst, rel)
+    return worst
+
+
+def cifar_expected_launches(hist, device, a_per_capture=1, apply_kernels=True):
+    """``conv_expected_launches`` of a ResNet-32 run, with kernel 1 launched
+    ``a_per_capture`` times per conv and capture step (once per microbatch
+    with ``--stats-all-microbatches``) and, under the inverse method's dense
+    apply, no launch of kernels 3 and 4."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+
+    out = conv_expected_launches(
+        hist, cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)), device)
+    out["compute_a_conv_fused"] *= a_per_capture
+    if not apply_kernels:
+        out["fused_precondition_stack"] = out["fused_sgd_apply"] = 0
+    return out
+
+
+def _tree_equal(got, want, where=""):
+    """Every tensor of ``got`` bitwise equal to ``want``'s, same structure."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        if not (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and torch.equal(got.detach(), want)):
+            raise AssertionError(f"restored {where} differs from the saved tensor")
+        return 1
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"restored {where} has keys {sorted(got)}, saved {sorted(want)}")
+        return sum(_tree_equal(got[k], want[k], f"{where}/{k}") for k in want)
+    if got != want:
+        raise AssertionError(f"restored {where} = {got}, saved {want}")
+    return 0
+
+
+def cifar_phases(device, counters, eigen_stats):
+    """Phases 16a–16f: the CIFAR-10 main path with data, evaluation,
+    checkpoints, logs and diagnostics; its resume; the inverse method; the
+    diagonal blocks; gradient accumulation. Returns what they measured and
+    the launches of each path."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_") as tmp:
+        mark("16a. CIFAR-10 set")
+        t0 = time.perf_counter()
+        data_dir = write_cifar_set(os.path.join(tmp, "data"))
+        out["write_set_s"] = time.perf_counter() - t0
+
+        mark("16b. CIFAR-10 recipe with data")
+        # deterministic cuDNN for 16b and 16c, so that the resume can be
+        # held to the uninterrupted run step for step
+        cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        logs, full_dir = os.path.join(tmp, "logs"), os.path.join(tmp, "full")
+        full, launches["recipe"] = counted(lambda: trainer.main(cifar_args(
+            data_dir, ["--epochs", str(CIFAR_EPOCHS), "--log-dir", logs,
+                       "--checkpoint-dir", full_dir])), counters)
+        first, last = gate_falling(full["loss"], "CIFAR-10 recipe")
+        if len(full["loss"]) != CIFAR_EPOCHS * CIFAR_STEPS:
+            raise AssertionError(f"{len(full['loss'])} steps, {CIFAR_EPOCHS} x {CIFAR_STEPS} asked")
+        if full["val_count"] != [CIFAR_TEST] * CIFAR_EPOCHS:
+            raise AssertionError(f"validation counted {full['val_count']} of {CIFAR_TEST} images")
+        nus, eigs = full["kfac_nu"], full["kfac_min_damped_eig"]
+        if not all(0.0 < v <= 1.0 for v in nus):
+            raise AssertionError(f"nu outside (0, 1]: {min(nus)} .. {max(nus)}")
+        damping = trainer.parse_args(cifar_args(data_dir)).damping
+        if not min(eigs) >= damping * (1 - 1e-6):
+            raise AssertionError(f"min damped eigenvalue {min(eigs)} below damping {damping}")
+        with open(os.path.join(logs, "scalars.jsonl")) as fh:
+            tags = {json.loads(line)["tag"] for line in fh}
+        if tags != CIFAR_TAGS:
+            raise AssertionError(f"scalars.jsonl tags {sorted(tags)}, want {sorted(CIFAR_TAGS)}")
+        gate_launches(launches["recipe"], cifar_expected_launches(full, device), "CIFAR-10 recipe")
+        stats = step_stats(full, BATCH)
+        print(f"CIFAR-10 recipe: validation accuracy per epoch {full['val_accuracy']} "
+              f"(not gated: warm-up)", flush=True)
+        out["recipe"] = {
+            "loss_first5": first, "loss_last5": last, "val_loss": full["val_loss"],
+            "val_accuracy": full["val_accuracy"], "val_count": full["val_count"],
+            "capture_step_ms_median": stats["capture_ms_median"],
+            "refresh_step_ms_median": stats["refresh_ms_median"],
+            "images_per_s": stats["per_s"],
+            "eval_ms": full["eval_ms"], "checkpoint_save_ms": full["checkpoint_ms"],
+            "nu_min": min(nus), "min_damped_eig_min": min(eigs),
+        }
+
+        mark("16c. CIFAR-10 resume")
+        saved = torch.load(ckpt.checkpoint_path(full_dir, 0), map_location=device,
+                           weights_only=True)
+        _, _, fresh, _ = trainer.build(trainer.parse_args(cifar_args(data_dir)), device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        restored = ckpt.restore_checkpoint(full_dir, 0, fresh)
+        torch.cuda.synchronize(device)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        n_tensors = (_tree_equal(restored.model.state_dict(), saved["model"], "model")
+                     + _tree_equal(restored.opt_state, saved["opt_state"], "opt_state")
+                     + _tree_equal(restored.kfac_state, saved["kfac_state"], "kfac_state"))
+        del fresh, restored, saved
+        cut_dir = os.path.join(tmp, "cut")
+        os.makedirs(cut_dir)
+        shutil.copy(ckpt.checkpoint_path(full_dir, 0), cut_dir)
+        resumed = trainer.main(cifar_args(
+            data_dir, ["--epochs", str(CIFAR_EPOCHS), "--checkpoint-dir", cut_dir]))
+        if (len(resumed["loss"]) != CIFAR_STEPS or resumed["val_count"] != [CIFAR_TEST]
+                or len(resumed["restore_ms"]) != 1):
+            raise AssertionError(f"the resumed run took {len(resumed['loss'])} steps and "
+                                 f"counted {resumed['val_count']}")
+        pairs = [*zip(resumed["loss"], full["loss"][CIFAR_STEPS:]),
+                 (resumed["val_loss"][0], full["val_loss"][1]),
+                 (resumed["val_accuracy"][0], full["val_accuracy"][1])]
+        rel = [abs(a - b) / abs(b) for a, b in pairs]
+        if not max(rel) <= RESUME_RTOL:
+            i = max(range(len(rel)), key=rel.__getitem__)
+            raise AssertionError(f"resumed epoch 1 differs from the uninterrupted run's: "
+                                 f"value {i} of {len(rel)} (losses, then validation loss and "
+                                 f"accuracy) {pairs[i][0]} vs {pairs[i][1]} "
+                                 f"(tolerance {RESUME_RTOL})")
+        bitwise = sum(a == b for a, b in pairs)
+        out["resume"] = {
+            "restored_tensors_bitwise": n_tensors, "restore_ms": restore_ms,
+            "trainer_restore_ms": resumed["restore_ms"],
+            "epoch1_max_rel_diff": max(rel), "epoch1_values_bitwise": bitwise,
+            "epoch1_values": len(pairs), "tolerance": RESUME_RTOL,
+        }
+        print(f"resume: {n_tensors} restored tensors equal the saved ones bitwise; epoch 1 "
+              f"resumed from checkpoint-0: {bitwise} of {len(pairs)} values (losses, validation "
+              f"loss and accuracy) bitwise equal to the uninterrupted run's, the largest "
+              f"difference {max(rel):.3e} relative", flush=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+
+    mark("16d. inverse method")
+    inv, launches["inverse"] = counted(lambda: train(["--precond-method", "inverse"]), counters)
+    gate_falling(inv["loss"], "inverse-method")
+    gate_launches(launches["inverse"], cifar_expected_launches(inv, device, apply_kernels=False),
+                  "inverse-method")
+    inv_oracle = train(["--precond-method", "inverse", "--factor-kernel", "dense",
+                        "--steps-per-epoch", str(ORACLE_STEPS)])["loss"]
+    inv_stats = step_stats(inv, BATCH)
+    out["inverse"] = {
+        "oracle_max_rel_diff": gate_oracle(inv["loss"], inv_oracle, "inverse-method",
+                                           range(ORACLE_STEPS)),
+        "capture_step_ms_median": inv_stats["capture_ms_median"],
+        "refresh_step_ms_median": inv_stats["refresh_ms_median"],
+        "eigen_capture_step_ms_median": eigen_stats["capture_ms_median"],
+        "eigen_refresh_step_ms_median": eigen_stats["refresh_ms_median"],
+    }
+    print(f"inverse method: refresh step {inv_stats['refresh_ms_median']:.2f} ms, capture step "
+          f"{inv_stats['capture_ms_median']:.2f} ms (eigen: {eigen_stats['refresh_ms_median']:.2f}, "
+          f"{eigen_stats['capture_ms_median']:.2f})", flush=True)
+
+    mark("16e. diagonal blocks")
+    blocks = ("--diag-blocks", "4", "--diag-warmup", "1")
+    spe = 10  # refreshes at steps 0 (one block, epoch 0), 10 (four blocks, epoch 1)
+    blk, launches["blocks"] = counted(
+        lambda: train([*blocks, "--epochs", "2", "--steps-per-epoch", str(spe)]), counters)
+    gate_falling(blk["loss"], "diag-blocks")
+    gate_launches(launches["blocks"], cifar_expected_launches(blk, device), "diag-blocks")
+    k_losses, o_losses = one_step_oracle(resnet_setup, device, spe + ORACLE_STEPS, blocks, spe)
+    blk_stats = step_stats(blk, BATCH)
+    out["blocks"] = {
+        "oracle_max_rel_diff": gate_oracle(k_losses, o_losses, "diag-blocks", [
+            *range(ORACLE_STEPS), *range(spe, spe + ORACLE_STEPS)]),
+        "oracle": "each oracle step from the kernel path's state, first 5 steps of each epoch",
+        "capture_step_ms_median": blk_stats["capture_ms_median"],
+        "refresh_step_ms_median": blk_stats["refresh_ms_median"],
+    }
+
+    mark("16f. gradient accumulation")
+    out["accumulation"] = {}
+    for mode, extra, per_capture in (("last", [], 1), ("all", ["--stats-all-microbatches"], 2)):
+        acc_flags = ["--batches-per-allreduce", "2", *extra]
+        acc, launches[f"accum_{mode}"] = counted(
+            lambda: train([*acc_flags, "--steps-per-epoch", "10"]), counters)
+        gate_falling(acc["loss"], f"accumulation ({mode})")
+        gate_launches(launches[f"accum_{mode}"],
+                      cifar_expected_launches(acc, device, a_per_capture=per_capture),
+                      f"accumulation ({mode})")
+        acc_oracle = train([*acc_flags, "--steps-per-epoch", str(ORACLE_STEPS),
+                            "--factor-kernel", "dense", "--apply-kernel", "dense"])["loss"]
+        acc_stats = step_stats(acc, 2 * BATCH)
+        out["accumulation"][mode] = {
+            "oracle_max_rel_diff": gate_oracle(acc["loss"], acc_oracle, f"accumulation ({mode})",
+                                               range(ORACLE_STEPS)),
+            "kernel1_per_capture_step": launches[f"accum_{mode}"]["compute_a_conv_fused"]
+            / sum(k != "plain" for k in acc["kind"]),
+            "capture_step_ms_median": acc_stats["capture_ms_median"],
+        }
+    out["launches"] = launches
+    return out
 
 
 def ptxas_report():
@@ -1523,7 +1854,7 @@ def main() -> int:
     # the kernel path's loss; the free-running runs (a second kernel run and
     # an oracle run from the same seed) show how far this configuration
     # carries one step's rounding
-    rx_kernel, rx_oracle = imagenet_one_step_oracle(device, ORACLE_STEPS)
+    rx_kernel, rx_oracle = one_step_oracle(imagenet_setup, device, ORACLE_STEPS)
     rx_oracle_rel = max(abs(a - b) / abs(b) for a, b in zip(rx_kernel, rx_oracle))
     if not rx_oracle_rel <= 1e-3:
         raise AssertionError(f"ResNeXt kernel-path losses {rx_kernel} vs one-step oracle {rx_oracle}")
@@ -1564,7 +1895,15 @@ def main() -> int:
     token_count["cuda_graph"] = graphs["token_count"]
     rx_sgd["cuda_graph"] = graphs["fused_sgd"]
 
-    # 16. results: kernels 1, 3 and 4 run on several paths; the top-level
+    # 16a-f. the CIFAR-10 main path with data and the JAX trainer's options:
+    # each path driven through the twin with the counters zeroed just before
+    cifar = cifar_phases(device, all_counted, kfac_stats)
+    print(json.dumps({"cifar_paths": cifar}), flush=True)
+    for k, fn in ((conv_a, fk.compute_a_conv_fused), (resnet_apply, ak.fused_precondition_stack),
+                  (resnet_sgd, ak.fused_sgd_apply)):
+        k["launches_on_cifar_paths"] = {p: n[fn.__name__] for p, n in cifar["launches"].items()}
+
+    # 17. results: kernels 1, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     lm_apply["resnet32"] = resnet_apply

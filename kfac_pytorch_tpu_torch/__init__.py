@@ -2,7 +2,7 @@
 
 The JAX package beside this one is the reference; this package mirrors its
 module layout (``ops/``, ``models/``, ``capture.py``, ``preconditioner.py``,
-``scheduler.py``, ``training/``) so each function has a findable
+``scheduler.py``, ``training/``, ``observability/``) so each function has a findable
 counterpart. It imports ``torch`` and never JAX or the JAX package.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; a

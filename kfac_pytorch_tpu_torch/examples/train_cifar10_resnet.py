@@ -1,16 +1,31 @@
 """CIFAR-10 ResNet training with K-FAC on one GPU (PyTorch port).
 
-Twin of the JAX package's ``examples/train_cifar10_resnet.py`` for the
-main path: the same flags with the same defaults, the same K-FAC gating
-(``--kfac-update-freq 0`` is plain SGD), one device. Only ``--synthetic``
-data is ported so far (CIFAR-10 loading is ROADMAP queue 1 item 4).
+Twin of the JAX package's ``examples/train_cifar10_resnet.py`` on one
+device: the same flags with the same defaults, the same data choice, the
+same K-FAC gating (``--kfac-update-freq 0`` is plain SGD). It trains on
+CIFAR-10 from ``--data-dir`` (a ``cifar-10-batches-py`` directory or its
+parent), on the learnable stand-in ``synthetic_cifar_like`` when no data is
+found there (a data choice it prints, not a device fallback), or on pure
+noise with ``--synthetic``; with data it evaluates the whole test split
+after each epoch. ``--checkpoint-dir`` saves ``checkpoint-<epoch>`` after
+each epoch and resumes from the newest one; ``--log-dir`` writes
+``scalars.jsonl`` (it defaults to none here, ``./logs`` in the JAX
+trainer). Every other flag of the JAX trainer is accepted with its default
+and, set to anything else, raises ``SystemExit`` naming the ROADMAP item
+that ports it.
 
+    python -m kfac_pytorch_tpu_torch.examples.train_cifar10_resnet \\
+        --data-dir /path/to/cifar-10-batches-py --model resnet32 --epochs 100
     python -m kfac_pytorch_tpu_torch.examples.train_cifar10_resnet \\
         --synthetic --model resnet32 --epochs 1 --steps-per-epoch 30
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
-asked for and absent. ``main()`` returns the per-step history (loss, step
-kind, wall milliseconds measured around a synchronized step).
+asked for and absent. ``main()`` returns the history: per step the loss,
+the step kind, the wall milliseconds around a synchronized step and, with
+``--kfac-diagnostics``, each ``kfac_*`` diagnostic; per epoch the
+validation loss, accuracy and sample count, the milliseconds of the
+full-split evaluation (after any BatchNorm recalibration) and of the
+checkpoint save; the restore milliseconds of a resume.
 """
 
 from __future__ import annotations
@@ -24,26 +39,95 @@ import torch
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
 from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
 from kfac_pytorch_tpu_torch.models import cifar_resnet
-from kfac_pytorch_tpu_torch.training.data import synthetic_batches
+from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.schedules import create_lr_schedule
 from kfac_pytorch_tpu_torch.training.step import (
     TrainState,
     kfac_flags_for_step,
+    make_bn_recal_step,
+    make_masked_eval_step,
     make_sgd,
     make_train_step,
 )
 
 NUM_CLASSES = 10
 
+# per-step K-FAC health keys beyond ν and the min damped eigenvalue that
+# --kfac-diagnostics reduces to per-epoch means (the JAX trainer's)
+DIAG_EXTRA_KEYS = (
+    "kfac_max_damped_eig",
+    "kfac_cond_max",
+    "kfac_grad_norm",
+    "kfac_update_norm",
+    "kfac_update_grad_cos",
+    "kfac_eigen_stale_steps",
+)
 
-def parse_args(argv=None):
+# Flags of the JAX trainer this twin does not carry: (flag, type, default,
+# ROADMAP queue-1 item that ports it). Store-true flags have type None.
+_LATER_FLAGS = (
+    ("--preempt-save-dir", str, None, "9 (elastic/)"),
+    ("--snapshot-every", int, 0, "9 (elastic/)"),
+    ("--num-workers", int, 4, "9 (runtime/loader.py)"),
+    ("--distribute-precondition", None, False, "6 (multi-GPU)"),
+    ("--distribute-layer-factors", str, None, "6 (multi-GPU)"),
+    ("--init-from-torch", str, None, "5 (--init-from-torch)"),
+    ("--precond-comm-dtype", str, None, "6 (multi-GPU)"),
+    ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
+    ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
+    ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
+    ("--factor-sharding", str, "replicated", "7 (owner-sharded factors)"),
+    ("--precond-precision", str, None, "4 (precond_precision)"),
+    ("--eigen-dtype", str, "f32", "4 (bf16 eigen_dtype)"),
+    ("--eigh-chunks", int, 1, "7 (pipelined refresh)"),
+    ("--bf16", None, False, "4 (bf16 compute)"),
+    ("--profile-epoch", int, None, "9 (training/profiling.py)"),
+    ("--telemetry-dir", str, None, "9 (observability/)"),
+    ("--solver", str, "eigh", "7 (solvers)"),
+    ("--solver-rank", int, 128, "7 (solvers)"),
+    ("--solver-auto-threshold", int, 512, "7 (solvers)"),
+    ("--stream-drift-threshold", float, 0.05, "7 (solvers)"),
+    ("--comm-overlap", None, False, "7 (overlap plane)"),
+    ("--staleness-budget", int, 0, "7 (refresh scheduling)"),
+    ("--service-devices", int, 0, "9 (service/)"),
+    ("--profile", str, None, "9 (planner/)"),
+    ("--autotune-steps", int, 0, "9 (planner/)"),
+)
+
+# the stand-in's flags (flag, type, default, help); set next to real data
+# they are refused
+_SYNTH_FLAGS = (
+    ("--synth-classes", int, 10, "stand-in class count (also sizes the model head)"),
+    ("--synth-prototypes", int, 10, "stand-in prototypes per class"),
+    ("--synth-noise", float, 0.55, "stand-in additive pixel noise sigma"),
+    ("--synth-label-noise", float, 0.08, "stand-in TRAIN label flip fraction"),
+    ("--synth-val-label-noise", float, 0.0,
+     "stand-in VAL label flip fraction f (a hard accuracy ceiling of 1-f)"),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="CIFAR-10 K-FAC Example (PyTorch/CUDA port)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
+    p.add_argument("--data-dir", default=None, help="CIFAR-10 data dir")
     p.add_argument("--synthetic", action="store_true", help="use synthetic data")
+    for flag, kind, default, text in _SYNTH_FLAGS:
+        p.add_argument(flag, type=kind, default=default, help=text)
+    p.add_argument("--log-dir", default=None, help="scalars.jsonl (+ TensorBoard) dir")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint dir (enables save/resume)")
     p.add_argument("--model", default="resnet32", help="cifar resnet variant")
     p.add_argument("--batch-size", type=int, default=128, help="per-device train batch size")
+    p.add_argument("--batches-per-allreduce", type=int, default=1,
+                   help="gradient-accumulation microbatches per optimizer step")
+    p.add_argument("--stats-all-microbatches", action="store_true",
+                   help="capture K-FAC statistics on every accumulation "
+                        "microbatch and average them (else the last one's)")
+    p.add_argument("--val-batch-size", type=int, default=128, help="per-device val batch size")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--steps-per-epoch", type=int, default=None, help="cap steps (synthetic/smoke)")
     p.add_argument("--base-lr", type=float, default=0.1, help="per-device lr (scaled by world)")
@@ -51,6 +135,7 @@ def parse_args(argv=None):
     p.add_argument("--warmup-epochs", type=float, default=5)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--wd", type=float, default=5e-4)
+    p.add_argument("--label-smoothing", type=float, default=0.0)
     p.add_argument("--kfac-update-freq", type=int, default=10, help="0 disables K-FAC")
     p.add_argument("--kfac-cov-update-freq", type=int, default=1)
     p.add_argument("--stat-decay", type=float, default=0.95)
@@ -58,6 +143,14 @@ def parse_args(argv=None):
     p.add_argument("--damping-alpha", type=float, default=0.5)
     p.add_argument("--damping-schedule", nargs="+", type=int, default=[40, 80])
     p.add_argument("--kl-clip", type=float, default=0.001)
+    p.add_argument("--diag-blocks", type=int, default=1)
+    p.add_argument("--diag-warmup", type=int, default=0)
+    p.add_argument("--kfac-update-freq-alpha", type=float, default=10)
+    p.add_argument("--kfac-update-freq-schedule", nargs="+", type=int, default=None)
+    p.add_argument("--precond-method", default="eigen", choices=["eigen", "inverse"],
+                   help="eigen: eigenbasis solve (damping fresh every step); "
+                        "inverse: pi-corrected factored damping + Cholesky "
+                        "inverses (the dense apply: no fused apply kernel)")
     p.add_argument("--factor-kernel", default="auto", choices=["auto", "kernel", "dense"],
                    help="conv A-factor statistics: kernel = the CUDA patch-"
                         "covariance kernel, dense = im2col oracle, auto = the "
@@ -66,16 +159,41 @@ def parse_args(argv=None):
                    help="preconditioned apply + SGD: kernel = the fused CUDA "
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
+    p.add_argument("--kfac-diagnostics", action="store_true",
+                   help="log per-epoch K-FAC stability diagnostics (nu, "
+                        "damped eigenvalues, condition numbers, update/grad "
+                        "cosine, staleness)")
+    p.add_argument("--bn-recal-batches", type=int, default=0,
+                   help="refresh BatchNorm running statistics with this many "
+                        "train-mode forwards before each evaluation")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    for flag, kind, default, _ in _LATER_FLAGS:
+        if kind is None:
+            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
+    return p
+
+
+def parse_args(argv=None):
+    args = build_parser().parse_args(argv)
+    for flag, _, default, item in _LATER_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            raise SystemExit(
+                f"{flag} is not ported to the PyTorch trainer yet (ROADMAP "
+                f"queue 1 item {item})"
+            )
+    if args.batches_per_allreduce < 1:
+        raise SystemExit("--batches-per-allreduce must be at least 1")
+    return args
 
 
 def build(args, device: torch.device):
     """``(model, kfac, state, train_step)`` for parsed ``args`` on
     ``device``; ``kfac`` is ``None`` at ``--kfac-update-freq 0``."""
     model = cifar_resnet.get_model(
-        args.model, num_classes=NUM_CLASSES,
+        args.model, num_classes=args.synth_classes,
         generator=torch.Generator().manual_seed(args.seed),
     ).to(device)
     tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
@@ -89,6 +207,10 @@ def build(args, device: torch.device):
             kl_clip=args.kl_clip,
             fac_update_freq=args.kfac_cov_update_freq,
             kfac_update_freq=args.kfac_update_freq,
+            diag_blocks=args.diag_blocks,
+            diag_warmup=args.diag_warmup,
+            precond_method=args.precond_method,
+            track_diagnostics=args.kfac_diagnostics,
             factor_kernel=args.factor_kernel,
             apply_kernel=args.apply_kernel,
             device=device,
@@ -102,66 +224,202 @@ def build(args, device: torch.device):
     train_step = make_train_step(
         model, tx, kfac,
         sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
+        label_smoothing=args.label_smoothing,
+        accum_steps=args.batches_per_allreduce,
+        stats_all_microbatches=args.stats_all_microbatches,
     )
     return model, kfac, state, train_step
 
 
+def load_data(args):
+    """``(train, val, source)``: CIFAR-10 from ``--data-dir``, else (without
+    ``--synthetic``) the learnable stand-in, else ``(None, None, ...)`` for
+    the synthetic noise batches."""
+    cifar_dir = None if args.synthetic else data_lib.find_cifar10(args.data_dir)
+    overrides = [flag for flag, _, default, _ in _SYNTH_FLAGS
+                 if getattr(args, flag[2:].replace("-", "_")) != default]
+    if cifar_dir and overrides:
+        raise SystemExit(
+            f"{'/'.join(overrides)} only apply to the learnable stand-in, but "
+            "real CIFAR-10 (10 classes) was found on disk — the flags would be "
+            "silently ignored; drop them or the data"
+        )
+    if cifar_dir:
+        return (data_lib.load_cifar10(cifar_dir, train=True),
+                data_lib.load_cifar10(cifar_dir, train=False),
+                f"CIFAR-10 from {cifar_dir}")
+    if args.synthetic:
+        return None, None, "synthetic noise batches"
+    train, val = data_lib.synthetic_cifar_like(
+        num_classes=args.synth_classes,
+        prototypes_per_class=args.synth_prototypes,
+        noise=args.synth_noise,
+        label_noise=args.synth_label_noise,
+        val_label_noise=args.synth_val_label_noise,
+        seed=args.seed,
+    )
+    where = f" in {args.data_dir}" if args.data_dir else " (no --data-dir)"
+    return train, val, f"synthetic-learnable stand-in: no CIFAR-10 found{where}"
+
+
+def evaluate(eval_step, state, x_val, y_val, batch_size, device):
+    """Masked sums over the whole split, read once: ``(loss, accuracy, count)``."""
+    sums = None
+    for xb, yb, mb in data_lib.eval_batches(x_val, y_val, batch_size):
+        m = eval_step(state, (torch.from_numpy(xb).to(device),
+                              torch.from_numpy(yb).to(device),
+                              torch.from_numpy(mb).to(device)))
+        part = torch.stack([m["loss_sum"], m["correct"], m["count"]])
+        sums = part if sums is None else sums + part
+    loss_sum, correct, count = sums.tolist()
+    return loss_sum / count, correct / count, count
+
+
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit(
-            "only --synthetic data is ported so far (CIFAR-10 loading is "
-            "ROADMAP queue 1 item 4)"
-        )
     device = resolve_device(args.device)
     use_ieee_f32()
     world = 1
-    lr_base = args.base_lr * world
-    _, kfac, state, train_step = build(args, device)
+    accum = args.batches_per_allreduce
+    train, val, source = load_data(args)
+    x_train, y_train = train or (None, None)
+    x_val, y_val = val or (None, None)
+    model, kfac, state, train_step = build(args, device)
     kfac_sched = None
     if kfac is not None:
         kfac_sched = KFACParamScheduler(
             kfac,
             damping_alpha=args.damping_alpha,
             damping_schedule=args.damping_schedule,
+            update_freq_alpha=args.kfac_update_freq_alpha,
+            update_freq_schedule=args.kfac_update_freq_schedule,
         )
+    history: Dict[str, List] = {
+        "loss": [], "kind": [], "step_ms": [], "val_loss": [], "val_accuracy": [],
+        "val_count": [], "eval_ms": [], "checkpoint_ms": [], "restore_ms": [],
+    }
+    resume_from_epoch = 0
+    if args.checkpoint_dir:
+        t0 = time.perf_counter()
+        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        if resume_from_epoch:
+            history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            if kfac_sched:
+                kfac_sched.epoch = resume_from_epoch
+            print(f"resumed from epoch {resume_from_epoch - 1}")
+    eval_step = make_masked_eval_step(model, label_smoothing=args.label_smoothing)
+    bn_recal = make_bn_recal_step(model) if args.bn_recal_batches else None
+    lr_base = args.base_lr * world
     lr_factor = create_lr_schedule(world, args.warmup_epochs, args.lr_decay)
-    steps_per_epoch = args.steps_per_epoch or 50
+    if x_train is not None:
+        steps_per_epoch = len(x_train) // (args.batch_size * accum)
+        print(f"{source}: {len(x_train)} train / {len(x_val)} val")
+    else:
+        steps_per_epoch = args.steps_per_epoch or 50
+    if args.steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
+    writer = ScalarWriter(args.log_dir)
 
-    history: Dict[str, List] = {"loss": [], "kind": [], "step_ms": []}
-    step = 0
-    for epoch in range(args.epochs):
+    step = state.step
+    for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
-        batches = synthetic_batches(
-            args.batch_size, (3, 32, 32), NUM_CLASSES, steps_per_epoch, seed=args.seed
-        )
+        if x_train is not None:
+            batches = data_lib.epoch_batches(
+                x_train, y_train, args.batch_size * accum, shuffle=True, augment=True,
+                seed=args.seed + epoch,
+            )
+        else:
+            batches = data_lib.synthetic_batches(
+                args.batch_size * accum, (3, 32, 32), args.synth_classes,
+                steps_per_epoch, seed=args.seed,
+            )
         t0 = time.perf_counter()
-        losses = []
+        loss_m, acc_m = Metric("train/loss"), Metric("train/accuracy")
+        diag: Dict[str, List[float]] = {}
         for i, (xb, yb) in enumerate(batches):
+            if i >= steps_per_epoch:
+                break
             lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
-            damping = kfac.hparams.damping if kfac else 0.0
             flags = kfac_flags_for_step(step, kfac, epoch)
             images = torch.from_numpy(xb).to(device, non_blocking=True)
             labels = torch.from_numpy(yb).to(device, non_blocking=True)
+            if accum > 1:
+                images = images.reshape(accum, -1, *images.shape[1:])
+                labels = labels.reshape(accum, -1)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             ts = time.perf_counter()
-            state, metrics = train_step(state, (images, labels), lr, damping, **flags)
-            loss = float(metrics["loss"])  # waits for the step
+            state, metrics = train_step(
+                state, (images, labels), lr,
+                kfac.hparams.damping if kfac else 0.0, **flags,
+            )
+            # one read of every scalar the host logs: waits for the step
+            keys = sorted(metrics)
+            values = dict(zip(keys, torch.stack(
+                [metrics[k].float() for k in keys]).tolist()))
             history["step_ms"].append((time.perf_counter() - ts) * 1e3)
-            history["loss"].append(loss)
+            history["loss"].append(values["loss"])
             history["kind"].append(
                 "refresh" if flags.get("update_eigen")
                 else "capture" if flags.get("update_factors") else "plain"
             )
-            losses.append(loss)
+            loss_m.update(values["loss"])
+            acc_m.update(values["accuracy"])
+            for k, v in values.items():
+                if k.startswith("kfac_"):
+                    diag.setdefault(k, []).append(v)
+                    history.setdefault(k, []).append(v)
             step += 1
         dt = time.perf_counter() - t0
         print(
-            f"epoch {epoch}: loss={sum(losses) / len(losses):.4f} lr={lr:.4f} "
-            f"{steps_per_epoch * args.batch_size / dt:.0f} img/s ({dt:.1f}s)"
+            f"epoch {epoch}: loss={loss_m.avg:.4f} acc={acc_m.avg:.4f} lr={lr:.4f} "
+            f"{steps_per_epoch * args.batch_size * accum / dt:.0f} img/s ({dt:.1f}s)"
         )
+        writer.add_scalar("train/loss", loss_m.avg, epoch)
+        writer.add_scalar("train/accuracy", acc_m.avg, epoch)
+        writer.add_scalar("train/lr", lr, epoch)
+        if "kfac_nu" in diag:
+            nus, eigs = diag["kfac_nu"], diag["kfac_min_damped_eig"]
+            writer.add_scalar("kfac/nu_min", min(nus), epoch)
+            writer.add_scalar("kfac/nu_mean", sum(nus) / len(nus), epoch)
+            writer.add_scalar("kfac/min_damped_eig", min(eigs), epoch)
+            means = {k: sum(diag[k]) / len(diag[k]) for k in DIAG_EXTRA_KEYS if k in diag}
+            for k, v in means.items():
+                writer.add_scalar(f"kfac/{k[5:]}_mean", v, epoch)  # kfac_x -> kfac/x_mean
+            print(f"  kfac: nu_min={min(nus):.4f} nu_mean={sum(nus) / len(nus):.4f} "
+                  f"min_damped_eig={min(eigs):.3e}")
+            print(f"  kfac: cond_max={means.get('kfac_cond_max', 0.0):.3e} "
+                  f"upd_cos={means.get('kfac_update_grad_cos', 0.0):.3f} "
+                  f"stale={means.get('kfac_eigen_stale_steps', 0.0):.1f}")
+
+        if x_val is not None:
+            if bn_recal is not None:
+                for j, (xb, _) in enumerate(data_lib.epoch_batches(
+                    x_train, y_train, args.batch_size, shuffle=True, augment=False,
+                    seed=args.seed + 1000 + epoch,
+                )):
+                    if j >= args.bn_recal_batches:
+                        break
+                    state = bn_recal(state, torch.from_numpy(xb).to(device))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            te = time.perf_counter()
+            val_loss, val_acc, count = evaluate(
+                eval_step, state, x_val, y_val, args.val_batch_size, device)
+            history["eval_ms"].append((time.perf_counter() - te) * 1e3)
+            history["val_loss"].append(val_loss)
+            history["val_accuracy"].append(val_acc)
+            history["val_count"].append(count)
+            print(f"  val: loss={val_loss:.4f} acc={val_acc:.4f}")
+            writer.add_scalar("val/loss", val_loss, epoch)
+            writer.add_scalar("val/accuracy", val_acc, epoch)
+
+        if args.checkpoint_dir:
+            tc = time.perf_counter()
+            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
+            history["checkpoint_ms"].append((time.perf_counter() - tc) * 1e3)
+    writer.close()
     return history
 
 

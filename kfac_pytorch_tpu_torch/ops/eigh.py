@@ -1,8 +1,11 @@
 """Symmetric eigendecomposition with K-FAC's numerical conventions.
 
-Port of ``kfac_pytorch_tpu/ops/eigh.py`` (the single-block subset of the
-main path). ``torch.linalg.eigh`` is a library call (cuSOLVER on the card),
-as ``jnp.linalg.eigh`` was XLA's: not a hand-kernel debt. The JAX package's
+Port of ``kfac_pytorch_tpu/ops/eigh.py``: the floored eigendecomposition
+and the block boundaries. The block-diagonal approximation
+(``diag_blocks > 1``) is the refresh's blocked slots
+(``parallel/sharded_eigh.py::replicated_eigen_update``).
+``torch.linalg.eigh`` is a library call (cuSOLVER on the card), as
+``jnp.linalg.eigh`` was XLA's: not a hand-kernel debt. The JAX package's
 −1-padded shape buckets existed only to bound XLA's per-shape eigh compile
 cost; cuSOLVER has no such cost, so nothing here pads.
 """
@@ -57,3 +60,4 @@ def get_block_boundary(
         for i, x in enumerate(block_shape)
     ]
     return block_start, block_end
+

@@ -1,8 +1,9 @@
-"""Natural-gradient preconditioning in the Kronecker eigenbasis + KL clipping.
+"""Natural-gradient preconditioning (eigenbasis or inverse) + KL clipping.
 
-Port of the eigen half of ``kfac_pytorch_tpu/ops/precondition.py`` for the
-ported paths: full-eigen dense entries and diagonal-A (embedding) entries;
-no low-rank or distributed forms. Same-shape layers are stacked and
+Port of ``kfac_pytorch_tpu/ops/precondition.py`` for the ported paths: the
+eigen method with full-eigen dense entries and diagonal-A (embedding)
+entries, and the inverse method (``precond_method="inverse"``); no
+low-rank or distributed forms. Same-shape layers are stacked and
 preconditioned together. Diagonal-A layers stay out of the shape groups
 and are preconditioned first, in sorted order; then the groups follow in
 :func:`shape_groups`' insertion order. That emission order is also the
@@ -35,9 +36,14 @@ def precondition_mat(
 
 
 def diag_a_names(eigen: Dict[str, Dict[str, torch.Tensor]]) -> set:
-    """Layers whose A factor is a stored diagonal (embeddings): their eigen
-    entry carries A-side eigenvalues ``dA`` but no ``QA`` matrix."""
-    return {n for n, e in eigen.items() if "QA" not in e and "dA" in e}
+    """Layers whose A factor is a stored diagonal (embeddings): their state
+    entry carries A-side eigenvalues ``dA`` (eigen method) or an inverse
+    diagonal ``iA_diag`` (inverse method) but no A-side matrix."""
+    return {
+        n
+        for n, e in eigen.items()
+        if ("QA" not in e and "iA" not in e) and ("dA" in e or "iA_diag" in e)
+    }
 
 
 def precondition_mat_embed(
@@ -191,6 +197,131 @@ def precondition_all_with_vg(
             out[name] = v[row]
             vg_terms.append(vg[row])
     return out, vg_terms
+
+
+# ---------------------------------------------------------------------------
+# Inverse method: π-corrected factored Tikhonov damping, explicit inverses
+#
+#     π  = sqrt( (tr(A)/dim A) / (tr(G)/dim G) )
+#     iA = (A + π·√λ·I)⁻¹ ,  iG = (G + (√λ/π)·I)⁻¹
+#     v  = iG · grad · iA                       (2 matmuls per step)
+#
+# The refresh is a batched Cholesky solve instead of an eigendecomposition;
+# the damping takes effect at the next refresh. Cholesky and the triangular
+# solves are library calls (cuSOLVER, cuBLAS), as they were XLA's in JAX.
+# ---------------------------------------------------------------------------
+
+
+def _spd_inverse_stack(stack: torch.Tensor) -> torch.Tensor:
+    """Batched SPD inverse via Cholesky: ``[k, n, n] -> [k, n, n]``,
+    symmetrized. ``cholesky_ex`` does not check the factorization, so the
+    refresh does not wait for the device (a non-SPD input gives a wrong
+    inverse, as ``lax.linalg.cholesky``'s NaNs do in JAX)."""
+    k, n, _ = stack.shape
+    eye = torch.eye(n, dtype=stack.dtype, device=stack.device).expand(k, n, n)
+    chol, _ = torch.linalg.cholesky_ex(stack)
+    y = torch.linalg.solve_triangular(chol, eye, upper=False)
+    inv = torch.linalg.solve_triangular(chol.transpose(-1, -2), y, upper=True)
+    return 0.5 * (inv + inv.transpose(-1, -2))
+
+
+def factored_inverse_all(
+    factors: Dict[str, Dict[str, torch.Tensor]],
+    damping,
+    eps: float = 1e-10,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{layer: {'A', 'G'}} -> {layer: {'iA', 'iG'}}`` with π-corrected
+    factored damping (above); a diagonal A (embedding) inverts elementwise
+    into ``iA_diag``. Same-side factors batch into one Cholesky inverse per
+    side length."""
+    names = list(factors)
+    first = factors[names[0]]["G"]
+    sqrt_l = torch.sqrt(torch.as_tensor(damping, dtype=torch.float32, device=first.device))
+    pis = {}
+    for n in names:
+        f = factors[n]
+        if "A_diag" in f:
+            tr_a = torch.clamp(torch.mean(f["A_diag"]), min=eps)
+        else:
+            tr_a = torch.clamp(torch.trace(f["A"]) / f["A"].shape[0], min=eps)
+        tr_g = torch.clamp(torch.trace(f["G"]) / f["G"].shape[0], min=eps)
+        pis[n] = torch.sqrt(tr_a / tr_g)
+
+    jobs: Dict[int, list] = {}
+    out: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in names}
+    for n in names:
+        if "A_diag" in factors[n]:
+            out[n]["iA_diag"] = 1.0 / (factors[n]["A_diag"].float() + pis[n] * sqrt_l)
+        else:
+            jobs.setdefault(factors[n]["A"].shape[0], []).append((n, "A"))
+        jobs.setdefault(factors[n]["G"].shape[0], []).append((n, "G"))
+    for side, batch in sorted(jobs.items()):
+        stack = torch.stack([factors[n][f].float() for n, f in batch])
+        damps = torch.stack(
+            [pis[n] * sqrt_l if f == "A" else sqrt_l / pis[n] for n, f in batch]
+        )
+        eye = torch.eye(side, dtype=torch.float32, device=stack.device)
+        inv = _spd_inverse_stack(stack + damps[:, None, None] * eye)
+        for row, (n, f) in enumerate(batch):
+            out[n]["iA" if f == "A" else "iG"] = inv[row]
+    return out
+
+
+def split_inv_state(
+    inv: Dict[str, Dict[str, torch.Tensor]],
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Dict[str, Dict[str, torch.Tensor]]]:
+    """Inverse-method analog of :func:`split_eigen_state`: same-shape layers
+    live only as stacked ``{'iA': [k,a,a], 'iG': [k,g,g]}`` groups."""
+    return _split_state(inv, g_key="iG", a_key="iA")
+
+
+def precondition_mat_inv(
+    grad_mat: torch.Tensor, i_a: torch.Tensor, i_g: torch.Tensor
+) -> torch.Tensor:
+    """``v = iG · grad · iA`` — the 2-matmul inverse-method solve."""
+    return (i_g @ grad_mat) @ i_a
+
+
+def precondition_mat_inv_embed(
+    grad_mat: torch.Tensor, i_a_diag: torch.Tensor, i_g: torch.Tensor
+) -> torch.Tensor:
+    """Inverse-method solve for a diagonal-A (embedding) layer:
+    ``v = (iG · grad) ⊙ iA_diag``."""
+    return (i_g @ grad_mat) * i_a_diag[None, :]
+
+
+def precondition_all_inv(
+    grad_mats: Dict[str, torch.Tensor],
+    inv: Dict[str, Dict[str, torch.Tensor]],
+    stacked: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Inverse-method twin of :func:`precondition_all`: diagonal-A layers
+    first in sorted order, then same-shape layers batched in
+    :func:`shape_groups` order (the KL-clip summation order)."""
+    diag_a = diag_a_names(inv)
+    out: Dict[str, torch.Tensor] = {}
+    for name in sorted(diag_a):
+        e = inv[name]
+        out[name] = precondition_mat_inv_embed(grad_mats[name], e["iA_diag"], e["iG"])
+    shapes = {
+        name: tuple(g.shape) for name, g in grad_mats.items() if name not in diag_a
+    }
+    for (go, ai), names in shape_groups(shapes).items():
+        if len(names) == 1:
+            e = inv[names[0]]
+            out[names[0]] = precondition_mat_inv(grad_mats[names[0]], e["iA"], e["iG"])
+            continue
+        gm = torch.stack([grad_mats[n] for n in names])
+        key = f"{go}x{ai}"
+        if stacked is not None and key in stacked:
+            ia, ig = stacked[key]["iA"], stacked[key]["iG"]
+        else:
+            ia = torch.stack([inv[n]["iA"] for n in names])
+            ig = torch.stack([inv[n]["iG"] for n in names])
+        v = (ig @ gm) @ ia
+        for row, name in enumerate(names):
+            out[name] = v[row]
+    return out
 
 
 def _lr_squared(lr) -> float:

@@ -1,9 +1,14 @@
-"""KFAC: the K-FAC gradient preconditioner, single-device eigen method.
+"""KFAC: the K-FAC gradient preconditioner, one device.
 
 Port of ``kfac_pytorch_tpu/preconditioner.py::KFAC`` for the ported
-paths: identity-initialized factor running averages, eigendecomposition
-refresh every ``kfac_update_freq`` steps, eigenbasis preconditioning of
-every K-FAC layer's gradient with the global KL clip, every step.
+paths: identity-initialized factor running averages, a curvature refresh
+every ``kfac_update_freq`` steps, and preconditioning of every K-FAC
+layer's gradient with the global KL clip, every step. The refresh is an
+eigendecomposition of every factor (``precond_method="eigen"``; conv
+factors in ``diag_blocks`` diagonal blocks once ``diag_warmup`` epochs have
+passed) or π-damped Cholesky inverses (``precond_method="inverse"``).
+``track_diagnostics`` keeps the health diagnostics of
+``observability/diagnostics.py`` in the state.
 Embeddings (``KFACEmbed``) keep a diagonal A factor, ``A_diag [vocab]``,
 initialized to ones, whose "eigendecomposition" is the floored diagonal
 itself. The interface keeps the reference's functional shape:
@@ -30,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -68,7 +74,7 @@ def _not_ported(lever: str, item: str) -> None:
 
 
 class KFAC:
-    """K-FAC gradient preconditioner (eigen method, one device).
+    """K-FAC gradient preconditioner (eigen or inverse method, one device).
 
     Args mirror the reference (kfac_pytorch_tpu/preconditioner.py:142-179)
     plus ``device`` (default CUDA; raises without a GPU unless
@@ -154,28 +160,45 @@ class KFAC:
             _not_ported(f"solver={solver!r}", "7")
         if factor_sharding == "owner":
             _not_ported("factor_sharding='owner'", "7")
-        if precond_method == "inverse":
-            _not_ported("precond_method='inverse'", "4")
-        # diag_warmup only picks between diag_blocks and 1 block, so with
-        # diag_blocks == 1 it changes nothing (the JAX package accepts it)
-        if diag_blocks != 1:
-            _not_ported("diag_blocks > 1", "4")
         if eigen_dtype != torch.float32:
             _not_ported("eigen_dtype other than float32", "4")
-        if track_diagnostics:
-            _not_ported("track_diagnostics", "4")
         if precond_precision is not None:
             _not_ported("precond_precision (the port is float32 throughout)", "4")
         if service_devices != 0:
             _not_ported("service_devices (curvature service)", "9")
         if profile is not None or profile_shapes is not None:
             _not_ported("profile= (planner)", "9")
+        if diag_blocks != 1:
+            print(
+                "WARNING: the block-diagonal factor approximation "
+                "(diag_blocks > 1) trades accuracy for parallelism — expect "
+                "degraded convergence on some models"
+            )
+        if precond_method == "inverse" and diag_blocks != 1:
+            raise ValueError(
+                "diag_blocks > 1 (and its diag_warmup schedule) is a feature "
+                "of the eigenbasis path; precond_method='inverse' inverts "
+                "whole factors and would silently ignore the configured "
+                "block-diagonal approximation"
+            )
+        if precond_method == "inverse" and apply_kernel == "kernel":
+            raise ValueError(
+                "apply_kernel='kernel' launches the fused eigenbasis apply; "
+                "precond_method='inverse' preconditions with explicit "
+                "Cholesky inverses, which that kernel does not compute — use "
+                "apply_kernel='auto' or 'dense'"
+            )
 
         self.device = resolve_device(device)
         use_ieee_f32()
         self.factor_decay = factor_decay
         self.batch_averaged = batch_averaged
+        self.diag_blocks = diag_blocks
         self.diag_warmup = diag_warmup
+        self.precond_method = precond_method
+        # the inverse method keeps no eigenvalues: its diagnostics carry
+        # the spectrum entries forward and refresh only the every-step ones
+        self.track_diagnostics = track_diagnostics
         self.eps = eps
         self.layers = list(layers) if layers is not None else None
         # "auto": the CUDA kernels for CUDA tensors, their plain versions for
@@ -184,9 +207,20 @@ class KFAC:
         self.factor_kernel = factor_kernel_ops.resolve_factor_kernel(
             factor_kernel, self.device
         )
+        # the inverse method's 2-matmul apply has no eigenbasis stage for
+        # the fused kernel (kernel 3) to cover, so "auto" takes the dense
+        # apply (and the per-leaf SGD), as the JAX package degrades its
+        # Pallas apply; "kernel" was refused above
         self.apply_kernel = apply_kernel_ops.resolve_apply_kernel(
             apply_kernel, self.device
         )
+        if precond_method == "inverse" and self.apply_kernel == "auto":
+            print(
+                "WARNING: apply_kernel='auto' fuses the eigenbasis apply; "
+                "precond_method='inverse' preconditions with explicit "
+                "Cholesky inverses — falling back to the dense apply path"
+            )
+            self.apply_kernel = "dense"
         self.hparams = KFACHParams(
             damping=damping,
             kl_clip=kl_clip,
@@ -241,27 +275,45 @@ class KFAC:
         return facs
 
     def init(self, model: nn.Module) -> KFACState:
-        """Identity factors + zero eigen state; same-shape groups pre-stacked."""
+        """Identity factors + zero eigen (or inverse) state, same-shape groups
+        pre-stacked; the zeroed diagnostics with ``track_diagnostics``."""
         facs = self._identity_factors(model)
 
-        def z(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=self.device)
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
+        inverse = self.precond_method == "inverse"
         eigen = {}
         for name, f in facs.items():
+            g_side = f["G"].shape[0]
             if "A_diag" in f:
-                g_side = f["G"].shape[0]
-                eigen[name] = {
-                    "dA": z(f["A_diag"].shape[0]), "QG": z(g_side, g_side), "dG": z(g_side),
-                }
+                vocab = f["A_diag"].shape[0]
+                eigen[name] = (
+                    {"iA_diag": z(vocab), "iG": z(g_side, g_side)} if inverse
+                    else {"dA": z(vocab), "QG": z(g_side, g_side), "dG": z(g_side)}
+                )
                 continue
-            a_side, g_side = f["A"].shape[0], f["G"].shape[0]
-            eigen[name] = {
-                "QA": z(a_side, a_side), "dA": z(a_side),
-                "QG": z(g_side, g_side), "dG": z(g_side),
+            a_side = f["A"].shape[0]
+            eigen[name] = (
+                {"iA": z(a_side, a_side), "iG": z(g_side, g_side)} if inverse
+                else {"QA": z(a_side, a_side), "dA": z(a_side),
+                      "QG": z(g_side, g_side), "dG": z(g_side)}
+            )
+        split = precond_ops.split_inv_state if inverse else precond_ops.split_eigen_state
+        singles, stacked = split(eigen)
+        state = {"step": 0, "factors": facs, "eigen": singles, "eigen_stacked": stacked}
+        if self.track_diagnostics:
+            state["diagnostics"] = {
+                "nu": torch.ones((), dtype=torch.float32, device=self.device),
+                "min_damped_eig": z(),
+                "max_damped_eig": z(),
+                "grad_norm": z(),
+                "update_norm": z(),
+                "update_grad_cos": z(),
+                "eigen_stale_steps": z(dtype=torch.int32),
+                "layer_cond": {name: {"cond_A": z(), "cond_G": z()} for name in facs},
             }
-        singles, stacked = precond_ops.split_eigen_state(eigen)
-        return {"step": 0, "factors": facs, "eigen": singles, "eigen_stacked": stacked}
+        return state
 
     # ------------------------------------------------------------------
     # Update
@@ -278,9 +330,14 @@ class KFAC:
         damping=None,
         update_factors: bool,
         update_eigen: bool,
+        diag_warmup_done: bool = True,
     ) -> Tuple[Dict[str, torch.Tensor], KFACState]:
-        """One K-FAC step: factor EMA (capture steps), eigen refresh
-        (``update_eigen``), precondition + KL clip (every step)."""
+        """One K-FAC step: factor EMA (capture steps), curvature refresh
+        (``update_eigen``), precondition + KL clip (every step).
+
+        ``diag_warmup_done`` (``kfac_flags_for_step``: ``epoch >=
+        diag_warmup``) lets a refresh split conv factors into
+        ``diag_blocks`` blocks; before it, every factor is one block."""
         if lr is None:
             raise ValueError(
                 "KFAC.update() requires lr= (the KL clip scales with the "
@@ -315,17 +372,31 @@ class KFAC:
                     ),
                 }
         eigen, stacked = state["eigen"], state["eigen_stacked"]
-        if update_eigen:
-            eigen = replicated_eigen_update(facs, {n: 1 for n in names}, self.eps)
+        # per-layer (dA, dG) of an eigen refresh, for the diagnostics
+        fresh_spectra = None
+        if update_eigen and self.precond_method == "inverse":
+            inv = precond_ops.factored_inverse_all(facs, damping, self.eps)
+            eigen, stacked = precond_ops.split_inv_state(inv)
+        elif update_eigen:
+            diag_blocks = self.diag_blocks if diag_warmup_done else 1
+            # blocks split conv factors only (a conv weight is OIHW)
+            blocks = {
+                n: diag_blocks
+                if grads[f"{capture.split_group_name(n)[0]}.weight"].dim() == 4 else 1
+                for n in names
+            }
+            eigen = replicated_eigen_update(facs, blocks, self.eps)
             # diagonal A: the eigenvectors are the identity, so no eigh — the
             # eigenvalues are the diagonal under the reference's floor
             for name in names:
                 if "A_diag" in facs[name]:
                     d = facs[name]["A_diag"]
                     eigen[name]["dA"] = d * (d > self.eps)
+            if self.track_diagnostics:
+                fresh_spectra = {n: (eigen[n]["dA"], eigen[n]["dG"]) for n in names}
             eigen, stacked = precond_ops.split_eigen_state(eigen)
 
-        new_grads, _, _, _ = self._precondition_replicated(
+        new_grads, gmats, updates, nu = self._precondition_replicated(
             grads, names, eigen, stacked, lr, damping
         )
         new_state = {
@@ -334,6 +405,11 @@ class KFAC:
             "eigen": eigen,
             "eigen_stacked": stacked,
         }
+        if self.track_diagnostics:
+            new_state["diagnostics"] = self._diagnostics(
+                state["diagnostics"], fresh_spectra, gmats, updates, nu, damping,
+                update_eigen,
+            )
         return new_grads, new_state
 
     def _precondition_replicated(self, grads, names, eigen, stacked, lr, damping):
@@ -342,11 +418,66 @@ class KFAC:
         embeddings = precond_ops.diag_a_names(eigen)
         lgrads = capture.layer_grads(grads, names, embeddings)
         gmats = {n: m.float() for n, m in capture.grad_mats(lgrads).items()}
-        updates, vg_terms = precond_ops.precondition_all_with_vg(
-            gmats, eigen, damping, stacked=stacked, kind=self.apply_kernel
-        )
+        if self.precond_method == "inverse":
+            updates = precond_ops.precondition_all_inv(gmats, eigen, stacked=stacked)
+            vg_terms = None
+        else:
+            updates, vg_terms = precond_ops.precondition_all_with_vg(
+                gmats, eigen, damping, stacked=stacked, kind=self.apply_kernel
+            )
         if vg_terms is not None:
             nu = precond_ops.kl_clip_from_vg(vg_terms, lr, self.hparams.kl_clip)
         else:
             nu = precond_ops.kl_clip_coefficient(updates, gmats, lr, self.hparams.kl_clip)
         return capture.write_back(grads, updates, nu, embeddings), gmats, updates, nu
+
+    def _diagnostics(self, prev, fresh_spectra, gmats, updates, nu, damping, update_eigen):
+        """The next diagnostics state (the structure of :meth:`init`'s).
+
+        The spectrum entries (min/max damped eigenvalue, per-layer damped
+        condition numbers) refresh from ``fresh_spectra`` (an eigen-method
+        refresh) and carry forward otherwise; the norms, the update/gradient
+        cosine and the staleness count are computed every step. Device
+        tensors throughout: nothing is read back to the host.
+        """
+        lam = float(np.float32(damping))
+        min_eig, max_eig = prev["min_damped_eig"], prev["max_damped_eig"]
+        layer_cond = prev["layer_cond"]
+        if fresh_spectra is not None:
+            mins, maxs, layer_cond = [], [], {}
+            for n, (da, dg) in fresh_spectra.items():
+                da_mn, da_mx = torch.aminmax(da.float())
+                dg_mn, dg_mx = torch.aminmax(dg.float())
+                # the eigenvalues of G ⊗ A are products of the factors'
+                # (floored ≥ 0); λ on both ends of a condition number bounds
+                # it as the damped solve does
+                mins.append(dg_mn * da_mn)
+                maxs.append(dg_mx * da_mx)
+                layer_cond[n] = {
+                    "cond_A": (da_mx + lam) / (da_mn + lam),
+                    "cond_G": (dg_mx + lam) / (dg_mn + lam),
+                }
+            min_eig = torch.min(torch.stack(mins)) + lam
+            max_eig = torch.max(torch.stack(maxs)) + lam
+        sq_g = sq_v = dot = torch.zeros((), dtype=torch.float32, device=self.device)
+        for name, v in updates.items():
+            g, v = gmats[name].float(), v.float()
+            sq_g = sq_g + torch.sum(g * g)
+            sq_v = sq_v + torch.sum(v * v)
+            dot = dot + torch.sum(v * g)
+        grad_norm, upd_norm = torch.sqrt(sq_g), torch.sqrt(sq_v)
+        cos = dot / torch.clamp(grad_norm * upd_norm, min=1e-30)
+        return {
+            "nu": nu,
+            "min_damped_eig": min_eig,
+            "max_damped_eig": max_eig,
+            "grad_norm": grad_norm,
+            "update_norm": nu * upd_norm,
+            "update_grad_cos": cos,
+            # steps since the curvature (eigenbasis or inverses) was recomputed
+            "eigen_stale_steps": (
+                torch.zeros_like(prev["eigen_stale_steps"]) if update_eigen
+                else prev["eigen_stale_steps"] + 1
+            ),
+            "layer_cond": layer_cond,
+        }

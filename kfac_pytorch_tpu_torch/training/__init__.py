@@ -1,1 +1,2 @@
-"""Train step, schedules and synthetic data for the port's trainers."""
+"""Train step, evaluation, schedules, data, metrics and checkpoints for the
+port's trainers."""

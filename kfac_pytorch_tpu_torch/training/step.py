@@ -1,8 +1,9 @@
-"""The train step: forward → CE loss → backward → K-FAC → SGD.
+"""The train step: forward → CE loss → backward → K-FAC → SGD, and evaluation.
 
-Port of ``kfac_pytorch_tpu/training/step.py`` for one device without
-gradient accumulation (``make_train_step`` with global-norm clipping,
-``make_eval_step``, ``make_sgd``, ``softmax_cross_entropy``,
+Port of ``kfac_pytorch_tpu/training/step.py`` for one device
+(``make_train_step`` with gradient accumulation and global-norm clipping,
+``make_eval_step``, ``make_masked_eval_step``, ``make_bn_recal_step``,
+``make_sgd``, ``per_sample_cross_entropy``, ``softmax_cross_entropy``,
 ``clip_by_global_norm``, ``kfac_flags_for_step``). PyTorch runs eagerly,
 so the JAX package's compiled step variants become plain keyword flags;
 the statistics capture is ``capture.Capture``'s hooks, open only on
@@ -26,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch.capture import Capture
+from kfac_pytorch_tpu_torch.observability.diagnostics import diagnostic_metrics
 from kfac_pytorch_tpu_torch.ops import apply_kernels
 from kfac_pytorch_tpu_torch.preconditioner import KFAC
 
@@ -63,6 +65,19 @@ class SGD:
 
 def make_sgd(momentum: float = 0.9, weight_decay: float = 0.0) -> SGD:
     return SGD(momentum, weight_decay)
+
+
+def per_sample_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0
+) -> torch.Tensor:
+    """CE with optional label smoothing per sample: shape ``logits.shape[:-1]``."""
+    ce = F.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]),
+        labels.long().reshape(-1),
+        label_smoothing=label_smoothing,
+        reduction="none",
+    )
+    return ce.reshape(logits.shape[:-1])
 
 
 def softmax_cross_entropy(
@@ -103,9 +118,11 @@ def make_train_step(
     sgd_hyper: Optional[Tuple[float, float]] = None,
     grad_clip: float = 0.0,
     label_smoothing: float = 0.0,
+    accum_steps: int = 1,
+    stats_all_microbatches: bool = False,
 ) -> Callable:
     """Build ``step_fn(state, batch, lr, damping, update_factors=...,
-    update_eigen=...) -> (state, metrics)``.
+    update_eigen=..., diag_warmup_done=...) -> (state, metrics)``.
 
     The loss is the mean CE with ``label_smoothing`` (the ImageNet recipe's
     0.1), as the JAX step computes it.
@@ -118,7 +135,23 @@ def make_train_step(
     optimizer step then runs through the fused SGD kernel wrapper (unless
     ``apply_kernel="dense"``). ``kfac=None`` is the plain-SGD baseline
     (``--kfac-update-freq 0``).
+
+    ``accum_steps > 1`` is gradient accumulation (``--batches-per-allreduce``):
+    the batch arrives as ``[accum_steps, microbatch, ...]``, each microbatch
+    takes a forward and a backward of its own mean loss in order (so the
+    BatchNorm running statistics thread through them), and the gradients,
+    the loss and the accuracy are averaged over the microbatches. K-FAC
+    statistics come from the last microbatch, or with
+    ``stats_all_microbatches`` from every one, averaged. Either way the
+    hooks see the gradients of the unscaled microbatch loss, as in the JAX
+    package (the reference's ``loss / accum`` would shrink G by
+    ``accum_steps²``).
+
+    With ``kfac.track_diagnostics`` the metrics also carry the ``kfac_*``
+    diagnostics (``observability/diagnostics.py``), as device tensors.
     """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     if sgd_hyper is not None and (
         sgd_hyper[0] != tx.momentum or sgd_hyper[1] != tx.weight_decay
     ):
@@ -133,6 +166,19 @@ def make_train_step(
     # and kept while it holds (apply_kernels.dispatch_sgd_apply)
     sgd_plans: Dict[str, Any] = {}
 
+    def forward_backward(images, labels, capture_stats: bool):
+        ctx = (
+            capture.capturing(kfac.factor_kernel)
+            if capture_stats
+            else contextlib.nullcontext()
+        )
+        with ctx:
+            logits = model(images)
+            loss = softmax_cross_entropy(logits, labels, label_smoothing)
+            loss.backward()
+        with torch.no_grad():
+            return loss.detach(), accuracy(logits, labels)
+
     def train_step(
         state: TrainState,
         batch: Tuple[torch.Tensor, torch.Tensor],
@@ -143,25 +189,42 @@ def make_train_step(
         update_eigen: bool = False,
         diag_warmup_done: bool = True,
     ):
-        # diag_warmup_done gates diag_blocks > 1, which is not ported (KFAC
-        # refuses it), so it changes nothing here; it is accepted so the
-        # flags of kfac_flags_for_step pass through as in the JAX package.
-        del diag_warmup_done
         images, labels = batch
         model.train()
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         capture_stats = kfac is not None and update_factors
-        ctx = (
-            capture.capturing(kfac.factor_kernel)
-            if capture_stats
-            else contextlib.nullcontext()
-        )
-        with ctx:
-            logits = model(images)
-            loss = softmax_cross_entropy(logits, labels, label_smoothing)
-            loss.backward()
+        a_c = g_s = None
+        if accum_steps == 1:
+            loss, acc = forward_backward(images, labels, capture_stats)
+        else:
+            if images.shape[0] != accum_steps or labels.shape[0] != accum_steps:
+                raise ValueError(
+                    f"an accumulation step takes [{accum_steps}, microbatch, ...] "
+                    f"batches, got images {tuple(images.shape)} and labels "
+                    f"{tuple(labels.shape)}"
+                )
+            every = capture_stats and stats_all_microbatches
+            for i in range(accum_steps):
+                last = i == accum_steps - 1
+                l_i, acc_i = forward_backward(
+                    images[i], labels[i], every or (capture_stats and last)
+                )
+                loss, acc = (l_i, acc_i) if i == 0 else (loss + l_i, acc + acc_i)
+                if every:
+                    a_c = _add_stats(a_c, capture.a_contribs)
+                    g_s = _add_stats(g_s, capture.g_factor_stats)
+            inv = 1.0 / accum_steps
+            loss, acc = loss * inv, acc * inv
+            if every:
+                a_c = {n: a * inv for n, a in a_c.items()}
+                g_s = {n: g * inv for n, g in g_s.items()}
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+        if capture_stats and a_c is None:
+            a_c, g_s = capture.a_contribs, capture.g_factor_stats
         grads = {
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in params.items()
@@ -173,12 +236,13 @@ def make_train_step(
             grads, kfac_state = kfac.update(
                 grads,
                 kfac_state,
-                a_contribs=capture.a_contribs if capture_stats else None,
-                g_factor_stats=capture.g_factor_stats if capture_stats else None,
+                a_contribs=a_c,
+                g_factor_stats=g_s,
                 lr=lr,
                 damping=damping,
                 update_factors=update_factors,
                 update_eigen=update_eigen,
+                diag_warmup_done=diag_warmup_done,
             )
         fused = None
         if sgd_hyper is not None and kfac is not None:
@@ -188,8 +252,9 @@ def make_train_step(
             )
         if fused is None:
             tx.apply(params, grads, state.opt_state, lr)
-        with torch.no_grad():
-            metrics = {"loss": loss.detach(), "accuracy": accuracy(logits, labels)}
+        metrics = {"loss": loss, "accuracy": acc}
+        if kfac is not None and kfac.track_diagnostics:
+            metrics.update(diagnostic_metrics(kfac_state["diagnostics"]))
         new_state = TrainState(
             step=state.step + 1,
             model=model,
@@ -199,6 +264,33 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def _add_stats(total, stats):
+    """``total + stats`` per layer (``stats`` when ``total`` is None): one
+    microbatch's statistics into the running sum."""
+    if total is None:
+        return dict(stats)
+    return {n: total[n] + s for n, s in stats.items()}
+
+
+def make_bn_recal_step(model: nn.Module) -> Callable:
+    """``recal(state, images) -> state``: one train-mode forward without
+    gradients that moves only the BatchNorm running statistics.
+
+    At a high learning rate the last steps of an epoch move the network
+    faster than the running averages (momentum 0.9, a ~10-batch window)
+    follow, so evaluation, which normalizes with them, dips; a few of these
+    forwards before evaluation re-center them on the current weights.
+    """
+
+    def recal(state: TrainState, images: torch.Tensor) -> TrainState:
+        model.train()
+        with torch.no_grad():
+            model(images)
+        return state
+
+    return recal
 
 
 def make_eval_step(model: nn.Module, label_smoothing: float = 0.0) -> Callable:
@@ -214,6 +306,29 @@ def make_eval_step(model: nn.Module, label_smoothing: float = 0.0) -> Callable:
             return {
                 "loss": softmax_cross_entropy(logits, labels, label_smoothing),
                 "accuracy": accuracy(logits, labels),
+            }
+
+    return eval_step
+
+
+def make_masked_eval_step(model: nn.Module, label_smoothing: float = 0.0) -> Callable:
+    """``eval_step(state, (images, labels, mask)) -> {'loss_sum', 'correct',
+    'count'}``: sums over the samples whose mask is 1 (``data.eval_batches``
+    pads the ragged tail with mask 0), so sums over every batch of a split
+    evaluate the whole split. Device tensors: the caller reads them once."""
+
+    def eval_step(state: TrainState, batch):
+        del state  # the model holds the parameters
+        images, labels, mask = batch
+        model.eval()
+        with torch.no_grad():
+            logits = model(images)
+            ce = per_sample_cross_entropy(logits, labels, label_smoothing)
+            correct = (logits.argmax(dim=-1) == labels).float()
+            return {
+                "loss_sum": torch.sum(ce * mask),
+                "correct": torch.sum(correct * mask),
+                "count": torch.sum(mask),
             }
 
     return eval_step

@@ -620,3 +620,111 @@ def test_lm_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tflash.flash_forward(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="contiguous last dimension"):
         tflash.flash_forward(q, q, q.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+# ------------------------------------- the CIFAR path's options on the card
+
+
+def _resnet20(device, seed=0):
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+
+    return cifar_resnet.get_model(
+        "resnet20", generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+def _spd_t(r, n, device):
+    m = r.randn(n, 2 * n).astype(np.float32)
+    return torch.from_numpy(m @ m.T / (2 * n)).to(device)
+
+
+@pytest.mark.cuda
+def test_inverse_method_runs_kernel_1_and_not_3_or_4(cuda_device):
+    from kfac_pytorch_tpu_torch import KFAC, capture
+    from kfac_pytorch_tpu_torch.training.step import (
+        TrainState, kfac_flags_for_step, make_sgd, make_train_step)
+
+    with pytest.raises(ValueError, match="Cholesky inverses"):
+        KFAC(precond_method="inverse", apply_kernel="kernel", device=cuda_device)
+    model = _resnet20(cuda_device)
+    kfac = KFAC(layers=capture.discover_layers(model), precond_method="inverse",
+                fac_update_freq=1, kfac_update_freq=2, damping=0.003, device=cuda_device)
+    assert kfac.apply_kernel == "dense" and kfac.factor_kernel == "auto"
+    tx = make_sgd(0.9, 5e-4)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                       kfac_state=kfac.init(model))
+    step_fn = make_train_step(model, tx, kfac, sgd_hyper=(0.9, 5e-4))
+    counted = (tfk.compute_a_conv_fused, tapply.fused_precondition_stack, tapply.fused_sgd_apply)
+    for fn in counted:
+        fn.launches = 0
+    r = np.random.RandomState(90)
+    losses = []
+    for i in range(3):
+        x = torch.from_numpy(r.randn(16, 3, 32, 32).astype(np.float32)).to(cuda_device)
+        y = torch.from_numpy(r.randint(0, 10, 16)).to(cuda_device)
+        state, m = step_fn(state, (x, y), 0.1, 0.003, **kfac_flags_for_step(i, kfac))
+        losses.append(float(m["loss"]))
+    convs = sum(1 for n in kfac.layers if n != "linear")
+    assert [fn.launches for fn in counted] == [3 * convs, 0, 0]
+    assert all(np.isfinite(losses))
+
+
+@pytest.mark.cuda
+def test_blocked_refresh_feeds_the_apply_kernel(cuda_device):
+    """``diag_blocks=4``: the refresh's block-diagonal Q goes into kernel 3
+    as it is, and the kernel matches the dense apply (1e-4, as above)."""
+    from kfac_pytorch_tpu_torch import KFAC, capture
+
+    model = _resnet20(cuda_device)
+    names = capture.discover_layers(model)
+    r = np.random.RandomState(91)
+    kfacs = {kind: KFAC(layers=names, diag_blocks=4, damping=0.003, apply_kernel=kind,
+                        device=cuda_device) for kind in ("kernel", "dense")}
+    facs = kfacs["dense"]._identity_factors(model)
+    a_c = {n: _spd_t(r, f["A"].shape[0], cuda_device) for n, f in facs.items()}
+    g_s = {n: _spd_t(r, f["G"].shape[0], cuda_device) for n, f in facs.items()}
+    grads = {n: torch.from_numpy(r.randn(*p.shape).astype(np.float32)).to(cuda_device)
+             for n, p in model.named_parameters()}
+    tapply.fused_precondition_stack.launches = 0
+    out = {}
+    for kind, kfac in kfacs.items():
+        out[kind], state = kfac.update(
+            grads, kfac.init(model), a_contribs=a_c, g_factor_stats=g_s, lr=0.1,
+            damping=0.003, update_factors=True, update_eigen=True)
+    groups = len(state["eigen_stacked"]) + len(state["eigen"])
+    assert tapply.fused_precondition_stack.launches == groups
+    qa = state["eigen_stacked"]["16x144"]["QA"]  # 144 = 4 blocks of 36
+    assert not qa[:, :36, 36:].any() and qa[:, :36, :36].any()
+    assert state["eigen"]["linear"]["QA"][:16, 16:].any()  # dense layers: one block
+    for n in grads:
+        _close_scaled(out["kernel"][n], out["dense"][n], 1e-4)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_keeps_the_sgd_plan(cuda_device, tmp_path):
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd
+
+    model = _resnet20(cuda_device)
+    params = {n: p for n, p in model.named_parameters()}
+    opt = make_sgd(0.9, 5e-4).init(params)
+    r = np.random.RandomState(92)
+    grads = {n: torch.from_numpy(r.randn(*p.shape).astype(np.float32)).to(cuda_device)
+             for n, p in params.items()}
+    plans = {}
+    tapply.dispatch_sgd_apply(params, grads, opt, 0.1, 0.9, 5e-4, kind="auto", plans=plans)
+    plan = plans["plan"]
+    state = TrainState(step=1, model=model, opt_state=opt)
+    ckpt.save_checkpoint(str(tmp_path), 0, state)
+    saved_p = [p.detach().clone() for p in params.values()]
+    saved_m = [m.clone() for m in opt.values()]
+    tapply.dispatch_sgd_apply(params, grads, opt, 0.1, 0.9, 5e-4, kind="auto", plans=plans)
+    restored = ckpt.restore_checkpoint(str(tmp_path), 0, state)
+    assert restored.opt_state is opt and not plan.stale
+    for a, b in zip(list(params.values()) + list(opt.values()), saved_p + saved_m):
+        assert torch.equal(a.detach(), b)
+    want_p, want_m = [p.clone() for p in saved_p], [m.clone() for m in saved_m]
+    tapply.fused_sgd_apply_plain(want_p, list(grads.values()), want_m, 0.1, 0.9, 5e-4)
+    tapply.dispatch_sgd_apply(params, grads, opt, 0.1, 0.9, 5e-4, kind="auto", plans=plans)
+    assert plans["plan"] is plan  # kept: the restore copied into its storages
+    for a, b in zip(list(params.values()) + list(opt.values()), want_p + want_m):
+        assert torch.equal(a.detach(), b)

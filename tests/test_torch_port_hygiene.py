@@ -7,10 +7,13 @@
   ship every CUDA source and header `ops/kernel_build.py` compiles, and
   ``setup_torch.py`` requires nothing of JAX.
 * The trainer twin runs a few steps of a small ResNet on the CPU when
-  asked to (``--device cpu``), with K-FAC on and off.
+  asked to (``--device cpu``), with K-FAC on and off, and on the learnable
+  stand-in when no CIFAR-10 is found; every flag of the JAX CIFAR trainer
+  either parses in the twin or is refused naming its ROADMAP item.
 """
 
 import ast
+import functools
 import math
 import os
 import shutil
@@ -125,8 +128,60 @@ def test_trainer_runs_on_cpu(kfac_freq):
     assert hist["kind"] == want
 
 
-def test_trainer_refuses_real_data_for_now():
+def test_trainer_without_data_uses_the_stand_in(monkeypatch, capsys):
+    """No ``--synthetic`` and no CIFAR-10 in ``--data-dir``: the twin trains
+    on the learnable stand-in (made smaller here) and evaluates its whole
+    validation split, as the JAX trainer does; next to real data the
+    stand-in's flags are refused (``test_torch_port_data.py`` covers the
+    loader and the run on data)."""
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.training import data
+
+    small = functools.partial(data.synthetic_cifar_like, n_train=16, n_test=10)
+    monkeypatch.setattr(trainer.data_lib, "synthetic_cifar_like", small)
+    hist = trainer.main([
+        "--data-dir", os.path.join(REPO, "no-such-dir"), "--model", "resnet20",
+        "--batch-size", "8", "--val-batch-size", "4", "--epochs", "1", "--device", "cpu",
+        "--synth-prototypes", "2",
+    ])
+    out = capsys.readouterr().out
+    assert "synthetic-learnable stand-in" in out and "16 train / 10 val" in out
+    assert len(hist["loss"]) == 2 and hist["val_count"] == [10]
+    args = trainer.parse_args(["--synth-noise", "0.3"])
+    monkeypatch.setattr(trainer.data_lib, "find_cifar10", lambda d: "/cifar")
+    with pytest.raises(SystemExit, match="--synth-noise only apply to the learnable stand-in"):
+        trainer.load_data(args)
+
+
+def _jax_trainer_flags():
+    """Every ``--flag`` the JAX CIFAR trainer's parser declares (read from its
+    source: importing it would import JAX)."""
+    tree = ast.parse(open(os.path.join(REPO, "examples", "train_cifar10_resnet.py")).read())
+    return [
+        node.args[0].value for node in ast.walk(tree)
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument"
+        and node.args and isinstance(node.args[0], ast.Constant)
+    ]
+
+
+def test_every_jax_trainer_flag_parses_or_names_its_item():
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    with pytest.raises(SystemExit, match="synthetic"):
-        trainer.main(["--device", "cpu"])
+    jax_flags = _jax_trainer_flags()
+    assert len(jax_flags) > 50
+    ported = set(trainer.build_parser()._option_string_actions)
+    later = {flag: (kind, item) for flag, kind, _, item in trainer._LATER_FLAGS}
+    assert set(later) <= set(jax_flags)
+    for flag in jax_flags:
+        assert flag in ported, f"{flag} is neither ported nor refused"
+        if flag not in later:
+            continue
+        kind, item = later[flag]
+        value = [] if kind is None else [{str: "x", int: "7", float: "0.5"}[kind]]
+        with pytest.raises(SystemExit, match=f"queue 1 item {item.split()[0]} "):
+            trainer.parse_args([flag, *value])
+    args = trainer.parse_args(["--precond-method", "inverse", "--diag-blocks", "4",
+                               "--diag-warmup", "1", "--batches-per-allreduce", "2",
+                               "--stats-all-microbatches", "--kfac-diagnostics",
+                               "--label-smoothing", "0.1", "--kfac-update-freq-schedule", "3"])
+    assert (args.precond_method, args.diag_blocks, args.batches_per_allreduce) == ("inverse", 4, 2)

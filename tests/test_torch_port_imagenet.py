@@ -289,27 +289,36 @@ def test_trainer_refuses_unported_flags(flag, item):
 
 
 def test_trainer_refuses_real_data_and_diag_blocks(tiny_in_the_zoo):
+    """Real ImageNet data is refused (queue 1 item 5). ``--diag-blocks > 1``
+    was refused too until the block-diagonal refresh was ported; now the
+    twin trains with it, one block in the ``--diag-warmup`` epoch, then
+    two."""
     from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as trainer
 
     with pytest.raises(SystemExit, match="queue 1 item 5"):
         trainer.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        trainer.main(["--synthetic", "--model", "tiny_resnext", "--device", "cpu",
-                      "--diag-blocks", "2"])
+    hist = trainer.main([
+        "--synthetic", "--model", "tiny_resnext", "--image-size", "32", "--batch-size", "2",
+        "--epochs", "2", "--steps-per-epoch", "2", "--device", "cpu", "--kfac-update-freq", "2",
+        "--diag-blocks", "2", "--diag-warmup", "1",
+    ])
+    assert hist["kind"] == ["refresh", "capture"] * 2
+    assert all(math.isfinite(v) for v in hist["loss"])
 
 
 def test_diag_warmup_with_one_block_changes_nothing():
     """``diag_warmup`` picks between ``diag_blocks`` and 1 block, so with one
-    block the steps are bitwise those of ``diag_warmup=0``."""
+    block the steps are bitwise those of ``diag_warmup=0``, and so are those
+    of ``diag_blocks=2`` while its warm-up lasts."""
     r = np.random.RandomState(143)
     batches = [(_nchw(r.randn(2, 32, 32, 3).astype(np.float32)),
                 torch.from_numpy(r.randint(0, CLASSES, size=2)))
                for _ in range(3)]
     runs = []
-    for warmup in (0, 5):
+    for blocks, warmup in ((1, 0), (1, 5), (2, 5)):
         torch.manual_seed(144)
         model = _port_tiny()
-        kfac = KFAC(layers=capture.discover_layers(model), diag_blocks=1,
+        kfac = KFAC(layers=capture.discover_layers(model), diag_blocks=blocks,
                     diag_warmup=warmup, device="cpu", **HP)
         tx = make_sgd(MOMENTUM, WD)
         state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
@@ -321,6 +330,4 @@ def test_diag_warmup_with_one_block_changes_nothing():
             state, _ = step(state, batch, LR, HP["damping"], **flags)
         runs.append(model.state_dict())
     for key, v in runs[0].items():
-        assert torch.equal(v, runs[1][key]), key
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        KFAC(diag_blocks=2, device="cpu")
+        assert torch.equal(v, runs[1][key]) and torch.equal(v, runs[2][key]), key

@@ -10,7 +10,8 @@
   ``test_scheduler_parity``;
 * the capture hooks against the factor functions they call;
 * device rules: no GPU and no ``device=`` raises; ``"kernel"`` on the CPU
-  raises; levers of later slices raise ``NotImplementedError``.
+  raises; levers of later slices raise ``NotImplementedError``; the inverse
+  method refuses ``diag_blocks > 1`` and the fused apply kernel.
 
 Tolerances: eigenvectors differ between LAPACK builds (sign, near-degenerate
 subspaces), but ``(G⊗A + λI)⁻¹g`` does not; with λ = 0.003 rounding is
@@ -296,9 +297,8 @@ def test_kernel_kind_on_cpu_raises():
         ({"solver": "rsvd"}, "7"),
         ({"factor_sharding": "owner"}, "7"),
         ({"comm_overlap": True}, "7"),
-        ({"precond_method": "inverse"}, "4"),
-        ({"diag_blocks": 2}, "4"),
-        ({"track_diagnostics": True}, "4"),
+        ({"eigen_dtype": torch.bfloat16}, "4"),
+        ({"precond_precision": "highest"}, "4"),
         ({"service_devices": 1}, "9"),
         ({"profile": "production"}, "9"),
     ],
@@ -306,6 +306,21 @@ def test_kernel_kind_on_cpu_raises():
 def test_levers_of_later_slices_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         KFAC(device="cpu", **kwargs)
+
+
+def test_inverse_method_refuses_blocks_and_the_apply_kernel(capsys):
+    """The inverse method inverts whole factors: ``diag_blocks > 1`` is
+    refused as in the JAX package; the fused apply kernel covers only the
+    eigenbasis apply, so ``"kernel"`` is refused and ``"auto"`` takes the
+    dense apply with the JAX package's warning."""
+    with pytest.raises(ValueError, match="diag_blocks > 1"):
+        KFAC(precond_method="inverse", diag_blocks=2, device="cpu")
+    with pytest.raises(ValueError, match="Cholesky inverses"):
+        KFAC(precond_method="inverse", apply_kernel="kernel", device="cpu")
+    capsys.readouterr()
+    assert KFAC(precond_method="inverse", device="cpu").apply_kernel == "dense"
+    assert "falling back to the dense apply path" in capsys.readouterr().out
+    assert KFAC(diag_blocks=4, diag_warmup=2, device="cpu").diag_blocks == 4
 
 
 @pytest.mark.parametrize(

@@ -1,0 +1,225 @@
+"""The port's numerical options against the JAX package, on the CPU.
+
+* ``factored_inverse_all`` and ``precondition_all_inv`` (the inverse
+  method) on a stacked pair, a singleton and a diagonal-A (embedding)
+  layer, at the JAX package's own ``rtol=1e-4, atol=1e-5``;
+* the refresh's blocked slots against JAX's ``blocked_eigh``: eigenvalues
+  at 1e-5, the block-diagonal Q and its reconstruction;
+* the inverse method's diagnostics (no spectra);
+* 4 ResNet-20 train steps each for the inverse method and ``diag_blocks=2``
+  with a ``diag_warmup`` change between the two refreshes (steps 0 and 2)
+  (``run_option_train_steps``, which ``tests/test_torch_port_accum.py``
+  also runs for gradient accumulation), the diagnostics on, at
+  ``tests/test_torch_port_train.py``'s bounds (loss 1e-5 relative, every
+  tensor ``2e-5·max|jax| + 1e-6``); the ``kfac_*`` diagnostics of each step
+  to 1e-3 relative (condition numbers and ν carry the damped solve's
+  rounding amplification, up to 1/λ).
+
+The JAX side runs as its own tests run it (dense kernel scopes on the CPU);
+the port's side takes its ``"auto"`` routes (the plain versions on CPU
+tensors; the inverse method takes the dense apply).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kfac_pytorch_tpu import KFAC as JKFAC
+from kfac_pytorch_tpu import capture as jcapture
+from kfac_pytorch_tpu.ops import eigh as jeigh
+from kfac_pytorch_tpu.ops import precondition as jpc
+from kfac_pytorch_tpu.training.step import TrainState as JTrainState
+from kfac_pytorch_tpu.training.step import kfac_flags_for_step as jflags
+from kfac_pytorch_tpu.training.step import make_sgd as jmake_sgd
+from kfac_pytorch_tpu.training.step import make_train_step as jmake_train_step
+from kfac_pytorch_tpu_torch import KFAC, capture
+from kfac_pytorch_tpu_torch.interop import state_dict_from_jax
+from kfac_pytorch_tpu_torch.models import cifar_resnet
+from kfac_pytorch_tpu_torch.ops import eigh as teigh
+from kfac_pytorch_tpu_torch.ops import precondition as tpc
+from kfac_pytorch_tpu_torch.parallel.sharded_eigh import replicated_eigen_update
+from kfac_pytorch_tpu_torch.training.step import (
+    TrainState,
+    kfac_flags_for_step,
+    make_sgd,
+    make_train_step,
+)
+from tests.test_torch_port_kfac import LAYERS, ConvDenseNet, _problem
+from tests.test_torch_port_train import (
+    ARCH, BATCH, HP, LR, MOMENTUM, WD, _batches, _jax_init, _np_tree,
+)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """PyTorch's CPU work on one thread: its OpenMP workers spin between ops
+    and starve XLA (and the other test workers) of cores; these sizes are tiny."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _spd(r, n):
+    m = r.randn(n, 2 * n).astype(np.float32)
+    return (m @ m.T / (2 * n)).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# ------------------------------------------------------------ inverse ops
+
+
+def test_inverse_ops_match_jax():
+    r = np.random.RandomState(80)
+    facs = {  # a stacked pair, a singleton, a diagonal-A embedding
+        "a": {"A": _spd(r, 6), "G": _spd(r, 4)},
+        "b": {"A": _spd(r, 6), "G": _spd(r, 4)},
+        "c": {"A": _spd(r, 5), "G": _spd(r, 3)},
+        "e": {"A_diag": np.abs(r.randn(7)).astype(np.float32), "G": _spd(r, 4)},
+    }
+    gmats = {"a": r.randn(4, 6), "b": r.randn(4, 6), "c": r.randn(3, 5), "e": r.randn(4, 7)}
+    gmats = {n: g.astype(np.float32) for n, g in gmats.items()}
+    damping = 0.003
+    jinv = jpc.factored_inverse_all(
+        {n: {k: jnp.asarray(v) for k, v in f.items()} for n, f in facs.items()},
+        jnp.float32(damping),
+    )
+    tinv = tpc.factored_inverse_all(
+        {n: {k: _t(v) for k, v in f.items()} for n, f in facs.items()}, damping
+    )
+    for n in facs:
+        assert set(tinv[n]) == set(jinv[n])
+        for k in jinv[n]:
+            np.testing.assert_allclose(tinv[n][k].numpy(), np.asarray(jinv[n][k]),
+                                       rtol=1e-4, atol=1e-5, err_msg=f"{n}.{k}")
+    js, jst = jpc.split_inv_state(jinv)
+    ts, tst = tpc.split_inv_state(tinv)
+    assert list(tst) == list(jst) == ["4x6"] and set(ts) == set(js) == {"c", "e"}
+    jout = jpc.precondition_all_inv({n: jnp.asarray(g) for n, g in gmats.items()}, js,
+                                    stacked=jst)
+    tout = tpc.precondition_all_inv({n: _t(g) for n, g in gmats.items()}, ts, stacked=tst)
+    assert list(tout) == list(jout)  # the KL-clip summation order
+    for n in gmats:
+        np.testing.assert_allclose(tout[n].numpy(), np.asarray(jout[n]), rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------ blocked eigh
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 4])
+def test_blocked_eigh_matches_jax(blocks):
+    """The refresh's blocked slots (one layer, one A side) against JAX's
+    ``blocked_eigh``."""
+    r = np.random.RandomState(81 + blocks)
+    f = _spd(r, 10)
+    jq, jd = (np.asarray(v) for v in jeigh.blocked_eigh(jnp.asarray(f), blocks))
+    eig = replicated_eigen_update({"l": {"A": _t(f), "G": _t(f[:3, :3])}}, {"l": blocks})
+    tq, td = eig["l"]["QA"].numpy(), eig["l"]["dA"].numpy()
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)
+    bounds = [teigh.get_block_boundary(i, blocks, f.shape) for i in range(blocks)]
+    mask = np.zeros_like(f, dtype=bool)
+    for (r0, _), (r1, _) in bounds:
+        mask[r0:r1, r0:r1] = True
+        block = tq[r0:r1, r0:r1]
+        # eigenvectors differ in sign between LAPACK builds; the block does not
+        np.testing.assert_allclose(block @ np.diag(td[r0:r1]) @ block.T,
+                                   f[r0:r1, r0:r1], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(np.abs(block), np.abs(jq[r0:r1, r0:r1]), atol=1e-4)
+    assert not tq[~mask].any()
+
+
+# ------------------------------------------------------------ diagnostics
+
+
+def test_inverse_method_keeps_no_spectra():
+    """The inverse method's diagnostics: the spectrum entries stay at their
+    initial zeros, staleness resets on refreshes, as in the JAX package."""
+    a_c, g_s, _, tgrads = _problem(83)
+    tk = KFAC(layers=list(LAYERS), precond_method="inverse", track_diagnostics=True,
+              device="cpu")
+    ts = tk.init(ConvDenseNet())
+    assert set(ts["eigen"]["c0"]) == {"iA", "iG"} and list(ts["eigen_stacked"]) == ["4x36"]
+    for upe, stale in [(True, 0), (False, 1), (True, 0)]:
+        _, ts = tk.update(tgrads, ts, a_contribs={n: _t(v) for n, v in a_c.items()},
+                          g_factor_stats={n: _t(v) for n, v in g_s.items()}, lr=0.1,
+                          damping=0.003, update_factors=True, update_eigen=upe)
+        d = ts["diagnostics"]
+        assert int(d["eigen_stale_steps"]) == stale
+        assert float(d["min_damped_eig"]) == 0.0 and float(d["layer_cond"]["c0"]["cond_A"]) == 0.0
+        assert 0.0 < float(d["nu"]) <= 1.0
+
+
+# ------------------------------------------------------------ train steps
+
+OPTIONS = {
+    "inverse": dict(kfac=dict(precond_method="inverse")),
+    # one block in epoch 0 (step 0's refresh), two in epoch 1 (step 2's)
+    "blocks": dict(kfac=dict(diag_blocks=2, diag_warmup=1)),
+    "accum_last": dict(step=dict(accum_steps=2)),
+    "accum_all": dict(step=dict(accum_steps=2, stats_all_microbatches=True)),
+}
+
+
+@pytest.mark.parametrize("option", ["inverse", "blocks"])
+def test_option_train_steps_match_jax(option):
+    run_option_train_steps(option)
+
+
+def run_option_train_steps(option):
+    """4 ResNet-20 steps of ``OPTIONS[option]`` in both packages, compared
+    after every step (``tests/test_torch_port_accum.py`` runs the
+    accumulation options: the two files run on two test workers)."""
+    kfac_kw = {**HP, **OPTIONS[option].get("kfac", {}), "track_diagnostics": True}
+    step_kw = OPTIONS[option].get("step", {})
+    accum = step_kw.get("accum_steps", 1)
+    jmodel, init, params, stats = _jax_init(0)
+    model = cifar_resnet.get_model(ARCH)
+    model.load_state_dict(state_dict_from_jax(_np_tree(params), _np_tree(stats), ARCH))
+    jtx, tx = jmake_sgd(MOMENTUM, WD), make_sgd(MOMENTUM, WD)
+    micro_init = init[: BATCH // accum]
+    jk = JKFAC(layers=jcapture.discover_layers(jmodel, micro_init, train=True), **kfac_kw)
+    tk = KFAC(layers=capture.discover_layers(model), device="cpu", **kfac_kw)
+    jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                         opt_state=jtx.init(params), kfac_state=jk.init(params))
+    tstate = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                        kfac_state=tk.init(model))
+    jstep = jmake_train_step(jmodel, jtx, jk, train_kwargs={"train": True},
+                             sgd_hyper=(MOMENTUM, WD), **step_kw)
+    tstep = make_train_step(model, tx, tk, sgd_hyper=(MOMENTUM, WD), **step_kw)
+
+    for i, (x, y) in enumerate(_batches()):
+        epoch = min(i, 1)  # the warm-up ends after step 0
+        jf, tf = jflags(i, jk, epoch), kfac_flags_for_step(i, tk, epoch)
+        assert jf == tf
+        xt = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+        if accum > 1:
+            x, y = x.reshape(accum, -1, *x.shape[1:]), y.reshape(accum, -1)
+            xt = xt.reshape(accum, -1, *xt.shape[1:])
+        jstate, jm = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)), jnp.float32(LR),
+                           jnp.float32(HP["damping"]), **jf)
+        tstate, tm = tstep(tstate, (torch.from_numpy(xt), torch.from_numpy(y)), LR,
+                           HP["damping"], **tf)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tm["accuracy"]), float(jm["accuracy"]), rtol=1e-6)
+        kfac_keys = sorted(k for k in jm if k.startswith("kfac_"))
+        assert sorted(k for k in tm if k.startswith("kfac_")) == kfac_keys
+        for k in kfac_keys:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3, atol=1e-7,
+                                       err_msg=f"step {i}: {k}")
+        want = state_dict_from_jax(_np_tree(jstate.params), _np_tree(jstate.batch_stats), ARCH)
+        got = model.state_dict()
+        for key, w in want.items():
+            if key.endswith("num_batches_tracked"):
+                continue
+            w, g = w.numpy(), got[key].numpy()
+            bound = 2e-5 * float(np.abs(w).max()) + 1e-6
+            np.testing.assert_allclose(g, w, rtol=0, atol=bound, err_msg=f"step {i}: {key}")
+    if option == "blocks":  # step 2's refresh split the conv factors in two
+        eig = tstate.kfac_state["eigen"]["linear"]
+        assert eig["QA"].shape == (65, 65)
+        stacked = tstate.kfac_state["eigen_stacked"]["16x144"]["QA"]
+        assert not stacked[:, :72, 72:].any() and stacked[:, :72, :72].any()
