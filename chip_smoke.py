@@ -12,9 +12,13 @@ ResNet-32 K-FAC training (slice 1, since grown to CIFAR-format data,
 evaluation, checkpoints, logs, diagnostics, the inverse method, diagonal
 blocks and gradient accumulation), transformer-LM K-FAC training with a
 K-FAC token embedding and flash attention (slice 2), and ImageNet
-ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC (slice 3). Phases,
-in order (any failure raises: the script exits non-zero and prints no
-result line):
+ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC (slice 3), each
+image path also in the bfloat16 modes (``--bf16 --eigen-dtype bf16``,
+slice 9). Kernels 1, 1g and 3 have two routes each, counted apart
+(``launches`` and ``launches_bf16``): 3xTF32 for float32 inputs, and a
+bf16 route for bfloat16 activations (1, 1g) or bfloat16 eigenvectors (3).
+Phases, in order (any failure raises: the script exits non-zero and prints
+no result line):
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA sources of ``kfac_pytorch_tpu_torch/csrc/`` (one
@@ -36,6 +40,13 @@ result line):
    device time from the profiler's kernel spans (the L2 cache flushed
    before each call, and back to back) beside the wrapper's wall time and
    ``torch.optim.SGD`` with ``foreach=True`` and with ``fused=True``;
+   3b. kernel 1's bf16 route on the activations of a bfloat16 ResNet-32
+   forward (all 31 conv inputs, the stem's cast) within 1e-5 of its plain
+   version (which upcasts), two launches bitwise equal; kernel 3's bf16-Q
+   route at the same groups within 1e-4; timed against the route's bound
+   (bf16: FLOPs over 989 TFLOP/s and 2-byte inputs; bf16-Q: two TF32
+   products per product and 2-byte Q), the plain version and the
+   library yardstick on the upcast input;
 4. train ResNet-32 at its published widths on synthetic data (lr 0.1,
    momentum 0.9, wd 5e-4, stat-decay 0.95, damping 0.003, kl-clip 0.001,
    cov-freq 1, kfac-update-freq 10); the loss must be finite and falling
@@ -59,7 +70,7 @@ result line):
    bitwise equal, and the apply and SGD kernels at the transformer's shape
    groups and leaves; timed as in phase 3 (the bound of the kernels on the
    tensor cores, 1, 1g, 3 and 5–7, is the TF32 rate, the CUDA cores'
-   float32 bound beside it);
+   float32 bound beside it); kernel 3's bf16-Q route at the LM's groups;
 8. train the LM for 2 epochs (38 steps, eigen refreshes at steps 0, 10,
    20, 30) through its trainer twin; the loss must be finite and falling
    and every counter must equal what the run implies; one epoch with
@@ -76,6 +87,9 @@ result line):
     bitwise equal, their costliest geometries with their routes, and the
     apply and SGD kernels at ResNeXt's shape groups (among them 96 × [4,
     36] … 96 × [32, 288]) and leaves; timed as in phase 3;
+    11b. kernels 1 and 1g on their bf16 route on a bfloat16 ResNeXt
+    forward's activations (37 + 16 convs) and kernel 3's bf16-Q route at
+    ResNeXt's groups, as in 3b;
 12. train ResNeXt-50 32x4d for 30 steps (refreshes at 0, 10, 20) through
     its trainer twin at the JAX trainer's recipe; the loss must be finite
     and falling and every counter must equal what the run implies (per
@@ -120,8 +134,30 @@ result line):
        ``--stats-all-microbatches``: kernel 1 once per conv and capture step
        (twice with every microbatch's statistics), the first 5 losses within
        1e-3 of the oracle's;
-17. print one ``{"kernels": [...]}`` line (eight kernels), then the last
-    line ``{"ok": true, "device": {...}}``.
+17. the bfloat16 modes and this slice's bookkeeping, each path through its
+    twin with the counters zeroed just before:
+    a. ResNet-32 with ``--bf16 --eigen-dtype bf16``, 30 steps: the loss
+       finite and falling, counters as implied (per capture step kernel 1
+       31 launches, 30 of them on the bf16 route: the stem's input is the
+       float32 batch, as in JAX; kernel 3 bf16-Q per group and step; kernel
+       4 once a step), the first 5 one-step oracle steps (``"dense"`` in
+       the same modes) within ``BF16_ORACLE_RTOL``; step medians beside
+       phase 4's;
+    b. this slice's path, ResNeXt-50 32x4d at batch 32, 224x224, with
+       ``--bf16 --eigen-dtype bf16``, 30 steps through the ImageNet twin,
+       gated as in a (kernels 1 bf16 36 + 1 float32, 1g bf16 16 per capture
+       step, kernel 3 bf16-Q 19 per step), images/s and step medians beside
+       phase 12's, and a profiled window of 3 capture steps;
+    c. ``--precond-precision default`` on the ResNet-32 inverse method:
+       losses and updates within ``PRECISION_RTOL`` of IEEE float32, the
+       matmul flag restored afterwards;
+    d. the ImageNet twin at a reduced depth (ResNet-18, 64x64): ``--log-dir``,
+       ``--checkpoint-dir`` and a resume within ``RESUME_RTOL``,
+       ``--batches-per-allreduce 2``, ``--precond-method inverse``; the LM
+       twin: ``--log-dir`` with ``--kfac-diagnostics``, ``--checkpoint-dir``
+       and a resume within ``RESUME_RTOL``;
+18. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+    of 1, 1g and 3), then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -138,6 +174,7 @@ import time
 # bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 BATCH = 128
@@ -195,6 +232,33 @@ CIFAR_TAGS = {
 # from a checkpoint repeats the uninterrupted run's epoch; a lost or stale
 # piece of state would show at the first step and grow from there.
 RESUME_RTOL = 1e-6
+
+# The bf16 modes (phases 17a-b): bfloat16 compute and eigenvectors, the JAX
+# image trainers' --bf16 --eigen-dtype bf16.
+BF16_FLAGS = ["--bf16", "--eigen-dtype", "bf16"]
+# Kernel path against the "dense" oracle in the bf16 modes, relative, per
+# step (each oracle step from the kernel path's state): the two paths'
+# parameters differ by float32 rounding, which flips the bfloat16 rounding
+# of some weights and activations of the next forward (a step of 2^-8 each)
+# and, as in float32, cuDNN's bf16 convolutions differ from run to run; 1e-2
+# is ~2.5 bf16 steps of the loss.
+BF16_ORACLE_RTOL = 1e-2
+# --precond-precision default (one TF32 pass in the dense rotations) against
+# IEEE float32 (device.rotation_precision): the preconditioned gradients'
+# largest difference over their largest entry, per layer, and the first 10
+# losses of the inverse method, relative.
+PRECISION_RTOL = 1e-2
+
+# The twins' bookkeeping (phase 17d), cut in depth and steps to keep the
+# script near 4 minutes: the ImageNet twin on ResNet-18 at 64x64 (the
+# ResNeXt-50 recipe's other flags) for epochs of 4 steps, the LM twin at the
+# LM path's widths for 2 epochs of 3 steps.
+IMAGENET_BOOK_ARGS = [
+    "--synthetic", "--model", "resnet18", "--batch-size", "32", "--image-size", "64",
+    "--seed", "0", "--device", "cuda",
+]
+BOOK_STEPS = 4
+LM_BOOK_STEPS = 3
 
 
 def _fail(msg: str) -> int:
@@ -299,12 +363,15 @@ def kernel_spans(fn, fragment, reps=TIMING_REPS, flush=None):
     return ms / reps, launches / reps, other / reps
 
 
-def bound_ms(calls, tf32_products=0):
+def bound_ms(calls, tf32_products=0, bf16=False):
     """Least time for ``[(bytes, flops), ...]`` calls: per call the larger of
     bytes over the memory rate and FLOPs over the float32 peak, summed; with
     ``tf32_products=n``, FLOPs taken as n TF32 products on the tensor cores
-    (3xTF32: n = 3) over the TF32 peak instead."""
+    (3xTF32: n = 3; the bf16-Q apply: n = 2) over the TF32 peak instead;
+    with ``bf16``, as one bf16 product each over the bf16 peak."""
     def t_ops(f):
+        if bf16:
+            return f / PEAK_BF16_FLOPS
         return f * tf32_products / PEAK_TF32_FLOPS if tf32_products else f / PEAK_F32_FLOPS
 
     t_bytes = sum(b / PEAK_BYTES for b, _ in calls)
@@ -344,25 +411,29 @@ def conv_inputs(model, images, grouped):
 
 
 def conv_work(x, groups, ks, st, pad, bias):
-    """``(bytes, flops)`` of one conv's A factors: the input read once and
-    the ``[G, a, a]`` output written once; per group ``a·(a+1)/2`` distinct
-    sums of ``rows`` products."""
+    """``(bytes, flops)`` of one conv's A factors: the input read once (in
+    its own type) and the float32 ``[G, a, a]`` output written once; per
+    group ``a·(a+1)/2`` distinct sums of ``rows`` products."""
     a = x.shape[1] // groups * ks[0] * ks[1] + int(bias)
     h_out = (x.shape[2] + 2 * pad[0][0] - ks[0]) // st[0] + 1
     w_out = (x.shape[3] + 2 * pad[1][0] - ks[1]) // st[1] + 1
     rows = x.shape[0] * h_out * w_out
-    return 4 * (x.numel() + groups * a * a), groups * rows * a * (a + 1)
+    return x.element_size() * x.numel() + 4 * groups * a * a, groups * rows * a * (a + 1)
 
 
 def conv_kernel_checks(calls, grouped):
     """Kernel 1 (``grouped=False``) or 1g on every ``(x, groups, ks, st,
     pad, bias, dil)`` of ``calls``: within 1e-5 of the largest plain entry
     per layer and two launches bitwise equal. Returns the worst errors, the
-    3xTF32 and float32 bounds, and the five costliest geometries (time per
-    step: every layer of that geometry timed) with their route."""
+    route's bound (3xTF32 for float32 inputs, one bf16 MMA per product for
+    bfloat16 ones) and the float32 bound, and the five costliest geometries
+    (time per step: every layer of that geometry timed) with their route."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+
+    bf16 = calls[0][0].dtype == torch.bfloat16
+    route = dict(bf16=True) if bf16 else dict(tf32_products=3)
 
     def kernel(c):
         return fk.compute_a_conv_grouped_fused(*c) if grouped else fk.compute_a_conv_fused(c[0], *c[2:])
@@ -393,10 +464,10 @@ def conv_kernel_checks(calls, grouped):
             "layers": len(cs),
             "route": fk.patch_cov_route(*c),
             "ms": time_ms(lambda: [kernel(c) for c in cs]),
-            "bound_ms": bound_ms([conv_work(*c[:6])] * len(cs), tf32_products=3)[0],
+            "bound_ms": bound_ms([conv_work(*c[:6])] * len(cs), **route)[0],
         })
     work = [conv_work(*c[:6]) for c in calls]
-    tc = bound_ms(work, tf32_products=3)
+    tc = bound_ms(work, **route)
     return {
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
@@ -405,63 +476,72 @@ def conv_kernel_checks(calls, grouped):
         "ms": time_ms(lambda: [kernel(c) for c in calls]),
         "bound_ms": tc[0],
         "bound_by": tc[1],
-        "bound_route": "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s",
+        "bound_route": ("one bf16 MMA per product: FLOPs / 989 TFLOP/s, bf16 input bytes" if bf16
+                        else "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s"),
         "bound_f32_cuda_core_ms": bound_ms(work)[0],
         "costliest_geometries": sorted(per_geometry, key=lambda r: -r["ms"])[:5],
     }
 
 
-def conv_a_phase(model, images):
+def conv_a_phase(model, images, bf16=False):
     """Kernel 1 on every ungrouped conv input of one forward (ResNet-32 at
-    batch 128, or ResNeXt-50's 37 ungrouped convs at batch 32)."""
+    batch 128, or ResNeXt-50's 37 ungrouped convs at batch 32); with
+    ``bf16``, its bf16 route on the inputs of a bfloat16 model's forward
+    (the stem's float32 batch cast too, so that every geometry is held)."""
+    import torch
     import torch.nn.functional as F
 
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
 
-    calls = [(c[0], 1, *c[1:6]) for c in conv_inputs(model, images, grouped=False)]
+    calls = [(c[0].to(torch.bfloat16) if bf16 else c[0], 1, *c[1:6])
+             for c in conv_inputs(model, images, grouped=False)]
     checks = conv_kernel_checks(calls, grouped=False)
 
     def library():
         for x, _, ks, st, pad, _, dil in calls:
-            cols = F.unfold(x, ks, dilation=dil, padding=pad[0][0], stride=st)
+            cols = F.unfold(x.float(), ks, dilation=dil, padding=pad[0][0], stride=st)
             p = cols.transpose(1, 2).reshape(-1, cols.shape[1])
             p.T @ p
 
     return {
-        "name": "patch_cov (conv A factor)",
+        "name": "patch_cov bf16 (conv A factor, bf16 route)" if bf16 else "patch_cov (conv A factor)",
         "route": "cuda",
         "source": "kfac_pytorch_tpu_torch/csrc/patch_cov.cu",
         "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:251",
-        "unit": f"{len(calls)} conv A factors of one capture step",
+        "unit": f"{len(calls)} conv A factors of one capture step"
+                + (", bfloat16 activations" if bf16 else ""),
         **checks,
         "plain_ms": time_ms(lambda: [fk.compute_a_conv_fused_plain(c[0], *c[2:]) for c in calls]),
         "library_ms": time_ms(library),
-        "library": "F.unfold + torch.matmul per conv",
+        "library": "F.unfold + torch.matmul per conv" + (" on the upcast input" if bf16 else ""),
     }
 
 
-def grouped_conv_a_phase(model, images):
+def grouped_conv_a_phase(model, images, bf16=False):
     """Kernel 1g on every grouped conv input of one ResNeXt forward: one
     launch per layer for all its groups, held per layer to its plain
-    version (kernel 1's plain version per channel slice, stacked)."""
+    version (kernel 1's plain version per channel slice, stacked); with
+    ``bf16``, its bf16 route on a bfloat16 model's activations."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
 
     calls = [(c[0], c[6], *c[1:6]) for c in conv_inputs(model, images, grouped=True)]
+    assert all(c[0].dtype == (torch.bfloat16 if bf16 else torch.float32) for c in calls)
     checks = conv_kernel_checks(calls, grouped=True)
     kinds = sorted({c[0].shape[1] // c[1] for c in calls})
 
     def library():
         # one im2col of the whole input, viewed per group, one batched product
         for x, groups, ks, st, pad, _, dil in calls:
-            cols = torch.nn.functional.unfold(x, ks, dilation=dil, padding=pad[0][0], stride=st)
+            cols = torch.nn.functional.unfold(x.float(), ks, dilation=dil, padding=pad[0][0], stride=st)
             b, f, L = cols.shape
             p = cols.view(b, groups, f // groups, L).permute(1, 0, 3, 2).reshape(groups, b * L, f // groups)
             torch.bmm(p.transpose(1, 2), p)
 
     return {
-        "name": "patch_cov grouped (grouped conv A factors)",
+        "name": ("patch_cov grouped bf16 (grouped conv A factors, bf16 route)" if bf16
+                 else "patch_cov grouped (grouped conv A factors)"),
         "route": "cuda",
         "source": "kfac_pytorch_tpu_torch/csrc/patch_cov.cu",
         "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:251 (via compute_a_conv_grouped_fused :371)",
@@ -470,16 +550,19 @@ def grouped_conv_a_phase(model, images):
         # 512 im2col + matmul pairs per call: fewer repetitions
         "plain_ms": time_ms(lambda: [fk.compute_a_conv_grouped_fused_plain(*c) for c in calls], reps=5),
         "library_ms": time_ms(library),
-        "library": "F.unfold of the whole input viewed [G, B*L, a] + torch.bmm per layer",
+        "library": "F.unfold of the whole input viewed [G, B*L, a] + torch.bmm per layer"
+                   + (" (upcast input)" if bf16 else ""),
     }
 
 
-def apply_phase(model, device):
+def apply_phase(model, device, q_dtype=None):
     """Kernel 3 on every shape group of ``model``'s K-FAC layers (diagonal-A
     embeddings stay out of the groups, as on the main path): within 1e-4
     of the largest plain entry per group (v and vg), two launches bitwise
     equal, timed for all groups together and per group (the five costliest
-    groups are reported with the tile and copy widths they take)."""
+    groups are reported with the tile and copy widths they take). With
+    ``q_dtype=torch.bfloat16``, its bf16-Q route: QA and QG stored in
+    bfloat16 (the library yardstick multiplies by float32 copies of them)."""
     import torch
 
     from kfac_pytorch_tpu_torch import KFAC, capture
@@ -491,9 +574,12 @@ def apply_phase(model, device):
     shapes = {n: (f["G"].shape[0], f["A"].shape[0]) for n, f in facs.items() if "A" in f}
     gen = torch.Generator(device=device).manual_seed(0)
 
+    q_dtype = q_dtype or torch.float32
+    bf16 = q_dtype == torch.bfloat16
+
     def orth(k, n):
         q, _ = torch.linalg.qr(torch.randn(k, n, n, device=device, generator=gen))
-        return q.contiguous()
+        return q.to(q_dtype).contiguous()
 
     groups = []
     for (g, a), names in pc.shape_groups(shapes).items():
@@ -528,41 +614,50 @@ def apply_phase(model, device):
         t = t / (dg[:, :, None] * da[:, None, :] + lam)
         torch.matmul(torch.matmul(qg, t), qa.transpose(1, 2))
 
+    # the yardstick's float32 copies of Q (made once, outside the timing)
+    lib_groups = [(gm, qa.float(), da, qg.float(), dg) for gm, qa, da, qg, dg in groups]
+    q_bytes = 2 if bf16 else 4
+    products = 2 if bf16 else 3  # TF32 products per product
+
     def work(gm):
         k, g, a = gm.shape
         flops = k * (4 * g * a * (g + a) + 3 * g * a + 2 * g * a)
-        nbytes = 4 * (2 * k * g * a + k * a * a + k * g * g + k * a + k * g + k + 1)
+        nbytes = (4 * (2 * k * g * a + k * a + k * g + k + 1)
+                  + q_bytes * (k * a * a + k * g * g))
         return nbytes, flops
 
     per_group = []
-    for grp, rel in zip(groups, group_rel):
+    for grp, lib, rel in zip(groups, lib_groups, group_rel):
         k, g, a = grp[0].shape
         per_group.append({
             "group": f"{k} x [{g}, {a}]",
             "route": ak.fused_apply_route(grp[0], grp[1], grp[3]),
             "ms": time_ms(lambda: ak.fused_precondition_stack(*grp, lam)),
-            "library_ms": time_ms(lambda: library_one(*grp)),
-            "bound_ms": bound_ms([work(grp[0])], tf32_products=3)[0],
+            "library_ms": time_ms(lambda: library_one(*lib)),
+            "bound_ms": bound_ms([work(grp[0])], tf32_products=products)[0],
             "max_rel_err": rel,
         })
-    tc = bound_ms([work(grp[0]) for grp in groups], tf32_products=3)
+    tc = bound_ms([work(grp[0]) for grp in groups], tf32_products=products)
     return {
-        "name": "fused_apply (eigenbasis precondition + KL partial)",
+        "name": ("fused_apply bf16-Q (eigenbasis precondition + KL partial, bfloat16 eigenvectors)"
+                 if bf16 else "fused_apply (eigenbasis precondition + KL partial)"),
         "route": "cuda",
         "source": "kfac_pytorch_tpu_torch/csrc/fused_apply.cu",
         "replaces": "kfac_pytorch_tpu/ops/apply_kernels.py:190",
-        "unit": f"{len(groups)} shape groups ({len(shapes)} layers) of one step",
+        "unit": f"{len(groups)} shape groups ({len(shapes)} layers) of one step"
+                + (", QA and QG bfloat16" if bf16 else ""),
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "tolerance": f"|kernel - plain| <= {tol} * max|plain| per group (v and vg)",
         "repeat_bitwise_equal": True,
         "ms": time_ms(lambda: [ak.fused_precondition_stack(*grp, lam) for grp in groups]),
         "plain_ms": time_ms(lambda: [ak.fused_precondition_stack_plain(*grp, lam) for grp in groups]),
-        "library_ms": time_ms(lambda: [library_one(*grp) for grp in groups]),
-        "library": "batched torch.matmul chain per group",
+        "library_ms": time_ms(lambda: [library_one(*lib) for lib in lib_groups]),
+        "library": "batched torch.matmul chain per group" + (" (float32 Q)" if bf16 else ""),
         "bound_ms": tc[0],
         "bound_by": tc[1],
-        "bound_route": "3xTF32 on the tensor cores: 3 x FLOPs / 495 TFLOP/s",
+        "bound_route": (f"{products} TF32 products per product on the tensor cores: {products} x "
+                        f"FLOPs / 495 TFLOP/s; Q read as {q_bytes} bytes an entry"),
         "bound_f32_cuda_core_ms": bound_ms([work(grp[0]) for grp in groups])[0],
         "costliest_groups": sorted(per_group, key=lambda r: -r["ms"])[:5],
     }
@@ -1255,11 +1350,13 @@ def one_step_oracle(setup, device, steps, extra=(), steps_per_epoch=None):
     return kernel, oracle
 
 
-def conv_expected_launches(hist, model, device):
+def conv_expected_launches(hist, model, device, bf16=False):
     """What a ResNet or ResNeXt run implies for each counter: on every
     capture step kernel 1 once per ungrouped conv and kernel 1g once per
     grouped conv; one apply launch per shape group and one SGD launch per
-    step."""
+    step. With ``bf16`` (``--bf16 --eigen-dtype bf16``) the bf16 routes'
+    counts too: every conv but the stem, whose input is the float32 batch,
+    takes bfloat16 activations, and every apply launch bfloat16 Q."""
     from kfac_pytorch_tpu_torch import KFAC, capture
     from kfac_pytorch_tpu_torch.models.layers import KFACConv
     from kfac_pytorch_tpu_torch.ops import precondition as pc
@@ -1269,12 +1366,17 @@ def conv_expected_launches(hist, model, device):
     facs = KFAC(layers=capture.discover_layers(model), device=device)._identity_factors(model)
     groups = pc.shape_groups({n: (f["G"].shape[0], f["A"].shape[0]) for n, f in facs.items()})
     steps = len(hist["loss"])
-    return {
+    out = {
         "compute_a_conv_fused": captures * sum(m.groups == 1 for m in convs),
         "compute_a_conv_grouped_fused": captures * sum(m.groups > 1 for m in convs),
         "fused_precondition_stack": len(groups) * steps,
         "fused_sgd_apply": steps,
     }
+    if bf16:
+        out["compute_a_conv_fused:bf16"] = out["compute_a_conv_fused"] - captures
+        out["compute_a_conv_grouped_fused:bf16"] = out["compute_a_conv_grouped_fused"]
+        out["fused_precondition_stack:bf16"] = out["fused_precondition_stack"]
+    return out
 
 
 def write_cifar_set(root, per_batch=CIFAR_PER_BATCH, n_test=CIFAR_TEST, seed=0):
@@ -1314,12 +1416,30 @@ def cifar_args(data_dir, extra=()):
             *CIFAR_FLAGS, *extra]
 
 
-def counted(run, counters):
-    """``(run(), {counter: launches})`` with every counter zeroed just before."""
+def zero_counts(counters):
+    """Every launch counter to 0, the bf16 routes' (``launches_bf16``) too."""
     for fn in counters:
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
+
+
+def read_counts(counters):
+    """``{name: launches}``, and ``{name:bf16: launches}`` of the kernels
+    with a bf16 route."""
+    out = {}
+    for fn in counters:
+        out[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_bf16"):
+            out[f"{fn.__name__}:bf16"] = fn.launches_bf16
+    return out
+
+
+def counted(run, counters):
+    """``(run(), {counter: launches})`` with every counter zeroed just before."""
+    zero_counts(counters)
     out = run()
-    return out, {fn.__name__: fn.launches for fn in counters}
+    return out, read_counts(counters)
 
 
 def gate_launches(launches, expected, path):
@@ -1339,20 +1459,20 @@ def gate_falling(losses, path):
     return first, last
 
 
-def gate_oracle(kernel, oracle, path, steps):
-    """Each listed step's loss within 1e-3 relative of the oracle path's;
-    returns the largest relative difference."""
+def gate_oracle(kernel, oracle, path, steps, rtol=1e-3):
+    """Each listed step's loss within ``rtol`` relative of the oracle
+    path's; returns the largest relative difference."""
     worst = 0.0
     for i in steps:
         rel = abs(kernel[i] - oracle[i]) / abs(oracle[i])
-        if not rel <= 1e-3:
+        if not rel <= rtol:
             raise AssertionError(f"{path} step {i}: kernel-path loss {kernel[i]} vs oracle-path "
                                  f"loss {oracle[i]}")
         worst = max(worst, rel)
     return worst
 
 
-def cifar_expected_launches(hist, device, a_per_capture=1, apply_kernels=True):
+def cifar_expected_launches(hist, device, a_per_capture=1, apply_kernels=True, bf16=False):
     """``conv_expected_launches`` of a ResNet-32 run, with kernel 1 launched
     ``a_per_capture`` times per conv and capture step (once per microbatch
     with ``--stats-all-microbatches``) and, under the inverse method's dense
@@ -1362,7 +1482,8 @@ def cifar_expected_launches(hist, device, a_per_capture=1, apply_kernels=True):
     from kfac_pytorch_tpu_torch.models import cifar_resnet
 
     out = conv_expected_launches(
-        hist, cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)), device)
+        hist, cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)), device,
+        bf16)
     out["compute_a_conv_fused"] *= a_per_capture
     if not apply_kernels:
         out["fused_precondition_stack"] = out["fused_sgd_apply"] = 0
@@ -1552,6 +1673,244 @@ def cifar_phases(device, counters, eigen_stats):
     return out
 
 
+def bf16_resnet_phase(device, counters, f32_stats):
+    """Phase 17a: ResNet-32 through the CIFAR twin with ``--bf16
+    --eigen-dtype bf16`` on the synthetic batches of phase 4: the loss
+    finite and falling, every counter as the run implies (kernel 1 on its
+    bf16 route for every conv but the stem, kernel 3 on its bf16-Q route,
+    kernel 4 once a step), each of the first 5 oracle steps (``"dense"`` in
+    the same modes, from the kernel path's state) within
+    ``BF16_ORACLE_RTOL``; step medians beside phase 4's float32 ones."""
+    hist, launches = counted(lambda: train(BF16_FLAGS), counters)
+    first, last = gate_falling(hist["loss"], "ResNet-32 bf16")
+    gate_launches(launches, cifar_expected_launches(hist, device, bf16=True), "ResNet-32 bf16")
+    kernel, oracle = one_step_oracle(resnet_setup, device, ORACLE_STEPS, BF16_FLAGS)
+    rel = gate_oracle(kernel, oracle, "ResNet-32 bf16", range(ORACLE_STEPS), BF16_ORACLE_RTOL)
+    stats = step_stats(hist, BATCH)
+    return {
+        "path": f"{MODEL} batch {BATCH}, {STEPS} steps, {' '.join(BF16_FLAGS)}",
+        "loss_first5": first, "loss_last5": last,
+        "one_step_oracle": {"kernel": kernel, "oracle": oracle, "max_rel_diff": rel,
+                            "tolerance": f"{BF16_ORACLE_RTOL} relative per step"},
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "refresh_step_ms_median": stats["refresh_ms_median"],
+        "images_per_s": stats["per_s"],
+        "f32_capture_step_ms_median": f32_stats["capture_ms_median"],
+        "f32_refresh_step_ms_median": f32_stats["refresh_ms_median"],
+        "f32_images_per_s": f32_stats["per_s"],
+        "launches": launches,
+    }
+
+
+def bf16_imagenet_phase(device, counters, f32_stats):
+    """Phase 17b, this slice's path: ResNeXt-50 32x4d at batch 32, 224x224,
+    with ``--bf16 --eigen-dtype bf16`` through the ImageNet twin for
+    ``IMAGENET_STEPS`` steps: the loss finite and falling, every counter as
+    the run implies (kernel 1 bf16 on every ungrouped conv but the stem,
+    kernel 1g bf16, kernel 3 bf16-Q, kernel 4), the one-step oracle within
+    ``BF16_ORACLE_RTOL``, images/s and step medians beside phase 12's
+    float32 ones, and a profiled window of 3 capture steps."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.models import imagenet_resnet
+
+    hist, launches = counted(
+        lambda: train_imagenet([*BF16_FLAGS, "--steps-per-epoch", str(IMAGENET_STEPS)]), counters)
+    first, last = gate_falling(hist["loss"], "ResNeXt bf16")
+    structure = imagenet_resnet.get_model(IMAGENET_MODEL, generator=torch.Generator().manual_seed(0))
+    gate_launches(launches, conv_expected_launches(hist, structure, device, bf16=True),
+                  "ResNeXt bf16")
+    del structure
+    kernel, oracle = one_step_oracle(imagenet_setup, device, ORACLE_STEPS, BF16_FLAGS)
+    rel = gate_oracle(kernel, oracle, "ResNeXt bf16", range(ORACLE_STEPS), BF16_ORACLE_RTOL)
+    profile = profile_path(imagenet_setup, device, [
+        ((*BF16_FLAGS, "--steps-per-epoch", "5"), [("capture", 2, 5)])])
+    gate_profile_launches(profile, "imagenet")
+    stats = step_stats(hist, IMAGENET_BATCH)
+    return {
+        "path": (f"{IMAGENET_MODEL} batch {IMAGENET_BATCH}, 224x224, {IMAGENET_STEPS} steps, "
+                 f"{' '.join(BF16_FLAGS)}"),
+        "loss_first5": first, "loss_last5": last,
+        "one_step_oracle": {"kernel": kernel, "oracle": oracle, "max_rel_diff": rel,
+                            "tolerance": f"{BF16_ORACLE_RTOL} relative per step"},
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "refresh_step_ms_median": stats["refresh_ms_median"],
+        "images_per_s": stats["per_s"],
+        "f32_capture_step_ms_median": f32_stats["capture_ms_median"],
+        "f32_refresh_step_ms_median": f32_stats["refresh_ms_median"],
+        "f32_images_per_s": f32_stats["per_s"],
+        "profile": profile,
+        "launches": launches,
+    }
+
+
+def precision_phase(device):
+    """Phase 17c: ``--precond-precision default`` (one TF32 pass in the
+    dense products) on the ResNet-32 inverse method: its first 10 losses
+    within ``PRECISION_RTOL`` of IEEE float32's; on one refresh's inverses
+    and random gradients of every layer, ``precondition_all_inv`` at
+    ``"default"`` within ``PRECISION_RTOL`` of ``"highest"`` per layer; a
+    1024² float32 product inside the precision context differs from the
+    IEEE one (TF32 on), and after it, is IEEE again (the flag restored)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.device import rotation_precision
+    from kfac_pytorch_tpu_torch.ops import precondition as pc
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
+    flags = ["--precond-method", "inverse", "--steps-per-epoch", "10"]
+    ieee = train(flags)["loss"]
+    tf32 = train([*flags, "--precond-precision", "default"])["loss"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tf32, ieee))
+    if not loss_rel <= PRECISION_RTOL:
+        raise AssertionError(f"--precond-precision default: losses {tf32} vs IEEE {ieee}")
+    step_fn, state, kfac, batches, args = resnet_setup(
+        device, ("--precond-method", "inverse", "--steps-per-epoch", "1"))
+    state, _ = step_fn(state, batches[0], args.base_lr, args.damping,
+                       **kfac_flags_for_step(0, kfac, 0))
+    ks = state.kfac_state
+    gen = torch.Generator(device=device).manual_seed(7)
+    gmats = {n: torch.randn(f["G"].shape[0], f["A"].shape[0], device=device, generator=gen)
+             for n, f in ks["factors"].items()}
+    hi = pc.precondition_all_inv(gmats, ks["eigen"], ks["eigen_stacked"], "highest")
+    lo = pc.precondition_all_inv(gmats, ks["eigen"], ks["eigen_stacked"], "default")
+    layer_rel = {n: float((lo[n] - hi[n]).abs().max() / hi[n].abs().max()) for n in hi}
+    if not max(layer_rel.values()) <= PRECISION_RTOL:
+        raise AssertionError(f"--precond-precision default moved an update by "
+                             f"{max(layer_rel.values()):.3e} relative, bound {PRECISION_RTOL}")
+    a = torch.randn(1024, 1024, device=device, generator=gen)
+    exact = (a.double() @ a.double())
+
+    def err(prod):
+        return float((prod.double() - exact).abs().max() / exact.abs().max())
+
+    with rotation_precision("default"):
+        tf32_err = err(a @ a)
+    ieee_err = err(a @ a)
+    if torch.backends.cuda.matmul.allow_tf32 or not ieee_err < tf32_err or not ieee_err <= 1e-5:
+        raise AssertionError(f"the precision context: TF32 product error {tf32_err:.3e}, after it "
+                             f"{ieee_err:.3e} (allow_tf32 {torch.backends.cuda.matmul.allow_tf32})")
+    return {
+        "losses_default": tf32, "losses_ieee": ieee, "loss_max_rel_diff": loss_rel,
+        "update_max_rel_diff": max(layer_rel.values()),
+        "tolerance": f"{PRECISION_RTOL} relative (losses; each layer's update over its largest entry)",
+        "product_1024_rel_err": {"default": tf32_err, "after_the_context": ieee_err},
+    }
+
+
+def _resume_from_first(main, argv, tmp, name, epochs=2):
+    """``main`` for ``epochs`` epochs with a checkpoint directory, then again
+    from only its ``checkpoint-0``: ``(uninterrupted history, resumed
+    history)``."""
+    import os
+    import shutil
+
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+
+    full, cut = os.path.join(tmp, f"{name}_full"), os.path.join(tmp, f"{name}_cut")
+    whole = main([*argv, "--epochs", str(epochs), "--checkpoint-dir", full])
+    os.makedirs(cut)
+    shutil.copy(ckpt.checkpoint_path(full, 0), cut)
+    resumed = main([*argv, "--epochs", str(epochs), "--checkpoint-dir", cut])
+    if len(resumed["restore_ms"]) != 1:
+        raise AssertionError(f"{name}: the rerun did not resume from checkpoint-0")
+    return whole, resumed
+
+
+def _gate_resume(pairs, path):
+    rel = [abs(a - b) / abs(b) for a, b in pairs]
+    if not rel or not max(rel) <= RESUME_RTOL:
+        raise AssertionError(f"{path}: the resumed epoch differs from the uninterrupted run's: "
+                             f"{pairs}")
+    return {"values": len(pairs), "bitwise": sum(a == b for a, b in pairs), "max_rel_diff": max(rel)}
+
+
+def _tags(log_dir):
+    import os
+
+    with open(os.path.join(log_dir, "scalars.jsonl")) as fh:
+        return {json.loads(line)["tag"] for line in fh}
+
+
+def bookkeeping_phase(device, counters):
+    """Phase 17d: the ImageNet and LM twins' bookkeeping. ImageNet at a
+    reduced depth (``IMAGENET_BOOK_ARGS``: ResNet-18 at 64x64, batch 32):
+    ``--log-dir`` (the JAX trainer's tags) and ``--checkpoint-dir`` for 2
+    epochs of ``BOOK_STEPS`` steps, then epoch 1 resumed from checkpoint-0
+    within ``RESUME_RTOL`` of the uninterrupted run (deterministic cuDNN);
+    ``--batches-per-allreduce 2`` (kernel 1 once per conv and capture step)
+    and ``--precond-method inverse`` (kernels 3 and 4 never), their
+    counters as implied. The LM at its path's widths: ``--log-dir`` with
+    ``--kfac-diagnostics`` (the JAX trainer's tags) and
+    ``--checkpoint-dir`` for 2 epochs of ``LM_BOOK_STEPS`` steps, then
+    epoch 1 resumed within ``RESUME_RTOL``."""
+    import os
+    import tempfile
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as im_trainer
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
+    from kfac_pytorch_tpu_torch.models import imagenet_resnet
+    from kfac_pytorch_tpu_torch.observability.diagnostics import SCALAR_KEYS
+
+    out, launches = {}, {}
+    structure = imagenet_resnet.get_model("resnet18", generator=torch.Generator().manual_seed(0))
+    book = [*IMAGENET_BOOK_ARGS, "--steps-per-epoch", str(BOOK_STEPS)]
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_book_") as tmp:
+        cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        logs = os.path.join(tmp, "logs")
+        (whole, resumed), launches["imagenet_book"] = counted(
+            lambda: _resume_from_first(im_trainer.main, [*book, "--log-dir", logs], tmp,
+                                       "imagenet"), counters)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+        if not all(math.isfinite(v) for v in whole["loss"]):
+            raise AssertionError(f"ImageNet bookkeeping: non-finite loss {whole['loss']}")
+        both = {"loss": whole["loss"] + resumed["loss"], "kind": whole["kind"] + resumed["kind"]}
+        gate_launches(launches["imagenet_book"], conv_expected_launches(both, structure, device),
+                      "ImageNet bookkeeping")
+        tags = _tags(logs)
+        if tags != {"train/loss", "train/accuracy", "train/lr"}:
+            raise AssertionError(f"ImageNet scalars.jsonl tags {sorted(tags)}")
+        out["imagenet_resume"] = _gate_resume(
+            list(zip(resumed["loss"], whole["loss"][BOOK_STEPS:])), "ImageNet resume")
+        out["imagenet_tags"] = sorted(tags)
+
+        for name, extra, apply_kernels in (("accumulation", ["--batches-per-allreduce", "2"], True),
+                                           ("inverse", ["--precond-method", "inverse"], False)):
+            hist, launches[f"imagenet_{name}"] = counted(
+                lambda: im_trainer.main([*book, "--epochs", "1", *extra]), counters)
+            if not all(math.isfinite(v) for v in hist["loss"]):
+                raise AssertionError(f"ImageNet {name}: non-finite loss {hist['loss']}")
+            want = conv_expected_launches(hist, structure, device)
+            if not apply_kernels:
+                want["fused_precondition_stack"] = want["fused_sgd_apply"] = 0
+            gate_launches(launches[f"imagenet_{name}"], want, f"ImageNet {name}")
+            out[f"imagenet_{name}"] = {"losses": hist["loss"],
+                                       "capture_step_ms_median": step_stats(
+                                           hist, IMAGENET_BATCH)["capture_ms_median"]}
+
+        lm_logs = os.path.join(tmp, "lm_logs")
+        lm_argv = [*LM_ARGS, "--steps-per-epoch", str(LM_BOOK_STEPS), "--kfac-diagnostics",
+                   "--log-dir", lm_logs]
+        whole, resumed = _resume_from_first(lm_trainer.main, lm_argv, tmp, "lm")
+        if not all(math.isfinite(v) for v in whole["loss"] + whole["val_loss"]):
+            raise AssertionError(f"LM bookkeeping: non-finite loss {whole['loss']}")
+        want_tags = ({"train/loss", "train/ppl", "val/loss", "val/ppl"}
+                     | {f"kfac/{k}_mean" for k in (*SCALAR_KEYS, "cond_max")})
+        tags = _tags(lm_logs)
+        if tags != want_tags:
+            raise AssertionError(f"LM scalars.jsonl tags {sorted(tags)}, want {sorted(want_tags)}")
+        out["lm_resume"] = _gate_resume(
+            [*zip(resumed["loss"], whole["loss"][LM_BOOK_STEPS:]),
+             (resumed["val_loss"][0], whole["val_loss"][1])], "LM resume")
+        out["lm_tags"] = sorted(tags)
+        out["lm_nu"] = whole["kfac_nu"]
+    out["launches"] = launches
+    return out
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -1646,17 +2005,22 @@ def main() -> int:
     resnet_apply = apply_phase(model, device)
     resnet_sgd = sgd_phase(model, device, 0.1, 0.9, 5e-4, flush)
     report([conv_a, resnet_apply, resnet_sgd])
-    del model
+    mark("3b. ResNet kernels, bf16 routes")
+    # (a, b) kernel 1's bf16 route on the activations of a bfloat16 forward,
+    # kernel 3's bf16-Q route on the same shape groups
+    bf16_model = cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0),
+                                        dtype=torch.bfloat16).to(device)
+    conv_a_bf16 = conv_a_phase(bf16_model, images, bf16=True)
+    resnet_apply_bf16 = apply_phase(model, device, torch.bfloat16)
+    report([conv_a_bf16, resnet_apply_bf16])
+    del model, bf16_model
 
     mark("4. ResNet training")
     # 4. the ResNet path through its trainer, counters zeroed just before
     all_counted = (fk.compute_a_conv_fused, fk.compute_a_conv_grouped_fused, fk.compute_a_embed_fused,
                    ak.fused_precondition_stack, ak.fused_sgd_apply, fa.flash_forward,
                    fa.flash_backward_dq, fa.flash_backward_dkv)
-    for fn in all_counted:
-        fn.launches = 0
-    hist = train([])
-    resnet_launches = {fn.__name__: fn.launches for fn in all_counted}
+    hist, resnet_launches = counted(lambda: train([]), all_counted)
     losses = hist["loss"]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1724,15 +2088,13 @@ def main() -> int:
     flash = flash_phase(device, args.batch_size, args.seq_len, args.n_heads,
                         args.d_model // args.n_heads)
     lm_apply = apply_phase(lm_model, device)
+    lm_apply_bf16 = apply_phase(lm_model, device, torch.bfloat16)
     lm_sgd = sgd_phase(lm_model, device, args.base_lr, args.momentum, args.wd, flush)
-    report([token_count, *flash, lm_apply, lm_sgd])
+    report([token_count, *flash, lm_apply, lm_apply_bf16, lm_sgd])
 
     mark("8. LM training")
     # 8. the LM path through its trainer twin, counters zeroed just before
-    for fn in all_counted:
-        fn.launches = 0
-    lm_hist = train_lm(["--epochs", str(LM_EPOCHS)])
-    lm_launches = {fn.__name__: fn.launches for fn in all_counted}
+    lm_hist, lm_launches = counted(lambda: train_lm(["--epochs", str(LM_EPOCHS)]), all_counted)
     lm_losses = lm_hist["loss"]
     if not all(math.isfinite(v) for v in lm_losses + lm_hist["val_loss"]):
         raise AssertionError(f"non-finite LM loss: {lm_losses} {lm_hist['val_loss']}")
@@ -1803,18 +2165,26 @@ def main() -> int:
     rx_images = torch.from_numpy(xb).to(device)
     rx_conv_a = conv_a_phase(rx_model, rx_images)
     grouped_a = grouped_conv_a_phase(rx_model, rx_images)
-    del rx_images
     rx_apply = apply_phase(rx_model, device)
     rx_sgd = sgd_phase(rx_model, device, 0.0125, 0.9, 5e-5, flush)
     report([rx_conv_a, grouped_a, rx_apply, rx_sgd])
     torch.cuda.empty_cache()
+    mark("11b. ResNeXt kernels, bf16 routes")
+    # (a, b) kernels 1 and 1g on their bf16 route on the activations of a
+    # bfloat16 forward, kernel 3 on its bf16-Q route at ResNeXt's groups
+    rx_bf16 = imagenet_resnet.get_model(IMAGENET_MODEL, generator=torch.Generator().manual_seed(0),
+                                        dtype=torch.bfloat16).to(device)
+    rx_conv_a_bf16 = conv_a_phase(rx_bf16, rx_images, bf16=True)
+    grouped_a_bf16 = grouped_conv_a_phase(rx_bf16, rx_images, bf16=True)
+    del rx_images, rx_bf16
+    rx_apply_bf16 = apply_phase(rx_model, device, torch.bfloat16)
+    report([rx_conv_a_bf16, grouped_a_bf16, rx_apply_bf16])
+    torch.cuda.empty_cache()
 
     mark("12. ResNeXt training")
     # 12. the ResNeXt path through its trainer twin, counters zeroed just before
-    for fn in all_counted:
-        fn.launches = 0
-    rx_hist = train_imagenet(["--steps-per-epoch", str(IMAGENET_STEPS)])
-    rx_launches = {fn.__name__: fn.launches for fn in all_counted}
+    rx_hist, rx_launches = counted(
+        lambda: train_imagenet(["--steps-per-epoch", str(IMAGENET_STEPS)]), all_counted)
     rx_losses = rx_hist["loss"]
     if not all(math.isfinite(v) for v in rx_losses):
         raise AssertionError(f"non-finite ResNeXt loss: {rx_losses}")
@@ -1903,14 +2273,43 @@ def main() -> int:
                   (resnet_sgd, ak.fused_sgd_apply)):
         k["launches_on_cifar_paths"] = {p: n[fn.__name__] for p, n in cifar["launches"].items()}
 
-    # 17. results: kernels 1, 3 and 4 run on several paths; the top-level
+    # 17a-d. the bf16 modes on ResNet-32 and on this slice's path, ResNeXt-50
+    # with --bf16 --eigen-dtype bf16; --precond-precision; the ImageNet and
+    # LM twins' bookkeeping: each path with the counters zeroed just before
+    mark("17a. ResNet-32 --bf16 --eigen-dtype bf16")
+    bf16_resnet = bf16_resnet_phase(device, all_counted, kfac_stats)
+    print(json.dumps({"bf16_resnet": bf16_resnet}), flush=True)
+    mark("17b. ResNeXt-50 --bf16 --eigen-dtype bf16")
+    bf16_rx = bf16_imagenet_phase(device, all_counted, rx_stats)
+    print(json.dumps({"bf16_imagenet": bf16_rx}), flush=True)
+    mark("17c. --precond-precision default")
+    precision = precision_phase(device)
+    print(json.dumps({"precond_precision": precision}), flush=True)
+    mark("17d. ImageNet and LM twins' bookkeeping")
+    book = bookkeeping_phase(device, all_counted)
+    print(json.dumps({"twins_bookkeeping": book}), flush=True)
+    for k, path, key in ((conv_a_bf16, bf16_resnet, "compute_a_conv_fused:bf16"),
+                         (resnet_apply_bf16, bf16_resnet, "fused_precondition_stack:bf16"),
+                         (rx_conv_a_bf16, bf16_rx, "compute_a_conv_fused:bf16"),
+                         (grouped_a_bf16, bf16_rx, "compute_a_conv_grouped_fused:bf16"),
+                         (rx_apply_bf16, bf16_rx, "fused_precondition_stack:bf16")):
+        k["launches"] = path["launches"][key]
+        k["launches_per_step"] = k["launches"] / (STEPS if path is bf16_resnet else IMAGENET_STEPS)
+    lm_apply_bf16["launches"] = 0
+    lm_apply_bf16["launches_note"] = "the LM trainer has no --eigen-dtype (nor has the JAX one)"
+
+    # 18. results: kernels 1, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
+    conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16
     lm_apply["resnet32"] = resnet_apply
     lm_apply[IMAGENET_MODEL] = rx_apply
+    rx_apply_bf16["resnet32"] = resnet_apply_bf16
+    rx_apply_bf16["lm"] = lm_apply_bf16
     lm_sgd["resnet32"] = resnet_sgd
     lm_sgd[IMAGENET_MODEL] = rx_sgd
-    kernels = [conv_a, grouped_a, token_count, lm_apply, lm_sgd, *flash]
+    kernels = [conv_a, conv_a_bf16, grouped_a, grouped_a_bf16, token_count, lm_apply,
+               rx_apply_bf16, lm_sgd, *flash]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,6 +12,12 @@ this module:
 * a hook on the layer's output tensor — the gradient of the loss with
   respect to the output gives the G factor.
 
+Under bfloat16 compute (``--bf16``) the hooks see bfloat16 activations and
+output gradients: a conv's input goes to the factor kernels as it is (their
+bf16 route; the oracle upcasts it), a dense layer's input and every output
+gradient are upcast to float32 first, as the JAX package upcasts them; the
+statistics are float32 either way.
+
 Layers are keyed by module path (``"layer1.0.conv1"``); their parameter
 gradients by parameter name (``"layer1.0.conv1.weight"``), so every
 per-layer artifact shares one key, as in the JAX package.
@@ -136,7 +142,7 @@ class Capture:
                 )
             elif isinstance(module, KFACConv) and module.groups > 1:
                 a = factor_kernels.dispatch_compute_a_conv_grouped(
-                    x.float(),
+                    x,
                     module.groups,
                     module.kernel_size,
                     module.stride,
@@ -147,7 +153,7 @@ class Capture:
                 )
             elif isinstance(module, KFACConv):
                 a = factor_kernels.dispatch_compute_a_conv(
-                    x.float(),
+                    x,
                     module.kernel_size,
                     module.stride,
                     module.factor_padding(),

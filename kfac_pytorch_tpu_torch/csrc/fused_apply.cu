@@ -55,8 +55,23 @@
 // scratch; the last block of a layer to finish (counted with an atomic
 // after a fence) sums the partials in tile order. Two launches give
 // bitwise-equal v and vg.
+//
+// The bf16-Q route (eigen_dtype = bfloat16). QA and QG may be stored in
+// bfloat16, the element type of each Q operand a template parameter (kept
+// as raw 16-bit patterns, type Bf16): Q's tiles are copied to shared
+// memory as they lie, at half the bytes (16-byte cp.async copies of 8
+// values where a row is 16-byte aligned, else 2-byte loads, which
+// cp.async does not have; shared rows padded by 8 values), and each value
+// becomes a TF32 operand by a shift: a bf16 value has 8 significand bits,
+// TF32 10, so it is exact in TF32 and its 3xTF32 split has a zero small
+// part. The route therefore drops the MMA on that zero part: every
+// product of the chain (each has one Q operand) takes two TF32 MMAs, not
+// three, at the 3xTF32 route's accuracy. The other operand (G or an
+// intermediate) stays float32, split as before; v and vg are float32.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32_mma.cuh"
 
@@ -82,51 +97,69 @@ using Medium = Tile<64, 64, 32, 32>;
 using Small = Tile<32, 32, 16, 16>;
 constexpr int kMinTile = 32;  // the smallest BM and BN: bounds the partials
 
+// A bfloat16 value as its 16-bit pattern (the high half of the float32
+// with the same value)
+using Bf16 = uint16_t;
+template <class E>
+constexpr bool kIsBf16 = std::is_same<E, Bf16>::value;
+
 // One operand's tile in shared memory: R rows of it (BM of A, BN of B) by
-// kDepth, stored k-contiguous ([R][kDepth + 4]) or R-contiguous
-// ([kDepth][R + 8]) as it lies in global memory.
-template <int R, bool KCONTIG>
+// kDepth, stored k-contiguous ([R][kDepth + pad]) or R-contiguous
+// ([kDepth][R + 8]) as it lies in global memory, in elements of type E
+// (float32: pad 4; bfloat16: pad 8, which keeps each row 16-byte aligned).
+template <int R, bool KCONTIG, class E>
 struct Operand {
   static constexpr int kRows = KCONTIG ? R : kDepth;
   static constexpr int kCols = KCONTIG ? kDepth : R;
-  static constexpr int kLd = kCols + (KCONTIG ? 4 : 8);
+  static constexpr int kLd = kCols + (KCONTIG && !kIsBf16<E> ? 4 : 8);
   static constexpr int kSize = kRows * kLd;
+  static constexpr int kBytes = kSize * (int)sizeof(E);
 };
 
-// ROWS x COLS floats at src (row stride ld) into dst (row stride LD), as
-// 16-byte (VEC) or 4-byte cp.async copies; entries past rows_left or
-// cols_left are zero-filled. src is in bounds and, for VEC, 16-byte aligned
-// with ld a multiple of 4.
-template <int ROWS, int COLS, int LD, int THREADS, bool VEC>
-__device__ __forceinline__ void load_async(float* __restrict__ dst,
-                                           const float* __restrict__ src,
+// ROWS x COLS elements of type E at src (row stride ld) into dst (row
+// stride LD), as 16-byte cp.async copies (VEC) or, else, one element at a
+// time (4-byte cp.async for float32, plain 2-byte loads for bfloat16);
+// entries past rows_left or cols_left are zero-filled. src is in bounds
+// and, for VEC, 16-byte aligned with ld a multiple of 16 bytes.
+template <int ROWS, int COLS, int LD, int THREADS, bool VEC, class E>
+__device__ __forceinline__ void load_async(E* __restrict__ dst,
+                                           const E* __restrict__ src,
                                            int ld, int rows_left,
                                            int cols_left) {
-  constexpr int C4 = COLS / 4;
-  static_assert((ROWS * C4) % THREADS == 0, "whole copies per thread");
+  constexpr int W = 16 / (int)sizeof(E);  // elements per 16-byte copy
+  constexpr int CW = COLS / W;
+  static_assert((ROWS * CW) % THREADS == 0, "whole copies per thread");
 #pragma unroll
-  for (int i = 0; i < ROWS * C4 / THREADS; ++i) {
+  for (int i = 0; i < ROWS * CW / THREADS; ++i) {
     const int e = threadIdx.x + i * THREADS;
-    const int r = e / C4, c = 4 * (e % C4);
-    const int n = r < rows_left ? max(0, min(4, cols_left - c)) : 0;
-    const float* s = n ? src + (long long)r * ld + c : src;
-    float* d = dst + r * LD + c;
+    const int r = e / CW, c = W * (e % CW);
+    const int n = r < rows_left ? max(0, min(W, cols_left - c)) : 0;
+    const E* s = n ? src + (long long)r * ld + c : src;
+    E* d = dst + r * LD + c;
     if (VEC) {
-      cp_async16(d, s, 4 * n);
+      cp_async16(reinterpret_cast<float*>(d), reinterpret_cast<const float*>(s),
+                 (int)sizeof(E) * n);
+    } else if constexpr (kIsBf16<E>) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) d[j] = j < n ? s[j] : Bf16(0);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) cp_async4(d + j, j < n ? s + j : src, j < n);
+      for (int j = 0; j < W; ++j) cp_async4(d + j, j < n ? s + j : src, j < n);
     }
   }
 }
 
+// A bfloat16 value as a TF32 operand: exact (its bits shifted up), so its
+// 3xTF32 split has no small part
+__device__ __forceinline__ uint32_t exact_tf32(Bf16 x) { return (uint32_t)x << 16; }
+
 // One product of the chain, batched over layers: C[z] = opA(A[z]) ·
 // opB(B[z]) with opA(m, k) = TA ? A[k, m] : A[m, k], opB(k, n) = TB ?
 // B[n, k] : B[k, n], all row-major with the given leading dimensions and
-// per-layer strides, then the epilogue.
+// per-layer strides (in elements of A's and B's types), then the epilogue.
 struct Gemm {
-  const float* A;
-  const float* B;
+  const void* A;
+  const void* B;
   float* C;
   int M, N, K, lda, ldb, ldc;
   long long sA, sB, sC;
@@ -139,16 +172,18 @@ struct Gemm {
   float* vg;
 };
 
-template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB>
-__global__ void __launch_bounds__(TL::kThreads) chain_mma(const Gemm p) {
-  using OA = Operand<TL::BM, !TA>;
-  using OB = Operand<TL::BN, TB>;
-  constexpr int kStage = OA::kSize + OB::kSize;
+// EA, EB: the element types of A and B (float, or Bf16 for a Q operand)
+template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB, class EA, class EB>
+__device__ __forceinline__ void chain_mma_body(const Gemm& p) {
+  using OA = Operand<TL::BM, !TA, EA>;
+  using OB = Operand<TL::BN, TB, EB>;
+  // a stage's A then B tile, counted in floats (both are whole 16 bytes)
+  constexpr int kOffB = OA::kBytes / 4, kStage = kOffB + OB::kBytes / 4;
   constexpr int MT = TL::MT, NT = TL::NT, BM = TL::BM, BN = TL::BN;
   extern __shared__ __align__(16) float smem[];
   const int z = blockIdx.z;
-  const float* A = p.A + z * p.sA;
-  const float* B = p.B + z * p.sB;
+  const EA* A = static_cast<const EA*>(p.A) + z * p.sA;
+  const EB* B = static_cast<const EB*>(p.B) + z * p.sB;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int M = p.M, N = p.N, K = p.K, lda = p.lda, ldb = p.ldb;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -158,11 +193,12 @@ __global__ void __launch_bounds__(TL::kThreads) chain_mma(const Gemm p) {
   const auto load_stage = [&](int kt, float* st) {
     const int k0 = kt * kDepth;
     constexpr int T = TL::kThreads;
+    EA* sa = reinterpret_cast<EA*>(st);
     if constexpr (TA)
-      load_async<kDepth, BM, OA::kLd, T, VA>(st, A + (long long)k0 * lda + m0, lda, K - k0, M - m0);
+      load_async<kDepth, BM, OA::kLd, T, VA>(sa, A + (long long)k0 * lda + m0, lda, K - k0, M - m0);
     else
-      load_async<BM, kDepth, OA::kLd, T, VA>(st, A + (long long)m0 * lda + k0, lda, M - m0, K - k0);
-    float* sb = st + OA::kSize;
+      load_async<BM, kDepth, OA::kLd, T, VA>(sa, A + (long long)m0 * lda + k0, lda, M - m0, K - k0);
+    EB* sb = reinterpret_cast<EB*>(st + kOffB);
     if constexpr (TB)
       load_async<BN, kDepth, OB::kLd, T, VB>(sb, B + (long long)n0 * ldb + k0, ldb, N - n0, K - k0);
     else
@@ -189,8 +225,9 @@ __global__ void __launch_bounds__(TL::kThreads) chain_mma(const Gemm p) {
     const int next = kt + kStages - 1;
     if (next < ktiles) load_stage(next, smem + (next % kStages) * kStage);
     cp_async_commit();
-    const float* As = smem + (kt % kStages) * kStage;
-    const float* Bs = As + OA::kSize;
+    const float* st = smem + (kt % kStages) * kStage;
+    const EA* As = reinterpret_cast<const EA*>(st);
+    const EB* Bs = reinterpret_cast<const EB*>(st + kOffB);
     float c[MT][NT][4];  // this step's sums, on the tensor cores
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -200,31 +237,50 @@ __global__ void __launch_bounds__(TL::kThreads) chain_mma(const Gemm p) {
         for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kDepth; kk += 8) {
-      uint32_t ab[MT][4], as[MT][4];
+      // a bf16 operand's small part is zero: not kept, its MMA not issued
+      uint32_t ab[MT][4], as[MT][kIsBf16<EA> ? 1 : 4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const int r = wm + 16 * i + g;
         constexpr int L = OA::kLd;
-        if constexpr (TA)
+        if constexpr (kIsBf16<EA>) {
+          if constexpr (TA) {
+            ab[i][0] = exact_tf32(As[(kk + t) * L + r]);
+            ab[i][1] = exact_tf32(As[(kk + t) * L + r + 8]);
+            ab[i][2] = exact_tf32(As[(kk + t + 4) * L + r]);
+            ab[i][3] = exact_tf32(As[(kk + t + 4) * L + r + 8]);
+          } else {
+            ab[i][0] = exact_tf32(As[r * L + kk + t]);
+            ab[i][1] = exact_tf32(As[(r + 8) * L + kk + t]);
+            ab[i][2] = exact_tf32(As[r * L + kk + t + 4]);
+            ab[i][3] = exact_tf32(As[(r + 8) * L + kk + t + 4]);
+          }
+        } else if constexpr (TA) {
           split4(As[(kk + t) * L + r], As[(kk + t) * L + r + 8],
                  As[(kk + t + 4) * L + r], As[(kk + t + 4) * L + r + 8], ab[i], as[i]);
-        else
+        } else {
           split4(As[r * L + kk + t], As[(r + 8) * L + kk + t],
                  As[r * L + kk + t + 4], As[(r + 8) * L + kk + t + 4], ab[i], as[i]);
+        }
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int n = wn + 8 * j + g;
         constexpr int L = OB::kLd;
-        const float b0 = TB ? Bs[n * L + kk + t] : Bs[(kk + t) * L + n];
-        const float b1 = TB ? Bs[n * L + kk + t + 4] : Bs[(kk + t + 4) * L + n];
-        uint32_t bb0, bs0, bb1, bs1;
-        split(b0, bb0, bs0);
-        split(b1, bb1, bs1);
+        uint32_t bb0, bs0 = 0, bb1, bs1 = 0;
+        if constexpr (kIsBf16<EB>) {
+          bb0 = exact_tf32(TB ? Bs[n * L + kk + t] : Bs[(kk + t) * L + n]);
+          bb1 = exact_tf32(TB ? Bs[n * L + kk + t + 4] : Bs[(kk + t + 4) * L + n]);
+        } else {
+          const float b0 = TB ? Bs[n * L + kk + t] : Bs[(kk + t) * L + n];
+          const float b1 = TB ? Bs[n * L + kk + t + 4] : Bs[(kk + t + 4) * L + n];
+          split(b0, bb0, bs0);
+          split(b1, bb1, bs1);
+        }
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          mma_tf32(c[i][j], as[i], bb0, bb1);
-          mma_tf32(c[i][j], ab[i], bs0, bs1);
+          if constexpr (!kIsBf16<EA>) mma_tf32(c[i][j], as[i], bb0, bb1);
+          if constexpr (!kIsBf16<EB>) mma_tf32(c[i][j], ab[i], bs0, bs1);
           mma_tf32(c[i][j], ab[i], bb0, bb1);
         }
       }
@@ -281,32 +337,53 @@ __global__ void __launch_bounds__(TL::kThreads) chain_mma(const Gemm p) {
   }
 }
 
-template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB>
+// The float32 route's kernel.
+template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB, class EA, class EB>
+__global__ void __launch_bounds__(TL::kThreads) chain_mma(const Gemm p) {
+  chain_mma_body<TL, TA, TB, EPI, VA, VB, EA, EB>(p);
+}
+
+// The bf16-Q route's kernel: the same body, one block per SM asked at least
+// (without it, ptxas held the 64x64 tile's bf16 instances to 128 registers
+// and spilled)
+template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB, class EA, class EB>
+__global__ void __launch_bounds__(TL::kThreads, 1) chain_mma_bf16q(const Gemm p) {
+  chain_mma_body<TL, TA, TB, EPI, VA, VB, EA, EB>(p);
+}
+
+template <class TL, bool TA, bool TB, int EPI, bool VA, bool VB, class EA, class EB>
 cudaError_t run(const Gemm& p, int k, cudaStream_t s) {
-  constexpr size_t smem =
-      sizeof(float) * kStages * (Operand<TL::BM, !TA>::kSize + Operand<TL::BN, TB>::kSize);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      chain_mma<TL, TA, TB, EPI, VA, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  constexpr size_t smem = (size_t)kStages * (Operand<TL::BM, !TA, EA>::kBytes +
+                                             Operand<TL::BN, TB, EB>::kBytes);
+  void (*kernel)(const Gemm);
+  if constexpr (kIsBf16<EA> || kIsBf16<EB>)
+    kernel = chain_mma_bf16q<TL, TA, TB, EPI, VA, VB, EA, EB>;
+  else
+    kernel = chain_mma<TL, TA, TB, EPI, VA, VB, EA, EB>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.N + TL::BN - 1) / TL::BN, (p.M + TL::BM - 1) / TL::BM, k);
-  chain_mma<TL, TA, TB, EPI, VA, VB><<<grid, TL::kThreads, smem, s>>>(p);
+  kernel<<<grid, TL::kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
 // B's copy width chosen at run time, A's fixed
-template <class TL, bool TA, bool TB, int EPI, bool VA>
+template <class TL, bool TA, bool TB, int EPI, bool VA, class EA, class EB>
 cudaError_t run_vb(bool vb, const Gemm& p, int k, cudaStream_t s) {
-  return vb ? run<TL, TA, TB, EPI, VA, true>(p, k, s) : run<TL, TA, TB, EPI, VA, false>(p, k, s);
+  return vb ? run<TL, TA, TB, EPI, VA, true, EA, EB>(p, k, s)
+            : run<TL, TA, TB, EPI, VA, false, EA, EB>(p, k, s);
 }
 
-bool aligned(const void* ptr, int ld) {
-  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+// rows of ld elements of elem bytes at ptr take 16-byte copies
+bool aligned(const void* ptr, int ld, int elem) {
+  return (ld * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 // The tile and copy widths of one group, as kfac_fused_apply_route reports
 // them: 16-byte copies for G (step 1's B), QA (steps 2 and 4's B) and QG
-// (steps 1 and 3's A) where their rows are aligned.
+// (steps 1 and 3's A) where their rows are aligned (Q's rows in its own
+// element type).
 struct Plan {
   int tile;  // 0 Small, 1 Medium, 2 Large
   bool vgm, vqa, vqg;
@@ -322,14 +399,15 @@ int sm_count() {
   return n;
 }
 
-Plan plan(int k, int g, int a, const void* gm, const void* qa, const void* qg) {
+Plan plan(int k, int g, int a, const void* gm, const void* qa, const void* qg, bool q_bf16) {
   Plan pl;
-  pl.vgm = aligned(gm, a);
-  pl.vqa = aligned(qa, a);
-  pl.vqg = aligned(qg, g);
+  const int q = q_bf16 ? 2 : 4;  // bytes per Q element
+  pl.vgm = aligned(gm, a, 4);
+  pl.vqa = aligned(qa, a, q);
+  pl.vqg = aligned(qg, g, q);
   // one 128x128 block fills an SM: take it only where the group's blocks
   // fill at least 90% of the waves they need (wave-quantization loss);
-  // its k-major 4-byte copies of QG would spill registers
+  // its k-major element-wise copies of QG would spill registers
   const long long large = (long long)((g + 127) / 128) * ((a + 127) / 128) * k;
   const long long waves = (large + sm_count() - 1) / sm_count();
   const bool fills = 10 * large >= 9 * waves * sm_count();
@@ -337,12 +415,14 @@ Plan plan(int k, int g, int a, const void* gm, const void* qa, const void* qg) {
   return pl;
 }
 
-// the four launches of one group; QG4: whether QG's rows may take 4-byte
-// copies (the plan gives the 128x128 tile aligned QG rows only)
-template <class TL, bool QG4>
+// the four launches of one group; QG4: whether QG's rows may take
+// element-wise copies (the plan gives the 128x128 tile aligned QG rows
+// only); Q: QA's and QG's element type (float, or Bf16 on the bf16-Q route)
+template <class TL, bool QG4, class Q>
 cudaError_t chain(const Plan& pl, const Gemm& base, const float* G,
-                  const float* QA, const float* QG, float* T1, float* T2,
+                  const Q* QA, const Q* QG, float* T1, float* T2,
                   float* V, int k, int g, int a, int ldt, cudaStream_t s) {
+  using F = float;
   const long long sGA = (long long)g * a, sAA = (long long)a * a,
                   sGG = (long long)g * g, sT = (long long)g * ldt;
   Gemm p = base;
@@ -351,29 +431,41 @@ cudaError_t chain(const Plan& pl, const Gemm& base, const float* G,
   p.A = QG; p.B = G; p.C = T1; p.M = g; p.N = a; p.K = g;
   p.lda = g; p.ldb = a; p.ldc = ldt; p.sA = sGG; p.sB = sGA; p.sC = sT;
   if constexpr (QG4)
-    err = pl.vqg ? run_vb<TL, true, false, kStore, true>(pl.vgm, p, k, s)
-                 : run_vb<TL, true, false, kStore, false>(pl.vgm, p, k, s);
+    err = pl.vqg ? run_vb<TL, true, false, kStore, true, Q, F>(pl.vgm, p, k, s)
+                 : run_vb<TL, true, false, kStore, false, Q, F>(pl.vgm, p, k, s);
   else
-    err = run_vb<TL, true, false, kStore, true>(pl.vgm, p, k, s);
+    err = run_vb<TL, true, false, kStore, true, Q, F>(pl.vgm, p, k, s);
   if (err != cudaSuccess) return err;
   // 2. T2 = (T1 · QA) / (dG dAᵀ + λ)        [g, a] x [a, a]
   p.A = T1; p.B = QA; p.C = T2; p.K = a;
   p.lda = ldt; p.ldb = a; p.ldc = ldt; p.sA = sT; p.sB = sAA; p.sC = sT;
-  err = run_vb<TL, false, false, kDampedDivide, true>(pl.vqa, p, k, s);
+  err = run_vb<TL, false, false, kDampedDivide, true, F, Q>(pl.vqa, p, k, s);
   if (err != cudaSuccess) return err;
   // 3. T1 = QG · T2                        [g, g] x [g, a]
   p.A = QG; p.B = T2; p.C = T1; p.K = g;
   p.lda = g; p.ldb = ldt; p.ldc = ldt; p.sA = sGG; p.sB = sT; p.sC = sT;
   if constexpr (QG4)
-    err = pl.vqg ? run<TL, false, false, kStore, true, true>(p, k, s)
-                 : run<TL, false, false, kStore, false, true>(p, k, s);
+    err = pl.vqg ? run<TL, false, false, kStore, true, true, Q, F>(p, k, s)
+                 : run<TL, false, false, kStore, false, true, Q, F>(p, k, s);
   else
-    err = run<TL, false, false, kStore, true, true>(p, k, s);
+    err = run<TL, false, false, kStore, true, true, Q, F>(p, k, s);
   if (err != cudaSuccess) return err;
   // 4. v = T1 · QAᵀ, vg = Σ v ⊙ G           [g, a] x [a, a]ᵀ
   p.A = T1; p.B = QA; p.C = V; p.K = a;
   p.lda = ldt; p.ldb = a; p.ldc = a; p.sA = sT; p.sB = sAA; p.sC = sGA;
-  return run_vb<TL, false, true, kStoreAndDot, true>(pl.vqa, p, k, s);
+  return run_vb<TL, false, true, kStoreAndDot, true, F, Q>(pl.vqa, p, k, s);
+}
+
+template <class Q>
+cudaError_t chain_tile(const Plan& pl, const Gemm& base, const float* G, const void* qa,
+                       const void* qg, float* T1, float* T2, float* V, int k, int g,
+                       int a, int ldt, cudaStream_t s) {
+  const Q *QA = static_cast<const Q*>(qa), *QG = static_cast<const Q*>(qg);
+  switch (pl.tile) {
+    case 2: return chain<Large, false>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s);
+    case 1: return chain<Medium, true>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s);
+    default: return chain<Small, true>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s);
+  }
 }
 
 }  // namespace
@@ -381,13 +473,13 @@ cudaError_t chain(const Plan& pl, const Gemm& base, const float* G,
 // scratch1: [k, g, ldt] floats, ldt = a rounded up to a multiple of 4.
 // scratch2: [k, g, ldt] floats, then k·⌈g/32⌉·⌈a/32⌉ floats of KL
 // partials, then k 32-bit counters (zeroed here on the stream). vg needs
-// no initial value.
+// no initial value. q_bf16: qa and qg are bfloat16 (else float32).
 extern "C" int kfac_fused_precondition(const void* gm, const void* qa,
                                        const void* da, const void* qg,
                                        const void* dg, const void* lam,
                                        void* scratch1, void* scratch2,
                                        void* out, void* vg, int k, int g,
-                                       int a, void* stream) {
+                                       int a, int q_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ldt = (a + 3) / 4 * 4;
   float* T2 = static_cast<float*>(scratch2);
@@ -404,23 +496,19 @@ extern "C" int kfac_fused_precondition(const void* gm, const void* qa,
   base.partial = partial;
   base.done = done;
   base.vg = static_cast<float*>(vg);
-  const Plan pl = plan(k, g, a, gm, qa, qg);
-  const float *G = static_cast<const float*>(gm), *QA = static_cast<const float*>(qa),
-              *QG = static_cast<const float*>(qg);
+  const Plan pl = plan(k, g, a, gm, qa, qg, q_bf16);
+  const float* G = static_cast<const float*>(gm);
   float *T1 = static_cast<float*>(scratch1), *V = static_cast<float*>(out);
-  switch (pl.tile) {
-    case 2: err = chain<Large, false>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s); break;
-    case 1: err = chain<Medium, true>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s); break;
-    default: err = chain<Small, true>(pl, base, G, QA, QG, T1, T2, V, k, g, a, ldt, s); break;
-  }
+  err = q_bf16 ? chain_tile<Bf16>(pl, base, G, qa, qg, T1, T2, V, k, g, a, ldt, s)
+               : chain_tile<float>(pl, base, G, qa, qg, T1, T2, V, k, g, a, ldt, s);
   return (int)err;
 }
 
 // The plan kfac_fused_precondition takes for these inputs: bits 0-1 the
 // tile (0: 32x32, 1: 64x64, 2: 128x128); bit 2 set where G's rows take
-// 16-byte copies, bit 3 QA's, bit 4 QG's (else 4-byte copies).
+// 16-byte copies, bit 3 QA's, bit 4 QG's (else element-wise copies).
 extern "C" int kfac_fused_apply_route(int k, int g, int a, const void* gm,
-                                      const void* qa, const void* qg) {
-  const Plan pl = plan(k, g, a, gm, qa, qg);
+                                      const void* qa, const void* qg, int q_bf16) {
+  const Plan pl = plan(k, g, a, gm, qa, qg, q_bf16);
   return pl.tile | (pl.vgm << 2) | (pl.vqa << 3) | (pl.vqg << 4);
 }

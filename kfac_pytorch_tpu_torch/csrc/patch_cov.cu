@@ -76,6 +76,23 @@
 //     a [splits, G, P, P] buffer; the reduce pass scales and mirrors each
 //     group's [F', F'] into out[g]. One launch covers all G groups, where
 //     the TPU version runs G kernel calls.
+//
+// The bf16 route (bfloat16 activations, under --bf16 compute). The JAX
+// package upcasts bf16 activations to float32 before its kernel; the
+// product of two bf16 values (8 significand bits each) is exact in float32
+// and the tensor cores accumulate it in float32, so one
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 per product computes what
+// that float32 product computes, up to summation order, at a third of the
+// 3xTF32 route's MMAs. The route stages the input windows in bf16 (half
+// the bytes: 16-byte copies of 8 values where the rows allow, 2-byte loads
+// where an odd row length or address allows no cp.async), reads each
+// fragment register as two 16-bit values of the window (feature offset +
+// position offset, as the float32 route reads them; the positions of a
+// 16-deep step are not contiguous in general, so ldmatrix does not apply),
+// and takes the K dimension 16 positions at a time: a stage's positions
+// are padded to a multiple of 16, the padding read as zero through B. The
+// tile plans are the float32 route's, with the shared memory of a stage
+// counted in 2-byte elements.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,19 +126,29 @@ using KSplit = Tile<48, 48, 48, 4, 2>;
 struct Geometry {
   int C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW;  // C: one group's channels
   int F, Fp, groups;
+  int esize;         // bytes per element of x (4: float32, 2: bfloat16)
   int R, SW, nC;     // output rows per stage, columns per stage row, stages per row
-  int L, Lp;         // positions per stage (R * SW), padded to 8
+  int L, Lp;         // positions per stage (R * SW), padded to the MMA depth (8 or 16)
   int HR, Wp;        // window rows and columns per channel (flat: 1, L)
   int rstep, fr;     // input rows per window row; window rows per filter tap
   int col0;          // input column of the window's first column (a multiple of V)
-  int plane;         // floats per channel plane in shared memory
+  int plane;         // elements per channel plane in shared memory
   int ct;            // channel planes per sub-window
-  int ones, sub;     // the ones plane's offset in a sub-window; its floats
+  int ones, sub;     // the ones plane's offset in a sub-window; its elements
   int nT;            // tiles per side
   int units, units_per_split;  // stages in all (B * OH / R), per split
   long long chw;     // one image, all groups
-  long long total;   // floats in x
+  long long total;   // elements in x
 };
+
+// A bfloat16 value as its 16-bit pattern (the high half of the float32
+// with the same value)
+using Bf16 = uint16_t;
+template <class T>
+constexpr bool kIsBf16 = std::is_same<T, Bf16>::value;
+// MMA depth: positions per K step
+template <class T>
+constexpr int kDepthOf = kIsBf16<T> ? 16 : 8;
 
 // How a stage's input is laid out in shared memory: a window of input rows
 // per channel (any conv); each channel's R*W contiguous values (a 1x1
@@ -131,20 +158,47 @@ struct Geometry {
 // offsets), which serves images of an odd number of pixels (7 x 7).
 enum Mode { kRows = 0, kFlat = 1, kSlab = 2 };
 
-// V floats (1, 2 or 4) from global to shared memory, zero where !ok
-template <int V>
-__device__ __forceinline__ void copy_chunk(float* dst, const float* src, bool ok) {
-  if (V == 4) cp_async16(dst, src, ok ? 16 : 0);
-  else if (V == 2) cp_async8(dst, src, ok ? 8 : 0);
-  else cp_async4(dst, src, ok);
+// V elements of type T (V * sizeof(T) = 16, 8 or 4 bytes: cp.async; a
+// single bf16: a plain 2-byte load) from global to shared memory, zero
+// where !ok
+template <int V, class T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, bool ok) {
+  constexpr int bytes = V * (int)sizeof(T);
+  float* d = reinterpret_cast<float*>(dst);
+  const float* s = reinterpret_cast<const float*>(src);
+  if constexpr (bytes == 16) cp_async16(d, s, ok ? 16 : 0);
+  else if constexpr (bytes == 8) cp_async8(d, s, ok ? 8 : 0);
+  else if constexpr (bytes == 4) cp_async4(d, s, ok);
+  else *dst = ok ? *src : T(0);
 }
 
-// MODE: the stage's layout (Mode); V: floats per copy.
-template <class TL, int MODE, int V>
+// c += a·b on one m16n8k16 bf16 tile (float32 accumulate). Fragments (g =
+// lane / 4, t = lane % 4; two 16-bit values a register, the lower index in
+// the low half): A 16x16 a0 (g, 2t..2t+1) a1 (g+8, 2t..) a2 (g, 2t+8..)
+// a3 (g+8, 2t+8..); B 16x8 b0 (k = 2t..2t+1, n = g) b1 (k = 2t+8..);
+// C as m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 values in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack2(Bf16 lo, Bf16 hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// MODE: the stage's layout (Mode); V: elements per copy; T: the element
+// type of x and of the staged window (float, or Bf16 on the bf16 route).
+template <class TL, int MODE, int V, class T>
 __global__ void __launch_bounds__(TL::kThreads, TL::kMinBlocks)
-patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geometry g) {
+patch_cov_mma(const T* __restrict__ x, float* __restrict__ part, const Geometry g) {
   constexpr int BT = TL::BT, MT = TL::MT, NT = TL::NT;
-  extern __shared__ __align__(16) float smem[];
+  constexpr int W16 = 16 / (int)sizeof(T);  // elements per 16 bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   // linear block index -> upper-triangle tile (ti <= tj)
   int t = blockIdx.x, ti = 0;
@@ -159,8 +213,8 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
 
   constexpr bool FLAT = MODE != kRows;
   const int sub = g.sub;  // one tile's window: channels, then ones
-  const int stage_floats = 2 * sub;
-  int* poff = reinterpret_cast<int*>(smem + kStages * stage_floats);
+  const int stage_elems = 2 * sub;
+  int* poff = reinterpret_cast<int*>(smem + kStages * stage_elems);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
@@ -174,7 +228,7 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
     if (f >= g.F) return g.ones;          // the bias: the ones plane
     const int c = f / kk, o = f - c * kk, i = o / g.kw, j = o - i * g.kw;
     const int off = (c - f0 / kk) * g.plane;
-    if (MODE == kSlab) return off + (int)(((long long)(grp * g.C + f0) * g.plane) & 3);
+    if (MODE == kSlab) return off + (int)(((long long)(grp * g.C + f0) * g.plane) & (W16 - 1));
     return FLAT ? off : off + i * g.fr * g.Wp + j * g.dw - g.pw - g.col0;
   };
   int offa[MT][2], offb[NT];
@@ -196,9 +250,10 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
     const int r = p / g.SW, ow = p - r * g.SW;
     poff[p] = p >= g.L ? 0 : FLAT ? p : r * g.sh * g.Wp + ow * g.sw;
   }
+  const T one = kIsBf16<T> ? T(0x3f80) : T(1);
   for (int e = threadIdx.x; e < kStages * 2 * g.plane; e += TL::kThreads) {
     const int w = e / g.plane;  // stage * 2 + sub-window
-    smem[w * sub + g.ones + (e - w * g.plane)] = 1.f;
+    smem[w * sub + g.ones + (e - w * g.plane)] = one;
   }
 
   const int upi = g.OH / g.R * g.nC;  // stages per image
@@ -207,7 +262,7 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
 
   const int chunks = g.Wp / V;
   const float inv_chunks = 1.f / chunks, inv_hr = 1.f / g.HR;
-  const auto load_stage = [&](long long u, float* st) {
+  const auto load_stage = [&](long long u, T* st) {
     const long long b = u / upi;
     const int in_image = (int)(u - b * upi);
     const int oh0 = in_image / g.nC * g.R, ow0 = in_image % g.nC * g.SW;
@@ -216,17 +271,18 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
       if (f0 >= g.F) continue;  // the bias alone: no channel
       const int cb = f0 / kk;
       const int cn = (min(f0 + BT, g.F) - 1) / kk + 1 - cb;
-      const float* src = x + b * g.chw + (long long)(grp * g.C + cb) * g.H * g.W;
-      float* dst = st + s * sub;
+      const T* src = x + b * g.chw + (long long)(grp * g.C + cb) * g.H * g.W;
+      T* dst = st + s * sub;
       if (MODE == kSlab) {
         // channels cb .. cb+cn-1 of image b: one contiguous run, from the
-        // 16-byte boundary at or below it (chw % 4 == 0: the same offset
-        // for every image); chunks past the end of x read as zero
+        // 16-byte boundary at or below it (chw a multiple of 16 bytes: the
+        // same offset for every image); chunks past the end of x read as
+        // zero
         const long long first = src - x;
-        const long long from = first & ~3ll;
-        const int n4 = (int)((first - from + (long long)cn * g.plane + 3) >> 2);
-        for (int k = threadIdx.x; k < n4; k += TL::kThreads)
-          cp_async16(dst + 4 * k, x + from + 4 * k, from + 4 * k < g.total ? 16 : 0);
+        const long long from = first & ~(long long)(W16 - 1);
+        const int n16 = (int)((first - from + (long long)cn * g.plane + W16 - 1) / W16);
+        for (int k = threadIdx.x; k < n16; k += TL::kThreads)
+          copy_chunk<W16>(dst + W16 * k, x + from + W16 * k, from + W16 * k < g.total);
         continue;
       }
       // V-float chunks of each window row (c, hr): input row
@@ -239,8 +295,8 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
         // division takes some twenty
         const int r = __float2int_rz((e + 0.5f) * inv_chunks), q = e - r * chunks;
         const int c = FLAT ? r : __float2int_rz((r + 0.5f) * inv_hr), hr = r - c * g.HR;
-        const float* chan = src + (long long)c * g.H * g.W;
-        float* d = dst + c * g.plane + hr * g.Wp + q * V;
+        const T* chan = src + (long long)c * g.H * g.W;
+        T* d = dst + c * g.plane + hr * g.Wp + q * V;
         if (FLAT) {
           copy_chunk<V>(d, chan + (long long)oh0 * g.W + q * V, true);
         } else {
@@ -262,17 +318,17 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nst) load_stage(u_begin + s, smem + s * stage_floats);
+    if (s < nst) load_stage(u_begin + s, smem + s * stage_elems);
     cp_async_commit();
   }
-  const int ksteps = g.Lp / 8;
+  const int ksteps = g.Lp / kDepthOf<T>;
   for (int st = 0; st < nst; ++st) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage st has landed; every warp is done with st - 1
     const int next = st + kStages - 1;
-    if (next < nst) load_stage(u_begin + next, smem + (next % kStages) * stage_floats);
+    if (next < nst) load_stage(u_begin + next, smem + (next % kStages) * stage_elems);
     cp_async_commit();
-    const float* win = smem + (st % kStages) * stage_floats;
+    const T* win = smem + (st % kStages) * stage_elems;
     // the stage's valid positions: fewer in a row's last column tile
     int valid = g.L;
     if (g.nC > 1) {
@@ -293,29 +349,60 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
     // are never stored): no branch in this loop
     const auto steps = [&](auto under) {
       constexpr bool UNDER = decltype(under)::value;
-      for (int k8 = ks; k8 < ksteps; k8 += TL::KSPLIT) {
-        const int p0 = 8 * k8 + tq, p1 = p0 + 4;
-        const int q0 = poff[p0], q1 = poff[p1];
-        const bool v0 = p0 < valid, v1 = p1 < valid;
-        uint32_t ab[MT][4], as[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-          split4(win[offa[i][0] + q0], win[offa[i][1] + q0], win[offa[i][0] + q1],
-                 win[offa[i][1] + q1], ab[i], as[i]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          // positions past the stage's last read as zero here, on B
-          const float b0 = v0 ? win[offb[j] + q0] : 0.f;
-          const float b1 = v1 ? win[offb[j] + q1] : 0.f;
-          uint32_t bb0, bs0, bb1, bs1;
-          split(b0, bb0, bs0);
-          split(b1, bb1, bs1);
+      if constexpr (kIsBf16<T>) {
+        // 16 positions a step: this thread's 2t, 2t+1, 2t+8, 2t+9
+        for (int k16 = ks; k16 < ksteps; k16 += TL::KSPLIT) {
+          const int p0 = 16 * k16 + 2 * tq;
+          const int q[4] = {poff[p0], poff[p0 + 1], poff[p0 + 8], poff[p0 + 9]};
+          const bool v[4] = {p0 < valid, p0 + 1 < valid, p0 + 8 < valid, p0 + 9 < valid};
+          uint32_t a[MT][4];
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
-            if (UNDER && 8 * j + 7 < 16 * i) continue;
-            mma_tf32(c[i][j], as[i], bb0, bb1);
-            mma_tf32(c[i][j], ab[i], bs0, bs1);
-            mma_tf32(c[i][j], ab[i], bb0, bb1);
+            const T* r0 = win + offa[i][0];
+            const T* r1 = win + offa[i][1];
+            a[i][0] = pack2(r0[q[0]], r0[q[1]]);
+            a[i][1] = pack2(r1[q[0]], r1[q[1]]);
+            a[i][2] = pack2(r0[q[2]], r0[q[3]]);
+            a[i][3] = pack2(r1[q[2]], r1[q[3]]);
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            // positions past the stage's last read as zero here, on B
+            const T* col = win + offb[j];
+            const uint32_t b0 = pack2(v[0] ? col[q[0]] : T(0), v[1] ? col[q[1]] : T(0));
+            const uint32_t b1 = pack2(v[2] ? col[q[2]] : T(0), v[3] ? col[q[3]] : T(0));
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              if (UNDER && 8 * j + 7 < 16 * i) continue;
+              mma_bf16(c[i][j], a[i], b0, b1);
+            }
+          }
+        }
+      } else {
+        for (int k8 = ks; k8 < ksteps; k8 += TL::KSPLIT) {
+          const int p0 = 8 * k8 + tq, p1 = p0 + 4;
+          const int q0 = poff[p0], q1 = poff[p1];
+          const bool v0 = p0 < valid, v1 = p1 < valid;
+          uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+            split4(win[offa[i][0] + q0], win[offa[i][1] + q0], win[offa[i][0] + q1],
+                   win[offa[i][1] + q1], ab[i], as[i]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            // positions past the stage's last read as zero here, on B
+            const float b0 = v0 ? win[offb[j] + q0] : 0.f;
+            const float b1 = v1 ? win[offb[j] + q1] : 0.f;
+            uint32_t bb0, bs0, bb1, bs1;
+            split(b0, bb0, bs0);
+            split(b1, bb1, bs1);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              if (UNDER && 8 * j + 7 < 16 * i) continue;
+              mma_tf32(c[i][j], as[i], bb0, bb1);
+              mma_tf32(c[i][j], ab[i], bs0, bs1);
+              mma_tf32(c[i][j], ab[i], bb0, bb1);
+            }
           }
         }
       }
@@ -354,7 +441,7 @@ patch_cov_mma(const float* __restrict__ x, float* __restrict__ part, const Geome
     // the K-split warps' sums, added in warp order through shared memory
     cp_async_wait<0>();
     __syncthreads();
-    float* red = smem;  // [KSPLIT][BT][BT]
+    float* red = reinterpret_cast<float*>(smem_raw);  // [KSPLIT][BT][BT]
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -413,7 +500,7 @@ int sm_count() {
 struct Plan {
   int tile;  // 0 KSplit (48), 1 Medium (64), 2 Wide (128)
   int mode;  // Mode
-  int vec;   // floats per copy: 1, 2 or 4
+  int vec;   // elements per copy: 1, 2 or 4 floats, or 1, 2, 4 or 8 bf16 values
   int splits;
   size_t smem;
 };
@@ -421,20 +508,21 @@ struct Plan {
 int tile_side(int tile) { return tile == 2 ? Wide::BT : tile == 1 ? Medium::BT : KSplit::BT; }
 
 // The copy route of a stage of g.R output rows of g.SW columns: the widest
-// copy whose chunks start aligned (a window row's chunks at multiples of V
-// from an image row's start, W % V == 0, column tiles being multiples of 8
-// columns; a flat stage's at multiples of V from a channel's start, H*W and
-// R*W % V == 0), and the layout.
+// copy (16 bytes down to one element) whose chunks start aligned (a window
+// row's chunks at multiples of V from an image row's start, W % V == 0,
+// column tiles being multiples of 8 columns; a flat stage's at multiples of
+// V from a channel's start, H*W and R*W % V == 0), and the layout.
 void choose_copy(const Geometry& g, Plan& pl, uintptr_t addr) {
   const bool flat = g.kh == 1 && g.kw == 1 && g.sh == 1 && g.sw == 1 && g.ph == 0 &&
                     g.pw == 0 && g.SW == g.OW;
-  const int n = flat ? g.H * g.W : g.W;
-  pl.vec = n % 4 == 0 && addr % 16 == 0 ? 4 : n % 2 == 0 && addr % 8 == 0 ? 2 : 1;
+  const int n = flat ? g.H * g.W : g.W, w16 = 16 / g.esize;
+  pl.vec = w16;
+  while (pl.vec > 1 && (n % pl.vec || addr % (pl.vec * g.esize))) pl.vec /= 2;
   pl.mode = flat ? kFlat : kRows;
   while (flat && g.R * g.SW % pl.vec) pl.vec /= 2;
-  if (flat && pl.vec < 4 && g.R == g.OH && g.chw % 4 == 0 && addr % 16 == 0) {
+  if (flat && pl.vec < w16 && g.R == g.OH && g.chw * g.esize % 16 == 0 && addr % 16 == 0) {
     pl.mode = kSlab;
-    pl.vec = 4;
+    pl.vec = w16;
   }
 }
 
@@ -446,7 +534,8 @@ void fill(Geometry& g, Plan& pl, int B) {
   g.ct = min(g.C, (bt - 2) / kk + 2);  // channels bt consecutive features span
   g.nC = (g.OW + g.SW - 1) / g.SW;
   g.L = g.R * g.SW;
-  g.Lp = (g.L + 7) / 8 * 8;
+  const int depth = g.esize == 2 ? 16 : 8;  // the MMA's K
+  g.Lp = (g.L + depth - 1) / depth * depth;
   // one output row's window holds only the kh input rows its taps read
   g.rstep = g.R == 1 ? g.dh : 1;
   g.fr = g.R == 1 ? 1 : g.dh;
@@ -462,15 +551,17 @@ void fill(Geometry& g, Plan& pl, int B) {
     const int last = (g.SW - 1) * g.sw + (g.kw - 1) * g.dw - g.pw;
     g.Wp = (last - g.col0 + pl.vec) / pl.vec * pl.vec;
   }
-  // rows padded to 4 mod 32 floats: 16-byte aligned, and a warp's 8
-  // channels x 4 positions of a 1x1 conv fall in 32 distinct banks; a
-  // slab's channels lie unpadded, as in x
-  g.plane = pl.mode == kSlab ? g.H * g.W : (g.HR * g.Wp + 31) / 32 * 32 + 4;
-  // the ones plane past the channels (a slab's copies end at most 6 floats
-  // past ct planes)
-  g.ones = g.ct * g.plane + (pl.mode == kSlab ? 8 : 0);
-  g.sub = (g.ones + g.plane + 3) / 4 * 4;
-  const size_t ring = sizeof(float) * kStages * 2 * g.sub + sizeof(int) * g.Lp;
+  // rows padded to 16 mod 128 bytes (4 mod 32 floats, 8 mod 64 bf16
+  // values): 16-byte aligned, and a warp's 8 channels x 4 positions of a
+  // 1x1 conv fall in 32 distinct banks; a slab's channels lie unpadded, as
+  // in x
+  const int w16 = 16 / g.esize;  // elements per 16 bytes
+  g.plane = pl.mode == kSlab ? g.H * g.W : (g.HR * g.Wp + 8 * w16 - 1) / (8 * w16) * (8 * w16) + w16;
+  // the ones plane past the channels (a slab's copies end less than 16
+  // bytes past ct planes)
+  g.ones = g.ct * g.plane + (pl.mode == kSlab ? 2 * w16 : 0);
+  g.sub = (g.ones + g.plane + w16 - 1) / w16 * w16;
+  const size_t ring = (size_t)g.esize * kStages * 2 * g.sub + sizeof(int) * g.Lp;
   const size_t red = pl.tile == 0 ? sizeof(float) * KSplit::KSPLIT * KSplit::BT * KSplit::BT : 0;
   pl.smem = ring > red ? ring : red;
   g.total = (long long)B * g.chw;
@@ -559,33 +650,47 @@ bool adopt(Geometry& g, int B, uintptr_t addr, const int* in, Plan& pl) {
          (g.units + g.units_per_split - 1) / g.units_per_split == pl.splits;
 }
 
-template <class TL, int MODE, int V>
-cudaError_t run(const float* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+template <class TL, int MODE, int V, class T>
+cudaError_t run(const T* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      patch_cov_mma<TL, MODE, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      patch_cov_mma<TL, MODE, V, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(g.nT * (g.nT + 1) / 2, pl.splits, g.groups);
-  patch_cov_mma<TL, MODE, V><<<grid, TL::kThreads, pl.smem, s>>>(x, part, g);
+  patch_cov_mma<TL, MODE, V, T><<<grid, TL::kThreads, pl.smem, s>>>(x, part, g);
   return cudaGetLastError();
 }
 
-template <class TL, int MODE>
-cudaError_t run_vec(const float* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+template <class TL, int MODE, class T>
+cudaError_t run_vec(const T* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+  if constexpr (kIsBf16<T>)
+    if (pl.vec == 8) return run<TL, MODE, 8>(x, part, g, pl, s);
   return pl.vec == 4 ? run<TL, MODE, 4>(x, part, g, pl, s)
        : pl.vec == 2 ? run<TL, MODE, 2>(x, part, g, pl, s)
                      : run<TL, MODE, 1>(x, part, g, pl, s);
 }
 
-template <class TL>
-cudaError_t run_copy(const float* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
-  return pl.mode == kSlab ? run<TL, kSlab, 4>(x, part, g, pl, s)
+template <class TL, class T>
+cudaError_t run_copy(const T* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+  return pl.mode == kSlab ? run<TL, kSlab, 16 / (int)sizeof(T)>(x, part, g, pl, s)
        : pl.mode == kFlat ? run_vec<TL, kFlat>(x, part, g, pl, s)
                           : run_vec<TL, kRows>(x, part, g, pl, s);
 }
 
+template <class T>
+cudaError_t run_tile(const void* x, float* part, const Geometry& g, const Plan& pl, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  switch (pl.tile) {
+    case 2: return run_copy<Wide>(xt, part, g, pl, s);
+    case 1: return run_copy<Medium>(xt, part, g, pl, s);
+    default: return run_copy<KSplit>(xt, part, g, pl, s);
+  }
+}
+
 Geometry geometry(int C, int H, int W, int kh, int kw, int sh, int sw, int ph,
-                  int pw, int dh, int dw, int OH, int OW, int has_bias, int groups) {
+                  int pw, int dh, int dw, int OH, int OW, int has_bias, int groups,
+                  int bf16) {
   Geometry g{};
+  g.esize = bf16 ? 2 : 4;
   g.C = C / groups; g.H = H; g.W = W; g.kh = kh; g.kw = kw; g.sh = sh;
   g.sw = sw; g.ph = ph; g.pw = pw; g.dh = dh; g.dw = dw; g.OH = OH;
   g.OW = OW;
@@ -600,20 +705,20 @@ Geometry geometry(int C, int H, int W, int kh, int kw, int sh, int sw, int ph,
 
 // The plan kfac_patch_cov takes for these inputs, into out[0..6]: the tile
 // (0: 48 x 48, or one block per narrow group; 1: 64 x 64; 2: 128 x 128),
-// the copy width in bytes (4, 8 or 16), the stage's layout (Mode: 0 a
+// the copy width in bytes (2, 4, 8 or 16), the stage's layout (Mode: 0 a
 // window of input rows, 1 each channel's contiguous rows, 2 one slab), the
 // splits, the output rows and columns per stage, and the side P of each
 // partial tile (the scratch kfac_patch_cov takes is [splits, groups, P, P]
-// floats).
+// floats). bf16: x is bfloat16 (else float32).
 extern "C" int kfac_patch_cov_plan(const void* x, int B, int C, int H, int W,
                                    int kh, int kw, int sh, int sw, int ph,
                                    int pw, int dh, int dw, int OH, int OW,
-                                   int has_bias, int groups, int* out) {
-  Geometry g = geometry(C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias, groups);
+                                   int has_bias, int groups, int bf16, int* out) {
+  Geometry g = geometry(C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias, groups, bf16);
   Plan pl;
   if (!plan(g, B, reinterpret_cast<uintptr_t>(x), pl)) return (int)cudaErrorInvalidValue;
   out[0] = pl.tile;
-  out[1] = 4 * pl.vec;
+  out[1] = g.esize * pl.vec;
   out[2] = pl.mode;
   out[3] = pl.splits;
   out[4] = g.R;
@@ -622,26 +727,21 @@ extern "C" int kfac_patch_cov_plan(const void* x, int B, int C, int H, int W,
   return 0;
 }
 
-// x: [B, C, H, W]; C counts every group's channels. plan: what
-// kfac_patch_cov_plan returned for this geometry and x's alignment; part:
-// the scratch it sizes; out: [groups, Fp, Fp].
+// x: [B, C, H, W], float32 or (bf16) bfloat16; C counts every group's
+// channels. plan: what kfac_patch_cov_plan returned for this geometry, x's
+// type and its alignment; part: the scratch it sizes; out: [groups, Fp,
+// Fp] float32.
 extern "C" int kfac_patch_cov(const void* x, void* part, void* out, int B,
                               int C, int H, int W, int kh, int kw, int sh,
                               int sw, int ph, int pw, int dh, int dw, int OH,
-                              int OW, int has_bias, int groups,
+                              int OW, int has_bias, int groups, int bf16,
                               const int* plan, float scale, void* stream) {
-  Geometry g = geometry(C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias, groups);
+  Geometry g = geometry(C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias, groups, bf16);
   Plan pl;
   if (!adopt(g, B, reinterpret_cast<uintptr_t>(x), plan, pl)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
   float* pf = static_cast<float*>(part);
-  cudaError_t err;
-  switch (pl.tile) {
-    case 2: err = run_copy<Wide>(xf, pf, g, pl, s); break;
-    case 1: err = run_copy<Medium>(xf, pf, g, pl, s); break;
-    default: err = run_copy<KSplit>(xf, pf, g, pl, s); break;
-  }
+  const cudaError_t err = bf16 ? run_tile<Bf16>(x, pf, g, pl, s) : run_tile<float>(x, pf, g, pl, s);
   if (err != cudaSuccess) return (int)err;
   const int side = g.nT * tile_side(pl.tile);
   patch_cov_reduce<<<dim3((g.Fp + 127) / 128, g.Fp, groups), 128, 0, s>>>(

@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -35,3 +36,53 @@ def use_ieee_f32() -> None:
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# precond_precision names, as the JAX package takes them (lax.Precision)
+PRECOND_PRECISIONS = ("default", "high", "highest")
+
+
+def resolve_precond_precision(precision: Optional[str]) -> Optional[str]:
+    """Validate ``precond_precision``: ``None`` or one of
+    :data:`PRECOND_PRECISIONS` (any case), returned lower-cased."""
+    if precision is None:
+        return None
+    name = str(precision).lower()
+    if name not in PRECOND_PRECISIONS:
+        raise ValueError(
+            f"Invalid precond_precision: {precision!r} (choose from "
+            f"{PRECOND_PRECISIONS} or None)"
+        )
+    return name
+
+
+@contextlib.contextmanager
+def rotation_precision(precision: Optional[str]) -> Iterator[None]:
+    """The matmul precision of the dense eigenbasis rotations (and the
+    inverse method's products) inside the block, restored after it.
+
+    The JAX package's ``precond_precision`` maps onto the card as follows:
+
+    * ``None``, ``"highest"`` and ``"high"``: IEEE float32, what
+      :func:`use_ieee_f32` sets. cuBLAS has no 3-pass (3xTF32) float32
+      route, and IEEE float32 is at least as exact as the TPU's 3-pass
+      bf16 ``HIGH``;
+    * ``"default"``: one TF32 pass (10 mantissa bits per operand, float32
+      accumulation), for these products only. Its bound: each rotation's
+      entries within ~2^-10 relative of the float32 product per operand
+      rounding, so an update within ~1e-2 relative of the IEEE one after
+      the four rotations and the damped divide (``chip_smoke.py`` holds the
+      card to it).
+
+    On the CPU all three names compute in float32 (the flag is the CUDA
+    matmul's), as the JAX package's names do on the CPU.
+    """
+    if precision != "default":
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

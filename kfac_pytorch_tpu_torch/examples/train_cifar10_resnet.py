@@ -10,9 +10,12 @@ noise with ``--synthetic``; with data it evaluates the whole test split
 after each epoch. ``--checkpoint-dir`` saves ``checkpoint-<epoch>`` after
 each epoch and resumes from the newest one; ``--log-dir`` writes
 ``scalars.jsonl`` (it defaults to none here, ``./logs`` in the JAX
-trainer). Every other flag of the JAX trainer is accepted with its default
-and, set to anything else, raises ``SystemExit`` naming the ROADMAP item
-that ports it.
+trainer). ``--bf16`` computes the convs and BatchNorm in bfloat16 (float32
+master weights, K-FAC state and loss), ``--eigen-dtype bf16`` stores the
+eigenvectors in bfloat16, ``--precond-precision`` sets the dense
+rotations' matmul precision. Every other flag of the JAX trainer is
+accepted with its default and, set to anything else, raises
+``SystemExit`` naming the ROADMAP item that ports it.
 
     python -m kfac_pytorch_tpu_torch.examples.train_cifar10_resnet \\
         --data-dir /path/to/cifar-10-batches-py --model resnet32 --epochs 100
@@ -79,10 +82,7 @@ _LATER_FLAGS = (
     ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
     ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
     ("--factor-sharding", str, "replicated", "7 (owner-sharded factors)"),
-    ("--precond-precision", str, None, "4 (precond_precision)"),
-    ("--eigen-dtype", str, "f32", "4 (bf16 eigen_dtype)"),
     ("--eigh-chunks", int, 1, "7 (pipelined refresh)"),
-    ("--bf16", None, False, "4 (bf16 compute)"),
     ("--profile-epoch", int, None, "9 (training/profiling.py)"),
     ("--telemetry-dir", str, None, "9 (observability/)"),
     ("--solver", str, "eigh", "7 (solvers)"),
@@ -106,6 +106,31 @@ _SYNTH_FLAGS = (
     ("--synth-val-label-noise", float, 0.0,
      "stand-in VAL label flip fraction f (a hard accuracy ceiling of 1-f)"),
 )
+
+
+def add_precision_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX image trainers' precision flags: ``--precond-precision``,
+    ``--eigen-dtype`` and ``--bf16``."""
+    p.add_argument("--precond-precision", default=None,
+                   choices=["default", "high", "highest"],
+                   help="matmul precision of the dense eigenbasis rotations "
+                        "(default: one TF32 pass on the GPU; high, highest: "
+                        "IEEE float32); None = IEEE float32; the fused apply "
+                        "kernel ignores it")
+    p.add_argument("--eigen-dtype", default="f32", choices=["f32", "bf16"],
+                   help="storage dtype of the eigenvector matrices (bf16 "
+                        "halves the fused apply's largest input stream)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 conv/BatchNorm compute (params, K-FAC factor "
+                        "math and the loss stay float32)")
+
+
+def precision_kwargs(args) -> Dict[str, object]:
+    """``KFAC`` keyword arguments of :func:`add_precision_flags`' flags."""
+    return {
+        "eigen_dtype": torch.bfloat16 if args.eigen_dtype == "bf16" else torch.float32,
+        "precond_precision": args.precond_precision,
+    }
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -159,6 +184,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="preconditioned apply + SGD: kernel = the fused CUDA "
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
+    add_precision_flags(p)
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch K-FAC stability diagnostics (nu, "
                         "damped eigenvalues, condition numbers, update/grad "
@@ -195,6 +221,7 @@ def build(args, device: torch.device):
     model = cifar_resnet.get_model(
         args.model, num_classes=args.synth_classes,
         generator=torch.Generator().manual_seed(args.seed),
+        dtype=torch.bfloat16 if args.bf16 else None,
     ).to(device)
     tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
     kfac = None
@@ -211,6 +238,7 @@ def build(args, device: torch.device):
             diag_warmup=args.diag_warmup,
             precond_method=args.precond_method,
             track_diagnostics=args.kfac_diagnostics,
+            **precision_kwargs(args),
             factor_kernel=args.factor_kernel,
             apply_kernel=args.apply_kernel,
             device=device,

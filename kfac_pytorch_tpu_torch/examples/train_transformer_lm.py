@@ -4,9 +4,13 @@ Twin of the JAX package's ``examples/train_transformer_lm.py`` for one
 device: the same flags with the same defaults for what this slice carries
 (model widths, SGD with global-norm clipping, K-FAC with an optional
 diagonal-A token embedding), the same synthetic corpus, BPTT segments,
-K-FAC gating and per-epoch validation loss. Every other flag of the JAX
+K-FAC gating and per-epoch validation loss, ``scalars.jsonl`` under
+``--log-dir`` (the JAX trainer's tags; with ``--kfac-diagnostics`` also
+the per-epoch mean of every ``kfac_*`` diagnostic) and checkpoints with
+auto-resume under ``--checkpoint-dir``. Every other flag of the JAX
 trainer is accepted with its default and, set to anything else, raises
-``SystemExit`` naming the ROADMAP item that ports it.
+``SystemExit`` naming the ROADMAP item that ports it. ``--log-dir``
+defaults to none here (``./logs`` in the JAX trainer).
 
     python -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --d-model 512 --n-heads 8 --n-layers 4 --seq-len 2048 \\
@@ -16,8 +20,9 @@ Attention runs the CUDA flash kernels on a GPU
 (``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
 ``--device cpu`` is given, and raises when CUDA is asked for and absent.
 ``main()`` returns the per-step history (loss, step kind, wall
-milliseconds measured around a synchronized step) and the per-epoch
-validation loss.
+milliseconds measured around a synchronized step and, with
+``--kfac-diagnostics``, each ``kfac_*`` diagnostic), the per-epoch
+validation loss, and the restore milliseconds of a resume.
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ from kfac_pytorch_tpu_torch.models import transformer_lm
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
 from kfac_pytorch_tpu_torch.parallel.context import full_attention
+from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.step import (
     TrainState,
     kfac_flags_for_step,
@@ -51,8 +58,6 @@ SYNTHETIC_VOCAB = 1000
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
     ("--data-dir", str, None, "8 (WikiText data)"),
-    ("--log-dir", str, "./logs", "4 (training/metrics.py)"),
-    ("--checkpoint-dir", str, None, "4 (training/checkpoint.py)"),
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
     ("--seq-parallel", int, 1, "8 (sequence parallelism)"),
@@ -79,7 +84,6 @@ _LATER_FLAGS = (
     ("--autotune-steps", int, 0, "9 (planner/)"),
     ("--profile-epoch", int, None, "9 (observability/)"),
     ("--telemetry-dir", str, None, "9 (observability/)"),
-    ("--kfac-diagnostics", None, False, "4 (track_diagnostics)"),
 )
 
 
@@ -89,6 +93,9 @@ def parse_args(argv=None):
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--log-dir", default=None, help="scalars.jsonl dir")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint dir (enables save/resume)")
     p.add_argument("--d-model", type=int, default=256)
     p.add_argument("--n-heads", type=int, default=4)
     p.add_argument("--n-layers", type=int, default=2)
@@ -115,6 +122,10 @@ def parse_args(argv=None):
                    help="preconditioned apply + SGD: kernel = the fused CUDA "
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
+    p.add_argument("--kfac-diagnostics", action="store_true",
+                   help="log per-epoch means of the K-FAC health diagnostics "
+                        "(nu, damped eigenvalues, condition numbers, "
+                        "update/grad geometry) to --log-dir")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, kind, default, _ in _LATER_FLAGS:
@@ -165,6 +176,7 @@ def build(args, device: torch.device, oracle: bool = False):
             kl_clip=args.kl_clip,
             fac_update_freq=args.kfac_cov_update_freq,
             kfac_update_freq=args.kfac_update_freq,
+            track_diagnostics=args.kfac_diagnostics,
             factor_kernel="dense" if oracle else "auto",
             apply_kernel="dense" if oracle else args.apply_kernel,
             device=device,
@@ -195,11 +207,21 @@ def main(argv=None) -> Dict[str, List]:
     device = resolve_device(args.device)
     use_ieee_f32()
     model, kfac, state, train_step, splits = build(args, device)
+    history: Dict[str, List] = {
+        "loss": [], "kind": [], "step_ms": [], "val_loss": [], "restore_ms": [],
+    }
+    resume_from_epoch = 0
+    if args.checkpoint_dir:
+        t0 = time.perf_counter()
+        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        if resume_from_epoch:
+            history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            print(f"resumed from epoch {resume_from_epoch - 1}")
     kfac_sched = None
     if kfac is not None and args.damping_schedule:
         kfac_sched = KFACParamScheduler(
             kfac, damping_alpha=args.damping_alpha,
-            damping_schedule=args.damping_schedule,
+            damping_schedule=args.damping_schedule, start_epoch=resume_from_epoch,
         )
     eval_step = make_eval_step(model)
 
@@ -207,14 +229,15 @@ def main(argv=None) -> Dict[str, List]:
     stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
     max_steps = (stream.shape[1] - 1) // args.seq_len
     steps_per_epoch = min(args.steps_per_epoch or max_steps, max_steps)
+    writer = ScalarWriter(args.log_dir)
 
-    history: Dict[str, List] = {"loss": [], "kind": [], "step_ms": [], "val_loss": []}
-    step = 0
-    for epoch in range(args.epochs):
+    step = state.step
+    for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
         t0 = time.perf_counter()
-        losses = []
+        loss_m = Metric("train/loss")
+        diag: Dict[str, List[float]] = {}
         for i, (toks, tgts) in enumerate(data_lib.bptt_batches(stream, args.seq_len)):
             if i >= steps_per_epoch:
                 break
@@ -227,24 +250,40 @@ def main(argv=None) -> Dict[str, List]:
                 state, batch, args.base_lr,
                 kfac.hparams.damping if kfac else 0.0, **flags,
             )
-            loss = float(metrics["loss"])  # waits for the step
+            # one read of every scalar the host logs: waits for the step
+            keys = sorted(metrics)
+            values = dict(zip(keys, torch.stack(
+                [metrics[k].float() for k in keys]).tolist()))
             history["step_ms"].append((time.perf_counter() - ts) * 1e3)
-            history["loss"].append(loss)
+            history["loss"].append(values["loss"])
             history["kind"].append(
                 "refresh" if flags.get("update_eigen")
                 else "capture" if flags.get("update_factors") else "plain"
             )
-            losses.append(loss)
+            loss_m.update(values["loss"])
+            for k, v in values.items():
+                if k.startswith("kfac_"):
+                    diag.setdefault(k, []).append(v)
+                    history.setdefault(k, []).append(v)
             step += 1
         # the token-count kernel tallies ids outside the vocabulary on the
         # card; read the tally once an epoch, where the host waits anyway
         check_token_ids(device)
         dt = time.perf_counter() - t0
-        mean = sum(losses) / len(losses)
+        ppl = math.exp(min(loss_m.avg, 20.0))
         print(
-            f"epoch {epoch}: loss={mean:.4f} ppl={math.exp(min(mean, 20.0)):.1f} "
+            f"epoch {epoch}: loss={loss_m.avg:.4f} ppl={ppl:.1f} "
             f"{steps_per_epoch * args.batch_size * args.seq_len / dt:.0f} tok/s ({dt:.1f}s)"
         )
+        writer.add_scalar("train/loss", loss_m.avg, epoch)
+        writer.add_scalar("train/ppl", ppl, epoch)
+        if diag:
+            means = {k: sum(v) / len(v) for k, v in sorted(diag.items())}
+            for k, v in means.items():
+                writer.add_scalar(f"kfac/{k[5:]}_mean", v, epoch)  # kfac_x -> kfac/x_mean
+            print(f"  kfac: nu={means.get('kfac_nu', 0.0):.4f} "
+                  f"cond_max={means.get('kfac_cond_max', 0.0):.3e} "
+                  f"upd_cos={means.get('kfac_update_grad_cos', 0.0):.3f}")
         val = data_lib.batchify_tokens(splits["valid"], args.batch_size)
         vl = [
             float(eval_step(state, device_batch(toks, tgts, device))["loss"])
@@ -254,6 +293,11 @@ def main(argv=None) -> Dict[str, List]:
             v = sum(vl) / len(vl)
             history["val_loss"].append(v)
             print(f"  val: loss={v:.4f} ppl={math.exp(min(v, 20.0)):.1f}")
+            writer.add_scalar("val/loss", v, epoch)
+            writer.add_scalar("val/ppl", math.exp(min(v, 20.0)), epoch)
+        if args.checkpoint_dir:
+            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
+    writer.close()
     return history
 
 

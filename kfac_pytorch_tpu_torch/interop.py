@@ -33,9 +33,6 @@ from typing import Any, Dict, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-_CIFAR_DEPTHS = {20, 32, 44, 56, 110, 1202}
-
-
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
@@ -65,12 +62,17 @@ def _put_bn(sd, prefix: str, p: Dict[str, Any], s: Dict[str, Any]) -> None:
 def state_dict_from_jax(
     params: Dict[str, Any], batch_stats: Dict[str, Any], arch: str
 ) -> "OrderedDict[str, torch.Tensor]":
-    """JAX CIFAR ``(params, batch_stats)`` → the port's ``state_dict``."""
+    """JAX CIFAR ``(params, batch_stats)`` → the port's ``state_dict``.
+
+    ``arch`` is ``resnet{6n+2}`` for any ``n >= 1`` blocks per stage, as
+    the flax ``CifarResNet`` takes any ``stage_sizes=(n, n, n)`` (the zoo's
+    names are resnet20/32/44/56/110/1202; ``resnet8`` is one block per
+    stage)."""
     suffix = arch[len("resnet"):] if arch.startswith("resnet") else ""
-    if not suffix.isdigit() or int(suffix) not in _CIFAR_DEPTHS:
+    if not suffix.isdigit() or int(suffix) < 8 or (int(suffix) - 2) % 6:
         raise ValueError(
-            f"unsupported cifar arch {arch!r} (supported: "
-            f"{sorted('resnet%d' % d for d in _CIFAR_DEPTHS)})"
+            f"unsupported cifar arch {arch!r} (resnet{{6n+2}} for n >= 1 "
+            "blocks per stage)"
         )
     n = (int(suffix) - 2) // 6
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()

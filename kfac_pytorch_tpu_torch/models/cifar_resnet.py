@@ -13,6 +13,13 @@ training normalizes with the biased batch statistics and the running
 buffers take ``0.9·running + 0.1·batch`` with the BIASED batch variance
 (PyTorch's own update uses the unbiased one), so the module updates its
 buffers itself.
+
+``dtype`` (the flax model's; ``--bf16`` passes ``torch.bfloat16``) is the
+compute type of the convs and BatchNorm: activations flow in it from the
+stem conv to the mean pool, the head takes them in float32, and every
+parameter and BatchNorm buffer stays float32. BatchNorm in bfloat16
+computes its statistics and the normalization in float32 and returns
+bfloat16, as flax's does.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a bfloat16 x normalizes in float32 (float32 weight and statistics)
+        # and comes back bfloat16
         if not self.training:
             return F.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
@@ -42,7 +51,7 @@ class BatchNorm2d(nn.BatchNorm2d):
             )
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
             self.running_var.copy_(keep * self.running_var + self.momentum * var)
@@ -53,11 +62,13 @@ class BatchNorm2d(nn.BatchNorm2d):
 class BasicBlock(nn.Module):
     """Two 3×3 convs + BN with an option-A (parameter-free) shortcut."""
 
-    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = KFACConv(in_planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.conv1 = KFACConv(in_planes, planes, 3, stride=stride, padding=1, bias=False,
+                              compute_dtype=dtype)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = KFACConv(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = KFACConv(planes, planes, 3, padding=1, bias=False, compute_dtype=dtype)
         self.bn2 = BatchNorm2d(planes)
         self.stride = stride
         self.pad = planes - in_planes
@@ -76,16 +87,17 @@ class BasicBlock(nn.Module):
 class CifarResNet(nn.Module):
     """Stem + 3 stages + global-avg-pool + dense head."""
 
-    def __init__(self, num_blocks: int, num_classes: int = 10):
+    def __init__(self, num_blocks: int, num_classes: int = 10,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = KFACConv(3, 16, 3, padding=1, bias=False)
+        self.conv1 = KFACConv(3, 16, 3, padding=1, bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm2d(16)
         in_planes = 16
         for stage, planes in enumerate((16, 32, 64)):
             blocks = []
             for i in range(num_blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                blocks.append(BasicBlock(in_planes, planes, stride))
+                blocks.append(BasicBlock(in_planes, planes, stride, dtype))
                 in_planes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.linear = KFACDense(64, num_classes)
@@ -126,12 +138,13 @@ def get_model(
     name: str,
     num_classes: int = 10,
     generator: Optional[torch.Generator] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> CifarResNet:
     """Factory by name (the CLI's ``--model``), built on the CPU from
-    ``generator`` (seed 0 when none is given)."""
+    ``generator`` (seed 0 when none is given), computing in ``dtype``."""
     if name not in _DEPTHS:
         raise ValueError(f"unknown cifar model {name!r}; options: {sorted(_DEPTHS)}")
-    model = CifarResNet(_DEPTHS[name], num_classes)
+    model = CifarResNet(_DEPTHS[name], num_classes, dtype)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model
 

@@ -20,6 +20,9 @@ running-statistics update. Weights are drawn on the CPU from an explicit
 ``torch.Generator``: convs Kaiming-normal with fan-out (the JAX model's
 ``variance_scaling(2, "fan_out", "normal")``), the head flax's default
 LeCun-normal (truncated at ±2σ), zero biases, unit BatchNorm scales.
+``dtype`` is the compute type of every conv (grouped included) and
+BatchNorm, as in ``cifar_resnet``: the head takes float32, parameters and
+buffers stay float32.
 """
 
 from __future__ import annotations
@@ -35,12 +38,13 @@ from kfac_pytorch_tpu_torch.models.cifar_resnet import BatchNorm2d
 from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense
 
 
-def _conv(cin, cout, k, stride=1, padding=0, groups=1) -> KFACConv:
-    return KFACConv(cin, cout, k, stride=stride, padding=padding, groups=groups, bias=False)
+def _conv(cin, cout, k, stride=1, padding=0, groups=1, dtype=None) -> KFACConv:
+    return KFACConv(cin, cout, k, stride=stride, padding=padding, groups=groups, bias=False,
+                    compute_dtype=dtype)
 
 
-def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(_conv(cin, cout, 1, stride), BatchNorm2d(cout))
+def _downsample(cin: int, cout: int, stride: int, dtype=None) -> nn.Sequential:
+    return nn.Sequential(_conv(cin, cout, 1, stride, dtype=dtype), BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
@@ -49,14 +53,15 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, base_width: int = 64, groups: int = 1):
+                 downsample: bool = False, base_width: int = 64, groups: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         del base_width, groups
-        self.conv1 = _conv(in_planes, planes, 3, stride, 1)
+        self.conv1 = _conv(in_planes, planes, 3, stride, 1, dtype=dtype)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3, 1, 1)
+        self.conv2 = _conv(planes, planes, 3, 1, 1, dtype=dtype)
         self.bn2 = BatchNorm2d(planes)
-        self.downsample = _downsample(in_planes, planes, stride) if downsample else None
+        self.downsample = _downsample(in_planes, planes, stride, dtype) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -71,17 +76,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, base_width: int = 64, groups: int = 1):
+                 downsample: bool = False, base_width: int = 64, groups: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
         out = planes * self.expansion
-        self.conv1 = _conv(in_planes, width, 1)
+        self.conv1 = _conv(in_planes, width, 1, dtype=dtype)
         self.bn1 = BatchNorm2d(width)
-        self.conv2 = _conv(width, width, 3, stride, 1, groups)
+        self.conv2 = _conv(width, width, 3, stride, 1, groups, dtype=dtype)
         self.bn2 = BatchNorm2d(width)
-        self.conv3 = _conv(width, out, 1)
+        self.conv3 = _conv(width, out, 1, dtype=dtype)
         self.bn3 = BatchNorm2d(out)
-        self.downsample = _downsample(in_planes, out, stride) if downsample else None
+        self.downsample = _downsample(in_planes, out, stride, dtype) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -98,9 +104,10 @@ class ImageNetResNet(nn.Module):
     """Stem + ``len(stage_sizes)`` stages of widths 64·2ˢ + mean pool + head."""
 
     def __init__(self, block: Block, stage_sizes: Sequence[int], num_classes: int = 1000,
-                 groups: int = 1, width_per_group: int = 64):
+                 groups: int = 1, width_per_group: int = 64,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = _conv(3, 64, 7, 2, 3)
+        self.conv1 = _conv(3, 64, 7, 2, 3, dtype=dtype)
         self.bn1 = BatchNorm2d(64)
         in_planes = 64
         for stage, blocks in enumerate(stage_sizes):
@@ -110,7 +117,7 @@ class ImageNetResNet(nn.Module):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 downsample = stride != 1 or in_planes != planes * block.expansion
                 layers.append(block(in_planes, planes, stride, downsample,
-                                    width_per_group, groups))
+                                    width_per_group, groups, dtype))
                 in_planes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layers))
         self.num_stages = len(stage_sizes)
@@ -160,12 +167,13 @@ def get_model(
     name: str,
     num_classes: int = 1000,
     generator: Optional[torch.Generator] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> ImageNetResNet:
     """Factory by name (the CLI's ``--model``), built on the CPU from
-    ``generator`` (seed 0 when none is given)."""
+    ``generator`` (seed 0 when none is given), computing in ``dtype``."""
     if name not in _MODELS:
         raise ValueError(f"unknown imagenet model {name!r}; options: {sorted(_MODELS)}")
     block, sizes, groups, width = _MODELS[name]
-    model = ImageNetResNet(block, sizes, num_classes, groups, width)
+    model = ImageNetResNet(block, sizes, num_classes, groups, width, dtype)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model

@@ -6,12 +6,19 @@ Port of ``KFACConv``, ``KFACDense`` and ``KFACEmbed`` from
 because JAX has no hooks; here the layers are plain PyTorch modules that
 mark themselves as preconditionable, and ``capture.py`` attaches forward
 and backward hooks to them — the reference's own design.
+
+``KFACConv`` and ``KFACDense`` take a ``compute_dtype`` (the flax layers'
+``dtype``; ``nn.Conv2d``'s own ``dtype`` argument is the parameters'):
+the input and the weight are cast to it for the product, as flax's
+``promote_dtype`` does, while the parameters stay float32 master weights
+and their gradients float32. ``None`` computes in the input's type.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
+import torch
 import torch.nn as nn
 
 
@@ -24,12 +31,20 @@ class KFACConv(nn.Conv2d):
     ``(in/G)·kh·kw (+1)`` A side and an ``out/G`` G side.
     """
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
         super().__init__(*args, **kwargs)
         if self.padding_mode != "zeros":
             raise NotImplementedError(
                 f"KFACConv supports zero padding only, got {self.padding_mode!r}"
             )
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
     def factor_padding(self) -> Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]:
         """This conv's padding in the factor functions' form."""
@@ -41,6 +56,19 @@ class KFACConv(nn.Conv2d):
 
 class KFACDense(nn.Linear):
     """Dense layer (``y = x Wᵀ + b``) that K-FAC preconditions."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = x.to(dt) @ self.weight.to(dt).T
+        # the bias is added after the product, in the compute type, as the
+        # flax layer adds it
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class KFACEmbed(nn.Embedding):

@@ -8,7 +8,9 @@ its plain PyTorch version beside it and a launch counter on the wrapper
   ``v = QG·[(QGᵀ·g·QA)/(dG dAᵀ + λ)]·QAᵀ`` plus the per-layer KL-clip
   partial ``Σ v·g`` (``csrc/fused_apply.cu``, four 3xTF32 tensor-core
   GEMM launches, replacing the TPU kernel ``fused_precondition_stack`` →
-  ``_fused_apply_kernel``);
+  ``_fused_apply_kernel``); ``QA``/``QG`` in float32 or, under
+  ``eigen_dtype=torch.bfloat16``, in bfloat16 (the bf16-Q route: Q read at
+  half the bytes, two TF32 products per product);
 * :func:`fused_sgd_apply` — ``m' = μ·m + (g + wd·p); p' = p − lr·m'`` over
   every parameter leaf, updating params and momentum IN PLACE
   (``csrc/fused_sgd.cu``, one launch for up to 896 leaves, replacing
@@ -63,7 +65,9 @@ def fused_precondition_stack_plain(
     dg: torch.Tensor,
     damping,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: the same four products and the same sums."""
+    """Plain PyTorch version: the same four products and the same sums
+    (bfloat16 Q upcast to float32 first, as the TPU kernel upcasts it)."""
+    qa, qg = qa.float(), qg.float()
     t = qg.transpose(1, 2) @ gm
     t = (t @ qa) / (dg[:, :, None] * da[:, None, :] + damping)
     v = (qg @ t) @ qa.transpose(1, 2)
@@ -88,8 +92,9 @@ def fused_precondition_stack(
     """Fused ``precondition_all`` chain for one shape group.
 
     ``gm [k, g, a]``, ``qa [k, a, a]``, ``da [k, a]``, ``qg [k, g, g]``,
-    ``dg [k, g]``, ``damping`` a float or 0-d tensor. Returns
-    ``(v [k, g, a], vg [k])`` float32.
+    ``dg [k, g]``, ``damping`` a float or 0-d tensor; everything float32
+    but ``qa`` and ``qg``, which may both be bfloat16 (the kernel's bf16-Q
+    route). Returns ``(v [k, g, a], vg [k])`` float32.
     """
     if gm.device.type == "cpu":
         return fused_precondition_stack_plain(gm, qa, da, qg, dg, damping)
@@ -97,17 +102,15 @@ def fused_precondition_stack(
         raise ValueError(f"fused_precondition_stack: unsupported device {gm.device}")
     k, g, a = gm.shape
     want = {"gm": (k, g, a), "qa": (k, a, a), "da": (k, a), "qg": (k, g, g), "dg": (k, g)}
+    q_dtype = torch.bfloat16 if qa.dtype == torch.bfloat16 else torch.float32
     tensors = {"gm": gm, "qa": qa, "da": da, "qg": qg, "dg": dg}
     for key, t in tensors.items():
-        if (
-            t.device != gm.device
-            or t.dtype != torch.float32
-            or tuple(t.shape) != want[key]
-        ):
+        dtype = q_dtype if key in ("qa", "qg") else torch.float32
+        if t.device != gm.device or t.dtype != dtype or tuple(t.shape) != want[key]:
             raise ValueError(
-                f"fused_precondition_stack: {key} must be float32 "
-                f"{want[key]} on {gm.device}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device}"
+                f"fused_precondition_stack: {key} must be {dtype} "
+                f"{want[key]} on {gm.device} (qa and qg both float32 or both "
+                f"bfloat16), got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     gm, qa, da, qg, dg = (t.contiguous() for t in (gm, qa, da, qg, dg))
     lam = _damping_tensor(damping, gm.device)
@@ -125,30 +128,38 @@ def fused_precondition_stack(
         gm.data_ptr(), qa.data_ptr(), da.data_ptr(), qg.data_ptr(),
         dg.data_ptr(), lam.data_ptr(), scratch.data_ptr(),
         scratch.data_ptr() + 4 * inter, out.data_ptr(), vg.data_ptr(), k, g, a,
-        kernel_build.current_stream_handle(gm.device),
+        int(q_dtype == torch.bfloat16), kernel_build.current_stream_handle(gm.device),
     )
     kernel_build.check(err, "fused_apply")
     fused_precondition_stack.launches += 1
+    fused_precondition_stack.launches_bf16 += q_dtype == torch.bfloat16
     return out, vg
 
 
+# every CUDA launch, and those of them on the bf16-Q route
 fused_precondition_stack.launches = 0
+fused_precondition_stack.launches_bf16 = 0
 
 _APPLY_TILES = ("32x32", "64x64", "128x128")
 
 
 def fused_apply_route(gm: torch.Tensor, qa: torch.Tensor, qg: torch.Tensor) -> Dict[str, object]:
     """What :func:`fused_precondition_stack` launches for these contiguous
-    CUDA inputs: its block tile, and the ``cp.async`` copy width in bytes
-    of G's, QA's and QG's rows (16 where a row starts 16-byte aligned, else
-    4). The padded intermediates always take 16-byte copies."""
+    CUDA inputs: its block tile, and the copy width in bytes of G's, QA's
+    and QG's rows (16 where a row starts 16-byte
+    aligned; else a float32 row takes 4-byte ``cp.async`` copies and a
+    bfloat16 row 2-byte loads). The padded intermediates always take
+    16-byte copies."""
     k, g, a = gm.shape
+    bf16 = qa.dtype == torch.bfloat16
     bits = kernel_build.load("fused_apply").kfac_fused_apply_route(
-        k, g, a, gm.data_ptr(), qa.data_ptr(), qg.data_ptr()
+        k, g, a, gm.data_ptr(), qa.data_ptr(), qg.data_ptr(), int(bf16)
     )
+    narrow = {"G": 4, "QA": 2 if bf16 else 4, "QG": 2 if bf16 else 4}
     return {
         "tile": _APPLY_TILES[bits & 3],
-        **{name: 16 if bits & bit else 4 for name, bit in (("G", 4), ("QA", 8), ("QG", 16))},
+        **{name: 16 if bits & bit else narrow[name]
+           for name, bit in (("G", 4), ("QA", 8), ("QG", 16))},
     }
 
 

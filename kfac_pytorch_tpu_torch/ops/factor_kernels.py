@@ -9,7 +9,9 @@ beside it and a launch counter (``fn.launches``, CUDA calls only):
   → ``_patch_cov_pallas`` → ``_patch_cov_kernel``; the source says what
   bounds it and how its design answers that: 3xTF32 on the tensor cores,
   the input staged in shared memory, a tile per geometry that
-  :func:`patch_cov_route` reports), or raises — there is no fallback. A
+  :func:`patch_cov_route` reports; bfloat16 activations, under ``--bf16``
+  compute, take its bf16 route, one exact bf16 MMA per product), or
+  raises — there is no fallback. A
   CPU tensor takes :func:`compute_a_conv_fused_plain`, the same
   function in plain PyTorch: raw ``PᵀP`` sums with the bias column folded
   in as a ones feature, scaled once by ``1/(spatial²·B)`` at the end — the
@@ -80,7 +82,8 @@ def compute_a_conv_fused_plain(
 
     ``Σ_rows P'ᵀP'`` with the bias as a ones feature, times
     ``1/(spatial²·B)``; the same function as the oracle up to float32
-    summation order.
+    summation order. bfloat16 activations are upcast first, as the JAX
+    package upcasts them.
     """
     b = a.shape[0]
     patches, oh, ow = factors.extract_patches(
@@ -104,10 +107,10 @@ def _patch_cov_geometry(a, groups, kernel_size, strides, padding, has_bias,
     ``csrc/patch_cov.cu``'s C entries, ``oh`` and ``ow``."""
     if a.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {a.device}")
-    if a.dtype != torch.float32 or a.dim() != 4:
+    if a.dtype not in (torch.float32, torch.bfloat16) or a.dim() != 4:
         raise ValueError(
-            f"{what}: the CUDA kernel takes float32 NCHW activations, got "
-            f"{a.dtype} {tuple(a.shape)}"
+            f"{what}: the CUDA kernel takes float32 or bfloat16 NCHW "
+            f"activations, got {a.dtype} {tuple(a.shape)}"
         )
     b, c, h, w = a.shape
     if groups < 1 or c % groups:
@@ -118,19 +121,20 @@ def _patch_cov_geometry(a, groups, kernel_size, strides, padding, has_bias,
     geometry = (
         b, c, h, w, kernel_size[0], kernel_size[1], strides[0], strides[1],
         pads[0][0], pads[1][0], kernel_dilation[0], kernel_dilation[1],
-        oh, ow, int(has_bias), groups,
+        oh, ow, int(has_bias), groups, int(a.dtype == torch.bfloat16),
     )
     return geometry, oh, ow
 
 
-# kfac_patch_cov_plan's answers, by device, x's alignment and geometry
+# kfac_patch_cov_plan's answers, by device, x's alignment and geometry (x's
+# type included)
 _PATCH_COV_PLANS: Dict[Tuple[int, ...], ctypes.Array] = {}
 
 
 def _patch_cov_plan(lib, a, geometry, what) -> ctypes.Array:
-    """``kfac_patch_cov_plan``, asked once per geometry: int[7] (tile, copy
-    bytes, stage layout, splits, output rows and columns per stage, partial
-    side), which ``kfac_patch_cov`` takes back."""
+    """``kfac_patch_cov_plan``, asked once per geometry and input type:
+    int[7] (tile, copy bytes, stage layout, splits, output rows and columns
+    per stage, partial side), which ``kfac_patch_cov`` takes back."""
     key = (a.device.index, a.data_ptr() % 16) + geometry
     plan = _PATCH_COV_PLANS.get(key)
     if plan is None:
@@ -156,7 +160,8 @@ def patch_cov_route(
     kernel_dilation: Tuple[int, int] = (1, 1),
 ) -> dict:
     """The plan ``csrc/patch_cov.cu`` takes for this conv input (a CUDA
-    tensor): the output tile, the copy width in bytes and whether the
+    tensor, float32 or bfloat16: its route): the output tile, the copy
+    width in bytes and whether the
     stage's window is a window of input rows (``"rows"``), each channel's
     contiguous rows (``"flat"``, a 1x1 stride-1 conv) or, where a flat
     stage is a whole image, the tile's channels as one slab (``"slab"``),
@@ -171,6 +176,7 @@ def patch_cov_route(
         kernel_build.load("patch_cov"), a, geometry, "patch_cov_route"
     )
     return {
+        "route": "bf16" if a.dtype == torch.bfloat16 else "3xtf32",
         "tile": _PATCH_COV_TILES[tile],
         "copy": copy,
         "window": _PATCH_COV_WINDOWS[mode],
@@ -223,8 +229,9 @@ def compute_a_conv_fused(
 ) -> torch.Tensor:
     """Drop-in for ``factors.compute_a_conv`` minus the im2col temporary.
 
-    ``a``: NCHW activations. CUDA tensors run ``csrc/patch_cov.cu``; CPU
-    tensors the plain version. Returns ``[F(+1), F(+1)]`` float32.
+    ``a``: NCHW activations, float32 or bfloat16. CUDA tensors run
+    ``csrc/patch_cov.cu`` (its bf16 route for bfloat16); CPU tensors the
+    plain version. Returns ``[F(+1), F(+1)]`` float32.
     """
     if a.device.type == "cpu":
         return compute_a_conv_fused_plain(
@@ -235,10 +242,13 @@ def compute_a_conv_fused(
         "compute_a_conv_fused",
     )
     compute_a_conv_fused.launches += 1
+    compute_a_conv_fused.launches_bf16 += a.dtype == torch.bfloat16
     return out[0]
 
 
+# every CUDA launch, and those of them on the bf16 route
 compute_a_conv_fused.launches = 0
+compute_a_conv_fused.launches_bf16 = 0
 
 
 def dispatch_compute_a_conv(
@@ -251,12 +261,14 @@ def dispatch_compute_a_conv(
     *,
     kind: str = "auto",
 ) -> torch.Tensor:
-    """Route one conv layer's A contribution: oracle or kernel wrapper."""
+    """Route one conv layer's A contribution: oracle or kernel wrapper.
+    bfloat16 activations go to the kernel wrapper as they are (its bf16
+    route) and to the oracle upcast."""
     resolve_factor_kernel(kind, a.device)
     a = a.detach()
     if kind == "dense":
         return factors.compute_a_conv(
-            a, kernel_size, strides, padding, has_bias, kernel_dilation
+            a.float(), kernel_size, strides, padding, has_bias, kernel_dilation
         )
     return compute_a_conv_fused(
         a, kernel_size, strides, padding, has_bias, kernel_dilation
@@ -314,10 +326,12 @@ def compute_a_conv_grouped_fused(
         "compute_a_conv_grouped_fused",
     )
     compute_a_conv_grouped_fused.launches += 1
+    compute_a_conv_grouped_fused.launches_bf16 += a.dtype == torch.bfloat16
     return out
 
 
 compute_a_conv_grouped_fused.launches = 0
+compute_a_conv_grouped_fused.launches_bf16 = 0
 
 
 def dispatch_compute_a_conv_grouped(
@@ -336,7 +350,7 @@ def dispatch_compute_a_conv_grouped(
     a = a.detach()
     if kind == "dense":
         return factors.compute_a_conv_grouped(
-            a, groups, kernel_size, strides, padding, has_bias, kernel_dilation
+            a.float(), groups, kernel_size, strides, padding, has_bias, kernel_dilation
         )
     return compute_a_conv_grouped_fused(
         a, groups, kernel_size, strides, padding, has_bias, kernel_dilation

@@ -39,18 +39,20 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     "patch_cov": {
         # x, part, out, B, C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW,
-        # has_bias, groups, int[7] plan, scale, stream
-        "kfac_patch_cov": (_P, _P, _P) + (_I,) * 16 + (_P, _F, _P),
+        # has_bias, groups, x is bfloat16, int[7] plan, scale, stream
+        "kfac_patch_cov": (_P, _P, _P) + (_I,) * 17 + (_P, _F, _P),
         # x, B, C, H, W, kh, kw, sh, sw, ph, pw, dh, dw, OH, OW, has_bias,
-        # groups, int[7] out -> the plan (tile, copy bytes, layout, splits,
-        # output rows and columns per stage, partial side)
-        "kfac_patch_cov_plan": (_P,) + (_I,) * 16 + (_P,),
+        # groups, x is bfloat16, int[7] out -> the plan (tile, copy bytes,
+        # layout, splits, output rows and columns per stage, partial side)
+        "kfac_patch_cov_plan": (_P,) + (_I,) * 17 + (_P,),
     },
     "fused_apply": {
-        # gm, qa, da, qg, dg, lam, scratch1, scratch2, out, vg, k, g, a, stream
-        "kfac_fused_precondition": (_P,) * 10 + (_I, _I, _I, _P),
-        # k, g, a, gm, qa, qg -> the plan's tile and copy widths (bits)
-        "kfac_fused_apply_route": (_I, _I, _I, _P, _P, _P),
+        # gm, qa, da, qg, dg, lam, scratch1, scratch2, out, vg, k, g, a,
+        # Q is bfloat16, stream
+        "kfac_fused_precondition": (_P,) * 10 + (_I, _I, _I, _I, _P),
+        # k, g, a, gm, qa, qg, Q is bfloat16 -> the plan's tile and copy
+        # widths (bits)
+        "kfac_fused_apply_route": (_I, _I, _I, _P, _P, _P, _I),
     },
     "fused_sgd": {
         # LeafTable<cap>*, cap, blocks, lr, momentum, wd, stream

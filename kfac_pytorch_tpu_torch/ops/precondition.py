@@ -8,6 +8,13 @@ preconditioned together. Diagonal-A layers stay out of the shape groups
 and are preconditioned first, in sorted order; then the groups follow in
 :func:`shape_groups`' insertion order. That emission order is also the
 KL-clip summation order, as in the reference.
+
+Eigenvectors and matrix inverses may be stored in bfloat16
+(``KFAC(eigen_dtype=torch.bfloat16)``): the dense products upcast them to
+float32, as JAX promotes a bf16 × f32 matmul, and the fused apply kernel
+reads them as they are. ``precision`` (``precond_precision``) sets the
+dense products' matmul precision through ``device.rotation_precision``;
+the fused kernel ignores it, as the JAX package's fused branch does.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from kfac_pytorch_tpu_torch.device import rotation_precision
 from kfac_pytorch_tpu_torch.ops import apply_kernels
 
 
@@ -30,6 +38,7 @@ def precondition_mat(
 ) -> torch.Tensor:
     """Apply ``(G ⊗ A + damping·I)⁻¹`` to a ``[out, in]`` gradient matrix:
     ``v = QG · [(QGᵀ · grad · QA) / (dG dAᵀ + damping)] · QAᵀ``."""
+    q_a, q_g = q_a.float(), q_g.float()
     v1 = (q_g.T @ grad_mat) @ q_a
     v2 = v1 / (d_g[:, None] * d_a[None, :] + damping)
     return (q_g @ v2) @ q_a.T
@@ -58,6 +67,7 @@ def precondition_mat_embed(
     ``v = QG · [(QGᵀ·g) / (dG dAᵀ + damping)]`` — two G-side products
     (library matmuls, as the JAX package leaves them to XLA) and elementwise
     work on the vocab axis."""
+    q_g = q_g.float()
     v1 = q_g.T @ grad_mat
     v2 = v1 / (d_g[:, None] * d_a[None, :] + damping)
     return q_g @ v2
@@ -122,10 +132,16 @@ def precondition_all(
     eigen: Dict[str, Dict[str, torch.Tensor]],
     damping,
     stacked: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    precision: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Precondition every layer's gradient matrix, batching same-shape layers
     (the oracle chain: four batched matmuls and the damped divide);
     diagonal-A layers first, in sorted order."""
+    with rotation_precision(precision):
+        return _precondition_all(grad_mats, eigen, damping, stacked)
+
+
+def _precondition_all(grad_mats, eigen, damping, stacked):
     diag_a = diag_a_names(eigen)
     out: Dict[str, torch.Tensor] = {}
     for name in sorted(diag_a):
@@ -146,7 +162,7 @@ def precondition_all(
             continue
         gm = torch.stack([grad_mats[n] for n in names])
         s = _group_eigen(names, f"{go}x{ai}", eigen, stacked)
-        qa, qg, da, dg = s["QA"], s["QG"], s["dA"], s["dG"]
+        qa, qg, da, dg = s["QA"].float(), s["QG"].float(), s["dA"], s["dG"]
         v1 = (qg.transpose(1, 2) @ gm) @ qa
         v2 = v1 / (dg[:, :, None] * da[:, None, :] + damping)
         v = (qg @ v2) @ qa.transpose(1, 2)
@@ -162,6 +178,7 @@ def precondition_all_with_vg(
     stacked: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
     *,
     kind: str = "auto",
+    precision: Optional[str] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Optional[List[torch.Tensor]]]:
     """:func:`precondition_all` + per-layer KL-clip partials, kernel-routed.
 
@@ -170,18 +187,20 @@ def precondition_all_with_vg(
     :func:`kl_clip_coefficient`). Otherwise every shape group — singletons
     as ``k=1`` stacks — goes through the fused apply wrapper, which also
     emits each layer's ``Σ v·g``; diagonal-A layers take
-    :func:`precondition_mat_embed` with their partial reduced in PyTorch,
-    as the JAX package keeps them out of its kernel. ``vg_terms`` is in
-    emission order, the order :func:`kl_clip_coefficient` would sum in.
+    :func:`precondition_mat_embed` (at ``precision``) with their partial
+    reduced in PyTorch, as the JAX package keeps them out of its kernel.
+    ``vg_terms`` is in emission order, the order :func:`kl_clip_coefficient`
+    would sum in.
     """
     if kind == "dense":
-        return precondition_all(grad_mats, eigen, damping, stacked), None
+        return precondition_all(grad_mats, eigen, damping, stacked, precision), None
     diag_a = diag_a_names(eigen)
     out: Dict[str, torch.Tensor] = {}
     vg_terms: List[torch.Tensor] = []
     for name in sorted(diag_a):
         e = eigen[name]
-        v = precondition_mat_embed(grad_mats[name], e["QG"], e["dG"], e["dA"], damping)
+        with rotation_precision(precision):
+            v = precondition_mat_embed(grad_mats[name], e["QG"], e["dG"], e["dA"], damping)
         out[name] = v
         vg_terms.append((v.float() * grad_mats[name].float()).sum())
     shapes = {
@@ -279,7 +298,7 @@ def precondition_mat_inv(
     grad_mat: torch.Tensor, i_a: torch.Tensor, i_g: torch.Tensor
 ) -> torch.Tensor:
     """``v = iG · grad · iA`` — the 2-matmul inverse-method solve."""
-    return (i_g @ grad_mat) @ i_a
+    return (i_g.float() @ grad_mat) @ i_a.float()
 
 
 def precondition_mat_inv_embed(
@@ -287,17 +306,23 @@ def precondition_mat_inv_embed(
 ) -> torch.Tensor:
     """Inverse-method solve for a diagonal-A (embedding) layer:
     ``v = (iG · grad) ⊙ iA_diag``."""
-    return (i_g @ grad_mat) * i_a_diag[None, :]
+    return (i_g.float() @ grad_mat) * i_a_diag[None, :]
 
 
 def precondition_all_inv(
     grad_mats: Dict[str, torch.Tensor],
     inv: Dict[str, Dict[str, torch.Tensor]],
     stacked: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    precision: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Inverse-method twin of :func:`precondition_all`: diagonal-A layers
     first in sorted order, then same-shape layers batched in
     :func:`shape_groups` order (the KL-clip summation order)."""
+    with rotation_precision(precision):
+        return _precondition_all_inv(grad_mats, inv, stacked)
+
+
+def _precondition_all_inv(grad_mats, inv, stacked):
     diag_a = diag_a_names(inv)
     out: Dict[str, torch.Tensor] = {}
     for name in sorted(diag_a):
@@ -318,7 +343,7 @@ def precondition_all_inv(
         else:
             ia = torch.stack([inv[n]["iA"] for n in names])
             ig = torch.stack([inv[n]["iG"] for n in names])
-        v = (ig @ gm) @ ia
+        v = (ig.float() @ gm) @ ia.float()
         for row, name in enumerate(names):
             out[name] = v[row]
     return out

@@ -57,8 +57,10 @@ def _assemble(
     factors: Dict[str, Dict[str, torch.Tensor]],
     slots: List[EighSlot],
     results: Dict[int, Tuple[torch.Tensor, torch.Tensor]],
+    q_dtype: torch.dtype = torch.float32,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Scatter per-slot ``(Q, d)`` into per-layer ``{QA, dA, QG, dG}``.
+    """Scatter per-slot ``(Q, d)`` into per-layer ``{QA, dA, QG, dG}``,
+    ``Q`` written in ``q_dtype``.
 
     A factor decomposed as one block takes its result as is; blocked factors
     scatter into zeroed block-diagonal buffers.
@@ -76,10 +78,11 @@ def _assemble(
                 continue
             i = whole.get((name, fac))
             if i is not None:
-                eigen[name][qk], eigen[name][dk] = results[i]
+                q, d = results[i]
+                eigen[name][qk], eigen[name][dk] = q.to(q_dtype), d
                 continue
             n = f[fac].shape[0]
-            eigen[name][qk] = f[fac].new_zeros((n, n))
+            eigen[name][qk] = f[fac].new_zeros((n, n), dtype=q_dtype)
             eigen[name][dk] = f[fac].new_zeros((n,))
     for i, s in enumerate(slots):
         if (s.name, s.factor) in whole:
@@ -95,11 +98,14 @@ def replicated_eigen_update(
     factors: Dict[str, Dict[str, torch.Tensor]],
     diag_blocks_per_layer: Dict[str, int],
     eps: float = 1e-10,
+    q_dtype: torch.dtype = torch.float32,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Recompute every layer's eigendecomposition on this device.
 
-    Same-size slots are decomposed together in one batched eigh; results
-    come back per layer as ``{QA, dA, QG, dG}`` with the eigenvalue floor.
+    Same-size slots are decomposed together in one batched float32 eigh;
+    results come back per layer as ``{QA, dA, QG, dG}`` with the eigenvalue
+    floor, the eigenvectors cast to ``q_dtype`` (the preconditioner's
+    ``eigen_dtype``) as they are written, blocked slots included.
     """
     slots = build_slots(factors, diag_blocks_per_layer)
     by_size: Dict[int, List[int]] = {}
@@ -118,4 +124,4 @@ def replicated_eigen_update(
         q, d = eigh_with_floor(stack, eps)
         for row, i in enumerate(idxs):
             results[i] = (q[row], d[row])
-    return _assemble(factors, slots, results)
+    return _assemble(factors, slots, results, q_dtype)

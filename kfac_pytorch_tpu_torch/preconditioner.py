@@ -8,7 +8,15 @@ eigendecomposition of every factor (``precond_method="eigen"``; conv
 factors in ``diag_blocks`` diagonal blocks once ``diag_warmup`` epochs have
 passed) or π-damped Cholesky inverses (``precond_method="inverse"``).
 ``track_diagnostics`` keeps the health diagnostics of
-``observability/diagnostics.py`` in the state.
+``observability/diagnostics.py`` in the state. ``eigen_dtype`` is the
+storage type of the eigenvectors (or of the inverse method's matrix
+inverses): ``torch.bfloat16`` halves the every-step apply's largest input
+stream, while eigh runs in float32 and the eigenvalues, factors and every
+other state entry stay float32, as in the JAX package.
+``precond_precision`` sets the matmul precision of the dense rotations
+(``device.rotation_precision``: ``"default"`` is one TF32 pass on the card,
+``"high"``/``"highest"``/``None`` IEEE float32); the fused apply kernel
+ignores it, as the JAX package's fused branch does.
 Embeddings (``KFACEmbed``) keep a diagonal A factor, ``A_diag [vocab]``,
 initialized to ones, whose "eigendecomposition" is the floored diagonal
 itself. The interface keeps the reference's functional shape:
@@ -40,7 +48,12 @@ import torch
 import torch.nn as nn
 
 from kfac_pytorch_tpu_torch import capture
-from kfac_pytorch_tpu_torch.device import DeviceLike, resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.device import (
+    DeviceLike,
+    resolve_device,
+    resolve_precond_precision,
+    use_ieee_f32,
+)
 from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACEmbed
 from kfac_pytorch_tpu_torch.ops import apply_kernels as apply_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factor_kernels as factor_kernel_ops
@@ -49,6 +62,10 @@ from kfac_pytorch_tpu_torch.ops import precondition as precond_ops
 from kfac_pytorch_tpu_torch.parallel.sharded_eigh import replicated_eigen_update
 
 KFACState = Dict[str, Any]
+
+# storage types of the eigenvectors / matrix inverses the port carries: the
+# fused apply kernel reads float32 or bfloat16 Q
+EIGEN_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass
@@ -160,10 +177,7 @@ class KFAC:
             _not_ported(f"solver={solver!r}", "7")
         if factor_sharding == "owner":
             _not_ported("factor_sharding='owner'", "7")
-        if eigen_dtype != torch.float32:
-            _not_ported("eigen_dtype other than float32", "4")
-        if precond_precision is not None:
-            _not_ported("precond_precision (the port is float32 throughout)", "4")
+        _validate("eigen_dtype", eigen_dtype in EIGEN_DTYPES, eigen_dtype)
         if service_devices != 0:
             _not_ported("service_devices (curvature service)", "9")
         if profile is not None or profile_shapes is not None:
@@ -191,6 +205,8 @@ class KFAC:
 
         self.device = resolve_device(device)
         use_ieee_f32()
+        self.eigen_dtype = eigen_dtype
+        self.precond_precision = resolve_precond_precision(precond_precision)
         self.factor_decay = factor_decay
         self.batch_averaged = batch_averaged
         self.diag_blocks = diag_blocks
@@ -282,6 +298,9 @@ class KFAC:
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
+        def zq(n):  # an eigenvector matrix or matrix inverse
+            return z(n, n, dtype=self.eigen_dtype)
+
         inverse = self.precond_method == "inverse"
         eigen = {}
         for name, f in facs.items():
@@ -289,15 +308,14 @@ class KFAC:
             if "A_diag" in f:
                 vocab = f["A_diag"].shape[0]
                 eigen[name] = (
-                    {"iA_diag": z(vocab), "iG": z(g_side, g_side)} if inverse
-                    else {"dA": z(vocab), "QG": z(g_side, g_side), "dG": z(g_side)}
+                    {"iA_diag": z(vocab), "iG": zq(g_side)} if inverse
+                    else {"dA": z(vocab), "QG": zq(g_side), "dG": z(g_side)}
                 )
                 continue
             a_side = f["A"].shape[0]
             eigen[name] = (
-                {"iA": z(a_side, a_side), "iG": z(g_side, g_side)} if inverse
-                else {"QA": z(a_side, a_side), "dA": z(a_side),
-                      "QG": z(g_side, g_side), "dG": z(g_side)}
+                {"iA": zq(a_side), "iG": zq(g_side)} if inverse
+                else {"QA": zq(a_side), "dA": z(a_side), "QG": zq(g_side), "dG": z(g_side)}
             )
         split = precond_ops.split_inv_state if inverse else precond_ops.split_eigen_state
         singles, stacked = split(eigen)
@@ -376,6 +394,12 @@ class KFAC:
         fresh_spectra = None
         if update_eigen and self.precond_method == "inverse":
             inv = precond_ops.factored_inverse_all(facs, damping, self.eps)
+            # only the matrix inverses take eigen_dtype; an embedding's
+            # iA_diag stays float32, as its eigen-method dA does
+            inv = {
+                n: {k: v if k == "iA_diag" else v.to(self.eigen_dtype) for k, v in e.items()}
+                for n, e in inv.items()
+            }
             eigen, stacked = precond_ops.split_inv_state(inv)
         elif update_eigen:
             diag_blocks = self.diag_blocks if diag_warmup_done else 1
@@ -385,7 +409,8 @@ class KFAC:
                 if grads[f"{capture.split_group_name(n)[0]}.weight"].dim() == 4 else 1
                 for n in names
             }
-            eigen = replicated_eigen_update(facs, blocks, self.eps)
+            # eigh runs in float32; Q is written in eigen_dtype
+            eigen = replicated_eigen_update(facs, blocks, self.eps, self.eigen_dtype)
             # diagonal A: the eigenvectors are the identity, so no eigh — the
             # eigenvalues are the diagonal under the reference's floor
             for name in names:
@@ -419,11 +444,14 @@ class KFAC:
         lgrads = capture.layer_grads(grads, names, embeddings)
         gmats = {n: m.float() for n, m in capture.grad_mats(lgrads).items()}
         if self.precond_method == "inverse":
-            updates = precond_ops.precondition_all_inv(gmats, eigen, stacked=stacked)
+            updates = precond_ops.precondition_all_inv(
+                gmats, eigen, stacked=stacked, precision=self.precond_precision
+            )
             vg_terms = None
         else:
             updates, vg_terms = precond_ops.precondition_all_with_vg(
-                gmats, eigen, damping, stacked=stacked, kind=self.apply_kernel
+                gmats, eigen, damping, stacked=stacked, kind=self.apply_kernel,
+                precision=self.precond_precision,
             )
         if vg_terms is not None:
             nu = precond_ops.kl_clip_from_vg(vg_terms, lr, self.hparams.kl_clip)

@@ -19,7 +19,11 @@ the forward (softmax-weighted sums of at most T values in float32), 1e-4
 for the gradients, whose dS = p ⊙ (dP − Δ) cancels. The products of the
 conv A factors, the apply and the three flash kernels run as 3xTF32 on the
 tensor cores (about float32 accuracy); two launches of any of them agree
-bit for bit.
+bit for bit. The bf16 routes hold the same tolerances: the conv A
+factors of bfloat16 activations (one bf16 MMA per product, exact in
+float32) at 1e-5, the apply with bfloat16 eigenvectors (exact in TF32: two
+TF32 products per product) at 1e-4, against the plain versions, which
+upcast the bfloat16 inputs.
 """
 
 import numpy as np
@@ -240,6 +244,95 @@ def test_conv_a_kernel_route_refuses_a_cpu_tensor(cuda_device):
         tfk.patch_cov_route(x, 1, *args)
 
 
+def _bf16_case(shape, seed, device):
+    """Seeded normal activations of ``shape``, bfloat16 on ``device``."""
+    x = torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32))
+    return x.to(device=device, dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ks,st,pad,bias", CONV_CASES)
+def test_conv_a_bf16_route_matches_plain(cuda_device, shape, ks, st, pad, bias):
+    """Kernel 1's bf16 route on every branch of the plan, in bf16 copy
+    widths (16-byte copies of 8 values, 8, 4, and 2-byte loads for odd
+    rows such as 7 x 7 and 13 columns): within 1e-5 of the plain version
+    on the upcast input, and two launches bitwise equal."""
+    x = _bf16_case(shape, 43, cuda_device)
+    before = (tfk.compute_a_conv_fused.launches, tfk.compute_a_conv_fused.launches_bf16)
+    got = tfk.compute_a_conv_fused(x, ks, st, pad, bias)
+    torch.cuda.synchronize()
+    assert (tfk.compute_a_conv_fused.launches, tfk.compute_a_conv_fused.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert tfk.patch_cov_route(x, 1, ks, st, pad, bias)["route"] == "bf16"
+    want = tfk.compute_a_conv_fused_plain(x, ks, st, pad, bias)
+    _close_scaled(got, want, rtol=1e-5)
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, tfk.compute_a_conv_fused(x, ks, st, pad, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,stride,bias", GROUPED_CASES)
+def test_grouped_conv_a_bf16_route_matches_plain(cuda_device, shape, groups, stride, bias):
+    x = _bf16_case(shape, 44, cuda_device)
+    args = (groups, (3, 3), (stride, stride), ((1, 1), (1, 1)), bias)
+    before = tfk.compute_a_conv_grouped_fused.launches_bf16
+    got = tfk.compute_a_conv_grouped_fused(x, *args)
+    torch.cuda.synchronize()
+    assert tfk.compute_a_conv_grouped_fused.launches_bf16 == before + 1
+    want = tfk.compute_a_conv_grouped_fused_plain(x, *args)
+    for k in range(groups):
+        _close_scaled(got[k], want[k], rtol=1e-5)
+    assert torch.equal(got, tfk.compute_a_conv_grouped_fused(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["resnet32", "resnext50_32x4d"])
+def test_conv_a_bf16_route_on_the_paths_geometries(cuda_device, arch):
+    """Every conv geometry of the bf16 ResNet-32 (batch 16) and ResNeXt-50
+    (batch 2, 224 x 224) forwards, grouped and not, with the activations
+    the bf16 model feeds each conv (the stem's float32 input takes the
+    3xTF32 route): within 1e-5 of the plain version, bitwise repeatable."""
+    from kfac_pytorch_tpu_torch.models import cifar_resnet, imagenet_resnet
+    from kfac_pytorch_tpu_torch.models.layers import KFACConv
+
+    gen = torch.Generator().manual_seed(0)
+    if arch == "resnet32":
+        model = cifar_resnet.get_model(arch, generator=gen, dtype=torch.bfloat16)
+        x = torch.randn(16, 3, 32, 32, generator=gen)
+    else:
+        model = imagenet_resnet.get_model(arch, generator=gen, dtype=torch.bfloat16)
+        x = torch.randn(2, 3, 224, 224, generator=gen)
+    model.to(cuda_device)
+    calls = {}
+
+    def record(mod, inp):  # one call per geometry and input type
+        key = (tuple(inp[0].shape), inp[0].dtype, mod.kernel_size, mod.stride, mod.groups)
+        calls.setdefault(key, (inp[0].detach().contiguous(), mod))
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in model.modules() if isinstance(m, KFACConv)]
+    with torch.no_grad():
+        model(x.to(cuda_device))
+    for h in hooks:
+        h.remove()
+    dtypes = set()
+    for x, mod in calls.values():
+        dtypes.add(x.dtype)
+        args = (mod.kernel_size, mod.stride, mod.factor_padding(), False)
+        if mod.groups > 1:
+            got = tfk.compute_a_conv_grouped_fused(x, mod.groups, *args)
+            want = tfk.compute_a_conv_grouped_fused_plain(x, mod.groups, *args)
+            again = tfk.compute_a_conv_grouped_fused(x, mod.groups, *args)
+            for k in range(mod.groups):
+                _close_scaled(got[k], want[k], rtol=1e-5)
+        else:
+            got = tfk.compute_a_conv_fused(x, *args)
+            _close_scaled(got, tfk.compute_a_conv_fused_plain(x, *args), rtol=1e-5)
+            again = tfk.compute_a_conv_fused(x, *args)
+        assert torch.equal(got, again)
+    assert dtypes == {torch.float32, torch.bfloat16}
+
+
 def _apply_inputs(seed, k, g, a, device):
     r = np.random.RandomState(seed)
     arrs = (
@@ -273,9 +366,53 @@ def test_fused_apply_kernel_matches_plain(cuda_device, k, g, a):
     _close_scaled(vg, vg_p, rtol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,g,a", [(1, 16, 27), (10, 16, 144), (9, 64, 576), (1, 10, 65), (96, 4, 36), (128, 8, 72),
+              (96, 16, 144), (96, 32, 288), (1, 1000, 2049), (4, 512, 2049), (4, 1536, 513),
+              (2, 2048, 1024)]
+)
+def test_fused_apply_bf16_q_route_matches_plain(cuda_device, k, g, a):
+    """Kernel 3 with bfloat16 QA and QG (the ResNet-32, ResNeXt and LM
+    groups; odd sides read Q with 2-byte loads) at the kernel's 1e-4, and
+    two launches bitwise equal."""
+    gm, qa, da, qg, dg = _apply_inputs(60 + a, k, g, a, cuda_device)
+    qa, qg = qa.bfloat16(), qg.bfloat16()
+    before = tapply.fused_precondition_stack.launches_bf16
+    v, vg = tapply.fused_precondition_stack(gm, qa, da, qg, dg, 0.003)
+    torch.cuda.synchronize()
+    assert tapply.fused_precondition_stack.launches_bf16 == before + 1
+    v_p, vg_p = tapply.fused_precondition_stack_plain(gm, qa, da, qg, dg, 0.003)
+    _close_scaled(v, v_p, rtol=1e-4)
+    _close_scaled(vg, vg_p, rtol=1e-4)
+    v2, vg2 = tapply.fused_precondition_stack(gm, qa, da, qg, dg, 0.003)
+    assert torch.equal(v, v2) and torch.equal(vg, vg2)
+
+
+@pytest.mark.cuda
+def test_fused_apply_bf16_q_copy_widths(cuda_device):
+    """bfloat16 Q rows of a multiple of 8 values take 16-byte copies, other
+    rows (a = 36, 65; or unaligned data) 2-byte loads; both routes fill
+    shared memory with the same values, so they agree bit for bit; mixed
+    Q types are refused."""
+    gm, qa, da, qg, dg = _apply_inputs(61, 3, 64, 576, cuda_device)
+    qa, qg = qa.bfloat16(), qg.bfloat16()
+    assert tapply.fused_apply_route(gm, qa, qg) == {"tile": "64x64", "G": 16, "QA": 16, "QG": 16}
+    odd = [_unaligned_copy(x) for x in (gm, qa, qg)]
+    assert tapply.fused_apply_route(*odd) == {"tile": "64x64", "G": 4, "QA": 2, "QG": 2}
+    v, vg = tapply.fused_precondition_stack(gm, qa, da, qg, dg, 0.003)
+    v_odd, vg_odd = tapply.fused_precondition_stack(odd[0], odd[1], da, odd[2], dg, 0.003)
+    assert torch.equal(v, v_odd) and torch.equal(vg, vg_odd)
+    small = _apply_inputs(62, 96, 4, 36, cuda_device)
+    r = tapply.fused_apply_route(small[0], small[1].bfloat16(), small[3].bfloat16())
+    assert (r["QA"], r["QG"]) == (2, 2)
+    with pytest.raises(ValueError, match="both float32 or both"):
+        tapply.fused_precondition_stack(gm, qa, da, qg.float(), dg, 0.003)
+
+
 def _unaligned_copy(x):
-    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
-    boundary."""
+    """A contiguous copy of ``x`` whose data starts one element (4 or 2
+    bytes) past a 16-byte boundary."""
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
     return flat.view(x.shape).copy_(x)
 

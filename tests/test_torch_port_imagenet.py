@@ -273,10 +273,6 @@ def test_trainer_runs_on_cpu(tiny_in_the_zoo, kfac_freq):
     (["--data-dir", "d"], "5"),
     (["--init-from-torch", "c.pth"], "5"),
     (["--val-resize", "300"], "5"),
-    (["--checkpoint-dir", "c"], "4"),
-    (["--batches-per-allreduce", "2"], "4"),
-    (["--bf16"], "4"),
-    (["--precond-method", "inverse"], "4"),
     (["--distribute-precondition"], "6"),
     (["--grad-comm-dtype", "bf16"], "6"),
     (["--profile-epoch", "1"], "9"),

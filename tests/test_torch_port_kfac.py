@@ -297,8 +297,6 @@ def test_kernel_kind_on_cpu_raises():
         ({"solver": "rsvd"}, "7"),
         ({"factor_sharding": "owner"}, "7"),
         ({"comm_overlap": True}, "7"),
-        ({"eigen_dtype": torch.bfloat16}, "4"),
-        ({"precond_precision": "highest"}, "4"),
         ({"service_devices": 1}, "9"),
         ({"profile": "production"}, "9"),
     ],

@@ -292,7 +292,6 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
     (["--seq-parallel", "2"], "item 8"),
     (["--solver", "rsvd"], "item 7"),
     (["--factor-comm-dtype", "bf16"], "item 6"),
-    (["--checkpoint-dir", "ckpt"], "item 4"),
     (["--service-devices", "1"], "item 9"),
 ])
 def test_lm_trainer_refuses_flags_of_later_slices(argv, item):

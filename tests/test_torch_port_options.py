@@ -6,7 +6,7 @@
 * the refresh's blocked slots against JAX's ``blocked_eigh``: eigenvalues
   at 1e-5, the block-diagonal Q and its reconstruction;
 * the inverse method's diagnostics (no spectra);
-* 4 ResNet-20 train steps each for the inverse method and ``diag_blocks=2``
+* 4 ResNet-8 train steps (``STEP_ARCH``: one block per stage) each for the inverse method and ``diag_blocks=2``
   with a ``diag_warmup`` change between the two refreshes (steps 0 and 2)
   (``run_option_train_steps``, which ``tests/test_torch_port_accum.py``
   also runs for gradient accumulation), the diagnostics on, at
@@ -35,7 +35,6 @@ from kfac_pytorch_tpu.training.step import make_sgd as jmake_sgd
 from kfac_pytorch_tpu.training.step import make_train_step as jmake_train_step
 from kfac_pytorch_tpu_torch import KFAC, capture
 from kfac_pytorch_tpu_torch.interop import state_dict_from_jax
-from kfac_pytorch_tpu_torch.models import cifar_resnet
 from kfac_pytorch_tpu_torch.ops import eigh as teigh
 from kfac_pytorch_tpu_torch.ops import precondition as tpc
 from kfac_pytorch_tpu_torch.parallel.sharded_eigh import replicated_eigen_update
@@ -47,7 +46,7 @@ from kfac_pytorch_tpu_torch.training.step import (
 )
 from tests.test_torch_port_kfac import LAYERS, ConvDenseNet, _problem
 from tests.test_torch_port_train import (
-    ARCH, BATCH, HP, LR, MOMENTUM, WD, _batches, _jax_init, _np_tree,
+    BATCH, HP, LR, MOMENTUM, STEP_ARCH, WD, _batches, _np_tree, step_models,
 )
 
 
@@ -170,15 +169,13 @@ def test_option_train_steps_match_jax(option):
 
 
 def run_option_train_steps(option):
-    """4 ResNet-20 steps of ``OPTIONS[option]`` in both packages, compared
+    """4 ``STEP_ARCH`` steps of ``OPTIONS[option]`` in both packages, compared
     after every step (``tests/test_torch_port_accum.py`` runs the
     accumulation options: the two files run on two test workers)."""
     kfac_kw = {**HP, **OPTIONS[option].get("kfac", {}), "track_diagnostics": True}
     step_kw = OPTIONS[option].get("step", {})
     accum = step_kw.get("accum_steps", 1)
-    jmodel, init, params, stats = _jax_init(0)
-    model = cifar_resnet.get_model(ARCH)
-    model.load_state_dict(state_dict_from_jax(_np_tree(params), _np_tree(stats), ARCH))
+    jmodel, init, params, stats, model = step_models(0)
     jtx, tx = jmake_sgd(MOMENTUM, WD), make_sgd(MOMENTUM, WD)
     micro_init = init[: BATCH // accum]
     jk = JKFAC(layers=jcapture.discover_layers(jmodel, micro_init, train=True), **kfac_kw)
@@ -210,7 +207,8 @@ def run_option_train_steps(option):
         for k in kfac_keys:
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-3, atol=1e-7,
                                        err_msg=f"step {i}: {k}")
-        want = state_dict_from_jax(_np_tree(jstate.params), _np_tree(jstate.batch_stats), ARCH)
+        want = state_dict_from_jax(_np_tree(jstate.params), _np_tree(jstate.batch_stats),
+                                   STEP_ARCH)
         got = model.state_dict()
         for key, w in want.items():
             if key.endswith("num_batches_tracked"):

@@ -1,8 +1,11 @@
 """The whole slice: ResNet train steps of the port against the JAX package.
 
-A JAX ``resnet20`` is initialized, its weights are carried into the port's
-model with ``interop.state_dict_from_jax``, and both take the same steps on
-the same numpy batches (4 images of 8×8): forward → CE loss → backward →
+A JAX CIFAR ResNet with one block per stage (``STEP_ARCH``, an 8-layer
+``resnet8``: the stem, a plain and two strided blocks, so every conv,
+BatchNorm, option-A shortcut and dense kind of ``resnet20``, at a fraction
+of its XLA compile time) is initialized, its weights are carried into the
+port's model with ``interop.state_dict_from_jax``, and both take the same
+steps on the same numpy batches (4 images of 8×8): forward → CE loss → backward →
 ``KFAC.update`` → fused SGD, with K-FAC on (``kfac_update_freq=2``: steps 0
 and 2 refresh the eigenbases, every step captures) and off (plain SGD).
 After each step the loss, every parameter and the BatchNorm running
@@ -46,6 +49,7 @@ from kfac_pytorch_tpu_torch.training.step import (
 )
 
 ARCH = "resnet20"
+STEP_ARCH = "resnet8"  # the train-step tests: one block per stage
 BATCH, SIZE, STEPS = 4, 8, 4
 LR, MOMENTUM, WD = 0.1, 0.9, 5e-4
 HP = dict(lr=LR, factor_decay=0.95, damping=0.003, kl_clip=0.001,
@@ -62,11 +66,23 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _jax_init(seed=0):
-    model = jresnet.get_model(ARCH)
+def _jax_init(seed=0, arch=ARCH):
+    if arch == STEP_ARCH:
+        model = jresnet.CifarResNet(stage_sizes=(1, 1, 1))
+    else:
+        model = jresnet.get_model(arch)
     init = jnp.zeros((BATCH, SIZE, SIZE, 3), jnp.float32)
     variables = model.init(jax.random.PRNGKey(seed), init, train=True)
     return model, init, variables["params"], variables["batch_stats"]
+
+
+def step_models(seed=0):
+    """``(jax model, init batch, params, batch_stats, port model)`` of
+    ``STEP_ARCH`` with the JAX weights carried into the port's model."""
+    jmodel, init, params, stats = _jax_init(seed, STEP_ARCH)
+    model = cifar_resnet.CifarResNet(1, 10)
+    model.load_state_dict(state_dict_from_jax(_np_tree(params), _np_tree(stats), STEP_ARCH))
+    return jmodel, init, params, stats, model
 
 
 def _np_tree(tree):
@@ -104,10 +120,7 @@ def test_state_dict_from_jax_round_trips_bitwise():
 
 @pytest.mark.parametrize("use_kfac", [True, False])
 def test_train_steps_match_jax(use_kfac):
-    jmodel, init, params, stats = _jax_init(0)
-    sd = state_dict_from_jax(_np_tree(params), _np_tree(stats), ARCH)
-    model = cifar_resnet.get_model(ARCH)
-    model.load_state_dict(sd)
+    jmodel, init, params, stats, model = step_models(0)
 
     jtx, tx = jmake_sgd(MOMENTUM, WD), make_sgd(MOMENTUM, WD)
     jk = tk = None
@@ -136,7 +149,7 @@ def test_train_steps_match_jax(use_kfac):
         tstate, tm = tstep(tstate, batch, LR, HP["damping"], **tf)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
         want = state_dict_from_jax(
-            _np_tree(jstate.params), _np_tree(jstate.batch_stats), ARCH
+            _np_tree(jstate.params), _np_tree(jstate.batch_stats), STEP_ARCH
         )
         got = model.state_dict()
         for key, w in want.items():
