@@ -6,15 +6,17 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Three paths, each driven through its trainer's entry point with every
+Four paths, each driven through its trainer's entry point with every
 kernel launch counter set to 0 just before and read just after: CIFAR-10
 ResNet-32 K-FAC training (slice 1, since grown to CIFAR-format data,
 evaluation, checkpoints, logs, diagnostics, the inverse method, diagonal
 blocks and gradient accumulation), transformer-LM K-FAC training with a
-K-FAC token embedding and flash attention (slice 2), and ImageNet
-ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC (slice 3), each
-image path also in the bfloat16 modes (``--bf16 --eigen-dtype bf16``,
-slice 9). Kernels 1, 1g and 3 have two routes each, counted apart
+K-FAC token embedding and flash attention (slice 2; also with a tied
+head), ImageNet ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC
+(slice 3; also ResNet-50 on numpy shards with augmentation, evaluation
+and checkpoint import), each image path also in the bfloat16 modes
+(``--bf16 --eigen-dtype bf16``, slice 9), and WikiText LSTM K-FAC
+training. Kernels 1, 1g and 3 have two routes each, counted apart
 (``launches`` and ``launches_bf16``): 3xTF32 for float32 inputs, and a
 bf16 route for bfloat16 activations (1, 1g) or bfloat16 eigenvectors (3).
 Phases, in order (any failure raises: the script exits non-zero and prints
@@ -156,8 +158,61 @@ no result line):
        ``--batches-per-allreduce 2``, ``--precond-method inverse``; the LM
        twin: ``--log-dir`` with ``--kfac-diagnostics``, ``--checkpoint-dir``
        and a resume within ``RESUME_RTOL``;
-18. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
-    of 1, 1g and 3), then the last line ``{"ok": true, "device": {...}}``.
+18. the ImageNet data path, each run through the twin with the
+    counters zeroed just before:
+    a. write uint8 shards (``{train,val}_{x,y}.npy``, NHWC) from the
+       learnable stand-in ``synthetic_imagenet_like`` into a temporary
+       directory: 640 train and 200 val images stored at 256x256 (~165 MB),
+       and 96 + 32 stored at 224x224;
+    b. ResNet-50 at its published widths and the JAX trainer's recipe
+       (batch 32, 224x224) on the 256x256 shards for one epoch of 20
+       steps: RandomResizedCrop + flip in numpy on the host, the whole val
+       split evaluated in batches of 64 (a ragged last batch of 8), a
+       checkpoint; the loss finite, 200 images counted, kernels 1, 3 and 4
+       as the run implies; the host milliseconds of each batch's
+       transform, the step times and the evaluation's reported apart;
+    c. 3 steps each of ``--no-augment`` on the 256x256 shards (Resize +
+       CenterCrop) and on the 224x224 shards (pass-through);
+    d. ``examples/evaluate.py --checkpoint-dir`` on 18b's checkpoint and
+       ``--init-from-torch`` on a torchvision-format ``{'model': ...}``
+       file of the same weights each reproduce 18b's validation loss and
+       accuracy within ``RESUME_RTOL`` (18b and 18d with deterministic
+       cuDNN); the twin started with ``--init-from-torch`` holds the file's
+       weights bitwise; kernel 1 at ResNet-50's 53 convs on a batch of the
+       shard path, as in phase 3;
+19. the WikiText RNN trainer and the tied head:
+    a. kernels 3 (the decoder's [1000, 651] group) and 4 (the LSTM's
+       leaves, momentum 0) at the path's shapes, as in phase 7; then the
+       WikiText twin at the JAX recipe's widths (2-layer LSTM 650 wide,
+       dropout 0.5, batch 20, BPTT 35, lr 20, clip 0.25, K-FAC every 10
+       steps) on the synthetic corpus (vocab 1,000) for 30 steps and one
+       validation pass: the loss finite and falling, kernels 3 and 4 as
+       implied, the first 5 losses within 1e-3 of ``--apply-kernel dense``
+       (the same dropout masks: one generator seed); one capture window
+       profiled (recurrences, GEMMs, kernels 3 and 4, the idle share);
+    b. token files with WikiText-2's vocabulary of 33,278 words, passed
+       with ``--data-dir``: 3 steps (a refresh: one eigh of the 33,278²
+       G factor, wider than cuSOLVER's ``syevd`` takes: the spectral split
+       of ``ops/eigh.py``; 2 capture steps), the loss finite, the refresh
+       and capture step times and the peak memory; kernel 3 on the
+       refresh's 33,278-wide eigenbasis within 1e-4 of its plain version;
+       the refresh's decomposition held to the factor it decomposed, in
+       float64 on 256 random directions (reconstruction and orthogonality
+       within 1e-5);
+    c. ``--tied --kfac-embedding`` (the reduce lens; kernel 2 once per
+       capture step, kernel 3 never: no dense layer is left) for 10 steps,
+       its first 5 losses within 1e-3 of ``--apply-kernel dense``; kernel 2
+       on the path's [20, 35] ids as in phase 7; ``--model GRU`` and
+       ``RNN_TANH``, 5 steps each; a checkpoint and epoch 1 resumed from
+       it within ``RESUME_RTOL`` (deterministic cuDNN);
+    d. the transformer LM at the LM path's widths cut to 2 layers with
+       ``--tie-embeddings --kfac-embedding`` for 5 steps, counters as
+       implied, the first 5 losses within 1e-3 of its oracle path; and on a
+       written WikiText corpus (``--data-dir``) for 2 steps;
+20. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+    of 1, 1g and 3; kernel 1's ResNet-50 row, kernel 2's tied-path row,
+    kernel 3's WikiText rows and kernel 4's LSTM row beside the others),
+    then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1043,11 +1098,12 @@ def lm_setup(device, extra=(), oracle=False):
     return step_fn, state, kfac, batches, args
 
 
-def lm_oracle_losses(device, steps):
-    """The LM path's first ``steps`` losses on the oracle path."""
+def lm_oracle_losses(device, steps, extra=()):
+    """The LM path's first ``steps`` losses on the oracle path (with the
+    twin's ``extra`` flags)."""
     from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 
-    step_fn, state, kfac, batches, args = lm_setup(device, oracle=True)
+    step_fn, state, kfac, batches, args = lm_setup(device, extra, oracle=True)
     losses = []
     for i, batch in zip(range(steps), batches):
         state, m = step_fn(state, batch, args.base_lr, args.damping,
@@ -1077,6 +1133,9 @@ _KERNEL_GROUPS = (  # device kernel name fragment → what it is
     ("ormtr", "eigh (cuSOLVER)"),
     ("orgtr", "eigh (cuSOLVER)"),
     ("larf", "eigh (cuSOLVER)"),
+    ("rnn", "recurrences (cuDNN RNN)"),
+    ("lstm", "recurrences (cuDNN RNN)"),
+    ("gru", "recurrences (cuDNN RNN)"),
     ("fprop", "convolutions (cuDNN)"),
     ("dgrad", "convolutions (cuDNN)"),
     ("wgrad", "convolutions (cuDNN)"),
@@ -1911,6 +1970,536 @@ def bookkeeping_phase(device, counters):
     return out
 
 
+# The ImageNet data path (phases 18a-d): uint8 shards written from the
+# learnable stand-in (``synthetic_imagenet_like``, 200 classes) stored at
+# 256x256, 640 train and 200 val images (~165 MB), trained through the twin
+# on ResNet-50 at the JAX trainer's per-device recipe (batch 32, 224x224,
+# RandomResizedCrop + flip) for one epoch of 20 steps, the whole val split
+# evaluated after it in batches of 64 (200 = 3 x 64 + 8: a ragged last
+# batch). The other train modes take 3 steps each: --no-augment on the
+# 256x256 shards (Resize + CenterCrop) and shards stored at 224x224 (pass
+# through).
+SHARD_MODEL = "resnet50"
+SHARD_TRAIN, SHARD_VAL, SHARD_SIZE = 640, 200, 256
+SHARD_STEPS = 20
+SHARD_VAL_BATCH = 64
+SHARD_MODE_STEPS = 3
+
+
+def write_imagenet_shards(root, n_train, n_val, size, seed=0):
+    """``{train,val}_{x,y}.npy`` in ``root``: NHWC uint8 images of the
+    learnable stand-in stored at ``size`` x ``size``, int32 labels
+    (``scripts/make_imagenet_shards.py``'s layout)."""
+    import os
+
+    import numpy as np
+
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+
+    os.makedirs(root)
+    (x, y), (xv, yv) = data_lib.synthetic_imagenet_like(
+        size=size, n_train=n_train, n_val=n_val, seed=seed)
+    for name, a in (("train_x", x), ("train_y", y), ("val_x", xv), ("val_y", yv)):
+        np.save(os.path.join(root, f"{name}.npy"), a)
+    return root
+
+
+def shard_args(data_dir, extra=()):
+    return ["--data-dir", data_dir, "--model", SHARD_MODEL, "--batch-size", str(IMAGENET_BATCH),
+            "--image-size", "224", "--val-batch-size", str(SHARD_VAL_BATCH), "--epochs", "1",
+            "--seed", "0", "--device", "cuda", *extra]
+
+
+def _kept_build(module, kept):
+    """``module.build`` wrapped so that the model and K-FAC it builds and the
+    first and last states its train step returns land in ``kept``; restore
+    it with ``module.build = kept["build"]``."""
+    build = kept["build"] = module.build
+
+    def keep(*args, **kwargs):
+        model, kfac, state, step = build(*args, **kwargs)
+        kept.update(model=model, kfac=kfac, state=state)
+
+        def step_kept(*a, **k):
+            out = step(*a, **k)
+            kept.setdefault("first_state", out[0])
+            kept["state"] = out[0]
+            return out
+
+        return model, kfac, state, step_kept
+
+    module.build = keep
+
+
+def imagenet_data_phases(device, counters):
+    """Phases 18a-d: the ImageNet shard path through the twin (counters
+    zeroed just before each run), ``examples/evaluate.py`` and
+    ``--init-from-torch``. Returns what they measured, the launches of each
+    path and kernel 1's row at ResNet-50's convs."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import evaluate
+    from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as trainer
+    from kfac_pytorch_tpu_torch.models import imagenet_resnet
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+
+    out, launches = {}, {}
+    structure = imagenet_resnet.get_model(SHARD_MODEL, generator=torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_shards_") as tmp:
+        mark("18a. ImageNet shards")
+        t0 = time.perf_counter()
+        d256 = write_imagenet_shards(os.path.join(tmp, "s256"), SHARD_TRAIN, SHARD_VAL, SHARD_SIZE)
+        d224 = write_imagenet_shards(os.path.join(tmp, "s224"), IMAGENET_BATCH * SHARD_MODE_STEPS,
+                                     IMAGENET_BATCH, 224, seed=1)
+        out["write_shards_s"] = time.perf_counter() - t0
+        out["shard_mb"] = sum(os.path.getsize(os.path.join(d256, f)) for f in os.listdir(d256)) / 1e6
+
+        mark("18b. ImageNet twin on the shards")
+        # deterministic cuDNN for 18b and 18d: evaluate.py must repeat 18b's
+        # validation from its checkpoint
+        cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        ck = os.path.join(tmp, "ck")
+        hist, launches["shards_rrc"] = counted(lambda: trainer.main(shard_args(
+            d256, ["--steps-per-epoch", str(SHARD_STEPS), "--checkpoint-dir", ck])), counters)
+        if not all(math.isfinite(v) for v in hist["loss"] + hist["val_loss"]):
+            raise AssertionError(f"ImageNet shards: non-finite loss {hist['loss']} {hist['val_loss']}")
+        if len(hist["loss"]) != SHARD_STEPS or hist["val_count"] != [SHARD_VAL]:
+            raise AssertionError(f"ImageNet shards: {len(hist['loss'])} steps, validation counted "
+                                 f"{hist['val_count']} of {SHARD_VAL} images")
+        gate_launches(launches["shards_rrc"], conv_expected_launches(hist, structure, device),
+                      "ImageNet shards")
+        stats = step_stats(hist, IMAGENET_BATCH)
+        out["rrc"] = {
+            "losses": hist["loss"], "val_loss": hist["val_loss"][0],
+            "val_accuracy": hist["val_accuracy"][0], "val_count": hist["val_count"][0],
+            "transform_ms_per_batch_median": statistics.median(hist["transform_ms"]),
+            "transform_ms_per_batch": hist["transform_ms"],
+            "step0_ms": stats["step0_ms"],
+            "capture_step_ms_median": stats["capture_ms_median"],
+            "refresh_step_ms_median": stats.get("refresh_ms_median"),
+            "images_per_s_steps_only": stats["per_s"],
+            "images_per_s_with_transform": IMAGENET_BATCH * (SHARD_STEPS - 1) / (
+                (sum(hist["step_ms"][1:]) + sum(hist["transform_ms"][1:])) / 1e3),
+            "eval_ms": hist["eval_ms"][0],
+            "eval_ms_per_image": hist["eval_ms"][0] / SHARD_VAL,
+        }
+
+        mark("18c. --no-augment and shards stored at 224x224")
+        for mode, data_dir, extra in (("centercrop", d256, ["--no-augment"]),
+                                      ("none", d224, ["--no-augment"])):
+            x = np.load(os.path.join(data_dir, "train_x.npy"), mmap_mode="r")
+            if trainer.train_mode(x, 224, False) != mode:
+                raise AssertionError(f"{data_dir}: train mode {trainer.train_mode(x, 224, False)}, "
+                                     f"want {mode}")
+            h, launches[f"shards_{mode}"] = counted(lambda: trainer.main(shard_args(
+                data_dir, ["--steps-per-epoch", str(SHARD_MODE_STEPS), *extra])), counters)
+            if len(h["loss"]) != SHARD_MODE_STEPS or not all(
+                    math.isfinite(v) for v in h["loss"] + h["val_loss"]):
+                raise AssertionError(f"ImageNet shards, {mode}: losses {h['loss']} {h['val_loss']}")
+            gate_launches(launches[f"shards_{mode}"], conv_expected_launches(h, structure, device),
+                          f"ImageNet shards, {mode}")
+            out[mode] = {"losses": h["loss"], "val_loss": h["val_loss"][0],
+                         "val_count": h["val_count"][0],
+                         "transform_ms_per_batch_median": statistics.median(h["transform_ms"])}
+
+        mark("18d. evaluate.py and --init-from-torch")
+        common = ["--data-dir", d256, "--model", SHARD_MODEL, "--batch-size", str(SHARD_VAL_BATCH),
+                  "--device", "cuda"]
+        t0 = time.perf_counter()
+        ev = evaluate.main([*common, "--checkpoint-dir", ck])
+        evaluate_s = time.perf_counter() - t0
+        want = (hist["val_loss"][0], hist["val_accuracy"][0])
+        sd = ckpt.restore_weights_only(ck, 0)
+        ref = os.path.join(tmp, "resnet50_ref.pth")
+        torch.save({"model": sd, "epoch": 0}, ref)
+        ev_torch = evaluate.main([*common, "--init-from-torch", ref])
+        for name, got in (("--checkpoint-dir", ev), ("--init-from-torch", ev_torch)):
+            rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+            if not rel <= RESUME_RTOL:
+                raise AssertionError(f"evaluate.py {name}: loss, accuracy {got}, the twin's last "
+                                     f"validation {want}")
+        kept = {}
+        _kept_build(trainer, kept)
+        try:
+            trainer.main(shard_args(d256, ["--init-from-torch", ref, "--epochs", "0"]))
+        finally:
+            trainer.build = kept["build"]
+        loaded = kept["model"].state_dict()
+        same = [torch.equal(loaded[k].cpu(), v) for k, v in sd.items()
+                if not k.endswith("num_batches_tracked")]
+        if not all(same):
+            raise AssertionError(f"--init-from-torch: {len(same) - sum(same)} of {len(same)} "
+                                 "entries differ from the file")
+        del kept, loaded
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+        out["evaluate"] = {"checkpoint_dir": ev, "init_from_torch": ev_torch, "twin": want,
+                           "bitwise": [tuple(ev) == want, tuple(ev_torch) == want],
+                           "evaluate_s": evaluate_s, "init_from_torch_entries_bitwise": len(same)}
+        print(f"evaluate.py reproduces the twin's validation (loss, accuracy) {want} from its "
+              f"checkpoint {ev} and from a torchvision-format file {ev_torch}; the twin's "
+              f"--init-from-torch loads all {len(same)} entries bitwise", flush=True)
+
+        # kernel 1 at ResNet-50's convs, on a batch the shard path gives it
+        xb, _ = next(trainer.shard_batches(
+            np.load(os.path.join(d256, "train_x.npy"), mmap_mode="r"),
+            np.load(os.path.join(d256, "train_y.npy")), IMAGENET_BATCH, 1, "rrc", 224, 256, 0, []))
+    model = structure.to(device)
+    conv_a = conv_a_phase(model, torch.from_numpy(xb).to(device))
+    conv_a["launches"] = launches["shards_rrc"]["compute_a_conv_fused"]
+    conv_a["launches_per_step"] = conv_a["launches"] / SHARD_STEPS
+    del model, structure
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out, conv_a
+
+
+# The WikiText LSTM (phases 19a-d): the JAX trainer's recipe at full width
+# (2-layer LSTM, 650 wide, dropout 0.5, batch 20, BPTT 35, lr 20, clip 0.25,
+# momentum 0), K-FAC on the decoder every 10 steps, on the synthetic corpus
+# (vocab 1,000) for 30 steps and one validation pass; then a
+# WikiText-2-sized vocabulary of 33,278 written to token files (3 steps:
+# one refresh with an eigh of the 33,278-wide G factor, 2 capture steps).
+WIKITEXT_ARGS = [
+    "--synthetic", "--model", "LSTM", "--emsize", "650", "--nhid", "650", "--nlayers", "2",
+    "--dropout", "0.5", "--batch-size", "20", "--bptt", "35", "--base-lr", "20",
+    "--clip", "0.25", "--kfac-update-freq", "10", "--epochs", "1", "--seed", "0",
+    "--device", "cuda",
+]
+WIKITEXT_STEPS = 30
+WIKITEXT2_VOCAB = 33278
+WIKITEXT2_STEPS = 3
+# the tied head, the other cells and the resume: steps per run
+WIKITEXT_TIED_STEPS = 10
+WIKITEXT_CELL_STEPS = 5
+WIKITEXT_BOOK_STEPS = 3
+# the transformer LM with the tied head: the LM cell's widths, 2 layers
+LM_TIED_EXTRA = ["--n-layers", "2", "--tie-embeddings"]
+LM_TIED_STEPS = 5
+
+
+def write_wikitext(root, vocab, n_train, n_valid, n_test, seed=0):
+    """``wiki.{train,valid,test}.tokens`` whose words make a vocabulary of
+    exactly ``vocab`` entries (``<unk>`` and ``<eos>`` among them): every
+    word once in the train file, then a Zipf mix over all of them, in lines
+    of 20 words."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(root)
+    r = np.random.RandomState(seed)
+    words = np.array([f"w{i}" for i in range(vocab - 2)])
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    for split, n in (("train", n_train), ("valid", n_valid), ("test", n_test)):
+        ids = r.choice(len(words), size=n, p=p)
+        if split == "train":
+            ids = np.concatenate([r.permutation(len(words)), ids])
+        with open(os.path.join(root, f"wiki.{split}.tokens"), "w", encoding="utf-8") as fh:
+            for lo in range(0, len(ids), 20):
+                fh.write(" ".join(words[ids[lo:lo + 20]]) + " \n")
+    return root
+
+
+def train_wikitext(extra):
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+
+    return trainer.main([*WIKITEXT_ARGS, *extra])
+
+
+def wikitext_setup(device, extra=()):
+    """The WikiText path through the library API (the twin's ``build`` and
+    its train step with the carry threaded and the dropout generator of
+    epoch 0), as ``profile_path`` takes it: ``(step_fn, state, kfac,
+    batches, args)``."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+    from kfac_pytorch_tpu_torch.training.lm_step import init_carry
+
+    args = trainer.parse_args([*WIKITEXT_ARGS, *extra])
+    splits, vocab = trainer.load_corpus(args)
+    model, kfac, state, step = trainer.build(args, len(vocab), device)
+    stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
+    batches = [trainer.device_batch(x, y, device)
+               for x, y in data_lib.bptt_batches(stream, args.bptt)][:WIKITEXT_STEPS]
+    carry = [init_carry(model, args.batch_size, device)]
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+
+    def step_fn(state, batch, lr, damping, **flags):
+        state, carry[0], m = step(state, batch, carry[0], gen, lr, damping, **flags)
+        return state, m
+
+    return step_fn, state, kfac, batches, args
+
+
+def wikitext_expected(hist, groups=1, embedding=False):
+    """What a WikiText run implies: kernel 3 once per K-FAC step per shape
+    group of dense layers (the untied decoder: one), kernel 4 once per
+    K-FAC step, kernel 2 once per capture step with ``--kfac-embedding``."""
+    steps = len(hist["loss"])
+    captures = sum(k != "plain" for k in hist["kind"])
+    out = {"fused_precondition_stack": groups * steps, "fused_sgd_apply": steps}
+    if embedding:
+        out["compute_a_embed_fused"] = captures
+    return out
+
+
+def wide_apply_phase(kfac_state, device):
+    """Kernel 3 at the WikiText-2 decoder's width: ``QG`` the 33,278-wide
+    eigenbasis that the run's refresh wrote, against its plain version
+    within 1e-4 of the largest plain entry (v and vg), two launches
+    bitwise equal, timed with CUDA events (few repeats: one plain call
+    moves ~9 GB)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+
+    e = kfac_state["eigen"]["decoder"]
+    qa, da, qg, dg = (e[k][None].contiguous() for k in ("QA", "dA", "QG", "dG"))
+    g, a = qg.shape[1], qa.shape[1]
+    gen = torch.Generator(device=device).manual_seed(2)
+    gm = torch.randn(1, g, a, device=device, generator=gen)
+    lam = torch.full((), 0.003, device=device)
+    v, vg = ak.fused_precondition_stack(gm, qa, da, qg, dg, lam)
+    v_p, vg_p = ak.fused_precondition_stack_plain(gm, qa, da, qg, dg, lam)
+    errs = [scaled_err(v, v_p), scaled_err(vg, vg_p)]
+    again = ak.fused_precondition_stack(gm, qa, da, qg, dg, lam)
+    if not (torch.equal(v, again[0]) and torch.equal(vg, again[1])):
+        raise AssertionError("fused apply kernel at the 33,278-wide decoder: two launches differ")
+    rel = max(r for _, r in errs)
+    if not rel <= 1e-4:
+        raise AssertionError(f"fused apply kernel at the 33,278-wide decoder disagrees with its "
+                             f"plain version: rel {rel:.3e} > 1e-4")
+    del again, v_p, vg_p
+    flops = 4 * g * a * (g + a) + 5 * g * a
+    nbytes = 4 * (2 * g * a + a + g + 1 + a * a + g * g)
+
+    def library():
+        t = torch.matmul(torch.matmul(qg.transpose(1, 2), gm), qa)
+        t = t / (dg[:, :, None] * da[:, None, :] + lam)
+        torch.matmul(torch.matmul(qg, t), qa.transpose(1, 2))
+
+    b = bound_ms([(nbytes, flops)], tf32_products=3)
+    return {
+        "name": "fused_apply (eigenbasis precondition + KL partial)",
+        "route": "cuda",
+        "source": "kfac_pytorch_tpu_torch/csrc/fused_apply.cu",
+        "replaces": "kfac_pytorch_tpu/ops/apply_kernels.py:190",
+        "unit": f"the WikiText-2 decoder's group, 1 x [{g}, {a}], QG {g * g * 4 / 1e9:.2f} GB",
+        "group": f"1 x [{g}, {a}]",
+        "route": ak.fused_apply_route(gm, qa, qg),
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": rel,
+        "tolerance": "|kernel - plain| <= 1e-4 * max|plain| (v and vg)",
+        "ms": time_ms(lambda: ak.fused_precondition_stack(gm, qa, da, qg, dg, lam), reps=3, warmup=1),
+        "plain_ms": time_ms(lambda: ak.fused_precondition_stack_plain(gm, qa, da, qg, dg, lam),
+                            reps=2, warmup=1),
+        "library_ms": time_ms(library, reps=2, warmup=1),
+        "library": "batched torch.matmul chain",
+        "bound_ms": b[0], "bound_by": b[1],
+        "qg_gb": g * g * 4 / 1e9,
+    }
+
+
+def wide_eigh_phase(kfac_state, device):
+    """The refresh's decomposition of the decoder's 33,278-wide G factor,
+    wider than cuSOLVER's ``syevd`` takes (``ops/eigh.py``'s spectral
+    divide and conquer), held to the factor it decomposed in float64 on 256
+    random directions ``v`` (a float32 check of a 33,278-long product has a
+    rounding floor near 1e-4 of its own): ``|(Q diag(d) Qᵀ − G) v|`` within
+    1e-5 of ``max d · |v|``, and ``|Qᵀ Q v − v|`` within 1e-5 of ``|v|``,
+    per direction."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import eigh as eigh_ops
+
+    e = kfac_state["eigen"]["decoder"]
+    d = e["dG"].double()
+    g = kfac_state["factors"]["decoder"]["G"]
+    n = len(d)
+    v = torch.randn(n, 256, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device, dtype=torch.float64)
+
+    def rows(mat, x):  # mat (float32) @ x in float64, 4096 rows at a time
+        return torch.cat([mat[lo:lo + 4096].double() @ x for lo in range(0, n, 4096)])
+
+    def rows_t(mat, x):  # matᵀ @ x in float64
+        return sum(mat[lo:lo + 4096].double().T @ x[lo:lo + 4096] for lo in range(0, n, 4096))
+
+    q = e["QG"]
+    qtv = rows_t(q, v)
+    gv = 0.5 * (rows(g, v) + rows_t(g, v))  # the symmetrized factor, as eigh saw it
+    recon = float(((rows(q, d[:, None] * qtv) - gv).norm(dim=0) / v.norm(dim=0)).max())
+    recon /= float(d.abs().max())
+    orth = float(((rows_t(q, rows(q, qtv)) - qtv).norm(dim=0) / qtv.norm(dim=0)).max())
+    if not (recon <= 1e-5 and orth <= 1e-5):
+        raise AssertionError(f"eigh of the {n}-wide G factor: reconstruction {recon:.2e}, "
+                             f"orthogonality {orth:.2e} (tolerance 1e-5)")
+    return {"n": n, "syevd_max_n": eigh_ops.SYEVD_MAX_N, "reconstruction_rel": recon,
+            "orthogonality": orth, "tolerance": 1e-5, "directions": 256}
+
+
+def wikitext_phases(device, counters, flush):
+    """Phases 19a-d: the WikiText LSTM twin at the recipe's widths with its
+    kernels at their shapes, against its oracle, profiled; at a
+    WikiText-2-sized vocabulary; the tied head, the other cells and a
+    resume; the transformer LM with the tied head. Returns what they
+    measured and the kernel rows (3 at V = 1,000 and 33,278, 4 on the
+    LSTM's leaves, 2 on the tied path's ids)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+
+    out, launches, rows = {}, {}, {}
+    mark("19a. WikiText LSTM")
+    args = trainer.parse_args(WIKITEXT_ARGS)
+    splits, vocab = trainer.load_corpus(args)
+    model = trainer.build(args, len(vocab), device)[0]
+    rows["apply"] = apply_phase(model, device)
+    rows["sgd"] = sgd_phase(model, device, args.base_lr, args.momentum, args.wd, flush)
+    x, _ = next(data_lib.bptt_batches(data_lib.batchify_tokens(splits["train"], args.batch_size),
+                                      args.bptt))
+    ids = trainer.device_batch(x, x, device)[0]
+    del model
+    hist, launches["wikitext"] = counted(
+        lambda: train_wikitext(["--steps-per-epoch", str(WIKITEXT_STEPS)]), counters)
+    first, last = gate_falling(hist["loss"], "WikiText LSTM")
+    if len(hist["val_loss"]) != 1 or not math.isfinite(hist["val_loss"][0]):
+        raise AssertionError(f"WikiText validation: {hist['val_loss']}")
+    gate_launches(launches["wikitext"], wikitext_expected(hist), "WikiText LSTM")
+    dense = train_wikitext(["--steps-per-epoch", str(ORACLE_STEPS), "--apply-kernel", "dense"])
+    oracle_rel = gate_oracle(hist["loss"], dense["loss"], "WikiText LSTM", range(ORACLE_STEPS))
+    stats = step_stats(hist, args.batch_size * args.bptt)
+    out["lstm"] = {
+        "loss_first5": first, "loss_last5": last, "val_loss": hist["val_loss"][0],
+        "val_ppl": hist["val_ppl"][0], "step0_ms": stats["step0_ms"],
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "refresh_step_ms_median": stats["refresh_ms_median"], "tokens_per_s": stats["per_s"],
+        "oracle_max_rel_diff": oracle_rel,
+    }
+    for key, fn in (("apply", "fused_precondition_stack"), ("sgd", "fused_sgd_apply")):
+        rows[key]["launches"] = launches["wikitext"][fn]
+        rows[key]["launches_per_step"] = rows[key]["launches"] / len(hist["loss"])
+    profile = profile_path(wikitext_setup, device, [((), [("capture", 1, 10)])])
+    gate_profile_launches(profile, "wikitext")
+    out["profile"] = profile
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_wikitext_") as tmp:
+        mark("19b. WikiText-2-sized vocabulary")
+        root = write_wikitext(os.path.join(tmp, "wt2"), WIKITEXT2_VOCAB, 60_000, 8_000, 2_000)
+        n_vocab = len(data_lib.build_corpus(root)[1])
+        if n_vocab != WIKITEXT2_VOCAB:
+            raise AssertionError(f"written corpus has {n_vocab} words, want {WIKITEXT2_VOCAB}")
+        wide_argv = ["--data-dir", root, *[a for a in WIKITEXT_ARGS if a != "--synthetic"],
+                     "--steps-per-epoch", str(WIKITEXT2_STEPS)]
+        kept = {}
+        _kept_build(trainer, kept)
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            wide, launches["wikitext2"] = counted(lambda: trainer.main(wide_argv), counters)
+        finally:
+            trainer.build = kept["build"]
+        peak = torch.cuda.max_memory_allocated(device)
+        if not all(math.isfinite(v) for v in wide["loss"] + wide["val_loss"]):
+            raise AssertionError(f"WikiText-2 vocabulary: non-finite loss {wide['loss']}")
+        gate_launches(launches["wikitext2"], wikitext_expected(wide), "WikiText-2 vocabulary")
+        rows["apply_wide"] = wide_apply_phase(kept["state"].kfac_state, device)
+        wide_eigh = wide_eigh_phase(kept["first_state"].kfac_state, device)
+        rows["apply_wide"]["launches"] = launches["wikitext2"]["fused_precondition_stack"]
+        rows["apply_wide"]["launches_per_step"] = rows["apply_wide"]["launches"] / WIKITEXT2_STEPS
+        del kept
+        torch.cuda.empty_cache()
+        out["wikitext2"] = {
+            "vocab": n_vocab, "losses": wide["loss"], "val_loss": wide["val_loss"][0],
+            "refresh_step_ms": wide["step_ms"][0], "capture_step_ms": wide["step_ms"][1:],
+            "peak_memory_gb": peak / 1e9, "kinds": wide["kind"], "eigh": wide_eigh,
+        }
+        print(f"WikiText-2 vocabulary {n_vocab}: refresh step {wide['step_ms'][0]:.1f} ms, capture "
+              f"steps {wide['step_ms'][1:]}, peak memory {peak / 1e9:.2f} GB; kernel 3 at "
+              f"{rows['apply_wide']['group']} within {rows['apply_wide']['max_rel_err']:.2e} of its "
+              f"plain version", flush=True)
+
+        mark("19c. tied head, GRU, RNN_TANH, resume")
+        tied_argv = ["--tied", "--kfac-embedding", "--steps-per-epoch", str(WIKITEXT_TIED_STEPS)]
+        tied, launches["wikitext_tied"] = counted(lambda: train_wikitext(tied_argv), counters)
+        if not all(math.isfinite(v) for v in tied["loss"] + tied["val_loss"]):
+            raise AssertionError(f"WikiText tied head: non-finite loss {tied['loss']}")
+        gate_launches(launches["wikitext_tied"], wikitext_expected(tied, 0, embedding=True),
+                      "WikiText tied head")
+        tied_dense = train_wikitext([*tied_argv[:2], "--steps-per-epoch", str(ORACLE_STEPS),
+                                     "--apply-kernel", "dense"])
+        out["tied"] = {
+            "losses": tied["loss"], "val_loss": tied["val_loss"][0],
+            "oracle_max_rel_diff": gate_oracle(tied["loss"], tied_dense["loss"],
+                                               "WikiText tied head", range(ORACLE_STEPS)),
+            "capture_step_ms_median": step_stats(tied, args.batch_size * args.bptt)["capture_ms_median"],
+        }
+        rows["token_count"] = token_count_phase(ids, len(vocab))
+        rows["token_count"]["launches"] = launches["wikitext_tied"]["compute_a_embed_fused"]
+        rows["token_count"]["launches_per_step"] = (rows["token_count"]["launches"]
+                                                   / WIKITEXT_TIED_STEPS)
+        for cell in ("GRU", "RNN_TANH"):
+            h, launches[f"wikitext_{cell}"] = counted(lambda: train_wikitext(
+                ["--model", cell, "--steps-per-epoch", str(WIKITEXT_CELL_STEPS)]), counters)
+            if not all(math.isfinite(v) for v in h["loss"] + h["val_loss"]):
+                raise AssertionError(f"WikiText {cell}: non-finite loss {h['loss']}")
+            gate_launches(launches[f"wikitext_{cell}"], wikitext_expected(h), f"WikiText {cell}")
+            out[cell] = {"losses": h["loss"], "val_loss": h["val_loss"][0]}
+        cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        whole, resumed = _resume_from_first(
+            trainer.main, [*WIKITEXT_ARGS, "--steps-per-epoch", str(WIKITEXT_BOOK_STEPS)],
+            tmp, "wikitext")
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+        out["resume"] = _gate_resume(
+            [*zip(resumed["loss"], whole["loss"][WIKITEXT_BOOK_STEPS:]),
+             (resumed["val_loss"][0], whole["val_loss"][1])], "WikiText resume")
+
+        mark("19d. transformer LM, --tie-embeddings --kfac-embedding")
+        lm_args = lm_trainer.parse_args([*LM_ARGS, *LM_TIED_EXTRA])
+        lm_model = lm_trainer.build(lm_args, device)[0]
+        lm_hist, launches["lm_tied"] = counted(lambda: train_lm(
+            [*LM_TIED_EXTRA, "--epochs", "1", "--steps-per-epoch", str(LM_TIED_STEPS)]), counters)
+        if lm_model.decoder is not None or not all(
+                math.isfinite(v) for v in lm_hist["loss"] + lm_hist["val_loss"]):
+            raise AssertionError(f"tied LM: losses {lm_hist['loss']} {lm_hist['val_loss']}")
+        want = {"compute_a_embed_fused" if k == "token_count" else
+                {"fused_apply": "fused_precondition_stack", "fused_sgd": "fused_sgd_apply",
+                 "flash_forward": "flash_forward", "flash_dq": "flash_backward_dq",
+                 "flash_dkv": "flash_backward_dkv"}[k]: n
+                for k, n in lm_expected_launches(lm_hist, lm_model).items()}
+        gate_launches(launches["lm_tied"], want, "tied LM")
+        del lm_model
+        oracle = lm_oracle_losses(device, ORACLE_STEPS, LM_TIED_EXTRA)
+        lm_root = write_wikitext(os.path.join(tmp, "wt_lm"), 500, 40_000, 10_000, 2_000, seed=3)
+        lm_data = lm_trainer.main([*[a for a in LM_ARGS if a != "--synthetic"], *LM_TIED_EXTRA,
+                                   "--data-dir", lm_root, "--epochs", "1", "--steps-per-epoch", "2"])
+        if not all(math.isfinite(v) for v in lm_data["loss"] + lm_data["val_loss"]):
+            raise AssertionError(f"tied LM on written WikiText: {lm_data['loss']}")
+        out["lm_tied"] = {
+            "losses": lm_hist["loss"], "val_loss": lm_hist["val_loss"][0],
+            "oracle_max_rel_diff": gate_oracle(lm_hist["loss"], oracle, "tied LM",
+                                               range(ORACLE_STEPS)),
+            "capture_step_ms_median": step_stats(
+                lm_hist, lm_args.batch_size * lm_args.seq_len)["capture_ms_median"],
+            "data_dir_losses": lm_data["loss"], "data_dir_val_loss": lm_data["val_loss"][0],
+        }
+    out["launches"] = launches
+    return out, rows
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -2298,7 +2887,19 @@ def main() -> int:
     lm_apply_bf16["launches"] = 0
     lm_apply_bf16["launches_note"] = "the LM trainer has no --eigen-dtype (nor has the JAX one)"
 
-    # 18. results: kernels 1, 3 and 4 run on several paths; the top-level
+    # 18a-d. the ImageNet data path: shards, augmentation, full-split
+    # evaluation, evaluate.py and --init-from-torch, on ResNet-50
+    shards, rn50_conv_a = imagenet_data_phases(device, all_counted)
+    print(json.dumps({"imagenet_shards": shards}), flush=True)
+    report([rn50_conv_a])
+    # 19a-d. the WikiText LSTM twin, a WikiText-2-sized vocabulary, the tied
+    # head with its reduce lens, the other cells, a resume, and the
+    # transformer LM's tied head
+    wikitext, wt_rows = wikitext_phases(device, all_counted, flush)
+    print(json.dumps({"wikitext": wikitext}), flush=True)
+    report([wt_rows["apply"], wt_rows["sgd"], wt_rows["token_count"]])
+
+    # 20. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16
@@ -2306,8 +2907,13 @@ def main() -> int:
     lm_apply[IMAGENET_MODEL] = rx_apply
     rx_apply_bf16["resnet32"] = resnet_apply_bf16
     rx_apply_bf16["lm"] = lm_apply_bf16
+    lm_apply["wikitext_lstm_v1000"] = wt_rows["apply"]
+    lm_apply["wikitext_lstm_v33278"] = wt_rows["apply_wide"]
     lm_sgd["resnet32"] = resnet_sgd
     lm_sgd[IMAGENET_MODEL] = rx_sgd
+    lm_sgd["wikitext_lstm"] = wt_rows["sgd"]
+    conv_a[f"{SHARD_MODEL}_shards"] = rn50_conv_a
+    token_count["wikitext_tied"] = wt_rows["token_count"]
     kernels = [conv_a, conv_a_bf16, grouped_a, grouped_a_bf16, token_count, lm_apply,
                rx_apply_bf16, lm_sgd, *flash]
     print(json.dumps({"kernels": kernels}), flush=True)

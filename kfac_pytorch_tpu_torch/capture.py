@@ -1,6 +1,7 @@
 """Per-layer K-FAC statistics through module hooks.
 
-Port of the conv/dense/embedding subset of ``kfac_pytorch_tpu/capture.py``.
+Port of the conv/dense/embedding subset of ``kfac_pytorch_tpu/capture.py``,
+with the reduce lens of a tied embedding/decoder head.
 The JAX package computes statistics inside its layers because JAX has no
 hooks; the reference it ports kept ``m_a``/``m_g`` hook dicts, and so does
 this module:
@@ -28,6 +29,17 @@ statistics are computed once per layer as ``[G, ·, ·]`` stacks and stored
 per group, its weight gradient is sliced along the OIHW output axis, and
 :func:`write_back` reassembles the groups. Everything downstream treats the
 groups as ordinary same-shape layers.
+
+A tied head (``KFACEmbed.attend``, the decoder reusing the embedding table)
+is a method call, which no forward hook sees: the embedding's attend hook
+hands its statistics over explicitly, and the shared table keeps ONE factor
+pair over both use sites (the reduce lens, arxiv 2311.00636; JAX
+``capture.a_contribs``/``g_factors``). The crossover: the decoder site's
+logit-gradient diagonal (``ops/factors.py::compute_g_diag``) adds to the
+embedding's ``[vocab]`` A, and its query covariance (``compute_a_dense``
+without bias) adds to the embedding's ``[features]`` G, each after the
+lookup site's own statistic. Autograd sums the table's gradient over both
+sites, and that sum is what is preconditioned.
 """
 
 from __future__ import annotations
@@ -111,15 +123,20 @@ class Capture:
         self.a_contribs: Dict[str, torch.Tensor] = {}
         self.g_factor_stats: Dict[str, torch.Tensor] = {}
         self._kind: Optional[str] = None
+        # the tied decoder sites' query covariances, by embedding layer
+        self._g_tied: Dict[str, torch.Tensor] = {}
         self._handles = [
             m.register_forward_hook(partial(self._forward_hook, n))
             for n, m in self.modules.items()
+        ] + [
+            m.register_attend_hook(partial(self._attend_hook, n))
+            for n, m in self.modules.items() if isinstance(m, KFACEmbed)
         ]
 
     @contextlib.contextmanager
     def capturing(self, factor_kernel: str = "auto"):
         """Collect statistics for the forward/backward run inside the block."""
-        self.a_contribs, self.g_factor_stats = {}, {}
+        self.a_contribs, self.g_factor_stats, self._g_tied = {}, {}, {}
         self._kind = factor_kernel
         try:
             yield self
@@ -169,6 +186,29 @@ class Capture:
                 partial(self._grad_hook, name, isinstance(module, KFACConv))
             )
 
+    def _attend_hook(self, name, module, query, logits):
+        """The tied decoder site of embedding ``name``: its query covariance
+        now (for G), a hook on the logits for its A-side diagonal."""
+        if self._kind is None:
+            return
+        with torch.no_grad():
+            self._g_tied[name] = factors.compute_a_dense(query.detach().float(), False)
+        if logits.requires_grad:
+            logits.register_hook(partial(self._tied_grad_hook, name))
+
+    def _tied_grad_hook(self, name, grad):
+        """The logit-gradient diagonal joins the lookup site's token
+        frequencies (the logits' gradient comes before the lookup output's,
+        so the lookup's G is not yet formed here)."""
+        if name not in self.a_contribs:
+            raise ValueError(
+                f"embedding {name!r}: its tied head ran without its lookup in "
+                "this capture step; the reduce lens needs both use sites"
+            )
+        with torch.no_grad():
+            diag = factors.compute_g_diag(grad.detach().float(), self.batch_averaged)
+            self.a_contribs[name] = self.a_contribs[name] + diag
+
     def _store(self, stats, name, stat):
         """One entry per layer; a grouped conv's ``[G, d, d]`` stack is
         stored per pseudo-layer."""
@@ -190,6 +230,8 @@ class Capture:
                 stat = factors.compute_g_conv(g, self.batch_averaged)
             else:
                 stat = factors.compute_g_dense(g, self.batch_averaged)
+                if name in self._g_tied:  # the tied head's query covariance
+                    stat = stat + self._g_tied[name]
         self._store(self.g_factor_stats, name, stat)
 
 

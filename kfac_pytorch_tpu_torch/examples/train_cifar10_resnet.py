@@ -16,6 +16,8 @@ eigenvectors in bfloat16, ``--precond-precision`` sets the dense
 rotations' matmul precision. Every other flag of the JAX trainer is
 accepted with its default and, set to anything else, raises
 ``SystemExit`` naming the ROADMAP item that ports it.
+``--init-from-torch`` starts from a reference CIFAR ResNet checkpoint's
+weights (``interop.init_from_torch_checkpoint``).
 
     python -m kfac_pytorch_tpu_torch.examples.train_cifar10_resnet \\
         --data-dir /path/to/cifar-10-batches-py --model resnet32 --epochs 100
@@ -39,7 +41,7 @@ from typing import Dict, List
 
 import torch
 
-from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
+from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, interop
 from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
 from kfac_pytorch_tpu_torch.models import cifar_resnet
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
@@ -76,7 +78,6 @@ _LATER_FLAGS = (
     ("--num-workers", int, 4, "9 (runtime/loader.py)"),
     ("--distribute-precondition", None, False, "6 (multi-GPU)"),
     ("--distribute-layer-factors", str, None, "6 (multi-GPU)"),
-    ("--init-from-torch", str, None, "5 (--init-from-torch)"),
     ("--precond-comm-dtype", str, None, "6 (multi-GPU)"),
     ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
     ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
@@ -172,6 +173,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--diag-warmup", type=int, default=0)
     p.add_argument("--kfac-update-freq-alpha", type=float, default=10)
     p.add_argument("--kfac-update-freq-schedule", nargs="+", type=int, default=None)
+    p.add_argument("--init-from-torch", default=None,
+                   help="initialize model weights from a reference CIFAR "
+                        "ResNet checkpoint (.pth/.pth.tar); optimizer and "
+                        "K-FAC state start fresh")
     p.add_argument("--precond-method", default="eigen", choices=["eigen", "inverse"],
                    help="eigen: eigenbasis solve (damping fresh every step); "
                         "inverse: pi-corrected factored damping + Cholesky "
@@ -313,6 +318,9 @@ def main(argv=None) -> Dict[str, List]:
     x_train, y_train = train or (None, None)
     x_val, y_val = val or (None, None)
     model, kfac, state, train_step = build(args, device)
+    if args.init_from_torch:
+        interop.init_from_torch_checkpoint(args.init_from_torch, model, args.model)
+        print(f"initialized weights from torch checkpoint {args.init_from_torch}")
     kfac_sched = None
     if kfac is not None:
         kfac_sched = KFACParamScheduler(
@@ -330,6 +338,13 @@ def main(argv=None) -> Dict[str, List]:
     if args.checkpoint_dir:
         t0 = time.perf_counter()
         state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        if resume_from_epoch and args.init_from_torch:
+            raise SystemExit(
+                f"--init-from-torch was given but {args.checkpoint_dir} "
+                f"holds an epoch-{resume_from_epoch - 1} checkpoint that "
+                "auto-resume just restored over the migrated weights; use a "
+                "fresh --checkpoint-dir or drop --init-from-torch"
+            )
         if resume_from_epoch:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
             if kfac_sched:

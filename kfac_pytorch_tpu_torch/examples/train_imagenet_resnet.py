@@ -6,35 +6,51 @@ device: the same flags with the same defaults for what the port carries
 the warmup/step LR schedule, the damping and update-frequency schedules of
 ``KFACParamScheduler``, gradient accumulation ``--batches-per-allreduce``,
 ``--precond-method``, the bfloat16 modes ``--bf16``, ``--eigen-dtype`` and
-``--precond-precision``, ``scalars.jsonl`` under ``--log-dir`` and
-checkpoints with auto-resume under ``--checkpoint-dir``), the same
-synthetic batches and K-FAC gating (``--kfac-update-freq 0`` is plain
-SGD). Only ``--synthetic`` data is ported: the ImageNet data path, its
-augmentation and evaluation are ROADMAP queue 1 item 5. Every other flag
-of the JAX trainer is accepted with its default and, set to anything else,
-raises ``SystemExit`` naming the ROADMAP item that ports it.
-``--log-dir`` and ``--checkpoint-dir`` default to none here (the JAX
-trainer's defaults are ``./logs`` and ``./checkpoints``): a run writes
-nothing it was not asked to.
+``--precond-precision``, ``scalars.jsonl`` under ``--log-dir``, checkpoints
+with auto-resume under ``--checkpoint-dir``, ``--init-from-torch``), the
+same data and K-FAC gating (``--kfac-update-freq 0`` is plain SGD).
 
+Data: numpy shards in ``--data-dir`` (``train_x.npy``/``train_y.npy``/
+``val_x.npy``/``val_y.npy``, NHWC uint8 raw pixels stored at e.g. 256×256,
+or float32 pre-normalized; ``scripts/make_imagenet_shards.py``'s layout),
+read memory-mapped. Training takes RandomResizedCrop + flip (``rrc``);
+with ``--no-augment``, shards stored at the crop size pass through
+(``none``: uint8 still decodes and normalizes) and others take Resize
+(``--val-resize``) + CenterCrop (``centercrop``). The whole val split is
+evaluated after each epoch (Resize + CenterCrop, ``--val-batch-size``, the
+ragged last batch masked). The transforms run in numpy on the host, as the
+JAX package's ``--num-workers 0`` path (its native loader is ROADMAP
+queue 1 item 9). Without shards (or with ``--synthetic``) it trains on
+synthetic batches. Every other flag of the JAX trainer is accepted with
+its default and, set to anything else, raises ``SystemExit`` naming the
+ROADMAP item that ports it. ``--log-dir`` and ``--checkpoint-dir`` default
+to none here (the JAX trainer's defaults are ``./logs`` and
+``./checkpoints``): a run writes nothing it was not asked to.
+
+    python -m kfac_pytorch_tpu_torch.examples.train_imagenet_resnet \\
+        --data-dir /path/to/shards --model resnet50 --epochs 55
     python -m kfac_pytorch_tpu_torch.examples.train_imagenet_resnet \\
         --synthetic --model resnext50_32x4d --epochs 1 --steps-per-epoch 30
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
-asked for and absent. ``main()`` returns the per-step history (loss,
-accuracy, step kind, wall milliseconds measured around a synchronized
-step), and the restore milliseconds of a resume.
+asked for and absent. ``main()`` returns the history: per step the loss,
+accuracy, step kind, wall milliseconds measured around a synchronized step
+and, on shards, the host milliseconds of the batch's numpy transform; per
+epoch the validation loss, accuracy and image count and the evaluation's
+milliseconds; the restore milliseconds of a resume.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
+from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, interop
 from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_precision_flags,
@@ -42,12 +58,14 @@ from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
 )
 from kfac_pytorch_tpu_torch.models import imagenet_resnet
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
-from kfac_pytorch_tpu_torch.training.data import synthetic_batches
+from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training.evaluation import run_imagenet_validation
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.schedules import create_lr_schedule
 from kfac_pytorch_tpu_torch.training.step import (
     TrainState,
     kfac_flags_for_step,
+    make_masked_eval_step,
     make_sgd,
     make_train_step,
 )
@@ -57,14 +75,9 @@ NUM_CLASSES = 1000
 # Flags of the JAX trainer this slice does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--data-dir", str, None, "5 (ImageNet data)"),
-    ("--val-resize", int, 256, "5 (ImageNet evaluation)"),
-    ("--no-augment", None, False, "5 (ImageNet augmentation)"),
     ("--num-workers", int, 4, "9 (runtime/loader.py)"),
-    ("--val-batch-size", int, 32, "5 (ImageNet evaluation)"),
     ("--distribute-precondition", None, False, "6 (multi-GPU)"),
     ("--distribute-layer-factors", str, None, "6 (multi-GPU)"),
-    ("--init-from-torch", str, None, "5 (--init-from-torch)"),
     ("--precond-comm-dtype", str, None, "6 (multi-GPU)"),
     ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
     ("--profile-epoch", int, None, "9 (observability/)"),
@@ -76,8 +89,13 @@ def parse_args(argv=None):
         description="ImageNet K-FAC Example (PyTorch/CUDA port)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
+    p.add_argument("--data-dir", default=None, help="numpy-shard data dir")
     p.add_argument("--synthetic", action="store_true", help="use synthetic data")
     p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--val-resize", type=int, default=256,
+                   help="eval shorter-side resize before the center crop")
+    p.add_argument("--no-augment", action="store_true",
+                   help="disable train augmentation (pass shards through)")
     p.add_argument("--log-dir", default=None, help="scalars.jsonl dir")
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint dir (enables save/resume)")
@@ -85,6 +103,7 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=32, help="per-device")
     p.add_argument("--batches-per-allreduce", type=int, default=1,
                    help="gradient-accumulation microbatches per optimizer step")
+    p.add_argument("--val-batch-size", type=int, default=32)
     p.add_argument("--epochs", type=int, default=55)
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--base-lr", type=float, default=0.0125)
@@ -104,6 +123,11 @@ def parse_args(argv=None):
     p.add_argument("--diag-warmup", type=int, default=5)
     p.add_argument("--kfac-update-freq-alpha", type=float, default=10)
     p.add_argument("--kfac-update-freq-schedule", nargs="+", type=int, default=None)
+    p.add_argument("--init-from-torch", default=None,
+                   help="initialize model weights from a reference/torchvision "
+                        "ResNet checkpoint (.pth/.pth.tar, bare state_dict or "
+                        "the reference's {'model': ...} wrapper); optimizer "
+                        "and K-FAC state start fresh")
     p.add_argument("--precond-method", default="eigen", choices=["eigen", "inverse"],
                    help="eigen: eigenbasis solve (damping fresh every step); "
                         "inverse: pi-corrected factored damping + Cholesky "
@@ -181,25 +205,81 @@ def build(args, device: torch.device):
     return model, kfac, state, train_step
 
 
+def _npy_shards(data_dir: str, split: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """``(x, y)`` of ``{split}_x.npy``/``{split}_y.npy`` (images memory-mapped),
+    or ``None`` when either file is missing."""
+    xp = os.path.join(data_dir, f"{split}_x.npy")
+    yp = os.path.join(data_dir, f"{split}_y.npy")
+    if os.path.isfile(xp) and os.path.isfile(yp):
+        return np.load(xp, mmap_mode="r"), np.load(yp)
+    return None
+
+
+def train_mode(x_train: np.ndarray, image_size: int, augment: bool) -> str:
+    """The train transform: ``rrc`` (RandomResizedCrop + flip) with
+    augmentation; without it, ``none`` for shards stored at the crop size
+    and ``centercrop`` (Resize + CenterCrop) for others."""
+    if augment:
+        return "rrc"
+    return "none" if tuple(x_train.shape[1:3]) == (image_size, image_size) else "centercrop"
+
+
+def shard_batches(x_train, y_train, batch: int, steps: int, mode: str, image_size: int,
+                  val_resize: int, seed: int, transform_ms: List[float]):
+    """One epoch of ``steps`` NCHW float32 batches of ``batch`` images: the
+    seeded permutation of the whole batches' images, each batch's indices
+    sorted (memory-map friendly), then its transform with the same
+    ``RandomState``; the host milliseconds of each batch's read and
+    transform go to ``transform_ms``."""
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(len(x_train) // batch * batch)
+    for b in range(steps):
+        t0 = time.perf_counter()
+        take = np.sort(order[b * batch:(b + 1) * batch])
+        xb, yb = x_train[take], np.asarray(y_train[take], np.int32)
+        if mode == "rrc":
+            xb = data_lib.imagenet_train_augment(xb, image_size, rng)
+        elif mode == "centercrop":
+            xb = data_lib.imagenet_eval_transform(xb, image_size, resize_size=val_resize)
+        else:
+            xb = data_lib.normalize_imagenet(xb)
+        transform_ms.append((time.perf_counter() - t0) * 1e3)
+        yield xb, yb
+
+
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
-    if not args.synthetic:
+    if args.val_resize < args.image_size:
         raise SystemExit(
-            "only --synthetic data is ported so far (ImageNet data, "
-            "augmentation and evaluation are ROADMAP queue 1 item 5)"
+            f"--val-resize ({args.val_resize}) must be >= --image-size "
+            f"({args.image_size}): Resize(shorter side) must cover the "
+            "CenterCrop (the transform stack replicates borders otherwise, "
+            "silently diverging from the reference's torchvision behavior)"
         )
     device = resolve_device(args.device)
     use_ieee_f32()
     world = 1
     accum = args.batches_per_allreduce
     model, kfac, state, train_step = build(args, device)
+    if args.init_from_torch:
+        interop.init_from_torch_checkpoint(args.init_from_torch, model, args.model)
+        print(f"initialized weights from torch checkpoint {args.init_from_torch}")
     history: Dict[str, List] = {
-        "loss": [], "accuracy": [], "kind": [], "step_ms": [], "restore_ms": [],
+        "loss": [], "accuracy": [], "kind": [], "step_ms": [], "transform_ms": [],
+        "val_loss": [], "val_accuracy": [], "val_count": [], "eval_ms": [], "restore_ms": [],
     }
     resume_from_epoch = 0
     if args.checkpoint_dir:
         t0 = time.perf_counter()
         state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        if resume_from_epoch and args.init_from_torch:
+            raise SystemExit(
+                f"--init-from-torch was given but {args.checkpoint_dir} "
+                f"holds an epoch-{resume_from_epoch - 1} checkpoint that "
+                "auto-resume just restored over the migrated weights; "
+                "point --checkpoint-dir at a fresh directory to start from "
+                "the torch checkpoint, or drop --init-from-torch to resume"
+            )
         if resume_from_epoch:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
             print(f"resumed from epoch {resume_from_epoch - 1}")
@@ -213,20 +293,45 @@ def main(argv=None) -> Dict[str, List]:
             update_freq_schedule=args.kfac_update_freq_schedule,
             start_epoch=resume_from_epoch,
         )
+    eval_step = make_masked_eval_step(model, label_smoothing=args.label_smoothing)
     lr_base = args.base_lr * world
     lr_factor = create_lr_schedule(world, args.warmup_epochs, args.lr_decay)
-    steps_per_epoch = args.steps_per_epoch or 100
     im = args.image_size
+    use_shards = not args.synthetic and args.data_dir
+    train_data = _npy_shards(args.data_dir, "train") if use_shards else None
+    val_data = _npy_shards(args.data_dir, "val") if use_shards else None
+    global_bs = args.batch_size * world
+    if train_data is not None:
+        x_train, y_train = train_data
+        mode = train_mode(x_train, im, not args.no_augment)
+        steps_per_epoch = len(x_train) // (global_bs * accum)
+        print(
+            f"ImageNet shards: {len(x_train)} train / "
+            f"{len(val_data[0]) if val_data else 0} val, stored "
+            f"{tuple(x_train.shape[1:3])} {x_train.dtype}, train={mode} (numpy pipeline)"
+        )
+    else:
+        if not args.synthetic:
+            print("no data found; falling back to --synthetic")
+        steps_per_epoch = args.steps_per_epoch or 100
+    if args.steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
     writer = ScalarWriter(args.log_dir)
 
     step = state.step
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
-        batches = synthetic_batches(
-            args.batch_size * accum, (3, im, im), NUM_CLASSES, steps_per_epoch,
-            seed=args.seed,
-        )
+        if train_data is not None:
+            batches = shard_batches(
+                x_train, y_train, global_bs * accum, steps_per_epoch, mode, im,
+                args.val_resize, args.seed + epoch, history["transform_ms"],
+            )
+        else:
+            batches = data_lib.synthetic_batches(
+                global_bs * accum, (3, im, im), NUM_CLASSES, steps_per_epoch,
+                seed=args.seed,
+            )
         t0 = time.perf_counter()
         loss_m, acc_m = Metric("train/loss"), Metric("train/accuracy")
         for i, (xb, yb) in enumerate(batches):
@@ -259,11 +364,26 @@ def main(argv=None) -> Dict[str, List]:
         dt = time.perf_counter() - t0
         print(
             f"epoch {epoch}: loss={loss_m.avg:.4f} acc={acc_m.avg:.4f} lr={lr:.4f} "
-            f"{steps_per_epoch * args.batch_size * accum / dt:.0f} img/s ({dt:.1f}s)"
+            f"{steps_per_epoch * global_bs * accum / dt:.0f} img/s ({dt:.1f}s)"
         )
         writer.add_scalar("train/loss", loss_m.avg, epoch)
         writer.add_scalar("train/accuracy", acc_m.avg, epoch)
         writer.add_scalar("train/lr", lr, epoch)
+        if val_data is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            te = time.perf_counter()
+            val_loss, val_acc, count = run_imagenet_validation(
+                eval_step, state, *val_data, image_size=im, val_resize=args.val_resize,
+                batch_size=args.val_batch_size, device=device,
+            )
+            history["eval_ms"].append((time.perf_counter() - te) * 1e3)
+            history["val_loss"].append(val_loss)
+            history["val_accuracy"].append(val_acc)
+            history["val_count"].append(count)
+            print(f"  val: loss={val_loss:.4f} acc={val_acc:.4f}")
+            writer.add_scalar("val/loss", val_loss, epoch)
+            writer.add_scalar("val/accuracy", val_acc, epoch)
         if args.checkpoint_dir:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
     writer.close()

@@ -1,9 +1,11 @@
 """Transformer-LM training with K-FAC on one GPU (PyTorch port).
 
 Twin of the JAX package's ``examples/train_transformer_lm.py`` for one
-device: the same flags with the same defaults for what this slice carries
+device: the same flags with the same defaults for what the port carries
 (model widths, SGD with global-norm clipping, K-FAC with an optional
-diagonal-A token embedding), the same synthetic corpus, BPTT segments,
+diagonal-A token embedding, the tied head ``--tie-embeddings``), the same
+data (WikiText token files from ``--data-dir``, else the synthetic
+corpus), BPTT segments,
 K-FAC gating and per-epoch validation loss, ``scalars.jsonl`` under
 ``--log-dir`` (the JAX trainer's tags; with ``--kfac-diagnostics`` also
 the per-epoch mean of every ``kfac_*`` diagnostic) and checkpoints with
@@ -57,7 +59,6 @@ SYNTHETIC_VOCAB = 1000
 # Flags of the JAX trainer this slice does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--data-dir", str, None, "8 (WikiText data)"),
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
     ("--seq-parallel", int, 1, "8 (sequence parallelism)"),
@@ -67,7 +68,6 @@ _LATER_FLAGS = (
     ("--attention", str, "ring", "8 (sequence parallelism)"),
     ("--remat", None, False, "8"),
     ("--qkv-lens", None, False, "8 (expand lens)"),
-    ("--tie-embeddings", None, False, "8 (tied head)"),
     ("--eigh-chunks", int, 1, "7 (refresh scheduling)"),
     ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
     ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
@@ -92,6 +92,7 @@ def parse_args(argv=None):
         description="Transformer-LM K-FAC Example (PyTorch/CUDA port)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
+    p.add_argument("--data-dir", default=None, help="wikitext token dir")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--log-dir", default=None, help="scalars.jsonl dir")
     p.add_argument("--checkpoint-dir", default=None,
@@ -111,6 +112,11 @@ def parse_args(argv=None):
                    help="precondition the token embedding too (diagonal-A "
                         "K-FAC); its token counts run the CUDA token-count "
                         "kernel on a GPU")
+    p.add_argument("--tie-embeddings", action="store_true",
+                   help="decoder head reuses the token embedding (logits = "
+                        "x @ Wᵀ); with --kfac-embedding the tied table gets "
+                        "ONE set of K-FAC statistics over both use sites "
+                        "(reduce lens)")
     p.add_argument("--kfac-update-freq", type=int, default=10, help="0 disables K-FAC")
     p.add_argument("--kfac-cov-update-freq", type=int, default=1)
     p.add_argument("--stat-decay", type=float, default=0.95)
@@ -151,19 +157,31 @@ def device_batch(toks: np.ndarray, tgts: np.ndarray, device: torch.device):
     )
 
 
+def load_corpus(args):
+    """``(splits, words)``: WikiText from ``--data-dir``, else (saying so
+    without ``--synthetic``) the synthetic corpus of ``SYNTHETIC_VOCAB``
+    words."""
+    wt_dir = None if args.synthetic else data_lib.find_wikitext(args.data_dir)
+    if wt_dir:
+        return data_lib.build_corpus(wt_dir)
+    if not args.synthetic:
+        print("no WikiText data found; falling back to --synthetic")
+    return data_lib.synthetic_corpus(vocab_size=SYNTHETIC_VOCAB)
+
+
 def build(args, device: torch.device, oracle: bool = False):
     """``(model, kfac, state, train_step, splits)`` for parsed ``args`` on
     ``device``: the model, the preconditioner (``None`` at
     ``--kfac-update-freq 0``), the train state, the train step and the
-    synthetic corpus. ``oracle=True`` builds the oracle path instead —
-    exact attention and the dense factor and apply routes — which the JAX
+    corpus. ``oracle=True`` builds the oracle path instead — exact
+    attention and the dense factor and apply routes — which the JAX
     trainer has no flag for."""
-    splits, words = data_lib.synthetic_corpus(vocab_size=SYNTHETIC_VOCAB)
+    splits, words = load_corpus(args)
     model = transformer_lm.get_model(
         len(words), max_len=args.seq_len, d_model=args.d_model,
         n_heads=args.n_heads, n_layers=args.n_layers,
         attention_fn=full_attention if oracle else best_attention_fn(device),
-        kfac_embedding=args.kfac_embedding,
+        kfac_embedding=args.kfac_embedding, tie_embeddings=args.tie_embeddings,
         generator=torch.Generator().manual_seed(args.seed),
     ).to(device)
     tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
@@ -199,11 +217,6 @@ def build(args, device: torch.device, oracle: bool = False):
 
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit(
-            "only --synthetic data is ported so far (WikiText loading is "
-            "ROADMAP queue 1 item 8)"
-        )
     device = resolve_device(args.device)
     use_ieee_f32()
     model, kfac, state, train_step, splits = build(args, device)

@@ -1,0 +1,279 @@
+"""WikiText RNN/LSTM language-model training with K-FAC on one GPU (PyTorch port).
+
+Twin of the JAX package's ``examples/train_wikitext_rnn.py`` for one
+device: the same flags with the same defaults for what the port carries
+(WikiText token files from ``--data-dir`` or the synthetic Zipf corpus; the
+four cell types, tying and the K-FAC token embedding; SGD with global-norm
+clipping and the lr /4 decay; K-FAC on the decoder, and with
+``--kfac-embedding`` on the embedding, which composes with ``--tied``
+through the reduce lens), per-epoch validation on the valid split,
+``scalars.jsonl`` under ``--log-dir`` and checkpoints with auto-resume
+under ``--checkpoint-dir``. ``--tied`` without ``--kfac-embedding`` leaves
+no preconditionable layer and trains with plain SGD, as the JAX trainer
+does. Every other flag of the JAX trainer is accepted with its default
+and, set to anything else, raises ``SystemExit`` naming the ROADMAP item
+that ports it. ``--log-dir`` defaults to none here (``./logs`` in the JAX
+trainer).
+
+    python -m kfac_pytorch_tpu_torch.examples.train_wikitext_rnn \\
+        --data-dir /path/to/wikitext-2 --epochs 40
+    python -m kfac_pytorch_tpu_torch.examples.train_wikitext_rnn --synthetic \\
+        --emsize 16 --nhid 16 --batch-size 4 --bptt 8 --epochs 1 \\
+        --steps-per-epoch 4 --device cpu
+
+The dropout masks come from a ``torch.Generator`` seeded with ``--seed``
+plus the epoch at each epoch's start, so a resumed epoch draws the masks of
+the uninterrupted run (the JAX trainer's key sequence restarts on resume).
+It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
+asked for and absent. ``main()`` returns the history: per step the loss,
+the step kind and the wall milliseconds around a synchronized step; per
+epoch the validation loss and perplexity; the restore milliseconds of a
+resume.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import time
+from typing import Dict, List
+
+import torch
+
+from kfac_pytorch_tpu_torch import KFAC, capture
+from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.examples.train_transformer_lm import device_batch
+from kfac_pytorch_tpu_torch.models import wikitext_rnn
+from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
+from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training.lm_step import (
+    init_carry,
+    make_lm_eval_step,
+    make_lm_train_step,
+)
+from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
+from kfac_pytorch_tpu_torch.training.step import TrainState, kfac_flags_for_step, make_sgd
+
+# Flags of the JAX trainer this twin does not carry: (flag, type, default,
+# ROADMAP queue-1 item that ports it). Store-true flags have type None.
+_LATER_FLAGS = (
+    ("--preempt-save-dir", str, None, "9 (elastic/)"),
+    ("--snapshot-every", int, 0, "9 (elastic/)"),
+    ("--eigh-chunks", int, 1, "7 (refresh scheduling)"),
+    ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
+    ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
+    ("--factor-sharding", str, "replicated", "7 (owner sharding)"),
+    ("--solver", str, "eigh", "7 (solvers)"),
+    ("--solver-rank", int, 128, "7 (solvers)"),
+    ("--solver-auto-threshold", int, 512, "7 (solvers)"),
+    ("--stream-drift-threshold", float, 0.05, "7 (solvers)"),
+    ("--comm-overlap", None, False, "7 (overlap plane)"),
+    ("--staleness-budget", int, 0, "7 (refresh scheduling)"),
+    ("--service-devices", int, 0, "9 (service/)"),
+    ("--profile", str, None, "9 (planner/)"),
+    ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="WikiText RNN K-FAC Example (PyTorch/CUDA port)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("--data-dir", default=None, help="wikitext token dir")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--log-dir", default=None, help="scalars.jsonl dir")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint dir (enables save/resume)")
+    p.add_argument("--model", default="LSTM", choices=list(wikitext_rnn.RNN_TYPES))
+    p.add_argument("--emsize", type=int, default=650)
+    p.add_argument("--nhid", type=int, default=650)
+    p.add_argument("--nlayers", type=int, default=2)
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--tied", action="store_true")
+    p.add_argument("--kfac-embedding", action="store_true",
+                   help="precondition the token embedding too (diagonal-A "
+                        "K-FAC; beyond the reference's Linear/Conv2d set); "
+                        "composes with --tied — the shared table then "
+                        "accumulates ONE set of statistics over both the "
+                        "lookup and the decoder use sites (reduce lens)")
+    p.add_argument("--batch-size", type=int, default=20)
+    p.add_argument("--bptt", type=int, default=35)
+    p.add_argument("--epochs", type=int, default=40)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--base-lr", type=float, default=20.0)
+    p.add_argument("--lr-decay", nargs="+", type=int, default=[20, 30])
+    p.add_argument("--momentum", type=float, default=0.0)
+    p.add_argument("--wd", type=float, default=0.0)
+    p.add_argument("--clip", type=float, default=0.25)
+    p.add_argument("--kfac-update-freq", type=int, default=10, help="0 disables K-FAC")
+    p.add_argument("--kfac-cov-update-freq", type=int, default=1)
+    p.add_argument("--stat-decay", type=float, default=0.95)
+    p.add_argument("--damping", type=float, default=0.003)
+    p.add_argument("--kl-clip", type=float, default=0.001)
+    p.add_argument("--apply-kernel", default="auto", choices=["auto", "kernel", "dense"],
+                   help="preconditioned apply + SGD: kernel = the fused CUDA "
+                        "kernels, dense = matmul-chain + per-leaf SGD oracle, "
+                        "auto = the kernels on CUDA tensors")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for flag, kind, default, _ in _LATER_FLAGS:
+        if kind is None:
+            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
+    return p
+
+
+def parse_args(argv=None):
+    args = build_parser().parse_args(argv)
+    for flag, _, default, item in _LATER_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            raise SystemExit(
+                f"{flag} is not ported to the PyTorch trainer yet (ROADMAP "
+                f"queue 1 item {item})"
+            )
+    return args
+
+
+def load_corpus(args):
+    """``(splits, vocab)``: WikiText from ``--data-dir``, else (saying so
+    without ``--synthetic``) the synthetic Zipf corpus."""
+    wt_dir = None if args.synthetic else data_lib.find_wikitext(args.data_dir)
+    if wt_dir:
+        splits, vocab = data_lib.build_corpus(wt_dir)
+        print(f"wikitext from {wt_dir}: vocab={len(vocab)}")
+        return splits, vocab
+    if not args.synthetic:
+        print("no wikitext data found; falling back to --synthetic")
+    return data_lib.synthetic_corpus()
+
+
+def build(args, ntokens: int, device: torch.device):
+    """``(model, kfac, state, train_step)`` for parsed ``args`` on
+    ``device``; ``kfac`` is ``None`` at ``--kfac-update-freq 0`` and when
+    the model has no preconditionable layer."""
+    model = wikitext_rnn.get_model(
+        args.model, ntokens, args.emsize, args.nhid, args.nlayers, args.dropout,
+        args.tied, kfac_embedding=args.kfac_embedding,
+        generator=torch.Generator().manual_seed(args.seed),
+    ).to(device)
+    tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
+    kfac = None
+    if args.kfac_update_freq > 0:
+        layers = capture.discover_layers(model)
+        if not layers:
+            print("WARNING: no preconditionable layers (tied decoder?); running plain SGD")
+        else:
+            print(f"K-FAC layers: {layers}")
+            kfac = KFAC(
+                layers=layers,
+                factor_decay=args.stat_decay,
+                damping=args.damping,
+                kl_clip=args.kl_clip,
+                fac_update_freq=args.kfac_cov_update_freq,
+                kfac_update_freq=args.kfac_update_freq,
+                apply_kernel=args.apply_kernel,
+                device=device,
+            )
+    state = TrainState(
+        step=0,
+        model=model,
+        opt_state=tx.init(dict(model.named_parameters())),
+        kfac_state=kfac.init(model) if kfac else None,
+    )
+    train_step = make_lm_train_step(
+        model, tx, kfac, grad_clip=args.clip,
+        # tx IS make_sgd(momentum, wd): with K-FAC the optimizer step runs
+        # through the fused SGD kernel, at momentum 0 too
+        sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
+    )
+    return model, kfac, state, train_step
+
+
+def main(argv=None) -> Dict[str, List]:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    use_ieee_f32()
+    splits, vocab = load_corpus(args)
+    train_stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
+    val_stream = data_lib.batchify_tokens(splits.get("valid", splits["train"]), args.batch_size)
+    model, kfac, state, train_step = build(args, len(vocab), device)
+    eval_step = make_lm_eval_step(model)
+    history: Dict[str, List] = {
+        "loss": [], "kind": [], "step_ms": [], "val_loss": [], "val_ppl": [], "restore_ms": [],
+    }
+    resume_from_epoch = 0
+    if args.checkpoint_dir:
+        t0 = time.perf_counter()
+        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        if resume_from_epoch:
+            history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            print(f"resumed from epoch {resume_from_epoch - 1}")
+    max_steps = (train_stream.shape[1] - 1) // args.bptt
+    steps_per_epoch = min(args.steps_per_epoch or max_steps, max_steps)
+    writer = ScalarWriter(args.log_dir)
+    generator = torch.Generator(device=device)
+
+    step = state.step
+    for epoch in range(resume_from_epoch, args.epochs):
+        lr = args.base_lr
+        for e in args.lr_decay:
+            if epoch >= e:
+                lr *= 0.25  # torch LM convention: anneal lr /4 at plateaus
+        generator.manual_seed(args.seed + epoch)
+        carry = init_carry(model, args.batch_size, device)
+        loss_m = Metric("train/loss")
+        t0 = time.perf_counter()
+        for i, (xb, yb) in enumerate(data_lib.bptt_batches(train_stream, args.bptt)):
+            if i >= steps_per_epoch:
+                break
+            flags = kfac_flags_for_step(step, kfac, epoch)
+            batch = device_batch(xb, yb, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ts = time.perf_counter()
+            state, carry, metrics = train_step(
+                state, batch, carry, generator, lr,
+                kfac.hparams.damping if kfac else 0.0, **flags,
+            )
+            loss = float(metrics["loss"])  # one read: waits for the step
+            history["step_ms"].append((time.perf_counter() - ts) * 1e3)
+            history["loss"].append(loss)
+            history["kind"].append(
+                "refresh" if flags.get("update_eigen")
+                else "capture" if flags.get("update_factors") else "plain"
+            )
+            loss_m.update(loss)
+            step += 1
+        if args.kfac_embedding:
+            # the token-count kernel tallies ids outside the vocabulary on
+            # the card; read the tally once an epoch
+            check_token_ids(device)
+        dt = time.perf_counter() - t0
+        ppl = math.exp(min(loss_m.avg, 20))
+        print(f"epoch {epoch}: loss={loss_m.avg:.4f} ppl={ppl:.1f} "
+              f"lr={lr:.2f} ({steps_per_epoch} steps, {dt:.1f}s)")
+        writer.add_scalar("train/loss", loss_m.avg, epoch)
+        writer.add_scalar("train/ppl", ppl, epoch)
+
+        vcarry = init_carry(model, args.batch_size, device)
+        vl = Metric("val/loss")
+        for xb, yb in data_lib.bptt_batches(val_stream, args.bptt):
+            m, vcarry = eval_step(state, device_batch(xb, yb, device), vcarry)
+            vl.update(float(m["loss"]))
+        vppl = math.exp(min(vl.avg, 20))
+        history["val_loss"].append(vl.avg)
+        history["val_ppl"].append(vppl)
+        print(f"  val: loss={vl.avg:.4f} ppl={vppl:.1f}")
+        writer.add_scalar("val/loss", vl.avg, epoch)
+        writer.add_scalar("val/ppl", vppl, epoch)
+        if args.checkpoint_dir:
+            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
+    writer.close()
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -22,7 +22,18 @@ unchanged, LayerNorm ``scale`` → ``weight``.
 (same traversal order), a block's last ``KFACConv``/``BatchNorm`` pair
 (``_2``/``_3`` when the block has a downsample) → ``downsample.0``/``.1``,
 grouped HWIO kernels ``[kh, kw, in/G, out]`` → OIHW ``[out, in/G, kh, kw]``.
-All three copy values bit for bit.
+:func:`rnn_state_dict_from_jax` does the same for the flax ``RNNModel``
+(``models/wikitext_rnn.py``): per layer, flax's one kernel per gate
+(``ii``…``io``, ``hi``…``ho``; GRU ``ir``/``iz``/``in``, ``hr``/``hz``/``hn``;
+simple cells ``i``/``h``) is transposed and concatenated in gate order.
+All four copy values bit for bit.
+
+:func:`init_from_torch_checkpoint` is the port's ``--init-from-torch``
+(the JAX package's ``torch_interop.init_params_from_checkpoint``): the
+port's image models already carry the torchvision names (ImageNet) and the
+reference zoo's (CIFAR: ``linear``, option-A shortcuts without weights), so
+a reference checkpoint's ``state_dict`` loads into the model directly, with
+the JAX package's checks.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ from typing import Any, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
@@ -92,7 +105,7 @@ def state_dict_from_jax(
 
 def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """JAX transformer-LM ``params`` → the port's ``TransformerLM`` state_dict
-    (the dense-MLP, untied subset the port models)."""
+    (the dense-MLP subset the port models, tied or untied)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     sd["tok_embed.weight"] = _t(params["tok_embed"]["embedding"])
     sd["pos_embed.weight"] = _t(params["pos_embed"]["embedding"])
@@ -107,7 +120,8 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Te
         _put_dense(sd, f"{prefix}.ff2", bp["ff2"])
         i += 1
     _put_ln(sd, "ln_f", params["ln_f"])
-    _put_dense(sd, "decoder", params["decoder"])
+    if "decoder" in params:  # a tied model's head is the token table
+        _put_dense(sd, "decoder", params["decoder"])
     return sd
 
 
@@ -165,3 +179,104 @@ def imagenet_state_dict_from_jax(
             b += 1
     _put_dense(sd, "fc", params["KFACDense_0"])
     return sd
+
+
+# flax cell parameter names per gate, in the order the port's cells
+# concatenate them (PyTorch's gate order): input side, hidden side
+_RNN_GATES = {
+    "LSTM": ("OptimizedLSTMCell", ("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")),
+    "GRU": ("GRUCell", ("ir", "iz", "in"), ("hr", "hz", "hn")),
+    "RNN_TANH": ("SimpleCell", ("i",), ("h",)),
+    "RNN_RELU": ("SimpleCell", ("i",), ("h",)),
+}
+
+
+def rnn_state_dict_from_jax(
+    params: Dict[str, Any], rnn_type: str
+) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``RNNModel`` ``params`` → the port's ``RNNModel`` state_dict, for
+    every ``RNN_TYPES`` entry, tied (no ``decoder``) or untied.
+
+    Cell ``{Cell}_{i}`` → ``rnns.{i}``: ``weight_ih`` ``[gates·h, in]`` and
+    ``weight_hh`` ``[gates·h, h]`` (each gate's ``[in, h]`` kernel
+    transposed); the biases flax has: the LSTM's hidden-side ``bias_hh``,
+    the GRU's input-side ``bias_ih`` and ``bias_hn``, a simple cell's
+    ``bias_ih``. The biases flax lacks are zero buffers outside the
+    state_dict (``models/wikitext_rnn.py``).
+    """
+    if rnn_type not in _RNN_GATES:
+        raise ValueError(f"unknown rnn_type {rnn_type!r}; options: {tuple(_RNN_GATES)}")
+    cell, in_gates, h_gates = _RNN_GATES[rnn_type]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    sd["encoder.weight"] = _t(params["encoder"]["embedding"])
+    i = 0
+    while f"{cell}_{i}" in params:
+        cp, prefix = params[f"{cell}_{i}"], f"rnns.{i}"
+        sd[f"{prefix}.weight_ih"] = _t(np.concatenate(
+            [np.asarray(cp[g]["kernel"]).T for g in in_gates]))
+        sd[f"{prefix}.weight_hh"] = _t(np.concatenate(
+            [np.asarray(cp[g]["kernel"]).T for g in h_gates]))
+        if rnn_type == "LSTM":
+            sd[f"{prefix}.bias_hh"] = _t(np.concatenate([cp[g]["bias"] for g in h_gates]))
+        else:
+            sd[f"{prefix}.bias_ih"] = _t(np.concatenate([cp[g]["bias"] for g in in_gates]))
+        if rnn_type == "GRU":
+            sd[f"{prefix}.bias_hn"] = _t(cp["hn"]["bias"])
+        i += 1
+    if "decoder" in params:
+        _put_dense(sd, "decoder", params["decoder"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# --init-from-torch: a reference/torchvision checkpoint into a port model
+# ---------------------------------------------------------------------------
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a reference checkpoint file: the reference's
+    ``{'model': state_dict, ...}`` wrapper or a bare ``state_dict``, read
+    with ``torch.load(weights_only=True)`` on the CPU. float64 entries come
+    back float32, as the JAX package reads them."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = obj.get("model", obj) if isinstance(obj, dict) else obj
+    return {k: v.float() if v.dtype == torch.float64 else v for k, v in sd.items()}
+
+
+def init_from_torch_checkpoint(path: str, model: nn.Module, arch: str) -> nn.Module:
+    """Load a reference/torchvision checkpoint's weights into ``model`` in
+    place (its optimizer and K-FAC state start fresh) and return it.
+
+    ``num_batches_tracked`` entries are skipped. A weight the model has and
+    the file lacks raises ``KeyError``; an entry of the file the model has
+    no place for raises ``ValueError`` (a silent partial import would be a
+    wrong checkpoint); a shape or dtype that differs from the model's raises
+    ``SystemExit`` naming the first differing entries (wrong arch, class
+    count, or a checkpoint saved in another dtype).
+    """
+    def keep(sd):
+        return {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+    loaded, target = keep(load_torch_checkpoint(path)), keep(model.state_dict())
+    for key in target:
+        if key not in loaded:
+            raise KeyError(f"state_dict is missing {key!r} — is this really {arch}?")
+    leftover = sorted(set(loaded) - set(target))
+    if leftover:
+        raise ValueError(
+            f"unconsumed state_dict entries (naming mismatch?): "
+            f"{leftover[:8]}{' ...' if len(leftover) > 8 else ''}"
+        )
+    diffs = sorted(
+        k for k, v in target.items()
+        if (tuple(loaded[k].shape), loaded[k].dtype) != (tuple(v.shape), v.dtype)
+    )
+    if diffs:
+        raise SystemExit(
+            f"--init-from-torch mismatch for {arch} (first differing entries: "
+            f"{diffs[:4]}) — wrong arch, class count, or checkpoint dtype?"
+        )
+    with torch.no_grad():
+        for k, v in target.items():
+            v.copy_(loaded[k])
+    return model

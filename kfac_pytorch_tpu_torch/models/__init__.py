@@ -1,2 +1,2 @@
 """Models: K-FAC-aware layers, the CIFAR and ImageNet ResNet zoos, the
-transformer LM."""
+transformer LM and the word-level RNN LM."""

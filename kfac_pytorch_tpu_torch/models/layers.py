@@ -16,10 +16,13 @@ and their gradients float32. ``None`` computes in the input's type.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from collections import OrderedDict
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.hooks import RemovableHandle
 
 
 class KFACConv(nn.Conv2d):
@@ -78,8 +81,13 @@ class KFACEmbed(nn.Embedding):
     diagonal of token frequencies, a ``[vocab]`` vector
     (``ops/factors.py::compute_a_embed``), and its eigenbasis is the
     identity: embedding K-FAC costs one ``[d, d]`` G factor plus elementwise
-    work on the vocab axis. The tied decoder head (``attend``) is a later
-    slice (ROADMAP queue 1 item 8).
+    work on the vocab axis.
+
+    :meth:`attend` is the tied decoder head, ``logits = query @ weightᵀ``.
+    It is a method call, which no forward hook sees, so it calls the hooks
+    registered with :meth:`register_attend_hook` (``capture.Capture``'s:
+    the reduce lens folds the decoder site's statistics into this layer's
+    one factor pair).
     """
 
     def __init__(self, *args, **kwargs):
@@ -89,3 +97,18 @@ class KFACEmbed(nn.Embedding):
                 "KFACEmbed supports plain lookups only (no padding_idx, "
                 "max_norm or sparse gradients)"
             )
+        self._attend_hooks: "OrderedDict[int, Callable]" = OrderedDict()
+
+    def register_attend_hook(self, hook: Callable) -> RemovableHandle:
+        """``hook(module, query, logits)`` runs after every :meth:`attend`."""
+        handle = RemovableHandle(self._attend_hooks)
+        self._attend_hooks[handle.id] = hook
+        return handle
+
+    def attend(self, query: torch.Tensor) -> torch.Tensor:
+        """Tied decoder head: ``logits = query @ weightᵀ`` (``[..., d]`` →
+        ``[..., vocab]``), flax's ``Embed.attend``."""
+        logits = F.linear(query, self.weight)
+        for hook in self._attend_hooks.values():
+            hook(self, query, logits)
+        return logits

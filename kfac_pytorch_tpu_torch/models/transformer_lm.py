@@ -1,8 +1,8 @@
 """Decoder-only transformer LM with K-FAC layers and pluggable attention.
 
 Port of ``kfac_pytorch_tpu/models/transformer_lm.py`` (``TransformerBlock``,
-``TransformerLM``, ``get_model``) for the dense-MLP, untied, no-lens,
-no-remat subset, with the flax model's module names (``tok_embed``,
+``TransformerLM``, ``get_model``) for the dense-MLP, no-lens, no-remat
+subset, tied or untied, with the flax model's module names (``tok_embed``,
 ``pos_embed``, ``blocks.{i}`` for ``block_{i}``, ``ln_attn``, ``qkv``,
 ``out``, ``ln_mlp``, ``ff1``, ``ff2``, ``ln_f``, ``decoder``), so
 ``interop.lm_state_dict_from_jax`` maps one tree onto the other. The flax
@@ -13,7 +13,10 @@ semantics it keeps:
 * position embeddings are a plain, SGD-trained embedding over
   ``arange(T)``; the token embedding is a ``KFACEmbed`` with
   ``kfac_embedding=True``;
-* every projection and the decoder head are ``KFACDense`` with bias.
+* every projection and the decoder head are ``KFACDense`` with bias;
+  with ``tie_embeddings`` the head is the token table instead
+  (``KFACEmbed.attend`` under ``kfac_embedding``: the reduce lens of
+  ``capture.py`` keeps one factor pair over both use sites).
 
 ``attention_fn(q, k, v, causal=True)`` takes ``[B, T, H, D]`` tensors:
 ``ops.flash_attention.best_attention_fn(device)`` picks the CUDA flash
@@ -42,7 +45,6 @@ def _refuse_later_options(**opts) -> None:
     names = {
         "dropout": "dropout > 0",
         "qkv_lens": "qkv_lens (expand lens)",
-        "tie_embeddings": "tie_embeddings (tied head, reduce lens)",
         "remat": "remat",
         "tensor_parallel": "tensor_parallel > 1 (shardwise)",
         "moe_experts": "moe_experts > 0 (shardwise MoE)",
@@ -100,6 +102,7 @@ class TransformerLM(nn.Module):
         d_ff: Optional[int] = None,
         attention_fn: AttentionFn = full_attention,
         kfac_embedding: bool = False,
+        tie_embeddings: bool = False,
     ):
         super().__init__()
         if d_model % n_heads:
@@ -113,7 +116,7 @@ class TransformerLM(nn.Module):
             for _ in range(n_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.decoder = KFACDense(d_model, vocab_size)
+        self.decoder = None if tie_embeddings else KFACDense(d_model, vocab_size)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         t = tokens.shape[1]
@@ -126,7 +129,12 @@ class TransformerLM(nn.Module):
         )[None]
         for block in self.blocks:
             x = block(x)
-        return self.decoder(self.ln_f(x))
+        x = self.ln_f(x)
+        if self.decoder is not None:
+            return self.decoder(x)
+        if isinstance(self.tok_embed, KFACEmbed):
+            return self.tok_embed.attend(x)
+        return F.linear(x, self.tok_embed.weight)
 
 
 @torch.no_grad()
@@ -166,12 +174,13 @@ def get_model(
     ``generator`` (seed 0 when none is given). Options of later slices
     raise ``NotImplementedError``."""
     _refuse_later_options(
-        dropout=dropout != 0.0, qkv_lens=qkv_lens, tie_embeddings=tie_embeddings,
-        remat=remat, tensor_parallel=tensor_parallel != 1, moe_experts=moe_experts != 0,
+        dropout=dropout != 0.0, qkv_lens=qkv_lens, remat=remat,
+        tensor_parallel=tensor_parallel != 1, moe_experts=moe_experts != 0,
     )
     model = TransformerLM(
         vocab_size, max_len=max_len, d_model=d_model, n_heads=n_heads,
         n_layers=n_layers, attention_fn=attention_fn, kfac_embedding=kfac_embedding,
+        tie_embeddings=tie_embeddings,
     )
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model

@@ -1,7 +1,8 @@
 """Kronecker factor statistics (A = input covariance, G = grad-output covariance).
 
 Port of ``kfac_pytorch_tpu/ops/factors.py`` (the conv, grouped conv, dense
-and diagonal-A embedding subset). The math is the reference's; the layouts
+and diagonal-A embedding subset, and ``compute_g_diag`` for the tied
+decoder head). The math is the reference's; the layouts
 are PyTorch's:
 
 * activations and output-grads are NCHW, conv weights OIHW
@@ -196,6 +197,17 @@ def compute_g_dense(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:
     if batch_averaged:
         return g.T @ (g * n)
     return g.T @ (g / n)
+
+
+def compute_g_diag(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:
+    """DIAGONAL of the grad-output covariance, ``diag(gᵀg·s)``, without
+    ``gᵀg``: the tied decoder head's ``[vocab]`` logit statistics, which join
+    the shared table's diagonal A side (the reduce lens). The scale is
+    :func:`compute_g_dense`'s (×N batch-averaged, /N otherwise)."""
+    g = _flatten_leading(g)
+    n = g.shape[0]
+    scale = float(n) if batch_averaged else 1.0 / n
+    return torch.sum(g * g, dim=0) * scale
 
 
 def compute_g_conv(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:

@@ -113,14 +113,16 @@ def replicated_eigen_update(
         by_size.setdefault(s.size, []).append(i)
     results: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
     for _, idxs in sorted(by_size.items()):
-        stack = torch.stack(
-            [
-                factors[slots[i].name][slots[i].factor][
-                    slots[i].start : slots[i].stop, slots[i].start : slots[i].stop
-                ].float()
-                for i in idxs
-            ]
-        )
+        mats = [
+            factors[slots[i].name][slots[i].factor][
+                slots[i].start : slots[i].stop, slots[i].start : slots[i].stop
+            ].float()
+            for i in idxs
+        ]
+        # a lone slot goes as a view: a WikiText-2 decoder's G factor is
+        # 4.4 GB, and its decomposition needs the memory
+        stack = mats[0][None] if len(mats) == 1 else torch.stack(mats)
+        del mats
         q, d = eigh_with_floor(stack, eps)
         for row, i in enumerate(idxs):
             results[i] = (q[row], d[row])

@@ -2,19 +2,30 @@
 
 Port of ``training/data.py``: the CIFAR part (``load_cifar10``,
 ``find_cifar10``, the pad-4 crop + flip augmentation, ``epoch_batches``,
-``eval_batches`` and the learnable stand-in ``synthetic_cifar_like``) and
-``synthetic_batches``, ``synthetic_corpus``, ``batchify_tokens``,
-``bptt_batches``.
+``eval_batches`` and the learnable stand-in ``synthetic_cifar_like``), the
+ImageNet part (the numpy transforms ``imagenet_train_augment`` —
+RandomResizedCrop + flip — and ``imagenet_eval_transform`` — Resize +
+CenterCrop —, ``random_resized_crop_params`` and the uint8 stand-in
+``synthetic_imagenet_like``), the WikiText part (``build_corpus``,
+``find_wikitext``) and ``synthetic_batches``, ``synthetic_corpus``,
+``batchify_tokens``, ``bptt_batches``.
 
 The port keeps its own numpy copies: it imports nothing of the JAX package.
 The random draws are the JAX package's, call for call, so both packages see
 the same data for the same seed. Images come out NCHW, the port's layout
 (the JAX package's, transposed, bit for bit); token streams come out as
-they are.
+they are. ImageNet shards stay in their on-disk layout, NHWC
+(``{train,val}_{x,y}.npy``, as ``scripts/make_imagenet_shards.py`` writes
+them): the transforms read NHWC batches and return NCHW float32. The
+ImageNet transforms run in numpy on the host only; the JAX package's native
+C++ loader (``--num-workers``) is ROADMAP queue 1 item 9. Data is read only
+from the directory a caller names: unlike the JAX package, nothing searches
+fixed data directories.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import pickle
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -213,6 +224,41 @@ def synthetic_cifar_like(
     )
 
 
+def synthetic_imagenet_like(
+    num_classes: int = 200,
+    size: int = 64,
+    n_train: int = 20_000,
+    n_val: int = 4_000,
+    prototypes_per_class: int = 4,
+    noise: float = 0.45,
+    label_noise: float = 0.0,
+    seed: int = 0,
+) -> Tuple[Tuple[np.ndarray, np.ndarray], Tuple[np.ndarray, np.ndarray]]:
+    """A learnable ImageNet-class stand-in as uint8 shards: ``((x_train,
+    y_train), (x_val, y_val))`` with NHWC uint8 images in the shard layout
+    (``{train,val}_x.npy``), fed through the same loader and transforms real
+    shards would take. The recipe of :func:`synthetic_cifar_like` with the
+    class structure at a coarser scale (``size // 8`` prototypes, two blur
+    passes) so RandomResizedCrop keeps it; ``label_noise`` flips that share
+    of TRAIN labels. Equal to the JAX package's, bit for bit."""
+    rng = np.random.RandomState(seed)
+    protos = _make_prototypes(
+        rng, num_classes, prototypes_per_class, size,
+        low=max(size // 8, 4), blur_passes=2,
+    )
+
+    def quantize(split):
+        # float ~N(0, ~1.2) -> uint8 with 3.5 sigma of headroom, back to NHWC
+        x, y = split
+        x = np.clip(x.transpose(0, 2, 3, 1) * 36.0 + 128.0, 0.0, 255.0)
+        return np.ascontiguousarray(x.astype(np.uint8)), y
+
+    return (
+        quantize(_prototype_split(protos, n_train, seed + 1, noise, label_noise)),
+        quantize(_prototype_split(protos, n_val, seed + 2, noise, 0.0)),
+    )
+
+
 def synthetic_batches(
     batch_size: int,
     image_shape: Tuple[int, int, int],
@@ -264,3 +310,182 @@ def bptt_batches(stream: np.ndarray, bptt: int) -> Iterator[Batch]:
     _, n = stream.shape
     for i in range(0, n - bptt, bptt):
         yield stream[:, i : i + bptt], stream[:, i + 1 : i + 1 + bptt]
+
+
+# ---------------------------------------------------------------------------
+# ImageNet transforms (numpy, on the host)
+# ---------------------------------------------------------------------------
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def _to_float(img: np.ndarray) -> np.ndarray:
+    """uint8 [0, 255] -> float32 [0, 1]; float input passes through
+    (already preprocessed)."""
+    if img.dtype == np.uint8:
+        return img.astype(np.float32) / 255.0
+    return img.astype(np.float32)
+
+
+def _bilinear_window(
+    img: np.ndarray, oh: int, ow: int, oy: float, ox: float, sy: float, sx: float,
+    lo_y: float, hi_y: float, lo_x: float, hi_x: float,
+) -> np.ndarray:
+    """``align_corners=False`` bilinear sample of one HWC image: output
+    pixel (r, c) reads source coordinate ((r+0.5)·sy − 0.5 + oy,
+    (c+0.5)·sx − 0.5 + ox), clamped per axis to [lo, hi]."""
+    h, w = img.shape[:2]
+    fy = np.clip((np.arange(oh) + 0.5) * sy - 0.5 + oy, lo_y, hi_y)
+    fx = np.clip((np.arange(ow) + 0.5) * sx - 0.5 + ox, lo_x, hi_x)
+    y0 = fy.astype(np.int64)
+    x0 = fx.astype(np.int64)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    wy = (fy - y0).astype(np.float32)[:, None, None]
+    wx = (fx - x0).astype(np.float32)[None, :, None]
+    p00 = img[y0][:, x0]
+    p01 = img[y0][:, x1]
+    p10 = img[y1][:, x0]
+    p11 = img[y1][:, x1]
+    return (
+        p00 * (1 - wy) * (1 - wx)
+        + p01 * (1 - wy) * wx
+        + p10 * wy * (1 - wx)
+        + p11 * wy * wx
+    )
+
+
+def random_resized_crop_params(
+    h: int, w: int, rng: np.random.RandomState,
+    scale=(0.08, 1.0), ratio=(3.0 / 4.0, 4.0 / 3.0),
+) -> Tuple[int, int, int, int]:
+    """torchvision ``RandomResizedCrop.get_params``: ``(top, left, height,
+    width)`` from 10 attempts of (area, log-aspect) sampling, then the
+    ratio-clamped center crop."""
+    area = h * w
+    for _ in range(10):
+        target = rng.uniform(*scale) * area
+        ar = math.exp(rng.uniform(math.log(ratio[0]), math.log(ratio[1])))
+        cw = int(round(math.sqrt(target * ar)))
+        ch = int(round(math.sqrt(target / ar)))
+        if 0 < cw <= w and 0 < ch <= h:
+            i = rng.randint(0, h - ch + 1)
+            j = rng.randint(0, w - cw + 1)
+            return i, j, ch, cw
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        ch, cw = h, int(round(h * ratio[1]))
+    else:
+        cw, ch = w, h
+    return (h - ch) // 2, (w - cw) // 2, ch, cw
+
+
+def _nchw(out: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(out.transpose(0, 3, 1, 2))
+
+
+def normalize_imagenet(x: np.ndarray) -> np.ndarray:
+    """An NHWC batch stored at the crop size, as the model takes it: uint8
+    decoded to [0, 1] and normalized with the ImageNet statistics, float
+    (pre-normalized) passed through; NCHW float32."""
+    if x.dtype == np.uint8:
+        return _nchw((np.asarray(x, np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
+    return _nchw(np.asarray(x, np.float32))
+
+
+def imagenet_train_augment(
+    x: np.ndarray, out_size: int, rng: np.random.RandomState, normalize: bool = True,
+) -> np.ndarray:
+    """RandomResizedCrop(out_size) + horizontal flip over an NHWC batch, in
+    ``rng``'s order (per image: the crop, then the flip). uint8 input is
+    scaled to [0, 1] and normalized with the ImageNet statistics; float
+    input is taken as pre-normalized. Returns NCHW float32."""
+    n = x.shape[0]
+    out = np.empty((n, out_size, out_size, x.shape[3]), np.float32)
+    for idx in range(n):
+        img = _to_float(x[idx])
+        h, w = img.shape[:2]
+        i, j, ch, cw = random_resized_crop_params(h, w, rng)
+        o = _bilinear_window(
+            img, out_size, out_size, float(i), float(j),
+            ch / out_size, cw / out_size, i, i + ch - 1, j, j + cw - 1,
+        )
+        if rng.rand() < 0.5:
+            o = o[:, ::-1]
+        out[idx] = o
+    if normalize and x.dtype == np.uint8:
+        out = (out - IMAGENET_MEAN) / IMAGENET_STD
+    return _nchw(out)
+
+
+def imagenet_eval_transform(
+    x: np.ndarray, out_size: int, resize_size: int = 256, normalize: bool = True
+) -> np.ndarray:
+    """Resize(shorter side -> resize_size) + CenterCrop(out_size) over an
+    NHWC batch (the reference's validation transform). Returns NCHW
+    float32."""
+    if resize_size < out_size:
+        raise ValueError(
+            f"resize_size ({resize_size}) must cover the center crop "
+            f"({out_size}); smaller values would replicate borders instead "
+            "of torchvision CenterCrop's zero-padding"
+        )
+    n = x.shape[0]
+    out = np.empty((n, out_size, out_size, x.shape[3]), np.float32)
+    for idx in range(n):
+        img = _to_float(x[idx])
+        h, w = img.shape[:2]
+        scale = resize_size / min(h, w)
+        rh, rw = int(round(h * scale)), int(round(w * scale))
+        sy, sx = h / rh, w / rw
+        ty, tx = (rh - out_size) // 2, (rw - out_size) // 2
+        out[idx] = _bilinear_window(
+            img, out_size, out_size, ty * sy, tx * sx, sy, sx, 0, h - 1, 0, w - 1
+        )
+    if normalize and x.dtype == np.uint8:
+        out = (out - IMAGENET_MEAN) / IMAGENET_STD
+    return _nchw(out)
+
+
+# ---------------------------------------------------------------------------
+# WikiText (word-level LM)
+# ---------------------------------------------------------------------------
+
+
+def build_corpus(data_dir: str) -> Tuple[Dict[str, np.ndarray], List[str]]:
+    """Word-level corpus from ``wiki.{train,valid,test}.tokens`` (the
+    WikiText-2/103 layout): ``(splits, vocab)``, each split present on disk
+    an int32 id array, every line's words followed by ``<eos>``; ids in
+    order of first appearance after ``<unk>`` (0) and ``<eos>`` (1)."""
+    vocab = {"<unk>": 0, "<eos>": 1}
+    words = ["<unk>", "<eos>"]
+
+    def encode(path):
+        ids = []
+        with open(path, "r", encoding="utf-8") as fh:
+            for line in fh:
+                for w in line.split() + ["<eos>"]:
+                    if w not in vocab:
+                        vocab[w] = len(words)
+                        words.append(w)
+                    ids.append(vocab[w])
+        return np.asarray(ids, np.int32)
+
+    splits = {}
+    for split in ("train", "valid", "test"):
+        p = os.path.join(data_dir, f"wiki.{split}.tokens")
+        if os.path.isfile(p):
+            splits[split] = encode(p)
+    return splits, words
+
+
+def find_wikitext(data_dir: Optional[str]) -> Optional[str]:
+    """``data_dir`` if it holds ``wiki.train.tokens``, else ``None``.
+    Unlike the JAX package, which also searches fixed data directories, the
+    port looks only where it is told."""
+    if data_dir and os.path.isfile(os.path.join(data_dir, "wiki.train.tokens")):
+        return data_dir
+    return None

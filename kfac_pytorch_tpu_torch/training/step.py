@@ -231,39 +231,51 @@ def make_train_step(
         }
         if grad_clip:
             grads = clip_by_global_norm(grads, grad_clip)
-        kfac_state = state.kfac_state
-        if kfac is not None:
-            grads, kfac_state = kfac.update(
-                grads,
-                kfac_state,
-                a_contribs=a_c,
-                g_factor_stats=g_s,
-                lr=lr,
-                damping=damping,
-                update_factors=update_factors,
-                update_eigen=update_eigen,
-                diag_warmup_done=diag_warmup_done,
-            )
-        fused = None
-        if sgd_hyper is not None and kfac is not None:
-            fused = apply_kernels.dispatch_sgd_apply(
-                params, grads, state.opt_state, lr, sgd_hyper[0], sgd_hyper[1],
-                kind=kfac.apply_kernel, plans=sgd_plans,
-            )
-        if fused is None:
-            tx.apply(params, grads, state.opt_state, lr)
+        new_state = precondition_and_step(
+            state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
+            update_factors=update_factors, update_eigen=update_eigen,
+            diag_warmup_done=diag_warmup_done,
+        )
         metrics = {"loss": loss, "accuracy": acc}
         if kfac is not None and kfac.track_diagnostics:
-            metrics.update(diagnostic_metrics(kfac_state["diagnostics"]))
-        new_state = TrainState(
-            step=state.step + 1,
-            model=model,
-            opt_state=state.opt_state,
-            kfac_state=kfac_state,
-        )
+            metrics.update(diagnostic_metrics(new_state.kfac_state["diagnostics"]))
         return new_state, metrics
 
     return train_step
+
+
+def precondition_and_step(
+    state: TrainState,
+    params: Dict[str, torch.Tensor],
+    grads: Dict[str, torch.Tensor],
+    a_c, g_s, lr: float, damping: float,
+    kfac: Optional[KFAC], tx: SGD, sgd_hyper, sgd_plans: Dict[str, Any],
+    **flags,
+) -> TrainState:
+    """The tail of a train step, shared by the image and the RNN LM steps:
+    ``KFAC.update`` (with the step's ``update_factors``/``update_eigen``/
+    ``diag_warmup_done`` flags), then SGD, through the fused SGD kernel
+    wrapper when ``sgd_hyper`` declares ``tx`` and a preconditioner runs
+    (``sgd_plans`` keeps its launch plan between steps), else per leaf.
+    Updates the parameters and momentum in place; returns the next state."""
+    kfac_state = state.kfac_state
+    if kfac is not None:
+        grads, kfac_state = kfac.update(
+            grads, kfac_state, a_contribs=a_c, g_factor_stats=g_s, lr=lr,
+            damping=damping, **flags,
+        )
+    fused = None
+    if sgd_hyper is not None and kfac is not None:
+        fused = apply_kernels.dispatch_sgd_apply(
+            params, grads, state.opt_state, lr, sgd_hyper[0], sgd_hyper[1],
+            kind=kfac.apply_kernel, plans=sgd_plans,
+        )
+    if fused is None:
+        tx.apply(params, grads, state.opt_state, lr)
+    return TrainState(
+        step=state.step + 1, model=state.model, opt_state=state.opt_state,
+        kfac_state=kfac_state,
+    )
 
 
 def _add_stats(total, stats):

@@ -456,6 +456,34 @@ def test_fused_apply_routes_of_the_paths_shapes(cuda_device):
     assert route(1, 1000, 513)["tile"] == "64x64"
 
 
+# The WikiText LSTM's decoder (650 inputs and a bias column, one output per
+# word): the synthetic corpus's 1,000 words, a ragged 1,003, and one group
+# of QG width 8,192 (the 33,278 of WikiText-2 is chip_smoke.py's phase 19b).
+# The eigenbases come from torch.linalg.qr on the card: numpy's QR of an
+# 8,192-wide matrix takes the host tens of seconds.
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1000, 1003, 8192])
+def test_fused_apply_kernel_at_the_wikitext_decoder(cuda_device, g):
+    a = 651
+    gen = torch.Generator(device=cuda_device).manual_seed(g)
+
+    def orth(n):
+        return torch.linalg.qr(torch.randn(1, n, n, device=cuda_device, generator=gen))[0].contiguous()
+
+    arrs = (torch.randn(1, g, a, device=cuda_device, generator=gen), orth(a),
+            torch.rand(1, a, device=cuda_device, generator=gen) + 0.1, orth(g),
+            torch.rand(1, g, device=cuda_device, generator=gen) + 0.1)
+    before = tapply.fused_precondition_stack.launches
+    v, vg = tapply.fused_precondition_stack(*arrs, 0.003)
+    torch.cuda.synchronize()
+    assert tapply.fused_precondition_stack.launches == before + 1
+    v_p, vg_p = tapply.fused_precondition_stack_plain(*arrs, 0.003)
+    _close_scaled(v, v_p, rtol=1e-4)
+    _close_scaled(vg, vg_p, rtol=1e-4)
+    again = tapply.fused_precondition_stack(*arrs, 0.003)
+    assert torch.equal(v, again[0]) and torch.equal(vg, again[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,g,a", [(4, 1024, 520), (3, 300, 513), (96, 4, 36)])
 def test_fused_apply_kernel_is_deterministic(cuda_device, k, g, a):
@@ -500,6 +528,31 @@ def test_fused_sgd_kernel_matches_plain(cuda_device):
     # 240 leaves: one launch, bitwise equal (each product and sum rounded
     # on its own, in the plain version's order)
     _sgd_matches_plain_bitwise(params, grads, trace, launches=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_plan", [False, True])
+def test_fused_sgd_kernel_at_momentum_zero(cuda_device, with_plan):
+    """The WikiText recipe's SGD (momentum 0, weight decay 0, lr 20) over a
+    2-layer LSTM's leaves and its decoder: still one launch, bitwise equal
+    to the plain version (the momentum buffer holds the last update)."""
+    r = np.random.RandomState(62)
+    shapes = [(1000, 650), (2600, 650), (2600, 650), (2600,), (2600, 650), (2600, 650),
+              (2600,), (1000, 650), (1000,)]
+    params, grads, trace = (_sgd_leaves(r, shapes, cuda_device) for _ in range(3))
+    want_p, want_m = [p.clone() for p in params], [m.clone() for m in trace]
+    before = tapply.fused_sgd_apply.launches
+    if with_plan:
+        tapply.SGDPlan(params, trace).launch(grads, 20.0, 0.0, 0.0)
+    else:
+        tapply.fused_sgd_apply(params, grads, trace, 20.0, 0.0, 0.0)
+    torch.cuda.synchronize()
+    assert tapply.fused_sgd_apply.launches == before + 1
+    tapply.fused_sgd_apply_plain(want_p, grads, want_m, 20.0, 0.0, 0.0)
+    for x, y in zip(params + trace, want_p + want_m):
+        assert torch.equal(x, y)
+    for m, g in zip(trace, grads):
+        assert torch.equal(m, g)
 
 
 @pytest.mark.cuda
@@ -592,6 +645,10 @@ TOKEN_CASES = [
     ((5,), 7, torch.int32),
     ((8, 4096), 200000, torch.int64),
     ((3, 1001), 250000, torch.int32),
+    # the WikiText LSTM's [batch 20, BPTT 35] segment: the synthetic
+    # corpus's vocabulary and WikiText-2's
+    ((20, 35), 1000, torch.int64),
+    ((20, 35), 33278, torch.int64),
 ]
 
 

@@ -8,8 +8,9 @@
   ``setup_torch.py`` requires nothing of JAX.
 * The trainer twin runs a few steps of a small ResNet on the CPU when
   asked to (``--device cpu``), with K-FAC on and off, and on the learnable
-  stand-in when no CIFAR-10 is found; every flag of the JAX CIFAR trainer
-  either parses in the twin or is refused naming its ROADMAP item.
+  stand-in when no CIFAR-10 is found; every flag of the JAX CIFAR trainer,
+  and of the JAX WikiText trainer, either parses in its twin or is refused
+  naming its ROADMAP item.
 """
 
 import ast
@@ -153,10 +154,10 @@ def test_trainer_without_data_uses_the_stand_in(monkeypatch, capsys):
         trainer.load_data(args)
 
 
-def _jax_trainer_flags():
-    """Every ``--flag`` the JAX CIFAR trainer's parser declares (read from its
+def _jax_trainer_flags(script="train_cifar10_resnet.py"):
+    """Every ``--flag`` a JAX trainer's parser declares (read from its
     source: importing it would import JAX)."""
-    tree = ast.parse(open(os.path.join(REPO, "examples", "train_cifar10_resnet.py")).read())
+    tree = ast.parse(open(os.path.join(REPO, "examples", script)).read())
     return [
         node.args[0].value for node in ast.walk(tree)
         if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument"
@@ -185,3 +186,24 @@ def test_every_jax_trainer_flag_parses_or_names_its_item():
                                "--stats-all-microbatches", "--kfac-diagnostics",
                                "--label-smoothing", "0.1", "--kfac-update-freq-schedule", "3"])
     assert (args.precond_method, args.diag_blocks, args.batches_per_allreduce) == ("inverse", 4, 2)
+
+
+def test_every_jax_wikitext_flag_parses_or_names_its_item():
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+
+    jax_flags = _jax_trainer_flags("train_wikitext_rnn.py")
+    assert len(jax_flags) > 30
+    ported = set(trainer.build_parser()._option_string_actions)
+    later = {flag: (kind, item) for flag, kind, _, item in trainer._LATER_FLAGS}
+    assert set(later) <= set(jax_flags)
+    for flag in jax_flags:
+        assert flag in ported, f"{flag} is neither ported nor refused"
+        if flag not in later:
+            continue
+        kind, item = later[flag]
+        value = [] if kind is None else [{str: "x", int: "7", float: "0.5"}[kind]]
+        with pytest.raises(SystemExit, match=f"queue 1 item {item.split()[0]} "):
+            trainer.parse_args([flag, *value])
+    args = trainer.parse_args(["--tied", "--kfac-embedding", "--model", "GRU",
+                               "--apply-kernel", "dense", "--lr-decay", "3", "4"])
+    assert (args.tied, args.kfac_embedding, args.model, args.lr_decay) == (True, True, "GRU", [3, 4])

@@ -270,9 +270,9 @@ def test_trainer_runs_on_cpu(tiny_in_the_zoo, kfac_freq):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--data-dir", "d"], "5"),
-    (["--init-from-torch", "c.pth"], "5"),
-    (["--val-resize", "300"], "5"),
+    (["--num-workers", "2"], "9"),
+    (["--distribute-layer-factors", "true"], "6"),
+    (["--precond-comm-dtype", "bf16"], "6"),
     (["--distribute-precondition"], "6"),
     (["--grad-comm-dtype", "bf16"], "6"),
     (["--profile-epoch", "1"], "9"),
@@ -284,15 +284,21 @@ def test_trainer_refuses_unported_flags(flag, item):
         trainer.parse_args(["--synthetic", *flag])
 
 
-def test_trainer_refuses_real_data_and_diag_blocks(tiny_in_the_zoo):
-    """Real ImageNet data is refused (queue 1 item 5). ``--diag-blocks > 1``
-    was refused too until the block-diagonal refresh was ported; now the
-    twin trains with it, one block in the ``--diag-warmup`` epoch, then
-    two."""
+def test_trainer_refuses_real_data_and_diag_blocks(tiny_in_the_zoo, capsys):
+    """Real ImageNet data was refused until the shard path was ported; now,
+    without ``--synthetic`` and without shards in ``--data-dir``, the twin
+    says so and trains on synthetic batches, as the JAX trainer does
+    (``tests/test_torch_port_imagenet_data.py`` trains on shards).
+    ``--diag-blocks > 1`` was refused too until the block-diagonal refresh
+    was ported; now the twin trains with it, one block in the
+    ``--diag-warmup`` epoch, then two."""
     from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as trainer
 
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        trainer.main(["--device", "cpu"])
+    hist = trainer.main(["--model", "tiny_resnext", "--image-size", "32", "--batch-size", "2",
+                         "--epochs", "1", "--steps-per-epoch", "1", "--device", "cpu",
+                         "--kfac-update-freq", "0", "--data-dir", "no-such-dir"])
+    assert "no data found; falling back to --synthetic" in capsys.readouterr().out
+    assert hist["kind"] == ["plain"] and hist["val_loss"] == []
     hist = trainer.main([
         "--synthetic", "--model", "tiny_resnext", "--image-size", "32", "--batch-size", "2",
         "--epochs", "2", "--steps-per-epoch", "2", "--device", "cpu", "--kfac-update-freq", "2",

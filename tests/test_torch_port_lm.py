@@ -288,7 +288,7 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
 
 @pytest.mark.parametrize("argv,item", [
     (["--qkv-lens"], "item 8"),
-    (["--tie-embeddings"], "item 8"),
+    (["--remat"], "item 8"),
     (["--seq-parallel", "2"], "item 8"),
     (["--solver", "rsvd"], "item 7"),
     (["--factor-comm-dtype", "bf16"], "item 6"),
@@ -301,7 +301,7 @@ def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
         trainer.main([*TINY, *argv])
 
 
-@pytest.mark.parametrize("kwargs", [{"qkv_lens": True}, {"tie_embeddings": True},
+@pytest.mark.parametrize("kwargs", [{"qkv_lens": True}, {"tensor_parallel": 2},
                                     {"remat": True}, {"moe_experts": 2}])
 def test_lm_model_refuses_options_of_later_slices(kwargs):
     with pytest.raises(NotImplementedError, match="item 8"):
