@@ -14,9 +14,11 @@ blocks and gradient accumulation), transformer-LM K-FAC training with a
 K-FAC token embedding and flash attention (slice 2; also with a tied
 head), ImageNet ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC
 (slice 3; also ResNet-50 on numpy shards with augmentation, evaluation
-and checkpoint import), each image path also in the bfloat16 modes
-(``--bf16 --eigen-dtype bf16``, slice 9), and WikiText LSTM K-FAC
-training. Kernels 1, 1g and 3 have two routes each, counted apart
+and checkpoint import, through the numpy pipeline and the native threaded
+loader), each image path also in the bfloat16 modes
+(``--bf16 --eigen-dtype bf16``, slice 9), WikiText LSTM K-FAC training,
+and the data-parallel K-FAC (slice 11) at world 1 on NCCL and on two ranks
+of the one card. Kernels 1, 1g and 3 have two routes each, counted apart
 (``launches`` and ``launches_bf16``): 3xTF32 for float32 inputs, and a
 bf16 route for bfloat16 activations (1, 1g) or bfloat16 eigenvectors (3).
 Phases, in order (any failure raises: the script exits non-zero and prints
@@ -114,8 +116,9 @@ no result line):
     a. write a CIFAR-10 set in the ``cifar-10-batches-py`` layout from the
        learnable stand-in (five train batches of 2,560 images, a test batch
        of 2,000, quantized to uint8) into a temporary directory;
-    b. train ResNet-32 on it at the recipe for 2 epochs of 100 steps with
-       ``--kfac-diagnostics --bn-recal-batches 5``, a log and a checkpoint
+    b. train ResNet-32 on it at the recipe for 2 epochs of 100 steps, its
+       batches from the native loader (``--num-workers 4``, pad-4 crop +
+       flip), with ``--kfac-diagnostics --bn-recal-batches 5``, a log and a checkpoint
        directory: the loss finite and falling, 2,000 images evaluated each
        epoch, ν in (0, 1] and the min damped eigenvalue ≥ damping every
        step, ``scalars.jsonl`` with the JAX trainer's tags, every counter as
@@ -166,7 +169,8 @@ no result line):
        and 96 + 32 stored at 224x224;
     b. ResNet-50 at its published widths and the JAX trainer's recipe
        (batch 32, 224x224) on the 256x256 shards for one epoch of 20
-       steps: RandomResizedCrop + flip in numpy on the host, the whole val
+       steps: RandomResizedCrop + flip in numpy on the host (the numpy
+       pipeline, ``--num-workers 0``, in series with the steps), the whole val
        split evaluated in batches of 64 (a ragged last batch of 8), a
        checkpoint; the loss finite, 200 images counted, kernels 1, 3 and 4
        as the run implies; the host milliseconds of each batch's
@@ -209,10 +213,36 @@ no result line):
        ``--tie-embeddings --kfac-embedding`` for 5 steps, counters as
        implied, the first 5 losses within 1e-3 of its oracle path; and on a
        written WikiText corpus (``--data-dir``) for 2 steps;
-20. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+20. the native loader and the distributed K-FAC:
+    a. the native loader (``runtime/loader.py``): its pass-through batches
+       bitwise equal to the numpy pipeline's, its RandomResizedCrop batches
+       bitwise equal on 1 and 4 threads; the host milliseconds of one batch
+       of 32 through ``native_transform``; 18b's ResNet-50 on the shards run
+       again with ``--num-workers 4``, counters zeroed and gated: images/s
+       with the loader overlapping the steps, beside 18b's numpy pipeline
+       in series;
+    b. after ``torch.cuda.device_count()`` on a line of its own, the CIFAR
+       twin (ResNet-32, 30 steps) through ``launch.initialize`` on NCCL at
+       world size 1 (``torchrun``'s variables set): its losses within
+       ``RESUME_RTOL`` of the non-distributed run's (both with
+       deterministic cuDNN), counters as implied;
+    c. two ranks on the one card (spawned processes, a file store, gloo
+       over CUDA tensors), ResNet-32 with ``--distribute-precondition`` for
+       12 steps: kernels 1, 3 (on each rank's shape groups) and 4 launch in
+       each rank as implied; the sharded refresh's factors within 1e-5 and
+       the distributed apply's updates within 1e-6 of the replicated ones;
+       the first 5 losses within 1e-3 of one process on the concatenated
+       batch; the collectives' host milliseconds per refresh and per capture
+       step from ``torch.profiler``;
+    d. float32 ``syevd`` of EMA-like factors at n = 4,608, 8,192 and 12,288
+       (measured) and at 16,384, 20,000 and 26,733, where the port's route
+       (``ops/eigh.py``) is held to 1e-5 in reconstruction and
+       orthogonality, in float64 on 256 random directions;
+21. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3; kernel 1's ResNet-50 row, kernel 2's tied-path row,
-    kernel 3's WikiText rows and kernel 4's LSTM row beside the others),
-    then the last line ``{"ok": true, "device": {...}}``.
+    kernel 3's WikiText rows and kernel 4's LSTM row beside the others, and
+    the two-rank launches of kernels 1, 3 and 4), then the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -222,6 +252,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W):
@@ -1470,9 +1501,11 @@ def write_cifar_set(root, per_batch=CIFAR_PER_BATCH, n_test=CIFAR_TEST, seed=0):
 
 
 def cifar_args(data_dir, extra=()):
+    """The CIFAR path with data, its batches from the native loader
+    (``padcrop``) on ``LOADER_WORKERS`` threads, the JAX trainer's default."""
     return ["--data-dir", data_dir, "--model", MODEL, "--batch-size", str(BATCH),
             "--steps-per-epoch", str(CIFAR_STEPS), "--seed", "0", "--device", "cuda",
-            *CIFAR_FLAGS, *extra]
+            "--num-workers", str(LOADER_WORKERS), *CIFAR_FLAGS, *extra]
 
 
 def zero_counts(counters):
@@ -2005,9 +2038,11 @@ def write_imagenet_shards(root, n_train, n_val, size, seed=0):
 
 
 def shard_args(data_dir, extra=()):
+    """The shard path's flags: the numpy pipeline (``--num-workers 0``, run
+    Q's serial transform) unless ``extra`` says otherwise."""
     return ["--data-dir", data_dir, "--model", SHARD_MODEL, "--batch-size", str(IMAGENET_BATCH),
             "--image-size", "224", "--val-batch-size", str(SHARD_VAL_BATCH), "--epochs", "1",
-            "--seed", "0", "--device", "cuda", *extra]
+            "--seed", "0", "--device", "cuda", "--num-workers", "0", *extra]
 
 
 def _kept_build(module, kept):
@@ -2031,13 +2066,14 @@ def _kept_build(module, kept):
     module.build = keep
 
 
-def imagenet_data_phases(device, counters):
+def imagenet_data_phases(device, counters, tmp):
     """Phases 18a-d: the ImageNet shard path through the twin (counters
     zeroed just before each run), ``examples/evaluate.py`` and
-    ``--init-from-torch``. Returns what they measured, the launches of each
-    path and kernel 1's row at ResNet-50's convs."""
+    ``--init-from-torch``, the shards written under ``tmp`` (they outlive
+    these phases: phase 20a reads them). Returns what
+    they measured, the launches of each path, kernel 1's row at ResNet-50's
+    convs and the directory of the 256x256 shards."""
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -2049,105 +2085,104 @@ def imagenet_data_phases(device, counters):
 
     out, launches = {}, {}
     structure = imagenet_resnet.get_model(SHARD_MODEL, generator=torch.Generator().manual_seed(0))
-    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_shards_") as tmp:
-        mark("18a. ImageNet shards")
-        t0 = time.perf_counter()
-        d256 = write_imagenet_shards(os.path.join(tmp, "s256"), SHARD_TRAIN, SHARD_VAL, SHARD_SIZE)
-        d224 = write_imagenet_shards(os.path.join(tmp, "s224"), IMAGENET_BATCH * SHARD_MODE_STEPS,
-                                     IMAGENET_BATCH, 224, seed=1)
-        out["write_shards_s"] = time.perf_counter() - t0
-        out["shard_mb"] = sum(os.path.getsize(os.path.join(d256, f)) for f in os.listdir(d256)) / 1e6
+    mark("18a. ImageNet shards")
+    t0 = time.perf_counter()
+    d256 = write_imagenet_shards(os.path.join(tmp, "s256"), SHARD_TRAIN, SHARD_VAL, SHARD_SIZE)
+    d224 = write_imagenet_shards(os.path.join(tmp, "s224"), IMAGENET_BATCH * SHARD_MODE_STEPS,
+                                 IMAGENET_BATCH, 224, seed=1)
+    out["write_shards_s"] = time.perf_counter() - t0
+    out["shard_mb"] = sum(os.path.getsize(os.path.join(d256, f)) for f in os.listdir(d256)) / 1e6
 
-        mark("18b. ImageNet twin on the shards")
-        # deterministic cuDNN for 18b and 18d: evaluate.py must repeat 18b's
-        # validation from its checkpoint
-        cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-        ck = os.path.join(tmp, "ck")
-        hist, launches["shards_rrc"] = counted(lambda: trainer.main(shard_args(
-            d256, ["--steps-per-epoch", str(SHARD_STEPS), "--checkpoint-dir", ck])), counters)
-        if not all(math.isfinite(v) for v in hist["loss"] + hist["val_loss"]):
-            raise AssertionError(f"ImageNet shards: non-finite loss {hist['loss']} {hist['val_loss']}")
-        if len(hist["loss"]) != SHARD_STEPS or hist["val_count"] != [SHARD_VAL]:
-            raise AssertionError(f"ImageNet shards: {len(hist['loss'])} steps, validation counted "
-                                 f"{hist['val_count']} of {SHARD_VAL} images")
-        gate_launches(launches["shards_rrc"], conv_expected_launches(hist, structure, device),
-                      "ImageNet shards")
-        stats = step_stats(hist, IMAGENET_BATCH)
-        out["rrc"] = {
-            "losses": hist["loss"], "val_loss": hist["val_loss"][0],
-            "val_accuracy": hist["val_accuracy"][0], "val_count": hist["val_count"][0],
-            "transform_ms_per_batch_median": statistics.median(hist["transform_ms"]),
-            "transform_ms_per_batch": hist["transform_ms"],
-            "step0_ms": stats["step0_ms"],
-            "capture_step_ms_median": stats["capture_ms_median"],
-            "refresh_step_ms_median": stats.get("refresh_ms_median"),
-            "images_per_s_steps_only": stats["per_s"],
-            "images_per_s_with_transform": IMAGENET_BATCH * (SHARD_STEPS - 1) / (
-                (sum(hist["step_ms"][1:]) + sum(hist["transform_ms"][1:])) / 1e3),
-            "eval_ms": hist["eval_ms"][0],
-            "eval_ms_per_image": hist["eval_ms"][0] / SHARD_VAL,
-        }
+    mark("18b. ImageNet twin on the shards")
+    # deterministic cuDNN for 18b and 18d: evaluate.py must repeat 18b's
+    # validation from its checkpoint
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ck = os.path.join(tmp, "ck")
+    hist, launches["shards_rrc"] = counted(lambda: trainer.main(shard_args(
+        d256, ["--steps-per-epoch", str(SHARD_STEPS), "--checkpoint-dir", ck])), counters)
+    if not all(math.isfinite(v) for v in hist["loss"] + hist["val_loss"]):
+        raise AssertionError(f"ImageNet shards: non-finite loss {hist['loss']} {hist['val_loss']}")
+    if len(hist["loss"]) != SHARD_STEPS or hist["val_count"] != [SHARD_VAL]:
+        raise AssertionError(f"ImageNet shards: {len(hist['loss'])} steps, validation counted "
+                             f"{hist['val_count']} of {SHARD_VAL} images")
+    gate_launches(launches["shards_rrc"], conv_expected_launches(hist, structure, device),
+                  "ImageNet shards")
+    stats = step_stats(hist, IMAGENET_BATCH)
+    out["rrc"] = {
+        "losses": hist["loss"], "val_loss": hist["val_loss"][0],
+        "val_accuracy": hist["val_accuracy"][0], "val_count": hist["val_count"][0],
+        "transform_ms_per_batch_median": statistics.median(hist["transform_ms"]),
+        "transform_ms_per_batch": hist["transform_ms"],
+        "step0_ms": stats["step0_ms"],
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "refresh_step_ms_median": stats.get("refresh_ms_median"),
+        "images_per_s_steps_only": stats["per_s"],
+        "images_per_s_with_transform": IMAGENET_BATCH * (SHARD_STEPS - 1) / (
+            (sum(hist["step_ms"][1:]) + sum(hist["transform_ms"][1:])) / 1e3),
+        "eval_ms": hist["eval_ms"][0],
+        "eval_ms_per_image": hist["eval_ms"][0] / SHARD_VAL,
+    }
 
-        mark("18c. --no-augment and shards stored at 224x224")
-        for mode, data_dir, extra in (("centercrop", d256, ["--no-augment"]),
-                                      ("none", d224, ["--no-augment"])):
-            x = np.load(os.path.join(data_dir, "train_x.npy"), mmap_mode="r")
-            if trainer.train_mode(x, 224, False) != mode:
-                raise AssertionError(f"{data_dir}: train mode {trainer.train_mode(x, 224, False)}, "
-                                     f"want {mode}")
-            h, launches[f"shards_{mode}"] = counted(lambda: trainer.main(shard_args(
-                data_dir, ["--steps-per-epoch", str(SHARD_MODE_STEPS), *extra])), counters)
-            if len(h["loss"]) != SHARD_MODE_STEPS or not all(
-                    math.isfinite(v) for v in h["loss"] + h["val_loss"]):
-                raise AssertionError(f"ImageNet shards, {mode}: losses {h['loss']} {h['val_loss']}")
-            gate_launches(launches[f"shards_{mode}"], conv_expected_launches(h, structure, device),
-                          f"ImageNet shards, {mode}")
-            out[mode] = {"losses": h["loss"], "val_loss": h["val_loss"][0],
-                         "val_count": h["val_count"][0],
-                         "transform_ms_per_batch_median": statistics.median(h["transform_ms"])}
+    mark("18c. --no-augment and shards stored at 224x224")
+    for mode, data_dir, extra in (("centercrop", d256, ["--no-augment"]),
+                                  ("none", d224, ["--no-augment"])):
+        x = np.load(os.path.join(data_dir, "train_x.npy"), mmap_mode="r")
+        if trainer.train_mode(x, 224, False) != mode:
+            raise AssertionError(f"{data_dir}: train mode {trainer.train_mode(x, 224, False)}, "
+                                 f"want {mode}")
+        h, launches[f"shards_{mode}"] = counted(lambda: trainer.main(shard_args(
+            data_dir, ["--steps-per-epoch", str(SHARD_MODE_STEPS), *extra])), counters)
+        if len(h["loss"]) != SHARD_MODE_STEPS or not all(
+                math.isfinite(v) for v in h["loss"] + h["val_loss"]):
+            raise AssertionError(f"ImageNet shards, {mode}: losses {h['loss']} {h['val_loss']}")
+        gate_launches(launches[f"shards_{mode}"], conv_expected_launches(h, structure, device),
+                      f"ImageNet shards, {mode}")
+        out[mode] = {"losses": h["loss"], "val_loss": h["val_loss"][0],
+                     "val_count": h["val_count"][0],
+                     "transform_ms_per_batch_median": statistics.median(h["transform_ms"])}
 
-        mark("18d. evaluate.py and --init-from-torch")
-        common = ["--data-dir", d256, "--model", SHARD_MODEL, "--batch-size", str(SHARD_VAL_BATCH),
-                  "--device", "cuda"]
-        t0 = time.perf_counter()
-        ev = evaluate.main([*common, "--checkpoint-dir", ck])
-        evaluate_s = time.perf_counter() - t0
-        want = (hist["val_loss"][0], hist["val_accuracy"][0])
-        sd = ckpt.restore_weights_only(ck, 0)
-        ref = os.path.join(tmp, "resnet50_ref.pth")
-        torch.save({"model": sd, "epoch": 0}, ref)
-        ev_torch = evaluate.main([*common, "--init-from-torch", ref])
-        for name, got in (("--checkpoint-dir", ev), ("--init-from-torch", ev_torch)):
-            rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
-            if not rel <= RESUME_RTOL:
-                raise AssertionError(f"evaluate.py {name}: loss, accuracy {got}, the twin's last "
-                                     f"validation {want}")
-        kept = {}
-        _kept_build(trainer, kept)
-        try:
-            trainer.main(shard_args(d256, ["--init-from-torch", ref, "--epochs", "0"]))
-        finally:
-            trainer.build = kept["build"]
-        loaded = kept["model"].state_dict()
-        same = [torch.equal(loaded[k].cpu(), v) for k, v in sd.items()
-                if not k.endswith("num_batches_tracked")]
-        if not all(same):
-            raise AssertionError(f"--init-from-torch: {len(same) - sum(same)} of {len(same)} "
-                                 "entries differ from the file")
-        del kept, loaded
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
-        out["evaluate"] = {"checkpoint_dir": ev, "init_from_torch": ev_torch, "twin": want,
-                           "bitwise": [tuple(ev) == want, tuple(ev_torch) == want],
-                           "evaluate_s": evaluate_s, "init_from_torch_entries_bitwise": len(same)}
-        print(f"evaluate.py reproduces the twin's validation (loss, accuracy) {want} from its "
-              f"checkpoint {ev} and from a torchvision-format file {ev_torch}; the twin's "
-              f"--init-from-torch loads all {len(same)} entries bitwise", flush=True)
+    mark("18d. evaluate.py and --init-from-torch")
+    common = ["--data-dir", d256, "--model", SHARD_MODEL, "--batch-size", str(SHARD_VAL_BATCH),
+              "--device", "cuda", "--num-workers", "0"]
+    t0 = time.perf_counter()
+    ev = evaluate.main([*common, "--checkpoint-dir", ck])
+    evaluate_s = time.perf_counter() - t0
+    want = (hist["val_loss"][0], hist["val_accuracy"][0])
+    sd = ckpt.restore_weights_only(ck, 0)
+    ref = os.path.join(tmp, "resnet50_ref.pth")
+    torch.save({"model": sd, "epoch": 0}, ref)
+    ev_torch = evaluate.main([*common, "--init-from-torch", ref])
+    for name, got in (("--checkpoint-dir", ev), ("--init-from-torch", ev_torch)):
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+        if not rel <= RESUME_RTOL:
+            raise AssertionError(f"evaluate.py {name}: loss, accuracy {got}, the twin's last "
+                                 f"validation {want}")
+    kept = {}
+    _kept_build(trainer, kept)
+    try:
+        trainer.main(shard_args(d256, ["--init-from-torch", ref, "--epochs", "0"]))
+    finally:
+        trainer.build = kept["build"]
+    loaded = kept["model"].state_dict()
+    same = [torch.equal(loaded[k].cpu(), v) for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")]
+    if not all(same):
+        raise AssertionError(f"--init-from-torch: {len(same) - sum(same)} of {len(same)} "
+                             "entries differ from the file")
+    del kept, loaded
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    out["evaluate"] = {"checkpoint_dir": ev, "init_from_torch": ev_torch, "twin": want,
+                       "bitwise": [tuple(ev) == want, tuple(ev_torch) == want],
+                       "evaluate_s": evaluate_s, "init_from_torch_entries_bitwise": len(same)}
+    print(f"evaluate.py reproduces the twin's validation (loss, accuracy) {want} from its "
+          f"checkpoint {ev} and from a torchvision-format file {ev_torch}; the twin's "
+          f"--init-from-torch loads all {len(same)} entries bitwise", flush=True)
 
-        # kernel 1 at ResNet-50's convs, on a batch the shard path gives it
-        xb, _ = next(trainer.shard_batches(
-            np.load(os.path.join(d256, "train_x.npy"), mmap_mode="r"),
-            np.load(os.path.join(d256, "train_y.npy")), IMAGENET_BATCH, 1, "rrc", 224, 256, 0, []))
+    # kernel 1 at ResNet-50's convs, on a batch the shard path gives it
+    xb, _ = next(trainer.shard_batches(
+        np.load(os.path.join(d256, "train_x.npy"), mmap_mode="r"),
+        np.load(os.path.join(d256, "train_y.npy")), IMAGENET_BATCH, 1, "rrc", 224, 256, 0, []))
     model = structure.to(device)
     conv_a = conv_a_phase(model, torch.from_numpy(xb).to(device))
     conv_a["launches"] = launches["shards_rrc"]["compute_a_conv_fused"]
@@ -2155,7 +2190,7 @@ def imagenet_data_phases(device, counters):
     del model, structure
     torch.cuda.empty_cache()
     out["launches"] = launches
-    return out, conv_a
+    return out, conv_a, d256
 
 
 # The WikiText LSTM (phases 19a-d): the JAX trainer's recipe at full width
@@ -2321,29 +2356,46 @@ def wide_eigh_phase(kfac_state, device):
     from kfac_pytorch_tpu_torch.ops import eigh as eigh_ops
 
     e = kfac_state["eigen"]["decoder"]
-    d = e["dG"].double()
     g = kfac_state["factors"]["decoder"]["G"]
-    n = len(d)
+    n = g.shape[0]
+    recon, orth = decomposition_errors(g, e["QG"], e["dG"], device)
+    if not (recon <= EIGH_TOL and orth <= EIGH_TOL):
+        raise AssertionError(f"eigh of the {n}-wide G factor: reconstruction {recon:.2e}, "
+                             f"orthogonality {orth:.2e} (tolerance {EIGH_TOL})")
+    return {"n": n, "syevd_max_n": eigh_ops.SYEVD_MAX_N, "reconstruction_rel": recon,
+            "orthogonality": orth, "tolerance": EIGH_TOL, "directions": 256}
+
+
+# an eigendecomposition's reconstruction and orthogonality, relative, in
+# float64 on 256 random directions (phases 19b and 20d)
+EIGH_TOL = 1e-5
+
+
+def decomposition_errors(f, q, d, device):
+    """``(reconstruction, orthogonality)`` of ``f ≈ Q diag(d) Qᵀ`` in float64
+    on 256 random directions ``v`` (a float32 check of a long product has a
+    rounding floor of its own): the largest ``|(Q diag(d) Qᵀ − F) v| /
+    (max d · |v|)`` and ``|Qᵀ Q w − w| / |w|`` (``w = Qᵀ v``) over the
+    directions, ``F`` symmetrized as eigh sees it."""
+    import torch
+
+    n = f.shape[0]
+    d = d.double()
     v = torch.randn(n, 256, generator=torch.Generator(device=device).manual_seed(3),
                     device=device, dtype=torch.float64)
 
-    def rows(mat, x):  # mat (float32) @ x in float64, 4096 rows at a time
+    def rows(mat, x):  # mat @ x in float64, 4096 rows at a time
         return torch.cat([mat[lo:lo + 4096].double() @ x for lo in range(0, n, 4096)])
 
     def rows_t(mat, x):  # matᵀ @ x in float64
         return sum(mat[lo:lo + 4096].double().T @ x[lo:lo + 4096] for lo in range(0, n, 4096))
 
-    q = e["QG"]
     qtv = rows_t(q, v)
-    gv = 0.5 * (rows(g, v) + rows_t(g, v))  # the symmetrized factor, as eigh saw it
-    recon = float(((rows(q, d[:, None] * qtv) - gv).norm(dim=0) / v.norm(dim=0)).max())
+    fv = 0.5 * (rows(f, v) + rows_t(f, v))
+    recon = float(((rows(q, d[:, None] * qtv) - fv).norm(dim=0) / v.norm(dim=0)).max())
     recon /= float(d.abs().max())
     orth = float(((rows_t(q, rows(q, qtv)) - qtv).norm(dim=0) / qtv.norm(dim=0)).max())
-    if not (recon <= 1e-5 and orth <= 1e-5):
-        raise AssertionError(f"eigh of the {n}-wide G factor: reconstruction {recon:.2e}, "
-                             f"orthogonality {orth:.2e} (tolerance 1e-5)")
-    return {"n": n, "syevd_max_n": eigh_ops.SYEVD_MAX_N, "reconstruction_rel": recon,
-            "orthogonality": orth, "tolerance": 1e-5, "directions": 256}
+    return recon, orth
 
 
 def wikitext_phases(device, counters, flush):
@@ -2498,6 +2550,429 @@ def wikitext_phases(device, counters, flush):
         }
     out["launches"] = launches
     return out, rows
+
+
+# Phases 20a-d (slice 11): the native loader on the shard path, the
+# distributed code at world 1 on NCCL and on two ranks of one card, and the
+# float32 syevd watch item. The shards of phase 18 stay for 20a.
+LOADER_WORKERS = 4
+# two ranks on one card: ResNet-32 at batch 128 per rank, its synthetic
+# batches drawn per rank (seed 100 + rank), refreshes at steps 0 and 10
+TWO_RANK_ARGS = [*RESNET_ARGS, "--distribute-precondition"]
+TWO_RANK_STEPS = 12
+TWO_RANK_TIMEOUT_S = 600
+# the widths of the float32 syevd watch item (ROADMAP queue 3): between the
+# factor at which float32 syevd was seen to lose orthogonality (16k) and
+# cuSOLVER's limit
+SYEVD_WATCH_N = (16384, 20000, 26733)
+# narrower widths where float32 syevd is only measured (4,608 is
+# ResNet-50's widest factor)
+SYEVD_SCAN_N = (4608, 8192, 12288)
+
+
+def loader_phase(device, counters, d256, numpy_rrc):
+    """Phase 20a: the native loader (``runtime/loader.py``). Gates: the
+    pass-through mode equals the numpy pipeline's batches bitwise, and
+    RandomResizedCrop batches of 1 and ``LOADER_WORKERS`` threads are
+    bitwise equal. Then the native transform's host milliseconds per batch
+    of 32 (``native_transform``, RandomResizedCrop + flip, normalized), and
+    18b's ResNet-50 on the 256x256 shards run again through the twin with
+    ``--num-workers 4``, counters zeroed: images/s with the loader's
+    threads overlapping the steps (the steps' and the waits' host time),
+    beside 18b's numpy pipeline in series."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as trainer
+    from kfac_pytorch_tpu_torch.models import imagenet_resnet
+    from kfac_pytorch_tpu_torch.runtime import loader as native
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+
+    r = np.random.RandomState(5)
+    xf = r.randn(512, 32, 32, 3).astype(np.float32)
+    yf = r.randint(0, 10, size=512).astype(np.int32)
+    got = list(native.native_epoch_batches(xf, yf, 64, shuffle=False, augment=False, seed=0,
+                                           num_workers=LOADER_WORKERS))
+    want = list(data_lib.epoch_batches(np.ascontiguousarray(xf.transpose(0, 3, 1, 2)), yf, 64,
+                                       shuffle=False, augment=False, seed=0))
+    if len(got) != len(want) or not all(np.array_equal(a, c) and np.array_equal(b, d)
+                                        for (a, b), (c, d) in zip(got, want)):
+        raise AssertionError("the native loader's pass-through differs from the numpy pipeline")
+    x = np.load(os.path.join(d256, "train_x.npy"), mmap_mode="r")
+    y = np.load(os.path.join(d256, "train_y.npy"))
+    norm = dict(mean=data_lib.IMAGENET_MEAN, std=data_lib.IMAGENET_STD)
+
+    def rrc(workers):
+        loader = native.NativeEpochLoader(
+            x, y, IMAGENET_BATCH, shuffle=True, mode="rrc", out_size=(224, 224),
+            resize_size=256, copy=False, num_workers=workers, **norm)
+        try:
+            return list(loader.epoch(0))[:4]
+        finally:
+            loader.close()
+
+    one, many = rrc(1), rrc(LOADER_WORKERS)
+    if not all(np.array_equal(a, c) and np.array_equal(b, d) for (a, b), (c, d) in zip(one, many)):
+        raise AssertionError(f"native RandomResizedCrop: 1 and {LOADER_WORKERS} threads differ")
+    xb = np.ascontiguousarray(x[:IMAGENET_BATCH])
+    transform_ms = []
+    for i in range(10):
+        t0 = time.perf_counter()
+        native.native_transform(xb, (224, 224), mode="rrc", resize_size=256, seed=i,
+                                num_workers=LOADER_WORKERS, **norm)
+        transform_ms.append((time.perf_counter() - t0) * 1e3)
+
+    structure = imagenet_resnet.get_model(SHARD_MODEL, generator=torch.Generator().manual_seed(0))
+    hist, launches = counted(lambda: trainer.main(shard_args(
+        d256, ["--steps-per-epoch", str(SHARD_STEPS), "--num-workers", str(LOADER_WORKERS)])),
+        counters)
+    if not all(math.isfinite(v) for v in hist["loss"] + hist["val_loss"]):
+        raise AssertionError(f"native loader: non-finite loss {hist['loss']} {hist['val_loss']}")
+    if len(hist["loss"]) != SHARD_STEPS or hist["val_count"] != [SHARD_VAL]:
+        raise AssertionError(f"native loader: {len(hist['loss'])} steps, validation counted "
+                             f"{hist['val_count']} of {SHARD_VAL} images")
+    gate_launches(launches, conv_expected_launches(hist, structure, device),
+                  "ImageNet shards, native loader")
+    stats = step_stats(hist, IMAGENET_BATCH)
+    overlapped = IMAGENET_BATCH * (SHARD_STEPS - 1) / (
+        (sum(hist["step_ms"][1:]) + sum(hist["transform_ms"][1:])) / 1e3)
+    out = {
+        "gates": {"passthrough_equals_numpy": True, "rrc_1_and_4_threads_bitwise": True},
+        "native_rrc_transform_ms_per_batch_median": statistics.median(transform_ms),
+        "native_rrc_transform_ms_per_batch": transform_ms,
+        "loader_wait_ms_per_batch_median": statistics.median(hist["transform_ms"][1:]),
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "refresh_step_ms_median": stats.get("refresh_ms_median"),
+        "images_per_s_steps_only": stats["per_s"],
+        "images_per_s_with_loader_overlapped": overlapped,
+        "numpy_pipeline_this_run": {
+            "transform_ms_per_batch_median": numpy_rrc["transform_ms_per_batch_median"],
+            "images_per_s_steps_only": numpy_rrc["images_per_s_steps_only"],
+            "images_per_s_with_transform": numpy_rrc["images_per_s_with_transform"],
+        },
+        "run_q": {"images_per_s_with_transform": 82.2, "images_per_s_steps_only": 145.5},
+        "val_loss": hist["val_loss"][0], "eval_ms": hist["eval_ms"][0],
+        "launches": launches,
+    }
+    print(f"native loader ({LOADER_WORKERS} threads): {overlapped:.1f} img/s with the loader "
+          f"overlapped ({stats['per_s']:.1f} over the steps alone), numpy in series this run "
+          f"{numpy_rrc['images_per_s_with_transform']:.1f} (run Q: 82.2 and 145.5); native "
+          f"RandomResizedCrop {statistics.median(transform_ms):.1f} ms per batch of "
+          f"{IMAGENET_BATCH}", flush=True)
+    return out
+
+
+def world1_phase(device, counters):
+    """Phase 20b: the CIFAR twin (ResNet-32, the recipe, 30 steps) through
+    ``launch.initialize`` on NCCL at world size 1 (``torchrun``'s variables
+    set, a free ``localhost`` port): its losses equal the non-distributed
+    run's within ``RESUME_RTOL`` (both with deterministic cuDNN), and kernels
+    1, 3 and 4 launch as the run implies."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    plain = train([])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        hist, launches = counted(lambda: train([]), counters)
+        backend, world = dist.get_backend(), dist.get_world_size()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    if (backend, world) != ("nccl", 1):
+        raise AssertionError(f"world-1 run on {backend} with {world} ranks, want nccl and 1")
+    gate_launches(launches, conv_expected_launches(
+        hist, cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)), device),
+        "ResNet-32, NCCL world 1")
+    rel = [abs(a - b) / abs(b) for a, b in zip(hist["loss"], plain["loss"])]
+    if len(rel) != STEPS or not max(rel) <= RESUME_RTOL:
+        raise AssertionError(f"NCCL world 1: losses {hist['loss']} vs the non-distributed "
+                             f"run's {plain['loss']}")
+    bitwise = sum(a == b for a, b in zip(hist["loss"], plain["loss"]))
+    print(f"NCCL world 1: {bitwise} of {STEPS} losses bitwise equal to the non-distributed "
+          f"run's, the largest difference {max(rel):.3e} relative", flush=True)
+    stats, plain_stats = step_stats(hist, BATCH), step_stats(plain, BATCH)
+    return {"backend": backend, "world": world, "losses_max_rel_diff": max(rel),
+            "losses_bitwise": bitwise, "steps": STEPS, "tolerance": RESUME_RTOL,
+            "capture_step_ms_median": stats["capture_ms_median"],
+            "plain_capture_step_ms_median": plain_stats["capture_ms_median"],
+            "launches": launches}
+
+
+def _two_rank_batches(device, rank, steps, batch):
+    import torch
+
+    from kfac_pytorch_tpu_torch.training.data import synthetic_batches
+
+    return [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+            for x, y in synthetic_batches(batch, (3, 32, 32), 10, steps, seed=100 + rank)]
+
+
+def two_rank_worker(rank, store, out_path, steps, device_name, argv):
+    """One rank of phase 20c (``torch.multiprocessing`` target): ResNet-32
+    with ``--distribute-precondition`` on ``cuda:0``, gloo over CUDA tensors,
+    ``steps`` steps counted, then a refresh step and a capture step
+    profiled for the collectives' host time, then the sharded refresh and
+    the distributed apply held to the replicated ones on this rank's state.
+    Writes its results as JSON to ``out_path-<rank>.json``."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import capture
+    from kfac_pytorch_tpu_torch.models.layers import KFACConv
+    from kfac_pytorch_tpu_torch.device import use_ieee_f32
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.ops import precondition as pc
+    from kfac_pytorch_tpu_torch.parallel import launch
+    from kfac_pytorch_tpu_torch.parallel.assignment import layer_assignment, precondition_assignment
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
+    from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
+        replicated_eigen_update,
+        sharded_eigen_update,
+    )
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
+    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                               rank=rank, world_size=2)
+    try:
+        use_ieee_f32()
+        world = data_parallel_world()
+        args = trainer.parse_args(argv)
+        model, kfac, state, step_fn = trainer.build(args, device, world)
+        batches = _two_rank_batches(device, rank, steps, args.batch_size)
+        lr = args.base_lr * world.size
+        counters = (fk.compute_a_conv_fused, ak.fused_precondition_stack, ak.fused_sgd_apply)
+        zero_counts(counters)
+        losses = []
+        for i, batch in enumerate(batches):
+            state, m = step_fn(state, batch, lr, kfac.hparams.damping,
+                               **kfac_flags_for_step(i, kfac, 0))
+            losses.append(float(m["loss"]))
+        launches = read_counts(counters)
+        # the collectives' host time on a refresh step and a capture step
+        exchange = {}
+        for label, i in (("refresh", 10 * steps), ("capture", 10 * steps + 1)):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                state, m = step_fn(state, batches[0], lr, kfac.hparams.damping,
+                                   **kfac_flags_for_step(i, kfac, 0))
+                float(m["loss"])
+            ops = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                   if e.key.startswith("gloo:")}
+            if not ops:
+                ops = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                       if e.key.startswith("c10d::")}
+            exchange[label] = {"ms": sum(ops.values()), "ops": ops}
+        # the sharded refresh against the replicated one, through the
+        # factors they reconstruct; the distributed apply (kernel 3 on the
+        # owned groups) against the replicated apply
+        facs = state.kfac_state["factors"]
+        names = list(facs)
+        table = layer_assignment(names, {n: True for n in names}, world.size,
+                                 kfac.distribute_layer_factors, 1)
+        sharded = sharded_eigen_update(facs, table, world)
+        replicated = replicated_eigen_update(facs, {n: 1 for n in names})
+        refresh_rel = 0.0
+        for n in names:
+            for side in ("A", "G"):
+                def recon(e):
+                    q, d = e[f"Q{side}"].double(), e[f"d{side}"].double()
+                    return (q * d) @ q.T
+                want = recon(replicated[n])
+                refresh_rel = max(refresh_rel, float((recon(sharded[n]) - want).abs().max()
+                                                     / want.abs().max()))
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        gmats = {n: g.float() for n, g in capture.grad_mats(
+            capture.layer_grads(grads, names, set())).items()}
+        eigen, stacked = state.kfac_state["eigen"], state.kfac_state["eigen_stacked"]
+        owners = precondition_assignment({n: tuple(g.shape) for n, g in gmats.items()},
+                                         world.size)
+        got = pc.precondition_all_distributed(gmats, eigen, kfac.hparams.damping, stacked,
+                                              world=world, owners=owners, kind="auto")
+        want, _ = pc.precondition_all_with_vg(gmats, eigen, kfac.hparams.damping, stacked,
+                                              kind="auto")
+        apply_rel = max(float((got[n] - want[n]).abs().max() / want[n].abs().max())
+                        for n in names)
+        groups = pc.shape_groups({n: tuple(g.shape) for n, g in gmats.items()})
+        owned_groups = sum(any(owners[n] == rank for n in g) for g in groups.values())
+        result = {
+            "rank": rank, "device": str(device), "backend": torch.distributed.get_backend(),
+            "losses": losses, "launches": launches,
+            "expected_launches": {
+                "compute_a_conv_fused": steps * sum(isinstance(m, KFACConv)
+                                                    for m in model.modules()),
+                "fused_precondition_stack": owned_groups * steps,
+                "fused_sgd_apply": steps,
+            },
+            "exchange_ms": exchange,
+            "refresh_recon_max_rel_diff": refresh_rel, "apply_max_rel_diff": apply_rel,
+            "owned_shape_groups": owned_groups, "shape_groups": len(groups),
+        }
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(result, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def two_rank_phase(device, argv=TWO_RANK_ARGS):
+    """Phase 20c: two ranks on the one card (``torch.multiprocessing``
+    spawn, a file store, gloo over CUDA tensors: NCCL refuses two ranks on
+    one device), ResNet-32 with ``--distribute-precondition``: kernels 1, 3
+    (on each rank's owned shape groups) and 4 launch in each rank as the run
+    implies; the sharded refresh's factors within ``EIGH_TOL`` and the
+    distributed apply's updates within 1e-6 of the replicated ones (of the
+    largest entry); the first 5 losses within 1e-3 of one process running
+    the ranks' batches concatenated; the collectives' host milliseconds
+    per refresh step and per capture step from ``torch.profiler``."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_ranks_") as tmp:
+        ctx = mp.spawn(two_rank_worker, args=(f"{tmp}/store", f"{tmp}/rank", TWO_RANK_STEPS,
+                                              str(device), list(argv)),
+                       nprocs=2, join=False)
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the two ranks did not finish in {TWO_RANK_TIMEOUT_S} s")
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank-{r}.json") as fh:
+                ranks.append(json.load(fh))
+    for res in ranks:
+        for name, n in res["expected_launches"].items():
+            if res["launches"][name] != n or n <= 0:
+                raise AssertionError(f"rank {res['rank']}: {name} launched "
+                                     f"{res['launches'][name]} times, the run implies {n}")
+        if not res["refresh_recon_max_rel_diff"] <= EIGH_TOL:
+            raise AssertionError(f"rank {res['rank']}: sharded refresh {res['refresh_recon_max_rel_diff']:.2e} "
+                                 f"from the replicated one (tolerance {EIGH_TOL})")
+        if not res["apply_max_rel_diff"] <= 1e-6:
+            raise AssertionError(f"rank {res['rank']}: distributed apply {res['apply_max_rel_diff']:.2e} "
+                                 "from the replicated one (tolerance 1e-6)")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("the ranks' losses (means over the ranks) differ")
+    # one process on the concatenated global batch
+    args = trainer.parse_args([a for a in argv if a != "--distribute-precondition"])
+    parts = [_two_rank_batches(device, r, ORACLE_STEPS, args.batch_size) for r in range(2)]
+    args.batch_size *= 2
+    _, kfac, state, step_fn = trainer.build(args, device)
+    one = []
+    for i in range(ORACLE_STEPS):
+        batch = tuple(torch.cat([parts[0][i][j], parts[1][i][j]]) for j in range(2))
+        state, m = step_fn(state, batch, args.base_lr * 2, kfac.hparams.damping,
+                           **kfac_flags_for_step(i, kfac, 0))
+        one.append(float(m["loss"]))
+    del state, step_fn, kfac
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    worst = gate_oracle(ranks[0]["losses"], one, "two ranks vs one process", range(ORACLE_STEPS))
+    print(f"two ranks on one card (gloo over CUDA tensors): kernels 1, 3 and 4 launched in "
+          f"each rank as implied, the first {ORACLE_STEPS} losses within {worst:.2e} of one "
+          f"process on the concatenated batch; collectives {ranks[0]['exchange_ms']['refresh']['ms']:.1f} "
+          f"ms per refresh step, {ranks[0]['exchange_ms']['capture']['ms']:.1f} ms per capture "
+          f"step (rank 0's host time)", flush=True)
+    return {"ranks": ranks, "one_process_losses": one, "max_rel_diff_vs_one_process": worst,
+            "steps": TWO_RANK_STEPS}
+
+
+def ema_like_factor(n, device, seed):
+    """A K-FAC factor as an EMA leaves it: 0.95³⁰ of the identity (the
+    decayed start) plus the covariance of 2,048 random rows, so ``n −
+    2048`` eigenvalues sit in one cluster."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(2048, n, generator=g, device=device)
+    f = x.T @ x / 2048
+    del x
+    f.diagonal().add_(0.95 ** 30)
+    return f
+
+
+def syevd_watch_phase(device, widths=SYEVD_WATCH_N, scan=SYEVD_SCAN_N):
+    """Phase 20d (ROADMAP queue 3's watch item): float32 ``torch.linalg.eigh``
+    (cuSOLVER ``syevd``) of EMA-like factors at each of ``widths``, and the
+    port's own route (``ops/eigh.py::eigh_with_floor``), each held in
+    float64 on 256 random directions (``decomposition_errors``); the port's
+    route within ``EIGH_TOL`` (phase 19b's bound), the raw float32 numbers
+    reported, and at the narrower ``scan`` widths reported only."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import eigh as eigh_ops
+
+    out = {"scan": [], "watch": []}
+    for n in scan:
+        f = ema_like_factor(n, device, n)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        d, q = torch.linalg.eigh(f)
+        torch.cuda.synchronize(device)
+        raw_s = time.perf_counter() - t0
+        raw = decomposition_errors(f, q, d, device)
+        del f, d, q
+        out["scan"].append({"n": n, "reconstruction_rel": raw[0], "orthogonality": raw[1],
+                            "s": raw_s})
+        print(f"eigh at n = {n}: float32 syevd reconstruction {raw[0]:.2e}, orthogonality "
+              f"{raw[1]:.2e} ({raw_s:.2f} s)", flush=True)
+    for n in widths:
+        f = ema_like_factor(n, device, n)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        d, q = torch.linalg.eigh(f)
+        torch.cuda.synchronize(device)
+        raw_s = time.perf_counter() - t0
+        raw = decomposition_errors(f, q, d, device)
+        del d, q
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        q, d = eigh_ops.eigh_with_floor(f)
+        torch.cuda.synchronize(device)
+        port_s = time.perf_counter() - t0
+        port = decomposition_errors(f, q, d, device)
+        del d, q, f
+        torch.cuda.empty_cache()
+        row = {"n": n, "float32_syevd": {"reconstruction_rel": raw[0], "orthogonality": raw[1],
+                                         "s": raw_s},
+               "port_route": ("float32 syevd" if n <= eigh_ops.SYEVD_MAX_N
+                              else "spectral split"),
+               "port": {"reconstruction_rel": port[0], "orthogonality": port[1], "s": port_s},
+               "tolerance": EIGH_TOL}
+        out["watch"].append(row)
+        print(f"eigh at n = {n}: float32 syevd reconstruction {raw[0]:.2e}, orthogonality "
+              f"{raw[1]:.2e} ({raw_s:.1f} s); the port's {row['port_route']}: {port[0]:.2e}, "
+              f"{port[1]:.2e} ({port_s:.1f} s)", flush=True)
+        if not (port[0] <= EIGH_TOL and port[1] <= EIGH_TOL):
+            raise AssertionError(f"eigh of an EMA-like {n}-wide factor on the port's route "
+                                 f"({row['port_route']}): reconstruction {port[0]:.2e}, "
+                                 f"orthogonality {port[1]:.2e} (tolerance {EIGH_TOL})")
+    return out
 
 
 def ptxas_report():
@@ -2889,7 +3364,8 @@ def main() -> int:
 
     # 18a-d. the ImageNet data path: shards, augmentation, full-split
     # evaluation, evaluate.py and --init-from-torch, on ResNet-50
-    shards, rn50_conv_a = imagenet_data_phases(device, all_counted)
+    shard_root = tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_shards_")
+    shards, rn50_conv_a, d256 = imagenet_data_phases(device, all_counted, shard_root.name)
     print(json.dumps({"imagenet_shards": shards}), flush=True)
     report([rn50_conv_a])
     # 19a-d. the WikiText LSTM twin, a WikiText-2-sized vocabulary, the tied
@@ -2899,7 +3375,31 @@ def main() -> int:
     print(json.dumps({"wikitext": wikitext}), flush=True)
     report([wt_rows["apply"], wt_rows["sgd"], wt_rows["token_count"]])
 
-    # 20. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 20a-d. this slice: the native loader on 18b's shards; the CIFAR twin
+    # through the distributed code on NCCL at world 1; two ranks on the one
+    # card with the distributed K-FAC; the float32 syevd watch item
+    mark("20a. native loader")
+    loader = loader_phase(device, all_counted, d256, shards["rrc"])
+    shard_root.cleanup()
+    print(json.dumps({"native_loader": loader}), flush=True)
+    mark("20b. NCCL world 1")
+    print(f"torch.cuda.device_count() = {torch.cuda.device_count()}", flush=True)
+    world1 = world1_phase(device, all_counted)
+    print(json.dumps({"nccl_world_1": world1}), flush=True)
+    mark("20c. two ranks on one card")
+    two_ranks = two_rank_phase(device)
+    print(json.dumps({"two_ranks": two_ranks}), flush=True)
+    mark("20d. float32 syevd, 16k to 26.7k")
+    syevd = syevd_watch_phase(device)
+    print(json.dumps({"syevd_watch": syevd}), flush=True)
+    conv_a["resnet32_two_ranks"] = {"launches_per_rank": [
+        r["launches"]["compute_a_conv_fused"] for r in two_ranks["ranks"]]}
+    lm_apply["resnet32_two_ranks"] = {"launches_per_rank": [
+        r["launches"]["fused_precondition_stack"] for r in two_ranks["ranks"]]}
+    lm_sgd["resnet32_two_ranks"] = {"launches_per_rank": [
+        r["launches"]["fused_sgd_apply"] for r in two_ranks["ranks"]]}
+
+    # 21. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

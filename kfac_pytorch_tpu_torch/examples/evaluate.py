@@ -5,10 +5,12 @@ reference checkpoint (``--init-from-torch``) or the newest of this port's
 checkpoints (``--checkpoint-dir``, the ImageNet trainer's torch-format
 ``checkpoint-<epoch>`` files, weights only) on ``val_x.npy``/``val_y.npy``
 in ``--data-dir``, without a training epoch: Resize(``--val-resize``) +
-CenterCrop(``--image-size``) in numpy on the host (shards stored at the
-crop size pass through), the ragged last batch masked
-(``training/evaluation.py``). ``--num-workers`` (the JAX package's native
-loader) is ROADMAP queue 1 item 9 and is refused when set.
+CenterCrop(``--image-size``) on the native loader's ``--num-workers``
+threads (4 by default, as in the JAX package), or in numpy on the host
+with ``--num-workers 0`` (shards stored at the crop size pass through),
+the ragged last batch masked (``training/evaluation.py``). Under
+``torchrun`` each rank evaluates its interleaved shard of the split and
+rank 0 prints the sums over the ranks.
 
     python -m kfac_pytorch_tpu_torch.examples.evaluate --data-dir /path/to/shards \\
         --model resnet50 --init-from-torch checkpoint-54.pth.tar
@@ -28,8 +30,10 @@ from typing import Tuple
 import numpy as np
 
 from kfac_pytorch_tpu_torch import interop
-from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.models import imagenet_resnet
+from kfac_pytorch_tpu_torch.parallel import launch
+from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training.evaluation import run_imagenet_validation
 from kfac_pytorch_tpu_torch.training.step import TrainState, make_masked_eval_step
@@ -47,14 +51,12 @@ def parse_args(argv=None):
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--val-resize", type=int, default=256)
     p.add_argument("--label-smoothing", type=float, default=0.1)
-    p.add_argument("--num-workers", type=int, default=4, help=argparse.SUPPRESS)
+    p.add_argument("--num-workers", type=int, default=4,
+                   help="native loader threads (0 = the numpy transform)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.num_workers != 4:
-        raise SystemExit(
-            "--num-workers is not ported to the PyTorch evaluator yet (ROADMAP "
-            "queue 1 item 9 (runtime/loader.py))"
-        )
+    if args.num_workers < 0:
+        raise SystemExit("--num-workers must be at least 0")
     return args
 
 
@@ -69,8 +71,9 @@ def main(argv=None) -> Tuple[float, float]:
             "CenterCrop (the transform would replicate borders and report "
             "plausible but wrong metrics otherwise)"
         )
-    device = resolve_device(args.device)
+    device = launch.initialize(args.device)
     use_ieee_f32()
+    world = data_parallel_world()
     x_val = np.load(os.path.join(args.data_dir, "val_x.npy"), mmap_mode="r")
     y_val = np.load(os.path.join(args.data_dir, "val_y.npy"))
     model = imagenet_resnet.get_model(args.model)
@@ -90,9 +93,11 @@ def main(argv=None) -> Tuple[float, float]:
     loss, acc, _ = run_imagenet_validation(
         eval_step, state, x_val, y_val, image_size=args.image_size,
         val_resize=args.val_resize, batch_size=args.batch_size, device=device,
+        world=world, num_workers=args.num_workers,
     )
-    print(f"{args.model} from {source}: "
-          f"val loss={loss:.4f} top1={acc:.4f} ({len(y_val)} images)")
+    if launch.is_primary():
+        print(f"{args.model} from {source}: "
+              f"val loss={loss:.4f} top1={acc:.4f} ({len(y_val)} images)")
     return loss, acc
 
 

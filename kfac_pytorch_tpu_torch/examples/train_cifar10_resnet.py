@@ -1,8 +1,8 @@
-"""CIFAR-10 ResNet training with K-FAC on one GPU (PyTorch port).
+"""CIFAR-10 ResNet training with K-FAC on one GPU or data-parallel (PyTorch port).
 
-Twin of the JAX package's ``examples/train_cifar10_resnet.py`` on one
-device: the same flags with the same defaults, the same data choice, the
-same K-FAC gating (``--kfac-update-freq 0`` is plain SGD). It trains on
+Twin of the JAX package's ``examples/train_cifar10_resnet.py``: the same
+flags with the same defaults, the same data choice, the same K-FAC gating
+(``--kfac-update-freq 0`` is plain SGD). It trains on
 CIFAR-10 from ``--data-dir`` (a ``cifar-10-batches-py`` directory or its
 parent), on the learnable stand-in ``synthetic_cifar_like`` when no data is
 found there (a data choice it prints, not a device fallback), or on pure
@@ -13,9 +13,23 @@ each epoch and resumes from the newest one; ``--log-dir`` writes
 trainer). ``--bf16`` computes the convs and BatchNorm in bfloat16 (float32
 master weights, K-FAC state and loss), ``--eigen-dtype bf16`` stores the
 eigenvectors in bfloat16, ``--precond-precision`` sets the dense
-rotations' matmul precision. Every other flag of the JAX trainer is
-accepted with its default and, set to anything else, raises
-``SystemExit`` naming the ROADMAP item that ports it.
+rotations' matmul precision. The training batches come from the native
+threaded loader (``runtime/loader.py``, ``--num-workers`` threads, 4 by
+default, as in the JAX trainer) or, with ``--num-workers 0``, from the
+numpy pipeline. Every other flag of the JAX trainer is accepted with its
+default and, set to anything else, raises ``SystemExit`` naming the
+ROADMAP item that ports it.
+
+Data-parallel, one process per GPU under ``torchrun`` (NCCL; gloo with
+``--device cpu``): ``--batch-size`` is per device, the learning rate is
+``--base-lr`` times the world size (with the warmup of
+``create_lr_schedule(world, ...)``), each rank trains on its interleaved
+shard of every epoch, K-FAC runs the reference's distributed algorithm
+(``--distribute-precondition``, ``--distribute-layer-factors``,
+``--precond-comm-dtype``), ``--grad-comm-dtype bf16`` compresses the
+gradient mean (and BatchNorm normalizes per rank, as in the JAX trainer),
+rank 0 prints, logs and writes checkpoints, and every rank starts from
+rank 0's state.
 ``--init-from-torch`` starts from a reference CIFAR ResNet checkpoint's
 weights (``interop.init_from_torch_checkpoint``).
 
@@ -23,6 +37,8 @@ weights (``interop.init_from_torch_checkpoint``).
         --data-dir /path/to/cifar-10-batches-py --model resnet32 --epochs 100
     python -m kfac_pytorch_tpu_torch.examples.train_cifar10_resnet \\
         --synthetic --model resnet32 --epochs 1 --steps-per-epoch 30
+    torchrun --nproc-per-node 4 -m kfac_pytorch_tpu_torch.examples.train_cifar10_resnet \\
+        --data-dir /path/to/cifar-10-batches-py --distribute-precondition
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent. ``main()`` returns the history: per step the loss,
@@ -37,15 +53,20 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, interop
-from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.models import cifar_resnet
+from kfac_pytorch_tpu_torch.parallel import launch
+from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, put_global_batch
+from kfac_pytorch_tpu_torch.runtime import NativeEpochLoader
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training.evaluation import evaluate_split
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.schedules import create_lr_schedule
 from kfac_pytorch_tpu_torch.training.step import (
@@ -75,13 +96,8 @@ DIAG_EXTRA_KEYS = (
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--num-workers", int, 4, "9 (runtime/loader.py)"),
-    ("--distribute-precondition", None, False, "6 (multi-GPU)"),
-    ("--distribute-layer-factors", str, None, "6 (multi-GPU)"),
-    ("--precond-comm-dtype", str, None, "6 (multi-GPU)"),
-    ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
-    ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
-    ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
+    ("--factor-comm-dtype", str, "f32", "6 (6b, factor comm plane)"),
+    ("--factor-comm-freq", int, 1, "6 (6b, factor comm plane)"),
     ("--factor-sharding", str, "replicated", "7 (owner-sharded factors)"),
     ("--eigh-chunks", int, 1, "7 (pipelined refresh)"),
     ("--profile-epoch", int, None, "9 (training/profiling.py)"),
@@ -132,6 +148,44 @@ def precision_kwargs(args) -> Dict[str, object]:
         "eigen_dtype": torch.bfloat16 if args.eigen_dtype == "bf16" else torch.float32,
         "precond_precision": args.precond_precision,
     }
+
+
+def add_parallel_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX image trainers' data-parallel and loader flags."""
+    p.add_argument("--num-workers", type=int, default=4,
+                   help="native loader threads (0 = the single-threaded numpy "
+                        "pipeline; pytorch_cifar10_resnet.py:118)")
+    p.add_argument("--distribute-precondition", action="store_true",
+                   help="shard the every-step eigenbasis rotations across "
+                        "the ranks (one owner per layer + one all_reduce)")
+    p.add_argument("--distribute-layer-factors", type=lambda s: s.lower() == "true",
+                   default=None, nargs="?",
+                   help="decompose A and G of a layer on different ranks "
+                        "(default: when there are more ranks than layers)")
+    p.add_argument("--precond-comm-dtype", default=None, choices=[None, "bf16"],
+                   help="downcast the distributed-precondition exchange")
+    p.add_argument("--grad-comm-dtype", default=None, choices=[None, "bf16"],
+                   help="downcast the data-parallel gradient mean on the wire "
+                        "(BatchNorm then normalizes per rank); None = float32")
+
+
+def parallel_kwargs(args) -> Dict[str, object]:
+    """``KFAC`` keyword arguments of :func:`add_parallel_flags`' flags."""
+    return {
+        "distribute_layer_factors": args.distribute_layer_factors,
+        "distribute_precondition": args.distribute_precondition,
+        "precond_comm_dtype": torch.bfloat16 if args.precond_comm_dtype == "bf16" else None,
+    }
+
+
+def grad_comm_dtype(args) -> Optional[torch.dtype]:
+    return torch.bfloat16 if args.grad_comm_dtype == "bf16" else None
+
+
+def rank0_print(*values) -> None:
+    """``print`` on rank 0 only (the reference's ``hvd.rank() == 0`` logs)."""
+    if launch.is_primary():
+        print(*values)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -190,6 +244,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
     add_precision_flags(p)
+    add_parallel_flags(p)
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch K-FAC stability diagnostics (nu, "
                         "damped eigenvalues, condition numbers, update/grad "
@@ -217,12 +272,15 @@ def parse_args(argv=None):
             )
     if args.batches_per_allreduce < 1:
         raise SystemExit("--batches-per-allreduce must be at least 1")
+    if args.num_workers < 0:
+        raise SystemExit("--num-workers must be at least 0")
     return args
 
 
-def build(args, device: torch.device):
+def build(args, device: torch.device, world: World = World()):
     """``(model, kfac, state, train_step)`` for parsed ``args`` on
-    ``device``; ``kfac`` is ``None`` at ``--kfac-update-freq 0``."""
+    ``device`` over ``world``; ``kfac`` is ``None`` at
+    ``--kfac-update-freq 0``."""
     model = cifar_resnet.get_model(
         args.model, num_classes=args.synth_classes,
         generator=torch.Generator().manual_seed(args.seed),
@@ -233,7 +291,7 @@ def build(args, device: torch.device):
     if args.kfac_update_freq > 0:
         kfac = KFAC(
             layers=capture.discover_layers(model),
-            lr=args.base_lr,
+            lr=args.base_lr * world.size,
             factor_decay=args.stat_decay,
             damping=args.damping,
             kl_clip=args.kl_clip,
@@ -244,9 +302,11 @@ def build(args, device: torch.device):
             precond_method=args.precond_method,
             track_diagnostics=args.kfac_diagnostics,
             **precision_kwargs(args),
+            **parallel_kwargs(args),
             factor_kernel=args.factor_kernel,
             apply_kernel=args.apply_kernel,
             device=device,
+            process_group=world.group,
         )
     state = TrainState(
         step=0,
@@ -260,6 +320,8 @@ def build(args, device: torch.device):
         label_smoothing=args.label_smoothing,
         accum_steps=args.batches_per_allreduce,
         stats_all_microbatches=args.stats_all_microbatches,
+        world=world,
+        grad_comm_dtype=grad_comm_dtype(args),
     )
     return model, kfac, state, train_step
 
@@ -295,32 +357,34 @@ def load_data(args):
     return train, val, f"synthetic-learnable stand-in: no CIFAR-10 found{where}"
 
 
-def evaluate(eval_step, state, x_val, y_val, batch_size, device):
-    """Masked sums over the whole split, read once: ``(loss, accuracy, count)``."""
-    sums = None
-    for xb, yb, mb in data_lib.eval_batches(x_val, y_val, batch_size):
-        m = eval_step(state, (torch.from_numpy(xb).to(device),
-                              torch.from_numpy(yb).to(device),
-                              torch.from_numpy(mb).to(device)))
-        part = torch.stack([m["loss_sum"], m["correct"], m["count"]])
-        sums = part if sums is None else sums + part
-    loss_sum, correct, count = sums.tolist()
+def evaluate(eval_step, state, x_val, y_val, batch_size, device, world: World = World()):
+    """Masked sums over the whole split (each rank its shard of
+    ``batch_size`` batches), read once: ``(loss, accuracy, count)``."""
+    loss_sum, correct, count = evaluate_split(
+        eval_step, state,
+        data_lib.eval_batches(x_val, y_val, batch_size,
+                              num_shards=world.size, shard_index=world.rank),
+        device, world,
+    )
     return loss_sum / count, correct / count, count
 
 
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = launch.initialize(args.device)
     use_ieee_f32()
-    world = 1
+    world = data_parallel_world()
     accum = args.batches_per_allreduce
+    global_bs = args.batch_size * world.size
+    rank0_print(f"devices={world.size} global_batch={global_bs}"
+                + (f" x{accum} accum" if accum > 1 else ""))
     train, val, source = load_data(args)
     x_train, y_train = train or (None, None)
     x_val, y_val = val or (None, None)
-    model, kfac, state, train_step = build(args, device)
+    model, kfac, state, train_step = build(args, device, world)
     if args.init_from_torch:
         interop.init_from_torch_checkpoint(args.init_from_torch, model, args.model)
-        print(f"initialized weights from torch checkpoint {args.init_from_torch}")
+        rank0_print(f"initialized weights from torch checkpoint {args.init_from_torch}")
     kfac_sched = None
     if kfac is not None:
         kfac_sched = KFACParamScheduler(
@@ -349,28 +413,42 @@ def main(argv=None) -> Dict[str, List]:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
             if kfac_sched:
                 kfac_sched.epoch = resume_from_epoch
-            print(f"resumed from epoch {resume_from_epoch - 1}")
+            rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
+    # every rank starts from rank 0's state (hvd.broadcast_parameters)
+    ckpt.broadcast_state(state, world)
     eval_step = make_masked_eval_step(model, label_smoothing=args.label_smoothing)
-    bn_recal = make_bn_recal_step(model) if args.bn_recal_batches else None
-    lr_base = args.base_lr * world
-    lr_factor = create_lr_schedule(world, args.warmup_epochs, args.lr_decay)
+    bn_recal = make_bn_recal_step(model, world) if args.bn_recal_batches else None
+    lr_base = args.base_lr * world.size
+    lr_factor = create_lr_schedule(world.size, args.warmup_epochs, args.lr_decay)
+    loader = None
     if x_train is not None:
-        steps_per_epoch = len(x_train) // (args.batch_size * accum)
-        print(f"{source}: {len(x_train)} train / {len(x_val)} val")
+        steps_per_epoch = len(x_train) // (global_bs * accum)
+        if args.num_workers > 0:
+            # the C++ pipeline reads NHWC; its batches come back NCHW
+            loader = NativeEpochLoader(
+                np.ascontiguousarray(x_train.transpose(0, 2, 3, 1)), y_train,
+                args.batch_size * accum, shuffle=True, augment=True,
+                num_shards=world.size, shard_index=world.rank,
+                num_workers=args.num_workers,
+            )
+        pipe = "native" if loader else "numpy"
+        rank0_print(f"{source}: {len(x_train)} train / {len(x_val)} val ({pipe} pipeline)")
     else:
         steps_per_epoch = args.steps_per_epoch or 50
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
-    writer = ScalarWriter(args.log_dir)
+    writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
 
     step = state.step
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
-        if x_train is not None:
+        if loader is not None:
+            batches = loader.epoch(args.seed + epoch)
+        elif x_train is not None:
             batches = data_lib.epoch_batches(
                 x_train, y_train, args.batch_size * accum, shuffle=True, augment=True,
-                seed=args.seed + epoch,
+                seed=args.seed + epoch, num_shards=world.size, shard_index=world.rank,
             )
         else:
             batches = data_lib.synthetic_batches(
@@ -385,11 +463,7 @@ def main(argv=None) -> Dict[str, List]:
                 break
             lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
             flags = kfac_flags_for_step(step, kfac, epoch)
-            images = torch.from_numpy(xb).to(device, non_blocking=True)
-            labels = torch.from_numpy(yb).to(device, non_blocking=True)
-            if accum > 1:
-                images = images.reshape(accum, -1, *images.shape[1:])
-                labels = labels.reshape(accum, -1)
+            images, labels = put_global_batch((xb, yb), device, accum)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             ts = time.perf_counter()
@@ -415,9 +489,9 @@ def main(argv=None) -> Dict[str, List]:
                     history.setdefault(k, []).append(v)
             step += 1
         dt = time.perf_counter() - t0
-        print(
+        rank0_print(
             f"epoch {epoch}: loss={loss_m.avg:.4f} acc={acc_m.avg:.4f} lr={lr:.4f} "
-            f"{steps_per_epoch * args.batch_size * accum / dt:.0f} img/s ({dt:.1f}s)"
+            f"{steps_per_epoch * global_bs * accum / dt:.0f} img/s ({dt:.1f}s)"
         )
         writer.add_scalar("train/loss", loss_m.avg, epoch)
         writer.add_scalar("train/accuracy", acc_m.avg, epoch)
@@ -430,17 +504,18 @@ def main(argv=None) -> Dict[str, List]:
             means = {k: sum(diag[k]) / len(diag[k]) for k in DIAG_EXTRA_KEYS if k in diag}
             for k, v in means.items():
                 writer.add_scalar(f"kfac/{k[5:]}_mean", v, epoch)  # kfac_x -> kfac/x_mean
-            print(f"  kfac: nu_min={min(nus):.4f} nu_mean={sum(nus) / len(nus):.4f} "
-                  f"min_damped_eig={min(eigs):.3e}")
-            print(f"  kfac: cond_max={means.get('kfac_cond_max', 0.0):.3e} "
-                  f"upd_cos={means.get('kfac_update_grad_cos', 0.0):.3f} "
-                  f"stale={means.get('kfac_eigen_stale_steps', 0.0):.1f}")
+            rank0_print(f"  kfac: nu_min={min(nus):.4f} nu_mean={sum(nus) / len(nus):.4f} "
+                        f"min_damped_eig={min(eigs):.3e}")
+            rank0_print(f"  kfac: cond_max={means.get('kfac_cond_max', 0.0):.3e} "
+                        f"upd_cos={means.get('kfac_update_grad_cos', 0.0):.3f} "
+                        f"stale={means.get('kfac_eigen_stale_steps', 0.0):.1f}")
 
         if x_val is not None:
             if bn_recal is not None:
                 for j, (xb, _) in enumerate(data_lib.epoch_batches(
                     x_train, y_train, args.batch_size, shuffle=True, augment=False,
                     seed=args.seed + 1000 + epoch,
+                    num_shards=world.size, shard_index=world.rank,
                 )):
                     if j >= args.bn_recal_batches:
                         break
@@ -449,12 +524,12 @@ def main(argv=None) -> Dict[str, List]:
                 torch.cuda.synchronize(device)
             te = time.perf_counter()
             val_loss, val_acc, count = evaluate(
-                eval_step, state, x_val, y_val, args.val_batch_size, device)
+                eval_step, state, x_val, y_val, args.val_batch_size, device, world)
             history["eval_ms"].append((time.perf_counter() - te) * 1e3)
             history["val_loss"].append(val_loss)
             history["val_accuracy"].append(val_acc)
             history["val_count"].append(count)
-            print(f"  val: loss={val_loss:.4f} acc={val_acc:.4f}")
+            rank0_print(f"  val: loss={val_loss:.4f} acc={val_acc:.4f}")
             writer.add_scalar("val/loss", val_loss, epoch)
             writer.add_scalar("val/accuracy", val_acc, epoch)
 
@@ -463,6 +538,8 @@ def main(argv=None) -> Dict[str, List]:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
             history["checkpoint_ms"].append((time.perf_counter() - tc) * 1e3)
     writer.close()
+    if loader is not None:
+        loader.close()
     return history
 
 

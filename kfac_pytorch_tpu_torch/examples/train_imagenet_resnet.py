@@ -1,7 +1,6 @@
-"""ImageNet ResNet training with K-FAC on one GPU (PyTorch port).
+"""ImageNet ResNet training with K-FAC on one GPU or data-parallel (PyTorch port).
 
-Twin of the JAX package's ``examples/train_imagenet_resnet.py`` for one
-device: the same flags with the same defaults for what the port carries
+Twin of the JAX package's ``examples/train_imagenet_resnet.py``: the same flags with the same defaults for what the port carries
 (the nine architectures, grouped-conv K-FAC for ResNeXt, label smoothing,
 the warmup/step LR schedule, the damping and update-frequency schedules of
 ``KFACParamScheduler``, gradient accumulation ``--batches-per-allreduce``,
@@ -18,9 +17,14 @@ with ``--no-augment``, shards stored at the crop size pass through
 (``none``: uint8 still decodes and normalizes) and others take Resize
 (``--val-resize``) + CenterCrop (``centercrop``). The whole val split is
 evaluated after each epoch (Resize + CenterCrop, ``--val-batch-size``, the
-ragged last batch masked). The transforms run in numpy on the host, as the
-JAX package's ``--num-workers 0`` path (its native loader is ROADMAP
-queue 1 item 9). Without shards (or with ``--synthetic``) it trains on
+ragged last batch masked). The transforms run on the native threaded
+loader (``runtime/loader.py``, ``--num-workers`` threads, 4 by default, as
+in the JAX trainer), or with ``--num-workers 0`` in numpy on the host.
+Data-parallel under ``torchrun`` it takes the CIFAR twin's flags and rules
+(``--distribute-precondition``, ``--distribute-layer-factors``,
+``--precond-comm-dtype``, ``--grad-comm-dtype``; ``--batch-size`` per
+device, the learning rate times the world size, each rank its interleaved
+shard, rank 0 logging and writing). Without shards (or with ``--synthetic``) it trains on
 synthetic batches. Every other flag of the JAX trainer is accepted with
 its default and, set to anything else, raises ``SystemExit`` naming the
 ROADMAP item that ports it. ``--log-dir`` and ``--checkpoint-dir`` default
@@ -35,7 +39,8 @@ to none here (the JAX trainer's defaults are ``./logs`` and
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent. ``main()`` returns the history: per step the loss,
 accuracy, step kind, wall milliseconds measured around a synchronized step
-and, on shards, the host milliseconds of the batch's numpy transform; per
+and, on shards, the host milliseconds to get each batch (the numpy
+transform, or the wait for the native loader); per
 epoch the validation loss, accuracy and image count and the evaluation's
 milliseconds; the restore milliseconds of a resume.
 """
@@ -51,12 +56,19 @@ import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, interop
-from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
+    add_parallel_flags,
     add_precision_flags,
+    grad_comm_dtype,
+    parallel_kwargs,
     precision_kwargs,
+    rank0_print,
 )
 from kfac_pytorch_tpu_torch.models import imagenet_resnet
+from kfac_pytorch_tpu_torch.parallel import launch
+from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, put_global_batch
+from kfac_pytorch_tpu_torch.runtime import NativeEpochLoader
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.evaluation import run_imagenet_validation
@@ -75,11 +87,6 @@ NUM_CLASSES = 1000
 # Flags of the JAX trainer this slice does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--num-workers", int, 4, "9 (runtime/loader.py)"),
-    ("--distribute-precondition", None, False, "6 (multi-GPU)"),
-    ("--distribute-layer-factors", str, None, "6 (multi-GPU)"),
-    ("--precond-comm-dtype", str, None, "6 (multi-GPU)"),
-    ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
     ("--profile-epoch", int, None, "9 (observability/)"),
 )
 
@@ -133,6 +140,7 @@ def parse_args(argv=None):
                         "inverse: pi-corrected factored damping + Cholesky "
                         "inverses (the dense apply: no fused apply kernel)")
     add_precision_flags(p)
+    add_parallel_flags(p)
     p.add_argument("--factor-kernel", default="auto", choices=["auto", "kernel", "dense"],
                    help="conv A-factor statistics: kernel = the CUDA patch-"
                         "covariance kernels (grouped convs: one launch per "
@@ -158,12 +166,15 @@ def parse_args(argv=None):
             )
     if args.batches_per_allreduce < 1:
         raise SystemExit("--batches-per-allreduce must be at least 1")
+    if args.num_workers < 0:
+        raise SystemExit("--num-workers must be at least 0")
     return args
 
 
-def build(args, device: torch.device):
+def build(args, device: torch.device, world: World = World()):
     """``(model, kfac, state, train_step)`` for parsed ``args`` on
-    ``device``; ``kfac`` is ``None`` at ``--kfac-update-freq 0``."""
+    ``device`` over ``world``; ``kfac`` is ``None`` at
+    ``--kfac-update-freq 0``."""
     model = imagenet_resnet.get_model(
         args.model, num_classes=NUM_CLASSES,
         generator=torch.Generator().manual_seed(args.seed),
@@ -174,7 +185,7 @@ def build(args, device: torch.device):
     if args.kfac_update_freq > 0:
         kfac = KFAC(
             layers=capture.discover_layers(model),
-            lr=args.base_lr,
+            lr=args.base_lr * world.size,
             factor_decay=args.stat_decay,
             damping=args.damping,
             kl_clip=args.kl_clip,
@@ -184,9 +195,11 @@ def build(args, device: torch.device):
             diag_warmup=args.diag_warmup,
             precond_method=args.precond_method,
             **precision_kwargs(args),
+            **parallel_kwargs(args),
             factor_kernel=args.factor_kernel,
             apply_kernel=args.apply_kernel,
             device=device,
+            process_group=world.group,
         )
     state = TrainState(
         step=0,
@@ -201,6 +214,8 @@ def build(args, device: torch.device):
         sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
         label_smoothing=args.label_smoothing,
         accum_steps=args.batches_per_allreduce,
+        world=world,
+        grad_comm_dtype=grad_comm_dtype(args),
     )
     return model, kfac, state, train_step
 
@@ -225,17 +240,22 @@ def train_mode(x_train: np.ndarray, image_size: int, augment: bool) -> str:
 
 
 def shard_batches(x_train, y_train, batch: int, steps: int, mode: str, image_size: int,
-                  val_resize: int, seed: int, transform_ms: List[float]):
-    """One epoch of ``steps`` NCHW float32 batches of ``batch`` images: the
-    seeded permutation of the whole batches' images, each batch's indices
-    sorted (memory-map friendly), then its transform with the same
-    ``RandomState``; the host milliseconds of each batch's read and
-    transform go to ``transform_ms``."""
+                  val_resize: int, seed: int, transform_ms: List[float],
+                  num_shards: int = 1, shard_index: int = 0, accum: int = 1):
+    """One epoch of ``steps`` NCHW float32 batches of ``batch · accum``
+    images for rank ``shard_index`` of ``num_shards`` (the JAX trainer's
+    numpy path): the seeded permutation of the whole global batches'
+    images (``batch · num_shards`` each), the rank's interleaved slice of
+    it, each batch's indices sorted (memory-map friendly), then its
+    transform with the same ``RandomState``; the host milliseconds of each
+    batch's read and transform go to ``transform_ms``."""
     rng = np.random.RandomState(seed)
-    order = rng.permutation(len(x_train) // batch * batch)
+    global_bs = batch * num_shards
+    order = rng.permutation(len(x_train) // global_bs * global_bs)[shard_index::num_shards]
+    n = batch * accum
     for b in range(steps):
         t0 = time.perf_counter()
-        take = np.sort(order[b * batch:(b + 1) * batch])
+        take = np.sort(order[b * n:(b + 1) * n])
         xb, yb = x_train[take], np.asarray(y_train[take], np.int32)
         if mode == "rrc":
             xb = data_lib.imagenet_train_augment(xb, image_size, rng)
@@ -247,6 +267,19 @@ def shard_batches(x_train, y_train, batch: int, steps: int, mode: str, image_siz
         yield xb, yb
 
 
+def timed(batches, steps: int, wait_ms: List[float]):
+    """The first ``steps`` of ``batches``, the host milliseconds spent
+    waiting for each appended to ``wait_ms``."""
+    it = iter(batches)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            return
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        yield batch
+
+
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
     if args.val_resize < args.image_size:
@@ -256,14 +289,14 @@ def main(argv=None) -> Dict[str, List]:
             "CenterCrop (the transform stack replicates borders otherwise, "
             "silently diverging from the reference's torchvision behavior)"
         )
-    device = resolve_device(args.device)
+    device = launch.initialize(args.device)
     use_ieee_f32()
-    world = 1
+    world = data_parallel_world()
     accum = args.batches_per_allreduce
-    model, kfac, state, train_step = build(args, device)
+    model, kfac, state, train_step = build(args, device, world)
     if args.init_from_torch:
         interop.init_from_torch_checkpoint(args.init_from_torch, model, args.model)
-        print(f"initialized weights from torch checkpoint {args.init_from_torch}")
+        rank0_print(f"initialized weights from torch checkpoint {args.init_from_torch}")
     history: Dict[str, List] = {
         "loss": [], "accuracy": [], "kind": [], "step_ms": [], "transform_ms": [],
         "val_loss": [], "val_accuracy": [], "val_count": [], "eval_ms": [], "restore_ms": [],
@@ -282,7 +315,9 @@ def main(argv=None) -> Dict[str, List]:
             )
         if resume_from_epoch:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
-            print(f"resumed from epoch {resume_from_epoch - 1}")
+            rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
+    # every rank starts from rank 0's state (hvd.broadcast_parameters)
+    ckpt.broadcast_state(state, world)
     kfac_sched = None
     if kfac is not None:
         kfac_sched = KFACParamScheduler(
@@ -294,42 +329,57 @@ def main(argv=None) -> Dict[str, List]:
             start_epoch=resume_from_epoch,
         )
     eval_step = make_masked_eval_step(model, label_smoothing=args.label_smoothing)
-    lr_base = args.base_lr * world
-    lr_factor = create_lr_schedule(world, args.warmup_epochs, args.lr_decay)
+    lr_base = args.base_lr * world.size
+    lr_factor = create_lr_schedule(world.size, args.warmup_epochs, args.lr_decay)
     im = args.image_size
     use_shards = not args.synthetic and args.data_dir
     train_data = _npy_shards(args.data_dir, "train") if use_shards else None
     val_data = _npy_shards(args.data_dir, "val") if use_shards else None
-    global_bs = args.batch_size * world
+    global_bs = args.batch_size * world.size
+    loader = None
     if train_data is not None:
         x_train, y_train = train_data
         mode = train_mode(x_train, im, not args.no_augment)
         steps_per_epoch = len(x_train) // (global_bs * accum)
-        print(
+        if args.num_workers > 0:
+            norm = (dict(mean=data_lib.IMAGENET_MEAN, std=data_lib.IMAGENET_STD)
+                    if x_train.dtype == np.uint8 else {})
+            loader = NativeEpochLoader(
+                x_train, y_train, args.batch_size * accum, shuffle=True,
+                num_shards=world.size, shard_index=world.rank, mode=mode,
+                out_size=(im, im), resize_size=args.val_resize, copy=False,
+                num_workers=args.num_workers, **norm,
+            )
+        rank0_print(
             f"ImageNet shards: {len(x_train)} train / "
             f"{len(val_data[0]) if val_data else 0} val, stored "
-            f"{tuple(x_train.shape[1:3])} {x_train.dtype}, train={mode} (numpy pipeline)"
+            f"{tuple(x_train.shape[1:3])} {x_train.dtype}, train={mode} "
+            f"({'native' if loader else 'numpy'} pipeline)"
         )
     else:
         if not args.synthetic:
-            print("no data found; falling back to --synthetic")
+            rank0_print("no data found; falling back to --synthetic")
         steps_per_epoch = args.steps_per_epoch or 100
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
-    writer = ScalarWriter(args.log_dir)
+    writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
 
     step = state.step
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
-        if train_data is not None:
+        if loader is not None:
+            batches = timed(loader.epoch(args.seed + epoch), steps_per_epoch,
+                            history["transform_ms"])
+        elif train_data is not None:
             batches = shard_batches(
-                x_train, y_train, global_bs * accum, steps_per_epoch, mode, im,
+                x_train, y_train, args.batch_size, steps_per_epoch, mode, im,
                 args.val_resize, args.seed + epoch, history["transform_ms"],
+                num_shards=world.size, shard_index=world.rank, accum=accum,
             )
         else:
             batches = data_lib.synthetic_batches(
-                global_bs * accum, (3, im, im), NUM_CLASSES, steps_per_epoch,
+                args.batch_size * accum, (3, im, im), NUM_CLASSES, steps_per_epoch,
                 seed=args.seed,
             )
         t0 = time.perf_counter()
@@ -337,11 +387,7 @@ def main(argv=None) -> Dict[str, List]:
         for i, (xb, yb) in enumerate(batches):
             lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
             flags = kfac_flags_for_step(step, kfac, epoch)
-            images = torch.from_numpy(xb).to(device, non_blocking=True)
-            labels = torch.from_numpy(yb).to(device, non_blocking=True)
-            if accum > 1:
-                images = images.reshape(accum, -1, *images.shape[1:])
-                labels = labels.reshape(accum, -1)
+            images, labels = put_global_batch((xb, yb), device, accum)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             ts = time.perf_counter()
@@ -362,7 +408,7 @@ def main(argv=None) -> Dict[str, List]:
             acc_m.update(acc)
             step += 1
         dt = time.perf_counter() - t0
-        print(
+        rank0_print(
             f"epoch {epoch}: loss={loss_m.avg:.4f} acc={acc_m.avg:.4f} lr={lr:.4f} "
             f"{steps_per_epoch * global_bs * accum / dt:.0f} img/s ({dt:.1f}s)"
         )
@@ -375,18 +421,21 @@ def main(argv=None) -> Dict[str, List]:
             te = time.perf_counter()
             val_loss, val_acc, count = run_imagenet_validation(
                 eval_step, state, *val_data, image_size=im, val_resize=args.val_resize,
-                batch_size=args.val_batch_size, device=device,
+                batch_size=args.val_batch_size, device=device, world=world,
+                num_workers=args.num_workers,
             )
             history["eval_ms"].append((time.perf_counter() - te) * 1e3)
             history["val_loss"].append(val_loss)
             history["val_accuracy"].append(val_acc)
             history["val_count"].append(count)
-            print(f"  val: loss={val_loss:.4f} acc={val_acc:.4f}")
+            rank0_print(f"  val: loss={val_loss:.4f} acc={val_acc:.4f}")
             writer.add_scalar("val/loss", val_loss, epoch)
             writer.add_scalar("val/accuracy", val_acc, epoch)
         if args.checkpoint_dir:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
     writer.close()
+    if loader is not None:
+        loader.close()
     return history
 
 

@@ -14,6 +14,14 @@ buffers take ``0.9·running + 0.1·batch`` with the BIASED batch variance
 (PyTorch's own update uses the unbiased one), so the module updates its
 buffers itself.
 
+Data-parallel, BatchNorm takes the JAX package's two routes:
+:func:`global_batchnorm` makes every ``BatchNorm2d`` of a model normalize
+over the global batch (the ranks' per-channel sums and sums of squares
+added up, the backward carried across the ranks: sync-BN, what flax does
+under the JAX package's default GSPMD step), and without it each rank
+normalizes over its own batch (its ``grad_comm_dtype`` route, where the
+train step averages the running statistics over the ranks).
+
 ``dtype`` (the flax model's; ``--bf16`` passes ``torch.bfloat16``) is the
 compute type of the convs and BatchNorm: activations flow in it from the
 stem conv to the mean pool, the head takes them in float32, and every
@@ -24,22 +32,27 @@ bfloat16, as flax's does.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense
+from kfac_pytorch_tpu_torch.parallel.mesh import World
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's running-statistics update.
 
     ``momentum=0.1`` here is flax's ``momentum=0.9`` (the weight on the
-    batch, not on history).
+    batch, not on history). ``sync_world``, set by :func:`global_batchnorm`,
+    makes training normalize over the global batch of that world's ranks.
     """
+
+    sync_world: Optional[World] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a bfloat16 x normalizes in float32 (float32 weight and statistics)
@@ -49,14 +62,48 @@ class BatchNorm2d(nn.BatchNorm2d):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.sync_world is not None and self.sync_world.size > 1:
+            y, mean, var = self._global_batch_norm(x, self.sync_world)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
             self.running_var.copy_(keep * self.running_var + self.momentum * var)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor, world: World):
+        """flax's statistics over the ranks' batches together (each rank's
+        batch the same size): ``mean = Σx / N``, ``var = max(0, Σx² / N −
+        mean²)``, the sums added up over the ranks with their gradient;
+        returns ``(y, mean, var)``."""
+        xf = x.float()
+        n = xf.numel() // xf.shape[1] * world.size
+        sums = world.sum_with_grad(torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
+        y = y + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()
+
+
+@contextlib.contextmanager
+def global_batchnorm(model: nn.Module, world: World) -> Iterator[None]:
+    """Inside the block every :class:`BatchNorm2d` of ``model`` normalizes
+    in training over the global batch of ``world``'s ranks (no effect on a
+    world of one); restored on exit."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.sync_world = world
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync_world = None
 
 
 class BasicBlock(nn.Module):

@@ -2,8 +2,11 @@
 
 Port of ``kfac_pytorch_tpu/ops/precondition.py`` for the ported paths: the
 eigen method with full-eigen dense entries and diagonal-A (embedding)
-entries, and the inverse method (``precond_method="inverse"``); no
-low-rank or distributed forms. Same-shape layers are stacked and
+entries, and the inverse method (``precond_method="inverse"``), replicated
+or with the rotations sharded over the ranks
+(:func:`precondition_all_distributed`,
+:func:`precondition_all_inv_distributed`); no low-rank forms (ROADMAP
+queue 1 item 7). Same-shape layers are stacked and
 preconditioned together. Diagonal-A layers stay out of the shape groups
 and are preconditioned first, in sorted order; then the groups follow in
 :func:`shape_groups`' insertion order. That emission order is also the
@@ -26,6 +29,7 @@ import torch
 
 from kfac_pytorch_tpu_torch.device import rotation_precision
 from kfac_pytorch_tpu_torch.ops import apply_kernels
+from kfac_pytorch_tpu_torch.parallel.mesh import World
 
 
 def precondition_mat(
@@ -161,14 +165,19 @@ def _precondition_all(grad_mats, eigen, damping, stacked):
             )
             continue
         gm = torch.stack([grad_mats[n] for n in names])
-        s = _group_eigen(names, f"{go}x{ai}", eigen, stacked)
-        qa, qg, da, dg = s["QA"].float(), s["QG"].float(), s["dA"], s["dG"]
-        v1 = (qg.transpose(1, 2) @ gm) @ qa
-        v2 = v1 / (dg[:, :, None] * da[:, None, :] + damping)
-        v = (qg @ v2) @ qa.transpose(1, 2)
+        v = _precondition_stack(gm, _group_eigen(names, f"{go}x{ai}", eigen, stacked), damping)
         for row, name in enumerate(names):
             out[name] = v[row]
     return out
+
+
+def _precondition_stack(gm: torch.Tensor, s: Dict[str, torch.Tensor], damping) -> torch.Tensor:
+    """The oracle chain over one shape group's stack ``gm [k, g, a]`` and
+    its stacked eigen state ``s``."""
+    qa, qg, da, dg = s["QA"].float(), s["QG"].float(), s["dA"], s["dG"]
+    v1 = (qg.transpose(1, 2) @ gm) @ qa
+    v2 = v1 / (dg[:, :, None] * da[:, None, :] + damping)
+    return (qg @ v2) @ qa.transpose(1, 2)
 
 
 def precondition_all_with_vg(
@@ -347,6 +356,146 @@ def _precondition_all_inv(grad_mats, inv, stacked):
         for row, name in enumerate(names):
             out[name] = v[row]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Distributed preconditioning: each layer's solve on its owner rank
+#
+# ``owners`` (parallel.assignment.precondition_assignment) gives every layer
+# one rank. A rank solves only the layers it owns, stacked by shape group as
+# the replicated path stacks them, writes them into a zeroed flat buffer of
+# every layer's update, and one all_reduce (sum of zeros) reassembles the
+# buffer on every rank: exact up to the downcast when ``comm_dtype`` is set,
+# since each element has one owner. Updates come back in the replicated
+# path's emission order, the KL clip's summation order.
+# ---------------------------------------------------------------------------
+
+
+def _emission_order(grad_mats: Dict[str, torch.Tensor], diag_a: set) -> List[str]:
+    """Diagonal-A layers in sorted order, then :func:`shape_groups`' order."""
+    shapes = {n: tuple(g.shape) for n, g in grad_mats.items() if n not in diag_a}
+    return sorted(diag_a) + [n for names in shape_groups(shapes).values() for n in names]
+
+
+def _owned_rows(names, rows, key, state, stacked):
+    """Rows ``rows`` of one shape group's stacked state: the ``stacked``
+    group sliced (only the owner pays the copy), or the per-layer entries
+    stacked."""
+    if len(names) > 1 and stacked is not None and key in stacked:
+        group = stacked[key]
+        if len(rows) == len(names):
+            return group
+        idx = torch.tensor(rows, device=next(iter(group.values())).device)
+        return {k: v.index_select(0, idx) for k, v in group.items()}
+    return {k: torch.stack([state[names[r]][k] for r in rows]) for k in state[names[0]]}
+
+
+def _apply_distributed(
+    grad_mats: Dict[str, torch.Tensor],
+    state: Dict[str, Dict[str, torch.Tensor]],
+    stacked: Optional[Dict[str, Dict[str, torch.Tensor]]],
+    world: World,
+    owners: Dict[str, int],
+    solve_diag,
+    solve_group,
+    comm_dtype: Optional[torch.dtype],
+) -> Dict[str, torch.Tensor]:
+    """The owner-sharded skeleton. ``solve_diag(g, entry)`` solves one
+    diagonal-A layer; ``solve_group(gm [k, g, a], group state) -> [k, g, a]``
+    one shape group's owned rows."""
+    diag_a = diag_a_names(state)
+    order = _emission_order(grad_mats, diag_a)
+    local: Dict[str, torch.Tensor] = {}
+    for name in sorted(diag_a):
+        if owners[name] == world.rank:
+            local[name] = solve_diag(grad_mats[name], state[name])
+    shapes = {n: tuple(g.shape) for n, g in grad_mats.items() if n not in diag_a}
+    for (go, ai), names in shape_groups(shapes).items():
+        rows = [r for r, n in enumerate(names) if owners[n] == world.rank]
+        if not rows:
+            continue
+        gm = torch.stack([grad_mats[names[r]] for r in rows])
+        v = solve_group(gm, _owned_rows(names, rows, f"{go}x{ai}", state, stacked))
+        for j, r in enumerate(rows):
+            local[names[r]] = v[j]
+    sizes = [grad_mats[n].numel() for n in order]
+    first = grad_mats[order[0]]
+    flat = first.new_zeros(sum(sizes), dtype=comm_dtype or torch.float32)
+    for n, part in zip(order, flat.split(sizes)):
+        if n in local:
+            part.copy_(local[n].reshape(-1))
+    world.all_reduce_sum_(flat)
+    flat = flat.float()
+    return {n: part.view(grad_mats[n].shape) for n, part in zip(order, flat.split(sizes))}
+
+
+def precondition_all_distributed(
+    grad_mats: Dict[str, torch.Tensor],
+    eigen: Dict[str, Dict[str, torch.Tensor]],
+    damping,
+    stacked: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    precision: Optional[str] = None,
+    *,
+    world: World,
+    owners: Dict[str, int],
+    comm_dtype: Optional[torch.dtype] = None,
+    kind: str = "auto",
+) -> Dict[str, torch.Tensor]:
+    """Eigenbasis preconditioning with the rotations sharded over the ranks
+    (the JAX package's ``precondition_all_distributed``; the reference
+    rotates every layer on every rank, kfac_preconditioner.py:401-404).
+
+    The owned rows of a shape group go through the fused apply wrapper
+    (kernel 3 on CUDA tensors, its plain version on CPU ones; the JAX
+    package's ``solve_eigen_entry_maybe_fused``) unless ``kind="dense"``,
+    which takes the oracle chain at ``precision``. The kernel's KL-clip
+    partials cover the owned layers only and are dropped: the caller
+    reduces ν from the reassembled updates, as the JAX package does.
+    ``comm_dtype`` (``torch.bfloat16``) is the exchange's wire type.
+    """
+
+    def solve_diag(g, e):
+        with rotation_precision(precision):
+            return precondition_mat_embed(g, e["QG"], e["dG"], e["dA"], damping)
+
+    def solve_group(gm, s):
+        if kind != "dense":
+            v, _ = apply_kernels.dispatch_precondition_stack(
+                gm, s["QA"], s["dA"], s["QG"], s["dG"], damping
+            )
+            return v
+        with rotation_precision(precision):
+            return _precondition_stack(gm, s, damping)
+
+    return _apply_distributed(
+        grad_mats, eigen, stacked, world, owners, solve_diag, solve_group, comm_dtype
+    )
+
+
+def precondition_all_inv_distributed(
+    grad_mats: Dict[str, torch.Tensor],
+    inv: Dict[str, Dict[str, torch.Tensor]],
+    stacked: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    precision: Optional[str] = None,
+    *,
+    world: World,
+    owners: Dict[str, int],
+    comm_dtype: Optional[torch.dtype] = None,
+) -> Dict[str, torch.Tensor]:
+    """The inverse method's owner-sharded solve (:func:`precondition_all_inv`
+    per owned layer, one exchange)."""
+
+    def solve_diag(g, e):
+        with rotation_precision(precision):
+            return precondition_mat_inv_embed(g, e["iA_diag"], e["iG"])
+
+    def solve_group(gm, s):
+        with rotation_precision(precision):
+            return (s["iG"].float() @ gm) @ s["iA"].float()
+
+    return _apply_distributed(
+        grad_mats, inv, stacked, world, owners, solve_diag, solve_group, comm_dtype
+    )
 
 
 def _lr_squared(lr) -> float:

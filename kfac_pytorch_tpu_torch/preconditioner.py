@@ -1,4 +1,4 @@
-"""KFAC: the K-FAC gradient preconditioner, one device.
+"""KFAC: the K-FAC gradient preconditioner, on one device or data-parallel.
 
 Port of ``kfac_pytorch_tpu/preconditioner.py::KFAC`` for the ported
 paths: identity-initialized factor running averages, a curvature refresh
@@ -33,6 +33,18 @@ has every K-FAC layer's entries replaced and BatchNorm's passed through.
 Statistics come from ``capture.Capture``. The state is a dict of tensors on
 the preconditioner's device.
 
+Data-parallel (the reference's algorithm, one process per GPU): the world
+is ``process_group=`` or, when ``torch.distributed`` is initialised, the
+default group (the JAX package's ``mesh=``). Each capture step averages
+the ranks' A/G contributions (float32 ``all_reduce``) before the EMA, so
+every rank keeps the global batch's factors. Over more than one rank the
+refresh is sharded (``parallel.sharded_eigh.sharded_eigen_update``: each
+rank decomposes the factors the round-robin table gives it, A and G of a
+layer on different ranks with ``distribute_layer_factors``, by default
+when there are more ranks than layers), and with ``distribute_precondition``
+so is the every-step apply (``ops.precondition.precondition_all_distributed``,
+its exchange in ``precond_comm_dtype`` when set).
+
 The constructor takes every argument of the reference with its default and
 validation. Levers outside this slice raise ``NotImplementedError`` naming
 the ROADMAP queue-1 item that ports them.
@@ -59,7 +71,15 @@ from kfac_pytorch_tpu_torch.ops import apply_kernels as apply_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factor_kernels as factor_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factors as factor_ops
 from kfac_pytorch_tpu_torch.ops import precondition as precond_ops
-from kfac_pytorch_tpu_torch.parallel.sharded_eigh import replicated_eigen_update
+from kfac_pytorch_tpu_torch.parallel.assignment import (
+    layer_assignment,
+    precondition_assignment,
+)
+from kfac_pytorch_tpu_torch.parallel.mesh import WIRE_DTYPES, World, data_parallel_world
+from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
+    replicated_eigen_update,
+    sharded_eigen_update,
+)
 
 KFACState = Dict[str, Any]
 
@@ -91,12 +111,14 @@ def _not_ported(lever: str, item: str) -> None:
 
 
 class KFAC:
-    """K-FAC gradient preconditioner (eigen or inverse method, one device).
+    """K-FAC gradient preconditioner (eigen or inverse method).
 
     Args mirror the reference (kfac_pytorch_tpu/preconditioner.py:142-179)
     plus ``device`` (default CUDA; raises without a GPU unless
-    ``device="cpu"``). ``lr`` is validated for API parity only: the KL clip
-    always uses the per-step ``update(lr=...)``.
+    ``device="cpu"``) and ``process_group`` (the world, in place of the JAX
+    package's ``mesh``, which the port refuses). ``lr`` is validated for
+    API parity only: the KL clip always uses the per-step
+    ``update(lr=...)``.
     """
 
     def __init__(
@@ -137,6 +159,7 @@ class KFAC:
         profile: Optional[Any] = None,
         profile_shapes: Optional[Any] = None,
         device: DeviceLike = None,
+        process_group: Optional[Any] = None,
     ):
         _validate("learning rate", 0.0 <= lr, lr)
         _validate("factor decay rate", 0.0 < factor_decay <= 1, factor_decay)
@@ -158,15 +181,27 @@ class KFAC:
                 "stale factors"
             )
 
-        # Levers of later slices: refuse rather than silently ignore.
         if mesh is not None:
-            _not_ported("mesh= (multi-GPU data parallel)", "6")
-        if distribute_layer_factors is not None or distribute_precondition:
-            _not_ported("distribute_layer_factors/distribute_precondition", "6")
-        if precond_comm_dtype is not None:
-            _not_ported("precond_comm_dtype", "6")
+            raise ValueError(
+                "mesh= is the JAX package's device mesh; the port's world is "
+                "a torch.distributed process group: pass process_group= (or "
+                "initialise torch.distributed for the default group)"
+            )
+        if precond_comm_dtype is not None and not distribute_precondition:
+            raise ValueError(
+                "precond_comm_dtype compresses the distributed-precondition "
+                "exchange and does nothing without distribute_precondition="
+                "True — refusing a config whose numerics would silently "
+                "change when run at scale"
+            )
+        _validate(
+            "precond_comm_dtype",
+            precond_comm_dtype is None or precond_comm_dtype in WIRE_DTYPES,
+            precond_comm_dtype,
+        )
+        # Levers of later slices: refuse rather than silently ignore.
         if str(factor_comm_dtype).lower() not in ("f32", "float32") or factor_comm_freq != 1:
-            _not_ported("factor_comm_dtype/factor_comm_freq (factor comm plane)", "6")
+            _not_ported("factor_comm_dtype/factor_comm_freq (factor comm plane)", "6 (6b)")
         if comm_overlap:
             _not_ported("comm_overlap", "7")
         if staleness_budget != 0:
@@ -205,6 +240,21 @@ class KFAC:
 
         self.device = resolve_device(device)
         use_ieee_f32()
+        self.world: World = data_parallel_world(process_group)
+        self.distribute_layer_factors = distribute_layer_factors
+        # shard the every-step rotations over the ranks (off by default, as
+        # in the JAX package: the exchange can cost more than the rotations
+        # it saves on few devices)
+        self.distribute_precondition = distribute_precondition
+        self.precond_comm_dtype = precond_comm_dtype
+        if distribute_precondition and self.world.size <= 1:
+            # update() takes the replicated apply then; trainers pass the
+            # same flags to one-device runs, so this is not an error
+            print(
+                "WARNING: distribute_precondition=True has no effect without "
+                "a multi-device mesh — preconditioning runs replicated"
+                + (" and precond_comm_dtype is unused" if precond_comm_dtype is not None else "")
+            )
         self.eigen_dtype = eigen_dtype
         self.precond_precision = resolve_precond_precision(precond_precision)
         self.factor_decay = factor_decay
@@ -376,6 +426,15 @@ class KFAC:
                     f"no captured statistics for layers {missing}; build the "
                     "Capture with the same layer list as KFAC"
                 )
+            if self.world.distributed:
+                # the global batch's statistics: each rank's contributions
+                # are over its own batch, so their mean over the ranks is
+                # the JAX package's global-batch A and G
+                a_contribs = {n: a_contribs[n].float().clone() for n in names}
+                g_factor_stats = {n: g_factor_stats[n].float().clone() for n in names}
+                self.world.all_reduce_mean_(
+                    [a_contribs[n] for n in names] + [g_factor_stats[n] for n in names]
+                )
             # elementwise EMA: the same update serves A matrices and the
             # embeddings' A_diag vectors
             old_facs, facs = facs, {}
@@ -404,13 +463,21 @@ class KFAC:
         elif update_eigen:
             diag_blocks = self.diag_blocks if diag_warmup_done else 1
             # blocks split conv factors only (a conv weight is OIHW)
-            blocks = {
-                n: diag_blocks
-                if grads[f"{capture.split_group_name(n)[0]}.weight"].dim() == 4 else 1
-                for n in names
-            }
+            blocks = {n: diag_blocks if self._is_conv(grads, n) else 1 for n in names}
             # eigh runs in float32; Q is written in eigen_dtype
-            eigen = replicated_eigen_update(facs, blocks, self.eps, self.eigen_dtype)
+            if self.world.size > 1:
+                table = layer_assignment(
+                    names,
+                    {n: self._is_conv(grads, n) for n in names},
+                    self.world.size,
+                    self.distribute_layer_factors,
+                    diag_blocks,
+                )
+                eigen = sharded_eigen_update(
+                    facs, table, self.world, self.eps, self.eigen_dtype
+                )
+            else:
+                eigen = replicated_eigen_update(facs, blocks, self.eps, self.eigen_dtype)
             # diagonal A: the eigenvectors are the identity, so no eigh — the
             # eigenvalues are the diagonal under the reference's floor
             for name in names:
@@ -437,13 +504,36 @@ class KFAC:
             )
         return new_grads, new_state
 
+    @staticmethod
+    def _is_conv(grads, name: str) -> bool:
+        """A conv layer (an OIHW weight): the layers ``diag_blocks`` splits."""
+        return grads[f"{capture.split_group_name(name)[0]}.weight"].dim() == 4
+
     def _precondition_replicated(self, grads, names, eigen, stacked, lr, damping):
-        """Every-step precondition + KL clip; returns
+        """Every-step precondition + KL clip (the JAX method's name: the
+        distributed apply is a branch of it there too); returns
         ``(new_grads, gmats, updates, nu)``."""
         embeddings = precond_ops.diag_a_names(eigen)
         lgrads = capture.layer_grads(grads, names, embeddings)
         gmats = {n: m.float() for n, m in capture.grad_mats(lgrads).items()}
-        if self.precond_method == "inverse":
+        if self.distribute_precondition and self.world.size > 1:
+            owners = precondition_assignment(
+                {n: tuple(g.shape) for n, g in gmats.items()},
+                self.world.size,
+                diag_a=embeddings,
+            )
+            common = dict(world=self.world, owners=owners, comm_dtype=self.precond_comm_dtype)
+            if self.precond_method == "inverse":
+                updates = precond_ops.precondition_all_inv_distributed(
+                    gmats, eigen, stacked, self.precond_precision, **common
+                )
+            else:
+                updates = precond_ops.precondition_all_distributed(
+                    gmats, eigen, damping, stacked, self.precond_precision,
+                    kind=self.apply_kernel, **common,
+                )
+            vg_terms = None
+        elif self.precond_method == "inverse":
             updates = precond_ops.precondition_all_inv(
                 gmats, eigen, stacked=stacked, precision=self.precond_precision
             )

@@ -9,6 +9,12 @@ and resume picks the newest ``checkpoint-<epoch>``, as the JAX package's
 scan does. Owner-sharded K-FAC state (``rehome_kfac_state``) is ROADMAP
 queue 1 item 7.
 
+Data-parallel, only rank 0 writes; every rank reads the directory (a
+shared file system, as the JAX package's checkpoints need) at the epoch
+rank 0 resumes from, which is broadcast, as the reference broadcasts it
+(pytorch_imagenet_resnet.py:136-140). :func:`broadcast_state` then makes
+every rank's state rank 0's.
+
 A checkpoint is one file, ``checkpoint-<epoch>``, written by ``torch.save``
 under a temporary name and renamed into place, so a run cut mid-write
 leaves no file that resume would pick. It holds only tensors, dicts,
@@ -26,6 +32,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from kfac_pytorch_tpu_torch.parallel import launch
+from kfac_pytorch_tpu_torch.parallel.mesh import World
 from kfac_pytorch_tpu_torch.training.step import TrainState
 
 _EPOCH_RE = re.compile(r"checkpoint-(\d+)$")
@@ -48,9 +56,11 @@ def _payload(state: TrainState) -> Dict[str, Any]:
 
 def save_checkpoint(checkpoint_dir: str, epoch: int, state: TrainState) -> str:
     """Write ``state`` as ``checkpoint-<epoch>`` in ``checkpoint_dir``
-    (created if missing); returns the path."""
-    os.makedirs(checkpoint_dir, exist_ok=True)
+    (created if missing); returns the path. Only rank 0 writes."""
     path = checkpoint_path(checkpoint_dir, epoch)
+    if not launch.is_primary():
+        return path
+    os.makedirs(checkpoint_dir, exist_ok=True)
     tmp = path + ".tmp"
     torch.save(_payload(state), tmp)
     os.replace(tmp, path)
@@ -133,6 +143,28 @@ def auto_resume(checkpoint_dir: str, target: TrainState) -> Tuple[TrainState, in
     """``(state, first epoch to run)``: the newest checkpoint restored into
     ``target`` and the epoch after it, or ``(target, 0)`` when there is none."""
     epoch = latest_epoch(checkpoint_dir)
-    if epoch is None:
+    epoch = int(launch.broadcast_host_value(-1 if epoch is None else epoch))
+    if epoch < 0:
         return target, 0
     return restore_checkpoint(checkpoint_dir, epoch, target), epoch + 1
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+
+
+def broadcast_state(state: TrainState, world: World) -> None:
+    """Overwrite every tensor of ``state`` (parameters, BatchNorm buffers,
+    momentum, K-FAC state) with rank 0's, in place: the reference's
+    ``hvd.broadcast_parameters`` and ``broadcast_optimizer_state`` at the
+    start of a run."""
+    with torch.no_grad():
+        world.broadcast_([
+            *state.model.state_dict().values(),
+            *_tensors(state.opt_state),
+            *_tensors(state.kfac_state),
+        ])

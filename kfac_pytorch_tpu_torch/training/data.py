@@ -16,9 +16,9 @@ the same data for the same seed. Images come out NCHW, the port's layout
 (the JAX package's, transposed, bit for bit); token streams come out as
 they are. ImageNet shards stay in their on-disk layout, NHWC
 (``{train,val}_{x,y}.npy``, as ``scripts/make_imagenet_shards.py`` writes
-them): the transforms read NHWC batches and return NCHW float32. The
-ImageNet transforms run in numpy on the host only; the JAX package's native
-C++ loader (``--num-workers``) is ROADMAP queue 1 item 9. Data is read only
+them): the transforms read NHWC batches and return NCHW float32. These
+are the numpy pipeline (``--num-workers 0``); the native threaded loader is
+``runtime/loader.py``. Data is read only
 from the directory a caller names: unlike the JAX package, nothing searches
 fixed data directories.
 """
@@ -92,16 +92,26 @@ def epoch_batches(
     shuffle: bool,
     augment: bool,
     seed: int,
+    num_shards: int = 1,
+    shard_index: int = 0,
 ) -> Iterator[Batch]:
     """One epoch of full batches (drops the ragged tail, like drop_last):
     the seeded permutation first, then per batch the augmentation's draws.
-    The JAX package's ``num_shards``/``shard_index`` (multi-host) are ROADMAP
-    queue 1 item 6."""
+
+    ``num_shards``/``shard_index`` are the ``DistributedSampler`` split of
+    the JAX package's multi-host trainer: every rank draws the same seeded
+    permutation and takes its interleaved slice ``shard_index::num_shards``,
+    so shards are disjoint; the batch count comes from the shortest shard,
+    so every rank takes the same number of steps. ``batch_size`` is the
+    per-shard size."""
     rng = np.random.RandomState(seed)
     idx = np.arange(len(x))
     if shuffle:
         rng.shuffle(idx)
-    for b in range(len(x) // batch_size):
+    n_batches = (len(x) // num_shards) // batch_size
+    if num_shards > 1:
+        idx = idx[shard_index::num_shards]
+    for b in range(n_batches):
         take = idx[b * batch_size : (b + 1) * batch_size]
         xb = x[take]
         if augment:
@@ -110,13 +120,24 @@ def epoch_batches(
 
 
 def eval_batches(
-    x: np.ndarray, y: np.ndarray, batch_size: int
+    x: np.ndarray,
+    y: np.ndarray,
+    batch_size: int,
+    num_shards: int = 1,
+    shard_index: int = 0,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Full-split evaluation batches: ``(images, labels, mask)``, the ragged
     tail padded up to ``batch_size`` by repeating sample 0 with a zero mask
-    entry, so masked sums over all batches are sums over the whole split."""
+    entry, so masked sums over all batches are sums over the whole split.
+    With ``num_shards`` > 1 a rank takes the interleaved slice
+    ``shard_index::num_shards``, and every rank yields the batch count of
+    the longest shard (shorter ones pad more), so the ranks' reductions
+    stay in step."""
     idx = np.arange(len(x))
-    for b in range(-(-len(x) // batch_size)):
+    if num_shards > 1:
+        idx = idx[shard_index::num_shards]
+    longest_shard = (len(x) + num_shards - 1) // num_shards
+    for b in range(-(-longest_shard // batch_size)):
         take = idx[b * batch_size : (b + 1) * batch_size]
         k = len(take)
         mask = np.zeros(batch_size, np.float32)

@@ -11,7 +11,7 @@ the optimizer: also at the recipe's momentum 0, as the JAX package fuses
 ``optax.trace(decay=0)``. Metrics are ``loss`` and ``ppl`` (and the
 ``kfac_*`` diagnostics with ``track_diagnostics``). The JAX package's
 compressed multi-device gradient mean (``_compute_compressed``) is ROADMAP
-queue 1 item 6.
+queue 1 item 6 (6b).
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
 """The train step: forward → CE loss → backward → K-FAC → SGD, and evaluation.
 
-Port of ``kfac_pytorch_tpu/training/step.py`` for one device
-(``make_train_step`` with gradient accumulation and global-norm clipping,
-``make_eval_step``, ``make_masked_eval_step``, ``make_bn_recal_step``,
-``make_sgd``, ``per_sample_cross_entropy``, ``softmax_cross_entropy``,
-``clip_by_global_norm``, ``kfac_flags_for_step``). PyTorch runs eagerly,
+Port of ``kfac_pytorch_tpu/training/step.py`` (``make_train_step`` with
+gradient accumulation and global-norm clipping, ``make_eval_step``,
+``make_masked_eval_step``, ``make_bn_recal_step``, ``make_sgd``,
+``per_sample_cross_entropy``, ``softmax_cross_entropy``,
+``clip_by_global_norm``, ``kfac_flags_for_step``, ``pmean_compressed``),
+on one device or data-parallel over the ranks of a ``parallel.mesh.World``
+(one data axis, so the JAX package's ``require_pure_dp_mesh`` check has
+nothing to refuse). PyTorch runs eagerly,
 so the JAX package's compiled step variants become plain keyword flags;
 the statistics capture is ``capture.Capture``'s hooks, open only on
 capture steps.
@@ -14,6 +17,17 @@ place: the declared ``sgd_hyper`` with a K-FAC preconditioner routes the
 optimizer through the fused SGD kernel wrapper (``ops/apply_kernels.py``,
 with a launch plan the step keeps between calls), otherwise the per-leaf
 ``make_sgd`` step runs.
+
+Data-parallel, each rank runs its own batch, and the gradients, the loss
+and the accuracy are averaged over the ranks (float32 ``all_reduce``s);
+the K-FAC statistics are averaged inside ``KFAC.update``. BatchNorm takes
+the JAX step's two routes: by default (the JAX package's GSPMD step) it
+normalizes over the global batch (``models.cifar_resnet.global_batchnorm``);
+under ``grad_comm_dtype`` (the JAX package's ``_compressed_grads``, the
+reference's ``--fp16-allreduce``) each rank normalizes over its own batch,
+the gradient mean crosses the wire in ``grad_comm_dtype``
+(:func:`pmean_compressed`) and the BatchNorm running statistics are
+averaged after the step.
 """
 
 from __future__ import annotations
@@ -27,8 +41,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch.capture import Capture
+from kfac_pytorch_tpu_torch.models.cifar_resnet import BatchNorm2d, global_batchnorm
 from kfac_pytorch_tpu_torch.observability.diagnostics import diagnostic_metrics
 from kfac_pytorch_tpu_torch.ops import apply_kernels
+from kfac_pytorch_tpu_torch.parallel.mesh import WIRE_DTYPES, World, data_parallel_world
 from kfac_pytorch_tpu_torch.preconditioner import KFAC
 
 
@@ -111,6 +127,13 @@ def clip_by_global_norm(
     return {n: g * scale for n, g in grads.items()}
 
 
+def pmean_compressed(tensors, world: World, comm_dtype: Optional[torch.dtype]) -> None:
+    """The ranks' mean of each tensor, in place, its payload crossing the
+    wire in ``comm_dtype`` (each rank's value rounds once; ``None``: the
+    tensors' own dtype) and the result restored to the tensors' dtype."""
+    world.all_reduce_mean_(list(tensors), comm_dtype=comm_dtype)
+
+
 def make_train_step(
     model: nn.Module,
     tx: SGD,
@@ -120,6 +143,8 @@ def make_train_step(
     label_smoothing: float = 0.0,
     accum_steps: int = 1,
     stats_all_microbatches: bool = False,
+    world: Optional[World] = None,
+    grad_comm_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """Build ``step_fn(state, batch, lr, damping, update_factors=...,
     update_eigen=..., diag_warmup_done=...) -> (state, metrics)``.
@@ -149,9 +174,28 @@ def make_train_step(
 
     With ``kfac.track_diagnostics`` the metrics also carry the ``kfac_*``
     diagnostics (``observability/diagnostics.py``), as device tensors.
+
+    ``world`` (default: the preconditioner's, else the default process
+    group's, else one process) is the data-parallel world; see the module
+    docstring for the collectives and the BatchNorm routes.
+    ``grad_comm_dtype`` (``torch.bfloat16``) selects the compressed route
+    over more than one rank and is inert on one, as in the JAX package.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
+    if grad_comm_dtype is not None and grad_comm_dtype not in WIRE_DTYPES:
+        raise ValueError(f"Invalid grad_comm_dtype: {grad_comm_dtype}")
+    if world is None:
+        world = kfac.world if kfac is not None else data_parallel_world()
+    compressed = grad_comm_dtype is not None and world.size > 1
+    bn_ctx = (
+        contextlib.nullcontext if compressed or world.size == 1
+        else lambda: global_batchnorm(model, world)
+    )
+    bn_buffers = [
+        b for m in model.modules() if isinstance(m, BatchNorm2d)
+        for b in (m.running_mean, m.running_var)
+    ]
     if sgd_hyper is not None and (
         sgd_hyper[0] != tx.momentum or sgd_hyper[1] != tx.weight_decay
     ):
@@ -195,6 +239,38 @@ def make_train_step(
         for p in params.values():
             p.grad = None
         capture_stats = kfac is not None and update_factors
+        with bn_ctx():
+            loss, acc, a_c, g_s = accumulate(images, labels, params, capture_stats)
+        if capture_stats and a_c is None:
+            a_c, g_s = capture.a_contribs, capture.g_factor_stats
+        grads = {
+            n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in params.items()
+        }
+        if world.distributed:
+            pmean_compressed(grads.values(), world, grad_comm_dtype if compressed else None)
+            means = torch.stack([loss, acc])
+            world.all_reduce_mean_([means])
+            loss, acc = means[0], means[1]
+            if compressed:
+                with torch.no_grad():
+                    world.all_reduce_mean_(bn_buffers)
+        if grad_clip:
+            grads = clip_by_global_norm(grads, grad_clip)
+        new_state = precondition_and_step(
+            state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
+            update_factors=update_factors, update_eigen=update_eigen,
+            diag_warmup_done=diag_warmup_done,
+        )
+        metrics = {"loss": loss, "accuracy": acc}
+        if kfac is not None and kfac.track_diagnostics:
+            metrics.update(diagnostic_metrics(new_state.kfac_state["diagnostics"]))
+        return new_state, metrics
+
+    def accumulate(images, labels, params, capture_stats):
+        """Forward and backward of the step's batch (or its microbatches):
+        ``(loss, accuracy, a_c, g_s)``, the statistics set only when every
+        microbatch captured them (else the hooks' last ones count)."""
         a_c = g_s = None
         if accum_steps == 1:
             loss, acc = forward_backward(images, labels, capture_stats)
@@ -223,23 +299,7 @@ def make_train_step(
             for p in params.values():
                 if p.grad is not None:
                     p.grad.mul_(inv)
-        if capture_stats and a_c is None:
-            a_c, g_s = capture.a_contribs, capture.g_factor_stats
-        grads = {
-            n: p.grad if p.grad is not None else torch.zeros_like(p)
-            for n, p in params.items()
-        }
-        if grad_clip:
-            grads = clip_by_global_norm(grads, grad_clip)
-        new_state = precondition_and_step(
-            state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
-            update_factors=update_factors, update_eigen=update_eigen,
-            diag_warmup_done=diag_warmup_done,
-        )
-        metrics = {"loss": loss, "accuracy": acc}
-        if kfac is not None and kfac.track_diagnostics:
-            metrics.update(diagnostic_metrics(new_state.kfac_state["diagnostics"]))
-        return new_state, metrics
+        return loss, acc, a_c, g_s
 
     return train_step
 
@@ -286,7 +346,7 @@ def _add_stats(total, stats):
     return {n: total[n] + s for n, s in stats.items()}
 
 
-def make_bn_recal_step(model: nn.Module) -> Callable:
+def make_bn_recal_step(model: nn.Module, world: Optional[World] = None) -> Callable:
     """``recal(state, images) -> state``: one train-mode forward without
     gradients that moves only the BatchNorm running statistics.
 
@@ -294,11 +354,15 @@ def make_bn_recal_step(model: nn.Module) -> Callable:
     faster than the running averages (momentum 0.9, a ~10-batch window)
     follow, so evaluation, which normalizes with them, dips; a few of these
     forwards before evaluation re-center them on the current weights.
+    Over several ranks the statistics are the global batch's, as the JAX
+    package's recalibration (a GSPMD forward) takes them on either route.
     """
+    if world is None:
+        world = data_parallel_world()
 
     def recal(state: TrainState, images: torch.Tensor) -> TrainState:
         model.train()
-        with torch.no_grad():
+        with torch.no_grad(), global_batchnorm(model, world):
             model(images)
         return state
 

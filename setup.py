@@ -21,7 +21,7 @@ setup(
     # kernel sources, built with nvcc at first use (ops/kernel_build.py)
     package_data={
         "kfac_pytorch_tpu.runtime": ["native/*.cpp"],
-        "kfac_pytorch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "kfac_pytorch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[

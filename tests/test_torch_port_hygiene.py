@@ -40,6 +40,7 @@ _PROBE = textwrap.dedent(
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "kfac_pytorch_tpu")
     )
     print(len(names), "modules;", "banned:", banned)
+    print(" ".join(names))
     sys.exit(1 if banned else 0)
     """
 )
@@ -63,6 +64,11 @@ def test_port_imports_nothing_of_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 20, res.stdout
+    # the native loader and the data-parallel modules among them
+    imported = set(res.stdout.splitlines()[1].split())
+    assert {f"kfac_pytorch_tpu_torch.{m}" for m in (
+        "runtime", "runtime.loader", "parallel.launch", "parallel.mesh",
+        "parallel.assignment", "parallel.sharded_eigh")} <= imported, res.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -89,9 +95,11 @@ def _setup_requires(path):
 @pytest.mark.parametrize("setup_file", ["setup.py", "setup_torch.py"])
 def test_packaging_ships_every_kernel_input(tmp_path, setup_file):
     """``build_py`` of a copy of the tree ships each CUDA source and every
-    ``csrc/`` header it includes (``kernel_build._inputs``): an installed
-    copy can build every kernel. Nothing is written into the repository."""
+    ``csrc/`` header it includes (``kernel_build._inputs``), and the native
+    loader's C++ source (``runtime/loader.py``): an installed copy can build
+    every kernel and the loader. Nothing is written into the repository."""
     from kfac_pytorch_tpu_torch.ops import kernel_build
+    from kfac_pytorch_tpu_torch.runtime import loader
 
     tree = tmp_path / "tree"
     tree.mkdir()
@@ -107,7 +115,8 @@ def test_packaging_ships_every_kernel_input(tmp_path, setup_file):
     assert res.returncode == 0, res.stdout + res.stderr
     shipped = {p.name for p in (out / "kfac_pytorch_tpu_torch" / "csrc").iterdir()}
     needed = {p.name for name in kernel_build.SIGNATURES for p in kernel_build._inputs(name)}
-    assert "tf32_mma.cuh" in needed and needed <= shipped, needed - shipped
+    needed.add(loader.SOURCE.name)
+    assert {"tf32_mma.cuh", "loader.cpp"} <= needed and needed <= shipped, needed - shipped
     if setup_file == "setup_torch.py":
         assert not (out / "kfac_pytorch_tpu").exists()
         requires = _setup_requires(tree / setup_file)
@@ -186,6 +195,13 @@ def test_every_jax_trainer_flag_parses_or_names_its_item():
                                "--stats-all-microbatches", "--kfac-diagnostics",
                                "--label-smoothing", "0.1", "--kfac-update-freq-schedule", "3"])
     assert (args.precond_method, args.diag_blocks, args.batches_per_allreduce) == ("inverse", 4, 2)
+    # the loader (ROADMAP item 9a) and data-parallel (item 6a) flags, refused
+    # until they were ported
+    args = trainer.parse_args(["--num-workers", "7", "--distribute-precondition",
+                               "--distribute-layer-factors", "true",
+                               "--precond-comm-dtype", "bf16", "--grad-comm-dtype", "bf16"])
+    assert (args.num_workers, args.distribute_precondition, args.distribute_layer_factors,
+            args.precond_comm_dtype, args.grad_comm_dtype) == (7, True, True, "bf16", "bf16")
 
 
 def test_every_jax_wikitext_flag_parses_or_names_its_item():

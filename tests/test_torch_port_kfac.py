@@ -301,7 +301,19 @@ def test_kernel_kind_on_cpu_raises():
         ({"profile": "production"}, "9"),
     ],
 )
-def test_levers_of_later_slices_raise(kwargs, item):
+def test_levers_of_later_slices_raise(kwargs, item, capsys):
+    """Each lever raised naming its ROADMAP item until that item was ported.
+    Item 6a's are ported: ``mesh=`` (a JAX mesh) is refused in favour of
+    ``process_group=``, and ``distribute_precondition`` on one process
+    warns and runs replicated, as in the JAX package."""
+    if "mesh" in kwargs:
+        with pytest.raises(ValueError, match="process_group="):
+            KFAC(device="cpu", **kwargs)
+        return
+    if "distribute_precondition" in kwargs:
+        kfac = KFAC(device="cpu", **kwargs)
+        assert kfac.world.size == 1 and "has no effect" in capsys.readouterr().out
+        return
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         KFAC(device="cpu", **kwargs)
 
