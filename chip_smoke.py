@@ -17,8 +17,10 @@ head), ImageNet ResNeXt-50 32x4d K-FAC training with grouped-conv K-FAC
 and checkpoint import, through the numpy pipeline and the native threaded
 loader), each image path also in the bfloat16 modes
 (``--bf16 --eigen-dtype bf16``, slice 9), WikiText LSTM K-FAC training,
-and the data-parallel K-FAC (slice 11) at world 1 on NCCL and on two ranks
-of the one card. Kernels 1, 1g and 3 have two routes each, counted apart
+the data-parallel K-FAC (slice 11) at world 1 on NCCL and on two ranks
+of the one card, and the pipelined refresh and the truncated solvers
+(slice 12) on the ResNet, LM and WikiText paths and on two ranks.
+Kernels 1, 1g and 3 have two routes each, counted apart
 (``launches`` and ``launches_bf16``): 3xTF32 for float32 inputs, and a
 bf16 route for bfloat16 activations (1, 1g) or bfloat16 eigenvectors (3).
 Phases, in order (any failure raises: the script exits non-zero and prints
@@ -238,11 +240,42 @@ no result line):
        (measured) and at 16,384, 20,000 and 26,733, where the port's route
        (``ops/eigh.py``) is held to 1e-5 in reconstruction and
        orthogonality, in float64 on 256 random directions;
-21. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+21. the pipelined refresh and the truncated solvers (slice 12):
+    a. ResNet-32 through the CIFAR twin (phase 4's recipe): ``--eigh-chunks
+       1`` gives 30 losses bitwise equal to the run without it
+       (deterministic cuDNN); ``--eigh-chunks 5`` for 30 steps: a
+       monolithic bootstrap, then chunk steps with the swap on the 5th,
+       the loss finite and falling, kernels 1, 3 and 4 as implied, the
+       chunk step's median ms beside the capture and refresh steps'; on
+       the run's last factors, frozen, a chunked pass's swapped basis
+       within 1e-5 (reconstructions) of a monolithic refresh;
+    b. the LM twin at phases 7-10's widths with ``--solver rsvd`` (rank
+       128, sides from 512 truncated), 38 steps: kernels 2 and 4-7 as
+       implied and kernel 3 only on groups without a truncated side, the
+       first 5 losses within 1e-3 of ``--apply-kernel dense``, the refresh
+       step's median ms beside phase 8's and the spectrum mass; one
+       refresh step of each solver profiled (device time by group, idle);
+    c. WikiText-2's vocabulary (19b's corpus) with ``--solver rsvd``, 3
+       steps: the refresh step's ms and peak memory beside 19b's, the
+       truncated G basis of the 33,278-wide factor orthonormal within 1e-5
+       in float64 on 256 random directions, the spectrum mass, the capture
+       step's ms;
+    d. the WikiText LSTM (19a's recipe) with ``--solver streaming``, 30
+       steps: at most 3 re-orthonormalizations, the fold step's median ms
+       beside 19a's capture step's, the residual gauge at each boundary;
+       5 steps with ``--stream-drift-threshold 0 --kfac-update-freq 1``
+       bitwise equal to ``--solver rsvd`` (when two rsvd runs are);
+    e. two ranks on the one card (20c's setup), ResNet-32 with
+       ``--eigh-chunks 2 --solver rsvd --solver-auto-threshold 256``, 12
+       steps: kernels 1, 3 and 4 as implied per rank, the sharded
+       rank-aware refresh and a sharded chunked pass within 1e-5 of the
+       replicated refresh, the first 5 losses within 1e-3 of one process
+       on the concatenated batch;
+22. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3; kernel 1's ResNet-50 row, kernel 2's tied-path row,
-    kernel 3's WikiText rows and kernel 4's LSTM row beside the others, and
-    the two-rank launches of kernels 1, 3 and 4), then the last line
-    ``{"ok": true, "device": {...}}``.
+    kernel 3's WikiText rows and kernel 4's LSTM row beside the others, the
+    two-rank launches of kernels 1, 3 and 4, and every kernel's launches on
+    phase 21's paths), then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2726,29 +2759,38 @@ def _two_rank_batches(device, rank, steps, batch):
 
 
 def two_rank_worker(rank, store, out_path, steps, device_name, argv):
-    """One rank of phase 20c (``torch.multiprocessing`` target): ResNet-32
-    with ``--distribute-precondition`` on ``cuda:0``, gloo over CUDA tensors,
-    ``steps`` steps counted, then a refresh step and a capture step
-    profiled for the collectives' host time, then the sharded refresh and
-    the distributed apply held to the replicated ones on this rank's state.
-    Writes its results as JSON to ``out_path-<rank>.json``."""
+    """One rank of phases 20c and 21e (``torch.multiprocessing`` target):
+    ResNet-32 with ``argv`` on ``cuda:0``, gloo over CUDA tensors, ``steps``
+    steps through the refresh cadence, counted; then a refresh step and a
+    capture step profiled for the collectives' host time; then, on this
+    rank's state, the sharded refresh (rank-aware under a truncated solver)
+    and, with ``--eigh-chunks`` > 1, a sharded chunked pass held to the
+    replicated refresh through the factors they reconstruct, and the
+    distributed apply held to the replicated one. Writes its results as
+    JSON to ``out_path-<rank>.json``."""
     import torch
 
-    from kfac_pytorch_tpu_torch import capture
-    from kfac_pytorch_tpu_torch.models.layers import KFACConv
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence, capture
     from kfac_pytorch_tpu_torch.device import use_ieee_f32
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.models.layers import KFACConv
     from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
     from kfac_pytorch_tpu_torch.ops import precondition as pc
     from kfac_pytorch_tpu_torch.parallel import launch
-    from kfac_pytorch_tpu_torch.parallel.assignment import layer_assignment, precondition_assignment
+    from kfac_pytorch_tpu_torch.parallel.assignment import (
+        layer_assignment,
+        plan_eigh_chunks,
+        precondition_assignment,
+    )
     from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
     from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
+        build_slots,
         replicated_eigen_update,
+        sharded_eigen_chunk_update,
         sharded_eigen_update,
     )
-    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step, step_kind
 
     device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
                                rank=rank, world_size=2)
@@ -2759,13 +2801,15 @@ def two_rank_worker(rank, store, out_path, steps, device_name, argv):
         model, kfac, state, step_fn = trainer.build(args, device, world)
         batches = _two_rank_batches(device, rank, steps, args.batch_size)
         lr = args.base_lr * world.size
+        cadence = EigenRefreshCadence(kfac)
         counters = (fk.compute_a_conv_fused, ak.fused_precondition_stack, ak.fused_sgd_apply)
         zero_counts(counters)
-        losses = []
+        losses, kinds = [], []
         for i, batch in enumerate(batches):
-            state, m = step_fn(state, batch, lr, kfac.hparams.damping,
-                               **kfac_flags_for_step(i, kfac, 0))
+            flags = cadence.flags_for_step(i, 0)
+            state, m = step_fn(state, batch, lr, kfac.hparams.damping, **flags)
             losses.append(float(m["loss"]))
+            kinds.append(step_kind(flags))
         launches = read_counts(counters)
         # the collectives' host time on a refresh step and a capture step
         exchange = {}
@@ -2782,24 +2826,26 @@ def two_rank_worker(rank, store, out_path, steps, device_name, argv):
                 ops = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
                        if e.key.startswith("c10d::")}
             exchange[label] = {"ms": sum(ops.values()), "ops": ops}
-        # the sharded refresh against the replicated one, through the
+        # the sharded refreshes against the replicated one, through the
         # factors they reconstruct; the distributed apply (kernel 3 on the
-        # owned groups) against the replicated apply
+        # owned groups of dense entries) against the replicated apply
         facs = state.kfac_state["factors"]
-        names = list(facs)
+        names, rank_fn = list(facs), kfac._rank_fn()
         table = layer_assignment(names, {n: True for n in names}, world.size,
                                  kfac.distribute_layer_factors, 1)
-        sharded = sharded_eigen_update(facs, table, world)
-        replicated = replicated_eigen_update(facs, {n: 1 for n in names})
-        refresh_rel = 0.0
-        for n in names:
-            for side in ("A", "G"):
-                def recon(e):
-                    q, d = e[f"Q{side}"].double(), e[f"d{side}"].double()
-                    return (q * d) @ q.T
-                want = recon(replicated[n])
-                refresh_rel = max(refresh_rel, float((recon(sharded[n]) - want).abs().max()
-                                                     / want.abs().max()))
+        replicated = replicated_eigen_update(facs, {n: 1 for n in names}, rank_fn=rank_fn)
+        refresh_rel = max_recon_diff(sharded_eigen_update(facs, table, world, rank_fn=rank_fn),
+                                     replicated)
+        chunked_rel = None
+        if kfac.eigh_chunks > 1:
+            slots = build_slots(facs, table)
+            plan = plan_eigh_chunks(slots, kfac.eigh_chunks, rank_fn=rank_fn)
+            pending = {n: {k: torch.zeros_like(v) for k, v in e.items()}
+                       for n, e in replicated.items()}
+            for c in range(kfac.eigh_chunks):
+                pending = sharded_eigen_chunk_update(facs, pending, [slots[i] for i in plan[c]],
+                                                     world, rank_fn=rank_fn)
+            chunked_rel = max_recon_diff(pending, replicated)
         grads = {n: p.grad for n, p in model.named_parameters()}
         gmats = {n: g.float() for n, g in capture.grad_mats(
             capture.layer_grads(grads, names, set())).items()}
@@ -2812,20 +2858,27 @@ def two_rank_worker(rank, store, out_path, steps, device_name, argv):
                                               kind="auto")
         apply_rel = max(float((got[n] - want[n]).abs().max() / want[n].abs().max())
                         for n in names)
+        full = full_eigen(state.kfac_state)
         groups = pc.shape_groups({n: tuple(g.shape) for n, g in gmats.items()})
-        owned_groups = sum(any(owners[n] == rank for n in g) for g in groups.values())
+        dense = [g for g in groups.values() if not pc.entry_is_lowrank(full[g[0]])]
+        owned = sum(any(owners[n] == rank for n in g) for g in dense)
+        applied = owned if kfac.distribute_precondition else len(dense)
         result = {
             "rank": rank, "device": str(device), "backend": torch.distributed.get_backend(),
-            "losses": losses, "launches": launches,
+            "losses": losses, "kinds": kinds, "launches": launches,
             "expected_launches": {
                 "compute_a_conv_fused": steps * sum(isinstance(m, KFACConv)
                                                     for m in model.modules()),
-                "fused_precondition_stack": owned_groups * steps,
+                "fused_precondition_stack": applied * steps,
                 "fused_sgd_apply": steps,
             },
             "exchange_ms": exchange,
-            "refresh_recon_max_rel_diff": refresh_rel, "apply_max_rel_diff": apply_rel,
-            "owned_shape_groups": owned_groups, "shape_groups": len(groups),
+            "refresh_recon_max_rel_diff": refresh_rel,
+            "chunked_refresh_recon_max_rel_diff": chunked_rel,
+            "apply_max_rel_diff": apply_rel,
+            "truncated_sides": sum(k.startswith("rho") for e in full.values() for k in e),
+            "owned_shape_groups": owned, "dense_shape_groups": len(dense),
+            "shape_groups": len(groups),
         }
         with open(f"{out_path}-{rank}.json", "w") as fh:
             json.dump(result, fh)
@@ -2834,22 +2887,25 @@ def two_rank_worker(rank, store, out_path, steps, device_name, argv):
 
 
 def two_rank_phase(device, argv=TWO_RANK_ARGS):
-    """Phase 20c: two ranks on the one card (``torch.multiprocessing``
+    """Phases 20c and 21e: two ranks on the one card (``torch.multiprocessing``
     spawn, a file store, gloo over CUDA tensors: NCCL refuses two ranks on
-    one device), ResNet-32 with ``--distribute-precondition``: kernels 1, 3
-    (on each rank's owned shape groups) and 4 launch in each rank as the run
-    implies; the sharded refresh's factors within ``EIGH_TOL`` and the
-    distributed apply's updates within 1e-6 of the replicated ones (of the
-    largest entry); the first 5 losses within 1e-3 of one process running
-    the ranks' batches concatenated; the collectives' host milliseconds
-    per refresh step and per capture step from ``torch.profiler``."""
+    one device), ResNet-32 with ``argv`` (20c: ``--distribute-precondition``;
+    21e: ``--eigh-chunks 2 --solver rsvd --solver-auto-threshold 256``):
+    kernels 1, 3 (on each rank's owned groups of dense entries, or all of
+    them without ``--distribute-precondition``) and 4 launch in each rank as
+    the run implies; the sharded refresh (and chunked pass) within
+    ``EIGH_TOL`` and the distributed apply's updates within 1e-6 of the
+    replicated ones (of the largest entry); the first 5 losses within 1e-3
+    of one process running the ranks' batches concatenated; the
+    collectives' host milliseconds per refresh step and per capture step
+    from ``torch.profiler``."""
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
-    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 
     with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_ranks_") as tmp:
         ctx = mp.spawn(two_rank_worker, args=(f"{tmp}/store", f"{tmp}/rank", TWO_RANK_STEPS,
@@ -2870,9 +2926,10 @@ def two_rank_phase(device, argv=TWO_RANK_ARGS):
             if res["launches"][name] != n or n <= 0:
                 raise AssertionError(f"rank {res['rank']}: {name} launched "
                                      f"{res['launches'][name]} times, the run implies {n}")
-        if not res["refresh_recon_max_rel_diff"] <= EIGH_TOL:
-            raise AssertionError(f"rank {res['rank']}: sharded refresh {res['refresh_recon_max_rel_diff']:.2e} "
-                                 f"from the replicated one (tolerance {EIGH_TOL})")
+        for key in ("refresh_recon_max_rel_diff", "chunked_refresh_recon_max_rel_diff"):
+            if res[key] is not None and not res[key] <= EIGH_TOL:
+                raise AssertionError(f"rank {res['rank']}: {key} {res[key]:.2e} from the "
+                                     f"replicated refresh (tolerance {EIGH_TOL})")
         if not res["apply_max_rel_diff"] <= 1e-6:
             raise AssertionError(f"rank {res['rank']}: distributed apply {res['apply_max_rel_diff']:.2e} "
                                  "from the replicated one (tolerance 1e-6)")
@@ -2883,23 +2940,28 @@ def two_rank_phase(device, argv=TWO_RANK_ARGS):
     parts = [_two_rank_batches(device, r, ORACLE_STEPS, args.batch_size) for r in range(2)]
     args.batch_size *= 2
     _, kfac, state, step_fn = trainer.build(args, device)
-    one = []
+    cadence, one = EigenRefreshCadence(kfac), []
     for i in range(ORACLE_STEPS):
         batch = tuple(torch.cat([parts[0][i][j], parts[1][i][j]]) for j in range(2))
         state, m = step_fn(state, batch, args.base_lr * 2, kfac.hparams.damping,
-                           **kfac_flags_for_step(i, kfac, 0))
+                           **cadence.flags_for_step(i, 0))
         one.append(float(m["loss"]))
     del state, step_fn, kfac
     if device.type == "cuda":
         torch.cuda.empty_cache()
     worst = gate_oracle(ranks[0]["losses"], one, "two ranks vs one process", range(ORACLE_STEPS))
-    print(f"two ranks on one card (gloo over CUDA tensors): kernels 1, 3 and 4 launched in "
-          f"each rank as implied, the first {ORACLE_STEPS} losses within {worst:.2e} of one "
-          f"process on the concatenated batch; collectives {ranks[0]['exchange_ms']['refresh']['ms']:.1f} "
-          f"ms per refresh step, {ranks[0]['exchange_ms']['capture']['ms']:.1f} ms per capture "
-          f"step (rank 0's host time)", flush=True)
+    chunked = ranks[0]["chunked_refresh_recon_max_rel_diff"]
+    print(f"two ranks on one card ({' '.join(argv[len(RESNET_ARGS):])}; gloo over CUDA "
+          f"tensors): kernels 1, 3 and 4 launched in each rank as implied; the sharded refresh "
+          f"{ranks[0]['refresh_recon_max_rel_diff']:.2e}"
+          + (f" and a chunked pass {chunked:.2e}" if chunked is not None else "")
+          + f" from the replicated one; the first {ORACLE_STEPS} losses within {worst:.2e} of "
+          f"one process on the concatenated batch; collectives "
+          f"{ranks[0]['exchange_ms']['refresh']['ms']:.1f} ms per refresh step, "
+          f"{ranks[0]['exchange_ms']['capture']['ms']:.1f} ms per capture step (rank 0's host "
+          "time)", flush=True)
     return {"ranks": ranks, "one_process_losses": one, "max_rel_diff_vs_one_process": worst,
-            "steps": TWO_RANK_STEPS}
+            "steps": TWO_RANK_STEPS, "argv": list(argv)}
 
 
 def ema_like_factor(n, device, seed):
@@ -2973,6 +3035,320 @@ def syevd_watch_phase(device, widths=SYEVD_WATCH_N, scan=SYEVD_SCAN_N):
                                  f"({row['port_route']}): reconstruction {port[0]:.2e}, "
                                  f"orthogonality {port[1]:.2e} (tolerance {EIGH_TOL})")
     return out
+
+
+# Phases 21a-e (slice 12): the pipelined refresh and the truncated solvers
+# through the twins. ResNet-32 with --eigh-chunks (21a: phase 4's recipe,
+# kfac-update-freq 10, 5 chunks); the LM (21b) and WikiText-2's vocabulary
+# (21c) with --solver rsvd at the JAX trainers' defaults (rank 128, sides
+# from 512 truncated); the WikiText LSTM with --solver streaming (21d); two
+# ranks on the one card with --eigh-chunks 2 --solver rsvd (21e).
+REFRESH_CHUNKS = 5
+SOLVER_RSVD = ["--solver", "rsvd"]
+# 21e: ResNet-32's 288- and 576-wide A sides truncated, the rest dense
+TWO_RANK_SOLVER_ARGS = [*RESNET_ARGS, "--eigh-chunks", "2", "--solver", "rsvd",
+                        "--solver-auto-threshold", "256"]
+# 21d: the degenerate streaming schedule held to periodic rsvd
+STREAM_EXACT_STEPS = 5
+# 21c: steps at WikiText-2's vocabulary, refreshes at 0 (the first call's
+# set-up included, as 19b's) and 10 (warm)
+WIKITEXT2_RSVD_STEPS = 11
+
+
+def kind_medians(hist):
+    """Median step ms by step kind, step 0 left out (first-call set-up)."""
+    by = {}
+    for ms, kind in zip(hist["step_ms"][1:], hist["kind"][1:]):
+        by.setdefault(kind, []).append(ms)
+    return {k: statistics.median(v) for k, v in by.items()}
+
+
+def apply_groups(kfac_state):
+    """The shape groups kernel 3 takes in a K-FAC state: the stacks and the
+    single layers with a full eigenbasis on both sides (a truncated side
+    takes its Woodbury solve, an embedding its diagonal one)."""
+    from kfac_pytorch_tpu_torch.ops.precondition import entry_is_lowrank
+
+    singles = sum("QA" in e and not entry_is_lowrank(e) for e in kfac_state["eigen"].values())
+    return singles + sum(not entry_is_lowrank(e) for e in kfac_state["eigen_stacked"].values())
+
+
+def full_eigen(kfac_state):
+    """Per-layer eigen entries of a state: its singles, and its stacks'
+    rows (a stack's rows are its shape's layers in the factors' order)."""
+    out = {n: dict(e) for n, e in kfac_state["eigen"].items()}
+    facs = kfac_state["factors"]
+    for key, group in kfac_state["eigen_stacked"].items():
+        rows = [n for n in facs if n not in out and "A" in facs[n]
+                and f"{facs[n]['G'].shape[0]}x{facs[n]['A'].shape[0]}" == key]
+        for row, n in enumerate(rows):
+            out[n] = {k: v[row] for k, v in group.items()}
+    return out
+
+
+def max_recon_diff(got, want):
+    """The largest difference of the factors two eigen dicts reconstruct,
+    ``Q diag(d) Qᵀ`` plus ``rho (I − Q Qᵀ)`` for a truncated side, over the
+    largest entry, per side, in float64."""
+    import torch
+
+    def recon(e, side):
+        q = e[f"Q{side}"].double()
+        f = (q * e[f"d{side}"].double()) @ q.T
+        if f"rho{side}" in e:
+            f += float(e[f"rho{side}"]) * (torch.eye(q.shape[0], dtype=f.dtype, device=f.device)
+                                           - q @ q.T)
+        return f
+
+    worst = 0.0
+    for n, e in want.items():
+        for side in ("A", "G"):
+            if f"Q{side}" in e:
+                w = recon(e, side)
+                worst = max(worst, float((recon(got[n], side) - w).abs().max() / w.abs().max()))
+    return worst
+
+
+def chunks_phase(device, counters, eigen_stats):
+    """Phase 21a: ResNet-32 through the CIFAR twin with the pipelined
+    refresh. ``--eigh-chunks 1`` gives 30 losses bitwise equal to the run
+    without the flag (deterministic cuDNN, both in this call); ``--eigh-chunks
+    5`` for 30 steps: a monolithic bootstrap, then chunk steps with the swap
+    on the 5th, the loss finite and falling, kernels 1, 3 and 4 as implied;
+    on the run's last factors, frozen, a full chunked pass's swapped basis
+    reconstructs the factors of a monolithic refresh within ``EIGH_TOL``.
+    The chunk step's median ms beside the capture step's and phase 4's
+    refresh step's."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.parallel.sharded_eigh import replicated_eigen_update
+
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain = train([])
+        one = train(["--eigh-chunks", "1"])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    if one["loss"] != plain["loss"] or one["kind"] != plain["kind"]:
+        raise AssertionError(f"--eigh-chunks 1: losses {one['loss']} differ from the plain "
+                             f"run's {plain['loss']}")
+    kept = {}
+    _kept_build(trainer, kept)
+    try:
+        hist, launches = counted(lambda: train(["--eigh-chunks", str(REFRESH_CHUNKS)]), counters)
+    finally:
+        trainer.build = kept["build"]
+    interval = ["chunk"] * (REFRESH_CHUNKS - 1) + ["chunk-swap"] + ["capture"] * (10 - REFRESH_CHUNKS)
+    want = ["refresh"] + ["capture"] * 9 + interval * ((STEPS - 10) // 10)
+    if hist["kind"] != want:
+        raise AssertionError(f"--eigh-chunks {REFRESH_CHUNKS}: step kinds {hist['kind']}, want {want}")
+    first, last = gate_falling(hist["loss"], f"ResNet-32 --eigh-chunks {REFRESH_CHUNKS}")
+    gate_launches(launches, cifar_expected_launches(hist, device),
+                  f"ResNet-32 --eigh-chunks {REFRESH_CHUNKS}")
+    # the swapped basis of frozen factors against a monolithic refresh
+    kfac, model = kept["kfac"], kept["model"]
+    ks = kept["state"].kfac_state
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for c in range(REFRESH_CHUNKS):
+        _, ks = kfac.update(grads, ks, lr=0.1, update_factors=False, update_eigen=False,
+                            eigen_chunk=(c, REFRESH_CHUNKS), swap_eigen=c == REFRESH_CHUNKS - 1)
+    mono = replicated_eigen_update(ks["factors"], {n: 1 for n in ks["factors"]})
+    swap_rel = max_recon_diff(full_eigen(ks), mono)
+    if not swap_rel <= EIGH_TOL:
+        raise AssertionError(f"the chunked refresh's swapped basis {swap_rel:.2e} from a "
+                             f"monolithic refresh of the same factors (tolerance {EIGH_TOL})")
+    med = kind_medians(hist)
+    del kept, ks, grads
+    print(f"--eigh-chunks {REFRESH_CHUNKS}: chunk step {med['chunk']:.2f} ms (median; with the "
+          f"swap {med['chunk-swap']:.2f}) against capture {med['capture']:.2f} and phase 4's "
+          f"refresh {eigen_stats['refresh_ms_median']:.2f}; the swapped basis within "
+          f"{swap_rel:.2e} of a monolithic refresh; --eigh-chunks 1 bitwise", flush=True)
+    return {"chunks": REFRESH_CHUNKS, "steps": STEPS, "kinds": hist["kind"],
+            "loss_first5": first, "loss_last5": last, "one_chunk_losses_bitwise": True,
+            "chunk_step_ms_median": med["chunk"], "swap_step_ms_median": med["chunk-swap"],
+            "capture_step_ms_median": med["capture"],
+            "phase4_refresh_step_ms_median": eigen_stats["refresh_ms_median"],
+            "phase4_capture_step_ms_median": eigen_stats["capture_ms_median"],
+            "swap_vs_monolithic_recon_max_rel_diff": swap_rel, "tolerance": EIGH_TOL,
+            "launches": launches}
+
+
+def lm_rsvd_phase(device, counters, eigh_stats):
+    """Phase 21b: the LM twin at the LM path's widths with ``--solver rsvd``
+    (38 steps): the loss finite and falling, kernels 2 and 4-7 as implied
+    and kernel 3 on the groups without a truncated side only; the first 5
+    losses within 1e-3 of the same flags with ``--apply-kernel dense``; the
+    refresh step's median ms beside phase 8's (eigh) and the spectrum mass
+    the truncated bases captured; then one refresh step of each solver
+    (step 10) profiled: device time by kernel group and the idle share."""
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    args = trainer.parse_args([*LM_ARGS, *SOLVER_RSVD])
+    model, _, state = trainer.build(args, device)[:3]
+    groups = apply_groups(state.kfac_state)
+    truncated = sum(k.startswith("rho") for e in full_eigen(state.kfac_state).values() for k in e)
+    del state
+    hist, launches = counted(lambda: train_lm(["--epochs", str(LM_EPOCHS), *SOLVER_RSVD]), counters)
+    first, last = gate_falling(hist["loss"], "LM --solver rsvd")
+    names = {"token_count": "compute_a_embed_fused", "fused_apply": "fused_precondition_stack",
+             "fused_sgd": "fused_sgd_apply", "flash_forward": "flash_forward",
+             "flash_dq": "flash_backward_dq", "flash_dkv": "flash_backward_dkv"}
+    want = {names[k]: n for k, n in lm_expected_launches(hist, model).items()}
+    want["fused_precondition_stack"] = groups * len(hist["loss"])
+    gate_launches(launches, want, "LM --solver rsvd")
+    del model
+    dense = train_lm(["--epochs", "1", "--steps-per-epoch", str(ORACLE_STEPS), *SOLVER_RSVD,
+                      "--apply-kernel", "dense"])
+    worst = gate_oracle(hist["loss"], dense["loss"], "LM --solver rsvd", range(ORACLE_STEPS))
+    med = kind_medians(hist)
+    mass = hist["kfac_spectrum_mass"][-1]
+    profile = profile_path(lm_setup, device, [((), [("eigh_refresh", 10, 11)]),
+                                              (tuple(SOLVER_RSVD), [("rsvd_refresh", 10, 11)])])
+    for label, p in profile.items():
+        print(f"LM {label} step profiled: wall {p['wall_ms_per_step']:.1f} ms, device busy "
+              f"{p['device_busy_ms_per_step']:.1f} (idle {p['device_idle_share']:.0%}); by group "
+              f"{json.dumps({g: round(v, 2) for g, v in p['by_group_ms_per_step'].items()})}",
+              flush=True)
+    print(f"LM --solver rsvd: refresh step {med['refresh']:.2f} ms (median) against phase 8's "
+          f"eigh {eigh_stats['refresh_ms_median']:.2f}; capture {med['capture']:.2f}; "
+          f"spectrum mass {mass:.4f}; {truncated} truncated sides, kernel 3 on {groups} "
+          f"groups", flush=True)
+    return {"steps": len(hist["loss"]), "loss_first5": first, "loss_last5": last,
+            "refresh_step_ms_median": med["refresh"], "capture_step_ms_median": med["capture"],
+            "phase8_refresh_step_ms_median": eigh_stats["refresh_ms_median"],
+            "phase8_capture_step_ms_median": eigh_stats["capture_ms_median"],
+            "spectrum_mass": hist["kfac_spectrum_mass"], "truncated_sides": truncated,
+            "apply_kernel_groups": groups, "dense_apply_max_rel_diff": worst,
+            "refresh_profiles": profile, "launches": launches, "expected_launches": want}
+
+
+def wide_rsvd_phase(device, counters, wide_eigh):
+    """Phase 21c: WikiText-2's vocabulary (19b's corpus, written again)
+    with ``--solver rsvd`` for ``WIKITEXT2_RSVD_STEPS`` steps: the refresh
+    steps' ms (step 0 as 19b's, and step 10 warm) and the peak memory
+    beside 19b's eigh (same call); the truncated G basis of the
+    33,278-wide factor orthonormal within ``EIGH_TOL`` in float64 on 256
+    random directions, its Rayleigh quotients ``Qᵀ G Q`` against ``d``
+    reported; the spectrum mass; the capture step's ms; counters as
+    implied (kernel 3 on no group: both decoder sides truncated)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_wt2_rsvd_") as tmp:
+        root = write_wikitext(os.path.join(tmp, "wt2"), WIKITEXT2_VOCAB, 60_000, 8_000, 2_000)
+        argv = ["--data-dir", root, *[a for a in WIKITEXT_ARGS if a != "--synthetic"],
+                "--steps-per-epoch", str(WIKITEXT2_RSVD_STEPS), *SOLVER_RSVD]
+        kept = {}
+        _kept_build(trainer, kept)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            wide, launches = counted(lambda: trainer.main(argv), counters)
+        finally:
+            trainer.build = kept["build"]
+        peak = torch.cuda.max_memory_allocated(device)
+    if not all(math.isfinite(v) for v in wide["loss"] + wide["val_loss"]):
+        raise AssertionError(f"WikiText-2 vocabulary, --solver rsvd: losses {wide['loss']}")
+    gate_launches(launches, wikitext_expected(wide, apply_groups(kept["state"].kfac_state)),
+                  "WikiText-2 vocabulary --solver rsvd")
+    first = kept["first_state"].kfac_state
+    e, g = first["eigen"]["decoder"], first["factors"]["decoder"]["G"]
+    if e["QG"].shape != (WIKITEXT2_VOCAB, 128) or "rhoG" not in e:
+        raise AssertionError(f"the decoder's G side was not truncated: QG {tuple(e['QG'].shape)}")
+    _, orth = decomposition_errors(g, e["QG"], e["dG"], device)
+    if not orth <= EIGH_TOL:
+        raise AssertionError(f"the truncated G basis of the {WIKITEXT2_VOCAB}-wide factor: "
+                             f"orthogonality {orth:.2e} (tolerance {EIGH_TOL})")
+    gq = torch.cat([g[lo:lo + 4096].double() @ e["QG"].double()
+                    for lo in range(0, g.shape[0], 4096)])
+    ritz = float((e["QG"].double().T @ gq - torch.diag(e["dG"].double())).abs().max()
+                 / e["dG"].double().abs().max())
+    del kept, first, e, g, gq
+    torch.cuda.empty_cache()
+    mass = wide["kfac_spectrum_mass"][-1]
+    capture = statistics.median(wide["step_ms"][1:10])
+    print(f"WikiText-2 vocabulary --solver rsvd: refresh steps {wide['step_ms'][0]:.1f} ms (step "
+          f"0; 19b's eigh: {wide_eigh['refresh_step_ms']:.1f}) and {wide['step_ms'][10]:.1f} "
+          f"(step 10), capture step {capture:.1f} (median), "
+          f"peak {peak / 1e9:.2f} GB (19b: {wide_eigh['peak_memory_gb']:.2f}); G basis "
+          f"orthogonality {orth:.2e}, Rayleigh quotients within {ritz:.2e} of d; spectrum "
+          f"mass {mass:.4f}", flush=True)
+    return {"vocab": WIKITEXT2_VOCAB, "losses": wide["loss"], "val_loss": wide["val_loss"][0],
+            "refresh_step_ms": wide["step_ms"][0], "warm_refresh_step_ms": wide["step_ms"][10],
+            "capture_step_ms_median": capture, "step_ms": wide["step_ms"],
+            "peak_memory_gb": peak / 1e9, "eigh_refresh_step_ms": wide_eigh["refresh_step_ms"],
+            "eigh_capture_step_ms": wide_eigh["capture_step_ms"],
+            "eigh_peak_memory_gb": wide_eigh["peak_memory_gb"],
+            "g_basis_orthogonality": orth, "g_ritz_max_rel_diff": ritz, "tolerance": EIGH_TOL,
+            "directions": 256, "spectrum_mass": mass, "kinds": wide["kind"], "launches": launches}
+
+
+def streaming_phase(device, counters, lstm):
+    """Phase 21d: the WikiText LSTM (19a's recipe) with ``--solver
+    streaming`` for 30 steps: at most ``ceil(30/10)`` re-orthonormalizations,
+    the loss finite and falling, counters as implied; the fold (capture)
+    step's median ms beside 19a's capture step's; the residual gauge at
+    each boundary. Then ``STREAM_EXACT_STEPS`` steps with
+    ``--stream-drift-threshold 0 --kfac-update-freq 1`` against ``--solver
+    rsvd`` (deterministic cuDNN): bitwise equal when two rsvd runs are."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+
+    args = trainer.parse_args([*WIKITEXT_ARGS, "--solver", "streaming"])
+    _, vocab = trainer.load_corpus(args)
+    groups = apply_groups(trainer.build(args, len(vocab), device)[2].kfac_state)
+    hist, launches = counted(lambda: train_wikitext(
+        ["--steps-per-epoch", str(WIKITEXT_STEPS), "--solver", "streaming"]), counters)
+    first, last = gate_falling(hist["loss"], "WikiText LSTM --solver streaming")
+    gate_launches(launches, wikitext_expected(hist, groups), "WikiText LSTM --solver streaming")
+    reorth = hist["kind"].count("refresh")
+    bound = math.ceil(WIKITEXT_STEPS / 10)
+    if not 1 <= reorth <= bound:
+        raise AssertionError(f"streaming: {reorth} re-orthonormalizations in {WIKITEXT_STEPS} "
+                             f"steps, at most {bound}")
+    residual = hist["kfac_stream_residual"]
+    boundaries = [s for s in range(0, WIKITEXT_STEPS, 10)]
+    at_boundary = [{"step": s, "read": residual[s - 1] if s else None, "after": residual[s],
+                    "reorth": hist["kind"][s] == "refresh"} for s in boundaries]
+    med = kind_medians(hist)
+    exact = ["--steps-per-epoch", str(STREAM_EXACT_STEPS), "--kfac-update-freq", "1"]
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        strm = train_wikitext([*exact, "--solver", "streaming", "--stream-drift-threshold", "0"])
+        rsvd = train_wikitext([*exact, *SOLVER_RSVD])
+        rsvd_again = train_wikitext([*exact, *SOLVER_RSVD])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    if strm["kind"] != ["refresh"] * STREAM_EXACT_STEPS:
+        raise AssertionError(f"streaming at threshold 0: step kinds {strm['kind']}")
+    repeatable = rsvd["loss"] == rsvd_again["loss"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(strm["loss"], rsvd["loss"]))
+    if repeatable and strm["loss"] != rsvd["loss"]:
+        raise AssertionError(f"streaming at threshold 0 {strm['loss']} not bitwise --solver "
+                             f"rsvd's {rsvd['loss']}, which repeats bitwise")
+    if not repeatable and not rel <= RESUME_RTOL:
+        raise AssertionError(f"streaming at threshold 0: {rel:.2e} from --solver rsvd")
+    print(f"LSTM --solver streaming: {reorth} re-orthonormalizations in {WIKITEXT_STEPS} steps, "
+          f"fold step {med['capture']:.2f} ms (median) against 19a's capture step "
+          f"{lstm['capture_step_ms_median']:.2f}; residual read at the boundaries "
+          f"{[b['read'] for b in at_boundary]}; threshold 0 at freq 1 "
+          f"{'bitwise' if rel == 0 else f'{rel:.2e} from'} --solver rsvd", flush=True)
+    return {"steps": WIKITEXT_STEPS, "loss_first5": first, "loss_last5": last,
+            "reorth": reorth, "reorth_bound": bound, "kinds": hist["kind"],
+            "fold_step_ms_median": med["capture"], "reorth_step_ms_median": med.get("refresh"),
+            "phase19a_capture_step_ms_median": lstm["capture_step_ms_median"],
+            "phase19a_refresh_step_ms_median": lstm["refresh_step_ms_median"],
+            "residual_at_boundaries": at_boundary, "residual": residual,
+            "exact_steps": STREAM_EXACT_STEPS, "rsvd_repeats_bitwise": repeatable,
+            "streaming_vs_rsvd_max_rel_diff": rel, "launches": launches}
 
 
 def ptxas_report():
@@ -3394,12 +3770,60 @@ def main() -> int:
     print(json.dumps({"syevd_watch": syevd}), flush=True)
     conv_a["resnet32_two_ranks"] = {"launches_per_rank": [
         r["launches"]["compute_a_conv_fused"] for r in two_ranks["ranks"]]}
+
+    # 21a-e. this slice: the pipelined refresh on ResNet-32, the truncated
+    # solvers on the LM, at WikiText-2's vocabulary and (streaming) on the
+    # LSTM, and both across two ranks of the one card; each path with the
+    # counters zeroed just before
+    mark("21a. ResNet-32 --eigh-chunks")
+    chunks = chunks_phase(device, all_counted, kfac_stats)
+    print(json.dumps({"eigh_chunks": chunks}), flush=True)
+    mark("21b. LM --solver rsvd")
+    lm_rsvd = lm_rsvd_phase(device, all_counted, lm_stats)
+    print(json.dumps({"lm_rsvd": lm_rsvd}), flush=True)
+    mark("21c. WikiText-2 vocabulary --solver rsvd")
+    wide_rsvd = wide_rsvd_phase(device, all_counted, wikitext["wikitext2"])
+    print(json.dumps({"wikitext2_rsvd": wide_rsvd}), flush=True)
+    mark("21d. WikiText LSTM --solver streaming")
+    streaming = streaming_phase(device, all_counted, wikitext["lstm"])
+    print(json.dumps({"lstm_streaming": streaming}), flush=True)
+    mark("21e. two ranks, --eigh-chunks 2 --solver rsvd")
+    two_solver = two_rank_phase(device, TWO_RANK_SOLVER_ARGS)
+    print(json.dumps({"two_ranks_chunks_rsvd": two_solver}), flush=True)
+    for res in two_solver["ranks"]:
+        if "chunk-swap" not in res["kinds"] or not res["truncated_sides"]:
+            raise AssertionError(f"21e, rank {res['rank']}: step kinds {res['kinds']}, "
+                                 f"{res['truncated_sides']} truncated sides")
+    # kernel 3's launches on the truncated and chunked paths, beside its rows
+    lm_apply["launches_on_slice12_paths"] = {
+        "resnet32_eigh_chunks5": chunks["launches"]["fused_precondition_stack"],
+        "lm_rsvd": lm_rsvd["launches"]["fused_precondition_stack"],
+        "wikitext2_rsvd": wide_rsvd["launches"]["fused_precondition_stack"],
+        "wikitext_lstm_streaming": streaming["launches"]["fused_precondition_stack"],
+        "resnet32_two_ranks_chunks_rsvd": [r["launches"]["fused_precondition_stack"]
+                                           for r in two_solver["ranks"]],
+    }
+    conv_a["launches_on_slice12_paths"] = {
+        "resnet32_eigh_chunks5": chunks["launches"]["compute_a_conv_fused"],
+        "resnet32_two_ranks_chunks_rsvd": [r["launches"]["compute_a_conv_fused"]
+                                           for r in two_solver["ranks"]],
+    }
+    lm_sgd["launches_on_slice12_paths"] = {
+        "resnet32_eigh_chunks5": chunks["launches"]["fused_sgd_apply"],
+        "lm_rsvd": lm_rsvd["launches"]["fused_sgd_apply"],
+        "wikitext2_rsvd": wide_rsvd["launches"]["fused_sgd_apply"],
+        "wikitext_lstm_streaming": streaming["launches"]["fused_sgd_apply"],
+    }
+    token_count["launches_on_slice12_paths"] = {
+        "lm_rsvd": lm_rsvd["launches"]["compute_a_embed_fused"]}
+    for k, fn in zip(flash, ("flash_forward", "flash_backward_dq", "flash_backward_dkv")):
+        k["launches_on_slice12_paths"] = {"lm_rsvd": lm_rsvd["launches"][fn]}
     lm_apply["resnet32_two_ranks"] = {"launches_per_rank": [
         r["launches"]["fused_precondition_stack"] for r in two_ranks["ranks"]]}
     lm_sgd["resnet32_two_ranks"] = {"launches_per_rank": [
         r["launches"]["fused_sgd_apply"] for r in two_ranks["ranks"]]}
 
-    # 21. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 22. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

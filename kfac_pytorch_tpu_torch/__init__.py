@@ -13,6 +13,6 @@ first use (``ops/kernel_build.py``).
 """
 
 from kfac_pytorch_tpu_torch.preconditioner import KFAC, KFACHParams
-from kfac_pytorch_tpu_torch.scheduler import KFACParamScheduler
+from kfac_pytorch_tpu_torch.scheduler import EigenRefreshCadence, KFACParamScheduler
 
-__all__ = ["KFAC", "KFACHParams", "KFACParamScheduler"]
+__all__ = ["EigenRefreshCadence", "KFAC", "KFACHParams", "KFACParamScheduler"]

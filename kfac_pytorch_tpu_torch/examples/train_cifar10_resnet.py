@@ -13,7 +13,11 @@ each epoch and resumes from the newest one; ``--log-dir`` writes
 trainer). ``--bf16`` computes the convs and BatchNorm in bfloat16 (float32
 master weights, K-FAC state and loss), ``--eigen-dtype bf16`` stores the
 eigenvectors in bfloat16, ``--precond-precision`` sets the dense
-rotations' matmul precision. The training batches come from the native
+rotations' matmul precision. Every step's K-FAC flags come from
+``scheduler.EigenRefreshCadence``: ``--eigh-chunks`` pipelines the
+refresh (``--staleness-budget`` lets its swap slip), ``--solver rsvd`` or
+``streaming`` (``--solver-rank``, ``--solver-auto-threshold``,
+``--stream-drift-threshold``) truncates the wide factor sides. The training batches come from the native
 threaded loader (``runtime/loader.py``, ``--num-workers`` threads, 4 by
 default, as in the JAX trainer) or, with ``--num-workers 0``, from the
 numpy pipeline. Every other flag of the JAX trainer is accepted with its
@@ -42,8 +46,9 @@ weights (``interop.init_from_torch_checkpoint``).
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent. ``main()`` returns the history: per step the loss,
-the step kind, the wall milliseconds around a synchronized step and, with
-``--kfac-diagnostics``, each ``kfac_*`` diagnostic; per epoch the
+the step kind (``training.step.step_kind``), the wall milliseconds around
+a synchronized step and each ``kfac_*`` metric (the diagnostics with
+``--kfac-diagnostics``, the truncated solvers' gauges); per epoch the
 validation loss, accuracy and sample count, the milliseconds of the
 full-split evaluation (after any BatchNorm recalibration) and of the
 checkpoint save; the restore milliseconds of a resume.
@@ -58,7 +63,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, interop
+from kfac_pytorch_tpu_torch import EigenRefreshCadence, KFAC, KFACParamScheduler, capture, interop
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.models import cifar_resnet
 from kfac_pytorch_tpu_torch.parallel import launch
@@ -71,11 +76,11 @@ from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.schedules import create_lr_schedule
 from kfac_pytorch_tpu_torch.training.step import (
     TrainState,
-    kfac_flags_for_step,
     make_bn_recal_step,
     make_masked_eval_step,
     make_sgd,
     make_train_step,
+    step_kind,
 )
 
 NUM_CLASSES = 10
@@ -98,16 +103,10 @@ _LATER_FLAGS = (
     ("--snapshot-every", int, 0, "9 (elastic/)"),
     ("--factor-comm-dtype", str, "f32", "6 (6b, factor comm plane)"),
     ("--factor-comm-freq", int, 1, "6 (6b, factor comm plane)"),
-    ("--factor-sharding", str, "replicated", "7 (owner-sharded factors)"),
-    ("--eigh-chunks", int, 1, "7 (pipelined refresh)"),
+    ("--factor-sharding", str, "replicated", "7 (7b, owner-sharded factors)"),
     ("--profile-epoch", int, None, "9 (training/profiling.py)"),
     ("--telemetry-dir", str, None, "9 (observability/)"),
-    ("--solver", str, "eigh", "7 (solvers)"),
-    ("--solver-rank", int, 128, "7 (solvers)"),
-    ("--solver-auto-threshold", int, 512, "7 (solvers)"),
-    ("--stream-drift-threshold", float, 0.05, "7 (solvers)"),
-    ("--comm-overlap", None, False, "7 (overlap plane)"),
-    ("--staleness-budget", int, 0, "7 (refresh scheduling)"),
+    ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--autotune-steps", int, 0, "9 (planner/)"),
@@ -148,6 +147,64 @@ def precision_kwargs(args) -> Dict[str, object]:
         "eigen_dtype": torch.bfloat16 if args.eigen_dtype == "bf16" else torch.float32,
         "precond_precision": args.precond_precision,
     }
+
+
+def add_refresh_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX trainers' refresh-scheduling and solver flags:
+    ``--eigh-chunks``, ``--solver``, ``--solver-rank``,
+    ``--solver-auto-threshold``, ``--stream-drift-threshold`` and
+    ``--staleness-budget``."""
+    p.add_argument("--eigh-chunks", type=int, default=1,
+                   help="pipeline the eigen refresh over this many steps "
+                        "after each --kfac-update-freq boundary (double-"
+                        "buffered basis, swapped when all chunks land); 1 = "
+                        "monolithic refresh, bit-exact")
+    p.add_argument("--solver", default="eigh",
+                   choices=["eigh", "rsvd", "streaming"],
+                   help="curvature eigensolver: eigh = full (dense) "
+                        "eigendecomposition, rsvd = randomized truncated "
+                        "eigensolve + low-rank Woodbury apply for factor "
+                        "sides >= --solver-auto-threshold, streaming = rsvd "
+                        "layout with per-step matmul-only folds and "
+                        "drift-gated re-orthonormalization")
+    p.add_argument("--solver-rank", type=int, default=128,
+                   help="eigenpairs kept per truncated factor side "
+                        "(--solver rsvd); watch kfac_spectrum_mass to size it")
+    p.add_argument("--solver-auto-threshold", type=int, default=512,
+                   help="factor sides at least this large use the truncated "
+                        "solver; smaller sides stay dense (--solver rsvd)")
+    p.add_argument("--stream-drift-threshold", type=float, default=0.05,
+                   help="--solver streaming: re-orthonormalize at a refresh "
+                        "boundary only when the residual-mass drift gauge "
+                        "(kfac_stream_residual) exceeds this; 0 = re-orth "
+                        "every boundary, exactly periodic rsvd")
+    p.add_argument("--staleness-budget", type=int, default=0,
+                   help="let a completed pending eigen swap slip up to this "
+                        "many steps under measured comm/compute pressure "
+                        "(needs --eigh-chunks > 1; 0 = never slip)")
+
+
+def refresh_kwargs(args) -> Dict[str, object]:
+    """``KFAC`` keyword arguments of :func:`add_refresh_flags`' flags."""
+    return {
+        "eigh_chunks": args.eigh_chunks,
+        "solver": args.solver,
+        "solver_rank": args.solver_rank,
+        "solver_auto_threshold": args.solver_auto_threshold,
+        "stream_drift_threshold": args.stream_drift_threshold,
+        "staleness_budget": args.staleness_budget,
+    }
+
+
+def refresh_cadence(kfac, live_state) -> EigenRefreshCadence:
+    """The refresh cadence the twins drive every step through (at
+    ``--eigh-chunks 1`` its flags are ``kfac_flags_for_step``'s). Under
+    ``--solver streaming`` the drift signal reads ``live_state()``'s
+    ``stream_residual``: one host read per ``--kfac-update-freq``
+    boundary, as in the JAX trainers."""
+    if kfac is not None and kfac.solver == "streaming":
+        kfac.stream_drift_signal = lambda: float(live_state().kfac_state["stream_residual"])
+    return EigenRefreshCadence(kfac)
 
 
 def add_parallel_flags(p: argparse.ArgumentParser) -> None:
@@ -244,6 +301,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
     add_precision_flags(p)
+    add_refresh_flags(p)
     add_parallel_flags(p)
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch K-FAC stability diagnostics (nu, "
@@ -302,6 +360,7 @@ def build(args, device: torch.device, world: World = World()):
             precond_method=args.precond_method,
             track_diagnostics=args.kfac_diagnostics,
             **precision_kwargs(args),
+            **refresh_kwargs(args),
             **parallel_kwargs(args),
             factor_kernel=args.factor_kernel,
             apply_kernel=args.apply_kernel,
@@ -440,6 +499,7 @@ def main(argv=None) -> Dict[str, List]:
     writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
 
     step = state.step
+    cadence = refresh_cadence(kfac, lambda: state)
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
@@ -462,7 +522,7 @@ def main(argv=None) -> Dict[str, List]:
             if i >= steps_per_epoch:
                 break
             lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
-            flags = kfac_flags_for_step(step, kfac, epoch)
+            flags = cadence.flags_for_step(step, epoch)
             images, labels = put_global_batch((xb, yb), device, accum)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -477,10 +537,7 @@ def main(argv=None) -> Dict[str, List]:
                 [metrics[k].float() for k in keys]).tolist()))
             history["step_ms"].append((time.perf_counter() - ts) * 1e3)
             history["loss"].append(values["loss"])
-            history["kind"].append(
-                "refresh" if flags.get("update_eigen")
-                else "capture" if flags.get("update_factors") else "plain"
-            )
+            history["kind"].append(step_kind(flags))
             loss_m.update(values["loss"])
             acc_m.update(values["accuracy"])
             for k, v in values.items():

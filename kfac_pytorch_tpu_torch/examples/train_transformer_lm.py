@@ -6,7 +6,10 @@ device: the same flags with the same defaults for what the port carries
 diagonal-A token embedding, the tied head ``--tie-embeddings``), the same
 data (WikiText token files from ``--data-dir``, else the synthetic
 corpus), BPTT segments,
-K-FAC gating and per-epoch validation loss, ``scalars.jsonl`` under
+K-FAC gating (every step's flags from ``scheduler.EigenRefreshCadence``:
+``--eigh-chunks``, ``--staleness-budget``, the truncated solvers
+``--solver rsvd``/``streaming``) and per-epoch validation loss,
+``scalars.jsonl`` under
 ``--log-dir`` (the JAX trainer's tags; with ``--kfac-diagnostics`` also
 the per-epoch mean of every ``kfac_*`` diagnostic) and checkpoints with
 auto-resume under ``--checkpoint-dir``. Every other flag of the JAX
@@ -21,9 +24,10 @@ defaults to none here (``./logs`` in the JAX trainer).
 Attention runs the CUDA flash kernels on a GPU
 (``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
 ``--device cpu`` is given, and raises when CUDA is asked for and absent.
-``main()`` returns the per-step history (loss, step kind, wall
-milliseconds measured around a synchronized step and, with
-``--kfac-diagnostics``, each ``kfac_*`` diagnostic), the per-epoch
+``main()`` returns the per-step history (loss, step kind
+(``training.step.step_kind``), wall milliseconds measured around a
+synchronized step and each ``kfac_*`` metric: the diagnostics with
+``--kfac-diagnostics``, the truncated solvers' gauges), the per-epoch
 validation loss, and the restore milliseconds of a resume.
 """
 
@@ -39,6 +43,11 @@ import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
 from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
+    add_refresh_flags,
+    refresh_cadence,
+    refresh_kwargs,
+)
 from kfac_pytorch_tpu_torch.models import transformer_lm
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
@@ -48,10 +57,10 @@ from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.step import (
     TrainState,
-    kfac_flags_for_step,
     make_eval_step,
     make_sgd,
     make_train_step,
+    step_kind,
 )
 
 SYNTHETIC_VOCAB = 1000
@@ -68,17 +77,11 @@ _LATER_FLAGS = (
     ("--attention", str, "ring", "8 (sequence parallelism)"),
     ("--remat", None, False, "8"),
     ("--qkv-lens", None, False, "8 (expand lens)"),
-    ("--eigh-chunks", int, 1, "7 (refresh scheduling)"),
     ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
     ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
     ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
-    ("--factor-sharding", str, "replicated", "7 (owner sharding)"),
-    ("--solver", str, "eigh", "7 (solvers)"),
-    ("--solver-rank", int, 128, "7 (solvers)"),
-    ("--solver-auto-threshold", int, 512, "7 (solvers)"),
-    ("--stream-drift-threshold", float, 0.05, "7 (solvers)"),
-    ("--comm-overlap", None, False, "7 (overlap plane)"),
-    ("--staleness-budget", int, 0, "7 (refresh scheduling)"),
+    ("--factor-sharding", str, "replicated", "7 (7b, owner sharding)"),
+    ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--autotune-steps", int, 0, "9 (planner/)"),
@@ -128,6 +131,7 @@ def parse_args(argv=None):
                    help="preconditioned apply + SGD: kernel = the fused CUDA "
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
+    add_refresh_flags(p)
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch means of the K-FAC health diagnostics "
                         "(nu, damped eigenvalues, condition numbers, "
@@ -195,6 +199,7 @@ def build(args, device: torch.device, oracle: bool = False):
             fac_update_freq=args.kfac_cov_update_freq,
             kfac_update_freq=args.kfac_update_freq,
             track_diagnostics=args.kfac_diagnostics,
+            **refresh_kwargs(args),
             factor_kernel="dense" if oracle else "auto",
             apply_kernel="dense" if oracle else args.apply_kernel,
             device=device,
@@ -245,6 +250,7 @@ def main(argv=None) -> Dict[str, List]:
     writer = ScalarWriter(args.log_dir)
 
     step = state.step
+    cadence = refresh_cadence(kfac, lambda: state)
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
@@ -254,7 +260,7 @@ def main(argv=None) -> Dict[str, List]:
         for i, (toks, tgts) in enumerate(data_lib.bptt_batches(stream, args.seq_len)):
             if i >= steps_per_epoch:
                 break
-            flags = kfac_flags_for_step(step, kfac, epoch)
+            flags = cadence.flags_for_step(step, epoch)
             batch = device_batch(toks, tgts, device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -269,10 +275,7 @@ def main(argv=None) -> Dict[str, List]:
                 [metrics[k].float() for k in keys]).tolist()))
             history["step_ms"].append((time.perf_counter() - ts) * 1e3)
             history["loss"].append(values["loss"])
-            history["kind"].append(
-                "refresh" if flags.get("update_eigen")
-                else "capture" if flags.get("update_factors") else "plain"
-            )
+            history["kind"].append(step_kind(flags))
             loss_m.update(values["loss"])
             for k, v in values.items():
                 if k.startswith("kfac_"):

@@ -6,7 +6,10 @@ device: the same flags with the same defaults for what the port carries
 four cell types, tying and the K-FAC token embedding; SGD with global-norm
 clipping and the lr /4 decay; K-FAC on the decoder, and with
 ``--kfac-embedding`` on the embedding, which composes with ``--tied``
-through the reduce lens), per-epoch validation on the valid split,
+through the reduce lens; every step's K-FAC flags from
+``scheduler.EigenRefreshCadence``: ``--eigh-chunks``,
+``--staleness-budget``, the truncated solvers ``--solver rsvd``/
+``streaming``), per-epoch validation on the valid split,
 ``scalars.jsonl`` under ``--log-dir`` and checkpoints with auto-resume
 under ``--checkpoint-dir``. ``--tied`` without ``--kfac-embedding`` leaves
 no preconditionable layer and trains with plain SGD, as the JAX trainer
@@ -26,7 +29,9 @@ plus the epoch at each epoch's start, so a resumed epoch draws the masks of
 the uninterrupted run (the JAX trainer's key sequence restarts on resume).
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent. ``main()`` returns the history: per step the loss,
-the step kind and the wall milliseconds around a synchronized step; per
+the step kind (``training.step.step_kind``), the wall milliseconds around
+a synchronized step and each ``kfac_*`` metric (the truncated solvers'
+gauges); per
 epoch the validation loss and perplexity; the restore milliseconds of a
 resume.
 """
@@ -42,6 +47,11 @@ import torch
 
 from kfac_pytorch_tpu_torch import KFAC, capture
 from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
+    add_refresh_flags,
+    refresh_cadence,
+    refresh_kwargs,
+)
 from kfac_pytorch_tpu_torch.examples.train_transformer_lm import device_batch
 from kfac_pytorch_tpu_torch.models import wikitext_rnn
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
@@ -53,23 +63,17 @@ from kfac_pytorch_tpu_torch.training.lm_step import (
     make_lm_train_step,
 )
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
-from kfac_pytorch_tpu_torch.training.step import TrainState, kfac_flags_for_step, make_sgd
+from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, step_kind
 
 # Flags of the JAX trainer this twin does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--eigh-chunks", int, 1, "7 (refresh scheduling)"),
     ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
     ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
-    ("--factor-sharding", str, "replicated", "7 (owner sharding)"),
-    ("--solver", str, "eigh", "7 (solvers)"),
-    ("--solver-rank", int, 128, "7 (solvers)"),
-    ("--solver-auto-threshold", int, 512, "7 (solvers)"),
-    ("--stream-drift-threshold", float, 0.05, "7 (solvers)"),
-    ("--comm-overlap", None, False, "7 (overlap plane)"),
-    ("--staleness-budget", int, 0, "7 (refresh scheduling)"),
+    ("--factor-sharding", str, "replicated", "7 (7b, owner sharding)"),
+    ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
@@ -116,6 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="preconditioned apply + SGD: kernel = the fused CUDA "
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
+    add_refresh_flags(p)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, kind, default, _ in _LATER_FLAGS:
@@ -175,6 +180,7 @@ def build(args, ntokens: int, device: torch.device):
                 fac_update_freq=args.kfac_cov_update_freq,
                 kfac_update_freq=args.kfac_update_freq,
                 apply_kernel=args.apply_kernel,
+                **refresh_kwargs(args),
                 device=device,
             )
     state = TrainState(
@@ -217,6 +223,7 @@ def main(argv=None) -> Dict[str, List]:
     generator = torch.Generator(device=device)
 
     step = state.step
+    cadence = refresh_cadence(kfac, lambda: state)
     for epoch in range(resume_from_epoch, args.epochs):
         lr = args.base_lr
         for e in args.lr_decay:
@@ -229,7 +236,7 @@ def main(argv=None) -> Dict[str, List]:
         for i, (xb, yb) in enumerate(data_lib.bptt_batches(train_stream, args.bptt)):
             if i >= steps_per_epoch:
                 break
-            flags = kfac_flags_for_step(step, kfac, epoch)
+            flags = cadence.flags_for_step(step, epoch)
             batch = device_batch(xb, yb, device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -238,14 +245,17 @@ def main(argv=None) -> Dict[str, List]:
                 state, batch, carry, generator, lr,
                 kfac.hparams.damping if kfac else 0.0, **flags,
             )
-            loss = float(metrics["loss"])  # one read: waits for the step
+            # one read of every scalar the host logs: waits for the step
+            keys = sorted(metrics)
+            values = dict(zip(keys, torch.stack(
+                [metrics[k].float() for k in keys]).tolist()))
             history["step_ms"].append((time.perf_counter() - ts) * 1e3)
-            history["loss"].append(loss)
-            history["kind"].append(
-                "refresh" if flags.get("update_eigen")
-                else "capture" if flags.get("update_factors") else "plain"
-            )
-            loss_m.update(loss)
+            history["loss"].append(values["loss"])
+            history["kind"].append(step_kind(flags))
+            for k, v in values.items():
+                if k.startswith("kfac_"):
+                    history.setdefault(k, []).append(v)
+            loss_m.update(values["loss"])
             step += 1
         if args.kfac_embedding:
             # the token-count kernel tallies ids outside the vocabulary on

@@ -7,7 +7,10 @@ and the block boundaries. The block-diagonal approximation
 ``torch.linalg.eigh`` is a library call (cuSOLVER on the card), as
 ``jnp.linalg.eigh`` was XLA's: not a hand-kernel debt. The JAX package's
 −1-padded shape buckets existed only to bound XLA's per-shape eigh compile
-cost; cuSOLVER has no such cost, so nothing here pads.
+cost; cuSOLVER has no such cost, so nothing here pads. The bucket size
+itself (:func:`bucket_size`) is kept: the chunk planner's cost and the
+randomized solver's sketch are defined on it, so the port's plans and
+sketches are the JAX package's.
 
 cuSOLVER's ``syevd`` sizes its workspace (~3n² values) in a 32-bit count
 and refuses a matrix wider than ``SYEVD_MAX_N`` = 26,733 (measured on an
@@ -41,6 +44,14 @@ SIGN_MAX_ITERS = 60
 # Lanczos quadrature for the median eigenvalue: probes and steps each
 MEDIAN_PROBES = 4
 MEDIAN_STEPS = 48
+
+
+def bucket_size(n: int, granularity: int = 512, minimum: int = 128) -> int:
+    """Smallest padded size ≥ n: ``minimum`` or a multiple of ``granularity``
+    (the JAX package's shape bucket)."""
+    if n <= minimum:
+        return minimum
+    return ((n + granularity - 1) // granularity) * granularity
 
 
 def symmetrize(factor: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """Natural-gradient preconditioning (eigenbasis or inverse) + KL clipping.
 
 Port of ``kfac_pytorch_tpu/ops/precondition.py`` for the ported paths: the
-eigen method with full-eigen dense entries and diagonal-A (embedding)
-entries, and the inverse method (``precond_method="inverse"``), replicated
-or with the rotations sharded over the ranks
-(:func:`precondition_all_distributed`,
-:func:`precondition_all_inv_distributed`); no low-rank forms (ROADMAP
-queue 1 item 7). Same-shape layers are stacked and
+eigen method with full-eigen dense entries, diagonal-A (embedding) entries
+and the low-rank-plus-diagonal (Woodbury) entries of the truncated solvers
+(``solver="rsvd"``/``"streaming"``), and the inverse method
+(``precond_method="inverse"``), replicated or with the rotations sharded
+over the ranks (:func:`precondition_all_distributed`,
+:func:`precondition_all_inv_distributed`). Same-shape layers are stacked and
 preconditioned together. Diagonal-A layers stay out of the shape groups
 and are preconditioned first, in sorted order; then the groups follow in
 :func:`shape_groups`' insertion order. That emission order is also the
@@ -77,6 +77,119 @@ def precondition_mat_embed(
     return q_g @ v2
 
 
+# ---------------------------------------------------------------------------
+# Low-rank-plus-diagonal (Woodbury) solves — solver="rsvd"/"streaming"
+#
+# A truncated side stores (Q_r [n, r], d_r [r], rho), modelling the factor as
+# F ≈ Q_r diag(d_r) Q_rᵀ + rho·(I − Q_r Q_rᵀ). Q_r's columns are orthonormal,
+# so (G ⊗ A + λI)⁻¹ splits exactly over the captured/complement sectors of
+# each side: project onto each sector, divide by its damped eigenvalue
+# product (a complement side contributes rho), re-expand. Thin [n, r]
+# matmuls and elementwise work, as in the JAX package (outside its Pallas
+# kernel, so library matmuls here; kernel 3 takes only dense entries). Every
+# function takes one [out, in] matrix or a [k, out, in] stack with stacked
+# state (``rho`` then [k]). Key presence is the dispatch signal
+# (:func:`solve_eigen_entry`).
+# ---------------------------------------------------------------------------
+
+
+def _t(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+def _outer_damped(d_g: torch.Tensor, d_a: torch.Tensor, damping) -> torch.Tensor:
+    return d_g[..., :, None] * d_a[..., None, :] + damping
+
+
+def precondition_mat_lowrank(
+    grad_mat, q_a, q_g, d_a, d_g, rho_a, rho_g, damping
+) -> torch.Tensor:
+    """Woodbury solve with BOTH sides truncated (``q_a [in, rA]``, ``q_g
+    [out, rG]``, scalar ``rho_a``/``rho_g``): the captured×captured sector
+    divides by ``d_g d_aᵀ + λ``, the mixed ones by ``d_g·rho_a + λ`` and
+    ``rho_g·d_a + λ``, the complement×complement one by ``rho_g·rho_a +
+    λ``; the full-gradient term carries the last and the thin projections
+    correct the others."""
+    q_a, q_g, lam = q_a.float(), q_g.float(), damping
+    t1 = _t(q_g) @ grad_mat  # [rG, in]
+    t2 = grad_mat @ q_a  # [out, rA]
+    t3 = t1 @ q_a  # [rG, rA]
+    ra, rg = rho_a[..., None], rho_g[..., None]
+    c4 = 1.0 / (rg * ra + lam)  # [..., 1]
+    d2 = 1.0 / (d_g * ra + lam)  # [..., rG]
+    d3 = 1.0 / (rg * d_a + lam)  # [..., rA]
+    c4m = c4[..., None]
+    z = (
+        t3 / _outer_damped(d_g, d_a, lam)
+        - d2[..., :, None] * t3
+        - t3 * d3[..., None, :]
+        + c4m * t3
+    )
+    x = (d2 - c4)[..., :, None] * t1 + z @ _t(q_a)
+    y = t2 * (d3 - c4)[..., None, :]
+    return c4m * grad_mat + q_g @ x + y @ _t(q_a)
+
+
+def precondition_mat_lr_g(grad_mat, q_a, q_g, d_a, d_g, rho_g, damping) -> torch.Tensor:
+    """Woodbury solve with only the G side truncated (``q_g [out, rG]``);
+    the A side keeps its full eigenbasis ``q_a [in, in]``."""
+    q_a, q_g, lam = q_a.float(), q_g.float(), damping
+    g_a = grad_mat @ q_a  # [out, in]
+    t1 = _t(q_g) @ g_a  # [rG, in]
+    cap = t1 / _outer_damped(d_g, d_a, lam)
+    res = (g_a - q_g @ t1) / (rho_g[..., None, None] * d_a[..., None, :] + lam)
+    return (q_g @ cap + res) @ _t(q_a)
+
+
+def precondition_mat_lr_a(grad_mat, q_a, q_g, d_a, d_g, rho_a, damping) -> torch.Tensor:
+    """Woodbury solve with only the A side truncated (``q_a [in, rA]``);
+    the G side keeps its full eigenbasis."""
+    q_a, q_g, lam = q_a.float(), q_g.float(), damping
+    g_g = _t(q_g) @ grad_mat  # [out, in]
+    t = g_g @ q_a  # [out, rA]
+    cap = t / _outer_damped(d_g, d_a, lam)
+    res = (g_g - t @ _t(q_a)) / (d_g[..., :, None] * rho_a[..., None, None] + lam)
+    return q_g @ (cap @ _t(q_a) + res)
+
+
+def precondition_mat_embed_lr_g(grad_mat, q_g, d_g, rho_g, d_a, damping) -> torch.Tensor:
+    """Diagonal-A (embedding) layer with a truncated G side: the A rotations
+    are the identity; the G side splits captured/complement."""
+    q_g, lam = q_g.float(), damping
+    t1 = _t(q_g) @ grad_mat  # [rG, vocab]
+    cap = q_g @ (t1 / _outer_damped(d_g, d_a, lam))
+    res = (grad_mat - q_g @ t1) / (rho_g[..., None, None] * d_a[..., None, :] + lam)
+    return cap + res
+
+
+def entry_is_lowrank(e: Dict[str, torch.Tensor]) -> bool:
+    """Whether an eigen-state entry carries a truncated (Woodbury) side."""
+    return "rhoA" in e or "rhoG" in e
+
+
+def solve_eigen_entry(g: torch.Tensor, e: Dict[str, torch.Tensor], damping) -> torch.Tensor:
+    """One entry's eigenbasis solve, dispatched on its keys: dense entries
+    take the functions they always took (an ``[out, in]`` matrix, or a
+    ``[k, out, in]`` stack for the oracle chain), low-rank ones the matching
+    Woodbury form."""
+    if "QA" not in e:  # diagonal-A (embedding) layer
+        if "rhoG" in e:
+            return precondition_mat_embed_lr_g(g, e["QG"], e["dG"], e["rhoG"], e["dA"], damping)
+        return precondition_mat_embed(g, e["QG"], e["dG"], e["dA"], damping)
+    lr_a, lr_g = "rhoA" in e, "rhoG" in e
+    if lr_a and lr_g:
+        return precondition_mat_lowrank(
+            g, e["QA"], e["QG"], e["dA"], e["dG"], e["rhoA"], e["rhoG"], damping
+        )
+    if lr_g:
+        return precondition_mat_lr_g(g, e["QA"], e["QG"], e["dA"], e["dG"], e["rhoG"], damping)
+    if lr_a:
+        return precondition_mat_lr_a(g, e["QA"], e["QG"], e["dA"], e["dG"], e["rhoA"], damping)
+    if g.dim() == 3:
+        return _precondition_stack(g, e, damping)
+    return precondition_mat(g, e["QA"], e["QG"], e["dA"], e["dG"], damping)
+
+
 def shape_groups(
     shapes: Dict[str, Tuple[int, int]]
 ) -> Dict[Tuple[int, int], list]:
@@ -124,7 +237,7 @@ def split_eigen_state(
 def _group_eigen(names, key, eigen, stacked):
     if len(names) == 1:
         e = eigen[names[0]]
-        return {k: e[k][None] for k in ("QA", "QG", "dA", "dG")}
+        return {k: v[None] for k, v in e.items()}
     if stacked is not None and key in stacked:
         return stacked[key]
     keys = eigen[names[0]].keys()
@@ -140,7 +253,8 @@ def precondition_all(
 ) -> Dict[str, torch.Tensor]:
     """Precondition every layer's gradient matrix, batching same-shape layers
     (the oracle chain: four batched matmuls and the damped divide);
-    diagonal-A layers first, in sorted order."""
+    diagonal-A layers first, in sorted order. Low-rank entries take their
+    Woodbury solves (:func:`solve_eigen_entry`)."""
     with rotation_precision(precision):
         return _precondition_all(grad_mats, eigen, damping, stacked)
 
@@ -149,23 +263,16 @@ def _precondition_all(grad_mats, eigen, damping, stacked):
     diag_a = diag_a_names(eigen)
     out: Dict[str, torch.Tensor] = {}
     for name in sorted(diag_a):
-        e = eigen[name]
-        out[name] = precondition_mat_embed(
-            grad_mats[name], e["QG"], e["dG"], e["dA"], damping
-        )
+        out[name] = solve_eigen_entry(grad_mats[name], eigen[name], damping)
     shapes = {
         name: tuple(g.shape) for name, g in grad_mats.items() if name not in diag_a
     }
     for (go, ai), names in shape_groups(shapes).items():
         if len(names) == 1:
-            name = names[0]
-            e = eigen[name]
-            out[name] = precondition_mat(
-                grad_mats[name], e["QA"], e["QG"], e["dA"], e["dG"], damping
-            )
+            out[names[0]] = solve_eigen_entry(grad_mats[names[0]], eigen[names[0]], damping)
             continue
         gm = torch.stack([grad_mats[n] for n in names])
-        v = _precondition_stack(gm, _group_eigen(names, f"{go}x{ai}", eigen, stacked), damping)
+        v = solve_eigen_entry(gm, _group_eigen(names, f"{go}x{ai}", eigen, stacked), damping)
         for row, name in enumerate(names):
             out[name] = v[row]
     return out
@@ -193,11 +300,13 @@ def precondition_all_with_vg(
 
     ``kind="dense"`` delegates to the oracle :func:`precondition_all` and
     returns ``vg_terms=None`` (the caller then reduces ``Σ v·g`` with
-    :func:`kl_clip_coefficient`). Otherwise every shape group — singletons
-    as ``k=1`` stacks — goes through the fused apply wrapper, which also
-    emits each layer's ``Σ v·g``; diagonal-A layers take
-    :func:`precondition_mat_embed` (at ``precision``) with their partial
-    reduced in PyTorch, as the JAX package keeps them out of its kernel.
+    :func:`kl_clip_coefficient`). Otherwise every shape group of dense
+    entries — singletons as ``k=1`` stacks — goes through the fused apply
+    wrapper, which also emits each layer's ``Σ v·g``; diagonal-A layers and
+    low-rank groups (a truncated side: the kernel computes only the full
+    eigenbasis solve) take :func:`solve_eigen_entry` (at ``precision``) with
+    their partials reduced in PyTorch, as the JAX package keeps them out of
+    its kernel.
     ``vg_terms`` is in emission order, the order :func:`kl_clip_coefficient`
     would sum in.
     """
@@ -206,18 +315,31 @@ def precondition_all_with_vg(
     diag_a = diag_a_names(eigen)
     out: Dict[str, torch.Tensor] = {}
     vg_terms: List[torch.Tensor] = []
-    for name in sorted(diag_a):
-        e = eigen[name]
+
+    def plain(name, g, e):
         with rotation_precision(precision):
-            v = precondition_mat_embed(grad_mats[name], e["QG"], e["dG"], e["dA"], damping)
+            v = solve_eigen_entry(g, e, damping)
         out[name] = v
-        vg_terms.append((v.float() * grad_mats[name].float()).sum())
+        vg_terms.append((v.float() * g.float()).sum())
+
+    for name in sorted(diag_a):
+        plain(name, grad_mats[name], eigen[name])
     shapes = {
         name: tuple(g.shape) for name, g in grad_mats.items() if name not in diag_a
     }
     for (go, ai), names in shape_groups(shapes).items():
+        if len(names) == 1 and entry_is_lowrank(eigen[names[0]]):
+            plain(names[0], grad_mats[names[0]], eigen[names[0]])
+            continue
         s = _group_eigen(names, f"{go}x{ai}", eigen, stacked)
         gm = torch.stack([grad_mats[n] for n in names])
+        if entry_is_lowrank(s):
+            with rotation_precision(precision):
+                v = solve_eigen_entry(gm, s, damping)
+            for row, name in enumerate(names):
+                out[name] = v[row]
+                vg_terms.append((v[row].float() * gm[row].float()).sum())
+            continue
         v, vg = apply_kernels.dispatch_precondition_stack(
             gm, s["QA"], s["dA"], s["QG"], s["dG"], damping
         )
@@ -445,27 +567,29 @@ def precondition_all_distributed(
     (the JAX package's ``precondition_all_distributed``; the reference
     rotates every layer on every rank, kfac_preconditioner.py:401-404).
 
-    The owned rows of a shape group go through the fused apply wrapper
-    (kernel 3 on CUDA tensors, its plain version on CPU ones; the JAX
-    package's ``solve_eigen_entry_maybe_fused``) unless ``kind="dense"``,
-    which takes the oracle chain at ``precision``. The kernel's KL-clip
-    partials cover the owned layers only and are dropped: the caller
-    reduces ν from the reassembled updates, as the JAX package does.
+    The owned rows of a shape group of dense entries go through the fused
+    apply wrapper (kernel 3 on CUDA tensors, its plain version on CPU ones;
+    the JAX package's ``solve_eigen_entry_maybe_fused``) unless
+    ``kind="dense"``, which takes the oracle chain at ``precision``;
+    diagonal-A layers and low-rank groups take :func:`solve_eigen_entry`.
+    The kernel's KL-clip partials cover the owned layers only and are
+    dropped: the caller reduces ν from the reassembled updates, as the JAX
+    package does.
     ``comm_dtype`` (``torch.bfloat16``) is the exchange's wire type.
     """
 
     def solve_diag(g, e):
         with rotation_precision(precision):
-            return precondition_mat_embed(g, e["QG"], e["dG"], e["dA"], damping)
+            return solve_eigen_entry(g, e, damping)
 
     def solve_group(gm, s):
-        if kind != "dense":
+        if kind != "dense" and not entry_is_lowrank(s):
             v, _ = apply_kernels.dispatch_precondition_stack(
                 gm, s["QA"], s["dA"], s["QG"], s["dG"], damping
             )
             return v
         with rotation_precision(precision):
-            return _precondition_stack(gm, s, damping)
+            return solve_eigen_entry(gm, s, damping)
 
     return _apply_distributed(
         grad_mats, eigen, stacked, world, owners, solve_diag, solve_group, comm_dtype

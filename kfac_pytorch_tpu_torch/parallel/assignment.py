@@ -1,20 +1,62 @@
 """Deterministic layer → rank work assignment.
 
 A copy of ``kfac_pytorch_tpu/parallel/assignment.py``'s ``RoundRobin``,
-``precondition_assignment`` and ``layer_assignment`` (importing the JAX
-module would import JAX through its package). The eigendecomposition table
+``precondition_assignment``, ``layer_assignment`` and the pipelined
+refresh's planners ``plan_eigh_chunks`` and ``eigh_chunk_owners`` with
+their slot cost ``_slot_cost`` (importing the JAX module would import JAX
+through its package). The eigendecomposition table
 mirrors the reference's ``cycle`` iterator and its per-update ``reset()``
 (kfac/utils.py:12-39, kfac_preconditioner.py:383-396): it is recomputed
 from (world, layers, diag_blocks, distribute_layer_factors) alone, so every
 rank derives the same table and keeps the same layers across refreshes,
-and nothing is communicated to agree on it. The factor-bucket and shard
-plans wait for ROADMAP queue 1 items 6b and 7b.
+and nothing is communicated to agree on it. The chunk planners are LPT
+over the JAX package's padded cost (``bucket_size³``, or the randomized
+solver's matmul cost) with its tie-breaks, so they return its plans. The
+factor-bucket and shard plans wait for ROADMAP queue 1 items 6b and 7b.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+from kfac_pytorch_tpu_torch.ops.eigh import bucket_size
+from kfac_pytorch_tpu_torch.ops.rsvd import DEFAULT_OVERSAMPLE
+
+# matmul passes an rsvd slot pays over its bucket (ops/rsvd.py): the range
+# finder's multiply, two subspace-iteration multiplies and Rayleigh–Ritz's
+# A·Q, each ~m²·cols multiply-adds; it only shapes the load balance
+_RSVD_MULTIPLIES = 4
+
+RankFn = Optional[Callable[[int], Optional[int]]]
+
+
+def _slot_cost(size: int, granularity: int, minimum: int, rank_fn: RankFn) -> int:
+    """LPT cost of one eigh slot: ``bucket_size(size)³`` for the dense eigh,
+    ``m²·min(r + p, m)·4`` for a slot ``rank_fn`` truncates to rank ``r``."""
+    m = bucket_size(size, granularity, minimum)
+    rank = rank_fn(size) if rank_fn is not None else None
+    if rank is None:
+        return m**3
+    return m * m * min(rank + DEFAULT_OVERSAMPLE, m) * _RSVD_MULTIPLIES
+
+
+def _lpt(slots, bins: int, granularity: int, minimum: int, rank_fn: RankFn) -> List[int]:
+    """Greedy longest-processing-time: each slot, heaviest first (ties on
+    name, factor, start), to the least loaded bin (ties on the bin index);
+    returns each slot's bin."""
+    cost = [_slot_cost(s.size, granularity, minimum, rank_fn) for s in slots]
+    order = sorted(
+        range(len(slots)),
+        key=lambda i: (-cost[i], slots[i].name, slots[i].factor, slots[i].start),
+    )
+    load = [0] * bins
+    where = [0] * len(slots)
+    for i in order:
+        b = min(range(bins), key=lambda c: (load[c], c))
+        where[i] = b
+        load[b] += cost[i]
+    return where
 
 
 class RoundRobin:
@@ -89,3 +131,25 @@ def layer_assignment(
         ranks_g = rr.next(n) if distribute_layer_factors else ranks_a
         table[name] = {"A": ranks_a, "G": ranks_g}
     return table
+
+
+def plan_eigh_chunks(
+    slots, chunks: int, granularity: int = 512, minimum: int = 128, rank_fn: RankFn = None
+) -> List[List[int]]:
+    """Partition eigh slots into ``chunks`` balanced pieces of the pipelined
+    refresh (one per step after a boundary), each piece's slot indices
+    ascending. A chunk may be empty when there are fewer slots than chunks:
+    its step is a plain step."""
+    plan: List[List[int]] = [[] for _ in range(chunks)]
+    for i, c in enumerate(_lpt(slots, chunks, granularity, minimum, rank_fn)):
+        plan[c].append(i)
+    return plan
+
+
+def eigh_chunk_owners(
+    slots, world: int, granularity: int = 512, minimum: int = 128, rank_fn: RankFn = None
+) -> List[int]:
+    """Per-slot owner ranks for ONE chunk's slots, rebalanced over the world
+    with the chunk planner's cost: the full refresh's round-robin table
+    balances the whole slot set, not a chunk of it."""
+    return _lpt(slots, world, granularity, minimum, rank_fn)

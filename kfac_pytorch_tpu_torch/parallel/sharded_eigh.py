@@ -1,11 +1,17 @@
 """The eigen refresh: replicated on one device, or sharded over the ranks.
 
 Port of ``kfac_pytorch_tpu/parallel/sharded_eigh.py`` (``build_slots``,
-``_owner_tables``, ``_assemble``, ``replicated_eigen_update``,
-``sharded_eigen_update``). Each (layer, factor, block) job is a slot;
-slots of equal size are stacked and decomposed by ONE batched
+``_split_by_rank``, ``_owner_tables``, ``_assemble``, ``_scatter_into``,
+``replicated_eigen_update``, ``sharded_eigen_update`` and the pipelined
+refresh's ``replicated_eigen_chunk_update`` and
+``sharded_eigen_chunk_update``). Each (layer, factor, block) job is a
+slot; slots of equal size are stacked and decomposed by ONE batched
 ``torch.linalg.eigh`` call at their own size (no −1 padding to shared
-buckets: that existed to bound XLA compile cost).
+buckets: that existed to bound XLA compile cost). With ``rank_fn`` (the
+preconditioner's size → rank policy of the truncated solvers) a slot whose
+size maps to a rank takes the randomized solve of ``ops/rsvd.py`` instead,
+grouped by ``(size, rank)``, and yields a rectangular ``(Q_r [n, r], d_r
+[r], rho)`` entry; ``rank_fn=None`` leaves every path as it was.
 
 Over ``world`` ranks (:func:`sharded_eigen_update`) each rank decomposes
 only the slots the round-robin table (``parallel/assignment.py``) gives
@@ -22,14 +28,20 @@ twice) in ``world`` collectives: the refresh runs once per
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from kfac_pytorch_tpu_torch.ops.eigh import eigh_with_floor, get_block_boundary
+from kfac_pytorch_tpu_torch.ops.rsvd import batched_randomized_eigh, residual_rho
+from kfac_pytorch_tpu_torch.parallel.assignment import eigh_chunk_owners
 from kfac_pytorch_tpu_torch.parallel.mesh import World
 
 Assignment = Dict[str, Dict[str, Tuple[int, ...]]]
+RankFn = Optional[Callable[[int], Optional[int]]]
+# a slot's result: (Q [n, n], d [n]) from the dense eigh, or (Q_r [n, r],
+# d_r [r], rho) from the randomized solve; the arity tells them apart
+SlotResult = Tuple[torch.Tensor, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +86,36 @@ def build_slots(
     return slots
 
 
-def _size_groups(slots: List[EighSlot]) -> Dict[int, List[int]]:
-    """Slot indices by block size, sizes ascending."""
-    by_size: Dict[int, List[int]] = {}
+def _split_by_rank(slots: List[EighSlot], rank_fn: RankFn) -> Tuple[List[int], Dict[int, List[int]]]:
+    """Slot indices split into ``(dense, {rank: [indices]})`` by ``rank_fn``
+    (``None`` for a size: the dense eigh keeps it), shared by every update
+    so all of them truncate the same slots."""
+    dense: List[int] = []
+    by_rank: Dict[int, List[int]] = {}
     for i, s in enumerate(slots):
-        by_size.setdefault(s.size, []).append(i)
-    return dict(sorted(by_size.items()))
+        r = rank_fn(s.size) if rank_fn is not None else None
+        if r is None:
+            dense.append(i)
+        else:
+            by_rank.setdefault(int(r), []).append(i)
+    return dense, by_rank
+
+
+def _groups(slots: List[EighSlot], rank_fn: RankFn) -> List[Tuple[int, Optional[int], List[int]]]:
+    """``(size, rank or None, slot indices)`` per solve: the dense groups by
+    size ascending, then the ``(size, rank)`` groups of the truncated
+    slots, sorted."""
+    dense, by_rank = _split_by_rank(slots, rank_fn)
+    by_size: Dict[int, List[int]] = {}
+    for i in dense:
+        by_size.setdefault(slots[i].size, []).append(i)
+    lr: Dict[Tuple[int, int], List[int]] = {}
+    for r, idxs in by_rank.items():
+        for i in idxs:
+            lr.setdefault((slots[i].size, r), []).append(i)
+    return [(n, None, idxs) for n, idxs in sorted(by_size.items())] + [
+        (n, r, idxs) for (n, r), idxs in sorted(lr.items())
+    ]
 
 
 def _block(factors, s: EighSlot) -> torch.Tensor:
@@ -87,22 +123,75 @@ def _block(factors, s: EighSlot) -> torch.Tensor:
 
 
 def _owner_tables(slots: List[EighSlot], idxs: List[int], world: int) -> List[List[int]]:
-    """Per rank, the rows of one size group's stack (positions in ``idxs``)
-    that it owns."""
+    """Per rank, the rows of one group's stack (positions in ``idxs``) that
+    it owns."""
     return [[r for r, i in enumerate(idxs) if slots[i].owner == dev] for dev in range(world)]
+
+
+def _decompose(factors, slots, idxs, rank, eps) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batched solve of the slots ``idxs``: the floored eigh, or the
+    randomized solve at ``rank``."""
+    mats = [_block(factors, slots[i]) for i in idxs]
+    # a lone slot goes as a view: a WikiText-2 decoder's G factor is
+    # 4.4 GB, and its decomposition needs the memory
+    stack = mats[0][None] if len(mats) == 1 else torch.stack(mats)
+    del mats
+    if rank is None:
+        return eigh_with_floor(stack, eps)
+    return batched_randomized_eigh(stack, rank, eps)
+
+
+def _solve(
+    factors, slots: List[EighSlot], world: Optional[World], eps: float,
+    q_dtype: torch.dtype, rank_fn: RankFn,
+) -> Dict[int, SlotResult]:
+    """Every slot's result. With a ``world`` of more than one rank each
+    rank solves the slots it owns, writes their rows into a zeroed stack
+    per group (Q in ``q_dtype``) and one ``all_reduce`` per stack sums the
+    ranks' stacks: every element has one owner, so the sum is exact. A
+    truncated slot's ``rho`` comes from the reassembled ``d`` and the
+    replicated factor, on every rank."""
+    results: Dict[int, SlotResult] = {}
+    for n, rank, idxs in _groups(slots, rank_fn):
+        if world is None or world.size == 1:
+            q, d = _decompose(factors, slots, idxs, rank, eps)
+        else:
+            first = factors[slots[idxs[0]].name][slots[idxs[0]].factor]
+            mine = _owner_tables(slots, idxs, world.size)[world.rank]
+            cols = n if rank is None else rank
+            q = first.new_zeros((len(idxs), n, cols), dtype=q_dtype)
+            d = first.new_zeros((len(idxs), cols))
+            if mine:
+                q_m, d_m = _decompose(factors, slots, [idxs[r] for r in mine], rank, eps)
+                rows = torch.tensor(mine, device=q.device)
+                q[rows] = q_m.to(q_dtype)
+                d[rows] = d_m
+                del q_m, d_m
+            world.all_reduce_sum_(q)
+            world.all_reduce_sum_(d)
+        for row, i in enumerate(idxs):
+            if rank is None:
+                results[i] = (q[row], d[row])
+            else:
+                s = slots[i]
+                trace = torch.trace(factors[s.name][s.factor][s.start : s.stop, s.start : s.stop])
+                results[i] = (q[row], d[row], residual_rho(trace, d[row], n, rank))
+    return results
 
 
 def _assemble(
     factors: Dict[str, Dict[str, torch.Tensor]],
     slots: List[EighSlot],
-    results: Dict[int, Tuple[torch.Tensor, torch.Tensor]],
+    results: Dict[int, SlotResult],
     q_dtype: torch.dtype = torch.float32,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Scatter per-slot ``(Q, d)`` into per-layer ``{QA, dA, QG, dG}``,
-    ``Q`` written in ``q_dtype``.
+    """Scatter per-slot results into per-layer ``{QA, dA, QG, dG}`` (plus
+    ``rhoA``/``rhoG`` for a truncated side), ``Q`` written in ``q_dtype``.
 
     A factor decomposed as one block takes its result as is; blocked factors
-    scatter into zeroed block-diagonal buffers.
+    scatter into zeroed block-diagonal buffers. A truncated result is its
+    factor's whole entry (the truncated solvers exclude ``diag_blocks >
+    1``), rectangular, with its scalar residual mass.
     """
     eigen: Dict[str, Dict[str, torch.Tensor]] = {}
     whole = {
@@ -117,8 +206,10 @@ def _assemble(
                 continue
             i = whole.get((name, fac))
             if i is not None:
-                q, d = results[i]
-                eigen[name][qk], eigen[name][dk] = q.to(q_dtype), d
+                res = results[i]
+                eigen[name][qk], eigen[name][dk] = res[0].to(q_dtype), res[1]
+                if len(res) == 3:
+                    eigen[name]["rho" + fac] = res[2]
                 continue
             n = f[fac].shape[0]
             eigen[name][qk] = f[fac].new_zeros((n, n), dtype=q_dtype)
@@ -133,31 +224,52 @@ def _assemble(
     return eigen
 
 
+def _scatter_into(
+    pending: Dict[str, Dict[str, torch.Tensor]],
+    slots: List[EighSlot],
+    results: Dict[int, SlotResult],
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-slot results into the pipelined refresh's EXISTING buffers: each
+    chunk writes only its own slots' regions and leaves the other chunks'
+    results in place. ``Q`` is cast to the buffer's dtype (``eigen_dtype``)
+    as it is written, elementwise, so the swapped basis is the monolithic
+    refresh's. A whole-factor result replaces its entries; a block is
+    written into the buffer, which the interval's chunk 0 allocated afresh
+    (``KFAC.update``), so no write reaches a tensor the active basis holds."""
+    out = {name: dict(e) for name, e in pending.items()}
+    for i, s in enumerate(slots):
+        res = results[i]
+        qk, dk = ("QA", "dA") if s.factor == "A" else ("QG", "dG")
+        buf = out[s.name][qk]
+        n = buf.shape[0]
+        if s.start == 0 and s.stop == n:
+            out[s.name][qk], out[s.name][dk] = res[0].to(buf.dtype), res[1]
+            if len(res) == 3:
+                out[s.name]["rho" + s.factor] = res[2]
+            continue
+        buf[s.start : s.stop, s.start : s.stop] = res[0].to(buf.dtype)
+        out[s.name][dk][s.start : s.stop] = res[1]
+    return out
+
+
 def replicated_eigen_update(
     factors: Dict[str, Dict[str, torch.Tensor]],
     diag_blocks_per_layer: Dict[str, int],
     eps: float = 1e-10,
     q_dtype: torch.dtype = torch.float32,
+    rank_fn: RankFn = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Recompute every layer's eigendecomposition on this device.
 
-    Same-size slots are decomposed together in one batched float32 eigh;
-    results come back per layer as ``{QA, dA, QG, dG}`` with the eigenvalue
-    floor, the eigenvectors cast to ``q_dtype`` (the preconditioner's
-    ``eigen_dtype``) as they are written, blocked slots included.
+    Same-size slots are decomposed together in one batched float32 eigh
+    (or, for the sizes ``rank_fn`` truncates, one batched randomized solve
+    per ``(size, rank)``); results come back per layer as ``{QA, dA, QG,
+    dG}`` (plus ``rho*``) with the eigenvalue floor, the eigenvectors cast
+    to ``q_dtype`` (the preconditioner's ``eigen_dtype``) as they are
+    written, blocked slots included.
     """
     slots = build_slots(factors, blocks_per_layer=diag_blocks_per_layer)
-    results: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-    for idxs in _size_groups(slots).values():
-        mats = [_block(factors, slots[i]) for i in idxs]
-        # a lone slot goes as a view: a WikiText-2 decoder's G factor is
-        # 4.4 GB, and its decomposition needs the memory
-        stack = mats[0][None] if len(mats) == 1 else torch.stack(mats)
-        del mats
-        q, d = eigh_with_floor(stack, eps)
-        for row, i in enumerate(idxs):
-            results[i] = (q[row], d[row])
-    return _assemble(factors, slots, results, q_dtype)
+    return _assemble(factors, slots, _solve(factors, slots, None, eps, q_dtype, rank_fn), q_dtype)
 
 
 def sharded_eigen_update(
@@ -166,43 +278,51 @@ def sharded_eigen_update(
     world: World,
     eps: float = 1e-10,
     q_dtype: torch.dtype = torch.float32,
-    rank_fn=None,
+    rank_fn: RankFn = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Every layer's eigendecomposition, the work sharded over ``world``.
 
     ``factors`` is the replicated ``{layer: {A, G}}`` dict and
     ``assignment`` the table of ``parallel.assignment.layer_assignment``;
-    returns the replicated ``{layer: {QA, dA, QG, dG}}`` of
-    :func:`replicated_eigen_update`. Per slot size, each rank stacks the
-    slots it owns and decomposes them in one batched float32 eigh (the
-    eigenvalue floor included), writes its rows into a zeroed
-    ``[k, n, n]``/``[k, n]`` pair (Q in ``q_dtype``) and one ``all_reduce``
-    sums the ranks' pairs. ``rank_fn`` (the randomized solver) is ROADMAP
-    queue 1 item 7 and is refused.
+    returns the replicated result of :func:`replicated_eigen_update`. Per
+    group (slot size, and rank for the truncated slots), each rank stacks
+    the slots it owns and solves them in one batched call, writes its rows
+    into a zeroed stack (Q in ``q_dtype``) and one ``all_reduce`` sums the
+    ranks' stacks.
     """
-    if rank_fn is not None:
-        raise NotImplementedError(
-            "sharded_eigen_update(rank_fn=...) (the randomized solver) is not "
-            "ported to kfac_pytorch_tpu_torch yet (ROADMAP queue 1 item 7)"
-        )
     slots = build_slots(factors, assignment)
-    results: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-    for n, idxs in _size_groups(slots).items():
-        first = factors[slots[idxs[0]].name][slots[idxs[0]].factor]
-        mine = _owner_tables(slots, idxs, world.size)[world.rank]
-        kq = first.new_zeros((len(idxs), n, n), dtype=q_dtype)
-        kd = first.new_zeros((len(idxs), n))
-        if mine:
-            mats = [_block(factors, slots[idxs[r]]) for r in mine]
-            stack = mats[0][None] if len(mats) == 1 else torch.stack(mats)
-            del mats
-            q, d = eigh_with_floor(stack, eps)
-            rows = torch.tensor(mine, device=kq.device)
-            kq[rows] = q.to(q_dtype)
-            kd[rows] = d
-            del q, d, stack
-        world.all_reduce_sum_(kq)
-        world.all_reduce_sum_(kd)
-        for row, i in enumerate(idxs):
-            results[i] = (kq[row], kd[row])
-    return _assemble(factors, slots, results, q_dtype)
+    return _assemble(factors, slots, _solve(factors, slots, world, eps, q_dtype, rank_fn), q_dtype)
+
+
+def replicated_eigen_chunk_update(
+    factors: Dict[str, Dict[str, torch.Tensor]],
+    pending: Dict[str, Dict[str, torch.Tensor]],
+    chunk_slots: List[EighSlot],
+    eps: float = 1e-10,
+    rank_fn: RankFn = None,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One chunk of the pipelined refresh on this device: the chunk's slots
+    solved as :func:`replicated_eigen_update` solves them, written into
+    ``pending``."""
+    return _scatter_into(
+        pending, chunk_slots, _solve(factors, chunk_slots, None, eps, torch.float32, rank_fn)
+    )
+
+
+def sharded_eigen_chunk_update(
+    factors: Dict[str, Dict[str, torch.Tensor]],
+    pending: Dict[str, Dict[str, torch.Tensor]],
+    chunk_slots: List[EighSlot],
+    world: World,
+    eps: float = 1e-10,
+    rank_fn: RankFn = None,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One chunk of the pipelined refresh, sharded over ``world``: owners
+    rebalanced within the chunk (``eigh_chunk_owners``, rank-aware with
+    ``rank_fn``) so every step spreads its share of the work over all
+    ranks, one ``all_reduce`` per group, results written into ``pending``.
+    The stacks cross the wire in float32; ``Q`` takes the buffers' dtype as
+    it is written."""
+    owners = eigh_chunk_owners(chunk_slots, world.size, rank_fn=rank_fn)
+    slots = [dataclasses.replace(s, owner=o) for s, o in zip(chunk_slots, owners)]
+    return _scatter_into(pending, slots, _solve(factors, slots, world, eps, torch.float32, rank_fn))

@@ -45,9 +45,22 @@ when there are more ranks than layers), and with ``distribute_precondition``
 so is the every-step apply (``ops.precondition.precondition_all_distributed``,
 its exchange in ``precond_comm_dtype`` when set).
 
+The refresh can be pipelined (``eigh_chunks > 1``: the refresh plan's
+chunks run on the steps after each boundary into ``state["eigen_pending"]``,
+swapped in when all have landed, a swap that may slip by
+``staleness_budget`` steps; ``scheduler.EigenRefreshCadence`` gives the
+flags) or truncated (``solver="rsvd"``: factor sides from
+``solver_auto_threshold`` keep ``solver_rank`` eigenpairs of the
+randomized solve of ``ops/rsvd.py`` plus a residual mass ``rho``, and
+precondition through the Woodbury solves of ``ops/precondition.py``;
+``"streaming"`` folds each capture step's factors through the kept bases,
+``ops/streaming.py``, and re-orthonormalizes when the drift gauge trips).
+Over the ranks the chunks and the truncated solves are sharded as the
+refresh is.
+
 The constructor takes every argument of the reference with its default and
-validation. Levers outside this slice raise ``NotImplementedError`` naming
-the ROADMAP queue-1 item that ports them.
+validation. Levers outside the ported slices raise ``NotImplementedError``
+naming the ROADMAP queue-1 item that ports them.
 """
 
 from __future__ import annotations
@@ -71,13 +84,18 @@ from kfac_pytorch_tpu_torch.ops import apply_kernels as apply_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factor_kernels as factor_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factors as factor_ops
 from kfac_pytorch_tpu_torch.ops import precondition as precond_ops
+from kfac_pytorch_tpu_torch.ops import streaming as streaming_ops
 from kfac_pytorch_tpu_torch.parallel.assignment import (
     layer_assignment,
+    plan_eigh_chunks,
     precondition_assignment,
 )
 from kfac_pytorch_tpu_torch.parallel.mesh import WIRE_DTYPES, World, data_parallel_world
 from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
+    build_slots,
+    replicated_eigen_chunk_update,
     replicated_eigen_update,
+    sharded_eigen_chunk_update,
     sharded_eigen_update,
 )
 
@@ -96,6 +114,18 @@ class KFACHParams:
     kl_clip: float = 0.001
     fac_update_freq: int = 10
     kfac_update_freq: int = 100
+
+
+def _side_spectrum(e: Dict[str, torch.Tensor], side: str) -> torch.Tensor:
+    """One side's eigenvalues for the diagnostics: a truncated side's ``d``
+    with its residual mass ``rho`` appended (the eigenvalue of every
+    complement direction), so its min/max and condition number stay
+    meaningful."""
+    d = e[f"d{side}"]
+    rho = e.get(f"rho{side}")
+    if rho is None:
+        return d
+    return torch.cat([d, rho.reshape(1).to(d.dtype)])
 
 
 def _validate(name: str, ok: bool, value) -> None:
@@ -203,15 +233,93 @@ class KFAC:
         if str(factor_comm_dtype).lower() not in ("f32", "float32") or factor_comm_freq != 1:
             _not_ported("factor_comm_dtype/factor_comm_freq (factor comm plane)", "6 (6b)")
         if comm_overlap:
-            _not_ported("comm_overlap", "7")
-        if staleness_budget != 0:
-            _not_ported("staleness_budget", "7")
-        if eigh_chunks > 1:
-            _not_ported("eigh_chunks > 1 (pipelined refresh)", "7")
-        if solver != "eigh":
-            _not_ported(f"solver={solver!r}", "7")
+            _not_ported("comm_overlap", "7 (7b)")
         if factor_sharding == "owner":
-            _not_ported("factor_sharding='owner'", "7")
+            _not_ported("factor_sharding='owner'", "7 (7b)")
+        # Pipelined refresh: the eigen refresh split into this many chunks
+        # over the steps after each kfac_update_freq boundary, accumulated
+        # in state["eigen_pending"] and swapped in once every chunk has
+        # landed (scheduler.EigenRefreshCadence drives it); 1 = the
+        # monolithic refresh, bitwise.
+        if eigh_chunks > 1 and precond_method == "inverse":
+            raise ValueError(
+                "eigh_chunks > 1 pipelines the eigendecomposition refresh; "
+                "precond_method='inverse' refreshes via one batched Cholesky "
+                "~30x cheaper than the eigh it replaces — there is no spike "
+                "to spread, so refusing a config that implies one"
+            )
+        # Curvature solver: "eigh" (the full eigendecomposition), "rsvd"
+        # (factor sides n ≥ solver_auto_threshold keep their top
+        # solver_rank eigenpairs plus a residual-trace diagonal, from the
+        # randomized solve of ops/rsvd.py, preconditioned by the Woodbury
+        # solves of ops/precondition.py) or "streaming" (the rsvd layout,
+        # its periodic refresh replaced by a per-capture-step fold through
+        # the kept bases, ops/streaming.py, and a re-orthonormalization
+        # when the drift gauge crosses stream_drift_threshold). A side
+        # below the threshold, or with solver_rank ≥ n, stays dense.
+        _validate("solver_rank", isinstance(solver_rank, int) and 0 < solver_rank, solver_rank)
+        _validate(
+            "solver_auto_threshold",
+            isinstance(solver_auto_threshold, int) and 0 < solver_auto_threshold,
+            solver_auto_threshold,
+        )
+        if solver != "eigh" and precond_method == "inverse":
+            raise ValueError(
+                f"solver={solver!r} produces a truncated eigenbasis consumed "
+                "by the eigenbasis (Woodbury) apply path; precond_method="
+                "'inverse' preconditions with explicit Cholesky inverses and "
+                "would silently ignore the configured solver"
+            )
+        if solver != "eigh" and diag_blocks != 1:
+            raise ValueError(
+                f"solver={solver!r} stores one (Q_r, d_r, rho) triple per "
+                "whole factor; diag_blocks > 1 carves factors into diagonal "
+                "blocks whose truncated bases cannot share that layout — "
+                "pick one approximation"
+            )
+        if solver == "streaming" and eigh_chunks > 1:
+            raise ValueError(
+                "solver='streaming' replaces the periodic refresh with a "
+                "per-step fold — there is no recurring eigh spike left for "
+                "eigh_chunks > 1 to spread, and the chunk plan's double "
+                "buffer would shadow the streamed tables (planner rule "
+                "streaming_vs_chunks)"
+            )
+        if solver == "streaming" and staleness_budget > 0:
+            raise ValueError(
+                "solver='streaming' has no pending eigen swap to slip — "
+                "re-orthonormalizations land in place on drift boundaries — "
+                "so a staleness_budget would silently mean nothing on the "
+                "eigen side (planner rule streaming_vs_swap_slip); leave "
+                "staleness_budget=0"
+            )
+        _validate(
+            "stream_drift_threshold",
+            isinstance(stream_drift_threshold, (int, float))
+            and 0.0 <= float(stream_drift_threshold),
+            stream_drift_threshold,
+        )
+        # Bounded staleness: a pending eigen swap may slip by up to this
+        # many steps under measured pressure (the cadence reads
+        # staleness_signal). It needs something that can slip; of the JAX
+        # package's three (a deferred factor flush, a pipelined swap, a
+        # service install) the port carries the pipelined swap.
+        _validate(
+            "staleness_budget",
+            isinstance(staleness_budget, int) and staleness_budget >= 0,
+            staleness_budget,
+        )
+        if staleness_budget > 0 and not (
+            factor_comm_freq > 1 or eigh_chunks > 1 or service_devices > 0
+        ):
+            raise ValueError(
+                "staleness_budget > 0 bounds how far a deferred factor "
+                "flush, a pending eigen swap, or a service basis install "
+                "may slip, and this configuration has none of them: enable "
+                "factor_comm_freq > 1 (deferred reduction), eigh_chunks > 1 "
+                "(pipelined refresh), or service_devices > 0 (curvature "
+                "service), or leave staleness_budget=0"
+            )
         _validate("eigen_dtype", eigen_dtype in EIGEN_DTYPES, eigen_dtype)
         if service_devices != 0:
             _not_ported("service_devices (curvature service)", "9")
@@ -287,6 +395,19 @@ class KFAC:
                 "Cholesky inverses — falling back to the dense apply path"
             )
             self.apply_kernel = "dense"
+        self.eigh_chunks = int(eigh_chunks)
+        self.solver = solver
+        self.solver_rank = int(solver_rank)
+        self.solver_auto_threshold = int(solver_auto_threshold)
+        self.stream_drift_threshold = float(stream_drift_threshold)
+        self.staleness_budget = int(staleness_budget)
+        # Host-side signals of the cadence, zero-argument callables: the
+        # streaming drift gauge (trainers point it at
+        # state["stream_residual"]; None re-orthonormalizes at every
+        # boundary) and the comm/compute pressure of the staleness slip
+        # (None never slips).
+        self.stream_drift_signal = None
+        self.staleness_signal = None
         self.hparams = KFACHParams(
             damping=damping,
             kl_clip=kl_clip,
@@ -295,8 +416,62 @@ class KFAC:
         )
 
     # ------------------------------------------------------------------
+    # Solver policy
+    # ------------------------------------------------------------------
+
+    def _rank_for(self, n: int) -> Optional[int]:
+        """The rank the truncated solvers keep for a factor side of size
+        ``n``, or ``None`` for the dense path: below
+        ``solver_auto_threshold``, or with ``solver_rank >= n`` (truncation
+        buys nothing, and those configurations stay bitwise equal to
+        ``solver="eigh"``). A function of the size alone, so every rank
+        derives the same answer."""
+        if self.solver not in ("rsvd", "streaming"):
+            return None
+        if n < self.solver_auto_threshold or self.solver_rank >= n:
+            return None
+        return self.solver_rank
+
+    def _rank_fn(self):
+        """The ``rank_fn`` of the refresh planners and updates: ``None``
+        under the dense solver, so those paths stay as they were."""
+        return self._rank_for if self.solver in ("rsvd", "streaming") else None
+
+    def _spectrum_mass(self, facs, eigen_full, names) -> torch.Tensor:
+        """``Σ d_r / Σ tr(F)`` over every truncated factor side: the share
+        of factor trace the kept bases captured (1 when no side is
+        truncated)."""
+        cap = tot = None
+        for n in names:
+            e = eigen_full[n]
+            for side in ("A", "G"):
+                if f"rho{side}" not in e:
+                    continue
+                c = e[f"d{side}"].float().sum()
+                t = torch.trace(facs[n][side].float())
+                cap, tot = (c, t) if cap is None else (cap + c, tot + t)
+        if cap is None:
+            return torch.ones((), dtype=torch.float32, device=self.device)
+        return cap / torch.clamp(tot, min=1e-30)
+
+    # ------------------------------------------------------------------
     # State
     # ------------------------------------------------------------------
+
+    def _eigen_side_init(self, side: str, n: int) -> Dict[str, torch.Tensor]:
+        """Zero eigen entries of one factor side: square ``Q``/full ``d``,
+        or, for a side the truncated solvers keep at rank ``r``
+        (:meth:`_rank_for`), ``Q [n, r]``, ``d [r]`` and the scalar
+        residual mass; the layout is fixed from init."""
+        rank = self._rank_for(n)
+        cols = n if rank is None else rank
+        e = {
+            f"Q{side}": torch.zeros((n, cols), dtype=self.eigen_dtype, device=self.device),
+            f"d{side}": torch.zeros((cols,), dtype=torch.float32, device=self.device),
+        }
+        if rank is not None:
+            e[f"rho{side}"] = torch.zeros((), dtype=torch.float32, device=self.device)
+        return e
 
     def _identity_factors(self, model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
         """Identity-initialized ``{layer: {A, G}}`` — the shape oracle.
@@ -342,13 +517,17 @@ class KFAC:
 
     def init(self, model: nn.Module) -> KFACState:
         """Identity factors + zero eigen (or inverse) state, same-shape groups
-        pre-stacked; the zeroed diagnostics with ``track_diagnostics``."""
+        pre-stacked; the zeroed diagnostics with ``track_diagnostics``, and
+        the entries of the levers that are set: the pipelined refresh's
+        ``eigen_pending`` (``eigh_chunks > 1``), the truncated solvers'
+        ``spectrum_mass``, streaming's ``stream_residual`` and
+        ``stream_fold_steps``, the staleness slip's ``eigen_swap_slip``."""
         facs = self._identity_factors(model)
 
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        def zq(n):  # an eigenvector matrix or matrix inverse
+        def zq(n):  # a matrix inverse
             return z(n, n, dtype=self.eigen_dtype)
 
         inverse = self.precond_method == "inverse"
@@ -359,17 +538,36 @@ class KFAC:
                 vocab = f["A_diag"].shape[0]
                 eigen[name] = (
                     {"iA_diag": z(vocab), "iG": zq(g_side)} if inverse
-                    else {"dA": z(vocab), "QG": zq(g_side), "dG": z(g_side)}
+                    else {"dA": z(vocab), **self._eigen_side_init("G", g_side)}
                 )
                 continue
             a_side = f["A"].shape[0]
             eigen[name] = (
                 {"iA": zq(a_side), "iG": zq(g_side)} if inverse
-                else {"QA": zq(a_side), "dA": z(a_side), "QG": zq(g_side), "dG": z(g_side)}
+                else {**self._eigen_side_init("A", a_side), **self._eigen_side_init("G", g_side)}
             )
         split = precond_ops.split_inv_state if inverse else precond_ops.split_eigen_state
         singles, stacked = split(eigen)
         state = {"step": 0, "factors": facs, "eigen": singles, "eigen_stacked": stacked}
+        if self.eigh_chunks > 1:
+            # the pipelined refresh's double buffer, in full per-layer form
+            # (chunks write block regions; the swap splits it); tensors of
+            # its own, apart from the active basis's
+            state["eigen_pending"] = {
+                n: {k: torch.zeros_like(v) for k, v in e.items()} for n, e in eigen.items()
+            }
+        if self.solver in ("rsvd", "streaming"):
+            # share of factor trace the truncated bases captured at the last
+            # refresh
+            state["spectrum_mass"] = z()
+        if self.solver == "streaming":
+            # the fold's drift gauge and the folds since the last
+            # re-orthonormalization
+            state["stream_residual"] = z()
+            state["stream_fold_steps"] = z(dtype=torch.int32)
+        if self.staleness_budget > 0:
+            # 1 while a fully landed pending basis waits for a slipped swap
+            state["eigen_swap_slip"] = z(dtype=torch.int32)
         if self.track_diagnostics:
             state["diagnostics"] = {
                 "nu": torch.ones((), dtype=torch.float32, device=self.device),
@@ -399,13 +597,27 @@ class KFAC:
         update_factors: bool,
         update_eigen: bool,
         diag_warmup_done: bool = True,
+        eigen_chunk: Optional[Tuple[int, int]] = None,
+        swap_eigen: bool = False,
     ) -> Tuple[Dict[str, torch.Tensor], KFACState]:
         """One K-FAC step: factor EMA (capture steps), curvature refresh
         (``update_eigen``), precondition + KL clip (every step).
 
         ``diag_warmup_done`` (``kfac_flags_for_step``: ``epoch >=
         diag_warmup``) lets a refresh split conv factors into
-        ``diag_blocks`` blocks; before it, every factor is one block."""
+        ``diag_blocks`` blocks; before it, every factor is one block.
+
+        ``eigen_chunk=(c, k)`` and ``swap_eigen`` (``eigh_chunks > 1``
+        only) drive the pipelined refresh: the step runs chunk ``c`` of a
+        ``k``-chunk plan into ``state["eigen_pending"]`` and still
+        preconditions with the active basis; ``swap_eigen`` on the last
+        chunk's step promotes the completed pending basis first. Alone,
+        ``swap_eigen`` is a slipped swap's catch-up (``staleness_budget >
+        0``). ``scheduler.EigenRefreshCadence`` owns the schedule, and the
+        invariant that a partial basis is never swapped in.
+
+        Under ``solver="streaming"`` a capture step without a refresh folds
+        the averaged factors through the kept bases."""
         if lr is None:
             raise ValueError(
                 "KFAC.update() requires lr= (the KL clip scales with the "
@@ -413,6 +625,40 @@ class KFAC:
             )
         if damping is None:
             damping = self.hparams.damping
+        if eigen_chunk is not None:
+            if self.eigh_chunks <= 1:
+                raise ValueError(
+                    "eigen_chunk= requires KFAC(eigh_chunks > 1) — the state "
+                    "carries no eigen_pending double buffer to accumulate into"
+                )
+            if update_eigen:
+                raise ValueError(
+                    "eigen_chunk= and update_eigen=True are mutually "
+                    "exclusive: a step either pipelines one chunk or runs "
+                    "the monolithic refresh"
+                )
+            c, k = eigen_chunk
+            if not (0 < k and 0 <= c < k):
+                raise ValueError(f"Invalid eigen_chunk: {eigen_chunk}")
+        elif swap_eigen:
+            if self.staleness_budget <= 0:
+                raise ValueError(
+                    "swap_eigen=True without eigen_chunk=: the swap rides "
+                    "the final chunk's step so the program count stays "
+                    "bounded (only a staleness_budget > 0 configuration "
+                    "may land a slipped swap on a chunk-free step)"
+                )
+            if self.eigh_chunks <= 1:
+                raise ValueError(
+                    "swap_eigen=True requires KFAC(eigh_chunks > 1) — the "
+                    "state carries no eigen_pending double buffer to promote"
+                )
+            if update_eigen:
+                raise ValueError(
+                    "swap_eigen= and update_eigen=True are mutually "
+                    "exclusive: the monolithic refresh installs its own "
+                    "basis"
+                )
         names = list(state["factors"].keys())
         facs = state["factors"]
         if update_factors:
@@ -449,6 +695,8 @@ class KFAC:
                     ),
                 }
         eigen, stacked = state["eigen"], state["eigen_stacked"]
+        pending = state.get("eigen_pending")
+        spectrum_mass = state.get("spectrum_mass")
         # per-layer (dA, dG) of an eigen refresh, for the diagnostics
         fresh_spectra = None
         if update_eigen and self.precond_method == "inverse":
@@ -462,31 +710,80 @@ class KFAC:
             eigen, stacked = precond_ops.split_inv_state(inv)
         elif update_eigen:
             diag_blocks = self.diag_blocks if diag_warmup_done else 1
-            # blocks split conv factors only (a conv weight is OIHW)
-            blocks = {n: diag_blocks if self._is_conv(grads, n) else 1 for n in names}
             # eigh runs in float32; Q is written in eigen_dtype
             if self.world.size > 1:
-                table = layer_assignment(
-                    names,
-                    {n: self._is_conv(grads, n) for n in names},
-                    self.world.size,
-                    self.distribute_layer_factors,
-                    diag_blocks,
-                )
                 eigen = sharded_eigen_update(
-                    facs, table, self.world, self.eps, self.eigen_dtype
+                    facs, self._eigh_table(grads, names, diag_blocks), self.world,
+                    self.eps, self.eigen_dtype, rank_fn=self._rank_fn(),
                 )
             else:
-                eigen = replicated_eigen_update(facs, blocks, self.eps, self.eigen_dtype)
-            # diagonal A: the eigenvectors are the identity, so no eigh — the
-            # eigenvalues are the diagonal under the reference's floor
-            for name in names:
-                if "A_diag" in facs[name]:
-                    d = facs[name]["A_diag"]
-                    eigen[name]["dA"] = d * (d > self.eps)
-            if self.track_diagnostics:
-                fresh_spectra = {n: (eigen[n]["dA"], eigen[n]["dG"]) for n in names}
-            eigen, stacked = precond_ops.split_eigen_state(eigen)
+                # blocks split conv factors only (a conv weight is OIHW)
+                blocks = {n: diag_blocks if self._is_conv(grads, n) else 1 for n in names}
+                eigen = replicated_eigen_update(
+                    facs, blocks, self.eps, self.eigen_dtype, rank_fn=self._rank_fn()
+                )
+            eigen, stacked, spectrum_mass, fresh_spectra = self._install(
+                facs, eigen, names, spectrum_mass, self.solver != "eigh"
+            )
+        elif eigen_chunk is not None:
+            # one chunk of the refresh plan, on the current factors, into
+            # the pending buffer; the plan is LPT over the slots the
+            # monolithic refresh would build, so every rank derives it
+            c, k = eigen_chunk
+            diag_blocks = self.diag_blocks if diag_warmup_done else 1
+            if self.world.size > 1:
+                slots = build_slots(facs, self._eigh_table(grads, names, diag_blocks))
+            else:
+                slots = build_slots(
+                    facs, None,
+                    {n: diag_blocks if self._is_conv(grads, n) else 1 for n in names},
+                )
+            plan = plan_eigh_chunks(slots, k, rank_fn=self._rank_fn())
+            chunk_slots = [slots[i] for i in plan[c]]
+            if c == 0:
+                # a fresh interval: new zeroed buffers, so the swap sees what
+                # a refresh from zeros builds (block boundaries move when the
+                # diag warmup ends) and no chunk writes into a tensor the
+                # active basis holds
+                pending = {
+                    n: {key: torch.zeros_like(v) for key, v in e.items()}
+                    for n, e in pending.items()
+                }
+            if chunk_slots:
+                if self.world.size > 1:
+                    pending = sharded_eigen_chunk_update(
+                        facs, pending, chunk_slots, self.world, self.eps,
+                        rank_fn=self._rank_fn(),
+                    )
+                else:
+                    pending = replicated_eigen_chunk_update(
+                        facs, pending, chunk_slots, self.eps, rank_fn=self._rank_fn()
+                    )
+            if swap_eigen:
+                eigen, stacked, spectrum_mass, fresh_spectra = self._install(
+                    facs, pending, names, spectrum_mass, self.solver == "rsvd"
+                )
+        elif swap_eigen:
+            # a slipped swap's catch-up: every chunk is in the pending
+            # buffer already
+            eigen, stacked, spectrum_mass, fresh_spectra = self._install(
+                facs, pending, names, spectrum_mass, self.solver == "rsvd"
+            )
+
+        # streaming: a capture step folds the averaged factors through the
+        # kept bases; a re-orthonormalization (a refresh) resets the gauge
+        # from its own spectrum mass
+        stream_residual = state.get("stream_residual")
+        stream_fold_steps = state.get("stream_fold_steps")
+        if self.solver == "streaming":
+            if update_eigen:
+                stream_residual = torch.clamp(1.0 - spectrum_mass, min=0.0)
+                stream_fold_steps = torch.zeros_like(stream_fold_steps)
+            elif update_factors:
+                eigen, stacked, stream_residual = streaming_ops.fold_replicated(
+                    facs, eigen, stacked, self.eps
+                )
+                stream_fold_steps = stream_fold_steps + 1
 
         new_grads, gmats, updates, nu = self._precondition_replicated(
             grads, names, eigen, stacked, lr, damping
@@ -497,12 +794,61 @@ class KFAC:
             "eigen": eigen,
             "eigen_stacked": stacked,
         }
+        if pending is not None:
+            new_state["eigen_pending"] = pending
+        if spectrum_mass is not None:
+            new_state["spectrum_mass"] = spectrum_mass
+        if stream_residual is not None:
+            new_state["stream_residual"] = stream_residual
+            new_state["stream_fold_steps"] = stream_fold_steps
+        if "eigen_swap_slip" in state:
+            # 1 from the last chunk's step that withheld its swap until a
+            # swap or a refresh installs a basis
+            last_chunk_no_swap = (
+                eigen_chunk is not None and eigen_chunk[0] == eigen_chunk[1] - 1 and not swap_eigen
+            )
+            new_state["eigen_swap_slip"] = (
+                torch.zeros_like(state["eigen_swap_slip"]) if (swap_eigen or update_eigen)
+                else state["eigen_swap_slip"] + int(last_chunk_no_swap)
+            )
         if self.track_diagnostics:
             new_state["diagnostics"] = self._diagnostics(
                 state["diagnostics"], fresh_spectra, gmats, updates, nu, damping,
-                update_eigen,
+                update_eigen or swap_eigen,
             )
         return new_grads, new_state
+
+    def _eigh_table(self, grads, names, diag_blocks):
+        """The round-robin owners of the refresh's slots over the ranks."""
+        return layer_assignment(
+            names,
+            {n: self._is_conv(grads, n) for n in names},
+            self.world.size,
+            self.distribute_layer_factors,
+            diag_blocks,
+        )
+
+    def _install(self, facs, full, names, spectrum_mass, with_mass):
+        """A refreshed (or swapped-in) full per-layer eigen dict made the
+        active basis: the embeddings' diagonal-A eigenvalues from the
+        current factors (the identity is their eigenbasis, so no eigh: the
+        diagonal under the reference's floor), the spectrum mass when
+        ``with_mass``, the diagnostics' spectra, the singles/stacked split.
+        Returns ``(singles, stacked, spectrum_mass, fresh_spectra)``."""
+        full = {n: dict(e) for n, e in full.items()}
+        for name in names:
+            if "A_diag" in facs[name]:
+                d = facs[name]["A_diag"]
+                full[name]["dA"] = d * (d > self.eps)
+        if with_mass:
+            spectrum_mass = self._spectrum_mass(facs, full, names)
+        fresh_spectra = None
+        if self.track_diagnostics:
+            fresh_spectra = {
+                n: (_side_spectrum(full[n], "A"), _side_spectrum(full[n], "G")) for n in names
+            }
+        singles, stacked = precond_ops.split_eigen_state(full)
+        return singles, stacked, spectrum_mass, fresh_spectra
 
     @staticmethod
     def _is_conv(grads, name: str) -> bool:

@@ -1,8 +1,17 @@
-"""KFACParamScheduler: epoch-keyed multiplicative hyperparameter schedules.
+"""KFACParamScheduler and EigenRefreshCadence: the host-side schedules.
 
-Port of ``kfac_pytorch_tpu/scheduler.py::KFACParamScheduler``: StepLR-like
-multiplicative decay of damping and of the factor / preconditioner update
-frequencies, mutating the preconditioner's host-side ``KFACHParams``.
+Port of ``kfac_pytorch_tpu/scheduler.py``. ``KFACParamScheduler``:
+StepLR-like multiplicative decay of damping and of the factor /
+preconditioner update frequencies, mutating the preconditioner's
+host-side ``KFACHParams``. ``EigenRefreshCadence``: the per-step refresh
+flags of the pipelined refresh, the staleness slip and the streaming
+solver, reading the same live ``KFACHParams``.
+
+The JAX cadence also sets telemetry gauges and writes trace events
+(ROADMAP queue 1 item 9b, ``observability/``). The port keeps the counters
+they read as the cadence's attributes, with no sink: ``_reorth_count``,
+``_swap_slip``, ``_since_flush`` (always 0: the deferred factor flush is
+item 6b) and ``basis_age`` (steps since the last refresh or swap).
 """
 
 from __future__ import annotations
@@ -10,6 +19,10 @@ from __future__ import annotations
 from typing import List, Optional
 
 from kfac_pytorch_tpu_torch.preconditioner import KFAC, KFACHParams
+
+#: Comm/compute pressure above which a ``staleness_budget > 0`` cadence
+#: starts slipping pending eigen swaps (the JAX package's constant).
+STALENESS_PRESSURE_THRESHOLD = 1.0
 
 
 class KFACParamScheduler:
@@ -78,3 +91,192 @@ class KFACParamScheduler:
         factor = self.update_freq_factor_func(self.epoch)
         params.fac_update_freq = max(1, int(self.fac_update_freq_base * factor))
         params.kfac_update_freq = max(1, int(self.kfac_update_freq_base * factor))
+
+
+class EigenRefreshCadence:
+    """Host-side step gating of the pipelined (chunked) eigen refresh.
+
+    ``flags_for_step(step, epoch)`` every step, splatted into the train
+    step. With ``eigh_chunks == 1`` (or ``kfac=None``) the flags equal
+    ``training.step.kfac_flags_for_step``'s, so trainers use this class
+    unconditionally.
+
+    With ``K = eigh_chunks > 1`` each ``kfac_update_freq`` boundary opens a
+    refresh interval: the steps at offsets ``0..k_eff-1`` each run one chunk
+    into ``state["eigen_pending"]`` (``k_eff = min(K, kfac_update_freq)``,
+    from the live hparams, so a schedule change re-plans at the next
+    boundary), and the last chunk's step carries ``swap_eigen``. The
+    invariant: swap only when every chunk of the interval's plan has
+    landed. A plan that changes mid-interval (the update frequency shrank
+    below the chunks in flight, the diag warmup ended) abandons the partial
+    pass, which chunk 0 of the next interval overwrites. The first boundary
+    runs the monolithic refresh instead: the init basis is zeros.
+
+    Bounded staleness (``staleness_budget = S > 0``): while
+    ``kfac.staleness_signal()`` exceeds :data:`STALENESS_PRESSURE_THRESHOLD`
+    the last chunk withholds its swap, which lands later as a bare swap,
+    at most ``S`` steps late and never past the interval's chunk-free
+    steps. Streaming (``solver="streaming"``): no chunks; a boundary
+    re-orthonormalizes (a refresh) when ``kfac.stream_drift_signal()``
+    exceeds ``stream_drift_threshold``, and always before the first one or
+    with no signal wired.
+    """
+
+    def __init__(self, kfac: Optional[KFAC], chunks: Optional[int] = None):
+        self.kfac = kfac
+        self.chunks = int(
+            chunks if chunks is not None else getattr(kfac, "eigh_chunks", 1) or 1
+        ) if kfac is not None else 1
+        if self.chunks > 1 and kfac is not None and kfac.eigh_chunks <= 1:
+            raise ValueError(
+                "EigenRefreshCadence(chunks > 1) needs KFAC(eigh_chunks > 1) "
+                "— the state carries no eigen_pending double buffer"
+            )
+        self._landed: set = set()
+        self._plan_key = None  # (k_eff, diag_warmup_done) of the open interval
+        self._last_refresh_step: Optional[int] = None
+        self._bootstrapped = False
+        self._swap_pending = False  # a complete pending basis awaits its swap
+        self._swap_slip = 0  # steps the current swap has slipped
+        self._flush_owed = False
+        self._flush_slip = 0
+        self._since_flush = 0
+        self._reorth_count = 0  # streaming re-orthonormalizations so far
+        self._stream_signal: Optional[float] = None  # the last drift read
+        self._basis_version = -1
+        self._basis_installed_step: Optional[int] = None
+        self._basis_slip = 0
+        self.basis_age = 0
+
+    def state_dict(self) -> dict:
+        """The host-side interval state, JSON-serializable (the JAX
+        package's keys)."""
+        return {
+            "landed": sorted(self._landed),
+            "plan_key": (
+                None if self._plan_key is None
+                else [int(self._plan_key[0]), bool(self._plan_key[1])]
+            ),
+            "last_refresh_step": self._last_refresh_step,
+            "bootstrapped": self._bootstrapped,
+            "swap_pending": self._swap_pending,
+            "swap_slip": self._swap_slip,
+            "flush_owed": self._flush_owed,
+            "flush_slip": self._flush_slip,
+            "since_flush": self._since_flush,
+            "reorth_count": self._reorth_count,
+            "basis_version": self._basis_version,
+            "basis_installed_step": self._basis_installed_step,
+            "basis_slip": self._basis_slip,
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore :meth:`state_dict`'s output."""
+        self._landed = set(int(c) for c in d.get("landed", []))
+        pk = d.get("plan_key")
+        self._plan_key = None if pk is None else (int(pk[0]), bool(pk[1]))
+        lrs = d.get("last_refresh_step")
+        self._last_refresh_step = None if lrs is None else int(lrs)
+        self._bootstrapped = bool(d.get("bootstrapped", False))
+        self._swap_pending = bool(d.get("swap_pending", False))
+        self._swap_slip = int(d.get("swap_slip", 0))
+        self._flush_owed = bool(d.get("flush_owed", False))
+        self._flush_slip = int(d.get("flush_slip", 0))
+        self._since_flush = int(d.get("since_flush", 0))
+        self._reorth_count = int(d.get("reorth_count", 0))
+        self._basis_version = int(d.get("basis_version", -1))
+        bis = d.get("basis_installed_step")
+        self._basis_installed_step = None if bis is None else int(bis)
+        self._basis_slip = int(d.get("basis_slip", 0))
+
+    def note_basis_installed(self, version: int, step: int, slip: int = 0) -> None:
+        """Record a curvature-service basis install (the service is ROADMAP
+        queue 1 item 9b): it is that mode's refresh event."""
+        self._basis_version = int(version)
+        self._basis_installed_step = int(step)
+        self._basis_slip = int(slip)
+        self._last_refresh_step = int(step)
+        self._bootstrapped = True
+
+    def _pressure(self) -> float:
+        signal = getattr(self.kfac, "staleness_signal", None)
+        return 0.0 if signal is None else float(signal())
+
+    def flags_for_step(self, step: int, epoch: Optional[int] = None) -> dict:
+        """The ``KFAC.update`` flags of ``step``."""
+        if self.kfac is None:
+            return {"update_factors": False, "update_eigen": False}
+        hp = self.kfac.hparams
+        warm = epoch is None or epoch >= self.kfac.diag_warmup
+        flags = {
+            "update_factors": step % hp.fac_update_freq == 0,
+            "update_eigen": False,
+            "diag_warmup_done": warm,
+        }
+        k_eff = max(1, min(self.chunks, hp.kfac_update_freq))
+        boundary = step % hp.kfac_update_freq == 0
+        budget = int(getattr(self.kfac, "staleness_budget", 0) or 0)
+        slipping = budget > 0 and self._pressure() > STALENESS_PRESSURE_THRESHOLD
+        # a swap slips only into the interval's chunk-free tail
+        swap_allowance = min(budget, hp.kfac_update_freq - k_eff)
+        if getattr(self.kfac, "solver", "eigh") == "streaming":
+            if boundary:
+                signal = getattr(self.kfac, "stream_drift_signal", None)
+                if not self._bootstrapped or signal is None:
+                    reorth = True
+                else:
+                    self._stream_signal = float(signal())
+                    reorth = self._stream_signal > float(
+                        getattr(self.kfac, "stream_drift_threshold", 0.0)
+                    )
+                if reorth:
+                    flags["update_eigen"] = True
+                    self._bootstrapped = True
+                    self._last_refresh_step = step
+                    self._reorth_count += 1
+        elif k_eff == 1:
+            flags["update_eigen"] = boundary
+            if boundary:
+                self._last_refresh_step = step
+                self._bootstrapped = True
+                self._landed = set()
+                self._plan_key = None
+                self._swap_pending = False
+                self._swap_slip = 0
+        elif boundary and not self._bootstrapped:
+            flags["update_eigen"] = True
+            self._bootstrapped = True
+            self._last_refresh_step = step
+            self._landed = set()
+            self._plan_key = None
+        else:
+            offset = step % hp.kfac_update_freq
+            plan_key = (k_eff, warm)
+            if boundary:
+                self._landed = set()
+                self._plan_key = plan_key
+                self._swap_pending = False
+                self._swap_slip = 0
+            if offset < k_eff and self._plan_key == plan_key:
+                self._landed.add(offset)
+                swap = self._landed == set(range(k_eff))
+                if swap and slipping and swap_allowance > 0:
+                    # run the last chunk, withhold the swap
+                    swap = False
+                    self._swap_pending = True
+                    self._swap_slip = 1
+                flags["eigen_chunk"] = (offset, k_eff)
+                flags["swap_eigen"] = swap
+                if swap:
+                    self._last_refresh_step = step
+            elif self._swap_pending:
+                if slipping and self._swap_slip < swap_allowance:
+                    self._swap_slip += 1
+                else:
+                    # the slipped swap lands as a bare promote
+                    flags["swap_eigen"] = True
+                    self._swap_pending = False
+                    self._swap_slip = 0
+                    self._last_refresh_step = step
+        self.basis_age = 0 if self._last_refresh_step is None else step - self._last_refresh_step
+        return flags

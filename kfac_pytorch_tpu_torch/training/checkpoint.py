@@ -4,10 +4,15 @@ Port of ``kfac_pytorch_tpu/training/checkpoint.py`` (``checkpoint_path``,
 ``save_checkpoint``, ``latest_epoch``, ``restore_checkpoint``,
 ``restore_weights_only``, ``auto_resume``): the whole ``TrainState`` (model
 parameters and BatchNorm buffers, SGD momentum, K-FAC factors and
-eigendecompositions or inverses, diagnostics, step counters) round-trips,
-and resume picks the newest ``checkpoint-<epoch>``, as the JAX package's
-scan does. Owner-sharded K-FAC state (``rehome_kfac_state``) is ROADMAP
-queue 1 item 7.
+eigendecompositions or inverses, the truncated solvers' rectangular bases
+and residual masses, the pipelined refresh's pending buffer, the solver
+and slip scalars, diagnostics, step counters) round-trips, and resume
+picks the newest ``checkpoint-<epoch>``, as the JAX package's scan does.
+The refresh cadence (``scheduler.EigenRefreshCadence``) is host state and
+is not in the checkpoint, as in the JAX trainers: a resumed run under
+``--eigh-chunks`` bootstraps again with a monolithic refresh at its first
+boundary. Owner-sharded K-FAC state (``rehome_kfac_state``) is ROADMAP
+queue 1 item 7 (7b).
 
 Data-parallel, only rank 0 writes; every rank reads the directory (a
 shared file system, as the JAX package's checkpoints need) at the epoch

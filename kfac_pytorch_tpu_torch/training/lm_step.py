@@ -9,7 +9,8 @@ gradients are clipped by their global norm before ``KFAC.update``, then SGD
 runs through the fused SGD kernel (kernel 4) when ``sgd_hyper`` declares
 the optimizer: also at the recipe's momentum 0, as the JAX package fuses
 ``optax.trace(decay=0)``. Metrics are ``loss`` and ``ppl`` (and the
-``kfac_*`` diagnostics with ``track_diagnostics``). The JAX package's
+``kfac_*`` diagnostics with ``track_diagnostics``, and the truncated
+solvers' gauges). The JAX package's
 compressed multi-device gradient mean (``_compute_compressed``) is ROADMAP
 queue 1 item 6 (6b).
 """
@@ -31,6 +32,7 @@ from kfac_pytorch_tpu_torch.training.step import (
     clip_by_global_norm,
     precondition_and_step,
     softmax_cross_entropy,
+    solver_metrics,
 )
 
 
@@ -54,7 +56,8 @@ def make_lm_train_step(
     sgd_hyper: Optional[Tuple[float, float]] = None,
 ) -> Callable:
     """Build ``step_fn(state, (tokens, targets), carry, generator, lr,
-    damping, update_factors=..., update_eigen=..., diag_warmup_done=...)``
+    damping, update_factors=..., update_eigen=..., diag_warmup_done=...,
+    eigen_chunk=..., swap_eigen=...)``
     ``-> (state, new_carry, metrics)``; ``generator`` draws the dropout
     masks. Updates the model's parameters and the momentum in place."""
     capture = None
@@ -73,6 +76,8 @@ def make_lm_train_step(
         update_factors: bool = False,
         update_eigen: bool = False,
         diag_warmup_done: bool = True,
+        eigen_chunk: Optional[Tuple[int, int]] = None,
+        swap_eigen: bool = False,
     ):
         tokens, targets = batch
         model.train()
@@ -95,12 +100,13 @@ def make_lm_train_step(
         new_state = precondition_and_step(
             state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
             update_factors=update_factors, update_eigen=update_eigen,
-            diag_warmup_done=diag_warmup_done,
+            diag_warmup_done=diag_warmup_done, eigen_chunk=eigen_chunk, swap_eigen=swap_eigen,
         )
         loss = loss.detach()
         metrics = {"loss": loss, "ppl": torch.exp(loss)}
         if kfac is not None and kfac.track_diagnostics:
             metrics.update(diagnostic_metrics(new_state.kfac_state["diagnostics"]))
+        metrics.update(solver_metrics(new_state.kfac_state))
         return new_state, detach_carry(new_carry), metrics
 
     return train_step

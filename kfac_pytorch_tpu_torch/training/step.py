@@ -147,7 +147,9 @@ def make_train_step(
     grad_comm_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """Build ``step_fn(state, batch, lr, damping, update_factors=...,
-    update_eigen=..., diag_warmup_done=...) -> (state, metrics)``.
+    update_eigen=..., diag_warmup_done=..., eigen_chunk=..., swap_eigen=...)
+    -> (state, metrics)``; the flags are ``KFAC.update``'s (from
+    ``kfac_flags_for_step`` or ``scheduler.EigenRefreshCadence``).
 
     The loss is the mean CE with ``label_smoothing`` (the ImageNet recipe's
     0.1), as the JAX step computes it.
@@ -173,7 +175,8 @@ def make_train_step(
     ``accum_steps²``).
 
     With ``kfac.track_diagnostics`` the metrics also carry the ``kfac_*``
-    diagnostics (``observability/diagnostics.py``), as device tensors.
+    diagnostics (``observability/diagnostics.py``), as device tensors, and
+    under the truncated solvers their gauges (:func:`solver_metrics`).
 
     ``world`` (default: the preconditioner's, else the default process
     group's, else one process) is the data-parallel world; see the module
@@ -232,6 +235,8 @@ def make_train_step(
         update_factors: bool = False,
         update_eigen: bool = False,
         diag_warmup_done: bool = True,
+        eigen_chunk: Optional[Tuple[int, int]] = None,
+        swap_eigen: bool = False,
     ):
         images, labels = batch
         model.train()
@@ -260,11 +265,12 @@ def make_train_step(
         new_state = precondition_and_step(
             state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
             update_factors=update_factors, update_eigen=update_eigen,
-            diag_warmup_done=diag_warmup_done,
+            diag_warmup_done=diag_warmup_done, eigen_chunk=eigen_chunk, swap_eigen=swap_eigen,
         )
         metrics = {"loss": loss, "accuracy": acc}
         if kfac is not None and kfac.track_diagnostics:
             metrics.update(diagnostic_metrics(new_state.kfac_state["diagnostics"]))
+        metrics.update(solver_metrics(new_state.kfac_state))
         return new_state, metrics
 
     def accumulate(images, labels, params, capture_stats):
@@ -304,6 +310,20 @@ def make_train_step(
     return train_step
 
 
+def solver_metrics(kfac_state: Optional[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+    """The truncated solvers' gauges as step metrics, as the JAX steps emit
+    them: ``kfac_spectrum_mass`` (the share of factor trace the kept bases
+    captured at the last refresh) and, under streaming,
+    ``kfac_stream_residual`` (the mass outside them after the last fold,
+    what the trainer hands the cadence as its drift signal)."""
+    out = {}
+    if kfac_state is not None and "spectrum_mass" in kfac_state:
+        out["kfac_spectrum_mass"] = kfac_state["spectrum_mass"]
+    if kfac_state is not None and "stream_residual" in kfac_state:
+        out["kfac_stream_residual"] = kfac_state["stream_residual"]
+    return out
+
+
 def precondition_and_step(
     state: TrainState,
     params: Dict[str, torch.Tensor],
@@ -314,7 +334,7 @@ def precondition_and_step(
 ) -> TrainState:
     """The tail of a train step, shared by the image and the RNN LM steps:
     ``KFAC.update`` (with the step's ``update_factors``/``update_eigen``/
-    ``diag_warmup_done`` flags), then SGD, through the fused SGD kernel
+    ``diag_warmup_done``/``eigen_chunk``/``swap_eigen`` flags), then SGD, through the fused SGD kernel
     wrapper when ``sgd_hyper`` declares ``tx`` and a preconditioner runs
     (``sgd_plans`` keeps its launch plan between steps), else per leaf.
     Updates the parameters and momentum in place; returns the next state."""
@@ -408,6 +428,21 @@ def make_masked_eval_step(model: nn.Module, label_smoothing: float = 0.0) -> Cal
             }
 
     return eval_step
+
+
+def step_kind(flags: dict) -> str:
+    """A step's kind in the twins' histories, from its ``KFAC.update``
+    flags: ``"refresh"`` (the monolithic refresh), ``"chunk"`` or
+    ``"chunk-swap"`` (a pipelined refresh chunk, the last one promoting the
+    pending basis), ``"swap"`` (a slipped swap's catch-up), ``"capture"``
+    or ``"plain"``."""
+    if flags.get("update_eigen"):
+        return "refresh"
+    if flags.get("eigen_chunk") is not None:
+        return "chunk-swap" if flags.get("swap_eigen") else "chunk"
+    if flags.get("swap_eigen"):
+        return "swap"
+    return "capture" if flags.get("update_factors") else "plain"
 
 
 def kfac_flags_for_step(

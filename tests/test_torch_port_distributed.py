@@ -360,3 +360,163 @@ def test_one_process_is_a_world_of_one(monkeypatch):
     assert local_rows(8, World(size=2, rank=1)) == slice(4, 8)
     with pytest.raises(ValueError, match="does not split"):
         local_rows(7, World(size=2, rank=0))
+
+
+# ------------------------------------------------------- truncated solvers
+#
+# The rank-aware refresh (``rank_fn``) and the pipelined refresh's chunks
+# over 2 and 4 ranks, on the JAX package's sketch: every rank holds the
+# same result (each slot has one owner, so the exchange is exact); the
+# truncated entries equal the port's replicated refresh bitwise (each
+# block's randomized solve is its own, whatever shares its stack); and the
+# reconstructions ``Q diag(d) Qᵀ + rho (I − Q Qᵀ)`` agree with the port's
+# replicated refresh and with the JAX package's on its 8-device mesh to
+# 1e-5 of the largest entry. Then ``KFAC.update`` through a cadence with
+# ``eigh_chunks=2`` and ``solver="rsvd"`` on the ranks against one process,
+# the preconditioned gradients to 1e-4 of the largest (the damped solve
+# amplifies the rounding of the differently batched solves by up to 1/λ).
+
+# layer -> (A side, G side); threshold 20 and rank 4 truncate the A sides
+# of the stacked pair (G dense), both sides of "l2", neither of "l3"
+SOLVER_LAYERS = {"l0": (40, 12), "l1": (40, 12), "l2": (24, 20), "l3": (13, 16)}
+SOLVER_RANK_CFG, SOLVER_CHUNKS = (20, 4), 3
+SOLVER_KFAC = dict(eigh_chunks=2, solver="rsvd", solver_rank=4, solver_auto_threshold=20,
+                   kfac_update_freq=3, fac_update_freq=1, factor_decay=0.5)
+
+
+def _gapped_spd(r, n):
+    u, _ = np.linalg.qr(r.randn(n, n))
+    return ((u * (10.0 * 0.8 ** np.arange(n))) @ u.T).astype(np.float32)
+
+
+def _solver_inputs():
+    from kfac_pytorch_tpu.ops.rsvd import sketch_matrix as jsketch
+
+    r = np.random.RandomState(130)
+    factors = {n: {"A": _gapped_spd(r, a), "G": _gapped_spd(r, g)}
+               for n, (a, g) in SOLVER_LAYERS.items()}
+    stats = [tuple({n: _gapped_spd(r, SOLVER_LAYERS[n][i]) for n in SOLVER_LAYERS}
+                   for i in (0, 1)) for _ in range(7)]
+    grads = {}
+    for n, (a, g) in SOLVER_LAYERS.items():
+        grads[f"{n}.weight"] = r.randn(g, a - 1).astype(np.float32)
+        grads[f"{n}.bias"] = r.randn(g).astype(np.float32)
+    net = {n: ("dense", (a - 1, g)) for n, (a, g) in SOLVER_LAYERS.items()}
+    return dict(
+        factors=factors, is_conv={n: False for n in SOLVER_LAYERS}, rank_cfg=SOLVER_RANK_CFG,
+        chunks=SOLVER_CHUNKS, sketches={"128x12": np.array(jsketch(128, 12))},
+        kfac_run=dict(net=net, stats=stats, grads=grads, kwargs=SOLVER_KFAC, steps=7),
+    )
+
+
+@pytest.fixture(scope="module")
+def solver_results(tmp_path_factory):
+    def run(world):
+        key = ("solver", world)
+        if key not in _RESULTS:
+            inputs = _solver_inputs()
+            root = tmp_path_factory.mktemp(f"solver{world}")
+            _RESULTS[key] = (inputs, workers.spawn("solver_ops", world, str(root), **inputs))
+        return _RESULTS[key]
+    return run
+
+
+def _reconstruct_lr(eigen):
+    out = {}
+    for n, e in eigen.items():
+        for side in ("A", "G"):
+            q = np.asarray(e[f"Q{side}"], np.float64)
+            f = (q * np.asarray(e[f"d{side}"], np.float64)) @ q.T
+            if f"rho{side}" in e:
+                f += float(e[f"rho{side}"]) * (np.eye(q.shape[0]) - q @ q.T)
+            out[(n, side)] = f
+    return out
+
+
+def _rank_fn(n):
+    threshold, r = SOLVER_RANK_CFG
+    return None if n < threshold or r >= n else r
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_rank_aware_and_chunked_refresh_match_jax(solver_results, world):
+    from kfac_pytorch_tpu.parallel.sharded_eigh import build_slots as jbuild_slots
+    from kfac_pytorch_tpu.parallel.sharded_eigh import replicated_eigen_update as jreplicated
+    from kfac_pytorch_tpu.parallel.sharded_eigh import sharded_eigen_chunk_update as jchunk
+
+    inputs, ranks = solver_results(world)
+    for other in ranks[1:]:
+        for key in ranks[0]:
+            if key.startswith(("sharded", "chunked_sharded")):
+                for n, e in ranks[0][key].items():
+                    for k, v in e.items():
+                        np.testing.assert_array_equal(other[key][n][k], v)
+    names = list(SOLVER_LAYERS)
+    jfacs = {n: {k: jnp.asarray(v) for k, v in f.items()} for n, f in inputs["factors"].items()}
+    mesh = _mesh(8)
+    table = jassign.layer_assignment(names, inputs["is_conv"], 8, None, 1)
+    for key, fn in (("rsvd", _rank_fn), ("dense", None)):
+        want = _reconstruct_lr(jax.device_get(
+            jax.jit(lambda f, fn=fn: jsharded(f, table, mesh, rank_fn=fn))(jfacs)))
+        slots = jbuild_slots(jfacs, table)
+        plan = jassign.plan_eigh_chunks(slots, SOLVER_CHUNKS, rank_fn=fn)
+        pending = jax.tree_util.tree_map(
+            jnp.zeros_like, jreplicated(jfacs, {n: 1 for n in names}, rank_fn=fn))
+        for c in range(SOLVER_CHUNKS):
+            part = [slots[i] for i in plan[c]]
+            pending = jax.jit(lambda f, p, part=part, fn=fn: jchunk(
+                f, p, part, mesh, rank_fn=fn))(jfacs, pending)
+        want_chunked = _reconstruct_lr(jax.device_get(pending))
+        rep = _reconstruct_lr(ranks[0][f"replicated_{key}"])
+        for got_key in (f"sharded_{key}", f"chunked_sharded_{key}", f"chunked_replicated_{key}"):
+            got = _reconstruct_lr(ranks[0][got_key])
+            assert set(got) == set(want) == set(rep) and len(got) == 8
+            for k, w in want.items():
+                _close(got[k], w, 1e-5)
+                _close(got[k], want_chunked[k], 1e-5)
+                _close(got[k], rep[k], 1e-5)
+        if key == "rsvd":
+            for got_key in ("sharded_rsvd", "chunked_sharded_rsvd", "chunked_replicated_rsvd"):
+                for n, e in ranks[0]["replicated_rsvd"].items():
+                    for k in (k for k in e if k.startswith("rho")):
+                        side = k[3:]
+                        for part in (f"Q{side}", f"d{side}", k):
+                            np.testing.assert_array_equal(ranks[0][got_key][n][part], e[part])
+            e = ranks[0]["sharded_rsvd"]
+            assert e["l0"]["QA"].shape == (40, 4) and e["l0"]["QG"].shape == (12, 12)
+            assert e["l2"]["QG"].shape == (20, 4) and "rhoA" not in e["l3"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_kfac_chunked_rsvd_on_ranks_matches_one_process(solver_results, world):
+    from kfac_pytorch_tpu_torch import KFAC, EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense
+    from kfac_pytorch_tpu_torch.ops import rsvd
+
+    inputs, ranks = solver_results(world)
+    run = inputs["kfac_run"]
+    sketch = rsvd.sketch_matrix
+    rsvd.sketch_matrix = lambda m, cols, device=None: torch.from_numpy(
+        inputs["sketches"][f"{m}x{cols}"])
+    try:
+        model = torch.nn.Module()
+        for n, (_, args) in run["net"].items():
+            model.add_module(n, KFACDense(*args))
+        kfac = KFAC(layers=list(run["net"]), device="cpu", **run["kwargs"])
+        state, cadence, kinds = kfac.init(model), EigenRefreshCadence(kfac), []
+        grads = {k: torch.from_numpy(v) for k, v in run["grads"].items()}
+        for step in range(run["steps"]):
+            flags = cadence.flags_for_step(step)
+            kinds.append("refresh" if flags["update_eigen"] else
+                         "swap" if flags.get("swap_eigen") else
+                         "chunk" if "eigen_chunk" in flags else "capture")
+            a_c, g_s = ({n: torch.from_numpy(v) for n, v in d.items()}
+                        for d in run["stats"][step])
+            new, state = kfac.update(grads, state, a_contribs=a_c, g_factor_stats=g_s,
+                                     lr=0.1, damping=0.003, **flags)
+            for other in ranks:
+                for k, v in new.items():
+                    _close(other["kfac_updates"][step][k], v.numpy(), 1e-4)
+    finally:
+        rsvd.sketch_matrix = sketch
+    assert kinds == ["refresh", "capture", "capture", "chunk", "swap", "capture", "chunk"]

@@ -10,7 +10,8 @@
   ``test_scheduler_parity``;
 * the capture hooks against the factor functions they call;
 * device rules: no GPU and no ``device=`` raises; ``"kernel"`` on the CPU
-  raises; levers of later slices raise ``NotImplementedError``; the inverse
+  raises; levers of later slices raise ``NotImplementedError`` (those of
+  ported slices are accepted); the inverse
   method refuses ``diag_blocks > 1`` and the fused apply kernel.
 
 Tolerances: eigenvectors differ between LAPACK builds (sign, near-degenerate
@@ -305,7 +306,14 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
     """Each lever raised naming its ROADMAP item until that item was ported.
     Item 6a's are ported: ``mesh=`` (a JAX mesh) is refused in favour of
     ``process_group=``, and ``distribute_precondition`` on one process
-    warns and runs replicated, as in the JAX package."""
+    warns and runs replicated, as in the JAX package. Item 7a's are
+    ported: ``eigh_chunks`` and ``solver`` are accepted and kept; item 7b's
+    (``factor_sharding="owner"``, ``comm_overlap``) still raise."""
+    if "eigh_chunks" in kwargs or "solver" in kwargs:
+        kfac = KFAC(device="cpu", **kwargs)
+        for k, v in kwargs.items():
+            assert getattr(kfac, k) == v
+        return
     if "mesh" in kwargs:
         with pytest.raises(ValueError, match="process_group="):
             KFAC(device="cpu", **kwargs)

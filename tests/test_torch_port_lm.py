@@ -290,7 +290,7 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
     (["--qkv-lens"], "item 8"),
     (["--remat"], "item 8"),
     (["--seq-parallel", "2"], "item 8"),
-    (["--solver", "rsvd"], "item 7"),
+    (["--factor-sharding", "owner"], "item 7"),
     (["--factor-comm-dtype", "bf16"], "item 6"),
     (["--service-devices", "1"], "item 9"),
 ])

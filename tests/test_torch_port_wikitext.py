@@ -247,7 +247,7 @@ def test_wikitext_trainer_reads_data_and_resumes_bitwise(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--eigh-chunks", "2"], "item 7"),
+    (["--factor-sharding", "owner"], "item 7"),
     (["--factor-comm-dtype", "bf16"], "item 6"),
     (["--preempt-save-dir", "d"], "item 9"),
     (["--profile", "safe"], "item 9"),

@@ -192,4 +192,72 @@ def twins(rank, world, cifar_dir, shard_dir, out_dir):
     return out
 
 
-TASKS = {"ops": ops, "steps": steps, "twins": twins}
+# ------------------------------------------------------- truncated solvers
+
+
+def solver_ops(rank, world, factors, is_conv, rank_cfg, chunks, sketches, kfac_run):
+    """The rank-aware (``rank_fn``) and chunked refreshes on this rank,
+    sharded and replicated, on the JAX package's sketches (``sketches``:
+    ``{"<m>x<cols>": array}``); then ``KFAC.update`` over a cadence with
+    ``eigh_chunks`` and ``solver="rsvd"`` on ``kfac_run``'s statistics."""
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence, KFAC
+    from kfac_pytorch_tpu_torch.ops import rsvd
+    from kfac_pytorch_tpu_torch.parallel.assignment import layer_assignment, plan_eigh_chunks
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
+    from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
+        build_slots,
+        replicated_eigen_chunk_update,
+        replicated_eigen_update,
+        sharded_eigen_chunk_update,
+        sharded_eigen_update,
+    )
+
+    rsvd.sketch_matrix = lambda m, cols, device=None: torch.from_numpy(sketches[f"{m}x{cols}"])
+    w = data_parallel_world()
+    facs, names = _t(factors), list(factors)
+    threshold, r = rank_cfg
+
+    def rank_fn(n):
+        return None if n < threshold or r >= n else r
+
+    out = {}
+    for key, fn in (("rsvd", rank_fn), ("dense", None)):
+        table = layer_assignment(names, is_conv, world, None, 1)
+        out[f"sharded_{key}"] = _np(sharded_eigen_update(facs, table, w, rank_fn=fn))
+        out[f"replicated_{key}"] = _np(replicated_eigen_update(facs, {n: 1 for n in names},
+                                                               rank_fn=fn))
+        slots = build_slots(facs, table)
+        plan = plan_eigh_chunks(slots, chunks, rank_fn=fn)
+        template = replicated_eigen_update(facs, {n: 1 for n in names}, rank_fn=fn)
+        for mode in ("sharded", "replicated"):
+            pending = {n: {k: torch.zeros_like(v) for k, v in e.items()}
+                       for n, e in template.items()}
+            for c in range(chunks):
+                part = [slots[i] for i in plan[c]]
+                if mode == "sharded":
+                    pending = sharded_eigen_chunk_update(facs, pending, part, w, rank_fn=fn)
+                else:
+                    pending = replicated_eigen_chunk_update(facs, pending, part, rank_fn=fn)
+            out[f"chunked_{mode}_{key}"] = _np(pending)
+
+    net, stats, grads, kw, steps = (kfac_run[k] for k in
+                                    ("net", "stats", "grads", "kwargs", "steps"))
+    model = torch.nn.Module()
+    for name, (kind, args) in net.items():
+        from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense
+
+        model.add_module(name, (KFACConv if kind == "conv" else KFACDense)(*args))
+    kfac = KFAC(layers=list(net), device="cpu", **kw)
+    assert kfac.world.size == world
+    state, cadence, updates = kfac.init(model), EigenRefreshCadence(kfac), []
+    for step in range(steps):
+        a_c, g_s = (_t(x) for x in stats[step])
+        new, state = kfac.update(_t(grads), state, a_contribs=a_c, g_factor_stats=g_s,
+                                 lr=0.1, damping=0.003, **cadence.flags_for_step(step))
+        updates.append(_np(new))
+    out["kfac_updates"] = updates
+    out["kfac_eigen"] = (_np(state["eigen"]), _np(state["eigen_stacked"]))
+    return out
+
+
+TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops}
