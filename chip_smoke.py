@@ -18,8 +18,10 @@ and checkpoint import, through the numpy pipeline and the native threaded
 loader), each image path also in the bfloat16 modes
 (``--bf16 --eigen-dtype bf16``, slice 9), WikiText LSTM K-FAC training,
 the data-parallel K-FAC (slice 11) at world 1 on NCCL and on two ranks
-of the one card, and the pipelined refresh and the truncated solvers
-(slice 12) on the ResNet, LM and WikiText paths and on two ranks.
+of the one card, the pipelined refresh and the truncated solvers
+(slice 12) on the ResNet, LM and WikiText paths and on two ranks, and the
+factor comm plane (slice 13: bucketed, bf16, deferred and int8 factor
+wires) with the LM and WikiText twins at NCCL world 1 and on two ranks.
 Kernels 1, 1g and 3 have two routes each, counted apart
 (``launches`` and ``launches_bf16``): 3xTF32 for float32 inputs, and a
 bf16 route for bfloat16 activations (1, 1g) or bfloat16 eigenvectors (3).
@@ -271,11 +273,38 @@ no result line):
        rank-aware refresh and a sharded chunked pass within 1e-5 of the
        replicated refresh, the first 5 losses within 1e-3 of one process
        on the concatenated batch;
-22. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+22. the factor comm plane and the LM twins across ranks (slice 13):
+    a. the LM twin at phases 7-10's widths through ``launch.initialize`` on
+       NCCL at world size 1 (20b's setup) with ``--factor-comm-dtype bf16
+       --factor-comm-freq 2 --grad-comm-dtype bf16`` (inert at world 1, as
+       in the JAX package), phase 8's 38 steps: its losses within
+       ``RESUME_RTOL`` of phase 8's, kernels 2 and 3-7 as implied, the
+       capture step's median ms beside phase 8's and 20b's;
+    b. two ranks on the one card (20c's setup), the LM for 12 steps with
+       ``--factor-comm-freq 2`` on the float32 wire and again with the bf16
+       factor and gradient wires: kernels 2 and 3-7 per rank as implied;
+       the f32-wire run's first 5 losses within 1e-3 of one process on the
+       concatenated batch, the bf16 run's 12 within ``COMM_BF16_RTOL`` of
+       it, its factor wire bytes half the f32 run's; the collectives' host
+       ms per capture and per flush step from ``torch.profiler``; the CIFAR
+       twin (ResNet-32, phase 4's recipe) with the bf16 wires and
+       ``--factor-comm-freq 2`` for 12 steps through its ``main()``:
+       kernels 1, 3 and 4 per rank as implied, flush steps among them;
+    c. in the same two ranks, the WikiText LSTM (19a's recipe) for 12 steps
+       with ``--factor-comm-dtype int8 --factor-comm-freq 4`` and on the
+       float32 wire: kernels 3 and 4 per rank as implied, the int8 wire's
+       bytes (``quant_wire_bytes``, ~0.51x bf16), the error-feedback
+       residual's norm at each flush within 16/127 of the factors' (one
+       quantization step per element), the 12 losses within
+       ``COMM_INT8_RTOL`` of the f32 wire's; then, in this process, the
+       int8 quantizer on a 33,278²-element payload (WikiText-2's G
+       factor): its peak memory above the payload and its time;
+23. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3; kernel 1's ResNet-50 row, kernel 2's tied-path row,
     kernel 3's WikiText rows and kernel 4's LSTM row beside the others, the
     two-rank launches of kernels 1, 3 and 4, and every kernel's launches on
-    phase 21's paths), then the last line ``{"ok": true, "device": {...}}``.
+    phase 21's and phase 22's paths, per rank on the two-rank ones), then
+    the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2697,23 +2726,15 @@ def loader_phase(device, counters, d256, numpy_rrc):
     return out
 
 
-def world1_phase(device, counters):
-    """Phase 20b: the CIFAR twin (ResNet-32, the recipe, 30 steps) through
-    ``launch.initialize`` on NCCL at world size 1 (``torchrun``'s variables
-    set, a free ``localhost`` port): its losses equal the non-distributed
-    run's within ``RESUME_RTOL`` (both with deterministic cuDNN), and kernels
-    1, 3 and 4 launch as the run implies."""
+def in_nccl_world1(run):
+    """``(run(), backend, world size)``, ``run`` inside a process group that
+    ``launch.initialize`` joins on NCCL at world size 1 (``torchrun``'s
+    variables set, a free ``localhost`` port), destroyed after it."""
     import os
     import socket
 
-    import torch
     import torch.distributed as dist
 
-    from kfac_pytorch_tpu_torch.models import cifar_resnet
-
-    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    plain = train([])
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2721,16 +2742,35 @@ def world1_phase(device, counters):
            "MASTER_PORT": str(port)}
     os.environ.update(env)
     try:
-        hist, launches = counted(lambda: train([]), counters)
+        out = run()
         backend, world = dist.get_backend(), dist.get_world_size()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         for k in env:
             os.environ.pop(k, None)
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
     if (backend, world) != ("nccl", 1):
         raise AssertionError(f"world-1 run on {backend} with {world} ranks, want nccl and 1")
+    return out, backend, world
+
+
+def world1_phase(device, counters):
+    """Phase 20b: the CIFAR twin (ResNet-32, the recipe, 30 steps) through
+    ``launch.initialize`` on NCCL at world size 1: its losses equal the
+    non-distributed run's within ``RESUME_RTOL`` (both with deterministic
+    cuDNN), and kernels 1, 3 and 4 launch as the run implies."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain = train([])
+        (hist, launches), backend, world = in_nccl_world1(lambda: counted(lambda: train([]),
+                                                                          counters))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
     gate_launches(launches, conv_expected_launches(
         hist, cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)), device),
         "ResNet-32, NCCL world 1")
@@ -3351,6 +3391,303 @@ def streaming_phase(device, counters, lstm):
             "streaming_vs_rsvd_max_rel_diff": rel, "launches": launches}
 
 
+# Phase 22 (slice 13): the factor comm plane and the LM twins across ranks.
+COMM_LM_FLAGS = ["--factor-comm-dtype", "bf16", "--factor-comm-freq", "2",
+                 "--grad-comm-dtype", "bf16"]
+COMM_STEPS = 12
+COMM_TIMEOUT_S = 600
+# the bf16 factor and gradient wires against the float32 wire, every loss
+COMM_BF16_RTOL = 1e-2
+# the int8 factor wire against the float32 wire, every loss
+COMM_INT8_RTOL = 1e-2
+# one quantization step per element: ‖residual‖ ≤ (√256 / 127)·‖payload‖
+RESIDUAL_BOUND = 16 / 127
+COMM_RUNS = (  # (name, twin, argv)
+    ("lm_f32", "lm", [*LM_ARGS, "--factor-comm-freq", "2"]),
+    ("lm_bf16", "lm", [*LM_ARGS, *COMM_LM_FLAGS]),
+    ("lstm_f32", "lstm", [*WIKITEXT_ARGS, "--factor-comm-freq", "4"]),
+    ("lstm_int8", "lstm", [*WIKITEXT_ARGS, "--factor-comm-dtype", "int8",
+                           "--factor-comm-freq", "4"]),
+    ("cifar_bf16", "cifar", [*RESNET_ARGS, *COMM_LM_FLAGS]),
+)
+LM_COUNTERS = {"token_count": "compute_a_embed_fused", "fused_apply": "fused_precondition_stack",
+               "fused_sgd": "fused_sgd_apply", "flash_forward": "flash_forward",
+               "flash_dq": "flash_backward_dq", "flash_dkv": "flash_backward_dkv"}
+
+
+def lm_world1_phase(device, counters, lm_hist, lm_capture_ms, world1):
+    """Phase 22a: the LM twin with the comm plane's levers on NCCL at world
+    size 1, phase 8's 38 steps: losses within ``RESUME_RTOL`` of phase 8's,
+    kernels 2 and 3-7 as implied, the capture step's median beside phase
+    8's and 20b's."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    (hist, launches), backend, world = in_nccl_world1(
+        lambda: counted(lambda: train_lm(["--epochs", str(LM_EPOCHS), *COMM_LM_FLAGS]), counters))
+    args = trainer.parse_args(LM_ARGS)
+    model = trainer.build(args, device)[0]
+    expected = {LM_COUNTERS[k]: n for k, n in lm_expected_launches(hist, model).items()}
+    del model
+    torch.cuda.empty_cache()
+    gate_launches(launches, expected, "LM, NCCL world 1")
+    rel = [abs(a - b) / abs(b) for a, b in zip(hist["loss"], lm_hist["loss"])]
+    if len(rel) != len(lm_hist["loss"]) or not max(rel) <= RESUME_RTOL:
+        raise AssertionError(f"LM at NCCL world 1: losses {hist['loss']} vs phase 8's "
+                             f"{lm_hist['loss']}")
+    bitwise = sum(a == b for a, b in zip(hist["loss"], lm_hist["loss"]))
+    stats = step_stats(hist, args.batch_size * args.seq_len)
+    print(f"LM at NCCL world 1 ({' '.join(COMM_LM_FLAGS)}): {bitwise} of {len(rel)} losses "
+          f"bitwise phase 8's; capture step {stats['capture_ms_median']:.2f} ms (phase 8 "
+          f"{lm_capture_ms:.2f}; ResNet-32 at world 1 {world1['capture_step_ms_median']:.2f}, "
+          f"without a group {world1['plain_capture_step_ms_median']:.2f})", flush=True)
+    return {"backend": backend, "world": world, "flags": COMM_LM_FLAGS,
+            "losses_max_rel_diff": max(rel), "losses_bitwise": bitwise, "steps": len(rel),
+            "capture_step_ms_median": stats["capture_ms_median"],
+            "refresh_step_ms_median": stats["refresh_ms_median"],
+            "phase8_capture_step_ms_median": lm_capture_ms,
+            "resnet32_world1_capture_step_ms_median": world1["capture_step_ms_median"],
+            "resnet32_plain_capture_step_ms_median": world1["plain_capture_step_ms_median"],
+            "launches": launches, "expected_launches": expected}
+
+
+def _comm_run(twin, argv, device, world, steps):
+    """One of ``COMM_RUNS`` on this rank: ``steps`` counted steps through the
+    refresh cadence on this rank's rows, then a flush step and a capture
+    step profiled for the collectives' host ms; the residual's and the
+    factors' norms after each flush on the int8 wire. The CIFAR twin runs
+    through its ``main()``: ``steps`` counted steps."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as cifar_trainer
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as wt_trainer
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+    from kfac_pytorch_tpu_torch.parallel.comm import publish_wire_quant_error
+    from kfac_pytorch_tpu_torch.parallel.mesh import local_rows
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+    from kfac_pytorch_tpu_torch.training.lm_step import init_carry
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step, step_kind
+
+    counters = (fk.compute_a_conv_fused, fk.compute_a_conv_grouped_fused,
+                fk.compute_a_embed_fused, ak.fused_precondition_stack, ak.fused_sgd_apply,
+                fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    if twin == "cifar":
+        hist, launches = counted(
+            lambda: cifar_trainer.main([*argv, "--steps-per-epoch", str(steps)]), counters)
+        model = cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0))
+        return {"losses": hist["loss"], "kinds": hist["kind"], "step_ms": hist["step_ms"],
+                "launches": launches,
+                "expected_launches": conv_expected_launches(hist, model, device)}
+    if twin == "lm":
+        args = lm_trainer.parse_args(argv)
+        model, kfac, state, step_fn, splits = lm_trainer.build(args, device, world=world)
+        stream = lm_trainer.rank_rows(splits["train"], args, world)
+        seg, lr = args.seq_len, args.base_lr
+    else:
+        args = wt_trainer.parse_args(argv)
+        splits, vocab = wt_trainer.load_corpus(args)
+        model, kfac, state, lm_step = wt_trainer.build(args, len(vocab), device, world)
+        stream = data_lib.batchify_tokens(splits["train"], args.batch_size)[
+            local_rows(args.batch_size, world)]
+        seg, lr = args.bptt, args.base_lr
+        carry = [init_carry(model, stream.shape[0], device)]
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+
+        def step_fn(state, batch, lr, damping, **flags):
+            state, carry[0], m = lm_step(state, batch, carry[0], gen, lr, damping, **flags)
+            return state, m
+    # the LM's synthetic stream holds 9 segments at a global batch of 8: the
+    # steps after them take its segments again, as a second epoch would
+    batches = [lm_trainer.device_batch(x, y, device)
+               for x, y in data_lib.bptt_batches(stream, seg)][:steps]
+    cadence = EigenRefreshCadence(kfac)
+    out = {"losses": [], "kinds": [], "step_ms": [], "flush_residual": [],
+           "segments": len(batches)}
+    zero_counts(counters)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda _: None)
+    for i in range(steps):
+        batch = batches[i % len(batches)]
+        flags = cadence.flags_for_step(i, 0)
+        sync(device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, lr, kfac.hparams.damping, **flags)
+        out["losses"].append(float(m["loss"]))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["kinds"].append(step_kind(flags))
+        if flags.get("flush_factors") and "wire_error" in state.kfac_state:
+            facs = torch.sqrt(sum(torch.sum(t.float() ** 2) for f in
+                                  state.kfac_state["factors"].values() for t in f.values()))
+            out["flush_residual"].append(
+                (i, publish_wire_quant_error(state.kfac_state["wire_error"]), float(facs)))
+    out["launches"] = read_counts(counters)
+    hist = {"loss": out["losses"], "kind": out["kinds"], "val_loss": []}
+    if twin == "lm":
+        out["expected_launches"] = {LM_COUNTERS[k]: n for k, n in
+                                    lm_expected_launches(hist, model).items()}
+    else:
+        out["expected_launches"] = wikitext_expected(hist)
+    out["wire_bytes"] = kfac.factor_comm.last_wire_bytes
+    out["bucket_sizes"] = [b.size for b in kfac.factor_comm._plan_for(
+        [t for f in state.kfac_state["factors"].values() for t in f.values()])]
+    # the collectives' host time on a flush step and a capture step
+    exchange = {}
+    freq = kfac.factor_comm.comm_freq
+    for label, i in (("flush", 2 * freq * steps), ("capture", 2 * freq * steps + 1)):
+        flags = kfac_flags_for_step(i, kfac, 0)
+        if step_kind(flags) != label:
+            raise AssertionError(f"step {i} is a {step_kind(flags)} step, want {label}")
+        sync(device)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            state, m = step_fn(state, batches[0], lr, kfac.hparams.damping, **flags)
+            float(m["loss"])
+        ops = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+               if e.key.startswith("gloo:")}
+        exchange[label] = {"ms": sum(ops.values()), "ops": ops}
+    out["exchange_ms"] = exchange
+    return out
+
+
+def comm_worker(rank, store, out_path, steps, device_name, runs):
+    """One rank of phases 22b-c (``torch.multiprocessing`` target): each of
+    ``runs`` (``COMM_RUNS``) on ``cuda:0`` over gloo; writes its results as
+    JSON to ``out_path-<rank>.json``."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.device import use_ieee_f32
+    from kfac_pytorch_tpu_torch.parallel import launch
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
+
+    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                               rank=rank, world_size=2)
+    try:
+        use_ieee_f32()
+        world = data_parallel_world()
+        result = {"rank": rank, "device": str(device),
+                  "backend": torch.distributed.get_backend(), "runs": {}}
+        for name, twin, argv in runs:
+            result["runs"][name] = _comm_run(twin, argv, device, world, steps)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(result, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def quantize_peak(device, n=WIKITEXT2_VOCAB):
+    """The int8 quantizer (``FactorComm.quantize_payload_``) on one flat
+    payload of ``n²`` elements, a WikiText-2-sized G factor: the peak
+    memory above the payload, the payload's own bytes, and the time."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.parallel.comm import FactorComm
+    from kfac_pytorch_tpu_torch.parallel.mesh import World
+
+    payload = torch.empty(n * n, dtype=torch.float32, device=device).normal_()
+    fc = FactorComm(World(), "int8", 2)
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    codes, scale = fc.quantize_payload_(payload, 0, 0)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"elements": n * n, "payload_bytes": payload.numel() * 4,
+           "peak_above_payload_bytes": torch.cuda.max_memory_allocated(device) - base,
+           "codes_bytes": codes.numel(), "scales_bytes": scale.numel() * 4, "ms": ms}
+    del payload, codes, scale
+    torch.cuda.empty_cache()
+    return out
+
+
+def comm_phase(device):
+    """Phases 22b-c: two ranks on the one card, ``COMM_RUNS`` in each (see
+    the module docstring for the gates), one process on the concatenated
+    LM batch, and the quantizer's peak at WikiText-2's width."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from kfac_pytorch_tpu_torch.parallel.comm import quant_wire_bytes
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_comm_") as tmp:
+        ctx = mp.spawn(comm_worker, args=(f"{tmp}/store", f"{tmp}/rank", COMM_STEPS,
+                                          str(device), COMM_RUNS), nprocs=2, join=False)
+        deadline = time.monotonic() + COMM_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the two ranks did not finish in {COMM_TIMEOUT_S} s")
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank-{r}.json") as fh:
+                ranks.append(json.load(fh))
+    for res in ranks:
+        for name, run in res["runs"].items():
+            gate_launches(run["launches"], run["expected_launches"],
+                          f"rank {res['rank']}, {name}")
+            if not all(math.isfinite(v) for v in run["losses"]):
+                raise AssertionError(f"rank {res['rank']}, {name}: losses {run['losses']}")
+    runs = ranks[0]["runs"]
+    for name in runs:
+        if ranks[1]["runs"][name]["losses"] != runs[name]["losses"]:
+            raise AssertionError(f"{name}: the ranks' losses (means over the ranks) differ")
+    if "flush" not in runs["cifar_bf16"]["kinds"]:
+        raise AssertionError(f"CIFAR twin's step kinds {runs['cifar_bf16']['kinds']}")
+    # one process on the concatenated global batch, the f32 run's first steps
+    step_fn, state, kfac, batches, args = lm_setup(device, ["--batch-size", str(2 * 4)])
+    one = []
+    for i in range(ORACLE_STEPS):
+        state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping,
+                           **kfac_flags_for_step(i, kfac, 0))
+        one.append(float(m["loss"]))
+    del state, step_fn, kfac, batches
+    torch.cuda.empty_cache()
+    worst = gate_oracle(runs["lm_f32"]["losses"], one, "LM, two ranks vs one process",
+                        range(ORACLE_STEPS))
+    bf16_rel = gate_oracle(runs["lm_bf16"]["losses"], runs["lm_f32"]["losses"],
+                           "LM, bf16 wires vs the f32 wire", range(COMM_STEPS), COMM_BF16_RTOL)
+    int8_rel = gate_oracle(runs["lstm_int8"]["losses"], runs["lstm_f32"]["losses"],
+                           "LSTM, int8 wire vs the f32 wire", range(COMM_STEPS), COMM_INT8_RTOL)
+    if runs["lm_bf16"]["wire_bytes"] * 2 != runs["lm_f32"]["wire_bytes"]:
+        raise AssertionError(f"bf16 factor wire {runs['lm_bf16']['wire_bytes']} bytes, the f32 "
+                             f"wire's {runs['lm_f32']['wire_bytes']}")
+    sizes = runs["lstm_int8"]["bucket_sizes"]
+    if (runs["lstm_int8"]["wire_bytes"], runs["lstm_f32"]["wire_bytes"]) != (
+            quant_wire_bytes(sizes), 4 * sum(sizes)):
+        raise AssertionError(f"LSTM wire bytes {runs['lstm_int8']['wire_bytes']} (int8) and "
+                             f"{runs['lstm_f32']['wire_bytes']} (f32) for buckets {sizes}")
+    int8_over_bf16 = runs["lstm_int8"]["wire_bytes"] / (2 * sum(sizes))
+    for res in ranks:
+        flushes = res["runs"]["lstm_int8"]["flush_residual"]
+        if not flushes or any(not 0 < e <= RESIDUAL_BOUND * f for _, e, f in flushes):
+            raise AssertionError(f"rank {res['rank']}: int8 residual norms {flushes} (bound "
+                                 f"{RESIDUAL_BOUND:.4f} of the factors' norm)")
+    quant = quantize_peak(device)
+    print(f"two ranks, factor comm plane: LM f32 wire within {worst:.2e} of one process, bf16 "
+          f"wires within {bf16_rel:.2e} of it at half the bytes "
+          f"({runs['lm_bf16']['wire_bytes']}); LSTM int8 within {int8_rel:.2e} of the f32 wire, "
+          f"{int8_over_bf16:.3f}x the bf16 bytes, residual/factors "
+          f"{max(e / f for _, e, f in runs['lstm_int8']['flush_residual']):.2e}; collectives "
+          f"(rank 0's host ms) LM flush {runs['lm_f32']['exchange_ms']['flush']['ms']:.1f}, "
+          f"capture {runs['lm_f32']['exchange_ms']['capture']['ms']:.1f}; quantizer at "
+          f"33,278²: {quant['peak_above_payload_bytes'] / 1e9:.2f} GB above the "
+          f"{quant['payload_bytes'] / 1e9:.2f} GB payload, {quant['ms']:.1f} ms", flush=True)
+    return {"ranks": ranks, "one_process_losses": one, "max_rel_diff_vs_one_process": worst,
+            "bf16_max_rel_diff": bf16_rel, "int8_max_rel_diff": int8_rel,
+            "int8_over_bf16_bytes": int8_over_bf16, "steps": COMM_STEPS,
+            "quantizer_33278": quant}
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -3823,7 +4160,26 @@ def main() -> int:
     lm_sgd["resnet32_two_ranks"] = {"launches_per_rank": [
         r["launches"]["fused_sgd_apply"] for r in two_ranks["ranks"]]}
 
-    # 22. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 22a-c. this slice: the factor comm plane and the LM twins across
+    # ranks; the LM at NCCL world 1 and, with the LSTM, on two ranks of
+    # the one card, each path with the counters zeroed just before
+    mark("22a. LM, NCCL world 1, the comm plane's levers")
+    lm_world1 = lm_world1_phase(device, all_counted, lm_hist, lm_stats["capture_ms_median"],
+                                world1)
+    print(json.dumps({"lm_nccl_world_1": lm_world1}), flush=True)
+    mark("22b-c. two ranks: LM bf16 wires, LSTM int8 wire")
+    comm = comm_phase(device)
+    print(json.dumps({"two_ranks_comm": comm}), flush=True)
+    w1 = lm_world1["launches"]
+    for k, key in ((conv_a, "compute_a_conv_fused"), (token_count, "compute_a_embed_fused"),
+                   (lm_apply, "fused_precondition_stack"), (lm_sgd, "fused_sgd_apply"),
+                   (flash[0], "flash_forward"), (flash[1], "flash_backward_dq"),
+                   (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice13_paths"] = {"lm_nccl_world1": w1[key], **{
+            f"{name}_two_ranks_per_rank": [r["runs"][name]["launches"][key] for r in comm["ranks"]]
+            for name, _, _ in COMM_RUNS}}
+
+    # 23. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

@@ -318,3 +318,21 @@ def write_back(
             mats = mats[..., :-1]
         out[f"{base}.weight"] = mats.reshape(weight.shape).contiguous().to(weight.dtype)
     return out
+
+
+def factor_stat_tree(
+    a_contribs: Dict[str, torch.Tensor], g_stats: Dict[str, torch.Tensor]
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The per-layer A and G statistics as ONE tree, the factor comm plane's
+    wire format (``parallel/comm.py``): A and G leaves of different layers
+    share buckets, and the fixed ``{"a": ..., "g": ...}`` framing keeps the
+    flattened leaf order (every A in layer order, then every G) the same on
+    every rank."""
+    return {"a": a_contribs, "g": g_stats}
+
+
+def split_factor_stat_tree(
+    tree: Dict[str, Dict[str, torch.Tensor]]
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Inverse of :func:`factor_stat_tree`."""
+    return tree["a"], tree["g"]

@@ -30,7 +30,9 @@ Data-parallel, one process per GPU under ``torchrun`` (NCCL; gloo with
 ``create_lr_schedule(world, ...)``), each rank trains on its interleaved
 shard of every epoch, K-FAC runs the reference's distributed algorithm
 (``--distribute-precondition``, ``--distribute-layer-factors``,
-``--precond-comm-dtype``), ``--grad-comm-dtype bf16`` compresses the
+``--precond-comm-dtype``), its factor statistics cross the wire through
+the factor comm plane (``--factor-comm-dtype f32|bf16|int8``,
+``--factor-comm-freq``), ``--grad-comm-dtype bf16`` compresses the
 gradient mean (and BatchNorm normalizes per rank, as in the JAX trainer),
 rank 0 prints, logs and writes checkpoints, and every rank starts from
 rank 0's state.
@@ -101,8 +103,6 @@ DIAG_EXTRA_KEYS = (
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--factor-comm-dtype", str, "f32", "6 (6b, factor comm plane)"),
-    ("--factor-comm-freq", int, 1, "6 (6b, factor comm plane)"),
     ("--factor-sharding", str, "replicated", "7 (7b, owner-sharded factors)"),
     ("--profile-epoch", int, None, "9 (training/profiling.py)"),
     ("--telemetry-dir", str, None, "9 (observability/)"),
@@ -226,6 +226,27 @@ def add_parallel_flags(p: argparse.ArgumentParser) -> None:
                         "(BatchNorm then normalizes per rank); None = float32")
 
 
+def add_factor_comm_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX trainers' factor comm plane flags: ``--factor-comm-dtype``
+    and ``--factor-comm-freq``."""
+    p.add_argument("--factor-comm-dtype", default="f32", choices=["f32", "bf16", "int8"],
+                   help="wire dtype of the bucketed K-FAC factor-statistics "
+                        "exchange (parallel/comm.py); int8 = block-scaled "
+                        "codes + error feedback at 0.51x the bf16 bytes "
+                        "(requires --factor-comm-freq > 1)")
+    p.add_argument("--factor-comm-freq", type=int, default=1,
+                   help="all-reduce factor statistics every N capture steps "
+                        "instead of every one (merged running averages, "
+                        "always flushed before an eigen refresh); 1 = "
+                        "per-step exchange, exact")
+
+
+def factor_comm_kwargs(args) -> Dict[str, object]:
+    """``KFAC`` keyword arguments of :func:`add_factor_comm_flags`' flags."""
+    return {"factor_comm_dtype": args.factor_comm_dtype,
+            "factor_comm_freq": args.factor_comm_freq}
+
+
 def parallel_kwargs(args) -> Dict[str, object]:
     """``KFAC`` keyword arguments of :func:`add_parallel_flags`' flags."""
     return {
@@ -303,6 +324,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_precision_flags(p)
     add_refresh_flags(p)
     add_parallel_flags(p)
+    add_factor_comm_flags(p)
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch K-FAC stability diagnostics (nu, "
                         "damped eigenvalues, condition numbers, update/grad "
@@ -362,6 +384,7 @@ def build(args, device: torch.device, world: World = World()):
             **precision_kwargs(args),
             **refresh_kwargs(args),
             **parallel_kwargs(args),
+            **factor_comm_kwargs(args),
             factor_kernel=args.factor_kernel,
             apply_kernel=args.apply_kernel,
             device=device,

@@ -1,9 +1,9 @@
-"""Transformer-LM training with K-FAC on one GPU (PyTorch port).
+"""Transformer-LM training with K-FAC on one GPU or data-parallel (PyTorch port).
 
-Twin of the JAX package's ``examples/train_transformer_lm.py`` for one
-device: the same flags with the same defaults for what the port carries
-(model widths, SGD with global-norm clipping, K-FAC with an optional
-diagonal-A token embedding, the tied head ``--tie-embeddings``), the same
+Twin of the JAX package's ``examples/train_transformer_lm.py`` on its pure
+data-parallel mesh: the same flags with the same defaults for what the
+port carries (model widths, SGD with global-norm clipping, K-FAC with an
+optional diagonal-A token embedding, the tied head ``--tie-embeddings``), the same
 data (WikiText token files from ``--data-dir``, else the synthetic
 corpus), BPTT segments,
 K-FAC gating (every step's flags from ``scheduler.EigenRefreshCadence``:
@@ -17,9 +17,23 @@ trainer is accepted with its default and, set to anything else, raises
 ``SystemExit`` naming the ROADMAP item that ports it. ``--log-dir``
 defaults to none here (``./logs`` in the JAX trainer).
 
+Data-parallel, one process per GPU under ``torchrun`` (NCCL; gloo with
+``--device cpu``): ``--batch-size`` is per rank (the JAX trainer's per
+data slot), the global stream is batchified at ``--batch-size`` times the
+world size and each rank keeps its contiguous block of rows, the
+gradients and the loss are averaged over the ranks (``--grad-comm-dtype
+bf16`` compresses the gradient mean), the K-FAC statistics cross the
+factor comm plane (``--factor-comm-dtype``, ``--factor-comm-freq``),
+every rank starts from rank 0's state, rank 0 prints, logs and writes
+checkpoints, and validation runs each rank's rows, averaged over the
+ranks.
+
     python -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --d-model 512 --n-heads 8 --n-layers 4 --seq-len 2048 \\
         --batch-size 4 --kfac-embedding --epochs 2
+    torchrun --nproc-per-node 2 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
+        --synthetic --kfac-embedding --factor-comm-dtype bf16 \\
+        --factor-comm-freq 2 --grad-comm-dtype bf16
 
 Attention runs the CUDA flash kernels on a GPU
 (``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
@@ -42,16 +56,22 @@ import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
-from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
+    add_factor_comm_flags,
     add_refresh_flags,
+    factor_comm_kwargs,
+    grad_comm_dtype,
+    rank0_print,
     refresh_cadence,
     refresh_kwargs,
 )
 from kfac_pytorch_tpu_torch.models import transformer_lm
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
+from kfac_pytorch_tpu_torch.parallel import launch
 from kfac_pytorch_tpu_torch.parallel.context import full_attention
+from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
@@ -77,9 +97,6 @@ _LATER_FLAGS = (
     ("--attention", str, "ring", "8 (sequence parallelism)"),
     ("--remat", None, False, "8"),
     ("--qkv-lens", None, False, "8 (expand lens)"),
-    ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
-    ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
-    ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
     ("--factor-sharding", str, "replicated", "7 (7b, owner sharding)"),
     ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
@@ -104,7 +121,7 @@ def parse_args(argv=None):
     p.add_argument("--n-heads", type=int, default=4)
     p.add_argument("--n-layers", type=int, default=2)
     p.add_argument("--seq-len", type=int, default=128, help="tokens per sample")
-    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--batch-size", type=int, default=8, help="per data-parallel rank")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--base-lr", type=float, default=0.01)
@@ -132,6 +149,11 @@ def parse_args(argv=None):
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
     add_refresh_flags(p)
+    p.add_argument("--grad-comm-dtype", default=None, choices=[None, "bf16"],
+                   help="downcast the per-step data-parallel gradient mean "
+                        "on the wire (the reference's --fp16-allreduce); "
+                        "None = float32")
+    add_factor_comm_flags(p)
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch means of the K-FAC health diagnostics "
                         "(nu, damped eigenvalues, condition numbers, "
@@ -153,6 +175,16 @@ def parse_args(argv=None):
     return args
 
 
+def ranks_mean(value: float, world: World, device: torch.device) -> float:
+    """A host float's mean over the ranks (each rank's mean over its equal
+    share of rows: the global batch's mean)."""
+    if not world.distributed:
+        return value
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    world.all_reduce_mean_([t])
+    return float(t)
+
+
 def device_batch(toks: np.ndarray, tgts: np.ndarray, device: torch.device):
     """One ``(tokens, targets)`` segment as int64 tensors on ``device``."""
     return (
@@ -169,13 +201,20 @@ def load_corpus(args):
     if wt_dir:
         return data_lib.build_corpus(wt_dir)
     if not args.synthetic:
-        print("no WikiText data found; falling back to --synthetic")
+        rank0_print("no WikiText data found; falling back to --synthetic")
     return data_lib.synthetic_corpus(vocab_size=SYNTHETIC_VOCAB)
 
 
-def build(args, device: torch.device, oracle: bool = False):
+def rank_rows(split, args, world: World):
+    """This rank's rows of a split's ``[batch-size × world, N]`` stream:
+    the JAX trainer's per-process contiguous row block."""
+    stream = data_lib.batchify_tokens(split, args.batch_size * world.size)
+    return stream[world.rank * args.batch_size:(world.rank + 1) * args.batch_size]
+
+
+def build(args, device: torch.device, oracle: bool = False, world: World = World()):
     """``(model, kfac, state, train_step, splits)`` for parsed ``args`` on
-    ``device``: the model, the preconditioner (``None`` at
+    ``device`` over ``world``: the model, the preconditioner (``None`` at
     ``--kfac-update-freq 0``), the train state, the train step and the
     corpus. ``oracle=True`` builds the oracle path instead — exact
     attention and the dense factor and apply routes — which the JAX
@@ -200,9 +239,11 @@ def build(args, device: torch.device, oracle: bool = False):
             kfac_update_freq=args.kfac_update_freq,
             track_diagnostics=args.kfac_diagnostics,
             **refresh_kwargs(args),
+            **factor_comm_kwargs(args),
             factor_kernel="dense" if oracle else "auto",
             apply_kernel="dense" if oracle else args.apply_kernel,
             device=device,
+            process_group=world.group,
         )
     state = TrainState(
         step=0,
@@ -216,15 +257,20 @@ def build(args, device: torch.device, oracle: bool = False):
         # through the fused SGD kernel
         sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
         grad_clip=args.grad_clip,
+        world=world,
+        grad_comm_dtype=grad_comm_dtype(args),
     )
     return model, kfac, state, train_step, splits
 
 
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = launch.initialize(args.device)
     use_ieee_f32()
-    model, kfac, state, train_step, splits = build(args, device)
+    world = data_parallel_world()
+    global_bs = args.batch_size * world.size
+    rank0_print(f"devices={world.size} global_batch={global_bs} seq_len={args.seq_len}")
+    model, kfac, state, train_step, splits = build(args, device, world=world)
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "restore_ms": [],
     }
@@ -234,7 +280,9 @@ def main(argv=None) -> Dict[str, List]:
         state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
         if resume_from_epoch:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
-            print(f"resumed from epoch {resume_from_epoch - 1}")
+            rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
+    # every rank starts from rank 0's state (hvd.broadcast_parameters)
+    ckpt.broadcast_state(state, world)
     kfac_sched = None
     if kfac is not None and args.damping_schedule:
         kfac_sched = KFACParamScheduler(
@@ -243,11 +291,12 @@ def main(argv=None) -> Dict[str, List]:
         )
     eval_step = make_eval_step(model)
 
-    # [batch, N] contiguous streams; segments of seq_len become samples
-    stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
+    # [batch, N] contiguous streams (this rank's rows of the global one);
+    # segments of seq_len become samples
+    stream = rank_rows(splits["train"], args, world)
     max_steps = (stream.shape[1] - 1) // args.seq_len
     steps_per_epoch = min(args.steps_per_epoch or max_steps, max_steps)
-    writer = ScalarWriter(args.log_dir)
+    writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
 
     step = state.step
     cadence = refresh_cadence(kfac, lambda: state)
@@ -287,9 +336,9 @@ def main(argv=None) -> Dict[str, List]:
         check_token_ids(device)
         dt = time.perf_counter() - t0
         ppl = math.exp(min(loss_m.avg, 20.0))
-        print(
+        rank0_print(
             f"epoch {epoch}: loss={loss_m.avg:.4f} ppl={ppl:.1f} "
-            f"{steps_per_epoch * args.batch_size * args.seq_len / dt:.0f} tok/s ({dt:.1f}s)"
+            f"{steps_per_epoch * global_bs * args.seq_len / dt:.0f} tok/s ({dt:.1f}s)"
         )
         writer.add_scalar("train/loss", loss_m.avg, epoch)
         writer.add_scalar("train/ppl", ppl, epoch)
@@ -297,18 +346,18 @@ def main(argv=None) -> Dict[str, List]:
             means = {k: sum(v) / len(v) for k, v in sorted(diag.items())}
             for k, v in means.items():
                 writer.add_scalar(f"kfac/{k[5:]}_mean", v, epoch)  # kfac_x -> kfac/x_mean
-            print(f"  kfac: nu={means.get('kfac_nu', 0.0):.4f} "
-                  f"cond_max={means.get('kfac_cond_max', 0.0):.3e} "
-                  f"upd_cos={means.get('kfac_update_grad_cos', 0.0):.3f}")
-        val = data_lib.batchify_tokens(splits["valid"], args.batch_size)
+            rank0_print(f"  kfac: nu={means.get('kfac_nu', 0.0):.4f} "
+                        f"cond_max={means.get('kfac_cond_max', 0.0):.3e} "
+                        f"upd_cos={means.get('kfac_update_grad_cos', 0.0):.3f}")
+        val = rank_rows(splits["valid"], args, world)
         vl = [
             float(eval_step(state, device_batch(toks, tgts, device))["loss"])
             for toks, tgts in data_lib.bptt_batches(val, args.seq_len)
         ]
         if vl:
-            v = sum(vl) / len(vl)
+            v = ranks_mean(sum(vl) / len(vl), world, device)
             history["val_loss"].append(v)
-            print(f"  val: loss={v:.4f} ppl={math.exp(min(v, 20.0)):.1f}")
+            rank0_print(f"  val: loss={v:.4f} ppl={math.exp(min(v, 20.0)):.1f}")
             writer.add_scalar("val/loss", v, epoch)
             writer.add_scalar("val/ppl", math.exp(min(v, 20.0)), epoch)
         if args.checkpoint_dir:

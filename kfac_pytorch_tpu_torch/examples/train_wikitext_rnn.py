@@ -1,7 +1,7 @@
-"""WikiText RNN/LSTM language-model training with K-FAC on one GPU (PyTorch port).
+"""WikiText RNN/LSTM LM training with K-FAC, one GPU or data-parallel (PyTorch port).
 
-Twin of the JAX package's ``examples/train_wikitext_rnn.py`` for one
-device: the same flags with the same defaults for what the port carries
+Twin of the JAX package's ``examples/train_wikitext_rnn.py``: the same
+flags with the same defaults for what the port carries
 (WikiText token files from ``--data-dir`` or the synthetic Zipf corpus; the
 four cell types, tying and the K-FAC token embedding; SGD with global-norm
 clipping and the lr /4 decay; K-FAC on the decoder, and with
@@ -18,11 +18,24 @@ and, set to anything else, raises ``SystemExit`` naming the ROADMAP item
 that ports it. ``--log-dir`` defaults to none here (``./logs`` in the JAX
 trainer).
 
+Data-parallel, one process per GPU under ``torchrun`` (NCCL; gloo with
+``--device cpu``): ``--batch-size`` is the global batch, as in the JAX
+trainer, and must divide by the world size; each rank trains its
+contiguous block of the stream's rows and carries their recurrent state,
+the gradients and the loss are averaged over the ranks before the clip
+(``--grad-comm-dtype bf16`` compresses the gradient mean), the K-FAC
+statistics cross the factor comm plane (``--factor-comm-dtype``,
+``--factor-comm-freq``), the dropout masks differ per rank, every rank
+starts from rank 0's state, rank 0 prints, logs and writes checkpoints,
+and validation runs each rank's rows, averaged over the ranks.
+
     python -m kfac_pytorch_tpu_torch.examples.train_wikitext_rnn \\
         --data-dir /path/to/wikitext-2 --epochs 40
     python -m kfac_pytorch_tpu_torch.examples.train_wikitext_rnn --synthetic \\
         --emsize 16 --nhid 16 --batch-size 4 --bptt 8 --epochs 1 \\
         --steps-per-epoch 4 --device cpu
+    torchrun --nproc-per-node 2 -m kfac_pytorch_tpu_torch.examples.train_wikitext_rnn \\
+        --data-dir /path/to/wikitext-2 --factor-comm-dtype int8 --factor-comm-freq 4
 
 The dropout masks come from a ``torch.Generator`` seeded with ``--seed``
 plus the epoch at each epoch's start, so a resumed epoch draws the masks of
@@ -46,15 +59,21 @@ from typing import Dict, List
 import torch
 
 from kfac_pytorch_tpu_torch import KFAC, capture
-from kfac_pytorch_tpu_torch.device import resolve_device, use_ieee_f32
+from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
+    add_factor_comm_flags,
     add_refresh_flags,
+    factor_comm_kwargs,
+    grad_comm_dtype,
+    rank0_print,
     refresh_cadence,
     refresh_kwargs,
 )
-from kfac_pytorch_tpu_torch.examples.train_transformer_lm import device_batch
+from kfac_pytorch_tpu_torch.examples.train_transformer_lm import device_batch, ranks_mean
 from kfac_pytorch_tpu_torch.models import wikitext_rnn
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
+from kfac_pytorch_tpu_torch.parallel import launch
+from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, local_rows
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.lm_step import (
@@ -70,13 +89,10 @@ from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, step_kind
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--factor-comm-dtype", str, "f32", "6 (factor comm plane)"),
-    ("--factor-comm-freq", int, 1, "6 (factor comm plane)"),
     ("--factor-sharding", str, "replicated", "7 (7b, owner sharding)"),
     ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
-    ("--grad-comm-dtype", str, None, "6 (multi-GPU)"),
 )
 
 
@@ -102,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "composes with --tied — the shared table then "
                         "accumulates ONE set of statistics over both the "
                         "lookup and the decoder use sites (reduce lens)")
-    p.add_argument("--batch-size", type=int, default=20)
+    p.add_argument("--batch-size", type=int, default=20,
+                   help="global batch (rows of the stream), split over the ranks")
     p.add_argument("--bptt", type=int, default=35)
     p.add_argument("--epochs", type=int, default=40)
     p.add_argument("--steps-per-epoch", type=int, default=None)
@@ -121,6 +138,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
     add_refresh_flags(p)
+    add_factor_comm_flags(p)
+    p.add_argument("--grad-comm-dtype", default=None, choices=[None, "bf16"],
+                   help="downcast the per-step data-parallel gradient mean "
+                        "on the wire (the reference's --fp16-allreduce); "
+                        "None = exact f32 reduction")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, kind, default, _ in _LATER_FLAGS:
@@ -148,17 +170,18 @@ def load_corpus(args):
     wt_dir = None if args.synthetic else data_lib.find_wikitext(args.data_dir)
     if wt_dir:
         splits, vocab = data_lib.build_corpus(wt_dir)
-        print(f"wikitext from {wt_dir}: vocab={len(vocab)}")
+        rank0_print(f"wikitext from {wt_dir}: vocab={len(vocab)}")
         return splits, vocab
     if not args.synthetic:
-        print("no wikitext data found; falling back to --synthetic")
+        rank0_print("no wikitext data found; falling back to --synthetic")
     return data_lib.synthetic_corpus()
 
 
-def build(args, ntokens: int, device: torch.device):
+def build(args, ntokens: int, device: torch.device, world: World = World()):
     """``(model, kfac, state, train_step)`` for parsed ``args`` on
-    ``device``; ``kfac`` is ``None`` at ``--kfac-update-freq 0`` and when
-    the model has no preconditionable layer."""
+    ``device`` over ``world``; ``kfac`` is ``None`` at
+    ``--kfac-update-freq 0`` and when the model has no preconditionable
+    layer."""
     model = wikitext_rnn.get_model(
         args.model, ntokens, args.emsize, args.nhid, args.nlayers, args.dropout,
         args.tied, kfac_embedding=args.kfac_embedding,
@@ -169,9 +192,9 @@ def build(args, ntokens: int, device: torch.device):
     if args.kfac_update_freq > 0:
         layers = capture.discover_layers(model)
         if not layers:
-            print("WARNING: no preconditionable layers (tied decoder?); running plain SGD")
+            rank0_print("WARNING: no preconditionable layers (tied decoder?); running plain SGD")
         else:
-            print(f"K-FAC layers: {layers}")
+            rank0_print(f"K-FAC layers: {layers}")
             kfac = KFAC(
                 layers=layers,
                 factor_decay=args.stat_decay,
@@ -181,7 +204,9 @@ def build(args, ntokens: int, device: torch.device):
                 kfac_update_freq=args.kfac_update_freq,
                 apply_kernel=args.apply_kernel,
                 **refresh_kwargs(args),
+                **factor_comm_kwargs(args),
                 device=device,
+                process_group=world.group,
             )
     state = TrainState(
         step=0,
@@ -194,18 +219,30 @@ def build(args, ntokens: int, device: torch.device):
         # tx IS make_sgd(momentum, wd): with K-FAC the optimizer step runs
         # through the fused SGD kernel, at momentum 0 too
         sgd_hyper=(args.momentum, args.wd) if kfac is not None else None,
+        world=world,
+        grad_comm_dtype=grad_comm_dtype(args),
     )
     return model, kfac, state, train_step
 
 
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = launch.initialize(args.device)
     use_ieee_f32()
+    world = data_parallel_world()
+    if args.batch_size % world.size:
+        raise SystemExit(
+            f"the data-parallel step splits the batch over {world.size} ranks; "
+            f"--batch-size {args.batch_size} must divide evenly"
+        )
     splits, vocab = load_corpus(args)
-    train_stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
-    val_stream = data_lib.batchify_tokens(splits.get("valid", splits["train"]), args.batch_size)
-    model, kfac, state, train_step = build(args, len(vocab), device)
+    # this rank's contiguous rows of the global [batch, N] streams
+    rows = local_rows(args.batch_size, world)
+    train_stream = data_lib.batchify_tokens(splits["train"], args.batch_size)[rows]
+    val_stream = data_lib.batchify_tokens(
+        splits.get("valid", splits["train"]), args.batch_size)[rows]
+    local_bs = train_stream.shape[0]
+    model, kfac, state, train_step = build(args, len(vocab), device, world)
     eval_step = make_lm_eval_step(model)
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "val_ppl": [], "restore_ms": [],
@@ -216,10 +253,12 @@ def main(argv=None) -> Dict[str, List]:
         state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
         if resume_from_epoch:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
-            print(f"resumed from epoch {resume_from_epoch - 1}")
+            rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
+    # every rank starts from rank 0's state (hvd.broadcast_parameters)
+    ckpt.broadcast_state(state, world)
     max_steps = (train_stream.shape[1] - 1) // args.bptt
     steps_per_epoch = min(args.steps_per_epoch or max_steps, max_steps)
-    writer = ScalarWriter(args.log_dir)
+    writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
     generator = torch.Generator(device=device)
 
     step = state.step
@@ -230,7 +269,7 @@ def main(argv=None) -> Dict[str, List]:
             if epoch >= e:
                 lr *= 0.25  # torch LM convention: anneal lr /4 at plateaus
         generator.manual_seed(args.seed + epoch)
-        carry = init_carry(model, args.batch_size, device)
+        carry = init_carry(model, local_bs, device)
         loss_m = Metric("train/loss")
         t0 = time.perf_counter()
         for i, (xb, yb) in enumerate(data_lib.bptt_batches(train_stream, args.bptt)):
@@ -263,21 +302,22 @@ def main(argv=None) -> Dict[str, List]:
             check_token_ids(device)
         dt = time.perf_counter() - t0
         ppl = math.exp(min(loss_m.avg, 20))
-        print(f"epoch {epoch}: loss={loss_m.avg:.4f} ppl={ppl:.1f} "
-              f"lr={lr:.2f} ({steps_per_epoch} steps, {dt:.1f}s)")
+        rank0_print(f"epoch {epoch}: loss={loss_m.avg:.4f} ppl={ppl:.1f} "
+                    f"lr={lr:.2f} ({steps_per_epoch} steps, {dt:.1f}s)")
         writer.add_scalar("train/loss", loss_m.avg, epoch)
         writer.add_scalar("train/ppl", ppl, epoch)
 
-        vcarry = init_carry(model, args.batch_size, device)
+        vcarry = init_carry(model, local_bs, device)
         vl = Metric("val/loss")
         for xb, yb in data_lib.bptt_batches(val_stream, args.bptt):
             m, vcarry = eval_step(state, device_batch(xb, yb, device), vcarry)
             vl.update(float(m["loss"]))
-        vppl = math.exp(min(vl.avg, 20))
-        history["val_loss"].append(vl.avg)
+        val_loss = ranks_mean(vl.avg, world, device)
+        vppl = math.exp(min(val_loss, 20))
+        history["val_loss"].append(val_loss)
         history["val_ppl"].append(vppl)
-        print(f"  val: loss={vl.avg:.4f} ppl={vppl:.1f}")
-        writer.add_scalar("val/loss", vl.avg, epoch)
+        rank0_print(f"  val: loss={val_loss:.4f} ppl={vppl:.1f}")
+        writer.add_scalar("val/loss", val_loss, epoch)
         writer.add_scalar("val/ppl", vppl, epoch)
         if args.checkpoint_dir:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)

@@ -1,8 +1,9 @@
 """Kronecker factor statistics (A = input covariance, G = grad-output covariance).
 
 Port of ``kfac_pytorch_tpu/ops/factors.py`` (the conv, grouped conv, dense
-and diagonal-A embedding subset, and ``compute_g_diag`` for the tied
-decoder head). The math is the reference's; the layouts
+and diagonal-A embedding subset, ``compute_g_diag`` for the tied decoder
+head, the running average and the factor wire's bucket merge
+``merge_running_avg_buckets``). The math is the reference's; the layouts
 are PyTorch's:
 
 * activations and output-grads are NCHW, conv weights OIHW
@@ -19,7 +20,7 @@ TF32 off, ``device.use_ieee_f32``), matching the reference's
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -253,6 +254,29 @@ def update_running_avg(
     The reference CODE's semantics (not its docstring); returns a new tensor.
     """
     return alpha * current + (1.0 - alpha) * new
+
+
+def merge_running_avg_buckets(
+    bufs: Sequence[torch.Tensor], comm_dtype: Optional[torch.dtype], world
+) -> List[torch.Tensor]:
+    """The ranks' uniform-weight mean of each flat bucket (a
+    ``parallel.mesh.World``'s ranks): one ``all_reduce`` per bucket, its
+    payload in ``comm_dtype`` when given (each rank's value rounds once),
+    each result back in its bucket's dtype; the inputs are not modified.
+
+    Exact for the deferred factor flush because :func:`update_running_avg`
+    is linear in its contributions: after ``m`` local updates from a synced
+    ``F0`` rank ``r`` holds ``α^m·F0 + (1−α)·Σ_j α^(m−1−j)·c_j^(r)``, so the
+    ranks' mean weighs step j's mean contribution as a per-step mean would
+    have (DP-KFAC). In float32 the bucketed mean is elementwise what one
+    mean per leaf gives: bitwise where the backend's sum is order-free (two
+    ranks)."""
+    out = []
+    for buf in bufs:
+        wire = buf.clone() if comm_dtype is None else buf.to(comm_dtype)
+        world.all_reduce_sum_(wire)
+        out.append((wire / world.size).to(buf.dtype))
+    return out
 
 
 # ---------------------------------------------------------------------------

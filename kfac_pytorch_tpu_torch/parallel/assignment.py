@@ -1,10 +1,11 @@
-"""Deterministic layer → rank work assignment.
+"""Deterministic layer → rank work assignment, and the factor wire's buckets.
 
 A copy of ``kfac_pytorch_tpu/parallel/assignment.py``'s ``RoundRobin``,
-``precondition_assignment``, ``layer_assignment`` and the pipelined
+``precondition_assignment``, ``layer_assignment``, the pipelined
 refresh's planners ``plan_eigh_chunks`` and ``eigh_chunk_owners`` with
-their slot cost ``_slot_cost`` (importing the JAX module would import JAX
-through its package). The eigendecomposition table
+their slot cost ``_slot_cost``, and the factor comm plane's bucket layout
+(``FactorBucketEntry``, ``FactorBucket``, ``plan_factor_buckets``)
+(importing the JAX module would import JAX through its package). The eigendecomposition table
 mirrors the reference's ``cycle`` iterator and its per-update ``reset()``
 (kfac/utils.py:12-39, kfac_preconditioner.py:383-396): it is recomputed
 from (world, layers, diag_blocks, distribute_layer_factors) alone, so every
@@ -12,13 +13,15 @@ rank derives the same table and keeps the same layers across refreshes,
 and nothing is communicated to agree on it. The chunk planners are LPT
 over the JAX package's padded cost (``bucket_size³``, or the randomized
 solver's matmul cost) with its tie-breaks, so they return its plans. The
-factor-bucket and shard plans wait for ROADMAP queue 1 items 6b and 7b.
+bucket plan is the JAX package's first-fit over a list of leaf shapes; the
+owner-sharded factor plan waits for ROADMAP queue 1 item 7 (7b).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from kfac_pytorch_tpu_torch.ops.eigh import bucket_size
 from kfac_pytorch_tpu_torch.ops.rsvd import DEFAULT_OVERSAMPLE
@@ -153,3 +156,60 @@ def eigh_chunk_owners(
     with the chunk planner's cost: the full refresh's round-robin table
     balances the whole slot set, not a chunk of it."""
     return _lpt(slots, world, granularity, minimum, rank_fn)
+
+
+# ---------------------------------------------------------------------------
+# Factor-communication wire buckets (parallel/comm.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorBucketEntry:
+    """One stat leaf's slice of a wire bucket: ``index`` is the leaf's
+    position in the flattened stat tree (the same on every rank),
+    ``offset``/``size`` locate its flat payload in the bucket and ``shape``
+    restores it."""
+
+    index: int
+    offset: int
+    size: int
+    shape: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorBucket:
+    """One flat wire buffer: a static slice layout over stat leaves."""
+
+    entries: Tuple[FactorBucketEntry, ...]
+    size: int
+
+
+def plan_factor_buckets(
+    shapes: Sequence[Tuple[int, ...]], max_bucket_elems: int = 1 << 20
+) -> Tuple[FactorBucket, ...]:
+    """Pack factor-stat leaves into a small static set of flat wire buckets:
+    one collective moves each bucket instead of one per leaf (SPD-KFAC's
+    tensor fusion). Greedy first-fit in leaf order, never reordered: a
+    bucket closes when the next leaf would push it past
+    ``max_bucket_elems`` (1 Mi elements, 4 MiB at float32), and a single
+    oversized leaf gets a bucket of its own rather than splitting. A pure
+    function of the shapes, so every rank derives the same layout."""
+    if max_bucket_elems < 1:
+        raise ValueError(f"Invalid max_bucket_elems: {max_bucket_elems}")
+    buckets: List[FactorBucket] = []
+    entries: List[FactorBucketEntry] = []
+    offset = 0
+    for index, shape in enumerate(shapes):
+        size = 1
+        for d in shape:
+            size *= int(d)
+        if entries and offset + size > max_bucket_elems:
+            buckets.append(FactorBucket(entries=tuple(entries), size=offset))
+            entries, offset = [], 0
+        entries.append(FactorBucketEntry(
+            index=index, offset=offset, size=size, shape=tuple(int(d) for d in shape)
+        ))
+        offset += size
+    if entries:
+        buckets.append(FactorBucket(entries=tuple(entries), size=offset))
+    return tuple(buckets)

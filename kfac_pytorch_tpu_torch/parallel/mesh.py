@@ -5,10 +5,11 @@ Port of ``kfac_pytorch_tpu/parallel/mesh.py``'s one-axis part
 mesh of ``world`` devices on one data axis is, in PyTorch, a process group
 of ``world`` ranks with one device each: :class:`World` names that group
 and carries the collectives the port issues on it (the means of the
-gradients and factor statistics, the sum-of-zeros exchanges of the
-sharded refresh and apply, the BatchNorm sums, the broadcast of the
-starting state). The 2-D and 3-D meshes and ``split_service_mesh`` wait for
-ROADMAP queue 1 items 8 and 9.
+gradients, the sums under the factor comm plane's bucket means
+(``parallel/comm.py``), the sum-of-zeros exchanges of the sharded refresh
+and apply, the BatchNorm sums, the broadcast of the starting state). The
+2-D and 3-D meshes and ``split_service_mesh`` wait for ROADMAP queue 1
+items 8 and 9.
 
 Which rows of the global batch a rank holds: the global batch of a step is
 the concatenation of the ranks' batches in rank order. Each rank draws its

@@ -35,10 +35,17 @@ the preconditioner's device.
 
 Data-parallel (the reference's algorithm, one process per GPU): the world
 is ``process_group=`` or, when ``torch.distributed`` is initialised, the
-default group (the JAX package's ``mesh=``). Each capture step averages
-the ranks' A/G contributions (float32 ``all_reduce``) before the EMA, so
-every rank keeps the global batch's factors. Over more than one rank the
-refresh is sharded (``parallel.sharded_eigh.sharded_eigen_update``: each
+default group (the JAX package's ``mesh=``). The ranks' A/G statistics
+cross the wire through the factor comm plane (``parallel.comm.FactorComm``,
+inert on a world of one): by default each capture step averages the
+ranks' contributions before the EMA, in a few flat float32 buckets, so
+every rank keeps the global batch's factors; ``factor_comm_dtype="bf16"``
+halves the wire; ``factor_comm_freq=N`` defers the exchange, each rank
+keeping the running averages of its own statistics and
+``update(flush_factors=True)`` merging them every N capture steps and
+before every eigen read (``"int8"``, on the deferred flush only, with the
+error-feedback residuals in ``state["wire_error"]``). Over more than one
+rank the refresh is sharded (``parallel.sharded_eigh.sharded_eigen_update``: each
 rank decomposes the factors the round-robin table gives it, A and G of a
 layer on different ranks with ``distribute_layer_factors``, by default
 when there are more ranks than layers), and with ``distribute_precondition``
@@ -90,6 +97,7 @@ from kfac_pytorch_tpu_torch.parallel.assignment import (
     plan_eigh_chunks,
     precondition_assignment,
 )
+from kfac_pytorch_tpu_torch.parallel.comm import FactorComm, resolve_factor_comm_dtype
 from kfac_pytorch_tpu_torch.parallel.mesh import WIRE_DTYPES, World, data_parallel_world
 from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
     build_slots,
@@ -230,12 +238,31 @@ class KFAC:
             precond_comm_dtype,
         )
         # Levers of later slices: refuse rather than silently ignore.
-        if str(factor_comm_dtype).lower() not in ("f32", "float32") or factor_comm_freq != 1:
-            _not_ported("factor_comm_dtype/factor_comm_freq (factor comm plane)", "6 (6b)")
         if comm_overlap:
             _not_ported("comm_overlap", "7 (7b)")
         if factor_sharding == "owner":
             _not_ported("factor_sharding='owner'", "7 (7b)")
+        # Factor comm plane (parallel/comm.py): bucketed means of the
+        # ranks' A/G statistics, an optional bf16 wire, and a deferred
+        # reduction every factor_comm_freq capture steps (flushed before
+        # every eigen read); inert on a world of one.
+        factor_comm_dtype = resolve_factor_comm_dtype(factor_comm_dtype)
+        _validate(
+            "factor_comm_freq",
+            isinstance(factor_comm_freq, int) and 0 < factor_comm_freq,
+            factor_comm_freq,
+        )
+        if factor_comm_dtype == torch.int8 and factor_comm_freq <= 1:
+            # the residuals live in the state on the deferred path; the
+            # per-step exchange has no slot to carry them in
+            raise ValueError(
+                "factor_comm_dtype='int8' quantizes the deferred factor "
+                "flush with error-feedback accumulators carried in "
+                "state; factor_comm_freq=1 exchanges contributions every "
+                "capture step with no residual slot to carry — set "
+                "factor_comm_freq > 1 or widen the wire to bf16 "
+                "(planner rule int8_wire_requires_deferral)"
+            )
         # Pipelined refresh: the eigen refresh split into this many chunks
         # over the steps after each kfac_update_freq boundary, accumulated
         # in state["eigen_pending"] and swapped in once every chunk has
@@ -299,11 +326,11 @@ class KFAC:
             and 0.0 <= float(stream_drift_threshold),
             stream_drift_threshold,
         )
-        # Bounded staleness: a pending eigen swap may slip by up to this
-        # many steps under measured pressure (the cadence reads
-        # staleness_signal). It needs something that can slip; of the JAX
-        # package's three (a deferred factor flush, a pipelined swap, a
-        # service install) the port carries the pipelined swap.
+        # Bounded staleness: a deferred factor flush or a pending eigen swap
+        # may slip by up to this many steps under measured pressure (the
+        # cadence reads staleness_signal). It needs something that can
+        # slip; of the JAX package's three (a deferred factor flush, a
+        # pipelined swap, a service install) the port carries the first two.
         _validate(
             "staleness_budget",
             isinstance(staleness_budget, int) and staleness_budget >= 0,
@@ -362,6 +389,16 @@ class KFAC:
                 "WARNING: distribute_precondition=True has no effect without "
                 "a multi-device mesh — preconditioning runs replicated"
                 + (" and precond_comm_dtype is unused" if precond_comm_dtype is not None else "")
+            )
+        self.factor_comm = FactorComm(self.world, factor_comm_dtype, factor_comm_freq)
+        if (
+            factor_comm_freq > 1 or factor_comm_dtype != torch.float32
+        ) and not self.factor_comm.multi_device:
+            # trainers pass the same flags to one-device runs
+            print(
+                "WARNING: factor_comm_dtype/factor_comm_freq shape the "
+                "cross-replica factor exchange and have no effect on a world "
+                "of one rank — factor statistics stay local and exact"
             )
         self.eigen_dtype = eigen_dtype
         self.precond_precision = resolve_precond_precision(precond_precision)
@@ -521,7 +558,9 @@ class KFAC:
         the entries of the levers that are set: the pipelined refresh's
         ``eigen_pending`` (``eigh_chunks > 1``), the truncated solvers'
         ``spectrum_mass``, streaming's ``stream_residual`` and
-        ``stream_fold_steps``, the staleness slip's ``eigen_swap_slip``."""
+        ``stream_fold_steps``, the staleness slip's ``eigen_swap_slip``, the
+        deferred factor flush's ``factor_sync_age`` and, on the int8 wire,
+        ``wire_error``."""
         facs = self._identity_factors(model)
 
         def z(*shape, dtype=torch.float32):
@@ -565,6 +604,15 @@ class KFAC:
             # re-orthonormalization
             state["stream_residual"] = z()
             state["stream_fold_steps"] = z(dtype=torch.int32)
+        if self.factor_comm.defer:
+            # capture steps since the last merge of the ranks' factors (0:
+            # merged); between flushes the factors are each rank's own
+            # running averages, so no extra buffers
+            state["factor_sync_age"] = z(dtype=torch.int32)
+            if self.factor_comm.quantized:
+                # one float32 residual per wire bucket: what this rank's last
+                # int8 flush rounded away, folded into the next one
+                state["wire_error"] = self.factor_comm.wire_error_init(facs)
         if self.staleness_budget > 0:
             # 1 while a fully landed pending basis waits for a slipped swap
             state["eigen_swap_slip"] = z(dtype=torch.int32)
@@ -599,6 +647,7 @@ class KFAC:
         diag_warmup_done: bool = True,
         eigen_chunk: Optional[Tuple[int, int]] = None,
         swap_eigen: bool = False,
+        flush_factors: bool = False,
     ) -> Tuple[Dict[str, torch.Tensor], KFACState]:
         """One K-FAC step: factor EMA (capture steps), curvature refresh
         (``update_eigen``), precondition + KL clip (every step).
@@ -616,8 +665,15 @@ class KFAC:
         0``). ``scheduler.EigenRefreshCadence`` owns the schedule, and the
         invariant that a partial basis is never swapped in.
 
+        ``flush_factors`` (deferred factor communication only:
+        ``factor_comm_freq > 1`` over more than one rank) merges the ranks'
+        local running averages after this step's EMA and before any eigen
+        work reads them; a step that starts a refresh (``update_eigen``, or
+        chunk 0) must carry it, and the cadences set it.
+
         Under ``solver="streaming"`` a capture step without a refresh folds
-        the averaged factors through the kept bases."""
+        the averaged factors through the kept bases (in deferred mode on
+        flush steps only)."""
         if lr is None:
             raise ValueError(
                 "KFAC.update() requires lr= (the KL clip scales with the "
@@ -659,6 +715,22 @@ class KFAC:
                     "exclusive: the monolithic refresh installs its own "
                     "basis"
                 )
+        if flush_factors and not self.factor_comm.defer:
+            raise ValueError(
+                "flush_factors=True without deferred factor communication "
+                "(factor_comm_freq > 1 on a multi-device mesh) — there is "
+                "no locally-accumulated factor state to merge"
+            )
+        if self.factor_comm.defer and not flush_factors:
+            if update_eigen or (eigen_chunk is not None and eigen_chunk[0] == 0):
+                raise ValueError(
+                    "deferred factor communication requires flush_factors="
+                    "True on every step that starts an eigen refresh — the "
+                    "eigendecomposition would otherwise read per-replica "
+                    "unmerged factors. The cadence helpers "
+                    "(kfac_flags_for_step / EigenRefreshCadence) set this; "
+                    "hand-rolled schedules must too."
+                )
         names = list(state["factors"].keys())
         facs = state["factors"]
         if update_factors:
@@ -672,14 +744,13 @@ class KFAC:
                     f"no captured statistics for layers {missing}; build the "
                     "Capture with the same layer list as KFAC"
                 )
-            if self.world.distributed:
+            if self.factor_comm.multi_device:
                 # the global batch's statistics: each rank's contributions
                 # are over its own batch, so their mean over the ranks is
-                # the JAX package's global-batch A and G
-                a_contribs = {n: a_contribs[n].float().clone() for n in names}
-                g_factor_stats = {n: g_factor_stats[n].float().clone() for n in names}
-                self.world.all_reduce_mean_(
-                    [a_contribs[n] for n in names] + [g_factor_stats[n] for n in names]
+                # the JAX package's global-batch A and G (deferred: this
+                # rank's own, until the flush)
+                a_contribs, g_factor_stats = self.factor_comm.exchange_contribs(
+                    {n: a_contribs[n] for n in names}, {n: g_factor_stats[n] for n in names}
                 )
             # elementwise EMA: the same update serves A matrices and the
             # embeddings' A_diag vectors
@@ -694,6 +765,17 @@ class KFAC:
                         g_factor_stats[name], old_facs[name]["G"], self.factor_decay
                     ),
                 }
+        wire_error = state.get("wire_error")
+        if flush_factors:
+            # the ranks' running averages merged after this step's EMA and
+            # before any eigen path below reads them; the int8 wire folds in
+            # and carries out the residuals, its rounding keyed by the step
+            if self.factor_comm.quantized:
+                facs, wire_error = self.factor_comm.flush(
+                    facs, wire_error=wire_error, step=state["step"]
+                )
+            else:
+                facs = self.factor_comm.flush(facs)
         eigen, stacked = state["eigen"], state["eigen_stacked"]
         pending = state.get("eigen_pending")
         spectrum_mass = state.get("spectrum_mass")
@@ -779,7 +861,7 @@ class KFAC:
             if update_eigen:
                 stream_residual = torch.clamp(1.0 - spectrum_mass, min=0.0)
                 stream_fold_steps = torch.zeros_like(stream_fold_steps)
-            elif update_factors:
+            elif update_factors and (not self.factor_comm.defer or flush_factors):
                 eigen, stacked, stream_residual = streaming_ops.fold_replicated(
                     facs, eigen, stacked, self.eps
                 )
@@ -801,6 +883,14 @@ class KFAC:
         if stream_residual is not None:
             new_state["stream_residual"] = stream_residual
             new_state["stream_fold_steps"] = stream_fold_steps
+        if "factor_sync_age" in state:
+            new_state["factor_sync_age"] = (
+                torch.zeros_like(state["factor_sync_age"]) if flush_factors
+                else state["factor_sync_age"] + int(update_factors)
+            )
+        if wire_error is not None:
+            # replaced by the quantized merge's residuals on flush steps
+            new_state["wire_error"] = wire_error
         if "eigen_swap_slip" in state:
             # 1 from the last chunk's step that withheld its swap until a
             # swap or a refresh installs a basis

@@ -4,14 +4,15 @@ Port of ``kfac_pytorch_tpu/scheduler.py``. ``KFACParamScheduler``:
 StepLR-like multiplicative decay of damping and of the factor /
 preconditioner update frequencies, mutating the preconditioner's
 host-side ``KFACHParams``. ``EigenRefreshCadence``: the per-step refresh
-flags of the pipelined refresh, the staleness slip and the streaming
-solver, reading the same live ``KFACHParams``.
+flags of the pipelined refresh, the staleness slip, the streaming solver
+and the deferred factor flush, reading the same live ``KFACHParams``.
 
 The JAX cadence also sets telemetry gauges and writes trace events
 (ROADMAP queue 1 item 9b, ``observability/``). The port keeps the counters
 they read as the cadence's attributes, with no sink: ``_reorth_count``,
-``_swap_slip``, ``_since_flush`` (always 0: the deferred factor flush is
-item 6b) and ``basis_age`` (steps since the last refresh or swap).
+``_swap_slip``, ``_flush_slip``, ``_since_flush`` (capture steps since the
+last deferred flush) and ``basis_age`` (steps since the last refresh or
+swap).
 """
 
 from __future__ import annotations
@@ -120,6 +121,14 @@ class EigenRefreshCadence:
     re-orthonormalizes (a refresh) when ``kfac.stream_drift_signal()``
     exceeds ``stream_drift_threshold``, and always before the first one or
     with no signal wired.
+
+    Deferred factor communication (``kfac.factor_comm.defer``): the flags
+    carry ``flush_factors``, set every ``factor_comm_freq``-th capture step
+    and forced on a refresh, on chunk 0 and, under streaming, at every
+    boundary (the fold must read merged factors). Under pressure a due
+    flush that is not forced slips, at most ``staleness_budget`` steps,
+    and catches up on the next capture step once the pressure drops or the
+    budget runs out.
     """
 
     def __init__(self, kfac: Optional[KFAC], chunks: Optional[int] = None):
@@ -215,11 +224,13 @@ class EigenRefreshCadence:
         }
         k_eff = max(1, min(self.chunks, hp.kfac_update_freq))
         boundary = step % hp.kfac_update_freq == 0
+        chunk = None
         budget = int(getattr(self.kfac, "staleness_budget", 0) or 0)
         slipping = budget > 0 and self._pressure() > STALENESS_PRESSURE_THRESHOLD
         # a swap slips only into the interval's chunk-free tail
         swap_allowance = min(budget, hp.kfac_update_freq - k_eff)
-        if getattr(self.kfac, "solver", "eigh") == "streaming":
+        streaming = getattr(self.kfac, "solver", "eigh") == "streaming"
+        if streaming:
             if boundary:
                 signal = getattr(self.kfac, "stream_drift_signal", None)
                 if not self._bootstrapped or signal is None:
@@ -258,6 +269,7 @@ class EigenRefreshCadence:
                 self._swap_pending = False
                 self._swap_slip = 0
             if offset < k_eff and self._plan_key == plan_key:
+                chunk = offset
                 self._landed.add(offset)
                 swap = self._landed == set(range(k_eff))
                 if swap and slipping and swap_allowance > 0:
@@ -278,5 +290,39 @@ class EigenRefreshCadence:
                     self._swap_pending = False
                     self._swap_slip = 0
                     self._last_refresh_step = step
+        comm = getattr(self.kfac, "factor_comm", None)
+        if comm is not None and comm.defer:
+            self._flush_flag(flags, step, chunk, boundary, streaming, budget, slipping, comm)
         self.basis_age = 0 if self._last_refresh_step is None else step - self._last_refresh_step
         return flags
+
+    def _flush_flag(self, flags, step, chunk, boundary, streaming, budget, slipping, comm):
+        """The deferred factor flush of ``step`` into ``flags``: forced
+        before eigen work reads the factors (a refresh, chunk 0; under
+        streaming every boundary, so the fold's input never depends on the
+        drift verdict), due every ``comm_freq``-th capture step, and a due
+        flush slipped under pressure within the staleness budget."""
+        hp = self.kfac.hparams
+        service = int(getattr(self.kfac, "service_devices", 0) or 0) > 0
+        forced = flags["update_eigen"] or chunk == 0 or ((streaming or service) and boundary)
+        due = flags["update_factors"] and (step // hp.fac_update_freq) % comm.comm_freq == 0
+        flush = forced or due
+        if budget > 0 and not forced:
+            if self._flush_owed:
+                self._flush_slip += 1
+                if flags["update_factors"] and not (slipping and self._flush_slip < budget):
+                    # catch-up on a capture step once the pressure drops or
+                    # the budget runs out
+                    flush = True
+            elif due and slipping:
+                # withhold a due flush under pressure
+                flush = False
+                self._flush_owed = True
+                self._flush_slip = 1
+        if flush:
+            self._flush_owed = False
+            self._flush_slip = 0
+            self._since_flush = 0
+        elif flags["update_factors"]:
+            self._since_flush += 1
+        flags["flush_factors"] = flush

@@ -6,7 +6,8 @@ Port of ``kfac_pytorch_tpu/training/checkpoint.py`` (``checkpoint_path``,
 parameters and BatchNorm buffers, SGD momentum, K-FAC factors and
 eigendecompositions or inverses, the truncated solvers' rectangular bases
 and residual masses, the pipelined refresh's pending buffer, the solver
-and slip scalars, diagnostics, step counters) round-trips, and resume
+and slip scalars, the deferred flush's ``factor_sync_age`` and the int8
+wire's residuals, diagnostics, step counters) round-trips, and resume
 picks the newest ``checkpoint-<epoch>``, as the JAX package's scan does.
 The refresh cadence (``scheduler.EigenRefreshCadence``) is host state and
 is not in the checkpoint, as in the JAX trainers: a resumed run under
@@ -19,6 +20,15 @@ shared file system, as the JAX package's checkpoints need) at the epoch
 rank 0 resumes from, which is broadcast, as the reference broadcasts it
 (pytorch_imagenet_resnet.py:136-140). :func:`broadcast_state` then makes
 every rank's state rank 0's.
+
+Under deferred factor communication (``factor_comm_freq > 1``) the
+factors between flushes are each rank's own running averages, and on the
+int8 wire each rank carries its own residuals (``wire_error``). A
+checkpoint written mid-interval holds rank 0's, as the JAX trainers'
+checkpoint holds process 0's copy of its replicated-annotated state; a
+resume gives every rank rank 0's factors, residuals and
+``factor_sync_age``, so the other ranks' statistics since the last flush
+are dropped and the next flush merges from there.
 
 A checkpoint is one file, ``checkpoint-<epoch>``, written by ``torch.save``
 under a temporary name and renamed into place, so a run cut mid-write

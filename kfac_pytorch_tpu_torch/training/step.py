@@ -20,7 +20,8 @@ with a launch plan the step keeps between calls), otherwise the per-leaf
 
 Data-parallel, each rank runs its own batch, and the gradients, the loss
 and the accuracy are averaged over the ranks (float32 ``all_reduce``s);
-the K-FAC statistics are averaged inside ``KFAC.update``. BatchNorm takes
+the K-FAC statistics cross the wire inside ``KFAC.update`` (its factor
+comm plane, ``parallel/comm.py``). BatchNorm takes
 the JAX step's two routes: by default (the JAX package's GSPMD step) it
 normalizes over the global batch (``models.cifar_resnet.global_batchnorm``);
 under ``grad_comm_dtype`` (the JAX package's ``_compressed_grads``, the
@@ -147,9 +148,10 @@ def make_train_step(
     grad_comm_dtype: Optional[torch.dtype] = None,
 ) -> Callable:
     """Build ``step_fn(state, batch, lr, damping, update_factors=...,
-    update_eigen=..., diag_warmup_done=..., eigen_chunk=..., swap_eigen=...)
-    -> (state, metrics)``; the flags are ``KFAC.update``'s (from
-    ``kfac_flags_for_step`` or ``scheduler.EigenRefreshCadence``).
+    update_eigen=..., diag_warmup_done=..., eigen_chunk=..., swap_eigen=...,
+    flush_factors=...) -> (state, metrics)``; the flags are
+    ``KFAC.update``'s (from ``kfac_flags_for_step`` or
+    ``scheduler.EigenRefreshCadence``).
 
     The loss is the mean CE with ``label_smoothing`` (the ImageNet recipe's
     0.1), as the JAX step computes it.
@@ -237,6 +239,7 @@ def make_train_step(
         diag_warmup_done: bool = True,
         eigen_chunk: Optional[Tuple[int, int]] = None,
         swap_eigen: bool = False,
+        flush_factors: bool = False,
     ):
         images, labels = batch
         model.train()
@@ -266,6 +269,7 @@ def make_train_step(
             state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
             update_factors=update_factors, update_eigen=update_eigen,
             diag_warmup_done=diag_warmup_done, eigen_chunk=eigen_chunk, swap_eigen=swap_eigen,
+            flush_factors=flush_factors,
         )
         metrics = {"loss": loss, "accuracy": acc}
         if kfac is not None and kfac.track_diagnostics:
@@ -334,7 +338,8 @@ def precondition_and_step(
 ) -> TrainState:
     """The tail of a train step, shared by the image and the RNN LM steps:
     ``KFAC.update`` (with the step's ``update_factors``/``update_eigen``/
-    ``diag_warmup_done``/``eigen_chunk``/``swap_eigen`` flags), then SGD, through the fused SGD kernel
+    ``diag_warmup_done``/``eigen_chunk``/``swap_eigen``/``flush_factors``
+    flags), then SGD, through the fused SGD kernel
     wrapper when ``sgd_hyper`` declares ``tx`` and a preconditioner runs
     (``sgd_plans`` keeps its launch plan between steps), else per leaf.
     Updates the parameters and momentum in place; returns the next state."""
@@ -434,14 +439,17 @@ def step_kind(flags: dict) -> str:
     """A step's kind in the twins' histories, from its ``KFAC.update``
     flags: ``"refresh"`` (the monolithic refresh), ``"chunk"`` or
     ``"chunk-swap"`` (a pipelined refresh chunk, the last one promoting the
-    pending basis), ``"swap"`` (a slipped swap's catch-up), ``"capture"``
-    or ``"plain"``."""
+    pending basis), ``"swap"`` (a slipped swap's catch-up), ``"flush"`` (a
+    deferred factor flush on a step with no eigen work), ``"capture"`` or
+    ``"plain"``."""
     if flags.get("update_eigen"):
         return "refresh"
     if flags.get("eigen_chunk") is not None:
         return "chunk-swap" if flags.get("swap_eigen") else "chunk"
     if flags.get("swap_eigen"):
         return "swap"
+    if flags.get("flush_factors"):
+        return "flush"
     return "capture" if flags.get("update_factors") else "plain"
 
 
@@ -449,12 +457,21 @@ def kfac_flags_for_step(
     step: int, kfac: Optional[KFAC], epoch: Optional[int] = None
 ) -> dict:
     """Host-side step gating: capture every ``fac_update_freq`` steps, refresh
-    the eigenbases every ``kfac_update_freq`` steps (so step 0 refreshes)."""
+    the eigenbases every ``kfac_update_freq`` steps (so step 0 refreshes).
+    Under deferred factor communication the flags also carry
+    ``flush_factors``: every ``factor_comm_freq``-th capture step and every
+    refresh (the key is absent otherwise, as in the JAX package)."""
     if kfac is None:
         return {"update_factors": False, "update_eigen": False}
     hp = kfac.hparams
-    return {
+    flags = {
         "update_factors": step % hp.fac_update_freq == 0,
         "update_eigen": step % hp.kfac_update_freq == 0,
         "diag_warmup_done": epoch is None or epoch >= kfac.diag_warmup,
     }
+    comm = getattr(kfac, "factor_comm", None)
+    if comm is not None and comm.defer:
+        flags["flush_factors"] = flags["update_eigen"] or (
+            flags["update_factors"] and (step // hp.fac_update_freq) % comm.comm_freq == 0
+        )
+    return flags

@@ -34,6 +34,16 @@ from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 STEPS = 60
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """PyTorch's CPU work on one thread: its OpenMP workers spin between ops
+    and starve XLA (and the other test workers) of cores; these sizes are tiny."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _stub(chunks=1, kfac_update_freq=10, fac_update_freq=1, diag_warmup=0,
           staleness_budget=0, solver="eigh", stream_drift_threshold=0.05):
     return types.SimpleNamespace(

@@ -64,11 +64,12 @@ def test_port_imports_nothing_of_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 20, res.stdout
-    # the native loader and the data-parallel modules among them
+    # the native loader, the data-parallel modules and the factor comm plane
+    # among them
     imported = set(res.stdout.splitlines()[1].split())
     assert {f"kfac_pytorch_tpu_torch.{m}" for m in (
         "runtime", "runtime.loader", "parallel.launch", "parallel.mesh",
-        "parallel.assignment", "parallel.sharded_eigh")} <= imported, res.stdout
+        "parallel.assignment", "parallel.sharded_eigh", "parallel.comm")} <= imported, res.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -117,6 +118,8 @@ def test_packaging_ships_every_kernel_input(tmp_path, setup_file):
     needed = {p.name for name in kernel_build.SIGNATURES for p in kernel_build._inputs(name)}
     needed.add(loader.SOURCE.name)
     assert {"tf32_mma.cuh", "loader.cpp"} <= needed and needed <= shipped, needed - shipped
+    # the port's Python modules ship too, the factor comm plane among them
+    assert (out / "kfac_pytorch_tpu_torch" / "parallel" / "comm.py").is_file()
     if setup_file == "setup_torch.py":
         assert not (out / "kfac_pytorch_tpu").exists()
         requires = _setup_requires(tree / setup_file)
@@ -202,6 +205,9 @@ def test_every_jax_trainer_flag_parses_or_names_its_item():
                                "--precond-comm-dtype", "bf16", "--grad-comm-dtype", "bf16"])
     assert (args.num_workers, args.distribute_precondition, args.distribute_layer_factors,
             args.precond_comm_dtype, args.grad_comm_dtype) == (7, True, True, "bf16", "bf16")
+    # the factor comm plane's flags (item 6b)
+    args = trainer.parse_args(["--factor-comm-dtype", "int8", "--factor-comm-freq", "4"])
+    assert (args.factor_comm_dtype, args.factor_comm_freq) == ("int8", 4)
 
 
 def test_every_jax_wikitext_flag_parses_or_names_its_item():

@@ -308,7 +308,9 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
     ``process_group=``, and ``distribute_precondition`` on one process
     warns and runs replicated, as in the JAX package. Item 7a's are
     ported: ``eigh_chunks`` and ``solver`` are accepted and kept; item 7b's
-    (``factor_sharding="owner"``, ``comm_overlap``) still raise."""
+    (``factor_sharding="owner"``, ``comm_overlap``) still raise. Item 6b's
+    ``factor_comm_dtype`` is accepted and, on one process, warns that it
+    changes nothing, as in the JAX package without a mesh."""
     if "eigh_chunks" in kwargs or "solver" in kwargs:
         kfac = KFAC(device="cpu", **kwargs)
         for k, v in kwargs.items():
@@ -321,6 +323,11 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
     if "distribute_precondition" in kwargs:
         kfac = KFAC(device="cpu", **kwargs)
         assert kfac.world.size == 1 and "has no effect" in capsys.readouterr().out
+        return
+    if "factor_comm_dtype" in kwargs:
+        kfac = KFAC(device="cpu", **kwargs)
+        assert kfac.factor_comm.comm_dtype == torch.bfloat16 and not kfac.factor_comm.active
+        assert "have no effect on a world of one rank" in capsys.readouterr().out
         return
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
         KFAC(device="cpu", **kwargs)

@@ -20,6 +20,17 @@ from kfac_pytorch_tpu.training import data as jdata
 from kfac_pytorch_tpu_torch.runtime import loader as tloader
 from kfac_pytorch_tpu_torch.training import data as tdata
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """PyTorch's CPU work on one thread: its OpenMP workers spin between ops
+    and starve XLA (and the other test workers) of cores; these sizes are tiny."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
 

@@ -253,6 +253,11 @@ def test_wikitext_trainer_reads_data_and_resumes_bitwise(tmp_path, capsys):
     (["--profile", "safe"], "item 9"),
 ])
 def test_wikitext_trainer_refuses_flags_of_later_slices(argv, item):
+    """Each flag was refused naming its ROADMAP item until that item was
+    ported; item 6b's factor comm flags now parse onto their arguments."""
+    if argv[0] == "--factor-comm-dtype":
+        assert trainer.parse_args(argv).factor_comm_dtype == argv[1]
+        return
     with pytest.raises(SystemExit, match=item):
         trainer.parse_args(argv)
 

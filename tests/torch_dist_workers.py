@@ -1,4 +1,5 @@
-"""Rank bodies of ``tests/test_torch_port_distributed.py`` (not a test file).
+"""Rank bodies of ``tests/test_torch_port_distributed.py`` and
+``tests/test_torch_port_comm.py`` (not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
 through ``torch.multiprocessing`` with a file store under the test's
@@ -260,4 +261,240 @@ def solver_ops(rank, world, factors, is_conv, rank_cfg, chunks, sketches, kfac_r
     return out
 
 
-TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops}
+# -------------------------------------------------------- factor comm plane
+
+
+def _rank_tree(tree, rank):
+    """Rank ``rank``'s slice of a tree of ``[world, ...]`` numpy leaves."""
+    if isinstance(tree, dict):
+        return {k: _rank_tree(v, rank) for k, v in tree.items()}
+    return torch.from_numpy(np.ascontiguousarray(tree[rank]))
+
+
+def _comm_means(rank, w, stats, cap, quant):
+    """The plane's wire ops on this rank's stat tree: the bucketed float32
+    mean (a small bucket cap and the default one), the per-leaf reference,
+    the bf16 wire, and the int8 merge on the injected draws."""
+    from kfac_pytorch_tpu_torch.parallel import comm
+
+    tree = _rank_tree(stats, rank)
+    out = {"reference": _np(comm.per_layer_pmean_reference(tree, w))}
+    for key, dtype, bucket_cap in (("f32", "f32", cap), ("f32_one_bucket", "f32", 1 << 20),
+                                   ("bf16", "bf16", cap)):
+        fc = comm.FactorComm(w, dtype, 1, max_bucket_elems=bucket_cap)
+        out[key] = _np(fc.allreduce(tree))
+        out[f"{key}_wire"] = (fc.last_wire_bytes, fc.last_collectives)
+    fc = comm.FactorComm(w, "int8", 2, max_bucket_elems=cap)
+    draws = quant["draws"]
+    fc.draw = lambda step, b, first, n, device: torch.from_numpy(draws[b][first:first + n])
+    merged, err = fc._merge_quantized(tree, _rank_tree(quant["wire_error"], rank), quant["step"])
+    out["int8"], out["int8_error"] = _np(merged), _np(err)
+    out["int8_wire"] = (fc.last_wire_bytes, fc.last_collectives)
+    return out
+
+
+def _tiny_mlp():
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense
+
+    model = torch.nn.Module()
+    model.add_module("fc1", KFACDense(6, 5))
+    model.add_module("fc2", KFACDense(5, 3))
+    return model
+
+
+def _raised(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _deferred(rank, w, deferred, root):
+    """Per-step reduction against the deferred flush (``factor_comm_freq=3``)
+    on the same statistics, the ages, the ranks' diverged factors between
+    flushes, the update's refusals, the factor collectives per step, and an
+    int8 state's checkpoint round trip (rank 0 writes)."""
+    from kfac_pytorch_tpu_torch import KFAC
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+    from kfac_pytorch_tpu_torch.training.step import TrainState, kfac_flags_for_step
+
+    hp = dict(damping=0.01, fac_update_freq=1, kfac_update_freq=10, device="cpu")
+    model = _tiny_mlp()
+    runs = {"per_step": KFAC(**hp), "deferred": KFAC(**hp, factor_comm_freq=3)}
+    assert runs["deferred"].factor_comm.defer and not runs["per_step"].factor_comm.active
+    out = {k: {"updates": [], "factors": [], "flags": [], "ages": []} for k in runs}
+    states = {k: kfac.init(model) for k, kfac in runs.items()}
+    for step in range(deferred["steps"]):
+        a_c = {n: torch.from_numpy(v[rank]) for n, v in deferred["a"][step].items()}
+        g_s = {n: torch.from_numpy(v[rank]) for n, v in deferred["g"][step].items()}
+        grads = {n: torch.from_numpy(v) for n, v in deferred["grads"][step].items()}
+        for key, kfac in runs.items():
+            flags = kfac_flags_for_step(step, kfac)
+            new, states[key] = kfac.update(grads, states[key], a_contribs=a_c,
+                                           g_factor_stats=g_s, lr=0.05, damping=0.01, **flags)
+            rec = out[key]
+            rec["updates"].append(_np(new))
+            rec["factors"].append(_np(states[key]["factors"]))
+            rec["flags"].append(flags)
+            rec["ages"].append(int(states[key].get("factor_sync_age", -1)))
+
+    # the refusals of update(): a refresh (or chunk 0) without the flush
+    kfac = runs["deferred"]
+    chunked = KFAC(**{**hp, "kfac_update_freq": 4}, factor_comm_freq=2, eigh_chunks=2)
+    out["refusals"] = {
+        "flush_without_defer": _raised(lambda: runs["per_step"].update(
+            {}, {}, lr=0.1, update_factors=False, update_eigen=False, flush_factors=True)),
+        "refresh_without_flush": _raised(lambda: kfac.update(
+            {}, {}, lr=0.1, update_factors=True, update_eigen=True)),
+        "chunk0_without_flush": _raised(lambda: chunked.update(
+            {}, {}, lr=0.1, update_factors=True, update_eigen=False, eigen_chunk=(0, 2))),
+    }
+
+    # factor all_reduces per step, counted in this rank
+    real = dist.all_reduce
+    calls = []
+
+    def counting(t, *args, **kwargs):
+        calls.append(t.numel())
+        return real(t, *args, **kwargs)
+
+    counts = {}
+    a_c = {n: torch.from_numpy(v[rank]) for n, v in deferred["a"][0].items()}
+    g_s = {n: torch.from_numpy(v[rank]) for n, v in deferred["g"][0].items()}
+    grads = {n: torch.from_numpy(v) for n, v in deferred["grads"][0].items()}
+    dist.all_reduce = counting
+    try:
+        for key, freq, flags in (
+            ("capture", 1, dict(update_factors=True, update_eigen=False)),
+            ("plain", 1, dict(update_factors=False, update_eigen=False)),
+            ("deferred_capture", 2, dict(update_factors=True, update_eigen=False)),
+            ("deferred_flush", 2, dict(update_factors=True, update_eigen=False,
+                                       flush_factors=True)),
+        ):
+            k = KFAC(**hp, factor_comm_freq=freq)
+            k.factor_comm.max_bucket_elems = 40  # several buckets
+            st = k.init(model)
+            del calls[:]
+            k.update(grads, st, a_contribs=a_c, g_factor_stats=g_s, lr=0.05, damping=0.01,
+                     **flags)
+            counts[key] = (len(calls), k.factor_comm.last_collectives)
+    finally:
+        dist.all_reduce = real
+    out["collectives"] = counts
+
+    # an int8 state mid-interval through a checkpoint: rank 0 writes its own
+    k8 = KFAC(**hp, factor_comm_freq=2, factor_comm_dtype="int8")
+    st = k8.init(model)
+    for step in range(4):
+        a_c = {n: torch.from_numpy(v[rank]) for n, v in deferred["a"][step].items()}
+        g_s = {n: torch.from_numpy(v[rank]) for n, v in deferred["g"][step].items()}
+        _, st = k8.update(grads, st, a_contribs=a_c, g_factor_stats=g_s, lr=0.05,
+                          damping=0.01, **kfac_flags_for_step(step, k8))
+    saved = TrainState(step=4, model=model, opt_state={}, kfac_state=st)
+    ckpt.save_checkpoint(f"{root}/ck", 0, saved)
+    dist.barrier()
+    fresh = TrainState(step=0, model=model, opt_state={}, kfac_state=k8.init(model))
+    restored = ckpt.restore_checkpoint(f"{root}/ck", 0, fresh)
+    out["int8_state"] = _np({k: st[k] for k in ("factors", "wire_error", "factor_sync_age")})
+    out["int8_restored"] = _np({k: restored.kfac_state[k]
+                                for k in ("factors", "wire_error", "factor_sync_age")})
+    out["int8_restored_step"] = restored.step
+    return out
+
+
+def _lm_slice(rank, w, lm):
+    """The tiny transformer LM, K-FAC with the token embedding, on this
+    rank's rows of each global batch: the bf16 factor wire deferred to every
+    second capture step and bf16 gradients."""
+    from kfac_pytorch_tpu_torch import KFAC, capture
+    from kfac_pytorch_tpu_torch.models import transformer_lm
+    from kfac_pytorch_tpu_torch.parallel.context import full_attention
+    from kfac_pytorch_tpu_torch.parallel.mesh import local_rows
+    from kfac_pytorch_tpu_torch.training.step import (
+        TrainState,
+        kfac_flags_for_step,
+        make_sgd,
+        make_train_step,
+        step_kind,
+    )
+
+    model = transformer_lm.get_model(lm["vocab"], attention_fn=full_attention, **lm["model_kw"])
+    model.load_state_dict(_t(lm["state_dict"]))
+    tx = make_sgd(lm["momentum"], lm["wd"])
+    kfac = KFAC(layers=capture.discover_layers(model), device="cpu", **lm["hp"],
+                factor_comm_dtype="bf16", factor_comm_freq=2)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                       kfac_state=kfac.init(model))
+    step_fn = make_train_step(model, tx, kfac, sgd_hyper=(lm["momentum"], lm["wd"]),
+                              grad_clip=lm["clip"], grad_comm_dtype=torch.bfloat16)
+    out = {"losses": [], "flags": [], "kinds": [], "ages": []}
+    for i, (x, y) in enumerate(lm["batches"]):
+        rows = local_rows(len(x), w)
+        flags = kfac_flags_for_step(i, kfac)
+        state, m = step_fn(state, (torch.from_numpy(x[rows].astype(np.int64)),
+                                   torch.from_numpy(y[rows].astype(np.int64))),
+                           lm["lr"], lm["hp"]["damping"], **flags)
+        out["losses"].append(float(m["loss"]))
+        out["flags"].append(flags)
+        out["kinds"].append(step_kind(flags))
+        out["ages"].append(int(state.kfac_state["factor_sync_age"]))
+    out["state_dict"] = _np(model.state_dict())
+    out["factors"] = _np(state.kfac_state["factors"])
+    out["wire"] = (kfac.factor_comm.last_wire_bytes, kfac.factor_comm.last_collectives)
+    return out
+
+
+def _lstm(rank, w, lstm):
+    """The WikiText twin on this rank for each of ``lstm["runs"]``, and the
+    dropout generators the LM step hands the model on two steps."""
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+    from kfac_pytorch_tpu_torch.models import wikitext_rnn
+    from kfac_pytorch_tpu_torch.training.lm_step import init_carry, make_lm_train_step
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd
+
+    out = {name: trainer.main([*lstm["argv"], *extra]) for name, extra in lstm["runs"].items()}
+    model = wikitext_rnn.get_model("LSTM", 12, 4, 4, 1, 0.5, False)
+    seeds = []
+    forward = model.forward
+
+    def recording(tokens, carry, gen=None):
+        seeds.append((gen.initial_seed(), float(torch.rand((), generator=gen))))
+        return forward(tokens, carry, gen)
+
+    model.forward = recording
+    tx = make_sgd(0.0, 0.0)
+    step_fn = make_lm_train_step(model, tx, None, grad_clip=0.25)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())))
+    gen = torch.Generator().manual_seed(7)
+    x = torch.zeros((2, 3), dtype=torch.int64)
+    for _ in range(2):
+        state, _, _ = step_fn(state, (x, x), init_carry(model, 2, "cpu"), gen, 0.1, 0.0)
+    out["dropout_draws"] = seeds
+    return out
+
+
+def comm(rank, world, stats, cap, quant, out_dir, deferred=None, lm=None, lstm=None,
+         cifar=None):
+    """The factor comm plane's tests on this rank (``tests/test_torch_port_comm.py``)."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
+
+    w = data_parallel_world()
+    assert (w.size, w.rank) == (world, rank)
+    out = {"means": _comm_means(rank, w, stats, cap, quant)}
+    if deferred is not None:
+        out["deferred"] = _deferred(rank, w, deferred, out_dir)
+    if lm is not None:
+        out["lm"] = _lm_slice(rank, w, lm)
+    if lstm is not None:
+        out["lstm"] = _lstm(rank, w, lstm)
+    if cifar is not None:
+        from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+        from kfac_pytorch_tpu_torch.models import cifar_resnet
+
+        cifar_resnet._DEPTHS["resnet8"] = 1
+        out["cifar"] = trainer.main(cifar)
+    return out
+
+
+TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm}
