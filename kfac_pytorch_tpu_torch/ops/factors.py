@@ -275,7 +275,7 @@ def merge_running_avg_buckets(
     for buf in bufs:
         wire = buf.clone() if comm_dtype is None else buf.to(comm_dtype)
         world.all_reduce_sum_(wire)
-        out.append((wire / world.size).to(buf.dtype))
+        out.append(wire.div_(world.size).to(buf.dtype))
     return out
 
 

@@ -76,27 +76,20 @@ def resolve_factor_comm_dtype(value) -> torch.dtype:
     raise ValueError(f"Invalid factor_comm_dtype: {value}")
 
 
-def quantize_bucket(
-    buf: torch.Tensor, u: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_bucket(buf: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-scaled stochastic int8 quantization of one flat float32 bucket:
     ``(codes [nblocks, 256] int8, scales [nblocks, 1] float32)``.
 
     ``codes = clip(floor(x / scale + u), −127, 127)`` with ``scale =
-    amax / 127`` per block and ``u ~ U[0, 1)`` of shape ``[nblocks, 256]``
-    (drawn from ``generator`` on ``buf``'s device when not given): unbiased,
-    ``E[codes·scale] = x``. An all-zero block quantizes against scale 1 to
-    zero codes."""
+    amax / 127`` per block and the draw ``u ~ U[0, 1)`` of shape
+    ``[nblocks, 256]``: unbiased, ``E[codes·scale] = x``. An all-zero block
+    quantizes against scale 1 to zero codes."""
     n = buf.numel()
     pad = (-n) % QUANT_BLOCK
     x = F.pad(buf, (0, pad)) if pad else buf
     blocks = x.reshape(-1, QUANT_BLOCK)
     amax = blocks.abs().amax(dim=1, keepdim=True)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    if u is None:
-        u = torch.rand(blocks.shape, generator=generator, device=buf.device,
-                       dtype=torch.float32)
     codes = torch.clamp(torch.floor(blocks / scale + u), -127.0, 127.0)
     return codes.to(torch.int8), scale
 
@@ -224,14 +217,14 @@ class FactorComm:
         return self.comm_freq > 1 and self.multi_device
 
     @property
-    def active(self) -> bool:
-        """The plane changes the wire against the defaults."""
-        return self.multi_device and (self.defer or self.comm_dtype != torch.float32)
-
-    @property
     def quantized(self) -> bool:
         """The int8 wire (deferred flushes only, with error feedback)."""
         return self.comm_dtype == torch.int8
+
+    def flush_due(self, step: int, fac_update_freq: int) -> bool:
+        """A deferred flush is due at ``step``: every ``comm_freq``-th
+        capture step (the cadence also forces one before eigen work)."""
+        return step % fac_update_freq == 0 and (step // fac_update_freq) % self.comm_freq == 0
 
     # -- plan -----------------------------------------------------------
 
@@ -324,37 +317,44 @@ class FactorComm:
         codes and the float32 scales on the wire (``all_gather``: a sum
         would widen the codes first), and average the dequantized payloads
         locally, in rank order. The new residual is this rank's payload
-        minus its own dequantized codes. Returns ``(tree, new_wire_error)``."""
+        minus its own dequantized codes. Returns ``(tree, new_wire_error)``.
+
+        In place, so that a 4.4 GB bucket costs no float32 copy: each payload
+        is formed in its ``wire_error`` buffer, which becomes the new
+        residual, and the mean is written into the bucket's storage, which
+        for a bucket of one leaf is that leaf of ``tree``."""
         world = self.world
         leaves = tree_leaves(tree)
         plan = self._plan_for(leaves)
-        merged, new_error = [], {}
+        merged = []
         for i, buf in enumerate(flatten_buckets(leaves, plan)):
             n = buf.numel()
-            payload = buf.float() + wire_error[f"b{i}"]
+            payload = wire_error[f"b{i}"].add_(buf)
             codes, scale = self.quantize_payload_(payload, step, i)
-            new_error[f"b{i}"] = payload
             all_codes = [torch.empty_like(codes) for _ in range(world.size)]
             all_scale = [torch.empty_like(scale) for _ in range(world.size)]
             dist.all_gather(all_codes, codes, group=world.group)
             dist.all_gather(all_scale, scale, group=world.group)
-            mean = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
-            for first in range(0, codes.shape[0], QUANT_CHUNK_BLOCKS):
+            del codes, scale
+            for first in range(0, all_codes[0].shape[0], QUANT_CHUNK_BLOCKS):
                 rows = slice(first, first + QUANT_CHUNK_BLOCKS)
                 acc = all_codes[0][rows].float() * all_scale[0][rows]
                 for c, s in zip(all_codes[1:], all_scale[1:]):
                     acc.add_(c[rows].float() * s[rows])
-                mean[rows] = acc / world.size
-            del all_codes
-            merged.append(mean.reshape(-1)[:n].to(buf.dtype))
-        return tree_unflatten(tree, unflatten_buckets(merged, plan, leaves)), new_error
+                out = buf[first * QUANT_BLOCK:min((first + QUANT_CHUNK_BLOCKS) * QUANT_BLOCK, n)]
+                out.copy_(acc.div_(world.size).reshape(-1)[:out.numel()])
+            del all_codes, all_scale
+            merged.append(buf)
+        return tree_unflatten(tree, unflatten_buckets(merged, plan, leaves)), wire_error
 
     def flush(self, facs, wire_error: Optional[Dict[str, torch.Tensor]] = None,
               step: Optional[int] = None):
         """Merge the ranks' factor running averages (deferred mode only).
         With the int8 wire the caller passes the error-feedback residuals
         (``state["wire_error"]``) and the rounding draw's step (the K-FAC
-        state's counter), and gets ``(facs, new_wire_error)`` back."""
+        state's counter), and gets ``(facs, new_wire_error)`` back; that
+        merge overwrites both ``facs``' leaves and ``wire_error``'s buffers
+        (:meth:`_merge_quantized`)."""
         if not self.defer:
             raise ValueError(
                 "FactorComm.flush() requires deferred factor communication "

@@ -669,7 +669,9 @@ class KFAC:
         ``factor_comm_freq > 1`` over more than one rank) merges the ranks'
         local running averages after this step's EMA and before any eigen
         work reads them; a step that starts a refresh (``update_eigen``, or
-        chunk 0) must carry it, and the cadences set it.
+        chunk 0) must carry it, and the cadences set it. The int8 wire's
+        flush writes the new residuals into the input state's
+        ``wire_error`` buffers.
 
         Under ``solver="streaming"`` a capture step without a refresh folds
         the averaged factors through the kept bases (in deferred mode on
@@ -771,6 +773,9 @@ class KFAC:
             # before any eigen path below reads them; the int8 wire folds in
             # and carries out the residuals, its rounding keyed by the step
             if self.factor_comm.quantized:
+                if not update_factors:
+                    # the merge lands in the leaves: keep the input state's
+                    facs = {n: {k: v.clone() for k, v in f.items()} for n, f in facs.items()}
                 facs, wire_error = self.factor_comm.flush(
                     facs, wire_error=wire_error, step=state["step"]
                 )

@@ -302,10 +302,8 @@ class EigenRefreshCadence:
         streaming every boundary, so the fold's input never depends on the
         drift verdict), due every ``comm_freq``-th capture step, and a due
         flush slipped under pressure within the staleness budget."""
-        hp = self.kfac.hparams
-        service = int(getattr(self.kfac, "service_devices", 0) or 0) > 0
-        forced = flags["update_eigen"] or chunk == 0 or ((streaming or service) and boundary)
-        due = flags["update_factors"] and (step // hp.fac_update_freq) % comm.comm_freq == 0
+        forced = flags["update_eigen"] or chunk == 0 or (streaming and boundary)
+        due = comm.flush_due(step, self.kfac.hparams.fac_update_freq)
         flush = forced or due
         if budget > 0 and not forced:
             if self._flush_owed:

@@ -471,7 +471,5 @@ def kfac_flags_for_step(
     }
     comm = getattr(kfac, "factor_comm", None)
     if comm is not None and comm.defer:
-        flags["flush_factors"] = flags["update_eigen"] or (
-            flags["update_factors"] and (step // hp.fac_update_freq) % comm.comm_freq == 0
-        )
+        flags["flush_factors"] = flags["update_eigen"] or comm.flush_due(step, hp.fac_update_freq)
     return flags

@@ -349,6 +349,9 @@ def test_int8_merge_matches_jax_on_its_draws(ranks, world):
                                        rtol=0, atol=1e-6 * float(np.abs(payload).max()))
         assert m["int8_wire"] == (comm.quant_wire_bytes(sizes), len(sizes)) \
             == (fc.last_wire_bytes, fc.last_collectives)
+        residuals_kept, leaves_kept = m["int8_in_place"]
+        assert residuals_kept and all(leaves_kept[b.entries[0].index]
+                                      for b in plan if len(b.entries) == 1)
     # the merge is the same on every rank; each keeps its own residual
     for a, b in zip(_leaves(res[0]["means"]["int8"]), _leaves(res[-1]["means"]["int8"])):
         np.testing.assert_array_equal(a, b)
@@ -434,6 +437,23 @@ def test_int8_state_checkpoint_round_trip(ranks):
                               saved["wire_error"]["b0"])
 
 
+
+def test_int8_flush_without_capture_keeps_input_state(ranks):
+    """The int8 merge writes into the leaves it is given: on a flush step
+    with no capture the leaves are the input state's, so KFAC merges
+    copies; the merged factors are the same on both ranks."""
+    _, res = ranks(2)
+    for out in res:
+        kept, after, _ = out["deferred"]["int8_flush_only"]
+        for a, b in zip(_leaves(kept), _leaves(after)):
+            np.testing.assert_array_equal(a, b)
+    merged = [_leaves(out["deferred"]["int8_flush_only"][2]) for out in res]
+    for a, b in zip(*merged):
+        np.testing.assert_array_equal(a, b)
+    assert not all(np.array_equal(a, b) for a, b in zip(
+        _leaves(res[0]["deferred"]["int8_flush_only"][0]), merged[0]))
+
+
 # ------------------------------------------------------------- cadences
 
 
@@ -445,7 +465,8 @@ def _stub(comm_freq, chunks=1, kfac_update_freq=6, fac_update_freq=1, staleness_
         diag_warmup=0, eigh_chunks=chunks, staleness_budget=staleness_budget,
         staleness_signal=None, solver=solver, solver_rank=128, stream_drift_signal=None,
         stream_drift_threshold=0.05, service_devices=0,
-        factor_comm=types.SimpleNamespace(defer=True, comm_freq=comm_freq),
+        # a two-rank plane (only its flush policy is read: no collective)
+        factor_comm=comm.FactorComm(World(size=2, distributed=True), "f32", comm_freq),
     )
 
 
@@ -491,7 +512,7 @@ def test_plane_is_inert_on_one_process(capsys):
     kfac = KFAC(device="cpu", factor_comm_dtype="bf16", factor_comm_freq=3)
     assert "have no effect on a world of one rank" in capsys.readouterr().out
     fc = kfac.factor_comm
-    assert not (fc.multi_device or fc.defer or fc.active)
+    assert not (fc.multi_device or fc.defer)
     assert "flush_factors" not in kfac_flags_for_step(0, kfac)
     assert "factor_sync_age" not in kfac.init(workers._tiny_mlp())
     with pytest.raises(ValueError, match="defer"):

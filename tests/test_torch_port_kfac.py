@@ -326,7 +326,7 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
         return
     if "factor_comm_dtype" in kwargs:
         kfac = KFAC(device="cpu", **kwargs)
-        assert kfac.factor_comm.comm_dtype == torch.bfloat16 and not kfac.factor_comm.active
+        assert kfac.factor_comm.comm_dtype == torch.bfloat16 and not kfac.factor_comm.multi_device
         assert "have no effect on a world of one rank" in capsys.readouterr().out
         return
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):

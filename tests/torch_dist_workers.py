@@ -287,7 +287,15 @@ def _comm_means(rank, w, stats, cap, quant):
     fc = comm.FactorComm(w, "int8", 2, max_bucket_elems=cap)
     draws = quant["draws"]
     fc.draw = lambda step, b, first, n, device: torch.from_numpy(draws[b][first:first + n])
-    merged, err = fc._merge_quantized(tree, _rank_tree(quant["wire_error"], rank), quant["step"])
+    # the merge overwrites the tree's leaves and the residuals: give it copies
+    tree = {n: {k: v.clone() for k, v in f.items()} for n, f in tree.items()}
+    err = {k: v.clone() for k, v in _rank_tree(quant["wire_error"], rank).items()}
+    before = dict(err)
+    merged, err = fc._merge_quantized(tree, err, quant["step"])
+    # in place: the residuals in their buffers, a lone leaf's mean in the leaf
+    out["int8_in_place"] = (all(err[k] is v for k, v in before.items()), [
+        m.data_ptr() == t.data_ptr()
+        for m, t in zip(comm.tree_leaves(merged), comm.tree_leaves(tree))])
     out["int8"], out["int8_error"] = _np(merged), _np(err)
     out["int8_wire"] = (fc.last_wire_bytes, fc.last_collectives)
     return out
@@ -322,7 +330,7 @@ def _deferred(rank, w, deferred, root):
     hp = dict(damping=0.01, fac_update_freq=1, kfac_update_freq=10, device="cpu")
     model = _tiny_mlp()
     runs = {"per_step": KFAC(**hp), "deferred": KFAC(**hp, factor_comm_freq=3)}
-    assert runs["deferred"].factor_comm.defer and not runs["per_step"].factor_comm.active
+    assert runs["deferred"].factor_comm.defer and not runs["per_step"].factor_comm.defer
     out = {k: {"updates": [], "factors": [], "flags": [], "ages": []} for k in runs}
     states = {k: kfac.init(model) for k, kfac in runs.items()}
     for step in range(deferred["steps"]):
@@ -400,6 +408,20 @@ def _deferred(rank, w, deferred, root):
     out["int8_restored"] = _np({k: restored.kfac_state[k]
                                 for k in ("factors", "wire_error", "factor_sync_age")})
     out["int8_restored_step"] = restored.step
+    # a flush step with no capture merges copies: the input state keeps its
+    # factors (each leaf a bucket of its own, which the merge writes into)
+    k1 = KFAC(**hp, factor_comm_freq=2, factor_comm_dtype="int8")
+    k1.factor_comm.max_bucket_elems = 1
+    st = k1.init(model)
+    for step in range(2):
+        a_c = {n: torch.from_numpy(v[rank]) for n, v in deferred["a"][step].items()}
+        g_s = {n: torch.from_numpy(v[rank]) for n, v in deferred["g"][step].items()}
+        _, st = k1.update(grads, st, a_contribs=a_c, g_factor_stats=g_s, lr=0.05,
+                          damping=0.01, **kfac_flags_for_step(step, k1))
+    kept = {n: {k: v.clone() for k, v in f.items()} for n, f in st["factors"].items()}
+    _, flushed = k1.update(grads, st, lr=0.05, damping=0.01, update_factors=False,
+                           update_eigen=False, flush_factors=True)
+    out["int8_flush_only"] = (_np(kept), _np(st["factors"]), _np(flushed["factors"]))
     return out
 
 
