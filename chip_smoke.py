@@ -303,16 +303,56 @@ no result line):
        NCCL at world size 1, a whole int8 flush merge of a 33,278²-element
        G factor (WikiText-2's): its peak memory above the factor and its
        residual, and its time;
-23. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+23. owner-sharded factor state and the overlap plane (slice 14):
+    a. ``--factor-sharding owner --comm-overlap`` through ``launch.initialize``
+       on NCCL at world size 1: the CIFAR twin (ResNet-32, 12 steps,
+       deterministic cuDNN) against the same run without a group, the LM
+       twin against phase 8's 38 steps; both levers warn and are inert, the
+       losses within ``RESUME_RTOL``, kernels 1-7 as implied;
+    b. two ranks on the one card (20c's setup): ResNet-32 owner-sharded for
+       12 steps (a refresh included): kernels 1, 3 (once per step per owned
+       shape group of dense "update" layers) and 4 per rank as the plan
+       implies, the parameters' digests equal on both ranks after every
+       step, the first 5 losses within 1e-3 of one process on the
+       concatenated batch, a capture and a refresh step each issuing one
+       reduce-scatter per wire bucket and one all-gather inside
+       ``KFAC.update`` and nothing else; the LM owner-sharded with the bf16
+       factor wire deferred to every second capture step, with and without
+       ``--comm-overlap``, and replicated with the same wires: kernels 2-7
+       per rank as implied, overlap on and off bitwise equal, the owner run
+       within 1e-3 of the replicated one, step medians by kind and the
+       collectives' host ms per capture and flush step; the LM replicated
+       with the bf16 wire on every capture step, serial and with
+       ``--comm-overlap`` (the bucket means started before the gradient
+       mean, which owner-sharded and deferred runs do not have): bitwise
+       equal losses, capture-step medians;
+    c. in the same two ranks, the WikiText LSTM (19a's recipe, dropout 0,
+       ``--kfac-embedding``) owner-sharded with ``--eigh-chunks 2 --solver
+       rsvd --solver-auto-threshold 256``, with and without
+       ``--comm-overlap``: kernels 2-4 per rank as implied, a two-chunk owner
+       pass within ``EIGH_TOL`` (reconstructions) of the monolithic owner
+       refresh, the losses within 1e-3 of one process on the concatenated
+       batch and overlap within ``RESUME_RTOL``;
+    d. on the LM's owner ranks: the K-FAC state's bytes and
+       ``memory_allocated`` at init, owner against replicated, beside the
+       plan's ``total_buffer_local`` and ``replicated_total``; an owner
+       checkpoint saved and restored on the two ranks (every shard row's
+       digest equal) and a replicated one re-homed; on the host only,
+       ``shard_plan_bytes`` of the WikiText-2 LSTM (33,278-word decoder and
+       embedding) for 2, 4 and 8 ranks;
+    e. every kernel's launches on phase 23's paths, per rank on the
+       two-rank ones, into the kernels line;
+24. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3; kernel 1's ResNet-50 row, kernel 2's tied-path row,
     kernel 3's WikiText rows and kernel 4's LSTM row beside the others, the
     two-rank launches of kernels 1, 3 and 4, and every kernel's launches on
-    phase 21's and phase 22's paths, per rank on the two-rank ones), then
+    phase 21's, 22's and 23's paths, per rank on the two-rank ones), then
     the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -707,14 +747,30 @@ def grouped_conv_a_phase(model, images, bf16=False):
     }
 
 
-def apply_phase(model, device, q_dtype=None):
+def owned_update_shapes(kfac, facs, rank, world=2):
+    """The layers ``rank`` solves through kernel 3 under
+    ``--factor-sharding owner`` over ``world`` ranks (owned, "update"
+    payload, no diagonal A), ``{name: (g, a)}`` in the model's order."""
+    from kfac_pytorch_tpu_torch.ops import precondition as pc
+    from kfac_pytorch_tpu_torch.parallel.assignment import plan_factor_shards
+
+    shapes, diag = kfac._owner_shapes(facs)
+    plan = plan_factor_shards(shapes, world, diag_a=diag)
+    _, seg, _ = pc._owner_gather_layout(shapes, plan.owners, world, None, diag)
+    return {n: v for n, v in shapes.items()
+            if plan.owners[n] == rank and seg[n]["mode"] == "update" and n not in diag}
+
+
+def apply_phase(model, device, q_dtype=None, owner_rank=None):
     """Kernel 3 on every shape group of ``model``'s K-FAC layers (diagonal-A
     embeddings stay out of the groups, as on the main path): within 1e-4
     of the largest plain entry per group (v and vg), two launches bitwise
     equal, timed for all groups together and per group (the five costliest
     groups are reported with the tile and copy widths they take). With
     ``q_dtype=torch.bfloat16``, its bf16-Q route: QA and QG stored in
-    bfloat16 (the library yardstick multiplies by float32 copies of them)."""
+    bfloat16 (the library yardstick multiplies by float32 copies of them).
+    With ``owner_rank``, only the layers that rank solves on two ranks
+    under ``--factor-sharding owner`` (:func:`owned_update_shapes`)."""
     import torch
 
     from kfac_pytorch_tpu_torch import KFAC, capture
@@ -724,6 +780,8 @@ def apply_phase(model, device, q_dtype=None):
     kfac = KFAC(layers=capture.discover_layers(model), device=device)
     facs = kfac._identity_factors(model)
     shapes = {n: (f["G"].shape[0], f["A"].shape[0]) for n, f in facs.items() if "A" in f}
+    if owner_rank is not None:
+        shapes = owned_update_shapes(kfac, facs, owner_rank)
     gen = torch.Generator(device=device).manual_seed(0)
 
     q_dtype = q_dtype or torch.float32
@@ -797,7 +855,8 @@ def apply_phase(model, device, q_dtype=None):
         "source": "kfac_pytorch_tpu_torch/csrc/fused_apply.cu",
         "replaces": "kfac_pytorch_tpu/ops/apply_kernels.py:190",
         "unit": f"{len(groups)} shape groups ({len(shapes)} layers) of one step"
-                + (", QA and QG bfloat16" if bf16 else ""),
+                + (", QA and QG bfloat16" if bf16 else "")
+                + (f", owner rank {owner_rank} of 2" if owner_rank is not None else ""),
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "tolerance": f"|kernel - plain| <= {tol} * max|plain| per group (v and vg)",
@@ -3471,13 +3530,14 @@ def tensor_digest(tensors):
     return h.hexdigest()
 
 
-def _comm_run(twin, argv, device, world, steps):
+def _comm_run(twin, argv, device, world, steps, keep=None):
     """One of ``COMM_RUNS`` on this rank: ``steps`` counted steps through the
-    refresh cadence on this rank's rows, then a flush step and a capture
-    step profiled for the collectives' host ms; after each flush the
-    digests of the factors and the parameters, and on the int8 wire the
-    residual's and the factors' norms. The CIFAR twin runs through its
-    ``main()``: ``steps`` counted steps."""
+    refresh cadence on this rank's rows, then a flush step (deferred runs)
+    and a capture step profiled for the collectives' host ms; after each
+    flush the digests of the factors and the parameters, and on the int8
+    wire the residual's and the factors' norms. The CIFAR twin runs through
+    its ``main()``: ``steps`` counted steps. ``keep`` (a dict) receives the
+    LM twins' model, preconditioner and final state."""
     import torch
 
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
@@ -3555,14 +3615,15 @@ def _comm_run(twin, argv, device, world, steps):
         out["expected_launches"] = {LM_COUNTERS[k]: n for k, n in
                                     lm_expected_launches(hist, model).items()}
     else:
-        out["expected_launches"] = wikitext_expected(hist)
+        out["expected_launches"] = wikitext_expected(hist, embedding=args.kfac_embedding)
     out["wire_bytes"] = kfac.factor_comm.last_wire_bytes
     out["bucket_sizes"] = [b.size for b in kfac.factor_comm._plan_for(
         [t for f in state.kfac_state["factors"].values() for t in f.values()])]
     # the collectives' host time on a flush step and a capture step
     exchange = {}
     freq = kfac.factor_comm.comm_freq
-    for label, i in (("flush", 2 * freq * steps), ("capture", 2 * freq * steps + 1)):
+    kinds = (("flush", 2 * freq * steps),) if kfac.factor_comm.defer else ()
+    for label, i in (*kinds, ("capture", 2 * freq * steps + 1)):
         flags = kfac_flags_for_step(i, kfac, 0)
         if step_kind(flags) != label:
             raise AssertionError(f"step {i} is a {step_kind(flags)} step, want {label}")
@@ -3574,6 +3635,8 @@ def _comm_run(twin, argv, device, world, steps):
                if e.key.startswith("gloo:")}
         exchange[label] = {"ms": sum(ops.values()), "ops": ops}
     out["exchange_ms"] = exchange
+    if keep is not None:
+        keep.update(model=model, kfac=kfac, state=state, step_fn=step_fn, batches=batches)
     return out
 
 
@@ -3743,6 +3806,454 @@ def comm_phase(device):
             "bf16_max_rel_diff": bf16_rel, "int8_max_rel_diff": int8_rel,
             "int8_over_bf16_bytes": int8_over_bf16, "steps": COMM_STEPS,
             "int8_merge_33278": quant}
+
+
+# Phase 23 (slice 14): owner-sharded factor state and the overlap plane.
+OWNER_FLAGS = ["--factor-sharding", "owner"]
+OWNER_LM_WIRES = ["--factor-comm-dtype", "bf16", "--factor-comm-freq", "2"]
+# 19a's LSTM without dropout (the ranks and one process would draw other
+# masks), the embedding's diagonal A (the v<V> groups), the chunked and
+# rank-aware refresh
+OWNER_LSTM_FLAGS = ["--kfac-embedding", "--dropout", "0", "--eigh-chunks", "2", "--solver",
+                    "rsvd", "--solver-auto-threshold", "256"]
+OWNER_STEPS = 12
+OWNER_TIMEOUT_S = 900
+OWNER_WORLD1_STEPS = 12
+OWNER_RUNS = (  # (name, twin, argv)
+    ("cifar_owner", "cifar", [*RESNET_ARGS, *OWNER_FLAGS]),
+    ("lm_owner_overlap", "lm", [*LM_ARGS, *OWNER_FLAGS, *OWNER_LM_WIRES, "--comm-overlap"]),
+    ("lm_owner", "lm", [*LM_ARGS, *OWNER_FLAGS, *OWNER_LM_WIRES]),
+    ("lm_replicated", "lm", [*LM_ARGS, *OWNER_LM_WIRES]),
+    # the overlap plane's mechanism (a) acts on the per-step bucket means
+    # alone (owner-sharded and deferred runs have none): serial, then on
+    ("lm_replicated_serial", "lm", [*LM_ARGS, "--factor-comm-dtype", "bf16"]),
+    ("lm_replicated_overlap", "lm", [*LM_ARGS, "--factor-comm-dtype", "bf16", "--comm-overlap"]),
+    ("lstm_owner", "lstm", [*WIKITEXT_ARGS, *OWNER_FLAGS, *OWNER_LSTM_FLAGS]),
+    ("lstm_owner_overlap", "lstm", [*WIKITEXT_ARGS, *OWNER_FLAGS, *OWNER_LSTM_FLAGS,
+                                    "--comm-overlap"]),
+)
+OWNER_COLLECTIVES = ("reduce_scatter_tensor", "all_gather_into_tensor", "all_reduce",
+                     "broadcast", "batch_isend_irecv")
+
+
+def owner_world1_phase(device, counters, lm_hist):
+    """Phase 23a: ``--factor-sharding owner --comm-overlap`` at NCCL world
+    size 1 through the CIFAR twin (ResNet-32, 12 steps, deterministic cuDNN,
+    against the same run without a group) and the LM twin (phase 8's 38
+    steps, against phase 8): both levers warn and are inert, the losses
+    within ``RESUME_RTOL``, the kernels as implied."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+
+    flags = [*OWNER_FLAGS, "--comm-overlap"]
+    steps = ["--steps-per-epoch", str(OWNER_WORLD1_STEPS)]
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = io.StringIO()
+    try:
+        plain = train(steps)
+        with contextlib.redirect_stdout(out):
+            (hist, launches), _, _ = in_nccl_world1(
+                lambda: counted(lambda: train([*steps, *flags]), counters))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    gate_launches(launches, conv_expected_launches(
+        hist, cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)), device),
+        "ResNet-32 owner, NCCL world 1")
+    (lm, lm_launches), _, _ = in_nccl_world1(
+        lambda: counted(lambda: train_lm(["--epochs", str(LM_EPOCHS), *flags]), counters))
+    warned = out.getvalue()
+    if "factor_sharding='owner' has no effect" not in warned or \
+            "comm_overlap=True has no effect" not in warned:
+        raise AssertionError(f"world 1: the levers did not warn: {warned!r}")
+    res = {}
+    for name, got, want in (("resnet32", hist["loss"], plain["loss"]),
+                            ("lm", lm["loss"], lm_hist["loss"])):
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        if len(got) != len(want) or not max(rel) <= RESUME_RTOL:
+            raise AssertionError(f"{name} owner at world 1: losses {got} vs {want}")
+        res[name] = {"losses_max_rel_diff": max(rel), "losses_bitwise": sum(
+            a == b for a, b in zip(got, want)), "steps": len(got)}
+    print(f"owner + overlap at NCCL world 1 (inert, warned): ResNet-32 "
+          f"{res['resnet32']['losses_bitwise']}/{res['resnet32']['steps']} losses bitwise, LM "
+          f"{res['lm']['losses_bitwise']}/{res['lm']['steps']} bitwise phase 8's", flush=True)
+    return {**res, "launches": {"resnet32": launches, "lm": lm_launches}}
+
+
+@contextlib.contextmanager
+def dist_calls(calls):
+    """Count the ``torch.distributed`` collectives of ``OWNER_COLLECTIVES``
+    issued inside the block into ``calls``."""
+    import torch.distributed as dist
+
+    real = {n: getattr(dist, n) for n in OWNER_COLLECTIVES}
+
+    def wrap(n):
+        def fn(*args, **kwargs):
+            calls[n] = calls.get(n, 0) + 1
+            return real[n](*args, **kwargs)
+        return fn
+
+    for n in OWNER_COLLECTIVES:
+        setattr(dist, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in real.items():
+            setattr(dist, n, f)
+
+
+def owner_apply_groups(kfac, rank):
+    """The shape groups of dense entries that ``rank`` solves through kernel
+    3 on every step of the owner mode: its owned "update" layers of the
+    plan's gather layout with no truncated side."""
+    from kfac_pytorch_tpu_torch.ops import precondition as pc
+
+    (plan,) = kfac._shard_plans.values()
+    shapes, diag = {}, set()
+    for s in plan.slots:
+        g, a = shapes.get(s.name, (0, 0))
+        shapes[s.name] = (s.size, a) if s.factor == "G" else (g, s.size)
+        if s.diag:
+            diag.add(s.name)
+    _, segments, _ = pc._owner_gather_layout(shapes, plan.owners, plan.world, kfac._rank_fn(),
+                                             diag)
+    return len({shapes[n] for n, seg in segments.items()
+                if plan.owners[n] == rank and seg["mode"] == "update" and n not in diag
+                and kfac._rank_for(shapes[n][0]) is None and kfac._rank_for(shapes[n][1]) is None})
+
+
+def kfac_state_bytes(state):
+    """The bytes of every tensor of a K-FAC state."""
+    import torch
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            return t.numel() * t.element_size()
+        return sum(walk(v) for v in t.values()) if isinstance(t, dict) else 0
+
+    return walk(state)
+
+
+def _owner_cifar_run(argv, device, world, steps):
+    """ResNet-32 owner-sharded on this rank: ``steps`` counted steps through
+    the cadence, the parameters' digest after each; a refresh step and a
+    capture step with their K-FAC collectives counted and their gloo host
+    ms profiled."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.models.layers import KFACConv
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step, step_kind
+
+    args = trainer.parse_args(argv)
+    model, kfac, state, step_fn = trainer.build(args, device, world)
+    batches = _two_rank_batches(device, world.rank, steps, args.batch_size)
+    lr = args.base_lr * world.size
+    cadence = EigenRefreshCadence(kfac)
+    counters = (fk.compute_a_conv_fused, ak.fused_precondition_stack, ak.fused_sgd_apply)
+    out = {"losses": [], "kinds": [], "digests": []}
+    zero_counts(counters)
+    for i, batch in enumerate(batches):
+        flags = cadence.flags_for_step(i, 0)
+        state, m = step_fn(state, batch, lr, kfac.hparams.damping, **flags)
+        out["losses"].append(float(m["loss"]))
+        out["kinds"].append(step_kind(flags))
+        out["digests"].append(tensor_digest(model.parameters()))
+    out["launches"] = read_counts(counters)
+    captures = sum(k != "plain" for k in out["kinds"])
+    out["expected_launches"] = {
+        "compute_a_conv_fused": captures * sum(isinstance(m, KFACConv) for m in model.modules()),
+        "fused_precondition_stack": owner_apply_groups(kfac, world.rank) * steps,
+        "fused_sgd_apply": steps,
+    }
+    (plan,) = kfac._shard_plans.values()
+    out["wire_buckets"] = len(plan.wire_buckets)
+    real_update = kfac.update
+    out["collectives"], out["exchange_ms"] = {}, {}
+    for label, i in (("refresh", 10 * steps), ("capture", 10 * steps + 1)):
+        calls = {}
+
+        def update(*a, **k):
+            with dist_calls(calls):
+                return real_update(*a, **k)
+
+        kfac.update = update
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            state, m = step_fn(state, batches[0], lr, kfac.hparams.damping,
+                               **kfac_flags_for_step(i, kfac, 0))
+            float(m["loss"])
+        del kfac.update
+        ops = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+               if e.key.startswith("gloo:")}
+        out["collectives"][label] = calls
+        out["exchange_ms"][label] = {"ms": sum(ops.values()), "ops": ops}
+    out["plan_info"] = kfac.shard_plan_info
+    out["gather_width"] = kfac.precond_gather_width
+    return out
+
+
+def _owner_state_checks(kept, argv, device, world, root):
+    """On the LM's owner ranks: the K-FAC state's bytes and its
+    ``memory_allocated`` at init, owner against replicated, beside the
+    plan's; an owner checkpoint saved on the ranks and restored on them
+    (every shard row's digest), and a replicated one re-homed."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+    from kfac_pytorch_tpu_torch.training.step import TrainState
+
+    kfac, model, state = kept["kfac"], kept["model"], kept["state"].kfac_state
+    rep_args = trainer.parse_args([a for a in argv if a not in OWNER_FLAGS])
+    _, rep_kfac, rep_train, _, _ = trainer.build(rep_args, device, world=world)
+    # the per-step owner plane keeps no full-size factor_local accumulator
+    step_args = trainer.parse_args([*argv, "--factor-comm-freq", "1"])
+    _, step_kfac, _, _, _ = trainer.build(step_args, device, world=world)
+    out = {"plan_info": kfac.shard_plan_info, "gather_width": kfac.precond_gather_width}
+    allocated = ((lambda: torch.cuda.memory_allocated(device)) if device.type == "cuda"
+                 else (lambda: 0))
+    for key, k in (("owner", kfac), ("owner_per_step", step_kfac), ("replicated", rep_kfac)):
+        base = allocated()
+        fresh = k.init(model)
+        out[f"{key}_init_allocated_bytes"] = allocated() - base
+        out[f"{key}_state_bytes"] = kfac_state_bytes(fresh)
+        del fresh
+    shard_keys = ("factor_shard", "eigen_shard", "eigen_pending_shard")  # this rank's rows
+    rows = lambda st: tensor_digest(ckpt._tensors({k: st[k] for k in shard_keys if k in st}))  # noqa: E731
+    ckpt.save_checkpoint(f"{root}/owner", 0, TrainState(1, model, {}, state), world)
+    torch.distributed.barrier()  # rank 0 has written
+    target = TrainState(0, model, {}, kfac.init(model))
+    back = ckpt.restore_checkpoint(f"{root}/owner", 0, target, kfac)
+    out["round_trip_digests"] = (rows(state), rows(back.kfac_state))
+    ckpt.save_checkpoint(f"{root}/replicated", 0, TrainState(1, model, {},
+                                                             rep_train.kfac_state), world)
+    torch.distributed.barrier()
+    target = TrainState(0, model, {}, kfac.init(model))
+    rehomed = ckpt.restore_checkpoint(f"{root}/replicated", 0, target, kfac)
+    out["rehome_digests"] = (rows(kfac.owner_state_from_replicated(rep_train.kfac_state)),
+                             rows(rehomed.kfac_state))
+    del rep_kfac, rep_train, step_kfac
+    return out
+
+
+def owner_chunk_recon(kept):
+    """On the LSTM's owner rank: a two-chunk owner pass (the
+    ``plan_owner_chunks`` jobs into zeroed pending stacks) against the
+    monolithic owner refresh of the same shard stacks, through the factors
+    their valid rows reconstruct: the largest difference over the largest
+    entry."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.parallel.assignment import plan_owner_chunks
+    from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
+        owner_eigen_chunk_update,
+        owner_eigen_update,
+    )
+
+    kfac, state = kept["kfac"], kept["state"].kfac_state
+    (plan,) = kfac._shard_plans.values()
+    shard, rank, rank_fn = state["factor_shard"], kfac.world.rank, kfac._rank_fn()
+    mono = owner_eigen_update(shard, plan, rank, kfac.eps, rank_fn, kfac.eigen_dtype)
+    pending = {k: {f: torch.zeros_like(v) for f, v in e.items()} for k, e in mono.items()}
+    for jobs in plan_owner_chunks(plan, kfac.eigh_chunks, rank_fn=rank_fn):
+        pending = owner_eigen_chunk_update(shard, pending, jobs, plan, rank, kfac.eps, rank_fn,
+                                           kfac.eigen_dtype)
+    worst = 0.0
+    for n in plan.group_sizes:
+        for i, ok in enumerate(plan.valid_rows(n)[rank]):
+            if not ok:
+                continue
+            recon = []
+            for e in (pending[f"n{n}"], mono[f"n{n}"]):
+                q = e["Q"][i].double()
+                f = (q * e["d"][i].double()) @ q.T
+                if "rho" in e:
+                    f += float(e["rho"][i]) * (torch.eye(n, dtype=f.dtype, device=f.device) - q @ q.T)
+                recon.append(f)
+            worst = max(worst, float((recon[0] - recon[1]).abs().max() / recon[1].abs().max()))
+    return worst
+
+
+def owner_worker(rank, store, out_path, steps, device_name, runs, root):
+    """One rank of phases 23b-d (``torch.multiprocessing`` target): each of
+    ``runs`` (``OWNER_RUNS``) on ``cuda:0`` over gloo, then the LM's state
+    checks and the LSTM's chunked pass; writes its results as JSON to
+    ``out_path-<rank>.json``."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.device import use_ieee_f32
+    from kfac_pytorch_tpu_torch.parallel import launch
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
+
+    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                               rank=rank, world_size=2)
+    try:
+        use_ieee_f32()
+        world = data_parallel_world()
+        result = {"rank": rank, "backend": torch.distributed.get_backend(), "runs": {}}
+        for name, twin, argv in runs:
+            if twin == "cifar":
+                res = _owner_cifar_run(argv, device, world, steps)
+            else:
+                kept = {}
+                res = _comm_run(twin, argv, device, world, steps, kept)
+                if "--factor-sharding" in argv:
+                    res["expected_launches"]["fused_precondition_stack"] = owner_apply_groups(
+                        kept["kfac"], rank) * steps
+                    res["plan_info"] = kept["kfac"].shard_plan_info
+                if name == "lm_owner":
+                    res["state_checks"] = _owner_state_checks(kept, argv, device, world, root)
+                if name == "lstm_owner":
+                    res["chunk_recon_max_rel_diff"] = owner_chunk_recon(kept)
+                del kept
+            result["runs"][name] = res
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(result, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def wikitext2_plan_bytes():
+    """Host only: ``shard_plan_bytes`` of the WikiText-2 LSTM's K-FAC layers
+    (the 33,278-word decoder, and the embedding with ``--kfac-embedding``)
+    for 2, 4 and 8 ranks, under the dense eigh and ``--solver rsvd``
+    (the twin's rank 128 from side 512)."""
+    from kfac_pytorch_tpu_torch.parallel.assignment import plan_factor_shards, shard_plan_bytes
+
+    shapes = {"decoder": (WIKITEXT2_VOCAB, 651), "encoder": (650, WIKITEXT2_VOCAB)}
+    out = {}
+    for solver, rank_fn in (("eigh", None), ("rsvd", lambda n: None if n < 512 else 128)):
+        for world in (2, 4, 8):
+            info = shard_plan_bytes(plan_factor_shards(shapes, world, diag_a={"encoder"}),
+                                    rank_fn=rank_fn)
+            out[f"{solver}_world{world}"] = {k: info[k] for k in (
+                "total_buffer_local", "replicated_total", "per_owner", "owner_count")}
+    return out
+
+
+def owner_phase(device):
+    """Phases 23b-d: two ranks on the one card (20c's setup), ``OWNER_RUNS``
+    in each (see the module docstring for the gates), one process on the
+    concatenated ResNet-32 and LSTM batches, and the plan's bytes at
+    WikiText-2's width."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_owner_") as tmp:
+        ctx = mp.spawn(owner_worker, args=(f"{tmp}/store", f"{tmp}/rank", OWNER_STEPS,
+                                           str(device), OWNER_RUNS, f"{tmp}/ck"),
+                       nprocs=2, join=False)
+        deadline = time.monotonic() + OWNER_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the two ranks did not finish in {OWNER_TIMEOUT_S} s")
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank-{r}.json") as fh:
+                ranks.append(json.load(fh))
+    for res in ranks:
+        for name, run in res["runs"].items():
+            gate_launches(run["launches"], run["expected_launches"],
+                          f"rank {res['rank']}, {name}")
+            if not all(math.isfinite(v) for v in run["losses"]):
+                raise AssertionError(f"rank {res['rank']}, {name}: losses {run['losses']}")
+        cif = res["runs"]["cifar_owner"]
+        want = {"reduce_scatter_tensor": cif["wire_buckets"], "all_gather_into_tensor": 1}
+        for label, calls in cif["collectives"].items():
+            if calls != want:
+                raise AssertionError(f"rank {res['rank']}: the owner {label} step's K-FAC "
+                                     f"collectives {calls}, want {want}")
+        checks = res["runs"]["lm_owner"]["state_checks"]
+        for key in ("round_trip_digests", "rehome_digests"):
+            if checks[key][0] != checks[key][1]:
+                raise AssertionError(f"rank {res['rank']}: {key} differ: {checks[key]}")
+        if not res["runs"]["lstm_owner"]["chunk_recon_max_rel_diff"] <= EIGH_TOL:
+            raise AssertionError(f"rank {res['rank']}: a chunked owner pass "
+                                 f"{res['runs']['lstm_owner']['chunk_recon_max_rel_diff']:.2e} "
+                                 f"from the monolithic owner refresh (tolerance {EIGH_TOL})")
+    runs = ranks[0]["runs"]
+    if runs["cifar_owner"]["digests"] != ranks[1]["runs"]["cifar_owner"]["digests"]:
+        raise AssertionError("ResNet-32 owner: the ranks' parameters differ after a step")
+    for name, run in runs.items():  # the parameters follow the ranks' one mean
+        other = ranks[1]["runs"][name].get("flush_digests")
+        if "flush_digests" in run and other != run["flush_digests"]:
+            raise AssertionError(f"{name}: the ranks' parameters differ after a flush")
+    # overlap reorders the wire only: the LM bitwise, the LSTM (cuDNN's RNN
+    # may not repeat bitwise) within RESUME_RTOL
+    for a, b in (("lm_owner_overlap", "lm_owner"),
+                 ("lm_replicated_overlap", "lm_replicated_serial")):
+        if runs[a]["losses"] != runs[b]["losses"]:
+            raise AssertionError(f"LM: overlap changed the losses: {runs[a]['losses']} "
+                                 f"against {runs[b]['losses']}")
+    overlap_lstm = gate_oracle(runs["lstm_owner_overlap"]["losses"], runs["lstm_owner"]["losses"],
+                               "LSTM overlap on vs off", range(OWNER_STEPS), RESUME_RTOL)
+    lm_rel = gate_oracle(runs["lm_owner_overlap"]["losses"], runs["lm_replicated"]["losses"],
+                         "LM owner vs replicated, same wires", range(OWNER_STEPS))
+    # one process on the concatenated batches: ResNet-32's first steps, the
+    # LSTM's twelve
+    args = trainer.parse_args(RESNET_ARGS)
+    parts = [_two_rank_batches(device, r, ORACLE_STEPS, args.batch_size) for r in range(2)]
+    args.batch_size *= 2
+    _, kfac, state, step_fn = trainer.build(args, device)
+    cadence, one = EigenRefreshCadence(kfac), []
+    for i in range(ORACLE_STEPS):
+        batch = tuple(torch.cat([parts[0][i][j], parts[1][i][j]]) for j in range(2))
+        state, m = step_fn(state, batch, args.base_lr * 2, kfac.hparams.damping,
+                           **cadence.flags_for_step(i, 0))
+        one.append(float(m["loss"]))
+    del state, step_fn, kfac
+    cifar_rel = gate_oracle(runs["cifar_owner"]["losses"], one, "ResNet-32 owner vs one process",
+                            range(ORACLE_STEPS))
+    step_fn, state, kfac, batches, wargs = wikitext_setup(device, OWNER_LSTM_FLAGS)
+    cadence, lstm_one = EigenRefreshCadence(kfac), []
+    for i in range(OWNER_STEPS):
+        state, m = step_fn(state, batches[i], wargs.base_lr, kfac.hparams.damping,
+                           **cadence.flags_for_step(i, 0))
+        lstm_one.append(float(m["loss"]))
+    del state, step_fn, kfac, batches
+    torch.cuda.empty_cache()
+    lstm_rel = gate_oracle(runs["lstm_owner"]["losses"], lstm_one, "LSTM owner vs one process",
+                           range(OWNER_STEPS))
+    medians = {name: kind_medians({"kind": run["kinds"], "step_ms": run["step_ms"]})
+               for name, run in runs.items() if "step_ms" in run}
+    plan_bytes = wikitext2_plan_bytes()
+    checks = runs["lm_owner"]["state_checks"]
+    print(f"two ranks, owner-sharded: ResNet-32 within {cifar_rel:.2e} of one process, the "
+          f"capture step {runs['cifar_owner']['wire_buckets']} reduce-scatters + 1 all-gather, "
+          f"the refresh no more; LM owner within {lm_rel:.2e} of replicated, overlap bitwise; "
+          f"LSTM within {lstm_rel:.2e} of one process, a chunked pass "
+          f"{runs['lstm_owner']['chunk_recon_max_rel_diff']:.2e} from the monolithic one; LM "
+          f"K-FAC state {checks['owner_state_bytes']} bytes owner (deferred), "
+          f"{checks['owner_per_step_state_bytes']} owner per step, "
+          f"{checks['replicated_state_bytes']} replicated (plan: "
+          f"{checks['plan_info']['total_buffer_local']} of "
+          f"{checks['plan_info']['replicated_total']}); LM medians {json.dumps(medians)}",
+          flush=True)
+    return {"ranks": ranks, "one_process_losses": {"resnet32": one, "lstm": lstm_one},
+            "resnet32_max_rel_diff_vs_one_process": cifar_rel,
+            "lm_owner_max_rel_diff_vs_replicated": lm_rel,
+            "lstm_max_rel_diff_vs_one_process": lstm_rel, "step_ms_medians": medians,
+            "lstm_overlap_max_rel_diff": overlap_lstm,
+            "wikitext2_plan_bytes": plan_bytes, "steps": OWNER_STEPS}
 
 
 def ptxas_report():
@@ -4236,7 +4747,36 @@ def main() -> int:
             f"{name}_two_ranks_per_rank": [r["runs"][name]["launches"][key] for r in comm["ranks"]]
             for name, _, _ in COMM_RUNS}}
 
-    # 23. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 23a-e. this slice: owner-sharded factor state and the overlap plane;
+    # at NCCL world 1 (inert) and on two ranks of the one card, each path
+    # with the counters zeroed just before
+    mark("23a. owner + overlap, NCCL world 1")
+    owner_world1 = owner_world1_phase(device, all_counted, lm_hist)
+    print(json.dumps({"owner_nccl_world_1": owner_world1}), flush=True)
+    mark("23b-d. two ranks: owner-sharded ResNet-32, LM, LSTM")
+    owner = owner_phase(device)
+    print(json.dumps({"two_ranks_owner": owner}), flush=True)
+    # kernel 3 on each rank's owned shape groups, at the two paths' shapes
+    owner_models = {
+        "resnet32": cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0)),
+        "lm": lm_trainer.build(lm_trainer.parse_args(LM_ARGS), device)[0],
+    }
+    for name, m in owner_models.items():
+        lm_apply[f"{name}_owner_two_ranks"] = [apply_phase(m.to(device), device, owner_rank=r)
+                                               for r in (0, 1)]
+    del owner_models
+    for k, key in ((conv_a, "compute_a_conv_fused"), (token_count, "compute_a_embed_fused"),
+                   (lm_apply, "fused_precondition_stack"), (lm_sgd, "fused_sgd_apply"),
+                   (flash[0], "flash_forward"), (flash[1], "flash_backward_dq"),
+                   (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice14_paths"] = {
+            "resnet32_owner_nccl_world1": owner_world1["launches"]["resnet32"].get(key, 0),
+            "lm_owner_nccl_world1": owner_world1["launches"]["lm"].get(key, 0), **{
+                f"{name}_two_ranks_per_rank": [r["runs"][name]["launches"].get(key, 0)
+                                               for r in owner["ranks"]]
+                for name, _, _ in OWNER_RUNS}}
+
+    # 24. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

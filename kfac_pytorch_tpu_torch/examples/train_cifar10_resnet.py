@@ -103,10 +103,8 @@ DIAG_EXTRA_KEYS = (
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--factor-sharding", str, "replicated", "7 (7b, owner-sharded factors)"),
     ("--profile-epoch", int, None, "9 (training/profiling.py)"),
     ("--telemetry-dir", str, None, "9 (observability/)"),
-    ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--autotune-steps", int, 0, "9 (planner/)"),
@@ -241,10 +239,21 @@ def add_factor_comm_flags(p: argparse.ArgumentParser) -> None:
                         "per-step exchange, exact")
 
 
+def add_owner_flags(p: argparse.ArgumentParser, sharding_help: str, overlap_help: str) -> None:
+    """The JAX trainers' ``--factor-sharding`` and ``--comm-overlap``, each
+    twin with its JAX trainer's help."""
+    p.add_argument("--factor-sharding", default="replicated", choices=["replicated", "owner"],
+                   help=sharding_help)
+    p.add_argument("--comm-overlap", action="store_true", help=overlap_help)
+
+
 def factor_comm_kwargs(args) -> Dict[str, object]:
-    """``KFAC`` keyword arguments of :func:`add_factor_comm_flags`' flags."""
+    """``KFAC`` keyword arguments of :func:`add_factor_comm_flags`' and
+    :func:`add_owner_flags`' flags."""
     return {"factor_comm_dtype": args.factor_comm_dtype,
-            "factor_comm_freq": args.factor_comm_freq}
+            "factor_comm_freq": args.factor_comm_freq,
+            "factor_sharding": args.factor_sharding,
+            "comm_overlap": args.comm_overlap}
 
 
 def parallel_kwargs(args) -> Dict[str, object]:
@@ -325,6 +334,21 @@ def build_parser() -> argparse.ArgumentParser:
     add_refresh_flags(p)
     add_parallel_flags(p)
     add_factor_comm_flags(p)
+    add_owner_flags(
+        p,
+        "owner: DP-KFAC owner-sharded curvature — factor "
+                         "stats reduce-scatter onto each layer's eigen-owner, "
+                         "eigen bases live only there, and ONE allgather "
+                         "replicates the preconditioned grads; factor+eigen "
+                         "memory and wire scale O(model/devices) "
+                         "(docs/PERF.md); replicated = exact prior behavior",
+        "fuse the factor-statistics reduction into the "
+                         "gradient stream: the bucketed factor psums issue "
+                         "before the gradient pmean so the collectives "
+                         "interleave with backprop instead of queuing after "
+                         "it (multi-device mesh only; bitwise-identical "
+                         "numerics; docs/PERF.md)",
+    )
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch K-FAC stability diagnostics (nu, "
                         "damped eigenvalues, condition numbers, update/grad "
@@ -480,10 +504,13 @@ def main(argv=None) -> Dict[str, List]:
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "val_accuracy": [],
         "val_count": [], "eval_ms": [], "checkpoint_ms": [], "restore_ms": [],
     }
+    # owner-sharded curvature is this rank's rows (a restored checkpoint
+    # is re-homed the same way, in auto_resume)
+    state.kfac_state = ckpt.rehome_kfac_state(kfac, state.kfac_state)
     resume_from_epoch = 0
     if args.checkpoint_dir:
         t0 = time.perf_counter()
-        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state, kfac)
         if resume_from_epoch and args.init_from_torch:
             raise SystemExit(
                 f"--init-from-torch was given but {args.checkpoint_dir} "
@@ -615,7 +642,7 @@ def main(argv=None) -> Dict[str, List]:
 
         if args.checkpoint_dir:
             tc = time.perf_counter()
-            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
+            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
             history["checkpoint_ms"].append((time.perf_counter() - tc) * 1e3)
     writer.close()
     if loader is not None:

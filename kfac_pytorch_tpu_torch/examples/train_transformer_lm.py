@@ -59,6 +59,7 @@ from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_factor_comm_flags,
+    add_owner_flags,
     add_refresh_flags,
     factor_comm_kwargs,
     grad_comm_dtype,
@@ -97,8 +98,6 @@ _LATER_FLAGS = (
     ("--attention", str, "ring", "8 (sequence parallelism)"),
     ("--remat", None, False, "8"),
     ("--qkv-lens", None, False, "8 (expand lens)"),
-    ("--factor-sharding", str, "replicated", "7 (7b, owner sharding)"),
-    ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--autotune-steps", int, 0, "9 (planner/)"),
@@ -154,6 +153,23 @@ def parse_args(argv=None):
                         "on the wire (the reference's --fp16-allreduce); "
                         "None = float32")
     add_factor_comm_flags(p)
+    add_owner_flags(
+        p,
+        "owner: DP-KFAC owner-sharded curvature — factor "
+                         "stats reduce-scatter onto each layer's eigen-owner "
+                         "and ONE allgather replicates the preconditioned "
+                         "grads; O(model/devices) factor memory and wire "
+                         "(docs/PERF.md); needs a single data axis "
+                         "(--seq-parallel 1; --tensor-parallel composes). "
+                         "Diagonal-A embedding factors shard as [vocab] "
+                         "vector slots, so --kfac-embedding composes too",
+        "fuse the factor-statistics reduction into the "
+                         "gradient stream: the bucketed factor psums issue "
+                         "before the gradient pmean so the collectives "
+                         "interleave with backprop instead of queuing after "
+                         "it (pure data-parallel multi-device mesh only; "
+                         "bitwise-identical numerics; docs/PERF.md)",
+    )
     p.add_argument("--kfac-diagnostics", action="store_true",
                    help="log per-epoch means of the K-FAC health diagnostics "
                         "(nu, damped eigenvalues, condition numbers, "
@@ -274,10 +290,13 @@ def main(argv=None) -> Dict[str, List]:
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "restore_ms": [],
     }
+    # owner-sharded curvature is this rank's rows (a restored checkpoint
+    # is re-homed the same way, in auto_resume)
+    state.kfac_state = ckpt.rehome_kfac_state(kfac, state.kfac_state)
     resume_from_epoch = 0
     if args.checkpoint_dir:
         t0 = time.perf_counter()
-        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state, kfac)
         if resume_from_epoch:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
             rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
@@ -361,7 +380,7 @@ def main(argv=None) -> Dict[str, List]:
             writer.add_scalar("val/loss", v, epoch)
             writer.add_scalar("val/ppl", math.exp(min(v, 20.0)), epoch)
         if args.checkpoint_dir:
-            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
+            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
     writer.close()
     return history
 

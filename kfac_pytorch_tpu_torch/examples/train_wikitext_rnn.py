@@ -62,6 +62,7 @@ from kfac_pytorch_tpu_torch import KFAC, capture
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_factor_comm_flags,
+    add_owner_flags,
     add_refresh_flags,
     factor_comm_kwargs,
     grad_comm_dtype,
@@ -89,8 +90,6 @@ from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, step_kind
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--factor-sharding", str, "replicated", "7 (7b, owner sharding)"),
-    ("--comm-overlap", None, False, "7 (7b, overlap plane)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
 )
@@ -139,6 +138,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto = the kernels on CUDA tensors")
     add_refresh_flags(p)
     add_factor_comm_flags(p)
+    add_owner_flags(
+        p,
+        "owner: DP-KFAC owner-sharded curvature state — "
+                         "O(model/devices) factor memory; embedding diag-A "
+                         "factors shard as [vocab] vector slots, so "
+                         "--kfac-embedding composes (docs/PERF.md)",
+        "fuse the factor-statistics reduction into the "
+                         "gradient stream (multi-device only; bitwise-"
+                         "identical numerics)",
+    )
     p.add_argument("--grad-comm-dtype", default=None, choices=[None, "bf16"],
                    help="downcast the per-step data-parallel gradient mean "
                         "on the wire (the reference's --fp16-allreduce); "
@@ -247,10 +256,13 @@ def main(argv=None) -> Dict[str, List]:
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "val_ppl": [], "restore_ms": [],
     }
+    # owner-sharded curvature is this rank's rows (a restored checkpoint
+    # is re-homed the same way, in auto_resume)
+    state.kfac_state = ckpt.rehome_kfac_state(kfac, state.kfac_state)
     resume_from_epoch = 0
     if args.checkpoint_dir:
         t0 = time.perf_counter()
-        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state)
+        state, resume_from_epoch = ckpt.auto_resume(args.checkpoint_dir, state, kfac)
         if resume_from_epoch:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
             rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
@@ -320,7 +332,7 @@ def main(argv=None) -> Dict[str, List]:
         writer.add_scalar("val/loss", val_loss, epoch)
         writer.add_scalar("val/ppl", vppl, epoch)
         if args.checkpoint_dir:
-            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state)
+            ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
     writer.close()
     return history
 

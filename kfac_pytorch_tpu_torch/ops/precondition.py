@@ -6,7 +6,8 @@ and the low-rank-plus-diagonal (Woodbury) entries of the truncated solvers
 (``solver="rsvd"``/``"streaming"``), and the inverse method
 (``precond_method="inverse"``), replicated or with the rotations sharded
 over the ranks (:func:`precondition_all_distributed`,
-:func:`precondition_all_inv_distributed`). Same-shape layers are stacked and
+:func:`precondition_all_inv_distributed`), and the owner-sharded solve of
+``factor_sharding="owner"`` (:func:`precondition_all_owner`). Same-shape layers are stacked and
 preconditioned together. Diagonal-A layers stay out of the shape groups
 and are preconditioned first, in sorted order; then the groups follow in
 :func:`shape_groups`' insertion order. That emission order is also the
@@ -22,7 +23,7 @@ the fused kernel ignores it, as the JAX package's fused branch does.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -620,6 +621,189 @@ def precondition_all_inv_distributed(
     return _apply_distributed(
         grad_mats, inv, stacked, world, owners, solve_diag, solve_group, comm_dtype
     )
+
+
+# ---------------------------------------------------------------------------
+# Owner-sharded preconditioning (factor_sharding="owner", DP-KFAC)
+#
+# Each layer's eigenbasis lives only in its owner's rows of the eigen shard
+# stacks. The owner solves it, packs the flat result into its slice of a
+# uniform float32 buffer, and ONE all_gather replicates every rank's buffer.
+# A layer whose compact truncated tables (Q/d/rho) are smaller than its
+# update ships the tables instead, and every rank solves it after the
+# gather.
+# ---------------------------------------------------------------------------
+
+
+def _elems(shape: Tuple[int, ...]) -> int:
+    size = 1
+    for d in shape:
+        size *= int(d)
+    return size
+
+
+def _owner_gather_layout(
+    shapes: Dict[str, Tuple[int, int]],
+    owners: Dict[str, int],
+    world: int,
+    rank_fn,
+    diag_a: set = frozenset(),
+) -> Tuple[List[str], Dict[str, Dict[str, Any]], int]:
+    """The gather buffer's layout: ``(order, segments, width)``. ``order``
+    is :func:`precondition_all`'s emission order (the KL clip's summation
+    order); ``segments[name]`` holds the payload's ``mode`` (``"update"``,
+    the ``[g, a]`` update, or ``"tables"``, the fields of the entry when a
+    diagonal-A or truncated side makes them fewer elements), its ``offset``
+    in the owner's slice, its ``elems`` and the table ``fields``; ``width``
+    is the widest rank's payload (at least 1)."""
+    order = sorted(diag_a) + [
+        n for names in shape_groups(
+            {k: v for k, v in shapes.items() if k not in diag_a}).values() for n in names
+    ]
+    segments: Dict[str, Dict[str, Any]] = {}
+    cursor = [0] * world
+    for name in order:
+        g, a = int(shapes[name][0]), int(shapes[name][1])
+        diag = name in diag_a
+        ra = rank_fn(a) if rank_fn is not None and not diag else None
+        rg = rank_fn(g) if rank_fn is not None else None
+        if diag:
+            fields = [("dA", (a,))]
+        else:
+            fields = [("QA", (a, ra) if ra is not None else (a, a)),
+                      ("dA", (ra,) if ra is not None else (a,))]
+            if ra is not None:
+                fields.append(("rhoA", ()))
+        fields += [("QG", (g, rg) if rg is not None else (g, g)),
+                   ("dG", (rg,) if rg is not None else (g,))]
+        if rg is not None:
+            fields.append(("rhoG", ()))
+        table_elems = sum(_elems(shp) for _, shp in fields)
+        mode = (
+            "tables" if (diag or ra is not None or rg is not None) and table_elems < g * a
+            else "update"
+        )
+        elems = table_elems if mode == "tables" else g * a
+        owner = owners[name]
+        segments[name] = {"mode": mode, "offset": cursor[owner], "elems": elems,
+                          "fields": tuple(fields)}
+        cursor[owner] += elems
+    return order, segments, max(1, max(cursor))
+
+
+def _owner_entry(eigen_shard, plan, name: str, shape: Tuple[int, int]):
+    """A layer's eigen entry from this rank's shard rows (its owner's)."""
+    g_n, a_n = shape
+    out = {}
+    for fac, n in (("A", a_n), ("G", g_n)):
+        slot = plan.slot(name, fac)
+        if slot.diag:
+            out[f"d{fac}"] = eigen_shard[f"v{n}"]["d"][slot.row]
+            continue
+        grp = eigen_shard[f"n{n}"]
+        out[f"Q{fac}"] = grp["Q"][slot.row]
+        out[f"d{fac}"] = grp["d"][slot.row]
+        if "rho" in grp:
+            out[f"rho{fac}"] = grp["rho"][slot.row]
+    return out
+
+
+def _owner_group_entry(eigen_shard, plan, names, shape):
+    """The stacked eigen entry of owned layers of one shape: each field's
+    rows picked from the shard stacks by one ``index_select``."""
+    g_n, a_n = shape
+    out = {}
+    for fac, n in (("A", a_n), ("G", g_n)):
+        grp = eigen_shard[f"n{n}"]
+        idx = torch.tensor([plan.slot(name, fac).row for name in names],
+                           device=grp["d"].device)
+        for key, v in grp.items():  # Q, d, rho → QA, dA, rhoA (or G)
+            out[key + fac] = v.index_select(0, idx)
+    return out
+
+
+def precondition_all_owner(
+    grad_mats: Dict[str, torch.Tensor],
+    eigen_shard: Dict[str, Dict[str, torch.Tensor]],
+    damping,
+    precision: Optional[str] = None,
+    *,
+    world: World,
+    plan,
+    rank_fn=None,
+    eigen_dtype: torch.dtype = torch.float32,
+    kind: str = "auto",
+) -> Dict[str, torch.Tensor]:
+    """Owner-sharded preconditioning: each rank solves the layers it owns,
+    from its rows of ``eigen_shard``, and one ``all_gather`` replicates the
+    results (the JAX package's ``precondition_all_owner``).
+
+    The owned layers of one shape whose entries are dense go through the
+    fused apply wrapper together, one stack per shape group (kernel 3 on
+    CUDA tensors, its plain version on CPU ones; ``kind="dense"`` takes the
+    oracle chain at ``precision``); the rest take :func:`solve_eigen_entry`.
+    A ``"tables"`` layer (:func:`_owner_gather_layout`) ships its Q/d/rho,
+    and every rank solves it after the gather with ``Q`` cast back to
+    ``eigen_dtype``, the bits its owner holds. The kernel's KL-clip
+    partials cover the owned layers only and are dropped: the caller
+    reduces ν from the gathered updates, which come back in emission order.
+    """
+    if world.size != plan.world:
+        raise ValueError(f"shard plan world {plan.world} != the world's {world.size} ranks")
+    shapes = {n: (g.shape[0], g.shape[1]) for n, g in grad_mats.items()}
+    diag_a = {s.name for s in plan.slots if s.factor == "A" and s.diag}
+    order, segments, width = _owner_gather_layout(shapes, plan.owners, plan.world, rank_fn,
+                                                  diag_a)
+    first = grad_mats[order[0]]
+    buf = first.new_zeros(width, dtype=torch.float32)
+
+    def put(name, flat):
+        seg = segments[name]
+        buf[seg["offset"]:seg["offset"] + seg["elems"]] = flat
+
+    def solve(g, e):
+        with rotation_precision(precision):
+            return solve_eigen_entry(g, e, damping)
+
+    mine = [n for n in order if plan.owners[n] == world.rank]
+    updates = []
+    for name in mine:
+        seg = segments[name]
+        if seg["mode"] == "tables":
+            entry = _owner_entry(eigen_shard, plan, name, shapes[name])
+            put(name, torch.cat([entry[k].float().reshape(-1) for k, _ in seg["fields"]]))
+        elif name in diag_a:
+            put(name, solve(grad_mats[name], _owner_entry(eigen_shard, plan, name,
+                                                          shapes[name])).reshape(-1))
+        else:
+            updates.append(name)
+    for shape, names in shape_groups({n: shapes[n] for n in updates}).items():
+        gm = torch.stack([grad_mats[n] for n in names])
+        s = _owner_group_entry(eigen_shard, plan, names, shape)
+        if kind != "dense" and not entry_is_lowrank(s):
+            v, _ = apply_kernels.dispatch_precondition_stack(
+                gm, s["QA"], s["dA"], s["QG"], s["dG"], damping
+            )
+        else:
+            v = solve(gm, s)
+        for row, name in enumerate(names):
+            put(name, v[row].reshape(-1))
+    # the owner mode's one collective of the apply
+    gathered = world.all_gather_flat(buf)
+    out: Dict[str, torch.Tensor] = {}
+    for name in order:
+        seg = segments[name]
+        payload = gathered[plan.owners[name], seg["offset"]:seg["offset"] + seg["elems"]]
+        if seg["mode"] == "update":
+            out[name] = payload.view(shapes[name])
+            continue
+        entry, off = {}, 0
+        for k, shp in seg["fields"]:
+            val = payload[off:off + _elems(shp)].reshape(shp)
+            off += _elems(shp)
+            entry[k] = val.to(eigen_dtype) if k.startswith("Q") else val
+        out[name] = solve(grad_mats[name], entry)
+    return out
 
 
 def _lr_squared(lr) -> float:

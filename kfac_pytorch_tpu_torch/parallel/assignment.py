@@ -3,9 +3,12 @@
 A copy of ``kfac_pytorch_tpu/parallel/assignment.py``'s ``RoundRobin``,
 ``precondition_assignment``, ``layer_assignment``, the pipelined
 refresh's planners ``plan_eigh_chunks`` and ``eigh_chunk_owners`` with
-their slot cost ``_slot_cost``, and the factor comm plane's bucket layout
-(``FactorBucketEntry``, ``FactorBucket``, ``plan_factor_buckets``)
-(importing the JAX module would import JAX through its package). The eigendecomposition table
+their slot cost ``_slot_cost``, the factor comm plane's bucket layout
+(``FactorBucketEntry``, ``FactorBucket``, ``plan_factor_buckets``) and the
+owner-sharded factor layout (``plan_factor_shards``, ``FactorShardSlot``,
+``FactorShardPlan``, ``shard_plan_bytes``, ``plan_fingerprint``,
+``plan_owner_chunks``) (importing the JAX module would import JAX through
+its package). The eigendecomposition table
 mirrors the reference's ``cycle`` iterator and its per-update ``reset()``
 (kfac/utils.py:12-39, kfac_preconditioner.py:383-396): it is recomputed
 from (world, layers, diag_blocks, distribute_layer_factors) alone, so every
@@ -13,8 +16,12 @@ rank derives the same table and keeps the same layers across refreshes,
 and nothing is communicated to agree on it. The chunk planners are LPT
 over the JAX package's padded cost (``bucket_size³``, or the randomized
 solver's matmul cost) with its tie-breaks, so they return its plans. The
-bucket plan is the JAX package's first-fit over a list of leaf shapes; the
-owner-sharded factor plan waits for ROADMAP queue 1 item 7 (7b).
+bucket plan is the JAX package's first-fit over a list of leaf shapes.
+The owner-sharded plan puts both factors of a layer on the rank that
+preconditions it (``precondition_assignment``), in stacks of one exact side
+size with a uniform row count per rank (pad rows on the lighter ranks), so
+that one ``reduce_scatter`` per wire bucket lands each layer's statistics
+on its owner.
 """
 
 from __future__ import annotations
@@ -213,3 +220,197 @@ def plan_factor_buckets(
     if entries:
         buckets.append(FactorBucket(entries=tuple(entries), size=offset))
     return tuple(buckets)
+
+
+# ---------------------------------------------------------------------------
+# Owner-sharded factor state (factor_sharding="owner", DP-KFAC)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorShardSlot:
+    """One (layer, factor) side's home in the owner-sharded state: ``row``
+    is its row in its owner's ``[rows_n, n, n]`` stack of the size-``n``
+    group (global row ``owner·rows_n + row``); ``diag`` marks the A side of
+    a diagonal-A (embedding) layer, a ``[n]`` vector of the ``v<n>`` group."""
+
+    name: str
+    factor: str  # "A" or "G"
+    size: int
+    owner: int
+    row: int
+    diag: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorShardPlan:
+    """The static owner-sharded layout: who holds what, and the wire
+    buckets of the reduce-scatter."""
+
+    world: int
+    owners: Dict[str, int]
+    slots: Tuple[FactorShardSlot, ...]
+    group_rows: Dict[int, int]
+    group_sizes: Tuple[int, ...]
+    wire_buckets: Tuple[FactorBucket, ...]
+    # diagonal-A vector groups ("v<size>" state keys)
+    diag_group_rows: Dict[int, int] = dataclasses.field(default_factory=dict)
+    diag_group_sizes: Tuple[int, ...] = ()
+
+    def slot(self, name: str, factor: str) -> FactorShardSlot:
+        for s in self.slots:
+            if s.name == name and s.factor == factor:
+                return s
+        raise KeyError((name, factor))
+
+    def group_slots(self, size: int, diag: bool = False) -> Tuple[FactorShardSlot, ...]:
+        return tuple(s for s in self.slots if s.size == size and s.diag == diag)
+
+    def valid_rows(self, size: int, diag: bool = False) -> List[List[bool]]:
+        """``[world][rows]``: True where a real slot lives, False on the pad
+        rows of the lighter ranks."""
+        rows = (self.diag_group_rows if diag else self.group_rows)[size]
+        mask = [[False] * rows for _ in range(self.world)]
+        for s in self.group_slots(size, diag):
+            mask[s.owner][s.row] = True
+        return mask
+
+    def wire_groups(self) -> List[Tuple[str, int, int, int]]:
+        """``(state key, size, rows, elements per slot)`` of the matrix
+        groups, then the vector groups: the list ``FactorBucketEntry.index``
+        indexes."""
+        out = [(f"n{n}", n, self.group_rows[n], n * n) for n in self.group_sizes]
+        out += [(f"v{n}", n, self.diag_group_rows[n], n) for n in self.diag_group_sizes]
+        return out
+
+    def owner_count(self) -> int:
+        return len({s.owner for s in self.slots})
+
+
+def plan_factor_shards(
+    shapes: Dict[str, Tuple[int, int]],
+    world: int,
+    max_bucket_elems: int = 1 << 20,
+    diag_a: Optional[set] = None,
+) -> FactorShardPlan:
+    """The owner-sharded factor layout (DP-KFAC, arxiv 2206.15143) of layers
+    with ``[g, a]`` gradients over ``world`` ranks.
+
+    Owners are :func:`precondition_assignment`'s (the rank that solves a
+    layer keeps its factors and bases, both of them). Slots group by exact
+    side size ``n`` into ``[world·rows_n, n, n]`` stacks, ``rows_n`` the
+    most size-``n`` slots any rank owns; rows go in sorted-name order, A
+    then G. The A side of a ``diag_a`` layer is a ``[n]`` vector in the
+    ``v<n>`` groups. Each group's per-rank payload is one leaf of
+    :func:`plan_factor_buckets`, so the reduce-scatter fuses groups into the
+    replicated plane's buckets."""
+    diag_a = diag_a or set()
+    owners = precondition_assignment(shapes, world, diag_a=diag_a)
+    slots: List[FactorShardSlot] = []
+    counts: Dict[Tuple[int, int], int] = {}  # (size, owner) -> next row
+    vcounts: Dict[Tuple[int, int], int] = {}
+    for name in sorted(shapes):
+        g, a = shapes[name]
+        for factor, size in (("A", int(a)), ("G", int(g))):
+            owner = owners[name]
+            diag = factor == "A" and name in diag_a
+            table = vcounts if diag else counts
+            row = table.get((size, owner), 0)
+            table[(size, owner)] = row + 1
+            slots.append(FactorShardSlot(name, factor, size, owner, row, diag))
+    group_rows = {n: max(c for (s, _), c in counts.items() if s == n) for n in {s for s, _ in counts}}
+    diag_group_rows = {
+        n: max(c for (s, _), c in vcounts.items() if s == n) for n in {s for s, _ in vcounts}
+    }
+    sizes = tuple(sorted(group_rows))
+    vsizes = tuple(sorted(diag_group_rows))
+    wire_buckets = plan_factor_buckets(
+        [(group_rows[n] * n * n,) for n in sizes] + [(diag_group_rows[n] * n,) for n in vsizes],
+        max_bucket_elems,
+    )
+    return FactorShardPlan(
+        world=world, owners=owners, slots=tuple(slots), group_rows=group_rows,
+        group_sizes=sizes, wire_buckets=wire_buckets, diag_group_rows=diag_group_rows,
+        diag_group_sizes=vsizes,
+    )
+
+
+def shard_plan_bytes(
+    plan: FactorShardPlan, rank_fn: RankFn = None, eigen_itemsize: int = 4
+) -> Dict[str, object]:
+    """Planned bytes of the owner-sharded layout: ``*_buffer_local`` is what
+    one rank allocates (its padded stacks: float32 factors, ``Q`` at
+    ``eigen_itemsize``, float32 eigenvalues and residual masses),
+    ``per_owner`` each rank's unpadded payload, ``replicated_total`` what
+    every rank holds in the replicated mode, ``scatter_wire_bytes`` the
+    float32 reduce-scatter payload over all ranks."""
+
+    def eigen_elems(n: int) -> Tuple[int, int, int]:
+        rank = rank_fn(n) if rank_fn is not None else None
+        if rank is None:
+            return n * n, n, 0
+        return n * rank, rank, 1
+
+    factor_local = eigen_local = 0
+    for n in plan.group_sizes:
+        rows = plan.group_rows[n]
+        q, d, rho = eigen_elems(n)
+        factor_local += rows * n * n * 4
+        eigen_local += rows * (q * eigen_itemsize + d * 4 + rho * 4)
+    for n in plan.diag_group_sizes:
+        rows = plan.diag_group_rows[n]
+        factor_local += rows * n * 4
+        eigen_local += rows * n * 4
+    per_owner = [0] * plan.world
+    replicated_total = 0
+    for s in plan.slots:
+        if s.diag:
+            slot_bytes = s.size * 4 * 2  # the vector factor and its floored copy
+        else:
+            q, d, rho = eigen_elems(s.size)
+            slot_bytes = s.size * s.size * 4 + q * eigen_itemsize + d * 4 + rho * 4
+        per_owner[s.owner] += slot_bytes
+        replicated_total += slot_bytes
+    return {
+        "factor_buffer_local": factor_local,
+        "eigen_buffer_local": eigen_local,
+        "total_buffer_local": factor_local + eigen_local,
+        "per_owner": per_owner,
+        "replicated_total": replicated_total,
+        "owner_count": plan.owner_count(),
+        "wire_bucket_count": len(plan.wire_buckets),
+        "scatter_wire_bytes": sum(b.size for b in plan.wire_buckets) * plan.world * 4,
+    }
+
+
+def plan_fingerprint(plan: FactorShardPlan) -> str:
+    """A short digest of an owner-shard layout: the world size and every
+    slot's ``(name, factor, size, owner, row, diag)``; two plans with the
+    same digest place every row alike."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(str(plan.world).encode())
+    for s in sorted(plan.slots, key=lambda s: (s.name, s.factor)):
+        h.update(f"|{s.name}:{s.factor}:{s.size}:{s.owner}:{s.row}:{int(s.diag)}".encode())
+    return h.hexdigest()[:16]
+
+
+def plan_owner_chunks(
+    plan: FactorShardPlan, chunks: int, granularity: int = 512, minimum: int = 128,
+    rank_fn: RankFn = None,
+) -> List[List[Tuple[int, int]]]:
+    """The owner-local refresh in ``chunks`` sets of ``(size, row)`` jobs:
+    the same local row of every rank's stack in one chunk, LPT over
+    :func:`_slot_cost` with ``(cost, size, row)`` tie-breaks; a chunk may be
+    empty."""
+    jobs = [(n, r) for n in plan.group_sizes for r in range(plan.group_rows[n])]
+    cost = {j: _slot_cost(j[0], granularity, minimum, rank_fn) for j in jobs}
+    order = sorted(jobs, key=lambda j: (-cost[j], j[0], j[1]))
+    load = [0] * chunks
+    out: List[List[Tuple[int, int]]] = [[] for _ in range(chunks)]
+    for j in order:
+        c = min(range(chunks), key=lambda c: (load[c], c))
+        out[c].append(j)
+        load[c] += cost[j]
+    return [sorted(p) for p in out]

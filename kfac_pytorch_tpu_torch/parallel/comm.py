@@ -1,9 +1,7 @@
 """The factor-communication plane: bucketed, compressed, deferrable means.
 
-Port of ``kfac_pytorch_tpu/parallel/comm.py`` without its owner-sharded and
-overlap parts (``scatter_merge``, ``ring_allreduce_mean``, the reversed
-issue order: ROADMAP queue 1 item 7, 7b). The ranks' K-FAC factor
-statistics cross the wire through one plane that owns three levers:
+Port of ``kfac_pytorch_tpu/parallel/comm.py``. The ranks' K-FAC factor
+statistics cross the wire through one plane that owns these levers:
 
 * **Tensor fusion.** Every per-layer A/G leaf gets a slice of a few flat
   buckets (``parallel.assignment.plan_factor_buckets``) and one
@@ -19,6 +17,23 @@ statistics cross the wire through one plane that owns three levers:
   crosses as block-scaled, stochastically rounded int8 codes plus float32
   scales (an ``all_gather``), and each rank carries what its codes rounded
   away into the next flush (error feedback, ``state["wire_error"]``).
+* **Owner sharding** (``sharded``, ``KFAC(factor_sharding="owner")``).
+  :meth:`FactorComm.scatter_merge` reduce-scatters each rank's statistics
+  onto the owner's rows of the shard stacks
+  (``parallel.assignment.plan_factor_shards``), one
+  ``reduce_scatter_tensor`` per wire bucket, the bf16 wire on the payload
+  only; the per-step exchange then hands ``KFAC.update`` the local
+  statistics.
+* **Overlap** (``overlap``, ``KFAC(comm_overlap=True)``). The buckets'
+  means are issued in reverse bucket order (the last layers' statistics,
+  ready first in the backward pass, go first), all of them
+  ``async_op=True`` before any is waited on; the train steps start them
+  before the gradient mean (:meth:`FactorComm.start_exchange`). Every
+  bucket is the same collective on the same payload, so the values are
+  bitwise those of the serial order. ``KFAC_OVERLAP_PPERMUTE=1`` takes
+  :func:`ring_allreduce_mean` instead, a ring of point-to-point hops
+  (``batch_isend_irecv``), as the JAX package takes its ``ppermute`` ring:
+  another summation order, so equal to the mean only to reassociation.
 
 The plane is inert on a world of one (``multi_device`` is False), NCCL's
 world of one included: no factor collective is issued there. The JAX
@@ -27,15 +42,17 @@ reproduce it, so :meth:`FactorComm.draw` seeds a generator on the bucket's
 device from ``(QUANT_SEED, step, bucket, chunk)``, the same on every rank,
 and :func:`quantize_bucket` takes its draw ``u`` explicitly (the parity
 tests inject the JAX package's). The ``kfac/factor_wire_bytes``,
-``kfac/factor_collectives`` and ``kfac/wire_quant_error_norm`` gauges wait
-for item 9 (9b, ``observability/``); their values are kept on the plane
-(``last_wire_bytes``, ``last_collectives``) or returned
+``kfac/factor_collectives``, ``kfac/overlap_mode`` and
+``kfac/wire_quant_error_norm`` gauges wait for item 9 (9b,
+``observability/``); their values are kept on the plane
+(``last_wire_bytes``, ``last_collectives``, ``overlap_mode``) or returned
 (:func:`publish_wire_quant_error`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -171,6 +188,45 @@ def per_layer_pmean_reference(tree, world: World):
     return tree_unflatten(tree, out)
 
 
+def ring_allreduce_mean(buf: torch.Tensor, world: World,
+                        wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The ranks' mean of one flat bucket by a ring of point-to-point hops
+    (the JAX package's ``ppermute`` ring): ``world − 1`` send-and-add hops,
+    after which rank ``d`` holds the whole sum of chunk ``(d + 1) mod
+    world``, then ``world − 1`` hops that pass the finished chunks on. Each
+    hop is one ``batch_isend_irecv`` of a send to the next rank and a
+    receive from the previous one. The sum is taken in ring order, in
+    ``wire_dtype`` when given: equal to the all-reduce mean only to
+    reassociation."""
+    w = world.size
+    if not world.distributed or w <= 1:
+        return buf.clone()
+    r = world.rank
+    n = buf.numel()
+    x = F.pad(buf, (0, (-n) % w))
+    if wire_dtype is not None:
+        x = x.to(wire_dtype)
+    acc = x.reshape(w, -1).clone()
+    peer = (lambda i: i) if world.group is None else (
+        lambda i: dist.get_global_rank(world.group, i))
+    nxt, prv = peer((r + 1) % w), peer((r - 1) % w)
+
+    def hop(send):
+        recv = torch.empty_like(send)
+        for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, nxt, world.group),
+            dist.P2POp(dist.irecv, recv, prv, world.group),
+        ]):
+            work.wait()
+        return recv
+
+    for s in range(w - 1):
+        acc[(r - s - 1) % w] += hop(acc[(r - s) % w].clone())
+    for s in range(w - 1):
+        acc[(r - s) % w] = hop(acc[(r + 1 - s) % w].clone())
+    return (acc.reshape(-1).float() / w).to(buf.dtype)[:n]
+
+
 def _draw_seed(step: int, bucket: int, chunk: int) -> int:
     s = QUANT_SEED
     for v in (step, bucket, chunk):
@@ -189,13 +245,22 @@ class FactorComm:
     count."""
 
     def __init__(self, world: World, comm_dtype: Any = "f32", comm_freq: int = 1,
-                 max_bucket_elems: int = 1 << 20):
+                 max_bucket_elems: int = 1 << 20, sharded: bool = False,
+                 overlap: bool = False):
         if int(comm_freq) < 1:
             raise ValueError(f"Invalid factor_comm_freq: {comm_freq}")
         self.world = world
         self.comm_dtype = resolve_factor_comm_dtype(comm_dtype)
         self.comm_freq = int(comm_freq)
         self.max_bucket_elems = int(max_bucket_elems)
+        # owner sharding: the statistics reduce-scatter onto their owners
+        # (scatter_merge) and the per-step exchange returns the local ones
+        self.sharded = bool(sharded)
+        # the overlap plane: reversed, asynchronous bucket issue; the
+        # point-to-point ring instead with KFAC_OVERLAP_PPERMUTE=1
+        self.overlap = bool(overlap)
+        self.overlap_ppermute = self.overlap and os.environ.get(
+            "KFAC_OVERLAP_PPERMUTE", "") not in ("", "0")
         self.last_wire_bytes: Optional[int] = None
         self.last_collectives: Optional[int] = None
         self._plans: Dict[Any, Tuple[FactorBucket, ...]] = {}
@@ -215,6 +280,20 @@ class FactorComm:
     def defer(self) -> bool:
         """Deferred reduction: statistics stay local between flushes."""
         return self.comm_freq > 1 and self.multi_device
+
+    @property
+    def overlap_mode(self) -> int:
+        """The JAX package's ``kfac/overlap_mode`` gauge: 0 serial, 1 the
+        reversed asynchronous bucket means, 2 the point-to-point ring."""
+        if not (self.overlap and self.multi_device):
+            return 0
+        return 2 if self.overlap_ppermute else 1
+
+    @property
+    def overlaps_exchange(self) -> bool:
+        """The train steps start the per-step exchange before the gradient
+        mean (a capture step's bucket means, not deferred, not sharded)."""
+        return self.overlap and self.multi_device and not (self.defer or self.sharded)
 
     @property
     def quantized(self) -> bool:
@@ -248,6 +327,14 @@ class FactorComm:
     def allreduce(self, tree):
         """The bucketed mean over the ranks of a stat tree (nested dicts of
         tensors), in the wire dtype; a new tree of the same structure."""
+        return self.start_allreduce(tree)()
+
+    def start_allreduce(self, tree) -> Callable[[], Any]:
+        """Issue :meth:`allreduce`'s bucket means and return the function
+        that finishes it. Serial, each mean completes here; under
+        ``overlap`` the buckets go in reverse order, each an asynchronous
+        ``all_reduce``, and the returned function waits on them (the ring,
+        ``overlap_ppermute``, completes here)."""
         if self.quantized:
             raise ValueError(
                 "int8 factor wire routes through FactorComm.flush(..., "
@@ -257,20 +344,98 @@ class FactorComm:
         leaves = tree_leaves(tree)
         plan = self._plan_for(leaves)
         wire = None if self.comm_dtype == torch.float32 else self.comm_dtype
-        bufs = factor_ops.merge_running_avg_buckets(flatten_buckets(leaves, plan), wire,
-                                                    self.world)
-        return tree_unflatten(tree, unflatten_buckets(bufs, plan, leaves))
+        bufs = flatten_buckets(leaves, plan)
+
+        def done(merged):
+            return lambda: tree_unflatten(tree, unflatten_buckets(merged, plan, leaves))
+
+        if not self.overlap:
+            return done(factor_ops.merge_running_avg_buckets(bufs, wire, self.world))
+        order = list(range(len(bufs)))[::-1]
+        merged: List[Optional[torch.Tensor]] = [None] * len(bufs)
+        if self.overlap_ppermute:
+            for i in order:
+                merged[i] = ring_allreduce_mean(bufs[i], self.world, wire)
+            return done(merged)
+        # the wire buffers and their work, exactly merge_running_avg_buckets'
+        # arithmetic around the same collective
+        pending = []
+        for i in order:
+            w = bufs[i].clone() if wire is None else bufs[i].to(wire)
+            pending.append((i, w, self.world.all_reduce_sum_async(w)))
+
+        def finish():
+            for i, w, work in pending:
+                if work is not None:
+                    work.wait()
+                merged[i] = w.div_(self.world.size).to(bufs[i].dtype)
+            return done(merged)()
+
+        return finish
 
     def exchange_contribs(
         self, a_contribs: Dict[str, torch.Tensor], g_stats: Dict[str, torch.Tensor]
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """The per-capture-step exchange: the A and G dicts as one stat tree,
         so both share buckets. Deferred mode returns the local statistics
-        unchanged."""
-        if self.defer:
-            return a_contribs, g_stats
-        tree = self.allreduce(capture.factor_stat_tree(a_contribs, g_stats))
-        return capture.split_factor_stat_tree(tree)
+        unchanged, and so does owner sharding: :meth:`scatter_merge`, from
+        ``KFAC.update``, is its exchange."""
+        return self.start_exchange(a_contribs, g_stats)()
+
+    def start_exchange(
+        self, a_contribs: Dict[str, torch.Tensor], g_stats: Dict[str, torch.Tensor]
+    ) -> Callable[[], Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+        """:meth:`exchange_contribs` issued now; the returned function
+        finishes it: the overlap plane's train steps start it before the
+        gradient mean and finish it before ``KFAC.update`` reads the
+        statistics."""
+        if self.defer or self.sharded:
+            return lambda: (a_contribs, g_stats)
+        finish = self.start_allreduce(capture.factor_stat_tree(a_contribs, g_stats))
+        return lambda: capture.split_factor_stat_tree(finish())
+
+    def scatter_merge(self, payload, shard: Dict[str, torch.Tensor], plan, decay
+                      ) -> Dict[str, torch.Tensor]:
+        """Reduce-scatter each rank's statistics onto the owners' shard rows
+        (owner sharding, DP-KFAC): ``shard ← decay·shard + mean_r(payload_r)``
+        on this rank's rows.
+
+        ``payload`` is this rank's ``{layer: {"A", "G"}}`` statistics
+        (``(1−α)·contrib`` every capture step, or the deferred local running
+        averages at a flush, ``A`` a vector for a diagonal-A layer);
+        ``shard`` holds this rank's ``{"n<size>": [rows, n, n], "v<size>":
+        [rows, n]}`` rows of ``plan``'s stacks; ``decay`` is ``α``, or
+        ``α^m`` after ``m`` deferred capture steps (exact by the EMA's
+        linearity). Each wire bucket of ``plan.wire_buckets`` is one
+        ``[world, width]`` buffer, the owner's rows in the owner's row, and
+        one ``reduce_scatter_tensor`` (the wire dtype on the payload only);
+        a pad row takes a zero payload and only decays."""
+        world = self.world
+        wire = None if self.comm_dtype == torch.float32 else self.comm_dtype
+        self.last_wire_bytes = (
+            sum(b.size for b in plan.wire_buckets) * plan.world * self.comm_dtype.itemsize
+        )
+        self.last_collectives = len(plan.wire_buckets)
+        wgroups = plan.wire_groups()
+        device = next(iter(shard.values())).device
+        groups: Dict[str, torch.Tensor] = {}
+        for key, n, rows, elems in wgroups:
+            flat = torch.zeros((plan.world * rows, elems), dtype=torch.float32, device=device)
+            for s in plan.group_slots(n, diag=key.startswith("v")):
+                flat[s.owner * rows + s.row] = payload[s.name][s.factor].reshape(-1)
+            groups[key] = flat.view(plan.world, rows * elems)
+        new_shard = dict(shard)
+        for bucket in plan.wire_buckets:
+            parts = [groups[wgroups[e.index][0]] for e in bucket.entries]
+            buf = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            if wire is not None:
+                buf = buf.to(wire)
+            red = world.reduce_scatter_mean(buf)
+            for e in bucket.entries:
+                key = wgroups[e.index][0]
+                seg = red[e.offset:e.offset + e.size].view(shard[key].shape)
+                new_shard[key] = decay * shard[key] + seg
+        return new_shard
 
     def wire_error_init(self, facs) -> Dict[str, torch.Tensor]:
         """Zero error-feedback residuals, one float32 buffer per bucket of

@@ -7,7 +7,9 @@ of ``world`` ranks with one device each: :class:`World` names that group
 and carries the collectives the port issues on it (the means of the
 gradients, the sums under the factor comm plane's bucket means
 (``parallel/comm.py``), the sum-of-zeros exchanges of the sharded refresh
-and apply, the BatchNorm sums, the broadcast of the starting state). The
+and apply, the BatchNorm sums, the broadcast of the starting state, and the
+owner mode's reduce-scatter mean and flat all-gather, and the overlap
+plane's asynchronous sum). The
 2-D and 3-D meshes and ``split_service_mesh`` wait for ROADMAP queue 1
 items 8 and 9.
 
@@ -82,6 +84,39 @@ class World:
         if not self.distributed:
             return t
         return _SumOverRanks.apply(t, self.group)
+
+    def reduce_scatter_mean(self, buf: torch.Tensor) -> torch.Tensor:
+        """Row ``rank`` of the ranks' mean of ``buf [world, width]``: the
+        JAX package's ``lax.psum_scatter(buf, tiled=True)[0] / world``. One
+        ``reduce_scatter_tensor`` sums in ``buf``'s dtype (the wire's); the
+        mean is taken in float32 after it."""
+        out = buf.new_empty(buf.shape[1:])
+        if not self.distributed:
+            out.copy_(buf[0])
+        else:
+            # gloo takes the input flat; NCCL either way
+            dist.reduce_scatter_tensor(out, buf.reshape(-1), group=self.group)
+        return out.float() / self.size
+
+    def all_gather_flat(self, buf: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``buf`` in one ``[world, *buf.shape]`` tensor, row
+        ``r`` rank ``r``'s: one ``all_gather_into_tensor`` (NCCL's list
+        ``all_gather`` stages a flat copy)."""
+        flat = buf.new_empty(self.size * buf.numel())
+        out = flat.view(self.size, *buf.shape)
+        if not self.distributed:
+            out.copy_(buf[None])
+        else:
+            # gloo takes the output flat; NCCL either way
+            dist.all_gather_into_tensor(flat, buf.reshape(-1), group=self.group)
+        return out
+
+    def all_reduce_sum_async(self, t: torch.Tensor):
+        """``t`` summed over the ranks, in place, issued asynchronously:
+        returns the ``Work`` to wait on (``None`` outside a group)."""
+        if not self.distributed:
+            return None
+        return dist.all_reduce(t, group=self.group, async_op=True)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
         """Overwrite each tensor with rank ``src``'s, in place."""

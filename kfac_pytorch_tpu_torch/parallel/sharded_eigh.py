@@ -2,9 +2,12 @@
 
 Port of ``kfac_pytorch_tpu/parallel/sharded_eigh.py`` (``build_slots``,
 ``_split_by_rank``, ``_owner_tables``, ``_assemble``, ``_scatter_into``,
-``replicated_eigen_update``, ``sharded_eigen_update`` and the pipelined
+``replicated_eigen_update``, ``sharded_eigen_update``, the pipelined
 refresh's ``replicated_eigen_chunk_update`` and
-``sharded_eigen_chunk_update``). Each (layer, factor, block) job is a
+``sharded_eigen_chunk_update``, and the owner-sharded mode's
+``_owner_group_solve``, ``owner_eigen_update``,
+``owner_eigen_chunk_update``, ``owner_spectrum_mass`` and
+``owner_stream_fold``). Each (layer, factor, block) job is a
 slot; slots of equal size are stacked and decomposed by ONE batched
 ``torch.linalg.eigh`` call at their own size (no −1 padding to shared
 buckets: that existed to bound XLA compile cost). With ``rank_fn`` (the
@@ -23,6 +26,17 @@ exact. One collective per size group, where per-owner broadcasts would
 move about half the bytes (a ring ``all_reduce`` sends each element
 twice) in ``world`` collectives: the refresh runs once per
 ``kfac_update_freq`` steps.
+
+Owner-sharded (``factor_sharding="owner"``), each rank's rows of the
+``{"n<size>": [rows, n, n]}`` factor stacks are the slots it owns
+(``parallel.assignment.plan_factor_shards``), so the refresh is local and
+issues no collective: the rank decomposes its valid rows, dense sides by
+``ops/eigh.py`` at their own size and truncated ones by ``ops/rsvd.py``,
+and writes its rows of the eigen stacks. The JAX package decomposes every
+row, pad rows included, because its program is the same on every device;
+here a pad row is never decomposed and keeps zeros (it is never read).
+The spectrum mass and the streaming fold's drift gauge sum over the valid
+rows and take one ``all_reduce`` of the (captured, total) pair.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ import torch
 
 from kfac_pytorch_tpu_torch.ops.eigh import eigh_with_floor, get_block_boundary
 from kfac_pytorch_tpu_torch.ops.rsvd import batched_randomized_eigh, residual_rho
+from kfac_pytorch_tpu_torch.ops.streaming import fold_rho, fold_side
 from kfac_pytorch_tpu_torch.parallel.assignment import eigh_chunk_owners
 from kfac_pytorch_tpu_torch.parallel.mesh import World
 
@@ -326,3 +341,170 @@ def sharded_eigen_chunk_update(
     owners = eigh_chunk_owners(chunk_slots, world.size, rank_fn=rank_fn)
     slots = [dataclasses.replace(s, owner=o) for s, o in zip(chunk_slots, owners)]
     return _scatter_into(pending, slots, _solve(factors, slots, world, eps, torch.float32, rank_fn))
+
+
+# ---------------------------------------------------------------------------
+# Owner-sharded refresh (factor_sharding="owner")
+# ---------------------------------------------------------------------------
+
+
+def _valid_rows(plan, n: int, rank: int) -> List[int]:
+    """This rank's rows of the size-``n`` matrix group that hold a slot."""
+    return [i for i, ok in enumerate(plan.valid_rows(n)[rank]) if ok]
+
+
+def _owner_group_solve(
+    local: torch.Tensor, n: int, rank: Optional[int], eps: float, eigen_dtype: torch.dtype
+) -> Dict[str, torch.Tensor]:
+    """Decompose a ``[k, n, n]`` stack of one size group's rows: dense ``{"Q"
+    [k, n, n], "d" [k, n]}``, or truncated at ``rank`` ``{"Q" [k, n, r], "d"
+    [k, r], "rho" [k]}``, ``Q`` in ``eigen_dtype``."""
+    if rank is None:
+        q, d = eigh_with_floor(local.float(), eps)
+        return {"Q": q.to(eigen_dtype), "d": d}
+    q, d = batched_randomized_eigh(local, rank, eps)
+    traces = torch.diagonal(local.float(), dim1=-2, dim2=-1).sum(-1)
+    return {"Q": q.to(eigen_dtype), "d": d, "rho": residual_rho(traces, d, n, rank)}
+
+
+def _solve_rows_into(entry, stack, rows, n, rank, eps, eigen_dtype) -> None:
+    """Solve ``stack``'s ``rows`` and write them into ``entry``'s stacks."""
+    if not rows:
+        return
+    whole = rows == list(range(stack.shape[0]))
+    idx = torch.tensor(rows, device=stack.device)
+    res = _owner_group_solve(stack if whole else stack.index_select(0, idx), n, rank, eps,
+                             eigen_dtype)
+    for field, val in res.items():
+        entry[field][idx] = val.to(entry[field].dtype)
+
+
+def owner_eigen_entry_init(plan, n: int, rank: Optional[int], eigen_dtype, device
+                           ) -> Dict[str, torch.Tensor]:
+    """Zero eigen stacks of one size group, this rank's ``rows_n`` rows."""
+    rows = plan.group_rows[n]
+    cols = n if rank is None else rank
+    e = {
+        "Q": torch.zeros((rows, n, cols), dtype=eigen_dtype, device=device),
+        "d": torch.zeros((rows, cols), dtype=torch.float32, device=device),
+    }
+    if rank is not None:
+        e["rho"] = torch.zeros((rows,), dtype=torch.float32, device=device)
+    return e
+
+
+def owner_eigen_update(
+    factor_shard: Dict[str, torch.Tensor],
+    plan,
+    rank: int,
+    eps: float = 1e-10,
+    rank_fn: RankFn = None,
+    eigen_dtype: torch.dtype = torch.float32,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The owner-local refresh of this rank's rows of every matrix group:
+    ``{"n<size>": {"Q", "d"[, "rho"]}}``, this rank's rows (pad rows
+    zero). No collective."""
+    out = {}
+    for n in plan.group_sizes:
+        r = rank_fn(n) if rank_fn is not None else None
+        stack = factor_shard[f"n{n}"]
+        entry = owner_eigen_entry_init(plan, n, r, eigen_dtype, stack.device)
+        _solve_rows_into(entry, stack, _valid_rows(plan, n, rank), n, r, eps, eigen_dtype)
+        out[f"n{n}"] = entry
+    return out
+
+
+def owner_eigen_chunk_update(
+    factor_shard: Dict[str, torch.Tensor],
+    pending_shard: Dict[str, Dict[str, torch.Tensor]],
+    jobs: List[Tuple[int, int]],
+    plan,
+    rank: int,
+    eps: float = 1e-10,
+    rank_fn: RankFn = None,
+    eigen_dtype: torch.dtype = torch.float32,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One chunk of the pipelined owner refresh: the chunk's ``(size, row)``
+    jobs (``parallel.assignment.plan_owner_chunks``, the same local rows on
+    every rank) solved where this rank holds a slot and written into
+    ``pending_shard``'s stacks, which the interval's chunk 0 allocated
+    afresh (``KFAC.update``). No collective."""
+    by_group: Dict[int, List[int]] = {}
+    for n, row in jobs:
+        by_group.setdefault(n, []).append(row)
+    out = {k: dict(v) for k, v in pending_shard.items()}
+    for n in sorted(by_group):
+        r = rank_fn(n) if rank_fn is not None else None
+        valid = set(_valid_rows(plan, n, rank))
+        rows = sorted(row for row in by_group[n] if row in valid)
+        _solve_rows_into(out[f"n{n}"], factor_shard[f"n{n}"], rows, n, r, eps, eigen_dtype)
+    return out
+
+
+def _sum_over_ranks(parts: List[torch.Tensor], world: World) -> List[torch.Tensor]:
+    """The ranks' sums of a few scalars, one ``all_reduce``."""
+    flat = torch.stack(parts)
+    world.all_reduce_sum_(flat)
+    return list(flat.unbind())
+
+
+def _row_mask(plan, n: int, rank: int, device) -> torch.Tensor:
+    return torch.tensor(plan.valid_rows(n)[rank], dtype=torch.float32, device=device)
+
+
+def owner_spectrum_mass(
+    factor_shard: Dict[str, torch.Tensor],
+    eigen_shard: Dict[str, Dict[str, torch.Tensor]],
+    plan,
+    world: World,
+    rank_fn: RankFn = None,
+) -> torch.Tensor:
+    """``Σ d_r / Σ tr(F)`` over every truncated slot (the replicated
+    spectrum mass, up to summation order): each rank sums its valid rows,
+    one ``all_reduce`` merges the pair. 1 when nothing is truncated."""
+    truncated = [n for n in plan.group_sizes if rank_fn is not None and rank_fn(n) is not None]
+    device = next(iter(factor_shard.values())).device
+    if not truncated:
+        return torch.ones((), dtype=torch.float32, device=device)
+    cap = tot = torch.zeros((), dtype=torch.float32, device=device)
+    for n in truncated:
+        mask = _row_mask(plan, n, world.rank, device)
+        traces = torch.diagonal(factor_shard[f"n{n}"].float(), dim1=-2, dim2=-1).sum(-1)
+        cap = cap + (eigen_shard[f"n{n}"]["d"] * mask[:, None]).sum()
+        tot = tot + (traces * mask).sum()
+    cap, tot = _sum_over_ranks([cap, tot], world)
+    return cap / torch.clamp(tot, min=1e-30)
+
+
+def owner_stream_fold(
+    factor_shard: Dict[str, torch.Tensor],
+    eigen_shard: Dict[str, Dict[str, torch.Tensor]],
+    plan,
+    world: World,
+    eps: float = 1e-10,
+    rank_fn: RankFn = None,
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], torch.Tensor]:
+    """The streaming fold (``ops/streaming.py``) over this rank's rows: ``d
+    = diag(Qᵀ F Q)`` per row, ``rho`` from the leftover trace, ``Q`` passed
+    through, the diagonal-A groups' floored diagonals; the drift gauge
+    ``Σ leftover / Σ tr F`` over the valid truncated rows, one
+    ``all_reduce`` for the pair. Returns ``(eigen_shard', residual)``."""
+    device = next(iter(factor_shard.values())).device
+    num = den = torch.zeros((), dtype=torch.float32, device=device)
+    out = {}
+    for n in plan.group_sizes:
+        key = f"n{n}"
+        rank = rank_fn(n) if rank_fn is not None else None
+        d, traces = fold_side(eigen_shard[key]["Q"], factor_shard[key], eps)
+        entry = {"Q": eigen_shard[key]["Q"], "d": d}
+        if rank is not None:
+            entry["rho"] = fold_rho(traces, d, n, rank)
+            mask = _row_mask(plan, n, world.rank, device)
+            num = num + (torch.clamp(traces - d.sum(-1), min=0.0) * mask).sum()
+            den = den + (traces * mask).sum()
+        out[key] = entry
+    for n in plan.diag_group_sizes:
+        diag = factor_shard[f"v{n}"].float()
+        out[f"v{n}"] = {"d": diag * (diag > eps)}
+    num, den = _sum_over_ranks([num, den], world)
+    return out, num / torch.clamp(den, min=1e-30)

@@ -65,6 +65,28 @@ precondition through the Woodbury solves of ``ops/precondition.py``;
 Over the ranks the chunks and the truncated solves are sharded as the
 refresh is.
 
+Owner-sharded factor state (``factor_sharding="owner"``, DP-KFAC, arxiv
+2206.15143): each layer's factors and eigenbases live only on the rank
+that preconditions it (``parallel.assignment.plan_factor_shards``), in the
+``state["factor_shard"]``/``state["eigen_shard"]`` stacks of this rank's
+rows; ``state["factors"]`` keeps scalar placeholders, the layer registry.
+Every capture step reduce-scatters the ranks' ``(1−α)·contrib`` onto the
+owners (``FactorComm.scatter_merge``; deferred, the full-size per-rank
+``state["factor_local"]`` accumulates and the flush scatters it with decay
+``α^m``), the refresh is owner-local with no collective
+(``parallel.sharded_eigh.owner_eigen_update``), and the apply solves each
+layer on its owner and replicates the results with one ``all_gather``
+(``ops.precondition.precondition_all_owner``). Per-rank curvature memory and
+the factor wire both become O(model / ranks). On a world of one rank the
+mode warns and runs replicated, as in the JAX package.
+
+The overlap plane (``comm_overlap=True``): the train steps start a capture
+step's factor bucket means, reversed and asynchronous, before the gradient
+mean and hand ``update(exchanged=True)`` the result; on a chunk-only step
+the precondition runs before the chunk, and the chunk's decomposition runs
+on a side CUDA stream, joined at the next ``update``. Values are bitwise
+those of the serial order. Inert on a world of one.
+
 The constructor takes every argument of the reference with its default and
 validation. Levers outside the ported slices raise ``NotImplementedError``
 naming the ROADMAP queue-1 item that ports them.
@@ -95,12 +117,20 @@ from kfac_pytorch_tpu_torch.ops import streaming as streaming_ops
 from kfac_pytorch_tpu_torch.parallel.assignment import (
     layer_assignment,
     plan_eigh_chunks,
+    plan_factor_shards,
+    plan_owner_chunks,
     precondition_assignment,
+    shard_plan_bytes,
 )
-from kfac_pytorch_tpu_torch.parallel.comm import FactorComm, resolve_factor_comm_dtype
+from kfac_pytorch_tpu_torch.parallel.comm import FactorComm, resolve_factor_comm_dtype, tree_leaves
 from kfac_pytorch_tpu_torch.parallel.mesh import WIRE_DTYPES, World, data_parallel_world
 from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
     build_slots,
+    owner_eigen_chunk_update,
+    owner_eigen_entry_init,
+    owner_eigen_update,
+    owner_spectrum_mass,
+    owner_stream_fold,
     replicated_eigen_chunk_update,
     replicated_eigen_update,
     sharded_eigen_chunk_update,
@@ -237,11 +267,65 @@ class KFAC:
             precond_comm_dtype is None or precond_comm_dtype in WIRE_DTYPES,
             precond_comm_dtype,
         )
-        # Levers of later slices: refuse rather than silently ignore.
-        if comm_overlap:
-            _not_ported("comm_overlap", "7 (7b)")
+        world = data_parallel_world(process_group)
+        # Where the factor running averages and eigenbases live: on every
+        # rank ("replicated") or only on each layer's precondition owner
+        # ("owner", DP-KFAC); the caller's request, before a world of one
+        # degrades it, decides the refusals below
+        self.requested_factor_sharding = factor_sharding
         if factor_sharding == "owner":
-            _not_ported("factor_sharding='owner'", "7 (7b)")
+            if precond_method != "eigen":
+                raise ValueError(
+                    "factor_sharding='owner' shards the eigenbasis state; "
+                    "precond_method='inverse' keeps explicit Cholesky "
+                    "inverses that this mode does not lay out — use the "
+                    "eigen method or replicated sharding"
+                )
+            if diag_blocks != 1:
+                raise ValueError(
+                    "factor_sharding='owner' stores one whole-factor slot "
+                    "per (layer, side); diag_blocks > 1 carves factors into "
+                    "blocks with their own owner table — pick one "
+                    "distribution scheme"
+                )
+            if distribute_precondition:
+                raise ValueError(
+                    "factor_sharding='owner' already preconditions each "
+                    "layer on its owner (that is where its eigenbasis "
+                    "lives); distribute_precondition=True would layer a "
+                    "second, different owner table on top — drop it"
+                )
+            if track_diagnostics:
+                raise ValueError(
+                    "factor_sharding='owner' keeps no replicated per-layer "
+                    "spectra for the diagnostics pytree to read — run "
+                    "track_diagnostics with replicated sharding"
+                )
+            if world.size <= 1:
+                # trainers pass the same flags to one-rank runs: nothing to
+                # shard across, so the (same-numerics) replicated layout
+                print(
+                    "WARNING: factor_sharding='owner' has no effect without "
+                    "a multi-device mesh — factor state stays replicated"
+                )
+                factor_sharding = "replicated"
+        self.factor_sharding = factor_sharding
+        self._shard_plans: Dict[Any, Any] = {}
+        # planned bytes of the owner layout (shard_plan_bytes) and the
+        # apply's gather width, set when a plan is built and at each owner
+        # apply; the JAX package's kfac/factor_shard_* and
+        # kfac/precond_allgather_bytes gauges wait for item 9 (9b)
+        self.shard_plan_info: Optional[Dict[str, Any]] = None
+        self.precond_gather_width: Optional[int] = None
+        if service_devices > 0 and factor_sharding == "owner":
+            raise ValueError(
+                "service_devices > 0 publishes full replicated factor "
+                "snapshots and installs full replicated bases; "
+                "factor_sharding='owner' keeps per-owner shards that "
+                "would have to gather through the mailbox every "
+                "boundary — run the service with replicated sharding "
+                "(planner rule service_vs_owner_sharding)"
+            )
         # Factor comm plane (parallel/comm.py): bucketed means of the
         # ranks' A/G statistics, an optional bf16 wire, and a deferred
         # reduction every factor_comm_freq capture steps (flushed before
@@ -263,6 +347,28 @@ class KFAC:
                 "factor_comm_freq > 1 or widen the wire to bf16 "
                 "(planner rule int8_wire_requires_deferral)"
             )
+        if factor_comm_dtype == torch.int8 and self.requested_factor_sharding == "owner":
+            raise ValueError(
+                "factor_comm_dtype='int8' rides the replicated deferred "
+                "flush (codes + block scales over all_gather); "
+                "factor_sharding='owner' exchanges through psum_scatter, "
+                "which would have to widen the codes on-wire — use the "
+                "bf16 wire with owner sharding (planner rule "
+                "int8_wire_vs_owner_sharding)"
+            )
+        # Overlap plane: the capture step's factor bucket means issued
+        # before the gradient mean, in reverse bucket order and
+        # asynchronously (bitwise the serial values), and on chunk-only
+        # steps the precondition ahead of the chunk, whose decomposition
+        # runs on a side CUDA stream
+        _validate("comm_overlap", isinstance(comm_overlap, bool), comm_overlap)
+        if comm_overlap and world.size <= 1:
+            print(
+                "WARNING: comm_overlap=True has no effect without a "
+                "multi-device mesh — there is no factor exchange to overlap"
+            )
+            comm_overlap = False
+        self.comm_overlap = bool(comm_overlap)
         # Pipelined refresh: the eigen refresh split into this many chunks
         # over the steps after each kfac_update_freq boundary, accumulated
         # in state["eigen_pending"] and swapped in once every chunk has
@@ -375,7 +481,7 @@ class KFAC:
 
         self.device = resolve_device(device)
         use_ieee_f32()
-        self.world: World = data_parallel_world(process_group)
+        self.world: World = world
         self.distribute_layer_factors = distribute_layer_factors
         # shard the every-step rotations over the ranks (off by default, as
         # in the JAX package: the exchange can cost more than the rotations
@@ -390,7 +496,14 @@ class KFAC:
                 "a multi-device mesh — preconditioning runs replicated"
                 + (" and precond_comm_dtype is unused" if precond_comm_dtype is not None else "")
             )
-        self.factor_comm = FactorComm(self.world, factor_comm_dtype, factor_comm_freq)
+        self.factor_comm = FactorComm(
+            self.world, factor_comm_dtype, factor_comm_freq,
+            sharded=self.owner_sharded, overlap=self.comm_overlap,
+        )
+        # the overlap plane's side stream for chunk decompositions and the
+        # event the next update() joins (CUDA only)
+        self._side_stream = None
+        self._side_done = None
         if (
             factor_comm_freq > 1 or factor_comm_dtype != torch.float32
         ) and not self.factor_comm.multi_device:
@@ -492,6 +605,202 @@ class KFAC:
         return cap / torch.clamp(tot, min=1e-30)
 
     # ------------------------------------------------------------------
+    # Owner sharding (factor_sharding="owner")
+    # ------------------------------------------------------------------
+
+    @property
+    def owner_sharded(self) -> bool:
+        return self.factor_sharding == "owner"
+
+    def _shard_plan(self, shapes: Dict[str, Tuple[int, int]], diag_a=frozenset()):
+        """The owner-shard layout of this layer-shape set, cached; building
+        it sets :attr:`shard_plan_info` (``shard_plan_bytes``) and
+        :attr:`precond_gather_width` (the apply's per-rank gather elements)."""
+        key = (tuple(sorted((n, tuple(v)) for n, v in shapes.items())), tuple(sorted(diag_a)))
+        plan = self._shard_plans.get(key)
+        if plan is None:
+            plan = self._shard_plans[key] = plan_factor_shards(
+                shapes, self.world.size, self.factor_comm.max_bucket_elems, diag_a=set(diag_a)
+            )
+            self.shard_plan_info = shard_plan_bytes(
+                plan, rank_fn=self._rank_fn(), eigen_itemsize=self.eigen_dtype.itemsize
+            )
+            self.precond_gather_width = precond_ops._owner_gather_layout(
+                shapes, plan.owners, plan.world, self._rank_fn(), set(diag_a))[2]
+        return plan
+
+    @staticmethod
+    def _owner_shapes(facs) -> Tuple[Dict[str, Tuple[int, int]], set]:
+        """``({layer: (g, a)}, diagonal-A layers)`` from full factors (or
+        the owner state's placeholders' keys and the model's shapes)."""
+        shapes, diag = {}, set()
+        for name, f in facs.items():
+            if "A_diag" in f:
+                shapes[name] = (int(f["G"].shape[0]), int(f["A_diag"].shape[0]))
+                diag.add(name)
+            else:
+                shapes[name] = (int(f["G"].shape[0]), int(f["A"].shape[0]))
+        return shapes, diag
+
+    def _owner_zero_eigen_shard(self, plan) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Zero eigen stacks of this rank's rows: ``{"Q", "d"[, "rho"]}`` per
+        matrix group (truncated groups by the size → rank policy) and
+        ``{"d"}`` per diagonal-A vector group."""
+        out = {
+            f"n{n}": owner_eigen_entry_init(plan, n, self._rank_for(n), self.eigen_dtype,
+                                            self.device)
+            for n in plan.group_sizes
+        }
+        for n in plan.diag_group_sizes:
+            out[f"v{n}"] = {"d": torch.zeros((plan.diag_group_rows[n], n),
+                                             dtype=torch.float32, device=self.device)}
+        return out
+
+    def _owner_diag_eigen(self, shard, plan) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The diagonal-A groups' eigen entries: the floored factor
+        diagonals ``d·(d > eps)`` of this rank's rows, at every refresh and
+        swap."""
+        return {
+            f"v{n}": {"d": shard[f"v{n}"] * (shard[f"v{n}"] > self.eps)}
+            for n in plan.diag_group_sizes
+        }
+
+    def _owner_factor_shard_from_full(self, facs, plan) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the factor stacks from full per-layer factors
+        (init's identities, or a replicated state being re-homed); pad rows
+        are zeros, fed only by the EMA's decay and never read."""
+        rank = self.world.rank
+        shard = {}
+        for n in plan.group_sizes:
+            shard[f"n{n}"] = torch.zeros((plan.group_rows[n], n, n), dtype=torch.float32,
+                                         device=self.device)
+        for n in plan.diag_group_sizes:
+            shard[f"v{n}"] = torch.zeros((plan.diag_group_rows[n], n), dtype=torch.float32,
+                                         device=self.device)
+        for s in plan.slots:
+            if s.owner == rank:
+                key = f"v{s.size}" if s.diag else f"n{s.size}"
+                src = facs[s.name]["A_diag" if s.diag else s.factor]
+                shard[key][s.row] = src.to(self.device, torch.float32)
+        return shard
+
+    def _owner_eigen_shard_from_full(self, eigen, plan) -> Dict[str, Dict[str, torch.Tensor]]:
+        """This rank's rows of the eigen stacks from full per-layer eigen
+        entries (a re-homed replicated state), bitwise."""
+        shard = self._owner_zero_eigen_shard(plan)
+        for s in plan.slots:
+            if s.owner != self.world.rank:
+                continue
+            e = eigen[s.name]
+            if s.diag:
+                shard[f"v{s.size}"]["d"][s.row] = e["dA"]
+                continue
+            grp = shard[f"n{s.size}"]
+            for field in grp:
+                grp[field][s.row] = e[f"{field}{s.factor}"].to(grp[field].dtype)
+        return shard
+
+    @staticmethod
+    def _eigen_entries_from_split(singles, stacked, shapes) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Full per-layer eigen entries from the singles/stacked form (the
+        inverse of ``split_eigen_state``, in ``shape_groups``' row order)."""
+        full = {n: dict(e) for n, e in singles.items()}
+        for (g, a), names in precond_ops.shape_groups(shapes).items():
+            key = f"{g}x{a}"
+            if key in stacked:
+                for i, n in enumerate(names):
+                    full[n] = {k: v[i] for k, v in stacked[key].items()}
+        return full
+
+    def _owner_placeholders(self, facs, diag_a) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Scalar placeholders of the per-layer factors (the layer registry;
+        a diagonal-A layer keeps its ``A_diag`` key)."""
+        z = lambda: torch.zeros((), dtype=torch.float32, device=self.device)  # noqa: E731
+        return {n: {("A_diag" if n in diag_a else "A"): z(), "G": z()} for n in facs}
+
+    def _owner_local_init(self, shapes, diag_a) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The deferred mode's full-size per-rank accumulators, zero (a
+        non-owner holds no master copy to start them from)."""
+        return {
+            n: {"A": torch.zeros((shapes[n][1],) * (1 if n in diag_a else 2),
+                                 dtype=torch.float32, device=self.device),
+                "G": torch.zeros((shapes[n][0],) * 2, dtype=torch.float32, device=self.device)}
+            for n in shapes
+        }
+
+    def _owner_init(self, facs) -> KFACState:
+        """The owner-sharded initial state: placeholders for ``factors``,
+        this rank's rows of the identity factors in ``factor_shard`` and of
+        zero bases in ``eigen_shard``, ``eigen_pending_shard`` under chunks,
+        and the deferred mode's ``factor_local`` and ``factor_sync_age``."""
+        shapes, diag_a = self._owner_shapes(facs)
+        plan = self._shard_plan(shapes, frozenset(diag_a))
+        eigen_shard = self._owner_zero_eigen_shard(plan)
+        state = {
+            "step": 0,
+            "factors": self._owner_placeholders(facs, diag_a),
+            "eigen": {},
+            "eigen_stacked": {},
+            "factor_shard": self._owner_factor_shard_from_full(facs, plan),
+            "eigen_shard": eigen_shard,
+        }
+        self._owner_optional_entries(state, shapes, diag_a, eigen_shard)
+        return state
+
+    def _owner_optional_entries(self, state, shapes, diag_a, eigen_shard, old=None) -> None:
+        """The levers' entries of an owner state, from ``old`` (a replicated
+        state being re-homed) where it has them."""
+        old = old or {}
+        z = lambda dtype=torch.float32: torch.zeros((), dtype=dtype, device=self.device)  # noqa: E731
+        if self.eigh_chunks > 1 and "eigen_pending_shard" not in state:
+            state["eigen_pending_shard"] = {
+                k: {f: torch.zeros_like(v) for f, v in e.items()} for k, e in eigen_shard.items()
+            }
+        if self.solver in ("rsvd", "streaming"):
+            state["spectrum_mass"] = old.get("spectrum_mass", z())
+        if self.solver == "streaming":
+            state["stream_residual"] = old.get("stream_residual", z())
+            state["stream_fold_steps"] = old.get("stream_fold_steps", z(torch.int32))
+        if self.factor_comm.defer:
+            # a replicated deferred state's factors may hold unmerged local
+            # statistics: a re-home takes them as merged (age 0)
+            state["factor_local"] = self._owner_local_init(shapes, diag_a)
+            state["factor_sync_age"] = z(torch.int32)
+        if self.staleness_budget > 0:
+            state["eigen_swap_slip"] = old.get("eigen_swap_slip", z(torch.int32))
+
+    def owner_state_from_replicated(self, state: KFACState) -> KFACState:
+        """A replicated-form state re-homed into this rank's owner rows: the
+        checkpoint migration. The plan is a function of the layer shapes,
+        so every rank re-derives it; the stored factors and bases land in
+        their owners' rows bitwise, the pending buffer too."""
+        if not self.owner_sharded:
+            raise ValueError(
+                "owner_state_from_replicated() requires factor_sharding='owner'"
+            )
+        facs = state["factors"]
+        shapes, diag_a = self._owner_shapes(facs)
+        plan = self._shard_plan(shapes, frozenset(diag_a))
+        full_eigen = self._eigen_entries_from_split(
+            state["eigen"], state.get("eigen_stacked") or {},
+            {n: v for n, v in shapes.items() if n not in diag_a},
+        )
+        eigen_shard = self._owner_eigen_shard_from_full(full_eigen, plan)
+        new_state = {
+            "step": state["step"],
+            "factors": self._owner_placeholders(facs, diag_a),
+            "eigen": {},
+            "eigen_stacked": {},
+            "factor_shard": self._owner_factor_shard_from_full(facs, plan),
+            "eigen_shard": eigen_shard,
+        }
+        if self.eigh_chunks > 1 and state.get("eigen_pending") is not None:
+            new_state["eigen_pending_shard"] = self._owner_eigen_shard_from_full(
+                state["eigen_pending"], plan)
+        self._owner_optional_entries(new_state, shapes, diag_a, eigen_shard, old=state)
+        return new_state
+
+    # ------------------------------------------------------------------
     # State
     # ------------------------------------------------------------------
 
@@ -562,6 +871,8 @@ class KFAC:
         deferred factor flush's ``factor_sync_age`` and, on the int8 wire,
         ``wire_error``."""
         facs = self._identity_factors(model)
+        if self.owner_sharded:
+            return self._owner_init(facs)
 
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -648,6 +959,7 @@ class KFAC:
         eigen_chunk: Optional[Tuple[int, int]] = None,
         swap_eigen: bool = False,
         flush_factors: bool = False,
+        exchanged: bool = False,
     ) -> Tuple[Dict[str, torch.Tensor], KFACState]:
         """One K-FAC step: factor EMA (capture steps), curvature refresh
         (``update_eigen``), precondition + KL clip (every step).
@@ -675,7 +987,15 @@ class KFAC:
 
         Under ``solver="streaming"`` a capture step without a refresh folds
         the averaged factors through the kept bases (in deferred mode on
-        flush steps only)."""
+        flush steps only).
+
+        ``exchanged`` says the statistics are the ranks' means already: the
+        overlap plane's train steps exchange them before the gradient mean
+        (``FactorComm.start_exchange``).
+
+        Under ``factor_sharding="owner"`` the same flags drive
+        :meth:`_update_owner`."""
+        self._join_side_stream()
         if lr is None:
             raise ValueError(
                 "KFAC.update() requires lr= (the KL clip scales with the "
@@ -733,6 +1053,12 @@ class KFAC:
                     "(kfac_flags_for_step / EigenRefreshCadence) set this; "
                     "hand-rolled schedules must too."
                 )
+        if self.owner_sharded:
+            return self._update_owner(
+                grads, state, a_contribs=a_contribs, g_factor_stats=g_factor_stats, lr=lr,
+                damping=damping, update_factors=update_factors, update_eigen=update_eigen,
+                eigen_chunk=eigen_chunk, swap_eigen=swap_eigen, flush_factors=flush_factors,
+            )
         names = list(state["factors"].keys())
         facs = state["factors"]
         if update_factors:
@@ -746,7 +1072,7 @@ class KFAC:
                     f"no captured statistics for layers {missing}; build the "
                     "Capture with the same layer list as KFAC"
                 )
-            if self.factor_comm.multi_device:
+            if self.factor_comm.multi_device and not exchanged:
                 # the global batch's statistics: each rank's contributions
                 # are over its own batch, so their mean over the ranks is
                 # the JAX package's global-batch A and G (deferred: this
@@ -786,6 +1112,11 @@ class KFAC:
         spectrum_mass = state.get("spectrum_mass")
         # per-layer (dA, dG) of an eigen refresh, for the diagnostics
         fresh_spectra = None
+        # overlap mechanism (b): a chunk-only step leaves the active basis
+        # alone, so precondition first and run the chunk on the side stream
+        early = None
+        if self._precond_early(eigen_chunk, swap_eigen):
+            early = self._precondition_replicated(grads, names, eigen, stacked, lr, damping)
         if update_eigen and self.precond_method == "inverse":
             inv = precond_ops.factored_inverse_all(facs, damping, self.eps)
             # only the matrix inverses take eigen_dtype; an embedding's
@@ -838,14 +1169,14 @@ class KFAC:
                 }
             if chunk_slots:
                 if self.world.size > 1:
-                    pending = sharded_eigen_chunk_update(
-                        facs, pending, chunk_slots, self.world, self.eps,
-                        rank_fn=self._rank_fn(),
+                    run = lambda p: sharded_eigen_chunk_update(  # noqa: E731
+                        facs, p, chunk_slots, self.world, self.eps, rank_fn=self._rank_fn(),
                     )
                 else:
-                    pending = replicated_eigen_chunk_update(
-                        facs, pending, chunk_slots, self.eps, rank_fn=self._rank_fn()
+                    run = lambda p: replicated_eigen_chunk_update(  # noqa: E731
+                        facs, p, chunk_slots, self.eps, rank_fn=self._rank_fn()
                     )
+                pending = self._on_side_stream(early is not None, (facs, pending), run, pending)
             if swap_eigen:
                 eigen, stacked, spectrum_mass, fresh_spectra = self._install(
                     facs, pending, names, spectrum_mass, self.solver == "rsvd"
@@ -872,7 +1203,7 @@ class KFAC:
                 )
                 stream_fold_steps = stream_fold_steps + 1
 
-        new_grads, gmats, updates, nu = self._precondition_replicated(
+        new_grads, gmats, updates, nu = early or self._precondition_replicated(
             grads, names, eigen, stacked, lr, damping
         )
         new_state = {
@@ -912,6 +1243,224 @@ class KFAC:
                 update_eigen or swap_eigen,
             )
         return new_grads, new_state
+
+    # ------------------------------------------------------------------
+    # The overlap plane's side stream (mechanism (b))
+    # ------------------------------------------------------------------
+
+    def _precond_early(self, eigen_chunk, swap_eigen) -> bool:
+        """A chunk-only step under ``comm_overlap``: the chunk feeds only the
+        pending buffer, so the precondition goes first."""
+        return self.comm_overlap and eigen_chunk is not None and not swap_eigen
+
+    def _on_side_stream(self, early, reads, run, pending):
+        """``run(pending)`` (a chunk's decomposition into the pending
+        buffer): on a CUDA device, when the precondition went first
+        (``early``), on the side stream, ordered after everything issued so
+        far (the factors, the fresh pending buffers, the precondition), so
+        that it overlaps what the host issues next; otherwise here. Tensors
+        read across the streams are recorded on the stream that reads them,
+        and :meth:`_join_side_stream` orders the next reader after it.
+        ``torch.linalg.eigh`` waits on the host for its info check, so the
+        host issues nothing more until the side stream's eigh ends."""
+        if not early or self.device.type != "cuda":
+            return run(pending)
+        main = torch.cuda.current_stream(self.device)
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        side = self._side_stream
+        side.wait_stream(main)
+        for t in (t for tree in reads for t in tree_leaves(tree)):
+            t.record_stream(side)
+        with torch.cuda.stream(side):
+            out = run(pending)
+        for t in tree_leaves(out):
+            t.record_stream(main)
+        self._side_done = torch.cuda.Event()
+        self._side_done.record(side)
+        return out
+
+    def _join_side_stream(self) -> None:
+        """Order the current stream after the last side-stream chunk (the
+        next update may swap or refresh from its pending buffer)."""
+        if self._side_done is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._side_done)
+            self._side_done = None
+
+    # ------------------------------------------------------------------
+    # Owner-sharded update
+    # ------------------------------------------------------------------
+
+    def _update_owner(self, grads, state, *, a_contribs, g_factor_stats, lr, damping,
+                      update_factors, update_eigen, eigen_chunk, swap_eigen, flush_factors):
+        """The ``factor_sharding="owner"`` step (DP-KFAC), with
+        :meth:`update`'s flags (validated there):
+
+        * factor EMA: each rank's ``(1−α)·contrib`` reduce-scattered onto the
+          owners' rows (``FactorComm.scatter_merge``); deferred, the EMA of
+          this rank's own statistics in ``factor_local`` (from zeros), and
+          the flush scatters it with decay ``α^m``, ``m`` the capture steps
+          since the last flush, this one's included;
+        * the refresh, chunk, swap and bare swap over this rank's shard
+          stacks, owner-local (no collective), the streaming fold on capture
+          steps (flush steps when deferred);
+        * the precondition: each layer on its owner, one ``all_gather``
+          (``ops.precondition.precondition_all_owner``), in
+          ``precondition_all``'s emission order."""
+        names = list(state["factors"].keys())
+        # the diagonal-A set from the placeholders' keys, the shapes from the
+        # gradients: the plan init derived from the same
+        diag_a = frozenset(n for n in names if "A_diag" in state["factors"][n])
+        lgrads = capture.layer_grads(grads, names, diag_a)
+        gmats = {n: m.float() for n, m in capture.grad_mats(lgrads).items()}
+        plan = self._shard_plan({n: tuple(g.shape) for n, g in gmats.items()}, diag_a)
+        alpha = self.factor_decay
+        shard = state["factor_shard"]
+        local = state.get("factor_local")
+        if update_factors:
+            if a_contribs is None or g_factor_stats is None:
+                raise ValueError(
+                    "update_factors=True requires a_contribs and g_factor_stats"
+                )
+            missing = [n for n in names if n not in a_contribs or n not in g_factor_stats]
+            if missing:
+                raise ValueError(
+                    f"no captured statistics for layers {missing}; build the "
+                    "Capture with the same layer list as KFAC"
+                )
+            if self.factor_comm.defer:
+                local = {
+                    n: {"A": factor_ops.update_running_avg(a_contribs[n], local[n]["A"], alpha),
+                        "G": factor_ops.update_running_avg(g_factor_stats[n], local[n]["G"],
+                                                           alpha)}
+                    for n in names
+                }
+            else:
+                payload = {
+                    n: {"A": (1.0 - alpha) * a_contribs[n].float(),
+                        "G": (1.0 - alpha) * g_factor_stats[n].float()}
+                    for n in names
+                }
+                shard = self.factor_comm.scatter_merge(payload, shard, plan, alpha)
+        if flush_factors:
+            m = state["factor_sync_age"] + int(update_factors)
+            decay = torch.pow(torch.tensor(alpha, dtype=torch.float32, device=self.device),
+                              m.float())
+            shard = self.factor_comm.scatter_merge(local, shard, plan, decay)
+            local = {n: {k: torch.zeros_like(v) for k, v in f.items()} for n, f in local.items()}
+
+        eigen_shard = state["eigen_shard"]
+        pending = state.get("eigen_pending_shard")
+        spectrum_mass = state.get("spectrum_mass")
+        rank_fn = self._rank_fn()
+        new_grads = None
+        if self._precond_early(eigen_chunk, swap_eigen):
+            new_grads = self._precondition_owner(grads, gmats, eigen_shard, lr, damping, plan,
+                                                 diag_a)
+
+        def mass(eigen):
+            return owner_spectrum_mass(shard, eigen, plan, self.world, rank_fn=rank_fn)
+
+        if update_eigen:
+            eigen_shard = {
+                **owner_eigen_update(shard, plan, self.world.rank, self.eps, rank_fn=rank_fn,
+                                     eigen_dtype=self.eigen_dtype),
+                **self._owner_diag_eigen(shard, plan),
+            }
+            if self.solver in ("rsvd", "streaming"):
+                spectrum_mass = mass(eigen_shard)
+        elif eigen_chunk is not None:
+            c, k = eigen_chunk
+            jobs = plan_owner_chunks(plan, k, rank_fn=rank_fn)[c]
+            if c == 0:
+                # a fresh interval: new zeroed buffers, none the active basis holds
+                pending = {key: {f: torch.zeros_like(v) for f, v in e.items()}
+                           for key, e in pending.items()}
+            if jobs:
+                pending = self._on_side_stream(
+                    new_grads is not None, (shard, pending),
+                    lambda p: owner_eigen_chunk_update(
+                        shard, p, jobs, plan, self.world.rank, self.eps, rank_fn=rank_fn,
+                        eigen_dtype=self.eigen_dtype),
+                    pending,
+                )
+            if swap_eigen:
+                eigen_shard = {**pending, **self._owner_diag_eigen(shard, plan)}
+                if self.solver == "rsvd":
+                    spectrum_mass = mass(eigen_shard)
+        elif swap_eigen:
+            eigen_shard = {**pending, **self._owner_diag_eigen(shard, plan)}
+            if self.solver == "rsvd":
+                spectrum_mass = mass(eigen_shard)
+
+        stream_residual = state.get("stream_residual")
+        stream_fold_steps = state.get("stream_fold_steps")
+        if self.solver == "streaming":
+            if update_eigen:
+                stream_residual = torch.clamp(1.0 - spectrum_mass, min=0.0)
+                stream_fold_steps = torch.zeros_like(stream_fold_steps)
+            elif update_factors and (not self.factor_comm.defer or flush_factors):
+                eigen_shard, stream_residual = owner_stream_fold(
+                    shard, eigen_shard, plan, self.world, self.eps, rank_fn=rank_fn
+                )
+                stream_fold_steps = stream_fold_steps + 1
+
+        if new_grads is None:
+            new_grads = self._precondition_owner(grads, gmats, eigen_shard, lr, damping, plan,
+                                                 diag_a)
+        new_state = {
+            "step": state["step"] + 1,
+            "factors": state["factors"],
+            "eigen": state["eigen"],
+            "eigen_stacked": state["eigen_stacked"],
+            "factor_shard": shard,
+            "eigen_shard": eigen_shard,
+        }
+        if pending is not None:
+            new_state["eigen_pending_shard"] = pending
+        if spectrum_mass is not None:
+            new_state["spectrum_mass"] = spectrum_mass
+        if stream_residual is not None:
+            new_state["stream_residual"] = stream_residual
+            new_state["stream_fold_steps"] = stream_fold_steps
+        if local is not None:
+            new_state["factor_local"] = local
+            new_state["factor_sync_age"] = (
+                torch.zeros_like(state["factor_sync_age"]) if flush_factors
+                else state["factor_sync_age"] + int(update_factors)
+            )
+        if "eigen_swap_slip" in state:
+            last_chunk_no_swap = (
+                eigen_chunk is not None and eigen_chunk[0] == eigen_chunk[1] - 1 and not swap_eigen
+            )
+            new_state["eigen_swap_slip"] = (
+                torch.zeros_like(state["eigen_swap_slip"]) if (swap_eigen or update_eigen)
+                else state["eigen_swap_slip"] + int(last_chunk_no_swap)
+            )
+        return new_grads, new_state
+
+    def _precondition_owner(self, grads, gmats, eigen_shard, lr, damping, plan, diag_a):
+        """The owner mode's precondition + KL clip (:meth:`_update_owner`)."""
+        updates = precond_ops.precondition_all_owner(
+            gmats, eigen_shard, damping, self.precond_precision, world=self.world, plan=plan,
+            rank_fn=self._rank_fn(), eigen_dtype=self.eigen_dtype, kind=self.apply_kernel,
+        )
+        nu = precond_ops.kl_clip_coefficient(updates, gmats, lr, self.hparams.kl_clip)
+        return capture.write_back(grads, updates, nu, set(diag_a))
+
+    def start_exchange(self, state: KFACState, a_contribs, g_factor_stats):
+        """Overlap mechanism (a): a capture step's factor bucket means
+        started now (reversed, asynchronous) over the state's layers in its
+        order, the order :meth:`update` would exchange them in; calling the
+        returned function finishes them and gives the means for
+        ``update(exchanged=True)``. ``None`` when the plane does not overlap
+        this exchange (serial, deferred, owner-sharded or a world of one)."""
+        if not self.factor_comm.overlaps_exchange:
+            return None
+        names = list(state["factors"].keys())
+        return self.factor_comm.start_exchange(
+            {n: a_contribs[n] for n in names}, {n: g_factor_stats[n] for n in names}
+        )
 
     def _eigh_table(self, grads, names, diag_blocks):
         """The round-robin owners of the refresh's slots over the ranks."""

@@ -12,14 +12,25 @@ picks the newest ``checkpoint-<epoch>``, as the JAX package's scan does.
 The refresh cadence (``scheduler.EigenRefreshCadence``) is host state and
 is not in the checkpoint, as in the JAX trainers: a resumed run under
 ``--eigh-chunks`` bootstraps again with a monolithic refresh at its first
-boundary. Owner-sharded K-FAC state (``rehome_kfac_state``) is ROADMAP
-queue 1 item 7 (7b).
+boundary.
+
+Owner-sharded K-FAC state (``factor_sharding="owner"``) holds only this
+rank's rows of the ``factor_shard``/``eigen_shard``/``eigen_pending_shard``
+stacks. Every rank enters :func:`save_checkpoint`, which gathers the stacks
+into the JAX package's global form (``[world·rows, ...]``, rank ``r``'s rows
+at ``r·rows``) before rank 0 writes, and a restore gives each rank its own
+rows back (:func:`restore_checkpoint` with the preconditioner).
+:func:`rehome_kfac_state` places a state per the preconditioner's mode: an
+owner state passes, a replicated one is re-homed into the owner rows
+(``KFAC.owner_state_from_replicated``), and an owner state for a replicated
+preconditioner is refused, as in the JAX package.
 
 Data-parallel, only rank 0 writes; every rank reads the directory (a
 shared file system, as the JAX package's checkpoints need) at the epoch
 rank 0 resumes from, which is broadcast, as the reference broadcasts it
 (pytorch_imagenet_resnet.py:136-140). :func:`broadcast_state` then makes
-every rank's state rank 0's.
+every rank's state rank 0's, apart from what each rank holds of its own:
+the owner mode's shard rows and its deferred ``factor_local``.
 
 Under deferred factor communication (``factor_comm_freq > 1``) the
 factors between flushes are each rank's own running averages, and on the
@@ -48,36 +59,113 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from kfac_pytorch_tpu_torch.parallel import launch
-from kfac_pytorch_tpu_torch.parallel.mesh import World
+from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world
 from kfac_pytorch_tpu_torch.training.step import TrainState
 
 _EPOCH_RE = re.compile(r"checkpoint-(\d+)$")
 FORMAT = "kfac_pytorch_tpu_torch.checkpoint/1"
+# the owner mode's stacks of this rank's rows, and what else each rank holds
+# of its own (never broadcast)
+OWNER_ROW_KEYS = ("factor_shard", "eigen_shard", "eigen_pending_shard")
+PER_RANK_KEYS = (*OWNER_ROW_KEYS, "factor_local")
 
 
 def checkpoint_path(checkpoint_dir: str, epoch: int) -> str:
     return os.path.join(os.path.abspath(checkpoint_dir), f"checkpoint-{epoch}")
 
 
-def _payload(state: TrainState) -> Dict[str, Any]:
-    return {
+def owner_form(kfac_state) -> bool:
+    """An owner-sharded K-FAC state (it has ``factor_shard`` stacks)."""
+    return isinstance(kfac_state, dict) and "factor_shard" in kfac_state
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def global_kfac_state(kfac_state, world: World):
+    """An owner state with its row stacks gathered over the ranks into the
+    global ``[world·rows, ...]`` form (one ``all_gather`` per stack): every
+    rank of ``world`` must call it. Other states pass unchanged."""
+    if not owner_form(kfac_state) or not world.distributed:
+        return kfac_state
+    out = dict(kfac_state)
+    for key in OWNER_ROW_KEYS:
+        if key in out:
+            out[key] = _map(out[key], lambda t: world.all_gather_flat(t.contiguous()).reshape(
+                world.size * t.shape[0], *t.shape[1:]))
+    return out
+
+
+def local_kfac_state(kfac_state, world: World, saved_world: int):
+    """This rank's rows of a global-form owner state saved over
+    ``saved_world`` ranks (the inverse of :func:`global_kfac_state`)."""
+    if saved_world != world.size:
+        raise ValueError(
+            f"checkpoint holds owner-sharded K-FAC state of {saved_world} ranks; this "
+            f"world has {world.size} — restore on the world it was saved on"
+        )
+    out = dict(kfac_state)
+    for key in OWNER_ROW_KEYS:
+        if key in out:
+            out[key] = _map(out[key], lambda t: t.reshape(world.size, -1, *t.shape[1:])[
+                world.rank].contiguous())
+    return out
+
+
+def rehome_kfac_state(kfac: Any, kfac_state: Any) -> Any:
+    """A K-FAC state placed per the preconditioner's sharding mode (the
+    JAX package's ``rehome_kfac_state``): an owner preconditioner passes an
+    owner state (this rank's rows) and re-homes a replicated one
+    (``KFAC.owner_state_from_replicated``, deterministic: the plan is a
+    function of the layer shapes); a replicated preconditioner passes a
+    replicated state and refuses an owner one."""
+    if kfac is None or kfac_state is None:
+        return kfac_state
+    if getattr(kfac, "owner_sharded", False):
+        return kfac_state if owner_form(kfac_state) else kfac.owner_state_from_replicated(
+            kfac_state)
+    if owner_form(kfac_state):
+        raise ValueError(
+            "checkpoint holds owner-sharded K-FAC state but this "
+            "preconditioner runs factor_sharding='replicated'; gather-back "
+            "migration is not supported — restore with "
+            "factor_sharding='owner' on the same mesh"
+        )
+    return kfac_state
+
+
+def _payload(state: TrainState, world: World) -> Dict[str, Any]:
+    payload = {
         "format": FORMAT,
         "step": state.step,
         "model": state.model.state_dict(),
         "opt_state": state.opt_state,
-        "kfac_state": state.kfac_state,
+        "kfac_state": global_kfac_state(state.kfac_state, world),
     }
+    if owner_form(state.kfac_state):
+        payload["kfac_owner_world"] = world.size
+    return payload
 
 
-def save_checkpoint(checkpoint_dir: str, epoch: int, state: TrainState) -> str:
+def save_checkpoint(checkpoint_dir: str, epoch: int, state: TrainState,
+                    world: Optional[World] = None) -> str:
     """Write ``state`` as ``checkpoint-<epoch>`` in ``checkpoint_dir``
-    (created if missing); returns the path. Only rank 0 writes."""
+    (created if missing); returns the path. Only rank 0 writes; with an
+    owner-sharded K-FAC state every rank of ``world`` (default: the default
+    group's) must call it, for the gather of the shard rows."""
     path = checkpoint_path(checkpoint_dir, epoch)
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        # the overlap plane's side stream may still write the pending buffer
+        torch.cuda.synchronize()
+    payload = _payload(state, world if world is not None else data_parallel_world())
     if not launch.is_primary():
         return path
     os.makedirs(checkpoint_dir, exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(_payload(state), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
 
@@ -134,15 +222,27 @@ def _copy_into(dst, src, where: str):
     return src
 
 
-def restore_checkpoint(checkpoint_dir: str, epoch: int, target: TrainState) -> TrainState:
+def restore_checkpoint(checkpoint_dir: str, epoch: int, target: TrainState,
+                       kfac: Any = None) -> TrainState:
     """The state saved for ``epoch``, copied into ``target``'s model,
     momentum buffers and K-FAC state (same structure, shapes and dtypes, or
-    ``ValueError``). Returns a ``TrainState`` over the same objects."""
+    ``ValueError``). Returns a ``TrainState`` over the same objects.
+
+    An owner-form K-FAC state gives this rank its own rows (saved on a
+    world of the same size); with ``kfac``, the saved state is first placed
+    per its sharding mode (:func:`rehome_kfac_state`: a replicated
+    checkpoint into an owner preconditioner is re-homed, an owner one into
+    a replicated preconditioner refused)."""
     device = next(target.model.parameters()).device
     saved = _load(checkpoint_dir, epoch, device)
+    saved_kfac = saved["kfac_state"]
+    if owner_form(saved_kfac):
+        world = kfac.world if kfac is not None else data_parallel_world()
+        saved_kfac = local_kfac_state(saved_kfac, world, saved.get("kfac_owner_world", 1))
+    saved_kfac = rehome_kfac_state(kfac, saved_kfac)
     target.model.load_state_dict(saved["model"])
     opt_state = _copy_into(target.opt_state, saved["opt_state"], "opt_state")
-    kfac_state = _copy_into(target.kfac_state, saved["kfac_state"], "kfac_state")
+    kfac_state = _copy_into(target.kfac_state, saved_kfac, "kfac_state")
     return TrainState(
         step=saved["step"], model=target.model, opt_state=opt_state, kfac_state=kfac_state
     )
@@ -154,14 +254,16 @@ def restore_weights_only(checkpoint_dir: str, epoch: int) -> Dict[str, torch.Ten
     return _load(checkpoint_dir, epoch, "cpu")["model"]
 
 
-def auto_resume(checkpoint_dir: str, target: TrainState) -> Tuple[TrainState, int]:
+def auto_resume(checkpoint_dir: str, target: TrainState,
+                kfac: Any = None) -> Tuple[TrainState, int]:
     """``(state, first epoch to run)``: the newest checkpoint restored into
-    ``target`` and the epoch after it, or ``(target, 0)`` when there is none."""
+    ``target`` (re-homed per ``kfac``'s sharding mode when given) and the
+    epoch after it, or ``(target, 0)`` when there is none."""
     epoch = latest_epoch(checkpoint_dir)
     epoch = int(launch.broadcast_host_value(-1 if epoch is None else epoch))
     if epoch < 0:
         return target, 0
-    return restore_checkpoint(checkpoint_dir, epoch, target), epoch + 1
+    return restore_checkpoint(checkpoint_dir, epoch, target, kfac), epoch + 1
 
 
 def _tensors(tree):
@@ -176,10 +278,14 @@ def broadcast_state(state: TrainState, world: World) -> None:
     """Overwrite every tensor of ``state`` (parameters, BatchNorm buffers,
     momentum, K-FAC state) with rank 0's, in place: the reference's
     ``hvd.broadcast_parameters`` and ``broadcast_optimizer_state`` at the
-    start of a run."""
+    start of a run. What each rank holds of its own stays its own: the
+    owner mode's shard rows and deferred ``factor_local``."""
+    kfac_state = state.kfac_state or {}
+    shared = {k: v for k, v in kfac_state.items()
+              if not (owner_form(kfac_state) and k in PER_RANK_KEYS)}
     with torch.no_grad():
         world.broadcast_([
             *state.model.state_dict().values(),
             *_tensors(state.opt_state),
-            *_tensors(state.kfac_state),
+            *_tensors(shared),
         ])

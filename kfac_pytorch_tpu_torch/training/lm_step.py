@@ -17,7 +17,9 @@ its own rows of the global batch and carries their recurrent state; the
 gradients are averaged over the ranks before the global-norm clip, in
 float32 or, over more than one rank, with the payload in
 ``grad_comm_dtype`` (``pmean_compressed``), and the loss is averaged too.
-The K-FAC statistics cross the wire inside ``KFAC.update``. Over more than
+The K-FAC statistics cross the wire inside ``KFAC.update``, or under
+``KFAC(comm_overlap=True)`` start before the gradient mean
+(``KFAC.start_exchange``, the JAX step's overlap mechanism (a)). Over more than
 one rank the dropout masks differ per rank, as the JAX step folds the axis
 index into its key: each step draws them from a generator seeded from the
 caller's generator's seed, the step and the rank, and at world one from
@@ -133,18 +135,22 @@ def make_lm_train_step(
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         loss = loss.detach()
+        # the overlap plane: the factor bucket means before the gradient mean
+        exchange = kfac.start_exchange(state.kfac_state, a_c, g_s) if capture_stats else None
         if world.distributed:
             # the ranks' mean before the clip, as the JAX step takes it
             pmean_compressed(grads.values(), world, grad_comm_dtype if compressed else None)
             loss = loss.clone()
             world.all_reduce_mean_([loss])
+        if exchange is not None:
+            a_c, g_s = exchange()
         if grad_clip:
             grads = clip_by_global_norm(grads, grad_clip)
         new_state = precondition_and_step(
             state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
             update_factors=update_factors, update_eigen=update_eigen,
             diag_warmup_done=diag_warmup_done, eigen_chunk=eigen_chunk, swap_eigen=swap_eigen,
-            flush_factors=flush_factors,
+            flush_factors=flush_factors, exchanged=exchange is not None,
         )
         metrics = {"loss": loss, "ppl": torch.exp(loss)}
         if kfac is not None and kfac.track_diagnostics:

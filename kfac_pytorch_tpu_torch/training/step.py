@@ -21,7 +21,10 @@ with a launch plan the step keeps between calls), otherwise the per-leaf
 Data-parallel, each rank runs its own batch, and the gradients, the loss
 and the accuracy are averaged over the ranks (float32 ``all_reduce``s);
 the K-FAC statistics cross the wire inside ``KFAC.update`` (its factor
-comm plane, ``parallel/comm.py``). BatchNorm takes
+comm plane, ``parallel/comm.py``; owner-sharded, its reduce-scatter), or,
+under ``KFAC(comm_overlap=True)`` on a capture step, their bucket means
+start before the gradient mean and are waited on before ``KFAC.update``
+(``KFAC.start_exchange``, the JAX step's overlap mechanism (a)). BatchNorm takes
 the JAX step's two routes: by default (the JAX package's GSPMD step) it
 normalizes over the global batch (``models.cifar_resnet.global_batchnorm``);
 under ``grad_comm_dtype`` (the JAX package's ``_compressed_grads``, the
@@ -255,6 +258,9 @@ def make_train_step(
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in params.items()
         }
+        # the overlap plane: the factor bucket means go on the wire before
+        # the gradient mean, and are waited on before KFAC.update
+        exchange = kfac.start_exchange(state.kfac_state, a_c, g_s) if capture_stats else None
         if world.distributed:
             pmean_compressed(grads.values(), world, grad_comm_dtype if compressed else None)
             means = torch.stack([loss, acc])
@@ -263,13 +269,15 @@ def make_train_step(
             if compressed:
                 with torch.no_grad():
                     world.all_reduce_mean_(bn_buffers)
+        if exchange is not None:
+            a_c, g_s = exchange()
         if grad_clip:
             grads = clip_by_global_norm(grads, grad_clip)
         new_state = precondition_and_step(
             state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
             update_factors=update_factors, update_eigen=update_eigen,
             diag_warmup_done=diag_warmup_done, eigen_chunk=eigen_chunk, swap_eigen=swap_eigen,
-            flush_factors=flush_factors,
+            flush_factors=flush_factors, exchanged=exchange is not None,
         )
         metrics = {"loss": loss, "accuracy": acc}
         if kfac is not None and kfac.track_diagnostics:
@@ -339,7 +347,8 @@ def precondition_and_step(
     """The tail of a train step, shared by the image and the RNN LM steps:
     ``KFAC.update`` (with the step's ``update_factors``/``update_eigen``/
     ``diag_warmup_done``/``eigen_chunk``/``swap_eigen``/``flush_factors``
-    flags), then SGD, through the fused SGD kernel
+    flags, and ``exchanged`` when the overlap plane averaged the statistics
+    already), then SGD, through the fused SGD kernel
     wrapper when ``sgd_hyper`` declares ``tx`` and a preconditioner runs
     (``sgd_plans`` keeps its launch plan between steps), else per leaf.
     Updates the parameters and momentum in place; returns the next state."""

@@ -307,10 +307,19 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
     Item 6a's are ported: ``mesh=`` (a JAX mesh) is refused in favour of
     ``process_group=``, and ``distribute_precondition`` on one process
     warns and runs replicated, as in the JAX package. Item 7a's are
-    ported: ``eigh_chunks`` and ``solver`` are accepted and kept; item 7b's
-    (``factor_sharding="owner"``, ``comm_overlap``) still raise. Item 6b's
+    ported: ``eigh_chunks`` and ``solver`` are accepted and kept. Item 7b's
+    (``factor_sharding="owner"``, ``comm_overlap``) are accepted and, on one
+    process, warn and degrade to the replicated, serial plane, as in the JAX
+    package on a single device. Item 6b's
     ``factor_comm_dtype`` is accepted and, on one process, warns that it
     changes nothing, as in the JAX package without a mesh."""
+    if "factor_sharding" in kwargs or "comm_overlap" in kwargs:
+        kfac = KFAC(device="cpu", **kwargs)
+        assert kfac.world.size == 1 and "has no effect" in capsys.readouterr().out
+        assert kfac.factor_sharding == "replicated" and not kfac.owner_sharded
+        assert not kfac.comm_overlap and kfac.factor_comm.overlap_mode == 0
+        assert "factor_shard" not in kfac.init(nn.Sequential(KFACDense(3, 2)))
+        return
     if "eigh_chunks" in kwargs or "solver" in kwargs:
         kfac = KFAC(device="cpu", **kwargs)
         for k, v in kwargs.items():

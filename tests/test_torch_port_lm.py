@@ -296,10 +296,12 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
 ])
 def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
     """Each flag was refused naming its ROADMAP item until that item was
-    ported; item 6b's factor comm flags now train (inert on one process)."""
+    ported; item 6b's factor comm flags and item 7b's ``--factor-sharding``
+    now train (inert on one process: owner sharding warns and runs
+    replicated, as in the JAX trainer)."""
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
 
-    if argv[0] == "--factor-comm-dtype":
+    if argv[0] in ("--factor-comm-dtype", "--factor-sharding"):
         hist = trainer.main([*TINY, *argv])
         assert len(hist["loss"]) == 3 and all(math.isfinite(v) for v in hist["loss"])
         return

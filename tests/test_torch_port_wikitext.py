@@ -254,9 +254,14 @@ def test_wikitext_trainer_reads_data_and_resumes_bitwise(tmp_path, capsys):
 ])
 def test_wikitext_trainer_refuses_flags_of_later_slices(argv, item):
     """Each flag was refused naming its ROADMAP item until that item was
-    ported; item 6b's factor comm flags now parse onto their arguments."""
+    ported; item 6b's factor comm flags and item 7b's ``--factor-sharding``
+    now parse onto their arguments."""
     if argv[0] == "--factor-comm-dtype":
         assert trainer.parse_args(argv).factor_comm_dtype == argv[1]
+        return
+    if argv[0] == "--factor-sharding":
+        args = trainer.parse_args(argv)
+        assert args.factor_sharding == argv[1] and args.comm_overlap is False
         return
     with pytest.raises(SystemExit, match=item):
         trainer.parse_args(argv)

@@ -1,5 +1,6 @@
-"""Rank bodies of ``tests/test_torch_port_distributed.py`` and
-``tests/test_torch_port_comm.py`` (not a test file).
+"""Rank bodies of ``tests/test_torch_port_distributed.py``,
+``tests/test_torch_port_comm.py`` and ``tests/test_torch_port_owner.py``
+(not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
 through ``torch.multiprocessing`` with a file store under the test's
@@ -11,6 +12,7 @@ holds the JAX side. A task's inputs and per-rank results travel as
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -519,4 +521,261 @@ def comm(rank, world, stats, cap, quant, out_dir, deferred=None, lm=None, lstm=N
     return out
 
 
-TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm}
+# ------------------------------------------------- owner sharding, overlap
+
+
+def _owner_net(spec):
+    """A module of ``KFACDense`` / ``KFACEmbed`` layers from ``{name: (kind,
+    args)}``."""
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense, KFACEmbed
+
+    model = torch.nn.Module()
+    for name, (kind, args) in spec.items():
+        model.add_module(name, (KFACEmbed if kind == "embed" else KFACDense)(*args))
+    return model
+
+
+def _rows(tree, rank, world):
+    """Rank ``rank``'s rows of a tree of global ``[world·rows, ...]`` stacks."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, rank, world) for k, v in tree.items()}
+    t = torch.from_numpy(np.ascontiguousarray(tree))
+    return t.reshape(world, -1, *t.shape[1:])[rank].contiguous()
+
+
+def _counting(names):
+    """Patch ``torch.distributed``'s ``names`` to count their calls;
+    returns ``(calls, restore)``."""
+    calls = {n: 0 for n in names}
+    real = {n: getattr(dist, n) for n in names}
+
+    def wrap(n):
+        def fn(*args, **kwargs):
+            calls[n] += 1
+            return real[n](*args, **kwargs)
+        return fn
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    return calls, lambda: [setattr(dist, n, f) for n, f in real.items()]
+
+
+@contextlib.contextmanager
+def _jax_sketches(sketches):
+    """The port's rsvd draws the JAX package's sketches (``{"<m>x<cols>":
+    array}``) inside the block."""
+    from kfac_pytorch_tpu_torch.ops import rsvd
+
+    real = rsvd.sketch_matrix
+    rsvd.sketch_matrix = lambda m, cols, device=None: torch.from_numpy(sketches[f"{m}x{cols}"])
+    try:
+        yield
+    finally:
+        rsvd.sketch_matrix = real
+
+
+def _owner_ops(rank, w, ops):
+    """The owner plane's pieces on this rank's rows: ``scatter_merge`` on
+    both wires, the owner refresh (dense and rank-aware), spectrum mass,
+    stream fold, and ``precondition_all_owner`` in both layouts."""
+    from kfac_pytorch_tpu_torch.ops import precondition as P
+    from kfac_pytorch_tpu_torch.parallel.assignment import plan_factor_shards
+    from kfac_pytorch_tpu_torch.parallel.comm import FactorComm
+    from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
+        owner_eigen_update,
+        owner_spectrum_mass,
+        owner_stream_fold,
+    )
+
+    threshold, r = ops["rank_cfg"]
+
+    def rank_fn(n):
+        return None if n < threshold or r >= n else r
+
+    plan = plan_factor_shards(ops["shapes"], w.size, ops["bucket_cap"], diag_a=set(ops["diag_a"]))
+    payload = _rank_tree(ops["payload"], rank)
+    shard = _rows(ops["shard"], rank, w.size)
+    out = {}
+    for wire in ("f32", "bf16"):
+        fc = FactorComm(w, wire, 1, sharded=True)
+        out[f"scatter_{wire}"] = _np(fc.scatter_merge(payload, shard, plan, ops["decay"]))
+        out[f"scatter_{wire}_wire"] = (fc.last_wire_bytes, fc.last_collectives)
+    fshard = _rows(ops["factor_shard"], rank, w.size)
+    for key, fn in (("dense", None), ("rsvd", rank_fn)):
+        with _jax_sketches(ops["sketches"]):
+            eig = owner_eigen_update(fshard, plan, rank, rank_fn=fn)
+        out[f"eigen_{key}"] = _np(eig)
+        out[f"mass_{key}"] = float(owner_spectrum_mass(fshard, eig, plan, w, rank_fn=fn))
+        diag = {f"v{n}": {"d": fshard[f"v{n}"]} for n in plan.diag_group_sizes}
+        folded, resid = owner_stream_fold(fshard, {**eig, **diag}, plan, w, rank_fn=fn)
+        out[f"fold_{key}"] = (_np(folded), float(resid))
+    gmats = _t(ops["gmats"])
+    for key, fn in (("update", None), ("tables", rank_fn)):
+        eshard = _rows(ops[f"eigen_shard_{key}"], rank, w.size)
+        for kind in ("auto", "dense"):
+            out[f"apply_{key}_{kind}"] = _np(P.precondition_all_owner(
+                gmats, eshard, ops["damping"], world=w, plan=plan, rank_fn=fn, kind=kind))
+    return out
+
+
+def _owner_runs(rank, w, runs):
+    """``KFAC.update`` over a cadence's flags for every case, owner-sharded
+    and replicated, on this rank's statistics: the new gradients per step,
+    the replicated factors and this rank's factor rows at the end."""
+    from kfac_pytorch_tpu_torch import KFAC
+
+    out = {}
+    for case, (net, kw, flags) in runs["cases"].items():
+        spec, stats, grads = (runs["nets"][net][k] for k in ("spec", "stats", "grads"))
+        res = {}
+        for mode in ("owner", "replicated"):
+            model = _owner_net(spec)
+            kw = {k: (torch.bfloat16 if v == "bf16" else v) for k, v in kw.items()}
+            kfac = KFAC(layers=list(spec), device="cpu", factor_sharding=mode, **kw)
+            assert kfac.owner_sharded == (mode == "owner")
+            state, news = kfac.init(model), []
+            for step, fl in enumerate(flags):
+                a_c, g_s = (_t(x) for x in stats[step][rank])
+                with _jax_sketches(runs["sketches"]):
+                    new, state = kfac.update(_t(grads[step]), state, a_contribs=a_c,
+                                             g_factor_stats=g_s, lr=0.1, damping=0.003, **fl)
+                news.append(_np(new))
+            keep = {k: state[k] for k in ("factors", "factor_shard", "eigen_shard",
+                                          "factor_local", "factor_sync_age", "spectrum_mass",
+                                          "stream_residual") if k in state}
+            res[mode] = {"new": news, "state": _np(keep)}
+            if mode == "owner":
+                res["plan_info"] = kfac.shard_plan_info
+                res["gather_width"] = kfac.precond_gather_width
+        out[case] = res
+    return out
+
+
+class _MLP(torch.nn.Module):
+    """The JAX overlap tests' BatchNorm-free toy: 24 → 32 → 10."""
+
+    def __init__(self):
+        from kfac_pytorch_tpu_torch.models.layers import KFACDense
+
+        super().__init__()
+        self.fc1, self.fc2 = KFACDense(24, 32), KFACDense(32, 10)
+
+    def forward(self, x):
+        return self.fc2(torch.relu(self.fc1(x.reshape(x.shape[0], -1))))
+
+
+def _owner_overlap(rank, w, overlap):
+    """Overlap on against off through ``make_train_step`` on this rank's
+    batch, every step's parameters (bitwise is the contract), and the
+    point-to-point ring's run with ``KFAC_OVERLAP_PPERMUTE=1``."""
+    from kfac_pytorch_tpu_torch import KFAC, EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, make_train_step
+
+    x = torch.from_numpy(overlap["x"][rank])
+    y = torch.from_numpy(overlap["y"][rank])
+    out = {}
+    for case, kw in overlap["cases"].items():
+        for on in (False, True):
+            if case == "ring":
+                os.environ["KFAC_OVERLAP_PPERMUTE"] = "1" if on else "0"
+            model = _MLP()
+            model.load_state_dict(_t(overlap["weights"]))
+            kfac = KFAC(layers=["fc1", "fc2"], device="cpu", damping=0.01,
+                        fac_update_freq=1, comm_overlap=on or case == "ring", **kw)
+            tx = make_sgd(0.9, 5e-4)
+            state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                               kfac_state=kfac.init(model))
+            step_fn = make_train_step(model, tx, kfac, sgd_hyper=(0.9, 5e-4))
+            cad, traj = EigenRefreshCadence(kfac), []
+            for step in range(2 * kfac.hparams.kfac_update_freq):
+                state, _ = step_fn(state, (x, y), 0.05, 0.01, **cad.flags_for_step(step))
+                traj.append(_np(model.state_dict()))
+            out[(case, on)] = (traj, kfac.factor_comm.overlap_mode)
+        os.environ.pop("KFAC_OVERLAP_PPERMUTE", None)
+    return out
+
+
+def _owner_collectives(rank, w, counts):
+    """Collectives per step kind of the owner mode, counted in this rank."""
+    from kfac_pytorch_tpu_torch import KFAC
+
+    spec, stats, grads = (counts[k] for k in ("spec", "stats", "grads"))
+    a_c, g_s = (_t(x) for x in stats[rank])
+    out = {}
+    names = ("reduce_scatter_tensor", "all_gather_into_tensor", "all_reduce", "broadcast",
+             "batch_isend_irecv")
+    for key, kw, flags in counts["kinds"]:
+        kfac = KFAC(layers=list(spec), device="cpu", factor_sharding="owner", **kw)
+        kfac.factor_comm.max_bucket_elems = counts["bucket_cap"]  # several buckets
+        state = kfac.init(_owner_net(spec))
+        calls, restore = _counting(names)
+        try:
+            kfac.update(_t(grads), state, a_contribs=a_c, g_factor_stats=g_s, lr=0.1,
+                        damping=0.003, **flags)
+        finally:
+            restore()
+        (plan,) = kfac._shard_plans.values()
+        out[key] = (dict(calls), len(plan.wire_buckets))
+    return out
+
+
+def _owner_checkpoint(rank, w, ck):
+    """An owner state through a checkpoint on this world, a replicated one
+    re-homed, the refusal of an owner one into a replicated preconditioner,
+    and ``broadcast_state`` leaving each rank's rows its own."""
+    from kfac_pytorch_tpu_torch import KFAC
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+    from kfac_pytorch_tpu_torch.training.step import TrainState
+
+    spec, stats, grads = (ck["spec"][k] for k in ("spec", "stats", "grads"))
+    model = _owner_net(spec)
+    out = {}
+    states = {}
+    for mode in ("owner", "replicated"):
+        kfac = KFAC(layers=list(spec), device="cpu", factor_sharding=mode, eigh_chunks=2,
+                    fac_update_freq=1, kfac_update_freq=3)
+        st = kfac.init(model)
+        for step, fl in enumerate(ck["flags"]):
+            a_c, g_s = (_t(x) for x in stats[step][rank])
+            _, st = kfac.update(_t(grads[step]), st, a_contribs=a_c, g_factor_stats=g_s,
+                                lr=0.1, damping=0.003, **fl)
+        states[mode] = (kfac, st)
+        ckpt.save_checkpoint(f"{ck['root']}/{mode}", 0, TrainState(step=len(ck["flags"]),
+                             model=model, opt_state={}, kfac_state=st))
+    dist.barrier()
+    kfac, st = states["owner"]
+    fresh = TrainState(step=0, model=model, opt_state={}, kfac_state=kfac.init(model))
+    back = ckpt.restore_checkpoint(f"{ck['root']}/owner", 0, fresh, kfac)
+    out["round_trip"] = (_np(st), _np(back.kfac_state))
+    fresh = TrainState(step=0, model=model, opt_state={}, kfac_state=kfac.init(model))
+    rehomed = ckpt.restore_checkpoint(f"{ck['root']}/replicated", 0, fresh, kfac)
+    out["rehomed"] = (_np(kfac.owner_state_from_replicated(states["replicated"][1])),
+                      _np(rehomed.kfac_state), _np(states["replicated"][1]["factors"]))
+    rkfac = states["replicated"][0]
+    target = TrainState(step=0, model=model, opt_state={}, kfac_state=rkfac.init(model))
+    out["refused"] = _raised(lambda: ckpt.restore_checkpoint(f"{ck['root']}/owner", 0, target,
+                                                             rkfac))
+    out["refused_rehome"] = _raised(lambda: ckpt.rehome_kfac_state(rkfac, st))
+    before = _np({k: st[k] for k in ("factor_shard", "eigen_shard", "eigen_pending_shard")})
+    ckpt.broadcast_state(TrainState(step=0, model=model, opt_state={}, kfac_state=st), w)
+    out["broadcast"] = (before, _np({k: st[k] for k in before}))
+    return out
+
+
+def owner(rank, world, ops=None, runs=None, overlap=None, counts=None, ck=None):
+    """Task of ``tests/test_torch_port_owner.py``: the sections given."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
+
+    w = data_parallel_world()
+    out = {}
+    for key, fn, arg in (("ops", _owner_ops, ops), ("runs", _owner_runs, runs),
+                         ("overlap", _owner_overlap, overlap),
+                         ("counts", _owner_collectives, counts),
+                         ("ck", _owner_checkpoint, ck)):
+        if arg is not None:
+            out[key] = fn(rank, w, arg)
+    return out
+
+
+TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
+         "owner": owner}
