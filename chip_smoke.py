@@ -1418,11 +1418,13 @@ def profile_lm(device):
                                            (("--kfac-update-freq", "0"), [("sgd", 2, 12)])])
 
 
-def lm_expected_launches(hist, model):
+def lm_expected_launches(hist, model, remat=False):
     """What the LM run implies for each counter: token counts on every capture
-    step; one apply launch per shape group and one SGD launch per step;
-    flash forward per layer on every train step and validation batch, its
-    two backward kernels per layer on every train step."""
+    step; one apply launch per shape group (a lens-split QKV projection
+    counts as its ``out/3``-wide splits) and one SGD launch per step;
+    flash forward per layer on every train step (twice under ``--remat``:
+    the recompute) and validation batch, its two backward kernels per layer
+    on every train step."""
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
     from kfac_pytorch_tpu_torch.models.layers import KFACDense
     from kfac_pytorch_tpu_torch.training import data as data_lib
@@ -1433,14 +1435,14 @@ def lm_expected_launches(hist, model):
     val_batches = len(list(data_lib.bptt_batches(val, args.seq_len))) * len(hist["val_loss"])
     steps = len(hist["loss"])
     captures = sum(k != "plain" for k in hist["kind"])
-    groups = len({(m.out_features, m.in_features + 1)
+    groups = len({(m.out_features // m.lens_splits, m.in_features + 1)
                   for m in model.modules() if isinstance(m, KFACDense)})
     layers = len(model.blocks)
     return {
         "token_count": captures,
         "fused_apply": groups * steps,
         "fused_sgd": steps,
-        "flash_forward": layers * (steps + val_batches),
+        "flash_forward": layers * ((2 if remat else 1) * steps + val_batches),
         "flash_dq": layers * steps,
         "flash_dkv": layers * steps,
     }
@@ -4256,6 +4258,383 @@ def owner_phase(device):
             "wikitext2_plan_bytes": plan_bytes, "steps": OWNER_STEPS}
 
 
+# Phase 24 (slice 15): the LM's extras and sequence parallelism.
+LENS_FLAGS = ["--qkv-lens"]
+# (seq_len, batch) of the remat memory figures
+REMAT_MEMORY_CASES = ((2048, 4), (8192, 1))
+# flash backward against float64 at long sequences: T, D, and [B, H]
+FLASH_LONG_T = (4096, 8192)
+FLASH_LONG_D = (64, 128)
+FLASH_LONG_BH = (1, 2)
+FLASH_BWD_TOL = 1e-4
+SEQ_KINDS = ("ring", "ulysses")
+SEQ_STEPS = 12
+SEQ_TIMEOUT_S = 600
+
+
+def lens_phase(device, counters, lm_stats):
+    """Phase 24a: phase 8's LM recipe with ``--qkv-lens`` through the twin
+    (its 38 steps): kernels 2-7 as implied, kernel 3 on 4 shape groups a
+    step; the loss finite and falling; the first ``ORACLE_STEPS`` losses
+    within 1e-3 of the oracle path's with the lens; the capture and
+    refresh step medians beside phase 8's; kernel 3 at the lensed groups
+    against its plain version (``apply_phase``)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    hist, launches = counted(lambda: train_lm(["--epochs", str(LM_EPOCHS), *LENS_FLAGS]), counters)
+    first, last = gate_falling(hist["loss"], "LM --qkv-lens")
+    args = trainer.parse_args([*LM_ARGS, *LENS_FLAGS])
+    model = trainer.build(args, device)[0]
+    expected = lm_expected_launches(hist, model)
+    groups = expected["fused_apply"] // len(hist["loss"])
+    if groups != 4:
+        raise AssertionError(f"LM --qkv-lens: {groups} apply shape groups a step, not 4")
+    expected = {LM_COUNTERS[k]: n for k, n in expected.items()}
+    gate_launches(launches, expected, "LM --qkv-lens")
+    apply_row = apply_phase(model, device)
+    apply_row["launches"] = launches["fused_precondition_stack"]
+    apply_row["launches_per_step"] = apply_row["launches"] / len(hist["loss"])
+    del model
+    torch.cuda.empty_cache()
+    oracle = lm_oracle_losses(device, ORACLE_STEPS, LENS_FLAGS)
+    worst = gate_oracle(hist["loss"], oracle, "LM --qkv-lens", range(ORACLE_STEPS))
+    stats = step_stats(hist, args.batch_size * args.seq_len)
+    print(f"LM --qkv-lens: {groups} apply groups a step; capture step "
+          f"{stats['capture_ms_median']:.2f} ms (phase 8 {lm_stats['capture_ms_median']:.2f}), "
+          f"refresh step {stats['refresh_ms_median']:.2f} ms (phase 8 "
+          f"{lm_stats['refresh_ms_median']:.2f}); first {ORACLE_STEPS} losses within "
+          f"{worst:.2e} of the oracle path", flush=True)
+    return {
+        "flags": LENS_FLAGS, "steps": len(hist["loss"]), "loss_first5": first,
+        "loss_last5": last, "val_loss": hist["val_loss"], "oracle_losses": oracle,
+        "oracle_max_rel_diff": worst, "apply_shape_groups": groups,
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "refresh_step_ms_median": stats["refresh_ms_median"],
+        "phase8_capture_step_ms_median": lm_stats["capture_ms_median"],
+        "phase8_refresh_step_ms_median": lm_stats["refresh_ms_median"],
+        "launches": launches, "expected_launches": expected,
+    }, apply_row
+
+
+def lm_peak_bytes(seq_len, batch, remat):
+    """``torch.cuda.max_memory_allocated`` over a two-step run of the LM
+    twin at ``seq_len`` and ``batch`` (a refresh and a capture step, and
+    the validation), less what was allocated before it. Earlier runs'
+    garbage is collected first: freed during the run, it would hide part
+    of the peak."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_lm(["--seq-len", str(seq_len), "--batch-size", str(batch), "--epochs", "1",
+              "--steps-per-epoch", "2", *(["--remat"] if remat else [])])
+    return torch.cuda.max_memory_allocated() - base
+
+
+def remat_phase(device, counters, lm_hist):
+    """Phase 24b: phase 8's LM recipe with ``--remat`` for its first epoch:
+    every loss within ``RESUME_RTOL`` of phase 8's; kernel 5 twice per
+    layer and training step, kernels 2, 3, 4, 6 and 7 as without remat; the
+    dense A statistics computed once per layer and capture step
+    (``compute_a_dense`` counted); the peak device memory with and without
+    remat at T 2048 and batch 4 and at T 8192 and batch 1; one dropout-0.1
+    step through the model API, remat on and off, bitwise equal
+    gradients."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.models import transformer_lm
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense
+    from kfac_pytorch_tpu_torch.ops import factors
+    from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+    from kfac_pytorch_tpu_torch.training.step import softmax_cross_entropy
+
+    a_calls = [0]
+    real = factors.compute_a_dense
+
+    def counting(*args, **kwargs):
+        a_calls[0] += 1
+        return real(*args, **kwargs)
+
+    factors.compute_a_dense = counting
+    try:
+        hist, launches = counted(lambda: train_lm(["--epochs", "1", "--remat"]), counters)
+    finally:
+        factors.compute_a_dense = real
+    n = len(hist["loss"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(hist["loss"], lm_hist["loss"][:n])]
+    if not max(rel) <= RESUME_RTOL:
+        raise AssertionError(f"LM --remat: losses {hist['loss']} vs phase 8's {lm_hist['loss'][:n]}")
+    args = trainer.parse_args(LM_ARGS)
+    model = trainer.build(args, device)[0]
+    expected = {LM_COUNTERS[k]: v for k, v in lm_expected_launches(hist, model, remat=True).items()}
+    gate_launches(launches, expected, "LM --remat")
+    captures = sum(k != "plain" for k in hist["kind"])
+    dense = sum(isinstance(m, KFACDense) for m in model.modules())
+    if a_calls[0] != captures * dense:
+        raise AssertionError(f"LM --remat: {a_calls[0]} dense A computations, {captures} capture "
+                             f"steps x {dense} dense layers imply {captures * dense}")
+    del model
+    memory = {}
+    for t, b in REMAT_MEMORY_CASES:
+        memory[f"T{t}_B{b}"] = {("remat" if r else "no_remat"): lm_peak_bytes(t, b, r)
+                                for r in (False, True)}
+    # dropout 0.1 through the model API: one forward/backward with remat on
+    # and off from one seed
+    splits, words = data_lib.synthetic_corpus(vocab_size=trainer.SYNTHETIC_VOCAB)
+    toks, tgts = next(data_lib.bptt_batches(
+        data_lib.batchify_tokens(splits["train"], args.batch_size), args.seq_len))
+    x, y = trainer.device_batch(toks, tgts, device)
+    digests = {}
+    for r in (False, True):
+        m = transformer_lm.get_model(
+            len(words), max_len=args.seq_len, d_model=args.d_model, n_heads=args.n_heads,
+            n_layers=args.n_layers, attention_fn=best_attention_fn(device), dropout=0.1,
+            kfac_embedding=True, remat=r, generator=torch.Generator().manual_seed(0)).to(device)
+        m.train()
+        gen = torch.Generator(device=device).manual_seed(7)
+        softmax_cross_entropy(m(x, generator=gen), y).backward()
+        digests["remat" if r else "no_remat"] = tensor_digest([p.grad for p in m.parameters()])
+        del m
+    if digests["remat"] != digests["no_remat"]:
+        raise AssertionError("dropout 0.1: the gradients with remat differ from those without")
+    torch.cuda.empty_cache()
+    bitwise = sum(a == b for a, b in zip(hist["loss"], lm_hist["loss"]))
+    print(f"LM --remat: {bitwise} of {n} losses bitwise phase 8's (max rel "
+          f"{max(rel):.2e}); flash forward {launches['flash_forward']} launches "
+          f"({expected['flash_forward']} implied); {a_calls[0]} dense A computations; peak "
+          + ", ".join(f"{k} {v['no_remat'] / 2**30:.3f} -> {v['remat'] / 2**30:.3f} GiB"
+                      for k, v in memory.items())
+          + "; dropout 0.1 gradients bitwise equal with and without remat", flush=True)
+    return {"steps": n, "losses_max_rel_diff": max(rel), "losses_bitwise": bitwise,
+            "dense_a_computations": a_calls[0], "capture_steps": captures,
+            "dense_layers": dense, "peak_allocated_bytes": memory,
+            "dropout_grad_digests": digests, "launches": launches,
+            "expected_launches": expected}
+
+
+def attention_grads_f64(q, k, v, do, causal):
+    """dQ, dK and dV of causal softmax attention in float64, ``[B, T, H, D]``."""
+    import torch
+
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bthd,bshd->bhts", q, k) * scale
+    if causal:
+        t = q.shape[1]
+        pos = torch.arange(t, device=q.device)
+        s = s.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    out = torch.einsum("bhts,bshd->bthd", p, v)
+    ds = torch.einsum("bthd,bshd->bhts", do, v)
+    ds = p * (ds - (do * out).sum(-1).transpose(1, 2)[..., None])
+    dq = torch.einsum("bhts,bshd->bthd", ds, k) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p, do)
+    return dq, dk, dv
+
+
+def flash_long_phase(device, ptxas):
+    """Phase 24c: kernels 6 and 7 (dQ; dK and dV) at T = 4096 and 8192, D = 64
+    and 128 (causal, [B, H] = ``FLASH_LONG_BH``) against float64: the
+    largest difference over the largest entry, beside the kernels' 1e-4
+    tolerance and beside the float32 plain version's own error; and their
+    registers and spill bytes from ptxas."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+
+    cases = []
+    b, h = FLASH_LONG_BH
+    for t in FLASH_LONG_T:
+        for d in FLASH_LONG_D:
+            q, k, v, do = flash_qkv(device, b, t, h, d, seed=11)
+            out_p, lse_p = fa.flash_forward_plain(q, k, v, True)
+            delta = (do * out_p).sum(dim=-1).transpose(1, 2).contiguous()
+            got = (fa.flash_backward_dq(q, k, v, do, lse_p, delta, True),
+                   *fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True))
+            plain = fa.flash_backward_plain(q, k, v, do, lse_p, delta, True)
+            ref = attention_grads_f64(q, k, v, do, True)
+            names = ("dq", "dk", "dv")
+            err = {n: scaled_err(g.double(), r)[1] for n, g, r in zip(names, got, ref)}
+            plain_err = {n: scaled_err(g.double(), r)[1] for n, g, r in zip(names, plain, ref)}
+            cases.append({"shape": [b, t, h, d], "causal": True, "rel_err_vs_float64": err,
+                          "plain_rel_err_vs_float64": plain_err,
+                          "within_tolerance": max(err.values()) <= FLASH_BWD_TOL})
+            del q, k, v, do, out_p, lse_p, delta, got, plain, ref
+            torch.cuda.empty_cache()
+    spills = {fn: {"registers": v[0], "spill_store_bytes": v[1]} for fn, v in ptxas.items()
+              if "flash_dq" in fn or "flash_dkv" in fn}
+    worst = max(max(c["rel_err_vs_float64"].values()) for c in cases)
+    print(f"flash backward vs float64 at T {FLASH_LONG_T}, D {FLASH_LONG_D}: worst "
+          f"{worst:.3e} of the largest entry (tolerance {FLASH_BWD_TOL}); spills "
+          + ", ".join(f"{v['spill_store_bytes']} B" for v in spills.values()), flush=True)
+    return {"cases": cases, "worst_rel_err": worst, "tolerance": FLASH_BWD_TOL,
+            "error": "max |kernel - float64| / max |float64| per tensor",
+            "ptxas": spills}
+
+
+def seq_worker(rank, store, out_path, steps, device_name, argv, kinds):
+    """One rank of phase 24d (``torch.multiprocessing`` target): for each
+    attention kind, the LM twin's ``build`` with ``argv`` and
+    ``--seq-parallel 2 --attention <kind>`` on ``cuda:0``, gloo (NCCL
+    refuses two ranks on one device), ``steps`` steps through the refresh
+    cadence on this rank's positions, counted, the parameters' digest and
+    the step's milliseconds after each; then one capture step profiled for
+    the collectives' host time. Writes JSON to ``out_path-<rank>.json``."""
+    import itertools
+
+    import torch
+
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.device import use_ieee_f32
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+    from kfac_pytorch_tpu_torch.parallel import launch
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_seq_world
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step, step_kind
+
+    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                               rank=rank, world_size=2)
+    counters = (fk.compute_a_embed_fused, ak.fused_precondition_stack, ak.fused_sgd_apply,
+                fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    try:
+        use_ieee_f32()
+        runs = {}
+        for kind in kinds:
+            args = trainer.parse_args([*argv, "--seq-parallel", "2", "--attention", kind])
+            trainer.check_world(args, data_parallel_world())
+            world = data_seq_world(args.seq_parallel, device)
+            model, kfac, state, step_fn, splits = trainer.build(args, device, world=world)
+            stream = trainer.rank_rows(splits["train"], args, world)
+            batches = [trainer.device_batch(x, y, device) for x, y in
+                       itertools.islice(trainer.rank_segments(stream, args, world), steps + 1)]
+            cadence = EigenRefreshCadence(kfac)
+            zero_counts(counters)
+            losses, step_kinds, step_ms, digests = [], [], [], []
+            for i in range(steps):
+                flags = cadence.flags_for_step(i, 0)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping, **flags)
+                losses.append(float(m["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                step_kinds.append(step_kind(flags))
+                digests.append(tensor_digest(list(model.parameters())))
+            launches = read_counts(counters)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                state, m = step_fn(state, batches[steps], args.base_lr, kfac.hparams.damping,
+                                   **kfac_flags_for_step(steps + 1, kfac, 0))
+                float(m["loss"])
+            ops = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                   if e.key.startswith("gloo:")}
+            if not ops:
+                ops = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                       if e.key.startswith("c10d::")}
+            groups = len({(m_.out_features // m_.lens_splits, m_.in_features + 1)
+                          for m_ in model.modules() if isinstance(m_, KFACDense)})
+            captures = sum(k != "plain" for k in step_kinds)
+            runs[kind] = {
+                "losses": losses, "kinds": step_kinds, "step_ms": step_ms, "digests": digests,
+                "launches": launches,
+                "expected_launches": {
+                    "compute_a_embed_fused": captures, "fused_precondition_stack": groups * steps,
+                    "fused_sgd_apply": steps, "flash_forward": 0, "flash_backward_dq": 0,
+                    "flash_backward_dkv": 0},
+                "capture_step_collectives_ms": sum(ops.values()), "collective_ops": ops,
+                "seq_slot": world.seq_slot, "seq_staged": world.seq_staged,
+                "local_positions": batches[0][0].shape[1],
+            }
+            del model, kfac, state, step_fn, batches
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump({"rank": rank, "backend": torch.distributed.get_backend(), "runs": runs}, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def seq_ranks(device, argv=LM_ARGS):
+    """Phase 24d's two ranks (:func:`seq_worker`): their results."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_seq_") as tmp:
+        ctx = mp.spawn(seq_worker, args=(f"{tmp}/store", f"{tmp}/rank", SEQ_STEPS, str(device),
+                                         list(argv), list(SEQ_KINDS)),
+                       nprocs=2, join=False)
+        deadline = time.monotonic() + SEQ_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the two ranks did not finish in {SEQ_TIMEOUT_S} s")
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank-{r}.json") as fh:
+                ranks.append(json.load(fh))
+    return ranks
+
+
+def seq_parallel_phase(ranks, oracle, argv=LM_ARGS):
+    """Phase 24d: two ranks on the one card train phase 8's LM recipe with
+    ``--seq-parallel 2`` (T 2048, 1024 positions a rank), ring and Ulysses
+    attention, ``SEQ_STEPS`` steps with a refresh: kernels 2-4 launch in
+    each rank as implied and kernels 5-7 never (no flash kernel under
+    sequence parallelism, as in the JAX package); the parameters' digests
+    equal on both ranks after every step; the first ``ORACLE_STEPS`` losses
+    within 1e-3 of one process training the same global batch with full
+    attention (phase 9's oracle path); step medians by kind and the
+    collectives' host milliseconds per capture step. ``ranks`` are
+    :func:`seq_ranks`' results."""
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    args = trainer.parse_args(argv)  # one data slot: the global batch is one rank's rows
+    out = {"ranks": ranks, "steps": SEQ_STEPS, "one_process_full_attention_losses": oracle}
+    for kind in SEQ_KINDS:
+        runs = [r["runs"][kind] for r in ranks]
+        for r, run in zip(ranks, runs):
+            for name, n in run["expected_launches"].items():
+                if run["launches"][name] != n:
+                    raise AssertionError(f"--attention {kind}, rank {r['rank']}: {name} launched "
+                                         f"{run['launches'][name]} times, the run implies {n}")
+        if runs[0]["digests"] != runs[1]["digests"]:
+            raise AssertionError(f"--attention {kind}: the ranks' parameters differ")
+        if runs[0]["losses"] != runs[1]["losses"]:
+            raise AssertionError(f"--attention {kind}: the ranks' losses differ")
+        if "refresh" not in runs[0]["kinds"][1:]:
+            raise AssertionError(f"--attention {kind}: no refresh after step 0")
+        worst = gate_oracle(runs[0]["losses"], oracle, f"--seq-parallel 2 --attention {kind}",
+                            range(ORACLE_STEPS))
+        stats = step_stats({"step_ms": runs[0]["step_ms"], "kind": runs[0]["kinds"]},
+                           args.batch_size * args.seq_len)
+        out[kind] = {"max_rel_diff_vs_one_process": worst,
+                     "capture_step_ms_median": stats.get("capture_ms_median"),
+                     "refresh_step_ms_median": stats.get("refresh_ms_median"),
+                     "tokens_per_s": stats["per_s"],
+                     "capture_step_collectives_ms": [r["capture_step_collectives_ms"] for r in runs]}
+        print(f"--seq-parallel 2 --attention {kind} (two ranks, gloo): kernels 2-4 as implied, "
+              f"5-7 never; digests equal every step; first {ORACLE_STEPS} losses within "
+              f"{worst:.2e} of one process; capture step {out[kind]['capture_step_ms_median']:.1f} "
+              f"ms, refresh {out[kind]['refresh_step_ms_median']:.1f} ms; collectives "
+              f"{runs[0]['capture_step_collectives_ms']:.1f} ms per capture step (rank 0's host "
+              "time)", flush=True)
+    return out
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -4776,7 +5155,36 @@ def main() -> int:
                                                for r in owner["ranks"]]
                 for name, _, _ in OWNER_RUNS}}
 
-    # 24. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 24a-e. this slice: the LM's extras (the QKV expand lens, remat,
+    # dropout) and sequence parallelism on two ranks of the one card, each
+    # path with the counters zeroed just before; flash backward's error at
+    # long sequences
+    mark("24a. LM --qkv-lens")
+    lens, lens_apply = lens_phase(device, all_counted, lm_stats)
+    print(json.dumps({"lm_qkv_lens": lens}), flush=True)
+    report([lens_apply])
+    mark("24b. LM --remat, dropout")
+    remat = remat_phase(device, all_counted, lm_hist)
+    print(json.dumps({"lm_remat": remat}), flush=True)
+    mark("24c. flash backward at T = 4096 and 8192")
+    flash_long = flash_long_phase(device, ptxas)
+    print(json.dumps({"flash_backward_long": flash_long}), flush=True)
+    mark("24d. two ranks: --seq-parallel 2, ring and Ulysses")
+    seq = seq_parallel_phase(seq_ranks(device), oracle)
+    print(json.dumps({"two_ranks_seq_parallel": seq}), flush=True)
+    # 24e. every kernel's launches on this slice's paths
+    for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
+                   (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
+                   (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice15_paths"] = {
+            "lm_qkv_lens": lens["launches"][key], "lm_remat": remat["launches"][key], **{
+                f"lm_seq_parallel_{kind}_per_rank": [r["runs"][kind]["launches"][key]
+                                                     for r in seq["ranks"]]
+                for kind in SEQ_KINDS}}
+    lm_apply["lm_qkv_lens"] = lens_apply
+
+    mark("25. results")
+    # 25. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

@@ -30,6 +30,19 @@ per group, its weight gradient is sliced along the OIHW output axis, and
 :func:`write_back` reassembles the groups. Everything downstream treats the
 groups as ordinary same-shape layers.
 
+An expand-lens dense layer (``KFACDense(lens_splits=S)``, the fused QKV
+projection) is S pseudo-layers ``path#s0 … path#s{S-1}`` (JAX
+``capture.SPLIT_SEP``): they share the layer's one A statistic, computed
+once and stored under each of them, while each takes its G from its
+``out/S`` column slice of the output gradient. A split partitions the
+OUT side only: rows of the ``[out, in]`` weight here (columns of flax's
+``[in, out]`` kernel), and :func:`write_back` stacks the S updates back.
+
+Under ``remat`` the transformer recomputes each block's forward in the
+backward pass (``models.layers.recomputing``): the hooks stay inert
+there, so each A is computed once per capture step and each G comes from
+the hook registered in the first forward, whose outputs stay in the graph.
+
 A tied head (``KFACEmbed.attend``, the decoder reusing the embedding table)
 is a method call, which no forward hook sees: the embedding's attend hook
 hands its statistics over explicitly, and the shared table keeps ONE factor
@@ -51,7 +64,7 @@ from typing import Collection, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense, KFACEmbed
+from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense, KFACEmbed, in_recompute
 from kfac_pytorch_tpu_torch.ops import factor_kernels, factors
 
 KFAC_LAYERS = (KFACConv, KFACDense, KFACEmbed)
@@ -59,37 +72,71 @@ KFAC_LAYERS = (KFACConv, KFACDense, KFACEmbed)
 # Grouped-conv pseudo-layer suffix: "path#g3" is group 3 of the grouped conv
 # at "path". "#" cannot appear in a module path.
 GROUP_SEP = "#g"
+# Expand-lens pseudo-layer suffix: "path#s1" is column slice 1 of the
+# lens-split dense layer at "path".
+SPLIT_SEP = "#s"
+
+
+def _split_name(name: str, sep: str) -> Tuple[str, Optional[int]]:
+    base, s, idx = name.rpartition(sep)
+    if not s:
+        return name, None
+    return base, int(idx)
 
 
 def split_group_name(name: str) -> Tuple[str, Optional[int]]:
     """``"path#g3" -> ("path", 3)``; ungrouped ``"path" -> ("path", None)``."""
-    base, sep, idx = name.rpartition(GROUP_SEP)
-    if not sep:
-        return name, None
-    return base, int(idx)
+    return _split_name(name, GROUP_SEP)
+
+
+def split_lens_name(name: str) -> Tuple[str, Optional[int]]:
+    """``"path#s2" -> ("path", 2)``; unsplit ``"path" -> ("path", None)``."""
+    return _split_name(name, SPLIT_SEP)
+
+
+def layer_base(name: str) -> str:
+    """The module path of a layer name, any ``#gK``/``#sK`` suffix stripped."""
+    return split_lens_name(split_group_name(name)[0])[0]
+
+
+def _counts(names: List[str], split) -> Dict[str, int]:
+    counts: Dict[str, int] = {}
+    for n in names:
+        base, i = split(n)
+        if i is not None:
+            counts[base] = max(counts.get(base, 0), i + 1)
+    return counts
 
 
 def group_counts(names: List[str]) -> Dict[str, int]:
     """``{base_path: G}`` for every grouped base present in ``names`` (one
     pass: G is the highest group index + 1)."""
-    counts: Dict[str, int] = {}
-    for n in names:
-        base, gi = split_group_name(n)
-        if gi is not None:
-            counts[base] = max(counts.get(base, 0), gi + 1)
-    return counts
+    return _counts(names, split_group_name)
+
+
+def lens_counts(names: List[str]) -> Dict[str, int]:
+    """``{base_path: S}`` for every lens-split base present in ``names``."""
+    return _counts(names, split_lens_name)
+
+
+def pseudo_layers(name: str, module: nn.Module) -> List[str]:
+    """The K-FAC layer names of the module at ``name``: a grouped conv's
+    ``path#gK``, a lens-split dense layer's ``path#sK``, else ``[name]``."""
+    if isinstance(module, KFACConv) and module.groups > 1:
+        return [f"{name}{GROUP_SEP}{k}" for k in range(module.groups)]
+    if isinstance(module, KFACDense) and module.lens_splits > 1:
+        return [f"{name}{SPLIT_SEP}{k}" for k in range(module.lens_splits)]
+    return [name]
 
 
 def discover_layers(model: nn.Module) -> List[str]:
     """Names of every K-FAC layer of ``model``, in module order; a grouped
-    conv contributes its ``G`` pseudo-layers ``path#g0 … path#g{G-1}``."""
-    names = []
-    for n, m in model.named_modules():
-        if isinstance(m, KFACConv) and m.groups > 1:
-            names.extend(f"{n}{GROUP_SEP}{k}" for k in range(m.groups))
-        elif isinstance(m, KFAC_LAYERS):
-            names.append(n)
-    return names
+    conv contributes its ``G`` pseudo-layers ``path#g0 … path#g{G-1}``, a
+    lens-split dense layer its ``S`` pseudo-layers ``path#s0 …``."""
+    return [
+        p for n, m in model.named_modules() if isinstance(m, KFAC_LAYERS)
+        for p in pseudo_layers(n, m)
+    ]
 
 
 class Capture:
@@ -108,16 +155,18 @@ class Capture:
         batch_averaged: bool = True,
     ):
         names = list(layers) if layers is not None else discover_layers(model)
-        bases = list(dict.fromkeys(split_group_name(n)[0] for n in names))
+        bases = list(dict.fromkeys(layer_base(n) for n in names))
         self.modules = {n: model.get_submodule(n) for n in bases}
         self.groups = group_counts(names)
+        self.lenses = lens_counts(names)
+        listed = set(names)
         for base, m in self.modules.items():
-            want = m.groups if isinstance(m, KFACConv) and m.groups > 1 else 0
-            if self.groups.get(base, 0) != want:
+            if not set(pseudo_layers(base, m)) <= listed:
                 raise ValueError(
                     f"K-FAC layer {base!r}: list a grouped conv as all of its "
-                    f"pseudo-layers '{base}{GROUP_SEP}K', any other layer by "
-                    "its module path"
+                    f"pseudo-layers '{base}{GROUP_SEP}K', a lens-split dense "
+                    f"layer as all of its '{base}{SPLIT_SEP}K', any other "
+                    "layer by its module path"
                 )
         self.batch_averaged = batch_averaged
         self.a_contribs: Dict[str, torch.Tensor] = {}
@@ -149,7 +198,7 @@ class Capture:
         self._handles = []
 
     def _forward_hook(self, name, module, inputs, output):
-        if self._kind is None:
+        if self._kind is None or in_recompute():
             return
         with torch.no_grad():
             x = inputs[0].detach()
@@ -180,6 +229,8 @@ class Capture:
                 )
             else:
                 a = factors.compute_a_dense(x.float(), module.bias is not None)
+                if name in self.lenses:  # one A, shared by the S splits
+                    a = [a] * self.lenses[name]
         self._store(self.a_contribs, name, a)
         if output.requires_grad:
             output.register_hook(
@@ -210,14 +261,18 @@ class Capture:
             self.a_contribs[name] = self.a_contribs[name] + diag
 
     def _store(self, stats, name, stat):
-        """One entry per layer; a grouped conv's ``[G, d, d]`` stack is
-        stored per pseudo-layer."""
+        """One entry per layer; a grouped conv's ``[G, d, d]`` stack, and a
+        lens-split layer's list of S statistics, are stored per
+        pseudo-layer."""
         n_groups = self.groups.get(name)
-        if n_groups is None:
+        if n_groups is not None:
+            for k in range(n_groups):
+                stats[f"{name}{GROUP_SEP}{k}"] = stat[k]
+        elif name in self.lenses:
+            for k, part in enumerate(stat):
+                stats[f"{name}{SPLIT_SEP}{k}"] = part
+        else:
             stats[name] = stat
-            return
-        for k in range(n_groups):
-            stats[f"{name}{GROUP_SEP}{k}"] = stat[k]
 
     def _grad_hook(self, name, is_conv, grad):
         with torch.no_grad():
@@ -228,6 +283,11 @@ class Capture:
                 )
             elif is_conv:
                 stat = factors.compute_g_conv(g, self.batch_averaged)
+            elif name in self.lenses:  # each split's G from its column slice
+                stat = [
+                    factors.compute_g_dense(part, self.batch_averaged)
+                    for part in g.chunk(self.lenses[name], dim=-1)
+                ]
             else:
                 stat = factors.compute_g_dense(g, self.batch_averaged)
                 if name in self._g_tied:  # the tied head's query covariance
@@ -245,14 +305,17 @@ def layer_grads(
     layers in ``embeddings`` give ``{'embedding': [vocab, d] table grad}``.
     A grouped conv's pseudo-layer ``path#gK`` gets group K's slice of the
     OIHW weight's output axis (dim 0; the input axis is already per group)
-    and of the bias."""
-    counts = group_counts(names)
+    and of the bias; a lens split ``path#sK`` its slice of the ``[out, in]``
+    weight's rows and of the bias."""
+    counts = {**group_counts(names), **lens_counts(names)}
     out = {}
     for name in names:
         if name in embeddings:
             out[name] = {"embedding": grads[f"{name}.weight"]}
             continue
         base, gi = split_group_name(name)
+        if gi is None:
+            base, gi = split_lens_name(name)
         weight, bias = grads[f"{base}.weight"], grads.get(f"{base}.bias")
         if gi is not None:
             co_g = weight.shape[0] // counts[base]
@@ -281,16 +344,20 @@ def write_back(
 ) -> Dict[str, torch.Tensor]:
     """A new gradient dict with every K-FAC layer's ν-scaled preconditioned
     matrix scattered back (an embedding's ``[d, vocab]`` matrix back to its
-    ``[vocab, d]`` table, a grouped conv's per-group matrices stacked back
-    along the weight's output axis); other entries (BatchNorm, LayerNorm,
-    position embeddings) pass through untouched. A grouped conv must bring
-    every one of its groups."""
+    ``[vocab, d]`` table, a grouped conv's per-group matrices, and a lens
+    split's per-split ones, stacked back along the weight's output axis);
+    other entries (BatchNorm, LayerNorm, position embeddings) pass through
+    untouched. A grouped or lens-split layer must bring every one of its
+    parts."""
     out = dict(grads)
     grouped: Dict[str, Dict[int, torch.Tensor]] = {}
+    seps: Dict[str, str] = {}
     for name, mat in updates.items():
-        base, gi = split_group_name(name)
+        sep = GROUP_SEP if GROUP_SEP in name else SPLIT_SEP
+        base, gi = _split_name(name, sep)
         if gi is not None:
             grouped.setdefault(base, {})[gi] = mat
+            seps[base] = sep
             continue
         weight = grads[f"{name}.weight"]
         if name in embeddings:
@@ -304,17 +371,19 @@ def write_back(
     for base, parts in grouped.items():
         n_groups = max(parts) + 1
         if len(parts) != n_groups:
+            kind, what = (("grouped", "groups") if seps[base] == GROUP_SEP
+                          else ("lens-split", "splits"))
             raise ValueError(
-                f"grouped layer {base!r}: updates carry {len(parts)} of "
-                f"{n_groups} groups; keep all '{GROUP_SEP}K' entries of a "
-                "grouped layer together"
+                f"{kind} layer {base!r}: updates carry {len(parts)} of "
+                f"{n_groups} {what}; keep all '{seps[base]}K' entries of a "
+                f"{kind} layer together"
             )
         weight = grads[f"{base}.weight"]
         has_bias = f"{base}.bias" in grads
-        # [G, out/G, a]: group k's rows are output channels k·out/G … in order
+        # [G, out/G, a]: part k's rows are output channels k·out/G … in order
         mats = torch.stack([parts[k] for k in range(n_groups)]) * nu
         if has_bias:
-            out[f"{base}.bias"] = mats[..., -1].reshape(-1).to(grads[f"{base}.bias"].dtype)
+            out[f"{base}.bias"] = mats[..., -1].reshape(-1).contiguous().to(grads[f"{base}.bias"].dtype)
             mats = mats[..., :-1]
         out[f"{base}.weight"] = mats.reshape(weight.shape).contiguous().to(weight.dtype)
     return out

@@ -1,9 +1,11 @@
 """Transformer-LM training with K-FAC on one GPU or data-parallel (PyTorch port).
 
-Twin of the JAX package's ``examples/train_transformer_lm.py`` on its pure
-data-parallel mesh: the same flags with the same defaults for what the
-port carries (model widths, SGD with global-norm clipping, K-FAC with an
-optional diagonal-A token embedding, the tied head ``--tie-embeddings``), the same
+Twin of the JAX package's ``examples/train_transformer_lm.py`` on its
+data-parallel and data×seq meshes: the same flags with the same defaults
+for what the port carries (model widths, SGD with global-norm clipping,
+K-FAC with an optional diagonal-A token embedding, the tied head
+``--tie-embeddings``, the QKV expand lens ``--qkv-lens``, ``--remat``,
+sequence parallelism ``--seq-parallel N --attention ring|ulysses``), the same
 data (WikiText token files from ``--data-dir``, else the synthetic
 corpus), BPTT segments,
 K-FAC gating (every step's flags from ``scheduler.EigenRefreshCadence``:
@@ -28,12 +30,26 @@ every rank starts from rank 0's state, rank 0 prints, logs and writes
 checkpoints, and validation runs each rank's rows, averaged over the
 ranks.
 
+``--seq-parallel N`` makes the world data×seq
+(``parallel.mesh.data_seq_world``, the JAX trainer's ``("data", "seq")``
+mesh): rank ``r`` is data slot ``r // N`` and seq slot ``r % N``, the
+global batch is ``--batch-size`` times the ``world / N`` data slots, and
+each rank trains its data slot's rows cut to its slot's
+``--seq-len / N`` positions, attention running as ring or Ulysses over
+the slot's seq subgroup (``parallel/context.py``; at ``--seq-parallel 1``
+the flash kernels). The levers that ride one data axis
+(``--factor-sharding owner``, ``--factor-comm-dtype``/``--factor-comm-freq``,
+``--comm-overlap``, ``--grad-comm-dtype``) are refused there, with the JAX
+trainer's messages.
+
     python -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --d-model 512 --n-heads 8 --n-layers 4 --seq-len 2048 \\
         --batch-size 4 --kfac-embedding --epochs 2
     torchrun --nproc-per-node 2 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --kfac-embedding --factor-comm-dtype bf16 \\
         --factor-comm-freq 2 --grad-comm-dtype bf16
+    torchrun --nproc-per-node 2 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
+        --synthetic --kfac-embedding --seq-parallel 2 --attention ulysses
 
 Attention runs the CUDA flash kernels on a GPU
 (``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
@@ -56,6 +72,7 @@ import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
+from kfac_pytorch_tpu_torch.preconditioner import seq_axis_violations
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_factor_comm_flags,
@@ -71,8 +88,8 @@ from kfac_pytorch_tpu_torch.models import transformer_lm
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
 from kfac_pytorch_tpu_torch.parallel import launch
-from kfac_pytorch_tpu_torch.parallel.context import full_attention
-from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world
+from kfac_pytorch_tpu_torch.parallel.context import full_attention, make_context_parallel_attention
+from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, data_seq_world, local_seq
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
@@ -91,13 +108,9 @@ SYNTHETIC_VOCAB = 1000
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--seq-parallel", int, 1, "8 (sequence parallelism)"),
-    ("--tensor-parallel", int, 1, "8 (shardwise/)"),
-    ("--fsdp", int, 0, "8 (shardwise/)"),
-    ("--moe-experts", int, 0, "8 (shardwise/)"),
-    ("--attention", str, "ring", "8 (sequence parallelism)"),
-    ("--remat", None, False, "8"),
-    ("--qkv-lens", None, False, "8 (expand lens)"),
+    ("--tensor-parallel", int, 1, "8b (shardwise/)"),
+    ("--fsdp", int, 0, "8b (shardwise/)"),
+    ("--moe-experts", int, 0, "8b (shardwise/)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--autotune-steps", int, 0, "9 (planner/)"),
@@ -136,6 +149,19 @@ def parse_args(argv=None):
                         "x @ Wᵀ); with --kfac-embedding the tied table gets "
                         "ONE set of K-FAC statistics over both use sites "
                         "(reduce lens)")
+    p.add_argument("--qkv-lens", action="store_true",
+                   help="expand-lens K-FAC on each block's fused QKV projection: "
+                        "three d_model-side G factors (q/k/v column slices) "
+                        "instead of one 3*d_model-side factor — ~9x lighter "
+                        "eigendecompositions (arxiv 2311.00636)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize each block in the backward pass "
+                        "(torch.utils.checkpoint): activation memory for "
+                        "long sequences, same math")
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="sequence-parallel axis size (data x seq world)")
+    p.add_argument("--attention", default="ring", choices=["ring", "ulysses"],
+                   help="sequence-parallel attention kind (with --seq-parallel > 1)")
     p.add_argument("--kfac-update-freq", type=int, default=10, help="0 disables K-FAC")
     p.add_argument("--kfac-cov-update-freq", type=int, default=1)
     p.add_argument("--stat-decay", type=float, default=0.95)
@@ -182,6 +208,19 @@ def parse_args(argv=None):
         else:
             p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    sp = args.seq_parallel
+    if sp > 1 and args.tensor_parallel > 1:
+        raise SystemExit(
+            "--seq-parallel and --tensor-parallel are separate second mesh "
+            "axes; pick one"
+        )
+    if args.fsdp >= 1 and sp > 1:
+        raise SystemExit(
+            "--fsdp builds the 3-D data×fsdp×tensor mesh; it does not "
+            "compose with --seq-parallel"
+        )
+    if args.seq_len % sp != 0:
+        raise SystemExit(f"--seq-len {args.seq_len} must be divisible by --seq-parallel {sp}")
     for flag, _, default, item in _LATER_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) != default:
             raise SystemExit(
@@ -222,10 +261,44 @@ def load_corpus(args):
 
 
 def rank_rows(split, args, world: World):
-    """This rank's rows of a split's ``[batch-size × world, N]`` stream:
-    the JAX trainer's per-process contiguous row block."""
-    stream = data_lib.batchify_tokens(split, args.batch_size * world.size)
-    return stream[world.rank * args.batch_size:(world.rank + 1) * args.batch_size]
+    """This rank's rows of a split's ``[batch-size × data slots, N]``
+    stream: its data slot's contiguous row block (the JAX trainer's
+    per-process block; the seq slots of one data slot share it)."""
+    stream = data_lib.batchify_tokens(split, args.batch_size * world.data_size)
+    d = world.data_slot
+    return stream[d * args.batch_size:(d + 1) * args.batch_size]
+
+
+def rank_segments(stream, args, world: World):
+    """The BPTT segments of ``stream``, each cut to this rank's seq slot's
+    positions."""
+    cols = local_seq(args.seq_len, world)
+    for toks, tgts in data_lib.bptt_batches(stream, args.seq_len):
+        yield toks[:, cols], tgts[:, cols]
+
+
+def check_world(args, world: World) -> None:
+    """The JAX trainer's checks of a data×seq world and of the levers it
+    refuses there."""
+    sp = args.seq_parallel
+    if world.size % sp != 0:
+        raise SystemExit(f"--seq-parallel {sp} must divide device count {world.size}")
+    bad = seq_axis_violations(
+        world.size, sp, factor_sharding=args.factor_sharding,
+        factor_comm_dtype=args.factor_comm_dtype, factor_comm_freq=args.factor_comm_freq,
+        comm_overlap=args.comm_overlap,
+    )
+    if bad:
+        raise SystemExit(
+            "invalid K-FAC lever composition:\n"
+            + "\n".join(f"  [{name}] {msg}" for name, msg in bad)
+        )
+    if args.grad_comm_dtype and sp > 1:
+        raise SystemExit(
+            "--grad-comm-dtype requires a pure data-parallel mesh "
+            "(--seq-parallel 1): a sequence axis would make the per-device "
+            "local forward see a partial example"
+        )
 
 
 def build(args, device: torch.device, oracle: bool = False, world: World = World()):
@@ -234,14 +307,20 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
     ``--kfac-update-freq 0``), the train state, the train step and the
     corpus. ``oracle=True`` builds the oracle path instead — exact
     attention and the dense factor and apply routes — which the JAX
-    trainer has no flag for."""
+    trainer has no flag for. Over a seq axis the attention is the
+    sequence-parallel one either way."""
     splits, words = load_corpus(args)
+    if world.seq_size > 1:
+        attention_fn = make_context_parallel_attention(world, args.attention)
+    else:
+        attention_fn = full_attention if oracle else best_attention_fn(device)
     model = transformer_lm.get_model(
         len(words), max_len=args.seq_len, d_model=args.d_model,
-        n_heads=args.n_heads, n_layers=args.n_layers,
-        attention_fn=full_attention if oracle else best_attention_fn(device),
-        kfac_embedding=args.kfac_embedding, tie_embeddings=args.tie_embeddings,
+        n_heads=args.n_heads, n_layers=args.n_layers, attention_fn=attention_fn,
+        kfac_embedding=args.kfac_embedding, qkv_lens=args.qkv_lens,
+        tie_embeddings=args.tie_embeddings, remat=args.remat,
         generator=torch.Generator().manual_seed(args.seed),
+        seq_shards=world.seq_size, seq_index=world.seq_slot,
     ).to(device)
     tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
     kfac = None
@@ -260,6 +339,7 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
             apply_kernel="dense" if oracle else args.apply_kernel,
             device=device,
             process_group=world.group,
+            seq_parallel=world.seq_size,
         )
     state = TrainState(
         step=0,
@@ -283,9 +363,11 @@ def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
     device = launch.initialize(args.device)
     use_ieee_f32()
-    world = data_parallel_world()
-    global_bs = args.batch_size * world.size
-    rank0_print(f"devices={world.size} global_batch={global_bs} seq_len={args.seq_len}")
+    check_world(args, data_parallel_world())
+    world = data_seq_world(args.seq_parallel, device)
+    global_bs = args.batch_size * world.data_size
+    rank0_print(f"mesh data={world.data_size} fsdp=0 seq={world.seq_size} tensor=1 "
+                f"global_batch={global_bs} seq_len={args.seq_len}")
     model, kfac, state, train_step, splits = build(args, device, world=world)
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "restore_ms": [],
@@ -325,7 +407,7 @@ def main(argv=None) -> Dict[str, List]:
         t0 = time.perf_counter()
         loss_m = Metric("train/loss")
         diag: Dict[str, List[float]] = {}
-        for i, (toks, tgts) in enumerate(data_lib.bptt_batches(stream, args.seq_len)):
+        for i, (toks, tgts) in enumerate(rank_segments(stream, args, world)):
             if i >= steps_per_epoch:
                 break
             flags = cadence.flags_for_step(step, epoch)
@@ -371,7 +453,7 @@ def main(argv=None) -> Dict[str, List]:
         val = rank_rows(splits["valid"], args, world)
         vl = [
             float(eval_step(state, device_batch(toks, tgts, device))["loss"])
-            for toks, tgts in data_lib.bptt_batches(val, args.seq_len)
+            for toks, tgts in rank_segments(val, args, world)
         ]
         if vl:
             v = ranks_mean(sum(vl) / len(vl), world, device)

@@ -14,7 +14,8 @@ the flax ``CifarResNet`` become the port's ``state_dict``:
 :func:`lm_state_dict_from_jax` does the same for the flax ``TransformerLM``
 (``models/transformer_lm.py``): ``block_{i}`` → ``blocks.{i}``, ``Dense``
 kernels ``[in, out]`` → ``[out, in]``, ``Embed``/``KFACEmbed`` tables
-unchanged, LayerNorm ``scale`` → ``weight``.
+unchanged, LayerNorm ``scale`` → ``weight``; :func:`lm_layer_name_from_jax`
+maps its K-FAC layer names, the expand lens's ``#sK`` included.
 
 :func:`imagenet_state_dict_from_jax` is the inverse of
 ``kfac_pytorch_tpu/torch_interop.py::convert_state_dict`` for the flax
@@ -123,6 +124,14 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Te
     if "decoder" in params:  # a tied model's head is the token table
         _put_dense(sd, "decoder", params["decoder"])
     return sd
+
+
+def lm_layer_name_from_jax(name: str) -> str:
+    """A JAX transformer-LM K-FAC layer name → the port's: ``block_{i}`` →
+    ``blocks.{i}``, ``/`` → ``.``; a pseudo-layer suffix (``#sK`` of the
+    QKV expand lens) is kept (``"block_0/qkv#s1"`` → ``"blocks.0.qkv#s1"``)."""
+    path, sep, suffix = name.partition("#")
+    return path.replace("block_", "blocks.").replace("/", ".") + sep + suffix
 
 
 # stage layouts of the ImageNet zoo (the port's models/imagenet_resnet.py)

@@ -12,17 +12,41 @@ and backward hooks to them — the reference's own design.
 the input and the weight are cast to it for the product, as flax's
 ``promote_dtype`` does, while the parameters stay float32 master weights
 and their gradients float32. ``None`` computes in the input's type.
+
+:func:`recomputing` marks a rematerialized forward (the transformer's
+``remat``, ``torch.utils.checkpoint``'s recompute in the backward pass):
+``capture.py``'s hooks stay inert inside it, since the first forward
+already gave the statistics.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.hooks import RemovableHandle
+
+
+_RECOMPUTE_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """The block inside recomputes a forward that already ran."""
+    _RECOMPUTE_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE_DEPTH[0] -= 1
+
+
+def in_recompute() -> bool:
+    """Whether a :func:`recomputing` block is open."""
+    return _RECOMPUTE_DEPTH[0] > 0
 
 
 class KFACConv(nn.Conv2d):
@@ -58,11 +82,26 @@ class KFACConv(nn.Conv2d):
 
 
 class KFACDense(nn.Linear):
-    """Dense layer (``y = x Wᵀ + b``) that K-FAC preconditions."""
+    """Dense layer (``y = x Wᵀ + b``) that K-FAC preconditions.
 
-    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+    ``lens_splits = S > 1`` turns on the expand Kronecker lens for a fused
+    multi-head projection (one ``[3m, m]`` QKV matmul): ``capture.py``
+    expands the layer into S pseudo-layers ``path#s0 … path#s{S-1}``, each
+    with the shared input-side A factor and the G factor of its
+    ``out/S``-wide slice of the output (arxiv 2311.00636, "expand"). The
+    forward matmul stays fused; only the curvature model splits.
+    """
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 lens_splits: int = 1, **kwargs):
         super().__init__(*args, **kwargs)
+        if lens_splits > 1 and self.out_features % lens_splits:
+            raise ValueError(
+                f"lens_splits={lens_splits} must divide "
+                f"features={self.out_features}"
+            )
         self.compute_dtype = compute_dtype
+        self.lens_splits = lens_splits
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:

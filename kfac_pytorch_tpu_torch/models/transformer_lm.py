@@ -1,38 +1,59 @@
 """Decoder-only transformer LM with K-FAC layers and pluggable attention.
 
 Port of ``kfac_pytorch_tpu/models/transformer_lm.py`` (``TransformerBlock``,
-``TransformerLM``, ``get_model``) for the dense-MLP, no-lens, no-remat
-subset, tied or untied, with the flax model's module names (``tok_embed``,
-``pos_embed``, ``blocks.{i}`` for ``block_{i}``, ``ln_attn``, ``qkv``,
-``out``, ``ln_mlp``, ``ff1``, ``ff2``, ``ln_f``, ``decoder``), so
+``TransformerLM``, ``get_model``) for the dense-MLP subset, tied or
+untied, with the flax model's module names (``tok_embed``, ``pos_embed``,
+``blocks.{i}`` for ``block_{i}``, ``ln_attn``, ``qkv``, ``out``,
+``ln_mlp``, ``ff1``, ``ff2``, ``ln_f``, ``decoder``), so
 ``interop.lm_state_dict_from_jax`` maps one tree onto the other. The flax
 semantics it keeps:
 
 * LayerNorm epsilon 1e-6 (flax's default; PyTorch's is 1e-5);
 * GELU is the tanh approximation (``flax.linen.gelu``'s default);
-* position embeddings are a plain, SGD-trained embedding over
-  ``arange(T)``; the token embedding is a ``KFACEmbed`` with
+* position embeddings are a plain, SGD-trained embedding over the global
+  positions; the token embedding is a ``KFACEmbed`` with
   ``kfac_embedding=True``;
 * every projection and the decoder head are ``KFACDense`` with bias;
   with ``tie_embeddings`` the head is the token table instead
   (``KFACEmbed.attend`` under ``kfac_embedding``: the reduce lens of
-  ``capture.py`` keeps one factor pair over both use sites).
+  ``capture.py`` keeps one factor pair over both use sites);
+* ``qkv_lens``: the fused QKV projection is ``KFACDense(lens_splits=3)``,
+  the expand lens (three ``d_model``-side G factors for the q, k and v
+  column slices in place of one ``3·d_model``-side factor);
+* ``remat``: each block runs under ``torch.utils.checkpoint``
+  (``use_reentrant=False``) and recomputes its forward in the backward
+  pass, inside ``layers.recomputing()`` so that the K-FAC hooks see one
+  forward per step, as flax's overwriting ``sow`` does;
+* ``dropout``: after ``out`` and after the MLP, in training mode only
+  (``model.train()``, flax's ``train=True``). The masks are drawn from the
+  ``generator`` passed to ``forward``, which dropout in training requires
+  (the JAX model needs a ``dropout`` key there): each block draws one seed
+  from it and its masks from a generator of its own seeded with it, so a
+  recompute under ``remat`` draws the same masks. threefry masks cannot be
+  reproduced here, so parity with the JAX model holds at dropout 0.
 
 ``attention_fn(q, k, v, causal=True)`` takes ``[B, T, H, D]`` tensors:
 ``ops.flash_attention.best_attention_fn(device)`` picks the CUDA flash
-kernels on a GPU; ``parallel.context.full_attention`` is the exact oracle.
+kernels on a GPU; ``parallel.context.full_attention`` is the exact oracle;
+``parallel.context.make_context_parallel_attention`` shards the sequence
+over a seq axis (ring or Ulysses). Under a seq axis of ``seq_shards``
+slots the model sees its slot's ``[B, T/seq_shards]`` tokens and embeds
+their global positions ``seq_index·T/seq_shards + arange``; ``max_len``
+bounds the global T, as under the JAX package's GSPMD.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from kfac_pytorch_tpu_torch.models.layers import KFACDense, KFACEmbed
+from kfac_pytorch_tpu_torch.models.layers import KFACDense, KFACEmbed, recomputing
 from kfac_pytorch_tpu_torch.parallel.context import full_attention
 
 AttentionFn = Callable[..., torch.Tensor]  # (q, k, v, causal=...) -> out
@@ -43,9 +64,6 @@ LN_EPS = 1e-6
 def _refuse_later_options(**opts) -> None:
     """Options of the JAX model that a later slice ports."""
     names = {
-        "dropout": "dropout > 0",
-        "qkv_lens": "qkv_lens (expand lens)",
-        "remat": "remat",
         "tensor_parallel": "tensor_parallel > 1 (shardwise)",
         "moe_experts": "moe_experts > 0 (shardwise MoE)",
     }
@@ -53,8 +71,15 @@ def _refuse_later_options(**opts) -> None:
         if set_:
             raise NotImplementedError(
                 f"{names[key]} is not ported to kfac_pytorch_tpu_torch yet "
-                "(ROADMAP queue 1 item 8)"
+                "(ROADMAP queue 1 item 8b)"
             )
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``Dropout``: keep with probability ``1 − rate``, kept values
+    scaled by ``1 / (1 − rate)``; the mask from ``generator``."""
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
 
 
 class TransformerBlock(nn.Module):
@@ -66,27 +91,45 @@ class TransformerBlock(nn.Module):
         n_heads: int,
         d_ff: int,
         attention_fn: AttentionFn = full_attention,
+        dropout: float = 0.0,
+        qkv_lens: bool = False,
     ):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.attention_fn = attention_fn
+        self.dropout = dropout
         self.ln_attn = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.qkv = KFACDense(d_model, 3 * d_model)
+        self.qkv = KFACDense(d_model, 3 * d_model, lens_splits=3 if qkv_lens else 1)
         self.out = KFACDense(d_model, d_model)
         self.ln_mlp = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ff1 = KFACDense(d_model, d_ff)
         self.ff2 = KFACDense(d_ff, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        """``seed`` seeds this block's dropout masks (``None``: no dropout)."""
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
         b, t, _ = x.shape
         shape = (b, t, self.n_heads, self.d_model // self.n_heads)
         # q, k, v stay strided views of the fused projection: the flash
         # kernels read them through their strides
         q, k, v = self.qkv(self.ln_attn(x)).split(self.d_model, dim=-1)
         a = self.attention_fn(q.reshape(shape), k.reshape(shape), v.reshape(shape), causal=True)
-        x = x + self.out(a.reshape(b, t, self.d_model))
+        a = self.out(a.reshape(b, t, self.d_model))
+        if gen is not None:
+            a = _dropout(a, self.dropout, gen)
+        x = x + a
         f = self.ff2(F.gelu(self.ff1(self.ln_mlp(x)), approximate="tanh"))
+        if gen is not None:
+            f = _dropout(f, self.dropout, gen)
         return x + f
+
+
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the first forward,
+    ``layers.recomputing()`` around the recompute."""
+    return contextlib.nullcontext(), recomputing()
 
 
 class TransformerLM(nn.Module):
@@ -101,34 +144,62 @@ class TransformerLM(nn.Module):
         n_layers: int = 2,
         d_ff: Optional[int] = None,
         attention_fn: AttentionFn = full_attention,
+        dropout: float = 0.0,
         kfac_embedding: bool = False,
+        qkv_lens: bool = False,
         tie_embeddings: bool = False,
+        remat: bool = False,
+        seq_shards: int = 1,
+        seq_index: int = 0,
     ):
         super().__init__()
         if d_model % n_heads:
             raise ValueError("d_model must be divisible by n_heads")
         self.max_len = max_len
+        self.dropout = dropout
+        self.remat = remat
+        self.seq_shards, self.seq_index = seq_shards, seq_index
         embed_cls = KFACEmbed if kfac_embedding else nn.Embedding
         self.tok_embed = embed_cls(vocab_size, d_model)
         self.pos_embed = nn.Embedding(max_len, d_model)
         self.blocks = nn.ModuleList(
-            TransformerBlock(d_model, n_heads, d_ff or 4 * d_model, attention_fn)
+            TransformerBlock(d_model, n_heads, d_ff or 4 * d_model, attention_fn,
+                             dropout, qkv_lens)
             for _ in range(n_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self.decoder = None if tie_embeddings else KFACDense(d_model, vocab_size)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits of this rank's ``[B, T/seq_shards]`` tokens. In training
+        mode with ``dropout > 0`` the masks come from ``generator``."""
         t = tokens.shape[1]
-        if t > self.max_len:
+        if t * self.seq_shards > self.max_len:
             raise ValueError(
-                f"sequence length {t} exceeds max_len {self.max_len}"
+                f"sequence length {t * self.seq_shards} exceeds max_len {self.max_len}"
             )
+        drop = self.training and self.dropout > 0
+        if drop and generator is None:
+            raise ValueError(
+                "dropout > 0 in training mode draws its masks from a "
+                "generator: call model(tokens, generator=...)"
+            )
+        start = self.seq_index * t
         x = self.tok_embed(tokens) + self.pos_embed(
-            torch.arange(t, device=tokens.device)
+            torch.arange(start, start + t, device=tokens.device)
         )[None]
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            seed = None
+            if drop:
+                seed = int(torch.randint(1 << 62, (), generator=generator,
+                                         device=generator.device))
+            if remat:
+                x = checkpoint(block, x, seed, use_reentrant=False,
+                               context_fn=_remat_contexts)
+            else:
+                x = block(x, seed)
         x = self.ln_f(x)
         if self.decoder is not None:
             return self.decoder(x)
@@ -169,18 +240,22 @@ def get_model(
     tensor_parallel: int = 1,
     moe_experts: int = 0,
     generator: Optional[torch.Generator] = None,
+    seq_shards: int = 1,
+    seq_index: int = 0,
 ) -> TransformerLM:
     """Factory with the JAX factory's arguments, built on the CPU from
-    ``generator`` (seed 0 when none is given). Options of later slices
-    raise ``NotImplementedError``."""
+    ``generator`` (seed 0 when none is given), and the seq slot
+    (``seq_shards``, ``seq_index``) of a rank under sequence parallelism.
+    The shardwise options (item 8b) raise ``NotImplementedError``."""
     _refuse_later_options(
-        dropout=dropout != 0.0, qkv_lens=qkv_lens, remat=remat,
         tensor_parallel=tensor_parallel != 1, moe_experts=moe_experts != 0,
     )
     model = TransformerLM(
         vocab_size, max_len=max_len, d_model=d_model, n_heads=n_heads,
-        n_layers=n_layers, attention_fn=attention_fn, kfac_embedding=kfac_embedding,
-        tie_embeddings=tie_embeddings,
+        n_layers=n_layers, attention_fn=attention_fn, dropout=dropout,
+        kfac_embedding=kfac_embedding, qkv_lens=qkv_lens,
+        tie_embeddings=tie_embeddings, remat=remat, seq_shards=seq_shards,
+        seq_index=seq_index,
     )
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model

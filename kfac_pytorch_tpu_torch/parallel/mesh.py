@@ -9,12 +9,31 @@ gradients, the sums under the factor comm plane's bucket means
 (``parallel/comm.py``), the sum-of-zeros exchanges of the sharded refresh
 and apply, the BatchNorm sums, the broadcast of the starting state, and the
 owner mode's reduce-scatter mean and flat all-gather, and the overlap
-plane's asynchronous sum). The
-2-D and 3-D meshes and ``split_service_mesh`` wait for ROADMAP queue 1
-items 8 and 9.
+plane's asynchronous sum).
+
+The data×seq world (:func:`data_seq_world`) is the JAX trainer's
+``Mesh(devices.reshape(dp, sp), ("data", "seq"))``: rank ``r`` is data
+slot ``r // sp`` and seq slot ``r % sp``, and the ranks of one data slot
+form a seq subgroup, over which the sequence-parallel attention
+(``parallel/context.py``) runs its ring hops (:meth:`World.seq_shift`)
+and all-to-alls (:meth:`World.seq_all_to_all`). Every other collective
+stays on the whole world: every rank holds the same number of tokens, so
+the whole-world mean of the gradients, the loss and the K-FAC statistics
+is the global batch's. On gloo (two ranks sharing one card, which NCCL
+refuses) the ring hop's CUDA tensors cross through host memory
+(:attr:`World.seq_staged`): gloo's point-to-point takes a CUDA tensor's
+device pointer for host memory and aborts the process (``writev: Bad
+address``, torch 2.11 on an H100), while its ``all_to_all_single`` takes
+CUDA tensors. The staging is a transport chosen from the backend, never a
+fallback; NCCL takes the tensors as they are. The 2-D data×tensor and 3-D
+data×fsdp×tensor meshes and ``split_service_mesh`` wait for ROADMAP queue
+1 items 8b and 9b.
 
 Which rows of the global batch a rank holds: the global batch of a step is
-the concatenation of the ranks' batches in rank order. Each rank draws its
+the concatenation of the data slots' batches in slot order (on a world
+with no seq axis, a rank is its own data slot); under a seq axis each
+rank keeps its slot's rows and the ``[s·T/sp, (s+1)·T/sp)`` slice of
+their sequence (:func:`local_seq`). Each rank draws its
 own batch from the interleaved shard ``rank::world`` of the epoch's
 permutation (``training.data.epoch_batches(num_shards=world,
 shard_index=rank)``), as each host of the JAX package's multi-host trainer
@@ -48,6 +67,47 @@ class World:
     size: int = 1
     rank: int = 0
     distributed: bool = False
+    # the seq axis: its size and this rank's seq subgroup
+    seq_size: int = 1
+    seq_group: Optional[Any] = None
+    seq_staged: bool = False
+
+    @property
+    def seq_slot(self) -> int:
+        return self.rank % self.seq_size
+
+    @property
+    def data_slot(self) -> int:
+        return self.rank // self.seq_size
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.seq_size
+
+    def _seq_peer(self, slot: int) -> int:
+        """The global rank of seq slot ``slot`` in this rank's data slot."""
+        return self.data_slot * self.seq_size + slot % self.seq_size
+
+    def seq_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """One ring hop on the seq subgroup: ``t`` goes to the next seq slot,
+        the previous slot's arrives (``lax.ppermute`` with ``j → j+1``); one
+        ``batch_isend_irecv`` of a send and a receive."""
+        send = t.cpu() if self.seq_staged else t.contiguous()
+        recv = torch.empty_like(send)
+        for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, self._seq_peer(self.seq_slot + 1), self.seq_group),
+            dist.P2POp(dist.irecv, recv, self._seq_peer(self.seq_slot - 1), self.seq_group),
+        ]):
+            work.wait()
+        return recv.to(t.device) if self.seq_staged else recv
+
+    def seq_all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t [seq_size, ...]``'s row ``j`` to seq slot ``j``; row ``i`` of
+        the result from slot ``i``: one ``all_to_all_single`` on the seq
+        subgroup."""
+        recv = torch.empty_like(t)
+        dist.all_to_all_single(recv, t.contiguous(), group=self.seq_group)
+        return recv
 
     def all_reduce_mean_(self, tensors: Sequence[torch.Tensor],
                          comm_dtype: Optional[torch.dtype] = None) -> None:
@@ -156,18 +216,54 @@ def data_parallel_world(group: Optional[Any] = None) -> World:
     )
 
 
+def data_seq_world(seq_parallel: int, device: Optional[torch.device] = None) -> World:
+    """The default group's world with a seq axis of ``seq_parallel`` slots
+    (the JAX trainer's data×seq mesh); a world with no seq axis at 1. Every
+    rank creates every seq subgroup, in data-slot order, as
+    ``torch.distributed.new_group`` requires. ``device`` is where the
+    attention's tensors live: CUDA tensors on a gloo world cross the seq
+    ring hops through host memory."""
+    world = data_parallel_world()
+    if seq_parallel == 1:
+        return world
+    if not world.distributed or world.size % seq_parallel:
+        raise ValueError(
+            f"--seq-parallel {seq_parallel} must divide device count {world.size}"
+        )
+    mine = None
+    for d in range(world.size // seq_parallel):
+        ranks = list(range(d * seq_parallel, (d + 1) * seq_parallel))
+        g = dist.new_group(ranks)
+        if world.rank in ranks:
+            mine = g
+    staged = (device is not None and torch.device(device).type == "cuda"
+              and dist.get_backend(mine) == "gloo")
+    return dataclasses.replace(world, seq_size=seq_parallel, seq_group=mine, seq_staged=staged)
+
+
+def local_seq(seq_len: int, world: World) -> slice:
+    """The positions of a ``seq_len`` sequence that ``world.rank``'s seq
+    slot holds (all of them without a seq axis)."""
+    if seq_len % world.seq_size:
+        raise ValueError(f"--seq-len {seq_len} must be divisible by --seq-parallel {world.seq_size}")
+    per = seq_len // world.seq_size
+    return slice(world.seq_slot * per, (world.seq_slot + 1) * per)
+
+
 def data_axis_size(world: World) -> int:
-    """The replica count along the batch axis (the K-FAC ``world``)."""
-    return world.size
+    """The replica count along the batch axis."""
+    return world.data_size
 
 
 def local_rows(global_batch: int, world: World) -> slice:
-    """The rows of a global batch of ``global_batch`` examples (the ranks'
-    batches concatenated in rank order) that ``world.rank``'s batch fills."""
-    if global_batch % world.size:
-        raise ValueError(f"a global batch of {global_batch} does not split over {world.size} ranks")
-    per = global_batch // world.size
-    return slice(world.rank * per, (world.rank + 1) * per)
+    """The rows of a global batch of ``global_batch`` examples (the data
+    slots' batches concatenated in slot order) that ``world.rank``'s data
+    slot fills."""
+    if global_batch % world.data_size:
+        raise ValueError(
+            f"a global batch of {global_batch} does not split over {world.data_size} data slots")
+    per = global_batch // world.data_size
+    return slice(world.data_slot * per, (world.data_slot + 1) * per)
 
 
 def put_global_batch(batch: Sequence[np.ndarray], device: torch.device,

@@ -171,6 +171,39 @@ def _validate(name: str, ok: bool, value) -> None:
         raise ValueError(f"Invalid {name}: {value}")
 
 
+# The JAX planner's refusals of the levers that ride one data axis, on a
+# world with a seq axis (planner/profiles.py rules of the same names)
+SEQ_AXIS_RULES = (
+    ("owner_vs_multi_axis_mesh",
+     lambda o: o["factor_sharding"] == "owner",
+     "factor_sharding='owner' requires a single data axis to shard across "
+     "(extra axes are allowed only under the replicated-compute tensor* "
+     "convention)"),
+    ("comm_vs_multi_axis_mesh",
+     lambda o: (resolve_factor_comm_dtype(o["factor_comm_dtype"]) != torch.float32
+                or o["factor_comm_freq"] > 1),
+     "factor_comm_dtype/factor_comm_freq ride the explicit single-data-axis "
+     "collective wrapper (training/step.py require_pure_dp_mesh); a mesh "
+     "with a second non-tensor axis cannot use them"),
+    ("overlap_vs_multi_axis_mesh",
+     lambda o: o["comm_overlap"],
+     "comm_overlap=True fuses factor reductions into the gradient pmean "
+     "inside the explicit single-data-axis wrapper (training/step.py "
+     "require_pure_dp_mesh); a mesh with a second non-tensor axis cannot "
+     "use it"),
+)
+
+
+def seq_axis_violations(world_size: int, seq_parallel: int, **levers) -> list:
+    """``[(rule, message)]`` of the levers ``factor_sharding``,
+    ``factor_comm_dtype``, ``factor_comm_freq`` and ``comm_overlap`` that a
+    world of ``world_size`` ranks with a seq axis of ``seq_parallel`` slots
+    refuses (none without a seq axis, or on one rank)."""
+    if world_size <= 1 or seq_parallel <= 1:
+        return []
+    return [(name, msg) for name, applies, msg in SEQ_AXIS_RULES if applies(levers)]
+
+
 def _not_ported(lever: str, item: str) -> None:
     raise NotImplementedError(
         f"{lever} is not ported to kfac_pytorch_tpu_torch yet (ROADMAP "
@@ -183,8 +216,12 @@ class KFAC:
 
     Args mirror the reference (kfac_pytorch_tpu/preconditioner.py:142-179)
     plus ``device`` (default CUDA; raises without a GPU unless
-    ``device="cpu"``) and ``process_group`` (the world, in place of the JAX
-    package's ``mesh``, which the port refuses). ``lr`` is validated for
+    ``device="cpu"``), ``process_group`` (the world, in place of the JAX
+    package's ``mesh``, which the port refuses) and ``seq_parallel`` (the
+    seq axis of a data×seq world, ``parallel.mesh.data_seq_world``: the
+    refresh still shards over all its ranks, as the JAX package's does
+    over a data×seq mesh, and the levers that ride one data axis are
+    refused, :data:`SEQ_AXIS_RULES`). ``lr`` is validated for
     API parity only: the KL clip always uses the per-step
     ``update(lr=...)``.
     """
@@ -228,6 +265,7 @@ class KFAC:
         profile_shapes: Optional[Any] = None,
         device: DeviceLike = None,
         process_group: Optional[Any] = None,
+        seq_parallel: int = 1,
     ):
         _validate("learning rate", 0.0 <= lr, lr)
         _validate("factor decay rate", 0.0 < factor_decay <= 1, factor_decay)
@@ -268,6 +306,20 @@ class KFAC:
             precond_comm_dtype,
         )
         world = data_parallel_world(process_group)
+        _validate(
+            "seq_parallel",
+            isinstance(seq_parallel, int) and 0 < seq_parallel and world.size % seq_parallel == 0,
+            seq_parallel,
+        )
+        bad = seq_axis_violations(
+            world.size, seq_parallel, factor_sharding=factor_sharding,
+            factor_comm_dtype=factor_comm_dtype, factor_comm_freq=factor_comm_freq,
+            comm_overlap=comm_overlap,
+        )
+        if bad:
+            name, msg = bad[0]
+            raise ValueError(f"{msg} (planner rule {name})")
+        self.seq_parallel = seq_parallel
         # Where the factor running averages and eigenbases live: on every
         # rank ("replicated") or only on each layer's precondition owner
         # ("owner", DP-KFAC); the caller's request, before a world of one
@@ -824,21 +876,23 @@ class KFAC:
         Embeddings get ``{A_diag, G}``: ones (the diagonal of I) over the
         vocab and an identity over the features. A grouped conv's
         pseudo-layer ``path#gK`` gets an ``(in/G)·kh·kw (+1)`` A side and an
-        ``out/G`` G side."""
+        ``out/G`` G side; a lens split ``path#sK`` the layer's whole A side
+        and an ``out/S`` G side."""
         facs = {}
         names = self.layers if self.layers is not None else capture.discover_layers(model)
         modules: Dict[str, nn.Module] = {}
         for name in names:
-            base, group = capture.split_group_name(name)
+            base = capture.layer_base(name)
             m = modules.get(base)
             if m is None:
                 m = modules[base] = model.get_submodule(base)
-            groups = m.groups if isinstance(m, KFACConv) else 1
-            if (group is None) != (groups == 1):
+            parts = capture.pseudo_layers(base, m)
+            if name not in parts:
                 raise ValueError(
                     f"K-FAC layer {name!r}: a grouped conv is listed as its "
-                    f"pseudo-layers '{base}{capture.GROUP_SEP}K', any other "
-                    "layer by its module path"
+                    f"pseudo-layers '{base}{capture.GROUP_SEP}K', a lens-split "
+                    f"dense layer as its '{base}{capture.SPLIT_SEP}K', any "
+                    "other layer by its module path"
                 )
             if isinstance(m, KFACEmbed):
                 vocab, feats = m.weight.shape
@@ -850,11 +904,11 @@ class KFAC:
             has_bias = m.bias is not None
             if isinstance(m, KFACConv):
                 cout, cin, kh, kw = m.weight.shape  # cin: in/G already
-                cout //= groups
                 a_side = cin * kh * kw + int(has_bias)
             else:
                 cout, cin = m.weight.shape
                 a_side = cin + int(has_bias)
+            cout //= len(parts)  # a group's or a lens split's output slice
             facs[name] = {
                 "A": torch.eye(a_side, dtype=torch.float32, device=self.device),
                 "G": torch.eye(cout, dtype=torch.float32, device=self.device),
@@ -1497,7 +1551,7 @@ class KFAC:
     @staticmethod
     def _is_conv(grads, name: str) -> bool:
         """A conv layer (an OIHW weight): the layers ``diag_blocks`` splits."""
-        return grads[f"{capture.split_group_name(name)[0]}.weight"].dim() == 4
+        return grads[f"{capture.layer_base(name)}.weight"].dim() == 4
 
     def _precondition_replicated(self, grads, names, eigen, stacked, lr, damping):
         """Every-step precondition + KL clip (the JAX method's name: the

@@ -19,7 +19,16 @@ with a launch plan the step keeps between calls), otherwise the per-leaf
 ``make_sgd`` step runs.
 
 Data-parallel, each rank runs its own batch, and the gradients, the loss
-and the accuracy are averaged over the ranks (float32 ``all_reduce``s);
+and the accuracy are averaged over the ranks (float32 ``all_reduce``s).
+Under a seq axis (``parallel.mesh.data_seq_world``, the transformer with
+sequence-parallel attention) each rank's batch is its data slot's rows
+cut to its seq slot's positions: it backpropagates the mean loss over its
+own tokens, the ring or Ulysses backward sends the cross-rank parts back,
+and since every rank holds as many tokens the world mean of the gradients
+is the gradient of the global mean loss; the G statistics, taken over the
+local tokens with ``compute_g_dense``'s ×N, average over the world into
+the global batch's (``grad_comm_dtype`` is refused there, as in the JAX
+package);
 the K-FAC statistics cross the wire inside ``KFAC.update`` (its factor
 comm plane, ``parallel/comm.py``; owner-sharded, its reduce-scatter), or,
 under ``KFAC(comm_overlap=True)`` on a capture step, their bucket means
@@ -195,6 +204,14 @@ def make_train_step(
         raise ValueError(f"Invalid grad_comm_dtype: {grad_comm_dtype}")
     if world is None:
         world = kfac.world if kfac is not None else data_parallel_world()
+    if grad_comm_dtype is not None and world.seq_size > 1:
+        raise ValueError(
+            "grad_comm_dtype requires a data-plane mesh (non-data axes of "
+            "size 1 or named 'tensor*'/'fsdp*'); got "
+            f"{ {'data': world.data_size, 'seq': world.seq_size} } — a "
+            "sequence/model axis would make the per-device local forward "
+            "see a partial example"
+        )
     compressed = grad_comm_dtype is not None and world.size > 1
     bn_ctx = (
         contextlib.nullcontext if compressed or world.size == 1

@@ -14,7 +14,8 @@ Also: the weight converter round-trips bit for bit; the forward logits and
 the eval step match flax with either of the port's attentions (exact, and
 the flash op's plain route); the preconditioner's diagonal-A solve, the
 flattened CE, the global-norm clip and the data helpers match; the trainer
-twin runs on the CPU and refuses the flags of later slices.
+twin runs on the CPU, with the flags that later slices ported, and
+refuses those still to come.
 
 Tolerances: float32 with other summation orders; K-FAC's damped solve
 amplifies rounding by up to 1/λ (λ = 0.003). Losses hold to 1e-5
@@ -50,6 +51,7 @@ from kfac_pytorch_tpu_torch.training.step import (
     make_eval_step,
     make_sgd,
     make_train_step,
+    softmax_cross_entropy,
 )
 
 VOCAB, D_MODEL, HEADS, LAYERS, SEQ, BATCH, STEPS = 64, 32, 2, 2, 16, 2, 3
@@ -293,17 +295,27 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
     (["--factor-sharding", "owner"], "item 7"),
     (["--factor-comm-dtype", "bf16"], "item 6"),
     (["--service-devices", "1"], "item 9"),
+    (["--tensor-parallel", "2"], "item 8b"),
+    (["--fsdp", "1"], "item 8b"),
+    (["--moe-experts", "2"], "item 8b"),
 ])
 def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
     """Each flag was refused naming its ROADMAP item until that item was
-    ported; item 6b's factor comm flags and item 7b's ``--factor-sharding``
-    now train (inert on one process: owner sharding warns and runs
-    replicated, as in the JAX trainer)."""
+    ported; item 6b's factor comm flags, item 7b's ``--factor-sharding``
+    and item 8a's ``--qkv-lens`` and ``--remat`` now train (inert on one
+    process: owner sharding warns and runs replicated, as in the JAX
+    trainer), and ``--seq-parallel 2`` needs two ranks, as the JAX
+    trainer needs two devices (it trains on two gloo ranks in
+    ``test_torch_port_context.py``); the shardwise flags name item 8b."""
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
 
-    if argv[0] in ("--factor-comm-dtype", "--factor-sharding"):
+    if argv[0] in ("--factor-comm-dtype", "--factor-sharding", "--qkv-lens", "--remat"):
         hist = trainer.main([*TINY, *argv])
         assert len(hist["loss"]) == 3 and all(math.isfinite(v) for v in hist["loss"])
+        return
+    if argv[0] == "--seq-parallel":
+        with pytest.raises(SystemExit, match="--seq-parallel 2 must divide device count 1"):
+            trainer.main([*TINY, *argv])
         return
     with pytest.raises(SystemExit, match=item):
         trainer.main([*TINY, *argv])
@@ -312,5 +324,14 @@ def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
 @pytest.mark.parametrize("kwargs", [{"qkv_lens": True}, {"tensor_parallel": 2},
                                     {"remat": True}, {"moe_experts": 2}])
 def test_lm_model_refuses_options_of_later_slices(kwargs):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """``qkv_lens`` and ``remat`` (item 8a) now build and run; the shardwise
+    options are refused naming item 8b."""
+    if "qkv_lens" in kwargs or "remat" in kwargs:
+        model = transformer_lm.get_model(VOCAB, **MODEL_KW, **kwargs)
+        (x, y), = _tokens(7, n=1)
+        logits = model(torch.from_numpy(x.astype(np.int64)))
+        softmax_cross_entropy(logits, torch.from_numpy(y.astype(np.int64))).backward()
+        assert all(p.grad is not None for p in model.parameters())
+        return
+    with pytest.raises(NotImplementedError, match="item 8b"):
         transformer_lm.get_model(VOCAB, **kwargs)

@@ -1,5 +1,6 @@
 """Rank bodies of ``tests/test_torch_port_distributed.py``,
-``tests/test_torch_port_comm.py`` and ``tests/test_torch_port_owner.py``
+``tests/test_torch_port_comm.py``, ``tests/test_torch_port_owner.py``,
+``tests/test_torch_port_lens.py`` and ``tests/test_torch_port_context.py``
 (not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
@@ -777,5 +778,191 @@ def owner(rank, world, ops=None, runs=None, overlap=None, counts=None, ck=None):
     return out
 
 
+# ------------------------------------------------------ the expand lens
+
+
+class _LensNet(torch.nn.Module):
+    """A fused QKV projection under the expand lens (``fused``), or its
+    oracle, three narrow projections concatenated, then a dense head."""
+
+    def __init__(self, fused, cin, m, classes):
+        from kfac_pytorch_tpu_torch.models.layers import KFACDense
+
+        super().__init__()
+        self.fused = fused
+        if fused:
+            self.qkv = KFACDense(cin, 3 * m, lens_splits=3)
+        else:
+            self.q, self.k, self.v = (KFACDense(cin, m) for _ in range(3))
+        self.head = KFACDense(3 * m, classes)
+
+    def forward(self, x):
+        y = self.qkv(x) if self.fused else torch.cat([self.q(x), self.k(x), self.v(x)], -1)
+        return self.head(torch.tanh(y))
+
+
+def _lens_weights(unfused):
+    """The fused net's weights from the unfused net's: q, k and v stacked
+    along the out side (the rows of PyTorch's ``[out, in]`` weight)."""
+    fused = {k: v for k, v in unfused.items() if k.startswith("head.")}
+    for kind in ("weight", "bias"):
+        fused[f"qkv.{kind}"] = torch.cat([unfused[f"{p}.{kind}"] for p in "qkv"])
+    return fused
+
+
+def lens(rank, world, weights, x, y, shape, cases, steps, ck_root):
+    """The lensed net and its unfused oracle through ``make_train_step``
+    under each case's levers on this rank's rows: the parameters after
+    every step (the fused ones split back into q, k, v); then a lensed
+    owner state through a checkpoint, and a replicated one re-homed."""
+    from kfac_pytorch_tpu_torch import KFAC, EigenRefreshCadence, capture
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, make_train_step
+
+    w0 = _t(weights)
+    xb, yb = torch.from_numpy(x[rank]), torch.from_numpy(y[rank]).long()
+    out = {}
+    kept = {}
+    for case, kw in cases.items():
+        runs = {}
+        for fused in (True, False):
+            model = _LensNet(fused, *shape)
+            model.load_state_dict(_lens_weights(w0) if fused else w0)
+            kw = {k: (torch.bfloat16 if v == "bf16" else v) for k, v in kw.items()}
+            kfac = KFAC(layers=capture.discover_layers(model), device="cpu", damping=0.01,
+                        fac_update_freq=1, kfac_update_freq=3, **kw)
+            tx = make_sgd(0.9, 0.0)
+            state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                               kfac_state=kfac.init(model))
+            step_fn = make_train_step(model, tx, kfac)
+            cad, traj = EigenRefreshCadence(kfac), []
+            for i in range(steps):
+                state, _ = step_fn(state, (xb, yb), 0.1, 0.01, **cad.flags_for_step(i))
+                sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                if fused:
+                    for kind in ("weight", "bias"):
+                        for p, part in zip("qkv", sd.pop(f"qkv.{kind}").chunk(3)):
+                            sd[f"{p}.{kind}"] = part
+                traj.append(_np(sd))
+            runs["fused" if fused else "unfused"] = traj
+            if fused:
+                kept[case] = (kfac, state, model)
+        out[case] = runs
+    # the lensed state's "#s" names through a checkpoint: an owner state
+    # round trip, and a replicated one re-homed into the owner rows
+    okfac, ostate, model = kept["owner"]
+    rkfac, rstate, _ = kept["replicated"]
+    for name, st in (("owner", ostate), ("replicated", rstate)):
+        ckpt.save_checkpoint(f"{ck_root}/{name}", 0, TrainState(
+            step=steps, model=model, opt_state={}, kfac_state=st.kfac_state))
+    dist.barrier()
+    back = ckpt.restore_checkpoint(f"{ck_root}/owner", 0, TrainState(
+        step=0, model=model, opt_state={}, kfac_state=okfac.init(model)), okfac)
+    rehomed = ckpt.restore_checkpoint(f"{ck_root}/replicated", 0, TrainState(
+        step=0, model=model, opt_state={}, kfac_state=okfac.init(model)), okfac)
+    out["ck"] = {
+        "round_trip": (_np(ostate.kfac_state), _np(back.kfac_state)),
+        "rehomed": (_np(okfac.owner_state_from_replicated(rstate.kfac_state)),
+                    _np(rehomed.kfac_state)),
+        "names": sorted(rstate.kfac_state["factors"]),
+    }
+    return out
+
+
+# ------------------------------------------- sequence-parallel attention
+
+
+def _attn_cases(w, attn):
+    """Each ``(kind, causal)`` case of ``attn`` on this rank's slice of the
+    global q, k, v and output cotangent: ``(out, dq, dk, dv)``."""
+    from kfac_pytorch_tpu_torch.parallel.context import make_context_parallel_attention
+    from kfac_pytorch_tpu_torch.parallel.mesh import local_seq
+
+    out = {}
+    for kind, causal in attn["cases"]:
+        q, k, v, do = attn["inputs"][kind]
+        cols = local_seq(q.shape[1], w)
+        q, k, v = (torch.from_numpy(np.ascontiguousarray(a[:, cols])).requires_grad_()
+                   for a in (q, k, v))
+        o = make_context_parallel_attention(w, kind)(q, k, v, causal=causal)
+        o.backward(torch.from_numpy(np.ascontiguousarray(do[:, cols])))
+        out[(kind, causal)] = _np({"out": o, "dq": q.grad, "dk": k.grad, "dv": v.grad})
+    return out
+
+
+def _lm_train(w, train):
+    """The tiny transformer LM on this rank's rows and positions over the
+    data×seq world ``w``: the loss and the parameters after every K-FAC
+    step (refresh at step 0, capture at every step)."""
+    from kfac_pytorch_tpu_torch import KFAC, capture
+    from kfac_pytorch_tpu_torch.models import transformer_lm
+    from kfac_pytorch_tpu_torch.parallel.context import make_context_parallel_attention
+    from kfac_pytorch_tpu_torch.parallel.mesh import local_rows, local_seq
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, make_train_step
+
+    out = {}
+    for kind in train["kinds"]:
+        model = transformer_lm.get_model(
+            train["vocab"], attention_fn=make_context_parallel_attention(w, kind),
+            seq_shards=w.seq_size, seq_index=w.seq_slot, **train["model"])
+        model.load_state_dict(_t(train["weights"]))
+        kfac = KFAC(layers=capture.discover_layers(model), device="cpu", damping=0.01,
+                    fac_update_freq=1, kfac_update_freq=1, seq_parallel=w.seq_size)
+        tx = make_sgd(0.9, 0.0)
+        state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                           kfac_state=kfac.init(model))
+        step_fn = make_train_step(model, tx, kfac, world=w)
+        x, y = train["batch"]
+        rows, cols = local_rows(x.shape[0], w), local_seq(x.shape[1], w)
+        batch = tuple(torch.from_numpy(np.ascontiguousarray(a[rows, cols])).long() for a in (x, y))
+        losses, params = [], []
+        for i in range(train["steps"]):
+            state, m = step_fn(state, batch, 0.1, 0.01, update_factors=True, update_eigen=i == 0)
+            losses.append(float(m["loss"]))
+            params.append(_np({k: v.clone() for k, v in model.state_dict().items()}))
+        out[kind] = {"losses": losses, "params": params}
+    return out
+
+
+def _seq_refusals(w):
+    """What the port refuses on a world with a seq axis: the messages."""
+    from kfac_pytorch_tpu_torch import KFAC
+    from kfac_pytorch_tpu_torch.training.step import make_sgd, make_train_step
+
+    model = _tiny_mlp()
+    out = {
+        lever: _raised(lambda kw=kw: KFAC(layers=["fc1", "fc2"], device="cpu",
+                                          seq_parallel=w.seq_size, **kw))
+        for lever, kw in (("owner", {"factor_sharding": "owner"}),
+                          ("comm_dtype", {"factor_comm_dtype": "bf16"}),
+                          ("comm_freq", {"factor_comm_freq": 2}),
+                          ("overlap", {"comm_overlap": True}))
+    }
+    out["grad_comm_dtype"] = _raised(lambda: make_train_step(
+        model, make_sgd(), None, world=w, grad_comm_dtype=torch.bfloat16))
+    return out
+
+
+def context(rank, world, seq, attn=None, train=None, twin=None):
+    """Task of ``tests/test_torch_port_context.py``: the attention cases on
+    a world of one seq group, the LM's train steps on a data×seq world of
+    ``seq`` slots, the refusals there, and the LM twin's runs."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_seq_world
+
+    out = {}
+    if attn is not None:
+        out["attn"] = _attn_cases(data_seq_world(world), attn)
+    w = data_seq_world(seq)
+    assert (w.data_slot, w.seq_slot) == divmod(rank, seq)
+    if train is not None:
+        out["train"] = _lm_train(w, train)
+    out["refusals"] = _seq_refusals(w)
+    if twin is not None:
+        from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+        out["twin"] = {name: trainer.main(argv) for name, argv in twin.items()}
+    return out
+
+
 TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
-         "owner": owner}
+         "owner": owner, "lens": lens, "context": context}
