@@ -342,12 +342,40 @@ no result line):
        embedding) for 2, 4 and 8 ranks;
     e. every kernel's launches on phase 23's paths, per rank on the
        two-rank ones, into the kernels line;
-24. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
-    of 1, 1g and 3; kernel 1's ResNet-50 row, kernel 2's tied-path row,
-    kernel 3's WikiText rows and kernel 4's LSTM row beside the others, the
-    two-rank launches of kernels 1, 3 and 4, and every kernel's launches on
-    phase 21's, 22's and 23's paths, per rank on the two-rank ones), then
-    the last line ``{"ok": true, "device": {...}}``.
+24. the LM's extras and sequence parallelism (slice 15): a. phase 8's
+    recipe with ``--qkv-lens``; b. ``--remat`` and dropout, the remat
+    memory figures; c. flash backward against float64 at T = 4096 and
+    8192; d. two ranks on the one card under ``--seq-parallel 2``, ring
+    and Ulysses; e. every kernel's launches on these paths;
+25. the shard lenses and the data×tensor world (slice 16), each path with
+    the counters zeroed just before it:
+    a. phase 8's recipe with ``--moe-experts 4`` for one epoch through the
+       twin: the loss finite and falling, kernel 2 five times per capture
+       step (the embedding and the 4 MoE banks' expert fractions) and
+       kernels 3-7 as phase 8 has them, the first ``ORACLE_STEPS`` losses
+       within 1e-3 of the oracle path one step at a time
+       (``one_step_oracle``), the capture and refresh step medians beside
+       phase 8's, the experts that received no token at the last capture
+       step; kernel 2 on the last capture step's expert ids (vocab 4)
+       bitwise equal to its plain version, timed against
+       ``torch.bincount`` and its bound (its own row of the kernels line);
+    b. the ``tensor_parallel=2`` lens model (``ff1#c2``, ``ff2#r2``) at the
+       same widths on one process through ``KFAC``/``make_train_step``:
+       the stacks' shapes (``[2, 1024, 1024]`` for ff1's G and ff2's A),
+       kernels 2-7 as implied (kernel 3 on the 3 dense shape groups only),
+       the one-step oracle, refresh and capture step medians;
+    c. ``--tensor-parallel 2 --moe-experts 4`` on two ranks of the one card
+       over gloo (a data×tensor world of one data slot): kernels 2-7 per
+       rank as implied, the parameters' digests and the losses equal on
+       both ranks after every step, the losses within float32 rounding
+       (``TP_RTOL``) of one process;
+26. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+    of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
+    row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
+    LSTM row beside the others, the two-rank launches of kernels 1, 3 and
+    4, and every kernel's launches on phase 21's to 25's paths, per rank on
+    the two-rank ones), then the last line ``{"ok": true, "device":
+    {...}}``.
 """
 
 from __future__ import annotations
@@ -4635,6 +4663,385 @@ def seq_parallel_phase(ranks, oracle, argv=LM_ARGS):
     return out
 
 
+MOE_FLAGS = ["--moe-experts", "4"]
+TP_STEPS = 12
+TP_TIMEOUT_S = 600
+# the two ranks against one process: float32 rounding
+TP_RTOL = 1e-5
+
+
+def lm_moe_setup(device, extra=()):
+    """``lm_setup`` with ``--moe-experts 4`` for ``one_step_oracle``: its
+    ``--factor-kernel dense --apply-kernel dense`` select the oracle path
+    (exact attention, dense factor and apply routes)."""
+    extra = list(extra)
+    oracle = "--factor-kernel" in extra
+    if oracle:
+        extra = extra[:extra.index("--factor-kernel")]
+    return lm_setup(device, [*MOE_FLAGS, *extra], oracle=oracle)
+
+
+def tp_setup(device, extra=()):
+    """The ``tensor_parallel=2`` lens model at the LM path's widths, with
+    the twin's hyperparameters, seed and batches, through the library API:
+    ``(step_fn, state, kfac, batches, args)`` (``lm_setup``'s contract,
+    ``--factor-kernel dense --apply-kernel dense`` the oracle path)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import KFAC, capture
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.models import transformer_lm
+    from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
+    from kfac_pytorch_tpu_torch.parallel.context import full_attention
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, make_train_step
+
+    extra = list(extra)
+    oracle = "--factor-kernel" in extra
+    if oracle:
+        extra = extra[:extra.index("--factor-kernel")]
+    args = trainer.parse_args([*LM_ARGS, *extra])
+    splits, words = trainer.load_corpus(args)
+    model = transformer_lm.get_model(
+        len(words), max_len=args.seq_len, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, attention_fn=full_attention if oracle else best_attention_fn(device),
+        kfac_embedding=True, tensor_parallel=2,
+        generator=torch.Generator().manual_seed(args.seed)).to(device)
+    kfac = KFAC(layers=capture.discover_layers(model), factor_decay=args.stat_decay,
+                damping=args.damping, kl_clip=args.kl_clip,
+                fac_update_freq=args.kfac_cov_update_freq, kfac_update_freq=args.kfac_update_freq,
+                factor_kernel="dense" if oracle else "auto",
+                apply_kernel="dense" if oracle else "auto", device=device)
+    tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                       kfac_state=kfac.init(model))
+    step_fn = make_train_step(model, tx, kfac, sgd_hyper=(args.momentum, args.wd),
+                              grad_clip=args.grad_clip)
+    stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
+    batches = [trainer.device_batch(toks, tgts, device)
+               for toks, tgts in data_lib.bptt_batches(stream, args.seq_len)]
+    return step_fn, state, kfac, batches, args
+
+
+def moe_dispatch_phase(ids, experts, launches):
+    """Kernel 2 as the MoE dispatch (vocab = E) on the main path's expert
+    ids: bitwise against its plain version and the oracle, one launch and
+    no other device event per call, timed against ``torch.bincount`` and
+    its bound; ``launches`` is kernel 2's count on phase 25a's path."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.ops import factors
+
+    got = fk.dispatch_compute_a_moe(ids, experts)
+    want = fk.compute_a_embed_fused_plain(ids, experts)
+    if not (torch.equal(got, want) and torch.equal(got, factors.compute_a_embed(ids, experts))):
+        raise AssertionError("the MoE dispatch through kernel 2 is not bitwise equal to its "
+                             f"plain version: max |diff| {float((got - want).abs().max()):.3e}")
+
+    def call():
+        fk.dispatch_compute_a_moe(ids, experts)
+
+    device_ms, per_call, other = kernel_spans(call, "token_count")
+    if per_call != 1 or other:
+        raise AssertionError(f"MoE dispatch: {per_call} kernel launches and {other} other device "
+                             "events per call; want 1 and 0")
+    n = ids.numel()
+    b_ms, b_by = bound_ms([(ids.element_size() * n + 4 * experts, n)])
+    wrapper_ms = time_ms(call)
+    return {
+        "name": "token_count (MoE expert fractions, vocab = E)",
+        "route": "cuda",
+        "source": "kfac_pytorch_tpu_torch/csrc/token_count.cu",
+        "replaces": "kfac_pytorch_tpu/ops/factor_kernels.py:471",
+        "unit": (f"one MoE bank's capture: {n} int64 top-1 expert ids of the last capture "
+                 f"step, {experts} experts (ops/factor_kernels.py::dispatch_compute_a_moe)"),
+        "max_abs_err": float((got - want).abs().max()),
+        "tolerance": "bitwise",
+        "fractions": got.tolist(),
+        "ms": wrapper_ms,
+        "wrapper_ms_is": "wall time per call of back-to-back calls (CUDA events)",
+        "device_ms": device_ms,
+        "device_ms_is": "profiler kernel span per call",
+        "device_launches_per_call": per_call,
+        "plain_ms": time_ms(lambda: fk.compute_a_embed_fused_plain(ids, experts)),
+        "library_ms": time_ms(lambda: torch.bincount(ids, minlength=experts).float() / n),
+        "library": "torch.bincount(ids, minlength=E).float() / N",
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "bound_note": "below any launch: one launch is the practical floor",
+        "launches": launches,
+    }
+
+
+def moe_phase(device, counters, lm_stats):
+    """Phase 25a: phase 8's recipe with ``--moe-experts 4`` through the twin
+    for one epoch, the counters zeroed just before: the loss finite and
+    falling; kernel 2 five times per capture step and kernels 3-7 as
+    phase 8 has them; the one-step oracle; the step medians beside phase
+    8's; the experts idle at the last capture step; kernel 2 on that
+    step's expert ids (``moe_dispatch_phase``)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+
+    seen = []  # (ids, fractions) of each MoE bank's last capture
+    dispatch = fk.dispatch_compute_a_moe
+
+    def spy(ids, experts, *, kind="auto"):
+        out = dispatch(ids, experts, kind=kind)
+        seen.append((ids, out))
+        del seen[:-8]
+        return out
+
+    fk.dispatch_compute_a_moe = spy
+    try:
+        hist, launches = counted(lambda: train_lm(["--epochs", "1", *MOE_FLAGS]), counters)
+    finally:
+        fk.dispatch_compute_a_moe = dispatch
+    first, last = gate_falling(hist["loss"], "LM --moe-experts 4")
+    args = trainer.parse_args([*LM_ARGS, *MOE_FLAGS])
+    model = trainer.build(args, device)[0]
+    layers = len(model.blocks)
+    expected = lm_expected_launches(hist, model)
+    captures = expected["token_count"]
+    expected["token_count"] = captures * (1 + layers)
+    groups = expected["fused_apply"] // len(hist["loss"])
+    if groups != 3:
+        raise AssertionError(f"LM --moe-experts: {groups} apply shape groups a step, not 3 "
+                             "(qkv, out, decoder; the banks solve outside kernel 3)")
+    expected = {LM_COUNTERS[k]: n for k, n in expected.items()}
+    gate_launches(launches, expected, "LM --moe-experts 4")
+    del model
+    torch.cuda.empty_cache()
+    kernel, oracle = one_step_oracle(lm_moe_setup, device, ORACLE_STEPS)
+    worst = gate_oracle(kernel, oracle, "LM --moe-experts 4", range(ORACLE_STEPS))
+    last_capture = seen[-layers:]
+    idle = [int((f == 0).sum()) for _, f in last_capture]
+    row = moe_dispatch_phase(last_capture[0][0], 4, launches["compute_a_embed_fused"])
+    row["launches_moe_dispatch"] = captures * layers
+    row["launches_are"] = (f"kernel 2's counter on phase 25a's path: the embedding's {captures} "
+                           f"and the {layers} MoE banks' {captures * layers}")
+    stats = step_stats(hist, args.batch_size * args.seq_len)
+    print(f"LM --moe-experts 4: kernel 2 {expected['compute_a_embed_fused'] // captures} times a "
+          f"capture step; capture step {stats['capture_ms_median']:.2f} ms (phase 8 "
+          f"{lm_stats['capture_ms_median']:.2f}), refresh step {stats['refresh_ms_median']:.2f} "
+          f"ms (phase 8 {lm_stats['refresh_ms_median']:.2f}); one-step oracle within "
+          f"{worst:.2e}; idle experts at the last capture step per layer {idle}", flush=True)
+    return {
+        "flags": MOE_FLAGS, "steps": len(hist["loss"]), "loss_first5": first, "loss_last5": last,
+        "val_loss": hist["val_loss"], "one_step_oracle": {"kernel": kernel, "oracle": oracle},
+        "oracle_max_rel_diff": worst, "apply_shape_groups": groups,
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "refresh_step_ms_median": stats["refresh_ms_median"],
+        "tokens_per_s": stats["per_s"],
+        "phase8_capture_step_ms_median": lm_stats["capture_ms_median"],
+        "phase8_refresh_step_ms_median": lm_stats["refresh_ms_median"],
+        "idle_experts_last_capture": idle,
+        "expert_fractions_last_capture": [f.tolist() for _, f in last_capture],
+        "launches": launches, "expected_launches": expected,
+    }, row
+
+
+def tp_lens_phase(device, counters, lm_stats, steps=TP_STEPS):
+    """Phase 25b: the ``tensor_parallel=2`` lens model for ``steps`` steps
+    (refreshes at 0 and 10), the counters zeroed just before: the stacks'
+    shapes, kernels 2-7 as implied, the one-step oracle, step medians."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step, step_kind
+
+    step_fn, state, kfac, batches, args = tp_setup(device)
+    facs = state.kfac_state["factors"]
+    shapes = {"ff1_G": tuple(facs["blocks.0.ff1#c2"]["G"].shape),
+              "ff2_A": tuple(facs["blocks.0.ff2#r2"]["A"].shape)}
+    half = 2 * args.d_model  # d_ff = 4·d_model over 2 shards: 1024 at d_model 512
+    if shapes != {"ff1_G": (2, half, half), "ff2_A": (2, half, half)}:
+        raise AssertionError(f"tensor_parallel=2: factor stacks {shapes}, want [2, {half}, {half}]")
+    hist = {"loss": [], "kind": [], "step_ms": []}
+
+    def run():
+        nonlocal state
+        for i in range(steps):
+            flags = kfac_flags_for_step(i, kfac, 0)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batches[i], args.base_lr, args.damping, **flags)
+            hist["loss"].append(float(m["loss"]))
+            hist["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            hist["kind"].append(step_kind(flags))
+
+    _, launches = counted(run, counters)
+    if not all(math.isfinite(v) for v in hist["loss"]):
+        raise AssertionError(f"tensor_parallel=2: non-finite loss {hist['loss']}")
+    model = state.model
+    groups = len({(m.out_features // m.lens_splits, m.in_features + 1)
+                  for m in model.modules() if isinstance(m, KFACDense)})
+    layers = len(model.blocks)
+    captures = sum(k != "plain" for k in hist["kind"])
+    expected = {"compute_a_embed_fused": captures, "fused_precondition_stack": groups * steps,
+                "fused_sgd_apply": steps, "flash_forward": layers * steps,
+                "flash_backward_dq": layers * steps, "flash_backward_dkv": layers * steps}
+    gate_launches(launches, expected, "tensor_parallel=2 lens model")
+    eig = state.kfac_state["eigen"]
+    eig_shapes = {k: list(v.shape) for k, v in eig["blocks.0.ff1#c2"].items()}
+    del step_fn, state, kfac, batches, model
+    torch.cuda.empty_cache()
+    kernel, oracle = one_step_oracle(tp_setup, device, ORACLE_STEPS)
+    worst = gate_oracle(kernel, oracle, "tensor_parallel=2 lens model", range(ORACLE_STEPS))
+    stats = step_stats(hist, args.batch_size * args.seq_len)
+    print(f"tensor_parallel=2 lens model: ff1 G {shapes['ff1_G']}, ff2 A {shapes['ff2_A']}; "
+          f"{groups} apply groups a step; capture step {stats['capture_ms_median']:.2f} ms, "
+          f"refresh step {stats['refresh_ms_median']:.2f} ms (phase 8 "
+          f"{lm_stats['refresh_ms_median']:.2f}); one-step oracle within {worst:.2e}", flush=True)
+    return {
+        "steps": steps, "losses": hist["loss"], "kinds": hist["kind"], "stack_shapes": shapes,
+        "ff1_eigen_shapes": eig_shapes, "apply_shape_groups": groups,
+        "one_step_oracle": {"kernel": kernel, "oracle": oracle}, "oracle_max_rel_diff": worst,
+        "capture_step_ms_median": stats.get("capture_ms_median"),
+        "refresh_step_ms_median": stats.get("refresh_ms_median"),
+        "phase8_capture_step_ms_median": lm_stats["capture_ms_median"],
+        "phase8_refresh_step_ms_median": lm_stats["refresh_ms_median"],
+        "launches": launches, "expected_launches": expected,
+    }
+
+
+def tp_worker(rank, store, out_path, steps, device_name, argv):
+    """One rank of phase 25c (``torch.multiprocessing`` target): the LM
+    twin's ``build`` with ``argv`` on the data×tensor world of
+    ``--tensor-parallel 2`` on ``cuda:0``, gloo, ``steps`` steps through the
+    refresh cadence, counted, the losses and the parameters' digest after
+    each. Writes JSON to ``out_path-<rank>.json``."""
+    import itertools
+
+    import torch
+
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.device import use_ieee_f32
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+    from kfac_pytorch_tpu_torch.parallel import launch
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_tensor_world
+    from kfac_pytorch_tpu_torch.training.step import step_kind
+
+    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                               rank=rank, world_size=2)
+    counters = (fk.compute_a_embed_fused, ak.fused_precondition_stack, ak.fused_sgd_apply,
+                fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    try:
+        use_ieee_f32()
+        args = trainer.parse_args(argv)
+        trainer.check_world(args, data_parallel_world())
+        world = data_tensor_world(args.tensor_parallel)
+        model, kfac, state, step_fn, splits = trainer.build(args, device, world=world)
+        stream = trainer.rank_rows(splits["train"], args, world)
+        batches = [trainer.device_batch(x, y, device) for x, y in
+                   itertools.islice(trainer.rank_segments(stream, args, world), steps)]
+        cadence = EigenRefreshCadence(kfac)
+        zero_counts(counters)
+        losses, kinds, step_ms, digests = [], [], [], []
+        for i in range(steps):
+            flags = cadence.flags_for_step(i, 0)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping, **flags)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            kinds.append(step_kind(flags))
+            digests.append(tensor_digest(list(model.parameters())))
+        out = {"rank": rank, "backend": torch.distributed.get_backend(),
+               "data": [world.rank, world.size], "tensor": [world.tensor_slot, world.tensor_size],
+               "losses": losses, "kinds": kinds, "step_ms": step_ms, "digests": digests,
+               "launches": read_counts(counters)}
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_ranks(device, argv, steps=TP_STEPS):
+    """Phase 25c's two ranks (:func:`tp_worker`): their results."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_tp_") as tmp:
+        ctx = mp.spawn(tp_worker, args=(f"{tmp}/store", f"{tmp}/rank", steps, str(device),
+                                        list(argv)),
+                       nprocs=2, join=False)
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the two ranks did not finish in {TP_TIMEOUT_S} s")
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank-{r}.json") as fh:
+                ranks.append(json.load(fh))
+    return ranks
+
+
+def tp_one_process(device, steps=TP_STEPS):
+    """Phase 25c's reference: one process, no group, the same flags but
+    ``--tensor-parallel``, the same steps through the refresh cadence."""
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+
+    step_fn, state, kfac, batches, args = lm_setup(device, MOE_FLAGS)
+    cadence = EigenRefreshCadence(kfac)
+    losses = []
+    for i in range(steps):
+        state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping,
+                           **cadence.flags_for_step(i, 0))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def tp_phase(ranks, one, argv, steps=TP_STEPS):
+    """Phase 25c: ``--tensor-parallel 2 --moe-experts 4`` on two ranks of
+    the one card (``ranks``: :func:`tp_ranks`' results) against one process
+    (``one``: :func:`tp_one_process`'s losses): kernels 2-7 per rank as
+    implied (kernel 2 five times per capture step, no flash kernel skipped),
+    digests and losses equal on both ranks after every step, the losses
+    within ``TP_RTOL`` of one process."""
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    args = trainer.parse_args(argv)
+    layers = args.n_layers
+    for r in ranks:
+        if r["data"] != [0, 1] or r["tensor"] != [r["rank"], 2]:
+            raise AssertionError(f"rank {r['rank']}: data slot {r['data']}, tensor slot "
+                                 f"{r['tensor']}; want data [0, 1], tensor [{r['rank']}, 2]")
+        captures = sum(k != "plain" for k in r["kinds"])
+        expected = {"compute_a_embed_fused": captures * (1 + layers),
+                    "fused_precondition_stack": 3 * steps, "fused_sgd_apply": steps,
+                    "flash_forward": layers * steps, "flash_backward_dq": layers * steps,
+                    "flash_backward_dkv": layers * steps}
+        gate_launches(r["launches"], expected, f"--tensor-parallel 2 --moe-experts 4 rank "
+                                               f"{r['rank']}")
+        r["expected_launches"] = expected
+    if ranks[0]["digests"] != ranks[1]["digests"] or ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("--tensor-parallel 2: the tensor peers' parameters or losses differ")
+    if "refresh" not in ranks[0]["kinds"][1:]:
+        raise AssertionError("--tensor-parallel 2: no refresh after step 0")
+    worst = gate_oracle(ranks[0]["losses"], one, "--tensor-parallel 2 --moe-experts 4 vs one "
+                        "process", range(steps), rtol=TP_RTOL)
+    stats = step_stats({"step_ms": ranks[0]["step_ms"], "kind": ranks[0]["kinds"]},
+                       args.batch_size * args.seq_len)
+    print(f"--tensor-parallel 2 --moe-experts 4 (two ranks, gloo): kernels 2-7 as implied; "
+          f"digests and losses equal every step; {steps} losses within {worst:.2e} of one "
+          f"process; capture step {stats.get('capture_ms_median', float('nan')):.1f} ms, refresh "
+          f"{stats.get('refresh_ms_median', float('nan')):.1f} ms", flush=True)
+    return {"ranks": ranks, "steps": steps, "one_process_losses": one,
+            "max_rel_diff_vs_one_process": worst,
+            "bitwise_vs_one_process": ranks[0]["losses"] == one,
+            "capture_step_ms_median": stats.get("capture_ms_median"),
+            "refresh_step_ms_median": stats.get("refresh_ms_median")}
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -5183,8 +5590,30 @@ def main() -> int:
                 for kind in SEQ_KINDS}}
     lm_apply["lm_qkv_lens"] = lens_apply
 
-    mark("25. results")
-    # 25. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 25a-c. this slice: the shard lenses (the MoE bank, the column/row
+    # lens model) and the data×tensor world, each path with the counters
+    # zeroed just before
+    mark("25a. LM --moe-experts 4")
+    moe, moe_dispatch = moe_phase(device, all_counted, lm_stats)
+    print(json.dumps({"lm_moe": moe}), flush=True)
+    report([moe_dispatch])
+    mark("25b. tensor_parallel=2 lens model")
+    tp_lens = tp_lens_phase(device, all_counted, lm_stats)
+    print(json.dumps({"lm_tensor_parallel_lens": tp_lens}), flush=True)
+    mark("25c. two ranks: --tensor-parallel 2 --moe-experts 4")
+    tp_argv = [*LM_ARGS, *MOE_FLAGS, "--tensor-parallel", "2"]
+    tp = tp_phase(tp_ranks(device, tp_argv), tp_one_process(device), tp_argv)
+    print(json.dumps({"two_ranks_tensor_parallel": tp}), flush=True)
+    for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
+                   (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
+                   (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice16_paths"] = {
+            "lm_moe": moe["launches"][key], "lm_tensor_parallel_lens": tp_lens["launches"][key],
+            "lm_tensor_parallel_moe_two_ranks_per_rank": [r["launches"][key]
+                                                          for r in tp["ranks"]]}
+
+    mark("26. results")
+    # 26. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16
@@ -5199,8 +5628,8 @@ def main() -> int:
     lm_sgd["wikitext_lstm"] = wt_rows["sgd"]
     conv_a[f"{SHARD_MODEL}_shards"] = rn50_conv_a
     token_count["wikitext_tied"] = wt_rows["token_count"]
-    kernels = [conv_a, conv_a_bf16, grouped_a, grouped_a_bf16, token_count, lm_apply,
-               rx_apply_bf16, lm_sgd, *flash]
+    kernels = [conv_a, conv_a_bf16, grouped_a, grouped_a_bf16, token_count, moe_dispatch,
+               lm_apply, rx_apply_bf16, lm_sgd, *flash]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,8 @@
 """Per-layer K-FAC statistics through module hooks.
 
 Port of the conv/dense/embedding subset of ``kfac_pytorch_tpu/capture.py``,
-with the reduce lens of a tied embedding/decoder head.
+with the reduce lens of a tied embedding/decoder head and the shard lenses
+of tensor-sharded dense layers and the MoE expert bank.
 The JAX package computes statistics inside its layers because JAX has no
 hooks; the reference it ports kept ``m_a``/``m_g`` hook dicts, and so does
 this module:
@@ -43,6 +44,17 @@ backward pass (``models.layers.recomputing``): the hooks stay inert
 there, so each A is computed once per capture step and each G comes from
 the hook registered in the first forward, whose outputs stay in the graph.
 
+A shard-lens layer is ONE name whose statistics stay stacked (JAX
+``capture.split_shard_name``): ``path#c{T}`` (``KFACShardedDense``,
+column-sharded) keeps one ``[a(+1), a(+1)]`` A and a ``[T, m/T, m/T]`` G
+stack, ``path#r{T}`` (row-sharded) an A stack ``[T, a/T, a/T]`` and one G,
+and ``path#e{E}`` (``KFACMoE``) the pair ``{"S": [E, a, a], "f": [E]}`` as
+its A (the unnormalized per-expert sums and the expert fractions, so the
+comm plane averages both before the weighted EMA) and ``[E, m, m]`` as its
+G, from the gradient of the bank's dense per-expert outputs. The bank's
+``[E, a, m]`` weight gradient becomes ``[E, m, a]`` factor-space
+matrices, one per expert, and back.
+
 A tied head (``KFACEmbed.attend``, the decoder reusing the embedding table)
 is a method call, which no forward hook sees: the embedding's attend hook
 hands its statistics over explicitly, and the shared table keeps ONE factor
@@ -64,10 +76,17 @@ from typing import Collection, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACDense, KFACEmbed, in_recompute
+from kfac_pytorch_tpu_torch.models.layers import (
+    KFACConv,
+    KFACDense,
+    KFACEmbed,
+    KFACMoE,
+    KFACShardedDense,
+    in_recompute,
+)
 from kfac_pytorch_tpu_torch.ops import factor_kernels, factors
 
-KFAC_LAYERS = (KFACConv, KFACDense, KFACEmbed)
+KFAC_LAYERS = (KFACConv, KFACDense, KFACEmbed, KFACShardedDense, KFACMoE)
 
 # Grouped-conv pseudo-layer suffix: "path#g3" is group 3 of the grouped conv
 # at "path". "#" cannot appear in a module path.
@@ -75,6 +94,31 @@ GROUP_SEP = "#g"
 # Expand-lens pseudo-layer suffix: "path#s1" is column slice 1 of the
 # lens-split dense layer at "path".
 SPLIT_SEP = "#s"
+
+
+# Shard-lens suffixes: ONE name carries the whole stack (never expanded into
+# per-index entries). "path#c4": column-sharded, 4 shards; "path#r4":
+# row-sharded; "path#e8": an MoE bank of 8 experts.
+COL_SEP = "#c"
+ROW_SEP = "#r"
+MOE_SEP = "#e"
+_SHARD_SEPS = {"c": COL_SEP, "r": ROW_SEP, "e": MOE_SEP}
+
+
+def split_shard_name(name: str) -> Tuple[str, Optional[str], Optional[int]]:
+    """``"path#c4" -> ("path", "c", 4)``; unsharded ``-> (name, None, None)``.
+    The form is ``"c"`` (column), ``"r"`` (row) or ``"e"`` (MoE bank); the
+    count is the shard or expert count."""
+    for form, sep in _SHARD_SEPS.items():
+        base, s, count = name.rpartition(sep)
+        if s and count.isdigit():
+            return base, form, int(count)
+    return name, None, None
+
+
+def is_shard_name(name: str) -> bool:
+    """Whether ``name`` carries a shard-lens suffix (``#c``/``#r``/``#e``)."""
+    return split_shard_name(name)[1] is not None
 
 
 def _split_name(name: str, sep: str) -> Tuple[str, Optional[int]]:
@@ -95,7 +139,11 @@ def split_lens_name(name: str) -> Tuple[str, Optional[int]]:
 
 
 def layer_base(name: str) -> str:
-    """The module path of a layer name, any ``#gK``/``#sK`` suffix stripped."""
+    """The module path of a layer name, any ``#gK``/``#sK``/``#cT``/``#rT``/
+    ``#eE`` suffix stripped."""
+    base, form, _ = split_shard_name(name)
+    if form is not None:
+        return base
     return split_lens_name(split_group_name(name)[0])[0]
 
 
@@ -121,7 +169,14 @@ def lens_counts(names: List[str]) -> Dict[str, int]:
 
 def pseudo_layers(name: str, module: nn.Module) -> List[str]:
     """The K-FAC layer names of the module at ``name``: a grouped conv's
-    ``path#gK``, a lens-split dense layer's ``path#sK``, else ``[name]``."""
+    ``path#gK``, a lens-split dense layer's ``path#sK``, a sharded dense
+    layer's ``path#cT``/``path#rT``, an MoE bank's ``path#eE``, else
+    ``[name]``."""
+    if isinstance(module, KFACShardedDense):
+        sep = COL_SEP if module.sharding == "column" else ROW_SEP
+        return [f"{name}{sep}{module.shards}"]
+    if isinstance(module, KFACMoE):
+        return [f"{name}{MOE_SEP}{module.num_experts}"]
     if isinstance(module, KFACConv) and module.groups > 1:
         return [f"{name}{GROUP_SEP}{k}" for k in range(module.groups)]
     if isinstance(module, KFACDense) and module.lens_splits > 1:
@@ -132,7 +187,8 @@ def pseudo_layers(name: str, module: nn.Module) -> List[str]:
 def discover_layers(model: nn.Module) -> List[str]:
     """Names of every K-FAC layer of ``model``, in module order; a grouped
     conv contributes its ``G`` pseudo-layers ``path#g0 … path#g{G-1}``, a
-    lens-split dense layer its ``S`` pseudo-layers ``path#s0 …``."""
+    lens-split dense layer its ``S`` pseudo-layers ``path#s0 …``, a
+    shard-lens layer its one ``path#cT``/``#rT``/``#eE`` name."""
     return [
         p for n, m in model.named_modules() if isinstance(m, KFAC_LAYERS)
         for p in pseudo_layers(n, m)
@@ -145,7 +201,8 @@ class Capture:
     Inert until :meth:`capturing` opens a capture step; the statistics of
     the last capture step stay in :attr:`a_contribs` / :attr:`g_factor_stats`
     (``{layer: [d, d] tensor}``, one entry per pseudo-layer of a grouped
-    conv). :meth:`remove` detaches the hooks.
+    conv, stacks under a shard-lens name). :meth:`remove` detaches the
+    hooks.
     """
 
     def __init__(
@@ -165,9 +222,15 @@ class Capture:
                 raise ValueError(
                     f"K-FAC layer {base!r}: list a grouped conv as all of its "
                     f"pseudo-layers '{base}{GROUP_SEP}K', a lens-split dense "
-                    f"layer as all of its '{base}{SPLIT_SEP}K', any other "
+                    f"layer as all of its '{base}{SPLIT_SEP}K', a shard-lens "
+                    f"layer as '{pseudo_layers(base, m)[0]}', any other "
                     "layer by its module path"
                 )
+        # shard-lens layers: module path → their one stacked name
+        self.shards = {
+            base: pseudo_layers(base, m)[0] for base, m in self.modules.items()
+            if isinstance(m, (KFACShardedDense, KFACMoE))
+        }
         self.batch_averaged = batch_averaged
         self.a_contribs: Dict[str, torch.Tensor] = {}
         self.g_factor_stats: Dict[str, torch.Tensor] = {}
@@ -176,10 +239,13 @@ class Capture:
         self._g_tied: Dict[str, torch.Tensor] = {}
         self._handles = [
             m.register_forward_hook(partial(self._forward_hook, n))
-            for n, m in self.modules.items()
+            for n, m in self.modules.items() if not isinstance(m, KFACMoE)
         ] + [
             m.register_attend_hook(partial(self._attend_hook, n))
             for n, m in self.modules.items() if isinstance(m, KFACEmbed)
+        ] + [
+            m.register_dispatch_hook(partial(self._dispatch_hook, n))
+            for n, m in self.modules.items() if isinstance(m, KFACMoE)
         ]
 
     @contextlib.contextmanager
@@ -227,7 +293,9 @@ class Capture:
                     module.dilation,
                     kind=self._kind,
                 )
-            else:
+            elif isinstance(module, KFACShardedDense) and module.sharding == "row":
+                a = factors.compute_a_row_sharded(x.float(), module.shards)
+            else:  # dense, and column-sharded (one A for every shard)
                 a = factors.compute_a_dense(x.float(), module.bias is not None)
                 if name in self.lenses:  # one A, shared by the S splits
                     a = [a] * self.lenses[name]
@@ -236,6 +304,26 @@ class Capture:
             output.register_hook(
                 partial(self._grad_hook, name, isinstance(module, KFACConv))
             )
+
+    def _dispatch_hook(self, name, module, x, expert_ids, h):
+        """An MoE bank's forward: the unnormalized per-expert A sums and the
+        expert fractions now, a hook on the per-expert outputs for G."""
+        if self._kind is None or in_recompute():
+            return
+        with torch.no_grad():
+            a = {
+                "S": factors.compute_a_moe(x.detach().float(), expert_ids, module.num_experts),
+                "f": factor_kernels.dispatch_compute_a_moe(
+                    expert_ids, module.num_experts, kind=self._kind),
+            }
+        self._store(self.a_contribs, name, a)
+        if h.requires_grad:
+            h.register_hook(partial(self._moe_grad_hook, name))
+
+    def _moe_grad_hook(self, name, grad):
+        with torch.no_grad():
+            stat = factors.compute_g_moe(grad.detach().float(), self.batch_averaged)
+        self._store(self.g_factor_stats, name, stat)
 
     def _attend_hook(self, name, module, query, logits):
         """The tied decoder site of embedding ``name``: its query covariance
@@ -263,9 +351,11 @@ class Capture:
     def _store(self, stats, name, stat):
         """One entry per layer; a grouped conv's ``[G, d, d]`` stack, and a
         lens-split layer's list of S statistics, are stored per
-        pseudo-layer."""
+        pseudo-layer; a shard-lens layer's stack under its one name."""
         n_groups = self.groups.get(name)
-        if n_groups is not None:
+        if name in self.shards:
+            stats[self.shards[name]] = stat
+        elif n_groups is not None:
             for k in range(n_groups):
                 stats[f"{name}{GROUP_SEP}{k}"] = stat[k]
         elif name in self.lenses:
@@ -283,6 +373,11 @@ class Capture:
                 )
             elif is_conv:
                 stat = factors.compute_g_conv(g, self.batch_averaged)
+            elif name in self.shards:  # column: block-diagonal; row: one G
+                m = self.modules[name]
+                stat = (factors.compute_g_dense_sharded(g, m.shards, self.batch_averaged)
+                        if m.sharding == "column"
+                        else factors.compute_g_dense(g, self.batch_averaged))
             elif name in self.lenses:  # each split's G from its column slice
                 stat = [
                     factors.compute_g_dense(part, self.batch_averaged)
@@ -306,12 +401,20 @@ def layer_grads(
     A grouped conv's pseudo-layer ``path#gK`` gets group K's slice of the
     OIHW weight's output axis (dim 0; the input axis is already per group)
     and of the bias; a lens split ``path#sK`` its slice of the ``[out, in]``
-    weight's rows and of the bias."""
+    weight's rows and of the bias; a shard-lens layer the whole weight (and
+    a column layer's bias): its blocks are cut in factor space
+    (``shardwise.precondition``)."""
     counts = {**group_counts(names), **lens_counts(names)}
     out = {}
     for name in names:
         if name in embeddings:
             out[name] = {"embedding": grads[f"{name}.weight"]}
+            continue
+        sbase, form, _ = split_shard_name(name)
+        if form is not None:
+            out[name] = {"weight": grads[f"{sbase}.weight"]}
+            if f"{sbase}.bias" in grads:
+                out[name]["bias"] = grads[f"{sbase}.bias"]
             continue
         base, gi = split_group_name(name)
         if gi is None:
@@ -332,8 +435,14 @@ def layer_grads(
 def grad_mats(
     lgrads: Dict[str, Dict[str, torch.Tensor]]
 ) -> Dict[str, torch.Tensor]:
-    """Per-layer factor-space gradient matrices ``[out, in(+1)]``."""
-    return {name: factors.grads_to_mat(g) for name, g in lgrads.items()}
+    """Per-layer factor-space gradient matrices ``[out, in(+1)]``; an MoE
+    bank's ``[E, a, m]`` weight becomes the ``[E, m, a]`` stack of its
+    experts' matrices."""
+    return {
+        name: (g["weight"].transpose(1, 2) if split_shard_name(name)[1] == "e"
+               else factors.grads_to_mat(g))
+        for name, g in lgrads.items()
+    }
 
 
 def write_back(
@@ -348,11 +457,18 @@ def write_back(
     split's per-split ones, stacked back along the weight's output axis);
     other entries (BatchNorm, LayerNorm, position embeddings) pass through
     untouched. A grouped or lens-split layer must bring every one of its
-    parts."""
+    parts. A shard-lens layer's update is whole: an MoE bank's ``[E, m, a]``
+    stack goes back to its ``[E, a, m]`` weight."""
     out = dict(grads)
     grouped: Dict[str, Dict[int, torch.Tensor]] = {}
     seps: Dict[str, str] = {}
     for name, mat in updates.items():
+        sbase, form, _ = split_shard_name(name)
+        if form == "e":
+            weight = grads[f"{sbase}.weight"]
+            out[f"{sbase}.weight"] = (mat * nu).transpose(1, 2).contiguous().to(weight.dtype)
+            continue
+        name = sbase  # a column or row layer writes back as a dense one
         sep = GROUP_SEP if GROUP_SEP in name else SPLIT_SEP
         base, gi = _split_name(name, sep)
         if gi is not None:

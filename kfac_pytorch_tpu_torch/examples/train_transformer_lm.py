@@ -5,7 +5,9 @@ data-parallel and data×seq meshes: the same flags with the same defaults
 for what the port carries (model widths, SGD with global-norm clipping,
 K-FAC with an optional diagonal-A token embedding, the tied head
 ``--tie-embeddings``, the QKV expand lens ``--qkv-lens``, ``--remat``,
-sequence parallelism ``--seq-parallel N --attention ring|ulysses``), the same
+sequence parallelism ``--seq-parallel N --attention ring|ulysses``, the MoE
+MLP ``--moe-experts E`` and the replicated-compute ``--tensor-parallel
+N``), the same
 data (WikiText token files from ``--data-dir``, else the synthetic
 corpus), BPTT segments,
 K-FAC gating (every step's flags from ``scheduler.EigenRefreshCadence``:
@@ -42,6 +44,20 @@ the flash kernels). The levers that ride one data axis
 ``--comm-overlap``, ``--grad-comm-dtype``) are refused there, with the JAX
 trainer's messages.
 
+``--tensor-parallel N`` (without ``--fsdp``) makes the world data×tensor
+(``parallel.mesh.data_tensor_world``, the JAX trainer's legacy
+``data_tensor_mesh``): rank ``r`` is data slot ``r // N`` and tensor slot
+``r % N``, the compute is replicated over the tensor axis (the model stays
+dense, as in the JAX trainer), the tensor peers of a data slot train the
+same rows, the global batch is ``--batch-size`` times the ``world / N``
+data slots, and every collective (the gradient and loss means, the factor
+comm plane, the owner mode's exchanges, a checkpoint's gathers) rides the
+data axis, so the owner, comm and overlap levers all stay available.
+``--moe-experts E`` swaps each block's MLP for a ``KFACMoE`` bank of E
+experts (the MoE expert lens, ``shardwise/``); it composes with
+``--tensor-parallel``. ``--fsdp`` (the 3-D world and the genuine
+column/row split) waits for ROADMAP queue 1 item 8c.
+
     python -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --d-model 512 --n-heads 8 --n-layers 4 --seq-len 2048 \\
         --batch-size 4 --kfac-embedding --epochs 2
@@ -50,6 +66,8 @@ trainer's messages.
         --factor-comm-freq 2 --grad-comm-dtype bf16
     torchrun --nproc-per-node 2 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --kfac-embedding --seq-parallel 2 --attention ulysses
+    torchrun --nproc-per-node 2 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
+        --synthetic --kfac-embedding --tensor-parallel 2 --moe-experts 4
 
 Attention runs the CUDA flash kernels on a GPU
 (``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
@@ -72,7 +90,7 @@ import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
-from kfac_pytorch_tpu_torch.preconditioner import seq_axis_violations
+from kfac_pytorch_tpu_torch.preconditioner import seq_axis_violations, shard_lens_violations
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_factor_comm_flags,
@@ -89,7 +107,13 @@ from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
 from kfac_pytorch_tpu_torch.parallel import launch
 from kfac_pytorch_tpu_torch.parallel.context import full_attention, make_context_parallel_attention
-from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, data_seq_world, local_seq
+from kfac_pytorch_tpu_torch.parallel.mesh import (
+    World,
+    data_parallel_world,
+    data_seq_world,
+    data_tensor_world,
+    local_seq,
+)
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
@@ -108,9 +132,7 @@ SYNTHETIC_VOCAB = 1000
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--tensor-parallel", int, 1, "8b (shardwise/)"),
-    ("--fsdp", int, 0, "8b (shardwise/)"),
-    ("--moe-experts", int, 0, "8b (shardwise/)"),
+    ("--fsdp", int, 0, "8c (shardwise/ 3-D world)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--autotune-steps", int, 0, "9 (planner/)"),
@@ -160,6 +182,14 @@ def parse_args(argv=None):
                         "long sequences, same math")
     p.add_argument("--seq-parallel", type=int, default=1,
                    help="sequence-parallel axis size (data x seq world)")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="tensor axis size of the data x tensor world: compute "
+                        "replicated over it, every K-FAC collective on the "
+                        "data axis")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="replace each block's MLP with a top-1 MoE bank of this "
+                        "many experts (per-expert K-FAC with token-count-"
+                        "weighted EMAs); 0 keeps the dense MLP")
     p.add_argument("--attention", default="ring", choices=["ring", "ulysses"],
                    help="sequence-parallel attention kind (with --seq-parallel > 1)")
     p.add_argument("--kfac-update-freq", type=int, default=10, help="0 disables K-FAC")
@@ -218,6 +248,11 @@ def parse_args(argv=None):
         raise SystemExit(
             "--fsdp builds the 3-D data×fsdp×tensor mesh; it does not "
             "compose with --seq-parallel"
+        )
+    if args.moe_experts > 0 and args.fsdp >= 1 and args.tensor_parallel > 1:
+        raise SystemExit(
+            "--moe-experts replaces the MLP that a genuine --tensor-parallel "
+            "split (--fsdp >= 1) would shard; pick one"
         )
     if args.seq_len % sp != 0:
         raise SystemExit(f"--seq-len {args.seq_len} must be divisible by --seq-parallel {sp}")
@@ -278,15 +313,21 @@ def rank_segments(stream, args, world: World):
 
 
 def check_world(args, world: World) -> None:
-    """The JAX trainer's checks of a data×seq world and of the levers it
-    refuses there."""
-    sp = args.seq_parallel
+    """The JAX trainer's checks of a data×seq or data×tensor world and of
+    the levers it refuses there, or with the MoE bank."""
+    sp, tp = args.seq_parallel, args.tensor_parallel
     if world.size % sp != 0:
         raise SystemExit(f"--seq-parallel {sp} must divide device count {world.size}")
+    if world.size % max(1, tp) != 0:
+        raise SystemExit(f"--tensor-parallel {tp} must divide device count {world.size}")
     bad = seq_axis_violations(
         world.size, sp, factor_sharding=args.factor_sharding,
         factor_comm_dtype=args.factor_comm_dtype, factor_comm_freq=args.factor_comm_freq,
         comm_overlap=args.comm_overlap,
+    ) + shard_lens_violations(
+        False, args.moe_experts > 0, factor_sharding=args.factor_sharding,
+        eigh_chunks=args.eigh_chunks, solver=args.solver,
+        factor_comm_freq=args.factor_comm_freq,
     )
     if bad:
         raise SystemExit(
@@ -319,6 +360,8 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
         n_heads=args.n_heads, n_layers=args.n_layers, attention_fn=attention_fn,
         kfac_embedding=args.kfac_embedding, qkv_lens=args.qkv_lens,
         tie_embeddings=args.tie_embeddings, remat=args.remat,
+        # no tensor_parallel: --tensor-parallel replicates the compute
+        moe_experts=args.moe_experts,
         generator=torch.Generator().manual_seed(args.seed),
         seq_shards=world.seq_size, seq_index=world.seq_slot,
     ).to(device)
@@ -364,10 +407,11 @@ def main(argv=None) -> Dict[str, List]:
     device = launch.initialize(args.device)
     use_ieee_f32()
     check_world(args, data_parallel_world())
-    world = data_seq_world(args.seq_parallel, device)
+    world = (data_tensor_world(args.tensor_parallel) if args.tensor_parallel > 1
+             else data_seq_world(args.seq_parallel, device))
     global_bs = args.batch_size * world.data_size
-    rank0_print(f"mesh data={world.data_size} fsdp=0 seq={world.seq_size} tensor=1 "
-                f"global_batch={global_bs} seq_len={args.seq_len}")
+    rank0_print(f"mesh data={world.data_size} fsdp=0 seq={world.seq_size} "
+                f"tensor={args.tensor_parallel} global_batch={global_bs} seq_len={args.seq_len}")
     model, kfac, state, train_step, splits = build(args, device, world=world)
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "restore_ms": [],

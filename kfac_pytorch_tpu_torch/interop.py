@@ -13,9 +13,11 @@ the flax ``CifarResNet`` become the port's ``state_dict``:
 
 :func:`lm_state_dict_from_jax` does the same for the flax ``TransformerLM``
 (``models/transformer_lm.py``): ``block_{i}`` → ``blocks.{i}``, ``Dense``
-kernels ``[in, out]`` → ``[out, in]``, ``Embed``/``KFACEmbed`` tables
-unchanged, LayerNorm ``scale`` → ``weight``; :func:`lm_layer_name_from_jax`
-maps its K-FAC layer names, the expand lens's ``#sK`` included.
+and sharded-dense kernels ``[in, out]`` → ``[out, in]`` (a row-sharded
+``ff2`` has no bias), an MoE bank's ``[E, a, m]`` kernel as it is and its
+router's kernel transposed, ``Embed``/``KFACEmbed`` tables unchanged,
+LayerNorm ``scale`` → ``weight``; :func:`lm_layer_name_from_jax` maps its
+K-FAC layer names, the suffixes ``#sK``/``#cT``/``#rT``/``#eE`` kept.
 
 :func:`imagenet_state_dict_from_jax` is the inverse of
 ``kfac_pytorch_tpu/torch_interop.py::convert_state_dict`` for the flax
@@ -58,7 +60,8 @@ def _conv(kernel) -> torch.Tensor:
 
 def _put_dense(sd, prefix: str, p: Dict[str, Any]) -> None:
     sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _put_ln(sd, prefix: str, p: Dict[str, Any]) -> None:
@@ -106,7 +109,7 @@ def state_dict_from_jax(
 
 def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """JAX transformer-LM ``params`` → the port's ``TransformerLM`` state_dict
-    (the dense-MLP subset the port models, tied or untied)."""
+    (tied or untied; a dense, tensor-parallel or MoE MLP)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     sd["tok_embed.weight"] = _t(params["tok_embed"]["embedding"])
     sd["pos_embed.weight"] = _t(params["pos_embed"]["embedding"])
@@ -117,8 +120,12 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Te
         _put_dense(sd, f"{prefix}.qkv", bp["qkv"])
         _put_dense(sd, f"{prefix}.out", bp["out"])
         _put_ln(sd, f"{prefix}.ln_mlp", bp["ln_mlp"])
-        _put_dense(sd, f"{prefix}.ff1", bp["ff1"])
-        _put_dense(sd, f"{prefix}.ff2", bp["ff2"])
+        if "moe" in bp:
+            sd[f"{prefix}.moe.weight"] = _t(bp["moe"]["kernel"])
+            sd[f"{prefix}.moe.router.weight"] = _t(np.asarray(bp["moe"]["router"]["kernel"]).T)
+        else:
+            _put_dense(sd, f"{prefix}.ff1", bp["ff1"])
+            _put_dense(sd, f"{prefix}.ff2", bp["ff2"])
         i += 1
     _put_ln(sd, "ln_f", params["ln_f"])
     if "decoder" in params:  # a tied model's head is the token table
@@ -128,8 +135,9 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Te
 
 def lm_layer_name_from_jax(name: str) -> str:
     """A JAX transformer-LM K-FAC layer name → the port's: ``block_{i}`` →
-    ``blocks.{i}``, ``/`` → ``.``; a pseudo-layer suffix (``#sK`` of the
-    QKV expand lens) is kept (``"block_0/qkv#s1"`` → ``"blocks.0.qkv#s1"``)."""
+    ``blocks.{i}``, ``/`` → ``.``; a pseudo-layer or shard suffix (``#sK``
+    of the QKV expand lens, ``#cT``/``#rT``/``#eE`` of the shard lenses) is
+    kept (``"block_0/qkv#s1"`` → ``"blocks.0.qkv#s1"``)."""
     path, sep, suffix = name.partition("#")
     return path.replace("block_", "blocks.").replace("/", ".") + sep + suffix
 

@@ -1,11 +1,12 @@
 """K-FAC-aware layers: ``nn.Conv2d`` / ``nn.Linear`` / ``nn.Embedding``
 subclasses.
 
-Port of ``KFACConv``, ``KFACDense`` and ``KFACEmbed`` from
-``kfac_pytorch_tpu/models/layers.py``. The JAX layers compute and ``sow`` their own statistics
-because JAX has no hooks; here the layers are plain PyTorch modules that
-mark themselves as preconditionable, and ``capture.py`` attaches forward
-and backward hooks to them — the reference's own design.
+Port of ``KFACConv``, ``KFACDense``, ``KFACEmbed``, ``KFACShardedDense``
+and ``KFACMoE`` from ``kfac_pytorch_tpu/models/layers.py``. The JAX layers
+compute and ``sow`` their own statistics because JAX has no hooks; here
+the layers are plain PyTorch modules that mark themselves as
+preconditionable, and ``capture.py`` attaches forward and backward hooks
+to them — the reference's own design.
 
 ``KFACConv`` and ``KFACDense`` take a ``compute_dtype`` (the flax layers'
 ``dtype``; ``nn.Conv2d``'s own ``dtype`` argument is the parameters'):
@@ -151,3 +152,114 @@ class KFACEmbed(nn.Embedding):
         for hook in self._attend_hooks.values():
             hook(self, query, logits)
         return logits
+
+
+class KFACShardedDense(nn.Linear):
+    """Dense layer whose weight is SHARDED over a tensor-parallel axis, with
+    per-shard K-FAC statistics (``shardwise/``).
+
+    The compute is an ordinary ``y = x Wᵀ (+ b)`` on one process, as in the
+    JAX package, where GSPMD splits it only when a trainer places the
+    kernel on a mesh with a compute-sharded ``tensor`` axis. What changes
+    is the curvature model (the shard lenses of arxiv 2311.00636):
+
+    * ``sharding="column"`` (the ``[m, a]`` weight split along m): A is
+      shared, G block-diagonal, a ``[T, m/T, m/T]`` stack;
+    * ``sharding="row"`` (split along a): an A stack ``[T, a/T, a/T]`` of
+      the input slices and ONE G; no bias (it is not attributable to one
+      input shard).
+
+    ``capture.py`` names it ONE layer, ``path#c{T}`` or ``path#r{T}``,
+    whose factors stay stacked.
+    """
+
+    def __init__(self, in_features: int, out_features: int, shards: int,
+                 sharding: str = "column", bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        if sharding not in ("column", "row"):
+            raise ValueError(f"sharding={sharding!r} must be 'column' or 'row'")
+        if shards < 1:
+            raise ValueError(f"shards={shards} must be >= 1")
+        if sharding == "column" and out_features % shards:
+            raise ValueError(
+                f"column sharding needs shards={shards} to divide "
+                f"features={out_features}"
+            )
+        if sharding == "row":
+            if in_features % shards:
+                raise ValueError(
+                    f"row sharding needs shards={shards} to divide the "
+                    f"input width {in_features}"
+                )
+            if bias:
+                raise ValueError(
+                    "row-sharded layers cannot carry a bias: the bias is "
+                    "not attributable to one input shard — set "
+                    "use_bias=False"
+                )
+        super().__init__(in_features, out_features, bias=bias, **kwargs)
+        self.shards, self.sharding = shards, sharding
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = x.to(dt) @ self.weight.to(dt).T
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class KFACMoE(nn.Module):
+    """Toy mixture-of-experts bank with top-1 routing and per-expert K-FAC.
+
+    ``E`` experts share one ``[E, a, m]`` weight bank (the JAX layout); a
+    bias-free router picks one expert per token, whose softmax probability
+    gates the output, so the router trains by plain SGD through the gate.
+    The forward forms the dense per-expert outputs ``h [N, E, m]`` and
+    selects each token's row: the gradient of ``h`` is zero outside the
+    chosen expert, so it is the expert-masked G statistic as it stands.
+
+    The curvature model is the MoE expert lens: per-expert A and G stacks
+    with token-count-weighted EMAs (``shardwise.moe_ema``). Every forward
+    calls the hooks of :meth:`register_dispatch_hook` with the flattened
+    input, the expert ids and ``h`` (a forward hook sees neither), from
+    which ``capture.py`` takes the unnormalized per-expert sums
+    (``ops/factors.py::compute_a_moe``, masked with ``[N]`` booleans), the
+    expert fractions (kernel 2, ``dispatch_compute_a_moe``) and, from a
+    hook on ``h``, G. ``capture.py`` names it ONE layer, ``path#e{E}``.
+    """
+
+    def __init__(self, in_features: int, features: int, num_experts: int):
+        super().__init__()
+        if num_experts < 2:
+            raise ValueError(
+                f"num_experts={num_experts} must be >= 2 (use KFACDense "
+                "for a single expert)"
+            )
+        self.in_features, self.features, self.num_experts = in_features, features, num_experts
+        self.weight = nn.Parameter(torch.empty(num_experts, in_features, features))
+        self.router = nn.Linear(in_features, num_experts, bias=False)
+        self._dispatch_hooks: "OrderedDict[int, Callable]" = OrderedDict()
+        # flax's lecun_normal over the bank: fan_in = E·a
+        std = (1.0 / (num_experts * in_features)) ** 0.5 / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+    def register_dispatch_hook(self, hook: Callable) -> RemovableHandle:
+        """``hook(module, x [N, a], expert_ids [N], h [N, E, m])`` runs in
+        every forward, before the selection."""
+        handle = RemovableHandle(self._dispatch_hooks)
+        self._dispatch_hooks[handle.id] = hook
+        return handle
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, self.in_features)
+        logits = self.router(xf)
+        idx = torch.argmax(logits, dim=-1)  # [N] top-1 expert ids
+        gate = torch.softmax(logits, dim=-1).gather(-1, idx[:, None])  # [N, 1]
+        h = torch.einsum("na,eam->nem", xf, self.weight)
+        for hook in self._dispatch_hooks.values():
+            hook(self, xf, idx, h)
+        sel = h.gather(1, idx[:, None, None].expand(-1, 1, self.features))[:, 0, :]
+        return (gate.to(sel.dtype) * sel).reshape(*lead, self.features)

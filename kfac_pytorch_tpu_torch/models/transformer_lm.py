@@ -1,10 +1,10 @@
 """Decoder-only transformer LM with K-FAC layers and pluggable attention.
 
 Port of ``kfac_pytorch_tpu/models/transformer_lm.py`` (``TransformerBlock``,
-``TransformerLM``, ``get_model``) for the dense-MLP subset, tied or
-untied, with the flax model's module names (``tok_embed``, ``pos_embed``,
-``blocks.{i}`` for ``block_{i}``, ``ln_attn``, ``qkv``, ``out``,
-``ln_mlp``, ``ff1``, ``ff2``, ``ln_f``, ``decoder``), so
+``TransformerLM``, ``get_model``), tied or untied, with the flax model's
+module names (``tok_embed``, ``pos_embed``, ``blocks.{i}`` for
+``block_{i}``, ``ln_attn``, ``qkv``, ``out``, ``ln_mlp``, ``ff1``, ``ff2``,
+``moe`` and its ``router``, ``ln_f``, ``decoder``), so
 ``interop.lm_state_dict_from_jax`` maps one tree onto the other. The flax
 semantics it keeps:
 
@@ -20,6 +20,13 @@ semantics it keeps:
 * ``qkv_lens``: the fused QKV projection is ``KFACDense(lens_splits=3)``,
   the expand lens (three ``d_model``-side G factors for the q, k and v
   column slices in place of one ``3·d_model``-side factor);
+* ``tensor_parallel = T > 1``: the Megatron MLP split's curvature model,
+  ``ff1`` a column-sharded and ``ff2`` a row-sharded, bias-free
+  ``KFACShardedDense`` of T shards (the shard lenses, ``shardwise/``); the
+  compute stays whole on one process, as the JAX model's until a mesh
+  splits it;
+* ``moe_experts = E > 0``: the MLP is a ``KFACMoE`` bank of E experts with
+  top-1 routing (exclusive with ``tensor_parallel``, with the JAX error);
 * ``remat``: each block runs under ``torch.utils.checkpoint``
   (``use_reentrant=False``) and recomputes its forward in the backward
   pass, inside ``layers.recomputing()`` so that the K-FAC hooks see one
@@ -53,26 +60,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from kfac_pytorch_tpu_torch.models.layers import KFACDense, KFACEmbed, recomputing
+from kfac_pytorch_tpu_torch.models.layers import (
+    KFACDense,
+    KFACEmbed,
+    KFACMoE,
+    KFACShardedDense,
+    recomputing,
+)
 from kfac_pytorch_tpu_torch.parallel.context import full_attention
 
 AttentionFn = Callable[..., torch.Tensor]  # (q, k, v, causal=...) -> out
 
 LN_EPS = 1e-6
-
-
-def _refuse_later_options(**opts) -> None:
-    """Options of the JAX model that a later slice ports."""
-    names = {
-        "tensor_parallel": "tensor_parallel > 1 (shardwise)",
-        "moe_experts": "moe_experts > 0 (shardwise MoE)",
-    }
-    for key, set_ in opts.items():
-        if set_:
-            raise NotImplementedError(
-                f"{names[key]} is not ported to kfac_pytorch_tpu_torch yet "
-                "(ROADMAP queue 1 item 8b)"
-            )
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -93,8 +92,16 @@ class TransformerBlock(nn.Module):
         attention_fn: AttentionFn = full_attention,
         dropout: float = 0.0,
         qkv_lens: bool = False,
+        tensor_parallel: int = 1,
+        moe_experts: int = 0,
     ):
         super().__init__()
+        if tensor_parallel > 1 and moe_experts > 0:
+            raise ValueError(
+                "tensor_parallel > 1 and moe_experts > 0 are mutually "
+                "exclusive: the MoE expert bank replaces the MLP the "
+                "tensor-parallel split would shard"
+            )
         self.d_model, self.n_heads = d_model, n_heads
         self.attention_fn = attention_fn
         self.dropout = dropout
@@ -102,8 +109,15 @@ class TransformerBlock(nn.Module):
         self.qkv = KFACDense(d_model, 3 * d_model, lens_splits=3 if qkv_lens else 1)
         self.out = KFACDense(d_model, d_model)
         self.ln_mlp = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ff1 = KFACDense(d_model, d_ff)
-        self.ff2 = KFACDense(d_ff, d_model)
+        # the MLP: an MoE bank, the Megatron split's shard lenses, or dense
+        self.moe = KFACMoE(d_model, d_model, moe_experts) if moe_experts > 0 else None
+        if self.moe is None and tensor_parallel > 1:
+            self.ff1 = KFACShardedDense(d_model, d_ff, tensor_parallel, sharding="column")
+            self.ff2 = KFACShardedDense(d_ff, d_model, tensor_parallel, sharding="row",
+                                        bias=False)
+        elif self.moe is None:
+            self.ff1 = KFACDense(d_model, d_ff)
+            self.ff2 = KFACDense(d_ff, d_model)
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         """``seed`` seeds this block's dropout masks (``None``: no dropout)."""
@@ -120,7 +134,11 @@ class TransformerBlock(nn.Module):
         if gen is not None:
             a = _dropout(a, self.dropout, gen)
         x = x + a
-        f = self.ff2(F.gelu(self.ff1(self.ln_mlp(x)), approximate="tanh"))
+        h = self.ln_mlp(x)
+        if self.moe is not None:
+            f = self.moe(h)
+        else:
+            f = self.ff2(F.gelu(self.ff1(h), approximate="tanh"))
         if gen is not None:
             f = _dropout(f, self.dropout, gen)
         return x + f
@@ -149,6 +167,8 @@ class TransformerLM(nn.Module):
         qkv_lens: bool = False,
         tie_embeddings: bool = False,
         remat: bool = False,
+        tensor_parallel: int = 1,
+        moe_experts: int = 0,
         seq_shards: int = 1,
         seq_index: int = 0,
     ):
@@ -164,7 +184,7 @@ class TransformerLM(nn.Module):
         self.pos_embed = nn.Embedding(max_len, d_model)
         self.blocks = nn.ModuleList(
             TransformerBlock(d_model, n_heads, d_ff or 4 * d_model, attention_fn,
-                             dropout, qkv_lens)
+                             dropout, qkv_lens, tensor_parallel, moe_experts)
             for _ in range(n_layers)
         )
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -211,13 +231,16 @@ class TransformerLM(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """flax's initializers, drawn from ``generator`` on the CPU: lecun-normal
-    projections (truncated at ±2σ, variance 1/fan_in) with zero biases,
-    normal(0, 1/d) embeddings, unit LayerNorm scales."""
+    projections (truncated at ±2σ, variance 1/fan_in; an MoE bank's fan_in
+    is E·a, as flax counts it) with zero biases, normal(0, 1/d) embeddings,
+    unit LayerNorm scales."""
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+        if isinstance(m, (nn.Linear, KFACMoE)):
+            fan_in = m.in_features * (m.num_experts if isinstance(m, KFACMoE) else 1)
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-            nn.init.zeros_(m.bias)
+            if getattr(m, "bias", None) is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, 0.0, m.embedding_dim ** -0.5, generator=generator)
         elif isinstance(m, nn.LayerNorm):
@@ -245,17 +268,13 @@ def get_model(
 ) -> TransformerLM:
     """Factory with the JAX factory's arguments, built on the CPU from
     ``generator`` (seed 0 when none is given), and the seq slot
-    (``seq_shards``, ``seq_index``) of a rank under sequence parallelism.
-    The shardwise options (item 8b) raise ``NotImplementedError``."""
-    _refuse_later_options(
-        tensor_parallel=tensor_parallel != 1, moe_experts=moe_experts != 0,
-    )
+    (``seq_shards``, ``seq_index``) of a rank under sequence parallelism."""
     model = TransformerLM(
         vocab_size, max_len=max_len, d_model=d_model, n_heads=n_heads,
         n_layers=n_layers, attention_fn=attention_fn, dropout=dropout,
         kfac_embedding=kfac_embedding, qkv_lens=qkv_lens,
-        tie_embeddings=tie_embeddings, remat=remat, seq_shards=seq_shards,
-        seq_index=seq_index,
+        tie_embeddings=tie_embeddings, remat=remat, tensor_parallel=tensor_parallel,
+        moe_experts=moe_experts, seq_shards=seq_shards, seq_index=seq_index,
     )
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model

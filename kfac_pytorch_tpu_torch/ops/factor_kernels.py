@@ -30,9 +30,13 @@ beside it and a launch counter (``fn.launches``, CUDA calls only):
   :func:`check_token_ids`. The plain version
   :func:`compute_a_embed_fused_plain` counts in integers and divides once.
   Both equal the oracle ``ops/factors.py::compute_a_embed`` bit for bit.
+  An MoE layer's expert fractions are the same function with ``vocab = E``
+  (:func:`dispatch_compute_a_moe`), launched through the same wrapper and
+  counted on its counter.
 
 Routing (:func:`dispatch_compute_a_conv`,
-:func:`dispatch_compute_a_conv_grouped`, :func:`dispatch_compute_a_embed`):
+:func:`dispatch_compute_a_conv_grouped`, :func:`dispatch_compute_a_embed`,
+:func:`dispatch_compute_a_moe`):
 ``"dense"`` is the oracle (``ops/factors.py``), kept as the explicit option
 the JAX package also has; ``"auto"`` (the default) always goes through the
 kernel wrapper; ``"kernel"`` insists on the kernel and refuses a CPU
@@ -478,3 +482,15 @@ def dispatch_compute_a_embed(
     if kind == "dense":
         return factors.compute_a_embed(ids, vocab)
     return compute_a_embed_fused(ids, vocab)
+
+
+def dispatch_compute_a_moe(
+    expert_ids: torch.Tensor, num_experts: int, *, kind: str = "auto"
+) -> torch.Tensor:
+    """An MoE layer's expert token fractions ``counts_e / N`` (``[E]``
+    float32): the ``[tokens, experts]`` dispatch one-hot is the embedding
+    one-hot with ``vocab = E``, so the fractions ride the token-count
+    kernel (``compute_a_embed_fused``, counted on its counter) exactly as
+    :func:`dispatch_compute_a_embed` routes; ``"dense"`` takes the
+    scatter-add oracle. Integer ids: nothing here is differentiated."""
+    return dispatch_compute_a_embed(expert_ids, num_experts, kind=kind)

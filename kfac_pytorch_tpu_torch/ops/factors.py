@@ -2,7 +2,10 @@
 
 Port of ``kfac_pytorch_tpu/ops/factors.py`` (the conv, grouped conv, dense
 and diagonal-A embedding subset, ``compute_g_diag`` for the tied decoder
-head, the running average and the factor wire's bucket merge
+head, the shard lenses' stacks (``compute_a_row_sharded``,
+``compute_g_dense_sharded``, the MoE sums ``compute_a_moe``/
+``compute_g_moe`` and the one-hot oracle ``compute_a_moe_onehot``), the
+running average and the factor wire's bucket merge
 ``merge_running_avg_buckets``). The math is the reference's; the layouts
 are PyTorch's:
 
@@ -175,6 +178,49 @@ def compute_a_conv_grouped(
     return p.transpose(1, 2) @ (p / b)
 
 
+def compute_a_row_sharded(a: torch.Tensor, shards: int) -> torch.Tensor:
+    """Per-shard input covariances of a ROW-sharded dense kernel:
+    ``[T, a/T, a/T]``, each the covariance of one disjoint feature slice of
+    the input (the shard lens, arxiv 2311.00636). No bias column (a
+    row-sharded layer has none); scaled ``/N`` as :func:`compute_a_dense`."""
+    a = _flatten_leading(a)
+    n = a.shape[0]
+    am = a.reshape(n, shards, a.shape[-1] // shards).transpose(0, 1)  # [T, N, a/T]
+    return am.transpose(1, 2) @ (am / n)
+
+
+def compute_a_moe(x: torch.Tensor, expert_ids: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Per-expert UNNORMALIZED input-covariance sums ``[E, a, a]``: expert
+    ``e``'s slot is ``(1/N)·Σ_{t: id_t=e} x_t x_tᵀ`` with the GLOBAL ``N``,
+    so the sums stay linear in per-token contributions (the ranks' mean is
+    exact) and the per-expert normalization waits for the EMA
+    (``shardwise.moe_ema``). Each expert's rows are selected with an
+    ``[N]`` boolean mask; the ``[N, E]`` one-hot is never formed."""
+    x = _flatten_leading(x)
+    ids = expert_ids.reshape(-1)
+    n = x.shape[0]
+    out = []
+    for e in range(num_experts):
+        xm = x * (ids == e)[:, None].to(x.dtype)
+        out.append(xm.T @ (xm / n))
+    return torch.stack(out)
+
+
+def compute_a_moe_onehot(x: torch.Tensor, expert_ids: torch.Tensor,
+                         num_experts: int) -> torch.Tensor:
+    """The dense one-hot oracle of :func:`compute_a_moe`: the ``[N, E]``
+    dispatch one-hot is formed and each expert masks with its column, the
+    same elementwise product, so the two are bitwise equal."""
+    x = _flatten_leading(x)
+    n = x.shape[0]
+    onehot = F.one_hot(expert_ids.reshape(-1).long(), num_experts).to(x.dtype)
+    out = []
+    for e in range(num_experts):
+        xm = x * onehot[:, e][:, None]
+        out.append(xm.T @ (xm / n))
+    return torch.stack(out)
+
+
 def compute_a_embed(ids: torch.Tensor, vocab: int) -> torch.Tensor:
     """Input-covariance DIAGONAL of an embedding layer: token frequencies.
 
@@ -209,6 +255,31 @@ def compute_g_diag(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:
     n = g.shape[0]
     scale = float(n) if batch_averaged else 1.0 / n
     return torch.sum(g * g, dim=0) * scale
+
+
+def compute_g_dense_sharded(g: torch.Tensor, shards: int, batch_averaged: bool) -> torch.Tensor:
+    """Per-shard grad-output covariances of a COLUMN-sharded dense kernel:
+    ``[T, m/T, m/T]``. The shards' outputs are disjoint slices, so the G
+    factor is exactly block-diagonal; one batched product, scaled as
+    :func:`compute_g_dense` (×N batch-averaged, /N otherwise)."""
+    g = _flatten_leading(g)
+    n = g.shape[0]
+    gm = g.reshape(n, shards, g.shape[-1] // shards).transpose(0, 1)  # [T, N, m/T]
+    scale = float(n) if batch_averaged else 1.0 / n
+    return gm.transpose(1, 2) @ (gm * scale)
+
+
+def compute_g_moe(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:
+    """Per-expert UNNORMALIZED grad-output covariance sums ``[E, m, m]``
+    from the ``[.., E, m]`` gradient of the dense per-expert outputs,
+    already expert-masked by the top-1 routing (a token's rows are zero for
+    every expert it did not visit). Scaled over the GLOBAL token count as
+    :func:`compute_g_dense`; the per-expert normalization waits for the EMA
+    (see :func:`compute_a_moe`)."""
+    g = g.reshape(-1, g.shape[-2], g.shape[-1]).transpose(0, 1)  # [E, N, m]
+    n = g.shape[1]
+    scale = float(n) if batch_averaged else 1.0 / n
+    return g.transpose(1, 2) @ (g * scale)
 
 
 def compute_g_conv(g: torch.Tensor, batch_averaged: bool) -> torch.Tensor:

@@ -35,6 +35,13 @@ statistics cross the wire through one plane that owns these levers:
   (``batch_isend_irecv``), as the JAX package takes its ``ppermute`` ring:
   another summation order, so equal to the mean only to reassociation.
 
+Every leaf shape capture produces rides the buckets: the shard lenses'
+stacks (``[T, m/T, m/T]``, ``[T, a/T, a/T]``, ``[E, ·, ·]``) and an MoE
+bank's A pair ``{"S", "f"}`` (both leaves averaged before the weighted
+EMA); the deferred flush and its int8 wire take the column and row
+stacks, and ``KFAC`` refuses them for an MoE bank (its EMA is not linear).
+On a data×tensor world the plane's group is the data subgroup.
+
 The plane is inert on a world of one (``multi_device`` is False), NCCL's
 world of one included: no factor collective is issued there. The JAX
 package's stochastic rounding draws from threefry; the port cannot

@@ -1,7 +1,8 @@
 """The data-parallel world: the port's counterpart of a 1-D device mesh.
 
-Port of ``kfac_pytorch_tpu/parallel/mesh.py``'s one-axis part
-(``data_parallel_mesh``, ``data_axis_size``, ``put_global_batch``). A JAX
+Port of ``kfac_pytorch_tpu/parallel/mesh.py``'s one- and two-axis part
+(``data_parallel_mesh``, ``data_tensor_mesh``, ``data_axis_size``,
+``put_global_batch``). A JAX
 mesh of ``world`` devices on one data axis is, in PyTorch, a process group
 of ``world`` ranks with one device each: :class:`World` names that group
 and carries the collectives the port issues on it (the means of the
@@ -25,9 +26,20 @@ refuses) the ring hop's CUDA tensors cross through host memory
 device pointer for host memory and aborts the process (``writev: Bad
 address``, torch 2.11 on an H100), while its ``all_to_all_single`` takes
 CUDA tensors. The staging is a transport chosen from the backend, never a
-fallback; NCCL takes the tensors as they are. The 2-D data×tensor and 3-D
-data×fsdp×tensor meshes and ``split_service_mesh`` wait for ROADMAP queue
-1 items 8b and 9b.
+fallback; NCCL takes the tensors as they are.
+
+The data×tensor world (:func:`data_tensor_world`) is the JAX package's
+``data_tensor_mesh``: rank ``r`` is data slot ``r // tp`` and tensor slot
+``r % tp``, and the tensor axis is replicated compute, so the tensor peers
+of a data slot hold the same batch rows and the same state. Every
+collective the port issues rides the data axis only: the world's group
+is this rank's DATA subgroup (the ranks of its tensor slot), its ``size``
+the data size and its ``rank`` the data slot, so the gradient and loss
+means, the factor buckets, the owner mode's reduce-scatter and gathers and
+an owner checkpoint's gathers see the data axis, as the JAX package's
+K-FAC planes do (``preconditioner.py``'s ``_non_tensor_world``). The 3-D
+data×fsdp×tensor mesh waits for ROADMAP queue 1 item 8c and
+``split_service_mesh`` for 9b.
 
 Which rows of the global batch a rank holds: the global batch of a step is
 the concatenation of the data slots' batches in slot order (on a world
@@ -71,6 +83,10 @@ class World:
     seq_size: int = 1
     seq_group: Optional[Any] = None
     seq_staged: bool = False
+    # the replicated-compute tensor axis: its size and this rank's slot (the
+    # group above is then the data subgroup of that slot)
+    tensor_size: int = 1
+    tensor_slot: int = 0
 
     @property
     def seq_slot(self) -> int:
@@ -179,11 +195,13 @@ class World:
         return dist.all_reduce(t, group=self.group, async_op=True)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-        """Overwrite each tensor with rank ``src``'s, in place."""
+        """Overwrite each tensor with rank ``src``'s (a rank of this world's
+        group), in place."""
         if not self.distributed:
             return
+        root = src if self.group is None else dist.get_global_rank(self.group, src)
         for t in tensors:
-            dist.broadcast(t, src=src, group=self.group)
+            dist.broadcast(t, src=root, group=self.group)
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -239,6 +257,32 @@ def data_seq_world(seq_parallel: int, device: Optional[torch.device] = None) -> 
     staged = (device is not None and torch.device(device).type == "cuda"
               and dist.get_backend(mine) == "gloo")
     return dataclasses.replace(world, seq_size=seq_parallel, seq_group=mine, seq_staged=staged)
+
+
+def data_tensor_world(tensor_parallel: int) -> World:
+    """The default group's ranks as a data×tensor world (the JAX
+    ``data_tensor_mesh``), laid out row-major: rank ``r`` is data slot
+    ``r // tensor_parallel`` and tensor slot ``r % tensor_parallel``. The
+    returned world is this rank's data subgroup (the ranks of its tensor
+    slot), so every collective on it rides the data axis; a world with no
+    tensor axis at 1. Every rank creates every subgroup, in tensor-slot
+    order, as ``torch.distributed.new_group`` requires."""
+    world = data_parallel_world()
+    if tensor_parallel == 1:
+        return world
+    if tensor_parallel < 1 or not world.distributed or world.size % tensor_parallel:
+        raise ValueError(
+            f"--tensor-parallel {tensor_parallel} must divide device count {world.size}"
+        )
+    mine = None
+    for t in range(tensor_parallel):
+        ranks = list(range(t, world.size, tensor_parallel))
+        g = dist.new_group(ranks)
+        if world.rank in ranks:
+            mine = g
+    return World(group=mine, size=world.size // tensor_parallel,
+                 rank=world.rank // tensor_parallel, distributed=True,
+                 tensor_size=tensor_parallel, tensor_slot=world.rank % tensor_parallel)
 
 
 def local_seq(seq_len: int, world: World) -> slice:

@@ -15,6 +15,9 @@ preconditioner's size → rank policy of the truncated solvers) a slot whose
 size maps to a rank takes the randomized solve of ``ops/rsvd.py`` instead,
 grouped by ``(size, rank)``, and yields a rectangular ``(Q_r [n, r], d_r
 [r], rho)`` entry; ``rank_fn=None`` leaves every path as it was.
+Shard-lens layers (``#cT``/``#rT``/``#eE``) never reach this module: they
+refresh densely on every rank (``shardwise.eigen_refresh``), outside the
+slot tables.
 
 Over ``world`` ranks (:func:`sharded_eigen_update`) each rank decomposes
 only the slots the round-robin table (``parallel/assignment.py``) gives

@@ -87,6 +87,16 @@ the precondition runs before the chunk, and the chunk's decomposition runs
 on a side CUDA stream, joined at the next ``update``. Values are bitwise
 those of the serial order. Inert on a world of one.
 
+Shard-lens layers (``KFACShardedDense``'s ``path#cT``/``path#rT`` and
+``KFACMoE``'s ``path#eE``, ``shardwise/``) keep stacked factors and
+form-prefixed eigen entries: their EMA is elementwise (the MoE bank's
+token-count-weighted, ``shardwise.moe_ema``), their refresh a dense batched
+eigh on every rank, outside the round-robin and truncated-solver tables,
+and their solve a batched product chain outside kernel 3's shape groups,
+its KL-clip partials after the fused kernel's. The levers that reshape a
+refresh or re-home factors refuse them, with the JAX package's messages
+(:data:`SHARD_LENS_RULES`).
+
 The constructor takes every argument of the reference with its default and
 validation. Levers outside the ported slices raise ``NotImplementedError``
 naming the ROADMAP queue-1 item that ports them.
@@ -101,7 +111,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from kfac_pytorch_tpu_torch import capture
+from kfac_pytorch_tpu_torch import capture, shardwise
 from kfac_pytorch_tpu_torch.device import (
     DeviceLike,
     resolve_device,
@@ -202,6 +212,75 @@ def seq_axis_violations(world_size: int, seq_parallel: int, **levers) -> list:
     if world_size <= 1 or seq_parallel <= 1:
         return []
     return [(name, msg) for name, applies, msg in SEQ_AXIS_RULES if applies(levers)]
+
+
+# The JAX planner's refusals of the levers that have nothing coherent to do
+# with shard-lens layers (their blocks refresh densely in-step and sit where
+# their kernel shard is; planner/profiles.py rules of the same names); a
+# message's "{kind}" names what the model carries
+_OWNER_PIN = (
+    "{kind} pin each factor block to the device holding the matching "
+    "kernel shard (shardwise.factor_leaf_spec); factor_sharding='owner' "
+    "would re-home those blocks onto LPT owners and gather them back every "
+    "step — pick one placement scheme"
+)
+SHARD_LENS_RULES = (
+    ("shard_lens_vs_inverse",
+     lambda o: o["shard"] and o["precond_method"] == "inverse",
+     "{kind} precondition per shard block in the eigenbasis "
+     "(shardwise.precondition); precond_method='inverse' keeps whole-factor "
+     "Cholesky inverses with no per-block layout — use the eigen method"),
+    ("shard_lens_vs_owner_sharding",
+     lambda o: o["has_shard_lens"] and o["factor_sharding"] == "owner",
+     _OWNER_PIN),
+    ("moe_vs_owner_sharding",
+     lambda o: o["has_moe"] and not o["has_shard_lens"] and o["factor_sharding"] == "owner",
+     _OWNER_PIN),
+    ("shard_lens_vs_chunks",
+     lambda o: o["shard"] and o["eigh_chunks"] > 1,
+     "{kind} refresh densely per block — there is no whole-factor eigh "
+     "spike for eigh_chunks > 1 to spread, and the chunk planner's slot "
+     "tables do not describe stacked factors"),
+    ("shard_lens_vs_streaming",
+     lambda o: o["shard"] and o["solver"] == "streaming",
+     "{kind} keep dense per-block bases; solver='streaming' folds factors "
+     "through retained truncated bases that the stacked layout does not "
+     "carry — non-shard layers may ride solver='rsvd' instead"),
+    ("shard_lens_vs_diag_blocks",
+     lambda o: o["shard"] and o["diag_blocks"] != 1,
+     "{kind} already block their factors along shard/expert boundaries; "
+     "diag_blocks > 1 would carve a second, conflicting block structure "
+     "into the same factors"),
+    ("service_vs_shard_lens",
+     lambda o: o["shard"] and o["service_devices"] > 0,
+     "{kind} refresh in-step (cheap dense per-block eigh); service_devices "
+     "> 0 publishes whole-factor snapshots the worker protocol does not lay "
+     "out as stacks — run the service on unsharded models"),
+    ("moe_vs_deferred_comm",
+     lambda o: o["has_moe"] and o["factor_comm_freq"] > 1,
+     "MoE expert banks use the token-count-weighted EMA (shardwise.moe_ema), "
+     "whose per-expert decay alpha**w_e is not linear in the contributions "
+     "— deferred factor communication (factor_comm_freq > 1) merges "
+     "per-replica EMAs by linearity and would silently corrupt expert "
+     "statistics"),
+)
+
+_SHARD_LEVER_DEFAULTS = dict(precond_method="eigen", factor_sharding="replicated",
+                             eigh_chunks=1, solver="eigh", diag_blocks=1,
+                             service_devices=0, factor_comm_freq=1)
+
+
+def shard_lens_violations(has_shard_lens: bool, has_moe: bool, **levers) -> list:
+    """``[(rule, message)]`` of the levers (``precond_method``,
+    ``factor_sharding``, ``eigh_chunks``, ``solver``, ``diag_blocks``,
+    ``service_devices``, ``factor_comm_freq``; the defaults for those not
+    given) that a model with column/row shard-lens layers
+    (``has_shard_lens``) or MoE banks (``has_moe``) refuses."""
+    o = {**_SHARD_LEVER_DEFAULTS, **levers, "has_shard_lens": has_shard_lens,
+         "has_moe": has_moe, "shard": has_shard_lens or has_moe}
+    kind = "shard-lens layers" if has_shard_lens else "MoE expert banks"
+    return [(name, msg.format(kind=kind)) for name, applies, msg in SHARD_LENS_RULES
+            if applies(o)]
 
 
 def _not_ported(lever: str, item: str) -> None:
@@ -320,6 +399,14 @@ class KFAC:
             name, msg = bad[0]
             raise ValueError(f"{msg} (planner rule {name})")
         self.seq_parallel = seq_parallel
+        # the shard-lens registry: an explicit layer list names them here,
+        # else init() discovers them and checks the same rules
+        self._shard_levers = dict(
+            precond_method=precond_method, factor_sharding=factor_sharding,
+            eigh_chunks=eigh_chunks, solver=solver, diag_blocks=diag_blocks,
+            service_devices=service_devices, factor_comm_freq=factor_comm_freq,
+        )
+        self._register_shard_layers(layers or [])
         # Where the factor running averages and eigenbases live: on every
         # rank ("replicated") or only on each layer's precondition owner
         # ("owner", DP-KFAC); the caller's request, before a world of one
@@ -617,6 +704,18 @@ class KFAC:
             kfac_update_freq=kfac_update_freq,
         )
 
+    def _register_shard_layers(self, names) -> None:
+        """Register ``names``' shard-lens layers (:attr:`shard_layers`) and
+        raise the first :data:`SHARD_LENS_RULES` refusal they meet."""
+        names = list(names)
+        self.shard_layers = shardwise.shard_entries(names)
+        self.has_shard_lens = shardwise.has_shard_lens(names)
+        self.has_moe = shardwise.has_moe(names)
+        bad = shard_lens_violations(self.has_shard_lens, self.has_moe, **self._shard_levers)
+        if bad:
+            name, msg = bad[0]
+            raise ValueError(f"{msg} (planner rule {name})")
+
     # ------------------------------------------------------------------
     # Solver policy
     # ------------------------------------------------------------------
@@ -877,9 +976,13 @@ class KFAC:
         vocab and an identity over the features. A grouped conv's
         pseudo-layer ``path#gK`` gets an ``(in/G)·kh·kw (+1)`` A side and an
         ``out/G`` G side; a lens split ``path#sK`` the layer's whole A side
-        and an ``out/S`` G side."""
+        and an ``out/S`` G side; a shard-lens layer its identity stacks
+        (``shardwise.identity_factors``)."""
         facs = {}
-        names = self.layers if self.layers is not None else capture.discover_layers(model)
+        names = self.layers
+        if names is None:
+            names = capture.discover_layers(model)
+            self._register_shard_layers(names)
         modules: Dict[str, nn.Module] = {}
         for name in names:
             base = capture.layer_base(name)
@@ -891,9 +994,16 @@ class KFAC:
                 raise ValueError(
                     f"K-FAC layer {name!r}: a grouped conv is listed as its "
                     f"pseudo-layers '{base}{capture.GROUP_SEP}K', a lens-split "
-                    f"dense layer as its '{base}{capture.SPLIT_SEP}K', any "
-                    "other layer by its module path"
+                    f"dense layer as its '{base}{capture.SPLIT_SEP}K', a "
+                    f"shard-lens layer as '{parts[0]}', any other layer by "
+                    "its module path"
                 )
+            _, form, count = capture.split_shard_name(name)
+            if form is not None:
+                facs[name] = shardwise.identity_factors(
+                    form, count, tuple(m.weight.shape), getattr(m, "bias", None) is not None,
+                    device=self.device)
+                continue
             if isinstance(m, KFACEmbed):
                 vocab, feats = m.weight.shape
                 facs[name] = {
@@ -937,6 +1047,11 @@ class KFAC:
         inverse = self.precond_method == "inverse"
         eigen = {}
         for name, f in facs.items():
+            form = capture.split_shard_name(name)[1]
+            if form is not None:
+                # form-prefixed identity bases, always float32
+                eigen[name] = shardwise.identity_eigen(form, f)
+                continue
             g_side = f["G"].shape[0]
             if "A_diag" in f:
                 vocab = f["A_diag"].shape[0]
@@ -1134,10 +1249,17 @@ class KFAC:
                 a_contribs, g_factor_stats = self.factor_comm.exchange_contribs(
                     {n: a_contribs[n] for n in names}, {n: g_factor_stats[n] for n in names}
                 )
-            # elementwise EMA: the same update serves A matrices and the
-            # embeddings' A_diag vectors
+            # elementwise EMA: the same update serves A matrices, the
+            # embeddings' A_diag vectors and the column/row shard stacks; an
+            # MoE bank's is token-count-weighted (shardwise.ema_update)
             old_facs, facs = facs, {}
             for name in names:
+                se = self.shard_layers.get(name)
+                if se is not None:
+                    facs[name] = shardwise.ema_update(
+                        se[1], old_facs[name], a_contribs[name], g_factor_stats[name],
+                        self.factor_decay)
+                    continue
                 a_key = "A_diag" if "A_diag" in old_facs[name] else "A"
                 facs[name] = {
                     a_key: factor_ops.update_running_avg(
@@ -1182,18 +1304,25 @@ class KFAC:
             eigen, stacked = precond_ops.split_inv_state(inv)
         elif update_eigen:
             diag_blocks = self.diag_blocks if diag_warmup_done else 1
+            # the shard-lens layers refresh apart, below
+            norm_names = [n for n in names if n not in self.shard_layers]
+            norm_facs = {n: facs[n] for n in norm_names}
             # eigh runs in float32; Q is written in eigen_dtype
             if self.world.size > 1:
                 eigen = sharded_eigen_update(
-                    facs, self._eigh_table(grads, names, diag_blocks), self.world,
+                    norm_facs, self._eigh_table(grads, norm_names, diag_blocks), self.world,
                     self.eps, self.eigen_dtype, rank_fn=self._rank_fn(),
                 )
             else:
                 # blocks split conv factors only (a conv weight is OIHW)
-                blocks = {n: diag_blocks if self._is_conv(grads, n) else 1 for n in names}
+                blocks = {n: diag_blocks if self._is_conv(grads, n) else 1 for n in norm_names}
                 eigen = replicated_eigen_update(
-                    facs, blocks, self.eps, self.eigen_dtype, rank_fn=self._rank_fn()
+                    norm_facs, blocks, self.eps, self.eigen_dtype, rank_fn=self._rank_fn()
                 )
+            # shard-lens layers: a dense batched eigh per stack on every rank
+            # (shardwise.eigen_refresh), no assignment table, no collective
+            for n, (_, form, _) in self.shard_layers.items():
+                eigen[n] = shardwise.eigen_refresh(form, facs[n])
             eigen, stacked, spectrum_mass, fresh_spectra = self._install(
                 facs, eigen, names, spectrum_mass, self.solver != "eigh"
             )
@@ -1542,9 +1671,15 @@ class KFAC:
             spectrum_mass = self._spectrum_mass(facs, full, names)
         fresh_spectra = None
         if self.track_diagnostics:
-            fresh_spectra = {
-                n: (_side_spectrum(full[n], "A"), _side_spectrum(full[n], "G")) for n in names
-            }
+            # a shard-lens layer's spectra are its blocks' eigenvalues, flat
+            fresh_spectra = {}
+            for n in names:
+                se = self.shard_layers.get(n)
+                if se is not None:
+                    _, da_k, _, dg_k = shardwise.EIGEN_KEYS[se[1]]
+                    fresh_spectra[n] = (full[n][da_k].reshape(-1), full[n][dg_k].reshape(-1))
+                else:
+                    fresh_spectra[n] = (_side_spectrum(full[n], "A"), _side_spectrum(full[n], "G"))
         singles, stacked = precond_ops.split_eigen_state(full)
         return singles, stacked, spectrum_mass, fresh_spectra
 
@@ -1560,33 +1695,42 @@ class KFAC:
         embeddings = precond_ops.diag_a_names(eigen)
         lgrads = capture.layer_grads(grads, names, embeddings)
         gmats = {n: m.float() for n, m in capture.grad_mats(lgrads).items()}
-        if self.distribute_precondition and self.world.size > 1:
+        # shard-lens layers solve shard-locally (shardwise.precondition),
+        # outside the shape groups and the distributed assignment
+        norm_gmats = {n: g for n, g in gmats.items() if n not in self.shard_layers}
+        vg_terms = None
+        if not norm_gmats:
+            updates = {}
+        elif self.distribute_precondition and self.world.size > 1:
             owners = precondition_assignment(
-                {n: tuple(g.shape) for n, g in gmats.items()},
+                {n: tuple(g.shape) for n, g in norm_gmats.items()},
                 self.world.size,
                 diag_a=embeddings,
             )
             common = dict(world=self.world, owners=owners, comm_dtype=self.precond_comm_dtype)
             if self.precond_method == "inverse":
                 updates = precond_ops.precondition_all_inv_distributed(
-                    gmats, eigen, stacked, self.precond_precision, **common
+                    norm_gmats, eigen, stacked, self.precond_precision, **common
                 )
             else:
                 updates = precond_ops.precondition_all_distributed(
-                    gmats, eigen, damping, stacked, self.precond_precision,
+                    norm_gmats, eigen, damping, stacked, self.precond_precision,
                     kind=self.apply_kernel, **common,
                 )
-            vg_terms = None
         elif self.precond_method == "inverse":
             updates = precond_ops.precondition_all_inv(
-                gmats, eigen, stacked=stacked, precision=self.precond_precision
+                norm_gmats, eigen, stacked=stacked, precision=self.precond_precision
             )
-            vg_terms = None
         else:
             updates, vg_terms = precond_ops.precondition_all_with_vg(
-                gmats, eigen, damping, stacked=stacked, kind=self.apply_kernel,
+                norm_gmats, eigen, damping, stacked=stacked, kind=self.apply_kernel,
                 precision=self.precond_precision,
             )
+        for n, (_, form, count) in self.shard_layers.items():
+            updates[n] = shardwise.precondition(form, count, gmats[n], eigen[n], damping)
+            if vg_terms is not None:
+                # after the fused kernel's partials, in emission order
+                vg_terms.append((updates[n] * gmats[n]).sum())
         if vg_terms is not None:
             nu = precond_ops.kl_clip_from_vg(vg_terms, lr, self.hparams.kl_clip)
         else:

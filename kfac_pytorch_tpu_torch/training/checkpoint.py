@@ -25,6 +25,13 @@ owner state passes, a replicated one is re-homed into the owner rows
 (``KFAC.owner_state_from_replicated``), and an owner state for a replicated
 preconditioner is refused, as in the JAX package.
 
+Shard-lens factor stacks and their form-prefixed eigen entries
+(``cQA``/``rdG``/``eQG``…) are ordinary tensors of the state and round-trip
+as they are. On a data×tensor world (``parallel.mesh.data_tensor_world``)
+the ``world`` of :func:`save_checkpoint` is the data subgroup: its owner
+rows gather over the data axis (the tensor peers hold the same rows), and
+the global rank 0 writes.
+
 Data-parallel, only rank 0 writes; every rank reads the directory (a
 shared file system, as the JAX package's checkpoints need) at the epoch
 rank 0 resumes from, which is broadcast, as the reference broadcasts it

@@ -84,16 +84,22 @@ def _lm_batch():
     return toks[:, :-1].astype(np.int64), toks[:, 1:].astype(np.int64)
 
 
-def _jax_lm_run():
-    """The JAX package's 2×4 data×seq ring run: ``(init params, losses,
-    params after each step)``."""
+def _jax_lm_params():
+    """The JAX LM's initial parameters (numpy)."""
+    x = jnp.asarray(_lm_batch()[0].astype(np.int32))
+    return _np_tree(jlm.get_model(VOCAB, **LM_KW).init(jax.random.PRNGKey(0), x,
+                                                        train=True)["params"])
+
+
+def _jax_lm_run(init):
+    """The JAX package's 2×4 data×seq ring run from the numpy parameters
+    ``init``: ``(losses, params after each step)``."""
     devices = np.asarray(jax.devices()[:8]).reshape(2, 4)
     mesh = Mesh(devices, ("data", "seq"))
     attn = jcp_attention(mesh, seq_axis="seq", batch_axis="data")
     model = jlm.get_model(VOCAB, attention_fn=attn, **LM_KW)
     x, y = (jnp.asarray(a.astype(np.int32)) for a in _lm_batch())
-    params = jlm.get_model(VOCAB, **LM_KW).init(jax.random.PRNGKey(0), x, train=True)["params"]
-    init = _np_tree(params)  # the step donates its state
+    params = jax.tree_util.tree_map(jnp.asarray, init)
     kfac = JKFAC(damping=0.01, fac_update_freq=1, kfac_update_freq=1)
     tx = jmake_sgd(momentum=0.9)
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
@@ -107,7 +113,7 @@ def _jax_lm_run():
                         update_factors=True, update_eigen=i == 0)
         losses.append(float(m["loss"]))
         after.append(lm_state_dict_from_jax(_np_tree(state.params)))
-    return init, losses, after
+    return losses, after
 
 
 def _one_process_run(weights):
@@ -131,21 +137,28 @@ def _one_process_run(weights):
 
 @pytest.fixture(scope="module")
 def context_runs(tmp_path_factory):
+    """The ranks run while this process runs JAX and the one-process port:
+    both spawns start first (the 4-rank LM takes the JAX run's initial
+    weights, which the JAX model's init gives without a train step), and
+    are joined after."""
     inputs = _attn_inputs()
     attn = {"inputs": inputs, "cases": CASES}
-    params, jlosses, jafter = _jax_lm_run()
-    weights = lm_state_dict_from_jax(params)
+    init = _jax_lm_params()
+    weights = lm_state_dict_from_jax(init)
     train = {"vocab": VOCAB, "model": LM_KW, "batch": _lm_batch(), "steps": LM_STEPS,
              "kinds": ("ring", "ulysses"), "weights": {k: v.numpy() for k, v in weights.items()}}
     twin = {kind: [*TINY, "--seq-parallel", "2", "--attention", kind]
             for kind in ("ring", "ulysses")}
     root = tmp_path_factory.mktemp("context")
-    ranks = {
-        2: workers.spawn("context", 2, str(root / "w2"), seq=2, attn=attn, twin=twin),
-        4: workers.spawn("context", 4, str(root / "w4"), seq=2, attn=attn, train=train),
+    started = {
+        2: workers.start("context", 2, str(root / "w2"), seq=2, attn=attn, twin=twin),
+        4: workers.start("context", 4, str(root / "w4"), seq=2, attn=attn, train=train),
     }
+    jlosses, jafter = _jax_lm_run(init)
+    one, twin_one = _one_process_run(weights), trainer.main(TINY)["loss"]
+    ranks = {n: workers.join(h) for n, h in started.items()}
     return {"ranks": ranks, "inputs": inputs, "jax": (jlosses, jafter),
-            "one": _one_process_run(weights), "twin_one": trainer.main(TINY)["loss"]}
+            "one": one, "twin_one": twin_one}
 
 
 def _jax_attention(world, kind, causal, q, k, v, do):

@@ -685,6 +685,31 @@ def test_token_count_kernel_defers_the_range_check(cuda_device, dtype):
     tfk.check_token_ids(cuda_device)  # the check reset the tally
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("experts,skew", [(4, False), (4, True), (2, False), (8, True)])
+def test_token_count_kernel_at_moe_expert_counts(cuda_device, experts, skew):
+    """Kernel 2 as the MoE bank's expert fractions (``vocab = E``): the
+    phase-8 LM's 8192 top-1 expert ids meet in a few bins, bitwise against
+    the plain version, through the MoE dispatch and counted once per call;
+    an expert that receives no id gets an exact zero."""
+    r = np.random.RandomState(72)
+    if skew:  # one expert takes most tokens, the last none
+        ids = r.choice(experts - 1, size=(4, 2048), p=[0.9] + [0.1 / (experts - 2)] * (experts - 2))
+    else:
+        ids = r.randint(0, experts, size=(4, 2048))
+    t_ids = torch.from_numpy(ids.reshape(-1)).to(cuda_device)  # argmax ids: int64
+    before = tfk.compute_a_embed_fused.launches
+    got = tfk.dispatch_compute_a_moe(t_ids, experts)
+    torch.cuda.synchronize()
+    assert tfk.compute_a_embed_fused.launches == before + 1
+    assert torch.equal(got, tfk.compute_a_embed_fused_plain(t_ids, experts))
+    assert torch.equal(got, tf.compute_a_embed(t_ids, experts))
+    if skew:
+        assert float(got[-1]) == 0.0
+    assert torch.equal(tfk.dispatch_compute_a_moe(t_ids, experts, kind="dense"), got)
+    tfk.check_token_ids(cuda_device)
+
+
 # (B, T, H, D, causal): the LM path's head width at several lengths,
 # ragged lengths (no multiple of the 64-row tile), the other head widths
 FLASH_CASES = [

@@ -310,14 +310,25 @@ def test_train_step_matches_jax(step_results, route):
 # -------------------------------------------------------------------- twins
 
 
-@pytest.fixture(scope="module")
-def twin_results(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def twin_spawn(tmp_path_factory):
+    """The twins' two ranks, started before the module's first test so that
+    they run while this process runs JAX; joined when first read, and at the
+    module's end."""
     root = tmp_path_factory.mktemp("twins")
     write_cifar(str(root / "cifar"), 8, 7)
     _write_shards(str(root / "shards"), 122, 8, 5, 40, 48)
-    ranks = workers.spawn("twins", 2, str(root / "run"), cifar_dir=str(root / "cifar"),
-                          shard_dir=str(root / "shards"), out_dir=str(root / "out"))
-    return root / "out", ranks
+    ranks = workers.joiner(workers.start(
+        "twins", 2, str(root / "run"), cifar_dir=str(root / "cifar"),
+        shard_dir=str(root / "shards"), out_dir=str(root / "out")))
+    yield root / "out", ranks
+    ranks()
+
+
+@pytest.fixture(scope="module")
+def twin_results(twin_spawn):
+    out, ranks = twin_spawn
+    return out, ranks()
 
 
 @pytest.mark.parametrize("twin", ["cifar", "imagenet"])

@@ -312,8 +312,11 @@ LENS_SHAPE = (6, 8, 5)  # cin, m, classes
 LENS_STEPS = 7
 
 
-@pytest.fixture(scope="module")
-def lens_ranks(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def lens_spawn(tmp_path_factory):
+    """The lever cases' two ranks, started before the module's first test so
+    that they run while this process runs JAX; joined when first read, and
+    at the module's end."""
     cin, m, classes = LENS_SHAPE
     r = np.random.RandomState(7)
     weights = {}
@@ -323,10 +326,17 @@ def lens_ranks(tmp_path_factory):
     weights["head.weight"] = (r.randn(classes, 3 * m) / np.sqrt(3 * m)).astype(np.float32)
     weights["head.bias"] = np.zeros(classes, np.float32)
     root = tmp_path_factory.mktemp("lens")
-    return workers.spawn(
+    ranks = workers.joiner(workers.start(
         "lens", 2, str(root / "run"), weights=weights,
         x=r.randn(2, 16, cin).astype(np.float32), y=r.randint(0, classes, size=(2, 16)),
-        shape=LENS_SHAPE, cases=LEVER_CASES, steps=LENS_STEPS, ck_root=str(root / "ck"))
+        shape=LENS_SHAPE, cases=LEVER_CASES, steps=LENS_STEPS, ck_root=str(root / "ck")))
+    yield ranks
+    ranks()
+
+
+@pytest.fixture(scope="module")
+def lens_ranks(lens_spawn):
+    return lens_spawn()
 
 
 @pytest.mark.parametrize("case", list(LEVER_CASES))

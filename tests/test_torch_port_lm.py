@@ -296,25 +296,28 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
     (["--factor-comm-dtype", "bf16"], "item 6"),
     (["--service-devices", "1"], "item 9"),
     (["--tensor-parallel", "2"], "item 8b"),
-    (["--fsdp", "1"], "item 8b"),
+    (["--fsdp", "1"], "item 8c"),
     (["--moe-experts", "2"], "item 8b"),
 ])
 def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
     """Each flag was refused naming its ROADMAP item until that item was
-    ported; item 6b's factor comm flags, item 7b's ``--factor-sharding``
-    and item 8a's ``--qkv-lens`` and ``--remat`` now train (inert on one
-    process: owner sharding warns and runs replicated, as in the JAX
-    trainer), and ``--seq-parallel 2`` needs two ranks, as the JAX
-    trainer needs two devices (it trains on two gloo ranks in
-    ``test_torch_port_context.py``); the shardwise flags name item 8b."""
+    ported; item 6b's factor comm flags, item 7b's ``--factor-sharding``,
+    item 8a's ``--qkv-lens`` and ``--remat`` and item 8b's
+    ``--moe-experts`` now train (inert on one process: owner sharding
+    warns and runs replicated, as in the JAX trainer), and
+    ``--seq-parallel 2`` and ``--tensor-parallel 2`` need two ranks, as the
+    JAX trainer needs two devices (they train on gloo ranks in
+    ``test_torch_port_context.py`` and ``test_torch_port_moe.py``);
+    ``--fsdp`` names item 8c."""
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
 
-    if argv[0] in ("--factor-comm-dtype", "--factor-sharding", "--qkv-lens", "--remat"):
+    if argv[0] in ("--factor-comm-dtype", "--factor-sharding", "--qkv-lens", "--remat",
+                   "--moe-experts"):
         hist = trainer.main([*TINY, *argv])
         assert len(hist["loss"]) == 3 and all(math.isfinite(v) for v in hist["loss"])
         return
-    if argv[0] == "--seq-parallel":
-        with pytest.raises(SystemExit, match="--seq-parallel 2 must divide device count 1"):
+    if argv[0] in ("--seq-parallel", "--tensor-parallel"):
+        with pytest.raises(SystemExit, match=f"{argv[0]} 2 must divide device count 1"):
             trainer.main([*TINY, *argv])
         return
     with pytest.raises(SystemExit, match=item):
@@ -324,14 +327,11 @@ def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
 @pytest.mark.parametrize("kwargs", [{"qkv_lens": True}, {"tensor_parallel": 2},
                                     {"remat": True}, {"moe_experts": 2}])
 def test_lm_model_refuses_options_of_later_slices(kwargs):
-    """``qkv_lens`` and ``remat`` (item 8a) now build and run; the shardwise
-    options are refused naming item 8b."""
-    if "qkv_lens" in kwargs or "remat" in kwargs:
-        model = transformer_lm.get_model(VOCAB, **MODEL_KW, **kwargs)
-        (x, y), = _tokens(7, n=1)
-        logits = model(torch.from_numpy(x.astype(np.int64)))
-        softmax_cross_entropy(logits, torch.from_numpy(y.astype(np.int64))).backward()
-        assert all(p.grad is not None for p in model.parameters())
-        return
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        transformer_lm.get_model(VOCAB, **kwargs)
+    """Each option was refused naming its ROADMAP item until that item was
+    ported: ``qkv_lens`` and ``remat`` (item 8a) and the shardwise options
+    ``tensor_parallel`` and ``moe_experts`` (item 8b) now build and run."""
+    model = transformer_lm.get_model(VOCAB, **MODEL_KW, **kwargs)
+    (x, y), = _tokens(7, n=1)
+    logits = model(torch.from_numpy(x.astype(np.int64)))
+    softmax_cross_entropy(logits, torch.from_numpy(y.astype(np.int64))).backward()
+    assert all(p.grad is not None for p in model.parameters())

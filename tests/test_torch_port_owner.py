@@ -322,23 +322,35 @@ _RESULTS = {}
 
 @pytest.fixture(scope="module")
 def owner_results(tmp_path_factory):
+    """``run(world)``: the inputs and the ranks' results of ``world``. The
+    first call starts the ranks of both worlds, so that the 4-rank world runs
+    while the 2-rank world's tests run JAX; each world is joined when first
+    read, and both at the module's end."""
+    def start(world):
+        ops, jplan = _ops_inputs(world)
+        nets = {net: _net_inputs(net, world, 50 + i) for i, net in enumerate(NETS)}
+        cases = {}
+        for case, (net, kw) in CASES.items():
+            k = JKFAC(mesh=_mesh(world), **_jax_kw({**COMMON, **kw}))
+            cases[case] = (net, {**COMMON, **kw}, _jflags(k, STEPS))
+        runs = {"nets": nets, "cases": cases, "sketches": ops["sketches"]}
+        root = tmp_path_factory.mktemp(f"owner{world}")
+        ck = {**_ck_inputs(world), "root": str(root / "ck")}
+        ranks = workers.joiner(workers.start(
+            "owner", world, str(root / "run"), ops=ops, runs=runs,
+            overlap=_overlap_inputs(world), counts=_count_inputs(world), ck=ck))
+        return ops, jplan, runs, ranks
+
     def run(world):
-        if world not in _RESULTS:
-            ops, jplan = _ops_inputs(world)
-            nets = {net: _net_inputs(net, world, 50 + i) for i, net in enumerate(NETS)}
-            cases = {}
-            for case, (net, kw) in CASES.items():
-                k = JKFAC(mesh=_mesh(world), **_jax_kw({**COMMON, **kw}))
-                cases[case] = (net, {**COMMON, **kw}, _jflags(k, STEPS))
-            runs = {"nets": nets, "cases": cases, "sketches": ops["sketches"]}
-            root = tmp_path_factory.mktemp(f"owner{world}")
-            ck = {**_ck_inputs(world), "root": str(root / "ck")}
-            ranks = workers.spawn("owner", world, str(root / "run"), ops=ops, runs=runs,
-                                  overlap=_overlap_inputs(world), counts=_count_inputs(world),
-                                  ck=ck)
-            _RESULTS[world] = (ops, jplan, runs, ranks)
-        return _RESULTS[world]
-    return run
+        if not _RESULTS:
+            for w in (2, 4):
+                _RESULTS[w] = start(w)
+        ops, jplan, runs, ranks = _RESULTS[world]
+        return ops, jplan, runs, ranks()
+
+    yield run
+    for *_, ranks in _RESULTS.values():
+        ranks()
 
 
 # ----------------------------------------------------------------- the plans

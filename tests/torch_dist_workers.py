@@ -1,11 +1,12 @@
 """Rank bodies of ``tests/test_torch_port_distributed.py``,
 ``tests/test_torch_port_comm.py``, ``tests/test_torch_port_owner.py``,
-``tests/test_torch_port_lens.py`` and ``tests/test_torch_port_context.py``
-(not a test file).
+``tests/test_torch_port_lens.py``, ``tests/test_torch_port_context.py``
+and ``tests/test_torch_port_moe.py`` (not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
-through ``torch.multiprocessing`` with a file store under the test's
-``tmp_path`` and one torch thread per rank. This module imports only torch
+(or :func:`start`, then :func:`join`, so that the test process works
+while the ranks run) through ``torch.multiprocessing`` with a file store
+under the test's ``tmp_path`` and one torch thread per rank. This module imports only torch
 and the port, so the spawned ranks start without JAX; the test process
 holds the JAX side. A task's inputs and per-rank results travel as
 ``torch.save`` files.
@@ -37,12 +38,18 @@ def _run(rank, world, root, task):
         dist.destroy_process_group()
 
 
-def spawn(task, world, root, **inputs):
-    """Run ``task`` on ``world`` gloo ranks; returns the ranks' results."""
+def start(task, world, root, **inputs):
+    """Start ``task`` on ``world`` gloo ranks; :func:`join` the handle for
+    the ranks' results."""
     os.makedirs(root, exist_ok=True)
     torch.save(inputs, f"{root}/inputs.pt")
     ctx = mp.spawn(_run, args=(world, str(root), task), nprocs=world, join=False)
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    return task, world, str(root), ctx, time.monotonic() + SPAWN_TIMEOUT_S
+
+
+def join(handle):
+    """Wait for :func:`start`'s ranks; returns their results."""
+    task, world, root, ctx, deadline = handle
     while not ctx.join(timeout=2):
         if time.monotonic() > deadline:
             for p in ctx.processes:
@@ -51,11 +58,36 @@ def spawn(task, world, root, **inputs):
     return [torch.load(f"{root}/result-{r}.pt", weights_only=False) for r in range(world)]
 
 
+def joiner(handle):
+    """A function that joins :func:`start`'s ``handle`` on its first call and
+    returns the ranks' results on every call."""
+    results = []
+
+    def get():
+        if not results:
+            results.append(join(handle))
+        return results[0]
+
+    return get
+
+
+def spawn(task, world, root, **inputs):
+    """Run ``task`` on ``world`` gloo ranks; returns the ranks' results."""
+    return join(start(task, world, root, **inputs))
+
+
 def _t(tree):
     """numpy leaves → torch tensors, recursively."""
     if isinstance(tree, dict):
         return {k: _t(v) for k, v in tree.items()}
     return torch.from_numpy(np.asarray(tree))
+
+
+def _leaves(tree):
+    """The tensors of a tensor or a nested dict, in order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
 
 
 def _np(tree):
@@ -964,5 +996,80 @@ def context(rank, world, seq, attn=None, train=None, twin=None):
     return out
 
 
+# ------------------------------------------------------------ the shard lenses
+
+
+def lm_run(w, lm, model="dense", **kfac_kw):
+    """The tiny transformer LM ``model`` (a key of ``lm``'s model options
+    and weights; ``lm`` also holds the widths, batches and K-FAC
+    hyperparameters) on this rank's rows of each global batch over the
+    world ``w`` (a world of one outside a process group): the loss and
+    the parameters after every step of the refresh cadence, and the state."""
+    from kfac_pytorch_tpu_torch import KFAC, capture
+    from kfac_pytorch_tpu_torch.models import transformer_lm
+    from kfac_pytorch_tpu_torch.parallel.mesh import local_rows
+    from kfac_pytorch_tpu_torch.training.step import (
+        TrainState,
+        kfac_flags_for_step,
+        make_sgd,
+        make_train_step,
+    )
+
+    weights = lm["weights"][model]
+    model = transformer_lm.get_model(lm["vocab"], **lm["models"][model], **lm["model"])
+    model.load_state_dict(_t(weights))
+    kfac = KFAC(layers=capture.discover_layers(model), device="cpu", **lm["hp"], **kfac_kw,
+                process_group=w.group if w.distributed else None)
+    tx = make_sgd(0.9, 0.0)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                       kfac_state=kfac.init(model))
+    step_fn = make_train_step(model, tx, kfac, world=w)
+    losses, params = [], []
+    for i, (x, y) in enumerate(lm["batches"]):
+        rows = local_rows(x.shape[0], w)
+        batch = tuple(torch.from_numpy(np.ascontiguousarray(a[rows])).long() for a in (x, y))
+        state, m = step_fn(state, batch, 0.1, 0.01, **kfac_flags_for_step(i, kfac))
+        losses.append(float(m["loss"]))
+        params.append(_np({k: v.clone() for k, v in model.state_dict().items()}))
+    return {"losses": losses, "params": params}, state, kfac
+
+
+def _tensor_checkpoint(w, lm, root):
+    """An owner-sharded run on the data×tensor world through a checkpoint:
+    saved over the data subgroup, restored into a fresh state on every
+    rank; ``(saved, restored)`` K-FAC states."""
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+
+    _, state, kfac = lm_run(w, lm, factor_sharding="owner")
+    ckpt.save_checkpoint(root, 0, state, w)
+    dist.barrier()
+    fresh = lm_run(w, {**lm, "batches": []}, factor_sharding="owner")[1]
+    back = ckpt.restore_checkpoint(root, 0, fresh, kfac)
+    return _np(state.kfac_state), _np(back.kfac_state)
+
+
+def shardwise(rank, world, lm, cases, twin, ck_root):
+    """Task of ``tests/test_torch_port_moe.py`` on 4 ranks: each case of
+    ``cases`` (``{name: (model, kfac kwargs)}``, :func:`lm_run`) on the data×tensor
+    world of 2 data slots and 2 tensor slots, and on a 2-rank data-parallel
+    world of ranks 0 and 1 (the others wait); an owner checkpoint on the
+    data×tensor world; the LM twin's ``twin`` argv on all four."""
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_tensor_world
+
+    tw = data_tensor_world(2)
+    assert (tw.rank, tw.tensor_slot, tw.size, tw.tensor_size) == (rank // 2, rank % 2, 2, 2)
+    pair = dist.new_group([0, 1])
+    out = {"tensor": {}, "dp": {}}
+    for name, (model, kw) in cases.items():
+        out["tensor"][name] = lm_run(tw, lm, model, **kw)[0]
+        if rank < 2:
+            out["dp"][name] = lm_run(data_parallel_world(pair), lm, model, **kw)[0]
+    out["ck"] = _tensor_checkpoint(tw, lm, ck_root)
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    out["twin"] = trainer.main(twin)
+    return out
+
+
 TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
-         "owner": owner, "lens": lens, "context": context}
+         "owner": owner, "lens": lens, "context": context, "shardwise": shardwise}
