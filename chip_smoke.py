@@ -2891,6 +2891,29 @@ def _two_rank_batches(device, rank, steps, batch):
             for x, y in synthetic_batches(batch, (3, 32, 32), 10, steps, seed=100 + rank)]
 
 
+def spawn_two_ranks(worker, args, timeout_s, prefix):
+    """Two ranks of ``worker(rank, store, out_path, *args)`` on the one card
+    (``torch.multiprocessing`` spawn, a file store in a temporary
+    directory), each writing its JSON to ``out_path-<rank>.json``: their
+    results in rank order. Ranks still running after ``timeout_s`` are
+    killed and fail the phase."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix=f"kfac_chip_smoke_{prefix}_") as tmp:
+        ctx = mp.spawn(worker, args=(f"{tmp}/store", f"{tmp}/rank", *args), nprocs=2, join=False)
+        deadline = time.monotonic() + timeout_s
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the two ranks did not finish in {timeout_s} s")
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank-{r}.json") as fh:
+                ranks.append(json.load(fh))
+    return ranks
+
+
 def two_rank_worker(rank, store, out_path, steps, device_name, argv):
     """One rank of phases 20c and 21e (``torch.multiprocessing`` target):
     ResNet-32 with ``argv`` on ``cuda:0``, gloo over CUDA tensors, ``steps``
@@ -3032,28 +3055,13 @@ def two_rank_phase(device, argv=TWO_RANK_ARGS):
     of one process running the ranks' batches concatenated; the
     collectives' host milliseconds per refresh step and per capture step
     from ``torch.profiler``."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_ranks_") as tmp:
-        ctx = mp.spawn(two_rank_worker, args=(f"{tmp}/store", f"{tmp}/rank", TWO_RANK_STEPS,
-                                              str(device), list(argv)),
-                       nprocs=2, join=False)
-        deadline = time.monotonic() + TWO_RANK_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise AssertionError(f"the two ranks did not finish in {TWO_RANK_TIMEOUT_S} s")
-        ranks = []
-        for r in range(2):
-            with open(f"{tmp}/rank-{r}.json") as fh:
-                ranks.append(json.load(fh))
+    ranks = spawn_two_ranks(two_rank_worker, (TWO_RANK_STEPS, str(device), list(argv)),
+                            TWO_RANK_TIMEOUT_S, "ranks")
     for res in ranks:
         for name, n in res["expected_launches"].items():
             if res["launches"][name] != n or n <= 0:
@@ -3753,27 +3761,13 @@ def comm_phase(device):
     """Phases 22b-c: two ranks on the one card, ``COMM_RUNS`` in each (see
     the module docstring for the gates), one process on the concatenated
     LM batch, and the int8 flush merge's peak at WikiText-2's width."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
     from kfac_pytorch_tpu_torch.parallel.comm import quant_wire_bytes
     from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 
-    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_comm_") as tmp:
-        ctx = mp.spawn(comm_worker, args=(f"{tmp}/store", f"{tmp}/rank", COMM_STEPS,
-                                          str(device), COMM_RUNS), nprocs=2, join=False)
-        deadline = time.monotonic() + COMM_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise AssertionError(f"the two ranks did not finish in {COMM_TIMEOUT_S} s")
-        ranks = []
-        for r in range(2):
-            with open(f"{tmp}/rank-{r}.json") as fh:
-                ranks.append(json.load(fh))
+    ranks = spawn_two_ranks(comm_worker, (COMM_STEPS, str(device), COMM_RUNS),
+                            COMM_TIMEOUT_S, "comm")
     for res in ranks:
         for name, run in res["runs"].items():
             gate_launches(run["launches"], run["expected_launches"],
@@ -4114,11 +4108,11 @@ def owner_chunk_recon(kept):
     return worst
 
 
-def owner_worker(rank, store, out_path, steps, device_name, runs, root):
+def owner_worker(rank, store, out_path, steps, device_name, runs):
     """One rank of phases 23b-d (``torch.multiprocessing`` target): each of
     ``runs`` (``OWNER_RUNS``) on ``cuda:0`` over gloo, then the LM's state
-    checks and the LSTM's chunked pass; writes its results as JSON to
-    ``out_path-<rank>.json``."""
+    checks (checkpoints under ``out_path-ck``) and the LSTM's chunked pass;
+    writes its results as JSON to ``out_path-<rank>.json``."""
     import torch
 
     from kfac_pytorch_tpu_torch.device import use_ieee_f32
@@ -4142,7 +4136,8 @@ def owner_worker(rank, store, out_path, steps, device_name, runs, root):
                         kept["kfac"], rank) * steps
                     res["plan_info"] = kept["kfac"].shard_plan_info
                 if name == "lm_owner":
-                    res["state_checks"] = _owner_state_checks(kept, argv, device, world, root)
+                    res["state_checks"] = _owner_state_checks(kept, argv, device, world,
+                                                              f"{out_path}-ck")
                 if name == "lstm_owner":
                     res["chunk_recon_max_rel_diff"] = owner_chunk_recon(kept)
                 del kept
@@ -4178,28 +4173,13 @@ def owner_phase(device):
     in each (see the module docstring for the gates), one process on the
     concatenated ResNet-32 and LSTM batches, and the plan's bytes at
     WikiText-2's width."""
-    import tempfile
-
     import torch
-    import torch.multiprocessing as mp
 
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_owner_") as tmp:
-        ctx = mp.spawn(owner_worker, args=(f"{tmp}/store", f"{tmp}/rank", OWNER_STEPS,
-                                           str(device), OWNER_RUNS, f"{tmp}/ck"),
-                       nprocs=2, join=False)
-        deadline = time.monotonic() + OWNER_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise AssertionError(f"the two ranks did not finish in {OWNER_TIMEOUT_S} s")
-        ranks = []
-        for r in range(2):
-            with open(f"{tmp}/rank-{r}.json") as fh:
-                ranks.append(json.load(fh))
+    ranks = spawn_two_ranks(owner_worker, (OWNER_STEPS, str(device), OWNER_RUNS),
+                            OWNER_TIMEOUT_S, "owner")
     for res in ranks:
         for name, run in res["runs"].items():
             gate_launches(run["launches"], run["expected_launches"],
@@ -4510,58 +4490,89 @@ def flash_long_phase(device, ptxas):
             "ptxas": spills}
 
 
-def seq_worker(rank, store, out_path, steps, device_name, argv, kinds):
-    """One rank of phase 24d (``torch.multiprocessing`` target): for each
-    attention kind, the LM twin's ``build`` with ``argv`` and
-    ``--seq-parallel 2 --attention <kind>`` on ``cuda:0``, gloo (NCCL
-    refuses two ranks on one device), ``steps`` steps through the refresh
-    cadence on this rank's positions, counted, the parameters' digest and
-    the step's milliseconds after each; then one capture step profiled for
-    the collectives' host time. Writes JSON to ``out_path-<rank>.json``."""
+def lm_rank(rank, store, out_path, device_name, body):
+    """One rank of a two-rank LM phase (``torch.multiprocessing`` target):
+    a gloo group on ``cuda:0`` (NCCL refuses two ranks on one device),
+    IEEE float32, ``body(device)``'s dict with the rank and backend written
+    as JSON to ``out_path-<rank>.json``."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.device import use_ieee_f32
+    from kfac_pytorch_tpu_torch.parallel import launch
+
+    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                               rank=rank, world_size=2)
+    try:
+        use_ieee_f32()
+        out = {"rank": rank, "backend": torch.distributed.get_backend(), **body(device)}
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def twin_rank_steps(args, world, device, steps, spare=0):
+    """The LM twin's ``build`` with ``args`` over ``world`` and this rank's
+    first ``steps + spare`` batches; ``steps`` steps through the refresh
+    cadence with kernels 2-7's counters zeroed just before, each timed, its
+    kind and the parameters' digest after it. ``(record, (model, kfac,
+    state, step_fn, batches))``, ``record`` holding the losses, kinds, step
+    milliseconds, digests and launches."""
     import itertools
 
     import torch
 
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
-    from kfac_pytorch_tpu_torch.device import use_ieee_f32
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
-    from kfac_pytorch_tpu_torch.models.layers import KFACDense
     from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
     from kfac_pytorch_tpu_torch.ops import flash_attention as fa
-    from kfac_pytorch_tpu_torch.parallel import launch
-    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_seq_world
-    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step, step_kind
+    from kfac_pytorch_tpu_torch.training.step import step_kind
 
-    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
-                               rank=rank, world_size=2)
     counters = (fk.compute_a_embed_fused, ak.fused_precondition_stack, ak.fused_sgd_apply,
                 fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
-    try:
-        use_ieee_f32()
+    model, kfac, state, step_fn, splits = trainer.build(args, device, world=world)
+    stream = trainer.rank_rows(splits["train"], args, world)
+    batches = [trainer.device_batch(x, y, device) for x, y in
+               itertools.islice(trainer.rank_segments(stream, args, world), steps + spare)]
+    cadence = EigenRefreshCadence(kfac)
+    zero_counts(counters)
+    rec = {"losses": [], "kinds": [], "step_ms": [], "digests": []}
+    for i in range(steps):
+        flags = cadence.flags_for_step(i, 0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping, **flags)
+        rec["losses"].append(float(m["loss"]))
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["kinds"].append(step_kind(flags))
+        rec["digests"].append(tensor_digest(list(model.parameters())))
+    rec["launches"] = read_counts(counters)
+    return rec, (model, kfac, state, step_fn, batches)
+
+
+def seq_worker(rank, store, out_path, steps, device_name, argv, kinds):
+    """One rank of phase 24d (:func:`lm_rank`): for each attention kind,
+    :func:`twin_rank_steps` with ``argv`` and ``--seq-parallel 2
+    --attention <kind>`` on this rank's positions, then one capture step
+    profiled for the collectives' host time."""
+
+    def body(device):
+        import torch
+
+        from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+        from kfac_pytorch_tpu_torch.models.layers import KFACDense
+        from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_seq_world
+        from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
         runs = {}
         for kind in kinds:
             args = trainer.parse_args([*argv, "--seq-parallel", "2", "--attention", kind])
             trainer.check_world(args, data_parallel_world())
             world = data_seq_world(args.seq_parallel, device)
-            model, kfac, state, step_fn, splits = trainer.build(args, device, world=world)
-            stream = trainer.rank_rows(splits["train"], args, world)
-            batches = [trainer.device_batch(x, y, device) for x, y in
-                       itertools.islice(trainer.rank_segments(stream, args, world), steps + 1)]
-            cadence = EigenRefreshCadence(kfac)
-            zero_counts(counters)
-            losses, step_kinds, step_ms, digests = [], [], [], []
-            for i in range(steps):
-                flags = cadence.flags_for_step(i, 0)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                t0 = time.perf_counter()
-                state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping, **flags)
-                losses.append(float(m["loss"]))
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                step_kinds.append(step_kind(flags))
-                digests.append(tensor_digest(list(model.parameters())))
-            launches = read_counts(counters)
+            rec, (model, kfac, state, step_fn, batches) = twin_rank_steps(
+                args, world, device, steps, spare=1)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -4575,10 +4586,9 @@ def seq_worker(rank, store, out_path, steps, device_name, argv, kinds):
                        if e.key.startswith("c10d::")}
             groups = len({(m_.out_features // m_.lens_splits, m_.in_features + 1)
                           for m_ in model.modules() if isinstance(m_, KFACDense)})
-            captures = sum(k != "plain" for k in step_kinds)
+            captures = sum(k != "plain" for k in rec["kinds"])
             runs[kind] = {
-                "losses": losses, "kinds": step_kinds, "step_ms": step_ms, "digests": digests,
-                "launches": launches,
+                **rec,
                 "expected_launches": {
                     "compute_a_embed_fused": captures, "fused_precondition_stack": groups * steps,
                     "fused_sgd_apply": steps, "flash_forward": 0, "flash_backward_dq": 0,
@@ -4590,31 +4600,15 @@ def seq_worker(rank, store, out_path, steps, device_name, argv, kinds):
             del model, kfac, state, step_fn, batches
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-        with open(f"{out_path}-{rank}.json", "w") as fh:
-            json.dump({"rank": rank, "backend": torch.distributed.get_backend(), "runs": runs}, fh)
-    finally:
-        torch.distributed.destroy_process_group()
+        return {"runs": runs}
+
+    lm_rank(rank, store, out_path, device_name, body)
 
 
 def seq_ranks(device, argv=LM_ARGS):
     """Phase 24d's two ranks (:func:`seq_worker`): their results."""
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_seq_") as tmp:
-        ctx = mp.spawn(seq_worker, args=(f"{tmp}/store", f"{tmp}/rank", SEQ_STEPS, str(device),
-                                         list(argv), list(SEQ_KINDS)),
-                       nprocs=2, join=False)
-        deadline = time.monotonic() + SEQ_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise AssertionError(f"the two ranks did not finish in {SEQ_TIMEOUT_S} s")
-        ranks = []
-        for r in range(2):
-            with open(f"{tmp}/rank-{r}.json") as fh:
-                ranks.append(json.load(fh))
-    return ranks
+    return spawn_two_ranks(seq_worker, (SEQ_STEPS, str(device), list(argv), list(SEQ_KINDS)),
+                           SEQ_TIMEOUT_S, "seq")
 
 
 def seq_parallel_phase(ranks, oracle, argv=LM_ARGS):
@@ -4787,7 +4781,8 @@ def moe_phase(device, counters, lm_stats):
     from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
 
     seen = []  # (ids, fractions) of each MoE bank's last capture
-    dispatch = fk.dispatch_compute_a_moe
+    built = []  # the twin run's model
+    dispatch, build = fk.dispatch_compute_a_moe, trainer.build
 
     def spy(ids, experts, *, kind="auto"):
         out = dispatch(ids, experts, kind=kind)
@@ -4795,14 +4790,19 @@ def moe_phase(device, counters, lm_stats):
         del seen[:-8]
         return out
 
-    fk.dispatch_compute_a_moe = spy
+    def build_spy(*a, **kw):
+        out = build(*a, **kw)
+        built.append(out[0])
+        return out
+
+    fk.dispatch_compute_a_moe, trainer.build = spy, build_spy
     try:
         hist, launches = counted(lambda: train_lm(["--epochs", "1", *MOE_FLAGS]), counters)
     finally:
-        fk.dispatch_compute_a_moe = dispatch
+        fk.dispatch_compute_a_moe, trainer.build = dispatch, build
     first, last = gate_falling(hist["loss"], "LM --moe-experts 4")
     args = trainer.parse_args([*LM_ARGS, *MOE_FLAGS])
-    model = trainer.build(args, device)[0]
+    model = built[0]
     layers = len(model.blocks)
     expected = lm_expected_launches(hist, model)
     captures = expected["token_count"]
@@ -4813,7 +4813,7 @@ def moe_phase(device, counters, lm_stats):
                              "(qkv, out, decoder; the banks solve outside kernel 3)")
     expected = {LM_COUNTERS[k]: n for k, n in expected.items()}
     gate_launches(launches, expected, "LM --moe-experts 4")
-    del model
+    del model, built
     torch.cuda.empty_cache()
     kernel, oracle = one_step_oracle(lm_moe_setup, device, ORACLE_STEPS)
     worst = gate_oracle(kernel, oracle, "LM --moe-experts 4", range(ORACLE_STEPS))
@@ -4909,80 +4909,29 @@ def tp_lens_phase(device, counters, lm_stats, steps=TP_STEPS):
 
 
 def tp_worker(rank, store, out_path, steps, device_name, argv):
-    """One rank of phase 25c (``torch.multiprocessing`` target): the LM
-    twin's ``build`` with ``argv`` on the data×tensor world of
-    ``--tensor-parallel 2`` on ``cuda:0``, gloo, ``steps`` steps through the
-    refresh cadence, counted, the losses and the parameters' digest after
-    each. Writes JSON to ``out_path-<rank>.json``."""
-    import itertools
+    """One rank of phase 25c (:func:`lm_rank`): :func:`twin_rank_steps`
+    with ``argv`` on the data×tensor world of ``--tensor-parallel 2``, and
+    the global ranks of this rank's data subgroup."""
 
-    import torch
+    def body(device):
+        import torch.distributed as dist
 
-    from kfac_pytorch_tpu_torch import EigenRefreshCadence
-    from kfac_pytorch_tpu_torch.device import use_ieee_f32
-    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
-    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
-    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
-    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
-    from kfac_pytorch_tpu_torch.parallel import launch
-    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_tensor_world
-    from kfac_pytorch_tpu_torch.training.step import step_kind
+        from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+        from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_tensor_world
 
-    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
-                               rank=rank, world_size=2)
-    counters = (fk.compute_a_embed_fused, ak.fused_precondition_stack, ak.fused_sgd_apply,
-                fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
-    try:
-        use_ieee_f32()
         args = trainer.parse_args(argv)
         trainer.check_world(args, data_parallel_world())
         world = data_tensor_world(args.tensor_parallel)
-        model, kfac, state, step_fn, splits = trainer.build(args, device, world=world)
-        stream = trainer.rank_rows(splits["train"], args, world)
-        batches = [trainer.device_batch(x, y, device) for x, y in
-                   itertools.islice(trainer.rank_segments(stream, args, world), steps)]
-        cadence = EigenRefreshCadence(kfac)
-        zero_counts(counters)
-        losses, kinds, step_ms, digests = [], [], [], []
-        for i in range(steps):
-            flags = cadence.flags_for_step(i, 0)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping, **flags)
-            losses.append(float(m["loss"]))
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            kinds.append(step_kind(flags))
-            digests.append(tensor_digest(list(model.parameters())))
-        out = {"rank": rank, "backend": torch.distributed.get_backend(),
-               "data": [world.rank, world.size], "tensor": [world.tensor_slot, world.tensor_size],
-               "losses": losses, "kinds": kinds, "step_ms": step_ms, "digests": digests,
-               "launches": read_counts(counters)}
-        with open(f"{out_path}-{rank}.json", "w") as fh:
-            json.dump(out, fh)
-    finally:
-        torch.distributed.destroy_process_group()
+        rec = twin_rank_steps(args, world, device, steps)[0]
+        return {"data": [world.rank, world.size],
+                "data_group": dist.get_process_group_ranks(world.group), **rec}
+
+    lm_rank(rank, store, out_path, device_name, body)
 
 
 def tp_ranks(device, argv, steps=TP_STEPS):
     """Phase 25c's two ranks (:func:`tp_worker`): their results."""
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_tp_") as tmp:
-        ctx = mp.spawn(tp_worker, args=(f"{tmp}/store", f"{tmp}/rank", steps, str(device),
-                                        list(argv)),
-                       nprocs=2, join=False)
-        deadline = time.monotonic() + TP_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise AssertionError(f"the two ranks did not finish in {TP_TIMEOUT_S} s")
-        ranks = []
-        for r in range(2):
-            with open(f"{tmp}/rank-{r}.json") as fh:
-                ranks.append(json.load(fh))
-    return ranks
+    return spawn_two_ranks(tp_worker, (steps, str(device), list(argv)), TP_TIMEOUT_S, "tp")
 
 
 def tp_one_process(device, steps=TP_STEPS):
@@ -5011,10 +4960,10 @@ def tp_phase(ranks, one, argv, steps=TP_STEPS):
 
     args = trainer.parse_args(argv)
     layers = args.n_layers
-    for r in ranks:
-        if r["data"] != [0, 1] or r["tensor"] != [r["rank"], 2]:
-            raise AssertionError(f"rank {r['rank']}: data slot {r['data']}, tensor slot "
-                                 f"{r['tensor']}; want data [0, 1], tensor [{r['rank']}, 2]")
+    for r in ranks:  # one data slot of two tensor slots: each rank its own data subgroup
+        if r["data"] != [0, 1] or r["data_group"] != [r["rank"]]:
+            raise AssertionError(f"rank {r['rank']}: data slot {r['data']}, data subgroup "
+                                 f"{r['data_group']}; want data [0, 1], subgroup [{r['rank']}]")
         captures = sum(k != "plain" for k in r["kinds"])
         expected = {"compute_a_embed_fused": captures * (1 + layers),
                     "fused_precondition_stack": 3 * steps, "fused_sgd_apply": steps,

@@ -174,8 +174,7 @@ class KFACShardedDense(nn.Linear):
     """
 
     def __init__(self, in_features: int, out_features: int, shards: int,
-                 sharding: str = "column", bias: bool = True,
-                 compute_dtype: Optional[torch.dtype] = None, **kwargs):
+                 sharding: str = "column", bias: bool = True, **kwargs):
         if sharding not in ("column", "row"):
             raise ValueError(f"sharding={sharding!r} must be 'column' or 'row'")
         if shards < 1:
@@ -199,14 +198,6 @@ class KFACShardedDense(nn.Linear):
                 )
         super().__init__(in_features, out_features, bias=bias, **kwargs)
         self.shards, self.sharding = shards, sharding
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
-            return super().forward(x)
-        dt = self.compute_dtype
-        y = x.to(dt) @ self.weight.to(dt).T
-        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class KFACMoE(nn.Module):

@@ -83,10 +83,6 @@ class World:
     seq_size: int = 1
     seq_group: Optional[Any] = None
     seq_staged: bool = False
-    # the replicated-compute tensor axis: its size and this rank's slot (the
-    # group above is then the data subgroup of that slot)
-    tensor_size: int = 1
-    tensor_slot: int = 0
 
     @property
     def seq_slot(self) -> int:
@@ -281,8 +277,7 @@ def data_tensor_world(tensor_parallel: int) -> World:
         if world.rank in ranks:
             mine = g
     return World(group=mine, size=world.size // tensor_parallel,
-                 rank=world.rank // tensor_parallel, distributed=True,
-                 tensor_size=tensor_parallel, tensor_slot=world.rank % tensor_parallel)
+                 rank=world.rank // tensor_parallel, distributed=True)
 
 
 def local_seq(seq_len: int, world: World) -> slice:

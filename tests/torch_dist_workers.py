@@ -1057,7 +1057,8 @@ def shardwise(rank, world, lm, cases, twin, ck_root):
     from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world, data_tensor_world
 
     tw = data_tensor_world(2)
-    assert (tw.rank, tw.tensor_slot, tw.size, tw.tensor_size) == (rank // 2, rank % 2, 2, 2)
+    assert (tw.rank, tw.size) == (rank // 2, 2)
+    assert dist.get_process_group_ranks(tw.group) == [rank % 2, rank % 2 + 2]
     pair = dist.new_group([0, 1])
     out = {"tensor": {}, "dp": {}}
     for name, (model, kw) in cases.items():
