@@ -232,7 +232,7 @@ no result line):
        deterministic cuDNN), counters as implied;
     c. two ranks on the one card (spawned processes, a file store, gloo
        over CUDA tensors), ResNet-32 with ``--distribute-precondition`` for
-       12 steps: kernels 1, 3 (on each rank's shape groups) and 4 launch in
+       ``TWO_RANK_DEPTH`` (6) steps: kernels 1, 3 (on each rank's shape groups) and 4 launch in
        each rank as implied; the sharded refresh's factors within 1e-5 and
        the distributed apply's updates within 1e-6 of the replicated ones;
        the first 5 losses within 1e-3 of one process on the concatenated
@@ -268,8 +268,9 @@ no result line):
        5 steps with ``--stream-drift-threshold 0 --kfac-update-freq 1``
        bitwise equal to ``--solver rsvd`` (when two rsvd runs are);
     e. two ranks on the one card (20c's setup), ResNet-32 with
-       ``--eigh-chunks 2 --solver rsvd --solver-auto-threshold 256``, 12
-       steps: kernels 1, 3 and 4 as implied per rank, the sharded
+       ``--eigh-chunks 2 --solver rsvd --solver-auto-threshold 256
+       --kfac-update-freq 4``, 6 steps (a chunk and its swap at 4 and 5):
+       kernels 1, 3 and 4 as implied per rank, the sharded
        rank-aware refresh and a sharded chunked pass within 1e-5 of the
        replicated refresh, the first 5 losses within 1e-3 of one process
        on the concatenated batch;
@@ -280,24 +281,24 @@ no result line):
        in the JAX package), phase 8's 38 steps: its losses within
        ``RESUME_RTOL`` of phase 8's, kernels 2 and 3-7 as implied, the
        capture step's median ms beside phase 8's and 20b's;
-    b. two ranks on the one card (20c's setup), the LM for 12 steps with
+    b. two ranks on the one card (20c's setup), the LM for 6 steps with
        ``--factor-comm-freq 2`` on the float32 wire and again with the bf16
        factor and gradient wires: kernels 2 and 3-7 per rank as implied;
        the f32-wire run's first 5 losses within 1e-3 of one process on the
-       concatenated batch, the bf16 run's 12 within ``COMM_BF16_RTOL`` of
+       concatenated batch, the bf16 run's 6 within ``COMM_BF16_RTOL`` of
        it, its factor wire bytes half the f32 run's; after every flush the
        two ranks' factors and parameters bitwise equal (their digests);
        the collectives' host
        ms per capture and per flush step from ``torch.profiler``; the CIFAR
        twin (ResNet-32, phase 4's recipe) with the bf16 wires and
-       ``--factor-comm-freq 2`` for 12 steps through its ``main()``:
+       ``--factor-comm-freq 2`` for 6 steps through its ``main()``:
        kernels 1, 3 and 4 per rank as implied, flush steps among them;
-    c. in the same two ranks, the WikiText LSTM (19a's recipe) for 12 steps
+    c. in the same two ranks, the WikiText LSTM (19a's recipe) for 6 steps
        with ``--factor-comm-dtype int8 --factor-comm-freq 4`` and on the
        float32 wire: kernels 3 and 4 per rank as implied, the int8 wire's
        bytes (``quant_wire_bytes``, ~0.51x bf16), the error-feedback
        residual's norm at each flush within 16/127 of the factors' (one
-       quantization step per element), the 12 losses within
+       quantization step per element), the 6 losses within
        ``COMM_INT8_RTOL`` of the f32 wire's, the ranks' factors and
        parameters bitwise equal after every flush; then, in this process on
        NCCL at world size 1, a whole int8 flush merge of a 33,278²-element
@@ -310,7 +311,7 @@ no result line):
        twin against phase 8's 38 steps; both levers warn and are inert, the
        losses within ``RESUME_RTOL``, kernels 1-7 as implied;
     b. two ranks on the one card (20c's setup): ResNet-32 owner-sharded for
-       12 steps (a refresh included): kernels 1, 3 (once per step per owned
+       6 steps (a refresh included): kernels 1, 3 (once per step per owned
        shape group of dense "update" layers) and 4 per rank as the plan
        implies, the parameters' digests equal on both ranks after every
        step, the first 5 losses within 1e-3 of one process on the
@@ -346,7 +347,8 @@ no result line):
     recipe with ``--qkv-lens``; b. ``--remat`` and dropout, the remat
     memory figures; c. flash backward against float64 at T = 4096 and
     8192; d. two ranks on the one card under ``--seq-parallel 2``, ring
-    and Ulysses; e. every kernel's launches on these paths;
+    and Ulysses, 6 steps with ``--kfac-update-freq 4`` (a refresh at 0
+    and 4); e. every kernel's launches on these paths;
 25. the shard lenses and the data×tensor world (slice 16), each path with
     the counters zeroed just before it:
     a. phase 8's recipe with ``--moe-experts 4`` for one epoch through the
@@ -369,13 +371,34 @@ no result line):
        rank as implied, the parameters' digests and the losses equal on
        both ranks after every step, the losses within float32 rounding
        (``TP_RTOL``) of one process;
-26. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+26. the 3-D data×fsdp×tensor world (slice 17), each path with the
+    counters zeroed just before it:
+    a. the LM twin with ``--fsdp 1 --tensor-parallel 1`` (the 3-D world of
+       one rank) through ``launch.initialize`` on NCCL at world size 1,
+       phase 8's 38 steps: every loss bitwise phase 8's, kernels 2-7 as
+       implied;
+    b. ``--fsdp 1 --tensor-parallel 2`` at phase 8's widths on two ranks of
+       the one card over gloo (12 steps): each rank computes with its
+       shards of ff1 (column) and ff2 (row) and keeps their K-FAC blocks
+       (``[1, 1024, 1024]``); kernels 2-7 per rank as implied, the ranks'
+       losses equal and within ``TP_RTOL`` of 25b's one-process lens
+       model, capture and refresh medians, and per rank the bytes of the
+       MLP weights, their momentum and the G/A stacks beside 25b's;
+    c. ``--fsdp 2 --tensor-parallel 2 --n-layers 2`` on four ranks of the
+       one card over gloo (6 steps): kernels 2-7 per rank as implied, the
+       ranks' losses within ``TP_RTOL`` of each other and of one process
+       (the lens model at the global batch of 8), the fsdp parts 1/2 of
+       the parameters the JAX rule splits; on rank 0's SGD leaves (its
+       fsdp parts, its tensor shards, the whole small leaves) kernel 4
+       bitwise equal to its plain version, timed against
+       ``torch.optim.SGD`` and its bound (its own row of the kernels line);
+27. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
     row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
-    LSTM row beside the others, the two-rank launches of kernels 1, 3 and
-    4, and every kernel's launches on phase 21's to 25's paths, per rank on
-    the two-rank ones), then the last line ``{"ok": true, "device":
-    {...}}``.
+    LSTM and 3-D rows beside the others, the two-rank launches of kernels
+    1, 3 and 4, and every kernel's launches on phase 21's to 26's paths,
+    per rank on the multi-rank ones), then the last line ``{"ok": true,
+    "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -903,7 +926,8 @@ def apply_phase(model, device, q_dtype=None, owner_rank=None):
 
 
 def sgd_phase(model, device, lr, mu, wd, flush):
-    """Kernel 4 over every parameter leaf of ``model``, through an
+    """Kernel 4 over every parameter leaf of ``model`` (a module, or a list
+    of the leaf tensors a train step updates), through an
     ``SGDPlan`` of the leaf set as the train step keeps one: bitwise equal
     to its plain version; one device launch per call (profiler); device
     time per call from the profiler's kernel spans with the L2 cache
@@ -915,7 +939,8 @@ def sgd_phase(model, device, lr, mu, wd, flush):
     from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
 
     gen = torch.Generator(device=device).manual_seed(1)
-    params = [p.detach().clone() for p in model.parameters()]
+    leaves = model.parameters() if isinstance(model, torch.nn.Module) else model
+    params = [p.detach().clone() for p in leaves]
     grads = [torch.randn(p.shape, device=device, generator=gen) for p in params]
     trace = [torch.randn(p.shape, device=device, generator=gen) for p in params]
     kp, km = [p.clone() for p in params], [m.clone() for m in trace]
@@ -2714,7 +2739,13 @@ LOADER_WORKERS = 4
 # two ranks on one card: ResNet-32 at batch 128 per rank, its synthetic
 # batches drawn per rank (seed 100 + rank), refreshes at steps 0 and 10
 TWO_RANK_ARGS = [*RESNET_ARGS, "--distribute-precondition"]
-TWO_RANK_STEPS = 12
+# the depth of the two-rank phases 20c-24d: 6 steps (they ran 12); where
+# a gate needs a refresh after step 0 or a chunk and its swap (21e, 24d),
+# the cadence refreshes every 4 steps (refresh, 3 captures, then the
+# refresh or the chunk and its swap: the events 12 steps at every 10 gave)
+TWO_RANK_DEPTH = 6
+SHORT_CADENCE = ["--kfac-update-freq", "4"]
+TWO_RANK_STEPS = TWO_RANK_DEPTH
 TWO_RANK_TIMEOUT_S = 600
 # the widths of the float32 syevd watch item (ROADMAP queue 3): between the
 # factor at which float32 syevd was seen to lose orthogonality (16k) and
@@ -2891,24 +2922,25 @@ def _two_rank_batches(device, rank, steps, batch):
             for x, y in synthetic_batches(batch, (3, 32, 32), 10, steps, seed=100 + rank)]
 
 
-def spawn_two_ranks(worker, args, timeout_s, prefix):
-    """Two ranks of ``worker(rank, store, out_path, *args)`` on the one card
-    (``torch.multiprocessing`` spawn, a file store in a temporary
+def spawn_ranks(worker, args, timeout_s, prefix, nprocs=2):
+    """``nprocs`` ranks of ``worker(rank, store, out_path, *args)`` on the
+    one card (``torch.multiprocessing`` spawn, a file store in a temporary
     directory), each writing its JSON to ``out_path-<rank>.json``: their
     results in rank order. Ranks still running after ``timeout_s`` are
     killed and fail the phase."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix=f"kfac_chip_smoke_{prefix}_") as tmp:
-        ctx = mp.spawn(worker, args=(f"{tmp}/store", f"{tmp}/rank", *args), nprocs=2, join=False)
+        ctx = mp.spawn(worker, args=(f"{tmp}/store", f"{tmp}/rank", *args), nprocs=nprocs,
+                       join=False)
         deadline = time.monotonic() + timeout_s
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
                 for p in ctx.processes:
                     p.kill()
-                raise AssertionError(f"the two ranks did not finish in {timeout_s} s")
+                raise AssertionError(f"the {nprocs} ranks did not finish in {timeout_s} s")
         ranks = []
-        for r in range(2):
+        for r in range(nprocs):
             with open(f"{tmp}/rank-{r}.json") as fh:
                 ranks.append(json.load(fh))
     return ranks
@@ -3060,7 +3092,7 @@ def two_rank_phase(device, argv=TWO_RANK_ARGS):
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    ranks = spawn_two_ranks(two_rank_worker, (TWO_RANK_STEPS, str(device), list(argv)),
+    ranks = spawn_ranks(two_rank_worker, (TWO_RANK_STEPS, str(device), list(argv)),
                             TWO_RANK_TIMEOUT_S, "ranks")
     for res in ranks:
         for name, n in res["expected_launches"].items():
@@ -3188,7 +3220,7 @@ REFRESH_CHUNKS = 5
 SOLVER_RSVD = ["--solver", "rsvd"]
 # 21e: ResNet-32's 288- and 576-wide A sides truncated, the rest dense
 TWO_RANK_SOLVER_ARGS = [*RESNET_ARGS, "--eigh-chunks", "2", "--solver", "rsvd",
-                        "--solver-auto-threshold", "256"]
+                        "--solver-auto-threshold", "256", *SHORT_CADENCE]
 # 21d: the degenerate streaming schedule held to periodic rsvd
 STREAM_EXACT_STEPS = 5
 # 21c: steps at WikiText-2's vocabulary, refreshes at 0 (the first call's
@@ -3495,7 +3527,7 @@ def streaming_phase(device, counters, lstm):
 # Phase 22 (slice 13): the factor comm plane and the LM twins across ranks.
 COMM_LM_FLAGS = ["--factor-comm-dtype", "bf16", "--factor-comm-freq", "2",
                  "--grad-comm-dtype", "bf16"]
-COMM_STEPS = 12
+COMM_STEPS = TWO_RANK_DEPTH
 COMM_TIMEOUT_S = 600
 # the bf16 factor and gradient wires against the float32 wire, every loss
 # (~10x the 4.13e-6 measured on an H100)
@@ -3766,7 +3798,7 @@ def comm_phase(device):
     from kfac_pytorch_tpu_torch.parallel.comm import quant_wire_bytes
     from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 
-    ranks = spawn_two_ranks(comm_worker, (COMM_STEPS, str(device), COMM_RUNS),
+    ranks = spawn_ranks(comm_worker, (COMM_STEPS, str(device), COMM_RUNS),
                             COMM_TIMEOUT_S, "comm")
     for res in ranks:
         for name, run in res["runs"].items():
@@ -3840,7 +3872,7 @@ OWNER_LM_WIRES = ["--factor-comm-dtype", "bf16", "--factor-comm-freq", "2"]
 # rank-aware refresh
 OWNER_LSTM_FLAGS = ["--kfac-embedding", "--dropout", "0", "--eigh-chunks", "2", "--solver",
                     "rsvd", "--solver-auto-threshold", "256"]
-OWNER_STEPS = 12
+OWNER_STEPS = TWO_RANK_DEPTH
 OWNER_TIMEOUT_S = 900
 OWNER_WORLD1_STEPS = 12
 OWNER_RUNS = (  # (name, twin, argv)
@@ -4178,7 +4210,7 @@ def owner_phase(device):
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    ranks = spawn_two_ranks(owner_worker, (OWNER_STEPS, str(device), OWNER_RUNS),
+    ranks = spawn_ranks(owner_worker, (OWNER_STEPS, str(device), OWNER_RUNS),
                             OWNER_TIMEOUT_S, "owner")
     for res in ranks:
         for name, run in res["runs"].items():
@@ -4276,7 +4308,7 @@ FLASH_LONG_D = (64, 128)
 FLASH_LONG_BH = (1, 2)
 FLASH_BWD_TOL = 1e-4
 SEQ_KINDS = ("ring", "ulysses")
-SEQ_STEPS = 12
+SEQ_STEPS = TWO_RANK_DEPTH
 SEQ_TIMEOUT_S = 600
 
 
@@ -4490,18 +4522,18 @@ def flash_long_phase(device, ptxas):
             "ptxas": spills}
 
 
-def lm_rank(rank, store, out_path, device_name, body):
-    """One rank of a two-rank LM phase (``torch.multiprocessing`` target):
-    a gloo group on ``cuda:0`` (NCCL refuses two ranks on one device),
-    IEEE float32, ``body(device)``'s dict with the rank and backend written
-    as JSON to ``out_path-<rank>.json``."""
+def lm_rank(rank, store, out_path, device_name, body, world_size=2):
+    """One rank of a multi-rank LM phase (``torch.multiprocessing``
+    target): a gloo group of ``world_size`` ranks on ``cuda:0`` (NCCL
+    refuses two ranks on one device), IEEE float32, ``body(device)``'s dict
+    with the rank and backend written as JSON to ``out_path-<rank>.json``."""
     import torch
 
     from kfac_pytorch_tpu_torch.device import use_ieee_f32
     from kfac_pytorch_tpu_torch.parallel import launch
 
     device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
-                               rank=rank, world_size=2)
+                               rank=rank, world_size=world_size)
     try:
         use_ieee_f32()
         out = {"rank": rank, "backend": torch.distributed.get_backend(), **body(device)}
@@ -4532,6 +4564,8 @@ def twin_rank_steps(args, world, device, steps, spare=0):
     counters = (fk.compute_a_embed_fused, ak.fused_precondition_stack, ak.fused_sgd_apply,
                 fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
     model, kfac, state, step_fn, splits = trainer.build(args, device, world=world)
+    if state.fsdp is not None:
+        state.fsdp.shard_(state.opt_state)  # the twin's main() does it after its broadcast
     stream = trainer.rank_rows(splits["train"], args, world)
     batches = [trainer.device_batch(x, y, device) for x, y in
                itertools.islice(trainer.rank_segments(stream, args, world), steps + spare)]
@@ -4605,9 +4639,9 @@ def seq_worker(rank, store, out_path, steps, device_name, argv, kinds):
     lm_rank(rank, store, out_path, device_name, body)
 
 
-def seq_ranks(device, argv=LM_ARGS):
+def seq_ranks(device, argv=(*LM_ARGS, *SHORT_CADENCE)):
     """Phase 24d's two ranks (:func:`seq_worker`): their results."""
-    return spawn_two_ranks(seq_worker, (SEQ_STEPS, str(device), list(argv), list(SEQ_KINDS)),
+    return spawn_ranks(seq_worker, (SEQ_STEPS, str(device), list(argv), list(SEQ_KINDS)),
                            SEQ_TIMEOUT_S, "seq")
 
 
@@ -4887,6 +4921,7 @@ def tp_lens_phase(device, counters, lm_stats, steps=TP_STEPS):
     gate_launches(launches, expected, "tensor_parallel=2 lens model")
     eig = state.kfac_state["eigen"]
     eig_shapes = {k: list(v.shape) for k, v in eig["blocks.0.ff1#c2"].items()}
+    held = mlp_bytes(model, state.opt_state, state.kfac_state)
     del step_fn, state, kfac, batches, model
     torch.cuda.empty_cache()
     kernel, oracle = one_step_oracle(tp_setup, device, ORACLE_STEPS)
@@ -4904,7 +4939,7 @@ def tp_lens_phase(device, counters, lm_stats, steps=TP_STEPS):
         "refresh_step_ms_median": stats.get("refresh_ms_median"),
         "phase8_capture_step_ms_median": lm_stats["capture_ms_median"],
         "phase8_refresh_step_ms_median": lm_stats["refresh_ms_median"],
-        "launches": launches, "expected_launches": expected,
+        "launches": launches, "expected_launches": expected, "mlp_bytes": held,
     }
 
 
@@ -4931,7 +4966,7 @@ def tp_worker(rank, store, out_path, steps, device_name, argv):
 
 def tp_ranks(device, argv, steps=TP_STEPS):
     """Phase 25c's two ranks (:func:`tp_worker`): their results."""
-    return spawn_two_ranks(tp_worker, (steps, str(device), list(argv)), TP_TIMEOUT_S, "tp")
+    return spawn_ranks(tp_worker, (steps, str(device), list(argv)), TP_TIMEOUT_S, "tp")
 
 
 def tp_one_process(device, steps=TP_STEPS):
@@ -4989,6 +5024,226 @@ def tp_phase(ranks, one, argv, steps=TP_STEPS):
             "bitwise_vs_one_process": ranks[0]["losses"] == one,
             "capture_step_ms_median": stats.get("capture_ms_median"),
             "refresh_step_ms_median": stats.get("refresh_ms_median")}
+
+
+# Phase 26 (slice 17): the 3-D data×fsdp×tensor world.
+FSDP_TP_FLAGS = ["--fsdp", "1", "--tensor-parallel", "2"]
+FSDP_3D_FLAGS = ["--fsdp", "2", "--tensor-parallel", "2", "--n-layers", "2"]
+FSDP_3D_STEPS = 6
+FSDP_TIMEOUT_S = 600
+
+
+def mlp_bytes(model, opt_state, kfac_state):
+    """Bytes this process holds of the MLP weights (every block's ff1 and
+    ff2 weight and bias), of their momentum, and of the shard layers' G/A
+    stacks a tensor axis splits (ff1's ``G``/``cQG``/``cdG``, ff2's
+    ``A``/``rQA``/``rdA``): the tensors' storage on the card, which
+    ``torch.cuda.memory_allocated`` counts (up to its 512-byte rounding)."""
+    from kfac_pytorch_tpu_torch import capture
+    from kfac_pytorch_tpu_torch.shardwise import TENSOR_SPLIT_KEYS
+
+    mlp = [n for n, _ in model.named_parameters() if ".ff1." in n or ".ff2." in n]
+    params = dict(model.named_parameters())
+    stacks = 0
+    for key in ("factors", "eigen"):
+        for name, entry in kfac_state[key].items():
+            form = capture.split_shard_name(name)[1]
+            stacks += sum(v.numel() * v.element_size() for k, v in entry.items()
+                          if form and k in TENSOR_SPLIT_KEYS[form])
+    return {"weights": sum(params[n].numel() * params[n].element_size() for n in mlp),
+            "momentum": sum(opt_state[n].numel() * opt_state[n].element_size() for n in mlp),
+            "stacks": stacks}
+
+
+def fsdp_world1_phase(device, counters, lm_hist):
+    """Phase 26a: the LM twin with ``--fsdp 1 --tensor-parallel 1`` (the
+    3-D world of one rank) on NCCL at world size 1, phase 8's 38 steps:
+    every loss bitwise phase 8's, kernels 2-7 as implied."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    (hist, launches), backend, world = in_nccl_world1(lambda: counted(
+        lambda: train_lm(["--epochs", str(LM_EPOCHS), "--fsdp", "1", "--tensor-parallel", "1"]),
+        counters))
+    model = trainer.build(trainer.parse_args(LM_ARGS), device)[0]
+    expected = {LM_COUNTERS[k]: n for k, n in lm_expected_launches(hist, model).items()}
+    del model
+    torch.cuda.empty_cache()
+    gate_launches(launches, expected, "--fsdp 1 --tensor-parallel 1, NCCL world 1")
+    if hist["loss"] != lm_hist["loss"]:
+        raise AssertionError(f"--fsdp 1 --tensor-parallel 1 at NCCL world 1: losses "
+                             f"{hist['loss']} are not phase 8's {lm_hist['loss']}")
+    print(f"--fsdp 1 --tensor-parallel 1 at NCCL world 1: {len(hist['loss'])} of "
+          f"{len(lm_hist['loss'])} losses bitwise phase 8's; kernels 2-7 as implied", flush=True)
+    return {"backend": backend, "world": world, "steps": len(hist["loss"]),
+            "losses_bitwise_phase8": True, "launches": launches, "expected_launches": expected}
+
+
+def fsdp_worker(rank, store, out_path, steps, device_name, argv, world_size):
+    """One rank of phases 26b-c (:func:`lm_rank`): :func:`twin_rank_steps`
+    with ``argv`` on the data×fsdp×tensor world; the world's layout, the
+    kernels' implied launches, the K-FAC stacks' shapes, the MLP bytes
+    held and the fsdp parts' sizes; then, after a barrier, on rank 0 of a
+    world with an fsdp axis, kernel 4 on this rank's SGD leaves
+    (:func:`sgd_phase`)."""
+
+    def body(device):
+        import torch
+
+        from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+        from kfac_pytorch_tpu_torch.models.layers import KFACDense
+        from kfac_pytorch_tpu_torch.parallel.mesh import (
+            data_fsdp_tensor_world,
+            data_parallel_world,
+        )
+
+        args = trainer.parse_args(argv)
+        trainer.check_world(args, data_parallel_world())
+        world = data_fsdp_tensor_world(args.fsdp, args.tensor_parallel)
+        rec, (model, kfac, state, _, _) = twin_rank_steps(args, world, device, steps)
+        layers = len(model.blocks)
+        groups = len({(m.out_features // m.lens_splits, m.in_features + 1)
+                      for m in model.modules() if isinstance(m, KFACDense)})
+        captures = sum(k != "plain" for k in rec["kinds"])
+        facs = state.kfac_state["factors"]
+        out = {
+            **rec,
+            "layout": [world.rank, world.size, world.tensor_rank, world.fsdp_rank],
+            "expected_launches": {
+                "compute_a_embed_fused": captures, "fused_precondition_stack": groups * steps,
+                "fused_sgd_apply": steps, "flash_forward": layers * steps,
+                "flash_backward_dq": layers * steps, "flash_backward_dkv": layers * steps},
+            "stack_shapes": {"ff1_G": list(facs["blocks.0.ff1#c2"]["G"].shape),
+                             "ff2_A": list(facs["blocks.0.ff2#r2"]["A"].shape)},
+            "mlp_bytes": mlp_bytes(model, state.opt_state, state.kfac_state),
+            "fsdp_parts": {}, "sgd": None,
+        }
+        fsdp = state.fsdp
+        if fsdp is not None:
+            out["fsdp_parts"] = {n: [fsdp.parts[n].numel(), state.opt_state[n].numel(),
+                                     math.prod(fsdp.shapes[n])] for n in fsdp.params}
+        torch.distributed.barrier()  # every rank's steps are done
+        if fsdp is not None and rank == 0 and device.type == "cuda":
+            leaves, _ = fsdp.sgd_view(dict(model.named_parameters()), {})
+            flush = torch.empty(32 << 20, dtype=torch.float32, device=device)
+            out["sgd"] = sgd_phase([t.detach() for t in leaves.values()], device, args.base_lr,
+                                   args.momentum, args.wd, flush)
+            out["sgd"]["unit"] = (f"one SGD step over rank 0's {len(leaves)} leaves of the "
+                                  f"--fsdp 2 --tensor-parallel 2 LM: " + out["sgd"]["unit"])
+        return out
+
+    lm_rank(rank, store, out_path, device_name, body, world_size)
+
+
+def fsdp_ranks(device, argv, steps, nprocs):
+    """Phase 26b's or 26c's ranks (:func:`fsdp_worker`): their results."""
+    return spawn_ranks(fsdp_worker, (steps, str(device), list(argv), nprocs), FSDP_TIMEOUT_S,
+                       "fsdp", nprocs=nprocs)
+
+
+def fsdp_gate_ranks(ranks, layout, one, steps, path):
+    """Kernels 2-7 per rank as implied, each rank's place in the world
+    (``layout(global rank)``), and every rank's losses within ``TP_RTOL``
+    of rank 0's and of one process (``one``): the worst difference."""
+    for r in ranks:
+        if r["layout"] != layout(r["rank"]):
+            raise AssertionError(f"{path}, rank {r['rank']}: layout {r['layout']}, want "
+                                 f"{layout(r['rank'])}")
+        gate_launches(r["launches"], r["expected_launches"], f"{path} rank {r['rank']}")
+        if r["stack_shapes"]["ff1_G"][0] != 1 or r["stack_shapes"]["ff2_A"][0] != 1:
+            raise AssertionError(f"{path}, rank {r['rank']}: stacks {r['stack_shapes']}, want "
+                                 "one block each")
+    worst = 0.0
+    for r in ranks[1:]:
+        worst = max(worst, gate_oracle(r["losses"], ranks[0]["losses"],
+                                       f"{path}, rank {r['rank']} vs rank 0", range(steps),
+                                       rtol=TP_RTOL))
+    return worst, gate_oracle(ranks[0]["losses"], one, f"{path} vs one process", range(steps),
+                              rtol=TP_RTOL)
+
+
+def fsdp_tp_phase(ranks, tp_lens, argv):
+    """Phase 26b: ``--fsdp 1 --tensor-parallel 2`` on two ranks (data 1 ×
+    fsdp 1 × tensor 2): :func:`fsdp_gate_ranks` against 25b's one-process
+    lens model over the same 12 steps; each rank's MLP bytes beside 25b's."""
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    args = trainer.parse_args(argv)
+    steps = len(tp_lens["losses"])
+    peers, worst = fsdp_gate_ranks(ranks, lambda g: [0, 1, g, 0], tp_lens["losses"], steps,
+                                   "--fsdp 1 --tensor-parallel 2")
+    one = tp_lens["mlp_bytes"]
+    ratios = [{k: r["mlp_bytes"][k] / one[k] for k in one} for r in ranks]
+    for r, ratio in zip(ranks, ratios):
+        if not all(0.45 <= v <= 0.55 for v in ratio.values()):
+            raise AssertionError(f"--fsdp 1 --tensor-parallel 2, rank {r['rank']}: MLP bytes "
+                                 f"{r['mlp_bytes']} against one process's {one}")
+    stats = step_stats({"step_ms": ranks[0]["step_ms"], "kind": ranks[0]["kinds"]},
+                       args.batch_size * args.seq_len)
+    print(f"--fsdp 1 --tensor-parallel 2 (two ranks, gloo): kernels 2-7 as implied; ff1 G and "
+          f"ff2 A {ranks[0]['stack_shapes']['ff1_G']} per rank; losses within {peers:.2e} of each other and "
+          f"{worst:.2e} of 25b's one process; MLP weights/momentum/stacks per rank "
+          f"{ratios[0]['weights']:.3f}/{ratios[0]['momentum']:.3f}/{ratios[0]['stacks']:.3f} of "
+          f"one process's; capture step {stats.get('capture_ms_median', float('nan')):.1f} ms, "
+          f"refresh {stats.get('refresh_ms_median', float('nan')):.1f} ms", flush=True)
+    return {"ranks": ranks, "steps": steps, "one_process_losses": tp_lens["losses"],
+            "max_rel_diff_between_ranks": peers, "max_rel_diff_vs_one_process": worst,
+            "one_process_mlp_bytes": one, "mlp_bytes_ratio_per_rank": ratios,
+            "capture_step_ms_median": stats.get("capture_ms_median"),
+            "refresh_step_ms_median": stats.get("refresh_ms_median")}
+
+
+def fsdp_one_process(device, steps=FSDP_3D_STEPS):
+    """Phase 26c's reference: the lens model (``tensor_parallel=2``) with
+    26c's depth on one process at its global batch of 8, the same steps
+    through the refresh cadence."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+
+    step_fn, state, kfac, batches, args = tp_setup(device, ["--n-layers", "2",
+                                                            "--batch-size", "8"])
+    cadence, losses = EigenRefreshCadence(kfac), []
+    for i in range(steps):
+        state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping,
+                           **cadence.flags_for_step(i, 0))
+        losses.append(float(m["loss"]))
+    del step_fn, state, kfac, batches
+    torch.cuda.empty_cache()
+    return losses
+
+
+def fsdp_3d_phase(ranks, one, argv, steps=FSDP_3D_STEPS):
+    """Phase 26c: ``--fsdp 2 --tensor-parallel 2`` on four ranks (data 1 ×
+    fsdp 2 × tensor 2): :func:`fsdp_gate_ranks` against one process at the
+    global batch; every fsdp part (and its momentum) half of its
+    parameter; rank 0's kernel-4 row on its SGD leaves."""
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    args = trainer.parse_args(argv)
+    peers, worst = fsdp_gate_ranks(ranks, lambda g: [g // 2, 2, g % 2, g // 2], one, steps,
+                                   "--fsdp 2 --tensor-parallel 2")
+    for r in ranks:
+        parts = r["fsdp_parts"]
+        if not parts or any(2 * p != n or 2 * m != n for p, m, n in parts.values()):
+            raise AssertionError(f"--fsdp 2, rank {r['rank']}: fsdp parts {parts}")
+    sgd = ranks[0]["sgd"]
+    sgd["launches"] = ranks[0]["launches"]["fused_sgd_apply"]
+    sgd["launches_per_rank"] = [r["launches"]["fused_sgd_apply"] for r in ranks]
+    sgd["launches_per_step"] = sgd["launches"] / steps
+    stats = step_stats({"step_ms": ranks[0]["step_ms"], "kind": ranks[0]["kinds"]},
+                       args.batch_size * args.seq_len)
+    print(f"--fsdp 2 --tensor-parallel 2 (four ranks, gloo): kernels 2-7 as implied; "
+          f"{len(ranks[0]['fsdp_parts'])} parameters in fsdp halves; losses within {peers:.2e} "
+          f"of each other and {worst:.2e} of one process at the global batch; kernel 4 on rank "
+          f"0's leaves bitwise its plain version, {sgd['ms']:.4f} ms (plain {sgd['plain_ms']:.4f}, "
+          f"SGD foreach {sgd['library_ms']:.4f}, bound {sgd['bound_ms']:.4f}); capture step "
+          f"{stats.get('capture_ms_median', float('nan')):.1f} ms", flush=True)
+    return {"ranks": ranks, "steps": steps, "one_process_losses": one,
+            "max_rel_diff_between_ranks": peers, "max_rel_diff_vs_one_process": worst,
+            "capture_step_ms_median": stats.get("capture_ms_median"),
+            "step0_ms": ranks[0]["step_ms"][0]}, sgd
 
 
 def ptxas_report():
@@ -5561,8 +5816,32 @@ def main() -> int:
             "lm_tensor_parallel_moe_two_ranks_per_rank": [r["launches"][key]
                                                           for r in tp["ranks"]]}
 
-    mark("26. results")
-    # 26. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 26a-c. this slice: the 3-D data×fsdp×tensor world, each path with the
+    # counters zeroed just before
+    mark("26a. --fsdp 1 --tensor-parallel 1, NCCL world 1")
+    fsdp_w1 = fsdp_world1_phase(device, all_counted, lm_hist)
+    print(json.dumps({"lm_fsdp_nccl_world_1": fsdp_w1}), flush=True)
+    mark("26b. two ranks: --fsdp 1 --tensor-parallel 2")
+    fsdp_tp_argv = [*LM_ARGS, *FSDP_TP_FLAGS]
+    fsdp_tp = fsdp_tp_phase(fsdp_ranks(device, fsdp_tp_argv, len(tp_lens["losses"]), 2),
+                            tp_lens, fsdp_tp_argv)
+    print(json.dumps({"two_ranks_fsdp_tensor": fsdp_tp}), flush=True)
+    mark("26c. four ranks: --fsdp 2 --tensor-parallel 2")
+    fsdp_3d_argv = [*LM_ARGS, *FSDP_3D_FLAGS]
+    fsdp_3d, sgd_3d = fsdp_3d_phase(fsdp_ranks(device, fsdp_3d_argv, FSDP_3D_STEPS, 4),
+                                    fsdp_one_process(device), fsdp_3d_argv)
+    print(json.dumps({"four_ranks_fsdp_tensor": fsdp_3d}), flush=True)
+    report([sgd_3d])
+    for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
+                   (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
+                   (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice17_paths"] = {
+            "lm_fsdp1_tp1_nccl_world1": fsdp_w1["launches"][key],
+            "lm_fsdp1_tp2_two_ranks_per_rank": [r["launches"][key] for r in fsdp_tp["ranks"]],
+            "lm_fsdp2_tp2_four_ranks_per_rank": [r["launches"][key] for r in fsdp_3d["ranks"]]}
+
+    mark("27. results")
+    # 27. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16
@@ -5578,7 +5857,7 @@ def main() -> int:
     conv_a[f"{SHARD_MODEL}_shards"] = rn50_conv_a
     token_count["wikitext_tied"] = wt_rows["token_count"]
     kernels = [conv_a, conv_a_bf16, grouped_a, grouped_a_bf16, token_count, moe_dispatch,
-               lm_apply, rx_apply_bf16, lm_sgd, *flash]
+               lm_apply, rx_apply_bf16, lm_sgd, sgd_3d, *flash]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -53,7 +53,13 @@ its A (the unnormalized per-expert sums and the expert fractions, so the
 comm plane averages both before the weighted EMA) and ``[E, m, m]`` as its
 G, from the gradient of the bank's dense per-expert outputs. The bank's
 ``[E, a, m]`` weight gradient becomes ``[E, m, a]`` factor-space
-matrices, one per expert, and back.
+matrices, one per expert, and back. A column or row layer split over a
+genuine tensor axis (``KFACShardedDense.split_``) keeps the same name and
+stacks only its own blocks, ``[T/T_axis, ·, ·]`` (``[1, ·, ·]`` in the LM):
+a column rank's G from its own output-gradient slice beside the shared A,
+a row rank's A from its own input slice beside the shared G (its output
+cotangent is the same on every tensor slot). The tensor slots' stacks,
+concatenated in slot order, are the one-process ``[T, ·, ·]`` stack.
 
 A tied head (``KFACEmbed.attend``, the decoder reusing the embedding table)
 is a method call, which no forward hook sees: the embedding's attend hook
@@ -294,7 +300,7 @@ class Capture:
                     kind=self._kind,
                 )
             elif isinstance(module, KFACShardedDense) and module.sharding == "row":
-                a = factors.compute_a_row_sharded(x.float(), module.shards)
+                a = factors.compute_a_row_sharded(x.float(), module.local_shards)
             else:  # dense, and column-sharded (one A for every shard)
                 a = factors.compute_a_dense(x.float(), module.bias is not None)
                 if name in self.lenses:  # one A, shared by the S splits
@@ -375,7 +381,7 @@ class Capture:
                 stat = factors.compute_g_conv(g, self.batch_averaged)
             elif name in self.shards:  # column: block-diagonal; row: one G
                 m = self.modules[name]
-                stat = (factors.compute_g_dense_sharded(g, m.shards, self.batch_averaged)
+                stat = (factors.compute_g_dense_sharded(g, m.local_shards, self.batch_averaged)
                         if m.sharding == "column"
                         else factors.compute_g_dense(g, self.batch_averaged))
             elif name in self.lenses:  # each split's G from its column slice

@@ -6,8 +6,8 @@ for what the port carries (model widths, SGD with global-norm clipping,
 K-FAC with an optional diagonal-A token embedding, the tied head
 ``--tie-embeddings``, the QKV expand lens ``--qkv-lens``, ``--remat``,
 sequence parallelism ``--seq-parallel N --attention ring|ulysses``, the MoE
-MLP ``--moe-experts E`` and the replicated-compute ``--tensor-parallel
-N``), the same
+MLP ``--moe-experts E``, the replicated-compute ``--tensor-parallel
+N`` and the 3-D ``--fsdp F --tensor-parallel T``), the same
 data (WikiText token files from ``--data-dir``, else the synthetic
 corpus), BPTT segments,
 K-FAC gating (every step's flags from ``scheduler.EigenRefreshCadence``:
@@ -55,8 +55,31 @@ comm plane, the owner mode's exchanges, a checkpoint's gathers) rides the
 data axis, so the owner, comm and overlap levers all stay available.
 ``--moe-experts E`` swaps each block's MLP for a ``KFACMoE`` bank of E
 experts (the MoE expert lens, ``shardwise/``); it composes with
-``--tensor-parallel``. ``--fsdp`` (the 3-D world and the genuine
-column/row split) waits for ROADMAP queue 1 item 8c.
+``--tensor-parallel``.
+
+``--fsdp F`` (F ≥ 1) flips ``--tensor-parallel T``'s meaning, as in the
+JAX trainer: the world is data×fsdp×tensor
+(``parallel.mesh.data_fsdp_tensor_world``, rank ``r`` is data slot
+``r // (F·T)``, fsdp slot ``(r // T) % F``, tensor slot ``r % T``) and its
+axes carry genuine sharding. The model is built with T shard lenses and
+each rank keeps its tensor slot's shards of every block's ``ff1`` (column)
+and ``ff2`` (row) kernel and computes with them (``parallel/tensor.py``:
+one all-reduce of the row output forward and one of the column input
+backward per block, on the tensor subgroup), and the K-FAC blocks of its
+own shards. Attention, the embeddings, the LayerNorms and the decoder
+stay whole on every tensor slot. Each fsdp slot stores only its part of
+every other parameter the JAX rule splits
+(``shardwise.lm_param_shardings``), and of its momentum, gathered on the
+fsdp subgroup for each step (``parallel/fsdp.py``). The batch slot of a
+rank is ``data·F + fsdp``, the global batch is ``--batch-size × data ×
+F``, and the gradient and loss means, the factor comm plane and the owner
+mode ride the data×fsdp subgroup (``--fsdp F --tensor-parallel 1``
+composes with ``--factor-sharding owner``); the tensor subgroup sees only
+the compute split and the scalar sums of the KL clip and the global-norm
+clip. ``--fsdp`` does not compose with ``--seq-parallel`` or
+``--service-devices``, and ``--moe-experts`` is refused with a genuine
+``--tensor-parallel``, with the JAX trainer's messages. Checkpoints hold
+the gathered one-process layout.
 
     python -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --d-model 512 --n-heads 8 --n-layers 4 --seq-len 2048 \\
@@ -68,6 +91,8 @@ column/row split) waits for ROADMAP queue 1 item 8c.
         --synthetic --kfac-embedding --seq-parallel 2 --attention ulysses
     torchrun --nproc-per-node 2 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --kfac-embedding --tensor-parallel 2 --moe-experts 4
+    torchrun --nproc-per-node 4 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
+        --synthetic --kfac-embedding --fsdp 2 --tensor-parallel 2
 
 Attention runs the CUDA flash kernels on a GPU
 (``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
@@ -82,6 +107,7 @@ validation loss, and the restore milliseconds of a resume.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import time
 from typing import Dict, List
@@ -107,13 +133,16 @@ from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.ops.flash_attention import best_attention_fn
 from kfac_pytorch_tpu_torch.parallel import launch
 from kfac_pytorch_tpu_torch.parallel.context import full_attention, make_context_parallel_attention
+from kfac_pytorch_tpu_torch.parallel.fsdp import FsdpParams
 from kfac_pytorch_tpu_torch.parallel.mesh import (
     World,
+    data_fsdp_tensor_world,
     data_parallel_world,
     data_seq_world,
     data_tensor_world,
     local_seq,
 )
+from kfac_pytorch_tpu_torch.shardwise import lm_param_shardings
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
@@ -132,7 +161,6 @@ SYNTHETIC_VOCAB = 1000
 _LATER_FLAGS = (
     ("--preempt-save-dir", str, None, "9 (elastic/)"),
     ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--fsdp", int, 0, "8c (shardwise/ 3-D world)"),
     ("--service-devices", int, 0, "9 (service/)"),
     ("--profile", str, None, "9 (planner/)"),
     ("--autotune-steps", int, 0, "9 (planner/)"),
@@ -183,9 +211,19 @@ def parse_args(argv=None):
     p.add_argument("--seq-parallel", type=int, default=1,
                    help="sequence-parallel axis size (data x seq world)")
     p.add_argument("--tensor-parallel", type=int, default=1,
-                   help="tensor axis size of the data x tensor world: compute "
-                        "replicated over it, every K-FAC collective on the "
-                        "data axis")
+                   help="tensor axis size: without --fsdp, of the data x tensor "
+                        "world (compute replicated over it, every K-FAC "
+                        "collective on the data axis); with --fsdp, of the 3-D "
+                        "world, whose MLP kernels it GENUINELY splits "
+                        "(column ff1, row ff2) with per-shard K-FAC blocks")
+    p.add_argument("--fsdp", type=int, default=0,
+                   help=">= 1 builds the 3-D data x fsdp x tensor world "
+                        "(parallel/mesh.py data_fsdp_tensor_world): params "
+                        "shard over 'fsdp' (gathered for each step) and, with "
+                        "--tensor-parallel > 1, the MLP kernels GENUINELY "
+                        "shard over 'tensor' with per-shard K-FAC factor "
+                        "blocks (shardwise/); the value is the 'fsdp' axis "
+                        "size (1 = tensor-sharding only)")
     p.add_argument("--moe-experts", type=int, default=0,
                    help="replace each block's MLP with a top-1 MoE bank of this "
                         "many experts (per-expert K-FAC with token-count-"
@@ -256,6 +294,11 @@ def parse_args(argv=None):
         )
     if args.seq_len % sp != 0:
         raise SystemExit(f"--seq-len {args.seq_len} must be divisible by --seq-parallel {sp}")
+    if args.service_devices > 0 and (sp > 1 or args.tensor_parallel > 1 or args.fsdp >= 1):
+        raise SystemExit(
+            "--service-devices carves a pure data-parallel mesh; it does "
+            "not compose with --seq-parallel, --tensor-parallel or --fsdp"
+        )
     for flag, _, default, item in _LATER_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) != default:
             raise SystemExit(
@@ -313,19 +356,25 @@ def rank_segments(stream, args, world: World):
 
 
 def check_world(args, world: World) -> None:
-    """The JAX trainer's checks of a data×seq or data×tensor world and of
-    the levers it refuses there, or with the MoE bank."""
-    sp, tp = args.seq_parallel, args.tensor_parallel
+    """The JAX trainer's checks of a data×seq, data×tensor or
+    data×fsdp×tensor world and of the levers it refuses there, or with the
+    shard lenses and the MoE bank."""
+    sp, tp, fsdp = args.seq_parallel, args.tensor_parallel, max(0, args.fsdp)
     if world.size % sp != 0:
         raise SystemExit(f"--seq-parallel {sp} must divide device count {world.size}")
     if world.size % max(1, tp) != 0:
         raise SystemExit(f"--tensor-parallel {tp} must divide device count {world.size}")
+    if fsdp >= 1 and world.size % (fsdp * max(1, tp)) != 0:
+        raise SystemExit(
+            f"--fsdp {fsdp} x --tensor-parallel {tp} must divide device "
+            f"count {world.size}"
+        )
     bad = seq_axis_violations(
         world.size, sp, factor_sharding=args.factor_sharding,
         factor_comm_dtype=args.factor_comm_dtype, factor_comm_freq=args.factor_comm_freq,
         comm_overlap=args.comm_overlap,
     ) + shard_lens_violations(
-        False, args.moe_experts > 0, factor_sharding=args.factor_sharding,
+        fsdp >= 1 and tp > 1, args.moe_experts > 0, factor_sharding=args.factor_sharding,
         eigh_chunks=args.eigh_chunks, solver=args.solver,
         factor_comm_freq=args.factor_comm_freq,
     )
@@ -349,22 +398,33 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
     corpus. ``oracle=True`` builds the oracle path instead — exact
     attention and the dense factor and apply routes — which the JAX
     trainer has no flag for. Over a seq axis the attention is the
-    sequence-parallel one either way."""
+    sequence-parallel one either way. Under ``--fsdp`` (``world`` a
+    data×fsdp×tensor world) the model's MLP kernels are this rank's tensor
+    shards and the state's ``fsdp`` places the other parameters, still
+    whole: ``fsdp.shard_`` cuts them after a resume and the starting
+    broadcast."""
     splits, words = load_corpus(args)
     if world.seq_size > 1:
         attention_fn = make_context_parallel_attention(world, args.attention)
     else:
         attention_fn = full_attention if oracle else best_attention_fn(device)
+    shardwise_regime = args.fsdp >= 1
     model = transformer_lm.get_model(
         len(words), max_len=args.seq_len, d_model=args.d_model,
         n_heads=args.n_heads, n_layers=args.n_layers, attention_fn=attention_fn,
         kfac_embedding=args.kfac_embedding, qkv_lens=args.qkv_lens,
         tie_embeddings=args.tie_embeddings, remat=args.remat,
-        # no tensor_parallel: --tensor-parallel replicates the compute
+        # legacy --tensor-parallel replicates the compute, so the model
+        # stays dense; under --fsdp it carries the shard lenses
+        tensor_parallel=args.tensor_parallel if shardwise_regime else 1,
         moe_experts=args.moe_experts,
         generator=torch.Generator().manual_seed(args.seed),
         seq_shards=world.seq_size, seq_index=world.seq_slot,
-    ).to(device)
+    )
+    placements = lm_param_shardings(
+        {n: tuple(p.shape) for n, p in model.named_parameters()},
+        capture.discover_layers(model), world.tensor_size, world.fsdp_size)
+    model = transformer_lm.split_tensor_layers(model, world).to(device)
     tx = make_sgd(momentum=args.momentum, weight_decay=args.wd)
     kfac = None
     if args.kfac_update_freq > 0:
@@ -383,12 +443,14 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
             device=device,
             process_group=world.group,
             seq_parallel=world.seq_size,
+            tensor_group=world.tensor_group,
         )
     state = TrainState(
         step=0,
         model=model,
         opt_state=tx.init(dict(model.named_parameters())),
         kfac_state=kfac.init(model) if kfac else None,
+        fsdp=FsdpParams(model, placements, world) if world.fsdp_size > 1 else None,
     )
     train_step = make_train_step(
         model, tx, kfac,
@@ -407,11 +469,17 @@ def main(argv=None) -> Dict[str, List]:
     device = launch.initialize(args.device)
     use_ieee_f32()
     check_world(args, data_parallel_world())
-    world = (data_tensor_world(args.tensor_parallel) if args.tensor_parallel > 1
-             else data_seq_world(args.seq_parallel, device))
+    if args.fsdp >= 1:
+        world = data_fsdp_tensor_world(args.fsdp, args.tensor_parallel)
+    elif args.tensor_parallel > 1:
+        world = data_tensor_world(args.tensor_parallel)
+    else:
+        world = data_seq_world(args.seq_parallel, device)
+    # the batch slots: data × fsdp on the 3-D world
     global_bs = args.batch_size * world.data_size
-    rank0_print(f"mesh data={world.data_size} fsdp=0 seq={world.seq_size} "
-                f"tensor={args.tensor_parallel} global_batch={global_bs} seq_len={args.seq_len}")
+    rank0_print(f"mesh data={world.data_size // world.fsdp_size} fsdp={max(0, args.fsdp)} "
+                f"seq={world.seq_size} tensor={args.tensor_parallel} "
+                f"global_batch={global_bs} seq_len={args.seq_len}")
     model, kfac, state, train_step, splits = build(args, device, world=world)
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "restore_ms": [],
@@ -428,6 +496,9 @@ def main(argv=None) -> Dict[str, List]:
             rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
     # every rank starts from rank 0's state (hvd.broadcast_parameters)
     ckpt.broadcast_state(state, world)
+    if state.fsdp is not None:
+        # from here each fsdp slot stores its parts of the split parameters
+        state.fsdp.shard_(state.opt_state)
     kfac_sched = None
     if kfac is not None and args.damping_schedule:
         kfac_sched = KFACParamScheduler(
@@ -495,10 +566,11 @@ def main(argv=None) -> Dict[str, List]:
                         f"cond_max={means.get('kfac_cond_max', 0.0):.3e} "
                         f"upd_cos={means.get('kfac_update_grad_cos', 0.0):.3f}")
         val = rank_rows(splits["valid"], args, world)
-        vl = [
-            float(eval_step(state, device_batch(toks, tgts, device))["loss"])
-            for toks, tgts in rank_segments(val, args, world)
-        ]
+        with state.fsdp.gathered() if state.fsdp is not None else contextlib.nullcontext():
+            vl = [
+                float(eval_step(state, device_batch(toks, tgts, device))["loss"])
+                for toks, tgts in rank_segments(val, args, world)
+            ]
         if vl:
             v = ranks_mean(sum(vl) / len(vl), world, device)
             history["val_loss"].append(v)

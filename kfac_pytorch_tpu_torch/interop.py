@@ -133,6 +133,41 @@ def lm_state_dict_from_jax(params: Dict[str, Any]) -> "OrderedDict[str, torch.Te
     return sd
 
 
+# the transformer LM's dense modules, whose ``[out, in]`` weight is the
+# transpose of flax's ``[in, out]`` kernel
+_LM_DENSE = ("qkv", "out", "ff1", "ff2", "decoder", "router")
+
+
+def lm_jax_leaf_shape(name: str, shape: Sequence[int]) -> Tuple[int, ...]:
+    """The flax leaf shape of the port's transformer-LM parameter ``name``
+    of torch shape ``shape``: a dense weight ``[out, in]`` is flax's
+    ``[in, out]`` kernel; embeddings, LayerNorms, biases and an MoE bank
+    keep their shape (the layout map of :func:`lm_state_dict_from_jax`)."""
+    mod, _, leaf = name.rpartition(".")
+    if leaf == "weight" and mod.rpartition(".")[2] in _LM_DENSE and len(shape) == 2:
+        return tuple(shape)[::-1]
+    return tuple(shape)
+
+
+def lm_rank_shards_from_jax(params: Dict[str, Any], names: Sequence[str],
+                            world) -> "OrderedDict[str, torch.Tensor]":
+    """JAX transformer-LM ``params`` → the port's one-process state_dict
+    (:func:`lm_state_dict_from_jax`) → ``world``'s rank's part of each
+    parameter on the data×fsdp×tensor world
+    (``parallel.mesh.data_fsdp_tensor_world``), placed by
+    ``shardwise.lm_param_shardings`` over the port's K-FAC layer ``names``:
+    its tensor slot's MLP kernel shards, its fsdp slot's flat slice of each
+    parameter the JAX rule splits, the rest whole."""
+    from kfac_pytorch_tpu_torch.shardwise import lenses
+
+    full = lm_state_dict_from_jax(params)
+    placements = lenses.lm_param_shardings(
+        {n: tuple(t.shape) for n, t in full.items()}, list(names),
+        world.tensor_size, world.fsdp_size)
+    return OrderedDict(
+        (n, lenses.local_part(t, placements[n], world).clone()) for n, t in full.items())
+
+
 def lm_layer_name_from_jax(name: str) -> str:
     """A JAX transformer-LM K-FAC layer name → the port's: ``block_{i}`` →
     ``blocks.{i}``, ``/`` → ``.``; a pseudo-layer or shard suffix (``#sK``

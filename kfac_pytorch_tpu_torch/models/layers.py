@@ -171,6 +171,16 @@ class KFACShardedDense(nn.Linear):
 
     ``capture.py`` names it ONE layer, ``path#c{T}`` or ``path#r{T}``,
     whose factors stay stacked.
+
+    :meth:`split_` puts the layer on a world with a genuine tensor axis
+    (``parallel.mesh.data_fsdp_tensor_world``), as the JAX package's
+    ``shardwise.lm_param_shardings`` places its kernel: it keeps only this
+    tensor slot's weight shard (column: rows ``m/T`` of dim 0, and the
+    bias's; row: columns ``a/T`` of dim 1) and computes with it, the
+    collectives of ``parallel/tensor.py`` around the matmul. Its K-FAC
+    blocks are then those of its shard: :attr:`local_shards` ``= shards /
+    T`` of them (a ``[1, m/T, m/T]`` G stack per slot of a column layer at
+    ``shards = T``, a ``[1, a/T, a/T]`` A stack of a row layer).
     """
 
     def __init__(self, in_features: int, out_features: int, shards: int,
@@ -198,6 +208,61 @@ class KFACShardedDense(nn.Linear):
                 )
         super().__init__(in_features, out_features, bias=bias, **kwargs)
         self.shards, self.sharding = shards, sharding
+        self.tensor = None  # the world whose tensor slot this layer holds
+
+    @property
+    def local_shards(self) -> int:
+        """The lens blocks this process holds (all of them unless split)."""
+        return self.shards // (self.tensor.tensor_size if self.tensor is not None else 1)
+
+    @property
+    def split_dim(self) -> int:
+        """The weight dim the tensor axis splits (0 column, 1 row)."""
+        return 0 if self.sharding == "column" else 1
+
+    @torch.no_grad()
+    def split_(self, world) -> "KFACShardedDense":
+        """Keep only ``world``'s tensor slot's shard of the weight (and of a
+        column layer's bias), in place; an identity without a tensor axis."""
+        t = world.tensor_size
+        if t == 1:
+            return self
+        if self.tensor is not None:
+            raise ValueError("the layer is split already")
+        if self.shards % t:
+            raise ValueError(
+                f"a {self.shards}-shard lens does not split over a "
+                f"{t}-slot tensor axis"
+            )
+        k = world.tensor_rank
+        self.weight = nn.Parameter(self.weight.chunk(t, dim=self.split_dim)[k].contiguous())
+        if self.bias is not None:
+            self.bias = nn.Parameter(self.bias.chunk(t)[k].contiguous())
+        self.tensor = world
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tensor is None:
+            return super().forward(x)
+        from kfac_pytorch_tpu_torch.parallel.tensor import copy_to_tensor, reduce_from_tensor
+
+        if self.sharding == "column":
+            return F.linear(copy_to_tensor(x, self.tensor), self.weight, self.bias)
+        return reduce_from_tensor(F.linear(x, self.weight), self.tensor)
+
+
+def tensor_split_params(model: nn.Module) -> dict:
+    """``{parameter name: (split dim, world)}`` of ``model``'s parameters
+    that a genuine tensor axis splits: the weights and biases of its split
+    ``KFACShardedDense`` layers, each with the world whose tensor slot it
+    holds."""
+    out = {}
+    for n, m in model.named_modules():
+        if isinstance(m, KFACShardedDense) and m.tensor is not None:
+            out[f"{n}.weight"] = (m.split_dim, m.tensor)
+            if m.bias is not None:
+                out[f"{n}.bias"] = (0, m.tensor)
+    return out
 
 
 class KFACMoE(nn.Module):

@@ -24,7 +24,13 @@ semantics it keeps:
   ``ff1`` a column-sharded and ``ff2`` a row-sharded, bias-free
   ``KFACShardedDense`` of T shards (the shard lenses, ``shardwise/``); the
   compute stays whole on one process, as the JAX model's until a mesh
-  splits it;
+  splits it. On a world with a genuine tensor axis
+  (``parallel.mesh.data_fsdp_tensor_world``) :func:`split_tensor_layers`
+  splits them after the init: each rank keeps its kernel shards and
+  computes with them (``KFACShardedDense.split_``), cut from the same
+  whole weights as one process's. Attention, the embeddings, the
+  LayerNorms and the decoder stay whole on every tensor slot, as in the
+  JAX package;
 * ``moe_experts = E > 0``: the MLP is a ``KFACMoE`` bank of E experts with
   top-1 routing (exclusive with ``tensor_parallel``, with the JAX error);
 * ``remat``: each block runs under ``torch.utils.checkpoint``
@@ -277,4 +283,13 @@ def get_model(
         moe_experts=moe_experts, seq_shards=seq_shards, seq_index=seq_index,
     )
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    return model
+
+
+def split_tensor_layers(model: nn.Module, world) -> nn.Module:
+    """Every ``KFACShardedDense`` of ``model`` cut to ``world``'s tensor
+    slot's shard (``KFACShardedDense.split_``), in place."""
+    for m in model.modules():
+        if isinstance(m, KFACShardedDense):
+            m.split_(world)
     return model

@@ -37,9 +37,28 @@ is this rank's DATA subgroup (the ranks of its tensor slot), its ``size``
 the data size and its ``rank`` the data slot, so the gradient and loss
 means, the factor buckets, the owner mode's reduce-scatter and gathers and
 an owner checkpoint's gathers see the data axis, as the JAX package's
-K-FAC planes do (``preconditioner.py``'s ``_non_tensor_world``). The 3-D
-data×fsdp×tensor mesh waits for ROADMAP queue 1 item 8c and
-``split_service_mesh`` for 9b.
+K-FAC planes do (``preconditioner.py``'s ``_non_tensor_world``).
+
+The data×fsdp×tensor world (:func:`data_fsdp_tensor_world`) is the JAX
+package's ``data_fsdp_tensor_mesh``, whose axes carry genuine sharding.
+Rank ``r`` is laid out row-major ``(data, fsdp, tensor)``: data slot
+``r // (F·T)``, fsdp slot ``(r // T) % F``, tensor slot ``r % T`` (tensor
+peers are neighbours, fsdp peers next). The world's ``group``, ``size`` and
+``rank`` are this rank's data×fsdp subgroup (the ranks of its tensor slot;
+the batch slot of rank ``r`` is ``r // T = data·F + fsdp``, as
+``P(("data", "fsdp"))`` lays out rows), so the gradient and loss means,
+the factor comm plane and the owner mode ride it as on a data axis. Two
+more subgroups come with it:
+
+* the tensor subgroup (``tensor_group``, the ``T`` ranks of one data×fsdp
+  slot): the column/row compute split's all-reduces
+  (``parallel/tensor.py``) and the named scalar sums over the shard
+  layers' local blocks (ν, the global-norm clip, the diagnostics);
+* the fsdp subgroup (``fsdp_group``, the ``F`` ranks of one data and
+  tensor slot): the parameter gather of ``parallel/fsdp.py`` and a
+  checkpoint's gather of the parameter slices.
+
+``split_service_mesh`` waits for ROADMAP queue 1 item 9b.
 
 Which rows of the global batch a rank holds: the global batch of a step is
 the concatenation of the data slots' batches in slot order (on a world
@@ -83,6 +102,15 @@ class World:
     seq_size: int = 1
     seq_group: Optional[Any] = None
     seq_staged: bool = False
+    # the genuine tensor axis of a data×fsdp×tensor world: its size, this
+    # rank's tensor slot and tensor subgroup
+    tensor_size: int = 1
+    tensor_rank: int = 0
+    tensor_group: Optional[Any] = None
+    # the fsdp axis: its size, this rank's fsdp slot and fsdp subgroup
+    fsdp_size: int = 1
+    fsdp_rank: int = 0
+    fsdp_group: Optional[Any] = None
 
     @property
     def seq_slot(self) -> int:
@@ -95,6 +123,27 @@ class World:
     @property
     def data_size(self) -> int:
         return self.size // self.seq_size
+
+    def tensor_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the tensor subgroup, in place; returns ``t``
+        (an identity without a tensor axis)."""
+        if self.tensor_size > 1:
+            dist.all_reduce(t, group=self.tensor_group)
+        return t
+
+    def tensor_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tensor slots' ``t`` concatenated along ``dim`` in slot order:
+        one flat ``all_gather_into_tensor`` on the tensor subgroup."""
+        if self.tensor_size == 1:
+            return t
+        return _gather_cat(t, dim, self.tensor_size, self.tensor_group)
+
+    def fsdp_all_gather_flat(self, t: torch.Tensor) -> torch.Tensor:
+        """The fsdp slots' ``t`` concatenated flat in slot order: one
+        ``all_gather_into_tensor`` on the fsdp subgroup."""
+        if self.fsdp_size == 1:
+            return t.reshape(-1)
+        return _gather_cat(t.reshape(-1), 0, self.fsdp_size, self.fsdp_group)
 
     def _seq_peer(self, slot: int) -> int:
         """The global rank of seq slot ``slot`` in this rank's data slot."""
@@ -200,6 +249,16 @@ class World:
             dist.broadcast(t, src=root, group=self.group)
 
 
+def _gather_cat(t: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    """``n`` ranks' ``t`` concatenated along ``dim`` in group-rank order."""
+    t = t.contiguous()
+    flat = t.new_empty(n * t.numel())
+    # gloo takes the output flat; NCCL either way
+    dist.all_gather_into_tensor(flat, t.reshape(-1), group=group)
+    parts = flat.view(n, *t.shape).unbind(0)
+    return torch.cat(parts, dim=dim) if dim else flat.view(n * t.shape[0], *t.shape[1:])
+
+
 class _SumOverRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
@@ -278,6 +337,58 @@ def data_tensor_world(tensor_parallel: int) -> World:
             mine = g
     return World(group=mine, size=world.size // tensor_parallel,
                  rank=world.rank // tensor_parallel, distributed=True)
+
+
+def data_fsdp_tensor_world(fsdp: int, tensor_parallel: int) -> World:
+    """The default group's ranks as a data×fsdp×tensor world (the JAX
+    ``data_fsdp_tensor_mesh``), laid out row-major ``(data, fsdp, tensor)``
+    (see the module docstring). The returned world is this rank's
+    data×fsdp subgroup, with its tensor and fsdp subgroups; at
+    ``fsdp = tensor_parallel = 1`` it is the default group's world. Every
+    rank creates every subgroup, in one fixed order (the data×fsdp groups by
+    tensor slot, then the fsdp groups, then the tensor groups), as
+    ``torch.distributed.new_group`` requires."""
+    world = data_parallel_world()
+    if fsdp < 1 or tensor_parallel < 1:
+        raise ValueError(
+            f"fsdp={fsdp} and tensor_parallel={tensor_parallel} must be >= 1"
+        )
+    if world.size % (fsdp * tensor_parallel):
+        raise ValueError(
+            f"fsdp×tensor_parallel={fsdp}×{tensor_parallel} does not divide "
+            f"{world.size} devices"
+        )
+    if fsdp * tensor_parallel == 1:
+        return world
+    n, r, f_, t_ = world.size, world.rank, fsdp, tensor_parallel
+    data = n // (f_ * t_)
+    group = fsdp_group = tensor_group = None
+
+    def make(ranks, mine):
+        g = dist.new_group(ranks)
+        return g if r in ranks else mine
+
+    if t_ > 1:
+        for t in range(t_):
+            group = make(list(range(t, n, t_)), group)
+    if f_ > 1:
+        for d in range(data):
+            for t in range(t_):
+                fsdp_group = make([d * f_ * t_ + f * t_ + t for f in range(f_)], fsdp_group)
+    if t_ > 1:
+        for d in range(data):
+            for f in range(f_):
+                tensor_group = make([(d * f_ + f) * t_ + t for t in range(t_)], tensor_group)
+    return World(group=group, size=n // t_, rank=r // t_, distributed=True,
+                 tensor_size=t_, tensor_rank=r % t_, tensor_group=tensor_group,
+                 fsdp_size=f_, fsdp_rank=(r // t_) % f_, fsdp_group=fsdp_group)
+
+
+def batch_axes(world: World) -> tuple:
+    """The batch-carrying axes of a world (the JAX ``batch_axes``):
+    ``("data",)`` plus ``"fsdp"`` when the fsdp axis has more than one slot.
+    The world's own group spans exactly these axes."""
+    return ("data", "fsdp") if world.fsdp_size > 1 else ("data",)
 
 
 def local_seq(seq_len: int, world: World) -> slice:

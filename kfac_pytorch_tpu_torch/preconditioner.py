@@ -97,6 +97,22 @@ its KL-clip partials after the fused kernel's. The levers that reshape a
 refresh or re-home factors refuse them, with the JAX package's messages
 (:data:`SHARD_LENS_RULES`).
 
+On a data×fsdp×tensor world (``parallel.mesh.data_fsdp_tensor_world``;
+``process_group`` its data×fsdp subgroup, ``tensor_group`` its tensor
+subgroup) the column and row layers are split (``KFACShardedDense.split_``)
+and each rank keeps, refreshes and solves only the factor blocks of its
+own kernel shard: a column layer's ``G``/``cQG``/``cdG`` and a row layer's
+``A``/``rQA``/``rdA`` stack ``[T/T_axis, ·, ·]`` (:meth:`KFAC.state_placements`,
+the JAX ``state_shardings``), beside the shared side whole. The factor
+plane (the buckets, the deferred flush, the int8 wire, the sharded refresh
+of the other layers, the owner plan) rides the data×fsdp group, so a
+column G block is averaged among the ranks of its own tensor slot only
+and the tensor group sees no factor collective. The one tensor-group sum
+the preconditioner issues is the KL clip's: ``Σ v·g`` over the local
+blocks of the split layers, added once to the replicated layers' sum
+(which every tensor slot holds whole and must not count ``T`` times), and,
+with ``track_diagnostics``, the norms and spectra of the same blocks.
+
 The constructor takes every argument of the reference with its default and
 validation. Levers outside the ported slices raise ``NotImplementedError``
 naming the ROADMAP queue-1 item that ports them.
@@ -109,6 +125,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from kfac_pytorch_tpu_torch import capture, shardwise
@@ -345,6 +362,7 @@ class KFAC:
         device: DeviceLike = None,
         process_group: Optional[Any] = None,
         seq_parallel: int = 1,
+        tensor_group: Optional[Any] = None,
     ):
         _validate("learning rate", 0.0 <= lr, lr)
         _validate("factor decay rate", 0.0 < factor_decay <= 1, factor_decay)
@@ -385,6 +403,12 @@ class KFAC:
             precond_comm_dtype,
         )
         world = data_parallel_world(process_group)
+        if tensor_group is not None and dist.get_world_size(tensor_group) > 1:
+            # the genuine tensor axis of a data×fsdp×tensor world
+            world = dataclasses.replace(
+                world, tensor_size=dist.get_world_size(tensor_group),
+                tensor_rank=dist.get_rank(tensor_group), tensor_group=tensor_group)
+        self._tensor_size = world.tensor_size
         _validate(
             "seq_parallel",
             isinstance(seq_parallel, int) and 0 < seq_parallel and world.size % seq_parallel == 0,
@@ -709,6 +733,17 @@ class KFAC:
         raise the first :data:`SHARD_LENS_RULES` refusal they meet."""
         names = list(names)
         self.shard_layers = shardwise.shard_entries(names)
+        # the column/row layers whose blocks a genuine tensor axis splits
+        tp = self._tensor_size
+        self.split_layers = {
+            n: count // tp for n, (_, form, count) in self.shard_layers.items()
+            if tp > 1 and form in ("c", "r")
+        }
+        for n, local in self.split_layers.items():
+            if local * tp != self.shard_layers[n][2]:
+                raise ValueError(
+                    f"shard-lens layer {n!r}: {self.shard_layers[n][2]} blocks do not "
+                    f"split over a {tp}-slot tensor axis")
         self.has_shard_lens = shardwise.has_shard_lens(names)
         self.has_moe = shardwise.has_moe(names)
         bad = shard_lens_violations(self.has_shard_lens, self.has_moe, **self._shard_levers)
@@ -1000,8 +1035,15 @@ class KFAC:
                 )
             _, form, count = capture.split_shard_name(name)
             if form is not None:
+                local = self.split_layers.get(name, count)
+                if getattr(m, "local_shards", count) != local:
+                    raise ValueError(
+                        f"shard-lens layer {name!r} holds {m.local_shards} of its "
+                        f"{count} blocks; this preconditioner's tensor axis gives it "
+                        f"{local} (split the model over the same world: "
+                        "KFACShardedDense.split_)")
                 facs[name] = shardwise.identity_factors(
-                    form, count, tuple(m.weight.shape), getattr(m, "bias", None) is not None,
+                    form, local, tuple(m.weight.shape), getattr(m, "bias", None) is not None,
                     device=self.device)
                 continue
             if isinstance(m, KFACEmbed):
@@ -1108,6 +1150,26 @@ class KFAC:
                 "layer_cond": {name: {"cond_A": z(), "cond_G": z()} for name in facs},
             }
         return state
+
+    def state_placements(self, state: KFACState) -> Dict[str, Dict[str, Dict[str, Any]]]:
+        """Where the shardwise factor/eigen leaves of ``state`` live on this
+        preconditioner's world (the shardwise part of the JAX
+        ``state_shardings``): ``{"factors"|"eigen": {layer: {key:
+        placement}}}``, a placement ``("tensor", 0)`` for a stack whose
+        blocks the tensor slots split (each rank holds its kernel shard's)
+        and ``None`` for one every rank holds whole
+        (``shardwise.factor_leaf_spec``). Every other leaf is replicated
+        over the tensor slots, and under owner sharding split by the owner
+        plan as before."""
+        out: Dict[str, Dict[str, Dict[str, Any]]] = {}
+        for key in ("factors", "eigen"):
+            for name, entry in state.get(key, {}).items():
+                se = self.shard_layers.get(name)
+                if se is not None:
+                    out.setdefault(key, {})[name] = {
+                        k: shardwise.factor_leaf_spec(name, k, (se[2],), self.world.tensor_size)
+                        for k in entry}
+        return out
 
     # ------------------------------------------------------------------
     # Update
@@ -1727,11 +1789,21 @@ class KFAC:
                 precision=self.precond_precision,
             )
         for n, (_, form, count) in self.shard_layers.items():
-            updates[n] = shardwise.precondition(form, count, gmats[n], eigen[n], damping)
-            if vg_terms is not None:
+            updates[n] = shardwise.precondition(
+                form, self.split_layers.get(n, count), gmats[n], eigen[n], damping)
+            if vg_terms is not None and n not in self.split_layers:
                 # after the fused kernel's partials, in emission order
                 vg_terms.append((updates[n] * gmats[n]).sum())
-        if vg_terms is not None:
+        if self.split_layers:
+            # the split layers' Σ v·g over their local blocks, summed over
+            # the tensor slots, once beside the replicated layers' terms
+            if vg_terms is None:
+                vg_terms = [(v.float() * gmats[n].float()).sum() for n, v in updates.items()
+                            if n not in self.split_layers]
+            part = sum((updates[n] * gmats[n]).sum() for n in self.split_layers).reshape(1)
+            vg_terms.append(self.world.tensor_sum_(part)[0])
+            nu = precond_ops.kl_clip_from_vg(vg_terms, lr, self.hparams.kl_clip)
+        elif vg_terms is not None:
             nu = precond_ops.kl_clip_from_vg(vg_terms, lr, self.hparams.kl_clip)
         else:
             nu = precond_ops.kl_clip_coefficient(updates, gmats, lr, self.hparams.kl_clip)
@@ -1751,9 +1823,20 @@ class KFAC:
         layer_cond = prev["layer_cond"]
         if fresh_spectra is not None:
             mins, maxs, layer_cond = [], [], {}
+            ext = {}
             for n, (da, dg) in fresh_spectra.items():
                 da_mn, da_mx = torch.aminmax(da.float())
                 dg_mn, dg_mx = torch.aminmax(dg.float())
+                ext[n] = (da_mn, da_mx, dg_mn, dg_mx)
+            split = [n for n in ext if n in self.split_layers]
+            if split:
+                # the split layers' extremes over every tensor slot's blocks:
+                # one max over (−min, max) pairs
+                v = torch.stack([torch.stack((-ext[n][0], ext[n][1], -ext[n][2], ext[n][3]))
+                                 for n in split])
+                dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.world.tensor_group)
+                ext.update({n: (-r[0], r[1], -r[2], r[3]) for n, r in zip(split, v)})
+            for n, (da_mn, da_mx, dg_mn, dg_mx) in ext.items():
                 # the eigenvalues of G ⊗ A are products of the factors'
                 # (floored ≥ 0); λ on both ends of a condition number bounds
                 # it as the damped solve does
@@ -1767,10 +1850,20 @@ class KFAC:
             max_eig = torch.max(torch.stack(maxs)) + lam
         sq_g = sq_v = dot = torch.zeros((), dtype=torch.float32, device=self.device)
         for name, v in updates.items():
+            if name in self.split_layers:
+                continue
             g, v = gmats[name].float(), v.float()
             sq_g = sq_g + torch.sum(g * g)
             sq_v = sq_v + torch.sum(v * v)
             dot = dot + torch.sum(v * g)
+        if self.split_layers:
+            # the split layers' local blocks, summed over the tensor slots
+            part = torch.zeros(3, dtype=torch.float32, device=self.device)
+            for name in self.split_layers:
+                g, v = gmats[name].float(), updates[name].float()
+                part = part + torch.stack((torch.sum(g * g), torch.sum(v * v), torch.sum(v * g)))
+            self.world.tensor_sum_(part)
+            sq_g, sq_v, dot = sq_g + part[0], sq_v + part[1], dot + part[2]
         grad_norm, upd_norm = torch.sqrt(sq_g), torch.sqrt(sq_v)
         cos = dot / torch.clamp(grad_norm * upd_norm, min=1e-30)
         return {

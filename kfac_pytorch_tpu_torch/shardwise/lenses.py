@@ -2,8 +2,9 @@
 kernels.
 
 Port of ``kfac_pytorch_tpu/shardwise/lenses.py`` (the state layouts, the
-EMAs, the refresh and the solves; its mesh placement rules belong to the
-3-D data×fsdp×tensor world, which the port does not carry yet). The
+EMAs, the refresh, the solves, and the placement rules of the 3-D
+data×fsdp×tensor world: :func:`factor_leaf_spec`,
+:func:`lm_param_shardings`, :func:`state_bytes_local`). The
 subsystem behind the ``#c{T}``/``#r{T}``/``#e{E}`` layer names
 (``capture.split_shard_name``), after *KFAC for Modern Neural Network
 Architectures* (arxiv 2311.00636) generalized to sharded kernels:
@@ -30,7 +31,8 @@ eigenbasis solve, outside any Pallas kernel.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -228,3 +230,118 @@ def precondition(form: str, count: int, grad_mat: torch.Tensor,
     if form == "e":
         return _solve(grad_mat, qa, qg, da, dg, damping)
     raise ValueError(f"unknown shard form {form!r}")
+
+
+# ---------------------------------------------------------------------------
+# Placement on the data×fsdp×tensor world
+# ---------------------------------------------------------------------------
+
+# A placement is where one tensor of the one-process layout lives on the 3-D
+# world: ``None`` (replicated), ``("tensor", d)`` (dim ``d`` split over the
+# tensor slots, in slot order) or ``FSDP`` (the flattened tensor split into
+# ``F`` contiguous equal parts over the fsdp slots: the JAX rule splits the
+# flax leaf's leading dim, which may be another dim of the port's tensor,
+# and the flat split stores the same bytes per rank).
+FSDP = ("fsdp", None)
+
+# the factor/eigen keys a genuine tensor axis splits, by form: a column
+# layer's G side, a row layer's A side
+TENSOR_SPLIT_KEYS = {"c": ("G", "cQG", "cdG"), "r": ("A", "rQA", "rdA"), "e": ()}
+
+
+def factor_leaf_spec(name: str, key: str, leaf_shape: Tuple[int, ...],
+                     tensor_size: int) -> Optional[Tuple[str, int]]:
+    """Placement of one shardwise factor/eigen leaf of the one-process
+    layout (``leaf_shape`` the whole stack's) on a world with
+    ``tensor_size`` tensor slots (the JAX ``factor_leaf_spec``): column
+    layers split the G-side stacks over the tensor axis (each slot holds the
+    blocks of its kernel shard), row layers the A-side stacks; replicated
+    otherwise, and whenever the stack dim does not divide by the tensor
+    axis."""
+    from kfac_pytorch_tpu_torch import capture
+
+    _, form, count = capture.split_shard_name(name)
+    if form is None or tensor_size <= 1:
+        return None
+    if not leaf_shape or leaf_shape[0] != count or count % tensor_size:
+        return None
+    return ("tensor", 0) if key in TENSOR_SPLIT_KEYS[form] else None
+
+
+def lm_param_shardings(shapes: Dict[str, Tuple[int, ...]], names: List[str],
+                       tensor_size: int, fsdp_size: int) -> Dict[str, Any]:
+    """``{parameter: placement}`` of the transformer LM's one-process
+    parameters (``shapes``, by ``named_parameters`` name) on the 3-D world
+    (the JAX ``lm_param_shardings``), decided by the JAX rule on the flax
+    leaf's shape (``interop.lm_jax_leaf_shape``): a column kernel splits
+    its output features over the tensor axis (the port's ``[m, a]`` weight
+    along dim 0, and its bias), a row kernel its input features (dim 1),
+    each only where the split dim divides; every other parameter (MoE banks
+    included) splits over the fsdp axis where its flax leading dim divides
+    and it holds at least ``2·F`` values (:data:`FSDP`); the rest
+    replicate. Flax hands a layer the whole gathered value, so capture sees
+    whole parameters (capture at the allgather point)."""
+    from kfac_pytorch_tpu_torch.interop import lm_jax_leaf_shape
+
+    tensor_dims = {}
+    if tensor_size > 1:
+        for base, form, _ in shard_entries(names).values():
+            if form == "c":
+                tensor_dims[f"{base}.weight"] = tensor_dims[f"{base}.bias"] = 0
+            elif form == "r":
+                tensor_dims[f"{base}.weight"] = 1
+    out: Dict[str, Any] = {}
+    for name, shape in shapes.items():
+        shape = tuple(shape)
+        if name in tensor_dims:
+            d = tensor_dims[name]
+            out[name] = ("tensor", d) if len(shape) > d and shape[d] % tensor_size == 0 else None
+            continue
+        jshape = lm_jax_leaf_shape(name, shape)
+        if (fsdp_size > 1 and jshape and jshape[0] % fsdp_size == 0
+                and math.prod(jshape) >= 2 * fsdp_size):
+            out[name] = FSDP
+        else:
+            out[name] = None
+    return out
+
+
+def _placement_divisor(placement, tensor_size: int, fsdp_size: int) -> int:
+    """How many ranks share one copy of a tensor under ``placement``."""
+    if placement is None:
+        return 1
+    return tensor_size if placement[0] == "tensor" else fsdp_size
+
+
+def state_bytes_local(tensors: Dict[str, Any], placements: Dict[str, Any],
+                      tensor_size: int, fsdp_size: int) -> int:
+    """Per-rank bytes of one-process ``tensors`` (``{name: tensor}``)
+    under ``placements`` (the JAX ``state_bytes_local``): each tensor's
+    bytes divided by the ranks its placement splits it over."""
+    return sum(
+        t.numel() * t.element_size()
+        // _placement_divisor(placements.get(n), tensor_size, fsdp_size)
+        for n, t in tensors.items()
+    )
+
+
+def local_part(t: torch.Tensor, placement, world) -> torch.Tensor:
+    """``world``'s rank's part of the one-process tensor ``t`` under
+    ``placement`` (a view where it can be)."""
+    if placement is None:
+        return t
+    if placement[0] == "tensor":
+        return t.chunk(world.tensor_size, dim=placement[1])[world.tensor_rank]
+    return t.reshape(-1).chunk(world.fsdp_size)[world.fsdp_rank]
+
+
+def global_part(t: torch.Tensor, placement, world, shape=None) -> torch.Tensor:
+    """The one-process tensor from every rank's ``t`` under ``placement``
+    (the inverse of :func:`local_part`; ``shape`` the whole tensor's, for
+    :data:`FSDP`): one gather on the placement's subgroup, which every rank
+    of it must enter."""
+    if placement is None:
+        return t
+    if placement[0] == "tensor":
+        return world.tensor_all_gather(t, placement[1])
+    return world.fsdp_all_gather_flat(t).view(shape)

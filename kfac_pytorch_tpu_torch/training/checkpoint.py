@@ -32,6 +32,19 @@ the ``world`` of :func:`save_checkpoint` is the data subgroup: its owner
 rows gather over the data axis (the tensor peers hold the same rows), and
 the global rank 0 writes.
 
+On a data×fsdp×tensor world (``parallel.mesh.data_fsdp_tensor_world``) a
+checkpoint holds the GATHERED one-process layout: every rank enters
+:func:`save_checkpoint`, which gathers the tensor-split MLP weights, biases
+and momentum over the tensor subgroup (``layers.tensor_split_params``), the
+fsdp parts of the other parameters and of their momentum over the fsdp
+subgroup (the state's ``parallel.fsdp.FsdpParams``), and the split layers' factor and
+eigen blocks (a column layer's ``G``/``cQG``/``cdG``, a row layer's
+``A``/``rQA``/``rdA``, ``shardwise.factor_leaf_spec``) into the
+one-process ``[T, ·, ·]`` stacks; the global rank 0 writes. A restore cuts
+them again for this rank's tensor slot (before the fsdp split, which the
+trainer makes after the resume), so a 3-D checkpoint resumes in a
+one-process lens run and the other way round.
+
 Data-parallel, only rank 0 writes; every rank reads the directory (a
 shared file system, as the JAX package's checkpoints need) at the epoch
 rank 0 resumes from, which is broadcast, as the reference broadcasts it
@@ -65,8 +78,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from kfac_pytorch_tpu_torch import capture
+from kfac_pytorch_tpu_torch.models.layers import tensor_split_params
 from kfac_pytorch_tpu_torch.parallel import launch
 from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world
+from kfac_pytorch_tpu_torch.shardwise import lenses
 from kfac_pytorch_tpu_torch.training.step import TrainState
 
 _EPOCH_RE = re.compile(r"checkpoint-(\d+)$")
@@ -92,10 +108,32 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _tensor_split(kfac_state, world: World, fn):
+    """``kfac_state`` with ``fn(tensor)`` applied to every factor/eigen
+    leaf a genuine tensor axis of ``world`` splits."""
+    if not isinstance(kfac_state, dict) or world.tensor_size == 1:
+        return kfac_state
+    out = dict(kfac_state)
+    for key in ("factors", "eigen"):
+        entries = dict(out.get(key, {}))
+        for name, entry in entries.items():
+            count = capture.split_shard_name(name)[2]
+            if count is not None:
+                entries[name] = {
+                    k: fn(v) if lenses.factor_leaf_spec(name, k, (count,), world.tensor_size)
+                    else v for k, v in entry.items()}
+        if key in out:
+            out[key] = entries
+    return out
+
+
 def global_kfac_state(kfac_state, world: World):
     """An owner state with its row stacks gathered over the ranks into the
-    global ``[world·rows, ...]`` form (one ``all_gather`` per stack): every
-    rank of ``world`` must call it. Other states pass unchanged."""
+    global ``[world·rows, ...]`` form (one ``all_gather`` per stack), and
+    on a genuine tensor axis the split layers' blocks gathered into their
+    one-process stacks: every rank of ``world`` must call it. Other states
+    pass unchanged."""
+    kfac_state = _tensor_split(kfac_state, world, lambda t: world.tensor_all_gather(t, 0))
     if not owner_form(kfac_state) or not world.distributed:
         return kfac_state
     out = dict(kfac_state)
@@ -145,11 +183,21 @@ def rehome_kfac_state(kfac: Any, kfac_state: Any) -> Any:
 
 
 def _payload(state: TrainState, world: World) -> Dict[str, Any]:
+    model_sd, opt_state, fsdp = state.model.state_dict(), state.opt_state, state.fsdp
+    if fsdp is not None:
+        model_sd.update(fsdp.whole_params())
+        opt_state = fsdp.whole_momentum(opt_state)
+    split = tensor_split_params(state.model)
+    if split:
+        opt_state = dict(opt_state)
+        for n, (dim, w) in split.items():
+            model_sd[n] = w.tensor_all_gather(model_sd[n], dim)
+            opt_state[n] = w.tensor_all_gather(opt_state[n], dim)
     payload = {
         "format": FORMAT,
         "step": state.step,
-        "model": state.model.state_dict(),
-        "opt_state": state.opt_state,
+        "model": model_sd,
+        "opt_state": opt_state,
         "kfac_state": global_kfac_state(state.kfac_state, world),
     }
     if owner_form(state.kfac_state):
@@ -161,8 +209,9 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, state: TrainState,
                     world: Optional[World] = None) -> str:
     """Write ``state`` as ``checkpoint-<epoch>`` in ``checkpoint_dir``
     (created if missing); returns the path. Only rank 0 writes; with an
-    owner-sharded K-FAC state every rank of ``world`` (default: the default
-    group's) must call it, for the gather of the shard rows."""
+    owner-sharded K-FAC state, or on a data×fsdp×tensor world, every rank
+    of ``world`` (default: the default group's) must call it, for the
+    gathers."""
     path = checkpoint_path(checkpoint_dir, epoch)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         # the overlap plane's side stream may still write the pending buffer
@@ -243,15 +292,26 @@ def restore_checkpoint(checkpoint_dir: str, epoch: int, target: TrainState,
     device = next(target.model.parameters()).device
     saved = _load(checkpoint_dir, epoch, device)
     saved_kfac = saved["kfac_state"]
+    model_sd, saved_opt = saved["model"], saved["opt_state"]
+    split = tensor_split_params(target.model)
+    if split:
+        # this tensor slot's part of the one-process layout
+        w = next(iter(split.values()))[1]
+        model_sd, saved_opt = dict(model_sd), dict(saved_opt)
+        for n, (dim, _) in split.items():
+            model_sd[n] = model_sd[n].chunk(w.tensor_size, dim)[w.tensor_rank]
+            saved_opt[n] = saved_opt[n].chunk(w.tensor_size, dim)[w.tensor_rank]
+        saved_kfac = _tensor_split(saved_kfac, w, lambda t: t.chunk(w.tensor_size)[w.tensor_rank])
     if owner_form(saved_kfac):
         world = kfac.world if kfac is not None else data_parallel_world()
         saved_kfac = local_kfac_state(saved_kfac, world, saved.get("kfac_owner_world", 1))
     saved_kfac = rehome_kfac_state(kfac, saved_kfac)
-    target.model.load_state_dict(saved["model"])
-    opt_state = _copy_into(target.opt_state, saved["opt_state"], "opt_state")
+    target.model.load_state_dict(model_sd)
+    opt_state = _copy_into(target.opt_state, saved_opt, "opt_state")
     kfac_state = _copy_into(target.kfac_state, saved_kfac, "kfac_state")
     return TrainState(
-        step=saved["step"], model=target.model, opt_state=opt_state, kfac_state=kfac_state
+        step=saved["step"], model=target.model, opt_state=opt_state, kfac_state=kfac_state,
+        fsdp=target.fsdp,
     )
 
 

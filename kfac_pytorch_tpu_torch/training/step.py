@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch.capture import Capture
 from kfac_pytorch_tpu_torch.models.cifar_resnet import BatchNorm2d, global_batchnorm
+from kfac_pytorch_tpu_torch.models.layers import tensor_split_params
 from kfac_pytorch_tpu_torch.observability.diagnostics import diagnostic_metrics
 from kfac_pytorch_tpu_torch.ops import apply_kernels
 from kfac_pytorch_tpu_torch.parallel.mesh import WIRE_DTYPES, World, data_parallel_world
@@ -64,12 +65,15 @@ from kfac_pytorch_tpu_torch.preconditioner import KFAC
 @dataclasses.dataclass
 class TrainState:
     """Training state: the model holds params and BN buffers; ``opt_state``
-    the momentum buffers by parameter name."""
+    the momentum buffers by parameter name; on a data×fsdp×tensor world
+    ``fsdp`` (``parallel.fsdp.FsdpParams``) holds this rank's parts of the
+    fsdp-split parameters, whose momentum buffers are parts too."""
 
     step: int
     model: nn.Module
     opt_state: Dict[str, torch.Tensor]
     kfac_state: Optional[Dict[str, Any]] = None
+    fsdp: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -128,13 +132,22 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def clip_by_global_norm(
-    grads: Dict[str, torch.Tensor], max_norm: float
+    grads: Dict[str, torch.Tensor], max_norm: float,
+    split: Optional[Dict[str, Tuple[int, World]]] = None,
 ) -> Dict[str, torch.Tensor]:
     """``torch.nn.utils.clip_grad_norm_`` semantics (scale every gradient by
     ``min(1, max_norm / ‖g‖)``, the norm over all of them), without a host
-    sync; returns a new dict."""
+    sync; returns a new dict. The gradients named in ``split`` are this
+    tensor slot's shards (``layers.tensor_split_params``): their squares
+    are summed over their world's tensor subgroup, once beside the whole
+    model's other gradients, which every slot holds."""
     first = next(iter(grads.values()))
-    gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+    if split:
+        part = sum((grads[n].float() ** 2).sum() for n in split).reshape(1)
+        sq = sum((g.float() ** 2).sum() for n, g in grads.items() if n not in split)
+        gnorm = torch.sqrt(sq + next(iter(split.values()))[1].tensor_sum_(part)[0])
+    else:
+        gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
     limit = torch.full((), float(max_norm), dtype=torch.float32, device=first.device)
     scale = torch.clamp(limit / torch.clamp(gnorm, min=1e-12), max=1.0)
     return {n: g * scale for n, g in grads.items()}
@@ -197,6 +210,14 @@ def make_train_step(
     docstring for the collectives and the BatchNorm routes.
     ``grad_comm_dtype`` (``torch.bfloat16``) selects the compressed route
     over more than one rank and is inert on one, as in the JAX package.
+
+    On a data×fsdp×tensor world (``parallel.mesh.data_fsdp_tensor_world``)
+    the model's split MLP layers compute on this tensor slot's shards, the
+    global-norm clip sums their squares over the tensor subgroup, and the
+    state's ``fsdp`` (a ``parallel.fsdp.FsdpParams``) gathers the
+    fsdp-split parameters before the forward, hands the optimizer this
+    rank's parts, their momentum and its slice of each averaged whole
+    gradient, and releases the gathered values after the step.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
@@ -234,6 +255,8 @@ def make_train_step(
     # the fused SGD kernel's plan of the leaf set, built at the first step
     # and kept while it holds (apply_kernels.dispatch_sgd_apply)
     sgd_plans: Dict[str, Any] = {}
+    # this tensor slot's parameter shards (the global-norm clip's sum)
+    split = tensor_split_params(model)
 
     def forward_backward(images, labels, capture_stats: bool):
         ctx = (
@@ -263,6 +286,9 @@ def make_train_step(
     ):
         images, labels = batch
         model.train()
+        fsdp = state.fsdp
+        if fsdp is not None:
+            fsdp.gather()
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -289,13 +315,16 @@ def make_train_step(
         if exchange is not None:
             a_c, g_s = exchange()
         if grad_clip:
-            grads = clip_by_global_norm(grads, grad_clip)
+            grads = clip_by_global_norm(grads, grad_clip, split)
         new_state = precondition_and_step(
             state, params, grads, a_c, g_s, lr, damping, kfac, tx, sgd_hyper, sgd_plans,
             update_factors=update_factors, update_eigen=update_eigen,
             diag_warmup_done=diag_warmup_done, eigen_chunk=eigen_chunk, swap_eigen=swap_eigen,
             flush_factors=flush_factors, exchanged=exchange is not None,
+            sgd_view=fsdp.sgd_view if fsdp is not None else None,
         )
+        if fsdp is not None:
+            fsdp.release()
         metrics = {"loss": loss, "accuracy": acc}
         if kfac is not None and kfac.track_diagnostics:
             metrics.update(diagnostic_metrics(new_state.kfac_state["diagnostics"]))
@@ -359,6 +388,7 @@ def precondition_and_step(
     grads: Dict[str, torch.Tensor],
     a_c, g_s, lr: float, damping: float,
     kfac: Optional[KFAC], tx: SGD, sgd_hyper, sgd_plans: Dict[str, Any],
+    sgd_view: Optional[Callable] = None,
     **flags,
 ) -> TrainState:
     """The tail of a train step, shared by the image and the RNN LM steps:
@@ -368,13 +398,18 @@ def precondition_and_step(
     already), then SGD, through the fused SGD kernel
     wrapper when ``sgd_hyper`` declares ``tx`` and a preconditioner runs
     (``sgd_plans`` keeps its launch plan between steps), else per leaf.
-    Updates the parameters and momentum in place; returns the next state."""
+    Updates the parameters and momentum in place; returns the next state.
+    ``sgd_view(params, grads) -> (params, grads)`` maps the preconditioned
+    gradients onto the leaves the optimizer updates
+    (``parallel.fsdp.FsdpParams.sgd_view``)."""
     kfac_state = state.kfac_state
     if kfac is not None:
         grads, kfac_state = kfac.update(
             grads, kfac_state, a_contribs=a_c, g_factor_stats=g_s, lr=lr,
             damping=damping, **flags,
         )
+    if sgd_view is not None:
+        params, grads = sgd_view(params, grads)
     fused = None
     if sgd_hyper is not None and kfac is not None:
         fused = apply_kernels.dispatch_sgd_apply(
@@ -385,7 +420,7 @@ def precondition_and_step(
         tx.apply(params, grads, state.opt_state, lr)
     return TrainState(
         step=state.step + 1, model=state.model, opt_state=state.opt_state,
-        kfac_state=kfac_state,
+        kfac_state=kfac_state, fsdp=state.fsdp,
     )
 
 

@@ -4,8 +4,11 @@ the same size (``tests/conftest.py``'s 8 virtual devices) and against the
 port's own one-process results.
 
 The ranks are spawned by ``tests/torch_dist_workers.py`` (a file store
-under ``tmp_path``, one torch thread each); each of the fixtures below
-spawns one world and the tests read its results.
+under ``tmp_path``, one torch thread each): one world of 2 ranks (the ops,
+the solver ops, the train step and the twins) and one of 4 (the ops and
+the solver ops), both started before the module's first test so that
+they run while this process runs JAX (the ``multi`` task runs several
+tasks in one spawn); the tests read their results.
 
 * The assignment plans (``layer_assignment``, ``precondition_assignment``)
   equal the JAX package's for a sweep of names, worlds, ``diag_blocks`` and
@@ -118,18 +121,42 @@ def _ops_inputs():
                 damping=DAMPING)
 
 
-_RESULTS = {}
+@pytest.fixture(scope="module", autouse=True)
+def spawned(tmp_path_factory):
+    """Both worlds, started before the module's first test, their parts in
+    the order the tests read them; each part read as soon as its ranks are
+    done with it, and both worlds joined at the module's end. ``{world:
+    (inputs, handle)}``."""
+    root = tmp_path_factory.mktemp("spawned")
+    write_cifar(str(root / "cifar"), 8, 7)
+    _write_shards(str(root / "shards"), 122, 8, 5, 40, 48)
+    ops, solver = _ops_inputs(), _solver_inputs()
+    step_in, step_kw = _step_inputs()
+    twin_kw = dict(cifar_dir=str(root / "cifar"), shard_dir=str(root / "shards"),
+                   out_dir=str(root / "out"))
+    out = {
+        2: ({"ops": ops, "solver": solver, "steps": step_in, "twins": root / "out"},
+            workers.start("multi", 2, str(root / "two"), out_dir=str(root / "two"), parts={
+                "ops": ("ops", ops), "steps": ("steps", step_kw),
+                "twins": ("twins", twin_kw), "solver": ("solver_ops", solver)})),
+        4: ({"ops": ops, "solver": solver},
+            workers.start("multi", 4, str(root / "four"), out_dir=str(root / "four"), parts={
+                "ops": ("ops", ops), "solver": ("solver_ops", solver)})),
+    }
+    yield out
+    for _, handle in out.values():
+        workers.join(handle)
+
+
+def _part(spawned, world, part):
+    """``(inputs, per-rank results)`` of one part of ``world``'s spawn."""
+    inputs, handle = spawned[world]
+    return inputs[part], workers.part(handle, part)
 
 
 @pytest.fixture(scope="module")
-def ops_results(tmp_path_factory):
-    def run(world):
-        if world not in _RESULTS:
-            inputs = _ops_inputs()
-            root = tmp_path_factory.mktemp(f"ops{world}")
-            _RESULTS[world] = (inputs, workers.spawn("ops", world, str(root), **inputs))
-        return _RESULTS[world]
-    return run
+def ops_results(spawned):
+    return lambda world: _part(spawned, world, "ops")
 
 
 def _reconstruct(eigen):
@@ -238,19 +265,23 @@ ROUTES = {
 }
 
 
-@pytest.fixture(scope="module")
-def step_results(tmp_path_factory):
-    jmodel, init, params, stats, model = step_models(0)
+def _step_inputs():
+    """The train step's batches (for the JAX side) and the ranks' inputs."""
+    _, _, _, _, model = step_models(0)
     r = np.random.RandomState(121)
     images = r.randn(2 * STEP_BATCH, 8, 8, 3).astype(np.float32)
     labels = r.randint(0, 10, size=2 * STEP_BATCH).astype(np.int32)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     hp = dict(lr=LR, momentum=MOMENTUM, wd=WD,
               kfac={k: v for k, v in HP.items() if k != "lr"})
-    ranks = workers.spawn(
-        "steps", 2, str(tmp_path_factory.mktemp("steps")), state_dict=sd,
-        layers=capture.discover_layers(model), hp=hp, images=images, labels=labels,
-        routes={k: v["port"] for k, v in ROUTES.items()})
+    return (images, labels), dict(
+        state_dict=sd, layers=capture.discover_layers(model), hp=hp, images=images,
+        labels=labels, routes={k: v["port"] for k, v in ROUTES.items()})
+
+
+@pytest.fixture(scope="module")
+def step_results(spawned):
+    (images, labels), ranks = _part(spawned, 2, "steps")
     return images, labels, ranks
 
 
@@ -310,25 +341,9 @@ def test_train_step_matches_jax(step_results, route):
 # -------------------------------------------------------------------- twins
 
 
-@pytest.fixture(scope="module", autouse=True)
-def twin_spawn(tmp_path_factory):
-    """The twins' two ranks, started before the module's first test so that
-    they run while this process runs JAX; joined when first read, and at the
-    module's end."""
-    root = tmp_path_factory.mktemp("twins")
-    write_cifar(str(root / "cifar"), 8, 7)
-    _write_shards(str(root / "shards"), 122, 8, 5, 40, 48)
-    ranks = workers.joiner(workers.start(
-        "twins", 2, str(root / "run"), cifar_dir=str(root / "cifar"),
-        shard_dir=str(root / "shards"), out_dir=str(root / "out")))
-    yield root / "out", ranks
-    ranks()
-
-
 @pytest.fixture(scope="module")
-def twin_results(twin_spawn):
-    out, ranks = twin_spawn
-    return out, ranks()
+def twin_results(spawned):
+    return _part(spawned, 2, "twins")
 
 
 @pytest.mark.parametrize("twin", ["cifar", "imagenet"])
@@ -421,15 +436,8 @@ def _solver_inputs():
 
 
 @pytest.fixture(scope="module")
-def solver_results(tmp_path_factory):
-    def run(world):
-        key = ("solver", world)
-        if key not in _RESULTS:
-            inputs = _solver_inputs()
-            root = tmp_path_factory.mktemp(f"solver{world}")
-            _RESULTS[key] = (inputs, workers.spawn("solver_ops", world, str(root), **inputs))
-        return _RESULTS[key]
-    return run
+def solver_results(spawned):
+    return lambda world: _part(spawned, world, "solver")
 
 
 def _reconstruct_lr(eigen):

@@ -297,22 +297,24 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
     (["--service-devices", "1"], "item 9"),
     (["--tensor-parallel", "2"], "item 8b"),
     (["--fsdp", "1"], "item 8c"),
+    (["--fsdp", "1", "--seq-parallel", "2"], "does not compose with --seq-parallel"),
     (["--moe-experts", "2"], "item 8b"),
 ])
 def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
     """Each flag was refused naming its ROADMAP item until that item was
     ported; item 6b's factor comm flags, item 7b's ``--factor-sharding``,
-    item 8a's ``--qkv-lens`` and ``--remat`` and item 8b's
-    ``--moe-experts`` now train (inert on one process: owner sharding
+    item 8a's ``--qkv-lens`` and ``--remat``, item 8b's
+    ``--moe-experts`` and item 8c's ``--fsdp 1`` (the 3-D world of one
+    rank) now train (inert on one process: owner sharding
     warns and runs replicated, as in the JAX trainer), and
     ``--seq-parallel 2`` and ``--tensor-parallel 2`` need two ranks, as the
     JAX trainer needs two devices (they train on gloo ranks in
     ``test_torch_port_context.py`` and ``test_torch_port_moe.py``);
-    ``--fsdp`` names item 8c."""
+    ``--fsdp`` refuses ``--seq-parallel`` with the JAX trainer's message."""
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
 
-    if argv[0] in ("--factor-comm-dtype", "--factor-sharding", "--qkv-lens", "--remat",
-                   "--moe-experts"):
+    if argv in (["--factor-comm-dtype", "bf16"], ["--factor-sharding", "owner"], ["--qkv-lens"],
+                ["--remat"], ["--moe-experts", "2"], ["--fsdp", "1"]):
         hist = trainer.main([*TINY, *argv])
         assert len(hist["loss"]) == 3 and all(math.isfinite(v) for v in hist["loss"])
         return

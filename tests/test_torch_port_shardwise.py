@@ -657,12 +657,17 @@ TINY = ["--synthetic", "--d-model", "32", "--n-heads", "2", "--n-layers", "1",
 
 def test_twin_flags():
     """``--moe-experts`` trains and ``--tensor-parallel`` parses (a world
-    of one cannot split); ``--fsdp`` names item 8c; the JAX trainer's
-    composition checks and the MoE bank's lever refusals."""
+    of one cannot split); ``--fsdp`` parses and refuses ``--seq-parallel``
+    and ``--service-devices``; the JAX trainer's composition checks and the
+    MoE bank's lever refusals."""
     args = trainer.parse_args([*TINY, "--moe-experts", "4", "--tensor-parallel", "2"])
     assert (args.moe_experts, args.tensor_parallel) == (4, 2)
-    with pytest.raises(SystemExit, match="item 8c"):
-        trainer.parse_args([*TINY, "--fsdp", "1"])
+    args = trainer.parse_args([*TINY, "--fsdp", "2", "--tensor-parallel", "2"])
+    assert (args.fsdp, args.tensor_parallel) == (2, 2)
+    with pytest.raises(SystemExit, match="it does not compose with --seq-parallel"):
+        trainer.parse_args([*TINY, "--fsdp", "1", "--seq-parallel", "2"])
+    with pytest.raises(SystemExit, match="not compose with --seq-parallel, --tensor-parallel or --fsdp"):
+        trainer.parse_args([*TINY, "--fsdp", "1", "--service-devices", "1"])
     with pytest.raises(SystemExit, match="genuine --tensor-parallel"):
         trainer.parse_args([*TINY, "--fsdp", "1", "--tensor-parallel", "2",
                             "--moe-experts", "2"])

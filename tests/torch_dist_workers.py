@@ -1,7 +1,8 @@
 """Rank bodies of ``tests/test_torch_port_distributed.py``,
 ``tests/test_torch_port_comm.py``, ``tests/test_torch_port_owner.py``,
-``tests/test_torch_port_lens.py``, ``tests/test_torch_port_context.py``
-and ``tests/test_torch_port_moe.py`` (not a test file).
+``tests/test_torch_port_lens.py``, ``tests/test_torch_port_context.py``,
+``tests/test_torch_port_moe.py`` and ``tests/test_torch_port_fsdp.py`` (not
+a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
 (or :func:`start`, then :func:`join`, so that the test process works
@@ -1072,5 +1073,195 @@ def shardwise(rank, world, lm, cases, twin, ck_root):
     return out
 
 
+# the torch.distributed calls the 3-D collective count records, by group
+_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "broadcast",
+                "all_gather", "all_to_all_single", "batch_isend_irecv")
+
+
+@contextlib.contextmanager
+def _by_group(w, kfac):
+    """Record every ``_COLLECTIVES`` call inside the block as ``(name,
+    group, plane)``: ``group`` one of ``tensor``/``fsdp``/``data_fsdp``,
+    ``plane`` ``factor`` while the preconditioner's factor exchange or
+    flush runs, else ``step``."""
+    groups = {id(w.tensor_group): "tensor", id(w.fsdp_group): "fsdp", id(w.group): "data_fsdp"}
+    calls, plane = [], ["step"]
+    real = {n: getattr(dist, n) for n in _COLLECTIVES}
+
+    def wrap(n):
+        def fn(*args, **kwargs):
+            g = args[0][0].group if n == "batch_isend_irecv" else kwargs.get("group")
+            calls.append((n, groups.get(id(g), "other"), plane[0]))
+            return real[n](*args, **kwargs)
+        return fn
+
+    comm = kfac.factor_comm
+    real_comm = {n: getattr(comm, n) for n in ("exchange_contribs", "flush")}
+
+    def in_plane(f):
+        def fn(*args, **kwargs):
+            plane[0] = "factor"
+            try:
+                return f(*args, **kwargs)
+            finally:
+                plane[0] = "step"
+        return fn
+
+    for n in _COLLECTIVES:
+        setattr(dist, n, wrap(n))
+    for n, f in real_comm.items():
+        setattr(comm, n, in_plane(f))
+    try:
+        yield calls
+    finally:
+        for n, f in real.items():
+            setattr(dist, n, f)
+        for n in real_comm:
+            delattr(comm, n)
+
+
+def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, **kfac_kw):
+    """The tiny ``tensor_parallel=2`` transformer LM on the data×fsdp×tensor
+    world ``w`` from ``lm``'s one-process weights (its MLP kernels split
+    over the tensor slots, the other parameters over the fsdp slots), this
+    rank's rows of each global batch, the JAX ``_lm_3d_run`` flags (capture
+    every step, refresh at the even ones, a deferred flush on each
+    refresh), from a checkpoint ``resume=(root, epoch)`` when given. Saves
+    ``save=(root, epoch, after_step)``; records the collectives of step
+    ``count``. Returns the losses, the gathered one-process parameters
+    after the last step, the per-rank bytes and the collective calls."""
+    from kfac_pytorch_tpu_torch import KFAC, capture
+    from kfac_pytorch_tpu_torch.models import transformer_lm
+    from kfac_pytorch_tpu_torch.parallel.fsdp import FsdpParams
+    from kfac_pytorch_tpu_torch.parallel.mesh import local_rows
+    from kfac_pytorch_tpu_torch.shardwise import lm_param_shardings
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, make_train_step
+
+    model = transformer_lm.get_model(lm["vocab"], **lm["model"])
+    model.load_state_dict(_t(lm["weights"]))
+    names = capture.discover_layers(model)
+    placements = lm_param_shardings({n: tuple(p.shape) for n, p in model.named_parameters()},
+                                    names, w.tensor_size, w.fsdp_size)
+    transformer_lm.split_tensor_layers(model, w)
+    kfac = KFAC(layers=names, device="cpu", **lm["hp"], **kfac_kw, process_group=w.group,
+                tensor_group=w.tensor_group)
+    tx = make_sgd(0.9, 0.0)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                       kfac_state=kfac.init(model), fsdp=FsdpParams(model, placements, w))
+    first = 0
+    if resume is not None:
+        state = ckpt.restore_checkpoint(resume[0], resume[1], state, kfac)
+        first = state.step
+    state.fsdp.shard_(state.opt_state)
+    step_fn = make_train_step(model, tx, kfac, world=w, grad_clip=grad_clip)
+    out = {"losses": [], "calls": None, "placements": placements,
+           "kfac_placements": kfac.state_placements(state.kfac_state)}
+    for i in range(first, steps):
+        x, y = lm["batches"][i]
+        rows = local_rows(x.shape[0], w)
+        batch = tuple(torch.from_numpy(np.ascontiguousarray(a[rows])).long() for a in (x, y))
+        flags = dict(update_factors=True, update_eigen=i % 2 == 0)
+        if kfac.factor_comm.defer and flags["update_eigen"]:
+            flags["flush_factors"] = True
+        with _by_group(w, kfac) if i == count else contextlib.nullcontext() as calls:
+            state, m = step_fn(state, batch, 0.1, lm["hp"]["damping"], **flags)
+        if i == count:
+            out["calls"] = list(calls)
+        out["losses"].append(float(m["loss"]))
+        if save is not None and i == save[2]:
+            ckpt.save_checkpoint(save[0], save[1], state, w)
+    out["params"] = _np(ckpt._payload(state, w)["model"])
+    out["diagnostics"] = _np(state.kfac_state.get("diagnostics"))
+    out["bytes"] = {
+        "params": {n: (state.fsdp.parts[n] if n in state.fsdp else p).numel() * 4
+                   for n, p in model.named_parameters()},
+        "momentum": {n: m.numel() * 4 for n, m in state.opt_state.items()},
+        "kfac": {key: {n: {k: v.numel() * 4 for k, v in e.items()}
+                       for n, e in state.kfac_state[key].items() if n in kfac.shard_layers}
+                 for key in ("factors", "eigen")},
+    }
+    return out
+
+
+def fsdp(rank, world, lm, cases, sketches, ck_root, one_ck, twins):
+    """Task of ``tests/test_torch_port_fsdp.py`` on 4 ranks (data 1 × fsdp
+    2 × tensor 2): each case of ``cases`` (``{name: kfac kwargs}``,
+    :func:`lm3d_run`, the rsvd bases on the JAX ``sketches``), the plain one
+    saving a checkpoint after step 1;
+    a run resumed from ``one_ck`` (a one-process lens checkpoint); the
+    diagnostics after 3 steps; one
+    clipped capture step's collectives by group; the layout of the world;
+    and the LM twin under each argv of ``twins`` with rank 0's printed
+    mesh line; and the column-output gather's forward and backward."""
+    import io
+
+    from kfac_pytorch_tpu_torch.parallel.mesh import batch_axes, data_fsdp_tensor_world
+
+    w = data_fsdp_tensor_world(2, 2)
+    out = {"layout": {
+        "rank": w.rank, "size": w.size, "tensor_rank": w.tensor_rank, "fsdp_rank": w.fsdp_rank,
+        "group": dist.get_process_group_ranks(w.group),
+        "tensor": dist.get_process_group_ranks(w.tensor_group),
+        "fsdp": dist.get_process_group_ranks(w.fsdp_group),
+        "batch_axes": batch_axes(w),
+    }}
+    # a column output gathered over the tensor slots (no row layer after it)
+    from kfac_pytorch_tpu_torch.parallel.tensor import gather_from_tensor
+
+    full = torch.arange(12.0).reshape(3, 4)
+    x = full.chunk(2, -1)[w.tensor_rank].clone().requires_grad_(True)
+    y = gather_from_tensor(x, w)
+    (y * full).sum().backward()
+    out["gather"] = (torch.equal(y.detach(), full),
+                     torch.equal(x.grad, full.chunk(2, -1)[w.tensor_rank]))
+    steps = len(lm["batches"])
+    with _jax_sketches(sketches):
+        out["cases"] = {
+            name: lm3d_run(w, lm, steps, save=(ck_root, 0, 1) if name == "plain" else None, **kw)
+            for name, kw in cases.items()}
+    out["resumed"] = lm3d_run(w, lm, steps, resume=(one_ck, 0))["losses"]
+    out["diagnostics"] = lm3d_run(w, lm, 3, track_diagnostics=True)["diagnostics"]
+    out["counted"] = lm3d_run(w, lm, 2, count=1, grad_clip=0.25)["calls"]
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    out["twins"] = []
+    for argv in twins:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            hist = trainer.main(argv)
+        out["twins"].append({"loss": hist["loss"], "printed": printed.getvalue()})
+    return out
+
+
+def multi(rank, world, parts, out_dir):
+    """Several tasks in one spawn of the same ranks, in order: ``parts`` is
+    ``{key: (task, inputs)}``. Each part's result is written to ``out_dir`` as
+    soon as it is done (:func:`part` reads it before the spawn ends);
+    returns ``{key: that task's result}``."""
+    out = {}
+    for key, (task, inputs) in parts.items():
+        out[key] = TASKS[task](rank, world, **inputs)
+        torch.save(out[key], f"{out_dir}/part-{key}-{rank}.tmp")
+        os.replace(f"{out_dir}/part-{key}-{rank}.tmp", f"{out_dir}/part-{key}-{rank}.pt")
+    return out
+
+
+def part(handle, key):
+    """The ranks' results of part ``key`` of a :func:`start`-ed ``multi``
+    spawn, as soon as every rank has written it."""
+    _, world, root, ctx, deadline = handle
+    paths = [f"{root}/part-{key}-{r}.pt" for r in range(world)]
+    while not all(os.path.exists(p) for p in paths):
+        if ctx.join(timeout=1) and not all(os.path.exists(p) for p in paths):
+            raise RuntimeError(f"the ranks ended without part {key!r}")
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"part {key!r} on {world} ranks did not finish")
+    return [torch.load(p, weights_only=False) for p in paths]
+
+
 TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
-         "owner": owner, "lens": lens, "context": context, "shardwise": shardwise}
+         "owner": owner, "lens": lens, "context": context, "shardwise": shardwise, "fsdp": fsdp,
+         "multi": multi}
