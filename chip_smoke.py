@@ -25,6 +25,11 @@ wires) with the LM and WikiText twins at NCCL world 1 and on two ranks.
 Kernels 1, 1g and 3 have two routes each, counted apart
 (``launches`` and ``launches_bf16``): 3xTF32 for float32 inputs, and a
 bf16 route for bfloat16 activations (1, 1g) or bfloat16 eigenvectors (3).
+``python3 chip_smoke.py --profile-edges N`` instead builds the kernels and
+profiles phase 27a's epoch N times through the trainer as users call it
+and N times as 27a does, printing the counted launches each trace lost
+(no gate, no result line).
+
 Phases, in order (any failure raises: the script exits non-zero and prints
 no result line):
 
@@ -392,11 +397,40 @@ no result line):
        fsdp parts, its tensor shards, the whole small leaves) kernel 4
        bitwise equal to its plain version, timed against
        ``torch.optim.SGD`` and its bound (its own row of the kernels line);
-27. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+27. telemetry, the profiler hook and the planner (slice 18), each path
+    with the counters zeroed just before it:
+    a. ResNet-32 through the twin, ``TELEMETRY_STEPS`` steps of the
+       recipe's cadence (refreshes at 0 and 10), with deterministic cuDNN,
+       four times in turns: plain, with ``--telemetry-dir --profile
+       safe``, with those and ``--profile-epoch 0 --log-dir``, and plain
+       again: the losses and the launch counters of kernels 1, 3 and 4
+       bitwise equal across the four;
+       ``metrics.prom`` and ``telemetry.jsonl`` hold only the names
+       docs/OBSERVABILITY.md registers; the ``step/factors`` and
+       ``step/eigen`` medians beside the twin's own host-clock step
+       medians; the capture-step overhead of telemetry; the Chrome trace
+       names kernels 1, 3 and 4, as many launches of each as the counters
+       imply (kernel 3: four device launches a call, ``TRACE_KERNELS``),
+       its epoch traced between spin guards (the profiler drops device
+       events at a region's edges; again, up to ``PROFILE_ATTEMPTS`` runs,
+       while it dropped a guard);
+    b. ``--profile production --autotune-steps 2`` on ResNet-32 and on the
+       LM (phase 8's model, ``TELEMETRY_STEPS`` steps): the resolved plan,
+       the dropped rules, the autotune candidates with their card times and
+       the winner, the losses finite; then the resolved plan without
+       autotune and its drift gauge: the refresh time the cost model
+       predicts (its MACs over a dense MACs-per-ms rate measured on the same
+       path's safe run) against the measured one (the LM with
+       ``--stream-drift-threshold 0``: a re-orthonormalization at step 10);
+    c. two ranks of the one card over gloo, the CIFAR twin with
+       ``--telemetry-dir`` (6 steps, ``--kfac-update-freq 4``): the
+       rank-aware summary table counts each span's samples of both ranks,
+       and the wire-bytes drift of the live factor comm plane;
+28. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
     row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
     LSTM and 3-D rows beside the others, the two-rank launches of kernels
-    1, 3 and 4, and every kernel's launches on phase 21's to 26's paths,
+    1, 3 and 4, and every kernel's launches on phase 21's to 27's paths,
     per rank on the multi-rank ones), then the last line ``{"ok": true,
     "device": {...}}``.
 """
@@ -3678,7 +3712,7 @@ def _comm_run(twin, argv, device, world, steps, keep=None):
             facs = torch.sqrt(sum(torch.sum(t.float() ** 2) for f in
                                   state.kfac_state["factors"].values() for t in f.values()))
             out["flush_residual"].append(
-                (i, publish_wire_quant_error(state.kfac_state["wire_error"]), float(facs)))
+                (i, float(publish_wire_quant_error(state.kfac_state["wire_error"])), float(facs)))
     out["launches"] = read_counts(counters)
     hist = {"loss": out["losses"], "kind": out["kinds"], "val_loss": []}
     if twin == "lm":
@@ -5246,6 +5280,354 @@ def fsdp_3d_phase(ranks, one, argv, steps=FSDP_3D_STEPS):
             "step0_ms": ranks[0]["step_ms"][0]}, sgd
 
 
+# Phase 27: the telemetry registry, the profiler hook and the planner on
+# the ResNet-32 and LM paths, and the rank-aware summary on two ranks.
+TELEMETRY_STEPS = 12
+TELEMETRY_COUNTED = ("compute_a_conv_fused", "fused_precondition_stack", "fused_sgd_apply")
+# each counted wrapper's device kernel (name fragment) and its launches per
+# wrapper call: kernel 1 one (its partial-sum reduce is another kernel),
+# kernel 3 the four of one shape group's chain, kernel 4 one
+TRACE_KERNELS = {"compute_a_conv_fused": ("patch_cov_mma", 1),
+                 "fused_precondition_stack": ("chain_mma", 4),
+                 "fused_sgd_apply": ("fused_sgd", 1)}
+
+
+def registered_metric_names():
+    """The names docs/OBSERVABILITY.md's metric registry lists."""
+    import re
+
+    with open("docs/OBSERVABILITY.md") as fh:
+        text = fh.read()
+    body = re.search(r"<!-- metric-registry:start -->(.*?)<!-- metric-registry:end -->",
+                     text, re.S).group(1)
+    rows = (re.match(r"^\|\s*`([^`]+)`\s*\|", ln.strip()) for ln in body.splitlines())
+    return {m.group(1) for m in rows if m}
+
+
+def check_telemetry_files(tel_dir):
+    """``metrics.prom`` and ``telemetry.jsonl`` exist and name only
+    registered metrics; returns the names."""
+    from kfac_pytorch_tpu_torch.observability.export import prom_name
+
+    registered = registered_metric_names()
+    names = set()
+    with open(f"{tel_dir}/telemetry.jsonl") as fh:
+        for line in fh:
+            tag = json.loads(line)["tag"]
+            kind, rest = tag.split("/", 1)
+            names.add(rest.rsplit("/", 1)[0] if kind == "span" else rest)
+    if not names or not names <= registered:
+        raise AssertionError(f"telemetry.jsonl names outside the registry: "
+                             f"{sorted(names - registered)}")
+    prom = {prom_name(n) for n in registered}
+    with open(f"{tel_dir}/metrics.prom") as fh:
+        families = [ln.split()[2] for ln in fh if ln.startswith("# TYPE")]
+    stray = [f for f in families if f.removesuffix("_seconds") not in prom]
+    if not families or stray:
+        raise AssertionError(f"metrics.prom families outside the registry: {stray}")
+    return sorted(names)
+
+
+def trace_kernel_counts(path):
+    """``({counter: device launches}, kernel events, guarded)`` of a Chrome
+    trace: the counted kernels' launches and the number of kernel events,
+    both without :func:`spin_guard`'s spins, and whether the trace holds
+    both guards (its first and last kernel events are spins)."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sorted((e["ts"], e["name"]) for e in events if e.get("cat") == "kernel")
+    names = [n for _, n in kernels if "spin_kernel" not in n]
+    guarded = bool(kernels) and all("spin_kernel" in kernels[i][1] for i in (0, -1))
+    return ({key: sum(frag in n for n in names) for key, (frag, _) in TRACE_KERNELS.items()},
+            len(names), guarded)
+
+
+def guarded_trace(maybe_trace):
+    """``profiling.maybe_trace`` with a :func:`spin_guard` just inside each
+    edge of the traced region: the profiler drops device events at a
+    region's edges (``--profile-edges``), and a trace that keeps both
+    guards kept everything between them."""
+    import torch
+
+    @contextlib.contextmanager
+    def traced(log_dir, enabled, device=None):
+        on = bool(enabled and log_dir)
+        with maybe_trace(log_dir, enabled, device):
+            if on:
+                spin_guard()
+                torch.cuda.synchronize(device)
+            yield
+            if on:
+                torch.cuda.synchronize(device)
+                spin_guard()
+    return traced
+
+
+def profiled_train(argv, counters, trace_path, guard):
+    """``((history, launches), trace counts, kernel events, guarded)`` of
+    one ``train(argv)`` whose ``--profile-epoch`` goes through
+    ``profiling.maybe_trace``, between spin guards when ``guard``."""
+    from kfac_pytorch_tpu_torch.training import profiling
+
+    plain = profiling.maybe_trace
+    if guard:
+        profiling.maybe_trace = guarded_trace(plain)
+    try:
+        out = counted(lambda: train(argv), counters)
+    finally:
+        profiling.maybe_trace = plain
+    return (out, *trace_kernel_counts(trace_path))
+
+
+def profile_edges(reps, variants, counters):
+    """``--profile-edges``: ``reps`` rounds, each profiling the 27a epoch
+    once per variant (``plain``: ``profiling.maybe_trace`` as the trainers
+    call it; ``guarded``: as 27a calls it, :func:`guarded_trace`), all in
+    this process; one JSON line per trace: the counted launches the trace
+    lost (counters × device launches per call − trace), its kernel events
+    and whether it kept both guards."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.training import profiling
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    argv = ["--steps-per-epoch", str(TELEMETRY_STEPS)]
+    train(argv)
+    for rep in range(reps):
+        for variant in variants:
+            with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_edges_") as tmp:
+                (_, launches), counts, n, guarded = profiled_train(
+                    [*argv, "--log-dir", tmp, "--profile-epoch", "0"], counters,
+                    f"{tmp}/{profiling.TRACE_FILE}", variant == "guarded")
+            lost = {k: TRACE_KERNELS[k][1] * launches[k] - c for k, c in counts.items()}
+            print(json.dumps({"profile_edges": {"rep": rep, "variant": variant, "lost": lost,
+                                                "kernel_events": n, "guarded": guarded}}),
+                  flush=True)
+
+
+def refresh_excess_ms(hist):
+    """The refresh milliseconds of a run's one refresh interval after step
+    0 (step 0 pays first-call set-up): its refresh, chunk and swap steps'
+    excess over the capture-step median; ``None`` without such a step."""
+    ms, kinds = hist["step_ms"][1:], hist["kind"][1:]
+    capture = [m for m, k in zip(ms, kinds) if k == "capture"]
+    eigen = [m for m, k in zip(ms, kinds) if k in ("refresh", "chunk", "chunk-swap", "swap")]
+    if not capture or not eigen:
+        return None
+    return sum(m - statistics.median(capture) for m in eigen)
+
+
+def dense_refresh_ms(hist):
+    """The mean excess of a monolithic-refresh run's refresh steps (after
+    step 0) over its capture-step median: the dense refresh's time."""
+    ms, kinds = hist["step_ms"][1:], hist["kind"][1:]
+    capture = statistics.median(m for m, k in zip(ms, kinds) if k == "capture")
+    return statistics.mean(m - capture for m, k in zip(ms, kinds) if k == "refresh")
+
+
+def telemetry_phase(device, counters):
+    """27a (see the module docstring). The three runs take deterministic
+    cuDNN: its default algorithms differ from run to run in the last bits."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.training import profiling
+
+    argv = ["--steps-per-epoch", str(TELEMETRY_STEPS)]
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_telemetry_") as tmp:
+        # in turns: plain, telemetry, profiled, plain again (the host
+        # clock's spread between the two plain runs bounds the overhead)
+        runs = {
+            "off": counted(lambda: train(argv), counters),
+            "telemetry": counted(lambda: train([*argv, "--telemetry-dir", f"{tmp}/tel",
+                                                "--profile", "safe"]), counters),
+        }
+        # the trainer's trace between spin guards, again while the profiler
+        # dropped a guard (and with it maybe the region's edge events)
+        for _ in range(PROFILE_ATTEMPTS):
+            runs["profiled"], trace_counts, trace_kernels, guarded = profiled_train(
+                [*argv, "--telemetry-dir", f"{tmp}/tel_prof", "--profile", "safe",
+                 "--log-dir", f"{tmp}/log", "--profile-epoch", "0"], counters,
+                f"{tmp}/log/{profiling.TRACE_FILE}", guard=True)
+            if guarded:
+                break
+        else:
+            raise AssertionError(f"27a: torch.profiler lost an edge guard of the profiled "
+                                 f"epoch {PROFILE_ATTEMPTS} times")
+        runs["off_again"] = counted(lambda: train(argv), counters)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+        off, off_launches = runs["off"]
+        for name, (hist, launches) in runs.items():
+            if hist["loss"] != off["loss"]:
+                raise AssertionError(f"27a: the {name} run's losses differ from the plain run's")
+            if launches != off_launches:
+                raise AssertionError(f"27a: the {name} run's launches {launches} differ from "
+                                     f"the plain run's {off_launches}")
+            if any(launches[k] <= 0 for k in TELEMETRY_COUNTED):
+                raise AssertionError(f"27a: a counted kernel did not launch: {launches}")
+        names = check_telemetry_files(f"{tmp}/tel")
+        check_telemetry_files(f"{tmp}/tel_prof")
+        prof_launches = runs["profiled"][1]
+        for key, n in trace_counts.items():
+            frag, per_call = TRACE_KERNELS[key]
+            if n != per_call * prof_launches[key]:
+                raise AssertionError(f"27a: the profiler trace holds {n} {frag} launches, the "
+                                     f"counter {prof_launches[key]} calls of {per_call}")
+    tel_hist = runs["telemetry"][0]
+    spans = tel_hist["telemetry"]["spans"]
+    stats = {name: step_stats(hist, BATCH) for name, (hist, _) in runs.items()}
+    out = {
+        "steps": TELEMETRY_STEPS,
+        "losses_bitwise_equal": True,
+        "launches": off_launches,
+        "registered_names_written": len(names),
+        "step_factors_span_p50_ms": spans["step/factors"]["p50"] * 1e3,
+        "step_eigen_span_p50_ms": spans["step/eigen"]["p50"] * 1e3,
+        "step_eigen_span_count": spans["step/eigen"]["count"],
+        "host_capture_step_ms_median": stats["telemetry"]["capture_ms_median"],
+        "host_refresh_step_ms_median": stats["telemetry"]["refresh_ms_median"],
+        "capture_step_ms_median_off": stats["off"]["capture_ms_median"],
+        "capture_step_ms_median_telemetry": stats["telemetry"]["capture_ms_median"],
+        "capture_step_ms_median_profiled": stats["profiled"]["capture_ms_median"],
+        "capture_step_ms_median_off_again": stats["off_again"]["capture_ms_median"],
+        "telemetry_capture_overhead_ms": stats["telemetry"]["capture_ms_median"] - statistics.mean(
+            (stats["off"]["capture_ms_median"], stats["off_again"]["capture_ms_median"])),
+        "plain_runs_capture_spread_ms": abs(stats["off"]["capture_ms_median"]
+                                            - stats["off_again"]["capture_ms_median"]),
+        "trace_kernel_launches": trace_counts,
+        "trace_kernel_events": trace_kernels,
+        "spans_p50_ms": {n: s["p50"] * 1e3 for n, s in sorted(spans.items())},
+        "spans_count": {n: s["count"] for n, s in sorted(spans.items())},
+    }
+    return out, dense_refresh_ms(off)
+
+
+def planner_run(device, counters, path, calib_refresh_ms):
+    """27b on one path (``"resnet"`` or ``"lm"``): the production profile
+    with autotune through the twin, its plan, candidates and winner; then
+    the resolved plan itself (no autotune) and the drift of its refresh
+    against the cost model's prediction."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import planner
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+    from kfac_pytorch_tpu_torch.observability.telemetry import Telemetry
+
+    extra = ["--steps-per-epoch", str(TELEMETRY_STEPS), "--profile", "production"]
+    if path == "resnet":
+        run = train
+        model = cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0))
+    else:
+        # a re-orthonormalization at every boundary (an explicit lever wins
+        # over the plan): the truncated refresh is measured at step 10
+        def run(argv):
+            return train_lm(["--epochs", "1", "--stream-drift-threshold", "0", *argv])
+
+        model = lm_trainer.build(lm_trainer.parse_args([*LM_ARGS, "--device", "cpu"]),
+                                 torch.device("cpu"))[0]
+    tuned, launches = counted(lambda: run([*extra, "--autotune-steps", "2"]), counters)
+    hist = run(extra)
+    for h in (tuned, hist):
+        if not all(math.isfinite(v) for v in h["loss"]):
+            raise AssertionError(f"27b {path}: non-finite loss {h['loss']}")
+    record = tuned["plan"]
+    if "autotune" not in record:
+        raise AssertionError(f"27b {path}: the production plan gave autotune one candidate")
+    facts = planner.model_facts(model)
+    plan = planner.Plan.from_dict(hist["plan"]["plan"])
+    resolved = planner.Plan.from_dict(record["autotune"]["candidates"][0])
+    if plan != resolved:
+        raise AssertionError(f"27b {path}: without autotune the run took {plan.describe()}, "
+                             f"not the resolved {resolved.describe()}")
+    measured = refresh_excess_ms(hist)
+    dense_macs = planner.cost_model.refresh_cost(facts, planner.Plan())
+    tel = Telemetry(enabled=True)
+    drift = planner.detect_drift(
+        facts, plan, measured_refresh_ms=measured,
+        calibration_macs_per_ms=dense_macs / calib_refresh_ms if calib_refresh_ms else None,
+        telemetry=tel)
+    return {
+        "resolved_plan": resolved.describe(),
+        "dropped": record["dropped"],
+        "autotune_candidates": [planner.Plan.from_dict(c).describe()
+                                for c in record["autotune"]["candidates"]],
+        "autotune_ms": [t * 1e3 for t in record["autotune"]["seconds"]],
+        "autotune_winner": record["autotune"]["winner_index"],
+        "autotuned_run_plan": planner.Plan.from_dict(record["plan"]).describe(),
+        "launches": launches,
+        "kinds": hist["kind"],
+        "step_ms": hist["step_ms"],
+        "refresh_cost_macs": {"dense": dense_macs,
+                              "run_plan": planner.cost_model.refresh_cost(facts, plan),
+                              "resolved": planner.cost_model.refresh_cost(facts, resolved)},
+        "calibration_dense_refresh_ms": calib_refresh_ms,
+        "measured_refresh_ms": measured,
+        "drift": drift.to_dict(),
+        "drift_gauges": {k: v for k, v in tel.snapshot()["gauges"].items()},
+    }
+
+
+def telemetry_rank_worker(rank, store, out_path, steps, device_name, tel_root):
+    """One rank of phase 27c (``torch.multiprocessing`` target): the CIFAR
+    twin with ``--telemetry-dir`` over gloo on ``cuda:0``, then the
+    rank-aware summary table again (a collective), this rank's own span
+    counts and gauges, and the cost model's f32 wire bytes of the model."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import planner
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+    from kfac_pytorch_tpu_torch.observability import get_telemetry, summary_table
+    from kfac_pytorch_tpu_torch.parallel import launch
+
+    launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                      rank=rank, world_size=2)
+    try:
+        hist = trainer.main([*RESNET_ARGS, *SHORT_CADENCE, "--steps-per-epoch", str(steps),
+                             "--telemetry-dir", f"{tel_root}/rank{rank}"])
+        tel = get_telemetry()
+        model = cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0))
+        gauges = hist["telemetry"]["gauges"]
+        drift = planner.detect_drift(
+            planner.model_facts(model), planner.Plan(),
+            measured_wire_bytes_f32=int(gauges["kfac/factor_wire_bytes"]), telemetry=tel)
+        out = {"losses": hist["loss"], "table": summary_table(tel),
+               "own_counts": {n: len(h) for n, h in tel.hists.items()},
+               "gauges": gauges, "wire_drift": drift.to_dict()}
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def telemetry_ranks_phase(device):
+    """27c (see the module docstring)."""
+    steps = 6
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_tel_ranks_") as tel_root:
+        ranks = spawn_ranks(telemetry_rank_worker,
+                            (steps, "cuda:0" if device.type == "cuda" else "cpu", tel_root),
+                            300, "telemetry")
+    tables = [r["table"] for r in ranks]
+    if tables[0] != tables[1]:
+        raise AssertionError("27c: the two ranks built different summary tables")
+    merged = {}
+    for line in tables[0].splitlines()[1:]:
+        parts = line.split()
+        if parts[0] != "counter":
+            merged[parts[0]] = int(parts[1])
+    want = {n: ranks[0]["own_counts"].get(n, 0) + ranks[1]["own_counts"].get(n, 0)
+            for n in set(ranks[0]["own_counts"]) | set(ranks[1]["own_counts"])}
+    if merged != want:
+        raise AssertionError(f"27c: the merged table counts {merged}, the ranks' sum {want}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("27c: the ranks' losses differ")
+    return {"steps": steps, "summary_table": tables[0], "merged_span_counts": merged,
+            "wire_drift": ranks[0]["wire_drift"],
+            "factor_collectives": ranks[0]["gauges"]["kfac/factor_collectives"]}
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -5313,6 +5695,10 @@ def main() -> int:
     # 2. build
     secs = kernel_build.build_all()
     print(f"build: {secs:.1f} s for {len(kernel_build.SIGNATURES)} sources (nvcc, sm_90a)", flush=True)
+    if sys.argv[1:2] == ["--profile-edges"]:
+        profile_edges(int(sys.argv[2]), ("plain", "guarded"),
+                      (fk.compute_a_conv_fused, ak.fused_precondition_stack, ak.fused_sgd_apply))
+        return 0
     ptxas = ptxas_report()
     print(json.dumps({"ptxas_registers_spill_bytes": ptxas}), flush=True)
     spilled = {fn: v for fn, v in ptxas.items()
@@ -5840,8 +6226,30 @@ def main() -> int:
             "lm_fsdp1_tp2_two_ranks_per_rank": [r["launches"][key] for r in fsdp_tp["ranks"]],
             "lm_fsdp2_tp2_four_ranks_per_rank": [r["launches"][key] for r in fsdp_3d["ranks"]]}
 
-    mark("27. results")
-    # 27. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 27a-c. this slice: telemetry, the profiler hook and the planner, each
+    # path with the counters zeroed just before it
+    mark("27a. ResNet-32: telemetry, the profiler trace, --profile safe")
+    tel27, resnet_dense_ms = telemetry_phase(device, all_counted)
+    print(json.dumps({"resnet_telemetry": tel27}), flush=True)
+    mark("27b. --profile production --autotune-steps 2: ResNet-32 and the LM")
+    planned = {"resnet32": planner_run(device, all_counted, "resnet", resnet_dense_ms),
+               "lm": planner_run(device, all_counted, "lm", dense_refresh_ms(lm_hist))}
+    print(json.dumps({"planner_production": planned}), flush=True)
+    mark("27c. two ranks: the rank-aware telemetry summary")
+    tel_ranks = telemetry_ranks_phase(device)
+    print(json.dumps({"two_ranks_telemetry": tel_ranks}), flush=True)
+    for k, key in ((conv_a, "compute_a_conv_fused"), (resnet_apply, "fused_precondition_stack"),
+                   (resnet_sgd, "fused_sgd_apply")):
+        k["launches_on_slice18_paths"] = {
+            "resnet32_telemetry_on_off_profiled": tel27["launches"][key],
+            "resnet32_production_autotuned": planned["resnet32"]["launches"][key]}
+    for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
+                   (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
+                   (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice18_paths"] = {"lm_production_autotuned": planned["lm"]["launches"][key]}
+
+    mark("28. results")
+    # 28. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

@@ -17,7 +17,14 @@ rotations' matmul precision. Every step's K-FAC flags come from
 ``scheduler.EigenRefreshCadence``: ``--eigh-chunks`` pipelines the
 refresh (``--staleness-budget`` lets its swap slip), ``--solver rsvd`` or
 ``streaming`` (``--solver-rank``, ``--solver-auto-threshold``,
-``--stream-drift-threshold``) truncates the wide factor sides. The training batches come from the native
+``--stream-drift-threshold``) truncates the wide factor sides.
+``--telemetry-dir`` turns on the telemetry registry (step and phase spans,
+the K-FAC gauges; ``observability/``) and writes ``metrics.prom`` and
+``telemetry.jsonl`` there each epoch, with a summary table at the end;
+``--profile-epoch N`` writes a ``torch.profiler`` Chrome trace of epoch N
+into ``--log-dir``; ``--profile`` resolves the K-FAC levers left at their
+defaults from a planner profile (``planner/``) and ``--autotune-steps``
+times its candidate plans before training and keeps the fastest. The training batches come from the native
 threaded loader (``runtime/loader.py``, ``--num-workers`` threads, 4 by
 default, as in the JAX trainer) or, with ``--num-workers 0``, from the
 numpy pipeline. Every other flag of the JAX trainer is accepted with its
@@ -59,20 +66,31 @@ checkpoint save; the restore milliseconds of a resume.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from kfac_pytorch_tpu_torch import EigenRefreshCadence, KFAC, KFACParamScheduler, capture, interop
+from kfac_pytorch_tpu_torch import (
+    EigenRefreshCadence,
+    KFAC,
+    KFACParamScheduler,
+    capture,
+    interop,
+    observability,
+    planner,
+)
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.models import cifar_resnet
 from kfac_pytorch_tpu_torch.parallel import launch
 from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, put_global_batch
+from kfac_pytorch_tpu_torch.examples.autotune import autotune_kfac
 from kfac_pytorch_tpu_torch.runtime import NativeEpochLoader
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training import profiling
 from kfac_pytorch_tpu_torch.training.evaluation import evaluate_split
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.schedules import create_lr_schedule
@@ -101,13 +119,9 @@ DIAG_EXTRA_KEYS = (
 # Flags of the JAX trainer this twin does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--preempt-save-dir", str, None, "9 (elastic/)"),
-    ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--profile-epoch", int, None, "9 (training/profiling.py)"),
-    ("--telemetry-dir", str, None, "9 (observability/)"),
-    ("--service-devices", int, 0, "9 (service/)"),
-    ("--profile", str, None, "9 (planner/)"),
-    ("--autotune-steps", int, 0, "9 (planner/)"),
+    ("--preempt-save-dir", str, None, "9c (elastic/)"),
+    ("--snapshot-every", int, 0, "9c (elastic/)"),
+    ("--service-devices", int, 0, "9d (service/)"),
 )
 
 # the stand-in's flags (flag, type, default, help); set next to real data
@@ -203,6 +217,109 @@ def refresh_cadence(kfac, live_state) -> EigenRefreshCadence:
     if kfac is not None and kfac.solver == "streaming":
         kfac.stream_drift_signal = lambda: float(live_state().kfac_state["stream_residual"])
     return EigenRefreshCadence(kfac)
+
+
+def add_telemetry_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX trainers' ``--profile-epoch`` and ``--telemetry-dir``."""
+    p.add_argument("--profile-epoch", type=int, default=None,
+                   help="capture a torch.profiler trace of this epoch into "
+                        "--log-dir (profile_trace.json, Chrome format)")
+    p.add_argument("--telemetry-dir", default=None,
+                   help="enable structured telemetry and write metrics.prom "
+                        "(Prometheus textfile) + telemetry.jsonl there each "
+                        "epoch: per-phase span timings and the K-FAC gauges "
+                        "(docs/OBSERVABILITY.md)")
+
+
+def add_planner_flags(p: argparse.ArgumentParser, autotune: bool = True) -> None:
+    """The JAX trainers' ``--profile`` and (``autotune``) ``--autotune-steps``."""
+    p.add_argument("--profile", default=None, choices=["safe", "memory", "production"],
+                   help="resolve the K-FAC perf levers from a named planner "
+                        "profile (planner/cost_model.py) using this model's "
+                        "factor shapes and the world; explicit lever flags "
+                        "win over the profile's choices (docs/PLANNER.md)")
+    if autotune:
+        p.add_argument("--autotune-steps", type=int, default=0,
+                       help="time the resolved plan against its conservative "
+                            "fallbacks for this many warmup steps each and pin "
+                            "the winner (0 = trust the cost model; needs "
+                            "--profile; docs/PLANNER.md)")
+
+
+def step_span(tel, flags):
+    """The step's span, by the kind of step its flags make."""
+    if flags.get("eigen_chunk") is not None:
+        return tel.span("step/eigen_chunk")
+    if not flags.get("update_factors"):
+        return tel.span("step/plain")
+    if flags.get("update_eigen"):
+        return tel.span("step/eigen")
+    return tel.span("step/factors")
+
+
+class RunTelemetry:
+    """A trainer's telemetry (``--telemetry-dir``): the process registry,
+    enabled and emptied for the run (span syncs off under
+    ``--comm-overlap``, whose side stream a synchronize would serialize);
+    ``telemetry.jsonl`` and ``metrics.prom`` in the directory, from rank 0;
+    the per-epoch phase gauges and export; the end-of-run summary table,
+    which every rank computes (a collective over several)."""
+
+    def __init__(self, telemetry_dir: Optional[str], comm_overlap: bool = False):
+        self.dir = telemetry_dir
+        self.tel = observability.configure(enabled=bool(telemetry_dir),
+                                           block_spans=not comm_overlap)
+        if self.tel.enabled:
+            self.tel.reset()
+        self.writer = ScalarWriter(telemetry_dir if self.tel.enabled and launch.is_primary()
+                                   else None, filename="telemetry.jsonl")
+
+    def note_metrics(self, values: Dict[str, float]) -> None:
+        """Gauges of a step's host-read metrics."""
+        if "kfac_spectrum_mass" in values:
+            self.tel.set_gauge("kfac/spectrum_mass_captured", values["kfac_spectrum_mass"])
+
+    def end_epoch(self, epoch: int) -> None:
+        """The per-phase costs from the step kinds' p50 deltas, then the
+        Prometheus file and the JSONL records of the epoch."""
+        tel = self.tel
+        if not tel.enabled:
+            return
+        p_plain = tel.percentiles("step/plain")
+        p_fac = tel.percentiles("step/factors")
+        p_eig = tel.percentiles("step/eigen")
+        p_h2d = tel.percentiles("comm/host_to_device")
+        if p_plain and p_fac:
+            tel.set_gauge("phase/factor_ms", max(0.0, (p_fac[0] - p_plain[0]) * 1e3))
+        if p_fac and p_eig:
+            tel.set_gauge("phase/eigh_ms", max(0.0, (p_eig[0] - p_fac[0]) * 1e3))
+        if p_h2d:
+            tel.set_gauge("phase/comm_ms", p_h2d[0] * 1e3)
+        if launch.is_primary():
+            observability.write_prometheus(os.path.join(self.dir, "metrics.prom"), tel)
+        observability.flush_jsonl(self.writer, tel, epoch)
+
+    def close(self) -> Optional[Dict[str, Dict[str, float]]]:
+        """Print the summary table (rank 0) and close the stream; returns
+        the final snapshot, or ``None`` with telemetry off."""
+        self.writer.close()
+        if not self.tel.enabled:
+            return None
+        table = observability.summary_table(self.tel)
+        rank0_print("telemetry summary:")
+        rank0_print(table)
+        return self.tel.snapshot()
+
+
+def plan_record(kfac, report) -> Dict[str, object]:
+    """The history's record of a resolved plan and its autotune."""
+    out = {"plan": kfac.plan.to_dict(), "dropped": list(kfac.plan_dropped),
+           "non_default_levers": list(kfac.plan.non_default_levers())}
+    if report is not None:
+        out["autotune"] = {"candidates": [c.to_dict() for c in report.candidates],
+                           "seconds": list(report.timings_s),
+                           "winner_index": report.winner_index}
+    return out
 
 
 def add_parallel_flags(p: argparse.ArgumentParser) -> None:
@@ -356,6 +473,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bn-recal-batches", type=int, default=0,
                    help="refresh BatchNorm running statistics with this many "
                         "train-mode forwards before each evaluation")
+    add_telemetry_flags(p)
+    add_planner_flags(p)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, kind, default, _ in _LATER_FLAGS:
@@ -381,10 +500,13 @@ def parse_args(argv=None):
     return args
 
 
-def build(args, device: torch.device, world: World = World()):
+def build(args, device: torch.device, world: World = World(), profile=None):
     """``(model, kfac, state, train_step)`` for parsed ``args`` on
     ``device`` over ``world``; ``kfac`` is ``None`` at
-    ``--kfac-update-freq 0``."""
+    ``--kfac-update-freq 0``. ``profile`` (default ``--profile``) is the
+    planner profile name or ``Plan`` the K-FAC levers left at their
+    defaults are filled from, the model's own factor shapes its facts."""
+    profile = args.profile if profile is None else profile
     model = cifar_resnet.get_model(
         args.model, num_classes=args.synth_classes,
         generator=torch.Generator().manual_seed(args.seed),
@@ -411,6 +533,8 @@ def build(args, device: torch.device, world: World = World()):
             **factor_comm_kwargs(args),
             factor_kernel=args.factor_kernel,
             apply_kernel=args.apply_kernel,
+            profile=profile,
+            profile_shapes=model if profile is not None else None,
             device=device,
             process_group=world.group,
         )
@@ -477,6 +601,9 @@ def evaluate(eval_step, state, x_val, y_val, batch_size, device, world: World = 
 
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
+    # before any span fires
+    run_tel = RunTelemetry(args.telemetry_dir, args.comm_overlap)
+    tel = run_tel.tel
     device = launch.initialize(args.device)
     use_ieee_f32()
     world = data_parallel_world()
@@ -488,6 +615,22 @@ def main(argv=None) -> Dict[str, List]:
     x_train, y_train = train or (None, None)
     x_val, y_val = val or (None, None)
     model, kfac, state, train_step = build(args, device, world)
+    plan_info = None
+    if kfac is not None and kfac.plan is not None:
+        rank0_print(kfac.plan.describe() + (
+            f" (dropped: {', '.join(kfac.plan_dropped)})" if kfac.plan_dropped else ""))
+        xw, yw = next(data_lib.synthetic_batches(
+            args.batch_size * accum, (3, 32, 32), args.synth_classes, 1, seed=args.seed))
+        winner, report = autotune_kfac(
+            kfac, lambda plan: build(args, device, world, profile=plan)[1:],
+            put_global_batch((xw, yw), device, accum), args.base_lr * world.size,
+            args.autotune_steps, device, broadcast=launch.broadcast_host_value,
+            log=rank0_print)
+        if winner is not None and winner != kfac.plan:
+            model, kfac, state, train_step = build(args, device, world, profile=winner)
+        # the candidates' builds published their own plans' gauges
+        planner.log_plan(kfac.plan, kfac.plan_dropped)
+        plan_info = plan_record(kfac, report)
     if args.init_from_torch:
         interop.init_from_torch_checkpoint(args.init_from_torch, model, args.model)
         rank0_print(f"initialized weights from torch checkpoint {args.init_from_torch}")
@@ -504,6 +647,8 @@ def main(argv=None) -> Dict[str, List]:
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "val_accuracy": [],
         "val_count": [], "eval_ms": [], "checkpoint_ms": [], "restore_ms": [],
     }
+    if plan_info is not None:
+        history["plan"] = plan_info
     # owner-sharded curvature is this rank's rows (a restored checkpoint
     # is re-homed the same way, in auto_resume)
     state.kfac_state = ckpt.rehome_kfac_state(kfac, state.kfac_state)
@@ -568,33 +713,39 @@ def main(argv=None) -> Dict[str, List]:
         t0 = time.perf_counter()
         loss_m, acc_m = Metric("train/loss"), Metric("train/accuracy")
         diag: Dict[str, List[float]] = {}
-        for i, (xb, yb) in enumerate(batches):
-            if i >= steps_per_epoch:
-                break
-            lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
-            flags = cadence.flags_for_step(step, epoch)
-            images, labels = put_global_batch((xb, yb), device, accum)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            ts = time.perf_counter()
-            state, metrics = train_step(
-                state, (images, labels), lr,
-                kfac.hparams.damping if kfac else 0.0, **flags,
-            )
-            # one read of every scalar the host logs: waits for the step
-            keys = sorted(metrics)
-            values = dict(zip(keys, torch.stack(
-                [metrics[k].float() for k in keys]).tolist()))
-            history["step_ms"].append((time.perf_counter() - ts) * 1e3)
-            history["loss"].append(values["loss"])
-            history["kind"].append(step_kind(flags))
-            loss_m.update(values["loss"])
-            acc_m.update(values["accuracy"])
-            for k, v in values.items():
-                if k.startswith("kfac_"):
-                    diag.setdefault(k, []).append(v)
-                    history.setdefault(k, []).append(v)
-            step += 1
+        with profiling.maybe_trace(args.log_dir, args.profile_epoch == epoch, device):
+            for i, (xb, yb) in enumerate(batches):
+                if i >= steps_per_epoch:
+                    break
+                lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
+                flags = cadence.flags_for_step(step, epoch)
+                with tel.span("comm/host_to_device"):
+                    images, labels = put_global_batch((xb, yb), device, accum)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                ts = time.perf_counter()
+                with step_span(tel, flags) as sp:
+                    state, metrics = train_step(
+                        state, (images, labels), lr,
+                        kfac.hparams.damping if kfac else 0.0, **flags,
+                    )
+                    sp.block(metrics)
+                # one read of every scalar the host logs: waits for the step
+                with tel.span("comm/device_get"):
+                    keys = sorted(metrics)
+                    values = dict(zip(keys, torch.stack(
+                        [metrics[k].float() for k in keys]).tolist()))
+                history["step_ms"].append((time.perf_counter() - ts) * 1e3)
+                history["loss"].append(values["loss"])
+                history["kind"].append(step_kind(flags))
+                loss_m.update(values["loss"])
+                acc_m.update(values["accuracy"])
+                run_tel.note_metrics(values)
+                for k, v in values.items():
+                    if k.startswith("kfac_"):
+                        diag.setdefault(k, []).append(v)
+                        history.setdefault(k, []).append(v)
+                step += 1
         dt = time.perf_counter() - t0
         rank0_print(
             f"epoch {epoch}: loss={loss_m.avg:.4f} acc={acc_m.avg:.4f} lr={lr:.4f} "
@@ -640,11 +791,15 @@ def main(argv=None) -> Dict[str, List]:
             writer.add_scalar("val/loss", val_loss, epoch)
             writer.add_scalar("val/accuracy", val_acc, epoch)
 
+        run_tel.end_epoch(epoch)
         if args.checkpoint_dir:
             tc = time.perf_counter()
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
             history["checkpoint_ms"].append((time.perf_counter() - tc) * 1e3)
     writer.close()
+    snapshot = run_tel.close()
+    if snapshot is not None:
+        history["telemetry"] = snapshot
     if loader is not None:
         loader.close()
     return history

@@ -25,9 +25,9 @@ Data-parallel under ``torchrun`` it takes the CIFAR twin's flags and rules
 ``--precond-comm-dtype``, ``--grad-comm-dtype``; ``--batch-size`` per
 device, the learning rate times the world size, each rank its interleaved
 shard, rank 0 logging and writing). Without shards (or with ``--synthetic``) it trains on
-synthetic batches. Every other flag of the JAX trainer is accepted with
-its default and, set to anything else, raises ``SystemExit`` naming the
-ROADMAP item that ports it. ``--log-dir`` and ``--checkpoint-dir`` default
+synthetic batches. ``--profile-epoch N`` writes a ``torch.profiler``
+Chrome trace of epoch N into ``--log-dir``; the twin takes every flag of
+the JAX trainer. ``--log-dir`` and ``--checkpoint-dir`` default
 to none here (the JAX trainer's defaults are ``./logs`` and
 ``./checkpoints``): a run writes nothing it was not asked to.
 
@@ -57,6 +57,7 @@ import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, interop
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
+from kfac_pytorch_tpu_torch.training import profiling
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_parallel_flags,
     add_precision_flags,
@@ -83,13 +84,6 @@ from kfac_pytorch_tpu_torch.training.step import (
 )
 
 NUM_CLASSES = 1000
-
-# Flags of the JAX trainer this slice does not carry: (flag, type, default,
-# ROADMAP queue-1 item that ports it). Store-true flags have type None.
-_LATER_FLAGS = (
-    ("--profile-epoch", int, None, "9 (observability/)"),
-)
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
@@ -150,20 +144,12 @@ def parse_args(argv=None):
                    help="preconditioned apply + SGD: kernel = the fused CUDA "
                         "kernels, dense = matmul-chain + per-leaf SGD oracle, "
                         "auto = the kernels on CUDA tensors")
+    p.add_argument("--profile-epoch", type=int, default=None,
+                   help="capture a torch.profiler trace of this epoch into "
+                        "--log-dir (profile_trace.json, Chrome format)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag, kind, default, _ in _LATER_FLAGS:
-        if kind is None:
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for flag, _, default, item in _LATER_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch trainer yet (ROADMAP "
-                f"queue 1 item {item})"
-            )
     if args.batches_per_allreduce < 1:
         raise SystemExit("--batches-per-allreduce must be at least 1")
     if args.num_workers < 0:
@@ -384,29 +370,30 @@ def main(argv=None) -> Dict[str, List]:
             )
         t0 = time.perf_counter()
         loss_m, acc_m = Metric("train/loss"), Metric("train/accuracy")
-        for i, (xb, yb) in enumerate(batches):
-            lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
-            flags = kfac_flags_for_step(step, kfac, epoch)
-            images, labels = put_global_batch((xb, yb), device, accum)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            ts = time.perf_counter()
-            state, metrics = train_step(
-                state, (images, labels), lr,
-                kfac.hparams.damping if kfac else 0.0, **flags,
-            )
-            # one read of the logged scalars: waits for the step
-            loss, acc = torch.stack([metrics["loss"], metrics["accuracy"]]).tolist()
-            history["step_ms"].append((time.perf_counter() - ts) * 1e3)
-            history["loss"].append(loss)
-            history["accuracy"].append(acc)
-            history["kind"].append(
-                "refresh" if flags.get("update_eigen")
-                else "capture" if flags.get("update_factors") else "plain"
-            )
-            loss_m.update(loss)
-            acc_m.update(acc)
-            step += 1
+        with profiling.maybe_trace(args.log_dir, args.profile_epoch == epoch, device):
+            for i, (xb, yb) in enumerate(batches):
+                lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
+                flags = kfac_flags_for_step(step, kfac, epoch)
+                images, labels = put_global_batch((xb, yb), device, accum)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                ts = time.perf_counter()
+                state, metrics = train_step(
+                    state, (images, labels), lr,
+                    kfac.hparams.damping if kfac else 0.0, **flags,
+                )
+                # one read of the logged scalars: waits for the step
+                loss, acc = torch.stack([metrics["loss"], metrics["accuracy"]]).tolist()
+                history["step_ms"].append((time.perf_counter() - ts) * 1e3)
+                history["loss"].append(loss)
+                history["accuracy"].append(acc)
+                history["kind"].append(
+                    "refresh" if flags.get("update_eigen")
+                    else "capture" if flags.get("update_factors") else "plain"
+                )
+                loss_m.update(loss)
+                acc_m.update(acc)
+                step += 1
         dt = time.perf_counter() - t0
         rank0_print(
             f"epoch {epoch}: loss={loss_m.avg:.4f} acc={acc_m.avg:.4f} lr={lr:.4f} "

@@ -16,7 +16,9 @@ K-FAC gating (every step's flags from ``scheduler.EigenRefreshCadence``:
 ``scalars.jsonl`` under
 ``--log-dir`` (the JAX trainer's tags; with ``--kfac-diagnostics`` also
 the per-epoch mean of every ``kfac_*`` diagnostic) and checkpoints with
-auto-resume under ``--checkpoint-dir``. Every other flag of the JAX
+auto-resume under ``--checkpoint-dir``, and the CIFAR twin's
+``--telemetry-dir``, ``--profile-epoch``, ``--profile`` and
+``--autotune-steps``. Every other flag of the JAX
 trainer is accepted with its default and, set to anything else, raises
 ``SystemExit`` naming the ROADMAP item that ports it. ``--log-dir``
 defaults to none here (``./logs`` in the JAX trainer).
@@ -115,18 +117,23 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture
-from kfac_pytorch_tpu_torch.preconditioner import seq_axis_violations, shard_lens_violations
+from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, planner
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
+from kfac_pytorch_tpu_torch.examples.autotune import autotune_kfac
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
+    RunTelemetry,
     add_factor_comm_flags,
     add_owner_flags,
+    add_planner_flags,
     add_refresh_flags,
+    add_telemetry_flags,
     factor_comm_kwargs,
     grad_comm_dtype,
+    plan_record,
     rank0_print,
     refresh_cadence,
     refresh_kwargs,
+    step_span,
 )
 from kfac_pytorch_tpu_torch.models import transformer_lm
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
@@ -142,9 +149,11 @@ from kfac_pytorch_tpu_torch.parallel.mesh import (
     data_tensor_world,
     local_seq,
 )
+from kfac_pytorch_tpu_torch.preconditioner import lever_env
 from kfac_pytorch_tpu_torch.shardwise import lm_param_shardings
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
+from kfac_pytorch_tpu_torch.training import profiling
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.step import (
     TrainState,
@@ -159,13 +168,9 @@ SYNTHETIC_VOCAB = 1000
 # Flags of the JAX trainer this slice does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--preempt-save-dir", str, None, "9 (elastic/)"),
-    ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--service-devices", int, 0, "9 (service/)"),
-    ("--profile", str, None, "9 (planner/)"),
-    ("--autotune-steps", int, 0, "9 (planner/)"),
-    ("--profile-epoch", int, None, "9 (observability/)"),
-    ("--telemetry-dir", str, None, "9 (observability/)"),
+    ("--preempt-save-dir", str, None, "9c (elastic/)"),
+    ("--snapshot-every", int, 0, "9c (elastic/)"),
+    ("--service-devices", int, 0, "9d (service/)"),
 )
 
 
@@ -268,6 +273,8 @@ def parse_args(argv=None):
                    help="log per-epoch means of the K-FAC health diagnostics "
                         "(nu, damped eigenvalues, condition numbers, "
                         "update/grad geometry) to --log-dir")
+    add_planner_flags(p)
+    add_telemetry_flags(p)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, kind, default, _ in _LATER_FLAGS:
@@ -369,19 +376,38 @@ def check_world(args, world: World) -> None:
             f"--fsdp {fsdp} x --tensor-parallel {tp} must divide device "
             f"count {world.size}"
         )
-    bad = seq_axis_violations(
-        world.size, sp, factor_sharding=args.factor_sharding,
-        factor_comm_dtype=args.factor_comm_dtype, factor_comm_freq=args.factor_comm_freq,
-        comm_overlap=args.comm_overlap,
-    ) + shard_lens_violations(
-        fsdp >= 1 and tp > 1, args.moe_experts > 0, factor_sharding=args.factor_sharding,
-        eigh_chunks=args.eigh_chunks, solver=args.solver,
+    # the CLI's lever composition through the planner's validity matrix,
+    # as in the JAX trainer, each refusal in KFAC's words, on the env KFAC
+    # builds (lever_env) from the flags' axes; a tensor axis is exempt (the
+    # K-FAC collectives still ride one data axis through it)
+    cli_plan = planner.Plan(
+        eigh_chunks=args.eigh_chunks,
+        apply_kernel=args.apply_kernel,
+        factor_comm_dtype=args.factor_comm_dtype,
         factor_comm_freq=args.factor_comm_freq,
+        solver=args.solver,
+        solver_rank=args.solver_rank,
+        solver_auto_threshold=args.solver_auto_threshold,
+        stream_drift_threshold=args.stream_drift_threshold,
+        factor_sharding=args.factor_sharding,
+        comm_overlap=args.comm_overlap,
+        staleness_budget=args.staleness_budget,
     )
+    env = lever_env(
+        world.size, world.size // max(1, tp), sp, fsdp >= 1 and tp > 1,
+        track_diagnostics=args.kfac_diagnostics,
+        has_diag_a_layers=args.kfac_embedding,
+        has_conv_layers=False,
+        has_shard_lens_layers=fsdp >= 1 and tp > 1,
+        has_moe_layers=args.moe_experts > 0,
+        fac_update_freq=max(1, args.kfac_cov_update_freq),
+        kfac_update_freq=max(1, args.kfac_update_freq),
+    )
+    bad = planner.violations(cli_plan, env)
     if bad:
         raise SystemExit(
             "invalid K-FAC lever composition:\n"
-            + "\n".join(f"  [{name}] {msg}" for name, msg in bad)
+            + "\n".join(f"  [{r.name}] {r.refusal_text(cli_plan, env)}" for r in bad)
         )
     if args.grad_comm_dtype and sp > 1:
         raise SystemExit(
@@ -391,7 +417,8 @@ def check_world(args, world: World) -> None:
         )
 
 
-def build(args, device: torch.device, oracle: bool = False, world: World = World()):
+def build(args, device: torch.device, oracle: bool = False, world: World = World(),
+          profile=None):
     """``(model, kfac, state, train_step, splits)`` for parsed ``args`` on
     ``device`` over ``world``: the model, the preconditioner (``None`` at
     ``--kfac-update-freq 0``), the train state, the train step and the
@@ -402,7 +429,10 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
     data×fsdp×tensor world) the model's MLP kernels are this rank's tensor
     shards and the state's ``fsdp`` places the other parameters, still
     whole: ``fsdp.shard_`` cuts them after a resume and the starting
-    broadcast."""
+    broadcast. ``profile`` (default ``--profile``) is the planner profile
+    name or ``Plan`` the K-FAC levers left at their defaults are filled
+    from, the model's own factor shapes its facts."""
+    profile = args.profile if profile is None else profile
     splits, words = load_corpus(args)
     if world.seq_size > 1:
         attention_fn = make_context_parallel_attention(world, args.attention)
@@ -440,6 +470,8 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
             **factor_comm_kwargs(args),
             factor_kernel="dense" if oracle else "auto",
             apply_kernel="dense" if oracle else args.apply_kernel,
+            profile=profile,
+            profile_shapes=model if profile is not None else None,
             device=device,
             process_group=world.group,
             seq_parallel=world.seq_size,
@@ -466,6 +498,9 @@ def build(args, device: torch.device, oracle: bool = False, world: World = World
 
 def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
+    # before any span fires
+    run_tel = RunTelemetry(args.telemetry_dir, args.comm_overlap)
+    tel = run_tel.tel
     device = launch.initialize(args.device)
     use_ieee_f32()
     check_world(args, data_parallel_world())
@@ -484,6 +519,20 @@ def main(argv=None) -> Dict[str, List]:
     history: Dict[str, List] = {
         "loss": [], "kind": [], "step_ms": [], "val_loss": [], "restore_ms": [],
     }
+    if kfac is not None and kfac.plan is not None:
+        rank0_print(kfac.plan.describe() + (
+            f" (dropped: {', '.join(kfac.plan_dropped)})" if kfac.plan_dropped else ""))
+        toks, tgts = next(rank_segments(rank_rows(splits["train"], args, world), args, world))
+        winner, report = autotune_kfac(
+            kfac, lambda plan: build(args, device, world=world, profile=plan)[1:4],
+            device_batch(toks, tgts, device), args.base_lr, args.autotune_steps, device,
+            broadcast=launch.broadcast_host_value, log=rank0_print)
+        if winner is not None and winner != kfac.plan:
+            model, kfac, state, train_step, splits = build(args, device, world=world,
+                                                           profile=winner)
+        # the candidates' builds published their own plans' gauges
+        planner.log_plan(kfac.plan, kfac.plan_dropped)
+        history["plan"] = plan_record(kfac, report)
     # owner-sharded curvature is this rank's rows (a restored checkpoint
     # is re-homed the same way, in auto_resume)
     state.kfac_state = ckpt.rehome_kfac_state(kfac, state.kfac_state)
@@ -522,31 +571,37 @@ def main(argv=None) -> Dict[str, List]:
         t0 = time.perf_counter()
         loss_m = Metric("train/loss")
         diag: Dict[str, List[float]] = {}
-        for i, (toks, tgts) in enumerate(rank_segments(stream, args, world)):
-            if i >= steps_per_epoch:
-                break
-            flags = cadence.flags_for_step(step, epoch)
-            batch = device_batch(toks, tgts, device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            ts = time.perf_counter()
-            state, metrics = train_step(
-                state, batch, args.base_lr,
-                kfac.hparams.damping if kfac else 0.0, **flags,
-            )
-            # one read of every scalar the host logs: waits for the step
-            keys = sorted(metrics)
-            values = dict(zip(keys, torch.stack(
-                [metrics[k].float() for k in keys]).tolist()))
-            history["step_ms"].append((time.perf_counter() - ts) * 1e3)
-            history["loss"].append(values["loss"])
-            history["kind"].append(step_kind(flags))
-            loss_m.update(values["loss"])
-            for k, v in values.items():
-                if k.startswith("kfac_"):
-                    diag.setdefault(k, []).append(v)
-                    history.setdefault(k, []).append(v)
-            step += 1
+        with profiling.maybe_trace(args.log_dir, args.profile_epoch == epoch, device):
+            for i, (toks, tgts) in enumerate(rank_segments(stream, args, world)):
+                if i >= steps_per_epoch:
+                    break
+                flags = cadence.flags_for_step(step, epoch)
+                with tel.span("comm/host_to_device"):
+                    batch = device_batch(toks, tgts, device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                ts = time.perf_counter()
+                with step_span(tel, flags) as sp:
+                    state, metrics = train_step(
+                        state, batch, args.base_lr,
+                        kfac.hparams.damping if kfac else 0.0, **flags,
+                    )
+                    sp.block(metrics)
+                # one read of every scalar the host logs: waits for the step
+                with tel.span("comm/device_get"):
+                    keys = sorted(metrics)
+                    values = dict(zip(keys, torch.stack(
+                        [metrics[k].float() for k in keys]).tolist()))
+                history["step_ms"].append((time.perf_counter() - ts) * 1e3)
+                history["loss"].append(values["loss"])
+                history["kind"].append(step_kind(flags))
+                loss_m.update(values["loss"])
+                run_tel.note_metrics(values)
+                for k, v in values.items():
+                    if k.startswith("kfac_"):
+                        diag.setdefault(k, []).append(v)
+                        history.setdefault(k, []).append(v)
+                step += 1
         # the token-count kernel tallies ids outside the vocabulary on the
         # card; read the tally once an epoch, where the host waits anyway
         check_token_ids(device)
@@ -577,9 +632,13 @@ def main(argv=None) -> Dict[str, List]:
             rank0_print(f"  val: loss={v:.4f} ppl={math.exp(min(v, 20.0)):.1f}")
             writer.add_scalar("val/loss", v, epoch)
             writer.add_scalar("val/ppl", math.exp(min(v, 20.0)), epoch)
+        run_tel.end_epoch(epoch)
         if args.checkpoint_dir:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
     writer.close()
+    snapshot = run_tel.close()
+    if snapshot is not None:
+        history["telemetry"] = snapshot
     return history
 
 

@@ -11,7 +11,9 @@ through the reduce lens; every step's K-FAC flags from
 ``--staleness-budget``, the truncated solvers ``--solver rsvd``/
 ``streaming``), per-epoch validation on the valid split,
 ``scalars.jsonl`` under ``--log-dir`` and checkpoints with auto-resume
-under ``--checkpoint-dir``. ``--tied`` without ``--kfac-embedding`` leaves
+under ``--checkpoint-dir``; ``--profile`` resolves the K-FAC levers left
+at their defaults from a planner profile (``planner/``). ``--tied`` without
+``--kfac-embedding`` leaves
 no preconditionable layer and trains with plain SGD, as the JAX trainer
 does. Every other flag of the JAX trainer is accepted with its default
 and, set to anything else, raises ``SystemExit`` naming the ROADMAP item
@@ -63,6 +65,7 @@ from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_factor_comm_flags,
     add_owner_flags,
+    add_planner_flags,
     add_refresh_flags,
     factor_comm_kwargs,
     grad_comm_dtype,
@@ -88,10 +91,9 @@ from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, step_kind
 # Flags of the JAX trainer this twin does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--preempt-save-dir", str, None, "9 (elastic/)"),
-    ("--snapshot-every", int, 0, "9 (elastic/)"),
-    ("--service-devices", int, 0, "9 (service/)"),
-    ("--profile", str, None, "9 (planner/)"),
+    ("--preempt-save-dir", str, None, "9c (elastic/)"),
+    ("--snapshot-every", int, 0, "9c (elastic/)"),
+    ("--service-devices", int, 0, "9d (service/)"),
 )
 
 
@@ -152,6 +154,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="downcast the per-step data-parallel gradient mean "
                         "on the wire (the reference's --fp16-allreduce); "
                         "None = exact f32 reduction")
+    add_planner_flags(p, autotune=False)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, kind, default, _ in _LATER_FLAGS:
@@ -214,9 +217,14 @@ def build(args, ntokens: int, device: torch.device, world: World = World()):
                 apply_kernel=args.apply_kernel,
                 **refresh_kwargs(args),
                 **factor_comm_kwargs(args),
+                profile=args.profile,
+                profile_shapes=model if args.profile is not None else None,
                 device=device,
                 process_group=world.group,
             )
+            if kfac.plan is not None:
+                rank0_print(kfac.plan.describe() + (
+                    f" (dropped: {', '.join(kfac.plan_dropped)})" if kfac.plan_dropped else ""))
     state = TrainState(
         step=0,
         model=model,

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 from kfac_pytorch_tpu_torch.ops import kernel_build
 
 APPLY_KERNELS = ("auto", "kernel", "dense")
@@ -174,9 +175,12 @@ def dispatch_precondition_stack(
     """One shape group's fused apply; called from the kernel branch of
     ``precondition_all_with_vg`` (the dense branch keeps the oracle chain).
     The apply consumes finished gradients, so nothing here is differentiated."""
-    return fused_precondition_stack(
-        gm.detach(), qa.detach(), da.detach(), qg.detach(), dg.detach(), damping
-    )
+    tel = get_telemetry()
+    tel.set_gauge("kfac/apply_kernel", 1.0 if gm.is_cuda else 0.0)
+    with tel.span("trace/kfac/apply_kernel"):
+        return fused_precondition_stack(
+            gm.detach(), qa.detach(), da.detach(), qg.detach(), dg.detach(), damping
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -423,18 +427,22 @@ def dispatch_sgd_apply(
     :class:`SGDPlan` of this leaf set, built on the first call and rebuilt
     when it turns stale or ``trace`` is another dict.
     """
+    names = list(params)
+    on_cuda = params[names[0]].device.type == "cuda"
+    tel = get_telemetry()
+    tel.set_gauge("kfac/apply_kernel", 1.0 if kind != "dense" and on_cuda else 0.0)
     if kind == "dense":
         return None
-    names = list(params)
     g = [grads[n] for n in names]
-    if params[names[0]].device.type == "cpu":
-        fused_sgd_apply_plain([params[n].detach() for n in names], g, [trace[n] for n in names],
-                              lr, momentum, weight_decay)
+    with tel.span("trace/kfac/apply_kernel"):
+        if not on_cuda:
+            fused_sgd_apply_plain([params[n].detach() for n in names], g,
+                                  [trace[n] for n in names], lr, momentum, weight_decay)
+            return True
+        plans = {} if plans is None else plans
+        plan = plans.get("plan")
+        if plan is None or plan.stale or plans.get("trace") is not trace:
+            plan = SGDPlan([params[n].detach() for n in names], [trace[n] for n in names])
+            plans.update(plan=plan, trace=trace)
+        plan.launch(g, lr, momentum, weight_decay)
         return True
-    plans = {} if plans is None else plans
-    plan = plans.get("plan")
-    if plan is None or plan.stale or plans.get("trace") is not trace:
-        plan = SGDPlan([params[n].detach() for n in names], [trace[n] for n in names])
-        plans.update(plan=plan, trace=trace)
-    plan.launch(g, lr, momentum, weight_decay)
-    return True

@@ -51,12 +51,20 @@ from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 from kfac_pytorch_tpu_torch.ops import factors, kernel_build
 from kfac_pytorch_tpu_torch.ops.factors import resolve_padding as _resolve_padding
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
 FACTOR_KERNELS = ("auto", "kernel", "dense")
+
+
+def _kernel_gauge(kind: str, t: torch.Tensor) -> float:
+    """The JAX package's ``kfac/*_kernel`` gauge value: 1 when the
+    dispatch runs the hand kernel (a CUDA tensor, ``kind`` not
+    ``"dense"``), else 0."""
+    return 1.0 if kind != "dense" and t.is_cuda else 0.0
 
 
 def resolve_factor_kernel(kind: str, device: torch.device) -> str:
@@ -270,13 +278,16 @@ def dispatch_compute_a_conv(
     route) and to the oracle upcast."""
     resolve_factor_kernel(kind, a.device)
     a = a.detach()
-    if kind == "dense":
-        return factors.compute_a_conv(
-            a.float(), kernel_size, strides, padding, has_bias, kernel_dilation
+    tel = get_telemetry()
+    tel.set_gauge("kfac/factor_kernel", _kernel_gauge(kind, a))
+    with tel.span("trace/kfac/factor_kernel"):
+        if kind == "dense":
+            return factors.compute_a_conv(
+                a.float(), kernel_size, strides, padding, has_bias, kernel_dilation
+            )
+        return compute_a_conv_fused(
+            a, kernel_size, strides, padding, has_bias, kernel_dilation
         )
-    return compute_a_conv_fused(
-        a, kernel_size, strides, padding, has_bias, kernel_dilation
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -352,13 +363,16 @@ def dispatch_compute_a_conv_grouped(
     """Grouped-conv twin of :func:`dispatch_compute_a_conv`."""
     resolve_factor_kernel(kind, a.device)
     a = a.detach()
-    if kind == "dense":
-        return factors.compute_a_conv_grouped(
-            a.float(), groups, kernel_size, strides, padding, has_bias, kernel_dilation
+    tel = get_telemetry()
+    tel.set_gauge("kfac/factor_kernel", _kernel_gauge(kind, a))
+    with tel.span("trace/kfac/factor_kernel"):
+        if kind == "dense":
+            return factors.compute_a_conv_grouped(
+                a.float(), groups, kernel_size, strides, padding, has_bias, kernel_dilation
+            )
+        return compute_a_conv_grouped_fused(
+            a, groups, kernel_size, strides, padding, has_bias, kernel_dilation
         )
-    return compute_a_conv_grouped_fused(
-        a, groups, kernel_size, strides, padding, has_bias, kernel_dilation
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -473,15 +487,23 @@ def check_token_ids(device) -> None:
         raise _range_error(vocab, f"{count} ids outside it, in [{lo}, {hi}]")
 
 
+def _route_embed(ids: torch.Tensor, n: int, kind: str) -> torch.Tensor:
+    """The token-count route of the embedding and MoE dispatchers: the
+    scatter-add oracle (``"dense"``) or the kernel wrapper."""
+    with get_telemetry().span("trace/kfac/factor_kernel"):
+        if kind == "dense":
+            return factors.compute_a_embed(ids, n)
+        return compute_a_embed_fused(ids, n)
+
+
 def dispatch_compute_a_embed(
     ids: torch.Tensor, vocab: int, *, kind: str = "auto"
 ) -> torch.Tensor:
     """Route an embedding layer's diagonal-A contribution: oracle or kernel
     wrapper. Token ids are integers: nothing here is differentiated."""
     resolve_factor_kernel(kind, ids.device)
-    if kind == "dense":
-        return factors.compute_a_embed(ids, vocab)
-    return compute_a_embed_fused(ids, vocab)
+    get_telemetry().set_gauge("kfac/embedding_capture_kernel", _kernel_gauge(kind, ids))
+    return _route_embed(ids, vocab, kind)
 
 
 def dispatch_compute_a_moe(
@@ -491,6 +513,9 @@ def dispatch_compute_a_moe(
     float32): the ``[tokens, experts]`` dispatch one-hot is the embedding
     one-hot with ``vocab = E``, so the fractions ride the token-count
     kernel (``compute_a_embed_fused``, counted on its counter) exactly as
-    :func:`dispatch_compute_a_embed` routes; ``"dense"`` takes the
-    scatter-add oracle. Integer ids: nothing here is differentiated."""
-    return dispatch_compute_a_embed(expert_ids, num_experts, kind=kind)
+    :func:`dispatch_compute_a_embed` routes, on a gauge of their own;
+    ``"dense"`` takes the scatter-add oracle. Integer ids: nothing here is
+    differentiated."""
+    resolve_factor_kernel(kind, expert_ids.device)
+    get_telemetry().set_gauge("kfac/moe_dispatch_kernel", _kernel_gauge(kind, expert_ids))
+    return _route_embed(expert_ids, num_experts, kind)

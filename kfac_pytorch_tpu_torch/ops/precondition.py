@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch.device import rotation_precision
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 from kfac_pytorch_tpu_torch.ops import apply_kernels
 from kfac_pytorch_tpu_torch.parallel.mesh import World
 
@@ -754,6 +755,7 @@ def precondition_all_owner(
     diag_a = {s.name for s in plan.slots if s.factor == "A" and s.diag}
     order, segments, width = _owner_gather_layout(shapes, plan.owners, plan.world, rank_fn,
                                                   diag_a)
+    get_telemetry().set_gauge("kfac/precond_allgather_bytes", plan.world * width * 4)
     first = grad_mats[order[0]]
     buf = first.new_zeros(width, dtype=torch.float32)
 

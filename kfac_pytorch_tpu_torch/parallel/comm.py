@@ -48,17 +48,16 @@ package's stochastic rounding draws from threefry; the port cannot
 reproduce it, so :meth:`FactorComm.draw` seeds a generator on the bucket's
 device from ``(QUANT_SEED, step, bucket, chunk)``, the same on every rank,
 and :func:`quantize_bucket` takes its draw ``u`` explicitly (the parity
-tests inject the JAX package's). The ``kfac/factor_wire_bytes``,
-``kfac/factor_collectives``, ``kfac/overlap_mode`` and
-``kfac/wire_quant_error_norm`` gauges wait for item 9 (9b,
-``observability/``); their values are kept on the plane
-(``last_wire_bytes``, ``last_collectives``, ``overlap_mode``) or returned
-(:func:`publish_wire_quant_error`).
+tests inject the JAX package's). The plane publishes the
+``kfac/factor_wire_bytes`` and ``kfac/factor_collectives`` gauges (also
+kept as ``last_wire_bytes``, ``last_collectives``), the int8 flush the
+``kfac/wire_quant_error_norm`` gauge (a device scalar, read at export), and
+each exchange a ``trace/kfac/factor_comm`` span (host dispatch); the
+cadence publishes ``kfac/overlap_mode``.
 """
 
 from __future__ import annotations
 
-import math
 import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -67,6 +66,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import capture
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 from kfac_pytorch_tpu_torch.ops import factors as factor_ops
 from kfac_pytorch_tpu_torch.parallel.assignment import FactorBucket, plan_factor_buckets
 from kfac_pytorch_tpu_torch.parallel.mesh import World
@@ -129,13 +129,15 @@ def quant_wire_bytes(sizes: Sequence[int]) -> int:
     return sum(s + (-(-s // QUANT_BLOCK)) * 4 for s in sizes)
 
 
-def publish_wire_quant_error(wire_error: Dict[str, torch.Tensor]) -> float:
-    """The global L2 norm of the error-feedback residuals (host float): the
-    value of the JAX package's ``kfac/wire_quant_error_norm`` gauge, whose
-    sink waits for item 9 (9b). A norm that trends upward instead of
-    hovering says the int8 wire fights the factor dynamics."""
-    total = sum(float(torch.sum(v.float() ** 2)) for v in wire_error.values())
-    return math.sqrt(total)
+def publish_wire_quant_error(wire_error: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of the error-feedback residuals onto the
+    ``kfac/wire_quant_error_norm`` gauge, as a 0-d device tensor (no host
+    sync; the registry reads it at export), and returned. A norm that
+    trends upward instead of hovering says the int8 wire fights the factor
+    dynamics."""
+    norm = torch.sqrt(sum(torch.sum(v.float() ** 2) for v in wire_error.values()))
+    get_telemetry().set_gauge("kfac/wire_quant_error_norm", norm)
+    return norm
 
 
 def flatten_buckets(
@@ -327,7 +329,13 @@ class FactorComm:
         else:
             self.last_wire_bytes = sum(sizes) * self.comm_dtype.itemsize
         self.last_collectives = len(plan)
+        self._publish()
         return plan
+
+    def _publish(self) -> None:
+        tel = get_telemetry()
+        tel.set_gauge("kfac/factor_wire_bytes", self.last_wire_bytes)
+        tel.set_gauge("kfac/factor_collectives", self.last_collectives)
 
     # -- wire ops -------------------------------------------------------
 
@@ -348,6 +356,10 @@ class FactorComm:
                 "wire_error=...) only — the plain bucketed mean cannot "
                 "reduce int8 codes"
             )
+        with get_telemetry().span("trace/kfac/factor_comm"):
+            return self._start_allreduce(tree)
+
+    def _start_allreduce(self, tree) -> Callable[[], Any]:
         leaves = tree_leaves(tree)
         plan = self._plan_for(leaves)
         wire = None if self.comm_dtype == torch.float32 else self.comm_dtype
@@ -423,6 +435,7 @@ class FactorComm:
             sum(b.size for b in plan.wire_buckets) * plan.world * self.comm_dtype.itemsize
         )
         self.last_collectives = len(plan.wire_buckets)
+        self._publish()
         wgroups = plan.wire_groups()
         device = next(iter(shard.values())).device
         groups: Dict[str, torch.Tensor] = {}
@@ -432,16 +445,17 @@ class FactorComm:
                 flat[s.owner * rows + s.row] = payload[s.name][s.factor].reshape(-1)
             groups[key] = flat.view(plan.world, rows * elems)
         new_shard = dict(shard)
-        for bucket in plan.wire_buckets:
-            parts = [groups[wgroups[e.index][0]] for e in bucket.entries]
-            buf = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-            if wire is not None:
-                buf = buf.to(wire)
-            red = world.reduce_scatter_mean(buf)
-            for e in bucket.entries:
-                key = wgroups[e.index][0]
-                seg = red[e.offset:e.offset + e.size].view(shard[key].shape)
-                new_shard[key] = decay * shard[key] + seg
+        with get_telemetry().span("trace/kfac/factor_comm"):
+            for bucket in plan.wire_buckets:
+                parts = [groups[wgroups[e.index][0]] for e in bucket.entries]
+                buf = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+                if wire is not None:
+                    buf = buf.to(wire)
+                red = world.reduce_scatter_mean(buf)
+                for e in bucket.entries:
+                    key = wgroups[e.index][0]
+                    seg = red[e.offset:e.offset + e.size].view(shard[key].shape)
+                    new_shard[key] = decay * shard[key] + seg
         return new_shard
 
     def wire_error_init(self, facs) -> Dict[str, torch.Tensor]:
@@ -538,5 +552,10 @@ class FactorComm:
                     "int8 factor wire needs the error-feedback residuals: "
                     "flush(facs, wire_error=state['wire_error'], step=step)"
                 )
-            return self._merge_quantized(facs, wire_error, 0 if step is None else int(step))
+            tel = get_telemetry()
+            with tel.span("trace/kfac/factor_comm"):
+                merged = self._merge_quantized(facs, wire_error, 0 if step is None else int(step))
+            if tel.enabled:
+                publish_wire_quant_error(merged[1])
+            return merged
         return self.allreduce(facs)

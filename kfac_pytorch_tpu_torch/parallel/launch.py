@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from kfac_pytorch_tpu_torch.device import DeviceLike, resolve_device
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 
 
 def initialize(
@@ -95,9 +96,11 @@ def _comm_device() -> torch.device:
 
 
 def barrier() -> None:
-    """Block until every process arrives."""
+    """Block until every process arrives; the ``comm/barrier`` span is the
+    wait for the slowest process."""
     if size() > 1:
-        dist.barrier()
+        with get_telemetry().span("comm/barrier"):
+            dist.barrier()
 
 
 def host_min(value: int) -> int:
@@ -105,9 +108,10 @@ def host_min(value: int) -> int:
     every rank must make the same way."""
     if size() == 1:
         return int(value)
-    t = torch.tensor([int(value)], dtype=torch.int64, device=_comm_device())
-    dist.all_reduce(t, op=dist.ReduceOp.MIN)
-    return int(t.item())
+    with get_telemetry().span("comm/host_min"):
+        t = torch.tensor([int(value)], dtype=torch.int64, device=_comm_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return int(t.item())
 
 
 def broadcast_host_value(value, root: int = 0):
@@ -115,8 +119,9 @@ def broadcast_host_value(value, root: int = 0):
     process, as the reference broadcasts the resume epoch."""
     if size() == 1:
         return value
-    arr = np.asarray(value)
-    t = torch.from_numpy(np.ascontiguousarray(arr)).to(_comm_device())
-    dist.broadcast(t, src=root)
-    out = t.cpu().numpy()
+    with get_telemetry().span("comm/broadcast"):
+        arr = np.asarray(value)
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(_comm_device())
+        dist.broadcast(t, src=root)
+        out = t.cpu().numpy()
     return out.item() if arr.ndim == 0 else out

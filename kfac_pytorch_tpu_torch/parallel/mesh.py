@@ -58,7 +58,7 @@ more subgroups come with it:
   tensor slot): the parameter gather of ``parallel/fsdp.py`` and a
   checkpoint's gather of the parameter slices.
 
-``split_service_mesh`` waits for ROADMAP queue 1 item 9b.
+``split_service_mesh`` waits for ROADMAP queue 1 item 9d.
 
 Which rows of the global batch a rank holds: the global batch of a step is
 the concatenation of the data slots' batches in slot order (on a world

@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 from kfac_pytorch_tpu_torch.ops.eigh import eigh_with_floor, get_block_boundary
 from kfac_pytorch_tpu_torch.ops.rsvd import batched_randomized_eigh, residual_rho
 from kfac_pytorch_tpu_torch.ops.streaming import fold_rho, fold_side
@@ -170,9 +171,11 @@ def _solve(
     truncated slot's ``rho`` comes from the reassembled ``d`` and the
     replicated factor, on every rank."""
     results: Dict[int, SlotResult] = {}
+    tel = get_telemetry()
     for n, rank, idxs in _groups(slots, rank_fn):
         if world is None or world.size == 1:
-            q, d = _decompose(factors, slots, idxs, rank, eps)
+            with tel.span("trace/eigh/compute"):
+                q, d = _decompose(factors, slots, idxs, rank, eps)
         else:
             first = factors[slots[idxs[0]].name][slots[idxs[0]].factor]
             mine = _owner_tables(slots, idxs, world.size)[world.rank]
@@ -180,13 +183,15 @@ def _solve(
             q = first.new_zeros((len(idxs), n, cols), dtype=q_dtype)
             d = first.new_zeros((len(idxs), cols))
             if mine:
-                q_m, d_m = _decompose(factors, slots, [idxs[r] for r in mine], rank, eps)
+                with tel.span("trace/eigh/compute"):
+                    q_m, d_m = _decompose(factors, slots, [idxs[r] for r in mine], rank, eps)
                 rows = torch.tensor(mine, device=q.device)
                 q[rows] = q_m.to(q_dtype)
                 d[rows] = d_m
                 del q_m, d_m
-            world.all_reduce_sum_(q)
-            world.all_reduce_sum_(d)
+            with tel.span("trace/eigh/exchange"):
+                world.all_reduce_sum_(q)
+                world.all_reduce_sum_(d)
         for row, i in enumerate(idxs):
             if rank is None:
                 results[i] = (q[row], d[row])
@@ -408,12 +413,13 @@ def owner_eigen_update(
     ``{"n<size>": {"Q", "d"[, "rho"]}}``, this rank's rows (pad rows
     zero). No collective."""
     out = {}
-    for n in plan.group_sizes:
-        r = rank_fn(n) if rank_fn is not None else None
-        stack = factor_shard[f"n{n}"]
-        entry = owner_eigen_entry_init(plan, n, r, eigen_dtype, stack.device)
-        _solve_rows_into(entry, stack, _valid_rows(plan, n, rank), n, r, eps, eigen_dtype)
-        out[f"n{n}"] = entry
+    with get_telemetry().span("trace/eigh/compute"):
+        for n in plan.group_sizes:
+            r = rank_fn(n) if rank_fn is not None else None
+            stack = factor_shard[f"n{n}"]
+            entry = owner_eigen_entry_init(plan, n, r, eigen_dtype, stack.device)
+            _solve_rows_into(entry, stack, _valid_rows(plan, n, rank), n, r, eps, eigen_dtype)
+            out[f"n{n}"] = entry
     return out
 
 
@@ -436,11 +442,12 @@ def owner_eigen_chunk_update(
     for n, row in jobs:
         by_group.setdefault(n, []).append(row)
     out = {k: dict(v) for k, v in pending_shard.items()}
-    for n in sorted(by_group):
-        r = rank_fn(n) if rank_fn is not None else None
-        valid = set(_valid_rows(plan, n, rank))
-        rows = sorted(row for row in by_group[n] if row in valid)
-        _solve_rows_into(out[f"n{n}"], factor_shard[f"n{n}"], rows, n, r, eps, eigen_dtype)
+    with get_telemetry().span("trace/eigh/compute"):
+        for n in sorted(by_group):
+            r = rank_fn(n) if rank_fn is not None else None
+            valid = set(_valid_rows(plan, n, rank))
+            rows = sorted(row for row in by_group[n] if row in valid)
+            _solve_rows_into(out[f"n{n}"], factor_shard[f"n{n}"], rows, n, r, eps, eigen_dtype)
     return out
 
 

@@ -95,7 +95,7 @@ eigh on every rank, outside the round-robin and truncated-solver tables,
 and their solve a batched product chain outside kernel 3's shape groups,
 its KL-clip partials after the fused kernel's. The levers that reshape a
 refresh or re-home factors refuse them, with the JAX package's messages
-(:data:`SHARD_LENS_RULES`).
+(the shard-lens rows of ``planner.RULES``).
 
 On a data×fsdp×tensor world (``parallel.mesh.data_fsdp_tensor_world``;
 ``process_group`` its data×fsdp subgroup, ``tensor_group`` its tensor
@@ -136,6 +136,7 @@ from kfac_pytorch_tpu_torch.device import (
     use_ieee_f32,
 )
 from kfac_pytorch_tpu_torch.models.layers import KFACConv, KFACEmbed
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 from kfac_pytorch_tpu_torch.ops import apply_kernels as apply_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factor_kernels as factor_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factors as factor_ops
@@ -151,6 +152,7 @@ from kfac_pytorch_tpu_torch.parallel.assignment import (
 )
 from kfac_pytorch_tpu_torch.parallel.comm import FactorComm, resolve_factor_comm_dtype, tree_leaves
 from kfac_pytorch_tpu_torch.parallel.mesh import WIRE_DTYPES, World, data_parallel_world
+from kfac_pytorch_tpu_torch.planner.profiles import Plan, PlanEnv, constructor_refusals
 from kfac_pytorch_tpu_torch.parallel.sharded_eigh import (
     build_slots,
     owner_eigen_chunk_update,
@@ -198,113 +200,39 @@ def _validate(name: str, ok: bool, value) -> None:
         raise ValueError(f"Invalid {name}: {value}")
 
 
-# The JAX planner's refusals of the levers that ride one data axis, on a
-# world with a seq axis (planner/profiles.py rules of the same names)
-SEQ_AXIS_RULES = (
-    ("owner_vs_multi_axis_mesh",
-     lambda o: o["factor_sharding"] == "owner",
-     "factor_sharding='owner' requires a single data axis to shard across "
-     "(extra axes are allowed only under the replicated-compute tensor* "
-     "convention)"),
-    ("comm_vs_multi_axis_mesh",
-     lambda o: (resolve_factor_comm_dtype(o["factor_comm_dtype"]) != torch.float32
-                or o["factor_comm_freq"] > 1),
-     "factor_comm_dtype/factor_comm_freq ride the explicit single-data-axis "
-     "collective wrapper (training/step.py require_pure_dp_mesh); a mesh "
-     "with a second non-tensor axis cannot use them"),
-    ("overlap_vs_multi_axis_mesh",
-     lambda o: o["comm_overlap"],
-     "comm_overlap=True fuses factor reductions into the gradient pmean "
-     "inside the explicit single-data-axis wrapper (training/step.py "
-     "require_pure_dp_mesh); a mesh with a second non-tensor axis cannot "
-     "use it"),
-)
-
-
-def seq_axis_violations(world_size: int, seq_parallel: int, **levers) -> list:
-    """``[(rule, message)]`` of the levers ``factor_sharding``,
-    ``factor_comm_dtype``, ``factor_comm_freq`` and ``comm_overlap`` that a
-    world of ``world_size`` ranks with a seq axis of ``seq_parallel`` slots
-    refuses (none without a seq axis, or on one rank)."""
-    if world_size <= 1 or seq_parallel <= 1:
-        return []
-    return [(name, msg) for name, applies, msg in SEQ_AXIS_RULES if applies(levers)]
-
-
-# The JAX planner's refusals of the levers that have nothing coherent to do
-# with shard-lens layers (their blocks refresh densely in-step and sit where
-# their kernel shard is; planner/profiles.py rules of the same names); a
-# message's "{kind}" names what the model carries
-_OWNER_PIN = (
-    "{kind} pin each factor block to the device holding the matching "
-    "kernel shard (shardwise.factor_leaf_spec); factor_sharding='owner' "
-    "would re-home those blocks onto LPT owners and gather them back every "
-    "step — pick one placement scheme"
-)
-SHARD_LENS_RULES = (
-    ("shard_lens_vs_inverse",
-     lambda o: o["shard"] and o["precond_method"] == "inverse",
-     "{kind} precondition per shard block in the eigenbasis "
-     "(shardwise.precondition); precond_method='inverse' keeps whole-factor "
-     "Cholesky inverses with no per-block layout — use the eigen method"),
-    ("shard_lens_vs_owner_sharding",
-     lambda o: o["has_shard_lens"] and o["factor_sharding"] == "owner",
-     _OWNER_PIN),
-    ("moe_vs_owner_sharding",
-     lambda o: o["has_moe"] and not o["has_shard_lens"] and o["factor_sharding"] == "owner",
-     _OWNER_PIN),
-    ("shard_lens_vs_chunks",
-     lambda o: o["shard"] and o["eigh_chunks"] > 1,
-     "{kind} refresh densely per block — there is no whole-factor eigh "
-     "spike for eigh_chunks > 1 to spread, and the chunk planner's slot "
-     "tables do not describe stacked factors"),
-    ("shard_lens_vs_streaming",
-     lambda o: o["shard"] and o["solver"] == "streaming",
-     "{kind} keep dense per-block bases; solver='streaming' folds factors "
-     "through retained truncated bases that the stacked layout does not "
-     "carry — non-shard layers may ride solver='rsvd' instead"),
-    ("shard_lens_vs_diag_blocks",
-     lambda o: o["shard"] and o["diag_blocks"] != 1,
-     "{kind} already block their factors along shard/expert boundaries; "
-     "diag_blocks > 1 would carve a second, conflicting block structure "
-     "into the same factors"),
-    ("service_vs_shard_lens",
-     lambda o: o["shard"] and o["service_devices"] > 0,
-     "{kind} refresh in-step (cheap dense per-block eigh); service_devices "
-     "> 0 publishes whole-factor snapshots the worker protocol does not lay "
-     "out as stacks — run the service on unsharded models"),
-    ("moe_vs_deferred_comm",
-     lambda o: o["has_moe"] and o["factor_comm_freq"] > 1,
-     "MoE expert banks use the token-count-weighted EMA (shardwise.moe_ema), "
-     "whose per-expert decay alpha**w_e is not linear in the contributions "
-     "— deferred factor communication (factor_comm_freq > 1) merges "
-     "per-replica EMAs by linearity and would silently corrupt expert "
-     "statistics"),
-)
-
-_SHARD_LEVER_DEFAULTS = dict(precond_method="eigen", factor_sharding="replicated",
-                             eigh_chunks=1, solver="eigh", diag_blocks=1,
-                             service_devices=0, factor_comm_freq=1)
-
-
-def shard_lens_violations(has_shard_lens: bool, has_moe: bool, **levers) -> list:
-    """``[(rule, message)]`` of the levers (``precond_method``,
-    ``factor_sharding``, ``eigh_chunks``, ``solver``, ``diag_blocks``,
-    ``service_devices``, ``factor_comm_freq``; the defaults for those not
-    given) that a model with column/row shard-lens layers
-    (``has_shard_lens``) or MoE banks (``has_moe``) refuses."""
-    o = {**_SHARD_LEVER_DEFAULTS, **levers, "has_shard_lens": has_shard_lens,
-         "has_moe": has_moe, "shard": has_shard_lens or has_moe}
-    kind = "shard-lens layers" if has_shard_lens else "MoE expert banks"
-    return [(name, msg.format(kind=kind)) for name, applies, msg in SHARD_LENS_RULES
-            if applies(o)]
-
-
 def _not_ported(lever: str, item: str) -> None:
     raise NotImplementedError(
         f"{lever} is not ported to kfac_pytorch_tpu_torch yet (ROADMAP "
         f"queue 1 item {item})"
     )
+
+
+# the planner's names of the factor wire dtypes
+_WIRE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+
+
+def lever_env(processes: int, data_world: int, seq_parallel: int = 1,
+              tensor_axis: bool = False, **kw) -> PlanEnv:
+    """The :class:`PlanEnv` of K-FAC planes that span ``data_world`` of
+    ``processes`` ranks. Its axis names stand for the JAX mesh's: none on
+    one process, ``("data", "seq")`` with a seq axis, ``("data", "fsdp",
+    "tensor")`` with the genuine tensor axis of a data×fsdp×tensor world,
+    ``("data", "tensor")`` when the planes span a data subgroup (the
+    replicated-compute data×tensor world), else ``("data",)``.
+    ``data_world`` excludes the tensor axis, as the JAX rule excludes
+    ``tensor*`` axes. ``KFAC`` builds its env here from its world, and the
+    LM twin's command-line check from its flags."""
+    if processes <= 1:
+        return PlanEnv(**kw)
+    if seq_parallel > 1:
+        axes = ("data", "seq")
+    elif tensor_axis:
+        axes = ("data", "fsdp", "tensor")
+    elif processes > data_world:
+        axes = ("data", "tensor")
+    else:
+        axes = ("data",)
+    return PlanEnv(world=processes, data_world=data_world, mesh_axes=axes, **kw)
 
 
 class KFAC:
@@ -317,7 +245,10 @@ class KFAC:
     seq axis of a data×seq world, ``parallel.mesh.data_seq_world``: the
     refresh still shards over all its ranks, as the JAX package's does
     over a data×seq mesh, and the levers that ride one data axis are
-    refused, :data:`SEQ_AXIS_RULES`). ``lr`` is validated for
+    refused). Every lever-composition refusal is a constructor row of the
+    planner's table (``planner.RULES``, :meth:`_refuse`); ``profile=`` and
+    ``profile_shapes=`` resolve a planner profile or ``Plan`` into the
+    levers left at their defaults. ``lr`` is validated for
     API parity only: the KL clip always uses the per-step
     ``update(lr=...)``.
     """
@@ -402,6 +333,13 @@ class KFAC:
             precond_comm_dtype is None or precond_comm_dtype in WIRE_DTYPES,
             precond_comm_dtype,
         )
+        if precond_method == "inverse" and diag_blocks != 1:
+            raise ValueError(
+                "diag_blocks > 1 (and its diag_warmup schedule) is a feature "
+                "of the eigenbasis path; precond_method='inverse' inverts "
+                "whole factors and would silently ignore the configured "
+                "block-diagonal approximation"
+            )
         world = data_parallel_world(process_group)
         if tensor_group is not None and dist.get_world_size(tensor_group) > 1:
             # the genuine tensor axis of a data×fsdp×tensor world
@@ -414,117 +352,118 @@ class KFAC:
             isinstance(seq_parallel, int) and 0 < seq_parallel and world.size % seq_parallel == 0,
             seq_parallel,
         )
-        bad = seq_axis_violations(
-            world.size, seq_parallel, factor_sharding=factor_sharding,
-            factor_comm_dtype=factor_comm_dtype, factor_comm_freq=factor_comm_freq,
-            comm_overlap=comm_overlap,
-        )
-        if bad:
-            name, msg = bad[0]
-            raise ValueError(f"{msg} (planner rule {name})")
         self.seq_parallel = seq_parallel
+        self.precond_method = precond_method
         # the shard-lens registry: an explicit layer list names them here,
-        # else init() discovers them and checks the same rules
-        self._shard_levers = dict(
-            precond_method=precond_method, factor_sharding=factor_sharding,
-            eigh_chunks=eigh_chunks, solver=solver, diag_blocks=diag_blocks,
-            service_devices=service_devices, factor_comm_freq=factor_comm_freq,
-        )
+        # else init() discovers them and refuses through the same table
         self._register_shard_layers(layers or [])
-        # Where the factor running averages and eigenbases live: on every
-        # rank ("replicated") or only on each layer's precondition owner
-        # ("owner", DP-KFAC); the caller's request, before a world of one
-        # degrades it, decides the refusals below
-        self.requested_factor_sharding = factor_sharding
-        if factor_sharding == "owner":
-            if precond_method != "eigen":
-                raise ValueError(
-                    "factor_sharding='owner' shards the eigenbasis state; "
-                    "precond_method='inverse' keeps explicit Cholesky "
-                    "inverses that this mode does not lay out — use the "
-                    "eigen method or replicated sharding"
-                )
-            if diag_blocks != 1:
-                raise ValueError(
-                    "factor_sharding='owner' stores one whole-factor slot "
-                    "per (layer, side); diag_blocks > 1 carves factors into "
-                    "blocks with their own owner table — pick one "
-                    "distribution scheme"
-                )
-            if distribute_precondition:
-                raise ValueError(
-                    "factor_sharding='owner' already preconditions each "
-                    "layer on its owner (that is where its eigenbasis "
-                    "lives); distribute_precondition=True would layer a "
-                    "second, different owner table on top — drop it"
-                )
-            if track_diagnostics:
-                raise ValueError(
-                    "factor_sharding='owner' keeps no replicated per-layer "
-                    "spectra for the diagnostics pytree to read — run "
-                    "track_diagnostics with replicated sharding"
-                )
-            if world.size <= 1:
-                # trainers pass the same flags to one-rank runs: nothing to
-                # shard across, so the (same-numerics) replicated layout
-                print(
-                    "WARNING: factor_sharding='owner' has no effect without "
-                    "a multi-device mesh — factor state stays replicated"
-                )
-                factor_sharding = "replicated"
-        self.factor_sharding = factor_sharding
-        self._shard_plans: Dict[Any, Any] = {}
-        # planned bytes of the owner layout (shard_plan_bytes) and the
-        # apply's gather width, set when a plan is built and at each owner
-        # apply; the JAX package's kfac/factor_shard_* and
-        # kfac/precond_allgather_bytes gauges wait for item 9 (9b)
-        self.shard_plan_info: Optional[Dict[str, Any]] = None
-        self.precond_gather_width: Optional[int] = None
-        if service_devices > 0 and factor_sharding == "owner":
-            raise ValueError(
-                "service_devices > 0 publishes full replicated factor "
-                "snapshots and installs full replicated bases; "
-                "factor_sharding='owner' keeps per-owner shards that "
-                "would have to gather through the mailbox every "
-                "boundary — run the service with replicated sharding "
-                "(planner rule service_vs_owner_sharding)"
-            )
-        # Factor comm plane (parallel/comm.py): bucketed means of the
-        # ranks' A/G statistics, an optional bf16 wire, and a deferred
-        # reduction every factor_comm_freq capture steps (flushed before
-        # every eigen read); inert on a world of one.
-        factor_comm_dtype = resolve_factor_comm_dtype(factor_comm_dtype)
+        # planner/ entry point: profile=None is inert (the cost model is not
+        # consulted and every lever keeps the value the caller passed). A
+        # profile name ("production"/"memory"/"safe") or a planner.Plan
+        # resolves against this constructor's world and fills in ONLY the
+        # levers the caller left at their defaults: an explicit lever always
+        # wins over the plan (docs/PLANNER.md).
+        self.plan = None
+        self.plan_dropped: Tuple[str, ...] = ()
+        self.plan_report = None
+        self.plan_env = None
+        levers = {
+            "eigh_chunks": eigh_chunks, "factor_kernel": factor_kernel,
+            "apply_kernel": apply_kernel,
+            "factor_comm_dtype": _WIRE_NAMES[resolve_factor_comm_dtype(factor_comm_dtype)],
+            "factor_comm_freq": factor_comm_freq, "solver": solver,
+            "solver_rank": solver_rank, "solver_auto_threshold": solver_auto_threshold,
+            "factor_sharding": factor_sharding, "comm_overlap": comm_overlap,
+            "staleness_budget": staleness_budget,
+            "stream_drift_threshold": stream_drift_threshold,
+            "service_devices": service_devices,
+        }
+        self._lever_env = lever_env(
+            dist.get_world_size() if world.distributed else 1, world.size, seq_parallel,
+            world.tensor_size > 1, precond_method=precond_method, diag_blocks=diag_blocks,
+            distribute_precondition=distribute_precondition,
+            track_diagnostics=track_diagnostics, fac_update_freq=fac_update_freq,
+            kfac_update_freq=kfac_update_freq, service_devices=int(service_devices),
+            has_shard_lens_layers=self.has_shard_lens, has_moe_layers=self.has_moe,
+        )
+        if profile is not None:
+            levers = self._resolve_profile(profile, profile_shapes, levers, device, layers)
+        eigh_chunks = levers["eigh_chunks"]
+        factor_kernel = levers["factor_kernel"]
+        apply_kernel = levers["apply_kernel"]
+        factor_comm_freq = levers["factor_comm_freq"]
+        solver = levers["solver"]
+        solver_rank = levers["solver_rank"]
+        solver_auto_threshold = levers["solver_auto_threshold"]
+        factor_sharding = levers["factor_sharding"]
+        comm_overlap = levers["comm_overlap"]
+        staleness_budget = levers["staleness_budget"]
+        stream_drift_threshold = levers["stream_drift_threshold"]
+        service_devices = levers["service_devices"]
+        factor_comm_dtype = resolve_factor_comm_dtype(levers["factor_comm_dtype"])
         _validate(
             "factor_comm_freq",
             isinstance(factor_comm_freq, int) and 0 < factor_comm_freq,
             factor_comm_freq,
         )
-        if factor_comm_dtype == torch.int8 and factor_comm_freq <= 1:
-            # the residuals live in the state on the deferred path; the
-            # per-step exchange has no slot to carry them in
-            raise ValueError(
-                "factor_comm_dtype='int8' quantizes the deferred factor "
-                "flush with error-feedback accumulators carried in "
-                "state; factor_comm_freq=1 exchanges contributions every "
-                "capture step with no residual slot to carry — set "
-                "factor_comm_freq > 1 or widen the wire to bf16 "
-                "(planner rule int8_wire_requires_deferral)"
+        _validate("comm_overlap", isinstance(comm_overlap, bool), comm_overlap)
+        _validate("solver_rank", isinstance(solver_rank, int) and 0 < solver_rank, solver_rank)
+        _validate(
+            "solver_auto_threshold",
+            isinstance(solver_auto_threshold, int) and 0 < solver_auto_threshold,
+            solver_auto_threshold,
+        )
+        _validate(
+            "stream_drift_threshold",
+            isinstance(stream_drift_threshold, (int, float))
+            and 0.0 <= float(stream_drift_threshold),
+            stream_drift_threshold,
+        )
+        _validate(
+            "staleness_budget",
+            isinstance(staleness_budget, int) and staleness_budget >= 0,
+            staleness_budget,
+        )
+        _validate("eigen_dtype", eigen_dtype in EIGEN_DTYPES, eigen_dtype)
+        # The lever-composition refusals: exactly the constructor rows of the
+        # planner's table (planner/profiles.py RULES), each with the JAX
+        # constructor's message; the caller's levers, before a world of one
+        # degrades them
+        self._lever_plan = Plan(**levers)
+        self._refuse()
+        if service_devices != 0:
+            _not_ported("service_devices (curvature service)", "9d")
+        if diag_blocks != 1:
+            print(
+                "WARNING: the block-diagonal factor approximation "
+                "(diag_blocks > 1) trades accuracy for parallelism — expect "
+                "degraded convergence on some models"
             )
-        if factor_comm_dtype == torch.int8 and self.requested_factor_sharding == "owner":
-            raise ValueError(
-                "factor_comm_dtype='int8' rides the replicated deferred "
-                "flush (codes + block scales over all_gather); "
-                "factor_sharding='owner' exchanges through psum_scatter, "
-                "which would have to widen the codes on-wire — use the "
-                "bf16 wire with owner sharding (planner rule "
-                "int8_wire_vs_owner_sharding)"
+        # Where the factor running averages and eigenbases live: on every
+        # rank ("replicated") or only on each layer's precondition owner
+        # ("owner", DP-KFAC); a world of one runs the replicated layout
+        self.requested_factor_sharding = factor_sharding
+        if factor_sharding == "owner" and world.size <= 1:
+            # trainers pass the same flags to one-rank runs: nothing to
+            # shard across, so the (same-numerics) replicated layout
+            print(
+                "WARNING: factor_sharding='owner' has no effect without "
+                "a multi-device mesh — factor state stays replicated"
             )
+            factor_sharding = "replicated"
+        self.factor_sharding = factor_sharding
+        self._shard_plans: Dict[Any, Any] = {}
+        # planned bytes of the owner layout (shard_plan_bytes) and the
+        # apply's gather width, set when a plan is built (the
+        # kfac/factor_shard_* gauges) and at each owner apply
+        # (kfac/precond_allgather_bytes)
+        self.shard_plan_info: Optional[Dict[str, Any]] = None
+        self.precond_gather_width: Optional[int] = None
         # Overlap plane: the capture step's factor bucket means issued
         # before the gradient mean, in reverse bucket order and
         # asynchronously (bitwise the serial values), and on chunk-only
         # steps the precondition ahead of the chunk, whose decomposition
         # runs on a side CUDA stream
-        _validate("comm_overlap", isinstance(comm_overlap, bool), comm_overlap)
         if comm_overlap and world.size <= 1:
             print(
                 "WARNING: comm_overlap=True has no effect without a "
@@ -532,116 +471,6 @@ class KFAC:
             )
             comm_overlap = False
         self.comm_overlap = bool(comm_overlap)
-        # Pipelined refresh: the eigen refresh split into this many chunks
-        # over the steps after each kfac_update_freq boundary, accumulated
-        # in state["eigen_pending"] and swapped in once every chunk has
-        # landed (scheduler.EigenRefreshCadence drives it); 1 = the
-        # monolithic refresh, bitwise.
-        if eigh_chunks > 1 and precond_method == "inverse":
-            raise ValueError(
-                "eigh_chunks > 1 pipelines the eigendecomposition refresh; "
-                "precond_method='inverse' refreshes via one batched Cholesky "
-                "~30x cheaper than the eigh it replaces — there is no spike "
-                "to spread, so refusing a config that implies one"
-            )
-        # Curvature solver: "eigh" (the full eigendecomposition), "rsvd"
-        # (factor sides n ≥ solver_auto_threshold keep their top
-        # solver_rank eigenpairs plus a residual-trace diagonal, from the
-        # randomized solve of ops/rsvd.py, preconditioned by the Woodbury
-        # solves of ops/precondition.py) or "streaming" (the rsvd layout,
-        # its periodic refresh replaced by a per-capture-step fold through
-        # the kept bases, ops/streaming.py, and a re-orthonormalization
-        # when the drift gauge crosses stream_drift_threshold). A side
-        # below the threshold, or with solver_rank ≥ n, stays dense.
-        _validate("solver_rank", isinstance(solver_rank, int) and 0 < solver_rank, solver_rank)
-        _validate(
-            "solver_auto_threshold",
-            isinstance(solver_auto_threshold, int) and 0 < solver_auto_threshold,
-            solver_auto_threshold,
-        )
-        if solver != "eigh" and precond_method == "inverse":
-            raise ValueError(
-                f"solver={solver!r} produces a truncated eigenbasis consumed "
-                "by the eigenbasis (Woodbury) apply path; precond_method="
-                "'inverse' preconditions with explicit Cholesky inverses and "
-                "would silently ignore the configured solver"
-            )
-        if solver != "eigh" and diag_blocks != 1:
-            raise ValueError(
-                f"solver={solver!r} stores one (Q_r, d_r, rho) triple per "
-                "whole factor; diag_blocks > 1 carves factors into diagonal "
-                "blocks whose truncated bases cannot share that layout — "
-                "pick one approximation"
-            )
-        if solver == "streaming" and eigh_chunks > 1:
-            raise ValueError(
-                "solver='streaming' replaces the periodic refresh with a "
-                "per-step fold — there is no recurring eigh spike left for "
-                "eigh_chunks > 1 to spread, and the chunk plan's double "
-                "buffer would shadow the streamed tables (planner rule "
-                "streaming_vs_chunks)"
-            )
-        if solver == "streaming" and staleness_budget > 0:
-            raise ValueError(
-                "solver='streaming' has no pending eigen swap to slip — "
-                "re-orthonormalizations land in place on drift boundaries — "
-                "so a staleness_budget would silently mean nothing on the "
-                "eigen side (planner rule streaming_vs_swap_slip); leave "
-                "staleness_budget=0"
-            )
-        _validate(
-            "stream_drift_threshold",
-            isinstance(stream_drift_threshold, (int, float))
-            and 0.0 <= float(stream_drift_threshold),
-            stream_drift_threshold,
-        )
-        # Bounded staleness: a deferred factor flush or a pending eigen swap
-        # may slip by up to this many steps under measured pressure (the
-        # cadence reads staleness_signal). It needs something that can
-        # slip; of the JAX package's three (a deferred factor flush, a
-        # pipelined swap, a service install) the port carries the first two.
-        _validate(
-            "staleness_budget",
-            isinstance(staleness_budget, int) and staleness_budget >= 0,
-            staleness_budget,
-        )
-        if staleness_budget > 0 and not (
-            factor_comm_freq > 1 or eigh_chunks > 1 or service_devices > 0
-        ):
-            raise ValueError(
-                "staleness_budget > 0 bounds how far a deferred factor "
-                "flush, a pending eigen swap, or a service basis install "
-                "may slip, and this configuration has none of them: enable "
-                "factor_comm_freq > 1 (deferred reduction), eigh_chunks > 1 "
-                "(pipelined refresh), or service_devices > 0 (curvature "
-                "service), or leave staleness_budget=0"
-            )
-        _validate("eigen_dtype", eigen_dtype in EIGEN_DTYPES, eigen_dtype)
-        if service_devices != 0:
-            _not_ported("service_devices (curvature service)", "9")
-        if profile is not None or profile_shapes is not None:
-            _not_ported("profile= (planner)", "9")
-        if diag_blocks != 1:
-            print(
-                "WARNING: the block-diagonal factor approximation "
-                "(diag_blocks > 1) trades accuracy for parallelism — expect "
-                "degraded convergence on some models"
-            )
-        if precond_method == "inverse" and diag_blocks != 1:
-            raise ValueError(
-                "diag_blocks > 1 (and its diag_warmup schedule) is a feature "
-                "of the eigenbasis path; precond_method='inverse' inverts "
-                "whole factors and would silently ignore the configured "
-                "block-diagonal approximation"
-            )
-        if precond_method == "inverse" and apply_kernel == "kernel":
-            raise ValueError(
-                "apply_kernel='kernel' launches the fused eigenbasis apply; "
-                "precond_method='inverse' preconditions with explicit "
-                "Cholesky inverses, which that kernel does not compute — use "
-                "apply_kernel='auto' or 'dense'"
-            )
-
         self.device = resolve_device(device)
         use_ieee_f32()
         self.world: World = world
@@ -729,8 +558,8 @@ class KFAC:
         )
 
     def _register_shard_layers(self, names) -> None:
-        """Register ``names``' shard-lens layers (:attr:`shard_layers`) and
-        raise the first :data:`SHARD_LENS_RULES` refusal they meet."""
+        """Register ``names``' shard-lens layers (:attr:`shard_layers`,
+        :attr:`has_shard_lens`, :attr:`has_moe`)."""
         names = list(names)
         self.shard_layers = shardwise.shard_entries(names)
         # the column/row layers whose blocks a genuine tensor axis splits
@@ -746,10 +575,57 @@ class KFAC:
                     f"split over a {tp}-slot tensor axis")
         self.has_shard_lens = shardwise.has_shard_lens(names)
         self.has_moe = shardwise.has_moe(names)
-        bad = shard_lens_violations(self.has_shard_lens, self.has_moe, **self._shard_levers)
+
+    def _refuse(self) -> None:
+        """Raise the first constructor refusal of the planner's table
+        (``planner.constructor_refusals``) that the caller's levers meet
+        in this preconditioner's environment, with its message."""
+        bad = constructor_refusals(self._lever_plan, self._lever_env)
         if bad:
-            name, msg = bad[0]
-            raise ValueError(f"{msg} (planner rule {name})")
+            raise ValueError(bad[0].refusal_text(self._lever_plan, self._lever_env))
+
+    def _resolve_profile(self, profile, profile_shapes, levers: Dict[str, Any],
+                         device: DeviceLike, layers: Optional[list]) -> Dict[str, Any]:
+        """``levers`` with the ones at their defaults filled from
+        ``profile`` (a name or a ``planner.Plan``), resolved against this
+        preconditioner's world and ``profile_shapes`` (a
+        ``planner.ModelFacts``, a ``{layer: (g_side, a_side)}`` dict or the
+        live ``nn.Module``, its K-FAC layers ``layers``); sets :attr:`plan`, :attr:`plan_dropped`,
+        :attr:`plan_report` and :attr:`plan_env` and publishes the plan's
+        gauges (``planner.log_plan``)."""
+        from kfac_pytorch_tpu_torch import planner
+
+        facts = profile_shapes
+        if isinstance(facts, nn.Module):
+            facts = planner.model_facts(facts, layers=layers)
+        elif facts is not None and not isinstance(facts, planner.ModelFacts):
+            facts = planner.ModelFacts(
+                shapes={k: (int(g), int(a)) for k, (g, a) in dict(facts).items()})
+        env = dataclasses.replace(
+            self._lever_env,
+            has_diag_a_layers=facts.has_diag_a if facts is not None else False,
+            has_conv_layers=facts.has_conv if facts is not None else True,
+            on_cuda=resolve_device(device).type == "cuda",
+        )
+        if isinstance(profile, planner.Plan):
+            # an explicit plan must be valid as given; the degrade rules
+            # then normalize it (owner sharding on one rank → replicated)
+            planner.check_plan(profile, env)
+            plan, dropped = planner.fit_plan(profile, env)
+            report = None
+        else:
+            plan, report, dropped = planner.resolve_profile(profile, facts, env)
+        defaults = planner.Plan()
+        levers = dict(levers)
+        for field, value in plan.kfac_kwargs().items():
+            if levers[field] == getattr(defaults, field):
+                levers[field] = value
+        self.plan = plan
+        self.plan_dropped = tuple(dropped)
+        self.plan_report = report
+        self.plan_env = env
+        planner.log_plan(plan, dropped)
+        return levers
 
     # ------------------------------------------------------------------
     # Solver policy
@@ -808,9 +684,12 @@ class KFAC:
             plan = self._shard_plans[key] = plan_factor_shards(
                 shapes, self.world.size, self.factor_comm.max_bucket_elems, diag_a=set(diag_a)
             )
-            self.shard_plan_info = shard_plan_bytes(
+            self.shard_plan_info = info = shard_plan_bytes(
                 plan, rank_fn=self._rank_fn(), eigen_itemsize=self.eigen_dtype.itemsize
             )
+            tel = get_telemetry()
+            tel.set_gauge("kfac/factor_shard_bytes_local", info["total_buffer_local"])
+            tel.set_gauge("kfac/factor_shard_owner_count", info["owner_count"])
             self.precond_gather_width = precond_ops._owner_gather_layout(
                 shapes, plan.owners, plan.world, self._rank_fn(), set(diag_a))[2]
         return plan
@@ -1018,6 +897,10 @@ class KFAC:
         if names is None:
             names = capture.discover_layers(model)
             self._register_shard_layers(names)
+            self._lever_env = dataclasses.replace(
+                self._lever_env, has_shard_lens_layers=self.has_shard_lens,
+                has_moe_layers=self.has_moe)
+            self._refuse()
         modules: Dict[str, nn.Module] = {}
         for name in names:
             base = capture.layer_base(name)
@@ -1225,8 +1108,13 @@ class KFAC:
         (``FactorComm.start_exchange``).
 
         Under ``factor_sharding="owner"`` the same flags drive
-        :meth:`_update_owner`."""
+        :meth:`_update_owner`.
+
+        The ``trace/kfac/*`` spans (the JAX package's names) time each
+        phase's host dispatch, with no sync: the port runs eagerly, where
+        the JAX package's spans time the phase's tracing once a compile."""
         self._join_side_stream()
+        tel = get_telemetry()
         if lr is None:
             raise ValueError(
                 "KFAC.update() requires lr= (the KL clip scales with the "
@@ -1303,34 +1191,35 @@ class KFAC:
                     f"no captured statistics for layers {missing}; build the "
                     "Capture with the same layer list as KFAC"
                 )
-            if self.factor_comm.multi_device and not exchanged:
-                # the global batch's statistics: each rank's contributions
-                # are over its own batch, so their mean over the ranks is
-                # the JAX package's global-batch A and G (deferred: this
-                # rank's own, until the flush)
-                a_contribs, g_factor_stats = self.factor_comm.exchange_contribs(
-                    {n: a_contribs[n] for n in names}, {n: g_factor_stats[n] for n in names}
-                )
-            # elementwise EMA: the same update serves A matrices, the
-            # embeddings' A_diag vectors and the column/row shard stacks; an
-            # MoE bank's is token-count-weighted (shardwise.ema_update)
-            old_facs, facs = facs, {}
-            for name in names:
-                se = self.shard_layers.get(name)
-                if se is not None:
-                    facs[name] = shardwise.ema_update(
-                        se[1], old_facs[name], a_contribs[name], g_factor_stats[name],
-                        self.factor_decay)
-                    continue
-                a_key = "A_diag" if "A_diag" in old_facs[name] else "A"
-                facs[name] = {
-                    a_key: factor_ops.update_running_avg(
-                        a_contribs[name], old_facs[name][a_key], self.factor_decay
-                    ),
-                    "G": factor_ops.update_running_avg(
-                        g_factor_stats[name], old_facs[name]["G"], self.factor_decay
-                    ),
-                }
+            with tel.span("trace/kfac/factor_update"):
+                if self.factor_comm.multi_device and not exchanged:
+                    # the global batch's statistics: each rank's contributions
+                    # are over its own batch, so their mean over the ranks is
+                    # the JAX package's global-batch A and G (deferred: this
+                    # rank's own, until the flush)
+                    a_contribs, g_factor_stats = self.factor_comm.exchange_contribs(
+                        {n: a_contribs[n] for n in names}, {n: g_factor_stats[n] for n in names}
+                    )
+                # elementwise EMA: the same update serves A matrices, the
+                # embeddings' A_diag vectors and the column/row shard stacks; an
+                # MoE bank's is token-count-weighted (shardwise.ema_update)
+                old_facs, facs = facs, {}
+                for name in names:
+                    se = self.shard_layers.get(name)
+                    if se is not None:
+                        facs[name] = shardwise.ema_update(
+                            se[1], old_facs[name], a_contribs[name], g_factor_stats[name],
+                            self.factor_decay)
+                        continue
+                    a_key = "A_diag" if "A_diag" in old_facs[name] else "A"
+                    facs[name] = {
+                        a_key: factor_ops.update_running_avg(
+                            a_contribs[name], old_facs[name][a_key], self.factor_decay
+                        ),
+                        "G": factor_ops.update_running_avg(
+                            g_factor_stats[name], old_facs[name]["G"], self.factor_decay
+                        ),
+                    }
         wire_error = state.get("wire_error")
         if flush_factors:
             # the ranks' running averages merged after this step's EMA and
@@ -1354,40 +1243,43 @@ class KFAC:
         # alone, so precondition first and run the chunk on the side stream
         early = None
         if self._precond_early(eigen_chunk, swap_eigen):
-            early = self._precondition_replicated(grads, names, eigen, stacked, lr, damping)
+            with tel.span("trace/kfac/precondition"):
+                early = self._precondition_replicated(grads, names, eigen, stacked, lr, damping)
         if update_eigen and self.precond_method == "inverse":
-            inv = precond_ops.factored_inverse_all(facs, damping, self.eps)
-            # only the matrix inverses take eigen_dtype; an embedding's
-            # iA_diag stays float32, as its eigen-method dA does
-            inv = {
-                n: {k: v if k == "iA_diag" else v.to(self.eigen_dtype) for k, v in e.items()}
-                for n, e in inv.items()
-            }
-            eigen, stacked = precond_ops.split_inv_state(inv)
+            with tel.span("trace/kfac/eigh"):
+                inv = precond_ops.factored_inverse_all(facs, damping, self.eps)
+                # only the matrix inverses take eigen_dtype; an embedding's
+                # iA_diag stays float32, as its eigen-method dA does
+                inv = {
+                    n: {k: v if k == "iA_diag" else v.to(self.eigen_dtype) for k, v in e.items()}
+                    for n, e in inv.items()
+                }
+                eigen, stacked = precond_ops.split_inv_state(inv)
         elif update_eigen:
-            diag_blocks = self.diag_blocks if diag_warmup_done else 1
-            # the shard-lens layers refresh apart, below
-            norm_names = [n for n in names if n not in self.shard_layers]
-            norm_facs = {n: facs[n] for n in norm_names}
-            # eigh runs in float32; Q is written in eigen_dtype
-            if self.world.size > 1:
-                eigen = sharded_eigen_update(
-                    norm_facs, self._eigh_table(grads, norm_names, diag_blocks), self.world,
-                    self.eps, self.eigen_dtype, rank_fn=self._rank_fn(),
+            with tel.span("trace/kfac/eigh"):
+                diag_blocks = self.diag_blocks if diag_warmup_done else 1
+                # the shard-lens layers refresh apart, below
+                norm_names = [n for n in names if n not in self.shard_layers]
+                norm_facs = {n: facs[n] for n in norm_names}
+                # eigh runs in float32; Q is written in eigen_dtype
+                if self.world.size > 1:
+                    eigen = sharded_eigen_update(
+                        norm_facs, self._eigh_table(grads, norm_names, diag_blocks), self.world,
+                        self.eps, self.eigen_dtype, rank_fn=self._rank_fn(),
+                    )
+                else:
+                    # blocks split conv factors only (a conv weight is OIHW)
+                    blocks = {n: diag_blocks if self._is_conv(grads, n) else 1 for n in norm_names}
+                    eigen = replicated_eigen_update(
+                        norm_facs, blocks, self.eps, self.eigen_dtype, rank_fn=self._rank_fn()
+                    )
+                # shard-lens layers: a dense batched eigh per stack on every rank
+                # (shardwise.eigen_refresh), no assignment table, no collective
+                for n, (_, form, _) in self.shard_layers.items():
+                    eigen[n] = shardwise.eigen_refresh(form, facs[n])
+                eigen, stacked, spectrum_mass, fresh_spectra = self._install(
+                    facs, eigen, names, spectrum_mass, self.solver != "eigh"
                 )
-            else:
-                # blocks split conv factors only (a conv weight is OIHW)
-                blocks = {n: diag_blocks if self._is_conv(grads, n) else 1 for n in norm_names}
-                eigen = replicated_eigen_update(
-                    norm_facs, blocks, self.eps, self.eigen_dtype, rank_fn=self._rank_fn()
-                )
-            # shard-lens layers: a dense batched eigh per stack on every rank
-            # (shardwise.eigen_refresh), no assignment table, no collective
-            for n, (_, form, _) in self.shard_layers.items():
-                eigen[n] = shardwise.eigen_refresh(form, facs[n])
-            eigen, stacked, spectrum_mass, fresh_spectra = self._install(
-                facs, eigen, names, spectrum_mass, self.solver != "eigh"
-            )
         elif eigen_chunk is not None:
             # one chunk of the refresh plan, on the current factors, into
             # the pending buffer; the plan is LPT over the slots the
@@ -1421,7 +1313,9 @@ class KFAC:
                     run = lambda p: replicated_eigen_chunk_update(  # noqa: E731
                         facs, p, chunk_slots, self.eps, rank_fn=self._rank_fn()
                     )
-                pending = self._on_side_stream(early is not None, (facs, pending), run, pending)
+                with tel.span("trace/kfac/eigh"):
+                    pending = self._on_side_stream(early is not None, (facs, pending), run,
+                                                   pending)
             if swap_eigen:
                 eigen, stacked, spectrum_mass, fresh_spectra = self._install(
                     facs, pending, names, spectrum_mass, self.solver == "rsvd"
@@ -1443,14 +1337,16 @@ class KFAC:
                 stream_residual = torch.clamp(1.0 - spectrum_mass, min=0.0)
                 stream_fold_steps = torch.zeros_like(stream_fold_steps)
             elif update_factors and (not self.factor_comm.defer or flush_factors):
-                eigen, stacked, stream_residual = streaming_ops.fold_replicated(
-                    facs, eigen, stacked, self.eps
-                )
+                with tel.span("trace/kfac/stream_fold"):
+                    eigen, stacked, stream_residual = streaming_ops.fold_replicated(
+                        facs, eigen, stacked, self.eps
+                    )
                 stream_fold_steps = stream_fold_steps + 1
 
-        new_grads, gmats, updates, nu = early or self._precondition_replicated(
-            grads, names, eigen, stacked, lr, damping
-        )
+        if early is None:
+            with tel.span("trace/kfac/precondition"):
+                early = self._precondition_replicated(grads, names, eigen, stacked, lr, damping)
+        new_grads, gmats, updates, nu = early
         new_state = {
             "step": state["step"] + 1,
             "factors": facs,
@@ -1559,6 +1455,7 @@ class KFAC:
         lgrads = capture.layer_grads(grads, names, diag_a)
         gmats = {n: m.float() for n, m in capture.grad_mats(lgrads).items()}
         plan = self._shard_plan({n: tuple(g.shape) for n, g in gmats.items()}, diag_a)
+        tel = get_telemetry()
         alpha = self.factor_decay
         shard = state["factor_shard"]
         local = state.get("factor_local")
@@ -1573,20 +1470,22 @@ class KFAC:
                     f"no captured statistics for layers {missing}; build the "
                     "Capture with the same layer list as KFAC"
                 )
-            if self.factor_comm.defer:
-                local = {
-                    n: {"A": factor_ops.update_running_avg(a_contribs[n], local[n]["A"], alpha),
-                        "G": factor_ops.update_running_avg(g_factor_stats[n], local[n]["G"],
-                                                           alpha)}
-                    for n in names
-                }
-            else:
-                payload = {
-                    n: {"A": (1.0 - alpha) * a_contribs[n].float(),
-                        "G": (1.0 - alpha) * g_factor_stats[n].float()}
-                    for n in names
-                }
-                shard = self.factor_comm.scatter_merge(payload, shard, plan, alpha)
+            with tel.span("trace/kfac/factor_update"):
+                if self.factor_comm.defer:
+                    local = {
+                        n: {"A": factor_ops.update_running_avg(a_contribs[n], local[n]["A"],
+                                                               alpha),
+                            "G": factor_ops.update_running_avg(g_factor_stats[n], local[n]["G"],
+                                                               alpha)}
+                        for n in names
+                    }
+                else:
+                    payload = {
+                        n: {"A": (1.0 - alpha) * a_contribs[n].float(),
+                            "G": (1.0 - alpha) * g_factor_stats[n].float()}
+                        for n in names
+                    }
+                    shard = self.factor_comm.scatter_merge(payload, shard, plan, alpha)
         if flush_factors:
             m = state["factor_sync_age"] + int(update_factors)
             decay = torch.pow(torch.tensor(alpha, dtype=torch.float32, device=self.device),
@@ -1607,13 +1506,14 @@ class KFAC:
             return owner_spectrum_mass(shard, eigen, plan, self.world, rank_fn=rank_fn)
 
         if update_eigen:
-            eigen_shard = {
-                **owner_eigen_update(shard, plan, self.world.rank, self.eps, rank_fn=rank_fn,
-                                     eigen_dtype=self.eigen_dtype),
-                **self._owner_diag_eigen(shard, plan),
-            }
-            if self.solver in ("rsvd", "streaming"):
-                spectrum_mass = mass(eigen_shard)
+            with tel.span("trace/kfac/eigh"):
+                eigen_shard = {
+                    **owner_eigen_update(shard, plan, self.world.rank, self.eps, rank_fn=rank_fn,
+                                         eigen_dtype=self.eigen_dtype),
+                    **self._owner_diag_eigen(shard, plan),
+                }
+                if self.solver in ("rsvd", "streaming"):
+                    spectrum_mass = mass(eigen_shard)
         elif eigen_chunk is not None:
             c, k = eigen_chunk
             jobs = plan_owner_chunks(plan, k, rank_fn=rank_fn)[c]
@@ -1622,13 +1522,14 @@ class KFAC:
                 pending = {key: {f: torch.zeros_like(v) for f, v in e.items()}
                            for key, e in pending.items()}
             if jobs:
-                pending = self._on_side_stream(
-                    new_grads is not None, (shard, pending),
-                    lambda p: owner_eigen_chunk_update(
-                        shard, p, jobs, plan, self.world.rank, self.eps, rank_fn=rank_fn,
-                        eigen_dtype=self.eigen_dtype),
-                    pending,
-                )
+                with tel.span("trace/kfac/eigh"):
+                    pending = self._on_side_stream(
+                        new_grads is not None, (shard, pending),
+                        lambda p: owner_eigen_chunk_update(
+                            shard, p, jobs, plan, self.world.rank, self.eps, rank_fn=rank_fn,
+                            eigen_dtype=self.eigen_dtype),
+                        pending,
+                    )
             if swap_eigen:
                 eigen_shard = {**pending, **self._owner_diag_eigen(shard, plan)}
                 if self.solver == "rsvd":
@@ -1645,9 +1546,10 @@ class KFAC:
                 stream_residual = torch.clamp(1.0 - spectrum_mass, min=0.0)
                 stream_fold_steps = torch.zeros_like(stream_fold_steps)
             elif update_factors and (not self.factor_comm.defer or flush_factors):
-                eigen_shard, stream_residual = owner_stream_fold(
-                    shard, eigen_shard, plan, self.world, self.eps, rank_fn=rank_fn
-                )
+                with tel.span("trace/kfac/stream_fold"):
+                    eigen_shard, stream_residual = owner_stream_fold(
+                        shard, eigen_shard, plan, self.world, self.eps, rank_fn=rank_fn
+                    )
                 stream_fold_steps = stream_fold_steps + 1
 
         if new_grads is None:
@@ -1686,12 +1588,13 @@ class KFAC:
 
     def _precondition_owner(self, grads, gmats, eigen_shard, lr, damping, plan, diag_a):
         """The owner mode's precondition + KL clip (:meth:`_update_owner`)."""
-        updates = precond_ops.precondition_all_owner(
-            gmats, eigen_shard, damping, self.precond_precision, world=self.world, plan=plan,
-            rank_fn=self._rank_fn(), eigen_dtype=self.eigen_dtype, kind=self.apply_kernel,
-        )
-        nu = precond_ops.kl_clip_coefficient(updates, gmats, lr, self.hparams.kl_clip)
-        return capture.write_back(grads, updates, nu, set(diag_a))
+        with get_telemetry().span("trace/kfac/precondition"):
+            updates = precond_ops.precondition_all_owner(
+                gmats, eigen_shard, damping, self.precond_precision, world=self.world, plan=plan,
+                rank_fn=self._rank_fn(), eigen_dtype=self.eigen_dtype, kind=self.apply_kernel,
+            )
+            nu = precond_ops.kl_clip_coefficient(updates, gmats, lr, self.hparams.kl_clip)
+            return capture.write_back(grads, updates, nu, set(diag_a))
 
     def start_exchange(self, state: KFACState, a_contribs, g_factor_stats):
         """Overlap mechanism (a): a capture step's factor bucket means

@@ -7,18 +7,24 @@ host-side ``KFACHParams``. ``EigenRefreshCadence``: the per-step refresh
 flags of the pipelined refresh, the staleness slip, the streaming solver
 and the deferred factor flush, reading the same live ``KFACHParams``.
 
-The JAX cadence also sets telemetry gauges and writes trace events
-(ROADMAP queue 1 item 9b, ``observability/``). The port keeps the counters
-they read as the cadence's attributes, with no sink: ``_reorth_count``,
-``_swap_slip``, ``_flush_slip``, ``_since_flush`` (capture steps since the
-last deferred flush) and ``basis_age`` (steps since the last refresh or
-swap).
+Both publish the JAX package's telemetry: the scheduler the live
+hyperparameters (``kfac/damping``, ``kfac/fac_update_freq``,
+``kfac/kfac_update_freq``), the cadence every step its chunk phase, basis
+age, solver, overlap mode, staleness and streaming gauges, and its slips,
+catch-ups, forced flushes and re-orthonormalizations as flight-recorder
+events (``observability/trace.py``). The gauges read the cadence's
+counters: ``_reorth_count``, ``_swap_slip``, ``_flush_slip``,
+``_since_flush`` (capture steps since the last deferred flush) and
+``basis_age`` (steps since the last refresh or swap). The curvature
+service's gauges wait for ROADMAP queue 1 item 9d.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
+from kfac_pytorch_tpu_torch.observability.trace import get_trace
 from kfac_pytorch_tpu_torch.preconditioner import KFAC, KFACHParams
 
 #: Comm/compute pressure above which a ``staleness_budget > 0`` cadence
@@ -92,6 +98,13 @@ class KFACParamScheduler:
         factor = self.update_freq_factor_func(self.epoch)
         params.fac_update_freq = max(1, int(self.fac_update_freq_base * factor))
         params.kfac_update_freq = max(1, int(self.kfac_update_freq_base * factor))
+
+        # the live hyperparameters, so an exported snapshot shows which
+        # schedule point produced it
+        tel = get_telemetry()
+        tel.set_gauge("kfac/damping", params.damping)
+        tel.set_gauge("kfac/fac_update_freq", params.fac_update_freq)
+        tel.set_gauge("kfac/kfac_update_freq", params.kfac_update_freq)
 
 
 class EigenRefreshCadence:
@@ -200,7 +213,7 @@ class EigenRefreshCadence:
 
     def note_basis_installed(self, version: int, step: int, slip: int = 0) -> None:
         """Record a curvature-service basis install (the service is ROADMAP
-        queue 1 item 9b): it is that mode's refresh event."""
+        queue 1 item 9d): it is that mode's refresh event."""
         self._basis_version = int(version)
         self._basis_installed_step = int(step)
         self._basis_slip = int(slip)
@@ -212,7 +225,8 @@ class EigenRefreshCadence:
         return 0.0 if signal is None else float(signal())
 
     def flags_for_step(self, step: int, epoch: Optional[int] = None) -> dict:
-        """The ``KFAC.update`` flags of ``step``."""
+        """The ``KFAC.update`` flags of ``step`` (and the cadence's gauges
+        and events)."""
         if self.kfac is None:
             return {"update_factors": False, "update_eigen": False}
         hp = self.kfac.hparams
@@ -245,6 +259,13 @@ class EigenRefreshCadence:
                     self._bootstrapped = True
                     self._last_refresh_step = step
                     self._reorth_count += 1
+                    get_trace().event(
+                        "cadence_reorth_fired", step=int(step), residual=self._stream_signal
+                    )
+                else:
+                    get_trace().event(
+                        "cadence_reorth_skipped", step=int(step), residual=self._stream_signal
+                    )
         elif k_eff == 1:
             flags["update_eigen"] = boundary
             if boundary:
@@ -277,6 +298,7 @@ class EigenRefreshCadence:
                     swap = False
                     self._swap_pending = True
                     self._swap_slip = 1
+                    get_trace().event("cadence_swap_slipped", step=int(step), slip=1)
                 flags["eigen_chunk"] = (offset, k_eff)
                 flags["swap_eigen"] = swap
                 if swap:
@@ -284,17 +306,54 @@ class EigenRefreshCadence:
             elif self._swap_pending:
                 if slipping and self._swap_slip < swap_allowance:
                     self._swap_slip += 1
+                    get_trace().event(
+                        "cadence_swap_slipped", step=int(step), slip=int(self._swap_slip)
+                    )
                 else:
                     # the slipped swap lands as a bare promote
                     flags["swap_eigen"] = True
                     self._swap_pending = False
+                    get_trace().event(
+                        "cadence_swap_catchup", step=int(step), slip=int(self._swap_slip)
+                    )
                     self._swap_slip = 0
                     self._last_refresh_step = step
         comm = getattr(self.kfac, "factor_comm", None)
         if comm is not None and comm.defer:
             self._flush_flag(flags, step, chunk, boundary, streaming, budget, slipping, comm)
         self.basis_age = 0 if self._last_refresh_step is None else step - self._last_refresh_step
+        self._publish(k_eff, chunk, streaming, comm)
         return flags
+
+    def _publish(self, k_eff, chunk, streaming, comm) -> None:
+        """The JAX cadence's per-step gauges."""
+        tel = get_telemetry()
+        if not tel.enabled:
+            return
+        tel.set_gauge("kfac/eigh_chunks", k_eff)
+        tel.set_gauge("kfac/eigen_chunk_phase", -1 if chunk is None else chunk)
+        tel.set_gauge("kfac/eigen_basis_age_steps", self.basis_age)
+        # the solver (static per run, emitted with the cadence gauges so
+        # refresh-latency series segment by solver)
+        tel.set_gauge(
+            "kfac/solver",
+            {"rsvd": 1, "streaming": 2}.get(getattr(self.kfac, "solver", "eigh"), 0),
+        )
+        tel.set_gauge("kfac/solver_rank", getattr(self.kfac, "solver_rank", 0))
+        # the overlap plane's wire mode (0 serial, 1 fused, 2 ring), capture
+        # steps of statistics waiting unmerged, and the eigen swap's slip
+        tel.set_gauge("kfac/overlap_mode", getattr(comm, "overlap_mode", 0) if comm else 0)
+        tel.set_gauge("kfac/staleness_age_steps", self._since_flush)
+        tel.set_gauge("kfac/eigen_swap_slip", self._swap_slip)
+        if streaming:
+            # the last host-read residual mass (-1 until a wired signal was
+            # consulted), the re-orthonormalizations so far, the basis age
+            tel.set_gauge(
+                "kfac/stream_residual_mass",
+                -1.0 if self._stream_signal is None else self._stream_signal,
+            )
+            tel.set_gauge("kfac/stream_reorth_count", self._reorth_count)
+            tel.set_gauge("kfac/stream_basis_age_steps", self.basis_age)
 
     def _flush_flag(self, flags, step, chunk, boundary, streaming, budget, slipping, comm):
         """The deferred factor flush of ``step`` into ``flags``: forced
@@ -312,11 +371,17 @@ class EigenRefreshCadence:
                     # catch-up on a capture step once the pressure drops or
                     # the budget runs out
                     flush = True
+                    get_trace().event(
+                        "cadence_flush_catchup", step=int(step), slip=int(self._flush_slip)
+                    )
             elif due and slipping:
                 # withhold a due flush under pressure
                 flush = False
                 self._flush_owed = True
                 self._flush_slip = 1
+                get_trace().event("cadence_flush_slipped", step=int(step), slip=1)
+        if forced and flush:
+            get_trace().event("cadence_flush_forced", step=int(step))
         if flush:
             self._flush_owed = False
             self._flush_slip = 0

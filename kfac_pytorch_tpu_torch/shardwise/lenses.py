@@ -189,7 +189,7 @@ def eigen_refresh(form: str, facs: Dict[str, torch.Tensor]) -> Dict[str, torch.T
     the dense decomposition, batched over the stack, in float32. The blocks
     are ``1/T``-sized or per expert, so there is no whole-factor eigh spike
     to chunk, truncate or stream, which is why those levers refuse
-    shard-lens layers (``preconditioner.SHARD_LENS_RULES``)."""
+    shard-lens layers (the shard-lens rows of ``planner.RULES``)."""
     qa_k, da_k, qg_k, dg_k = EIGEN_KEYS[form]
     qa, da = _eigh_floored(facs["A"])
     qg, dg = _eigh_floored(facs["G"])

@@ -34,15 +34,17 @@ class ScalarWriter:
     """JSONL scalar stream, plus TensorBoard events when importable.
 
     ``log_dir=None`` writes nothing. ``close()`` closes both streams.
+    ``filename`` lets a second stream share a run directory and the schema
+    (the telemetry exporter writes ``telemetry.jsonl`` through this class).
     """
 
-    def __init__(self, log_dir: Optional[str]):
+    def __init__(self, log_dir: Optional[str], filename: str = "scalars.jsonl"):
         self._tb = None
         self._fh = None
         if not log_dir:
             return
         os.makedirs(log_dir, exist_ok=True)
-        self._fh = open(os.path.join(log_dir, "scalars.jsonl"), "a")
+        self._fh = open(os.path.join(log_dir, filename), "a")
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:  # no tensorboard package: JSONL only

@@ -298,8 +298,8 @@ def test_kernel_kind_on_cpu_raises():
         ({"solver": "rsvd"}, "7"),
         ({"factor_sharding": "owner"}, "7"),
         ({"comm_overlap": True}, "7"),
-        ({"service_devices": 1}, "9"),
-        ({"profile": "production"}, "9"),
+        ({"service_devices": 1}, "9d"),
+        ({"profile": "production"}, "9b"),
     ],
 )
 def test_levers_of_later_slices_raise(kwargs, item, capsys):
@@ -312,7 +312,14 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
     process, warn and degrade to the replicated, serial plane, as in the JAX
     package on a single device. Item 6b's
     ``factor_comm_dtype`` is accepted and, on one process, warns that it
-    changes nothing, as in the JAX package without a mesh."""
+    changes nothing, as in the JAX package without a mesh. Item 9b's
+    ``profile=`` resolves a plan: on one CPU process "production" engages
+    nothing without shapes, as in the JAX package."""
+    if "profile" in kwargs:
+        kfac = KFAC(device="cpu", **kwargs)
+        assert kfac.plan is not None and kfac.plan.non_default_levers() == ()
+        assert kfac.plan_env.world == 1 and not kfac.plan_env.on_cuda
+        return
     if "factor_sharding" in kwargs or "comm_overlap" in kwargs:
         kfac = KFAC(device="cpu", **kwargs)
         assert kfac.world.size == 1 and "has no effect" in capsys.readouterr().out

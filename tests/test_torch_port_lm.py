@@ -294,7 +294,7 @@ def test_lm_trainer_runs_on_cpu(kfac_freq):
     (["--seq-parallel", "2"], "item 8"),
     (["--factor-sharding", "owner"], "item 7"),
     (["--factor-comm-dtype", "bf16"], "item 6"),
-    (["--service-devices", "1"], "item 9"),
+    (["--service-devices", "1"], "item 9d"),
     (["--tensor-parallel", "2"], "item 8b"),
     (["--fsdp", "1"], "item 8c"),
     (["--fsdp", "1", "--seq-parallel", "2"], "does not compose with --seq-parallel"),

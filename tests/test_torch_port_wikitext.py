@@ -249,13 +249,16 @@ def test_wikitext_trainer_reads_data_and_resumes_bitwise(tmp_path, capsys):
 @pytest.mark.parametrize("argv,item", [
     (["--factor-sharding", "owner"], "item 7"),
     (["--factor-comm-dtype", "bf16"], "item 6"),
-    (["--preempt-save-dir", "d"], "item 9"),
-    (["--profile", "safe"], "item 9"),
+    (["--preempt-save-dir", "d"], "item 9c"),
+    (["--profile", "safe"], "item 9b"),
 ])
 def test_wikitext_trainer_refuses_flags_of_later_slices(argv, item):
     """Each flag was refused naming its ROADMAP item until that item was
-    ported; item 6b's factor comm flags and item 7b's ``--factor-sharding``
-    now parse onto their arguments."""
+    ported; item 6b's factor comm flags, item 7b's ``--factor-sharding``
+    and item 9b's ``--profile`` now parse onto their arguments."""
+    if argv[0] == "--profile":
+        assert trainer.parse_args(argv).profile == argv[1]
+        return
     if argv[0] == "--factor-comm-dtype":
         assert trainer.parse_args(argv).factor_comm_dtype == argv[1]
         return

@@ -1,8 +1,8 @@
 """Rank bodies of ``tests/test_torch_port_distributed.py``,
 ``tests/test_torch_port_comm.py``, ``tests/test_torch_port_owner.py``,
 ``tests/test_torch_port_lens.py``, ``tests/test_torch_port_context.py``,
-``tests/test_torch_port_moe.py`` and ``tests/test_torch_port_fsdp.py`` (not
-a test file).
+``tests/test_torch_port_moe.py``, ``tests/test_torch_port_fsdp.py`` and
+``tests/test_torch_port_observability.py`` (not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
 (or :func:`start`, then :func:`join`, so that the test process works
@@ -1262,6 +1262,25 @@ def part(handle, key):
     return [torch.load(p, weights_only=False) for p in paths]
 
 
+def telemetry(rank, world, cases):
+    """The rank-aware summary, once per case of ``cases``: rank ``r``
+    observes ``case[r]`` (``{span: [seconds]}``; ragged counts, and the
+    ranks' span names may differ) into a registry of its own; every rank
+    gathers the reservoirs and builds the summary table."""
+    from kfac_pytorch_tpu_torch.observability import Telemetry, export
+
+    out = []
+    for samples in cases:
+        tel = Telemetry(enabled=True)
+        for name, values in samples[rank].items():
+            for v in values:
+                tel.observe(name, v)
+        merged = export._allgather_span_samples(tel.hists)
+        out.append({"table": export.summary_table(tel),
+                    "merged": {n: v.tolist() for n, v in merged.items()}})
+    return out
+
+
 TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
          "owner": owner, "lens": lens, "context": context, "shardwise": shardwise, "fsdp": fsdp,
-         "multi": multi}
+         "multi": multi, "telemetry": telemetry}
