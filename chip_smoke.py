@@ -426,11 +426,43 @@ no result line):
        ``--telemetry-dir`` (6 steps, ``--kfac-update-freq 4``): the
        rank-aware summary table counts each span's samples of both ranks,
        and the wire-bytes drift of the live factor comm plane;
-28. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+28. the elastic runtime (slice 19), on a written CIFAR-format set, with
+    deterministic cuDNN, each path with the counters zeroed just before it
+    and its launches held to what the steps that ran imply (a resumed run
+    counts only its own):
+    a. ResNet-32 through the CIFAR twin (``ELASTIC_CIFAR_FLAGS``: 2 epochs
+       of 8 steps, ``--kfac-update-freq 4 --eigh-chunks 3``,
+       ``--snapshot-every 4``): uninterrupted; in a subprocess killed by
+       ``KFAC_FAULT_KILL_AT_STEP=6 KFAC_FAULT_KILL_MODE=exit`` (rc 75, the
+       newest complete snapshot ``snap-4``, its launches read just before
+       the kill) and rerun: resumed at step 4, every later loss bitwise the
+       uninterrupted run's; killed in signal mode at step 6 (the emergency
+       ``snap-6``, chunks 0 and 1 landed) and resumed bitwise across the
+       epoch boundary at 8; the snapshots' blocking and write medians, the
+       restores, the payload's bytes and the capture step's median; then
+       the WikiText LSTM at small widths (dropout 0.5), killed in signal
+       mode mid-epoch at step 4 and resumed bitwise;
+    b. the LM at phase 8's widths, 12 steps, ``--snapshot-every 5``: killed
+       in signal mode at step 7 and resumed bitwise; the payload's bytes,
+       the blocking and total snapshot times, the restore, and the overhead
+       ratio ``snapshot_duration_ms / (10 × step_ms)``;
+    c. two ranks of the one card over gloo, the CIFAR twin with
+       ``--factor-sharding owner --factor-comm-freq 3 --kfac-update-freq
+       4``: killed in signal mode at step 6 (``factor_sync_age`` 1,
+       ``packed_world`` 2) and resumed on two fresh ranks, each rank's
+       losses and every tensor of the state at step 12 bitwise the
+       uninterrupted ranks'; on one process (the owner mode runs
+       replicated) the same snapshot through the 2 -> 1 resize replan
+       (``kfac/replan_count`` 1; every factor and basis carried bitwise
+       from its slots' rows, the unflushed accumulators dropped) and on
+       through the refresh at step 8 to step 12, its parameters within
+       ``ELASTIC_RESIZE_TOL`` of the replicated continuation of the state
+       the resize resumed;
+29. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
     row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
     LSTM and 3-D rows beside the others, the two-rank launches of kernels
-    1, 3 and 4, and every kernel's launches on phase 21's to 27's paths,
+    1, 3 and 4, and every kernel's launches on phase 21's to 28's paths,
     per rank on the multi-rank ones), then the last line ``{"ok": true,
     "device": {...}}``.
 """
@@ -1714,12 +1746,13 @@ def write_cifar_set(root, per_batch=CIFAR_PER_BATCH, n_test=CIFAR_TEST, seed=0):
     return root
 
 
-def cifar_args(data_dir, extra=()):
+def cifar_args(data_dir, extra=(), flags=CIFAR_FLAGS):
     """The CIFAR path with data, its batches from the native loader
-    (``padcrop``) on ``LOADER_WORKERS`` threads, the JAX trainer's default."""
+    (``padcrop``) on ``LOADER_WORKERS`` threads, the JAX trainer's default;
+    ``flags`` the path's diagnostics and BatchNorm recalibration."""
     return ["--data-dir", data_dir, "--model", MODEL, "--batch-size", str(BATCH),
             "--steps-per-epoch", str(CIFAR_STEPS), "--seed", "0", "--device", "cuda",
-            "--num-workers", str(LOADER_WORKERS), *CIFAR_FLAGS, *extra]
+            "--num-workers", str(LOADER_WORKERS), *flags, *extra]
 
 
 def zero_counts(counters):
@@ -5628,6 +5661,507 @@ def telemetry_ranks_phase(device):
             "factor_collectives": ranks[0]["gauges"]["kfac/factor_collectives"]}
 
 
+# The elastic runtime (phase 28): ResNet-32 through the CIFAR twin on the
+# written CIFAR-format set, 2 epochs of 8 steps, refreshes every 4 steps
+# pipelined over 3 chunks, a snapshot every 4 steps; killed at step 6.
+ELASTIC_CIFAR_FLAGS = ["--epochs", "2", "--steps-per-epoch", "8", "--kfac-update-freq", "4",
+                       "--eigh-chunks", "3"]
+ELASTIC_CIFAR_EVERY = 4
+ELASTIC_CIFAR_KILL = 6
+# the LM at phase 8's widths, 12 steps (refreshes at 0 and 10), a snapshot
+# every 5 steps, killed at step 7; the overhead ratio at one snapshot per
+# ELASTIC_OVERHEAD_N steps
+ELASTIC_LM_FLAGS = ["--epochs", "1", "--steps-per-epoch", "12"]
+ELASTIC_LM_EVERY = 5
+ELASTIC_LM_KILL = 7
+ELASTIC_OVERHEAD_N = 10
+# the WikiText LSTM at small widths (200, the recipe's dropout 0.5), 2
+# epochs of 6 steps, killed mid-epoch at step 4
+ELASTIC_LSTM_FLAGS = ["--emsize", "200", "--nhid", "200", "--epochs", "2", "--steps-per-epoch",
+                      "6", "--kfac-update-freq", "4"]
+ELASTIC_LSTM_KILL = 4
+# two ranks: owner-sharded ResNet-32 with the deferred flush every 3
+# capture steps, refreshes every 4, 12 steps; killed at step 6 (step 5 is
+# a capture after the step-4 flush: factor_sync_age 1), resumed on two
+# ranks and, through the 2 -> 1 resize, on one process, whose parameters
+# at step 12 must be within ELASTIC_RESIZE_TOL of the replicated
+# continuation of the state the resize resumed
+ELASTIC_RANK_FLAGS = [*SHORT_CADENCE, "--epochs", "1", "--steps-per-epoch", "12"]
+ELASTIC_OWNER_FLAGS = ["--factor-sharding", "owner", "--factor-comm-freq", "3"]
+ELASTIC_RANK_STEPS = 12
+ELASTIC_RANK_KILL = 6
+ELASTIC_RESIZE_TOL = 1e-6
+ELASTIC_COUNTED = ("compute_a_conv_fused", "fused_precondition_stack", "fused_sgd_apply")
+
+
+@contextlib.contextmanager
+def fault_env(at=None, mode="signal"):
+    """The fault injector's ``KFAC_FAULT_*`` variables for the block (none
+    when ``at`` is None); the SIGTERM handler the twin installs is put back
+    after it."""
+    import os
+    import signal
+
+    keys = ("KFAC_FAULT_KILL_AT_STEP", "KFAC_FAULT_KILL_MODE")
+    old_env = {k: os.environ.pop(k, None) for k in keys}
+    old_handler = signal.getsignal(signal.SIGTERM)
+    if at is not None:
+        os.environ.update({keys[0]: str(at), keys[1]: mode})
+    try:
+        yield
+    finally:
+        for k, v in old_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        signal.signal(signal.SIGTERM, old_handler)
+
+
+def elastic_flags(save_dir, every):
+    return ["--preempt-save-dir", save_dir, "--snapshot-every", str(every)]
+
+
+def latest_step(save_dir):
+    from kfac_pytorch_tpu_torch.elastic import state_io
+
+    found = state_io.latest_snapshot(save_dir)
+    return None if found is None else found[0]
+
+
+def gate_resumed(full, resumed, at, path):
+    """The resumed run's losses are the uninterrupted run's from ``at``,
+    bit for bit, and it restored once."""
+    if resumed["loss"] != full["loss"][at:]:
+        raise AssertionError(f"{path}: the run resumed at step {at} trained {resumed['loss']}, "
+                             f"the uninterrupted run {full['loss'][at:]}")
+    if len(resumed["restore_ms"]) != 1:
+        raise AssertionError(f"{path}: {len(resumed['restore_ms'])} restores")
+
+
+_KILLED_CHILD = """
+import json, sys
+import torch
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+from kfac_pytorch_tpu_torch.elastic import faults
+from kfac_pytorch_tpu_torch.examples import {trainer} as trainer
+from kfac_pytorch_tpu_torch.ops import apply_kernels as ak, factor_kernels as fk
+counters = (fk.compute_a_conv_fused, ak.fused_precondition_stack, ak.fused_sgd_apply)
+fire = faults.FaultInjector.on_step
+def on_step(self, step, supervisor=None):
+    if not self.fired and step >= self.spec.kill_at_step:
+        with open({path!r}, "w") as fh:
+            json.dump({{fn.__name__: fn.launches for fn in counters}}, fh)
+    fire(self, step, supervisor)
+faults.FaultInjector.on_step = on_step
+trainer.main({argv!r})
+"""
+
+
+def killed_child(trainer, argv, at, tmp):
+    """``(exit code, stderr, launches)`` of the twin run in a subprocess
+    with ``KFAC_FAULT_KILL_AT_STEP=at`` in exit mode, the launches of
+    kernels 1, 3 and 4 read just before the kill."""
+    import os
+
+    path = f"{tmp}/killed_launches.json"
+    env = dict(os.environ, KFAC_FAULT_KILL_AT_STEP=str(at), KFAC_FAULT_KILL_MODE="exit")
+    res = subprocess.run(
+        [sys.executable, "-c", _KILLED_CHILD.format(trainer=trainer, argv=list(argv), path=path)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, capture_output=True, text=True,
+        timeout=300)
+    launches = None
+    if os.path.exists(path):
+        with open(path) as fh:
+            launches = json.load(fh)
+    return res.returncode, res.stderr, launches
+
+
+def elastic_times(hist):
+    """The snapshots' blocking and write milliseconds (medians) of a run."""
+    rec = hist["elastic"]
+    return {"snapshots": len(rec["snapshot_ms"]),
+            "blocking_ms_median": statistics.median(rec["snapshot_ms"]),
+            "write_ms_median": statistics.median(rec["write_ms"]),
+            "blocking_ms": rec["snapshot_ms"], "write_ms": rec["write_ms"]}
+
+
+def elastic_cifar_phase(device, counters, data_dir, tmp):
+    """28a (see the module docstring): ResNet-32 through the CIFAR twin."""
+    import os
+
+    from kfac_pytorch_tpu_torch.elastic import state_io
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+
+    base = cifar_args(data_dir, ELASTIC_CIFAR_FLAGS)
+    every, kill = ELASTIC_CIFAR_EVERY, ELASTIC_CIFAR_KILL
+
+    def run(save_dir, at=None):
+        with fault_env(at):
+            hist, launches = counted(
+                lambda: trainer.main([*base, *elastic_flags(f"{tmp}/{save_dir}", every)]),
+                counters)
+        gate_launches(launches, cifar_expected_launches(hist, device), f"28a {save_dir}")
+        return hist, launches
+
+    full, full_launches = run("full")
+    rc, err, killed_launches = killed_child("train_cifar10_resnet",
+                                            [*base, *elastic_flags(f"{tmp}/exit", every)],
+                                            kill, tmp)
+    if rc != 75 or f"hard-killing at step {kill}" not in err:
+        raise AssertionError(f"28a: the exit-mode kill ended with rc {rc}: {err[-2000:]}")
+    if latest_step(f"{tmp}/exit") != every:
+        raise AssertionError(f"28a: newest complete snapshot at {latest_step(f'{tmp}/exit')}, "
+                             f"want {every}")
+    if killed_launches is None:
+        raise AssertionError("28a: the killed run wrote no launch counts")
+    gate_launches(killed_launches, cifar_expected_launches(
+        {"kind": full["kind"][:kill], "loss": full["loss"][:kill]}, device), "28a killed")
+    resumed, resumed_launches = run("exit")
+    gate_resumed(full, resumed, every, "28a exit mode")
+    signalled, _ = run("signal", at=kill)
+    if signalled["loss"] != full["loss"][:kill] or latest_step(f"{tmp}/signal") != kill:
+        raise AssertionError(f"28a: the signal-mode run stopped after {len(signalled['loss'])} "
+                             f"steps, snapshot {latest_step(f'{tmp}/signal')}")
+    manifest = state_io.load_manifest(state_io.snapshot_dir(f"{tmp}/signal", kill))
+    if manifest["cadence"]["landed"] != [0, 1]:
+        raise AssertionError(f"28a: snap-{kill}'s cadence landed {manifest['cadence']['landed']}")
+    resumed6, resumed6_launches = run("signal")
+    gate_resumed(full, resumed6, kill, "28a signal mode")
+    stats = step_stats(full, BATCH)
+    out = {
+        "steps": len(full["loss"]), "killed_exit_at": kill, "resumed_exit_from": every,
+        "killed_signal_at": kill, "resumed_signal_steps": len(resumed6["loss"]),
+        "losses_bitwise": True, "cadence_landed_at_kill": manifest["cadence"]["landed"],
+        **elastic_times(full),
+        "restore_ms": {"exit": resumed["restore_ms"][0], "signal": resumed6["restore_ms"][0]},
+        "emergency_snapshot_ms": signalled["elastic"]["snapshot_ms"][-1],
+        "payload_bytes": os.path.getsize(os.path.join(
+            state_io.snapshot_dir(f"{tmp}/full", 2 * 8), state_io.PAYLOAD_NAME)),
+        "capture_step_ms_median": stats["capture_ms_median"],
+        "launches": {"uninterrupted": full_launches, "killed": killed_launches,
+                     "resumed_exit": resumed_launches, "resumed_signal": resumed6_launches},
+    }
+    print(f"28a ResNet-32: snapshot blocking {out['blocking_ms_median']:.2f} ms (median of "
+          f"{out['snapshots']}), write {out['write_ms_median']:.2f} ms, restore "
+          f"{out['restore_ms']['exit']:.2f} ms, capture step {out['capture_step_ms_median']:.2f} "
+          f"ms, payload {out['payload_bytes']} B", flush=True)
+    return out
+
+
+def elastic_lstm_phase(device, counters, tmp):
+    """28a, the WikiText LSTM: killed mid-epoch at dropout 0.5, resumed
+    bitwise (the dropout generator and the recurrent carry ride the
+    snapshot)."""
+    from kfac_pytorch_tpu_torch.examples import train_wikitext_rnn as trainer
+
+    kill = ELASTIC_LSTM_KILL
+
+    def run(save_dir, at=None):
+        with fault_env(at):
+            hist, launches = counted(lambda: trainer.main(
+                [*WIKITEXT_ARGS, *ELASTIC_LSTM_FLAGS, *elastic_flags(f"{tmp}/{save_dir}", 2)]),
+                counters)
+        gate_launches(launches, wikitext_expected(hist), f"28a LSTM {save_dir}")
+        return hist, launches
+
+    full, full_launches = run("lstm_full")
+    killed, _ = run("lstm", at=kill)
+    if killed["loss"] != full["loss"][:kill] or latest_step(f"{tmp}/lstm") != kill:
+        raise AssertionError(f"28a LSTM: the signal-mode run stopped after "
+                             f"{len(killed['loss'])} steps")
+    resumed, resumed_launches = run("lstm")
+    gate_resumed(full, resumed, kill, "28a LSTM")
+    print(f"28a LSTM: killed at step {kill} of {len(full['loss'])} (mid-epoch, dropout 0.5), "
+          f"resumed bitwise; restore {resumed['restore_ms'][0]:.2f} ms", flush=True)
+    return {"steps": len(full["loss"]), "killed_signal_at": kill, "losses_bitwise": True,
+            **elastic_times(full), "restore_ms": resumed["restore_ms"][0],
+            "launches": {"uninterrupted": full_launches, "resumed": resumed_launches}}
+
+
+def elastic_lm_phase(device, counters, tmp):
+    """28b (see the module docstring): the LM at phase 8's widths."""
+    import os
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.elastic import state_io
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    every, kill = ELASTIC_LM_EVERY, ELASTIC_LM_KILL
+    args = trainer.parse_args(LM_ARGS)
+    model = trainer.build(args, device)[0]
+
+    def run(save_dir, at=None):
+        with fault_env(at):
+            hist, launches = counted(lambda: train_lm(
+                [*ELASTIC_LM_FLAGS, *elastic_flags(f"{tmp}/{save_dir}", every)]), counters)
+        expected = {LM_COUNTERS[k]: n for k, n in lm_expected_launches(hist, model).items()}
+        gate_launches(launches, expected, f"28b {save_dir}")
+        return hist, launches
+
+    full, full_launches = run("lm_full")
+    killed, _ = run("lm", at=kill)
+    if killed["loss"] != full["loss"][:kill] or latest_step(f"{tmp}/lm") != kill:
+        raise AssertionError(f"28b: the signal-mode run stopped after {len(killed['loss'])} steps")
+    resumed, resumed_launches = run("lm")
+    gate_resumed(full, resumed, kill, "28b")
+    del model
+    torch.cuda.empty_cache()
+    stats = step_stats(full, args.batch_size * args.seq_len)
+    times = elastic_times(full)
+    total = [b + w for b, w in zip(full["elastic"]["snapshot_ms"], full["elastic"]["write_ms"])]
+    out = {
+        "steps": len(full["loss"]), "killed_signal_at": kill, "losses_bitwise": True, **times,
+        "total_ms_median": statistics.median(total),
+        "emergency_snapshot_ms": killed["elastic"]["snapshot_ms"][-1],
+        "restore_ms": resumed["restore_ms"][0],
+        "payload_bytes": os.path.getsize(os.path.join(
+            state_io.snapshot_dir(f"{tmp}/lm_full", 2 * every), state_io.PAYLOAD_NAME)),
+        "step_ms_mean": stats["mean_ms"],
+        "overhead_n": ELASTIC_OVERHEAD_N,
+        "overhead_ratio": times["blocking_ms_median"] / (ELASTIC_OVERHEAD_N * stats["mean_ms"]),
+        "launches": {"uninterrupted": full_launches, "resumed": resumed_launches},
+    }
+    print(f"28b LM: payload {out['payload_bytes']} B, snapshot blocking "
+          f"{out['blocking_ms_median']:.2f} ms, total {out['total_ms_median']:.2f} ms, restore "
+          f"{out['restore_ms']:.2f} ms; mean step {out['step_ms_mean']:.2f} ms: overhead at one "
+          f"snapshot per {ELASTIC_OVERHEAD_N} steps {out['overhead_ratio']:.4f}", flush=True)
+    return out
+
+
+def elastic_rank_worker(rank, store, out_path, device_name, runs):
+    """One rank of phase 28c (``torch.multiprocessing`` target): the CIFAR
+    twin runs ``runs`` (``[(name, argv, kill step or None)]``) in order over
+    gloo on ``cuda:0``, deterministic cuDNN; per run the losses, step
+    kinds, snapshot times and restores, and the launches of kernels 1, 3
+    and 4 beside what the run's steps imply (kernel 3 on the shape groups
+    this rank solves)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.parallel import launch
+    from kfac_pytorch_tpu_torch.parallel.mesh import data_parallel_world
+
+    device = launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                               rank=rank, world_size=2)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    counters = (fk.compute_a_conv_fused, ak.fused_precondition_stack, ak.fused_sgd_apply)
+    try:
+        out = {}
+        for name, argv, at in runs:
+            with fault_env(at):
+                hist, launches = counted(lambda: trainer.main(argv), counters)
+            model, kfac, _, _ = trainer.build(trainer.parse_args(argv), device,
+                                               data_parallel_world())
+            expected = conv_expected_launches(hist, model, device)
+            if kfac.owner_sharded:
+                expected["fused_precondition_stack"] = (owner_apply_groups(kfac, rank)
+                                                        * len(hist["loss"]))
+            del model, kfac
+            out[name] = {"losses": hist["loss"], "kinds": hist["kind"],
+                         "elastic": hist.get("elastic"), "restore_ms": hist["restore_ms"],
+                         "launches": launches, "expected_launches": {
+                             k: v for k, v in expected.items() if k in ELASTIC_COUNTED}}
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def payload_tensors(save_dir, step):
+    """``{path: tensor}`` of one snapshot's payload, on the CPU."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.elastic import state_io
+
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{path}/{i}")
+        elif isinstance(tree, torch.Tensor):
+            out[path] = tree
+
+    walk(state_io.load_payload(state_io.snapshot_dir(save_dir, step), "cpu"), "")
+    return out
+
+
+def one_snapshot_dir(src, step, dst):
+    """A directory holding only ``src``'s ``snap-<step>``: what a restart
+    scans when that snapshot is the newest."""
+    import os
+    import shutil
+
+    from kfac_pytorch_tpu_torch.elastic import state_io
+
+    shutil.copytree(state_io.snapshot_dir(src, step),
+                    os.path.join(dst, os.path.basename(state_io.snapshot_dir(src, step))))
+    return dst
+
+
+def resized_state_check(device, argv, snap_parent, step, same_dir):
+    """The 2 -> 1 resize through the library: the owner-form snapshot
+    resumed by a one-process preconditioner that asked for the owner mode
+    (``Supervisor.scan_resume``, the resize replan), every layer's factors
+    and bases bitwise its slots' rows of the snapshot's global stacks by
+    the two-rank plan; the resized state saved again, in replicated form,
+    into ``same_dir`` (what the replicated continuation resumes). Returns
+    the tensors compared."""
+    from kfac_pytorch_tpu_torch import KFAC
+    from kfac_pytorch_tpu_torch.elastic import Supervisor, state_io
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.parallel.assignment import plan_factor_shards
+
+    model, kfac, state, _ = trainer.build(trainer.parse_args(argv), device)
+    cadence = trainer.refresh_cadence(kfac, lambda: state)
+    state, manifest, resumed = Supervisor(snap_parent, kfac=kfac,
+                                          cadence=cadence).scan_resume(state)
+    saved = state_io.load_payload(state_io.snapshot_dir(snap_parent, step), "cpu")["kfac_state"]
+    shapes, diag = kfac.factor_shapes(model)
+    plan = plan_factor_shards(shapes, manifest["world"], kfac.factor_comm.max_bucket_elems,
+                              diag_a=set(diag))
+    kstate = state.kfac_state
+    full = KFAC._eigen_entries_from_split(kstate["eigen"], kstate["eigen_stacked"], shapes)
+    compared = 0
+    for s in plan.slots:
+        r = s.owner * plan.group_rows[s.size] + s.row
+        pairs = [(kstate["factors"][s.name][s.factor], saved["factor_shard"][f"n{s.size}"][r])]
+        pairs += [(full[s.name][f"{field}{s.factor}"], t[r])
+                  for field, t in saved["eigen_shard"][f"n{s.size}"].items()]
+        for got, want in pairs:
+            if not bool((got.cpu() == want).all()):
+                raise AssertionError(f"28c: the resize did not carry {s.name}'s {s.factor} side "
+                                     f"bitwise")
+            compared += 1
+    state_io.save_snapshot(same_dir, resumed, state, kfac=kfac, cadence=cadence)
+    return compared
+
+
+def elastic_ranks_phase(device, counters, data_dir, tmp):
+    """28c (see the module docstring): two ranks of the one card, then one
+    process."""
+    from kfac_pytorch_tpu_torch.elastic import state_io
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+
+    kill, steps = ELASTIC_RANK_KILL, ELASTIC_RANK_STEPS
+    # the owner mode keeps no per-layer spectra for --kfac-diagnostics
+    owner = cifar_args(data_dir, [*ELASTIC_RANK_FLAGS, *ELASTIC_OWNER_FLAGS], flags=())
+    replicated = cifar_args(data_dir, ELASTIC_RANK_FLAGS, flags=())
+    dev = "cuda:0" if device.type == "cuda" else "cpu"
+    first = spawn_ranks(elastic_rank_worker, (dev, [
+        ("full", [*owner, *elastic_flags(f"{tmp}/r_full", kill)], None),
+        ("killed", [*owner, *elastic_flags(f"{tmp}/r_owner", kill)], kill),
+    ]), TWO_RANK_TIMEOUT_S, "elastic")
+    # what one process resumes: the snapshot alone in a directory
+    one_snapshot_dir(f"{tmp}/r_owner", kill, f"{tmp}/w1_owner")
+    second = spawn_ranks(elastic_rank_worker, (dev, [
+        ("resumed", [*owner, *elastic_flags(f"{tmp}/r_owner", kill)], None),
+    ]), TWO_RANK_TIMEOUT_S, "elastic_resume")
+    for rank, (a, b) in enumerate(zip(first, second)):
+        for name, run in (*a.items(), *b.items()):
+            gate_launches(run["launches"], run["expected_launches"], f"28c rank {rank} {name}")
+        if a["killed"]["losses"] != a["full"]["losses"][:kill]:
+            raise AssertionError(f"28c rank {rank}: the killed run's losses differ")
+        gate_resumed({"loss": a["full"]["losses"]},
+                     {"loss": b["resumed"]["losses"], "restore_ms": b["resumed"]["restore_ms"]},
+                     kill, f"28c rank {rank}")
+    manifest = state_io.load_manifest(state_io.snapshot_dir(f"{tmp}/w1_owner", kill))
+    mid = payload_tensors(f"{tmp}/w1_owner", kill)
+    age = int(mid["/kfac_state/factor_sync_age"])
+    if (manifest["sharding"], manifest["world"], manifest.get("packed_world"), age) != (
+            "owner", 2, 2, 1):
+        raise AssertionError(f"28c: snap-{kill} is {manifest['sharding']} on world "
+                             f"{manifest['world']}, packed {manifest.get('packed_world')}, "
+                             f"factor_sync_age {age}")
+    # each rank's own deferred accumulators: the packed rows differ
+    local = [t for k, t in mid.items() if k.startswith("/kfac_state/factor_local/")]
+    if not local or all(t.shape[0] != 2 or bool((t[0] == t[1]).all()) for t in local):
+        raise AssertionError(f"28c: snap-{kill}'s packed factor_local rows are not two ranks' own")
+    # the uninterrupted and the resumed runs' last snapshots: every tensor of
+    # both ranks' state (the packed factor_local rows among them)
+    want, got = (payload_tensors(f"{tmp}/{d}", steps) for d in ("r_full", "r_owner"))
+    if want.keys() != got.keys() or any(not bool((want[k] == got[k]).all()) for k in want):
+        raise AssertionError("28c: the resumed ranks' state at step "
+                             f"{steps} differs from the uninterrupted ranks'")
+
+    # one process, the owner mode asked for (it runs replicated on one
+    # rank): the same snapshot through the 2 -> 1 resize replan, and the
+    # replicated continuation of the state it resumes
+    def one(save_dir, argv, telemetry=False):
+        extra = ["--telemetry-dir", f"{tmp}/{save_dir}_tel"] if telemetry else []
+        hist, launches = counted(lambda: trainer.main(
+            [*argv, *elastic_flags(f"{tmp}/{save_dir}", steps), *extra]), counters)
+        gate_launches(launches, cifar_expected_launches(hist, device), f"28c {save_dir}")
+        if not all(math.isfinite(v) for v in hist["loss"]):
+            raise AssertionError(f"28c {save_dir}: non-finite loss {hist['loss']}")
+        return hist, payload_tensors(f"{tmp}/{save_dir}", steps), launches
+
+    resized, resized_state, resized_launches = one("w1_owner", owner, telemetry=True)
+    replans = resized["telemetry"]["gauges"].get("kfac/replan_count")
+    if replans != 1:
+        raise AssertionError(f"28c: kfac/replan_count reads {replans} after the 2 -> 1 resume")
+    # (the resize again, through the library: its state, saved in replicated
+    # form, is what the replicated continuation resumes)
+    one_snapshot_dir(f"{tmp}/r_owner", kill, f"{tmp}/w1_again")
+    carried = resized_state_check(device, owner, f"{tmp}/w1_again", kill, f"{tmp}/w1_same")
+    same_hist, same, _ = one("w1_same", replicated)
+    keys = [k for k in same if k.startswith("/model/") and same[k].is_floating_point()]
+    diff = max(float((resized_state[k] - same[k]).abs().max()) for k in keys)
+    excess = max(float(((resized_state[k] - same[k]).abs()
+                        - ELASTIC_RESIZE_TOL * same[k].abs()).max()) for k in keys)
+    if excess > ELASTIC_RESIZE_TOL or len(same_hist["loss"]) != steps - kill:
+        raise AssertionError(f"28c: the 2 -> 1 resize from snap-{kill} is {diff:.3e} from "
+                             f"the replicated continuation at step {steps}")
+    times = elastic_times({"elastic": first[0]["full"]["elastic"]})
+    out = {
+        "ranks": 2, "steps": steps, "killed_signal_at": kill, "factor_sync_age_at_kill": age,
+        "packed_world": manifest["packed_world"], "resumed_ranks_bitwise": True,
+        "state_tensors_compared": len(want), "replan_count": replans,
+        "resize_carried_tensors_bitwise": carried, "resize_params_max_abs_diff": diff,
+        "resize_tolerance": ELASTIC_RESIZE_TOL,
+        "rank_snapshot_blocking_ms_median": times["blocking_ms_median"],
+        "rank_snapshot_write_ms_median": times["write_ms_median"],
+        "rank_restore_ms": [b["resumed"]["restore_ms"][0] for b in second],
+        "one_process_restore_ms": resized["restore_ms"][0],
+        "launches_per_rank": {name: [r[name]["launches"] for r in first] for name in first[0]},
+        "resumed_launches_per_rank": [b["resumed"]["launches"] for b in second],
+        "one_process_launches": {"resized": resized_launches},
+    }
+    print(f"28c two ranks: resumed bitwise from snap-{kill} (factor_sync_age {age}, packed "
+          f"world 2); 2 -> 1 resize: kfac/replan_count {replans}, {carried} factor and basis "
+          f"tensors carried bitwise; at step {steps} the parameters are {diff:.3e} from the "
+          f"replicated continuation of the same state", flush=True)
+    return out
+
+
+def elastic_phases(device, counters):
+    """28a-c, on one written CIFAR-format set, with deterministic cuDNN (its
+    default algorithms differ from run to run in the last bits)."""
+    import torch
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_elastic_") as tmp:
+            data_dir = write_cifar_set(f"{tmp}/data")
+            mark("28a. elastic: ResNet-32 and the LSTM, killed and resumed")
+            cifar = elastic_cifar_phase(device, counters, data_dir, tmp)
+            lstm = elastic_lstm_phase(device, counters, tmp)
+            mark("28b. elastic: the LM, killed and resumed")
+            lm = elastic_lm_phase(device, counters, tmp)
+            mark("28c. elastic: two ranks, the 2 -> 1 resize")
+            ranks = elastic_ranks_phase(device, counters, data_dir, tmp)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    return {"resnet32": cifar, "lstm": lstm, "lm": lm, "two_ranks": ranks}
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -6248,8 +6782,31 @@ def main() -> int:
                    (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
         k["launches_on_slice18_paths"] = {"lm_production_autotuned": planned["lm"]["launches"][key]}
 
-    mark("28. results")
-    # 28. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 28a-c. this slice: the elastic runtime, each path with the counters
+    # zeroed just before it
+    elastic = elastic_phases(device, all_counted)
+    print(json.dumps({"elastic": elastic}), flush=True)
+    ranks28 = elastic["two_ranks"]
+    for k, key in ((conv_a, "compute_a_conv_fused"), (resnet_apply, "fused_precondition_stack"),
+                   (resnet_sgd, "fused_sgd_apply")):
+        k["launches_on_slice19_paths"] = {
+            **{f"resnet32_{name}": n[key] for name, n in elastic["resnet32"]["launches"].items()},
+            **{f"resnet32_two_ranks_{name}_per_rank": [r[key] for r in per]
+               for name, per in ranks28["launches_per_rank"].items()},
+            "resnet32_two_ranks_resumed_per_rank": [r[key] for r in
+                                                    ranks28["resumed_launches_per_rank"]],
+            **{f"resnet32_one_process_{name}": n[key]
+               for name, n in ranks28["one_process_launches"].items()}}
+    for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
+                   (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
+                   (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice19_paths"] = {
+            **{f"lm_{name}": n.get(key, 0) for name, n in elastic["lm"]["launches"].items()},
+            **{f"wikitext_lstm_{name}": n.get(key, 0)
+               for name, n in elastic["lstm"]["launches"].items()}}
+
+    mark("29. results")
+    # 29. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

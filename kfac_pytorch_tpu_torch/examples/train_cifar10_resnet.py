@@ -18,6 +18,12 @@ rotations' matmul precision. Every step's K-FAC flags come from
 refresh (``--staleness-budget`` lets its swap slip), ``--solver rsvd`` or
 ``streaming`` (``--solver-rank``, ``--solver-auto-threshold``,
 ``--stream-drift-threshold``) truncates the wide factor sides.
+``--preempt-save-dir`` turns on the elastic runtime (``elastic/``): a
+SIGTERM takes an emergency snapshot and stops, ``--snapshot-every N``
+also snapshots every N steps, a restart resumes from the newest complete
+snapshot at its step (the resumed epoch skips the batches already
+trained, so the data order is kept), and ``KFAC_FAULT_KILL_AT_STEP`` /
+``KFAC_FAULT_KILL_MODE`` inject a kill.
 ``--telemetry-dir`` turns on the telemetry registry (step and phase spans,
 the K-FAC gauges; ``observability/``) and writes ``metrics.prom`` and
 ``telemetry.jsonl`` there each epoch, with a summary table at the end;
@@ -60,7 +66,9 @@ a synchronized step and each ``kfac_*`` metric (the diagnostics with
 ``--kfac-diagnostics``, the truncated solvers' gauges); per epoch the
 validation loss, accuracy and sample count, the milliseconds of the
 full-split evaluation (after any BatchNorm recalibration) and of the
-checkpoint save; the restore milliseconds of a resume.
+checkpoint save; the restore milliseconds of a resume; with
+``--preempt-save-dir`` the snapshots' blocking and write milliseconds
+(``elastic``).
 """
 
 from __future__ import annotations
@@ -78,6 +86,7 @@ from kfac_pytorch_tpu_torch import (
     KFAC,
     KFACParamScheduler,
     capture,
+    elastic,
     interop,
     observability,
     planner,
@@ -119,8 +128,6 @@ DIAG_EXTRA_KEYS = (
 # Flags of the JAX trainer this twin does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--preempt-save-dir", str, None, "9c (elastic/)"),
-    ("--snapshot-every", int, 0, "9c (elastic/)"),
     ("--service-devices", int, 0, "9d (service/)"),
 )
 
@@ -217,6 +224,40 @@ def refresh_cadence(kfac, live_state) -> EigenRefreshCadence:
     if kfac is not None and kfac.solver == "streaming":
         kfac.stream_drift_signal = lambda: float(live_state().kfac_state["stream_residual"])
     return EigenRefreshCadence(kfac)
+
+
+def add_elastic_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX trainers' ``--preempt-save-dir`` and ``--snapshot-every``."""
+    p.add_argument("--preempt-save-dir", default=None,
+                   help="elastic snapshot dir: SIGTERM takes an emergency "
+                        "snapshot and a restart scan-resumes the newest one "
+                        "(docs/ELASTIC.md)")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="elastic: also snapshot every N steps "
+                        "(needs --preempt-save-dir; 0 = emergency-only)")
+
+
+def elastic_supervisor(args, kfac, cadence, steps_per_epoch: int):
+    """The ``--preempt-save-dir`` supervisor (None without the flag), as the
+    JAX trainers build it: snapshots every ``--snapshot-every`` steps,
+    heartbeats as often (else once an epoch), the environment's fault
+    injector (``KFAC_FAULT_*``), the SIGTERM handler installed."""
+    if not args.preempt_save_dir:
+        return None
+    sup = elastic.Supervisor(
+        args.preempt_save_dir, snapshot_every=args.snapshot_every, kfac=kfac, cadence=cadence,
+        heartbeat_every=max(1, args.snapshot_every or steps_per_epoch),
+        fault_injector=elastic.maybe_injector(),
+    )
+    sup.install_signal_handlers()
+    return sup
+
+
+def elastic_record(sup) -> Dict[str, List[float]]:
+    """The history's record of a run's snapshots: the blocking and the
+    write milliseconds of each."""
+    return {"snapshot_ms": list(sup.snapshot_durations_ms),
+            "write_ms": list(sup.write_durations_ms)}
 
 
 def add_telemetry_flags(p: argparse.ArgumentParser) -> None:
@@ -404,6 +445,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-dir", default=None, help="scalars.jsonl (+ TensorBoard) dir")
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint dir (enables save/resume)")
+    add_elastic_flags(p)
     p.add_argument("--model", default="resnet32", help="cifar resnet variant")
     p.add_argument("--batch-size", type=int, default=128, help="per-device train batch size")
     p.add_argument("--batches-per-allreduce", type=int, default=1,
@@ -695,6 +737,18 @@ def main(argv=None) -> Dict[str, List]:
 
     step = state.step
     cadence = refresh_cadence(kfac, lambda: state)
+    sup, resume_skip, preempted = elastic_supervisor(args, kfac, cadence, steps_per_epoch), 0, False
+    if sup is not None:
+        t0 = time.perf_counter()
+        hit = sup.scan_resume(state)
+        if hit is not None:
+            state, _, step = hit
+            history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            # the data order is kept: the resumed epoch skips its first batches
+            resume_from_epoch, resume_skip = divmod(step, steps_per_epoch)
+            if kfac_sched:
+                kfac_sched.epoch = resume_from_epoch
+            rank0_print(f"elastic: resumed from snapshot at step {step}")
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
@@ -717,6 +771,8 @@ def main(argv=None) -> Dict[str, List]:
             for i, (xb, yb) in enumerate(batches):
                 if i >= steps_per_epoch:
                     break
+                if epoch == resume_from_epoch and i < resume_skip:
+                    continue  # a mid-epoch snapshot's resume: i keeps the step's phase
                 lr = lr_base * lr_factor(epoch + i / steps_per_epoch)
                 flags = cadence.flags_for_step(step, epoch)
                 with tel.span("comm/host_to_device"):
@@ -746,6 +802,12 @@ def main(argv=None) -> Dict[str, List]:
                         diag.setdefault(k, []).append(v)
                         history.setdefault(k, []).append(v)
                 step += 1
+                if sup is not None and sup.on_step(step, lambda: state):
+                    preempted = True
+                    break
+        if preempted:
+            rank0_print(f"elastic: preempted; snapshot at step {step} saved")
+            break
         dt = time.perf_counter() - t0
         rank0_print(
             f"epoch {epoch}: loss={loss_m.avg:.4f} acc={acc_m.avg:.4f} lr={lr:.4f} "
@@ -796,6 +858,9 @@ def main(argv=None) -> Dict[str, List]:
             tc = time.perf_counter()
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
             history["checkpoint_ms"].append((time.perf_counter() - tc) * 1e3)
+    if sup is not None:
+        sup.wait()  # join any in-flight background snapshot write
+        history["elastic"] = elastic_record(sup)
     writer.close()
     snapshot = run_tel.close()
     if snapshot is not None:

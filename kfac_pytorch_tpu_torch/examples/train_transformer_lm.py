@@ -17,7 +17,9 @@ K-FAC gating (every step's flags from ``scheduler.EigenRefreshCadence``:
 ``--log-dir`` (the JAX trainer's tags; with ``--kfac-diagnostics`` also
 the per-epoch mean of every ``kfac_*`` diagnostic) and checkpoints with
 auto-resume under ``--checkpoint-dir``, and the CIFAR twin's
-``--telemetry-dir``, ``--profile-epoch``, ``--profile`` and
+``--preempt-save-dir``/``--snapshot-every`` (the elastic runtime; a
+snapshot holds the one-process layout, so it is resumed before the fsdp
+split), ``--telemetry-dir``, ``--profile-epoch``, ``--profile`` and
 ``--autotune-steps``. Every other flag of the JAX
 trainer is accepted with its default and, set to anything else, raises
 ``SystemExit`` naming the ROADMAP item that ports it. ``--log-dir``
@@ -122,11 +124,14 @@ from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.autotune import autotune_kfac
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     RunTelemetry,
+    add_elastic_flags,
     add_factor_comm_flags,
     add_owner_flags,
     add_planner_flags,
     add_refresh_flags,
     add_telemetry_flags,
+    elastic_record,
+    elastic_supervisor,
     factor_comm_kwargs,
     grad_comm_dtype,
     plan_record,
@@ -168,8 +173,6 @@ SYNTHETIC_VOCAB = 1000
 # Flags of the JAX trainer this slice does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--preempt-save-dir", str, None, "9c (elastic/)"),
-    ("--snapshot-every", int, 0, "9c (elastic/)"),
     ("--service-devices", int, 0, "9d (service/)"),
 )
 
@@ -184,6 +187,7 @@ def parse_args(argv=None):
     p.add_argument("--log-dir", default=None, help="scalars.jsonl dir")
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint dir (enables save/resume)")
+    add_elastic_flags(p)
     p.add_argument("--d-model", type=int, default=256)
     p.add_argument("--n-heads", type=int, default=4)
     p.add_argument("--n-layers", type=int, default=2)
@@ -545,6 +549,23 @@ def main(argv=None) -> Dict[str, List]:
             rank0_print(f"resumed from epoch {resume_from_epoch - 1}")
     # every rank starts from rank 0's state (hvd.broadcast_parameters)
     ckpt.broadcast_state(state, world)
+    # [batch, N] contiguous streams (this rank's rows of the global one);
+    # segments of seq_len become samples
+    stream = rank_rows(splits["train"], args, world)
+    max_steps = (stream.shape[1] - 1) // args.seq_len
+    steps_per_epoch = min(args.steps_per_epoch or max_steps, max_steps)
+    step = state.step
+    cadence = refresh_cadence(kfac, lambda: state)
+    sup, resume_skip, preempted = elastic_supervisor(args, kfac, cadence, steps_per_epoch), 0, False
+    if sup is not None:
+        # before the fsdp split: a snapshot holds the one-process layout
+        t0 = time.perf_counter()
+        hit = sup.scan_resume(state)
+        if hit is not None:
+            state, _, step = hit
+            history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            resume_from_epoch, resume_skip = divmod(step, steps_per_epoch)
+            rank0_print(f"elastic: resumed from snapshot at step {step}")
     if state.fsdp is not None:
         # from here each fsdp slot stores its parts of the split parameters
         state.fsdp.shard_(state.opt_state)
@@ -555,16 +576,8 @@ def main(argv=None) -> Dict[str, List]:
             damping_schedule=args.damping_schedule, start_epoch=resume_from_epoch,
         )
     eval_step = make_eval_step(model)
-
-    # [batch, N] contiguous streams (this rank's rows of the global one);
-    # segments of seq_len become samples
-    stream = rank_rows(splits["train"], args, world)
-    max_steps = (stream.shape[1] - 1) // args.seq_len
-    steps_per_epoch = min(args.steps_per_epoch or max_steps, max_steps)
     writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
 
-    step = state.step
-    cadence = refresh_cadence(kfac, lambda: state)
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
@@ -575,6 +588,8 @@ def main(argv=None) -> Dict[str, List]:
             for i, (toks, tgts) in enumerate(rank_segments(stream, args, world)):
                 if i >= steps_per_epoch:
                     break
+                if epoch == resume_from_epoch and i < resume_skip:
+                    continue  # a mid-epoch snapshot's resume: i keeps the step's phase
                 flags = cadence.flags_for_step(step, epoch)
                 with tel.span("comm/host_to_device"):
                     batch = device_batch(toks, tgts, device)
@@ -602,6 +617,12 @@ def main(argv=None) -> Dict[str, List]:
                         diag.setdefault(k, []).append(v)
                         history.setdefault(k, []).append(v)
                 step += 1
+                if sup is not None and sup.on_step(step, lambda: state):
+                    preempted = True
+                    break
+        if preempted:
+            rank0_print(f"elastic: preempted; snapshot at step {step} saved")
+            break
         # the token-count kernel tallies ids outside the vocabulary on the
         # card; read the tally once an epoch, where the host waits anyway
         check_token_ids(device)
@@ -635,6 +656,9 @@ def main(argv=None) -> Dict[str, List]:
         run_tel.end_epoch(epoch)
         if args.checkpoint_dir:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
+    if sup is not None:
+        sup.wait()  # join any in-flight background snapshot write
+        history["elastic"] = elastic_record(sup)
     writer.close()
     snapshot = run_tel.close()
     if snapshot is not None:

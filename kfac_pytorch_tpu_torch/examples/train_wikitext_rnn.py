@@ -12,7 +12,8 @@ through the reduce lens; every step's K-FAC flags from
 ``streaming``), per-epoch validation on the valid split,
 ``scalars.jsonl`` under ``--log-dir`` and checkpoints with auto-resume
 under ``--checkpoint-dir``; ``--profile`` resolves the K-FAC levers left
-at their defaults from a planner profile (``planner/``). ``--tied`` without
+at their defaults from a planner profile (``planner/``); the CIFAR twin's
+``--preempt-save-dir``/``--snapshot-every`` (the elastic runtime). ``--tied`` without
 ``--kfac-embedding`` leaves
 no preconditionable layer and trains with plain SGD, as the JAX trainer
 does. Every other flag of the JAX trainer is accepted with its default
@@ -42,6 +43,12 @@ and validation runs each rank's rows, averaged over the ranks.
 The dropout masks come from a ``torch.Generator`` seeded with ``--seed``
 plus the epoch at each epoch's start, so a resumed epoch draws the masks of
 the uninterrupted run (the JAX trainer's key sequence restarts on resume).
+A mid-epoch elastic snapshot carries the generator's state in its
+manifest's ``extra`` (``dropout_generator``) and each rank's recurrent
+carry in its payload (``aux``); the resumed epoch takes both back and
+skips the batches already trained, so its draws, carry and data are the
+uninterrupted run's (over more than one rank the masks are keyed by the
+step and the rank anyway).
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent. ``main()`` returns the history: per step the loss,
 the step kind (``training.step.step_kind``), the wall milliseconds around
@@ -63,10 +70,13 @@ import torch
 from kfac_pytorch_tpu_torch import KFAC, capture
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
+    add_elastic_flags,
     add_factor_comm_flags,
     add_owner_flags,
     add_planner_flags,
     add_refresh_flags,
+    elastic_record,
+    elastic_supervisor,
     factor_comm_kwargs,
     grad_comm_dtype,
     rank0_print,
@@ -91,8 +101,6 @@ from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, step_kind
 # Flags of the JAX trainer this twin does not carry: (flag, type, default,
 # ROADMAP queue-1 item that ports it). Store-true flags have type None.
 _LATER_FLAGS = (
-    ("--preempt-save-dir", str, None, "9c (elastic/)"),
-    ("--snapshot-every", int, 0, "9c (elastic/)"),
     ("--service-devices", int, 0, "9d (service/)"),
 )
 
@@ -107,6 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-dir", default=None, help="scalars.jsonl dir")
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint dir (enables save/resume)")
+    add_elastic_flags(p)
     p.add_argument("--model", default="LSTM", choices=list(wikitext_rnn.RNN_TYPES))
     p.add_argument("--emsize", type=int, default=650)
     p.add_argument("--nhid", type=int, default=650)
@@ -283,6 +292,15 @@ def main(argv=None) -> Dict[str, List]:
 
     step = state.step
     cadence = refresh_cadence(kfac, lambda: state)
+    sup, resume_skip, preempted = elastic_supervisor(args, kfac, cadence, steps_per_epoch), 0, False
+    if sup is not None:
+        t0 = time.perf_counter()
+        hit = sup.scan_resume(state)
+        if hit is not None:
+            state, manifest, step = hit
+            history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            resume_from_epoch, resume_skip = divmod(step, steps_per_epoch)
+            rank0_print(f"elastic: resumed from snapshot at step {step}")
     for epoch in range(resume_from_epoch, args.epochs):
         lr = args.base_lr
         for e in args.lr_decay:
@@ -290,11 +308,20 @@ def main(argv=None) -> Dict[str, List]:
                 lr *= 0.25  # torch LM convention: anneal lr /4 at plateaus
         generator.manual_seed(args.seed + epoch)
         carry = init_carry(model, local_bs, device)
+        if epoch == resume_from_epoch and resume_skip:
+            # a mid-epoch snapshot's resume: the dropout generator and this
+            # rank's recurrent carry as they were after the snapshot's step
+            generator.set_state(torch.tensor(manifest["extra"]["dropout_generator"],
+                                             dtype=torch.uint8))
+            carry = manifest["aux"]["carry"]
         loss_m = Metric("train/loss")
         t0 = time.perf_counter()
+        n_steps = 0
         for i, (xb, yb) in enumerate(data_lib.bptt_batches(train_stream, args.bptt)):
             if i >= steps_per_epoch:
                 break
+            if epoch == resume_from_epoch and i < resume_skip:
+                continue  # the data order is kept: i keeps the step's phase
             flags = cadence.flags_for_step(step, epoch)
             batch = device_batch(xb, yb, device)
             if device.type == "cuda":
@@ -316,6 +343,17 @@ def main(argv=None) -> Dict[str, List]:
                     history.setdefault(k, []).append(v)
             loss_m.update(values["loss"])
             step += 1
+            n_steps += 1
+            if sup is not None and sup.on_step(
+                step, lambda: state,
+                extra={"dropout_generator": generator.get_state().tolist()},
+                aux=lambda: {"carry": carry},
+            ):
+                preempted = True
+                break
+        if preempted:
+            rank0_print(f"elastic: preempted; snapshot at step {step} saved")
+            break
         if args.kfac_embedding:
             # the token-count kernel tallies ids outside the vocabulary on
             # the card; read the tally once an epoch
@@ -323,7 +361,7 @@ def main(argv=None) -> Dict[str, List]:
         dt = time.perf_counter() - t0
         ppl = math.exp(min(loss_m.avg, 20))
         rank0_print(f"epoch {epoch}: loss={loss_m.avg:.4f} ppl={ppl:.1f} "
-                    f"lr={lr:.2f} ({steps_per_epoch} steps, {dt:.1f}s)")
+                    f"lr={lr:.2f} ({n_steps} steps, {dt:.1f}s)")
         writer.add_scalar("train/loss", loss_m.avg, epoch)
         writer.add_scalar("train/ppl", ppl, epoch)
 
@@ -341,6 +379,9 @@ def main(argv=None) -> Dict[str, List]:
         writer.add_scalar("val/ppl", vppl, epoch)
         if args.checkpoint_dir:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
+    if sup is not None:
+        sup.wait()  # join any in-flight background snapshot write
+        history["elastic"] = elastic_record(sup)
     writer.close()
     return history
 

@@ -950,6 +950,12 @@ class KFAC:
             }
         return facs
 
+    def factor_shapes(self, model: nn.Module) -> Tuple[Dict[str, Tuple[int, int]], set]:
+        """``({layer: (g, a)}, diagonal-A layers)`` of ``model``: the pure
+        inputs of the owner-shard plan, the same on every rank, which is
+        what makes the elastic resize replan deterministic."""
+        return self._owner_shapes(self._identity_factors(model))
+
     def init(self, model: nn.Module) -> KFACState:
         """Identity factors + zero eigen (or inverse) state, same-shape groups
         pre-stacked; the zeroed diagnostics with ``track_diagnostics``, and

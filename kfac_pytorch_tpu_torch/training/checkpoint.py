@@ -182,7 +182,12 @@ def rehome_kfac_state(kfac: Any, kfac_state: Any) -> Any:
     return kfac_state
 
 
-def _payload(state: TrainState, world: World) -> Dict[str, Any]:
+def global_payload(state: TrainState, world: World) -> Dict[str, Any]:
+    """``state`` in the one-process global layout a checkpoint or an
+    elastic snapshot holds: the fsdp parts and the tensor-split parameters
+    and momentum gathered, the K-FAC state through
+    :func:`global_kfac_state`. Every rank of ``world`` must call it (the
+    gathers); the tensors may share storage with the live state."""
     model_sd, opt_state, fsdp = state.model.state_dict(), state.opt_state, state.fsdp
     if fsdp is not None:
         model_sd.update(fsdp.whole_params())
@@ -216,7 +221,7 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, state: TrainState,
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         # the overlap plane's side stream may still write the pending buffer
         torch.cuda.synchronize()
-    payload = _payload(state, world if world is not None else data_parallel_world())
+    payload = global_payload(state, world if world is not None else data_parallel_world())
     if not launch.is_primary():
         return path
     os.makedirs(checkpoint_dir, exist_ok=True)
@@ -291,6 +296,29 @@ def restore_checkpoint(checkpoint_dir: str, epoch: int, target: TrainState,
     a replicated preconditioner refused)."""
     device = next(target.model.parameters()).device
     saved = _load(checkpoint_dir, epoch, device)
+    return restore_payload(saved, target, local_placement(kfac, saved.get("kfac_owner_world", 1)))
+
+
+def local_placement(kfac: Any, saved_world: int):
+    """The placement of a global-form K-FAC state saved over
+    ``saved_world`` ranks: this rank's owner rows (:func:`local_kfac_state`),
+    re-homed per ``kfac``'s sharding mode (:func:`rehome_kfac_state`)."""
+
+    def place(saved_kfac):
+        if owner_form(saved_kfac):
+            world = kfac.world if kfac is not None else data_parallel_world()
+            saved_kfac = local_kfac_state(saved_kfac, world, saved_world)
+        return rehome_kfac_state(kfac, saved_kfac)
+
+    return place
+
+
+def restore_payload(saved: Dict[str, Any], target: TrainState, place) -> TrainState:
+    """A :func:`global_payload` copied into ``target``: this tensor slot's
+    part of the one-process layout, the K-FAC state passed through
+    ``place`` (the global-form state → this rank's), every tensor copied
+    into ``target``'s own (``copy_``). Returns a ``TrainState`` over the
+    same objects."""
     saved_kfac = saved["kfac_state"]
     model_sd, saved_opt = saved["model"], saved["opt_state"]
     split = tensor_split_params(target.model)
@@ -302,10 +330,7 @@ def restore_checkpoint(checkpoint_dir: str, epoch: int, target: TrainState,
             model_sd[n] = model_sd[n].chunk(w.tensor_size, dim)[w.tensor_rank]
             saved_opt[n] = saved_opt[n].chunk(w.tensor_size, dim)[w.tensor_rank]
         saved_kfac = _tensor_split(saved_kfac, w, lambda t: t.chunk(w.tensor_size)[w.tensor_rank])
-    if owner_form(saved_kfac):
-        world = kfac.world if kfac is not None else data_parallel_world()
-        saved_kfac = local_kfac_state(saved_kfac, world, saved.get("kfac_owner_world", 1))
-    saved_kfac = rehome_kfac_state(kfac, saved_kfac)
+    saved_kfac = place(saved_kfac)
     target.model.load_state_dict(model_sd)
     opt_state = _copy_into(target.opt_state, saved_opt, "opt_state")
     kfac_state = _copy_into(target.kfac_state, saved_kfac, "kfac_state")

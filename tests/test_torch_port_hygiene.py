@@ -66,13 +66,15 @@ def test_port_imports_nothing_of_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 20, res.stdout
     # the native loader, the data-parallel modules, the factor comm plane,
-    # the shard lenses and the 3-D world's compute split and fsdp parts
-    # among them
+    # the shard lenses, the 3-D world's compute split and fsdp parts and
+    # the elastic runtime among them
     imported = set(res.stdout.splitlines()[1].split())
     assert {f"kfac_pytorch_tpu_torch.{m}" for m in (
         "runtime", "runtime.loader", "parallel.launch", "parallel.mesh",
         "parallel.assignment", "parallel.sharded_eigh", "parallel.comm",
-        "parallel.tensor", "parallel.fsdp", "shardwise", "shardwise.lenses")} <= imported, res.stdout
+        "parallel.tensor", "parallel.fsdp", "shardwise", "shardwise.lenses",
+        "elastic", "elastic.state_io", "elastic.replan", "elastic.supervisor",
+        "elastic.faults")} <= imported, res.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():

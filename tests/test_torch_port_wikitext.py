@@ -254,8 +254,13 @@ def test_wikitext_trainer_reads_data_and_resumes_bitwise(tmp_path, capsys):
 ])
 def test_wikitext_trainer_refuses_flags_of_later_slices(argv, item):
     """Each flag was refused naming its ROADMAP item until that item was
-    ported; item 6b's factor comm flags, item 7b's ``--factor-sharding``
-    and item 9b's ``--profile`` now parse onto their arguments."""
+    ported; item 6b's factor comm flags, item 7b's ``--factor-sharding``,
+    item 9b's ``--profile`` and item 9c's ``--preempt-save-dir`` now parse
+    onto their arguments."""
+    if argv[0] == "--preempt-save-dir":
+        args = trainer.parse_args(argv)
+        assert args.preempt_save_dir == argv[1] and args.snapshot_every == 0
+        return
     if argv[0] == "--profile":
         assert trainer.parse_args(argv).profile == argv[1]
         return

@@ -1,8 +1,9 @@
 """Rank bodies of ``tests/test_torch_port_distributed.py``,
 ``tests/test_torch_port_comm.py``, ``tests/test_torch_port_owner.py``,
 ``tests/test_torch_port_lens.py``, ``tests/test_torch_port_context.py``,
-``tests/test_torch_port_moe.py``, ``tests/test_torch_port_fsdp.py`` and
-``tests/test_torch_port_observability.py`` (not a test file).
+``tests/test_torch_port_moe.py``, ``tests/test_torch_port_fsdp.py``,
+``tests/test_torch_port_observability.py`` and
+``tests/test_torch_port_elastic_ranks.py`` (not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
 (or :func:`start`, then :func:`join`, so that the test process works
@@ -16,6 +17,7 @@ holds the JAX side. A task's inputs and per-rank results travel as
 from __future__ import annotations
 
 import contextlib
+import io
 import os
 import time
 
@@ -1171,7 +1173,7 @@ def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, **
         out["losses"].append(float(m["loss"]))
         if save is not None and i == save[2]:
             ckpt.save_checkpoint(save[0], save[1], state, w)
-    out["params"] = _np(ckpt._payload(state, w)["model"])
+    out["params"] = _np(ckpt.global_payload(state, w)["model"])
     out["diagnostics"] = _np(state.kfac_state.get("diagnostics"))
     out["bytes"] = {
         "params": {n: (state.fsdp.parts[n] if n in state.fsdp else p).numel() * 4
@@ -1281,6 +1283,171 @@ def telemetry(rank, world, cases):
     return out
 
 
+def _elastic_build(w, weights, kw):
+    """``(kfac, state, step_fn, cadence)`` of the overlap tests' ``_MLP``
+    at ``weights`` on this world (a quiet drift signal under streaming)."""
+    from kfac_pytorch_tpu_torch import KFAC, EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, make_train_step
+
+    model = _MLP()
+    model.load_state_dict(_t(weights))
+    kfac = KFAC(layers=["fc1", "fc2"], device="cpu", damping=0.01, fac_update_freq=1, **kw)
+    if kfac.solver == "streaming":
+        kfac.stream_drift_signal = lambda: 0.0
+    tx = make_sgd(0.9, 5e-4)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                       kfac_state=kfac.init(model))
+    return kfac, state, make_train_step(model, tx, kfac, sgd_hyper=(0.9, 5e-4)), \
+        EigenRefreshCadence(kfac)
+
+
+def _elastic_steps(fn, cad, state, batch, lo, hi):
+    for step in range(lo, hi):
+        state, _ = fn(state, batch, 0.05, 0.01, **cad.flags_for_step(step))
+    return state
+
+
+def _elastic_flat(state):
+    """Every tensor of ``state`` (model, momentum, K-FAC), copied, with its
+    path."""
+    out = {f"model/{k}": v.clone() for k, v in state.model.state_dict().items()}
+    out.update({f"opt/{k}": v.clone() for k, v in state.opt_state.items()})
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(tree, torch.Tensor):
+            out[path] = tree.clone()
+        else:
+            out[path] = tree
+
+    walk(state.kfac_state, "kfac")
+    return out
+
+
+def _elastic_mid(w, weights, batch, cases, root):
+    """Per case ``{name: (kfac kwargs, snapshot step, last step)}``: a run
+    snapshot mid-interval and continued, and a fresh build resumed from the
+    snapshot and continued; what the snapshot saw, what the resume found,
+    and whether every tensor of the two ends is the same bits."""
+    from kfac_pytorch_tpu_torch.elastic import Supervisor
+
+    out = {}
+    for case, (kw, at, end) in cases.items():
+        kfac, state, fn, cad = _elastic_build(w, weights, kw)
+        state = _elastic_steps(fn, cad, state, batch, 0, at)
+        seen = {"cadence": cad.state_dict(), "keys": sorted(state.kfac_state),
+                "sync_age": int(state.kfac_state.get("factor_sync_age", -1)),
+                "local": _np({k: state.kfac_state[k] for k in ("factor_local", "wire_error")
+                              if k in state.kfac_state}),
+                "fold_steps": int(state.kfac_state.get("stream_fold_steps", -1))}
+        Supervisor(f"{root}/{case}", kfac=kfac, cadence=cad).snapshot(at, state)
+        final = _elastic_flat(_elastic_steps(fn, cad, state, batch, at, end))
+        kfac2, state2, fn2, cad2 = _elastic_build(w, weights, kw)
+        rstate, manifest, rstep = Supervisor(f"{root}/{case}", kfac=kfac2,
+                                             cadence=cad2).scan_resume(state2)
+        found = {"step": rstep, "cadence": cad2.state_dict(),
+                 "manifest": {k: manifest[k] for k in ("world", "sharding", "packed_world",
+                                                       "packed_replica_local")},
+                 "local": _np({k: rstate.kfac_state[k] for k in ("factor_local", "wire_error")
+                               if k in rstate.kfac_state})}
+        resumed = _elastic_flat(_elastic_steps(fn2, cad2, rstate, batch, rstep, end))
+        differ = sorted(k for k in final if not (torch.equal(final[k], resumed[k])
+                                                 if isinstance(final[k], torch.Tensor)
+                                                 else final[k] == resumed[k]))
+        out[case] = {"seen": seen, "found": found, "differ": differ, "cadence_end":
+                     (cad.state_dict(), cad2.state_dict())}
+    return out
+
+
+def _elastic_save(w, weights, batch, kw, at, root):
+    """An owner run and its replicated twin, each snapshot at ``at``."""
+    from kfac_pytorch_tpu_torch.elastic import Supervisor
+
+    out = {}
+    for mode in ("owner", "replicated"):
+        kfac, state, fn, cad = _elastic_build(w, weights, {**kw, "factor_sharding": mode})
+        state = _elastic_steps(fn, cad, state, batch, 0, at)
+        Supervisor(f"{root}/{mode}", kfac=kfac, cadence=cad).snapshot(at, state)
+        out[mode] = kfac.owner_sharded
+    return out
+
+
+def _elastic_resize(w, weights, batch, kw, end, root):
+    """Both snapshots of :func:`_elastic_save` resumed on this world (the
+    owner one through the resize replan) and continued to ``end``; the
+    parameters, the replan gauge and the manifest's world."""
+    from kfac_pytorch_tpu_torch.elastic import Supervisor
+    from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
+
+    out = {}
+    tel = get_telemetry()
+    was, tel.enabled = tel.enabled, True
+    try:
+        for mode in ("owner", "replicated"):
+            kfac, state, fn, cad = _elastic_build(w, weights, {**kw, "factor_sharding": mode})
+            rstate, manifest, rstep = Supervisor(f"{root}/{mode}", kfac=kfac,
+                                                 cadence=cad).scan_resume(state)
+            out[f"{mode}_replans"] = tel.gauges.get("kfac/replan_count")
+            rstate = _elastic_steps(fn, cad, rstate, batch, rstep, end)
+            out[mode] = {"params": _np(dict(rstate.model.state_dict())),
+                         "world": manifest["world"], "step": rstep,
+                         "keys": sorted(rstate.kfac_state)}
+    finally:
+        tel.enabled = was
+    return out
+
+
+def _elastic_twin(argv, kill, root, runs=("full", "killed", "resumed")):
+    """The LM twin with ``argv`` run through, killed by the fault injector
+    in signal mode at step ``kill``, and resumed (those of the three
+    ``runs`` given): their losses and the killed run's manifest."""
+    import signal
+
+    from kfac_pytorch_tpu_torch.elastic import state_io
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+    out = {}
+    for name, at, save_dir in (("full", None, "full"), ("killed", kill, "k"),
+                               ("resumed", None, "k")):
+        if name not in runs:
+            continue
+        handler = signal.getsignal(signal.SIGTERM)
+        if at is not None:
+            os.environ.update(KFAC_FAULT_KILL_AT_STEP=str(at), KFAC_FAULT_KILL_MODE="signal")
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                hist = trainer.main([*argv, "--preempt-save-dir", f"{root}/{save_dir}",
+                                     "--snapshot-every", str(kill)])
+        finally:
+            os.environ.pop("KFAC_FAULT_KILL_AT_STEP", None)
+            os.environ.pop("KFAC_FAULT_KILL_MODE", None)
+            signal.signal(signal.SIGTERM, handler)
+        out[name] = hist["loss"]
+        if name == "killed":
+            manifest = state_io.load_manifest(state_io.snapshot_dir(f"{root}/k", kill))
+            out["manifest"] = {k: manifest.get(k) for k in ("world", "sharding", "packed_world",
+                                                             "step")}
+    return out
+
+
+def elastic(rank, world, weights, x, y, mid=None, save=None, resize=None, twin=None):
+    """Task of ``tests/test_torch_port_elastic_ranks.py``: the sections
+    given, on this rank's batch."""
+    batch = (torch.from_numpy(x[rank % len(x)]), torch.from_numpy(y[rank % len(y)]))
+    out = {}
+    if mid is not None:
+        out["mid"] = _elastic_mid(world, weights, batch, **mid)
+    if save is not None:
+        out["save"] = _elastic_save(world, weights, batch, **save)
+    if resize is not None:
+        out["resize"] = _elastic_resize(world, weights, batch, **resize)
+    if twin is not None:
+        out["twin"] = {name: _elastic_twin(**kw) for name, kw in twin.items()}
+    return out
+
+
 TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
          "owner": owner, "lens": lens, "context": context, "shardwise": shardwise, "fsdp": fsdp,
-         "multi": multi, "telemetry": telemetry}
+         "multi": multi, "telemetry": telemetry, "elastic": elastic}
