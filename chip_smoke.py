@@ -458,11 +458,33 @@ no result line):
        through the refresh at step 8 to step 12, its parameters within
        ``ELASTIC_RESIZE_TOL`` of the replicated continuation of the state
        the resize resumed;
-29. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+29. the curvature service (slice 20), with deterministic cuDNN, each path
+    with the counters zeroed just before it:
+    a. in process (``CurvatureService``, the worker a thread refreshing on
+       a CUDA stream of its own on the same card): ResNet-32 at batch 128,
+       ``--kfac-update-freq 10 --kfac-cov-update-freq 2``, 30 steps at
+       staleness 0: every step's parameters equal (bitwise, or within
+       ``SERVICE_RTOL`` relative, reported) to the inline schedule whose
+       refresh runs at boundary + 1 (a step that captures nothing); 0
+       ``torch.linalg.eigh`` calls on the trainer's thread, one refresh per
+       boundary on the worker's; kernels 1, 3 and 4 as implied. Then at the
+       recipe's cadence (``--kfac-cov-update-freq 1``) ResNet-32 (30 steps)
+       and the LM at phase 8's widths (12 steps), each inline and through
+       the service at staleness 0 and 1: the median, p95 and max of the
+       capture, boundary and after-boundary step times, the worker's
+       refresh, the publish and install times and the deadline waits;
+    b. two ranks of the one card over gloo, rank 1 the worker
+       (``--service-devices 1``): the CIFAR twin (ResNet-32, 12 steps,
+       ``--kfac-update-freq 4``) and the LM twin (phase 8's widths, 12
+       steps): finite losses, 0 eigh calls on the trainer rank, one refresh
+       per boundary on the worker, every basis installed by boundary + 1,
+       the trainer's launches of kernels 1, 3, 4 (CIFAR) and 2-7 (LM) as
+       implied; the publish (npz write) and install times;
+30. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
     row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
     LSTM and 3-D rows beside the others, the two-rank launches of kernels
-    1, 3 and 4, and every kernel's launches on phase 21's to 28's paths,
+    1, 3 and 4, and every kernel's launches on phase 21's to 29's paths,
     per rank on the multi-rank ones), then the last line ``{"ok": true,
     "device": {...}}``.
 """
@@ -6162,6 +6184,307 @@ def elastic_phases(device, counters):
     return {"resnet32": cifar, "lstm": lstm, "lm": lm, "two_ranks": ranks}
 
 
+# The curvature service (phase 29): ResNet-32 (batch 128) and the LM at
+# phase 8's widths with the refresh moved out of the training step. 29a:
+# the in-process layout, the worker a thread refreshing on a CUDA stream of
+# its own on the same card; its gate at staleness 0 with the capture every
+# second step (so step s + 1 captures nothing and the inline schedule whose
+# refresh runs at s + 1 reads exactly the snapshot the worker saw), then the
+# step-time distributions of the inline run and the service runs at
+# staleness 0 and 1, at the recipe's cadence. 29b: the twins'
+# --service-devices 1 on two ranks of the card over gloo, rank 1 the worker.
+SERVICE_FREQ = 10
+SERVICE_GATE_FAC = 2
+SERVICE_RTOL = 1e-6
+SERVICE_LM_STEPS = 12
+SERVICE_RANK_STEPS = 12
+SERVICE_CIFAR_FLAGS = [*SHORT_CADENCE, "--epochs", "1", "--steps-per-epoch",
+                       str(SERVICE_RANK_STEPS)]
+SERVICE_LM_FLAGS = ["--epochs", "1", "--steps-per-epoch", str(SERVICE_LM_STEPS)]
+
+
+@contextlib.contextmanager
+def eigh_by_thread():
+    """``torch.linalg.eigh`` calls (every refresh path ends in it), counted
+    by thread: ``{"trainer": n, "worker": n}``, the trainer being the main
+    thread."""
+    import threading
+
+    import torch
+
+    calls = {"trainer": 0, "worker": 0}
+    real = torch.linalg.eigh
+
+    def counted(*args, **kwargs):
+        main = threading.current_thread() is threading.main_thread()
+        calls["trainer" if main else "worker"] += 1
+        return real(*args, **kwargs)
+
+    torch.linalg.eigh = counted
+    try:
+        yield calls
+    finally:
+        torch.linalg.eigh = real
+
+
+def service_steps(setup, steps, budget=None, device=None, inline_at=0, keep_params=False):
+    """``steps`` steps of ``setup`` (``(step_fn, state, kfac, batches,
+    args)``): with a ``budget``, through an in-process ``CurvatureService``
+    whose worker refreshes on ``device``; else with the inline refresh at
+    ``step % kfac_update_freq == inline_at``. Per step the host
+    milliseconds of the synchronized step (the service's hooks included),
+    the loss, the step kind and, with ``keep_params``, the parameters after
+    it; with the service, ``svc`` (closed)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.service import CurvatureService
+    from kfac_pytorch_tpu_torch.training.step import step_kind
+
+    step_fn, state, kfac, batches, args = setup
+    hp = kfac.hparams
+    svc = None
+    if budget is not None:
+        svc = CurvatureService(kfac, EigenRefreshCadence(kfac), worker_devices=(device,),
+                               staleness_budget=budget)
+    out = {"step_ms": [], "loss": [], "kind": [], "params": [], "svc": svc}
+    for step in range(steps):
+        if svc is not None:
+            flags = svc.cadence.flags_for_step(step)
+        else:
+            flags = {"update_factors": step % hp.fac_update_freq == 0,
+                     "update_eigen": step % hp.kfac_update_freq == inline_at}
+        # the trainer's stream only: a device-wide sync would wait for the
+        # worker's stream too
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        if svc is not None:
+            state.kfac_state = svc.before_step(step, state.kfac_state)
+        state, metrics = step_fn(state, batches[step % len(batches)], args.base_lr,
+                                 hp.damping, **flags)
+        if svc is not None:
+            svc.after_step(step, state.kfac_state)
+        out["loss"].append(float(metrics["loss"]))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["kind"].append(step_kind(flags))
+        if keep_params:
+            out["params"].append([p.detach().clone() for p in state.model.parameters()])
+    if svc is not None:
+        svc.close()
+    return out
+
+
+def boundary_stats(run, freq, budget=0):
+    """Median, p95 and max of the step times by kind (step 0, which pays
+    first-call set-up, left out): ``boundary`` the steps ``s % freq == 0``
+    (the inline refresh; the service's publish), ``after`` the ``1 +
+    budget`` steps after each (the service's install, and its wait at the
+    deadline), ``capture`` the others."""
+    groups = {"capture": [], "boundary": [], "after": []}
+    for s, ms in enumerate(run["step_ms"]):
+        if s:
+            groups["boundary" if s % freq == 0 else "after" if s % freq <= 1 + budget
+                   else "capture"].append(ms)
+
+    def dist(v):
+        v = sorted(v)
+        return {"median": statistics.median(v), "p95": v[min(len(v) - 1, int(0.95 * len(v)))],
+                "max": v[-1], "n": len(v)}
+
+    return {k: dist(v) for k, v in groups.items() if v}
+
+
+def service_record(run):
+    """A service run's worker refresh, publish, install and deadline-wait
+    milliseconds (medians, and every refresh)."""
+    svc = run["svc"]
+    rec = svc.record
+    med = lambda v: statistics.median(v) if v else None  # noqa: E731
+    return {"refresh_ms": svc.worker.refresh_ms, "refresh_ms_median": med(svc.worker.refresh_ms),
+            "publish_ms_median": med(rec["publish_ms"]),
+            "install_ms_median": med(rec["install_ms"]),
+            "install_wait_ms": rec["install_wait_ms"], "installs": rec["installs"]}
+
+
+def service_gate(device, counters):
+    """29a's gate (see the comment above ``SERVICE_FREQ``)."""
+    import torch
+
+    extra = ["--kfac-update-freq", str(SERVICE_FREQ), "--kfac-cov-update-freq",
+             str(SERVICE_GATE_FAC), "--steps-per-epoch", str(STEPS)]
+    with eigh_by_thread() as eighs:
+        run, launches = counted(lambda: service_steps(
+            resnet_setup(device, [*extra, "--service-devices", "1"]), STEPS, budget=0,
+            device=device, keep_params=True), counters)
+    gate_launches(launches, cifar_expected_launches(run, device), "29a service gate")
+    inline = service_steps(resnet_setup(device, extra), STEPS, inline_at=1, keep_params=True)
+    bitwise, worst = run["loss"] == inline["loss"], 0.0
+    for step, (got, want) in enumerate(zip(run["params"], inline["params"])):
+        for g, w in zip(got, want):
+            if torch.equal(g, w):
+                continue
+            bitwise = False
+            rel = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            worst = max(worst, rel)
+            if not rel <= SERVICE_RTOL:
+                raise AssertionError(f"29a step {step}: the service's parameters differ from "
+                                     f"the inline schedule's by {rel:.3e} (relative)")
+    svc = run["svc"]
+    refreshes = svc.worker.last_version
+    want = -(-STEPS // SERVICE_FREQ)
+    if eighs["trainer"] or refreshes != want or eighs["worker"] % refreshes:
+        raise AssertionError(f"29a: eigh calls {eighs}, {refreshes} refreshes (want {want})")
+    want_installs = [[v + 1, SERVICE_FREQ * v + 1, 0] for v in range(want)]
+    if [list(i) for i in svc.record["installs"]] != want_installs:
+        raise AssertionError(f"29a: installs {svc.record['installs']}, want {want_installs}")
+    out = {"steps": STEPS, "refreshes": refreshes, "bitwise": bitwise, "max_rel_diff": worst,
+           "trainer_eigh": eighs["trainer"],
+           "worker_eigh_per_refresh": eighs["worker"] // refreshes,
+           "installs": svc.record["installs"], "launches": launches}
+    print(f"29a gate: staleness 0 against the inline refresh at boundary + 1 over {STEPS} steps: "
+          f"{'bitwise' if bitwise else f'max relative difference {worst:.3e}'}; eigh calls: "
+          f"trainer 0, worker {out['worker_eigh_per_refresh']} per refresh x {refreshes}",
+          flush=True)
+    return out
+
+
+def service_timing(name, setup_fn, device, steps, freq):
+    """29a's timing on one path: the inline run and the service at
+    staleness 0 and 1, each from a fresh ``setup_fn(extra flags)``."""
+    import torch
+
+    out = {}
+    for label, budget in (("inline", None), ("service_s0", 0), ("service_s1", 1)):
+        extra = [] if budget is None else ["--service-devices", "1"]
+        run = service_steps(setup_fn(extra), steps, budget=budget, device=device)
+        if not all(math.isfinite(v) for v in run["loss"]):
+            raise AssertionError(f"29a {name} {label}: non-finite loss {run['loss']}")
+        out[label] = {"steps": boundary_stats(run, freq, budget or 0)}
+        if budget is not None:
+            out[label].update(service_record(run))
+            deadline = [s for v, s, slip in run["svc"].record["installs"] if slip > budget]
+            if deadline:
+                raise AssertionError(f"29a {name} {label}: installs past the deadline {deadline}")
+        del run
+        torch.cuda.empty_cache()
+        st = out[label]["steps"]
+        line = ", ".join(f"{k} median {d['median']:.2f} p95 {d['p95']:.2f} max {d['max']:.2f} ms"
+                         for k, d in st.items())
+        extra = ""
+        if budget is not None:
+            extra = (f"; worker refresh {out[label]['refresh_ms_median']:.2f} ms (median), publish "
+                     f"{out[label]['publish_ms_median']:.3f} ms, install "
+                     f"{out[label]['install_ms_median']:.3f} ms, deadline waits "
+                     f"{[round(w, 2) for w in out[label]['install_wait_ms']]} ms")
+        print(f"29a {name} {label}: {line}{extra}", flush=True)
+    return out
+
+
+def service_rank_worker(rank, store, out_path, device_name):
+    """One rank of phase 29b (``torch.multiprocessing`` target): the CIFAR
+    twin and then the LM twin with ``--service-devices 1`` over gloo on
+    ``cuda:0`` (rank 1 the worker), each with the launch counters zeroed
+    just before it and ``torch.linalg.eigh`` counted."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as cifar
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm
+    from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import factor_kernels as fk
+    from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+    from kfac_pytorch_tpu_torch.parallel import launch
+
+    counters = (fk.compute_a_conv_fused, fk.compute_a_embed_fused, ak.fused_precondition_stack,
+                ak.fused_sgd_apply, fa.flash_forward, fa.flash_backward_dq,
+                fa.flash_backward_dkv)
+    launch.initialize(device_name, backend="gloo", init_method=f"file://{store}",
+                      rank=rank, world_size=2)
+    try:
+        out = {}
+        for name, main, argv in (
+            ("resnet32", cifar.main, [*RESNET_ARGS, *SERVICE_CIFAR_FLAGS]),
+            ("lm", lm.main, [*LM_ARGS, *SERVICE_LM_FLAGS]),
+        ):
+            with eigh_by_thread() as eighs:
+                hist, launches = counted(
+                    lambda: main([*argv, "--device", device_name, "--service-devices", "1"]),
+                    counters)
+            out[name] = {k: hist.get(k) for k in ("loss", "kind", "val_loss", "step_ms",
+                                                  "refresh_ms", "service")}
+            out[name].update(eigh=eighs["trainer"] + eighs["worker"], launches=launches)
+        with open(f"{out_path}-{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def service_ranks_phase(device):
+    """29b (see the comment above ``SERVICE_FREQ``)."""
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
+
+    trainer, worker = spawn_ranks(service_rank_worker, ("cuda:0",), 600, "service")
+    model = lm_trainer.build(lm_trainer.parse_args(LM_ARGS), device)[0]
+    lm_want = {LM_COUNTERS[k]: n for k, n in lm_expected_launches(trainer["lm"], model).items()}
+    del model
+    torch.cuda.empty_cache()
+    out = {}
+    for name, freq, expected in (
+        ("resnet32", int(SHORT_CADENCE[1]), cifar_expected_launches(trainer["resnet32"], device)),
+        ("lm", SERVICE_FREQ, lm_want),
+    ):
+        t, w = trainer[name], worker[name]
+        if len(t["loss"]) != SERVICE_RANK_STEPS or not all(math.isfinite(v) for v in t["loss"]):
+            raise AssertionError(f"29b {name}: losses {t['loss']}")
+        if t["eigh"]:
+            raise AssertionError(f"29b {name}: the trainer rank called eigh {t['eigh']} times")
+        boundaries = -(-SERVICE_RANK_STEPS // freq)
+        if w["loss"] or len(w["refresh_ms"]) != boundaries or not w["eigh"]:
+            raise AssertionError(f"29b {name}: the worker served {len(w['refresh_ms'])} "
+                                 f"refreshes with {w['eigh']} eigh calls, want {boundaries}")
+        rec = t["service"]
+        late = [(v, s) for v, s, slip in rec["installs"] if s > freq * (v - 1) + 1]
+        if late or len(rec["installs"]) != boundaries:
+            raise AssertionError(f"29b {name}: installs {rec['installs']}")
+        gate_launches(t["launches"], expected, f"29b {name} trainer rank")
+        out[name] = {
+            "steps": SERVICE_RANK_STEPS, "installs": rec["installs"],
+            "publish_ms": rec["publish_ms"], "install_ms": rec["install_ms"],
+            "install_wait_ms": rec["install_wait_ms"], "worker_refresh_ms": w["refresh_ms"],
+            "worker_eigh": w["eigh"], "trainer_eigh": 0, "launches": t["launches"],
+            "step_ms_median": statistics.median(t["step_ms"][1:]),
+        }
+        print(f"29b {name} on two ranks: installs (version, step, slip) {rec['installs']}; "
+              f"publish (npz write) {statistics.median(rec['publish_ms']):.2f} ms, install "
+              f"{statistics.median(rec['install_ms']):.2f} ms (medians), worker refresh "
+              f"{statistics.median(w['refresh_ms']):.2f} ms; trainer eigh calls 0", flush=True)
+    return out
+
+
+def service_phases(device, counters):
+    """29a-b with deterministic cuDNN (its default algorithms differ from
+    run to run in the last bits)."""
+    import torch
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        mark("29a. the curvature service in process: the staleness-0 gate, the step times")
+        gate = service_gate(device, counters)
+        resnet = service_timing(
+            "ResNet-32", lambda extra: resnet_setup(device, [
+                "--kfac-update-freq", str(SERVICE_FREQ), "--steps-per-epoch", str(STEPS),
+                *extra]), device, STEPS, SERVICE_FREQ)
+        lm = service_timing("LM", lambda extra: lm_setup(device, extra), device,
+                            SERVICE_LM_STEPS, SERVICE_FREQ)
+        mark("29b. the twins' --service-devices 1 on two ranks")
+        ranks = service_ranks_phase(device)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    return {"gate": gate, "resnet32": resnet, "lm": lm, "two_ranks": ranks}
+
+
 def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
@@ -6805,8 +7128,23 @@ def main() -> int:
             **{f"wikitext_lstm_{name}": n.get(key, 0)
                for name, n in elastic["lstm"]["launches"].items()}}
 
-    mark("29. results")
-    # 29. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    # 29a-b. this slice: the curvature service, each path with the counters
+    # zeroed just before it
+    service = service_phases(device, all_counted)
+    print(json.dumps({"service": service}), flush=True)
+    two29 = service["two_ranks"]
+    for k, key in ((conv_a, "compute_a_conv_fused"), (resnet_apply, "fused_precondition_stack"),
+                   (resnet_sgd, "fused_sgd_apply")):
+        k["launches_on_slice20_paths"] = {
+            "resnet32_service_gate": service["gate"]["launches"][key],
+            "resnet32_two_ranks_trainer": two29["resnet32"]["launches"][key]}
+    for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
+                   (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
+                   (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
+        k["launches_on_slice20_paths"] = {"lm_two_ranks_trainer": two29["lm"]["launches"][key]}
+
+    mark("30. results")
+    # 30. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

@@ -33,9 +33,13 @@ defaults from a planner profile (``planner/``) and ``--autotune-steps``
 times its candidate plans before training and keeps the fastest. The training batches come from the native
 threaded loader (``runtime/loader.py``, ``--num-workers`` threads, 4 by
 default, as in the JAX trainer) or, with ``--num-workers 0``, from the
-numpy pipeline. Every other flag of the JAX trainer is accepted with its
-default and, set to anything else, raises ``SystemExit`` naming the
-ROADMAP item that ports it.
+numpy pipeline. ``--service-devices N`` takes the refresh out of the
+training step (``service/``): of the ``torchrun`` world's ranks the
+trailing N become curvature workers, the first of which serves the
+factor snapshots that training rank 0 publishes at each boundary through a
+``HostMailbox`` pair in a temporary directory (so every rank must run on
+one machine), and the leading ranks train, installing each published basis
+within ``--staleness-budget`` steps (``history["service"]``).
 
 Data-parallel, one process per GPU under ``torchrun`` (NCCL; gloo with
 ``--device cpu``): ``--batch-size`` is per device, the learning rate is
@@ -75,11 +79,14 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
+import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kfac_pytorch_tpu_torch import (
     EigenRefreshCadence,
@@ -94,9 +101,15 @@ from kfac_pytorch_tpu_torch import (
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.models import cifar_resnet
 from kfac_pytorch_tpu_torch.parallel import launch
-from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, put_global_batch
+from kfac_pytorch_tpu_torch.parallel.mesh import (
+    World,
+    data_parallel_world,
+    put_global_batch,
+    service_world,
+)
 from kfac_pytorch_tpu_torch.examples.autotune import autotune_kfac
 from kfac_pytorch_tpu_torch.runtime import NativeEpochLoader
+from kfac_pytorch_tpu_torch.service import CurvatureService, CurvatureWorker, HostMailbox
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training import profiling
@@ -125,11 +138,10 @@ DIAG_EXTRA_KEYS = (
     "kfac_eigen_stale_steps",
 )
 
-# Flags of the JAX trainer this twin does not carry: (flag, type, default,
-# ROADMAP queue-1 item that ports it). Store-true flags have type None.
-_LATER_FLAGS = (
-    ("--service-devices", int, 0, "9d (service/)"),
-)
+# how long a --service-devices worker rank waits for the next factor
+# snapshot before it calls the trainers dead (an evaluation or a checkpoint
+# runs between two boundaries)
+SERVICE_IDLE_TIMEOUT_S = 3600.0
 
 # the stand-in's flags (flag, type, default, help); set next to real data
 # they are refused
@@ -171,8 +183,8 @@ def precision_kwargs(args) -> Dict[str, object]:
 def add_refresh_flags(p: argparse.ArgumentParser) -> None:
     """The JAX trainers' refresh-scheduling and solver flags:
     ``--eigh-chunks``, ``--solver``, ``--solver-rank``,
-    ``--solver-auto-threshold``, ``--stream-drift-threshold`` and
-    ``--staleness-budget``."""
+    ``--solver-auto-threshold``, ``--stream-drift-threshold``,
+    ``--staleness-budget`` and ``--service-devices``."""
     p.add_argument("--eigh-chunks", type=int, default=1,
                    help="pipeline the eigen refresh over this many steps "
                         "after each --kfac-update-freq boundary (double-"
@@ -198,14 +210,27 @@ def add_refresh_flags(p: argparse.ArgumentParser) -> None:
                         "(kfac_stream_residual) exceeds this; 0 = re-orth "
                         "every boundary, exactly periodic rsvd")
     p.add_argument("--staleness-budget", type=int, default=0,
-                   help="let a completed pending eigen swap slip up to this "
-                        "many steps under measured comm/compute pressure "
-                        "(needs --eigh-chunks > 1; 0 = never slip)")
+                   help="let a deferred factor flush or a completed pending "
+                        "eigen swap slip up to this many steps under "
+                        "measured comm/compute pressure (needs "
+                        "--factor-comm-freq > 1, --eigh-chunks > 1 or "
+                        "--service-devices > 0; 0 = never slip; watch the "
+                        "kfac/staleness_* gauges)")
+    p.add_argument("--service-devices", type=int, default=0,
+                   help="carve this many devices out of the mesh as "
+                        "dedicated curvature workers (kfac_pytorch_tpu_torch/"
+                        "service/): the eigen refresh leaves the training "
+                        "step entirely — factor snapshots publish at each "
+                        "--kfac-update-freq boundary, refreshed bases "
+                        "install between steps, --staleness-budget bounds "
+                        "the install slip (docs/SERVICE.md); 0 = inline "
+                        "refresh")
 
 
 def refresh_kwargs(args) -> Dict[str, object]:
     """``KFAC`` keyword arguments of :func:`add_refresh_flags`' flags."""
     return {
+        "service_devices": args.service_devices,
         "eigh_chunks": args.eigh_chunks,
         "solver": args.solver,
         "solver_rank": args.solver_rank,
@@ -224,6 +249,76 @@ def refresh_cadence(kfac, live_state) -> EigenRefreshCadence:
     if kfac is not None and kfac.solver == "streaming":
         kfac.stream_drift_signal = lambda: float(live_state().kfac_state["stream_residual"])
     return EigenRefreshCadence(kfac)
+
+
+class ServiceCarve(NamedTuple):
+    """The world a twin trains on under ``--service-devices N``
+    (:func:`carve_service_world`): ``world`` is the training ranks' (or on
+    a worker rank the workers'), ``worker`` this rank's role and
+    ``mailbox_dir`` the ``HostMailbox`` root every rank shares."""
+
+    world: World
+    worker: bool = False
+    mailbox_dir: Optional[str] = None
+
+
+def carve_service_world(args) -> ServiceCarve:
+    """``--service-devices N``: the trailing N ranks of the default group
+    become curvature workers and the leading ones the training world
+    (``parallel.mesh.service_world``; refused, in the JAX words, when no
+    rank is left to train). Rank 0 makes the mailbox directory (under the
+    temporary directory: every rank must see it, so one machine) and
+    every rank learns it; the launch helpers then answer for this rank's
+    side. Without the flag, the default group's world."""
+    if args.service_devices <= 0:
+        return ServiceCarve(data_parallel_world())
+    carved, workers = service_world(args.service_devices)
+    root = [tempfile.mkdtemp(prefix="kfac-service-") if launch.rank() == 0 else None]
+    dist.broadcast_object_list(root, src=0)
+    worker = launch.rank() in workers
+    launch.set_world_group(carved.group)
+    return ServiceCarve(carved, worker, root[0])
+
+
+def serve_curvature(kfac, carve: ServiceCarve, device: torch.device) -> Dict[str, List]:
+    """A worker rank's run: the first worker serves the training job's
+    mailboxes (``CurvatureWorker.serve``) until the trainers close them,
+    then removes the mailbox directory; any further worker stays idle, as
+    the JAX service uses only its first worker device. Returns the
+    history: no losses, and the refreshes served."""
+    history: Dict[str, List] = {"loss": [], "refresh_ms": []}
+    if kfac is not None and carve.world.rank == 0:
+        worker = CurvatureWorker(kfac, HostMailbox(carve.mailbox_dir, "job0-factors"),
+                                 HostMailbox(carve.mailbox_dir, "job0-basis"), device=device)
+        worker.serve(idle_timeout_s=SERVICE_IDLE_TIMEOUT_S)
+        history["refresh_ms"] = worker.refresh_ms
+        shutil.rmtree(carve.mailbox_dir, ignore_errors=True)
+    launch.set_world_group(None)
+    return history
+
+
+def curvature_service(args, kfac, cadence, sup, carve: ServiceCarve):
+    """The trainer side of ``--service-devices`` (None without it): a
+    ``CurvatureService`` on the carve's mailboxes, its worker in the worker
+    rank."""
+    if kfac is None or args.service_devices <= 0:
+        return None
+    svc = CurvatureService(kfac, cadence, worker_devices=range(args.service_devices),
+                           supervisor=sup, mailbox_dir=carve.mailbox_dir, run_worker=False)
+    rank0_print(f"curvature service: {args.service_devices} worker device(s), "
+                f"staleness budget {svc.staleness_budget}")
+    return svc
+
+
+def service_record(svc) -> Dict[str, List]:
+    """The history's record of the service: each install's ``(version,
+    step, slip)`` and milliseconds, each publish's milliseconds and each
+    wait at the staleness deadline. Closes the service (the worker stops
+    once every published snapshot is served) and hands the launch helpers
+    back the default group."""
+    svc.close()
+    launch.set_world_group(None)
+    return dict(svc.record)
 
 
 def add_elastic_flags(p: argparse.ArgumentParser) -> None:
@@ -519,22 +614,11 @@ def build_parser() -> argparse.ArgumentParser:
     add_planner_flags(p)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag, kind, default, _ in _LATER_FLAGS:
-        if kind is None:
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
     return p
 
 
 def parse_args(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, _, default, item in _LATER_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch trainer yet (ROADMAP "
-                f"queue 1 item {item})"
-            )
     if args.batches_per_allreduce < 1:
         raise SystemExit("--batches-per-allreduce must be at least 1")
     if args.num_workers < 0:
@@ -648,7 +732,10 @@ def main(argv=None) -> Dict[str, List]:
     tel = run_tel.tel
     device = launch.initialize(args.device)
     use_ieee_f32()
-    world = data_parallel_world()
+    carve = carve_service_world(args)
+    world = carve.world
+    if carve.worker:
+        return serve_curvature(build(args, device, world)[1], carve, device)
     accum = args.batches_per_allreduce
     global_bs = args.batch_size * world.size
     rank0_print(f"devices={world.size} global_batch={global_bs}"
@@ -749,6 +836,7 @@ def main(argv=None) -> Dict[str, List]:
             if kfac_sched:
                 kfac_sched.epoch = resume_from_epoch
             rank0_print(f"elastic: resumed from snapshot at step {step}")
+    svc = curvature_service(args, kfac, cadence, sup, carve)
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
             kfac_sched.step(epoch=epoch)
@@ -780,12 +868,19 @@ def main(argv=None) -> Dict[str, List]:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 ts = time.perf_counter()
+                if svc is not None:
+                    # the newest complete basis, waited for only at the
+                    # staleness deadline
+                    state.kfac_state = svc.before_step(step, state.kfac_state)
                 with step_span(tel, flags) as sp:
                     state, metrics = train_step(
                         state, (images, labels), lr,
                         kfac.hparams.damping if kfac else 0.0, **flags,
                     )
                     sp.block(metrics)
+                if svc is not None:
+                    # a boundary publishes the factors it just folded in
+                    svc.after_step(step, state.kfac_state)
                 # one read of every scalar the host logs: waits for the step
                 with tel.span("comm/device_get"):
                     keys = sorted(metrics)
@@ -865,6 +960,8 @@ def main(argv=None) -> Dict[str, List]:
     snapshot = run_tel.close()
     if snapshot is not None:
         history["telemetry"] = snapshot
+    if svc is not None:
+        history["service"] = service_record(svc)
     if loader is not None:
         loader.close()
     return history

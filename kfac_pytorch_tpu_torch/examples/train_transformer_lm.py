@@ -20,9 +20,8 @@ auto-resume under ``--checkpoint-dir``, and the CIFAR twin's
 ``--preempt-save-dir``/``--snapshot-every`` (the elastic runtime; a
 snapshot holds the one-process layout, so it is resumed before the fsdp
 split), ``--telemetry-dir``, ``--profile-epoch``, ``--profile`` and
-``--autotune-steps``. Every other flag of the JAX
-trainer is accepted with its default and, set to anything else, raises
-``SystemExit`` naming the ROADMAP item that ports it. ``--log-dir``
+``--autotune-steps``, and ``--service-devices`` (the curvature service's
+worker ranks, as in the CIFAR twin; ``history["service"]``). ``--log-dir``
 defaults to none here (``./logs`` in the JAX trainer).
 
 Data-parallel, one process per GPU under ``torchrun`` (NCCL; gloo with
@@ -130,6 +129,8 @@ from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_planner_flags,
     add_refresh_flags,
     add_telemetry_flags,
+    carve_service_world,
+    curvature_service,
     elastic_record,
     elastic_supervisor,
     factor_comm_kwargs,
@@ -138,6 +139,8 @@ from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     rank0_print,
     refresh_cadence,
     refresh_kwargs,
+    serve_curvature,
+    service_record,
     step_span,
 )
 from kfac_pytorch_tpu_torch.models import transformer_lm
@@ -149,7 +152,6 @@ from kfac_pytorch_tpu_torch.parallel.fsdp import FsdpParams
 from kfac_pytorch_tpu_torch.parallel.mesh import (
     World,
     data_fsdp_tensor_world,
-    data_parallel_world,
     data_seq_world,
     data_tensor_world,
     local_seq,
@@ -169,13 +171,6 @@ from kfac_pytorch_tpu_torch.training.step import (
 )
 
 SYNTHETIC_VOCAB = 1000
-
-# Flags of the JAX trainer this slice does not carry: (flag, type, default,
-# ROADMAP queue-1 item that ports it). Store-true flags have type None.
-_LATER_FLAGS = (
-    ("--service-devices", int, 0, "9d (service/)"),
-)
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
@@ -281,11 +276,6 @@ def parse_args(argv=None):
     add_telemetry_flags(p)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag, kind, default, _ in _LATER_FLAGS:
-        if kind is None:
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     sp = args.seq_parallel
     if sp > 1 and args.tensor_parallel > 1:
@@ -310,12 +300,6 @@ def parse_args(argv=None):
             "--service-devices carves a pure data-parallel mesh; it does "
             "not compose with --seq-parallel, --tensor-parallel or --fsdp"
         )
-    for flag, _, default, item in _LATER_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch trainer yet (ROADMAP "
-                f"queue 1 item {item})"
-            )
     return args
 
 
@@ -396,7 +380,9 @@ def check_world(args, world: World) -> None:
         factor_sharding=args.factor_sharding,
         comm_overlap=args.comm_overlap,
         staleness_budget=args.staleness_budget,
+        service_devices=args.service_devices,
     )
+    # the carved curvature workers are not part of the training world
     env = lever_env(
         world.size, world.size // max(1, tp), sp, fsdp >= 1 and tp > 1,
         track_diagnostics=args.kfac_diagnostics,
@@ -406,6 +392,7 @@ def check_world(args, world: World) -> None:
         has_moe_layers=args.moe_experts > 0,
         fac_update_freq=max(1, args.kfac_cov_update_freq),
         kfac_update_freq=max(1, args.kfac_update_freq),
+        service_devices=args.service_devices,
     )
     bad = planner.violations(cli_plan, env)
     if bad:
@@ -507,8 +494,13 @@ def main(argv=None) -> Dict[str, List]:
     tel = run_tel.tel
     device = launch.initialize(args.device)
     use_ieee_f32()
-    check_world(args, data_parallel_world())
-    if args.fsdp >= 1:
+    carve = carve_service_world(args)
+    if carve.worker:
+        return serve_curvature(build(args, device, world=carve.world)[1], carve, device)
+    check_world(args, carve.world)
+    if args.service_devices > 0:
+        world = carve.world
+    elif args.fsdp >= 1:
         world = data_fsdp_tensor_world(args.fsdp, args.tensor_parallel)
     elif args.tensor_parallel > 1:
         world = data_tensor_world(args.tensor_parallel)
@@ -577,6 +569,7 @@ def main(argv=None) -> Dict[str, List]:
         )
     eval_step = make_eval_step(model)
     writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
+    svc = curvature_service(args, kfac, cadence, sup, carve)
 
     for epoch in range(resume_from_epoch, args.epochs):
         if kfac_sched:
@@ -596,12 +589,16 @@ def main(argv=None) -> Dict[str, List]:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 ts = time.perf_counter()
+                if svc is not None:
+                    state.kfac_state = svc.before_step(step, state.kfac_state)
                 with step_span(tel, flags) as sp:
                     state, metrics = train_step(
                         state, batch, args.base_lr,
                         kfac.hparams.damping if kfac else 0.0, **flags,
                     )
                     sp.block(metrics)
+                if svc is not None:
+                    svc.after_step(step, state.kfac_state)
                 # one read of every scalar the host logs: waits for the step
                 with tel.span("comm/device_get"):
                     keys = sorted(metrics)
@@ -663,6 +660,8 @@ def main(argv=None) -> Dict[str, List]:
     snapshot = run_tel.close()
     if snapshot is not None:
         history["telemetry"] = snapshot
+    if svc is not None:
+        history["service"] = service_record(svc)
     return history
 
 

@@ -16,10 +16,9 @@ at their defaults from a planner profile (``planner/``); the CIFAR twin's
 ``--preempt-save-dir``/``--snapshot-every`` (the elastic runtime). ``--tied`` without
 ``--kfac-embedding`` leaves
 no preconditionable layer and trains with plain SGD, as the JAX trainer
-does. Every other flag of the JAX trainer is accepted with its default
-and, set to anything else, raises ``SystemExit`` naming the ROADMAP item
-that ports it. ``--log-dir`` defaults to none here (``./logs`` in the JAX
-trainer).
+does. ``--service-devices`` runs the curvature service's worker ranks, as
+in the CIFAR twin (``history["service"]``). ``--log-dir`` defaults to none
+here (``./logs`` in the JAX trainer).
 
 Data-parallel, one process per GPU under ``torchrun`` (NCCL; gloo with
 ``--device cpu``): ``--batch-size`` is the global batch, as in the JAX
@@ -75,6 +74,8 @@ from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     add_owner_flags,
     add_planner_flags,
     add_refresh_flags,
+    carve_service_world,
+    curvature_service,
     elastic_record,
     elastic_supervisor,
     factor_comm_kwargs,
@@ -82,12 +83,14 @@ from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
     rank0_print,
     refresh_cadence,
     refresh_kwargs,
+    serve_curvature,
+    service_record,
 )
 from kfac_pytorch_tpu_torch.examples.train_transformer_lm import device_batch, ranks_mean
 from kfac_pytorch_tpu_torch.models import wikitext_rnn
 from kfac_pytorch_tpu_torch.ops.factor_kernels import check_token_ids
 from kfac_pytorch_tpu_torch.parallel import launch
-from kfac_pytorch_tpu_torch.parallel.mesh import World, data_parallel_world, local_rows
+from kfac_pytorch_tpu_torch.parallel.mesh import World, local_rows
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.lm_step import (
@@ -97,13 +100,6 @@ from kfac_pytorch_tpu_torch.training.lm_step import (
 )
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, step_kind
-
-# Flags of the JAX trainer this twin does not carry: (flag, type, default,
-# ROADMAP queue-1 item that ports it). Store-true flags have type None.
-_LATER_FLAGS = (
-    ("--service-devices", int, 0, "9d (service/)"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -166,23 +162,11 @@ def build_parser() -> argparse.ArgumentParser:
     add_planner_flags(p, autotune=False)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag, kind, default, _ in _LATER_FLAGS:
-        if kind is None:
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, type=kind, default=default, help=argparse.SUPPRESS)
     return p
 
 
 def parse_args(argv=None):
-    args = build_parser().parse_args(argv)
-    for flag, _, default, item in _LATER_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) != default:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch trainer yet (ROADMAP "
-                f"queue 1 item {item})"
-            )
-    return args
+    return build_parser().parse_args(argv)
 
 
 def load_corpus(args):
@@ -255,7 +239,11 @@ def main(argv=None) -> Dict[str, List]:
     args = parse_args(argv)
     device = launch.initialize(args.device)
     use_ieee_f32()
-    world = data_parallel_world()
+    carve = carve_service_world(args)
+    world = carve.world
+    if carve.worker:
+        vocab = load_corpus(args)[1]
+        return serve_curvature(build(args, len(vocab), device, world)[1], carve, device)
     if args.batch_size % world.size:
         raise SystemExit(
             f"the data-parallel step splits the batch over {world.size} ranks; "
@@ -301,6 +289,7 @@ def main(argv=None) -> Dict[str, List]:
             history["restore_ms"].append((time.perf_counter() - t0) * 1e3)
             resume_from_epoch, resume_skip = divmod(step, steps_per_epoch)
             rank0_print(f"elastic: resumed from snapshot at step {step}")
+    svc = curvature_service(args, kfac, cadence, sup, carve)
     for epoch in range(resume_from_epoch, args.epochs):
         lr = args.base_lr
         for e in args.lr_decay:
@@ -327,10 +316,14 @@ def main(argv=None) -> Dict[str, List]:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             ts = time.perf_counter()
+            if svc is not None:
+                state.kfac_state = svc.before_step(step, state.kfac_state)
             state, carry, metrics = train_step(
                 state, batch, carry, generator, lr,
                 kfac.hparams.damping if kfac else 0.0, **flags,
             )
+            if svc is not None:
+                svc.after_step(step, state.kfac_state)
             # one read of every scalar the host logs: waits for the step
             keys = sorted(metrics)
             values = dict(zip(keys, torch.stack(
@@ -383,6 +376,8 @@ def main(argv=None) -> Dict[str, List]:
         sup.wait()  # join any in-flight background snapshot write
         history["elastic"] = elastic_record(sup)
     writer.close()
+    if svc is not None:
+        history["service"] = service_record(svc)
     return history
 
 

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from kfac_pytorch_tpu_torch.observability.telemetry import Telemetry
+from kfac_pytorch_tpu_torch.parallel import launch
 
 _PROM_PREFIX = "kfac"
 _SANITIZE = re.compile(r"[^a-zA-Z0-9_]")
@@ -98,8 +99,8 @@ def _comm_device() -> torch.device:
 
 def _allgather(t: torch.Tensor) -> np.ndarray:
     """``[n_proc, *t.shape]``: every process's ``t``."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(launch.size())]
+    dist.all_gather(parts, t, group=launch.world_group())
     return torch.stack(parts).cpu().numpy()
 
 
@@ -117,8 +118,8 @@ def _allgather_span_samples(hists):
     gather once more, and slice each rank's real samples back out by its
     count. Every rank reaches every collective.
     """
-    lists = [None] * dist.get_world_size()
-    dist.all_gather_object(lists, sorted(hists))
+    lists = [None] * launch.size()
+    dist.all_gather_object(lists, sorted(hists), group=launch.world_group())
     names = sorted(set().union(*lists))
     if not names:
         return {}
@@ -162,7 +163,7 @@ def summary_table(telemetry: Telemetry) -> str:
         n: (s["count"], s["sum"], s["p50"], s["p95"])
         for n, s in snap["spans"].items()
     }
-    n_proc = dist.get_world_size() if dist.is_initialized() else 1
+    n_proc = launch.size()
     if n_proc > 1:
         samples = _allgather_span_samples(telemetry.hists)
         rows = {

@@ -10,8 +10,11 @@ for the CPU. A process started without a launcher (no ``WORLD_SIZE`` and
 no ``init_method``) stays a single process: :func:`initialize` is then a
 no-op and every function here answers for a world of one.
 
-The process group is ``torch.distributed``'s own state; this module keeps
-none.
+The process group is ``torch.distributed``'s own state. The one thing
+this module keeps is the group its functions answer for
+(:func:`set_world_group`): the default group, or the training ranks once a
+curvature-service carve (``parallel.mesh.service_world``) has taken the
+trailing ranks as workers, which join no training collective.
 """
 
 from __future__ import annotations
@@ -67,14 +70,32 @@ def initialize(
     return dev
 
 
+# the group rank(), size() and the collectives below answer for (None: the
+# default group)
+_GROUP = None
+
+
+def set_world_group(group) -> None:
+    """Make ``group`` (a subgroup this process belongs to; None for the
+    default group) the world of :func:`rank`, :func:`size`,
+    :func:`barrier`, :func:`host_min` and :func:`broadcast_host_value`."""
+    global _GROUP
+    _GROUP = group
+
+
+def world_group():
+    """The group set by :func:`set_world_group` (None: the default group)."""
+    return _GROUP
+
+
 def rank() -> int:
     """This process's rank (``hvd.rank()``)."""
-    return dist.get_rank() if dist.is_initialized() else 0
+    return dist.get_rank(_GROUP) if dist.is_initialized() else 0
 
 
 def size() -> int:
     """The number of processes (``hvd.size()``): one per device."""
-    return dist.get_world_size() if dist.is_initialized() else 1
+    return dist.get_world_size(_GROUP) if dist.is_initialized() else 1
 
 
 def local_rank() -> int:
@@ -100,7 +121,7 @@ def barrier() -> None:
     wait for the slowest process."""
     if size() > 1:
         with get_telemetry().span("comm/barrier"):
-            dist.barrier()
+            dist.barrier(group=_GROUP)
 
 
 def host_min(value: int) -> int:
@@ -110,7 +131,7 @@ def host_min(value: int) -> int:
         return int(value)
     with get_telemetry().span("comm/host_min"):
         t = torch.tensor([int(value)], dtype=torch.int64, device=_comm_device())
-        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=_GROUP)
         return int(t.item())
 
 
@@ -122,6 +143,7 @@ def broadcast_host_value(value, root: int = 0):
     with get_telemetry().span("comm/broadcast"):
         arr = np.asarray(value)
         t = torch.from_numpy(np.ascontiguousarray(arr)).to(_comm_device())
-        dist.broadcast(t, src=root)
+        dist.broadcast(t, src=root if _GROUP is None else dist.get_global_rank(_GROUP, root),
+                       group=_GROUP)
         out = t.cpu().numpy()
     return out.item() if arr.ndim == 0 else out

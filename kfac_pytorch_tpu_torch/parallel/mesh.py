@@ -2,7 +2,7 @@
 
 Port of ``kfac_pytorch_tpu/parallel/mesh.py``'s one- and two-axis part
 (``data_parallel_mesh``, ``data_tensor_mesh``, ``data_axis_size``,
-``put_global_batch``). A JAX
+``put_global_batch``, ``split_service_mesh``). A JAX
 mesh of ``world`` devices on one data axis is, in PyTorch, a process group
 of ``world`` ranks with one device each: :class:`World` names that group
 and carries the collectives the port issues on it (the means of the
@@ -58,7 +58,11 @@ more subgroups come with it:
   tensor slot): the parameter gather of ``parallel/fsdp.py`` and a
   checkpoint's gather of the parameter slices.
 
-``split_service_mesh`` waits for ROADMAP queue 1 item 9d.
+The curvature-service carve (:func:`split_service_mesh`, the JAX
+function's counterpart, and :func:`service_world`) takes the TRAILING
+ranks as curvature workers, so the training world keeps the dense
+low-index prefix: its ranks form one subgroup, which carries every
+training collective, and the workers join none of them.
 
 Which rows of the global batch a rank holds: the global batch of a step is
 the concatenation of the data slots' batches in slot order (on a world
@@ -382,6 +386,42 @@ def data_fsdp_tensor_world(fsdp: int, tensor_parallel: int) -> World:
     return World(group=group, size=n // t_, rank=r // t_, distributed=True,
                  tensor_size=t_, tensor_rank=r % t_, tensor_group=tensor_group,
                  fsdp_size=f_, fsdp_rank=(r // t_) % f_, fsdp_group=fsdp_group)
+
+
+def split_service_mesh(service_devices: int, devices: Sequence[Any]) -> tuple:
+    """``(train, workers)``: ``devices`` (devices or ranks) split into the
+    leading ``len(devices) - service_devices`` that train and the trailing
+    ``service_devices`` curvature workers, both tuples. 0 keeps every one
+    training, so call sites thread the lever through unconditionally; at
+    least one must remain for training."""
+    devices = list(devices)
+    n = int(service_devices)
+    if n < 0:
+        raise ValueError(f"service_devices must be >= 0, got {service_devices}")
+    if n >= len(devices):
+        raise ValueError(
+            f"service_devices={n} leaves no training devices (have {len(devices)})"
+        )
+    return tuple(devices[: len(devices) - n]), tuple(devices[len(devices) - n:])
+
+
+def service_world(service_devices: int) -> tuple:
+    """``(world, workers)`` of the default group carved by
+    :func:`split_service_mesh`: ``workers`` the worker ranks, and ``world``
+    this rank's side, the training subgroup's world on a training rank and
+    the worker subgroup's on a worker (``launch.rank() in workers``). At 0
+    the default group's world and ``()``. Every rank creates both
+    subgroups, training first, as ``torch.distributed.new_group``
+    requires."""
+    world = data_parallel_world()
+    train, workers = split_service_mesh(service_devices, range(world.size))
+    if not workers:
+        return world, ()
+    g_train, g_work = dist.new_group(list(train)), dist.new_group(list(workers))
+    if world.rank in workers:
+        return World(group=g_work, size=len(workers), rank=world.rank - len(train),
+                     distributed=True), workers
+    return World(group=g_train, size=len(train), rank=world.rank, distributed=True), workers
 
 
 def batch_axes(world: World) -> tuple:

@@ -86,9 +86,8 @@ class Plan:
     # re-orthonormalizes at a kfac_update_freq boundary.
     stream_drift_threshold: float = 0.05
     # Decoupled curvature service: N devices carved out of the world as
-    # dedicated refresh workers (the JAX package's service/; the port's
-    # constructor refuses it until ROADMAP queue 1 item 9d). 0 = refresh
-    # stays in-step (bitwise-inert default).
+    # dedicated refresh workers (service/). 0 = refresh stays in-step
+    # (bitwise-inert default).
     service_devices: int = 0
     # Fused apply (ops/apply_kernels.py, kernels 3 and 4): "auto" resolves
     # like factor_kernel (the CUDA kernels on CUDA tensors, their plain

@@ -113,9 +113,13 @@ blocks of the split layers, added once to the replicated layers' sum
 (which every tensor slot holds whole and must not count ``T`` times), and,
 with ``track_diagnostics``, the norms and spectra of the same blocks.
 
+The curvature service (``service_devices > 0``, ``service/``) takes the
+refresh out of the training step: ``update`` refuses every refresh flag,
+and a ``service.CurvatureService`` publishes factor snapshots to its
+worker and installs the bases it publishes back between steps.
+
 The constructor takes every argument of the reference with its default and
-validation. Levers outside the ported slices raise ``NotImplementedError``
-naming the ROADMAP queue-1 item that ports them.
+validation.
 """
 
 from __future__ import annotations
@@ -142,6 +146,7 @@ from kfac_pytorch_tpu_torch.ops import factor_kernels as factor_kernel_ops
 from kfac_pytorch_tpu_torch.ops import factors as factor_ops
 from kfac_pytorch_tpu_torch.ops import precondition as precond_ops
 from kfac_pytorch_tpu_torch.ops import streaming as streaming_ops
+from kfac_pytorch_tpu_torch.parallel import launch
 from kfac_pytorch_tpu_torch.parallel.assignment import (
     layer_assignment,
     plan_eigh_chunks,
@@ -198,13 +203,6 @@ def _side_spectrum(e: Dict[str, torch.Tensor], side: str) -> torch.Tensor:
 def _validate(name: str, ok: bool, value) -> None:
     if not ok:
         raise ValueError(f"Invalid {name}: {value}")
-
-
-def _not_ported(lever: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{lever} is not ported to kfac_pytorch_tpu_torch yet (ROADMAP "
-        f"queue 1 item {item})"
-    )
 
 
 # the planner's names of the factor wire dtypes
@@ -379,7 +377,7 @@ class KFAC:
             "service_devices": service_devices,
         }
         self._lever_env = lever_env(
-            dist.get_world_size() if world.distributed else 1, world.size, seq_parallel,
+            launch.size() if world.distributed else 1, world.size, seq_parallel,
             world.tensor_size > 1, precond_method=precond_method, diag_blocks=diag_blocks,
             distribute_precondition=distribute_precondition,
             track_diagnostics=track_diagnostics, fac_update_freq=fac_update_freq,
@@ -424,6 +422,11 @@ class KFAC:
             isinstance(staleness_budget, int) and staleness_budget >= 0,
             staleness_budget,
         )
+        _validate(
+            "service_devices",
+            isinstance(service_devices, int) and service_devices >= 0,
+            service_devices,
+        )
         _validate("eigen_dtype", eigen_dtype in EIGEN_DTYPES, eigen_dtype)
         # The lever-composition refusals: exactly the constructor rows of the
         # planner's table (planner/profiles.py RULES), each with the JAX
@@ -431,8 +434,6 @@ class KFAC:
         # degrades them
         self._lever_plan = Plan(**levers)
         self._refuse()
-        if service_devices != 0:
-            _not_ported("service_devices (curvature service)", "9d")
         if diag_blocks != 1:
             print(
                 "WARNING: the block-diagonal factor approximation "
@@ -543,6 +544,9 @@ class KFAC:
         self.solver_auto_threshold = int(solver_auto_threshold)
         self.stream_drift_threshold = float(stream_drift_threshold)
         self.staleness_budget = int(staleness_budget)
+        # Curvature service (service/): N workers refresh the bases out of
+        # band from published factor snapshots and update() runs no refresh
+        self.service_devices = int(service_devices)
         # Host-side signals of the cadence, zero-argument callables: the
         # streaming drift gauge (trainers point it at
         # state["stream_residual"]; None re-orthonormalizes at every
@@ -1128,6 +1132,15 @@ class KFAC:
             )
         if damping is None:
             damping = self.hparams.damping
+        if self.service_devices > 0 and (update_eigen or eigen_chunk is not None or swap_eigen):
+            # the zero-eigh training step the service promises: no flag
+            # combination runs a refresh here
+            raise ValueError(
+                "service_devices > 0 delegates the curvature refresh to "
+                "dedicated workers — the training step must never run "
+                "update_eigen/eigen_chunk/swap_eigen; refreshed bases "
+                "arrive via service.ServiceClient.install between steps"
+            )
         if eigen_chunk is not None:
             if self.eigh_chunks <= 1:
                 raise ValueError(
@@ -1633,13 +1646,7 @@ class KFAC:
         diagonal under the reference's floor), the spectrum mass when
         ``with_mass``, the diagnostics' spectra, the singles/stacked split.
         Returns ``(singles, stacked, spectrum_mass, fresh_spectra)``."""
-        full = {n: dict(e) for n, e in full.items()}
-        for name in names:
-            if "A_diag" in facs[name]:
-                d = facs[name]["A_diag"]
-                full[name]["dA"] = d * (d > self.eps)
-        if with_mass:
-            spectrum_mass = self._spectrum_mass(facs, full, names)
+        full, spectrum_mass = self._finish_refresh(facs, full, names, spectrum_mass, with_mass)
         fresh_spectra = None
         if self.track_diagnostics:
             # a shard-lens layer's spectra are its blocks' eigenvalues, flat
@@ -1653,6 +1660,21 @@ class KFAC:
                     fresh_spectra[n] = (_side_spectrum(full[n], "A"), _side_spectrum(full[n], "G"))
         singles, stacked = precond_ops.split_eigen_state(full)
         return singles, stacked, spectrum_mass, fresh_spectra
+
+    def _finish_refresh(self, facs, full, names, spectrum_mass, with_mass):
+        """A refreshed full per-layer eigen dict completed as every refresh
+        completes it (the inline one and the curvature service's worker):
+        the embeddings' ``dA`` is the current ``A_diag`` under the floor, and
+        with ``with_mass`` the spectrum mass is recomputed. Returns
+        ``(full, spectrum_mass)``."""
+        full = {n: dict(e) for n, e in full.items()}
+        for name in names:
+            if "A_diag" in facs[name]:
+                d = facs[name]["A_diag"]
+                full[name]["dA"] = d * (d > self.eps)
+        if with_mass:
+            spectrum_mass = self._spectrum_mass(facs, full, names)
+        return full, spectrum_mass
 
     @staticmethod
     def _is_conv(grads, name: str) -> bool:

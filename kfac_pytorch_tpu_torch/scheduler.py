@@ -15,8 +15,11 @@ catch-ups, forced flushes and re-orthonormalizations as flight-recorder
 events (``observability/trace.py``). The gauges read the cadence's
 counters: ``_reorth_count``, ``_swap_slip``, ``_flush_slip``,
 ``_since_flush`` (capture steps since the last deferred flush) and
-``basis_age`` (steps since the last refresh or swap). The curvature
-service's gauges wait for ROADMAP queue 1 item 9d.
+``basis_age`` (steps since the last refresh or swap). Under the curvature
+service (``service_devices > 0``) no refresh flag ever fires, the deferred
+flush is forced at every boundary (the published snapshot is the merged
+factors), and the service gauges read the worker count and the installed
+basis's version and slip (:meth:`EigenRefreshCadence.note_basis_installed`).
 """
 
 from __future__ import annotations
@@ -212,8 +215,10 @@ class EigenRefreshCadence:
         self._basis_slip = int(d.get("basis_slip", 0))
 
     def note_basis_installed(self, version: int, step: int, slip: int = 0) -> None:
-        """Record a curvature-service basis install (the service is ROADMAP
-        queue 1 item 9d): it is that mode's refresh event."""
+        """Record a curvature-service basis install before ``step``
+        (``service.ServiceClient.install``): it is that mode's refresh
+        event, and ``slip`` (steps past the staleness-0 ideal, at most
+        ``staleness_budget``) feeds ``kfac/basis_staleness_steps``."""
         self._basis_version = int(version)
         self._basis_installed_step = int(step)
         self._basis_slip = int(slip)
@@ -244,7 +249,12 @@ class EigenRefreshCadence:
         # a swap slips only into the interval's chunk-free tail
         swap_allowance = min(budget, hp.kfac_update_freq - k_eff)
         streaming = getattr(self.kfac, "solver", "eigh") == "streaming"
-        if streaming:
+        service = int(getattr(self.kfac, "service_devices", 0) or 0) > 0
+        if service:
+            # the workers refresh out of band and the service installs
+            # their bases between steps: only capture stays in the step
+            pass
+        elif streaming:
             if boundary:
                 signal = getattr(self.kfac, "stream_drift_signal", None)
                 if not self._bootstrapped or signal is None:
@@ -320,12 +330,13 @@ class EigenRefreshCadence:
                     self._last_refresh_step = step
         comm = getattr(self.kfac, "factor_comm", None)
         if comm is not None and comm.defer:
-            self._flush_flag(flags, step, chunk, boundary, streaming, budget, slipping, comm)
+            self._flush_flag(flags, step, chunk, boundary, streaming or service, budget,
+                             slipping, comm)
         self.basis_age = 0 if self._last_refresh_step is None else step - self._last_refresh_step
-        self._publish(k_eff, chunk, streaming, comm)
+        self._publish(k_eff, chunk, streaming, comm, service)
         return flags
 
-    def _publish(self, k_eff, chunk, streaming, comm) -> None:
+    def _publish(self, k_eff, chunk, streaming, comm, service=False) -> None:
         """The JAX cadence's per-step gauges."""
         tel = get_telemetry()
         if not tel.enabled:
@@ -354,14 +365,22 @@ class EigenRefreshCadence:
             )
             tel.set_gauge("kfac/stream_reorth_count", self._reorth_count)
             tel.set_gauge("kfac/stream_basis_age_steps", self.basis_age)
+        if service:
+            # the carved workers, the version of the basis preconditioning
+            # now and how late it was installed
+            tel.set_gauge("kfac/service_worker_count", int(self.kfac.service_devices))
+            tel.set_gauge("kfac/basis_version", self._basis_version)
+            tel.set_gauge("kfac/basis_staleness_steps", self._basis_slip)
 
-    def _flush_flag(self, flags, step, chunk, boundary, streaming, budget, slipping, comm):
+    def _flush_flag(self, flags, step, chunk, boundary, every_boundary, budget, slipping, comm):
         """The deferred factor flush of ``step`` into ``flags``: forced
-        before eigen work reads the factors (a refresh, chunk 0; under
-        streaming every boundary, so the fold's input never depends on the
-        drift verdict), due every ``comm_freq``-th capture step, and a due
-        flush slipped under pressure within the staleness budget."""
-        forced = flags["update_eigen"] or chunk == 0 or (streaming and boundary)
+        before eigen work reads the factors (a refresh, chunk 0; with
+        ``every_boundary``, under streaming or the curvature service, every
+        boundary, so the fold's input never depends on the drift verdict and
+        the published snapshot is merged), due every ``comm_freq``-th capture
+        step, and a due flush slipped under pressure within the staleness
+        budget."""
+        forced = flags["update_eigen"] or chunk == 0 or (every_boundary and boundary)
         due = comm.flush_due(step, self.kfac.hparams.fac_update_freq)
         flush = forced or due
         if budget > 0 and not forced:

@@ -1,6 +1,6 @@
 """Gradient accumulation and the K-FAC diagnostics against the JAX package.
 
-* 4 ResNet-8 train steps (one block per stage) with gradient accumulation over 2 microbatches,
+* 2 ResNet-8 train steps (one block per stage; a refresh, a capture step) with gradient accumulation over 2 microbatches,
   K-FAC statistics from the last microbatch and from every one
   (``tests/test_torch_port_options.py::run_option_train_steps``: the
   loss, every tensor and the ``kfac_*`` diagnostics after every step, at

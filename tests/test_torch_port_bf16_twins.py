@@ -23,6 +23,7 @@ import json
 import os
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,7 +133,7 @@ def test_imagenet_options_match_jax(option):
                **HP, **kfac_kw)
     tk = KFAC(layers=capture.discover_layers(model), device="cpu", **HP, **kfac_kw)
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-                         opt_state=jtx.init(params), kfac_state=jk.init(params))
+                         opt_state=jtx.init(params), kfac_state=jax.jit(jk.init)(params))
     tstate = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
                         kfac_state=tk.init(model))
     jstep = jmake_train_step(jmodel, jtx, jk, label_smoothing=SMOOTH,

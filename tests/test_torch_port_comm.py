@@ -215,10 +215,17 @@ def _deferred_inputs(world, steps=6):
     )
 
 
-def _lm_inputs(world):
+def _jax_lm():
+    """The JAX LM, its init batch and its parameters (the init jitted: one
+    compile costs less than the eager ops' first dispatches)."""
     jmodel = jlm.get_model(LM_VOCAB, **LM_MODEL_KW)
     init = jnp.zeros((LM_BATCH, LM_SEQ), jnp.int32)
-    params = jmodel.init(jax.random.PRNGKey(3), init, train=True)["params"]
+    params = jax.jit(lambda k, x: jmodel.init(k, x, train=True))(jax.random.PRNGKey(3), init)
+    return jmodel, init, params["params"]
+
+
+def _lm_inputs(world):
+    jmodel, init, params = _jax_lm()
     r = np.random.RandomState(44)
     batches = [(r.randint(0, LM_VOCAB, size=(world * LM_BATCH, LM_SEQ)).astype(np.int32),
                 r.randint(0, LM_VOCAB, size=(world * LM_BATCH, LM_SEQ)).astype(np.int32))
@@ -526,9 +533,7 @@ def test_lm_slice_on_two_ranks_matches_jax(ranks):
     inputs, res = ranks(2)
     lm = inputs["lm"]
     mesh = _mesh(2)
-    jmodel = jlm.get_model(LM_VOCAB, **LM_MODEL_KW)
-    init = jnp.zeros((LM_BATCH, LM_SEQ), jnp.int32)
-    params = jmodel.init(jax.random.PRNGKey(3), init, train=True)["params"]
+    jmodel, init, params = _jax_lm()
     jk = JKFAC(layers=jcapture.discover_layers(jmodel, init, train=True), mesh=mesh,
                factor_comm_dtype="bf16", factor_comm_freq=2, **LM_HP)
     jtx = jmake_sgd(LM_MOMENTUM, LM_WD)

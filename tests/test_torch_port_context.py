@@ -87,8 +87,10 @@ def _lm_batch():
 def _jax_lm_params():
     """The JAX LM's initial parameters (numpy)."""
     x = jnp.asarray(_lm_batch()[0].astype(np.int32))
-    return _np_tree(jlm.get_model(VOCAB, **LM_KW).init(jax.random.PRNGKey(0), x,
-                                                        train=True)["params"])
+    model = jlm.get_model(VOCAB, **LM_KW)
+    # jitted: one compile costs less than the eager ops' first dispatches
+    return _np_tree(jax.jit(lambda k, v: model.init(k, v, train=True))(
+        jax.random.PRNGKey(0), x)["params"])
 
 
 def _jax_lm_run(init):
@@ -103,7 +105,7 @@ def _jax_lm_run(init):
     kfac = JKFAC(damping=0.01, fac_update_freq=1, kfac_update_freq=1)
     tx = jmake_sgd(momentum=0.9)
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
-                        opt_state=tx.init(params), kfac_state=kfac.init(params))
+                        opt_state=tx.init(params), kfac_state=jax.jit(kfac.init)(params))
     step = jmake_train_step(model, tx, kfac, train_kwargs={"train": True})
     state = jax.device_put(state, NamedSharding(mesh, P()))
     batch = jax.device_put((x, y), NamedSharding(mesh, P("data", "seq")))

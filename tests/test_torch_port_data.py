@@ -128,7 +128,8 @@ def test_synthetic_cifar_like_matches_jax_bitwise():
 def test_masked_eval_and_bn_recal_match_jax():
     jmodel = jresnet.get_model("resnet20")
     init = jnp.zeros((4, 32, 32, 3), jnp.float32)
-    variables = jmodel.init(jax.random.PRNGKey(5), init, train=True)
+    # jitted: one compile costs less than the eager ops' first dispatches
+    variables = jax.jit(lambda k, x: jmodel.init(k, x, train=True))(jax.random.PRNGKey(5), init)
     params, stats = variables["params"], variables["batch_stats"]
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, jax.device_get(t))  # noqa: E731
     model = cifar_resnet.get_model("resnet20")

@@ -440,6 +440,36 @@ def solver_results(spawned):
     return lambda world: _part(spawned, world, "solver")
 
 
+@pytest.fixture(scope="module")
+def solver_jax(spawned):
+    """The JAX package's sharded refresh and chunked pass on its 8-device
+    mesh, once for both worlds (their inputs are the same): ``{solver:
+    (want, want_chunked)}`` as reconstructions."""
+    from kfac_pytorch_tpu.parallel.sharded_eigh import build_slots as jbuild_slots
+    from kfac_pytorch_tpu.parallel.sharded_eigh import replicated_eigen_update as jreplicated
+    from kfac_pytorch_tpu.parallel.sharded_eigh import sharded_eigen_chunk_update as jchunk
+
+    inputs = spawned[2][0]["solver"]
+    names = list(SOLVER_LAYERS)
+    jfacs = {n: {k: jnp.asarray(v) for k, v in f.items()} for n, f in inputs["factors"].items()}
+    mesh = _mesh(8)
+    table = jassign.layer_assignment(names, inputs["is_conv"], 8, None, 1)
+    out = {}
+    for key, fn in (("rsvd", _rank_fn), ("dense", None)):
+        want = _reconstruct_lr(jax.device_get(
+            jax.jit(lambda f, fn=fn: jsharded(f, table, mesh, rank_fn=fn))(jfacs)))
+        slots = jbuild_slots(jfacs, table)
+        plan = jassign.plan_eigh_chunks(slots, SOLVER_CHUNKS, rank_fn=fn)
+        pending = jax.tree_util.tree_map(
+            jnp.zeros_like, jreplicated(jfacs, {n: 1 for n in names}, rank_fn=fn))
+        for c in range(SOLVER_CHUNKS):
+            part = [slots[i] for i in plan[c]]
+            pending = jax.jit(lambda f, p, part=part, fn=fn: jchunk(
+                f, p, part, mesh, rank_fn=fn))(jfacs, pending)
+        out[key] = want, _reconstruct_lr(jax.device_get(pending))
+    return out
+
+
 def _reconstruct_lr(eigen):
     out = {}
     for n, e in eigen.items():
@@ -458,34 +488,16 @@ def _rank_fn(n):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_sharded_rank_aware_and_chunked_refresh_match_jax(solver_results, world):
-    from kfac_pytorch_tpu.parallel.sharded_eigh import build_slots as jbuild_slots
-    from kfac_pytorch_tpu.parallel.sharded_eigh import replicated_eigen_update as jreplicated
-    from kfac_pytorch_tpu.parallel.sharded_eigh import sharded_eigen_chunk_update as jchunk
-
-    inputs, ranks = solver_results(world)
+def test_sharded_rank_aware_and_chunked_refresh_match_jax(solver_results, solver_jax, world):
+    _, ranks = solver_results(world)
     for other in ranks[1:]:
         for key in ranks[0]:
             if key.startswith(("sharded", "chunked_sharded")):
                 for n, e in ranks[0][key].items():
                     for k, v in e.items():
                         np.testing.assert_array_equal(other[key][n][k], v)
-    names = list(SOLVER_LAYERS)
-    jfacs = {n: {k: jnp.asarray(v) for k, v in f.items()} for n, f in inputs["factors"].items()}
-    mesh = _mesh(8)
-    table = jassign.layer_assignment(names, inputs["is_conv"], 8, None, 1)
-    for key, fn in (("rsvd", _rank_fn), ("dense", None)):
-        want = _reconstruct_lr(jax.device_get(
-            jax.jit(lambda f, fn=fn: jsharded(f, table, mesh, rank_fn=fn))(jfacs)))
-        slots = jbuild_slots(jfacs, table)
-        plan = jassign.plan_eigh_chunks(slots, SOLVER_CHUNKS, rank_fn=fn)
-        pending = jax.tree_util.tree_map(
-            jnp.zeros_like, jreplicated(jfacs, {n: 1 for n in names}, rank_fn=fn))
-        for c in range(SOLVER_CHUNKS):
-            part = [slots[i] for i in plan[c]]
-            pending = jax.jit(lambda f, p, part=part, fn=fn: jchunk(
-                f, p, part, mesh, rank_fn=fn))(jfacs, pending)
-        want_chunked = _reconstruct_lr(jax.device_get(pending))
+    for key in ("rsvd", "dense"):
+        want, want_chunked = solver_jax[key]
         rep = _reconstruct_lr(ranks[0][f"replicated_{key}"])
         for got_key in (f"sharded_{key}", f"chunked_sharded_{key}", f"chunked_replicated_{key}"):
             got = _reconstruct_lr(ranks[0][got_key])

@@ -66,15 +66,16 @@ def test_port_imports_nothing_of_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 20, res.stdout
     # the native loader, the data-parallel modules, the factor comm plane,
-    # the shard lenses, the 3-D world's compute split and fsdp parts and
-    # the elastic runtime among them
+    # the shard lenses, the 3-D world's compute split and fsdp parts, the
+    # elastic runtime and the curvature service among them
     imported = set(res.stdout.splitlines()[1].split())
     assert {f"kfac_pytorch_tpu_torch.{m}" for m in (
         "runtime", "runtime.loader", "parallel.launch", "parallel.mesh",
         "parallel.assignment", "parallel.sharded_eigh", "parallel.comm",
         "parallel.tensor", "parallel.fsdp", "shardwise", "shardwise.lenses",
         "elastic", "elastic.state_io", "elastic.replan", "elastic.supervisor",
-        "elastic.faults")} <= imported, res.stdout
+        "elastic.faults", "service", "service.mailbox", "service.worker",
+        "service.client")} <= imported, res.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -188,16 +189,11 @@ def test_every_jax_trainer_flag_parses_or_names_its_item():
     jax_flags = _jax_trainer_flags()
     assert len(jax_flags) > 50
     ported = set(trainer.build_parser()._option_string_actions)
-    later = {flag: (kind, item) for flag, kind, _, item in trainer._LATER_FLAGS}
-    assert set(later) <= set(jax_flags)
+    # every flag is ported since the curvature service (item 9d), the last
+    # one each trainer refused
     for flag in jax_flags:
-        assert flag in ported, f"{flag} is neither ported nor refused"
-        if flag not in later:
-            continue
-        kind, item = later[flag]
-        value = [] if kind is None else [{str: "x", int: "7", float: "0.5"}[kind]]
-        with pytest.raises(SystemExit, match=f"queue 1 item {item.split()[0]} "):
-            trainer.parse_args([flag, *value])
+        assert flag in ported, f"{flag} is not ported"
+    assert trainer.parse_args(["--service-devices", "7"]).service_devices == 7
     args = trainer.parse_args(["--precond-method", "inverse", "--diag-blocks", "4",
                                "--diag-warmup", "1", "--batches-per-allreduce", "2",
                                "--stats-all-microbatches", "--kfac-diagnostics",
@@ -221,16 +217,11 @@ def test_every_jax_wikitext_flag_parses_or_names_its_item():
     jax_flags = _jax_trainer_flags("train_wikitext_rnn.py")
     assert len(jax_flags) > 30
     ported = set(trainer.build_parser()._option_string_actions)
-    later = {flag: (kind, item) for flag, kind, _, item in trainer._LATER_FLAGS}
-    assert set(later) <= set(jax_flags)
+    # every flag is ported since the curvature service (item 9d), the last
+    # one each trainer refused
     for flag in jax_flags:
-        assert flag in ported, f"{flag} is neither ported nor refused"
-        if flag not in later:
-            continue
-        kind, item = later[flag]
-        value = [] if kind is None else [{str: "x", int: "7", float: "0.5"}[kind]]
-        with pytest.raises(SystemExit, match=f"queue 1 item {item.split()[0]} "):
-            trainer.parse_args([flag, *value])
+        assert flag in ported, f"{flag} is not ported"
+    assert trainer.parse_args(["--service-devices", "7"]).service_devices == 7
     args = trainer.parse_args(["--tied", "--kfac-embedding", "--model", "GRU",
                                "--apply-kernel", "dense", "--lr-decay", "3", "4"])
     assert (args.tied, args.kfac_embedding, args.model, args.lr_decay) == (True, True, "GRU", [3, 4])
@@ -246,9 +237,11 @@ def _open_items():
 
 
 def test_refusals_name_open_roadmap_items():
-    """Every "ROADMAP queue 1 item N" the port still names (a refusal of
-    ``KFAC``, a trainer's later-flag table, a docstring) is an item
-    ROADMAP.md still lists as open."""
+    """Every "ROADMAP queue 1 item N" the port names (a refusal of ``KFAC``,
+    a trainer's later-flag table, a docstring) was an item ROADMAP.md still
+    listed as open. The curvature service (item 9d) closed queue 1: the
+    port names no item, keeps no ``_not_ported`` refusal and no trainer
+    table of later flags, and ROADMAP.md's "Still to port:" names none."""
     import importlib
 
     port = os.path.join(REPO, "kfac_pytorch_tpu_torch")
@@ -260,11 +253,9 @@ def test_refusals_name_open_roadmap_items():
             src = open(os.path.join(root, f)).read()
             named |= set(re.findall(r"queue 1 item (\d+[a-z]?)", src))
             for node in ast.walk(ast.parse(src)):
-                if (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "_not_ported"):
+                if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "_not_ported":
                     named.add(node.args[1].value)
     for name in ("train_cifar10_resnet", "train_transformer_lm", "train_wikitext_rnn"):
         trainer = importlib.import_module(f"kfac_pytorch_tpu_torch.examples.{name}")
-        named |= {item.split()[0] for *_, item in trainer._LATER_FLAGS}
-    open_items = _open_items()
-    assert named and open_items
-    assert named <= open_items, sorted(named - open_items)
+        assert not hasattr(trainer, "_LATER_FLAGS"), name
+    assert named == set() and _open_items() == set()

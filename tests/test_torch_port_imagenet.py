@@ -9,8 +9,9 @@
 * On a tiny ResNeXt (``ImageNetResNet(Bottleneck, (1, 1), groups=4,
   width_per_group=4)``, 32×32 images, batch 4), ``discover_layers`` gives
   the JAX package's pseudo-layer set (module paths spelled the torchvision
-  way), the eval forward matches, and 4 train steps with label smoothing
-  0.1 match the JAX package with K-FAC on (``kfac_update_freq=2``) and off.
+  way), the eval forward matches, and 2 train steps (a refresh, a capture
+  step) with label smoothing 0.1 match the JAX package with K-FAC on
+  (``kfac_update_freq=2``) and off.
 * The trainer twin runs 3 CPU steps; its unported flags raise naming their
   ROADMAP items. ``diag_warmup`` with one diagonal block changes nothing.
 
@@ -47,7 +48,7 @@ from kfac_pytorch_tpu_torch.training.step import (
 )
 
 TINY = ("bottleneck", (1, 1))
-BATCH, SIZE, STEPS, CLASSES = 4, 32, 4, 10
+BATCH, SIZE, STEPS, CLASSES = 4, 32, 2, 10
 LR, MOMENTUM, WD, SMOOTH = 0.1, 0.9, 5e-5, 0.1
 HP = dict(lr=LR, factor_decay=0.95, damping=0.003, kl_clip=0.001,
           fac_update_freq=1, kfac_update_freq=2)
@@ -214,7 +215,7 @@ def test_tiny_resnext_train_steps_match_jax(use_kfac):
         tk = KFAC(layers=capture.discover_layers(model), device="cpu", **HP)
     jstate = JTrainState(
         step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-        opt_state=jtx.init(params), kfac_state=jk.init(params) if jk else None,
+        opt_state=jtx.init(params), kfac_state=jax.jit(jk.init)(params) if jk else None,
     )
     tstate = TrainState(
         step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),

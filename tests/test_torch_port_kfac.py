@@ -310,7 +310,8 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
     ported: ``eigh_chunks`` and ``solver`` are accepted and kept. Item 7b's
     (``factor_sharding="owner"``, ``comm_overlap``) are accepted and, on one
     process, warn and degrade to the replicated, serial plane, as in the JAX
-    package on a single device. Item 6b's
+    package on a single device. Item 9d's ``service_devices`` is kept and
+its training step refuses a refresh. Item 6b's
     ``factor_comm_dtype`` is accepted and, on one process, warns that it
     changes nothing, as in the JAX package without a mesh. Item 9b's
     ``profile=`` resolves a plan: on one CPU process "production" engages
@@ -345,8 +346,14 @@ def test_levers_of_later_slices_raise(kwargs, item, capsys):
         assert kfac.factor_comm.comm_dtype == torch.bfloat16 and not kfac.factor_comm.multi_device
         assert "have no effect on a world of one rank" in capsys.readouterr().out
         return
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        KFAC(device="cpu", **kwargs)
+    # item 9d's curvature service is ported: the lever is kept and the
+    # training step refuses every refresh flag
+    kfac = KFAC(device="cpu", **kwargs)
+    assert kfac.service_devices == 1
+    net = _dense_net([3, 2])
+    with pytest.raises(ValueError, match="ServiceClient.install"):
+        kfac.update(_dense_stats(net, np.random.RandomState(0))[2], kfac.init(net), lr=0.1,
+                    update_factors=False, update_eigen=True)
 
 
 def test_inverse_method_refuses_blocks_and_the_apply_kernel(capsys):

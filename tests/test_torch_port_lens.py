@@ -89,7 +89,9 @@ def _np_tree(tree):
 def _jax_lm(seed, **kw):
     model = jlm.get_model(VOCAB, **MODEL_KW, **kw)
     init = jnp.zeros((BATCH, SEQ), jnp.int32)
-    return model, init, model.init(jax.random.PRNGKey(seed), init, train=True)["params"]
+    # jitted: one compile costs less than the eager ops' first dispatches
+    params = jax.jit(lambda k, x: model.init(k, x, train=True))(jax.random.PRNGKey(seed), init)
+    return model, init, params["params"]
 
 
 def _port_lm(params, **kw):
@@ -204,7 +206,7 @@ def test_lens_update_matches_jax(method):
     names = [f"qkv{capture.SPLIT_SEP}{k}" for k in range(s)]
     hp = dict(damping=0.01, precond_method=method, factor_decay=0.9)
     jk = JKFAC(layers=jnames, **hp)
-    jstate = jk.init({"qkv": {"kernel": jnp.zeros((cin, s * m)), "bias": jnp.zeros((s * m,))}})
+    jstate = jax.jit(jk.init)({"qkv": {"kernel": jnp.zeros((cin, s * m)), "bias": jnp.zeros((s * m,))}})
     model = torch.nn.Module()
     model.qkv = KFACDense(cin, s * m, lens_splits=s)
     tk = KFAC(layers=names, device="cpu", **hp)
@@ -238,7 +240,7 @@ def test_lens_lm_train_steps_match_jax():
     jk = JKFAC(layers=jcapture.discover_layers(jmodel, init, train=True), **HP)
     tk = KFAC(layers=capture.discover_layers(model), device="cpu", **HP)
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
-                         opt_state=jtx.init(params), kfac_state=jk.init(params))
+                         opt_state=jtx.init(params), kfac_state=jax.jit(jk.init)(params))
     tstate = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
                         kfac_state=tk.init(model))
     jstep = jmake_train_step(jmodel, jtx, jk, train_kwargs={"train": True}, grad_clip=CLIP,

@@ -75,8 +75,9 @@ def one_torch_thread():
 def _jax_init(seed):
     model = jlm.get_model(VOCAB, **MODEL_KW)
     init = jnp.zeros((BATCH, SEQ), jnp.int32)
-    params = model.init(jax.random.PRNGKey(seed), init, train=True)["params"]
-    return model, init, params
+    # jitted: one compile costs less than the eager ops' first dispatches
+    params = jax.jit(lambda k, x: model.init(k, x, train=True))(jax.random.PRNGKey(seed), init)
+    return model, init, params["params"]
 
 
 def _np_tree(tree):
@@ -174,7 +175,7 @@ def test_lm_train_steps_match_jax(use_kfac):
             == sorted(tk.layers)
     jstate = JTrainState(
         step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
-        opt_state=jtx.init(params), kfac_state=jk.init(params) if jk else None,
+        opt_state=jtx.init(params), kfac_state=jax.jit(jk.init)(params) if jk else None,
     )
     tstate = TrainState(
         step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
@@ -309,7 +310,9 @@ def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
     warns and runs replicated, as in the JAX trainer), and
     ``--seq-parallel 2`` and ``--tensor-parallel 2`` need two ranks, as the
     JAX trainer needs two devices (they train on gloo ranks in
-    ``test_torch_port_context.py`` and ``test_torch_port_moe.py``);
+    ``test_torch_port_context.py`` and ``test_torch_port_moe.py``), and
+    item 9d's ``--service-devices 1`` needs a rank left to train (the
+    twins train with it on gloo ranks in ``test_torch_port_service.py``);
     ``--fsdp`` refuses ``--seq-parallel`` with the JAX trainer's message."""
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
 
@@ -320,6 +323,11 @@ def test_lm_trainer_refuses_flags_of_later_slices(argv, item):
         return
     if argv[0] in ("--seq-parallel", "--tensor-parallel"):
         with pytest.raises(SystemExit, match=f"{argv[0]} 2 must divide device count 1"):
+            trainer.main([*TINY, *argv])
+        return
+    if argv[0] == "--service-devices":
+        # the carve takes trailing ranks: one process leaves none to train
+        with pytest.raises(ValueError, match="leaves no training devices"):
             trainer.main([*TINY, *argv])
         return
     with pytest.raises(SystemExit, match=item):

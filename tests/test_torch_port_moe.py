@@ -98,7 +98,7 @@ def _jax_run(model, init, params):
     kfac = JKFAC(layers=jcapture.discover_layers(model, init, train=True), **HP)
     tx = jmake_sgd(momentum=0.9)
     state = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
-                        opt_state=tx.init(params), kfac_state=kfac.init(params))
+                        opt_state=tx.init(params), kfac_state=jax.jit(kfac.init)(params))
     step = jmake_train_step(model, tx, kfac, train_kwargs={"train": True})
     losses, after = [], []
     for i, (x, y) in enumerate(_batches()):

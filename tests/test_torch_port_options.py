@@ -20,6 +20,7 @@ the port's side takes its ``"auto"`` routes (the plain versions on CPU
 tensors; the inverse method takes the dense apply).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,7 +47,7 @@ from kfac_pytorch_tpu_torch.training.step import (
 )
 from tests.test_torch_port_kfac import LAYERS, ConvDenseNet, _problem
 from tests.test_torch_port_train import (
-    BATCH, HP, LR, MOMENTUM, STEP_ARCH, WD, _batches, _np_tree, step_models,
+    BATCH, HP, LR, MOMENTUM, STEP_ARCH, STEPS, WD, _batches, _np_tree, step_models,
 )
 
 
@@ -158,8 +159,9 @@ OPTIONS = {
     "inverse": dict(kfac=dict(precond_method="inverse")),
     # one block in epoch 0 (step 0's refresh), two in epoch 1 (step 2's)
     "blocks": dict(kfac=dict(diag_blocks=2, diag_warmup=1)),
-    "accum_last": dict(step=dict(accum_steps=2)),
-    "accum_all": dict(step=dict(accum_steps=2, stats_all_microbatches=True)),
+    # a refresh and a capture step
+    "accum_last": dict(step=dict(accum_steps=2), steps=2),
+    "accum_all": dict(step=dict(accum_steps=2, stats_all_microbatches=True), steps=2),
 }
 
 
@@ -169,9 +171,10 @@ def test_option_train_steps_match_jax(option):
 
 
 def run_option_train_steps(option):
-    """4 ``STEP_ARCH`` steps of ``OPTIONS[option]`` in both packages, compared
-    after every step (``tests/test_torch_port_accum.py`` runs the
-    accumulation options: the two files run on two test workers)."""
+    """``STEP_ARCH`` steps of ``OPTIONS[option]`` (4, or the option's
+    ``steps``) in both packages, compared after every step
+    (``tests/test_torch_port_accum.py`` runs the accumulation options: the
+    two files run on two test workers)."""
     kfac_kw = {**HP, **OPTIONS[option].get("kfac", {}), "track_diagnostics": True}
     step_kw = OPTIONS[option].get("step", {})
     accum = step_kw.get("accum_steps", 1)
@@ -181,14 +184,14 @@ def run_option_train_steps(option):
     jk = JKFAC(layers=jcapture.discover_layers(jmodel, micro_init, train=True), **kfac_kw)
     tk = KFAC(layers=capture.discover_layers(model), device="cpu", **kfac_kw)
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-                         opt_state=jtx.init(params), kfac_state=jk.init(params))
+                         opt_state=jtx.init(params), kfac_state=jax.jit(jk.init)(params))
     tstate = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
                         kfac_state=tk.init(model))
     jstep = jmake_train_step(jmodel, jtx, jk, train_kwargs={"train": True},
                              sgd_hyper=(MOMENTUM, WD), **step_kw)
     tstep = make_train_step(model, tx, tk, sgd_hyper=(MOMENTUM, WD), **step_kw)
 
-    for i, (x, y) in enumerate(_batches()):
+    for i, (x, y) in enumerate(_batches(OPTIONS[option].get("steps", STEPS))):
         epoch = min(i, 1)  # the warm-up ends after step 0
         jf, tf = jflags(i, jk, epoch), kfac_flags_for_step(i, tk, epoch)
         assert jf == tf

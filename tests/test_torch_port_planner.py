@@ -206,8 +206,8 @@ def test_constructor_refuses_exactly_the_table(env_name, capsys):
     """Every lever of the grid through the port's constructor on one
     process: a ValueError with the text of the first constructor row the
     table trips (the JAX constructor's, word for word, where it refuses
-    that lever alone), else ``NotImplementedError`` for the curvature service (item
-    9d), else ``"kernel"`` refused off CUDA, else a preconditioner."""
+    that lever alone), else ``"kernel"`` refused off CUDA, else a
+    preconditioner (the curvature service's plan too, since item 9d)."""
     env_kw, kfac_kw = ENVS[env_name]
     env = _env(planner, {**env_kw, "world": 1})
     for lever, levers in LEVERS.items():
@@ -225,8 +225,8 @@ def test_constructor_refuses_exactly_the_table(env_name, capsys):
                     JKFAC(damping=0.01, **jkw, **levers)
                 assert str(got.value) == str(want.value), lever
         elif plan.service_devices:
-            with pytest.raises(NotImplementedError, match="queue 1 item 9d"):
-                KFAC(damping=0.01, device="cpu", **kfac_kw, **levers)
+            kfac = KFAC(damping=0.01, device="cpu", **kfac_kw, **levers)
+            assert kfac.service_devices == plan.service_devices, lever
         elif "kernel" in levers.values():
             with pytest.raises(ValueError, match="CUDA"):
                 KFAC(damping=0.01, device="cpu", **kfac_kw, **levers)

@@ -130,7 +130,9 @@ def test_tied_transformer_step_matches_jax():
     lr, clip = 0.1, 0.25
     jmodel = jlm.get_model(VOCAB, **kw)
     init = jnp.zeros((BATCH, SEQ), jnp.int32)
-    params = jmodel.init(jax.random.PRNGKey(4), init, train=True)["params"]
+    # jitted: one compile costs less than the eager ops' first dispatches
+    params = jax.jit(lambda k, x: jmodel.init(k, x, train=True))(jax.random.PRNGKey(4),
+                                                                 init)["params"]
     assert "decoder" not in params
     model = transformer_lm.get_model(VOCAB, **kw)
     model.load_state_dict(lm_state_dict_from_jax(_np_tree(params)))  # strict
@@ -140,7 +142,7 @@ def test_tied_transformer_step_matches_jax():
     tk = KFAC(layers=capture.discover_layers(model), device="cpu", **hp)
     assert "tok_embed" in jk.layers and "tok_embed" in tk.layers
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
-                         opt_state=jtx.init(params), kfac_state=jk.init(params))
+                         opt_state=jtx.init(params), kfac_state=jax.jit(jk.init)(params))
     tstate = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
                         kfac_state=tk.init(model))
     jstep = jmake_train_step(jmodel, jtx, jk, train_kwargs={"train": True}, grad_clip=clip,

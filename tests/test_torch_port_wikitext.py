@@ -160,7 +160,7 @@ def test_lm_train_steps_match_jax(use_kfac):
         tk = KFAC(layers=capture.discover_layers(model), device="cpu", **HP)
         assert sorted(jk.layers) == sorted(tk.layers) == ["decoder", "encoder"]
     jstate = JTrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
-                         opt_state=jtx.init(params), kfac_state=jk.init(params) if jk else None)
+                         opt_state=jtx.init(params), kfac_state=jax.jit(jk.init)(params) if jk else None)
     tstate = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
                         kfac_state=tk.init(model) if tk else None)
     sgd_hyper = (MOMENTUM, WD) if use_kfac else None

@@ -2,8 +2,9 @@
 ``tests/test_torch_port_comm.py``, ``tests/test_torch_port_owner.py``,
 ``tests/test_torch_port_lens.py``, ``tests/test_torch_port_context.py``,
 ``tests/test_torch_port_moe.py``, ``tests/test_torch_port_fsdp.py``,
-``tests/test_torch_port_observability.py`` and
-``tests/test_torch_port_elastic_ranks.py`` (not a test file).
+``tests/test_torch_port_observability.py``,
+``tests/test_torch_port_elastic_ranks.py`` and
+``tests/test_torch_port_service.py`` (not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
 (or :func:`start`, then :func:`join`, so that the test process works
@@ -1448,6 +1449,118 @@ def elastic(rank, world, weights, x, y, mid=None, save=None, resize=None, twin=N
     return out
 
 
+# ------------------------------------------------------- curvature service
+
+
+def _svc_net(sizes):
+    """``tests/test_service.py``'s dense model: ``KFACDense`` layers ``l0``, ``l1``, ..."""
+    from kfac_pytorch_tpu_torch.models.layers import KFACDense
+
+    net = torch.nn.Module()
+    for i, (nin, nout) in enumerate(zip(sizes[:-1], sizes[1:])):
+        net.add_module(f"l{i}", KFACDense(nin, nout))
+    return net
+
+
+def _svc_inputs(stats):
+    """``(a_contribs, g_factor_stats, grads)`` of one step's numpy statistics
+    ``{layer: (A contribution, G statistic, kernel grad [in, out], bias grad)}``."""
+    a = {n: torch.from_numpy(v[0]) for n, v in stats.items()}
+    g = {n: torch.from_numpy(v[1]) for n, v in stats.items()}
+    grads = {}
+    for n, v in stats.items():
+        grads[f"{n}.weight"] = torch.from_numpy(np.ascontiguousarray(v[2].T))
+        grads[f"{n}.bias"] = torch.from_numpy(v[3])
+    return a, g, grads
+
+
+@contextlib.contextmanager
+def _eigh_calls():
+    """Count ``torch.linalg.eigh`` calls (every refresh path ends in it)."""
+    calls = [0]
+    real = torch.linalg.eigh
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    torch.linalg.eigh = counted
+    try:
+        yield calls
+    finally:
+        torch.linalg.eigh = real
+
+
+def service_run(kfac, sizes, steps, svc):
+    """``KFAC.update`` over the cadence's flags with the service's hooks
+    around each step: the preconditioned gradients of every step (numpy)."""
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+
+    state = kfac.init(_svc_net(sizes))
+    cad = svc.cadence if svc.cadence is not None else EigenRefreshCadence(kfac)
+    out = []
+    for step, stats in enumerate(steps):
+        a, g, grads = _svc_inputs(stats)
+        state = svc.before_step(step, state)
+        flags = cad.flags_for_step(step)
+        new, state = kfac.update(grads, state, a_contribs=a, g_factor_stats=g, lr=0.1,
+                                 damping=0.003, **flags)
+        svc.after_step(step, state)
+        out.append(_np(new))
+    return out
+
+
+def service(rank, world, sizes, steps, hp, box, twin=None):
+    """Task of ``tests/test_torch_port_service.py``: the trailing rank of
+    the world carved as the curvature worker (``service_world``) serving
+    the training ranks' ``HostMailbox`` pair under ``box``, at staleness 0;
+    or, with ``twin``, the CIFAR twin's ``--service-devices 1`` run twice."""
+    from kfac_pytorch_tpu_torch import KFAC, EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.parallel import launch
+    from kfac_pytorch_tpu_torch.parallel.mesh import service_world
+    from kfac_pytorch_tpu_torch.service import CurvatureService, CurvatureWorker, HostMailbox
+
+    if twin is not None:
+        from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as cifar
+
+        runs = []
+        for _ in range(2):
+            with _eigh_calls() as eighs, contextlib.redirect_stdout(io.StringIO()):
+                hist = cifar.main(twin)
+            runs.append({"loss": hist["loss"], "service": hist.get("service"),
+                         "refresh_ms": hist.get("refresh_ms"), "eigh": eighs[0]})
+        return {"twin": runs}
+    w, workers = service_world(1)
+    launch.set_world_group(w.group)
+    try:
+        kfac = KFAC(device="cpu", service_devices=1, process_group=w.group, **hp)
+        out = {"world": (w.size, w.rank), "workers": workers}
+        calls, restore = _counting(_COLLECTIVES)
+        try:
+            with _eigh_calls() as eighs:
+                if rank in workers:
+                    worker = CurvatureWorker(kfac, HostMailbox(box, "job0-factors"),
+                                             HostMailbox(box, "job0-basis"))
+                    out["served"] = worker.serve(idle_timeout_s=120.0)
+                else:
+                    svc = CurvatureService(kfac, EigenRefreshCadence(kfac), mailbox_dir=box,
+                                           run_worker=False, staleness_budget=0)
+                    out["updates"] = service_run(kfac, sizes, steps, svc)
+                    out["installs"] = svc.record["installs"]
+                    svc.close()
+        finally:
+            restore()
+        out["eigh"] = eighs[0]
+        out["collectives"] = dict(calls)
+        if rank not in workers:
+            out["owner"] = _raised(lambda: KFAC(device="cpu", service_devices=1,
+                                                process_group=w.group,
+                                                factor_sharding="owner"))
+    finally:
+        launch.set_world_group(None)
+    return out
+
+
 TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
          "owner": owner, "lens": lens, "context": context, "shardwise": shardwise, "fsdp": fsdp,
-         "multi": multi, "telemetry": telemetry, "elastic": elastic}
+         "multi": multi, "telemetry": telemetry, "elastic": elastic, "service": service}
