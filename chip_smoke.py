@@ -112,10 +112,11 @@ no result line):
 13. the oracle paths (``factor_kernel="dense"``, ``apply_kernel="dense"``)
     must match the kernel path's first 5 losses within 1e-3, each oracle
     step taken from the kernel path's state (free-running, this
-    configuration carries one step's rounding to ~1e-2 within 4 steps,
-    plain SGD's own run-to-run noise included: printed beside it);
-14. print where the ResNeXt step's device time goes (10 K-FAC steps
-    holding one refresh, 5 capture steps, 10 plain-SGD steps);
+    configuration carries one step's rounding to ~1e-2 within 4 steps on
+    an NVIDIA H100 80GB HBM3 at 700 W, plain SGD's own run-to-run noise
+    included);
+14. print where the ResNeXt step's device time goes (6 K-FAC steps
+    holding one refresh, 3 capture steps, 5 plain-SGD steps);
 15. capture one kernel-4 call over ResNeXt's leaf set and one kernel-2
     call on the LM batch in CUDA graphs (a host sync in either wrapper
     fails the capture) and replay each on new inputs: bitwise equal to
@@ -123,9 +124,9 @@ no result line):
 16. the CIFAR-10 main path with data and the JAX trainer's options, each
     through the CIFAR twin with every counter zeroed just before:
     a. write a CIFAR-10 set in the ``cifar-10-batches-py`` layout from the
-       learnable stand-in (five train batches of 2,560 images, a test batch
+       learnable stand-in (five train batches of 1,280 images, a test batch
        of 2,000, quantized to uint8) into a temporary directory;
-    b. train ResNet-32 on it at the recipe for 2 epochs of 100 steps, its
+    b. train ResNet-32 on it at the recipe for 2 epochs of 50 steps, its
        batches from the native loader (``--num-workers 4``, pad-4 crop +
        flip), with ``--kfac-diagnostics --bn-recal-batches 5``, a log and a checkpoint
        directory: the loss finite and falling, 2,000 images evaluated each
@@ -135,7 +136,7 @@ no result line):
     c. restore phase b's ``checkpoint-0`` into a fresh state (every tensor
        bitwise equal to the saved one); rerun with ``--epochs 2`` on a
        directory that holds only that checkpoint: every one of epoch 1's
-       100 losses and its validation loss and accuracy within
+       50 losses and its validation loss and accuracy within
        ``RESUME_RTOL`` of phase b's (b and c run with deterministic cuDNN);
     d. 30 steps of the inverse method: kernel 1 as implied, kernels 3 and 4
        never (the dense apply), the first 5 losses within 1e-3 of the
@@ -174,10 +175,10 @@ no result line):
     counters zeroed just before:
     a. write uint8 shards (``{train,val}_{x,y}.npy``, NHWC) from the
        learnable stand-in ``synthetic_imagenet_like`` into a temporary
-       directory: 640 train and 200 val images stored at 256x256 (~165 MB),
+       directory: 320 train and 200 val images stored at 256x256 (~102 MB),
        and 96 + 32 stored at 224x224;
     b. ResNet-50 at its published widths and the JAX trainer's recipe
-       (batch 32, 224x224) on the 256x256 shards for one epoch of 20
+       (batch 32, 224x224) on the 256x256 shards for one epoch of 10
        steps: RandomResizedCrop + flip in numpy on the host (the numpy
        pipeline, ``--num-workers 0``, in series with the steps), the whole val
        split evaluated in batches of 64 (a ragged last batch of 8), a
@@ -236,16 +237,20 @@ no result line):
        ``RESUME_RTOL`` of the non-distributed run's (both with
        deterministic cuDNN), counters as implied;
     c. two ranks on the one card (spawned processes, a file store, gloo
-       over CUDA tensors), ResNet-32 with ``--distribute-precondition`` for
+       over CUDA tensors; the ranks of 20c, 21e, 22b-c, 23b-d, 24d, 25c,
+       26b, 27c and 29b run ahead in one pool of two processes,
+       ``rank_pool``, each job with its own store and counters, and each
+       phase gates its job's results in its place; the pool's seconds per
+       job are printed), ResNet-32 with ``--distribute-precondition`` for
        ``TWO_RANK_DEPTH`` (6) steps: kernels 1, 3 (on each rank's shape groups) and 4 launch in
        each rank as implied; the sharded refresh's factors within 1e-5 and
        the distributed apply's updates within 1e-6 of the replicated ones;
        the first 5 losses within 1e-3 of one process on the concatenated
        batch; the collectives' host milliseconds per refresh and per capture
        step from ``torch.profiler``;
-    d. float32 ``syevd`` of EMA-like factors at n = 4,608, 8,192 and 12,288
-       (measured) and at 16,384, 20,000 and 26,733, where the port's route
-       (``ops/eigh.py``) is held to 1e-5 in reconstruction and
+    d. float32 ``syevd`` of an EMA-like factor at n = 26,733, cuSOLVER's
+       limit (the closed watch item's widest width), through the port's
+       route (``ops/eigh.py``), held to 1e-5 in reconstruction and
        orthogonality, in float64 on 256 random directions;
 21. the pipelined refresh and the truncated solvers (slice 12):
     a. ResNet-32 through the CIFAR twin (phase 4's recipe): ``--eigh-chunks
@@ -350,10 +355,14 @@ no result line):
        two-rank ones, into the kernels line;
 24. the LM's extras and sequence parallelism (slice 15): a. phase 8's
     recipe with ``--qkv-lens``; b. ``--remat`` and dropout, the remat
-    memory figures; c. flash backward against float64 at T = 4096 and
-    8192; d. two ranks on the one card under ``--seq-parallel 2``, ring
-    and Ulysses, 6 steps with ``--kfac-update-freq 4`` (a refresh at 0
-    and 4); e. every kernel's launches on these paths;
+    memory figures; c. flash backward against float64 at T = 4096, 8192
+    and 16384 (D 64 and 128), each of dQ, dK and dV within 1e-4 of the
+    largest entry, beside the plain float32 version's own error; dK/dV
+    also as one chunk (its error and both times) and repeated bitwise;
+    ``flash_dkv``'s spill bytes no more than run AG's; d. two ranks on the
+    one card under ``--seq-parallel 2``, ring and Ulysses, 6 steps with
+    ``--kfac-update-freq 4`` (a refresh at 0 and 4); e. every kernel's
+    launches on these paths;
 25. the shard lenses and the data×tensor world (slice 16), each path with
     the counters zeroed just before it:
     a. phase 8's recipe with ``--moe-experts 4`` for one epoch through the
@@ -480,7 +489,8 @@ no result line):
        per boundary on the worker, every basis installed by boundary + 1,
        the trainer's launches of kernels 1, 3, 4 (CIFAR) and 2-7 (LM) as
        implied; the publish (npz write) and install times;
-30. print one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
+30. print one ``{"phase_seconds": {...}}`` line (each phase's seconds,
+    from its mark to the next), then one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
     row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
     LSTM and 3-D rows beside the others, the two-rank launches of kernels
@@ -494,6 +504,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -543,10 +554,10 @@ IMAGENET_ARGS = [
 
 
 # The CIFAR-10 path with data: a set in the cifar-10-batches-py layout,
-# written from the learnable stand-in (five train batches of 2560 images and
+# written from the learnable stand-in (five train batches of 1280 images and
 # a test batch of 2000, cut from 50,000 / 10,000), trained through the twin
-# at the BASELINE.md recipe (its defaults): 2 epochs of 100 steps of 128.
-CIFAR_PER_BATCH = 2560
+# at the BASELINE.md recipe (its defaults): 2 epochs of 50 steps of 128.
+CIFAR_PER_BATCH = 1280
 CIFAR_TEST = 2000
 CIFAR_EPOCHS = 2
 CIFAR_STEPS = 5 * CIFAR_PER_BATCH // BATCH
@@ -694,6 +705,17 @@ def kernel_spans(fn, fragment, reps=TIMING_REPS, flush=None):
     return ms / reps, launches / reps, other / reps
 
 
+def device_spans(fn, fragment):
+    """A kernel row's device time beside its wall time: the profiler's
+    kernel spans per call of ``fn`` (:func:`kernel_spans`, L2 warm, back
+    to back), its launches and the other device events per call."""
+    ms, launches, other = kernel_spans(fn, fragment)
+    if not launches:
+        raise AssertionError(f"no device kernel named *{fragment}* in the profile of its row")
+    return {"device_ms": ms, "device_ms_is": "profiler kernel spans per call, L2 warm",
+            "device_launches_per_call": launches, "device_other_events_per_call": other}
+
+
 def bound_ms(calls, tf32_products=0, bf16=False):
     """Least time for ``[(bytes, flops), ...]`` calls: per call the larger of
     bytes over the memory rate and FLOPs over the float32 peak, summed; with
@@ -805,6 +827,7 @@ def conv_kernel_checks(calls, grouped):
         "tolerance": f"|kernel - plain| <= {tol} * max|plain| per layer",
         "repeat_bitwise_equal": True,
         "ms": time_ms(lambda: [kernel(c) for c in calls]),
+        **device_spans(lambda: [kernel(c) for c in calls], "patch_cov"),
         "bound_ms": tc[0],
         "bound_by": tc[1],
         "bound_route": ("one bf16 MMA per product: FLOPs / 989 TFLOP/s, bf16 input bytes" if bf16
@@ -1001,6 +1024,8 @@ def apply_phase(model, device, q_dtype=None, owner_rank=None):
         "tolerance": f"|kernel - plain| <= {tol} * max|plain| per group (v and vg)",
         "repeat_bitwise_equal": True,
         "ms": time_ms(lambda: [ak.fused_precondition_stack(*grp, lam) for grp in groups]),
+        **device_spans(lambda: [ak.fused_precondition_stack(*grp, lam) for grp in groups],
+                       "chain_mma"),
         "plain_ms": time_ms(lambda: [ak.fused_precondition_stack_plain(*grp, lam) for grp in groups]),
         "library_ms": time_ms(lambda: [library_one(*lib) for lib in lib_groups]),
         "library": "batched torch.matmul chain per group" + (" (float32 Q)" if bf16 else ""),
@@ -1336,7 +1361,7 @@ def flash_phase(device, b, t, h, d):
                                "against this bound)",
                 "bound_f32_cuda_core_ms": bound_ms([work])[0]}
 
-    def backward_row(part, name, replaces, fn, work):
+    def backward_row(part, name, replaces, fn, work, fragment):
         return {**base, "name": name, "replaces": replaces,
                 "max_abs_err": errs[part][0], "max_rel_err": errs[part][1],
                 "tolerance": f"|kernel - plain| <= 1e-4 * max|plain|{' (dk and dv)' * (part == 'dkv')}",
@@ -1344,6 +1369,7 @@ def flash_phase(device, b, t, h, d):
                 "edge_max_rel_err": edge[part],
                 "repeat_bitwise_equal": True,
                 "ms": time_ms(fn),
+                **device_spans(fn, fragment),
                 "plain_ms": plain_bwd_ms,
                 "plain": "flash_backward_plain (dq, dk and dv together)",
                 "library_ms": lib_bwd_ms,
@@ -1362,14 +1388,17 @@ def flash_phase(device, b, t, h, d):
          "edge_sdpa_max_rel_err": edge["forward_sdpa"],
          "repeat_bitwise_equal": True,
          "ms": time_ms(lambda: fa.flash_forward(q, k, v, True)),
+         **device_spans(lambda: fa.flash_forward(q, k, v, True), "flash_fwd"),
          "plain_ms": time_ms(lambda: fa.flash_forward_plain(q, k, v, True)),
          "library_ms": lib_fwd_ms,
          "library": "F.scaled_dot_product_attention(is_causal=True), float32",
          **bounds(fwd_work)},
         backward_row("dq", "flash_attention backward dQ", "kfac_pytorch_tpu/ops/flash_attention.py:281",
-                     lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, True), dq_work),
+                     lambda: fa.flash_backward_dq(q, k, v, do, lse_p, delta, True), dq_work,
+                     "flash_dq"),
         backward_row("dkv", "flash_attention backward dK/dV", "kfac_pytorch_tpu/ops/flash_attention.py:298",
-                     lambda: fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True), dkv_work),
+                     lambda: fa.flash_backward_dkv(q, k, v, do, lse_p, delta, True), dkv_work,
+                     "flash_dkv"),
     ]
 
 
@@ -2274,16 +2303,16 @@ def bookkeeping_phase(device, counters):
 
 # The ImageNet data path (phases 18a-d): uint8 shards written from the
 # learnable stand-in (``synthetic_imagenet_like``, 200 classes) stored at
-# 256x256, 640 train and 200 val images (~165 MB), trained through the twin
+# 256x256, 320 train and 200 val images (~102 MB), trained through the twin
 # on ResNet-50 at the JAX trainer's per-device recipe (batch 32, 224x224,
-# RandomResizedCrop + flip) for one epoch of 20 steps, the whole val split
+# RandomResizedCrop + flip) for one epoch of 10 steps, the whole val split
 # evaluated after it in batches of 64 (200 = 3 x 64 + 8: a ragged last
 # batch). The other train modes take 3 steps each: --no-augment on the
 # 256x256 shards (Resize + CenterCrop) and shards stored at 224x224 (pass
 # through).
 SHARD_MODEL = "resnet50"
-SHARD_TRAIN, SHARD_VAL, SHARD_SIZE = 640, 200, 256
-SHARD_STEPS = 20
+SHARD_TRAIN, SHARD_VAL, SHARD_SIZE = 320, 200, 256
+SHARD_STEPS = 10
 SHARD_VAL_BATCH = 64
 SHARD_MODE_STEPS = 3
 
@@ -2836,13 +2865,11 @@ TWO_RANK_DEPTH = 6
 SHORT_CADENCE = ["--kfac-update-freq", "4"]
 TWO_RANK_STEPS = TWO_RANK_DEPTH
 TWO_RANK_TIMEOUT_S = 600
-# the widths of the float32 syevd watch item (ROADMAP queue 3): between the
-# factor at which float32 syevd was seen to lose orthogonality (16k) and
-# cuSOLVER's limit
-SYEVD_WATCH_N = (16384, 20000, 26733)
-# narrower widths where float32 syevd is only measured (4,608 is
-# ResNet-50's widest factor)
-SYEVD_SCAN_N = (4608, 8192, 12288)
+POOL_TIMEOUT_S = 1200  # all the pooled two-rank phases together
+# the float32 syevd watch item, closed without a fault (ROADMAP queue 3;
+# 16,384 to 26,733 within 3e-6 on an NVIDIA H100 80GB HBM3 at 700 W): its
+# widest width, cuSOLVER's limit, stays held
+SYEVD_WATCH_N = (26733,)
 
 
 def loader_phase(device, counters, d256, numpy_rrc):
@@ -3011,6 +3038,54 @@ def _two_rank_batches(device, rank, steps, batch):
             for x, y in synthetic_batches(batch, (3, 32, 32), 10, steps, seed=100 + rank)]
 
 
+def pool_worker(rank, tmp, jobs):
+    """One rank of :func:`rank_pool`: each job's ``worker(rank, store,
+    out_path, *args)`` in turn in this one process, with a store and an
+    output path of its own, the card's cache emptied between them; the
+    seconds of each job to ``tmp/pool-<rank>.json``."""
+    import torch
+
+    seconds = []
+    for i, (worker, args) in enumerate(jobs):
+        t0 = time.perf_counter()
+        worker(rank, f"{tmp}/job{i}-store", f"{tmp}/job{i}", *args)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        seconds.append(round(time.perf_counter() - t0, 1))
+    with open(f"{tmp}/pool-{rank}.json", "w") as fh:
+        json.dump(seconds, fh)
+
+
+def rank_pool(jobs, timeout_s):
+    """The two-rank phases' ``(worker, args)`` jobs, run ahead in ONE spawn
+    of two ranks (:func:`pool_worker`): each process reaches the card, and
+    imports the port, once instead of once a phase. Every job's counters
+    are zeroed just before its own path inside the worker, as in a spawn of
+    its own. Returns each job's results in rank order, in job order (each
+    phase gates its own at its place in :func:`main`), and ``{job: seconds}``
+    of rank 0."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_pool_") as tmp:
+        ctx = mp.spawn(pool_worker, args=(tmp, jobs), nprocs=2, join=False)
+        deadline = time.monotonic() + timeout_s
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"the pooled ranks did not finish in {timeout_s} s")
+        results = []
+        for i in range(len(jobs)):
+            results.append([])
+            for r in range(2):
+                with open(f"{tmp}/job{i}-{r}.json") as fh:
+                    results[-1].append(json.load(fh))
+        with open(f"{tmp}/pool-0.json") as fh:
+            seconds = {f"{i}:{w.__name__}": t
+                       for i, ((w, _), t) in enumerate(zip(jobs, json.load(fh)))}
+    return results, seconds
+
+
 def spawn_ranks(worker, args, timeout_s, prefix, nprocs=2):
     """``nprocs`` ranks of ``worker(rank, store, out_path, *args)`` on the
     one card (``torch.multiprocessing`` spawn, a file store in a temporary
@@ -3163,10 +3238,10 @@ def two_rank_worker(rank, store, out_path, steps, device_name, argv):
         torch.distributed.destroy_process_group()
 
 
-def two_rank_phase(device, argv=TWO_RANK_ARGS):
-    """Phases 20c and 21e: two ranks on the one card (``torch.multiprocessing``
-    spawn, a file store, gloo over CUDA tensors: NCCL refuses two ranks on
-    one device), ResNet-32 with ``argv`` (20c: ``--distribute-precondition``;
+def two_rank_phase(device, ranks, argv=TWO_RANK_ARGS):
+    """Phases 20c and 21e: ``ranks``, :func:`two_rank_worker`'s two ranks
+    on the one card (gloo over CUDA tensors: NCCL refuses two ranks on one
+    device), ResNet-32 with ``argv`` (20c: ``--distribute-precondition``;
     21e: ``--eigh-chunks 2 --solver rsvd --solver-auto-threshold 256``):
     kernels 1, 3 (on each rank's owned groups of dense entries, or all of
     them without ``--distribute-precondition``) and 4 launch in each rank as
@@ -3181,8 +3256,6 @@ def two_rank_phase(device, argv=TWO_RANK_ARGS):
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    ranks = spawn_ranks(two_rank_worker, (TWO_RANK_STEPS, str(device), list(argv)),
-                            TWO_RANK_TIMEOUT_S, "ranks")
     for res in ranks:
         for name, n in res["expected_launches"].items():
             if res["launches"][name] != n or n <= 0:
@@ -3240,40 +3313,19 @@ def ema_like_factor(n, device, seed):
     return f
 
 
-def syevd_watch_phase(device, widths=SYEVD_WATCH_N, scan=SYEVD_SCAN_N):
-    """Phase 20d (ROADMAP queue 3's watch item): float32 ``torch.linalg.eigh``
-    (cuSOLVER ``syevd``) of EMA-like factors at each of ``widths``, and the
-    port's own route (``ops/eigh.py::eigh_with_floor``), each held in
-    float64 on 256 random directions (``decomposition_errors``); the port's
-    route within ``EIGH_TOL`` (phase 19b's bound), the raw float32 numbers
-    reported, and at the narrower ``scan`` widths reported only."""
+def syevd_watch_phase(device, widths=SYEVD_WATCH_N):
+    """Phase 20d (the float32 syevd watch item, closed): the port's route
+    (``ops/eigh.py::eigh_with_floor``, float32 ``syevd`` up to its limit)
+    of an EMA-like factor at each of ``widths``, held in float64 on 256
+    random directions (``decomposition_errors``) within ``EIGH_TOL``
+    (phase 19b's bound)."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import eigh as eigh_ops
 
-    out = {"scan": [], "watch": []}
-    for n in scan:
-        f = ema_like_factor(n, device, n)
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        d, q = torch.linalg.eigh(f)
-        torch.cuda.synchronize(device)
-        raw_s = time.perf_counter() - t0
-        raw = decomposition_errors(f, q, d, device)
-        del f, d, q
-        out["scan"].append({"n": n, "reconstruction_rel": raw[0], "orthogonality": raw[1],
-                            "s": raw_s})
-        print(f"eigh at n = {n}: float32 syevd reconstruction {raw[0]:.2e}, orthogonality "
-              f"{raw[1]:.2e} ({raw_s:.2f} s)", flush=True)
+    out = []
     for n in widths:
         f = ema_like_factor(n, device, n)
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        d, q = torch.linalg.eigh(f)
-        torch.cuda.synchronize(device)
-        raw_s = time.perf_counter() - t0
-        raw = decomposition_errors(f, q, d, device)
-        del d, q
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         q, d = eigh_ops.eigh_with_floor(f)
@@ -3282,19 +3334,14 @@ def syevd_watch_phase(device, widths=SYEVD_WATCH_N, scan=SYEVD_SCAN_N):
         port = decomposition_errors(f, q, d, device)
         del d, q, f
         torch.cuda.empty_cache()
-        row = {"n": n, "float32_syevd": {"reconstruction_rel": raw[0], "orthogonality": raw[1],
-                                         "s": raw_s},
-               "port_route": ("float32 syevd" if n <= eigh_ops.SYEVD_MAX_N
-                              else "spectral split"),
-               "port": {"reconstruction_rel": port[0], "orthogonality": port[1], "s": port_s},
-               "tolerance": EIGH_TOL}
-        out["watch"].append(row)
-        print(f"eigh at n = {n}: float32 syevd reconstruction {raw[0]:.2e}, orthogonality "
-              f"{raw[1]:.2e} ({raw_s:.1f} s); the port's {row['port_route']}: {port[0]:.2e}, "
-              f"{port[1]:.2e} ({port_s:.1f} s)", flush=True)
+        route = "float32 syevd" if n <= eigh_ops.SYEVD_MAX_N else "spectral split"
+        out.append({"n": n, "port_route": route, "reconstruction_rel": port[0],
+                    "orthogonality": port[1], "s": port_s, "tolerance": EIGH_TOL})
+        print(f"eigh at n = {n}, the port's {route}: reconstruction {port[0]:.2e}, "
+              f"orthogonality {port[1]:.2e} ({port_s:.1f} s)", flush=True)
         if not (port[0] <= EIGH_TOL and port[1] <= EIGH_TOL):
             raise AssertionError(f"eigh of an EMA-like {n}-wide factor on the port's route "
-                                 f"({row['port_route']}): reconstruction {port[0]:.2e}, "
+                                 f"({route}): reconstruction {port[0]:.2e}, "
                                  f"orthogonality {port[1]:.2e} (tolerance {EIGH_TOL})")
     return out
 
@@ -3617,7 +3664,6 @@ def streaming_phase(device, counters, lstm):
 COMM_LM_FLAGS = ["--factor-comm-dtype", "bf16", "--factor-comm-freq", "2",
                  "--grad-comm-dtype", "bf16"]
 COMM_STEPS = TWO_RANK_DEPTH
-COMM_TIMEOUT_S = 600
 # the bf16 factor and gradient wires against the float32 wire, every loss
 # (~10x the 4.13e-6 measured on an H100)
 COMM_BF16_RTOL = 5e-5
@@ -3878,8 +3924,9 @@ def merge_peak(device, n=WIKITEXT2_VOCAB):
     return out
 
 
-def comm_phase(device):
-    """Phases 22b-c: two ranks on the one card, ``COMM_RUNS`` in each (see
+def comm_phase(device, ranks):
+    """Phases 22b-c: ``ranks``, :func:`comm_worker`'s two ranks on the one
+    card, ``COMM_RUNS`` in each (see
     the module docstring for the gates), one process on the concatenated
     LM batch, and the int8 flush merge's peak at WikiText-2's width."""
     import torch
@@ -3887,8 +3934,6 @@ def comm_phase(device):
     from kfac_pytorch_tpu_torch.parallel.comm import quant_wire_bytes
     from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
 
-    ranks = spawn_ranks(comm_worker, (COMM_STEPS, str(device), COMM_RUNS),
-                            COMM_TIMEOUT_S, "comm")
     for res in ranks:
         for name, run in res["runs"].items():
             gate_launches(run["launches"], run["expected_launches"],
@@ -3962,7 +4007,6 @@ OWNER_LM_WIRES = ["--factor-comm-dtype", "bf16", "--factor-comm-freq", "2"]
 OWNER_LSTM_FLAGS = ["--kfac-embedding", "--dropout", "0", "--eigh-chunks", "2", "--solver",
                     "rsvd", "--solver-auto-threshold", "256"]
 OWNER_STEPS = TWO_RANK_DEPTH
-OWNER_TIMEOUT_S = 900
 OWNER_WORLD1_STEPS = 12
 OWNER_RUNS = (  # (name, twin, argv)
     ("cifar_owner", "cifar", [*RESNET_ARGS, *OWNER_FLAGS]),
@@ -4289,8 +4333,9 @@ def wikitext2_plan_bytes():
     return out
 
 
-def owner_phase(device):
-    """Phases 23b-d: two ranks on the one card (20c's setup), ``OWNER_RUNS``
+def owner_phase(device, ranks):
+    """Phases 23b-d: ``ranks``, :func:`owner_worker`'s two ranks on the one
+    card (20c's setup), ``OWNER_RUNS``
     in each (see the module docstring for the gates), one process on the
     concatenated ResNet-32 and LSTM batches, and the plan's bytes at
     WikiText-2's width."""
@@ -4299,8 +4344,6 @@ def owner_phase(device):
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
     from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
 
-    ranks = spawn_ranks(owner_worker, (OWNER_STEPS, str(device), OWNER_RUNS),
-                            OWNER_TIMEOUT_S, "owner")
     for res in ranks:
         for name, run in res["runs"].items():
             gate_launches(run["launches"], run["expected_launches"],
@@ -4392,13 +4435,15 @@ LENS_FLAGS = ["--qkv-lens"]
 # (seq_len, batch) of the remat memory figures
 REMAT_MEMORY_CASES = ((2048, 4), (8192, 1))
 # flash backward against float64 at long sequences: T, D, and [B, H]
-FLASH_LONG_T = (4096, 8192)
+FLASH_LONG_T = (4096, 8192, 16384)
 FLASH_LONG_D = (64, 128)
 FLASH_LONG_BH = (1, 2)
 FLASH_BWD_TOL = 1e-4
+# flash_dkv's spill store bytes per head width in run AG (PR 15): a
+# redesign of its sums may not spill more
+FLASH_DKV_SPILL_LIMIT = {32: 16, 64: 0, 128: 76}
 SEQ_KINDS = ("ring", "ulysses")
 SEQ_STEPS = TWO_RANK_DEPTH
-SEQ_TIMEOUT_S = 600
 
 
 def lens_phase(device, counters, lm_stats):
@@ -4572,14 +4617,26 @@ def attention_grads_f64(q, k, v, do, causal):
 
 
 def flash_long_phase(device, ptxas):
-    """Phase 24c: kernels 6 and 7 (dQ; dK and dV) at T = 4096 and 8192, D = 64
-    and 128 (causal, [B, H] = ``FLASH_LONG_BH``) against float64: the
-    largest difference over the largest entry, beside the kernels' 1e-4
-    tolerance and beside the float32 plain version's own error; and their
-    registers and spill bytes from ptxas."""
+    """Phase 24c: kernels 6 and 7 (dQ; dK and dV) at T = ``FLASH_LONG_T``
+    (4096, 8192 and 16384), D = 64 and 128 (causal, [B, H] =
+    ``FLASH_LONG_BH``) against float64: the largest difference over the
+    largest entry, beside the float32 plain version's own error, fails past
+    ``FLASH_BWD_TOL`` (1e-4). Kernel 7 is also run as one chunk
+    (``DKV_CHUNK_ROWS`` = T: the whole sum on the tensor cores, as before
+    the chunks), its error beside the chunked one's, both timed (CUDA
+    events), and the chunked run repeated bitwise. Their registers and
+    spill bytes from ptxas: ``flash_dkv`` fails past
+    ``FLASH_DKV_SPILL_LIMIT``."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import flash_attention as fa
+
+    def dkv_one_chunk(*args):
+        rows, fa.DKV_CHUNK_ROWS = fa.DKV_CHUNK_ROWS, args[0].shape[1]
+        try:
+            return fa.flash_backward_dkv(*args)
+        finally:
+            fa.DKV_CHUNK_ROWS = rows
 
     cases = []
     b, h = FLASH_LONG_BH
@@ -4595,17 +4652,41 @@ def flash_long_phase(device, ptxas):
             names = ("dq", "dk", "dv")
             err = {n: scaled_err(g.double(), r)[1] for n, g, r in zip(names, got, ref)}
             plain_err = {n: scaled_err(g.double(), r)[1] for n, g, r in zip(names, plain, ref)}
+            args = (q, k, v, do, lse_p, delta, True)
+            one = dkv_one_chunk(*args)
+            one_err = {n: scaled_err(g.double(), r)[1] for n, g, r in zip(names[1:], one, ref[1:])}
+            again = fa.flash_backward_dkv(*args)
+            if not (torch.equal(again[0], got[1]) and torch.equal(again[1], got[2])):
+                raise AssertionError(f"flash_backward_dkv at {[b, t, h, d]}: a repeat differs")
+            del plain, ref, one, again
             cases.append({"shape": [b, t, h, d], "causal": True, "rel_err_vs_float64": err,
                           "plain_rel_err_vs_float64": plain_err,
+                          "dkv_one_chunk_rel_err_vs_float64": one_err,
+                          "dkv_chunks": -(-t // fa.DKV_CHUNK_ROWS),
+                          "dkv_ms": time_ms(lambda: fa.flash_backward_dkv(*args), reps=5),
+                          "dkv_one_chunk_ms": time_ms(lambda: dkv_one_chunk(*args), reps=5),
                           "within_tolerance": max(err.values()) <= FLASH_BWD_TOL})
-            del q, k, v, do, out_p, lse_p, delta, got, plain, ref
+            del q, k, v, do, out_p, lse_p, delta, got, args
             torch.cuda.empty_cache()
     spills = {fn: {"registers": v[0], "spill_store_bytes": v[1]} for fn, v in ptxas.items()
               if "flash_dq" in fn or "flash_dkv" in fn}
     worst = max(max(c["rel_err_vs_float64"].values()) for c in cases)
     print(f"flash backward vs float64 at T {FLASH_LONG_T}, D {FLASH_LONG_D}: worst "
-          f"{worst:.3e} of the largest entry (tolerance {FLASH_BWD_TOL}); spills "
-          + ", ".join(f"{v['spill_store_bytes']} B" for v in spills.values()), flush=True)
+          f"{worst:.3e} of the largest entry (tolerance {FLASH_BWD_TOL}); dK/dV ms chunked "
+          "against one chunk "
+          + ", ".join(f"T{c['shape'][1]} D{c['shape'][3]} {c['dkv_ms']:.3f}/"
+                      f"{c['dkv_one_chunk_ms']:.3f}" for c in cases)
+          + "; spills "
+          + ", ".join(f"{fn} {v['spill_store_bytes']} B" for fn, v in spills.items()), flush=True)
+    over = [c for c in cases if not c["within_tolerance"]]
+    if over:
+        raise AssertionError(f"flash backward beyond {FLASH_BWD_TOL} of the largest float64 entry: "
+                             + json.dumps(over))
+    for fn, v in spills.items():
+        m = re.search(r"flash_dkvILi(\d+)E", fn)
+        if m and v["spill_store_bytes"] > FLASH_DKV_SPILL_LIMIT[int(m.group(1))]:
+            raise AssertionError(f"{fn} spills {v['spill_store_bytes']} B, more than run AG's "
+                                 f"{FLASH_DKV_SPILL_LIMIT[int(m.group(1))]} B")
     return {"cases": cases, "worst_rel_err": worst, "tolerance": FLASH_BWD_TOL,
             "error": "max |kernel - float64| / max |float64| per tensor",
             "ptxas": spills}
@@ -4728,12 +4809,6 @@ def seq_worker(rank, store, out_path, steps, device_name, argv, kinds):
     lm_rank(rank, store, out_path, device_name, body)
 
 
-def seq_ranks(device, argv=(*LM_ARGS, *SHORT_CADENCE)):
-    """Phase 24d's two ranks (:func:`seq_worker`): their results."""
-    return spawn_ranks(seq_worker, (SEQ_STEPS, str(device), list(argv), list(SEQ_KINDS)),
-                           SEQ_TIMEOUT_S, "seq")
-
-
 def seq_parallel_phase(ranks, oracle, argv=LM_ARGS):
     """Phase 24d: two ranks on the one card train phase 8's LM recipe with
     ``--seq-parallel 2`` (T 2048, 1024 positions a rank), ring and Ulysses
@@ -4744,7 +4819,7 @@ def seq_parallel_phase(ranks, oracle, argv=LM_ARGS):
     within 1e-3 of one process training the same global batch with full
     attention (phase 9's oracle path); step medians by kind and the
     collectives' host milliseconds per capture step. ``ranks`` are
-    :func:`seq_ranks`' results."""
+    :func:`seq_worker`'s two ranks' results."""
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
 
     args = trainer.parse_args(argv)  # one data slot: the global batch is one rank's rows
@@ -4782,7 +4857,6 @@ def seq_parallel_phase(ranks, oracle, argv=LM_ARGS):
 
 MOE_FLAGS = ["--moe-experts", "4"]
 TP_STEPS = 12
-TP_TIMEOUT_S = 600
 # the two ranks against one process: float32 rounding
 TP_RTOL = 1e-5
 
@@ -5053,11 +5127,6 @@ def tp_worker(rank, store, out_path, steps, device_name, argv):
     lm_rank(rank, store, out_path, device_name, body)
 
 
-def tp_ranks(device, argv, steps=TP_STEPS):
-    """Phase 25c's two ranks (:func:`tp_worker`): their results."""
-    return spawn_ranks(tp_worker, (steps, str(device), list(argv)), TP_TIMEOUT_S, "tp")
-
-
 def tp_one_process(device, steps=TP_STEPS):
     """Phase 25c's reference: one process, no group, the same flags but
     ``--tensor-parallel``, the same steps through the refresh cadence."""
@@ -5075,7 +5144,7 @@ def tp_one_process(device, steps=TP_STEPS):
 
 def tp_phase(ranks, one, argv, steps=TP_STEPS):
     """Phase 25c: ``--tensor-parallel 2 --moe-experts 4`` on two ranks of
-    the one card (``ranks``: :func:`tp_ranks`' results) against one process
+    the one card (``ranks``: :func:`tp_worker`'s two ranks' results) against one process
     (``one``: :func:`tp_one_process`'s losses): kernels 2-7 per rank as
     implied (kernel 2 five times per capture step, no flash kernel skipped),
     digests and losses equal on both ranks after every step, the losses
@@ -5226,7 +5295,7 @@ def fsdp_worker(rank, store, out_path, steps, device_name, argv, world_size):
 
 
 def fsdp_ranks(device, argv, steps, nprocs):
-    """Phase 26b's or 26c's ranks (:func:`fsdp_worker`): their results."""
+    """Phase 26c's ranks (:func:`fsdp_worker`): their results."""
     return spawn_ranks(fsdp_worker, (steps, str(device), list(argv), nprocs), FSDP_TIMEOUT_S,
                        "fsdp", nprocs=nprocs)
 
@@ -5283,10 +5352,42 @@ def fsdp_tp_phase(ranks, tp_lens, argv):
             "refresh_step_ms_median": stats.get("refresh_ms_median")}
 
 
+def int8_3d_wire_bytes(facs, max_bucket_elems, t=2):
+    """The int8 factor wire per rank and flush on a world of ``t`` tensor
+    slots, from the one-process lens model's factor tree ``facs`` (its
+    tensor-split stacks whole): the wire bytes and the error-feedback
+    residual bytes when each slot quantizes only its own blocks of the
+    split stacks, and when it quantizes the tree gathered over the slots
+    (the port's flush, which keeps the replicated factors equal on every
+    slot), with the float32 bytes that tensor gather receives."""
+    from kfac_pytorch_tpu_torch import capture
+    from kfac_pytorch_tpu_torch.parallel.assignment import plan_factor_buckets
+    from kfac_pytorch_tpu_torch.parallel.comm import quant_wire_bytes
+    from kfac_pytorch_tpu_torch.shardwise import lenses
+
+    whole, own, gathered = [], [], 0
+    for name, entry in facs.items():
+        for key, leaf in entry.items():
+            shape = tuple(leaf.shape)
+            whole.append(shape)
+            if lenses.factor_leaf_spec(name, key, (capture.split_shard_name(name)[2],), t):
+                own.append((shape[0] // t, *shape[1:]))
+                gathered += (t - 1) * leaf.numel() // t * 4
+            else:
+                own.append(shape)
+    out = {}
+    for label, shapes in (("own_blocks", own), ("gathered_tree", whole)):
+        sizes = [b.size for b in plan_factor_buckets(shapes, max_bucket_elems)]
+        out[label] = {"wire_bytes": quant_wire_bytes(sizes), "residual_bytes": 4 * sum(sizes)}
+    out["gathered_tree"]["tensor_gather_bytes_received"] = gathered
+    return out
+
+
 def fsdp_one_process(device, steps=FSDP_3D_STEPS):
     """Phase 26c's reference: the lens model (``tensor_parallel=2``) with
     26c's depth on one process at its global batch of 8, the same steps
-    through the refresh cadence."""
+    through the refresh cadence; its losses, and :func:`int8_3d_wire_bytes`
+    of its factors."""
     import torch
 
     from kfac_pytorch_tpu_torch import EigenRefreshCadence
@@ -5298,9 +5399,10 @@ def fsdp_one_process(device, steps=FSDP_3D_STEPS):
         state, m = step_fn(state, batches[i], args.base_lr, kfac.hparams.damping,
                            **cadence.flags_for_step(i, 0))
         losses.append(float(m["loss"]))
+    wire = int8_3d_wire_bytes(state.kfac_state["factors"], kfac.factor_comm.max_bucket_elems)
     del step_fn, state, kfac, batches
     torch.cuda.empty_cache()
-    return losses
+    return losses, wire
 
 
 def fsdp_3d_phase(ranks, one, argv, steps=FSDP_3D_STEPS):
@@ -5338,6 +5440,7 @@ def fsdp_3d_phase(ranks, one, argv, steps=FSDP_3D_STEPS):
 # Phase 27: the telemetry registry, the profiler hook and the planner on
 # the ResNet-32 and LM paths, and the rank-aware summary on two ranks.
 TELEMETRY_STEPS = 12
+TELEMETRY_RANK_STEPS = 6
 TELEMETRY_COUNTED = ("compute_a_conv_fused", "fused_precondition_stack", "fused_sgd_apply")
 # each counted wrapper's device kernel (name fragment) and its launches per
 # wrapper call: kernel 1 one (its partial-sum reduce is another kernel),
@@ -5349,8 +5452,6 @@ TRACE_KERNELS = {"compute_a_conv_fused": ("patch_cov_mma", 1),
 
 def registered_metric_names():
     """The names docs/OBSERVABILITY.md's metric registry lists."""
-    import re
-
     with open("docs/OBSERVABILITY.md") as fh:
         text = fh.read()
     body = re.search(r"<!-- metric-registry:start -->(.*?)<!-- metric-registry:end -->",
@@ -5624,7 +5725,7 @@ def planner_run(device, counters, path, calib_refresh_ms):
     }
 
 
-def telemetry_rank_worker(rank, store, out_path, steps, device_name, tel_root):
+def telemetry_rank_worker(rank, store, out_path, steps, device_name):
     """One rank of phase 27c (``torch.multiprocessing`` target): the CIFAR
     twin with ``--telemetry-dir`` over gloo on ``cuda:0``, then the
     rank-aware summary table again (a collective), this rank's own span
@@ -5641,7 +5742,7 @@ def telemetry_rank_worker(rank, store, out_path, steps, device_name, tel_root):
                       rank=rank, world_size=2)
     try:
         hist = trainer.main([*RESNET_ARGS, *SHORT_CADENCE, "--steps-per-epoch", str(steps),
-                             "--telemetry-dir", f"{tel_root}/rank{rank}"])
+                             "--telemetry-dir", f"{out_path}-tel{rank}"])
         tel = get_telemetry()
         model = cifar_resnet.get_model(MODEL, generator=torch.Generator().manual_seed(0))
         gauges = hist["telemetry"]["gauges"]
@@ -5657,13 +5758,10 @@ def telemetry_rank_worker(rank, store, out_path, steps, device_name, tel_root):
         torch.distributed.destroy_process_group()
 
 
-def telemetry_ranks_phase(device):
-    """27c (see the module docstring)."""
-    steps = 6
-    with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_tel_ranks_") as tel_root:
-        ranks = spawn_ranks(telemetry_rank_worker,
-                            (steps, "cuda:0" if device.type == "cuda" else "cpu", tel_root),
-                            300, "telemetry")
+def telemetry_ranks_phase(ranks):
+    """27c (see the module docstring): ``ranks``, :func:`telemetry_rank_worker`'s
+    two ranks' results."""
+    steps = TELEMETRY_RANK_STEPS
     tables = [r["table"] for r in ranks]
     if tables[0] != tables[1]:
         raise AssertionError("27c: the two ranks built different summary tables")
@@ -6418,13 +6516,14 @@ def service_rank_worker(rank, store, out_path, device_name):
         torch.distributed.destroy_process_group()
 
 
-def service_ranks_phase(device):
-    """29b (see the comment above ``SERVICE_FREQ``)."""
+def service_ranks_phase(device, ranks):
+    """29b (see the comment above ``SERVICE_FREQ``): ``ranks``,
+    :func:`service_rank_worker`'s trainer and worker ranks' results."""
     import torch
 
     from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
 
-    trainer, worker = spawn_ranks(service_rank_worker, ("cuda:0",), 600, "service")
+    trainer, worker = ranks
     model = lm_trainer.build(lm_trainer.parse_args(LM_ARGS), device)[0]
     lm_want = {LM_COUNTERS[k]: n for k, n in lm_expected_launches(trainer["lm"], model).items()}
     del model
@@ -6462,9 +6561,9 @@ def service_ranks_phase(device):
     return out
 
 
-def service_phases(device, counters):
+def service_phases(device, counters, ranks):
     """29a-b with deterministic cuDNN (its default algorithms differ from
-    run to run in the last bits)."""
+    run to run in the last bits); ``ranks``: 29b's pooled results."""
     import torch
 
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -6479,7 +6578,7 @@ def service_phases(device, counters):
         lm = service_timing("LM", lambda extra: lm_setup(device, extra), device,
                             SERVICE_LM_STEPS, SERVICE_FREQ)
         mark("29b. the twins' --service-devices 1 on two ranks")
-        ranks = service_ranks_phase(device)
+        ranks = service_ranks_phase(device, ranks)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     return {"gate": gate, "resnet32": resnet, "lm": lm, "two_ranks": ranks}
@@ -6489,8 +6588,6 @@ def ptxas_report():
     """``{kernel: [registers, spill store bytes]}`` for every kernel built,
     from the ``-Xptxas -v`` logs ``kernel_build`` keeps beside each library
     (names as compiled, mangled)."""
-    import re
-
     from kfac_pytorch_tpu_torch.ops import kernel_build
 
     out, fn = {}, None
@@ -6510,11 +6607,19 @@ def ptxas_report():
 
 
 _T0 = time.perf_counter()
+_MARKS = []  # (phase, seconds since start) of every mark()
 
 
 def mark(phase: str) -> None:
     """Print the seconds since start at the top of each phase."""
-    print(f"[{time.perf_counter() - _T0:7.1f} s] {phase}", flush=True)
+    _MARKS.append((phase, time.perf_counter() - _T0))
+    print(f"[{_MARKS[-1][1]:7.1f} s] {phase}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """``{phase: seconds}`` from each mark to the next (the last to now)."""
+    ends = [t for _, t in _MARKS[1:]] + [time.perf_counter() - _T0]
+    return {name: round(end - t, 1) for (name, t), end in zip(_MARKS, ends)}
 
 
 def main() -> int:
@@ -6799,36 +6904,26 @@ def main() -> int:
     mark("13. ResNeXt oracle")
     # 13. the ResNeXt kernel path against the oracle paths on the first steps:
     # the gate holds each oracle step, taken from the kernel path's state, to
-    # the kernel path's loss; the free-running runs (a second kernel run and
-    # an oracle run from the same seed) show how far this configuration
-    # carries one step's rounding
+    # the kernel path's loss (free-running, this configuration carries one
+    # step's rounding, and cuDNN's run-to-run noise, to ~1e-2 in 3-4 steps
+    # on an NVIDIA H100 80GB HBM3 at 700 W)
     rx_kernel, rx_oracle = one_step_oracle(imagenet_setup, device, ORACLE_STEPS)
     rx_oracle_rel = max(abs(a - b) / abs(b) for a, b in zip(rx_kernel, rx_oracle))
     if not rx_oracle_rel <= 1e-3:
         raise AssertionError(f"ResNeXt kernel-path losses {rx_kernel} vs one-step oracle {rx_oracle}")
-    free = {
-        "kernel_run": rx_losses[:ORACLE_STEPS],
-        "kernel_rerun": train_imagenet(["--steps-per-epoch", str(ORACLE_STEPS)])["loss"],
-        "oracle_run": train_imagenet(["--steps-per-epoch", str(ORACLE_STEPS),
-                                      "--factor-kernel", "dense", "--apply-kernel", "dense"])["loss"],
-    }
     print(json.dumps({"imagenet_oracle": {
         "one_step": {"kernel": rx_kernel, "oracle": rx_oracle, "max_rel_diff": rx_oracle_rel,
                      "tolerance": "1e-3 relative per step"},
-        "free_running": free,
-        "free_running_max_rel_diff": {
-            k: max(abs(a - b) / abs(b) for a, b in zip(v, free["kernel_run"]))
-            for k, v in free.items() if k != "kernel_run"},
     }}), flush=True)
     print(f"ResNeXt oracle paths: first {ORACLE_STEPS} losses, each oracle step from the kernel "
           f"path's state, agree to 1e-3 relative (max {rx_oracle_rel:.3e})", flush=True)
 
     mark("14. ResNeXt profile")
-    # 14. where the ResNeXt step's device time goes: 10 K-FAC steps holding
-    # one refresh, 5 capture steps, 10 plain-SGD steps
+    # 14. where the ResNeXt step's device time goes: 6 K-FAC steps holding
+    # one refresh, 3 capture steps, 5 plain-SGD steps
     rx_profile = profile_path(imagenet_setup, device, [
-        (("--steps-per-epoch", "17"), [("kfac", 2, 12), ("capture", 12, 17)]),
-        (("--steps-per-epoch", "12", "--kfac-update-freq", "0"), [("sgd", 2, 12)]),
+        (("--steps-per-epoch", "15"), [("kfac", 6, 12), ("capture", 12, 15)]),
+        (("--steps-per-epoch", "7", "--kfac-update-freq", "0"), [("sgd", 2, 7)]),
     ])
     print(json.dumps({"imagenet_profile": rx_profile}), flush=True)
     gate_profile_launches(rx_profile, "imagenet")
@@ -6900,10 +6995,30 @@ def main() -> int:
     print(f"torch.cuda.device_count() = {torch.cuda.device_count()}", flush=True)
     world1 = world1_phase(device, all_counted)
     print(json.dumps({"nccl_world_1": world1}), flush=True)
+    mark("20c-29b. the two-rank phases' ranks, one pool")
+    # every two-rank phase's ranks (20c, 21e, 22b-c, 23b-d, 24d, 25c, 26b,
+    # 27c, 29b) run here in one spawn; each phase below gates its results
+    torch.cuda.empty_cache()
+    tp_argv = [*LM_ARGS, *MOE_FLAGS, "--tensor-parallel", "2"]
+    pooled, pool_seconds = rank_pool([
+        (two_rank_worker, (TWO_RANK_STEPS, str(device), list(TWO_RANK_ARGS))),
+        (two_rank_worker, (TWO_RANK_STEPS, str(device), list(TWO_RANK_SOLVER_ARGS))),
+        (comm_worker, (COMM_STEPS, str(device), COMM_RUNS)),
+        (owner_worker, (OWNER_STEPS, str(device), OWNER_RUNS)),
+        (seq_worker, (SEQ_STEPS, str(device), [*LM_ARGS, *SHORT_CADENCE], list(SEQ_KINDS))),
+        (tp_worker, (TP_STEPS, str(device), tp_argv)),
+        (fsdp_worker, (TP_STEPS, str(device), [*LM_ARGS, *FSDP_TP_FLAGS], 2)),
+        (telemetry_rank_worker, (TELEMETRY_RANK_STEPS, "cuda:0")),
+        (service_rank_worker, ("cuda:0",)),
+    ], POOL_TIMEOUT_S)
+    print(json.dumps({"rank_pool_seconds": pool_seconds}), flush=True)
+    (two_rank_res, two_solver_res, comm_res, owner_res, seq_res, tp_res, fsdp_tp_res, tel_res,
+     service_res) = pooled
+    del pooled
     mark("20c. two ranks on one card")
-    two_ranks = two_rank_phase(device)
+    two_ranks = two_rank_phase(device, two_rank_res)
     print(json.dumps({"two_ranks": two_ranks}), flush=True)
-    mark("20d. float32 syevd, 16k to 26.7k")
+    mark("20d. float32 syevd at 26,733")
     syevd = syevd_watch_phase(device)
     print(json.dumps({"syevd_watch": syevd}), flush=True)
     conv_a["resnet32_two_ranks"] = {"launches_per_rank": [
@@ -6926,7 +7041,7 @@ def main() -> int:
     streaming = streaming_phase(device, all_counted, wikitext["lstm"])
     print(json.dumps({"lstm_streaming": streaming}), flush=True)
     mark("21e. two ranks, --eigh-chunks 2 --solver rsvd")
-    two_solver = two_rank_phase(device, TWO_RANK_SOLVER_ARGS)
+    two_solver = two_rank_phase(device, two_solver_res, TWO_RANK_SOLVER_ARGS)
     print(json.dumps({"two_ranks_chunks_rsvd": two_solver}), flush=True)
     for res in two_solver["ranks"]:
         if "chunk-swap" not in res["kinds"] or not res["truncated_sides"]:
@@ -6969,7 +7084,7 @@ def main() -> int:
                                 world1)
     print(json.dumps({"lm_nccl_world_1": lm_world1}), flush=True)
     mark("22b-c. two ranks: LM bf16 wires, LSTM int8 wire")
-    comm = comm_phase(device)
+    comm = comm_phase(device, comm_res)
     print(json.dumps({"two_ranks_comm": comm}), flush=True)
     w1 = lm_world1["launches"]
     for k, key in ((conv_a, "compute_a_conv_fused"), (token_count, "compute_a_embed_fused"),
@@ -6987,7 +7102,7 @@ def main() -> int:
     owner_world1 = owner_world1_phase(device, all_counted, lm_hist)
     print(json.dumps({"owner_nccl_world_1": owner_world1}), flush=True)
     mark("23b-d. two ranks: owner-sharded ResNet-32, LM, LSTM")
-    owner = owner_phase(device)
+    owner = owner_phase(device, owner_res)
     print(json.dumps({"two_ranks_owner": owner}), flush=True)
     # kernel 3 on each rank's owned shape groups, at the two paths' shapes
     owner_models = {
@@ -7020,11 +7135,11 @@ def main() -> int:
     mark("24b. LM --remat, dropout")
     remat = remat_phase(device, all_counted, lm_hist)
     print(json.dumps({"lm_remat": remat}), flush=True)
-    mark("24c. flash backward at T = 4096 and 8192")
+    mark("24c. flash backward at T = 4096, 8192 and 16384")
     flash_long = flash_long_phase(device, ptxas)
     print(json.dumps({"flash_backward_long": flash_long}), flush=True)
     mark("24d. two ranks: --seq-parallel 2, ring and Ulysses")
-    seq = seq_parallel_phase(seq_ranks(device), oracle)
+    seq = seq_parallel_phase(seq_res, oracle)
     print(json.dumps({"two_ranks_seq_parallel": seq}), flush=True)
     # 24e. every kernel's launches on this slice's paths
     for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
@@ -7048,8 +7163,7 @@ def main() -> int:
     tp_lens = tp_lens_phase(device, all_counted, lm_stats)
     print(json.dumps({"lm_tensor_parallel_lens": tp_lens}), flush=True)
     mark("25c. two ranks: --tensor-parallel 2 --moe-experts 4")
-    tp_argv = [*LM_ARGS, *MOE_FLAGS, "--tensor-parallel", "2"]
-    tp = tp_phase(tp_ranks(device, tp_argv), tp_one_process(device), tp_argv)
+    tp = tp_phase(tp_res, tp_one_process(device), tp_argv)
     print(json.dumps({"two_ranks_tensor_parallel": tp}), flush=True)
     for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
                    (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
@@ -7066,13 +7180,16 @@ def main() -> int:
     print(json.dumps({"lm_fsdp_nccl_world_1": fsdp_w1}), flush=True)
     mark("26b. two ranks: --fsdp 1 --tensor-parallel 2")
     fsdp_tp_argv = [*LM_ARGS, *FSDP_TP_FLAGS]
-    fsdp_tp = fsdp_tp_phase(fsdp_ranks(device, fsdp_tp_argv, len(tp_lens["losses"]), 2),
-                            tp_lens, fsdp_tp_argv)
+    if len(tp_lens["losses"]) != TP_STEPS:
+        raise AssertionError(f"25b took {len(tp_lens['losses'])} steps, not {TP_STEPS}")
+    fsdp_tp = fsdp_tp_phase(fsdp_tp_res, tp_lens, fsdp_tp_argv)
     print(json.dumps({"two_ranks_fsdp_tensor": fsdp_tp}), flush=True)
     mark("26c. four ranks: --fsdp 2 --tensor-parallel 2")
     fsdp_3d_argv = [*LM_ARGS, *FSDP_3D_FLAGS]
+    one_3d, wire_3d = fsdp_one_process(device)
     fsdp_3d, sgd_3d = fsdp_3d_phase(fsdp_ranks(device, fsdp_3d_argv, FSDP_3D_STEPS, 4),
-                                    fsdp_one_process(device), fsdp_3d_argv)
+                                    one_3d, fsdp_3d_argv)
+    fsdp_3d["int8_wire_per_rank_and_flush"] = wire_3d
     print(json.dumps({"four_ranks_fsdp_tensor": fsdp_3d}), flush=True)
     report([sgd_3d])
     for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
@@ -7093,7 +7210,7 @@ def main() -> int:
                "lm": planner_run(device, all_counted, "lm", dense_refresh_ms(lm_hist))}
     print(json.dumps({"planner_production": planned}), flush=True)
     mark("27c. two ranks: the rank-aware telemetry summary")
-    tel_ranks = telemetry_ranks_phase(device)
+    tel_ranks = telemetry_ranks_phase(tel_res)
     print(json.dumps({"two_ranks_telemetry": tel_ranks}), flush=True)
     for k, key in ((conv_a, "compute_a_conv_fused"), (resnet_apply, "fused_precondition_stack"),
                    (resnet_sgd, "fused_sgd_apply")):
@@ -7130,7 +7247,7 @@ def main() -> int:
 
     # 29a-b. this slice: the curvature service, each path with the counters
     # zeroed just before it
-    service = service_phases(device, all_counted)
+    service = service_phases(device, all_counted, service_res)
     print(json.dumps({"service": service}), flush=True)
     two29 = service["two_ranks"]
     for k, key in ((conv_a, "compute_a_conv_fused"), (resnet_apply, "fused_precondition_stack"),
@@ -7161,6 +7278,7 @@ def main() -> int:
     token_count["wikitext_tied"] = wt_rows["token_count"]
     kernels = [conv_a, conv_a_bf16, grouped_a, grouped_a_bf16, token_count, moe_dispatch,
                lm_apply, rx_apply_bf16, lm_sgd, sgd_3d, *flash]
+    print(json.dumps({"phase_seconds": phase_seconds()}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

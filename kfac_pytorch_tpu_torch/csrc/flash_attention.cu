@@ -56,15 +56,27 @@
 // views.
 //
 // Accuracy over long sums. The tensor cores truncate (round toward zero)
-// the float32 sums they accumulate. In the forward, each key tile's P·V
-// goes into a fresh fragment that is added on the CUDA cores (rounded) to
-// the float32 output accumulator, o = o·exp(m_old − m_new) + P·V, which the
-// online softmax rescales anyway: its error does not grow with T. The
-// backward kernels accumulate dq, dk, dv on the tensor cores across tiles,
-// so their error drifts with T (~3e-5 of the largest entry at T = 2048,
-// inside the 1e-4 tolerance): adding each step's products on the CUDA
-// cores instead removes the drift, but the temporaries it needs spill
-// registers in dK/dV at D = 64.
+// the float32 sums they accumulate, so a sum of N products carried there
+// has an error that grows with N against its own size. In the forward,
+// each key tile's P·V goes into a fresh fragment that is added on the CUDA
+// cores (rounded) to the float32 output accumulator, o = o·exp(m_old −
+// m_new) + P·V, which the online softmax rescales anyway: its error does
+// not grow with T. dQ sums a row's keys, whose weights p sum to 1: ~7e-6
+// of the largest entry up to T = 16384 (NVIDIA H100 80GB HBM3, 700 W). dK
+// and dV sum every query at or past a key: carried over all of them on the
+// tensor cores they drifted to 4.4e-5 of the largest entry at T = 4096
+// and 1.6e-4 at T = 16384 on that card, past the 1e-4 tolerance. So
+// flash_dkv's sum over the queries is split into chunks of chunk_rows
+// query rows (2048, ops/flash_attention.py DKV_CHUNK_ROWS), one launch a
+// chunk in order: launch z sums its chunk's query tiles on the tensor
+// cores and adds that partial dk, dv to what launches 0..z−1 wrote, one
+// float32 read-add-write on the CUDA cores (rounded) after the loop. The
+// drift is that of one chunk at every T, no workspace is needed, and a
+// sequence of one chunk (the LM's T = 2048) runs as before, bit for bit,
+// in one launch. Folding the accumulators into a float32 sum inside the
+// loop instead (in registers or in global memory) made ptxas spill at D =
+// 64 and spill more at D = 128; the chunk split leaves the loop's
+// registers as they were.
 //
 // Every sequence length runs the kernels: the last tile's rows past T load
 // as zeros and are masked.
@@ -362,13 +374,18 @@ flash_dq(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Block (b·h, key tile) of launch `chunk` sums the query tiles [chunk·
+// chunk_tiles, (chunk + 1)·chunk_tiles) of its key tile: chunk 0 writes its
+// dk, dv rows, a later chunk adds its sums to them (see "Accuracy over
+// long sums").
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           View vq, View vk, View vv, View vdo, const float* __restrict__ lse,
           const float* __restrict__ delta, float* __restrict__ dk,
-          float* __restrict__ dv, int H, int T, int causal, float scale) {
+          float* __restrict__ dv, int H, int T, int causal, float scale,
+          int chunk, int chunk_tiles) {
   using S = Tiles<D>;
   constexpr int L = S::kLd, BN = S::kStream;
   constexpr int kStage = 2 * S::kTile + 2 * BN;  // Q, dO, lse, Δ
@@ -392,11 +409,13 @@ flash_dkv(const float* __restrict__ q, const float* __restrict__ k,
     load_stats_async<BN>(st + 2 * S::kTile, lb, qt * BN, T);
     load_stats_async<BN>(st + 2 * S::kTile + BN, deb, qt * BN, T);
   };
-  load_tile_async<D, kRows>(Ks, k + b * vk.b + h * vk.h, vk.t, k0, T);
-  load_tile_async<D, kRows>(Vs, v + b * vv.b + h * vv.h, vv.t, k0, T);
-  const int tiles = (T + BN - 1) / BN;
-  const int first = causal ? k0 / BN : 0;
-  load_stage(first, ring);
+  const int tiles = min((T + BN - 1) / BN, (chunk + 1) * chunk_tiles);
+  const int first = max(causal ? k0 / BN : 0, chunk * chunk_tiles);
+  if (first < tiles) {  // else no query of this chunk sees the key tile: zeros
+    load_tile_async<D, kRows>(Ks, k + b * vk.b + h * vk.h, vk.t, k0, T);
+    load_tile_async<D, kRows>(Vs, v + b * vv.b + h * vv.h, vv.t, k0, T);
+    load_stage(first, ring);
+  }
   cp_async_commit();
 
   const int r0 = k0 + 16 * warp + g;  // this lane's key rows: r0 and r0 + 8
@@ -444,10 +463,18 @@ flash_dkv(const float* __restrict__ q, const float* __restrict__ k,
     const long long off = (((long long)b * T + kj) * H + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(dk + off + 8 * n) =
-          make_float2(dk_acc[n][2 * i] * scale, dk_acc[n][2 * i + 1] * scale);
-      *reinterpret_cast<float2*>(dv + off + 8 * n) =
-          make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      float2* pk = reinterpret_cast<float2*>(dk + off + 8 * n);
+      float2* pv = reinterpret_cast<float2*>(dv + off + 8 * n);
+      float2 sk = make_float2(__fmul_rn(dk_acc[n][2 * i], scale),
+                              __fmul_rn(dk_acc[n][2 * i + 1], scale));
+      float2 sv = make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+      if (chunk > 0) {  // the earlier chunks' sum plus this one's, rounded
+        const float2 ok = *pk, ov = *pv;
+        sk = make_float2(__fadd_rn(ok.x, sk.x), __fadd_rn(ok.y, sk.y));
+        sv = make_float2(__fadd_rn(ov.x, sv.x), __fadd_rn(ov.y, sv.y));
+      }
+      *pk = sk;
+      *pv = sv;
     }
   }
 }
@@ -495,18 +522,28 @@ int dq(const float* q, const float* k, const float* v, const float* dout,
 template <int D>
 int dkv(const float* q, const float* k, const float* v, const float* dout,
         const long long* st, const float* lse, const float* delta, float* dk,
-        float* dv, int B, int T, int H, int causal, float scale,
+        float* dv, int chunk_rows, int B, int T, int H, int causal, float scale,
         cudaStream_t s) {
   using S = Tiles<D>;
   const size_t smem =
       sizeof(float) * (2 * S::kOwn + 2 * (2 * S::kTile + 2 * S::kStream));
   cudaError_t err = allow_smem(flash_dkv<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (T + kRows - 1) / kRows);
-  flash_dkv<D><<<grid, kThreads, smem, s>>>(
-      q, k, v, dout, view(st), view(st + 3), view(st + 6), view(st + 9), lse,
-      delta, dk, dv, H, T, causal, scale);
-  return (int)cudaGetLastError();
+  if (chunk_rows <= 0 || chunk_rows % S::kStream) return (int)cudaErrorInvalidValue;
+  const int chunks = (T + chunk_rows - 1) / chunk_rows, tiles = (T + kRows - 1) / kRows;
+  for (int z = 0; z < chunks; ++z) {
+    // chunk 0 writes every key tile (zeros where none of its queries sees
+    // the key); under the causal mask a later chunk's queries see only the
+    // key tiles before its end
+    const int keys = causal && z > 0 ? min(tiles, ((z + 1) * chunk_rows + kRows - 1) / kRows)
+                                     : tiles;
+    flash_dkv<D><<<dim3(B * H, keys), kThreads, smem, s>>>(
+        q, k, v, dout, view(st), view(st + 3), view(st + 6), view(st + 9), lse,
+        delta, dk, dv, H, T, causal, scale, z, chunk_rows / S::kStream);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -552,11 +589,14 @@ extern "C" int kfac_flash_dq(const void* q, const void* k, const void* v,
   }
 }
 
+// chunk_rows: query rows a launch sums, a multiple of the streamed tile
+// (64 rows, 32 at D = 128); ceil(T / chunk_rows) launches in order
 extern "C" int kfac_flash_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* strides,
                               const void* lse, const void* delta, void* dk_out,
-                              void* dv_out, int B, int T, int H, int D,
-                              int causal, float scale, void* stream) {
+                              void* dv_out, int chunk_rows, int B, int T,
+                              int H, int D, int causal, float scale,
+                              void* stream) {
   const float *Q = static_cast<const float*>(q), *K = static_cast<const float*>(k),
               *V = static_cast<const float*>(v),
               *dO = static_cast<const float*>(dout),
@@ -566,9 +606,9 @@ extern "C" int kfac_flash_dkv(const void* q, const void* k, const void* v,
   float *dK = static_cast<float*>(dk_out), *dV = static_cast<float*>(dv_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return dkv<32>(Q, K, V, dO, st, L, Dl, dK, dV, B, T, H, causal, scale, s);
-    case 64: return dkv<64>(Q, K, V, dO, st, L, Dl, dK, dV, B, T, H, causal, scale, s);
-    case 128: return dkv<128>(Q, K, V, dO, st, L, Dl, dK, dV, B, T, H, causal, scale, s);
+    case 32: return dkv<32>(Q, K, V, dO, st, L, Dl, dK, dV, chunk_rows, B, T, H, causal, scale, s);
+    case 64: return dkv<64>(Q, K, V, dO, st, L, Dl, dK, dV, chunk_rows, B, T, H, causal, scale, s);
+    case 128: return dkv<128>(Q, K, V, dO, st, L, Dl, dK, dV, chunk_rows, B, T, H, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -224,6 +224,13 @@ def flash_backward_dq(
 flash_backward_dq.launches = 0
 
 
+# query rows one flash_dkv launch sums on the tensor cores: a longer
+# sequence's dK/dV sums are split into chunks of these, one launch each,
+# added in order on the CUDA cores (csrc/flash_attention.cu, "Accuracy
+# over long sums")
+DKV_CHUNK_ROWS = 2048
+
+
 def flash_backward_dkv(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -247,7 +254,7 @@ def flash_backward_dkv(
     err = lib.kfac_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         ctypes.addressof(strides), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, t, h, d, int(causal),
+        dk.data_ptr(), dv.data_ptr(), DKV_CHUNK_ROWS, b, t, h, d, int(causal),
         1.0 / math.sqrt(d), kernel_build.current_stream_handle(q.device),
     )
     kernel_build.check(err, "flash_attention dkv")

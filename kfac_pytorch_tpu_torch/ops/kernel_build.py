@@ -70,9 +70,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
         # q, k, v, dO, strides*, lse, delta, dq, B, T, H, D, causal, scale,
         # stream
         "kfac_flash_dq": (_P,) * 8 + (_I,) * 5 + (_F, _P),
-        # q, k, v, dO, strides*, lse, delta, dk, dv, B, T, H, D, causal,
-        # scale, stream
-        "kfac_flash_dkv": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+        # q, k, v, dO, strides*, lse, delta, dk, dv, chunk rows, B, T, H,
+        # D, causal, scale, stream
+        "kfac_flash_dkv": (_P,) * 9 + (_I,) * 6 + (_F, _P),
     },
 }
 

@@ -70,6 +70,7 @@ from kfac_pytorch_tpu_torch.observability.telemetry import get_telemetry
 from kfac_pytorch_tpu_torch.ops import factors as factor_ops
 from kfac_pytorch_tpu_torch.parallel.assignment import FactorBucket, plan_factor_buckets
 from kfac_pytorch_tpu_torch.parallel.mesh import World
+from kfac_pytorch_tpu_torch.shardwise import lenses
 
 # Block-scaled int8 wire: each bucket is quantized per contiguous 256-element
 # block against its own max-abs scale (4 / 256 = 1.6% of the payload, so the
@@ -458,12 +459,28 @@ class FactorComm:
                     new_shard[key] = decay * shard[key] + seg
         return new_shard
 
+    def _tensor_split(self, facs) -> List[bool]:
+        """Per leaf of the factor tree ``facs`` (``{layer: {key: tensor}}``,
+        :func:`tree_leaves` order), whether the world's genuine tensor axis
+        splits it: this rank then holds its tensor slot's blocks of the
+        stack (a column layer's G side, a row layer's A side)."""
+        t = self.world.tensor_size
+        return [t > 1 and lenses.factor_leaf_spec(
+                    name, key, (capture.split_shard_name(name)[2],), t) is not None
+                for name, entry in facs.items() for key, v in entry.items()
+                for _ in tree_leaves(v)]
+
     def wire_error_init(self, facs) -> Dict[str, torch.Tensor]:
         """Zero error-feedback residuals, one float32 buffer per bucket of
-        ``facs``' plan, keyed ``"b<i>"`` (the plan is a function of the leaf
-        shapes, so the keys are stable across restarts)."""
+        the plan of ``facs``' one-process shapes (the tensor-split stacks
+        whole, as :meth:`_merge_quantized` flushes them), keyed ``"b<i>"``
+        (the plan is a function of the leaf shapes, so the keys are stable
+        across restarts)."""
         leaves = tree_leaves(facs)
-        plan = plan_factor_buckets([leaf.shape for leaf in leaves], self.max_bucket_elems)
+        t = self.world.tensor_size
+        shapes = [(leaf.shape[0] * t, *leaf.shape[1:]) if split else leaf.shape
+                  for leaf, split in zip(leaves, self._tensor_split(facs))]
+        plan = plan_factor_buckets(shapes, self.max_bucket_elems)
         return {f"b{i}": torch.zeros(b.size, dtype=torch.float32, device=leaves[0].device)
                 for i, b in enumerate(plan)}
 
@@ -508,9 +525,18 @@ class FactorComm:
         In place, so that a 4.4 GB bucket costs no float32 copy: each payload
         is formed in its ``wire_error`` buffer, which becomes the new
         residual, and the mean is written into the bucket's storage, which
-        for a bucket of one leaf is that leaf of ``tree``."""
+        for a bucket of one leaf is that leaf of ``tree``.
+
+        On a genuine tensor axis the tensor-split stacks are gathered over
+        the tensor slots first and the whole tree is flushed, as the JAX
+        package flushes the gathered tree on every tensor device: the slots
+        quantize one payload, so the replicated factors keep the same bits
+        on every slot; each slot keeps its own blocks of the merged stacks."""
         world = self.world
-        leaves = tree_leaves(tree)
+        local = tree_leaves(tree)
+        split = self._tensor_split(tree)
+        leaves = [world.tensor_all_gather(leaf, 0) if s else leaf
+                  for leaf, s in zip(local, split)]
         plan = self._plan_for(leaves)
         merged = []
         for i, buf in enumerate(flatten_buckets(leaves, plan)):
@@ -531,7 +557,9 @@ class FactorComm:
                 out.copy_(acc.div_(world.size).reshape(-1)[:out.numel()])
             del all_codes, all_scale
             merged.append(buf)
-        return tree_unflatten(tree, unflatten_buckets(merged, plan, leaves)), wire_error
+        out = [leaf.chunk(world.tensor_size)[world.tensor_rank] if s else leaf
+               for leaf, s in zip(unflatten_buckets(merged, plan, leaves), split)]
+        return tree_unflatten(tree, out), wire_error
 
     def flush(self, facs, wire_error: Optional[Dict[str, torch.Tensor]] = None,
               step: Optional[int] = None):

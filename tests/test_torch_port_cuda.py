@@ -770,6 +770,30 @@ def test_flash_backward_kernels_are_deterministic(cuda_device, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,causal", [(64, True), (128, True), (32, False)])
+def test_flash_dkv_long_sequences_sum_their_query_chunks(cuda_device, d, causal):
+    """Past ``DKV_CHUNK_ROWS`` query rows (here 3 chunks, the last ragged)
+    dK/dV sum each chunk on the tensor cores, one launch a chunk, each
+    adding its sums to the earlier chunks': one counted call, within 1e-4
+    of the plain version, bitwise on a repeat."""
+    r = np.random.RandomState(87)
+    b, t, h = 1, 2 * tflash.DKV_CHUNK_ROWS + 136, 2
+    q, k, v, do = (torch.from_numpy(r.randn(b, t, h, d).astype(np.float32)).to(cuda_device)
+                   for _ in range(4))
+    out_p, lse_p = tflash.flash_forward_plain(q, k, v, causal)
+    delta = (do * out_p).sum(dim=-1).transpose(1, 2).contiguous()
+    before = tflash.flash_backward_dkv.launches
+    dk, dv = tflash.flash_backward_dkv(q, k, v, do, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    assert tflash.flash_backward_dkv.launches == before + 1
+    _, dk_p, dv_p = tflash.flash_backward_plain(q, k, v, do, lse_p, delta, causal)
+    _close_scaled(dk, dk_p, rtol=1e-4)
+    _close_scaled(dv, dv_p, rtol=1e-4)
+    again = tflash.flash_backward_dkv(q, k, v, do, lse_p, delta, causal)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,d,causal", [(1, 200, 2, 64, False), (1, 2048, 2, 64, True),
                                             (1, 136, 1, 128, False), (1, 200, 2, 32, True)])
 def test_flash_forward_matches_sdpa_and_repeats_bitwise(cuda_device, b, t, h, d, causal):

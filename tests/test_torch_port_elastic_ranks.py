@@ -35,7 +35,7 @@ the overlap tests' 24 → 32 → 10 MLP on its own batch.
   world (data 1 × fsdp 2 × tensor 2; ``world`` 2) and on the data×tensor
   world of 2 ranks; with the deferred int8 wire on the 3-D world the
   snapshot packs the residuals of all 4 ranks (``packed_world`` 4,
-  ``world`` 2).
+  ``world`` 2) and every rank resumes bitwise.
 """
 
 import numpy as np
@@ -107,7 +107,7 @@ def ranks(tmp_path_factory):
                          save=dict(kw=RESIZE_KW, at=4, root=str(root / "snaps")),
                          twin={"3d": dict(argv=TWIN_3D, kill=TWIN_KILL, root=str(root / "t3d")),
                                "3d_int8": dict(argv=TWIN_3D_INT8, kill=TWIN_KILL,
-                                               root=str(root / "t3d8"), runs=("killed",))})
+                                               root=str(root / "t3d8"))})
     two = workers.spawn("elastic", 2, str(root / "two"), **inputs,
                         mid=dict(cases=MID, root=str(root / "mid")),
                         resize=dict(kw=RESIZE_KW, end=8, root=str(root / "snaps")),
@@ -209,10 +209,14 @@ def test_lm_twin_killed_and_resumed_bitwise(ranks, world):
 def test_3d_int8_snapshot_packs_every_rank(ranks):
     """On the 3-D world the int8 wire's residuals are packed over all 4
     ranks while the manifest's world is the data×fsdp 2 (the JAX
-    package's ``packed_world`` and ``world``)."""
+    package's ``packed_world`` and ``world``), and every rank, each tensor
+    slot included, resumes the uninterrupted run's losses bit for bit: the
+    flush quantizes the tensor-gathered tree, so the snapshot's factors
+    are every tensor slot's own."""
     four = ranks[0]
     for res in four:
         got = res["twin"]["3d_int8"]
-        assert len(got["killed"]) == TWIN_KILL
+        assert got["killed"] == got["full"][:TWIN_KILL]
+        assert got["resumed"] == got["full"][TWIN_KILL:]
         assert got["manifest"] == {"world": 2, "sharding": "replicated", "packed_world": 4,
                                    "step": TWIN_KILL}

@@ -8,8 +8,10 @@
   multiple of the 64-row tile) against JAX ``full_attention``, which is
   what the JAX package runs at such a length. The CUDA kernels' numerical
   scheme (3xTF32 products on the tensor cores; in the forward, each key
-  tile's P·V added to the rescaled output on the CUDA cores) is emulated
-  in float32 and held to a float64 reference.
+  tile's P·V added to the rescaled output on the CUDA cores; in dK/dV,
+  the tensor cores' truncated sums taken per ``DKV_CHUNK_ROWS`` query
+  rows and the chunks added on the CUDA cores) is emulated in float32 and
+  held to a float64 reference.
 * Token counts (kernel 2): ``compute_a_embed_fused`` on CPU tensors against
   JAX ``compute_a_embed_fused(interpret=True)`` and both packages' oracles,
   BITWISE, at a vocabulary and a token count that are no tile multiples.
@@ -223,6 +225,57 @@ def test_flash_backward_3xtf32_keeps_float32_accuracy():
     assert plain <= 1e-5
     assert three <= 1e-5
     assert one >= 10 * three and one > 1e-4
+
+
+def _truncated_add(acc, part):
+    """``acc + part`` (float32 plus a float64 partial sum) rounded toward
+    zero to float32, as the tensor cores accumulate."""
+    s = acc.double() + part
+    r = s.float()
+    return torch.where(r.double().abs() > s.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _dkv_sum(p, do, chunk=None):
+    """``pᵀ·dO`` over ``[T, ·]`` query rows as ``flash_dkv`` sums it: 8
+    rows a tensor-core step, each of 3xTF32's three products (exact in
+    float64) added to the float32 fragment with truncation; with ``chunk``,
+    each chunk of that many rows summed so from zero, and the chunks' sums
+    added in order in float32 (rounded), as each later chunk's launch adds
+    its sums to the earlier ones'."""
+    pb, db = _tf32(p), _tf32(do)
+    ps, ds = _tf32_truncated(p - pb), _tf32_truncated(do - db)
+    total = None
+    for lo in range(0, p.shape[0], chunk or p.shape[0]):
+        acc = torch.zeros(p.shape[1], do.shape[1])
+        for r in range(lo, min(lo + (chunk or p.shape[0]), p.shape[0]), 8):
+            rows = slice(r, r + 8)
+            for a, b in ((ps, db), (pb, ds), (pb, db)):
+                acc = _truncated_add(acc, a[rows].double().T @ b[rows].double())
+        total = acc if total is None else total + acc
+    return total
+
+
+def test_flash_dkv_chunked_sums_keep_their_error_flat_in_t():
+    """Kernel 7's sums over the queries, emulated for the 64 keys of the
+    first tile (every query attends them, with weights ~1/(q+1)): carried
+    on the tensor cores alone, the truncation drifts with T (past 1e-4 of
+    the largest float64 entry at T = 8192; an NVIDIA H100 80GB HBM3 at
+    700 W measured 1.6e-4 at T = 16384); summed in chunks of ``DKV_CHUNK_ROWS`` rows added on the CUDA
+    cores, the error at T = 8192 stays within 1.5x of one chunk's (T =
+    2048, where the chunked sum is the whole sum) and under 5e-5."""
+    r = np.random.RandomState(5)
+    chunk = tflash.DKV_CHUNK_ROWS
+    errs = {}
+    for t in (chunk, 4 * chunk):
+        p = torch.from_numpy((r.uniform(0, 2, size=(t, 64)) / np.arange(1, t + 1)[:, None])
+                             .astype(np.float32))
+        do = torch.from_numpy(r.randn(t, 64).astype(np.float32))
+        ref = p.double().T @ do.double()
+        errs[t] = {c: float((_dkv_sum(p, do, c).double() - ref).abs().max() / ref.abs().max())
+                   for c in (None, chunk)}
+    assert errs[chunk][None] == errs[chunk][chunk]
+    assert errs[4 * chunk][None] > 1e-4
+    assert errs[4 * chunk][chunk] <= min(5e-5, 1.5 * errs[chunk][chunk])
 
 
 def _forward_online(q, k, v, mm, tile=64):

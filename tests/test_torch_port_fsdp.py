@@ -14,6 +14,18 @@ parameters over the fsdp slots:
   ``data_fsdp_tensor_mesh(2, 2)`` run placed sharded: losses within 1e-5,
   the gathered parameters within ``1e-4·max + 1e-6``; the plain run also
   against the port's one-process lens model at the same global batch;
+* the deferred int8 wire (``INT8``, the JAX rounding draws injected): the
+  JAX package flushes the tree gathered over the tensor axis, so every
+  tensor device quantizes the same payload and holds the same bits of
+  every replicated factor; the port's ranks must too, checked on the row
+  layer's G (the leaf a per-slot quantization left unequal) and every
+  other replicated leaf, after every step. Each rank's factors, a split
+  leaf as its tensor slot's blocks of the JAX leaf, lie within two int8
+  steps of the largest block scale of the JAX device's (``2·max|F|/127``,
+  F the whole tree, which is one bucket): the two packages' buckets hold
+  the layers in different orders (flax path against module order), so
+  their 256-value blocks take other scales and the factors differ by
+  about one step (1.5 at most over the 4 steps);
 * the per-rank bytes of every parameter, its momentum and every shard
   layer's factor/eigen leaf against JAX's ``state_bytes_local`` under
   ``lm_param_shardings``/``state_shardings``, and the MLP factor+eigen
@@ -36,13 +48,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 
 from kfac_pytorch_tpu import KFAC as JKFAC
 from kfac_pytorch_tpu import capture as jcapture
 from kfac_pytorch_tpu import shardwise as jshardwise
 from kfac_pytorch_tpu.models import transformer_lm as jlm
 from kfac_pytorch_tpu.ops.rsvd import sketch_matrix as jsketch
+from kfac_pytorch_tpu.parallel import comm as jcomm
 from kfac_pytorch_tpu.parallel.mesh import data_fsdp_tensor_mesh
+from kfac_pytorch_tpu.training import step as jstep
 from kfac_pytorch_tpu_torch import KFAC, capture
 from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
 from kfac_pytorch_tpu_torch.interop import (
@@ -64,6 +80,8 @@ HP = dict(damping=0.01, fac_update_freq=1, kfac_update_freq=2)
 STEPS = 4
 RSVD = dict(solver="rsvd", solver_rank=8, solver_auto_threshold=32)
 CASES = {"plain": {}, "rsvd_deferred": {**RSVD, "factor_comm_freq": 2}}
+INT8 = {"factor_comm_freq": 2, "factor_comm_dtype": "int8"}
+ROW = "blocks.0.ff2#r2"
 TWIN = ["--synthetic", "--d-model", "16", "--n-heads", "2", "--n-layers", "1",
         "--seq-len", "16", "--batch-size", "2", "--epochs", "1", "--steps-per-epoch", "3",
         "--device", "cpu", "--kfac-embedding"]
@@ -127,6 +145,55 @@ def _sketches():
             for m in {bucket_size(n) for n in range(RSVD["solver_auto_threshold"], VOCAB + 1)}}
 
 
+def _int8_draws(steps=STEPS):
+    """The JAX package's stochastic-rounding draws of the int8 flush,
+    ``{step: {bucket: [blocks, 256]}}``: the whole factor tree of the tiny
+    LM fits one bucket of ``ceil(elements / 256)`` blocks."""
+    model = transformer_lm.get_model(VOCAB, **LM_KW)
+    blocks = -(-sum(f.numel() for e in KFAC(
+        layers=capture.discover_layers(model), device="cpu").init(model)["factors"].values()
+        for f in e.values()) // 256)
+    key = jax.random.PRNGKey(jcomm._QUANT_SEED)
+    return {i: {0: np.asarray(jax.random.uniform(
+        jax.random.fold_in(jax.random.fold_in(key, jnp.int32(i)), 0), (blocks, 256)))}
+        for i in range(steps)}
+
+
+def _jax_int8_factors(mesh, steps=STEPS):
+    """``_lm_3d_run`` placed sharded under ``INT8`` (which returns no K-FAC
+    state): after each step, each device's copy of every factor leaf,
+    ``[{(layer, key): [per device in the mesh's order]}]``."""
+    model = jlm.get_model(VOCAB, **LM_KW)
+    x, y = _batch()
+    batch = jax.device_put((jnp.asarray(x), jnp.asarray(y)),
+                           NamedSharding(mesh, P(("data", "fsdp"), None)))
+    params = model.init(jax.random.PRNGKey(0), batch[0], train=True)["params"]
+    layers = jcapture.discover_layers(model, batch[0], train=True)
+    kfac = JKFAC(damping=HP["damping"], fac_update_freq=1, kfac_update_freq=2, mesh=mesh,
+                 layers=layers, **INT8)
+    tx = jstep.make_sgd(momentum=0.9)
+    kstate = kfac.init(params)
+    state = jstep.TrainState(step=jnp.zeros((), jnp.int32), params=None, batch_stats={},
+                             opt_state=tx.init(params), kfac_state=None)
+    state = jax.device_put(state, NamedSharding(mesh, P())).replace(
+        params=jax.device_put(params, jshardwise.lm_param_shardings(params, layers, mesh)),
+        kfac_state=jax.device_put(kstate, kfac.state_shardings(kstate)))
+    step = jstep.make_train_step(model, tx, kfac, train_kwargs={"train": True})
+    devices = list(mesh.devices.flat)
+    out = []
+    for i in range(steps):
+        state, _ = step(state, batch, jnp.float32(0.1), jnp.float32(HP["damping"]),
+                        update_factors=True, update_eigen=i % 2 == 0, flush_factors=i % 2 == 0)
+        leaves = {}
+        for name, entry in state.kfac_state["factors"].items():
+            for k, leaf in entry.items():
+                held = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
+                assert all(v.shape == leaf.shape for v in held.values())
+                leaves[(lm_layer_name_from_jax(name), k)] = [held[d] for d in devices]
+        out.append(leaves)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The one-process reference runs first (the ranks resume its
@@ -140,12 +207,13 @@ def runs(tmp_path_factory):
           "batches": [_batch()] * STEPS}
     handle = workers.start("fsdp", 4, root / "spawn", lm=lm, cases=CASES, sketches=_sketches(),
                            ck_root=str(root / "3d"), one_ck=str(root / "one"),
-                           twins=[TWIN_3D, TWIN_OWNER])
+                           twins=[TWIN_3D, TWIN_OWNER], int8={"kfac": INT8, "draws": _int8_draws()})
     mesh = data_fsdp_tensor_mesh(2, 2, devices=jax.devices()[:4])
     jax_runs = {name: _lm_3d_run(mesh, place_sharded=True, steps=STEPS, **kw)
                 for name, kw in CASES.items()}
     return {"params": params, "weights": weights, "one": one, "jax": jax_runs,
-            "ranks": workers.join(handle), "mesh": mesh, "root": root}
+            "jax_int8": _jax_int8_factors(mesh), "ranks": workers.join(handle), "mesh": mesh,
+            "root": root}
 
 
 def _close(got, want, rel):
@@ -164,6 +232,52 @@ def test_3d_run_matches_jax_mesh(runs, case):
         got = r["cases"][case]
         np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5)
         _close(got["params"], want, 1e-4)
+
+
+def _tensor_spread(per_slot):
+    """Per fsdp slot, the largest difference between its two tensor slots'
+    copies (device or rank ``2·f + t``)."""
+    return [float(np.abs(per_slot[2 * f + 1] - per_slot[2 * f]).max()) for f in range(2)]
+
+
+def test_int8_3d_flush_keeps_one_factor_per_tensor_slot(runs):
+    """The deferred int8 wire on the 3-D world: in both packages the two
+    tensor slots of each fsdp slot hold the same bits of the row layer's G
+    and of every other replicated factor leaf after every step, and after
+    each flush (steps 0 and 2) all four devices or ranks do. After every
+    step each rank's factors lie within two int8 steps of the largest
+    block scale of the JAX device's (the module docstring), a tensor-split
+    leaf against its slot's blocks of the JAX leaf: keeping the other
+    slot's blocks moves the row layer's A by 9.7 steps at step 0, a wrong
+    mean by the factors' size."""
+    jax_steps, ranks = runs["jax_int8"], runs["ranks"]
+    assert len(jax_steps) == STEPS
+    split = {(ROW, "A"), ("blocks.0.ff1#c2", "G")}
+    for i, leaves in enumerate(jax_steps):
+        port = [r["int8"]["factors"][i] for r in ranks]
+        assert set(leaves) == {(n, k) for n, e in port[0].items() for k in e}
+        for r, facs in enumerate(port):
+            bound = 2 * max(float(np.abs(per_dev[r]).max()) for per_dev in leaves.values()) / 127
+            for (name, k), per_dev in leaves.items():
+                want = per_dev[r]
+                if (name, k) in split:
+                    want = np.split(want, 2)[r % 2]
+                got = facs[name][k]
+                assert got.shape == want.shape, (i, r, name, k, got.shape, want.shape)
+                err = float(np.abs(got - want).max())
+                assert err <= bound, (i, r, name, k, err, bound)
+        for (name, k), per_dev in leaves.items():
+            assert _tensor_spread(per_dev) == [0.0, 0.0], (i, name, k)
+            if (name, k) in split:
+                continue
+            per_rank = [p[name][k] for p in port]
+            assert _tensor_spread(per_rank) == [0.0, 0.0], (i, name, k)
+            if i % 2 == 0:
+                for got in (per_dev, per_rank):
+                    assert all(np.array_equal(v, got[0]) for v in got), (i, name, k)
+    for r in ranks:
+        assert r["int8"]["losses"] == ranks[0]["int8"]["losses"]
+        assert all(np.isfinite(r["int8"]["losses"]))
 
 
 def test_3d_run_matches_one_process_lens_model(runs):
@@ -339,3 +453,4 @@ def test_twin_fsdp_refusals(argv, message):
     """The JAX trainer's checks of ``--fsdp``, on a 4-rank world's sizes."""
     with pytest.raises(SystemExit, match=message):
         trainer.check_world(trainer.parse_args([*TWIN, *argv]), World(size=4, distributed=True))
+

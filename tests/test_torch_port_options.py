@@ -13,7 +13,14 @@
   ``tests/test_torch_port_train.py``'s bounds (loss 1e-5 relative, every
   tensor ``2e-5·max|jax| + 1e-6``); the ``kfac_*`` diagnostics of each step
   to 1e-3 relative (condition numbers and ν carry the damped solve's
-  rounding amplification, up to 1/λ).
+  rounding amplification, up to 1/λ);
+* ``diag_blocks=2`` again on the weights of a jitted ``model.init``, at the
+  same bounds through the step-2 refresh, where each block's sorted
+  eigenvalues, each basis' reconstruction, every preconditioned gradient
+  and ν hold to 1e-5 of their largest entry (``EIG_RTOL`` and its
+  neighbours): that run's trajectories part at step 3 through one ReLU
+  whose input (1e-7) the two float32 forward passes round to opposite
+  signs, not through the blocks.
 
 The JAX side runs as its own tests run it (dense kernel scopes on the CPU);
 the port's side takes its ``"auto"`` routes (the plain versions on CPU
@@ -30,6 +37,7 @@ from kfac_pytorch_tpu import KFAC as JKFAC
 from kfac_pytorch_tpu import capture as jcapture
 from kfac_pytorch_tpu.ops import eigh as jeigh
 from kfac_pytorch_tpu.ops import precondition as jpc
+from kfac_pytorch_tpu.training import step as jstep
 from kfac_pytorch_tpu.training.step import TrainState as JTrainState
 from kfac_pytorch_tpu.training.step import kfac_flags_for_step as jflags
 from kfac_pytorch_tpu.training.step import make_sgd as jmake_sgd
@@ -45,6 +53,7 @@ from kfac_pytorch_tpu_torch.training.step import (
     make_sgd,
     make_train_step,
 )
+from tests.test_torch_port_distributed import _JAX_LAYER
 from tests.test_torch_port_kfac import LAYERS, ConvDenseNet, _problem
 from tests.test_torch_port_train import (
     BATCH, HP, LR, MOMENTUM, STEP_ARCH, STEPS, WD, _batches, _np_tree, step_models,
@@ -165,20 +174,105 @@ OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("option", ["inverse", "blocks"])
-def test_option_train_steps_match_jax(option):
-    run_option_train_steps(option)
+@pytest.mark.parametrize("option,init", [
+    pytest.param("inverse", "eager", id="inverse"),
+    pytest.param("blocks", "eager", id="blocks"),
+    pytest.param("blocks", "jit", id="blocks-jitted-init"),
+])
+def test_option_train_steps_match_jax(option, init):
+    run_option_train_steps(option, init)
 
 
-def run_option_train_steps(option):
+# The jitted-init case's refresh invariants at step 2, each relative to the
+# largest entry of its JAX side (measured on the CPU: eigenvalues 7.3e-7,
+# reconstructions 1.5e-6, preconditioned gradients 2.0e-6, ν 6.3e-8)
+EIG_RTOL = RECON_RTOL = PRECOND_RTOL = NU_RTOL = 1e-5
+
+
+def _block_spans(q):
+    """The diagonal blocks ``[(start, stop)]`` of a basis that is zero off
+    its two diagonal halves, else the whole basis."""
+    n = q.shape[0]
+    if n < 2:
+        return [(0, n)]
+    spans = [(lo[0], hi[0]) for lo, hi in (teigh.get_block_boundary(b, 2, (n, n))
+                                           for b in range(2))]
+    h = spans[0][1]
+    return spans if not q[:h, h:].any() and not q[h:, :h].any() else [(0, n)]
+
+
+def _check_basis(label, jq, jd, tq, td):
+    """One side's decomposition in both packages: the same blocks (the
+    port's basis zero outside them), each block's sorted eigenvalues and
+    the reconstruction ``Q·diag(d)·Qᵀ`` (invariant to the basis' signs and
+    rotations within equal eigenvalues), at ``EIG_RTOL``/``RECON_RTOL``."""
+    jq, jd, tq, td = (np.asarray(a, np.float64) for a in (jq, jd, tq, td))
+    spans = _block_spans(jq)
+    mask = np.zeros(jq.shape, bool)
+    for a, b in spans:
+        mask[a:b, a:b] = True
+        np.testing.assert_allclose(np.sort(td[a:b]), np.sort(jd[a:b]), rtol=0,
+                                   atol=EIG_RTOL * np.abs(jd).max(), err_msg=f"{label} {a}:{b}")
+    assert not tq[~mask].any(), label
+    jr, tr = (jq * jd) @ jq.T, (tq * td) @ tq.T
+    np.testing.assert_allclose(tr, jr, rtol=0, atol=RECON_RTOL * np.abs(jr).max(), err_msg=label)
+
+
+def _check_refresh(jstate, tstate, before):
+    """The step-2 refresh of the jitted-init case: every layer's blocked
+    bases (:func:`_check_basis`), and the preconditioned gradient of every
+    parameter, ``m₂ − μ·m₁ − wd·p₁`` from each package's own momentum and
+    parameters, at ``PRECOND_RTOL`` of its largest entry."""
+    je, te = jstate.kfac_state, tstate.kfac_state
+    for jname, e in je["eigen"].items():
+        for side in "AG":
+            _check_basis(f"{jname} {side}", e["Q" + side], e["d" + side],
+                         te["eigen"][_JAX_LAYER[jname]]["Q" + side],
+                         te["eigen"][_JAX_LAYER[jname]]["d" + side])
+    for group, e in je["eigen_stacked"].items():
+        for row in range(e["QA"].shape[0]):
+            for side in "AG":
+                t = te["eigen_stacked"][group]
+                _check_basis(f"{group}[{row}] {side}", e["Q" + side][row], e["d" + side][row],
+                             t["Q" + side][row], t["d" + side][row])
+    after = _sgd_view(jstate, tstate)
+    for name in after[0]:
+        (jm1, jp1), (tm1, tp1) = before[0][name], before[1][name]
+        want = after[0][name][0] - MOMENTUM * jm1 - WD * jp1
+        got = after[1][name][0] - MOMENTUM * tm1 - WD * tp1
+        np.testing.assert_allclose(got, want, rtol=0, atol=PRECOND_RTOL * np.abs(want).max(),
+                                   err_msg=name)
+
+
+def _sgd_view(jstate, tstate):
+    """``({param: (momentum, value)}, same)`` of the JAX and the port's state
+    by port name, float64 copies."""
+    ti = jstep._momentum_state_index(jstate.opt_state)
+    jm = state_dict_from_jax(_np_tree(jstate.opt_state[ti].trace),
+                             _np_tree(jstate.batch_stats), STEP_ARCH)
+    jp = state_dict_from_jax(_np_tree(jstate.params), _np_tree(jstate.batch_stats), STEP_ARCH)
+    params = dict(tstate.model.named_parameters())
+    return ({n: (jm[n].double().numpy(), jp[n].double().numpy()) for n in params},
+            {n: (tstate.opt_state[n].double().numpy(), p.detach().double().numpy())
+             for n, p in params.items()})
+
+
+def run_option_train_steps(option, init="eager"):
     """``STEP_ARCH`` steps of ``OPTIONS[option]`` (4, or the option's
     ``steps``) in both packages, compared after every step
     (``tests/test_torch_port_accum.py`` runs the accumulation options: the
-    two files run on two test workers)."""
+    two files run on two test workers). On the weights of a jitted
+    ``model.init`` (``init="jit"``) the steps end with the step-2 refresh,
+    whose bases, preconditioned gradients and ν are held to the invariant
+    bounds above: at step 3 one ReLU input of layer1.0's first BatchNorm
+    lies at 1e-7, within the two float32 forward passes' spread (1.7e-6),
+    and its sign differs, which moves the G factors below it by 4e-4."""
     kfac_kw = {**HP, **OPTIONS[option].get("kfac", {}), "track_diagnostics": True}
     step_kw = OPTIONS[option].get("step", {})
     accum = step_kw.get("accum_steps", 1)
-    jmodel, init, params, stats, model = step_models(0)
+    jitted = init == "jit"
+    steps = 3 if jitted else OPTIONS[option].get("steps", STEPS)
+    jmodel, init, params, stats, model = step_models(0, jit=jitted)
     jtx, tx = jmake_sgd(MOMENTUM, WD), make_sgd(MOMENTUM, WD)
     micro_init = init[: BATCH // accum]
     jk = JKFAC(layers=jcapture.discover_layers(jmodel, micro_init, train=True), **kfac_kw)
@@ -191,7 +285,9 @@ def run_option_train_steps(option):
                              sgd_hyper=(MOMENTUM, WD), **step_kw)
     tstep = make_train_step(model, tx, tk, sgd_hyper=(MOMENTUM, WD), **step_kw)
 
-    for i, (x, y) in enumerate(_batches(OPTIONS[option].get("steps", STEPS))):
+    for i, (x, y) in enumerate(_batches(steps)):
+        if jitted and i == 2:
+            before = _sgd_view(jstate, tstate)
         epoch = min(i, 1)  # the warm-up ends after step 0
         jf, tf = jflags(i, jk, epoch), kfac_flags_for_step(i, tk, epoch)
         assert jf == tf
@@ -219,6 +315,9 @@ def run_option_train_steps(option):
             w, g = w.numpy(), got[key].numpy()
             bound = 2e-5 * float(np.abs(w).max()) + 1e-6
             np.testing.assert_allclose(g, w, rtol=0, atol=bound, err_msg=f"step {i}: {key}")
+    if jitted:
+        np.testing.assert_allclose(float(tm["kfac_nu"]), float(jm["kfac_nu"]), rtol=NU_RTOL)
+        _check_refresh(jstate, tstate, before)
     if option == "blocks":  # step 2's refresh split the conv factors in two
         eig = tstate.kfac_state["eigen"]["linear"]
         assert eig["QA"].shape == (65, 65)

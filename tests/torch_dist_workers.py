@@ -1123,7 +1123,8 @@ def _by_group(w, kfac):
             delattr(comm, n)
 
 
-def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, **kfac_kw):
+def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, draws=None,
+             **kfac_kw):
     """The tiny ``tensor_parallel=2`` transformer LM on the data×fsdp×tensor
     world ``w`` from ``lm``'s one-process weights (its MLP kernels split
     over the tensor slots, the other parameters over the fsdp slots), this
@@ -1131,8 +1132,10 @@ def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, **
     every step, refresh at the even ones, a deferred flush on each
     refresh), from a checkpoint ``resume=(root, epoch)`` when given. Saves
     ``save=(root, epoch, after_step)``; records the collectives of step
-    ``count``. Returns the losses, the gathered one-process parameters
-    after the last step, the per-rank bytes and the collective calls."""
+    ``count``; the int8 wire rounds on ``draws[step][bucket]`` (the JAX
+    package's uniform draws) when given. Returns the losses, this rank's
+    factors after each step, the gathered one-process parameters after the
+    last step, the per-rank bytes and the collective calls."""
     from kfac_pytorch_tpu_torch import KFAC, capture
     from kfac_pytorch_tpu_torch.models import transformer_lm
     from kfac_pytorch_tpu_torch.parallel.fsdp import FsdpParams
@@ -1157,8 +1160,11 @@ def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, **
         state = ckpt.restore_checkpoint(resume[0], resume[1], state, kfac)
         first = state.step
     state.fsdp.shard_(state.opt_state)
+    if draws is not None:
+        kfac.factor_comm.draw = lambda step, b, first, n, device: torch.from_numpy(
+            draws[step][b][first:first + n]).to(device)
     step_fn = make_train_step(model, tx, kfac, world=w, grad_clip=grad_clip)
-    out = {"losses": [], "calls": None, "placements": placements,
+    out = {"losses": [], "factors": [], "calls": None, "placements": placements,
            "kfac_placements": kfac.state_placements(state.kfac_state)}
     for i in range(first, steps):
         x, y = lm["batches"][i]
@@ -1172,6 +1178,9 @@ def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, **
         if i == count:
             out["calls"] = list(calls)
         out["losses"].append(float(m["loss"]))
+        # copies: the next flush merges into the leaves
+        out["factors"].append(_np({n: {k: v.clone() for k, v in f.items()}
+                                   for n, f in state.kfac_state["factors"].items()}))
         if save is not None and i == save[2]:
             ckpt.save_checkpoint(save[0], save[1], state, w)
     out["params"] = _np(ckpt.global_payload(state, w)["model"])
@@ -1187,11 +1196,12 @@ def lm3d_run(w, lm, steps, resume=None, save=None, count=None, grad_clip=0.0, **
     return out
 
 
-def fsdp(rank, world, lm, cases, sketches, ck_root, one_ck, twins):
+def fsdp(rank, world, lm, cases, sketches, ck_root, one_ck, twins, int8):
     """Task of ``tests/test_torch_port_fsdp.py`` on 4 ranks (data 1 × fsdp
     2 × tensor 2): each case of ``cases`` (``{name: kfac kwargs}``,
     :func:`lm3d_run`, the rsvd bases on the JAX ``sketches``), the plain one
-    saving a checkpoint after step 1;
+    saving a checkpoint after step 1; the deferred int8 wire
+    (``int8["kfac"]``) rounding on the JAX draws ``int8["draws"]``;
     a run resumed from ``one_ck`` (a one-process lens checkpoint); the
     diagnostics after 3 steps; one
     clipped capture step's collectives by group; the layout of the world;
@@ -1223,6 +1233,7 @@ def fsdp(rank, world, lm, cases, sketches, ck_root, one_ck, twins):
         out["cases"] = {
             name: lm3d_run(w, lm, steps, save=(ck_root, 0, 1) if name == "plain" else None, **kw)
             for name, kw in cases.items()}
+    out["int8"] = lm3d_run(w, lm, steps, draws=int8["draws"], **int8["kfac"])
     out["resumed"] = lm3d_run(w, lm, steps, resume=(one_ck, 0))["losses"]
     out["diagnostics"] = lm3d_run(w, lm, 3, track_diagnostics=True)["diagnostics"]
     out["counted"] = lm3d_run(w, lm, 2, count=1, grad_clip=0.25)["calls"]
