@@ -489,7 +489,22 @@ no result line):
        per boundary on the worker, every basis installed by boundary + 1,
        the trainer's launches of kernels 1, 3, 4 (CIFAR) and 2-7 (LM) as
        implied; the publish (npz write) and install times;
-30. print one ``{"phase_seconds": {...}}`` line (each phase's seconds,
+30. the compiled step (slice 22), with deterministic cuDNN: the CIFAR
+    twin's ResNet-32 recipe on a written CIFAR-format set (``COMPILED_*``:
+    2 epochs of 20 steps, the lr warmup changing the rate every step,
+    ``--damping-schedule 1`` stepping the damping at epoch 1,
+    ``--kfac-diagnostics``), run graphed (the twin's
+    ``GraphedTrainStep``) and eager (``eager_step_reason`` patched) from
+    the same seed, each with the counters zeroed just before: every loss,
+    and in the last checkpoint every parameter, BatchNorm statistic,
+    momentum and K-FAC state tensor, bitwise equal (else the largest
+    difference, held to ``COMPILED_RTOL``); the captured graphs equal to
+    ``compile_cache.expected_step_variants`` less the variants run eagerly
+    by rule; ``compile/retraces`` 0; every launch counter equal to the
+    eager run's; each variant's capture ms and the step medians by kind;
+    and the capture window's device idle share both ways (steps 2-9 of the
+    ResNet-32 path, ``torch.profiler``);
+31. print one ``{"phase_seconds": {...}}`` line (each phase's seconds,
     from its mark to the next), then one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
     row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
@@ -1046,7 +1061,10 @@ def sgd_phase(model, device, lr, mu, wd, flush):
     time per call from the profiler's kernel spans with the L2 cache
     flushed before each call and back to back; the wrapper's wall time per
     call (CUDA events around back-to-back calls: host and device together),
-    with the plan and with a plan built for every call."""
+    with the plan and with a plan built for every call. The kernel reads
+    lr from device memory (a 0-d float32 tensor, as the train step hands it
+    over); two launches on the same inputs agree bit for bit, and a float
+    lr (filled into a tensor per call) is timed beside."""
     import torch
 
     from kfac_pytorch_tpu_torch.ops import apply_kernels as ak
@@ -1057,17 +1075,22 @@ def sgd_phase(model, device, lr, mu, wd, flush):
     grads = [torch.randn(p.shape, device=device, generator=gen) for p in params]
     trace = [torch.randn(p.shape, device=device, generator=gen) for p in params]
     kp, km = [p.clone() for p in params], [m.clone() for m in trace]
+    rp, rm = [p.clone() for p in params], [m.clone() for m in trace]
     pp, pm = [p.clone() for p in params], [m.clone() for m in trace]
+    lr_t = torch.full((), lr, dtype=torch.float32, device=device)
     plan = ak.SGDPlan(kp, km)
-    plan.launch(grads, lr, mu, wd)
+    plan.launch(grads, lr_t, mu, wd)
+    ak.SGDPlan(rp, rm).launch(grads, lr_t, mu, wd)
     ak.fused_sgd_apply_plain(pp, grads, pm, lr, mu, wd)
     worst_abs = max(float((got - want).abs().max()) for got, want in zip(kp + km, pp + pm))
     if not all(torch.equal(got, want) for got, want in zip(kp + km, pp + pm)):
         raise AssertionError(f"fused SGD kernel is not bitwise equal to its plain version: "
                              f"max |diff| {worst_abs:.3e}")
+    if not all(torch.equal(a, b) for a, b in zip(kp + km, rp + rm)):
+        raise AssertionError("fused SGD kernel: two launches on the same inputs differ")
 
     def call():
-        plan.launch(grads, lr, mu, wd)
+        plan.launch(grads, lr_t, mu, wd)
 
     device_ms, launches, other = kernel_spans(call, "fused_sgd", flush=flush)
     warm_ms, _, _ = kernel_spans(call, "fused_sgd")
@@ -1098,6 +1121,9 @@ def sgd_phase(model, device, lr, mu, wd, flush):
         "wrapper_ms": wrapper_ms,
         "wrapper_ms_is": "wall time per call of back-to-back calls with the plan (CUDA events): "
                          "host and device together",
+        "lr": "device: a float32 scalar in device memory, read once per block",
+        "repeats_bitwise": True,
+        "wrapper_float_lr_ms": time_ms(lambda: plan.launch(grads, lr, mu, wd)),
         "wrapper_no_plan_ms": time_ms(lambda: ak.fused_sgd_apply(kp, grads, km, lr, mu, wd)),
         "device_ms": device_ms,
         "device_ms_is": "profiler kernel span per call, L2 flushed before each call",
@@ -1181,6 +1207,137 @@ def token_count_phase(ids, vocab):
         "bound_by": b_by,
         "bound_note": "below any launch: one launch is the practical floor",
     }
+
+
+# Phase 30: the compiled step. The CIFAR twin's recipe on a written set of
+# 5 x 640 training images (25 steps of 128 an epoch, cut to 20) and 500
+# test images; the eager run's numbers are the graphed run's reference.
+COMPILED_PER_BATCH = 640
+COMPILED_TEST = 500
+COMPILED_STEPS = 20
+COMPILED_EPOCHS = 2
+COMPILED_FLAGS = ["--kfac-diagnostics", "--damping-schedule", "1"]
+# Graphed against eager, relative, where not bitwise: a graph replays the
+# kernels the eager step launches, on the same inputs.
+COMPILED_RTOL = 1e-6
+
+
+def graphed_resnet_setup(device, extra=()):
+    """:func:`resnet_setup` with its step wrapped in ``GraphedTrainStep``."""
+    from kfac_pytorch_tpu_torch.training.graphs import GraphedTrainStep
+
+    step_fn, state, kfac, batches, args = resnet_setup(device, extra)
+    return GraphedTrainStep(step_fn, device), state, kfac, batches, args
+
+
+def _largest_diff(got, want, where=""):
+    """``(relative difference, absolute difference, where)`` of the most
+    differing tensor of two trees of one structure (0 where bitwise)."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        if torch.equal(got, want):
+            return 0.0, 0.0, where
+        d = float((got.double() - want.double()).abs().max())
+        return d / max(float(want.double().abs().max()), 1e-30), d, where
+    if isinstance(want, dict):
+        return max((_largest_diff(got[k], want[k], f"{where}/{k}") for k in want),
+                   default=(0.0, 0.0, where))
+    return (0.0, 0.0, where) if got == want else (float("inf"), float("inf"), where)
+
+
+def compiled_step_phase(device, counters):
+    """Phase 30 (see the docstring): the CIFAR twin graphed against eager."""
+    import os
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_cifar10_resnet as trainer
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+
+    out, runs, eager_reason = {}, {}, trainer.eager_step_reason
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_graphs_") as tmp:
+            data_dir = write_cifar_set(os.path.join(tmp, "data"), COMPILED_PER_BATCH,
+                                       COMPILED_TEST)
+            for mode in ("graphed", "eager"):
+                ck, tel = os.path.join(tmp, f"ck_{mode}"), os.path.join(tmp, f"tel_{mode}")
+                argv = cifar_args(data_dir, [
+                    "--epochs", str(COMPILED_EPOCHS), "--steps-per-epoch", str(COMPILED_STEPS),
+                    "--checkpoint-dir", ck, "--telemetry-dir", tel], COMPILED_FLAGS)
+                if mode == "eager":
+                    trainer.eager_step_reason = lambda *_: "phase 30's eager reference"
+                try:
+                    hist, launches = counted(lambda: trainer.main(argv), counters)
+                finally:
+                    trainer.eager_step_reason = eager_reason
+                saved = torch.load(ckpt.checkpoint_path(ck, COMPILED_EPOCHS - 1),
+                                   map_location=device, weights_only=True)
+                runs[mode] = (hist, launches, saved)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    (g, g_launches, g_saved), (e, e_launches, e_saved) = runs["graphed"], runs["eager"]
+    steps = COMPILED_EPOCHS * COMPILED_STEPS
+    if len(g["loss"]) != steps or len(e["loss"]) != steps or "compiled_step" in e:
+        raise AssertionError(f"graphed {len(g['loss'])} and eager {len(e['loss'])} steps of "
+                             f"{steps}, the eager run graphed: {'compiled_step' in e}")
+    kinds = sorted(set(g["kind"]))
+    rec = g["compiled_step"]
+    eager_keys = len(rec["eager_calls"])
+    retraces = g["telemetry"]["counters"].get("compile/retraces", 0.0)
+    cache_gauge = g["telemetry"]["gauges"].get("compile/cache_size/train_step")
+    bitwise_losses = sum(a == b for a, b in zip(g["loss"], e["loss"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["loss"], e["loss"]))
+    diffs = {key: _largest_diff(g_saved[key], e_saved[key], key)
+             for key in ("model", "opt_state", "kfac_state")}
+    n_tensors = sum(_tree_equal(e_saved[key], e_saved[key], key) for key in diffs)  # a count
+    worst = max(diffs.values())
+    out.update({
+        "run": (f"{MODEL} batch {BATCH}, {COMPILED_EPOCHS} epochs x {COMPILED_STEPS} steps on "
+                f"a written CIFAR-format set, lr warmup, --damping-schedule 1, "
+                "--kfac-diagnostics, deterministic cuDNN"),
+        "step_kinds": kinds,
+        "losses_bitwise": bitwise_losses, "steps": steps, "losses_max_rel_diff": loss_rel,
+        "final_tensors": n_tensors,
+        "final_tensors_max_rel_diff": worst[0], "final_tensors_max_abs_diff": worst[1],
+        "final_tensors_max_diff_at": worst[2],
+        "graphs": rec["graphs"], "budget": rec["budget"],
+        "variants_eager_by_rule": rec["eager_calls"],
+        "compile_retraces": retraces, "compile_cache_size_gauge": cache_gauge,
+        "replays": rec["replays"],
+        "capture_ms": rec["capture_ms"],
+        "launches": {"graphed": g_launches, "eager": e_launches},
+        "step_ms_median_by_kind": {"graphed": kind_medians(g), "eager": kind_medians(e)},
+        "val_loss": {"graphed": g["val_loss"], "eager": e["val_loss"]},
+    })
+    if bitwise_losses != steps or worst[0] > 0.0:
+        print(f"compiled step: {bitwise_losses} of {steps} losses bitwise, the largest "
+              f"difference {loss_rel:.3e} relative; final tensors: the largest difference "
+              f"{worst[0]:.3e} relative ({worst[1]:.3e} absolute) at {worst[2]}", flush=True)
+    if not (loss_rel <= COMPILED_RTOL and worst[0] <= COMPILED_RTOL):
+        raise AssertionError(f"the graphed recipe differs from the eager one: losses "
+                             f"{loss_rel:.3e}, tensors {worst[0]:.3e} at {worst[2]}")
+    if rec["graphs"] != rec["budget"] - eager_keys:
+        raise AssertionError(f"{rec['graphs']} graphs captured, the budget "
+                             f"{rec['budget']} less {eager_keys} eager variants implies "
+                             f"{rec['budget'] - eager_keys}")
+    if retraces or cache_gauge != rec["graphs"]:
+        raise AssertionError(f"compile/retraces {retraces}, cache size gauge {cache_gauge}")
+    if g_launches != e_launches or not g_launches["fused_sgd_apply"]:
+        raise AssertionError(f"launches graphed {g_launches} against eager {e_launches}")
+    if not rec["replays"]:
+        raise AssertionError("the graphed run replayed no graph")
+    mark("30b. ResNet-32 capture window, graphed and eager")
+    window = [(("--steps-per-epoch", "10"), [("capture", 2, 10)])]
+    prof = {"graphed": profile_path(graphed_resnet_setup, device, window)["capture"],
+            "eager": profile_path(resnet_setup, device, window)["capture"]}
+    out["capture_window"] = {
+        mode: {k: p[k] for k in ("steps", "wall_ms_per_step", "device_busy_ms_per_step",
+                                 "device_idle_share", "device_events")}
+        for mode, p in prof.items()}
+    return out
 
 
 def graph_phase(model, ids, vocab, device, lr, mu, wd):
@@ -5462,23 +5619,32 @@ def registered_metric_names():
 
 def check_telemetry_files(tel_dir):
     """``metrics.prom`` and ``telemetry.jsonl`` exist and name only
-    registered metrics; returns the names."""
+    registered metrics (a name of a ``<...>`` family, such as
+    ``compile/cache_size/<fn>``, counts as its family); returns the names."""
     from kfac_pytorch_tpu_torch.observability.export import prom_name
 
     registered = registered_metric_names()
+    heads = {n[:n.index("<")]: n for n in registered if n.endswith(">")}
+
+    def family(name):
+        head = next((h for h in heads if name.startswith(h) and "/" not in name[len(h):]), None)
+        return heads[head] if head is not None else name
+
     names = set()
     with open(f"{tel_dir}/telemetry.jsonl") as fh:
         for line in fh:
             tag = json.loads(line)["tag"]
             kind, rest = tag.split("/", 1)
-            names.add(rest.rsplit("/", 1)[0] if kind == "span" else rest)
+            names.add(family(rest.rsplit("/", 1)[0] if kind == "span" else rest))
     if not names or not names <= registered:
         raise AssertionError(f"telemetry.jsonl names outside the registry: "
                              f"{sorted(names - registered)}")
     prom = {prom_name(n) for n in registered}
+    prom_heads = tuple(prom_name(h) for h in heads)
     with open(f"{tel_dir}/metrics.prom") as fh:
         families = [ln.split()[2] for ln in fh if ln.startswith("# TYPE")]
-    stray = [f for f in families if f.removesuffix("_seconds") not in prom]
+    stray = [f for f in families
+             if f.removesuffix("_seconds") not in prom and not f.startswith(prom_heads)]
     if not families or stray:
         raise AssertionError(f"metrics.prom families outside the registry: {stray}")
     return sorted(names)
@@ -7260,8 +7426,18 @@ def main() -> int:
                    (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv")):
         k["launches_on_slice20_paths"] = {"lm_two_ranks_trainer": two29["lm"]["launches"][key]}
 
-    mark("30. results")
-    # 30. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    mark("30. the compiled step")
+    # 30. this slice: the CIFAR twin's step captured per variant in CUDA
+    # graphs, against the eager step, the counters zeroed just before each
+    compiled = compiled_step_phase(device, all_counted)
+    print(json.dumps({"compiled_step": compiled}), flush=True)
+    for k, key in ((conv_a, "compute_a_conv_fused"), (resnet_apply, "fused_precondition_stack"),
+                   (resnet_sgd, "fused_sgd_apply")):
+        k["launches_on_slice22_paths"] = {
+            f"resnet32_{mode}": n[key] for mode, n in compiled["launches"].items()}
+
+    mark("31. results")
+    # 31. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

@@ -7,6 +7,10 @@
 //     m' = μ·m + (g + wd·p)        (weight decay folded in before momentum)
 //     p' = p − lr·m'
 //
+// lr is read from device memory (a float32 scalar, read once per block),
+// so a launch captured in a CUDA graph takes each replay's learning rate;
+// μ and the weight decay, constant for a run, are arguments.
+//
 // the composition training/step.py::make_sgd builds (torch.optim.SGD with
 // dampening 0). Each product and sum is rounded on its own (__fmul_rn,
 // __fadd_rn, __fsub_rn: no fused multiply-add), in that order, which is
@@ -68,8 +72,9 @@ __device__ __forceinline__ void sgd1(float& p, float g, float& m, float lr,
 
 template <int Cap>
 __global__ void __launch_bounds__(kThreads)
-fused_sgd(const __grid_constant__ LeafTable<Cap> t, float lr, float mu,
-          float wd) {
+fused_sgd(const __grid_constant__ LeafTable<Cap> t, const float* __restrict__ lr_ptr,
+          float mu, float wd) {
+  const float lr = __ldg(lr_ptr);
   const int b = blockIdx.x;
   int lo = 0, hi = t.count - 1;
   while (lo < hi) {  // the last leaf whose first chunk is <= b (skips empty leaves)
@@ -130,7 +135,7 @@ fused_sgd(const __grid_constant__ LeafTable<Cap> t, float lr, float mu,
 }
 
 template <int Cap>
-int launch(const void* table, int blocks, float lr, float mu, float wd,
+int launch(const void* table, int blocks, const float* lr, float mu, float wd,
            cudaStream_t s) {
   fused_sgd<Cap><<<blocks, kThreads, 0, s>>>(
       *static_cast<const LeafTable<Cap>*>(table), lr, mu, wd);
@@ -151,9 +156,11 @@ extern "C" int kfac_fused_sgd_table_bytes(int cap) {
 }
 
 // One launch of `blocks` blocks over the host table `table` of capacity
-// `cap` (a LeafTable<cap> laid out by the wrapper).
-extern "C" int kfac_fused_sgd(const void* table, int cap, int blocks, float lr,
-                              float mu, float wd, void* stream) {
+// `cap` (a LeafTable<cap> laid out by the wrapper); `lr` points at the
+// float32 learning rate in device memory.
+extern "C" int kfac_fused_sgd(const void* table, int cap, int blocks,
+                              const float* lr, float mu, float wd,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cap) {
     case 64: return launch<64>(table, blocks, lr, mu, wd, s);

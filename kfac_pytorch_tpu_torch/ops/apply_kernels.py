@@ -14,7 +14,9 @@ its plain PyTorch version beside it and a launch counter on the wrapper
 * :func:`fused_sgd_apply` — ``m' = μ·m + (g + wd·p); p' = p − lr·m'`` over
   every parameter leaf, updating params and momentum IN PLACE
   (``csrc/fused_sgd.cu``, one launch for up to 896 leaves, replacing
-  ``fused_sgd_apply`` → ``_fused_sgd_kernel``). An :class:`SGDPlan` holds
+  ``fused_sgd_apply`` → ``_fused_sgd_kernel``). ``lr`` is a float or a 0-d
+  tensor; the kernel reads it from device memory, so a launch captured in
+  a CUDA graph takes each replay's value. An :class:`SGDPlan` holds
   what does not change from step to step (pointers, sizes, launch tables);
   the train step keeps one, so a step's host work is over the grads only.
   The counter counts device launches.
@@ -75,11 +77,13 @@ def fused_precondition_stack_plain(
     return v, (v * gm).sum(dim=(1, 2))
 
 
-def _damping_tensor(damping, device) -> torch.Tensor:
-    if isinstance(damping, torch.Tensor):
-        return damping.to(device=device, dtype=torch.float32).reshape(())
-    # a fill kernel on the stream, not a host-to-device copy: no sync
-    return torch.full((), float(damping), dtype=torch.float32, device=device)
+def scalar_tensor(value, device) -> torch.Tensor:
+    """``value`` (a float or a 0-d tensor) as a float32 0-d tensor on
+    ``device``: a tensor already there is passed through, a float filled
+    (a fill kernel on the stream, not a host-to-device copy: no sync)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
 def fused_precondition_stack(
@@ -114,7 +118,7 @@ def fused_precondition_stack(
                 f"bfloat16), got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     gm, qa, da, qg, dg = (t.contiguous() for t in (gm, qa, da, qg, dg))
-    lam = _damping_tensor(damping, gm.device)
+    lam = scalar_tensor(damping, gm.device)
     # one buffer for the kernel's scratch: the two [k, g, a] intermediates
     # with rows padded to a multiple of 4 floats (16-byte cp.async), then
     # the per-tile KL partials (at most one per 32 x 32 tile) and one
@@ -193,20 +197,21 @@ def fused_sgd_apply_plain(
     params: Sequence[torch.Tensor],
     grads: Sequence[torch.Tensor],
     trace: Sequence[torch.Tensor],
-    lr: float,
+    lr,
     momentum: float,
     weight_decay: float,
 ) -> None:
     """Plain PyTorch version, per leaf and in place:
-    ``m = μ·m + (g + wd·p)``, ``p = p − lr·m``."""
+    ``m = μ·m + (g + wd·p)``, ``p = p − lr·m``; ``lr`` a float or a 0-d
+    float32 tensor (the same bits: a float operand is rounded to float32)."""
     for p, g, m in zip(params, grads, trace):
         m.mul_(momentum).add_(g + weight_decay * p)
         p.sub_(lr * m)
 
 
 # csrc/fused_sgd.cu's LeafTable capacities, in leaves; the largest keeps the
-# kernel's argument (36 bytes a leaf, then lr, momentum and weight decay)
-# under sm_90's 32,764-byte limit
+# kernel's argument (36 bytes a leaf, then the lr pointer, momentum and
+# weight decay) under sm_90's 32,764-byte limit
 SGD_TABLE_CAPACITIES = (64, 256, 896)
 SGD_CHUNK = 4096  # elements a block of csrc/fused_sgd.cu updates
 SGD_ARG_LIMIT = 32764  # bytes of kernel arguments an sm_90 kernel takes (CUDA >= 12.1)
@@ -328,11 +333,12 @@ class SGDPlan:
     def launches_per_call(self) -> int:
         return len(self.tables)
 
-    def launch(self, grads: Sequence[torch.Tensor], lr: float, momentum: float,
+    def launch(self, grads: Sequence[torch.Tensor], lr, momentum: float,
                weight_decay: float) -> None:
         """The SGD step of the plan's leaves with these grads: one launch
         per table (one for up to 896 leaves), each counted on
-        ``fused_sgd_apply.launches``."""
+        ``fused_sgd_apply.launches``. ``lr`` is a 0-d tensor on the plan's
+        device, which every block reads, or a float, filled into one."""
         if self.stale:
             raise ValueError(
                 "fused_sgd_apply: a param or momentum storage of this SGD plan "
@@ -349,11 +355,13 @@ class SGDPlan:
                 _check_leaf(g, shape, self.device)
         g_ptrs = [g.data_ptr() for g in grads]
         stream = kernel_build.current_stream_handle(self.device)
-        lr, momentum, weight_decay = float(lr), float(momentum), float(weight_decay)
+        lr_t = scalar_tensor(lr, self.device)
+        momentum, weight_decay = float(momentum), float(weight_decay)
         for lo, k, cap, table, blocks in self.tables:
             table.g[:k] = g_ptrs[lo:lo + k]
             err = self._lib.kfac_fused_sgd(
-                ctypes.addressof(table), cap, blocks, lr, momentum, weight_decay, stream
+                ctypes.addressof(table), cap, blocks, lr_t.data_ptr(), momentum, weight_decay,
+                stream,
             )
             kernel_build.check(err, "fused_sgd")
             fused_sgd_apply.launches += 1
@@ -377,7 +385,7 @@ def fused_sgd_apply(
     params: Sequence[torch.Tensor],
     grads: Sequence[torch.Tensor],
     trace: Sequence[torch.Tensor],
-    lr: float,
+    lr,
     momentum: float,
     weight_decay: float,
 ) -> None:
@@ -412,7 +420,7 @@ def dispatch_sgd_apply(
     params: Dict[str, torch.Tensor],
     grads: Dict[str, torch.Tensor],
     trace: Dict[str, torch.Tensor],
-    lr: float,
+    lr,
     momentum: float,
     weight_decay: float,
     *,

@@ -56,7 +56,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple]] = {
     },
     "fused_sgd": {
         # LeafTable<cap>*, cap, blocks, lr, momentum, wd, stream
-        "kfac_fused_sgd": (_P, _I, _I, _F, _F, _F, _P),
+        "kfac_fused_sgd": (_P, _I, _I, _P, _F, _F, _P),
         # cap -> sizeof(LeafTable<cap>)
         "kfac_fused_sgd_table_bytes": (_I,),
     },

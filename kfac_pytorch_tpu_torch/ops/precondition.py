@@ -808,8 +808,13 @@ def precondition_all_owner(
     return out
 
 
-def _lr_squared(lr) -> float:
-    """``lr²`` rounded as the reference computes it: in float32."""
+def _lr_squared(lr):
+    """``lr²`` rounded as the reference computes it: in float32. A 0-d
+    tensor ``lr`` gives a float32 product on its device (the same bits as
+    the float's, with no host read); a float gives a float."""
+    if isinstance(lr, torch.Tensor):
+        lr32 = lr.to(torch.float32)
+        return lr32 * lr32
     lr32 = np.float32(lr)
     return float(lr32 * lr32)
 

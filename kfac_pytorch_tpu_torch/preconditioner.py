@@ -1749,7 +1749,9 @@ class KFAC:
         cosine and the staleness count are computed every step. Device
         tensors throughout: nothing is read back to the host.
         """
-        lam = float(np.float32(damping))
+        # λ in float32: a 0-d tensor stays on the device (no host read)
+        lam = (damping.to(torch.float32) if isinstance(damping, torch.Tensor)
+               else float(np.float32(damping)))
         min_eig, max_eig = prev["min_damped_eig"], prev["max_damped_eig"]
         layer_cond = prev["layer_cond"]
         if fresh_spectra is not None:

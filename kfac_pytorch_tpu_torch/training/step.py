@@ -176,7 +176,10 @@ def make_train_step(
     update_eigen=..., diag_warmup_done=..., eigen_chunk=..., swap_eigen=...,
     flush_factors=...) -> (state, metrics)``; the flags are
     ``KFAC.update``'s (from ``kfac_flags_for_step`` or
-    ``scheduler.EigenRefreshCadence``).
+    ``scheduler.EigenRefreshCadence``). ``lr`` and ``damping`` are floats or
+    0-d tensors; the step reads them as float32 device scalars (the same
+    bits either way), which a CUDA-graph replay
+    (``training/graphs.py``) refreshes in place.
 
     The loss is the mean CE with ``label_smoothing`` (the ImageNet recipe's
     0.1), as the JAX step computes it.
@@ -274,8 +277,8 @@ def make_train_step(
     def train_step(
         state: TrainState,
         batch: Tuple[torch.Tensor, torch.Tensor],
-        lr: float,
-        damping: float,
+        lr,
+        damping,
         *,
         update_factors: bool = False,
         update_eigen: bool = False,
@@ -290,6 +293,10 @@ def make_train_step(
         if fsdp is not None:
             fsdp.gather()
         params = dict(model.named_parameters())
+        # lr and damping as 0-d float32 tensors on the step's device, each
+        # filled once (a tensor passes through: the graphed step's scalars)
+        device = next(iter(params.values())).device
+        lr, damping = (apply_kernels.scalar_tensor(v, device) for v in (lr, damping))
         for p in params.values():
             p.grad = None
         capture_stats = kfac is not None and update_factors

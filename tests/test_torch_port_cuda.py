@@ -971,3 +971,247 @@ def test_checkpoint_restore_keeps_the_sgd_plan(cuda_device, tmp_path):
     assert plans["plan"] is plan  # kept: the restore copied into its storages
     for a, b in zip(list(params.values()) + list(opt.values()), want_p + want_m):
         assert torch.equal(a.detach(), b)
+
+
+# ---------------------------------------------------------------------------
+# The compiled step: kernel 4's device lr, the graphed train step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_fused_sgd_device_lr_matches_plain_and_repeats(cuda_device):
+    """Kernel 4 reads lr from device memory: bitwise the plain version at
+    each rate, two launches on the same inputs bitwise equal, and a launch
+    captured in a CUDA graph takes the rate of each replay."""
+    r = np.random.RandomState(64)
+    shapes = [(16, 3, 3, 3), (16,), (64, 64, 3, 3), (10, 64), (10,), (4097,)] * 16
+    params, grads, trace = (_sgd_leaves(r, shapes, cuda_device) for _ in range(3))
+    lr = torch.zeros((), device=cuda_device)
+    for rate in (0.1, 0.0123456789, 3.3):
+        lr.fill_(rate)
+        runs = []
+        for _ in range(2):
+            p, m = [x.clone() for x in params], [x.clone() for x in trace]
+            tapply.SGDPlan(p, m).launch(grads, lr, 0.9, 5e-4)
+            runs.append(p + m)
+        want_p, want_m = [x.clone() for x in params], [x.clone() for x in trace]
+        tapply.fused_sgd_apply_plain(want_p, grads, want_m, rate, 0.9, 5e-4)
+        for a, b, c in zip(runs[0], runs[1], want_p + want_m):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    p, m = [x.clone() for x in params], [x.clone() for x in trace]
+    plan = tapply.SGDPlan(p, m)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plan.launch(grads, lr, 0.9, 5e-4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        plan.launch(grads, lr, 0.9, 5e-4)
+    for rate in (0.05, 0.2):
+        want_p, want_m = [x.clone() for x in p], [x.clone() for x in m]
+        lr.fill_(rate)
+        graph.replay()
+        tapply.fused_sgd_apply_plain(want_p, grads, want_m, rate, 0.9, 5e-4)
+        for a, b in zip(p + m, want_p + want_m):
+            assert torch.equal(a, b)
+
+
+@pytest.fixture
+def deterministic_cudnn(cuda_device):
+    """cuDNN's deterministic algorithms: two runs of a step give the same
+    bits only when its convolutions' backward sums in a fixed order."""
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield cuda_device
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _graph_run(device, kfac_kw, graphed, steps, seed=0, state_from=None, start=0):
+    """``steps`` ResNet-8 steps on ``device`` through the eager step or
+    :class:`GraphedTrainStep`, with the cadence's flags and an lr and
+    damping that change every step: ``(per-step metrics, final state,
+    launch counts, the step)``. ``state_from`` (a :func:`_snapshot`)
+    replaces the starting weights, momentum and K-FAC state with new
+    tensors, as a restore from outside the step hands them over."""
+    import copy
+
+    from kfac_pytorch_tpu_torch import KFAC, EigenRefreshCadence, capture
+    from kfac_pytorch_tpu_torch.models import cifar_resnet
+    from kfac_pytorch_tpu_torch.training.graphs import GraphedTrainStep, launch_counters
+    from kfac_pytorch_tpu_torch.training.step import TrainState, make_sgd, make_train_step
+
+    torch.manual_seed(seed)
+    model = cifar_resnet.CifarResNet(1, 10).to(device)
+    tx = make_sgd(0.9, 5e-4)
+    kfac = KFAC(layers=capture.discover_layers(model), lr=0.1, damping=0.003,
+                track_diagnostics=True, device=device, **kfac_kw)
+    state = TrainState(step=0, model=model, opt_state=tx.init(dict(model.named_parameters())),
+                       kfac_state=kfac.init(model))
+    if state_from is not None:
+        sd, opt, kstate, cad = state_from
+        model.load_state_dict(sd)
+        state = TrainState(step=start, model=model,
+                           opt_state={n: t.clone() for n, t in opt.items()},
+                           kfac_state=copy.deepcopy(kstate))
+    step_fn = make_train_step(model, tx, kfac, sgd_hyper=(0.9, 5e-4))
+    if graphed:
+        step_fn = GraphedTrainStep(step_fn, device)
+    cadence = EigenRefreshCadence(kfac)
+    if state_from is not None:
+        cadence.load_state_dict(state_from[3])
+    for fn, attr in launch_counters():
+        setattr(fn, attr, 0)
+    g = torch.Generator().manual_seed(seed + 1)
+    out = []
+    for i in range(start + steps):
+        x = torch.randn(8, 3, 8, 8, generator=g).to(device)
+        y = torch.randint(0, 10, (8,), generator=g).to(device)
+        if i < start:
+            continue
+        flags = cadence.flags_for_step(i)
+        state, metrics = step_fn(state, (x, y), 0.1 * (1 + 0.1 * i), 0.003 * (1 + (i >= 5)),
+                                 **flags)
+        out.append({k: v.clone() for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in launch_counters()}
+    return out, state, counts, step_fn, cadence
+
+
+def _snapshot(state, cadence):
+    import copy
+
+    return ({k: v.clone() for k, v in state.model.state_dict().items()},
+            {n: t.clone() for n, t in state.opt_state.items()},
+            copy.deepcopy(state.kfac_state), cadence.state_dict())
+
+
+def _assert_states_equal(a, b):
+    from kfac_pytorch_tpu_torch.training.graphs import _flatten
+
+    for (ka, va), (kb, vb) in zip(a.model.state_dict().items(), b.model.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb), ka
+    for n in a.opt_state:
+        assert torch.equal(a.opt_state[n], b.opt_state[n]), n
+    la, lb = _flatten(a.kfac_state), _flatten(b.kfac_state)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), p
+        else:
+            assert x == y, p
+
+
+# the cadences of the graphed-step tests: refreshes, capture and plain
+# steps; and the pipelined refresh, whose chunks run eagerly and whose
+# last chunk swaps
+GRAPH_CADENCES = {
+    "plain_capture_refresh": dict(fac_update_freq=2, kfac_update_freq=4),
+    "chunks": dict(fac_update_freq=1, kfac_update_freq=4, eigh_chunks=2),
+    "warmup_blocks": dict(fac_update_freq=1, kfac_update_freq=3, diag_blocks=2, diag_warmup=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cadence", list(GRAPH_CADENCES))
+def test_graphed_step_is_the_eager_step_bitwise(deterministic_cudnn, cadence):
+    """Every variant of the cadence, captured or eager by rule, gives the
+    eager step's metrics at each step and its weights, momentum and K-FAC
+    state at the end, bit for bit; the launch counters grow per replay as
+    the eager run's per step; one graph per captured variant."""
+    from kfac_pytorch_tpu_torch.training.graphs import eager_variant_reason
+
+    device = deterministic_cudnn
+    kw = GRAPH_CADENCES[cadence]
+    want, wstate, wcounts, _, _ = _graph_run(device, kw, False, 10)
+    got, gstate, gcounts, step, _ = _graph_run(device, kw, True, 10)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (i, k)
+    _assert_states_equal(gstate, wstate)
+    assert gcounts == wcounts
+    assert step.replays > 0 and step._cache_size() == len(step.capture_ms)
+    assert all(eager_variant_reason(dict(k)) is not None for k in step.eager_calls)
+    assert step.eager_calls  # the refreshes (and chunks) ran eagerly
+
+
+@pytest.mark.cuda
+def test_graphed_replay_reads_new_lr_and_damping(deterministic_cudnn):
+    """Replays of one captured variant at rates and dampings it was not
+    captured with equal the eager step at those values."""
+    device = deterministic_cudnn
+    kw = dict(fac_update_freq=1, kfac_update_freq=100)  # one refresh, then capture steps
+    want, wstate, _, _, _ = _graph_run(device, kw, False, 8)
+    got, gstate, _, step, _ = _graph_run(device, kw, True, 8)
+    assert step._cache_size() == 1 and step.replays == 6
+    for a, b in zip(got, want):
+        assert torch.equal(a["loss"], b["loss"]) and torch.equal(a["kfac_nu"], b["kfac_nu"])
+    _assert_states_equal(gstate, wstate)
+
+
+@pytest.mark.cuda
+def test_graphed_step_copies_a_state_handed_in(deterministic_cudnn):
+    """A state from outside the graphed step (a restore: new weights copied
+    in place, new momentum and K-FAC tensors) is copied into the captured
+    buffers before the replay, not ignored: the run continues as the
+    eager step does from the same state."""
+    device = deterministic_cudnn
+    kw = GRAPH_CADENCES["plain_capture_refresh"]
+    _, mid, _, _, cad = _graph_run(device, kw, False, 6, seed=3)
+    snap = _snapshot(mid, cad)
+    want, wstate, _, _, _ = _graph_run(device, kw, False, 5, seed=3, state_from=snap, start=6)
+    # a graphed run that captured its variants on other values first
+    got_first, gstate, _, step, gcad = _graph_run(device, kw, True, 6, seed=11)
+    gstate.model.load_state_dict(snap[0])
+    from kfac_pytorch_tpu_torch.training.step import TrainState
+    import copy
+
+    state = TrainState(step=6, model=gstate.model,
+                       opt_state={n: t.clone() for n, t in snap[1].items()},
+                       kfac_state=copy.deepcopy(snap[2]))
+    gcad.load_state_dict(snap[3])
+    g = torch.Generator().manual_seed(4)
+    got = []
+    for i in range(11):
+        x = torch.randn(8, 3, 8, 8, generator=g).to(device)
+        y = torch.randint(0, 10, (8,), generator=g).to(device)
+        if i < 6:
+            continue
+        state, metrics = step(state, (x, y), 0.1 * (1 + 0.1 * i), 0.003 * (1 + (i >= 5)),
+                              **gcad.flags_for_step(i))
+        got.append(metrics)
+    assert step.replays > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a["loss"], b["loss"])
+    _assert_states_equal(state, wstate)
+
+
+@pytest.mark.cuda
+def test_eigh_refuses_capture(cuda_device):
+    """The premise of ``training.graphs.EAGER_VARIANTS``: ``torch.linalg.eigh``
+    reads cuSOLVER's info on the host, which a CUDA-graph capture refuses.
+    Probed in a process of its own: a refused capture leaves the process's
+    CUDA generator mid-capture."""
+    import subprocess
+    import sys
+
+    probe = (
+        "import torch\n"
+        "a = (torch.arange(64 * 64, dtype=torch.float32).reshape(64, 64) % 7).cuda()\n"
+        "a = a @ a.T + 64 * torch.eye(64, device='cuda')\n"
+        "s = torch.cuda.Stream(); s.wait_stream(torch.cuda.current_stream())\n"
+        "with torch.cuda.stream(s):\n"
+        "    torch.linalg.eigh(a)\n"
+        "torch.cuda.current_stream().wait_stream(s)\n"
+        "g = torch.cuda.CUDAGraph()\n"
+        "try:\n"
+        "    with torch.cuda.graph(g):\n"
+        "        torch.linalg.eigh(a)\n"
+        "    print('captured')\n"
+        "except RuntimeError as e:\n"
+        "    print('refused:', str(e).splitlines()[0])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         timeout=300)
+    assert out.stdout.startswith("refused:"), out.stdout + out.stderr

@@ -174,13 +174,16 @@ OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("option,init", [
-    pytest.param("inverse", "eager", id="inverse"),
-    pytest.param("blocks", "eager", id="blocks"),
-    pytest.param("blocks", "jit", id="blocks-jitted-init"),
+@pytest.mark.parametrize("option,init,scalars", [
+    pytest.param("inverse", "eager", "float", id="inverse"),
+    pytest.param("blocks", "eager", "float", id="blocks"),
+    pytest.param("blocks", "jit", "float", id="blocks-jitted-init"),
+    # the port's lr and damping as 0-d float32 tensors, as the graphed
+    # step hands them over
+    pytest.param("blocks", "eager", "tensor", id="blocks-tensor-scalars"),
 ])
-def test_option_train_steps_match_jax(option, init):
-    run_option_train_steps(option, init)
+def test_option_train_steps_match_jax(option, init, scalars):
+    run_option_train_steps(option, init, scalars)
 
 
 # The jitted-init case's refresh invariants at step 2, each relative to the
@@ -257,7 +260,7 @@ def _sgd_view(jstate, tstate):
              for n, p in params.items()})
 
 
-def run_option_train_steps(option, init="eager"):
+def run_option_train_steps(option, init="eager", scalars="float"):
     """``STEP_ARCH`` steps of ``OPTIONS[option]`` (4, or the option's
     ``steps``) in both packages, compared after every step
     (``tests/test_torch_port_accum.py`` runs the accumulation options: the
@@ -266,7 +269,9 @@ def run_option_train_steps(option, init="eager"):
     whose bases, preconditioned gradients and ν are held to the invariant
     bounds above: at step 3 one ReLU input of layer1.0's first BatchNorm
     lies at 1e-7, within the two float32 forward passes' spread (1.7e-6),
-    and its sign differs, which moves the G factors below it by 4e-4."""
+    and its sign differs, which moves the G factors below it by 4e-4.
+    ``scalars="tensor"`` hands the port's step ``lr`` and ``damping`` as
+    0-d float32 tensors."""
     kfac_kw = {**HP, **OPTIONS[option].get("kfac", {}), "track_diagnostics": True}
     step_kw = OPTIONS[option].get("step", {})
     accum = step_kw.get("accum_steps", 1)
@@ -297,8 +302,11 @@ def run_option_train_steps(option, init="eager"):
             xt = xt.reshape(accum, -1, *xt.shape[1:])
         jstate, jm = jstep(jstate, (jnp.asarray(x), jnp.asarray(y)), jnp.float32(LR),
                            jnp.float32(HP["damping"]), **jf)
-        tstate, tm = tstep(tstate, (torch.from_numpy(xt), torch.from_numpy(y)), LR,
-                           HP["damping"], **tf)
+        lr, damping = LR, HP["damping"]
+        if scalars == "tensor":
+            lr, damping = (torch.tensor(v, dtype=torch.float32) for v in (lr, damping))
+        tstate, tm = tstep(tstate, (torch.from_numpy(xt), torch.from_numpy(y)), lr, damping,
+                           **tf)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(float(tm["accuracy"]), float(jm["accuracy"]), rtol=1e-6)
         kfac_keys = sorted(k for k in jm if k.startswith("kfac_"))

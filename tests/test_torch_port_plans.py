@@ -93,8 +93,10 @@ def test_sgd_tables_fit_the_kernel_argument(leaves, launches, caps):
     assert [cap for _, _, cap, _ in tables] == caps
     for cap in caps:
         table = tapply._table_type(cap)
-        # LeafTable<cap> (8-byte aligned) then lr, momentum and weight decay
-        arg_bytes = ctypes.sizeof(table) + 3 * ctypes.sizeof(ctypes.c_float)
+        # LeafTable<cap> (8-byte aligned) then the lr pointer, momentum and
+        # weight decay
+        arg_bytes = (ctypes.sizeof(table) + ctypes.sizeof(ctypes.c_void_p)
+                     + 2 * ctypes.sizeof(ctypes.c_float))
         assert arg_bytes <= tapply.SGD_ARG_LIMIT
         # three pointers and a size per leaf, first chunks, count
         assert ctypes.sizeof(table) == 32 * cap + 4 * (cap + 1) + 4

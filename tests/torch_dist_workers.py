@@ -3,8 +3,9 @@
 ``tests/test_torch_port_lens.py``, ``tests/test_torch_port_context.py``,
 ``tests/test_torch_port_moe.py``, ``tests/test_torch_port_fsdp.py``,
 ``tests/test_torch_port_observability.py``,
-``tests/test_torch_port_elastic_ranks.py`` and
-``tests/test_torch_port_service.py`` (not a test file).
+``tests/test_torch_port_elastic_ranks.py``,
+``tests/test_torch_port_service.py`` and
+``tests/test_torch_port_compile_cache.py`` (not a test file).
 
 Each task runs in every rank of a gloo world started by :func:`spawn`
 (or :func:`start`, then :func:`join`, so that the test process works
@@ -1572,6 +1573,23 @@ def service(rank, world, sizes, steps, hp, box, twin=None):
     return out
 
 
+def compile_cache(rank, world, configs):
+    """``compile_cache.expected_step_variants`` of a ``KFAC`` built on this
+    world for each ``(name, kfac kwargs, Plan kwargs or None, autotune
+    candidates)`` of ``configs``: ``{name: count}``."""
+    from kfac_pytorch_tpu_torch import KFAC
+    from kfac_pytorch_tpu_torch.compile_cache import expected_step_variants
+    from kfac_pytorch_tpu_torch.planner import Plan
+
+    out = {}
+    for name, kw, plan, autotune in configs:
+        kfac = KFAC(damping=0.01, device="cpu", **kw)
+        out[name] = expected_step_variants(
+            kfac, plan=None if plan is None else Plan(**plan), autotune_candidates=autotune)
+    return out
+
+
 TASKS = {"ops": ops, "steps": steps, "twins": twins, "solver_ops": solver_ops, "comm": comm,
          "owner": owner, "lens": lens, "context": context, "shardwise": shardwise, "fsdp": fsdp,
-         "multi": multi, "telemetry": telemetry, "elastic": elastic, "service": service}
+         "multi": multi, "telemetry": telemetry, "elastic": elastic, "service": service,
+         "compile_cache": compile_cache}
