@@ -504,12 +504,32 @@ no result line):
     eager run's; each variant's capture ms and the step medians by kind;
     and the capture window's device idle share both ways (steps 2-9 of the
     ResNet-32 path, ``torch.profiler``);
-31. print one ``{"phase_seconds": {...}}`` line (each phase's seconds,
+31. the compiled step on the LM and ImageNet twins (slice 23), with
+    deterministic cuDNN: (a) the LM twin at phase 8's widths, its recipe
+    (``LM_GRAPH_RUNS``: 2 epochs of 10 steps, refreshes at 0 and 10,
+    ``--kfac-diagnostics``) and ``--remat``, ``--qkv-lens``,
+    ``--moe-experts 4`` and ``--solver streaming`` (boundaries every 3
+    steps) over 6 steps each; (b) the ImageNet twin on ResNeXt-50 32x4d at
+    batch 32, 224x224 (``IMAGENET_GRAPH_RUNS``: 2 epochs of 6 steps with
+    ``--diag-warmup 1``, then ``--bf16``, ``--batches-per-allreduce 2`` and
+    ``--kfac-update-freq 0`` over 6 steps each); each run graphed and
+    eager (the twin's ``eager_step_reason`` patched) from the same seed,
+    each with the counters zeroed just before: every loss and every tensor
+    of the last checkpoint bitwise equal; every launch counter equal both
+    ways, and each kernel of the path (kernels 2-7 on the LM; 1, 1g, 3, 4
+    on ResNeXt, the bf16 routes under ``--bf16``) launched inside the
+    replays; the graphs and the variants run eagerly (only those of
+    ``EAGER_VARIANTS``) within ``compile_cache.expected_step_variants``;
+    on the LM ``compile/retraces`` 0; each variant's capture ms and
+    launches per replay, and the step medians by kind; (c) the capture
+    window (steps 2-9) of the LM and ResNeXt-50 paths, graphed and eager
+    (``torch.profiler``): wall and busy ms per step and the idle share;
+32. print one ``{"phase_seconds": {...}}`` line (each phase's seconds,
     from its mark to the next), then one ``{"kernels": [...]}`` line (eight kernels and the bf16 routes
     of 1, 1g and 3, and kernel 2 as the MoE dispatch; kernel 1's ResNet-50
     row, kernel 2's tied-path row, kernel 3's WikiText rows and kernel 4's
     LSTM and 3-D rows beside the others, the two-rank launches of kernels
-    1, 3 and 4, and every kernel's launches on phase 21's to 29's paths,
+    1, 3 and 4, and every kernel's launches on phase 21's to 31's paths,
     per rank on the multi-rank ones), then the last line ``{"ok": true,
     "device": {...}}``.
 """
@@ -1222,12 +1242,16 @@ COMPILED_FLAGS = ["--kfac-diagnostics", "--damping-schedule", "1"]
 COMPILED_RTOL = 1e-6
 
 
-def graphed_resnet_setup(device, extra=()):
-    """:func:`resnet_setup` with its step wrapped in ``GraphedTrainStep``."""
-    from kfac_pytorch_tpu_torch.training.graphs import GraphedTrainStep
+def graphed(setup):
+    """A path's ``setup`` (``resnet_setup``, ``lm_setup``,
+    ``imagenet_setup``) with its step wrapped in ``GraphedTrainStep``."""
+    def graphed_setup(device, extra=()):
+        from kfac_pytorch_tpu_torch.training.graphs import GraphedTrainStep
 
-    step_fn, state, kfac, batches, args = resnet_setup(device, extra)
-    return GraphedTrainStep(step_fn, device), state, kfac, batches, args
+        step_fn, state, kfac, batches, args = setup(device, extra)
+        return GraphedTrainStep(step_fn, device), state, kfac, batches, args
+
+    return graphed_setup
 
 
 def _largest_diff(got, want, where=""):
@@ -1331,12 +1355,176 @@ def compiled_step_phase(device, counters):
         raise AssertionError("the graphed run replayed no graph")
     mark("30b. ResNet-32 capture window, graphed and eager")
     window = [(("--steps-per-epoch", "10"), [("capture", 2, 10)])]
-    prof = {"graphed": profile_path(graphed_resnet_setup, device, window)["capture"],
+    prof = {"graphed": profile_path(graphed(resnet_setup), device, window)["capture"],
             "eager": profile_path(resnet_setup, device, window)["capture"]}
     out["capture_window"] = {
         mode: {k: p[k] for k in ("steps", "wall_ms_per_step", "device_busy_ms_per_step",
                                  "device_idle_share", "device_events")}
         for mode, p in prof.items()}
+    return out
+
+
+# Phase 31: the compiled step on the LM and ImageNet twins, graphed against
+# eager on the same data. The LM recipe (phase 8's widths) over 2 epochs of
+# 10 steps (refreshes at 0 and 10) with --kfac-diagnostics, then --remat,
+# --qkv-lens, --moe-experts 4 and --solver streaming (its boundaries every
+# 3 steps, so the one at step 3 decides by the drift) over 6 steps each;
+# ResNeXt-50 at batch 32, 224x224 over 2 epochs of 6 steps with
+# --diag-warmup 1 (refreshes at 0 and 10, the warmup's flip at 6), then
+# --bf16, --batches-per-allreduce 2 and --kfac-update-freq 0 over 6 steps
+# each. Every run writes a checkpoint at each epoch's end; the LM's runs
+# keep telemetry for the recompile monitor's counters.
+TWIN_GRAPH_STEPS = 6
+LM_GRAPH_RUNS = (  # (name, flags, epochs, steps per epoch)
+    ("recipe", ["--kfac-diagnostics"], 2, 10),
+    ("remat", ["--remat"], 1, TWIN_GRAPH_STEPS),
+    ("qkv_lens", ["--qkv-lens"], 1, TWIN_GRAPH_STEPS),
+    ("moe4", ["--moe-experts", "4"], 1, TWIN_GRAPH_STEPS),
+    ("streaming", ["--solver", "streaming", "--kfac-update-freq", "3"], 1, TWIN_GRAPH_STEPS),
+)
+IMAGENET_GRAPH_RUNS = (
+    ("recipe_diag_warmup", ["--diag-warmup", "1"], 2, 6),
+    ("bf16", ["--bf16"], 1, TWIN_GRAPH_STEPS),
+    ("accum2", ["--batches-per-allreduce", "2"], 1, TWIN_GRAPH_STEPS),
+    ("sgd", ["--kfac-update-freq", "0"], 1, TWIN_GRAPH_STEPS),
+)
+# the kernels each twin's K-FAC step launches, by counter
+LM_GRAPH_KERNELS = ("compute_a_embed_fused", "fused_precondition_stack", "fused_sgd_apply",
+                    "flash_forward", "flash_backward_dq", "flash_backward_dkv")
+IMAGENET_GRAPH_KERNELS = ("compute_a_conv_fused", "compute_a_conv_grouped_fused",
+                          "fused_precondition_stack", "fused_sgd_apply")
+
+
+def graphed_pair(trainer, argv, epochs, counters, tmp, name):
+    """``trainer.main(argv)`` graphed and eager (the twin's
+    ``eager_step_reason`` patched), each with the counters zeroed just
+    before and its checkpoints under ``tmp``: ``{mode: (history, launches,
+    last checkpoint)}``."""
+    import os
+    import shutil
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
+
+    runs, reason = {}, trainer.eager_step_reason
+    for mode in ("graphed", "eager"):
+        ck = os.path.join(tmp, f"{name}_{mode}")
+        if mode == "eager":
+            trainer.eager_step_reason = lambda *_: "phase 31's eager reference"
+        try:
+            hist, launches = counted(lambda: trainer.main([*argv, "--checkpoint-dir", ck]),
+                                     counters)
+        finally:
+            trainer.eager_step_reason = reason
+        saved = torch.load(ckpt.checkpoint_path(ck, epochs - 1), map_location="cpu",
+                           weights_only=True)
+        shutil.rmtree(ck)
+        runs[mode] = (hist, launches, saved)
+        torch.cuda.empty_cache()
+    return runs
+
+
+def gate_graphed_pair(path, runs, steps, kernels, telemetry):
+    """Phase 31's checks of one pair (see the module docstring), and its
+    record."""
+    from kfac_pytorch_tpu_torch.training.graphs import eager_variant_reason
+
+    (g, g_launches, g_saved), (e, e_launches, e_saved) = runs["graphed"], runs["eager"]
+    if len(g["loss"]) != steps or len(e["loss"]) != steps or "compiled_step" in e:
+        raise AssertionError(f"{path}: graphed {len(g['loss'])} and eager {len(e['loss'])} "
+                             f"steps of {steps}, the eager run graphed: {'compiled_step' in e}")
+    rec = g["compiled_step"]
+    bitwise = sum(a == b for a, b in zip(g["loss"], e["loss"]))
+    diffs = [_largest_diff(g_saved[k], e_saved[k], k) for k in ("model", "opt_state", "kfac_state")]
+    n_tensors = sum(_tree_equal(e_saved[k], e_saved[k], k)
+                    for k in ("model", "opt_state", "kfac_state"))
+    worst = max(diffs)
+    if bitwise != steps or worst[0] > 0.0:
+        raise AssertionError(f"{path}: {bitwise} of {steps} losses bitwise; final tensors: the "
+                             f"largest difference {worst[0]:.3e} relative at {worst[2]}")
+    if g_launches != e_launches:
+        raise AssertionError(f"{path}: launches graphed {g_launches} against eager {e_launches}")
+    in_replays = {}
+    for c in rec["capture_ms"]:
+        for k, n in c["launches_per_replay"].items():
+            in_replays[k] = in_replays.get(k, 0) + n
+    missing = [k for k in kernels if not g_launches.get(k) or not in_replays.get(k)]
+    if missing:
+        raise AssertionError(f"{path}: {missing} not launched inside a replay "
+                             f"(per replay {in_replays}, run {g_launches})")
+    eager_keys = [c["flags"] for c in rec["eager_calls"]]
+    if not all(eager_variant_reason(f) for f in eager_keys):
+        raise AssertionError(f"{path}: variants run eagerly outside the rule: {eager_keys}")
+    if rec["graphs"] + len(eager_keys) > rec["budget"] or not rec["replays"]:
+        raise AssertionError(f"{path}: {rec['graphs']} graphs and {len(eager_keys)} eager "
+                             f"variants for a budget of {rec['budget']}, "
+                             f"{rec['replays']} replays")
+    out = {
+        "steps": steps, "losses_bitwise": bitwise, "final_tensors_bitwise": n_tensors,
+        "step_kinds": sorted(set(g["kind"])),
+        "graphs": rec["graphs"], "budget": rec["budget"], "replays": rec["replays"],
+        "variants_eager_by_rule": rec["eager_calls"], "capture_ms": rec["capture_ms"],
+        "launches": {"graphed": g_launches, "eager": e_launches},
+        "step_ms_median_by_kind": {"graphed": kind_medians(g), "eager": kind_medians(e)},
+        "step0_ms": {"graphed": g["step_ms"][0], "eager": e["step_ms"][0]},
+    }
+    if telemetry:
+        retraces = g["telemetry"]["counters"].get("compile/retraces", 0.0)
+        gauge = g["telemetry"]["gauges"].get("compile/cache_size/train_step")
+        if retraces or gauge != rec["graphs"]:
+            raise AssertionError(f"{path}: compile/retraces {retraces}, cache size gauge {gauge}")
+        out.update({"compile_retraces": retraces, "compile_cache_size_gauge": gauge})
+    return out
+
+
+def twin_compiled_step_phase(device, counters):
+    """Phase 31 (see the module docstring): the LM and ImageNet twins
+    graphed against eager."""
+    import os
+
+    import torch
+
+    from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as imagenet_trainer
+    from kfac_pytorch_tpu_torch.examples import train_transformer_lm as lm_trainer
+
+    out = {"lm": {}, "imagenet": {}}
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="kfac_chip_smoke_twin_graphs_") as tmp:
+            for name, flags, epochs, per_epoch in LM_GRAPH_RUNS:
+                argv = [*LM_ARGS, *flags, "--epochs", str(epochs), "--steps-per-epoch",
+                        str(per_epoch), "--telemetry-dir", os.path.join(tmp, f"tel_{name}")]
+                runs = graphed_pair(lm_trainer, argv, epochs, counters, tmp, f"lm_{name}")
+                # streaming truncates every LM side (all 512 wide or more):
+                # its apply takes the Woodbury solves, not kernel 3
+                kernels = tuple(k for k in LM_GRAPH_KERNELS
+                                if name != "streaming" or k != "fused_precondition_stack")
+                out["lm"][name] = gate_graphed_pair(f"31a LM {name}", runs, epochs * per_epoch,
+                                                    kernels, telemetry=True)
+            mark("31b. the compiled step: the ImageNet twin")
+            for name, flags, epochs, per_epoch in IMAGENET_GRAPH_RUNS:
+                argv = [*IMAGENET_ARGS, *flags, "--epochs", str(epochs), "--steps-per-epoch",
+                        str(per_epoch)]
+                runs = graphed_pair(imagenet_trainer, argv, epochs, counters, tmp,
+                                    f"imagenet_{name}")
+                kernels = () if name == "sgd" else tuple(
+                    f"{k}:bf16" if name == "bf16" and "conv" in k else k
+                    for k in IMAGENET_GRAPH_KERNELS)
+                out["imagenet"][name] = gate_graphed_pair(
+                    f"31b ResNeXt {name}", runs, epochs * per_epoch, kernels, telemetry=False)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+    mark("31c. LM and ResNeXt capture windows, graphed and eager")
+    window = [(("--steps-per-epoch", "10"), [("capture", 2, 10)])]
+    for path, setup in (("lm", lm_setup), ("imagenet", imagenet_setup)):
+        prof = {"graphed": profile_path(graphed(setup), device, window)["capture"],
+                "eager": profile_path(setup, device, window)["capture"]}
+        out[path]["capture_window"] = {
+            mode: {k: p[k] for k in ("steps", "wall_ms_per_step", "device_busy_ms_per_step",
+                                     "device_idle_share", "device_events")}
+            for mode, p in prof.items()}
     return out
 
 
@@ -4687,11 +4875,14 @@ def remat_phase(device, counters, lm_hist):
     from kfac_pytorch_tpu_torch.training import data as data_lib
     from kfac_pytorch_tpu_torch.training.step import softmax_cross_entropy
 
-    a_calls = [0]
+    # Python calls, eager and while a graph captures: a replay repeats the
+    # capture's computations without calling Python
+    a_calls, a_captured = [0], [0]
     real = factors.compute_a_dense
 
     def counting(*args, **kwargs):
         a_calls[0] += 1
+        a_captured[0] += torch.cuda.is_current_stream_capturing()
         return real(*args, **kwargs)
 
     factors.compute_a_dense = counting
@@ -4709,6 +4900,14 @@ def remat_phase(device, counters, lm_hist):
     gate_launches(launches, expected, "LM --remat")
     captures = sum(k != "plain" for k in hist["kind"])
     dense = sum(isinstance(m, KFACDense) for m in model.modules())
+    # the graphed step (phase 8's recipe: one captured variant, the
+    # capture step) computes per replay what its capture computed once
+    rec = hist.get("compiled_step")
+    if rec is not None:
+        if rec["graphs"] != 1:
+            raise AssertionError(f"LM --remat: {rec['graphs']} graphs, the count of dense A "
+                                 "computations per replay needs one")
+        a_calls[0] += (rec["replays"] - 1) * a_captured[0]
     if a_calls[0] != captures * dense:
         raise AssertionError(f"LM --remat: {a_calls[0]} dense A computations, {captures} capture "
                              f"steps x {dense} dense layers imply {captures * dense}")
@@ -7436,8 +7635,27 @@ def main() -> int:
         k["launches_on_slice22_paths"] = {
             f"resnet32_{mode}": n[key] for mode, n in compiled["launches"].items()}
 
-    mark("31. results")
-    # 31. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
+    mark("31a. the compiled step: the LM twin")
+    # 31a-c. this slice: the LM and ImageNet twins' steps captured per
+    # variant in CUDA graphs, against the eager step, the counters zeroed
+    # just before each run
+    twin_graphs = twin_compiled_step_phase(device, all_counted)
+    print(json.dumps({"twin_compiled_steps": twin_graphs}), flush=True)
+    for k, key in ((token_count, "compute_a_embed_fused"), (lm_apply, "fused_precondition_stack"),
+                   (lm_sgd, "fused_sgd_apply"), (flash[0], "flash_forward"),
+                   (flash[1], "flash_backward_dq"), (flash[2], "flash_backward_dkv"),
+                   (rx_conv_a, "compute_a_conv_fused"),
+                   (rx_conv_a_bf16, "compute_a_conv_fused:bf16"),
+                   (grouped_a, "compute_a_conv_grouped_fused"),
+                   (grouped_a_bf16, "compute_a_conv_grouped_fused:bf16"),
+                   (rx_apply, "fused_precondition_stack"), (rx_sgd, "fused_sgd_apply")):
+        k["launches_on_slice23_paths"] = {
+            f"{path}_{name}_{mode}": n.get(key, 0)
+            for path, runs in twin_graphs.items() for name, run in runs.items()
+            if name != "capture_window" for mode, n in run["launches"].items()}
+
+    mark("32. results")
+    # 32. results: kernels 1, 2, 3 and 4 run on several paths; the top-level
     # numbers are those of the path named in "unit", the others sit beside
     conv_a[IMAGENET_MODEL] = rx_conv_a
     conv_a_bf16[IMAGENET_MODEL] = rx_conv_a_bf16

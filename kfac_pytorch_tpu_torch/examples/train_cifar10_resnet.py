@@ -106,7 +106,7 @@ from kfac_pytorch_tpu_torch import (
     observability,
     planner,
 )
-from kfac_pytorch_tpu_torch.compile_cache import RecompileMonitor, expected_step_variants
+from kfac_pytorch_tpu_torch.compile_cache import RecompileMonitor
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.models import cifar_resnet
 from kfac_pytorch_tpu_torch.parallel import launch
@@ -123,7 +123,12 @@ from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training import profiling
 from kfac_pytorch_tpu_torch.training.evaluation import evaluate_split
-from kfac_pytorch_tpu_torch.training.graphs import GraphedTrainStep
+from kfac_pytorch_tpu_torch.training.graphs import (
+    GraphedTrainStep,
+    compiled_record,
+    compiled_step,
+    eager_step_reason,
+)
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.schedules import create_lr_schedule
 from kfac_pytorch_tpu_torch.training.step import (
@@ -532,52 +537,6 @@ def grad_comm_dtype(args) -> Optional[torch.dtype]:
     return torch.bfloat16 if args.grad_comm_dtype == "bf16" else None
 
 
-def eager_step_reason(args, world: World, device: torch.device) -> Optional[str]:
-    """Why this configuration runs the eager train step rather than
-    :class:`GraphedTrainStep`, or ``None`` when the step is graphed. Decided
-    before training, never on a failure: the kernels run either way."""
-    if device.type != "cuda":
-        return f"{device.type} device: CUDA graphs need the card"
-    if world.distributed:
-        return (f"a process group of {world.size} rank(s): the step's collectives (gloo "
-                "stages them through host memory) are not captured")
-    if getattr(args, "service_devices", 0):
-        return "--service-devices: the step installs bases the service publishes"
-    if getattr(args, "comm_overlap", False):
-        return "--comm-overlap: a refresh chunk runs on a side stream"
-    if args.precond_method == "inverse":
-        # measured on an H100: its replays differed from the eager step in
-        # the last bit of ν (~1e-7 relative) while each part of the step,
-        # captured alone, replayed bitwise; cause not found
-        return "--precond-method inverse: its graphed step is not bitwise the eager one"
-    return None
-
-
-def compiled_step(args, train_step, kfac, world: World, device: torch.device):
-    """``(step, budget)``: ``train_step`` graphed where
-    :func:`eager_step_reason` allows it (and that reason printed once on
-    rank 0 where not), and the step's variant budget."""
-    budget = expected_step_variants(kfac)
-    why = eager_step_reason(args, world, device)
-    if why is None:
-        rank0_print(f"train step: CUDA graphs, one per step variant (budget {budget})")
-        return GraphedTrainStep(train_step, device), budget
-    rank0_print(f"train step: eager ({why})")
-    return train_step, budget
-
-
-def compiled_record(step) -> Dict[str, object]:
-    """A graphed step's captures: their count, each one's flags and
-    milliseconds, the replays, and the eagerly run variants' calls."""
-    return {
-        "graphs": step._cache_size(),
-        "capture_ms": [{"flags": dict(key[0]), "kind": step_kind(dict(key[0])), "ms": ms}
-                       for key, ms in step.capture_ms.items()],
-        "replays": step.replays,
-        "eager_calls": [{"flags": dict(key), "calls": n} for key, n in step.eager_calls.items()],
-    }
-
-
 def rank0_print(*values) -> None:
     """``print`` on rank 0 only (the reference's ``hvd.rank() == 0`` logs)."""
     if launch.is_primary():
@@ -857,7 +816,8 @@ def main(argv=None) -> Dict[str, List]:
     ckpt.broadcast_state(state, world)
     eval_step = make_masked_eval_step(model, label_smoothing=args.label_smoothing)
     bn_recal = make_bn_recal_step(model, world) if args.bn_recal_batches else None
-    train_step, budget = compiled_step(args, train_step, kfac, world, device)
+    train_step, budget = compiled_step(train_step, kfac, device,
+                                       eager_step_reason(args, world, device))
     recompiles = RecompileMonitor(tel)
     recompiles.watch("train_step", train_step, budget)
     # eager in this slice: skipped, as the JAX monitor skips a callable
@@ -1030,7 +990,7 @@ def main(argv=None) -> Dict[str, List]:
     if svc is not None:
         history["service"] = service_record(svc)
     if isinstance(train_step, GraphedTrainStep):
-        history["compiled_step"] = {**compiled_record(train_step), "budget": budget}
+        history["compiled_step"] = compiled_record(train_step, budget)
     if loader is not None:
         loader.close()
     return history

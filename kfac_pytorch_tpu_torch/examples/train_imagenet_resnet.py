@@ -36,6 +36,14 @@ to none here (the JAX trainer's defaults are ``./logs`` and
     python -m kfac_pytorch_tpu_torch.examples.train_imagenet_resnet \\
         --synthetic --model resnext50_32x4d --epochs 1 --steps-per-epoch 30
 
+On a CUDA device outside any process group the train step runs as CUDA
+graphs, one captured per step variant and replayed
+(``training.graphs.GraphedTrainStep``, the JAX trainer's jitted step;
+``history["compiled_step"]`` records the captures); a process group and
+``--precond-method inverse`` run the eager step
+(``training.graphs.eager_step_reason``), which it names once. As in the
+JAX trainer, no recompile monitor watches it.
+
 It runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent. ``main()`` returns the history: per step the loss,
 accuracy, step kind, wall milliseconds measured around a synchronized step
@@ -73,6 +81,12 @@ from kfac_pytorch_tpu_torch.runtime import NativeEpochLoader
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training.evaluation import run_imagenet_validation
+from kfac_pytorch_tpu_torch.training.graphs import (
+    GraphedTrainStep,
+    compiled_record,
+    compiled_step,
+    eager_step_reason,
+)
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.schedules import create_lr_schedule
 from kfac_pytorch_tpu_torch.training.step import (
@@ -315,6 +329,8 @@ def main(argv=None) -> Dict[str, List]:
             start_epoch=resume_from_epoch,
         )
     eval_step = make_masked_eval_step(model, label_smoothing=args.label_smoothing)
+    train_step, budget = compiled_step(train_step, kfac, device,
+                                       eager_step_reason(args, world, device))
     lr_base = args.base_lr * world.size
     lr_factor = create_lr_schedule(world.size, args.warmup_epochs, args.lr_decay)
     im = args.image_size
@@ -423,6 +439,8 @@ def main(argv=None) -> Dict[str, List]:
     writer.close()
     if loader is not None:
         loader.close()
+    if isinstance(train_step, GraphedTrainStep):
+        history["compiled_step"] = compiled_record(train_step, budget)
     return history
 
 

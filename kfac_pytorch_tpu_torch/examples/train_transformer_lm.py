@@ -97,6 +97,17 @@ the gathered one-process layout.
     torchrun --nproc-per-node 4 -m kfac_pytorch_tpu_torch.examples.train_transformer_lm \\
         --synthetic --kfac-embedding --fsdp 2 --tensor-parallel 2
 
+On a CUDA device outside any process group the train step runs as CUDA
+graphs, one captured per step variant and replayed
+(``training.graphs.GraphedTrainStep``, the JAX trainer's jitted step);
+the configurations of ``training.graphs.eager_step_reason`` (a process
+group, ``--service-devices``, ``--comm-overlap``) run the eager step,
+which it names once. ``compile_cache.RecompileMonitor`` watches
+``train_step`` against ``compile_cache.expected_step_variants`` and
+``eval_step`` against 1, as the JAX trainer does, and warns each epoch of
+any graph beyond the budget; ``history["compiled_step"]`` records the
+captures.
+
 Attention runs the CUDA flash kernels on a GPU
 (``ops/flash_attention.py::best_attention_fn``). It runs on CUDA unless
 ``--device cpu`` is given, and raises when CUDA is asked for and absent.
@@ -119,6 +130,7 @@ import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import KFAC, KFACParamScheduler, capture, planner
+from kfac_pytorch_tpu_torch.compile_cache import RecompileMonitor
 from kfac_pytorch_tpu_torch.device import use_ieee_f32
 from kfac_pytorch_tpu_torch.examples.autotune import autotune_kfac
 from kfac_pytorch_tpu_torch.examples.train_cifar10_resnet import (
@@ -161,6 +173,12 @@ from kfac_pytorch_tpu_torch.shardwise import lm_param_shardings
 from kfac_pytorch_tpu_torch.training import checkpoint as ckpt
 from kfac_pytorch_tpu_torch.training import data as data_lib
 from kfac_pytorch_tpu_torch.training import profiling
+from kfac_pytorch_tpu_torch.training.graphs import (
+    GraphedTrainStep,
+    compiled_record,
+    compiled_step,
+    eager_step_reason,
+)
 from kfac_pytorch_tpu_torch.training.metrics import Metric, ScalarWriter
 from kfac_pytorch_tpu_torch.training.step import (
     TrainState,
@@ -568,6 +586,14 @@ def main(argv=None) -> Dict[str, List]:
             damping_schedule=args.damping_schedule, start_epoch=resume_from_epoch,
         )
     eval_step = make_eval_step(model)
+    # after the autotune's rebuild: the graphs hold the winning plan's step
+    train_step, budget = compiled_step(train_step, kfac, device,
+                                       eager_step_reason(args, world, device))
+    recompiles = RecompileMonitor(tel)
+    recompiles.watch("train_step", train_step, budget)
+    # eager in this slice: skipped, as the JAX monitor skips a callable
+    # that is not jitted
+    recompiles.watch("eval_step", eval_step, 1)
     writer = ScalarWriter(args.log_dir if launch.is_primary() else None)
     svc = curvature_service(args, kfac, cadence, sup, carve)
 
@@ -650,6 +676,9 @@ def main(argv=None) -> Dict[str, List]:
             rank0_print(f"  val: loss={v:.4f} ppl={math.exp(min(v, 20.0)):.1f}")
             writer.add_scalar("val/loss", v, epoch)
             writer.add_scalar("val/ppl", math.exp(min(v, 20.0)), epoch)
+        excess = recompiles.check()
+        if excess and launch.is_primary():
+            print(f"  WARNING: unexpected recompiles (step graphs over budget): {excess}")
         run_tel.end_epoch(epoch)
         if args.checkpoint_dir:
             ckpt.save_checkpoint(args.checkpoint_dir, epoch, state, world)
@@ -662,6 +691,8 @@ def main(argv=None) -> Dict[str, List]:
         history["telemetry"] = snapshot
     if svc is not None:
         history["service"] = service_record(svc)
+    if isinstance(train_step, GraphedTrainStep):
+        history["compiled_step"] = compiled_record(train_step, budget)
     return history
 
 

@@ -165,7 +165,9 @@ def moe_ema(current: Dict[str, torch.Tensor], a_new: Dict[str, torch.Tensor],
     denom = torch.clamp(f, min=_MOE_TINY)[:, None, None]
     a_batch = s / denom
     g_batch = g_new / denom
-    alpha_e = torch.pow(torch.tensor(alpha, dtype=torch.float32, device=f.device), f * e)
+    # filled on the device: a host-to-device copy would stop a CUDA-graph
+    # capture of the step
+    alpha_e = torch.pow(torch.full((), alpha, dtype=torch.float32, device=f.device), f * e)
     ae = alpha_e[:, None, None]
     return {
         "A": ae * current["A"] + (1.0 - ae) * a_batch,

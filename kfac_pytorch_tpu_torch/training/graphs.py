@@ -26,6 +26,11 @@ A variant whose step reads the host runs eagerly, by the rule of
 that fails raises. The kernel launch counters grow at each replay by what
 the capture launched, and the ``trace/*`` spans fire at the warm-up and
 the capture only (in JAX they time tracing, once per compile).
+
+The twins (CIFAR, the transformer LM, ImageNet) decide with
+:func:`eager_step_reason` whether their step is graphed at all, wrap it
+with :func:`compiled_step` and record its captures with
+:func:`compiled_record`.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from kfac_pytorch_tpu_torch.training.step import TrainState
+from kfac_pytorch_tpu_torch.compile_cache import expected_step_variants
+from kfac_pytorch_tpu_torch.parallel import launch
+from kfac_pytorch_tpu_torch.training.step import TrainState, step_kind
 
 #: The step variants that run eagerly, each flag with the call that stops
 #: its capture: a refresh or a refresh chunk decomposes the factors with
@@ -60,6 +67,64 @@ def eager_variant_reason(flags: Dict[str, Any]) -> Optional[str]:
         if flags.get(flag) not in (None, False):
             return f"{flag}: {why}"
     return None
+
+
+def eager_step_reason(args, world, device: torch.device) -> Optional[str]:
+    """Why a twin's configuration (its parsed ``args``, its ``World``, its
+    device) runs the eager train step rather than :class:`GraphedTrainStep`,
+    or ``None`` when the step is graphed. Decided before training, never on
+    a failure: the kernels run either way. A flag the twin lacks counts as
+    off."""
+    if device.type != "cuda":
+        return f"{device.type} device: CUDA graphs need the card"
+    if world.distributed:
+        return (f"a process group of {world.size} rank(s): the step's collectives (gloo "
+                "stages them through host memory) are not captured")
+    if getattr(args, "service_devices", 0):
+        return "--service-devices: the step installs bases the service publishes"
+    if getattr(args, "comm_overlap", False):
+        return "--comm-overlap: a refresh chunk runs on a side stream"
+    if getattr(args, "precond_method", "eigen") == "inverse":
+        # measured on an H100: its replays differed from the eager step in
+        # the last bit of ν (~1e-7 relative) while each part of the step,
+        # captured alone, replayed bitwise; cause not found
+        return "--precond-method inverse: its graphed step is not bitwise the eager one"
+    return None
+
+
+def compiled_step(train_step: Callable, kfac, device, why: Optional[str]):
+    """``(step, budget)``: ``train_step`` graphed when ``why`` (the twin's
+    :func:`eager_step_reason`) is ``None``, else ``train_step`` itself, that
+    reason printed once on rank 0 either way; and the step's variant budget
+    (``compile_cache.expected_step_variants``)."""
+    budget = expected_step_variants(kfac)
+    if why is None:
+        if launch.is_primary():
+            print(f"train step: CUDA graphs, one per step variant (budget {budget})")
+        return GraphedTrainStep(train_step, device), budget
+    if launch.is_primary():
+        print(f"train step: eager ({why})")
+    return train_step, budget
+
+
+def compiled_record(step: "GraphedTrainStep", budget: int) -> Dict[str, object]:
+    """A graphed step's captures: their count and ``budget``, each one's
+    flags, milliseconds and kernel launches per replay (by wrapper name, a
+    bf16 route's as ``name:bf16``), the replays, and the eagerly run
+    variants' calls."""
+    def launches(key):
+        return {fn.__name__ + ("" if attr == "launches" else ":bf16"): n
+                for (fn, attr), n in step._variants[key].launches.items()}
+
+    return {
+        "graphs": step._cache_size(),
+        "capture_ms": [{"flags": dict(key[0]), "kind": step_kind(dict(key[0])), "ms": ms,
+                        "launches_per_replay": launches(key)}
+                       for key, ms in step.capture_ms.items()],
+        "replays": step.replays,
+        "eager_calls": [{"flags": dict(key), "calls": n} for key, n in step.eager_calls.items()],
+        "budget": budget,
+    }
 
 
 def launch_counters() -> List[Tuple[Any, str]]:

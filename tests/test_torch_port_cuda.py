@@ -1074,8 +1074,7 @@ def _graph_run(device, kfac_kw, graphed, steps, seed=0, state_from=None, start=0
                                  **flags)
         out.append({k: v.clone() for k, v in metrics.items()})
     torch.cuda.synchronize()
-    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in launch_counters()}
-    return out, state, counts, step_fn, cadence
+    return out, state, _counts(), step_fn, cadence
 
 
 def _snapshot(state, cadence):
@@ -1215,3 +1214,178 @@ def test_eigh_refuses_capture(cuda_device):
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
                          timeout=300)
     assert out.stdout.startswith("refused:"), out.stdout + out.stderr
+
+
+# The LM and ImageNet twins' steps graphed: each built by its twin's
+# ``build`` at a small size, driven through a refresh, plain and capture
+# steps by the twin's own cadence, eager and graphed from the same seed.
+LM_GRAPH_ARGV = ["--synthetic", "--d-model", "128", "--n-heads", "2", "--n-layers", "2",
+                 "--seq-len", "4096", "--batch-size", "1", "--kfac-embedding",
+                 "--kfac-cov-update-freq", "2", "--kfac-update-freq", "4",
+                 "--seed", "0", "--device", "cuda"]
+LM_GRAPH_CASES = {
+    "recipe": [],
+    "remat": ["--remat"],
+    "lens_moe": ["--qkv-lens", "--moe-experts", "2"],
+}
+RESNEXT_GRAPH_ARGV = ["--synthetic", "--model", "tiny_resnext32", "--image-size", "32",
+                      "--batch-size", "4", "--kfac-cov-update-freq", "2",
+                      "--kfac-update-freq", "4", "--seed", "0", "--device", "cuda"]
+RESNEXT_GRAPH_CASES = {
+    "float32": [],
+    "bf16": ["--bf16"],
+    "accum2": ["--batches-per-allreduce", "2"],
+}
+
+
+def _counts():
+    """Every launch counter, by ``wrapper.attribute``."""
+    from kfac_pytorch_tpu_torch.training.graphs import launch_counters
+
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in launch_counters()}
+
+
+def _twin_graph_run(device, twin, argv, graphed, steps):
+    """``steps`` train steps of ``twin`` (``"lm"`` or ``"imagenet"``) built
+    by its ``build`` from ``argv``, with the twin's flags per step, through
+    the eager step or ``GraphedTrainStep``: ``(per-step metrics, final
+    state, launch counts, the step)``."""
+    from kfac_pytorch_tpu_torch import EigenRefreshCadence
+    from kfac_pytorch_tpu_torch.training import data as data_lib
+    from kfac_pytorch_tpu_torch.training.graphs import GraphedTrainStep, launch_counters
+    from kfac_pytorch_tpu_torch.training.step import kfac_flags_for_step
+
+    if twin == "lm":
+        from kfac_pytorch_tpu_torch.examples import train_transformer_lm as trainer
+
+        args = trainer.parse_args(argv)
+        _, kfac, state, step_fn, splits = trainer.build(args, device)
+        stream = data_lib.batchify_tokens(splits["train"], args.batch_size)
+        batches = [trainer.device_batch(t, y, device)
+                   for _, (t, y) in zip(range(steps),
+                                        data_lib.bptt_batches(stream, args.seq_len))]
+        cadence = EigenRefreshCadence(kfac)
+        flags = [cadence.flags_for_step(i, 0) for i in range(steps)]
+        lrs = [args.base_lr] * steps
+    else:
+        from kfac_pytorch_tpu_torch.examples import train_imagenet_resnet as trainer
+        from kfac_pytorch_tpu_torch.parallel.mesh import put_global_batch
+
+        args = trainer.parse_args(argv)
+        _, kfac, state, step_fn = trainer.build(args, device)
+        accum, im = args.batches_per_allreduce, args.image_size
+        batches = [put_global_batch(b, device, accum) for b in data_lib.synthetic_batches(
+            args.batch_size * accum, (3, im, im), trainer.NUM_CLASSES, steps, seed=args.seed)]
+        flags = [kfac_flags_for_step(i, kfac, 0) for i in range(steps)]
+        lrs = [args.base_lr * (1 + 0.1 * i) for i in range(steps)]  # a warmup's rates
+    if graphed:
+        step_fn = GraphedTrainStep(step_fn, device)
+    for fn, attr in launch_counters():
+        setattr(fn, attr, 0)
+    out = []
+    for i in range(steps):
+        state, metrics = step_fn(state, tuple(batches[i]), lrs[i],
+                                 kfac.hparams.damping if kfac else 0.0, **flags[i])
+        out.append({k: v.clone() for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    return out, state, _counts(), step_fn
+
+
+def _assert_graphed_is_eager(device, twin, argv, steps):
+    """The graphed run's metrics at every step, final state and launch
+    counts equal the eager run's bit for bit; the refreshes ran eagerly
+    and every other step was captured once and then replayed."""
+    from kfac_pytorch_tpu_torch.training.graphs import eager_variant_reason
+
+    want, wstate, wcounts, _ = _twin_graph_run(device, twin, argv, False, steps)
+    got, gstate, gcounts, step = _twin_graph_run(device, twin, argv, True, steps)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (i, k)
+    _assert_states_equal(gstate, wstate)
+    assert gcounts == wcounts
+    assert step.replays > 0 and step._cache_size() == len(step.capture_ms)
+    assert step.eager_calls and all(eager_variant_reason(dict(k)) is not None
+                                    for k in step.eager_calls)
+    return gcounts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LM_GRAPH_CASES))
+def test_graphed_lm_step_is_the_eager_step_bitwise(deterministic_cudnn, case):
+    """The LM twin's step at T 4096 (dK/dV in two 2048-row query chunks)
+    over a refresh, plain and capture steps: graphed, bitwise the eager
+    step; kernels 2 and 5-7 launched inside the replays as often as
+    eagerly. ``--remat`` captures its recomputed blocks (``checkpoint``
+    saving and restoring the CUDA generator's state); the QKV lens and
+    the MoE bank (its token-weighted EMA) capture their statistics."""
+    counts = _assert_graphed_is_eager(deterministic_cudnn, "lm",
+                                      [*LM_GRAPH_ARGV, *LM_GRAPH_CASES[case]], 7)
+    layers = 2
+    # flash forward per layer and step (twice under --remat), its backward
+    # once; the token counts (and each layer's MoE fractions) on the 4
+    # steps that capture statistics, 0, 2, 4 and 6
+    assert counts["flash_forward.launches"] == layers * 7 * (2 if case == "remat" else 1)
+    assert counts["flash_backward_dq.launches"] == counts["flash_backward_dkv.launches"] == 14
+    per_capture = 1 + (layers if case == "lens_moe" else 0)
+    assert counts["compute_a_embed_fused.launches"] == 4 * per_capture
+
+
+@pytest.fixture
+def tiny_resnext32(monkeypatch):
+    """A ResNeXt of one bottleneck per stage pair with 32 groups of width
+    4, under a zoo name, so the ImageNet twin's ``build`` takes it."""
+    from kfac_pytorch_tpu_torch.models import imagenet_resnet
+
+    monkeypatch.setitem(imagenet_resnet._MODELS, "tiny_resnext32",
+                        (imagenet_resnet.Bottleneck, (1, 1), 32, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RESNEXT_GRAPH_CASES))
+def test_graphed_resnext_step_is_the_eager_step_bitwise(deterministic_cudnn, tiny_resnext32,
+                                                       case):
+    """The ImageNet twin's step on a small ResNeXt (grouped convolutions:
+    kernel 1g; float32, its bf16 route under ``--bf16``, and two
+    accumulated micro-batches), graphed, bitwise the eager step over a
+    refresh, plain and capture steps at a changing lr."""
+    counts = _assert_graphed_is_eager(deterministic_cudnn, "imagenet",
+                                      [*RESNEXT_GRAPH_ARGV, *RESNEXT_GRAPH_CASES[case]], 7)
+    route = "launches_bf16" if case == "bf16" else "launches"
+    assert counts[f"compute_a_conv_grouped_fused.{route}"] > 0
+    assert counts["fused_sgd_apply.launches"] == 7
+
+
+@pytest.mark.cuda
+def test_out_of_range_id_in_a_replay_is_raised_by_the_epoch_check(cuda_device):
+    """Kernel 2 inside a captured step tallies an id outside the vocabulary
+    on the device: the replay itself reads nothing on the host, and
+    ``check_token_ids`` raises for it afterwards, once."""
+    from kfac_pytorch_tpu_torch.training.graphs import GraphedTrainStep
+    from kfac_pytorch_tpu_torch.training.step import TrainState
+
+    vocab = 1000
+    model = torch.nn.Linear(4, 4).to(cuda_device)
+
+    def step_fn(state, batch, lr, damping, **flags):
+        freq = tfk.compute_a_embed_fused(batch[0], vocab)
+        return (TrainState(step=state.step + 1, model=state.model, opt_state=state.opt_state,
+                           kfac_state=None), {"freq": freq * lr})
+
+    step = GraphedTrainStep(step_fn, cuda_device)
+    state = TrainState(step=0, model=model, opt_state={}, kfac_state=None)
+    g = torch.Generator().manual_seed(9)
+    ids = [torch.randint(0, vocab, (2, 4096), generator=g).to(cuda_device) for _ in range(3)]
+    ids[2][1, 77] = vocab + 3
+    tfk.check_token_ids(cuda_device)
+    for i in range(2):  # the capture, then a replay, all in range
+        state, m = step(state, (ids[i],), 1.0, 0.0, update_factors=True)
+        tfk.check_token_ids(cuda_device)
+        assert torch.equal(m["freq"], tfk.compute_a_embed_fused_plain(ids[i], vocab))
+    state, m = step(state, (ids[2],), 1.0, 0.0, update_factors=True)
+    assert step.replays == 2
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match=r"1 ids outside it, in \[1003, 1003\]"):
+        tfk.check_token_ids(cuda_device)
+    tfk.check_token_ids(cuda_device)  # the tally was reset
